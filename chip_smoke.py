@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""One run of the PyTorch/CUDA port's flagship path on one NVIDIA GPU.
+"""One run of the PyTorch/CUDA port's paths on one NVIDIA GPU.
 
 Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``radio_mapper_tpu_torch/csrc`` (nvcc,
-sm_90a), then:
+It builds the CUDA kernels from ``radio_mapper_tpu_torch/csrc`` (one nvcc
+per source, in parallel, sm_90a), then:
 
 1. prints the card's name and power limit and the kernel build time;
 2. K1 (fused FFT + detect) vs its plain PyTorch version at the flagship
@@ -16,10 +16,26 @@ sm_90a), then:
 4. a simulated scene (4 buoys, 16384 samples, max_lag 600) through
    ``TDOAPipeline.step_split`` on the card: the fix must land within
    50 m and agree with the port's CPU run;
-5. the full width — 8 blocks of 128 channels × 8 buoys × 16384 uint8 IQ
-   at 2.4 MS/s, max_lag 512 — through ``step_split_uint8_scan``, with
-   both kernels' launch counts, ms/block, IQ samples/s and a per-stage
-   split from CUDA events.
+5. the flagship at full width — 8 blocks of 128 channels × 8 buoys ×
+   16384 uint8 IQ at 2.4 MS/s, max_lag 512 — through
+   ``step_split_uint8_scan``, with both kernels' launch counts, ms/block,
+   IQ samples/s and a per-stage split from CUDA events;
+6. K3 (CT-order FFT) vs its plain version at the wideband shape [1024,
+   5120]: the full-width ``WidebandTDOAPipeline.example_inputs(seed=0)``
+   block after the channelizer;
+7. K5 (pair list as data, per-pair gate) vs its plain version at
+   [16, 64, 5120] + s2 [16, 2016] → [16, 2016, 257], fed K3's outputs;
+   K6 (row-aligned pairs) vs its plain version and vs K5 on one
+   subchannel, [2016, 5120] × 4;
+8. a full-width wideband scene (64 buoys on a 12 km ring, emitter in
+   subchannel 5): the active fix within 300 m and its weights well above
+   a quiet subchannel's, the K6 route agreeing with the K5 route, and the
+   card agreeing with the CPU at the small wideband config;
+9. the wideband config 4 at full width — 8 blocks of 64 buoys × 65,648
+   samples at 10 MS/s into 16 subchannels × 2016 pairs — through
+   ``WidebandTDOAPipeline.step_split`` on its default route (K3 + K5),
+   with launch counts, ms/block, wideband samples/s, pair correlations/s
+   and a per-stage split; then the same 8 blocks on the K6 route.
 
 Any failed check raises, so the run exits non-zero and prints no result
 line. The last two lines are a JSON object describing the kernels and,
@@ -63,14 +79,48 @@ def _require(cond, what):
         raise AssertionError(what)
 
 
+def _stage_split(torch, run, names, reps=3):
+    """Median ms of each stage of ``run(on_stage)`` over ``reps`` runs,
+    from CUDA events recorded at each hook call."""
+    splits = {k: [] for k in names}
+    for _ in range(reps):
+        events = []
+
+        def mark(name, events=events):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append((name, ev))
+
+        mark("start")
+        run(mark)
+        torch.cuda.synchronize()
+        for (_, a), (name, b) in zip(events, events[1:]):
+            splits[name].append(a.elapsed_time(b))
+    return {k: statistics.median(v) for k, v in splits.items()}
+
+
+def _ring(np, b, radius_m):
+    """``[b, 3]`` float32 buoy positions on a ring (the CLI wideband demo's layout)."""
+    ang = 2 * np.pi * np.arange(b) / b
+    return np.stack([radius_m * np.cos(ang), radius_m * np.sin(ang), np.zeros(b)], -1).astype(np.float32)
+
+
+def _window_errors(a, b):
+    """(max |a − b|, max over windows of max|a − b| / max|b|)."""
+    d = (a - b).abs()
+    return d.max().item(), (d.amax(-1) / b.abs().amax(-1)).max().item()
+
+
 def main() -> int:
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from radio_mapper_tpu_torch import device, sim
     from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
-    from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat, iq
-    from radio_mapper_tpu_torch.ops.cuda import build, fft_detect, gcc_pair
+    from radio_mapper_tpu_torch.models.wideband import WidebandConfig, WidebandTDOAPipeline
+    from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat, iq, split_complex
+    from radio_mapper_tpu_torch.ops.cuda import build, fft_detect, fft_rows, gcc_pair
 
     card = device.require_cuda()
     tag = card.label()
@@ -87,7 +137,7 @@ def main() -> int:
     build.library()
     print(f"phase 1: kernels built+loaded in {time.perf_counter() - t0:.2f} s {tag}")
     for line in build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             print(f"  ptxas: {line.strip()}")
 
     # ---- phase 2: K1 vs plain at the flagship shape
@@ -203,22 +253,10 @@ def main() -> int:
     _require(finite, "non-finite outputs at full width")
     _require(all(v == blocks for v in launches.values()), f"kernel launches {launches}")
 
-    names = ["decode", "pad", "fft_detect", "peaks", "gcc_pair", "lag_peaks", "solve"]
-    splits = {k: [] for k in names}
-    for _ in range(3):
-        events = []
-
-        def mark(name, events=events):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            events.append((name, ev))
-
-        mark("start")
-        pipe.step_split_uint8(raw[0], anchors, on_stage=mark)
-        torch.cuda.synchronize()
-        for (_, a), (name, b) in zip(events, events[1:]):
-            splits[name].append(a.elapsed_time(b))
-    med = {k: statistics.median(v) for k, v in splits.items()}
+    med = _stage_split(
+        torch, lambda mark: pipe.step_split_uint8(raw[0], anchors, on_stage=mark),
+        ["decode", "pad", "fft_detect", "peaks", "gcc_pair", "lag_peaks", "solve"],
+    )
     stage = {
         "decode+pad": med["decode"] + med["pad"],
         "K1 fft_detect": med["fft_detect"],
@@ -229,6 +267,183 @@ def main() -> int:
     }
     print(
         "phase 5: stage split ms/block (median of 3, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
+        + f", sum {sum(stage.values()):.3f} {tag}"
+    )
+
+    del raw, out
+    torch.cuda.empty_cache()
+
+    # ---- phase 6: K3 vs plain at the wideband shape
+    wcfg = WidebandConfig()
+    wpipe = WidebandTDOAPipeline(wcfg, device=dev)
+    m_sub, wb, wp, wlag, wn = (wcfg.num_subchannels, wcfg.num_buoys, wcfg.num_pairs,
+                               wcfg.max_lag, wcfg.nfft)
+    wre, wim, _ = wpipe.example_inputs(seed=0)
+    cre, cim = split_complex.channelize_split(
+        wre, wim, m_sub, sample_rate_hz=wcfg.wide_rate_hz,
+        taps_per_channel=wcfg.taps_per_channel, shift=False,
+    )
+    wpad = lambda a: F.pad(a.movedim(-2, 0), (0, wn - wcfg.sub_block)).reshape(-1, wn).contiguous()
+    xr, xi = wpad(cre), wpad(cim)
+    k3 = fft_rows.fft_rows_ct(xr, xi)
+    p3 = fft_rows.fft_rows_ct_plain(xr, xi)
+    torch.cuda.synchronize()
+    row_mag = torch.sqrt((p3[0] * p3[0] + p3[1] * p3[1]).amax(-1, keepdim=True))
+    k3_abs = max((k3[0] - p3[0]).abs().max().item(), (k3[1] - p3[1]).abs().max().item())
+    k3_rel = max(((k3[0] - p3[0]).abs() / row_mag).max().item(), ((k3[1] - p3[1]).abs() / row_mag).max().item())
+    k3_ms = _cuda_ms(torch, lambda: fft_rows.fft_rows_ct(xr, xi))
+    k3_plain_ms = _cuda_ms(torch, lambda: fft_rows.fft_rows_ct_plain(xr, xi))
+    print(
+        f"phase 6: K3 [{xr.shape[0]}, {wn}] spectra max|err| {k3_abs:.3e} (rel to row max|X| "
+        f"{k3_rel:.3e}, tol 1e-4); kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms {tag}"
+    )
+    _require(k3_rel <= 1e-4, f"K3 spectra disagree: {k3_rel}")
+    del p3
+
+    # ---- phase 7: K5 vs plain at [16, 64, 5120], fed K3's outputs; K6 on one subchannel
+    f3r, f3i = k3[0].view(m_sub, wb, wn), k3[1].view(m_sub, wb, wn)
+    wpi, wpj = gcc_phat.pair_indices(wb)
+    ti = torch.as_tensor(wpi, dtype=torch.int64, device=dev)
+    tj = torch.as_tensor(wpj, dtype=torch.int64, device=dev)
+    rmax = (f3r * f3r + f3i * f3i).amax(-1)
+    s2 = (rmax[:, ti] * rmax[:, tj]).contiguous()  # [M, P]
+    kw = dict(max_lag=wlag, eps=wcfg.gcc_eps)
+    k5 = gcc_pair.gcc_pairs_onehot_lag_mags(f3r, f3i, wpi, wpj, s2=s2, **kw)
+    p5 = gcc_pair.gcc_pairs_onehot_lag_mags_plain(f3r, f3i, wpi, wpj, s2=s2, **kw)
+    torch.cuda.synchronize()
+    k5_abs, k5_rel = _window_errors(k5, p5)
+    k5_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_pairs_onehot_lag_mags(f3r, f3i, wpi, wpj, s2=s2, **kw))
+    k5_plain_ms = _cuda_ms(
+        torch, lambda: gcc_pair.gcc_pairs_onehot_lag_mags_plain(f3r, f3i, wpi, wpj, s2=s2, **kw)
+    )
+    del p5
+    rows = [x[0].index_select(0, idx).contiguous() for idx in (ti, tj) for x in (f3r, f3i)]
+    s2_0 = s2[0].contiguous()
+    k6 = gcc_pair.gcc_rows_lag_mags(*rows, s2=s2_0, **kw)
+    p6 = gcc_pair.gcc_rows_lag_mags_plain(*rows, s2=s2_0, **kw)
+    torch.cuda.synchronize()
+    k6_abs, k6_rel = _window_errors(k6, p6)
+    k65_abs, k65_rel = _window_errors(k6, k5[0])
+    k6_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_rows_lag_mags(*rows, s2=s2_0, **kw))
+    k6_plain_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_rows_lag_mags_plain(*rows, s2=s2_0, **kw))
+    print(
+        f"phase 7: K5 [{m_sub}, {wb}, {wn}] -> {list(k5.shape)} window max|err| {k5_abs:.3e} (rel to "
+        f"window max {k5_rel:.3e}, tol 1e-4); kernel {k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms; "
+        f"K6 [{wp}, {wn}] x 4 -> {list(k6.shape)} max|err| {k6_abs:.3e} (rel {k6_rel:.3e}), vs K5 "
+        f"{k65_abs:.3e} (rel {k65_rel:.3e}), tol 1e-4; kernel {k6_ms:.3f} ms, plain {k6_plain_ms:.3f} ms {tag}"
+    )
+    _require(tuple(k5.shape) == (m_sub, wp, 2 * wlag + 1), "K5 output shape")
+    _require(tuple(k6.shape) == (wp, 2 * wlag + 1), "K6 output shape")
+    _require(k5_rel <= 1e-4, f"K5 lag windows disagree: {k5_rel}")
+    _require(k6_rel <= 1e-4 and k65_rel <= 1e-4, f"K6 lag windows disagree: {k6_rel}, {k65_rel}")
+    del k3, k5, k6, p6, rows, f3r, f3i, xr, xi, cre, cim
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: wideband scenes — full width on both pair routes, and
+    # the card vs the CPU at the small config
+    sub = 5
+    ring = _ring(np, wb, 12_000.0)
+    emitter = np.array([2_000.0, -3_000.0, 0.0])
+    sre, sim_ = sim.synthesize_wideband(
+        wcfg, active_subchannel=sub, anchors_enu=ring, emitter_enu=emitter, snr_db=25.0, seed=0
+    )
+    scene = [torch.from_numpy(a).to(dev) for a in (sre, sim_, ring)]
+    on5 = wpipe.step_split(*scene)
+    gcc_pair.set_onehot_pairs("off")
+    try:
+        on6 = wpipe.step_split(*scene)
+    finally:
+        gcc_pair.set_onehot_pairs("auto")
+    fix5 = on5.fixes_enu[sub].cpu().numpy()
+    err_m = float(np.linalg.norm(fix5[:2] - emitter[:2]))
+    w5 = on5.weights.cpu().numpy()
+    quiet = (sub + m_sub // 2) % m_sub
+    route_fix = float(np.abs(on6.fixes_enu[sub].cpu().numpy() - fix5).max())
+    route_w = (on6.weights - on5.weights).abs().max().item()
+    scfg = WidebandConfig(num_buoys=8, wide_rate_hz=4_096_000.0, num_subchannels=8,
+                          sub_block=1024, max_lag=64, solver_iterations=20)
+    sring = _ring(np, scfg.num_buoys, 9_000.0)
+    semit = np.array([1_500.0, -2_200.0, 0.0])
+    shost = [torch.from_numpy(a) for a in (*sim.synthesize_wideband(
+        scfg, active_subchannel=3, anchors_enu=sring, emitter_enu=semit, snr_db=25.0, seed=1
+    ), sring)]
+    s_card = WidebandTDOAPipeline(scfg, device=dev).step_split(*(a.to(dev) for a in shost))
+    s_cpu = WidebandTDOAPipeline(scfg, device="cpu").step_split(*shost)
+    s_lag = (s_card.lags[3].cpu() - s_cpu.lags[3]).abs().max().item()
+    s_fix = (s_card.fixes_enu[3].cpu() - s_cpu.fixes_enu[3]).abs().max().item()
+    print(
+        f"phase 8: wideband scene {wb} buoys, active subchannel {sub}: fix error {err_m:.3f} m "
+        f"(limit 300), mean weight {w5[sub].mean():.4f} vs quiet {w5[quiet].mean():.4f} (need > 3x); "
+        f"K6 route vs K5 route: fix {route_fix:.3e} m (tol 1), weights {route_w:.3e} (tol 1e-3); "
+        f"small config card vs CPU: lags {s_lag:.3e} samples (tol 1e-3), fix {s_fix:.3e} m (tol 0.5) {tag}"
+    )
+    _require(err_m < 300.0, f"wideband fix error {err_m} m")
+    _require(w5[sub].mean() > 3 * w5[quiet].mean(), "active subchannel not weighted above a quiet one")
+    _require(route_fix <= 1.0 and route_w <= 1e-3, "K5 and K6 routes disagree")
+    _require(s_lag <= 1e-3 and s_fix <= 0.5, "wideband card and CPU runs disagree")
+    del scene, on5, on6
+
+    # ---- phase 9: config 4 at full width, 8 blocks, default route (K3 + K5),
+    # then the same blocks on the K6 route
+    wblocks = [wpipe.example_inputs(seed=k) for k in range(blocks)]
+    wpipe.step_split(*wblocks[0])  # warm-up
+    torch.cuda.synchronize()
+
+    def run_blocks():
+        torch.cuda.reset_peak_memory_stats(dev)
+        fft_rows.launch_count = 0
+        gcc_pair.onehot_launch_count = 0
+        gcc_pair.rows_launch_count = 0
+        t0 = time.perf_counter()
+        outs = [wpipe.step_split(*blk) for blk in wblocks]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {"fft_rows_ct": fft_rows.launch_count,
+                  "gcc_pairs_onehot_lag_mags": gcc_pair.onehot_launch_count,
+                  "gcc_rows_lag_mags": gcc_pair.rows_launch_count}
+        finite = all(torch.isfinite(x).all().item() for o in outs for x in o[:4])
+        shapes = all(tuple(o.fixes_enu.shape) == (m_sub, 3) and tuple(o.lags.shape) == (m_sub, wp)
+                     for o in outs)
+        return wall, counts, finite and shapes, torch.cuda.max_memory_allocated(dev)
+
+    wall5, wl5, ok5, mem5 = run_blocks()
+    gcc_pair.set_onehot_pairs("off")
+    try:
+        wall6, wl6, ok6, mem6 = run_blocks()
+    finally:
+        gcc_pair.set_onehot_pairs("auto")
+    wide_samples = wb * wcfg.wide_block
+    pairs_blk = m_sub * wp
+    for route, wall, counts, ok, mem in (("K5", wall5, wl5, ok5, mem5), ("K6", wall6, wl6, ok6, mem6)):
+        print(
+            f"phase 9: {route} route, {blocks} blocks x {wb} buoys x {wcfg.wide_block} samples -> "
+            f"{m_sub} subchannels x {wp} pairs: {1e3 * wall / blocks:.3f} ms/block "
+            f"(real time {1e3 * wcfg.wide_block / wcfg.wide_rate_hz:.3f}), "
+            f"{blocks * wide_samples / wall:.4e} wide IQ samples/s, {blocks * pairs_blk / wall:.4e} pair "
+            f"correlations/s, peak mem {mem / 2**30:.2f} GiB, launches {counts}, "
+            f"finite+shapes {ok} {tag}"
+        )
+    _require(ok5 and ok6, "non-finite or misshapen wideband outputs at full width")
+    _require(wl5 == {"fft_rows_ct": blocks, "gcc_pairs_onehot_lag_mags": blocks, "gcc_rows_lag_mags": 0},
+             f"K5-route launches {wl5}")
+    _require(wl6 == {"fft_rows_ct": blocks, "gcc_pairs_onehot_lag_mags": 0,
+                     "gcc_rows_lag_mags": blocks * m_sub}, f"K6-route launches {wl6}")
+
+    med = _stage_split(
+        torch, lambda mark: wpipe.step_split(*wblocks[0], on_stage=mark),
+        ["channelize", "fft", "s2", "pair", "lag_peaks", "solve"],
+    )
+    stage = {
+        "channelize": med["channelize"],
+        "K3 fft_rows_ct": med["fft"],
+        "s2": med["s2"],
+        "K5 gcc_pairs_onehot": med["pair"],
+        "lag peaks": med["lag_peaks"],
+        "weights+solve": med["solve"],
+    }
+    print(
+        "phase 9: stage split ms/block (median of 3, CUDA events): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
         + f", sum {sum(stage.values()):.3f} {tag}"
     )
@@ -253,6 +468,36 @@ def main() -> int:
             "max_abs_err": win_abs,
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
+        },
+        {
+            "name": "fft_rows_ct",
+            "route": "cuda",
+            "source": "radio_mapper_tpu_torch/csrc/fft_rows_ct.cu",
+            "replaces": "radio_mapper_tpu/ops/pallas/fft_kernel.py:446",
+            "launches": wl5["fft_rows_ct"],
+            "max_abs_err": k3_abs,
+            "ms": k3_ms,
+            "plain_ms": k3_plain_ms,
+        },
+        {
+            "name": "gcc_pairs_onehot_lag_mags",
+            "route": "cuda",
+            "source": "radio_mapper_tpu_torch/csrc/gcc_pair.cu",
+            "replaces": "radio_mapper_tpu/ops/pallas/gcc_kernel.py:743",
+            "launches": wl5["gcc_pairs_onehot_lag_mags"],
+            "max_abs_err": k5_abs,
+            "ms": k5_ms,
+            "plain_ms": k5_plain_ms,
+        },
+        {
+            "name": "gcc_rows_lag_mags",
+            "route": "cuda",
+            "source": "radio_mapper_tpu_torch/csrc/gcc_pair.cu",
+            "replaces": "radio_mapper_tpu/ops/pallas/gcc_kernel.py:548",
+            "launches": wl6["gcc_rows_lag_mags"],
+            "max_abs_err": k6_abs,
+            "ms": k6_ms,
+            "plain_ms": k6_plain_ms,
         },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))

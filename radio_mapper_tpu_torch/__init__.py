@@ -1,15 +1,20 @@
-"""radio_mapper_tpu_torch — the TDOA pipeline in PyTorch with CUDA kernels.
+"""radio_mapper_tpu_torch — the TDOA pipelines in PyTorch with CUDA kernels.
 
-A port of the flagship slice of :mod:`radio_mapper_tpu` (JAX/Pallas on a
-TPU) to PyTorch on an NVIDIA H100: uint8 IQ decode → fused forward FFT +
-spectral detection → all-pairs GCC-PHAT pair stage → sub-sample τ → LM
-hyperbolic solve. The module layout mirrors the JAX package, so each
-counterpart sits at the same path:
+A port of two slices of :mod:`radio_mapper_tpu` (JAX/Pallas on a TPU) to
+PyTorch on an NVIDIA H100, with the module layout of the JAX package, so
+each counterpart sits at the same path:
 
-- :mod:`.ops.cuda.fft_detect` and :mod:`.ops.cuda.gcc_pair` wrap the two
-  hand-written CUDA kernels (sources in ``csrc/``) and their plain PyTorch
-  versions;
-- :mod:`.models.pipeline` is the entry point (``TDOAPipeline``).
+- the flagship step (:mod:`.models.pipeline`, ``TDOAPipeline``): uint8
+  IQ decode → fused forward FFT + spectral detection (kernel K1,
+  :mod:`.ops.cuda.fft_detect`) → all-pairs GCC-PHAT pair stage (K2,
+  :mod:`.ops.cuda.gcc_pair`) → sub-sample τ → LM hyperbolic solve;
+- the wideband config-4 step (:mod:`.models.wideband`,
+  ``WidebandTDOAPipeline``): polyphase channelizer → CT-order FFT of
+  every subchannel's receivers (K3, :mod:`.ops.cuda.fft_rows`) → pair
+  stage with the pair list as data (K5) or on pre-gathered rows (K6),
+  both in :mod:`.ops.cuda.gcc_pair` → LM solve batched over subchannels.
 
-The package imports ``torch`` and numpy only; it never imports JAX.
+Each kernel is CUDA C++ under ``csrc/`` with a plain PyTorch version
+beside it. The package imports ``torch`` and numpy only; it never
+imports JAX.
 """

@@ -5,15 +5,9 @@
 // (fft_kernel.ct_fft_core + detect_kernel._detect_body). Python wrapper and
 // plain PyTorch version: radio_mapper_tpu_torch/ops/cuda/fft_detect.py.
 //
-// Layout: a row of n = n1*n2 samples is x[q][p] at time q*n1 + p. The
-// transform emits bin k = k2 + n2*k1 at CT address m = k2*n1 + k1:
-//   B[k2][p] = sum_q W2[k2][q] x[q][p]          (inner n2-point DFT)
-//   C[k2][p] = B[k2][p] * TW[k2][p]             (twiddle W_n^{k2 p})
-//   D[k2][k1] = sum_p C[k2][p] W1[p][k1]        (outer n1-point DFT)
 // The whole row lives in shared memory (n float2, 139,264 B at n = 17408)
-// and both DFT stages run in place: a stage reads a set of columns (rows)
-// into register accumulators, the block synchronises, and the results
-// overwrite exactly the columns (rows) that were read.
+// and the two DFT stages of ct_dft.cuh (shared with kernel K3) run on it
+// in place; see that header for the CT layout.
 //
 // Bound on the H100: the direct DFT stages, n*(n1+n2) complex FMAs per row,
 // issued from shared memory and L1 on the FP32 CUDA cores. Later PRs: the
@@ -21,6 +15,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "ct_dft.cuh"
 
 namespace {
 
@@ -42,16 +38,6 @@ struct DetectParams {
   float off;       // power_offset_db
   int bisect_iters;
 };
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
-}
-
-// acc += a * b (complex)
-__device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
-  acc.x = fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x));
-  acc.y = fmaf(a.x, b.y, fmaf(a.y, b.x, acc.y));
-}
 
 struct MaxOp { __device__ float operator()(float a, float b) const { return fmaxf(a, b); } };
 struct MinOp { __device__ float operator()(float a, float b) const { return fminf(a, b); } };
@@ -84,7 +70,7 @@ fft_detect_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
   __shared__ int red_i[K1_WARPS];
 
   const int n = n1 * n2;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const size_t row = blockIdx.x;
   const float* xr = xre + row * n;
   const float* xi = xim + row * n;
@@ -92,59 +78,8 @@ fft_detect_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
   for (int m = tid; m < n; m += K1_THREADS) xs[m] = make_float2(xr[m], xi[m]);
   __syncthreads();
 
-  // ---- inner n2-point DFT over q, 32 columns at a time; lane = column,
-  // warp w owns output rows k2 = w + 16 j (W2 loads are warp-uniform).
-  for (int p0 = 0; p0 < n1; p0 += 32) {
-    const int p = p0 + lane;
-    float2 acc[K1_MAX_KJ];
-#pragma unroll
-    for (int j = 0; j < K1_MAX_KJ; ++j) acc[j] = make_float2(0.f, 0.f);
-    for (int q = 0; q < n2; ++q) {
-      const float2 x = xs[q * n1 + p];
-      const float2* wq = w2 + q;
-#pragma unroll
-      for (int j = 0; j < K1_MAX_KJ; ++j) {
-        const int k2 = warp + K1_WARPS * j;
-        if (k2 < n2) cmac(acc[j], __ldg(wq + k2 * n2), x);
-      }
-    }
-    __syncthreads();  // every read of these columns is done
-#pragma unroll
-    for (int j = 0; j < K1_MAX_KJ; ++j) {
-      const int k2 = warp + K1_WARPS * j;
-      if (k2 < n2) xs[k2 * n1 + p] = cmul(acc[j], __ldg(tw + k2 * n1 + p));
-    }
-  }
-  __syncthreads();
-
-  // ---- outer n1-point DFT over p, a chunk of rows at a time; thread owns
-  // output column k1 of rows r0 + g + groups j (W1 loads coalesced,
-  // row reads are shared-memory broadcasts).
-  {
-    const int groups = K1_THREADS / n1;
-    const int k1 = tid % n1, g = tid / n1;
-    const int chunk = groups * K1_RJ;
-    for (int r0 = 0; r0 < n2; r0 += chunk) {
-      float2 acc[K1_RJ];
-#pragma unroll
-      for (int j = 0; j < K1_RJ; ++j) acc[j] = make_float2(0.f, 0.f);
-      for (int p = 0; p < n1; ++p) {
-        const float2 w = __ldg(w1 + p * n1 + k1);
-#pragma unroll
-        for (int j = 0; j < K1_RJ; ++j) {
-          const int k2 = r0 + g + groups * j;
-          if (k2 < n2) cmac(acc[j], xs[k2 * n1 + p], w);
-        }
-      }
-      __syncthreads();  // every read of these rows is done
-#pragma unroll
-      for (int j = 0; j < K1_RJ; ++j) {
-        const int k2 = r0 + g + groups * j;
-        if (k2 < n2) xs[k2 * n1 + k1] = acc[j];
-      }
-    }
-  }
-  __syncthreads();
+  rm_ct::inner_dft<K1_THREADS, K1_MAX_KJ>(xs, w2, tw, n1, n2);
+  rm_ct::outer_dft<K1_THREADS, K1_RJ>(xs, w1, n1, n2);
 
   // ---- write the spectra once; keep each thread's power values in
   // registers while the shared buffer is re-purposed as power + scratch.

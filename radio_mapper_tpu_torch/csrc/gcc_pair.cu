@@ -1,70 +1,66 @@
-// Kernel K2: all-pairs GCC-PHAT pair stage -- gather, cross-power, l2rx
+// Kernels K2, K5 and K6: the GCC-PHAT pair stage -- cross-power, l2rx
 // whitening, four-step inverse DFT of the lag-window rows only, |r|/n.
-// One thread block per (channel, pair).
+// One thread block per pair; the three kernels differ only in where a
+// pair's two spectra and its gate scale come from:
 //
-// Replaces radio_mapper_tpu/ops/pallas/gcc_kernel.py::gcc_pair_lag_mags
-// (_gcc_pairs_kernel + _whiten + _invert_to_lag_windows) for "phat" with
-// the per-receiver gate. Python wrapper and plain PyTorch version:
-// radio_mapper_tpu_torch/ops/cuda/gcc_pair.py.
+//   K2 rm_gcc_pair_lag_mags         [C, B, n] spectra, host pair list,
+//                                   gate from per-receiver maxima smax[C, B]
+//     replaces radio_mapper_tpu/ops/pallas/gcc_kernel.py::gcc_pair_lag_mags
+//   K5 rm_gcc_pairs_onehot_lag_mags [M, B, n] spectra, pair list as data,
+//                                   per-pair gate s2[M, P]
+//     replaces gcc_kernel.py::gcc_pairs_onehot_lag_mags (its resident
+//     spectra + one-hot MXU gather are a VMEM/MXU layout device; here the
+//     gather is by index and one subchannel's B spectra stay in L2)
+//   K6 rm_gcc_rows_lag_mags         row k of X pairs with row k of Y,
+//                                   [P, n] x 4, per-pair gate s2[P]
+//     replaces gcc_kernel.py::gcc_rows_lag_mags
+//
+// (bodies _gcc_pairs_kernel / _gcc_onehot_kernel / _gcc_rows_kernel +
+// _whiten + _invert_to_lag_windows). Python wrappers and plain PyTorch
+// versions: radio_mapper_tpu_torch/ops/cuda/gcc_pair.py.
 //
 // Input spectra are in CT order (bin k = k2 + n2*k1 at m = k2*n1 + k1); the
 // inverse consumes that order and emits time t = q*n1 + p:
-//   R[k2][k1] = X_i * conj(Y_j) * rsqrt(|R|^2 + eps^2 * smax_i * smax_j + 1e-30)
+//   R[k2][k1] = X * conj(Y) * rsqrt(|R|^2 + eps^2 * s2 + 1e-30)
 //   E[k2][p]  = sum_k1 R[k2][k1] W1c[k1][p]      (inner inverse n1-point DFT)
 //   C[k2][p]  = E[k2][p] * TWc[k2][p]
 //   z[q][p]   = sum_k2 W2c[q][k2] C[k2][p]       (outer, window rows q only)
 // The rows k2 are processed in chunks; each chunk's C is folded straight
 // into the window accumulators, so shared memory holds one chunk plus the
-// window (about 26 KB at nfft 17408, max_lag 512) and several blocks share
-// an SM.
+// window (about 26 KB at nfft 17408, max_lag 512; 19 KB at nfft 5120,
+// max_lag 128) and several blocks share an SM.
 //
 // Bound on the H100: the inner inverse DFT, n*n1 complex FMAs per pair, on
 // the FP32 CUDA cores. Later PRs: tensor cores for both stages, TMA loads,
-// fusion with kernel K1 so spectra never reach device memory.
+// fusion with the forward transform so spectra never reach device memory.
 
 #include <cuda_runtime.h>
+
+#include "ct_dft.cuh"
 
 namespace {
 
 constexpr int K2_THREADS = 256;  // gcc_pair.THREADS
 constexpr int K2_RJ = 8;         // inner DFT: chunk rows per thread
 
-// acc += a * b (complex)
-__device__ __forceinline__ void cmac(float2& acc, float2 a, float2 b) {
-  acc.x = fmaf(a.x, b.x, fmaf(-a.y, b.y, acc.x));
-  acc.y = fmaf(a.x, b.y, fmaf(a.y, b.x, acc.y));
-}
+using rm_ct::cmac;
+using rm_ct::cmul;
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
-}
-
-__global__ void __launch_bounds__(K2_THREADS)
-gcc_pair_kernel(const float* __restrict__ sre, const float* __restrict__ sim,
-                const float* __restrict__ smax,
-                const int* __restrict__ pair_i, const int* __restrict__ pair_j,
-                const float2* __restrict__ w1, const float2* __restrict__ w2,
-                const float2* __restrict__ tw, float* __restrict__ out,
-                int nb, int np, int n1, int n2, int nneg, int npos, int max_lag,
-                float eps2, float inv_n) {
-  extern __shared__ float2 sm[];
+// One pair: X = (xr, xi), Y = (yr, yi) CT-order rows of n = n1*n2, gate
+// floor eps^2 * s2, window |r|/n written to orow[0 .. 2*max_lag].
+// sm: (THREADS/n1 * K2_RJ + nneg + npos) * n1 float2 of shared memory.
+__device__ __forceinline__ void pair_lag_window(
+    const float* __restrict__ xr, const float* __restrict__ xi,
+    const float* __restrict__ yr, const float* __restrict__ yi, float floor2,
+    const float2* __restrict__ w1, const float2* __restrict__ w2,
+    const float2* __restrict__ tw, float* __restrict__ orow, float2* sm,
+    int n1, int n2, int nneg, int npos, int max_lag, float inv_n) {
   const int groups = K2_THREADS / n1;
   const int chunk = groups * K2_RJ;
   const int nw = nneg + npos;
   float2* rbuf = sm;              // [chunk][n1] whitened R, then C
   float2* z = sm + chunk * n1;    // [nw][n1] window accumulators
-
-  const int n = n1 * n2;
   const int tid = threadIdx.x;
-  const int c = blockIdx.x / np, pidx = blockIdx.x - c * np;
-  const int bi = __ldg(pair_i + pidx), bj = __ldg(pair_j + pidx);
-  const size_t xo = (static_cast<size_t>(c) * nb + bi) * n;
-  const size_t yo = (static_cast<size_t>(c) * nb + bj) * n;
-  const float* xr = sre + xo;
-  const float* xi = sim + xo;
-  const float* yr = sre + yo;
-  const float* yi = sim + yo;
-  const float floor2 = eps2 * (__ldg(smax + c * nb + bi) * __ldg(smax + c * nb + bj));
 
   for (int o = tid; o < nw * n1; o += K2_THREADS) z[o] = make_float2(0.f, 0.f);
 
@@ -72,7 +68,7 @@ gcc_pair_kernel(const float* __restrict__ sre, const float* __restrict__ sim,
   for (int r0 = 0; r0 < n2; r0 += chunk) {
     const int rows = min(chunk, n2 - r0);
 
-    // gather by index, R = X conj(Y), per-receiver-bound PHAT gate
+    // R = X conj(Y), l2rx PHAT gate
     for (int idx = tid; idx < rows * n1; idx += K2_THREADS) {
       const int m = r0 * n1 + idx;
       const float ar = xr[m], ai = xi[m], br = yr[m], bim = yi[m];
@@ -121,12 +117,74 @@ gcc_pair_kernel(const float* __restrict__ sre, const float* __restrict__ sim,
   // lags -L..-1 are the last L samples of the neg rows, 0..L the first
   // L+1 of the pos rows: one contiguous run of z
   const int width = 2 * max_lag + 1;
-  float* orow = out + static_cast<size_t>(blockIdx.x) * width;
   const float2* zw = z + nneg * n1 - max_lag;
   for (int t = tid; t < width; t += K2_THREADS) {
     const float2 v = zw[t];
     orow[t] = __fmul_rn(sqrtf(__fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y))), inv_n);
   }
+}
+
+// K2: block = (channel c, pair pidx); gate from per-receiver maxima.
+__global__ void __launch_bounds__(K2_THREADS)
+gcc_pair_kernel(const float* __restrict__ sre, const float* __restrict__ sim,
+                const float* __restrict__ smax,
+                const int* __restrict__ pair_i, const int* __restrict__ pair_j,
+                const float2* __restrict__ w1, const float2* __restrict__ w2,
+                const float2* __restrict__ tw, float* __restrict__ out,
+                int nb, int np, int n1, int n2, int nneg, int npos, int max_lag,
+                float eps2, float inv_n) {
+  extern __shared__ float2 sm[];
+  const size_t n = static_cast<size_t>(n1) * n2;
+  const int c = blockIdx.x / np, pidx = blockIdx.x - c * np;
+  const int bi = __ldg(pair_i + pidx), bj = __ldg(pair_j + pidx);
+  const size_t xo = (static_cast<size_t>(c) * nb + bi) * n;
+  const size_t yo = (static_cast<size_t>(c) * nb + bj) * n;
+  const float floor2 = eps2 * (__ldg(smax + c * nb + bi) * __ldg(smax + c * nb + bj));
+  pair_lag_window(sre + xo, sim + xo, sre + yo, sim + yo, floor2, w1, w2, tw,
+                  out + static_cast<size_t>(blockIdx.x) * (2 * max_lag + 1), sm,
+                  n1, n2, nneg, npos, max_lag, inv_n);
+}
+
+// K5: block = (subchannel c, pair pidx) = blockIdx.x; per-pair gate s2[c, pidx].
+__global__ void __launch_bounds__(K2_THREADS)
+gcc_pairs_onehot_kernel(const float* __restrict__ sre, const float* __restrict__ sim,
+                        const float* __restrict__ s2,
+                        const int* __restrict__ pair_i, const int* __restrict__ pair_j,
+                        const float2* __restrict__ w1, const float2* __restrict__ w2,
+                        const float2* __restrict__ tw, float* __restrict__ out,
+                        int nb, int np, int n1, int n2, int nneg, int npos, int max_lag,
+                        float eps2, float inv_n) {
+  extern __shared__ float2 sm[];
+  const size_t n = static_cast<size_t>(n1) * n2;
+  const int c = blockIdx.x / np, pidx = blockIdx.x - c * np;
+  const int bi = __ldg(pair_i + pidx), bj = __ldg(pair_j + pidx);
+  const size_t xo = (static_cast<size_t>(c) * nb + bi) * n;
+  const size_t yo = (static_cast<size_t>(c) * nb + bj) * n;
+  const float floor2 = eps2 * __ldg(s2 + blockIdx.x);
+  pair_lag_window(sre + xo, sim + xo, sre + yo, sim + yo, floor2, w1, w2, tw,
+                  out + static_cast<size_t>(blockIdx.x) * (2 * max_lag + 1), sm,
+                  n1, n2, nneg, npos, max_lag, inv_n);
+}
+
+// K6: block = row k; X row k pairs with Y row k, gate s2[k].
+__global__ void __launch_bounds__(K2_THREADS)
+gcc_rows_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
+                const float* __restrict__ yre, const float* __restrict__ yim,
+                const float* __restrict__ s2,
+                const float2* __restrict__ w1, const float2* __restrict__ w2,
+                const float2* __restrict__ tw, float* __restrict__ out,
+                int n1, int n2, int nneg, int npos, int max_lag, float eps2, float inv_n) {
+  extern __shared__ float2 sm[];
+  const size_t o = static_cast<size_t>(blockIdx.x) * n1 * n2;
+  const float floor2 = eps2 * __ldg(s2 + blockIdx.x);
+  pair_lag_window(xre + o, xim + o, yre + o, yim + o, floor2, w1, w2, tw,
+                  out + static_cast<size_t>(blockIdx.x) * (2 * max_lag + 1), sm,
+                  n1, n2, nneg, npos, max_lag, inv_n);
+}
+
+size_t smem_bytes(int n1, int nneg, int npos) {
+  const int chunk = (K2_THREADS / n1) * K2_RJ;
+  return static_cast<size_t>(chunk + nneg + npos) * n1 * sizeof(float2);
 }
 
 }  // namespace
@@ -137,13 +195,43 @@ extern "C" int rm_gcc_pair_lag_mags(
     const float2* w1, const float2* w2, const float2* tw, float* out,
     int nc, int nb, int np, int n1, int n2, int nneg, int npos, int max_lag,
     float eps2, float inv_n, cudaStream_t stream) {
-  const int chunk = (K2_THREADS / n1) * K2_RJ;
-  const size_t smem = static_cast<size_t>(chunk + nneg + npos) * n1 * sizeof(float2);
+  const size_t smem = smem_bytes(n1, nneg, npos);
   cudaError_t e = cudaFuncSetAttribute(
       gcc_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   gcc_pair_kernel<<<nc * np, K2_THREADS, smem, stream>>>(
       sre, sim, smax, pair_i, pair_j, w1, w2, tw, out,
       nb, np, n1, n2, nneg, npos, max_lag, eps2, inv_n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rm_gcc_pairs_onehot_lag_mags(
+    const float* sre, const float* sim, const float* s2,
+    const int* pair_i, const int* pair_j,
+    const float2* w1, const float2* w2, const float2* tw, float* out,
+    int nc, int nb, int np, int n1, int n2, int nneg, int npos, int max_lag,
+    float eps2, float inv_n, cudaStream_t stream) {
+  const size_t smem = smem_bytes(n1, nneg, npos);
+  cudaError_t e = cudaFuncSetAttribute(
+      gcc_pairs_onehot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gcc_pairs_onehot_kernel<<<nc * np, K2_THREADS, smem, stream>>>(
+      sre, sim, s2, pair_i, pair_j, w1, w2, tw, out,
+      nb, np, n1, n2, nneg, npos, max_lag, eps2, inv_n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int rm_gcc_rows_lag_mags(
+    const float* xre, const float* xim, const float* yre, const float* yim, const float* s2,
+    const float2* w1, const float2* w2, const float2* tw, float* out,
+    int np, int n1, int n2, int nneg, int npos, int max_lag,
+    float eps2, float inv_n, cudaStream_t stream) {
+  const size_t smem = smem_bytes(n1, nneg, npos);
+  cudaError_t e = cudaFuncSetAttribute(
+      gcc_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  gcc_rows_kernel<<<np, K2_THREADS, smem, stream>>>(
+      xre, xim, yre, yim, s2, w1, w2, tw, out, n1, n2, nneg, npos, max_lag, eps2, inv_n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,1 +1,2 @@
-"""End-to-end models of the port (the flagship TDOA pipeline)."""
+"""End-to-end models of the port: the flagship TDOA pipeline and the
+wideband config-4 pipeline."""

@@ -1,2 +1,3 @@
-"""Operators of the ported slice: decode, planning tables, selection,
-detection tail, GCC peak tail, and the CUDA kernels under :mod:`.cuda`."""
+"""Operators of the ported slices: decode, planning tables, selection,
+detection tail, GCC peak tail, channelizer and short DFTs, and the CUDA
+kernels under :mod:`.cuda`."""

@@ -1,10 +1,12 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-``nvcc`` compiles every ``csrc/*.cu`` of the package into one shared
+``nvcc`` compiles every ``csrc/*.cu`` of the package — one process per
+source, all started together — and links the objects into one shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds, not minutes) under ``radio_mapper_tpu_torch/_build/``. The file
-name carries a hash of the sources and flags, so an edited source builds
-anew and an unchanged one is loaded as it is.
+name carries a hash of every file under ``csrc/`` (sources and the
+headers they include) and of the flags, so an edited source or header
+builds anew and an unchanged tree is loaded as it is.
 
 Each C entry launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
@@ -25,11 +27,13 @@ from typing import Sequence
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+GENCODE = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (
+    *GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, into the build log
 )
+LINK_FLAGS = (*GENCODE, "-shared")
+TREE_SUFFIXES = (".cu", ".cuh", ".h")  # what the library's hash covers
 
 _lock = threading.Lock()
 _lib: "ctypes.CDLL | None" = None
@@ -49,34 +53,64 @@ def _nvcc() -> str:
 
 
 def _sources() -> Sequence[Path]:
+    """The translation units: every ``csrc/*.cu``."""
     srcs = sorted(CSRC.glob("*.cu"))
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
     return srcs
 
 
+def _tree() -> Sequence[Path]:
+    """Every file the build reads: the sources and the headers they include."""
+    return sorted(p for p in CSRC.iterdir() if p.suffix in TREE_SUFFIXES)
+
+
 def library_path() -> Path:
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current ``csrc/`` tree and flags lives."""
+    _sources()
     h = hashlib.sha256()
-    for s in _sources():
+    for s in _tree():
         h.update(s.name.encode())
         h.update(s.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"librm_kernels_{h.hexdigest()[:16]}.so"
 
 
 def _build(out: Path) -> None:
+    """Compile each source to an object in parallel, then link them."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    objdir = out.with_suffix(f".{os.getpid()}.obj")
+    objdir.mkdir(exist_ok=True)
+    nvcc = _nvcc()
+    log = []
+    try:
+        jobs = []
+        for src in _sources():
+            obj = objdir / f"{src.stem}.o"
+            cmd = [nvcc, *COMPILE_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        failed = []
+        for cmd, _, proc in jobs:  # wait for every compile, even after a failure
+            text, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + text)
+            if proc.returncode != 0:
+                failed.append(f"{cmd[-1]} ({proc.returncode})")
+        if not failed:
+            cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *(str(obj) for _, obj, _ in jobs)]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout)
+            if proc.returncode != 0:
+                failed.append(f"link ({proc.returncode})")
+        out.with_suffix(".log").write_text("\n".join(log))
+        if failed:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError("nvcc failed: " + ", ".join(failed) + "\n" + "\n".join(log))
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        shutil.rmtree(objdir, ignore_errors=True)
 
 
 def library() -> ctypes.CDLL:

@@ -29,7 +29,7 @@ import ctypes
 import torch
 
 from radio_mapper_tpu_torch.ops import ct_plan
-from radio_mapper_tpu_torch.ops.cuda import build
+from radio_mapper_tpu_torch.ops.cuda import build, fft_rows
 
 launch_count = 0  # launches of the CUDA kernel (not of the plain version)
 
@@ -123,20 +123,7 @@ def fft_detect_rows_ct_plain(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.D
     :func:`fft_detect_rows_ct`. On the card it is the comparison only,
     with ``torch.backends.cuda.matmul.allow_tf32 = False`` set by the
     caller (full FP32 products)."""
-    rows, n = re.shape
-    n1, n2 = plan.n1, plan.n2
-    t = ct_plan.device_tables(n, False, re.device)
-    xr = re.reshape(rows, n2, n1)  # x[r, q, p] at time q·n1 + p
-    xi = im.reshape(rows, n2, n1)
-    # inner DFT over q: B[r, k2, p] = Σ_q W2[k2, q] x[r, q, p]
-    br = t.w2re @ xr - t.w2im @ xi
-    bi = t.w2re @ xi + t.w2im @ xr
-    # twiddle W_n^{p·k2}
-    cr = br * t.twre - bi * t.twim
-    ci = br * t.twim + bi * t.twre
-    # outer DFT over p: D[r, k2, k1] = Σ_p C[r, k2, p] W1[p, k1]; flat m = k2·n1 + k1
-    fr = (cr @ t.w1re - ci @ t.w1im).reshape(rows, n)
-    fi = (cr @ t.w1im + ci @ t.w1re).reshape(rows, n)
+    fr, fi = fft_rows.fft_rows_ct_plain(re, im)  # the four-step transform of K3
     return (fr, fi, *detect_plain(fr, fi, plan))
 
 

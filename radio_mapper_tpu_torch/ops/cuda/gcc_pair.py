@@ -1,34 +1,49 @@
-"""Kernel K2: all-pairs PHAT whitening × inverse DFT × lag window.
+"""Kernels K2, K5 and K6: PHAT whitening × inverse DFT × lag window.
 
-Replaces ``radio_mapper_tpu/ops/pallas/gcc_kernel.py::gcc_pair_lag_mags``
-(body ``_gcc_pairs_kernel`` + ``_whiten`` + ``_invert_to_lag_windows``)
-on the main path's routing: "phat" weighting with the per-receiver "l2rx"
-gate, whose scale ``row_smax`` comes from kernel K1. The CUDA source is
-``radio_mapper_tpu_torch/csrc/gcc_pair.cu``.
+Three entries into one CUDA body (``radio_mapper_tpu_torch/csrc/gcc_pair.cu``),
+each with its plain PyTorch version and its own launch counter:
 
-Design (first, simple version): one thread block per (channel, pair).
-It gathers X_i and Y_j by index straight from the CT-order spectra (the
-TPU's one-hot matmul gather is a layout device with no use here), forms
-R = X·conj(Y), applies R·rsqrt(|R|² + ε²·max|X_i|²·max|Y_j|² + 1e-30),
+- **K2** :func:`gcc_pair_lag_mags` replaces
+  ``radio_mapper_tpu/ops/pallas/gcc_kernel.py::gcc_pair_lag_mags``: all
+  pairs of every channel, the "l2rx" gate scale from the per-receiver
+  maxima ``row_smax`` that kernel K1 emits (the flagship path);
+- **K5** :func:`gcc_pairs_onehot_lag_mags` replaces
+  ``gcc_kernel.gcc_pairs_onehot_lag_mags``: the pair list is data and the
+  gate scale ``s2`` is given per pair; a leading subchannel axis runs in
+  the same launch (the wideband path's default route);
+- **K6** :func:`gcc_rows_lag_mags` replaces ``gcc_kernel.gcc_rows_lag_mags``:
+  row k of X pairs with row k of Y, pre-gathered by the caller (the
+  wideband route when :func:`onehot_pairs_enabled` says no).
+
+Design (first, simple version): one thread block per pair. It reads
+X_i and Y_j by index straight from the CT-order spectra (the TPU's
+resident spectra and one-hot matmul gather are a VMEM/MXU layout device
+with no use here; one subchannel's 64 spectra, 2.6 MB, stay in the
+50 MB L2), forms R = X·conj(Y), applies R·rsqrt(|R|² + ε²·s2 + 1e-30),
 and runs the four-step inverse in chunks of CT rows: the inner n1-point
 inverse DFT over k1 and the inverse twiddle, then the outer inverse DFT
 over k2 accumulated ONLY into the lag-window time rows (``ceil(L/n1)``
 tail rows and ``L//n1 + 1`` head rows). Shared memory holds one chunk
-and the window accumulators (≈ 26 KB at the flagship shape), so several
-blocks share an SM. FP32 FMA on the CUDA cores.
+and the window accumulators (≈ 26 KB at nfft 17408 / max_lag 512,
+≈ 19 KB at nfft 5120 / max_lag 128), so several blocks share an SM.
+FP32 FMA on the CUDA cores.
 
 What bounds it on the H100: the inner inverse DFT, n·n1 complex
-multiply-adds per pair (≈ 2.2 M at nfft 17408, 28 pairs × 128 channels
-a block) — compute bound; each pair reads two spectra (≈ 0.28 MB, mostly
-L2 hits since a channel's 8 spectra are shared by its 28 pairs). Left
-for later PRs: both DFT stages on tensor cores, TMA loads of the spectra
-rows, and fusing K1 into this kernel so spectra stay on chip.
+multiply-adds per pair (≈ 2.2 M at nfft 17408, 0.66 M at 5120) — compute
+bound; each pair reads two spectra, mostly L2 hits since a channel's B
+spectra are shared by all its pairs. Left for later PRs: both DFT stages
+on tensor cores, TMA loads of the spectra rows, and fusing the forward
+transform into this kernel so spectra stay on chip.
+
+Only "phat" with the "l2rx" gate is ported: the l1/l2 gates (no gate
+scale given) and "cc" raise ``NotImplementedError`` (ROADMAP M6).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -36,7 +51,9 @@ import torch
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import build
 
-launch_count = 0  # launches of the CUDA kernel (not of the plain version)
+launch_count = 0  # K2 launches (not of the plain version)
+onehot_launch_count = 0  # K5 launches
+rows_launch_count = 0  # K6 launches
 
 THREADS = 256  # must match K2_THREADS in gcc_pair.cu
 RJ = 8  # must match K2_RJ in gcc_pair.cu
@@ -48,6 +65,40 @@ _ARGTYPES = (
     + [ctypes.c_float, ctypes.c_float]
     + [ctypes.c_void_p]
 )
+_ROWS_ARGTYPES = (
+    [ctypes.c_void_p] * 9
+    + [ctypes.c_int] * 6
+    + [ctypes.c_float, ctypes.c_float]
+    + [ctypes.c_void_p]
+)
+
+# Routing of the wideband pair stage between K5 and K6 (the reference's
+# trace-time knob ``gcc_kernel.set_onehot_pairs``): "auto" keeps the
+# reference's budget, so both packages take the same route for every
+# configuration. The budget is the TPU's scoped-VMEM limit for B resident
+# spectra; K5 on the H100 holds no spectra on chip and has no such limit.
+ONEHOT_BUDGET_BYTES = 8 * 1024 * 1024
+_ONEHOT_PAIRS = "auto"
+
+
+def set_onehot_pairs(mode: str) -> None:
+    """Force the wideband pair stage onto K5 ("on"), K6 ("off"), or
+    restore the reference's gate ("auto")."""
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"unknown onehot-pairs mode {mode!r}")
+    global _ONEHOT_PAIRS
+    _ONEHOT_PAIRS = mode
+
+
+def onehot_pairs_enabled(num_receivers: int, nfft: int) -> bool:
+    """Route to K5? (``gcc_kernel.onehot_pairs_enabled``: the B spectra,
+    padded to a multiple of 8 receivers, within 8 MB.)"""
+    if _ONEHOT_PAIRS == "off":
+        return False
+    if _ONEHOT_PAIRS == "on":
+        return True
+    b_pad = -(-num_receivers // 8) * 8
+    return 2 * b_pad * nfft * 4 <= ONEHOT_BUDGET_BYTES
 
 
 def window_rows(nfft: int, max_lag: int):
@@ -63,30 +114,64 @@ def _pair_tensors(pair_i: tuple, pair_j: tuple, device: torch.device):
     return to(pair_i), to(pair_j)
 
 
-def _check(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag):
-    if spec_re.shape != spec_im.shape or spec_re.dim() != 3:
-        raise ValueError(f"need spectra [C, B, nfft], got {tuple(spec_re.shape)}, {tuple(spec_im.shape)}")
-    c, b, nfft = spec_re.shape
-    if c < 1:
-        raise ValueError("need at least one channel")
-    if row_smax.shape != (c, b):
-        raise ValueError(f"row_smax {tuple(row_smax.shape)} does not match spectra [{c}, {b}, ·]")
-    for name, x in (("spec_re", spec_re), ("spec_im", spec_im), ("row_smax", row_smax)):
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if x.device != spec_re.device:
-            raise ValueError(f"{name} on {x.device}, spectra on {spec_re.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+def _check_pairs(pair_i, pair_j, b: int):
+    """Host pair lists as equal-length 1-D int arrays inside [0, b)."""
     pi = np.asarray(pair_i)
     pj = np.asarray(pair_j)
     if pi.ndim != 1 or pi.shape != pj.shape or pi.size < 1:
         raise ValueError("pair_i/pair_j must be equal-length 1-D index arrays")
     if pi.min() < 0 or pj.min() < 0 or pi.max() >= b or pj.max() >= b:
         raise ValueError(f"pair indices out of range for {b} receivers")
+    return pi, pj
+
+
+def _check_float32(device: torch.device, **tensors) -> None:
+    for name, x in tensors.items():
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if x.device != device:
+            raise ValueError(f"{name} on {x.device}, spectra on {device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_lag(nfft: int, max_lag: int) -> None:
     if not 0 <= max_lag < nfft // 2:
         raise ValueError(f"max_lag {max_lag} too large for nfft {nfft}")
     ct_plan.ct_split(nfft)
+
+
+def _l2rx_phat_only(weighting: str, s2) -> None:
+    if weighting != "phat":
+        raise NotImplementedError(f"weighting {weighting!r} is not ported (phat only; ROADMAP M6)")
+    if s2 is None:
+        raise NotImplementedError(
+            "the l1/l2 PHAT gates (no per-pair gate scale s2) are not ported; ROADMAP M6"
+        )
+
+
+def _geometry(n: int, max_lag: int, what: str):
+    """``(n1, n2, nneg, npos)`` for a kernel launch; raises where the
+    block layout or shared memory does not fit."""
+    n1, n2 = ct_plan.ct_split(n)
+    if THREADS % n1:
+        raise ValueError(f"{what} supports n1 dividing {THREADS}; got nfft {n} = {n1}·{n2}")
+    nneg, npos = window_rows(n, max_lag)
+    smem = ((THREADS // n1) * RJ + nneg + npos) * n1 * 8
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"max_lag {max_lag} needs {smem} B of shared memory (limit {SMEM_LIMIT})")
+    return n1, n2, nneg, npos
+
+
+def _stream(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr())
+
+
+# -- K2: all pairs of every channel, per-receiver gate --------------------
 
 
 def gcc_pair_lag_mags(
@@ -111,7 +196,16 @@ def gcc_pair_lag_mags(
     CPU tensors go through :func:`gcc_pair_lag_mags_plain`; CUDA tensors
     launch the kernel.
     """
-    _check(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag)
+    if spec_re.shape != spec_im.shape or spec_re.dim() != 3:
+        raise ValueError(f"need spectra [C, B, nfft], got {tuple(spec_re.shape)}, {tuple(spec_im.shape)}")
+    c, b, nfft = spec_re.shape
+    if c < 1:
+        raise ValueError("need at least one channel")
+    if row_smax.shape != (c, b):
+        raise ValueError(f"row_smax {tuple(row_smax.shape)} does not match spectra [{c}, {b}, ·]")
+    _check_float32(spec_re.device, spec_re=spec_re, spec_im=spec_im, row_smax=row_smax)
+    _check_pairs(pair_i, pair_j, b)
+    _check_lag(nfft, max_lag)
     if spec_re.device.type == "cpu":
         return gcc_pair_lag_mags_plain(
             spec_re, spec_im, row_smax, pair_i, pair_j, max_lag=max_lag, eps=eps
@@ -124,13 +218,7 @@ def gcc_pair_lag_mags(
 def _launch(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps):
     global launch_count
     c, b, n = spec_re.shape
-    n1, n2 = ct_plan.ct_split(n)
-    if THREADS % n1:
-        raise ValueError(f"K2 supports n1 dividing {THREADS}; got nfft {n} = {n1}·{n2}")
-    nneg, npos = window_rows(n, max_lag)
-    smem = ((THREADS // n1) * RJ + nneg + npos) * n1 * 8
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"max_lag {max_lag} needs {smem} B of shared memory (limit {SMEM_LIMIT})")
+    n1, n2, nneg, npos = _geometry(n, max_lag, "K2")
     fn = build.kernel("rm_gcc_pair_lag_mags", _ARGTYPES)
     t = ct_plan.device_tables(n, True, spec_re.device)
     pi, pj = _pair_tensors(
@@ -138,13 +226,12 @@ def _launch(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps):
     )
     p = pi.shape[0]
     out = torch.empty((c, p, 2 * max_lag + 1), dtype=torch.float32, device=spec_re.device)
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     err = fn(
-        ptr(spec_re), ptr(spec_im), ptr(row_smax), ptr(pi), ptr(pj),
-        ptr(t.w1), ptr(t.w2), ptr(t.tw), ptr(out),
+        _ptr(spec_re), _ptr(spec_im), _ptr(row_smax), _ptr(pi), _ptr(pj),
+        _ptr(t.w1), _ptr(t.w2), _ptr(t.tw), _ptr(out),
         c, b, p, n1, n2, nneg, npos, max_lag,
         eps * eps, 1.0 / n,
-        ctypes.c_void_p(torch.cuda.current_stream(spec_re.device).cuda_stream),
+        _stream(spec_re),
     )
     build.check(err, "gcc_pair_lag_mags")
     launch_count += 1
@@ -166,22 +253,29 @@ def gcc_pair_lag_mags_plain(
     :func:`gcc_pair_lag_mags`. On the card it is the comparison only,
     with ``torch.backends.cuda.matmul.allow_tf32 = False`` set by the
     caller (full FP32 products)."""
-    c, b, n = spec_re.shape
-    n1, n2 = ct_plan.ct_split(n)
-    nneg, npos = window_rows(n, max_lag)
-    t = ct_plan.device_tables(n, True, spec_re.device)
     pi = torch.as_tensor(np.asarray(pair_i, np.int64), device=spec_re.device)
     pj = torch.as_tensor(np.asarray(pair_j, np.int64), device=spec_re.device)
-    p = pi.shape[0]
+    s2 = row_smax[:, pi] * row_smax[:, pj]  # ≥ max|R|² per pair
+    return _whiten_invert_plain(
+        spec_re[:, pi], spec_im[:, pi], spec_re[:, pj], spec_im[:, pj], s2, max_lag, eps
+    )
 
-    xr, xi = spec_re[:, pi], spec_im[:, pi]  # [C, P, n]
-    yr, yi = spec_re[:, pj], spec_im[:, pj]
+
+def _whiten_invert_plain(xr, xi, yr, yi, s2, max_lag, eps):
+    """Pair spectra ``[..., n]`` (CT order) and gate scales ``s2 [...]`` →
+    lag windows ``[..., 2·max_lag+1]``: the body all three plain versions
+    share."""
+    n = xr.shape[-1]
+    lead = xr.shape[:-1]
+    n1, n2 = ct_plan.ct_split(n)
+    nneg, npos = window_rows(n, max_lag)
+    t = ct_plan.device_tables(n, True, xr.device)
+
     rr = xr * yr + xi * yi  # R = X · conj(Y)
     ri = xi * yr - xr * yi
-    s2 = (row_smax[:, pi] * row_smax[:, pj]).unsqueeze(-1)  # ≥ max|R|² per pair
-    inv = torch.rsqrt(rr * rr + ri * ri + (eps * eps) * s2 + 1e-30)
-    rr = (rr * inv).reshape(c, p, n2, n1)
-    ri = (ri * inv).reshape(c, p, n2, n1)
+    inv = torch.rsqrt(rr * rr + ri * ri + (eps * eps) * s2.unsqueeze(-1) + 1e-30)
+    rr = (rr * inv).reshape(*lead, n2, n1)
+    ri = (ri * inv).reshape(*lead, n2, n1)
 
     # inner inverse DFT over k1, then the inverse twiddle W_n^{+p·k2}
     er = rr @ t.w1re - ri @ t.w1im
@@ -189,10 +283,179 @@ def gcc_pair_lag_mags_plain(
     cr = er * t.twre - ei * t.twim
     ci = er * t.twim + ei * t.twre
     # outer inverse DFT over k2, only for the lag-window time rows
-    q = torch.cat([torch.arange(n2 - nneg, n2), torch.arange(npos)]).to(spec_re.device)
+    q = torch.cat([torch.arange(n2 - nneg, n2), torch.arange(npos)]).to(xr.device)
     w2r, w2i = t.w2re[q], t.w2im[q]  # [nw, n2]
-    zr = w2r @ cr - w2i @ ci  # [C, P, nw, n1], time q·n1 + p
+    zr = w2r @ cr - w2i @ ci  # [..., nw, n1], time q·n1 + p
     zi = w2r @ ci + w2i @ cr
-    mags = (torch.sqrt(zr * zr + zi * zi) * (1.0 / n)).reshape(c, p, (nneg + npos) * n1)
+    mags = (torch.sqrt(zr * zr + zi * zi) * (1.0 / n)).reshape(*lead, (nneg + npos) * n1)
     # lags −L..−1 from the tail rows, 0..L from the head rows
     return mags[..., nneg * n1 - max_lag : nneg * n1 + max_lag + 1]
+
+
+# -- K5: a pair list as data, per-pair gate, optional leading axis --------
+
+
+def gcc_pairs_onehot_lag_mags(
+    spec_re: torch.Tensor,
+    spec_im: torch.Tensor,
+    pair_i: np.ndarray,
+    pair_j: np.ndarray,
+    *,
+    max_lag: int,
+    eps: float = 0.05,
+    weighting: str = "phat",
+    s2: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Lag windows for an arbitrary pair list, gathered in the kernel.
+
+    Args:
+      spec_re/spec_im: float32 ``[..., B, nfft]`` CT-order receiver
+        spectra (K3 output); the leading axes (the wideband path's M
+        subchannels) run in the same launch.
+      pair_i/pair_j: host int arrays of length P (copied to the device
+        once and cached; the kernel reads them there).
+      s2: float32 ``[..., P]`` per-pair l2rx gate scales
+        (max|X_i|²·max|Y_j|²). Required: without it the reference falls
+        back to the l2 gate, which is not ported.
+    Returns:
+      float32 ``[..., P, 2·max_lag+1]`` |r| at lags −max_lag..+max_lag.
+
+    CPU tensors go through :func:`gcc_pairs_onehot_lag_mags_plain`; CUDA
+    tensors launch the kernel.
+    """
+    _l2rx_phat_only(weighting, s2)
+    if spec_re.shape != spec_im.shape or spec_re.dim() < 2 or spec_re.numel() == 0:
+        raise ValueError(f"need spectra [..., B, nfft], got {tuple(spec_re.shape)}, {tuple(spec_im.shape)}")
+    *lead, b, nfft = spec_re.shape
+    pi, _ = _check_pairs(pair_i, pair_j, b)
+    if s2.shape != (*lead, pi.size):
+        raise ValueError(f"s2 {tuple(s2.shape)} does not match [{', '.join(map(str, lead + [pi.size]))}]")
+    _check_float32(spec_re.device, spec_re=spec_re, spec_im=spec_im, s2=s2)
+    _check_lag(nfft, max_lag)
+    if spec_re.device.type == "cpu":
+        return gcc_pairs_onehot_lag_mags_plain(
+            spec_re, spec_im, pair_i, pair_j, max_lag=max_lag, eps=eps, s2=s2
+        )
+    if spec_re.device.type != "cuda":
+        raise ValueError(f"no K5 implementation for device {spec_re.device}")
+    return _launch_onehot(spec_re, spec_im, pair_i, pair_j, s2, max_lag, eps)
+
+
+def _launch_onehot(spec_re, spec_im, pair_i, pair_j, s2, max_lag, eps):
+    global onehot_launch_count
+    *lead, b, n = spec_re.shape
+    c = spec_re.numel() // (b * n)
+    n1, n2, nneg, npos = _geometry(n, max_lag, "K5")
+    fn = build.kernel("rm_gcc_pairs_onehot_lag_mags", _ARGTYPES)
+    t = ct_plan.device_tables(n, True, spec_re.device)
+    pi, pj = _pair_tensors(
+        tuple(int(v) for v in pair_i), tuple(int(v) for v in pair_j), spec_re.device
+    )
+    p = pi.shape[0]
+    out = torch.empty((*lead, p, 2 * max_lag + 1), dtype=torch.float32, device=spec_re.device)
+    err = fn(
+        _ptr(spec_re), _ptr(spec_im), _ptr(s2), _ptr(pi), _ptr(pj),
+        _ptr(t.w1), _ptr(t.w2), _ptr(t.tw), _ptr(out),
+        c, b, p, n1, n2, nneg, npos, max_lag,
+        eps * eps, 1.0 / n,
+        _stream(spec_re),
+    )
+    build.check(err, "gcc_pairs_onehot_lag_mags")
+    onehot_launch_count += 1
+    return out
+
+
+def gcc_pairs_onehot_lag_mags_plain(
+    spec_re: torch.Tensor,
+    spec_im: torch.Tensor,
+    pair_i: np.ndarray,
+    pair_j: np.ndarray,
+    *,
+    max_lag: int,
+    eps: float = 0.05,
+    s2: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch version of K5: gather by ``index_select``, then the
+    K2 body. Same contract as :func:`gcc_pairs_onehot_lag_mags`."""
+    pi = torch.as_tensor(np.asarray(pair_i, np.int64), device=spec_re.device)
+    pj = torch.as_tensor(np.asarray(pair_j, np.int64), device=spec_re.device)
+    sel = lambda x, idx: x.index_select(-2, idx)
+    return _whiten_invert_plain(
+        sel(spec_re, pi), sel(spec_im, pi), sel(spec_re, pj), sel(spec_im, pj), s2, max_lag, eps
+    )
+
+
+# -- K6: row-aligned pre-gathered pairs -----------------------------------
+
+
+def gcc_rows_lag_mags(
+    xre: torch.Tensor,
+    xim: torch.Tensor,
+    yre: torch.Tensor,
+    yim: torch.Tensor,
+    *,
+    max_lag: int,
+    eps: float = 0.05,
+    weighting: str = "phat",
+    s2: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Lag windows for row-aligned pair spectra: row k of X with row k of Y.
+
+    Args:
+      xre/xim, yre/yim: float32 ``[P, nfft]`` CT-order spectra.
+      s2: float32 ``[P]`` per-pair l2rx gate scales. Required (see
+        :func:`gcc_pairs_onehot_lag_mags`).
+    Returns:
+      float32 ``[P, 2·max_lag+1]``.
+
+    CPU tensors go through :func:`gcc_rows_lag_mags_plain`; CUDA tensors
+    launch the kernel.
+    """
+    _l2rx_phat_only(weighting, s2)
+    if not (xre.shape == xim.shape == yre.shape == yim.shape) or xre.dim() != 2 or xre.shape[0] < 1:
+        raise ValueError(f"need four [P ≥ 1, nfft] spectra, got {tuple(xre.shape)}, {tuple(xim.shape)}, "
+                         f"{tuple(yre.shape)}, {tuple(yim.shape)}")
+    p, nfft = xre.shape
+    if s2.shape != (p,):
+        raise ValueError(f"s2 {tuple(s2.shape)} does not match [{p}]")
+    _check_float32(xre.device, xre=xre, xim=xim, yre=yre, yim=yim, s2=s2)
+    _check_lag(nfft, max_lag)
+    if xre.device.type == "cpu":
+        return gcc_rows_lag_mags_plain(xre, xim, yre, yim, max_lag=max_lag, eps=eps, s2=s2)
+    if xre.device.type != "cuda":
+        raise ValueError(f"no K6 implementation for device {xre.device}")
+    return _launch_rows(xre, xim, yre, yim, s2, max_lag, eps)
+
+
+def _launch_rows(xre, xim, yre, yim, s2, max_lag, eps):
+    global rows_launch_count
+    p, n = xre.shape
+    n1, n2, nneg, npos = _geometry(n, max_lag, "K6")
+    fn = build.kernel("rm_gcc_rows_lag_mags", _ROWS_ARGTYPES)
+    t = ct_plan.device_tables(n, True, xre.device)
+    out = torch.empty((p, 2 * max_lag + 1), dtype=torch.float32, device=xre.device)
+    err = fn(
+        _ptr(xre), _ptr(xim), _ptr(yre), _ptr(yim), _ptr(s2),
+        _ptr(t.w1), _ptr(t.w2), _ptr(t.tw), _ptr(out),
+        p, n1, n2, nneg, npos, max_lag,
+        eps * eps, 1.0 / n,
+        _stream(xre),
+    )
+    build.check(err, "gcc_rows_lag_mags")
+    rows_launch_count += 1
+    return out
+
+
+def gcc_rows_lag_mags_plain(
+    xre: torch.Tensor,
+    xim: torch.Tensor,
+    yre: torch.Tensor,
+    yim: torch.Tensor,
+    *,
+    max_lag: int,
+    eps: float = 0.05,
+    s2: torch.Tensor,
+) -> torch.Tensor:
+    """Plain PyTorch version of K6: the K2 body on row-aligned pairs. Same
+    contract as :func:`gcc_rows_lag_mags`."""
+    return _whiten_invert_plain(xre, xim, yre, yim, s2, max_lag, eps)

@@ -4,7 +4,7 @@
 unspecified, and the detector's results depend on it (an all −inf row
 must select index 0, equal segment maxima the lower segment). These
 follow ``radio_mapper_tpu/ops/safe.py``: argmax is max + masked index-min,
-top-k is k masked argmaxes.
+top-k is k masked argmaxes; ``pair_select`` gathers by index.
 """
 
 from __future__ import annotations
@@ -25,6 +25,17 @@ def argmax_last(x: torch.Tensor) -> torch.Tensor:
 def take1_last(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """x[..., k] for a per-batch index k ``[...]``."""
     return torch.gather(x, -1, k.unsqueeze(-1)).squeeze(-1)
+
+
+def pair_select(x: torch.Tensor, idx, axis: int = -1) -> torch.Tensor:
+    """``x`` gathered along ``axis`` (−1 or −2) by a shared 1-D index
+    vector (``safe.pair_select``). The reference's one-hot product is a
+    TPU layout device; ``index_select`` is exact, like its HIGHEST form
+    (its bf16 "default" form under PHAT rounds on the TPU only)."""
+    if axis not in (-1, -2):
+        raise ValueError("pair_select supports axis -1 or -2 only")
+    idx = torch.as_tensor(idx, device=x.device).to(torch.int64)
+    return x.index_select(axis, idx)
 
 
 def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:

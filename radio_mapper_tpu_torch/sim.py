@@ -1,7 +1,8 @@
 """Synthetic scenario generator: emitter at a known position → per-buoy IQ.
 
 A numpy port of ``radio_mapper_tpu/sim.py`` (scenario classes,
-``default_scenario`` and ``synthesize``): the same float64 arithmetic on
+``default_scenario``, ``synthesize`` and ``synthesize_wideband``): the
+same float64 arithmetic on
 the same ``default_rng(seed)`` stream, so a seed gives the same capture
 bit for bit in both packages. Delays are applied as frequency-domain
 phase ramps, exact for the periodic block.
@@ -228,3 +229,42 @@ def default_scenario(
         timing_jitter_s=timing_jitter_s,
         seed=seed,
     )
+
+
+def synthesize_wideband(
+    cfg,
+    *,
+    active_subchannel: int,
+    anchors_enu: np.ndarray,
+    emitter_enu: np.ndarray,
+    snr_db: float = 25.0,
+    seed: int = 0,
+    signal_fraction: float = 0.5,
+):
+    """One wideband block for a :class:`models.wideband.WidebandConfig`.
+
+    Band-limited noise centered on ``active_subchannel`` (unshifted FFT
+    channel order), received by each buoy with the exact fractional
+    geometric delay (frequency-domain phase ramp), plus unit-variance
+    complex noise. Returns ``(re, im)`` float32 ``[B, cfg.wide_block]``.
+    """
+    rng = np.random.default_rng(seed)
+    b, n, fs = cfg.num_buoys, cfg.wide_block, cfg.wide_rate_hz
+    f0 = np.fft.fftfreq(cfg.num_subchannels, d=1.0 / fs)[
+        active_subchannel % cfg.num_subchannels
+    ]
+    base = rng.normal(size=2 * n).view(np.complex128)[:n]
+    spec = np.fft.fft(base)
+    f = np.fft.fftfreq(n, 1.0 / fs)
+    spec[np.abs(f) > signal_fraction * cfg.sub_rate_hz / 2] = 0.0
+    s = np.fft.ifft(spec)
+    s *= np.exp(2j * np.pi * f0 * np.arange(n) / fs)
+    s /= np.std(s)
+    amp = 10 ** (snr_db / 20.0)
+    sfft = np.fft.fft(amp * s)
+    iq = np.empty((b, n), np.complex128)
+    for k in range(b):
+        d = np.linalg.norm(emitter_enu - anchors_enu[k])
+        iq[k] = np.fft.ifft(sfft * np.exp(-2j * np.pi * f * d / SPEED_OF_LIGHT_M_S))
+    iq += (rng.normal(size=(b, n)) + 1j * rng.normal(size=(b, n))) / np.sqrt(2)
+    return iq.real.astype(np.float32), iq.imag.astype(np.float32)

@@ -7,15 +7,20 @@ machine that has only PyTorch with CUDA:
 
 Without a card every test here skips (a CUDA kernel has no CPU mode).
 The input builders and comparisons are shared with the JAX parity tests
-(``test_torch_fft_detect.py``, ``test_torch_gcc_pair.py``), so the kernel
-is held to the same tolerances as the plain version is against JAX:
+(``test_torch_fft_detect.py``, ``test_torch_gcc_pair.py``,
+``test_torch_fft_rows.py``, ``test_torch_gcc_pairs.py``,
+``test_torch_wideband.py``), so a kernel is held to the same tolerances
+as its plain version is against JAX:
 
-- K1 spectra within 1e-4 of the row's max |X|, ``row_max`` within 1e-5
-  relative, ``noise_floor_db`` within 1e-3 dB (log10 differs by ulps
-  between libraries), segment partials exact outside float32-tied
-  segments (see :func:`fragile_segments`), scores within 1e-4 of the
-  row's max power;
-- K2 lag windows within 1e-4 of each pair's window max.
+- K1 and K3 spectra within 1e-4 of the row's max |X|; K1 ``row_max``
+  within 1e-5 relative, ``noise_floor_db`` within 1e-3 dB (log10 differs
+  by ulps between libraries), segment partials exact outside
+  float32-tied segments (see :func:`fragile_segments`), scores within
+  1e-4 of the row's max power;
+- K2, K5 and K6 lag windows within 1e-4 of each pair's window max, with
+  the same argmax;
+- pipelines on the card vs the CPU: lags within 1e-3 samples, fixes
+  within 0.5 m.
 """
 
 import numpy as np
@@ -24,8 +29,9 @@ import torch
 
 from radio_mapper_tpu_torch import sim
 from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
+from radio_mapper_tpu_torch.models.wideband import WidebandConfig, WidebandTDOAPipeline
 from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat
-from radio_mapper_tpu_torch.ops.cuda import fft_detect, gcc_pair
+from radio_mapper_tpu_torch.ops.cuda import fft_detect, fft_rows, gcc_pair
 
 DET = dict(
     sample_rate_hz=2_400_000.0,
@@ -93,13 +99,20 @@ def fragile_segments(fr, fi, nf_db, plan, rel=1e-4):
     return ct.reshape(rows, n2 // seg, seg, n1).any(axis=2).reshape(rows, n // seg)
 
 
+def assert_spectra_close(out, ref):
+    """Spectra ``(fr, fi)`` within 1e-4 of each row's max |X| of ``ref``."""
+    fr, fi = (np.asarray(o) for o in ref)
+    ofr, ofi = (np.asarray(o) for o in out)
+    mag = np.sqrt(fr.astype(np.float64) ** 2 + fi.astype(np.float64) ** 2).max(axis=-1, keepdims=True)
+    assert (np.abs(ofr - fr).max(axis=-1, keepdims=True) <= 1e-4 * mag).all()
+    assert (np.abs(ofi - fi).max(axis=-1, keepdims=True) <= 1e-4 * mag).all()
+
+
 def assert_k1_close(out, ref, plan):
     """K1 outputs ``out`` against reference outputs ``ref`` (numpy-able)."""
     fr, fi, score, arg, nf, rmax = (np.asarray(o) for o in ref)
     ofr, ofi, oscore, oarg, onf, ormax = (np.asarray(o) for o in out)
-    mag = np.sqrt(fr.astype(np.float64) ** 2 + fi.astype(np.float64) ** 2).max(axis=-1, keepdims=True)
-    assert (np.abs(ofr - fr).max(axis=-1, keepdims=True) <= 1e-4 * mag).all()
-    assert (np.abs(ofi - fi).max(axis=-1, keepdims=True) <= 1e-4 * mag).all()
+    assert_spectra_close((ofr, ofi), (fr, fi))
     np.testing.assert_allclose(ormax, rmax, rtol=1e-5)
     np.testing.assert_allclose(onf, nf, atol=1e-3, rtol=0)
 
@@ -118,6 +131,43 @@ def assert_windows_close(ours, ref):
     """Lag windows within 1e-4 of each pair's window max."""
     scale = np.abs(ref).max(axis=-1, keepdims=True)
     assert (np.abs(ours - ref).max(axis=-1, keepdims=True) <= 1e-4 * scale).all()
+
+
+def pair_gate_scales(smax, pi, pj):
+    """Per-pair l2rx gate scales s2 = smax_i·smax_j, ``[..., P]``."""
+    return np.ascontiguousarray(smax[..., pi] * smax[..., pj], dtype=np.float32)
+
+
+def some_pairs(b, p, seed):
+    """A pair list that is not all pairs: ``p`` random (i, j), i ≠ j."""
+    rng = np.random.default_rng(seed)
+    i = rng.integers(0, b, size=p)
+    j = (i + rng.integers(1, b, size=p)) % b
+    return i.astype(np.int32), j.astype(np.int32)
+
+
+def small_wideband_config(**kw):
+    """The small config-4 shape of ``tests/test_wideband.py``."""
+    base = dict(num_buoys=8, wide_rate_hz=4_096_000.0, num_subchannels=8,
+                sub_block=1024, max_lag=64, solver_iterations=20)
+    base.update(kw)
+    return WidebandConfig(**base)
+
+
+def wideband_scene(cfg, sub, seed, radius_m=9_000.0, emitter=(1_500.0, -2_200.0, 0.0), snr_db=25.0):
+    """``sim.synthesize_wideband`` on a ring of buoys, emitter in
+    subchannel ``sub``: ``(re, im, anchors, emitter)`` as numpy."""
+    b = cfg.num_buoys
+    ang = 2 * np.pi * np.arange(b) / b
+    anchors = np.stack(
+        [radius_m * np.cos(ang), radius_m * np.sin(ang), np.zeros(b)], axis=-1
+    ).astype(np.float32)
+    emitter = np.asarray(emitter, dtype=np.float64)
+    re, im = sim.synthesize_wideband(
+        cfg, active_subchannel=sub, anchors_enu=anchors, emitter_enu=emitter,
+        snr_db=snr_db, seed=seed,
+    )
+    return re, im, anchors, emitter
 
 
 @pytest.fixture
@@ -180,3 +230,82 @@ def test_pipeline_on_card_matches_cpu(cuda_device):
     pos = gpu.fix.position_enu.cpu().numpy()
     np.testing.assert_allclose(pos, cpu.fix.position_enu.numpy(), atol=0.5)
     assert np.linalg.norm(pos[:2] - cap.emitter_enu[0][:2]) < 50.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", [5120, 9216])
+def test_k3_kernel_matches_plain(cuda_device, nfft):
+    re, im = tone_rows(64, nfft, 12, n_valid=nfft - 1024)
+    xr = torch.from_numpy(re).to(cuda_device)
+    xi = torch.from_numpy(im).to(cuda_device)
+    before = fft_rows.launch_count
+    out = fft_rows.fft_rows_ct(xr, xi)
+    torch.cuda.synchronize()
+    assert fft_rows.launch_count == before + 1
+    ref = fft_rows.fft_rows_ct_plain(xr, xi)
+    assert_spectra_close([o.cpu() for o in out], [o.cpu() for o in ref])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,b,nfft,max_lag,pairs", [(3, 8, 5120, 128, None), (2, 12, 2048, 64, 37)])
+def test_k5_kernel_matches_plain(cuda_device, m, b, nfft, max_lag, pairs):
+    sre, sim_, smax = correlated_spectra(m, b, nfft, 6)
+    pi, pj = gcc_phat.pair_indices(b) if pairs is None else some_pairs(b, pairs, 6)
+    s2 = torch.from_numpy(pair_gate_scales(smax, pi, pj)).to(cuda_device)
+    sre, sim_ = (torch.from_numpy(a).to(cuda_device) for a in (sre, sim_))
+    before = gcc_pair.onehot_launch_count
+    out = gcc_pair.gcc_pairs_onehot_lag_mags(sre, sim_, pi, pj, max_lag=max_lag, s2=s2)
+    torch.cuda.synchronize()
+    assert gcc_pair.onehot_launch_count == before + 1
+    ref = gcc_pair.gcc_pairs_onehot_lag_mags_plain(sre, sim_, pi, pj, max_lag=max_lag, s2=s2)
+    assert out.shape == (m, len(pi), 2 * max_lag + 1)
+    assert_windows_close(out.cpu().numpy(), ref.cpu().numpy())
+    np.testing.assert_array_equal(out.argmax(-1).cpu().numpy(), ref.argmax(-1).cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_k6_kernel_matches_plain_and_k5(cuda_device):
+    b, nfft, max_lag = 8, 5120, 128
+    sre, sim_, smax = correlated_spectra(1, b, nfft, 7)
+    pi, pj = gcc_phat.pair_indices(b)
+    s2 = torch.from_numpy(pair_gate_scales(smax[0], pi, pj)).to(cuda_device)
+    sre, sim_ = (torch.from_numpy(a[0]).to(cuda_device) for a in (sre, sim_))
+    rows = [x[torch.as_tensor(idx, dtype=torch.int64, device=cuda_device)].contiguous()
+            for idx in (pi, pj) for x in (sre, sim_)]
+    xre, xim, yre, yim = rows
+    before = gcc_pair.rows_launch_count
+    out = gcc_pair.gcc_rows_lag_mags(xre, xim, yre, yim, max_lag=max_lag, s2=s2)
+    torch.cuda.synchronize()
+    assert gcc_pair.rows_launch_count == before + 1
+    ref = gcc_pair.gcc_rows_lag_mags_plain(xre, xim, yre, yim, max_lag=max_lag, s2=s2)
+    assert_windows_close(out.cpu().numpy(), ref.cpu().numpy())
+    k5 = gcc_pair.gcc_pairs_onehot_lag_mags(sre, sim_, pi, pj, max_lag=max_lag, s2=s2)
+    assert_windows_close(out.cpu().numpy(), k5.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["on", "off"])
+def test_wideband_on_card_matches_cpu(cuda_device, route):
+    """The small config-4 scene through K3 + K5 (or K6) on the card vs the
+    plain versions on the CPU."""
+    cfg = small_wideband_config()
+    sub = 3
+    re, im, anchors, emitter = wideband_scene(cfg, sub, seed=1)
+    host = [torch.from_numpy(a) for a in (re, im, anchors)]
+    cpu = WidebandTDOAPipeline(cfg, device="cpu").step_split(*host)
+    counts = (fft_rows.launch_count, gcc_pair.onehot_launch_count, gcc_pair.rows_launch_count)
+    gcc_pair.set_onehot_pairs(route)
+    try:
+        gpu = WidebandTDOAPipeline(cfg, device=cuda_device).step_split(*(a.to(cuda_device) for a in host))
+        torch.cuda.synchronize()
+    finally:
+        gcc_pair.set_onehot_pairs("auto")
+    m = cfg.num_subchannels
+    want = (1, 1, 0) if route == "on" else (1, 0, m)
+    got = (fft_rows.launch_count, gcc_pair.onehot_launch_count, gcc_pair.rows_launch_count)
+    assert tuple(g - c for g, c in zip(got, counts)) == want
+    np.testing.assert_allclose(gpu.lags[sub].cpu().numpy(), cpu.lags[sub].numpy(), atol=1e-3)
+    np.testing.assert_allclose(gpu.weights[sub].cpu().numpy(), cpu.weights[sub].numpy(), atol=1e-3)
+    fix = gpu.fixes_enu[sub].cpu().numpy()
+    np.testing.assert_allclose(fix, cpu.fixes_enu[sub].numpy(), atol=0.5)
+    assert np.linalg.norm(fix[:2] - emitter[:2]) < 300.0
