@@ -35,7 +35,22 @@ per source, in parallel, sm_90a), then:
    samples at 10 MS/s into 16 subchannels × 2016 pairs — through
    ``WidebandTDOAPipeline.step_split`` on its default route (K3 + K5),
    with launch counts, ms/block, wideband samples/s, pair correlations/s
-   and a per-stage split; then the same 8 blocks on the K6 route.
+   and a per-stage split; then the same 8 blocks on the K6 route;
+10. K7 (natural-order FFT) vs its plain version at [8192, 16384] (one
+    full-width narrowband block's dwells), [32, 32768] (the ELT scene's
+    dwells) and [8, 65536];
+11. the 121.5 MHz ELT scene (OKC buoys, 5 kHz chirp, 8 dwells × 32768,
+    max_lag 600, 4 solver starts) through the multi-dwell
+    ``TDOAPipeline.step_split`` on the card: the fix within 500 m and
+    within 1 m of the port's CPU run, K7 launched;
+12. the buoy's detection dwell (``runtime.buoy_detect.detect_dwell``) on
+    a simulated 16384-sample dwell, card vs CPU: the same peaks and
+    bandwidths, power within 1e-3 dB;
+13. the narrowband multi-dwell configuration at full width — 4 blocks of
+    128 channels × 8 buoys × 8 dwells × 16384 uint8 IQ at 2.4 MS/s,
+    max_lag 512, 4 solver starts — through ``step_split_uint8_scan``,
+    with ms/block, IQ samples/s, the ratio to real time, peak device
+    memory (limit 40 GiB), a per-stage split and K7 launches per block.
 
 Any failed check raises, so the run exits non-zero and prints no result
 line. The last two lines are a JSON object describing the kernels and,
@@ -80,8 +95,9 @@ def _require(cond, what):
 
 
 def _stage_split(torch, run, names, reps=3):
-    """Median ms of each stage of ``run(on_stage)`` over ``reps`` runs,
-    from CUDA events recorded at each hook call."""
+    """Median over ``reps`` runs of each stage's ms in ``run(on_stage)``,
+    from CUDA events recorded at each hook call; a stage marked more than
+    once in a run (once per chunk) counts the sum of its spans."""
     splits = {k: [] for k in names}
     for _ in range(reps):
         events = []
@@ -94,8 +110,11 @@ def _stage_split(torch, run, names, reps=3):
         mark("start")
         run(mark)
         torch.cuda.synchronize()
+        run_ms = dict.fromkeys(names, 0.0)
         for (_, a), (name, b) in zip(events, events[1:]):
-            splits[name].append(a.elapsed_time(b))
+            run_ms[name] += a.elapsed_time(b)
+        for k, v in run_ms.items():
+            splits[k].append(v)
     return {k: statistics.median(v) for k, v in splits.items()}
 
 
@@ -103,6 +122,25 @@ def _ring(np, b, radius_m):
     """``[b, 3]`` float32 buoy positions on a ring (the CLI wideband demo's layout)."""
     ang = 2 * np.pi * np.arange(b) / b
     return np.stack([radius_m * np.cos(ang), radius_m * np.sin(ang), np.zeros(b)], -1).astype(np.float32)
+
+
+def _row_rel_error(out, ref):
+    """(max |out − ref| over re and im, max over rows of that error over
+    the row's max |X| of the spectrum pair ``ref``)."""
+    mag = (ref[0] * ref[0] + ref[1] * ref[1]).amax(-1).sqrt()
+    d = [(o - r).abs() for o, r in zip(out, ref)]
+    return max(x.max().item() for x in d), max((x.amax(-1) / mag).max().item() for x in d)
+
+
+def _elt_scene(sim, dwells=8, n=32_768):
+    """The 121.5 MHz ELT case of ``tests/test_validation_scenarios.py``."""
+    return sim.Scenario(
+        buoys=tuple(sim.Buoy(b, la, ln, al) for b, la, ln, al in sim.OKC_BUOYS),
+        emitters=(sim.Emitter(lat=35.46, lng=-97.50, signal="chirp", bandwidth_hz=5e3,
+                              freq_offset_hz=12_000.0),),
+        center_frequency_mhz=121.5, sample_rate_hz=2_048_000.0, block_len=dwells * n,
+        snr_db=22.0, seed=11,
+    )
 
 
 def _window_errors(a, b):
@@ -120,7 +158,9 @@ def main() -> int:
     from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
     from radio_mapper_tpu_torch.models.wideband import WidebandConfig, WidebandTDOAPipeline
     from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat, iq, split_complex
-    from radio_mapper_tpu_torch.ops.cuda import build, fft_detect, fft_rows, gcc_pair
+    from radio_mapper_tpu_torch.ops import fft as fft_ops
+    from radio_mapper_tpu_torch.ops.cuda import build, fft_detect, fft_natural, fft_rows, gcc_pair
+    from radio_mapper_tpu_torch.runtime import buoy_detect
 
     card = device.require_cuda()
     tag = card.label()
@@ -448,6 +488,127 @@ def main() -> int:
         + f", sum {sum(stage.values()):.3f} {tag}"
     )
 
+    del wblocks
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: K7 vs plain at the narrowband shapes
+    ncfg = PipelineConfig(num_buoys=buoys, block_len=n, sample_rate_hz=fs, max_lag=lag,
+                          solver_starts=4, correlation_dwells=8)
+    npipe = TDOAPipeline(ncfg, device=dev)
+    raw, nanchors = npipe.example_inputs(batch=(chans,), seed=0, uint8=True)
+    elt = sim.synthesize(_elt_scene(sim))
+    elt_host = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+                for a in (elt.iq.real, elt.iq.imag, elt.buoy_enu)]
+    shapes = {
+        (chans * buoys * 8, n): [x.reshape(-1, n).contiguous() for x in iq.decode_uint8_split(raw)],
+        (32, 32_768): [x.reshape(32, 32_768).to(dev) for x in elt_host[:2]],
+        (8, 65_536): [x.reshape(-1, 65_536)[:8].contiguous().to(dev) for x in elt_host[:2]],
+    }
+    k7 = {}
+    for shape, (xr, xi) in shapes.items():
+        out = fft_natural.fft_rows(xr, xi)
+        ref = fft_natural.fft_rows_plain(xr, xi)
+        torch.cuda.synchronize()
+        err_abs, err_rel = _row_rel_error(out, ref)
+        del out, ref
+        k_ms = _cuda_ms(torch, lambda: fft_natural.fft_rows(xr, xi))
+        p_ms = _cuda_ms(torch, lambda: fft_natural.fft_rows_plain(xr, xi))
+        k7[shape] = (err_abs, err_rel, k_ms, p_ms)
+        print(
+            f"phase 10: K7 {list(shape)} = {'·'.join(map(str, fft_natural.split(shape[1])))} spectra "
+            f"max|err| {err_abs:.3e} (rel to row max|X| {err_rel:.3e}, tol 1e-4); kernel {k_ms:.3f} ms, "
+            f"plain {p_ms:.3f} ms {tag}"
+        )
+        _require(err_rel <= 1e-4, f"K7 spectra disagree at {shape}: {err_rel}")
+    del shapes, xr, xi
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: the ELT scene, multi-dwell, on the card and on the CPU
+    ecfg = PipelineConfig(num_buoys=4, block_len=32_768, sample_rate_hz=2_048_000.0, max_lag=600,
+                          power_offset_db=40.0, solver_starts=4, correlation_dwells=8)
+    fft_natural.launch_count = 0
+    on_card = TDOAPipeline(ecfg, device=dev).step_split(*(a.to(dev) for a in elt_host))
+    torch.cuda.synchronize()
+    elt_launches = fft_natural.launch_count
+    on_cpu = TDOAPipeline(ecfg, device="cpu").step_split(*elt_host)
+    pos = on_card.fix.position_enu.cpu().numpy()
+    err_m = float(np.linalg.norm(pos[:2] - elt.emitter_enu[0][:2]))
+    cpu_err_m = float(np.linalg.norm(on_cpu.fix.position_enu.numpy()[:2] - elt.emitter_enu[0][:2]))
+    fix_gap = float(np.abs(pos - on_cpu.fix.position_enu.numpy()).max())
+    lag_gap = (on_card.correlation.lag_samples.cpu() - on_cpu.correlation.lag_samples).abs().max().item()
+    same_peaks = bool((on_card.peaks.bin_index.cpu() == on_cpu.peaks.bin_index).all())
+    print(
+        f"phase 11: ELT scene (4 buoys, 8 dwells x 32768, 5 kHz chirp): fix error {err_m:.3f} m "
+        f"(limit 500; CPU {cpu_err_m:.3f}), card vs CPU: fix {fix_gap:.3e} m (tol 1), lags "
+        f"{lag_gap:.3e} samples, peaks equal {same_peaks}, K7 launches {elt_launches} {tag}"
+    )
+    _require(err_m < 500.0, f"ELT fix error {err_m} m")
+    _require(fix_gap <= 1.0, f"ELT card and CPU fixes differ by {fix_gap} m")
+    _require(elt_launches >= 1, "the ELT run did not launch K7")
+
+    # ---- phase 12: the buoy detection dwell, card vs CPU
+    dwell = sim.synthesize(sim.default_scenario(signal="fm", bandwidth_hz=16e3, freq_offset_hz=150e3,
+                                                snr_db=25.0, seed=5, block_len=n))
+    dhost = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)) for a in (dwell.iq.real, dwell.iq.imag)]
+    dkw = dict(sample_rate_hz=dwell.scenario.sample_rate_hz, max_peaks=8, threshold_db=-70.0,
+               power_offset_db=40.0)
+    c_peaks, c_bw = buoy_detect.detect_dwell(*dhost, **dkw)
+    g_peaks, g_bw = buoy_detect.detect_dwell(*(a.to(dev) for a in dhost), **dkw)
+    torch.cuda.synchronize()
+    same_bins = bool((g_peaks.bin_index.cpu() == c_peaks.bin_index).all()
+                     and (g_peaks.valid.cpu() == c_peaks.valid).all())
+    pw_gap = (g_peaks.power_db.cpu() - c_peaks.power_db).abs().max().item()
+    same_bw = bool((g_bw.cpu() == c_bw).all())
+    print(
+        f"phase 12: buoy dwell [4, {n}] card vs CPU: peaks equal {same_bins}, power {pw_gap:.3e} dB "
+        f"(tol 1e-3), bandwidths equal {same_bw}, {int(c_peaks.valid.sum())} valid peaks, strongest at "
+        f"{g_peaks.freq_offset_hz[:, 0].cpu().numpy().round(1).tolist()} Hz {tag}"
+    )
+    _require(same_bins and pw_gap <= 1e-3 and same_bw, "buoy dwell: card and CPU disagree")
+    _require(bool(c_peaks.valid.any()), "buoy dwell detected nothing")
+
+    # ---- phase 13: narrowband multi-dwell at full width, 4 blocks
+    nblocks = 4
+    nraw = torch.stack([raw] + [npipe.example_inputs(batch=(chans,), seed=k, uint8=True)[0]
+                                for k in range(1, nblocks)])
+    npipe.step_split_uint8(raw, nanchors)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    fft_natural.launch_count = 0
+    t0 = time.perf_counter()
+    nout = npipe.step_split_uint8_scan(nraw, nanchors)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k7_launches = fft_natural.launch_count
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    finite = all(torch.isfinite(x).all().item() for x in _leaves(torch, nout) if x.is_floating_point())
+    ms_block = 1e3 * wall / nblocks
+    real_ms = 1e3 * ncfg.correlation_dwells * n / fs
+    print(
+        f"phase 13: narrowband {nblocks} blocks x {chans} ch x {buoys} buoys x 8 dwells x {n} uint8 IQ "
+        f"(nfft {fft_ops.friendly_fft_len(8 * n + lag)} for the pair stage): "
+        f"{ms_block:.3f} ms/block (real time {real_ms:.3f}, ratio {ms_block / real_ms:.3f}), "
+        f"{nblocks * chans * buoys * 8 * n / wall:.4e} IQ samples/s, peak mem {peak_gib:.2f} GiB "
+        f"(limit 40), K7 launches {k7_launches} ({k7_launches / nblocks:g} per block), all finite "
+        f"{finite} {tag}"
+    )
+    _require(tuple(nout.fix.position_enu.shape) == (nblocks, chans, 3), "narrowband scan output shape")
+    _require(finite, "non-finite narrowband outputs at full width")
+    _require(peak_gib < 40.0, f"narrowband peak device memory {peak_gib:.2f} GiB")
+    _require(k7_launches == nblocks, f"K7 launches {k7_launches}")
+    med = _stage_split(
+        torch, lambda mark: npipe.step_split_uint8(raw, nanchors, on_stage=mark),
+        ["decode", "psd", "detect", "spectra", "pair_corr", "lag_peaks", "solve"],
+    )
+    print(
+        "phase 13: stage split ms/block (median of 3, CUDA events; pair stage in chunks of "
+        f"channels): decode {med['decode']:.3f}, K7 psd {med['psd']:.3f}, detect {med['detect']:.3f}, "
+        f"spectra (matmul four-step) {med['spectra']:.3f}, pair corr {med['pair_corr']:.3f}, "
+        f"lag peaks {med['lag_peaks']:.3f}, weights+solve (4 starts) {med['solve']:.3f}, "
+        f"sum {sum(med.values()):.3f} {tag}"
+    )
+    k7_main = k7[(chans * buoys * 8, n)]
+
     print(json.dumps({"kernels": [
         {
             "name": "fft_detect_rows_ct",
@@ -498,6 +659,16 @@ def main() -> int:
             "max_abs_err": k6_abs,
             "ms": k6_ms,
             "plain_ms": k6_plain_ms,
+        },
+        {
+            "name": "fft_rows",
+            "route": "cuda",
+            "source": "radio_mapper_tpu_torch/csrc/fft_rows.cu",
+            "replaces": "radio_mapper_tpu/ops/pallas/fft_kernel.py:212",
+            "launches": k7_launches,
+            "max_abs_err": max(v[0] for v in k7.values()),
+            "ms": k7_main[2],
+            "plain_ms": k7_main[3],
         },
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))

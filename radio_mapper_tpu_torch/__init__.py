@@ -1,6 +1,6 @@
 """radio_mapper_tpu_torch — the TDOA pipelines in PyTorch with CUDA kernels.
 
-A port of two slices of :mod:`radio_mapper_tpu` (JAX/Pallas on a TPU) to
+A port of three slices of :mod:`radio_mapper_tpu` (JAX/Pallas on a TPU) to
 PyTorch on an NVIDIA H100, with the module layout of the JAX package, so
 each counterpart sits at the same path:
 
@@ -12,7 +12,13 @@ each counterpart sits at the same path:
   ``WidebandTDOAPipeline``): polyphase channelizer → CT-order FFT of
   every subchannel's receivers (K3, :mod:`.ops.cuda.fft_rows`) → pair
   stage with the pair list as data (K5) or on pre-gathered rows (K6),
-  both in :mod:`.ops.cuda.gcc_pair` → LM solve batched over subchannels.
+  both in :mod:`.ops.cuda.gcc_pair` → LM solve batched over subchannels;
+- the narrowband multi-dwell step (``TDOAPipeline`` with
+  ``correlation_dwells > 1``): dwell-averaged PSD through the
+  natural-order FFT (K7, :mod:`.ops.cuda.fft_natural`, routed by
+  :mod:`.ops.fft`) → natural-order detection → one coherent all-pairs
+  GCC over the whole capture → multi-start LM; and the buoy's detection
+  dwell (:mod:`.runtime.buoy_detect`) on the same FFT and detector.
 
 Each kernel is CUDA C++ under ``csrc/`` with a plain PyTorch version
 beside it. The package imports ``torch`` and numpy only; it never

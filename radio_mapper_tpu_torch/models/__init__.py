@@ -1,2 +1,2 @@
-"""End-to-end models of the port: the flagship TDOA pipeline and the
-wideband config-4 pipeline."""
+"""End-to-end models of the port: the flagship TDOA pipeline (single dwell
+and narrowband multi-dwell) and the wideband config-4 pipeline."""

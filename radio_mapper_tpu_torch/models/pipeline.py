@@ -1,8 +1,8 @@
 """The flagship end-to-end TDOA pipeline: decode → detect → correlate → solve.
 
-Port of ``radio_mapper_tpu/models/pipeline.py`` on the route the TPU
-runs by default (the fused FFT + detect kernel feeding the fused pair
-stage):
+Port of ``radio_mapper_tpu/models/pipeline.py`` on the routes the TPU
+runs by default. Single dwell (``correlation_dwells == 1``, the fused FFT
++ detect kernel feeding the fused pair stage):
 
     uint8 IQ [..., B, 2N] → (re, im) f32                 ops.iq
       → zero-pad to nfft = ct_plan.plan_nfft(N + max_lag)
@@ -12,6 +12,14 @@ stage):
       → argmax + parabolic τ + PSR                       ops.gcc_phat
       → pair weights → LM solve + GLS ellipse            solver
 
+Narrowband multi-dwell (``correlation_dwells = K > 1``, inputs
+``[..., B, K·N]``): the dwell-averaged PSD on the N-point grid (kernel K7
+at N = 16384, 32768, 65536 on the card, :mod:`.ops.fft`) → natural-order
+``detect_peaks`` → one coherent all-pairs GCC over the K·N capture
+(:mod:`.ops.split_complex`, matmul four-step at the 5-smooth nfft, in
+chunks of channels) → the same tail; ``solver_starts > 1`` solves from
+several starts on either route.
+
 All leading dims are batch dims (``[channels, B, N]``). PyTorch runs
 eagerly, so the "step" is a plain call; the K-block scan is a loop over
 the leading axis, so the working set stays one block.
@@ -20,6 +28,7 @@ the leading axis, so the working set stays one block.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -29,9 +38,19 @@ import torch.nn.functional as F
 from radio_mapper_tpu_torch import constants, solver
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops import detect as detect_ops
+from radio_mapper_tpu_torch.ops import fft as fft_ops
 from radio_mapper_tpu_torch.ops import gcc_phat as gcc_ops
 from radio_mapper_tpu_torch.ops import iq as iq_ops
+from radio_mapper_tpu_torch.ops import split_complex as sc_ops
 from radio_mapper_tpu_torch.ops.cuda import fft_detect, gcc_pair
+
+# The multi-dwell pair stage runs over channels in chunks whose [P, nfft]
+# float32 planes hold at most this many bytes: the matmul four-step keeps
+# about a dozen such planes alive, so at the full narrowband width (128
+# channels × 28 pairs × nfft 135000, 1.9 GB a plane) device memory stays
+# at a few GiB. Channels are independent: the chunking changes no value
+# beyond the rounding of a product's blocking.
+PAIR_PLANE_BYTES = 512 << 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,11 +86,11 @@ class PipelineConfig:
             raise ValueError("need at least 2 receivers")
         if self.correlation_dwells < 1:
             raise ValueError("correlation_dwells must be >= 1")
-        # Routes of the JAX package not ported yet (ROADMAP M6).
         if self.correlation_dwells > 1:
-            raise NotImplementedError("correlation_dwells > 1 is not ported")
-        if self.solver_starts > 1:
-            raise NotImplementedError("solver_starts > 1 is not ported")
+            if self.weighting not in sc_ops.WEIGHTINGS:
+                raise ValueError(f"unknown weighting {self.weighting!r}")
+            return self
+        # Single-dwell routes of the JAX package not ported yet (ROADMAP M6).
         if self.weighting != "phat":
             raise NotImplementedError(f"weighting {self.weighting!r} is not ported (phat only)")
         if self.noise_floor_stride != ct_plan.SEGMENT:
@@ -86,11 +105,14 @@ class PipelineConfig:
 
     @property
     def nfft(self) -> int:
+        """The single-dwell route's CT-order FFT length."""
         return ct_plan.plan_nfft(self.block_len + self.max_lag)
 
 
 class PipelineOutput(NamedTuple):
-    peaks: detect_ops.PeakSet  # per-buoy detections [..., B, K]; bin_index on the nfft grid
+    # per-buoy detections [..., B, K]; bin_index on the nfft grid (single
+    # dwell) or the block_len grid (multi-dwell) — see detect_ops.PeakSet
+    peaks: detect_ops.PeakSet
     correlation: gcc_ops.CorrelationPeak  # per-pair TDOA [..., P]
     pair_weights: torch.Tensor  # [..., P]
     fix: solver.SolveResult  # [...]-batched position solution
@@ -104,8 +126,8 @@ class TDOAPipeline:
     """The flagship step for a fixed configuration on one device.
 
     ``device`` is explicit: inputs must already lie on it. On a CUDA
-    device the two stages K1 and K2 run the hand-written kernels; on the
-    CPU they run their plain PyTorch versions.
+    device the kernels of the route (K1 and K2, or K7) run by hand-written
+    CUDA; on the CPU their plain PyTorch versions run.
     """
 
     def __init__(self, config: PipelineConfig, *, device: torch.device | str):
@@ -119,7 +141,7 @@ class TDOAPipeline:
         self.pair_i = torch.as_tensor(i_idx, dtype=torch.int64, device=self.device)
         self.pair_j = torch.as_tensor(j_idx, dtype=torch.int64, device=self.device)
         c = self.config
-        self.plan = ct_plan.detect_plan(
+        self.plan = None if c.correlation_dwells > 1 else ct_plan.detect_plan(
             c.nfft,
             sample_rate_hz=c.sample_rate_hz,
             threshold_db=c.detection_threshold_db,
@@ -152,7 +174,10 @@ class TDOAPipeline:
         """Shared tail: weights → solve → output."""
         c = self.config
         weights = self.pair_weights(peaks, corr)
-        fix = solver.solve_tdoa_impl(
+        solve = solver.solve_tdoa_impl
+        if c.solver_starts > 1:
+            solve = functools.partial(solver.solve_tdoa_multistart, num_starts=c.solver_starts)
+        fix = solve(
             anchors_enu,
             self.pair_i,
             self.pair_j,
@@ -176,20 +201,25 @@ class TDOAPipeline:
         self, re: torch.Tensor, im: torch.Tensor, anchors_enu: torch.Tensor,
         *, on_stage: StageHook = None,
     ) -> PipelineOutput:
-        """Full pipeline on float32 ``(re, im)`` ``[..., B, N]`` and anchors
-        ``[..., B, 3]``.
+        """Full pipeline on float32 ``(re, im)`` ``[..., B, K·N]`` (K =
+        ``correlation_dwells``, N = ``block_len``) and anchors ``[..., B, 3]``.
 
-        ``on_stage(name)``, when given, is called after each stage
-        ("pad", "fft_detect", "peaks", "gcc_pair", "lag_peaks", "solve") —
-        a hook for per-stage timing; it changes nothing else.
+        ``on_stage(name)``, when given, is called after each stage — a hook
+        for per-stage timing; it changes nothing else. Single dwell: "pad",
+        "fft_detect", "peaks", "gcc_pair", "lag_peaks", "solve".
+        Multi-dwell: "psd", "detect", then "spectra", "pair_corr",
+        "lag_peaks" once per chunk of channels, then "solve".
         """
         c = self.config
         mark = on_stage or (lambda _name: None)
         self._on_device(re, im, anchors_enu)
-        if re.shape != im.shape or re.shape[-2:] != (c.num_buoys, c.block_len):
+        length = c.correlation_dwells * c.block_len
+        if re.shape != im.shape or re.shape[-2:] != (c.num_buoys, length):
             raise ValueError(
-                f"need re/im [..., {c.num_buoys}, {c.block_len}], got {tuple(re.shape)}"
+                f"need re/im [..., {c.num_buoys}, {length}], got {tuple(re.shape)}"
             )
+        if c.correlation_dwells > 1:
+            return self._step_split_multidwell(re, im, anchors_enu, mark)
         batch = re.shape[:-2]
         nfft = self.plan.nfft
         pad = lambda a: F.pad(a.to(torch.float32), (0, nfft - c.block_len)).reshape(-1, nfft)
@@ -229,10 +259,60 @@ class TDOAPipeline:
         mark("solve")
         return out
 
+    def _step_split_multidwell(self, re, im, anchors_enu, mark) -> PipelineOutput:
+        """Narrowband route: dwell-averaged PSD detection on the block_len
+        grid + one coherent correlation of the whole K·N capture."""
+        c = self.config
+        k, n = c.correlation_dwells, c.block_len
+        re = re.to(torch.float32)
+        im = im.to(torch.float32)
+        dwell_db = sc_ops.power_spectrum_db_split(
+            re.reshape(*re.shape[:-1], k, n), im.reshape(*im.shape[:-1], k, n)
+        )  # [..., B, K, N]
+        power_db = (
+            10.0 * torch.log10((10.0 ** (dwell_db / 10.0)).mean(dim=-2) + 1e-30)
+            + c.power_offset_db
+        )
+        del dwell_db
+        mark("psd")
+        peaks = detect_ops.detect_peaks(
+            power_db,
+            sample_rate_hz=c.sample_rate_hz,
+            max_peaks=c.max_peaks,
+            threshold_db=c.detection_threshold_db,
+            noise_floor_stride=c.noise_floor_stride,
+        )
+        mark("detect")
+
+        batch = re.shape[:-2]
+        flat = lambda a: a.reshape(-1, c.num_buoys, k * n)
+        nfft = fft_ops.friendly_fft_len(k * n + c.max_lag)
+        chunk = max(1, PAIR_PLANE_BYTES // (4 * c.num_pairs * nfft))
+        parts = []
+        for cre, cim in zip(flat(re).split(chunk), flat(im).split(chunk)):
+            fr, fi, _ = sc_ops.receiver_spectra_split(cre, cim, max_lag=c.max_lag)
+            mark("spectra")
+            mags = sc_ops.gcc_lag_mags_split(
+                fr, fi, self.pair_i, self.pair_j,
+                max_lag=c.max_lag, weighting=c.weighting, eps=c.gcc_eps,
+            )
+            del fr, fi
+            mark("pair_corr")
+            parts.append(gcc_ops.peaks_from_lag_mags(
+                mags, sample_rate_hz=c.sample_rate_hz, max_lag=c.max_lag
+            ))
+            mark("lag_peaks")
+        corr = gcc_ops.CorrelationPeak(
+            *(torch.cat(f).reshape(*batch, c.num_pairs) for f in zip(*parts))
+        )
+        out = self._finish(peaks, corr, anchors_enu)
+        mark("solve")
+        return out
+
     def step_split_uint8(
         self, raw: torch.Tensor, anchors_enu: torch.Tensor, *, on_stage: StageHook = None
     ) -> PipelineOutput:
-        """Pipeline from raw interleaved uint8 bytes ``[..., B, 2N]``."""
+        """Pipeline from raw interleaved uint8 bytes ``[..., B, 2·K·N]``."""
         self._on_device(raw)
         re, im = iq_ops.decode_uint8_split(raw)
         if on_stage is not None:
@@ -244,14 +324,15 @@ class TDOAPipeline:
     def step_split_uint8_scan(
         self, raw: torch.Tensor, anchors_enu: torch.Tensor
     ) -> PipelineOutput:
-        """K consecutive blocks ``raw [K, ..., B, 2N]``, one at a time, with
-        shared anchors; outputs stack on a leading K axis (block k at k)."""
+        """T consecutive blocks ``raw [T, ..., B, 2·K·N]``, one at a time,
+        with shared anchors; outputs stack on a leading T axis (block t at
+        t)."""
         return _stack([self.step_split_uint8(blk, anchors_enu) for blk in raw.unbind(0)])
 
     def step_split_scan(
         self, re: torch.Tensor, im: torch.Tensor, anchors_enu: torch.Tensor
     ) -> PipelineOutput:
-        """Scan variant of :meth:`step_split`: ``re/im [K, ..., B, N]``."""
+        """Scan variant of :meth:`step_split`: ``re/im [T, ..., B, K·N]``."""
         return _stack([
             self.step_split(r, i, anchors_enu) for r, i in zip(re.unbind(0), im.unbind(0))
         ])
@@ -261,19 +342,21 @@ class TDOAPipeline:
     def example_inputs(self, *, batch: tuple = (), seed: int = 0, uint8: bool = False):
         """Random inputs on the pipeline's device, drawn from numpy
         ``default_rng(seed)`` in the JAX package's order (anchors first), so
-        both packages see the same values. Returns ``(raw, anchors)`` with
-        ``uint8=True``, else ``(re, im, anchors)``."""
+        both packages see the same values; the capture is ``K·N`` samples
+        per buoy (K = ``correlation_dwells``). Returns ``(raw, anchors)``
+        with ``uint8=True``, else ``(re, im, anchors)``."""
         c = self.config
+        length = c.correlation_dwells * c.block_len
         rng = np.random.default_rng(seed)
         anchors = rng.normal(scale=8_000.0, size=(c.num_buoys, 3)).astype(np.float32)
         anchors[:, 2] = 0.0
         anchors = np.array(np.broadcast_to(anchors, (*batch, c.num_buoys, 3)))
         to = lambda a: torch.from_numpy(a).to(self.device)
         if uint8:
-            raw = rng.integers(0, 256, size=(*batch, c.num_buoys, 2 * c.block_len), dtype=np.uint8)
+            raw = rng.integers(0, 256, size=(*batch, c.num_buoys, 2 * length), dtype=np.uint8)
             return to(raw), to(anchors)
-        re = rng.normal(size=(*batch, c.num_buoys, c.block_len)).astype(np.float32)
-        im = rng.normal(size=(*batch, c.num_buoys, c.block_len)).astype(np.float32)
+        re = rng.normal(size=(*batch, c.num_buoys, length)).astype(np.float32)
+        im = rng.normal(size=(*batch, c.num_buoys, length)).astype(np.float32)
         return to(re), to(im), to(anchors)
 
 

@@ -1,30 +1,41 @@
-"""Top-K peak selection over the fused detector's segment partials.
+"""Spectral peak detection: the fused detector's top-K tail and the
+natural-order detector.
 
-Port of ``radio_mapper_tpu/ops/detect.py`` (``PeakSet``,
-``peaks_from_ct_partials``). Kernel K1 (:mod:`.cuda.fft_detect`) already
-applied every gate and reduced each 8-bin segment to (max, argmax); this
-tail picks the K strongest segments and converts only those to
-dB / frequency / confidence.
+Port of ``radio_mapper_tpu/ops/detect.py``:
+
+- ``peaks_from_ct_partials`` (single-dwell route): kernel K1
+  (:mod:`.cuda.fft_detect`) already applied every gate and reduced each
+  8-bin segment to (max, argmax); this tail picks the K strongest
+  segments and converts only those to dB / frequency / confidence;
+- ``detect_peaks`` and ``sliding_local_max`` (multi-dwell route and the
+  buoy dwell) on a natural-order dB spectrum, with the reference's
+  safe-mode semantics — the ones the TPU runs: circular sliding max,
+  bisected median floor, segmented top-K with the lowest-index
+  tie-break.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from radio_mapper_tpu_torch import constants
-from radio_mapper_tpu_torch.ops import ct_plan, safe
+from radio_mapper_tpu_torch.ops import ct_plan, safe, spectral
 
 
 class PeakSet(NamedTuple):
     """Fixed-size set of detected peaks; all tensors are ``[..., K]``.
 
-    ``bin_index`` is on the nfft-point grid of the padded CT spectrum;
-    ``freq_offset_hz`` is computed with that grid's bin spacing.
+    ``bin_index`` is relative to the spectrum that was detected on, which
+    depends on the route: the single-dwell route detects on the
+    nfft-point grid of the padded CT spectrum, the multi-dwell route and
+    the buoy dwell on the block_len grid. ``freq_offset_hz`` is computed
+    with the matching bin spacing and compares across routes.
     """
 
-    bin_index: torch.Tensor  # int32 FFT bin (un-shifted order, DC at 0)
+    bin_index: torch.Tensor  # int32 FFT bin (un-shifted order, DC at 0; grid depends on the route)
     freq_offset_hz: torch.Tensor  # float32 offset from tuned center
     power_db: torch.Tensor  # float32 peak power
     snr_db: torch.Tensor  # float32 power above median noise floor
@@ -66,6 +77,73 @@ def peaks_from_ct_partials(
         bin_index=torch.where(valid, top_idx, 0).to(torch.int32),
         freq_offset_hz=torch.where(valid, peak_freq, zero),
         power_db=torch.where(valid, top_db, zero),
+        snr_db=torch.where(valid, peak_snr, zero),
+        confidence=torch.where(valid, peak_conf, zero),
+        valid=valid,
+        noise_floor_db=noise_floor,
+    )
+
+
+def sliding_local_max(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """True where ``x`` equals the max of its circular ±radius window
+    (last axis)."""
+    return x >= safe.sliding_max(x, radius)
+
+
+def detect_peaks(
+    power_db: torch.Tensor,
+    *,
+    sample_rate_hz: float,
+    max_peaks: int = 8,
+    threshold_db: float = constants.DEFAULT_DETECTION_THRESHOLD_DBM,
+    min_distance_bins: int = constants.DEFAULT_PEAK_MIN_DISTANCE_BINS,
+    dc_notch_hz: Optional[float] = constants.DEFAULT_DC_NOTCH_HZ,
+    confidence_floor: float = constants.DEFAULT_CONFIDENCE_FLOOR,
+    snr_fullscale_db: float = constants.DEFAULT_SNR_FULLSCALE_DB,
+    noise_floor_stride: int = 1,
+) -> PeakSet:
+    """Top-K spectral peaks of ``power_db [..., F]`` (dB, un-shifted bin
+    order), sorted by power, invalid slots masked and zero-filled.
+
+    The noise floor is the bisected median of every ``noise_floor_stride``-th
+    bin; a candidate is a circular ±``min_distance_bins`` local max above
+    ``threshold_db``, outside the static DC notch and at least
+    ``confidence_floor · snr_fullscale_db`` above the floor (a floor above
+    1 passes nothing, one at or below 0 disables the gate).
+    """
+    f = power_db.shape[-1]
+    dev = power_db.device
+    nf_src = power_db[..., ::noise_floor_stride] if noise_floor_stride > 1 else power_db
+    noise_floor = safe.median_bisect(nf_src)
+
+    candidate = sliding_local_max(power_db, min_distance_bins) & (power_db > threshold_db)
+    if dc_notch_hz is not None:
+        keep = np.abs(spectral.fft_frequencies_hz(f, sample_rate_hz)) >= dc_notch_hz
+        candidate = candidate & torch.from_numpy(keep).to(dev)
+    if confidence_floor > 1.0:
+        candidate = torch.zeros_like(candidate)
+    elif confidence_floor > 0.0:
+        candidate = candidate & (
+            power_db - noise_floor.unsqueeze(-1) >= confidence_floor * snr_fullscale_db
+        )
+
+    score = torch.where(candidate, power_db, float("-inf"))
+    seg = ct_plan.SEGMENT
+    if f % seg == 0 and min_distance_bins + 1 >= seg:
+        top_vals, top_idx = safe.top_k_segmented(score, max_peaks, seg)
+    else:
+        top_vals, top_idx = safe.top_k(score, max_peaks)
+    valid = torch.isfinite(top_vals)
+    peak_snr = top_vals - noise_floor.unsqueeze(-1)
+    peak_conf = torch.clamp(peak_snr / snr_fullscale_db, 0.0, 1.0)
+    # fftfreq arithmetically: bins ≤ (F−1)//2 are positive, the rest wrap
+    kf = top_idx.to(torch.float32)
+    peak_freq = torch.where(top_idx <= (f - 1) // 2, kf, kf - f) * (sample_rate_hz / f)
+    zero = torch.zeros_like(peak_snr)
+    return PeakSet(
+        bin_index=torch.where(valid, top_idx, 0).to(torch.int32),
+        freq_offset_hz=torch.where(valid, peak_freq, zero),
+        power_db=torch.where(valid, top_vals, zero),
         snr_db=torch.where(valid, peak_snr, zero),
         confidence=torch.where(valid, peak_conf, zero),
         valid=valid,

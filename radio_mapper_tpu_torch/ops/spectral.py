@@ -1,0 +1,62 @@
+"""Spectral helpers of the natural-order detection: bin frequencies and
+the −3 dB bandwidth walk.
+
+Port of ``radio_mapper_tpu/ops/spectral.py`` (``fft_frequencies_hz``,
+``estimate_bandwidth_hz`` with its safe-mode branch — the one the TPU
+runs: a boxcar built from rolls and a gather-free walk).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from radio_mapper_tpu_torch.ops import safe
+
+
+def fft_frequencies_hz(n: int, sample_rate_hz: float) -> np.ndarray:
+    """Baseband bin frequencies of an ``n``-point FFT, un-shifted (numpy;
+    static)."""
+    return np.fft.fftfreq(n, d=1.0 / sample_rate_hz)
+
+
+def estimate_bandwidth_hz(
+    power_db: torch.Tensor,
+    peak_bin: torch.Tensor,
+    sample_rate_hz: float,
+    *,
+    drop_db: float = 3.0,
+    max_halfwidth_bins: int = 256,
+    smooth_bins: int = 1,
+) -> torch.Tensor:
+    """−3 dB bandwidth around a peak bin.
+
+    Args:
+      power_db: ``[..., F]`` spectra (leading dims broadcast against
+        ``peak_bin``).
+      peak_bin: ``[...]`` integer peak indices.
+      smooth_bins: odd boxcar width (circular) applied before the walk.
+    Returns:
+      ``[...]`` float32 bandwidth in Hz: the distance between the first
+      bins more than ``drop_db`` below the peak on each side, each side
+      capped at ``max_halfwidth_bins``, at least one bin.
+    """
+    f = power_db.shape[-1]
+    if smooth_bins > 1:
+        h = smooth_bins // 2
+        acc = power_db
+        for d in range(1, h + 1):
+            acc = acc + torch.roll(power_db, d, dims=-1)
+            acc = acc + torch.roll(power_db, -d, dims=-1)
+        power_db = acc / smooth_bins
+    shape = torch.broadcast_shapes(power_db.shape[:-1], peak_bin.shape)
+    power_db = power_db.expand(*shape, f)
+    peak_bin = peak_bin.to(torch.int64).expand(shape)
+    peak_val = safe.take1_last(power_db, peak_bin)
+    delta = torch.arange(f, device=power_db.device) - peak_bin.unsqueeze(-1)
+    below = power_db < (peak_val.unsqueeze(-1) - drop_db)
+    big = max_halfwidth_bins
+    first_right = torch.where(below & (delta > 0), delta, big).amin(dim=-1).clamp(max=big)
+    first_left = torch.where(below & (delta < 0), -delta, big).amin(dim=-1).clamp(max=big)
+    width_bins = torch.clamp(first_right + first_left, min=1)
+    return width_bins.to(torch.float32) * (sample_rate_hz / f)

@@ -1,7 +1,8 @@
 """Batched hyperbolic (TDOA) Levenberg-Marquardt positioning.
 
 Port of ``radio_mapper_tpu/solver.py`` (``solve_tdoa_impl`` with the
-per-receiver noise model and no pair-parallel axis). The fixed-count LM
+per-receiver noise model and no pair-parallel axis; ``perturbed_starts``
+and ``solve_tdoa_multistart``). The fixed-count LM
 loop is a Python loop of branchless ``torch.where`` updates — no
 ``.item()``, no host synchronisation, so on the card it only enqueues.
 
@@ -237,6 +238,62 @@ def solve_tdoa_impl(
         ellipse_minor_m=minor,
         ellipse_orientation_deg=bearing,
     )
+
+
+def perturbed_starts(anchors_enu: torch.Tensor, num_starts: int, spread_m: float = 0.0) -> torch.Tensor:
+    """Deterministic multi-start seeds ``[num_starts, ..., 3]``: start 0 is
+    the anchor centroid; start k>0 sits beyond anchor (k−1) mod B along
+    the centroid→anchor ray (catching emitters outside the array hull)."""
+    centroid = anchors_enu.mean(dim=-2)
+    b = anchors_enu.shape[-2]
+    starts = [centroid]
+    for k in range(1, num_starts):
+        a = anchors_enu[..., (k - 1) % b, :]
+        starts.append(centroid + 2.5 * (a - centroid) + spread_m)
+    return torch.stack(starts, dim=0)
+
+
+def solve_tdoa_multistart(
+    anchors_enu: torch.Tensor,
+    pair_i: torch.Tensor,
+    pair_j: torch.Tensor,
+    dd_m: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+    *,
+    num_starts: int = 4,
+    **kwargs,
+) -> SolveResult:
+    """:func:`solve_tdoa_impl` from :func:`perturbed_starts`, keeping the
+    lowest final cost (ties: the lowest start index, as ``jnp.argmin``).
+
+    The starts run as one batched solve on a new leading axis."""
+    anchors_enu = anchors_enu.to(torch.float32)
+    lead = [anchors_enu.shape[:-2], dd_m.shape[:-1]]
+    if weights is not None:
+        lead.append(weights.shape[:-1])
+    batch = (num_starts, *torch.broadcast_shapes(*lead))
+    over = lambda x, tail: x.expand(*batch, *tail)
+    starts = perturbed_starts(anchors_enu, num_starts)  # [S, *anchor batch, 3]
+    starts = starts.reshape(num_starts, *(1,) * (len(batch) + 1 - starts.dim()), *starts.shape[1:])
+    res = solve_tdoa_impl(
+        over(anchors_enu, anchors_enu.shape[-2:]),
+        pair_i,
+        pair_j,
+        over(dd_m, dd_m.shape[-1:]),
+        None if weights is None else over(weights, weights.shape[-1:]),
+        init_enu=over(starts, (3,)),
+        **kwargs,
+    )
+    # argmin over starts, NaN counting as the minimum (as jnp.argmin)
+    cost = torch.where(torch.isnan(res.cost), float("-inf"), res.cost)  # [S, ...]
+    first = torch.arange(num_starts, device=cost.device).reshape(-1, *(1,) * (cost.dim() - 1))
+    best = torch.where(cost <= cost.amin(dim=0, keepdim=True), first, num_starts).amin(dim=0)
+
+    def take(field):
+        idx = best.reshape(1, *best.shape, *(1,) * (field.dim() - 1 - best.dim()))
+        return torch.take_along_dim(field, idx, dim=0)[0]
+
+    return SolveResult(*(take(f) for f in res))
 
 
 def tau_to_distance_difference(tau_s: torch.Tensor) -> torch.Tensor:

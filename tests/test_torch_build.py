@@ -11,6 +11,9 @@ from pathlib import Path
 import pytest
 
 from radio_mapper_tpu_torch.ops.cuda import build
+from radio_mapper_tpu_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 
 @pytest.fixture

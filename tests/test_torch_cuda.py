@@ -9,7 +9,7 @@ Without a card every test here skips (a CUDA kernel has no CPU mode).
 The input builders and comparisons are shared with the JAX parity tests
 (``test_torch_fft_detect.py``, ``test_torch_gcc_pair.py``,
 ``test_torch_fft_rows.py``, ``test_torch_gcc_pairs.py``,
-``test_torch_wideband.py``), so a kernel is held to the same tolerances
+``test_torch_wideband.py``, ``test_torch_fft_natural.py``), so a kernel is held to the same tolerances
 as its plain version is against JAX:
 
 - K1 and K3 spectra within 1e-4 of the row's max |X|; K1 ``row_max``
@@ -19,8 +19,10 @@ as its plain version is against JAX:
   1e-4 of the row's max power;
 - K2, K5 and K6 lag windows within 1e-4 of each pair's window max, with
   the same argmax;
+- K7 spectra within 1e-4 of the row's max |X|, in natural order;
 - pipelines on the card vs the CPU: lags within 1e-3 samples, fixes
-  within 0.5 m.
+  within 0.5 m (the narrowband ELT scene: 1e-2 samples and 1 m, see its
+  test); the buoy dwell's peaks and bandwidths exactly.
 """
 
 import numpy as np
@@ -31,7 +33,10 @@ from radio_mapper_tpu_torch import sim
 from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
 from radio_mapper_tpu_torch.models.wideband import WidebandConfig, WidebandTDOAPipeline
 from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat
-from radio_mapper_tpu_torch.ops.cuda import fft_detect, fft_rows, gcc_pair
+from radio_mapper_tpu_torch.ops.cuda import fft_detect, fft_natural, fft_rows, gcc_pair
+from radio_mapper_tpu_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 DET = dict(
     sample_rate_hz=2_400_000.0,
@@ -247,6 +252,36 @@ def test_k3_kernel_matches_plain(cuda_device, nfft):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(8, 4096), (40, 16384), (6, 32768), (3, 65536)])
+def test_k7_kernel_matches_plain(cuda_device, rows, n):
+    """K7 (two passes through scratch) vs its plain version, natural order,
+    on every length the routing sends it plus 4096 (64·64)."""
+    re, im = tone_rows(rows, n, 13)
+    xr = torch.from_numpy(re).to(cuda_device)
+    xi = torch.from_numpy(im).to(cuda_device)
+    before = fft_natural.launch_count
+    out = fft_natural.fft_rows(xr, xi)
+    torch.cuda.synchronize()
+    assert fft_natural.launch_count == before + 1
+    ref = fft_natural.fft_rows_plain(xr, xi)
+    assert_spectra_close([o.cpu() for o in out], [o.cpu() for o in ref])
+    # natural order: the tones of tone_rows sit at their own bins
+    assert out[0][0].abs().argmax().item() == 137
+
+
+@pytest.mark.cuda
+def test_k7_kernel_rejects_unsupported_input(cuda_device):
+    x = torch.zeros(2, 17280, device=cuda_device)  # 135·128: factors not multiples of 64
+    with pytest.raises(ValueError):
+        fft_natural.fft_rows(x, x)
+    y = torch.zeros(16384, 2, device=cuda_device).t()
+    with pytest.raises(ValueError):  # not contiguous
+        fft_natural.fft_rows(y, y)
+    with pytest.raises(TypeError):
+        fft_natural.fft_rows(x.double(), x.double())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,b,nfft,max_lag,pairs", [(3, 8, 5120, 128, None), (2, 12, 2048, 64, 37)])
 def test_k5_kernel_matches_plain(cuda_device, m, b, nfft, max_lag, pairs):
     sre, sim_, smax = correlated_spectra(m, b, nfft, 6)
@@ -309,3 +344,64 @@ def test_wideband_on_card_matches_cpu(cuda_device, route):
     fix = gpu.fixes_enu[sub].cpu().numpy()
     np.testing.assert_allclose(fix, cpu.fixes_enu[sub].numpy(), atol=0.5)
     assert np.linalg.norm(fix[:2] - emitter[:2]) < 300.0
+
+
+def elt_scene(dwells, n, seed=11):
+    """The 121.5 MHz ELT case of ``tests/test_validation_scenarios.py``: a
+    5 kHz chirp at +12 kHz from (35.46, −97.50) to the OKC buoys, 2.048
+    MS/s, SNR 22 dB, ``dwells × n`` samples. Returns ``(cap, config)``
+    with max_lag 600, power offset 40 dB and 4 solver starts."""
+    scen = sim.Scenario(
+        buoys=tuple(sim.Buoy(b, la, ln, al) for b, la, ln, al in sim.OKC_BUOYS),
+        emitters=(sim.Emitter(lat=35.46, lng=-97.50, signal="chirp", bandwidth_hz=5e3,
+                              freq_offset_hz=12_000.0),),
+        center_frequency_mhz=121.5, sample_rate_hz=2_048_000.0, block_len=dwells * n,
+        snr_db=22.0, seed=seed,
+    )
+    cfg = PipelineConfig(num_buoys=4, block_len=n, sample_rate_hz=scen.sample_rate_hz, max_lag=600,
+                         power_offset_db=40.0, solver_starts=4, correlation_dwells=dwells)
+    return sim.synthesize(scen), cfg
+
+
+@pytest.mark.cuda
+def test_multidwell_on_card_matches_cpu(cuda_device):
+    """The ELT scene at 4 dwells × 16384 (K7 on the card for the dwell
+    PSD) vs the CPU: detections equal, lags within 1e-2 samples (a 5 kHz
+    chirp's correlation peak is hundreds of samples wide, so the
+    parabolic refine moves with float32 sums), fixes within 1 m."""
+    cap, cfg = elt_scene(4, 16384)
+    host = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+            for a in (cap.iq.real, cap.iq.imag, cap.buoy_enu)]
+    cpu = TDOAPipeline(cfg, device="cpu").step_split(*host)
+    before = fft_natural.launch_count
+    gpu = TDOAPipeline(cfg, device=cuda_device).step_split(*(a.to(cuda_device) for a in host))
+    torch.cuda.synchronize()
+    assert fft_natural.launch_count == before + 1
+    np.testing.assert_array_equal(gpu.peaks.bin_index.cpu().numpy(), cpu.peaks.bin_index.numpy())
+    np.testing.assert_array_equal(gpu.peaks.valid.cpu().numpy(), cpu.peaks.valid.numpy())
+    np.testing.assert_allclose(
+        gpu.correlation.lag_samples.cpu().numpy(), cpu.correlation.lag_samples.numpy(), atol=1e-2
+    )
+    np.testing.assert_allclose(gpu.fix.position_enu.cpu().numpy(), cpu.fix.position_enu.numpy(), atol=1.0)
+
+
+@pytest.mark.cuda
+def test_buoy_dwell_on_card_matches_cpu(cuda_device):
+    """One 16384-sample dwell per buoy: peaks and bandwidths equal, power
+    within 1e-3 dB."""
+    from radio_mapper_tpu_torch.runtime import buoy_detect
+
+    cap = sim.synthesize(sim.default_scenario(signal="fm", bandwidth_hz=16e3, freq_offset_hz=150e3,
+                                              snr_db=25.0, seed=5, block_len=16384))
+    host = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)) for a in (cap.iq.real, cap.iq.imag)]
+    kw = dict(sample_rate_hz=cap.scenario.sample_rate_hz, max_peaks=8, threshold_db=-70.0,
+              power_offset_db=40.0)
+    cpu_peaks, cpu_bw = buoy_detect.detect_dwell(*host, **kw)
+    before = fft_natural.launch_count
+    peaks, bw = buoy_detect.detect_dwell(*(a.to(cuda_device) for a in host), **kw)
+    torch.cuda.synchronize()
+    assert fft_natural.launch_count == before + 1
+    np.testing.assert_array_equal(peaks.bin_index.cpu().numpy(), cpu_peaks.bin_index.numpy())
+    np.testing.assert_array_equal(peaks.valid.cpu().numpy(), cpu_peaks.valid.numpy())
+    np.testing.assert_allclose(peaks.power_db.cpu().numpy(), cpu_peaks.power_db.numpy(), atol=1e-3, rtol=0)
+    np.testing.assert_array_equal(bw.cpu().numpy(), cpu_bw.numpy())

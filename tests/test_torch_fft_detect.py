@@ -24,8 +24,11 @@ from radio_mapper_tpu.ops.pallas import detect_kernel
 
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import fft_detect
+from radio_mapper_tpu_torch.testing import cap_cpu_threads
 
 from test_torch_cuda import DET, assert_k1_close, tone_rows
+
+cap_cpu_threads()
 
 @pytest.mark.parametrize("nfft,n_valid,seed", [(5120, 4096, 1), (9216, 8192, 2)])
 def test_plain_k1_matches_pallas_interpret(nfft, n_valid, seed):

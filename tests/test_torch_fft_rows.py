@@ -16,8 +16,11 @@ from radio_mapper_tpu.ops.pallas import fft_kernel
 
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import fft_detect, fft_rows
+from radio_mapper_tpu_torch.testing import cap_cpu_threads
 
 from test_torch_cuda import DET, assert_spectra_close, tone_rows
+
+cap_cpu_threads()
 
 
 @pytest.mark.parametrize("rows,nfft,seed", [(6, 5120, 0), (3, 2048, 1)])

@@ -16,8 +16,11 @@ from radio_mapper_tpu.ops.pallas import gcc_kernel
 
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import gcc_pair
+from radio_mapper_tpu_torch.testing import cap_cpu_threads
 
 from test_torch_cuda import assert_windows_close, correlated_spectra
+
+cap_cpu_threads()
 
 
 @pytest.mark.parametrize(

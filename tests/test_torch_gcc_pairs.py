@@ -18,8 +18,11 @@ from radio_mapper_tpu.ops import gcc_phat as jgcc
 from radio_mapper_tpu.ops.pallas import gcc_kernel
 
 from radio_mapper_tpu_torch.ops.cuda import gcc_pair
+from radio_mapper_tpu_torch.testing import cap_cpu_threads
 
 from test_torch_cuda import assert_windows_close, correlated_spectra, pair_gate_scales, some_pairs
+
+cap_cpu_threads()
 
 SHAPES = [  # (B, nfft, max_lag, pairs): None = all pairs
     (8, 2048, 64, None),

@@ -27,6 +27,9 @@ from radio_mapper_tpu.ops import split_complex as jsc
 
 from radio_mapper_tpu_torch import sim
 from radio_mapper_tpu_torch.models import pipeline
+from radio_mapper_tpu_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 SCENES = {
     "noise-8k": dict(

@@ -24,6 +24,9 @@ from radio_mapper_tpu.ops.pallas import detect_kernel, fft_kernel, gcc_kernel
 from radio_mapper_tpu_torch import constants, sim
 from radio_mapper_tpu_torch.models import pipeline
 from radio_mapper_tpu_torch.ops import ct_plan, iq
+from radio_mapper_tpu_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 
 @pytest.mark.parametrize(
@@ -141,9 +144,16 @@ def test_config_from_dict_and_unported_routes():
     assert dataclasses.asdict(pipeline.PipelineConfig.from_dict(dataclasses.asdict(jcfg))) == (
         dataclasses.asdict(jcfg)
     )
-    for bad in (dict(correlation_dwells=2), dict(solver_starts=4), dict(weighting="cc")):
+    # the single-dwell (fused K1/K2) route has only the phat gate and the
+    # stride-8 floor; the multi-dwell route takes every weighting and stride
+    for bad in (dict(weighting="cc"), dict(noise_floor_stride=1)):
         with pytest.raises(NotImplementedError):
             pipeline.TDOAPipeline(pipeline.PipelineConfig(**bad), device="cpu")
+    for good in (dict(correlation_dwells=8, solver_starts=4), dict(solver_starts=4),
+                 dict(correlation_dwells=2, weighting="cc", noise_floor_stride=1)):
+        pipeline.TDOAPipeline(pipeline.PipelineConfig(**good), device="cpu")
+    with pytest.raises(ValueError):
+        pipeline.PipelineConfig(correlation_dwells=2, weighting="gauss").validate()
 
 
 def test_package_imports_no_jax():

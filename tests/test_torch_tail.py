@@ -24,6 +24,9 @@ from radio_mapper_tpu.ops import safe as jsafe
 
 from radio_mapper_tpu_torch import solver
 from radio_mapper_tpu_torch.ops import detect, gcc_phat, safe
+from radio_mapper_tpu_torch.testing import cap_cpu_threads
+
+cap_cpu_threads()
 
 
 @pytest.fixture

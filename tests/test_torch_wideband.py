@@ -33,9 +33,12 @@ from radio_mapper_tpu.ops.pallas import gcc_kernel
 from radio_mapper_tpu_torch import sim
 from radio_mapper_tpu_torch.models import wideband
 from radio_mapper_tpu_torch.ops.cuda import gcc_pair
+from radio_mapper_tpu_torch.testing import cap_cpu_threads
 
 from test_torch_cuda import assert_windows_close, small_wideband_config, wideband_scene
 from test_torch_pipeline import _jax_fused_run
+
+cap_cpu_threads()
 
 SUB = 3
 _JAX = {}  # route → (pipeline, jitted step, jitted per-subchannel pair stage)
