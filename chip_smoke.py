@@ -50,7 +50,38 @@ per source, in parallel, sm_90a), then:
     128 channels × 8 buoys × 8 dwells × 16384 uint8 IQ at 2.4 MS/s,
     max_lag 512, 4 solver starts — through ``step_split_uint8_scan``,
     with ms/block, IQ samples/s, the ratio to real time, peak device
-    memory (limit 40 GiB), a per-stage split and K7 launches per block.
+    memory (limit 40 GiB), a per-stage split and K7 launches per block;
+14. K4 (CT-order detect on spectra read from memory) vs its plain version
+    at [1024, 17408] on K3's spectra of the phase-5 flagship block, within
+    K1's limits; and K4 on K1's spectra of that block, which must equal
+    K1's own partials and noise floor bit for bit;
+15. K2 in its l2, l1 and "cc" modes vs its plain version at [128, 8,
+    17408] → [128, 28, 1025], within 1e-4 of the window max;
+16. K8 (the per-channel megakernel) vs its plain version at [128, 8,
+    17408], and vs K1 → K2 (l2rx) on the same block: partials, noise
+    floors and windows equal bit for bit (the same device functions run
+    in the same order);
+17. the phase-4 scene on the mega route and on the two-kernel route
+    (K3 → K4 → K2): each fix within 50 m and within 0.5 m of the port's
+    CPU run on the same route;
+18. the phase-5 flagship blocks on the mega route and on the two-kernel
+    route, in the same call as phase 5's default route: ms/block, IQ
+    samples/s, launches per block (K8 once; K3, K4, K2 once each) and a
+    per-stage split.
+
+Each kernel's entry in the ``kernels`` line carries its time and its
+plain version's at the main path's shapes (K2's error is the largest of
+its PHAT modes; "cc" windows are unwhitened, so their errors are in other
+units and phase 15 prints them relative to the window max), its bound
+(``bound_ms``: the larger of the least FP32 work of its function over 67
+TFLOP/s — 5·n·log2(n) FLOP an FFT, an inverse pruned to the lag window
+for the pair stages, 6 FLOP a bin for the detect body — and its bytes,
+each input read once and each output written once, over 3.35 TB/s: the
+H100 SXM's published peaks), the FLOPs of the repo's own algorithm, the
+direct four-step DFT (``algorithm_flops``), and, where one PyTorch call
+computes the same function, that call's time (``library_ms``:
+``torch.fft.fft`` for K7, plus the CT permutation by index for K3; null
+for the others, which no single call computes).
 
 Any failed check raises, so the run exits non-zero and prints no result
 line. The last two lines are a JSON object describing the kernels and,
@@ -61,6 +92,7 @@ non-zero at once.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import sys
 import time
@@ -143,6 +175,49 @@ def _elt_scene(sim, dwells=8, n=32_768):
     )
 
 
+H100_FP32_FLOPS = 67e12  # FLOP/s outside the tensor cores (H100 SXM data sheet)
+H100_HBM_BYTES = 3.35e12  # bytes/s
+
+
+def _bound(flops, nbytes):
+    """``(bound_ms, bound_by)``: the least time for ``flops`` FP32 operations
+    and ``nbytes`` of device-memory traffic at the card's published peaks."""
+    t_ops, t_bytes = flops / H100_FP32_FLOPS, nbytes / H100_HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _fft_flops(rows, n):
+    """The least work of ``rows`` complex FFTs of n points: the radix-2
+    count, 5·n·log2(n) FLOP a row."""
+    return 5.0 * rows * n * math.log2(n)
+
+
+def _detect_flops(rows, n):
+    """The least work of the detect body: the power (3 FLOP a bin) and a
+    sliding max at 3 compares a bin (van Herk / Gil-Werman); the noise
+    floor over the stride-8 subsample is not counted."""
+    return 6.0 * rows * n
+
+
+def _pair_flops(pairs, n, width):
+    """The least work of the pair stage: R = X·conj(Y) (6 FLOP a bin; the
+    whitening is not counted), an inverse FFT pruned to the ``width``
+    window lags (5·n·log2(width)) and |r| (3 FLOP a lag), per pair."""
+    return pairs * (6.0 * n + 5.0 * n * math.log2(width) + 3.0 * width)
+
+
+def _dft_flops(rows, n1, n2):
+    """The repo's algorithm, a direct four-step DFT of ``rows`` rows of
+    n1·n2 points: n·(n1 + n2) complex FMAs a row, 8 FLOP each."""
+    return 8.0 * rows * n1 * n2 * (n1 + n2)
+
+
+def _dft_pair_flops(pairs, n1, n2, rows_w):
+    """The repo's pair body: the inner inverse DFT over all n2 rows (n·n1
+    complex FMAs) and the outer one for the ``rows_w`` window rows."""
+    return 8.0 * pairs * n1 * n2 * (n1 + rows_w)
+
+
 def _window_errors(a, b):
     """(max |a − b|, max over windows of max|a − b| / max|b|)."""
     d = (a - b).abs()
@@ -159,8 +234,30 @@ def main() -> int:
     from radio_mapper_tpu_torch.models.wideband import WidebandConfig, WidebandTDOAPipeline
     from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat, iq, split_complex
     from radio_mapper_tpu_torch.ops import fft as fft_ops
-    from radio_mapper_tpu_torch.ops.cuda import build, fft_detect, fft_natural, fft_rows, gcc_pair
+    from radio_mapper_tpu_torch.ops import detect as detect_ops
+    from radio_mapper_tpu_torch.ops.cuda import (
+        build, channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair,
+    )
     from radio_mapper_tpu_torch.runtime import buoy_detect
+
+    # every kernel's launch counter, by the name of its wrapper
+    counters = {
+        "fft_detect_rows_ct": (fft_detect, "launch_count"),
+        "gcc_pair_lag_mags": (gcc_pair, "launch_count"),
+        "fft_rows_ct": (fft_rows, "launch_count"),
+        "detect_ct_partials": (detect_ct, "launch_count"),
+        "gcc_pairs_onehot_lag_mags": (gcc_pair, "onehot_launch_count"),
+        "gcc_rows_lag_mags": (gcc_pair, "rows_launch_count"),
+        "fft_rows": (fft_natural, "launch_count"),
+        "channel_step_partials": (channel_step, "launch_count"),
+    }
+
+    def zero_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def launch_counts():
+        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
     card = device.require_cuda()
     tag = card.label()
@@ -273,13 +370,13 @@ def main() -> int:
     pipe.step_split_uint8(raw[0], anchors)  # warm-up: tables, allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    fft_detect.launch_count = 0
-    gcc_pair.launch_count = 0
+    zero_counts()
     t0 = time.perf_counter()
     out = pipe.step_split_uint8_scan(raw, anchors)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fft_detect_rows_ct": fft_detect.launch_count, "gcc_pair_lag_mags": gcc_pair.launch_count}
+    launches = {k: v for k, v in launch_counts().items() if v}
+    default_ms_block = 1e3 * wall / blocks
     leaves = _leaves(torch, out)
     finite = all(torch.isfinite(x).all().item() for x in leaves if x.is_floating_point())
     ms_block = 1e3 * wall / blocks
@@ -291,18 +388,18 @@ def main() -> int:
     )
     _require(out.fix.position_enu.shape == (blocks, chans, 3), "scan output shape")
     _require(finite, "non-finite outputs at full width")
-    _require(all(v == blocks for v in launches.values()), f"kernel launches {launches}")
+    _require(launches == {"fft_detect_rows_ct": blocks, "gcc_pair_lag_mags": blocks},
+             f"kernel launches {launches}")
 
     med = _stage_split(
         torch, lambda mark: pipe.step_split_uint8(raw[0], anchors, on_stage=mark),
-        ["decode", "pad", "fft_detect", "peaks", "gcc_pair", "lag_peaks", "solve"],
+        ["decode", "fft_detect", "peaks", "gcc_pair", "solve"],
     )
     stage = {
-        "decode+pad": med["decode"] + med["pad"],
-        "K1 fft_detect": med["fft_detect"],
+        "decode": med["decode"],
+        "pad+K1 fft_detect": med["fft_detect"],
         "top-K tail": med["peaks"],
-        "K2 gcc_pair": med["gcc_pair"],
-        "lag peaks": med["lag_peaks"],
+        "K2 gcc_pair+lag peaks": med["gcc_pair"],
         "weights+solve": med["solve"],
     }
     print(
@@ -334,9 +431,19 @@ def main() -> int:
     k3_rel = max(((k3[0] - p3[0]).abs() / row_mag).max().item(), ((k3[1] - p3[1]).abs() / row_mag).max().item())
     k3_ms = _cuda_ms(torch, lambda: fft_rows.fft_rows_ct(xr, xi))
     k3_plain_ms = _cuda_ms(torch, lambda: fft_rows.fft_rows_ct_plain(xr, xi))
+    xc = torch.complex(xr, xi)
+    perm = torch.as_tensor(ct_plan.ct_permutation(wn), device=dev)
+    lib = torch.fft.fft(xc)[:, perm]
+    k3_lib_rel = max(((k3[0] - lib.real).abs() / row_mag).max().item(),
+                     ((k3[1] - lib.imag).abs() / row_mag).max().item())
+    k3_lib_ms = _cuda_ms(torch, lambda: torch.fft.fft(xc)[:, perm])
+    del xc, lib
+    k3_bound = _bound(_fft_flops(xr.shape[0], wn), 2 * 8 * xr.numel())
     print(
         f"phase 6: K3 [{xr.shape[0]}, {wn}] spectra max|err| {k3_abs:.3e} (rel to row max|X| "
-        f"{k3_rel:.3e}, tol 1e-4); kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms {tag}"
+        f"{k3_rel:.3e}, tol 1e-4); kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms, "
+        f"torch.fft.fft + CT permutation {k3_lib_ms:.3f} ms (rel to K3 {k3_lib_rel:.2e}), "
+        f"bound {k3_bound[0]:.4f} ms ({k3_bound[1]}) {tag}"
     )
     _require(k3_rel <= 1e-4, f"K3 spectra disagree: {k3_rel}")
     del p3
@@ -432,16 +539,12 @@ def main() -> int:
 
     def run_blocks():
         torch.cuda.reset_peak_memory_stats(dev)
-        fft_rows.launch_count = 0
-        gcc_pair.onehot_launch_count = 0
-        gcc_pair.rows_launch_count = 0
+        zero_counts()
         t0 = time.perf_counter()
         outs = [wpipe.step_split(*blk) for blk in wblocks]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {"fft_rows_ct": fft_rows.launch_count,
-                  "gcc_pairs_onehot_lag_mags": gcc_pair.onehot_launch_count,
-                  "gcc_rows_lag_mags": gcc_pair.rows_launch_count}
+        counts = {k: v for k, v in launch_counts().items() if v}
         finite = all(torch.isfinite(x).all().item() for o in outs for x in o[:4])
         shapes = all(tuple(o.fixes_enu.shape) == (m_sub, 3) and tuple(o.lags.shape) == (m_sub, wp)
                      for o in outs)
@@ -465,10 +568,8 @@ def main() -> int:
             f"finite+shapes {ok} {tag}"
         )
     _require(ok5 and ok6, "non-finite or misshapen wideband outputs at full width")
-    _require(wl5 == {"fft_rows_ct": blocks, "gcc_pairs_onehot_lag_mags": blocks, "gcc_rows_lag_mags": 0},
-             f"K5-route launches {wl5}")
-    _require(wl6 == {"fft_rows_ct": blocks, "gcc_pairs_onehot_lag_mags": 0,
-                     "gcc_rows_lag_mags": blocks * m_sub}, f"K6-route launches {wl6}")
+    _require(wl5 == {"fft_rows_ct": blocks, "gcc_pairs_onehot_lag_mags": blocks}, f"K5-route launches {wl5}")
+    _require(wl6 == {"fft_rows_ct": blocks, "gcc_rows_lag_mags": blocks * m_sub}, f"K6-route launches {wl6}")
 
     med = _stage_split(
         torch, lambda mark: wpipe.step_split(*wblocks[0], on_stage=mark),
@@ -513,11 +614,14 @@ def main() -> int:
         del out, ref
         k_ms = _cuda_ms(torch, lambda: fft_natural.fft_rows(xr, xi))
         p_ms = _cuda_ms(torch, lambda: fft_natural.fft_rows_plain(xr, xi))
-        k7[shape] = (err_abs, err_rel, k_ms, p_ms)
+        xc = torch.complex(xr, xi)
+        lib_ms = _cuda_ms(torch, lambda: torch.fft.fft(xc))
+        del xc
+        k7[shape] = (err_abs, err_rel, k_ms, p_ms, lib_ms)
         print(
             f"phase 10: K7 {list(shape)} = {'·'.join(map(str, fft_natural.split(shape[1])))} spectra "
             f"max|err| {err_abs:.3e} (rel to row max|X| {err_rel:.3e}, tol 1e-4); kernel {k_ms:.3f} ms, "
-            f"plain {p_ms:.3f} ms {tag}"
+            f"plain {p_ms:.3f} ms, torch.fft.fft {lib_ms:.3f} ms {tag}"
         )
         _require(err_rel <= 1e-4, f"K7 spectra disagree at {shape}: {err_rel}")
     del shapes, xr, xi
@@ -526,10 +630,10 @@ def main() -> int:
     # ---- phase 11: the ELT scene, multi-dwell, on the card and on the CPU
     ecfg = PipelineConfig(num_buoys=4, block_len=32_768, sample_rate_hz=2_048_000.0, max_lag=600,
                           power_offset_db=40.0, solver_starts=4, correlation_dwells=8)
-    fft_natural.launch_count = 0
+    zero_counts()
     on_card = TDOAPipeline(ecfg, device=dev).step_split(*(a.to(dev) for a in elt_host))
     torch.cuda.synchronize()
-    elt_launches = fft_natural.launch_count
+    elt_launches = {k: v for k, v in launch_counts().items() if v}
     on_cpu = TDOAPipeline(ecfg, device="cpu").step_split(*elt_host)
     pos = on_card.fix.position_enu.cpu().numpy()
     err_m = float(np.linalg.norm(pos[:2] - elt.emitter_enu[0][:2]))
@@ -540,11 +644,11 @@ def main() -> int:
     print(
         f"phase 11: ELT scene (4 buoys, 8 dwells x 32768, 5 kHz chirp): fix error {err_m:.3f} m "
         f"(limit 500; CPU {cpu_err_m:.3f}), card vs CPU: fix {fix_gap:.3e} m (tol 1), lags "
-        f"{lag_gap:.3e} samples, peaks equal {same_peaks}, K7 launches {elt_launches} {tag}"
+        f"{lag_gap:.3e} samples, peaks equal {same_peaks}, launches {elt_launches} {tag}"
     )
     _require(err_m < 500.0, f"ELT fix error {err_m} m")
     _require(fix_gap <= 1.0, f"ELT card and CPU fixes differ by {fix_gap} m")
-    _require(elt_launches >= 1, "the ELT run did not launch K7")
+    _require(elt_launches == {"fft_rows": 1}, f"the ELT run's launches {elt_launches}")
 
     # ---- phase 12: the buoy detection dwell, card vs CPU
     dwell = sim.synthesize(sim.default_scenario(signal="fm", bandwidth_hz=16e3, freq_offset_hz=150e3,
@@ -574,12 +678,13 @@ def main() -> int:
     npipe.step_split_uint8(raw, nanchors)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    fft_natural.launch_count = 0
+    zero_counts()
     t0 = time.perf_counter()
     nout = npipe.step_split_uint8_scan(nraw, nanchors)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k7_launches = fft_natural.launch_count
+    k7_launches = launch_counts()["fft_rows"]
+    nb_other = {k: v for k, v in launch_counts().items() if v and k != "fft_rows"}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     finite = all(torch.isfinite(x).all().item() for x in _leaves(torch, nout) if x.is_floating_point())
     ms_block = 1e3 * wall / nblocks
@@ -595,7 +700,7 @@ def main() -> int:
     _require(tuple(nout.fix.position_enu.shape) == (nblocks, chans, 3), "narrowband scan output shape")
     _require(finite, "non-finite narrowband outputs at full width")
     _require(peak_gib < 40.0, f"narrowband peak device memory {peak_gib:.2f} GiB")
-    _require(k7_launches == nblocks, f"K7 launches {k7_launches}")
+    _require(k7_launches == nblocks and not nb_other, f"K7 launches {k7_launches}, others {nb_other}")
     med = _stage_split(
         torch, lambda mark: npipe.step_split_uint8(raw, nanchors, on_stage=mark),
         ["decode", "psd", "detect", "spectra", "pair_corr", "lag_peaks", "solve"],
@@ -608,68 +713,231 @@ def main() -> int:
         f"sum {sum(med.values()):.3f} {tag}"
     )
     k7_main = k7[(chans * buoys * 8, n)]
+    del nraw, nout, raw
+    torch.cuda.empty_cache()
 
+    # ---- phases 14-18 run on the phase-5 flagship blocks (the same seed)
+    raw, anchors = pipe.example_inputs(batch=(blocks, chans), seed=0, uint8=True)
+    anchors = anchors[0]
+    xr, xi, _ = split_complex.pad_ct(*iq.decode_uint8_split(raw[0]), max_lag=lag)  # [chans, buoys, nfft]
+    rows = lambda a: a.reshape(-1, nfft)
+    n1, n2 = plan.n1, plan.n2
+    nrows, npairs, width = chans * buoys, len(pi), 2 * lag + 1
+    rows_w = sum(gcc_pair.window_rows(nfft, lag))
+
+    # ---- phase 14: K4 vs plain on K3's spectra; K4 on K1's spectra = K1's partials
+    f3r, f3i = fft_rows.fft_rows_ct(rows(xr), rows(xi))
+    k4 = detect_ct.detect_ct_partials(f3r, f3i, plan)
+    p4 = detect_ct.detect_ct_partials_plain(f3r, f3i, plan)
+    fr1, fi1, s1, a1, nf1, rmax1 = fft_detect.fft_detect_rows_ct(rows(xr), rows(xi), plan)
+    k4_on_k1 = detect_ct.detect_ct_partials(fr1, fi1, plan)
+    torch.cuda.synchronize()
+    fin, pfin = torch.isfinite(k4[0]), torch.isfinite(p4[0])
+    both = fin & pfin
+    k4_pattern = (fin != pfin).float().mean().item()
+    k4_arg = (k4[1] != p4[1])[both].float().mean().item()
+    k4_nf = (k4[2] - p4[2]).abs().max().item()
+    k4_score_abs = (k4[0] - p4[0])[both].abs().max().item()
+    k4_score_rel = ((k4[0] - p4[0]).abs() / (f3r * f3r + f3i * f3i).amax(-1, keepdim=True))[both].max().item()
+    k4_same_as_k1 = all(torch.equal(x, y) for x, y in zip(k4_on_k1, (s1, a1, nf1)))
+    k4_ms = _cuda_ms(torch, lambda: detect_ct.detect_ct_partials(f3r, f3i, plan))
+    k4_plain_ms = _cuda_ms(torch, lambda: detect_ct.detect_ct_partials_plain(f3r, f3i, plan))
+    k4_bound = _bound(_detect_flops(nrows, nfft), nrows * nfft * 8 + nrows * plan.segments * 8 + nrows * 4)
+    print(
+        f"phase 14: K4 [{nrows}, {nfft}] on K3's spectra of flagship block 0: candidate pattern differs "
+        f"{k4_pattern:.2e} of segments, argmax differs {k4_arg:.2e} (tol 1e-3 each), noise floor {k4_nf:.3e} dB "
+        f"(tol 1e-3), score max|err| {k4_score_abs:.3e} (rel {k4_score_rel:.3e}, tol 1e-4); on K1's spectra "
+        f"equal to K1's partials and floor: {k4_same_as_k1}; kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms, "
+        f"bound {k4_bound[0]:.4f} ms ({k4_bound[1]}) {tag}"
+    )
+    _require(k4_pattern <= 1e-3 and k4_arg <= 1e-3, "K4 detect partials disagree")
+    _require(k4_nf <= 1e-3 and k4_score_rel <= 1e-4, f"K4 floor or scores disagree: {k4_nf}, {k4_score_rel}")
+    _require(both.any().item(), "K4 produced no candidates to compare")
+    _require(k4_same_as_k1, "K4 on K1's spectra differs from K1's own partials")
+    del f3r, f3i, k4, p4, k4_on_k1
+
+    # ---- phase 15: K2's l2, l1 and "cc" modes vs plain, fed K1's outputs
+    sre, sim_, smax = fr1.view(chans, buoys, nfft), fi1.view(chans, buoys, nfft), rmax1.view(chans, buoys)
+    k2_modes = {}
+    for mode, gate, weighting in (("l2", "l2", "phat"), ("l1", "l1", "phat"), ("cc", "l2rx", "cc")):
+        kw = dict(max_lag=lag, weighting=weighting)
+        gcc_pair.set_phat_gate(gate)
+        try:
+            k2 = gcc_pair.gcc_pair_lag_mags(sre, sim_, smax, pi, pj, **kw)
+            p2 = gcc_pair.gcc_pair_lag_mags_plain(sre, sim_, smax, pi, pj, **kw)
+            torch.cuda.synchronize()
+            m_abs, m_rel = _window_errors(k2, p2)
+            same_arg = bool((k2.argmax(-1) == p2.argmax(-1)).all())
+            m_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_pair_lag_mags(sre, sim_, smax, pi, pj, **kw))
+            m_plain_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_pair_lag_mags_plain(sre, sim_, smax, pi, pj, **kw))
+        finally:
+            gcc_pair.set_phat_gate("l2rx")
+        k2_modes[mode] = (m_abs, m_ms, m_plain_ms)
+        print(
+            f"phase 15: K2 {mode} [{chans}, {buoys}, {nfft}] -> {list(k2.shape)} window max|err| {m_abs:.3e} "
+            f"(rel to window max {m_rel:.3e}, tol 1e-4), same argmax {same_arg}; kernel {m_ms:.3f} ms, "
+            f"plain {m_plain_ms:.3f} ms (l2rx: kernel {k2_ms:.3f}) {tag}"
+        )
+        _require(tuple(k2.shape) == (chans, npairs, width), f"K2 {mode} output shape")
+        _require(m_rel <= 1e-4, f"K2 {mode} lag windows disagree: {m_rel}")
+    del k2, p2
+
+    # ---- phase 16: K8 vs plain, and vs K1 -> K2 (l2rx) on the same block
+    k8 = channel_step.channel_step_partials(xr, xi, pi, pj, plan, lag)
+    p8 = channel_step.channel_step_partials_plain(xr, xi, pi, pj, plan, lag)
+    w12 = gcc_pair.gcc_pair_lag_mags(sre, sim_, smax, pi, pj, max_lag=lag)
+    torch.cuda.synchronize()
+    k8_same = {
+        "partials": torch.equal(k8[0].view(-1, plan.segments), s1) and torch.equal(k8[1].view(-1, plan.segments), a1),
+        "noise floors": torch.equal(k8[2].view(-1), nf1),
+        "windows": torch.equal(k8[3], w12),
+    }
+    k8_abs, k8_rel = _window_errors(k8[3], p8[3])
+    k8_nf = (k8[2] - p8[2]).abs().max().item()
+    fin, pfin = torch.isfinite(k8[0]), torch.isfinite(p8[0])
+    k8_pattern = (fin != pfin).float().mean().item()
+    k8_ms = _cuda_ms(torch, lambda: channel_step.channel_step_partials(xr, xi, pi, pj, plan, lag))
+    k8_plain_ms = _cuda_ms(torch, lambda: channel_step.channel_step_partials_plain(xr, xi, pi, pj, plan, lag))
+    k8_bound = _bound(
+        _fft_flops(nrows, nfft) + _detect_flops(nrows, nfft) + _pair_flops(chans * npairs, nfft, width),
+        nrows * nfft * 8 + nrows * plan.segments * 8 + nrows * 4 + chans * npairs * width * 4,
+    )
+    print(
+        f"phase 16: K8 [{chans}, {buoys}, {nfft}] -> partials + {list(k8[3].shape)}: vs plain window max|err| "
+        f"{k8_abs:.3e} (rel {k8_rel:.3e}, tol 1e-4), noise floor {k8_nf:.3e} dB (tol 1e-3), candidate pattern "
+        f"differs {k8_pattern:.2e} (tol 1e-3); vs K1 -> K2 (l2rx) bit-equal {k8_same}; kernel {k8_ms:.3f} ms, "
+        f"plain {k8_plain_ms:.3f} ms (K1 + K2 {k1_ms + k2_ms:.3f}), bound {k8_bound[0]:.4f} ms ({k8_bound[1]}) {tag}"
+    )
+    _require(k8_rel <= 1e-4 and k8_nf <= 1e-3 and k8_pattern <= 1e-3, "K8 disagrees with its plain version")
+    _require(all(k8_same.values()), f"K8 differs from K1 -> K2: {k8_same}")
+    del k8, p8, w12, fr1, fi1, s1, a1, nf1, rmax1, sre, sim_, smax, xr, xi
+    torch.cuda.empty_cache()
+
+    # ---- phase 17: the phase-4 scene on the mega and the two-kernel routes
+    routes = {  # route → (knob, on, default, kernels launched per block)
+        "mega": (channel_step.set_mega_fused, "on", "off", ["channel_step_partials"]),
+        "two-kernel": (detect_ops.set_fused_fft_detect, "off", "auto",
+                       ["fft_rows_ct", "detect_ct_partials", "gcc_pair_lag_mags"]),
+    }
+    scen = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8)
+    cap = sim.synthesize(scen)
+    cfg4 = PipelineConfig(num_buoys=4, block_len=scen.block_len, sample_rate_hz=scen.sample_rate_hz,
+                          max_lag=600, power_offset_db=40.0)
+    host = [torch.from_numpy(a.astype(np.float32)) for a in (cap.iq.real, cap.iq.imag, cap.buoy_enu)]
+    for route, (knob, on, default, kernels) in routes.items():
+        knob(on)
+        try:
+            zero_counts()
+            on_card = TDOAPipeline(cfg4, device=dev).step_split(*(a.to(dev) for a in host))
+            torch.cuda.synchronize()
+            got = {k: v for k, v in launch_counts().items() if v}
+            on_cpu = TDOAPipeline(cfg4, device="cpu").step_split(*host)
+        finally:
+            knob(default)
+        pos = on_card.fix.position_enu.cpu().numpy()
+        err_m = float(np.linalg.norm(pos[:2] - cap.emitter_enu[0][:2]))
+        fix_gap = float(np.abs(pos - on_cpu.fix.position_enu.numpy()).max())
+        lag_gap = (on_card.correlation.lag_samples.cpu() - on_cpu.correlation.lag_samples).abs().max().item()
+        same_peaks = bool((on_card.peaks.bin_index.cpu() == on_cpu.peaks.bin_index).all())
+        print(
+            f"phase 17: {route} route, scene fix error {err_m:.3f} m (limit 50), card vs CPU: fix {fix_gap:.3e} m "
+            f"(tol 0.5), lags {lag_gap:.2e} samples, peaks equal {same_peaks}, launches {got} {tag}"
+        )
+        _require(err_m < 50.0, f"{route} route: scene fix error {err_m} m")
+        _require(fix_gap <= 0.5, f"{route} route: card and CPU fixes differ by {fix_gap} m")
+        _require(got == dict.fromkeys(kernels, 1), f"{route} route launches {got}")
+
+    # ---- phase 18: the flagship blocks on the mega and two-kernel routes
+    stages = {
+        "mega": ["decode", "channel_step", "peaks", "lag_peaks", "solve"],
+        "two-kernel": ["decode", "spectra", "detect", "gcc_pair", "solve"],
+    }
+    route_launches = {}
+    for route, (knob, on, default, kernels) in routes.items():
+        knob(on)
+        try:
+            pipe.step_split_uint8(raw[0], anchors)  # warm-up
+            torch.cuda.synchronize()
+            zero_counts()
+            t0 = time.perf_counter()
+            out = pipe.step_split_uint8_scan(raw, anchors)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: v for k, v in launch_counts().items() if v}
+            med = _stage_split(
+                torch, lambda mark: pipe.step_split_uint8(raw[0], anchors, on_stage=mark), stages[route]
+            )
+        finally:
+            knob(default)
+        finite = all(torch.isfinite(x).all().item() for x in _leaves(torch, out) if x.is_floating_point())
+        print(
+            f"phase 18: {route} route, {blocks} blocks x {chans} ch x {buoys} buoys x {n} uint8 IQ: "
+            f"{1e3 * wall / blocks:.3f} ms/block (default route, phase 5: {default_ms_block:.3f}), "
+            f"{blocks * chans * buoys * n / wall:.4e} IQ samples/s, launches {got} "
+            f"({', '.join(f'{k} {v / blocks:g}' for k, v in got.items())} per block), all finite {finite} {tag}"
+        )
+        print(
+            f"phase 18: {route} route stage split ms/block (median of 3, CUDA events): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+            + f", sum {sum(med.values()):.3f} {tag}"
+        )
+        _require(out.fix.position_enu.shape == (blocks, chans, 3), f"{route} scan output shape")
+        _require(finite, f"non-finite {route} outputs at full width")
+        _require(got == dict.fromkeys(kernels, blocks), f"{route} route launches {got}")
+        route_launches.update(got)
+    del raw, out
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, algorithm_flops, library_ms=None):
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": f"radio_mapper_tpu_torch/csrc/{source}",
+            "replaces": f"radio_mapper_tpu/ops/pallas/{replaces}",
+            "launches": launches,
+            "max_abs_err": err,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound[0],
+            "bound_by": bound[1],
+            "library_ms": library_ms,
+            "algorithm_flops": algorithm_flops,
+        }
+
+    wn1, wn2 = ct_plan.ct_split(wn)
+    w_rows = sum(gcc_pair.window_rows(wn, wlag))
+    w_width = 2 * wlag + 1
+    k7_rows = chans * buoys * 8
+    k1_dft = _dft_flops(nrows, n1, n2)
+    k2_dft = _dft_pair_flops(chans * npairs, n1, n2, rows_w)
     print(json.dumps({"kernels": [
-        {
-            "name": "fft_detect_rows_ct",
-            "route": "cuda",
-            "source": "radio_mapper_tpu_torch/csrc/fft_detect.cu",
-            "replaces": "radio_mapper_tpu/ops/pallas/detect_kernel.py:443",
-            "launches": launches["fft_detect_rows_ct"],
-            "max_abs_err": spec_abs,
-            "ms": k1_ms,
-            "plain_ms": k1_plain_ms,
-        },
-        {
-            "name": "gcc_pair_lag_mags",
-            "route": "cuda",
-            "source": "radio_mapper_tpu_torch/csrc/gcc_pair.cu",
-            "replaces": "radio_mapper_tpu/ops/pallas/gcc_kernel.py:358",
-            "launches": launches["gcc_pair_lag_mags"],
-            "max_abs_err": win_abs,
-            "ms": k2_ms,
-            "plain_ms": k2_plain_ms,
-        },
-        {
-            "name": "fft_rows_ct",
-            "route": "cuda",
-            "source": "radio_mapper_tpu_torch/csrc/fft_rows_ct.cu",
-            "replaces": "radio_mapper_tpu/ops/pallas/fft_kernel.py:446",
-            "launches": wl5["fft_rows_ct"],
-            "max_abs_err": k3_abs,
-            "ms": k3_ms,
-            "plain_ms": k3_plain_ms,
-        },
-        {
-            "name": "gcc_pairs_onehot_lag_mags",
-            "route": "cuda",
-            "source": "radio_mapper_tpu_torch/csrc/gcc_pair.cu",
-            "replaces": "radio_mapper_tpu/ops/pallas/gcc_kernel.py:743",
-            "launches": wl5["gcc_pairs_onehot_lag_mags"],
-            "max_abs_err": k5_abs,
-            "ms": k5_ms,
-            "plain_ms": k5_plain_ms,
-        },
-        {
-            "name": "gcc_rows_lag_mags",
-            "route": "cuda",
-            "source": "radio_mapper_tpu_torch/csrc/gcc_pair.cu",
-            "replaces": "radio_mapper_tpu/ops/pallas/gcc_kernel.py:548",
-            "launches": wl6["gcc_rows_lag_mags"],
-            "max_abs_err": k6_abs,
-            "ms": k6_ms,
-            "plain_ms": k6_plain_ms,
-        },
-        {
-            "name": "fft_rows",
-            "route": "cuda",
-            "source": "radio_mapper_tpu_torch/csrc/fft_rows.cu",
-            "replaces": "radio_mapper_tpu/ops/pallas/fft_kernel.py:212",
-            "launches": k7_launches,
-            "max_abs_err": max(v[0] for v in k7.values()),
-            "ms": k7_main[2],
-            "plain_ms": k7_main[3],
-        },
+        entry("fft_detect_rows_ct", "fft_detect.cu", "detect_kernel.py:443",
+              launches["fft_detect_rows_ct"], spec_abs, k1_ms, k1_plain_ms,
+              _bound(_fft_flops(nrows, nfft) + _detect_flops(nrows, nfft),
+                     nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_dft),
+        entry("gcc_pair_lag_mags", "gcc_pair.cu", "gcc_kernel.py:358",
+              launches["gcc_pair_lag_mags"], max(win_abs, k2_modes["l2"][0], k2_modes["l1"][0]), k2_ms, k2_plain_ms,
+              _bound(_pair_flops(chans * npairs, nfft, width),
+                     nrows * nfft * 8 + nrows * 4 + chans * npairs * width * 4), k2_dft),
+        entry("fft_rows_ct", "fft_rows_ct.cu", "fft_kernel.py:446",
+              wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound, _dft_flops(m_sub * wb, wn1, wn2), k3_lib_ms),
+        entry("detect_ct_partials", "detect_ct.cu", "detect_kernel.py:309",
+              route_launches["detect_ct_partials"], max(k4_score_abs, k4_nf), k4_ms, k4_plain_ms, k4_bound,
+              nrows * nfft * (3 + 2 * plan.radius + 1)),  # power, then the sliding max's compares
+        entry("gcc_pairs_onehot_lag_mags", "gcc_pair.cu", "gcc_kernel.py:743",
+              wl5["gcc_pairs_onehot_lag_mags"], k5_abs, k5_ms, k5_plain_ms,
+              _bound(_pair_flops(m_sub * wp, wn, w_width),
+                     m_sub * wb * wn * 8 + m_sub * wp * 4 + m_sub * wp * w_width * 4),
+              _dft_pair_flops(m_sub * wp, wn1, wn2, w_rows)),
+        entry("gcc_rows_lag_mags", "gcc_pair.cu", "gcc_kernel.py:548",
+              wl6["gcc_rows_lag_mags"], k6_abs, k6_ms, k6_plain_ms,
+              _bound(_pair_flops(wp, wn, w_width), 4 * wp * wn * 4 + wp * 4 + wp * w_width * 4),
+              _dft_pair_flops(wp, wn1, wn2, w_rows)),
+        entry("fft_rows", "fft_rows.cu", "fft_kernel.py:212",
+              k7_launches, max(v[0] for v in k7.values()), k7_main[2], k7_main[3],
+              _bound(_fft_flops(k7_rows, n), 2 * 8 * k7_rows * n),
+              _dft_flops(k7_rows, *fft_natural.split(n)), k7_main[4]),
+        entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
+              route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_dft + k2_dft),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))
     return 0

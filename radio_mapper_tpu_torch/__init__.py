@@ -6,8 +6,13 @@ each counterpart sits at the same path:
 
 - the flagship step (:mod:`.models.pipeline`, ``TDOAPipeline``): uint8
   IQ decode → fused forward FFT + spectral detection (kernel K1,
-  :mod:`.ops.cuda.fft_detect`) → all-pairs GCC-PHAT pair stage (K2,
-  :mod:`.ops.cuda.gcc_pair`) → sub-sample τ → LM hyperbolic solve;
+  :mod:`.ops.cuda.fft_detect`) → all-pairs GCC pair stage (K2,
+  :mod:`.ops.cuda.gcc_pair`, PHAT under the l2rx/l2/l1 gates or "cc") →
+  sub-sample τ → LM hyperbolic solve; and the reference's other
+  single-dwell routes: the per-channel megakernel (K8,
+  :mod:`.ops.cuda.channel_step`), the two-kernel detect (K3 then K4,
+  :mod:`.ops.cuda.detect_ct`), the natural-order detect on the CT
+  spectra, and the natural-order split GCC;
 - the wideband config-4 step (:mod:`.models.wideband`,
   ``WidebandTDOAPipeline``): polyphase channelizer → CT-order FFT of
   every subchannel's receivers (K3, :mod:`.ops.cuda.fft_rows`) → pair
@@ -22,5 +27,6 @@ each counterpart sits at the same path:
 
 Each kernel is CUDA C++ under ``csrc/`` with a plain PyTorch version
 beside it. The package imports ``torch`` and numpy only; it never
-imports JAX.
+imports JAX. Its pipelines run on the card unless the caller passes
+``device="cpu"``.
 """

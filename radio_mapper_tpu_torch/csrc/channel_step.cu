@@ -1,0 +1,187 @@
+// Kernel K8: the per-channel megakernel -- forward CT-order FFT, spectral
+// detection and the l2rx GCC pair stage of one channel in one launch.
+//
+// Replaces radio_mapper_tpu/ops/pallas/channel_kernel.py::
+// channel_step_partials (ct_fft_core + _detect_body + _whiten("l2rx") +
+// _invert_to_lag_windows). Python wrapper and plain PyTorch version:
+// radio_mapper_tpu_torch/ops/cuda/channel_step.py.
+//
+// The TPU kernel keeps a channel's B rows in VMEM. On the H100 one complex
+// row at nfft 17408 is 139,264 B of the 227 KB a block has, so a channel
+// is a thread-block cluster of B blocks (cudaLaunchAttributeClusterDimension;
+// B <= 8 is portable, 9..16 non-portable), one block per receiver:
+//
+//   1. each block runs kernel K1's body on its receiver's row: the two DFT
+//      stages of ct_dft.cuh in shared memory, the spectra written to a
+//      scratch [C, B, n] that the wrapper allocates, then ct_detect.cuh's
+//      detect_row, whose row max is the receiver's l2rx gate input;
+//   2. the cluster barrier (after a device-scope fence): the channel's B
+//      spectra and maxima are complete;
+//   3. block `rank` runs gcc_pair.cuh's pair_lag_window, the body of
+//      kernel K2, for pairs p = rank, rank + B, ..., reading the partners'
+//      spectra from the scratch through L2 (__ldcg), in the shared memory
+//      the row no longer needs.
+//
+// The same device functions run in the same order as K1 followed by K2
+// with the l2rx gate (the pair body sums its chunks in k2 order at any
+// block size), so the partials, noise floors and windows equal that
+// composition's bit for bit. The gate is l2rx whatever set_phat_gate
+// says, as in the reference.
+//
+// Design taken: spectra through a device-memory scratch (1.1 MB per
+// channel, written once and read back at once, mostly from L2). The other
+// design keeps each block's spectrum in its own shared memory and lets the
+// partners read it through distributed shared memory: no scratch traffic
+// (2 x 142.6 MB per 128-channel block, ~0.09 ms at 3.35 TB/s), but about
+// 209 KB per block (spectrum + candidate scratch, power recomputed from the
+// spectrum) before the pair buffers, and remote reads in the inner loop.
+//
+// What bounds it as written: K1's direct DFT stages plus K2's inner inverse
+// DFT, n*(n1+n2) + P/B * n*(n1 + window rows) complex FMAs per block, on
+// the FP32 CUDA cores; the pair stage runs at one 512-thread block per SM
+// (the row's shared memory is reserved for the whole launch). The function
+// needs about 20x fewer operations with FFTs in place of the direct DFTs.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include "ct_detect.cuh"
+#include "ct_dft.cuh"
+#include "gcc_pair.cuh"
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int K8_THREADS = 512;            // channel_step.THREADS, = K1's block
+constexpr int K8_MAX_KJ = 16;              // as K1
+constexpr int K8_RJ = 8;                   // as K1
+constexpr int K8_MAX_PER_THREAD = 48;      // as K1
+
+using rm_det::DetectParams;
+
+__global__ void __launch_bounds__(K8_THREADS, 1)
+channel_step_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
+                    const float2* __restrict__ fw1, const float2* __restrict__ fw2,
+                    const float2* __restrict__ ftw,
+                    const float2* __restrict__ iw1, const float2* __restrict__ iw2,
+                    const float2* __restrict__ itw,
+                    const int* __restrict__ pair_i, const int* __restrict__ pair_j,
+                    float* fre, float* fim, float* smax,
+                    float* __restrict__ seg_score, float* __restrict__ seg_arg,
+                    float* __restrict__ nf_out, float* __restrict__ out,
+                    int nb, int np, int n1, int n2, int nneg, int npos, int max_lag,
+                    float eps2, float inv_n, DetectParams prm) {
+  extern __shared__ float2 xs[];  // [n] complex row, CT layout; later the pair buffers
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int n = n1 * n2;
+  const int tid = threadIdx.x;
+  const size_t row = blockIdx.x;  // = c * nb + rank: the cluster is the channel
+  const int c = blockIdx.x / nb;
+  const int rank = static_cast<int>(cluster.block_rank());
+
+  // ---- 1. K1's body on this receiver's row
+  const float* xr = xre + row * n;
+  const float* xi = xim + row * n;
+  for (int m = tid; m < n; m += K8_THREADS) xs[m] = make_float2(xr[m], xi[m]);
+  __syncthreads();
+
+  rm_ct::inner_dft<K8_THREADS, K8_MAX_KJ>(xs, fw2, ftw, n1, n2);
+  rm_ct::outer_dft<K8_THREADS, K8_RJ>(xs, fw1, n1, n2);
+
+  float* fr = fre + row * n;
+  float* fi = fim + row * n;
+  float pv[K8_MAX_PER_THREAD];
+#pragma unroll
+  for (int j = 0; j < K8_MAX_PER_THREAD; ++j) {
+    const int m = tid + K8_THREADS * j;
+    if (m < n) {
+      const float2 v = xs[m];
+      fr[m] = v.x;
+      fi[m] = v.y;
+      pv[j] = __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
+    }
+  }
+  __syncthreads();
+  float* pwr = reinterpret_cast<float*>(xs);
+  float* aux = pwr + n;
+#pragma unroll
+  for (int j = 0; j < K8_MAX_PER_THREAD; ++j) {
+    const int m = tid + K8_THREADS * j;
+    if (m < n) pwr[m] = pv[j];
+  }
+  const int s = n / rm_det::SEG;
+  const float2 r = rm_det::detect_row<K8_THREADS>(pwr, aux, n1, n2, prm, seg_score + row * s,
+                                                  seg_arg + row * s);
+  if (tid == 0) {
+    nf_out[row] = r.x;
+    smax[row] = r.y;
+  }
+
+  // ---- 2. the channel's spectra and maxima are complete
+  __threadfence();
+  cluster.sync();
+
+  // ---- 3. K2's body (l2rx) for pairs rank, rank + nb, ...
+  const float* cre = fre + static_cast<size_t>(c) * nb * n;
+  const float* cim = fim + static_cast<size_t>(c) * nb * n;
+  const float* csm = smax + static_cast<size_t>(c) * nb;
+  const int width = 2 * max_lag + 1;
+  for (int p = rank; p < np; p += nb) {
+    const int bi = __ldg(pair_i + p), bj = __ldg(pair_j + p);
+    const float floor2 = eps2 * (__ldcg(csm + bi) * __ldcg(csm + bj));
+    const size_t xo = static_cast<size_t>(bi) * n, yo = static_cast<size_t>(bj) * n;
+    rm_pair::pair_lag_window<K8_THREADS, true>(
+        cre + xo, cim + xo, cre + yo, cim + yo, rm_pair::GATE_L2RX, floor2, eps2, 0.f,
+        iw1, iw2, itw, out + (static_cast<size_t>(c) * np + p) * width, xs,
+        n1, n2, nneg, npos, max_lag, inv_n);
+    __syncthreads();  // the next pair zeroes the window buffers
+  }
+}
+
+}  // namespace
+
+extern "C" int rm_channel_step_partials(
+    const float* xre, const float* xim,
+    const float2* fw1, const float2* fw2, const float2* ftw,
+    const float2* iw1, const float2* iw2, const float2* itw,
+    const int* pair_i, const int* pair_j,
+    float* fre, float* fim, float* smax,
+    float* seg_score, float* seg_arg, float* nf, float* out,
+    int nc, int nb, int np, int n1, int n2, int nneg, int npos, int max_lag,
+    float eps2, float inv_n,
+    int radius, int keep_lo, int keep_hi,
+    float thr_lin, int has_conf, float conf_cs, float off, int bisect_iters,
+    cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(n1) * n2 * sizeof(float2);
+  if (rm_pair::pair_smem_bytes<K8_THREADS>(n1, nneg, npos) > smem) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = cudaFuncSetAttribute(
+      channel_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (nb > 8) {
+    e = cudaFuncSetAttribute(channel_step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const DetectParams prm{radius, keep_lo, keep_hi, thr_lin, has_conf, conf_cs, off, bisect_iters};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = nb;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(nc * nb);
+  cfg.blockDim = dim3(K8_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, channel_step_kernel,
+                         xre, xim, fw1, fw2, ftw, iw1, iw2, itw, pair_i, pair_j,
+                         fre, fim, smax, seg_score, seg_arg, nf, out,
+                         nb, np, n1, n2, nneg, npos, max_lag, eps2, inv_n, prm);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,8 +1,8 @@
 """The flagship end-to-end TDOA pipeline: decode → detect → correlate → solve.
 
-Port of ``radio_mapper_tpu/models/pipeline.py`` on the routes the TPU
-runs by default. Single dwell (``correlation_dwells == 1``, the fused FFT
-+ detect kernel feeding the fused pair stage):
+Port of ``radio_mapper_tpu/models/pipeline.py``. Single dwell
+(``correlation_dwells == 1``): the reference's route table, in its order
+and under its knobs. The default route (the TPU's):
 
     uint8 IQ [..., B, 2N] → (re, im) f32                 ops.iq
       → zero-pad to nfft = ct_plan.plan_nfft(N + max_lag)
@@ -11,6 +11,23 @@ runs by default. Single dwell (``correlation_dwells == 1``, the fused FFT
       → K2: all-pairs whiten × inverse DFT × lag window  ops.cuda.gcc_pair
       → argmax + parabolic τ + PSR                       ops.gcc_phat
       → pair weights → LM solve + GLS ellipse            solver
+
+and the others, each ending in the same tail:
+
+    mega        channel_step.set_mega_fused("on"), "phat", B ≤ 16:
+                K8: K1 and K2 (l2rx) of each channel in one launch
+                → top-K tail + lag peaks                 ops.cuda.channel_step
+    two-kernel  detect.set_fused_fft_detect("off"):
+                K3 spectra → K4 partials → top-K tail → K2 (no row maxima:
+                the l2rx gate runs as l2)                ops.cuda.fft_rows, detect_ct
+    unfused     detect.set_fused_detect("off") or noise_floor_stride ≠ 8:
+    detect      K3 spectra → ct_power_db → natural detect_peaks → K2 (l2)
+    unfused     split_complex.set_gcc_fused("off"), or "scot"/"roth":
+    GCC         natural-order spectra (ops.fft; even bins = the N-point
+                FFT when nfft = 2N exactly) → detect_peaks → split GCC
+
+"cc" runs the fused chain unwhitened; ``gcc_pair.set_phat_gate`` picks
+K2's PHAT gate (l2rx, l2, l1).
 
 Narrowband multi-dwell (``correlation_dwells = K > 1``, inputs
 ``[..., B, K·N]``): the dwell-averaged PSD on the N-point grid (kernel K7
@@ -33,7 +50,6 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from radio_mapper_tpu_torch import constants, solver
 from radio_mapper_tpu_torch.ops import ct_plan
@@ -42,7 +58,7 @@ from radio_mapper_tpu_torch.ops import fft as fft_ops
 from radio_mapper_tpu_torch.ops import gcc_phat as gcc_ops
 from radio_mapper_tpu_torch.ops import iq as iq_ops
 from radio_mapper_tpu_torch.ops import split_complex as sc_ops
-from radio_mapper_tpu_torch.ops.cuda import fft_detect, gcc_pair
+from radio_mapper_tpu_torch.ops.cuda import channel_step, detect_ct
 
 # The multi-dwell pair stage runs over channels in chunks whose [P, nfft]
 # float32 planes hold at most this many bytes: the matmul four-step keeps
@@ -86,17 +102,10 @@ class PipelineConfig:
             raise ValueError("need at least 2 receivers")
         if self.correlation_dwells < 1:
             raise ValueError("correlation_dwells must be >= 1")
-        if self.correlation_dwells > 1:
-            if self.weighting not in sc_ops.WEIGHTINGS:
-                raise ValueError(f"unknown weighting {self.weighting!r}")
-            return self
-        # Single-dwell routes of the JAX package not ported yet (ROADMAP M6).
-        if self.weighting != "phat":
-            raise NotImplementedError(f"weighting {self.weighting!r} is not ported (phat only)")
-        if self.noise_floor_stride != ct_plan.SEGMENT:
-            raise NotImplementedError(
-                f"the fused detector takes noise_floor_stride={ct_plan.SEGMENT} only"
-            )
+        if self.weighting not in sc_ops.WEIGHTINGS:
+            raise ValueError(f"unknown weighting {self.weighting!r}")
+        if self.noise_floor_stride < 1:
+            raise ValueError("noise_floor_stride must be >= 1")
         return self
 
     @property
@@ -125,12 +134,13 @@ StageHook = Optional[Callable[[str], None]]
 class TDOAPipeline:
     """The flagship step for a fixed configuration on one device.
 
-    ``device`` is explicit: inputs must already lie on it. On a CUDA
-    device the kernels of the route (K1 and K2, or K7) run by hand-written
-    CUDA; on the CPU their plain PyTorch versions run.
+    Inputs must already lie on ``device`` (the card by default; CPU callers
+    pass ``device="cpu"``). On a CUDA device the kernels of the route (K1
+    and K2, K8, K3 with K4 and K2, or K7) run by hand-written CUDA; on the
+    CPU their plain PyTorch versions run.
     """
 
-    def __init__(self, config: PipelineConfig, *, device: torch.device | str):
+    def __init__(self, config: PipelineConfig, *, device: torch.device | str = "cuda"):
         self.config = config.validate()
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:
@@ -140,17 +150,24 @@ class TDOAPipeline:
         self.pair_i_np, self.pair_j_np = i_idx, j_idx
         self.pair_i = torch.as_tensor(i_idx, dtype=torch.int64, device=self.device)
         self.pair_j = torch.as_tensor(j_idx, dtype=torch.int64, device=self.device)
+        # The fused detect's parameters on the CT grid (the reference's
+        # _full_detect_kwargs), where the fused detect covers the config.
         c = self.config
-        self.plan = None if c.correlation_dwells > 1 else ct_plan.detect_plan(
-            c.nfft,
-            sample_rate_hz=c.sample_rate_hz,
-            threshold_db=c.detection_threshold_db,
-            min_distance_bins=constants.DEFAULT_PEAK_MIN_DISTANCE_BINS,
-            dc_notch_hz=constants.DEFAULT_DC_NOTCH_HZ,
-            confidence_floor=constants.DEFAULT_CONFIDENCE_FLOOR,
-            snr_fullscale_db=constants.DEFAULT_SNR_FULLSCALE_DB,
-            power_offset_db=c.power_offset_db,
-        )
+        self.plan = None
+        if c.correlation_dwells == 1 and detect_ct.supported(
+            c.nfft, min_distance_bins=constants.DEFAULT_PEAK_MIN_DISTANCE_BINS,
+            noise_floor_stride=ct_plan.SEGMENT,
+        ):
+            self.plan = ct_plan.detect_plan(
+                c.nfft,
+                sample_rate_hz=c.sample_rate_hz,
+                threshold_db=c.detection_threshold_db,
+                min_distance_bins=constants.DEFAULT_PEAK_MIN_DISTANCE_BINS,
+                dc_notch_hz=constants.DEFAULT_DC_NOTCH_HZ,
+                confidence_floor=constants.DEFAULT_CONFIDENCE_FLOOR,
+                snr_fullscale_db=constants.DEFAULT_SNR_FULLSCALE_DB,
+                power_offset_db=c.power_offset_db,
+            )
 
     def _on_device(self, *xs: torch.Tensor) -> None:
         for x in xs:
@@ -205,10 +222,15 @@ class TDOAPipeline:
         ``correlation_dwells``, N = ``block_len``) and anchors ``[..., B, 3]``.
 
         ``on_stage(name)``, when given, is called after each stage — a hook
-        for per-stage timing; it changes nothing else. Single dwell: "pad",
-        "fft_detect", "peaks", "gcc_pair", "lag_peaks", "solve".
-        Multi-dwell: "psd", "detect", then "spectra", "pair_corr",
-        "lag_peaks" once per chunk of channels, then "solve".
+        for per-stage timing; it changes nothing else. Single dwell, by
+        route (the first stage includes the zero-padding, "gcc_pair" the
+        lag peak pick): default "fft_detect", "peaks", "gcc_pair",
+        "solve"; mega "channel_step", "peaks", "lag_peaks", "solve";
+        two-kernel and unfused detect "spectra", "detect" (K4 and the
+        top-K tail, or the natural-order detect), "gcc_pair", "solve";
+        unfused GCC "spectra", "detect", "pair_corr", "solve". Multi-dwell: "psd",
+        "detect", then "spectra", "pair_corr", "lag_peaks" once per chunk
+        of channels, then "solve".
         """
         c = self.config
         mark = on_stage or (lambda _name: None)
@@ -220,44 +242,101 @@ class TDOAPipeline:
             )
         if c.correlation_dwells > 1:
             return self._step_split_multidwell(re, im, anchors_enu, mark)
-        batch = re.shape[:-2]
-        nfft = self.plan.nfft
-        pad = lambda a: F.pad(a.to(torch.float32), (0, nfft - c.block_len)).reshape(-1, nfft)
-        re_p, im_p = pad(re), pad(im)
-        mark("pad")
+        re, im = re.to(torch.float32), im.to(torch.float32)
+        n = c.block_len
+        if not sc_ops.gcc_fused_enabled(n + c.max_lag, c.weighting):
+            return self._step_split_unfused(re, im, anchors_enu, mark)
 
-        fr, fi, score, arg, nf, rmax = fft_detect.fft_detect_rows_ct(re_p, im_p, self.plan)
-        mark("fft_detect")
-
-        bshape = (*batch, c.num_buoys)
-        s = self.plan.segments
-        peaks = detect_ops.peaks_from_ct_partials(
-            score.reshape(*bshape, s), arg.reshape(*bshape, s), nf.reshape(bshape),
-            nfft=nfft,
-            sample_rate_hz=c.sample_rate_hz,
-            max_peaks=c.max_peaks,
-            snr_fullscale_db=constants.DEFAULT_SNR_FULLSCALE_DB,
-            power_offset_db=c.power_offset_db,
+        nfft = sc_ops.planned_ct_nfft(n + c.max_lag)
+        routing = dict(
+            min_distance_bins=constants.DEFAULT_PEAK_MIN_DISTANCE_BINS,
+            noise_floor_stride=c.noise_floor_stride,
         )
-        mark("peaks")
-
-        cb = (-1, c.num_buoys)
-        mags = gcc_pair.gcc_pair_lag_mags(
-            fr.reshape(*cb, nfft), fi.reshape(*cb, nfft), rmax.reshape(cb),
-            self.pair_i_np, self.pair_j_np,
-            max_lag=c.max_lag, eps=c.gcc_eps,
+        fused_detect = detect_ops.fused_detect_enabled(nfft, **routing)
+        combined = fused_detect and detect_ops.fused_fft_detect_enabled(nfft, **routing)
+        tail = dict(sample_rate_hz=c.sample_rate_hz, max_peaks=c.max_peaks,
+                    power_offset_db=c.power_offset_db)
+        if combined and channel_step.supported(nfft, c.num_buoys, weighting=c.weighting, **routing):
+            # FFT, detect and the pair stage of every channel in one launch
+            nfft_m, partials, window = sc_ops.flagship_channel_step(
+                re, im, self.pair_i_np, self.pair_j_np, max_lag=c.max_lag, eps=c.gcc_eps,
+                plan=self.plan,
+            )
+            mark("channel_step")
+            peaks = detect_ops.peaks_from_ct_partials(*partials, nfft=nfft_m, **tail)
+            mark("peaks")
+            corr = gcc_ops.peaks_from_lag_mags(
+                window, sample_rate_hz=c.sample_rate_hz, max_lag=c.max_lag
+            )
+            mark("lag_peaks")
+            return self._solve_marked(peaks, corr, anchors_enu, mark)
+        row_smax = None
+        if combined:
+            spectra, partials, row_smax = sc_ops.receiver_spectra_ct_detect(
+                re, im, max_lag=c.max_lag, plan=self.plan
+            )
+            mark("fft_detect")
+            peaks = detect_ops.detect_peaks_ct(
+                spectra[0], spectra[1], threshold_db=c.detection_threshold_db,
+                partials=partials, **tail,
+            )
+            mark("peaks")
+        else:
+            spectra = sc_ops.receiver_spectra_ct(re, im, max_lag=c.max_lag)
+            mark("spectra")
+            if fused_detect:
+                peaks = detect_ops.detect_peaks_ct(
+                    spectra[0], spectra[1], threshold_db=c.detection_threshold_db, **tail
+                )
+            else:
+                power_db = sc_ops.ct_power_db(spectra[0], spectra[1])
+                peaks = self._detect_natural(power_db + c.power_offset_db)
+            mark("detect")
+        corr = sc_ops.gcc_phat_all_pairs_split_fused(
+            re, im, sample_rate_hz=c.sample_rate_hz, max_lag=c.max_lag,
+            weighting=c.weighting, eps=c.gcc_eps, spectra=spectra, row_smax=row_smax,
         )
         mark("gcc_pair")
+        return self._solve_marked(peaks, corr, anchors_enu, mark)
 
-        corr = gcc_ops.peaks_from_lag_mags(
-            mags.reshape(*batch, c.num_pairs, 2 * c.max_lag + 1),
-            sample_rate_hz=c.sample_rate_hz, max_lag=c.max_lag,
+    def _detect_natural(self, power_db: torch.Tensor) -> detect_ops.PeakSet:
+        """Natural-order detection of a dB spectrum (any grid)."""
+        c = self.config
+        return detect_ops.detect_peaks(
+            power_db,
+            sample_rate_hz=c.sample_rate_hz,
+            max_peaks=c.max_peaks,
+            threshold_db=c.detection_threshold_db,
+            noise_floor_stride=c.noise_floor_stride,
         )
-        mark("lag_peaks")
 
+    def _solve_marked(self, peaks, corr, anchors_enu, mark) -> PipelineOutput:
         out = self._finish(peaks, corr, anchors_enu)
         mark("solve")
         return out
+
+    def _step_split_unfused(self, re, im, anchors_enu, mark) -> PipelineOutput:
+        """Single dwell without the fused chain: natural-order spectra of
+        the padded blocks feed the split GCC, and the detector reads the
+        N-point spectrum (the padded spectra's even bins when nfft is
+        exactly 2N, else its own transform)."""
+        c = self.config
+        n = c.block_len
+        spectra = sc_ops.receiver_spectra_split(re, im, max_lag=c.max_lag)
+        mark("spectra")
+        fr, fi, nfft = spectra
+        if nfft == 2 * n:
+            power_db = 10.0 * torch.log10(fr[..., ::2] ** 2 + fi[..., ::2] ** 2 + 1e-24)
+        else:
+            power_db = sc_ops.power_spectrum_db_split(re, im)
+        peaks = self._detect_natural(power_db + c.power_offset_db)
+        mark("detect")
+        corr = sc_ops.gcc_phat_all_pairs_split(
+            re, im, sample_rate_hz=c.sample_rate_hz, max_lag=c.max_lag,
+            weighting=c.weighting, eps=c.gcc_eps, spectra=spectra,
+        )
+        mark("pair_corr")
+        return self._solve_marked(peaks, corr, anchors_enu, mark)
 
     def _step_split_multidwell(self, re, im, anchors_enu, mark) -> PipelineOutput:
         """Narrowband route: dwell-averaged PSD detection on the block_len
@@ -305,9 +384,7 @@ class TDOAPipeline:
         corr = gcc_ops.CorrelationPeak(
             *(torch.cat(f).reshape(*batch, c.num_pairs) for f in zip(*parts))
         )
-        out = self._finish(peaks, corr, anchors_enu)
-        mark("solve")
-        return out
+        return self._solve_marked(peaks, corr, anchors_enu, mark)
 
     def step_split_uint8(
         self, raw: torch.Tensor, anchors_enu: torch.Tensor, *, on_stage: StageHook = None

@@ -1,13 +1,16 @@
 """Wideband channelized TDOA (BASELINE config 4) on one device.
 
 Port of ``radio_mapper_tpu/models/wideband.py`` (``WidebandConfig``,
-``WidebandOutput``, ``WidebandTDOAPipeline``) on the route the reference
-ships by default (the fused pair stage, "phat" with the l2rx gate):
+``WidebandOutput``, ``WidebandTDOAPipeline``) on the fused pair stage the
+reference runs on the TPU: "phat" under the gate of
+``gcc_pair.set_phat_gate`` (l2rx by default, with s2 from per-receiver
+maxima; l2 or l1 from each pair's own maximum) or "cc" (not whitened):
 
     re/im [B, N_wide] ─ PFB channelize, branch DFT over M   ops.split_complex
       → [M, B, n_sub] → zero-pad to nfft = plan_nfft(n_sub + max_lag)
       → K3: CT-order FFT of all M·B rows, one launch        ops.cuda.fft_rows
-      → s2 = rmax_i·rmax_j per pair (rmax = max_k |X|²)     ops.safe.pair_select
+      → s2 = rmax_i·rmax_j per pair (rmax = max_k |X|²;    ops.safe.pair_select
+            the l2rx gate only)
       → K5: pair gather × whiten × inverse × lag window     ops.cuda.gcc_pair
             for all M subchannels in one launch
         (or, when the reference's gate says no, per subchannel:
@@ -83,9 +86,10 @@ class WidebandConfig:
             raise ValueError("max_lag must be < sub_block")
         if self.num_buoys < 2:
             raise ValueError("need at least 2 receivers")
-        if self.weighting != "phat":
+        if self.weighting not in gcc_pair.WEIGHTINGS:
             raise NotImplementedError(
-                f"weighting {self.weighting!r} is not ported (phat only; ROADMAP M6)"
+                f"weighting {self.weighting!r} is not ported: the fused pair stage takes "
+                f"{gcc_pair.WEIGHTINGS} (ROADMAP M6)"
             )
         return self
 
@@ -101,12 +105,12 @@ class WidebandOutput(NamedTuple):
 class WidebandTDOAPipeline:
     """Config-4 pipeline for a fixed configuration on one device.
 
-    ``device`` is explicit: inputs must already lie on it. On a CUDA
-    device K3 and K5 (or K6) run the hand-written kernels; on the CPU
-    they run their plain PyTorch versions.
+    Inputs must already lie on ``device`` (the card by default; CPU callers
+    pass ``device="cpu"``). On a CUDA device K3 and K5 (or K6) run the
+    hand-written kernels; on the CPU they run their plain PyTorch versions.
     """
 
-    def __init__(self, config: WidebandConfig, *, device: torch.device | str):
+    def __init__(self, config: WidebandConfig, *, device: torch.device | str = "cuda"):
         self.config = config.validate()
         dev = torch.device(device)
         if dev.type == "cuda" and dev.index is None:
@@ -140,10 +144,12 @@ class WidebandTDOAPipeline:
         mark("fft")
         # Per-pair l2rx gate scales from per-receiver maxima: one [.., B, nfft]
         # reduction instead of a [.., P, nfft] one in the pair kernel.
-        rmax = (fr * fr + fi * fi).amax(dim=-1)  # [..., B]
-        s2 = safe.pair_select(rmax, self.pair_i, axis=-1) * safe.pair_select(
-            rmax, self.pair_j, axis=-1
-        )  # [..., P]
+        s2 = None
+        if c.weighting == "phat" and gcc_pair.phat_gate() == "l2rx":
+            rmax = (fr * fr + fi * fi).amax(dim=-1)  # [..., B]
+            s2 = safe.pair_select(rmax, self.pair_i, axis=-1) * safe.pair_select(
+                rmax, self.pair_j, axis=-1
+            )  # [..., P]
         mark("s2")
         if gcc_pair.onehot_pairs_enabled(c.num_buoys, nfft):
             mags = gcc_pair.gcc_pairs_onehot_lag_mags(
@@ -153,7 +159,8 @@ class WidebandTDOAPipeline:
         else:
             lead = fr.shape[:-2]
             b, p = c.num_buoys, c.num_pairs
-            frs, fis, s2s = fr.reshape(-1, b, nfft), fi.reshape(-1, b, nfft), s2.reshape(-1, p)
+            frs, fis = fr.reshape(-1, b, nfft), fi.reshape(-1, b, nfft)
+            s2s = [None] * frs.shape[0] if s2 is None else s2.reshape(-1, p)
             mags = torch.stack([
                 self._rows_pair_stage(frs[k], fis[k], s2s[k]) for k in range(frs.shape[0])
             ]).reshape(*lead, p, 2 * lag + 1)

@@ -1,0 +1,191 @@
+"""Kernel K8: the per-channel megakernel — FFT × detect × GCC pair stage.
+
+Replaces ``radio_mapper_tpu/ops/pallas/channel_kernel.py::channel_step_partials``
+(``ct_fft_core`` + ``_detect_body`` + the l2rx ``_whiten`` +
+``_invert_to_lag_windows``, one grid cell per channel). The CUDA source is
+``radio_mapper_tpu_torch/csrc/channel_step.cu``.
+
+Design (first, simple version): a channel is a thread-block cluster of B
+blocks, one per receiver (a complex row at nfft 17408 is 139,264 B, so a
+channel's 8 rows cannot share one block's 227 KB as the TPU kernel's VMEM
+holds them). Each block runs kernel K1's body on its row — the spectra go
+to a scratch that this wrapper allocates, the detect partials and noise
+floor to the outputs, the row max to a per-receiver gate scratch — then
+the cluster synchronises and block ``rank`` runs kernel K2's pair body
+(l2rx gate) for pairs rank, rank + B, ... . The same device functions run
+in the same order as K1 → K2 (l2rx), so the outputs equal that
+composition's bit for bit. Keeping each spectrum in its block's shared
+memory and reading partners through distributed shared memory would drop
+the scratch's traffic (2 × 142.6 MB at 128 channels × 8 receivers) but
+needs ≈ 209 KB a block before the pair buffers: a later redesign.
+
+What bounds it on the H100 as written: the FP32 direct-DFT FMAs of K1 and
+K2 together (≈ 106 GFLOP at [128, 8, 17408], ≈ 1.6 ms at 67 TFLOP/s); its
+pair stage runs one 512-thread block per SM (the row's shared memory stays
+reserved). The function itself needs ≈ 4.9 GFLOP with FFTs (≈ 0.07 ms).
+
+Routing (``channel_kernel.set_mega_fused``/``supported``, copied): "off"
+by default, "auto" follows "off"; the kernel needs "phat", B padded to a
+multiple of 8 at most 16 and P padded at most 64, so at most 11
+receivers reach it (55 pairs pad to 56). The wrapper itself takes B ≤ 16:
+a cluster of 16 blocks of 139 KB launches on the H100 (card test). The
+gate is always "l2rx", whatever :func:`gcc_pair.set_phat_gate` says.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from radio_mapper_tpu_torch.ops import ct_plan
+from radio_mapper_tpu_torch.ops.cuda import build, detect_ct, fft_detect, gcc_pair
+
+launch_count = 0  # launches of the CUDA kernel (not of the plain version)
+
+THREADS = 512  # must match K8_THREADS in channel_step.cu (K1's block)
+MAX_PAIR_ROWS = 64  # channel_kernel.MAX_PAIR_ROWS
+MAX_B_PAD = 16  # channel_kernel.MAX_B_PAD
+
+_ARGTYPES = (
+    [ctypes.c_void_p] * 17
+    + [ctypes.c_int] * 8
+    + [ctypes.c_float] * 2
+    + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int]
+    + [ctypes.c_void_p]
+)
+
+_MEGA = "off"
+
+
+def set_mega_fused(mode: str) -> None:
+    """Route the single-dwell step to K8 ("on"), or not ("off", "auto":
+    the reference's measured-neutral default)."""
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"unknown mega-fused mode {mode!r}")
+    global _MEGA
+    _MEGA = mode
+
+
+def supported(
+    nfft: int,
+    num_receivers: int,
+    *,
+    min_distance_bins: int,
+    noise_floor_stride: int,
+    weighting: str,
+) -> bool:
+    """``channel_kernel.supported``: whether the step routes to K8."""
+    if _MEGA != "on":
+        return False
+    if weighting != "phat":
+        return False
+    if -(-num_receivers // 8) * 8 > MAX_B_PAD:
+        return False
+    p = num_receivers * (num_receivers - 1) // 2
+    if -(-p // 8) * 8 > MAX_PAIR_ROWS:
+        return False
+    if not detect_ct.supported(
+        nfft, min_distance_bins=min_distance_bins, noise_floor_stride=noise_floor_stride
+    ):
+        return False
+    return ct_plan.ct_supported(nfft)
+
+
+def channel_step_partials(
+    re_pad: torch.Tensor,
+    im_pad: torch.Tensor,
+    pair_i: np.ndarray,
+    pair_j: np.ndarray,
+    plan: ct_plan.DetectPlan,
+    max_lag: int,
+    eps: float = 0.05,
+):
+    """Detect partials and lag windows of every channel, one launch.
+
+    Args:
+      re_pad/im_pad: float32 ``[..., B, nfft]`` time rows, zero-padded to
+        ``plan.nfft``.
+      pair_i/pair_j: host int arrays of length P.
+      plan: :func:`ct_plan.detect_plan` for this nfft.
+    Returns:
+      ``(seg_score [..., B, nfft/8], seg_arg [..., B, nfft/8],
+      noise_floor_db [..., B], lag_mags [..., P, 2·max_lag+1])``: K1's
+      partials and floor, and K2's windows under the l2rx gate with K1's
+      row maxima as the gate input.
+
+    CPU tensors go through :func:`channel_step_partials_plain`; CUDA
+    tensors launch the kernel.
+    """
+    if re_pad.shape != im_pad.shape or re_pad.dim() < 2 or re_pad.numel() == 0:
+        raise ValueError(f"need re/im [..., B, nfft], got {tuple(re_pad.shape)}, {tuple(im_pad.shape)}")
+    *lead, b, n = re_pad.shape
+    fft_detect.check_rows(re_pad.reshape(-1, n), im_pad.reshape(-1, n), plan)
+    if not (re_pad.is_contiguous() and im_pad.is_contiguous()):
+        raise ValueError("re/im must be contiguous")
+    gcc_pair._check_pairs(pair_i, pair_j, b)
+    gcc_pair._check_lag(n, max_lag)
+    if re_pad.device.type == "cpu":
+        return channel_step_partials_plain(re_pad, im_pad, pair_i, pair_j, plan, max_lag, eps)
+    if re_pad.device.type != "cuda":
+        raise ValueError(f"no K8 implementation for device {re_pad.device}")
+    return _launch(re_pad, im_pad, pair_i, pair_j, plan, max_lag, eps)
+
+
+def _launch(re, im, pair_i, pair_j, plan, max_lag, eps):
+    global launch_count
+    *lead, b, n = re.shape
+    n1, n2 = plan.n1, plan.n2
+    if THREADS % n1 or n2 > fft_detect.MAX_N2 or n > fft_detect.MAX_N or n * 8 > fft_detect.SMEM_LIMIT:
+        raise ValueError(f"K8 runs K1's body: n1 dividing {THREADS}, n2 ≤ {fft_detect.MAX_N2}, "
+                         f"nfft ≤ {fft_detect.MAX_N}; got nfft {n} = {n1}·{n2}")
+    if b > MAX_B_PAD:
+        raise ValueError(f"K8 runs a cluster of one block per receiver: at most {MAX_B_PAD}, got {b}")
+    nneg, npos = gcc_pair.window_rows(n, max_lag)
+    if ((THREADS // n1) * gcc_pair.RJ + nneg + npos) * n1 * 8 > n * 8:
+        raise ValueError(f"max_lag {max_lag} does not fit K8's pair buffers at nfft {n}")
+    fn = build.kernel("rm_channel_step_partials", _ARGTYPES)
+    dev = re.device
+    ft = ct_plan.device_tables(n, False, dev)
+    it = ct_plan.device_tables(n, True, dev)
+    pi, pj = gcc_pair._pair_tensors(tuple(int(v) for v in pair_i), tuple(int(v) for v in pair_j), dev)
+    c, p, s, width = re.numel() // (b * n), pi.shape[0], plan.segments, 2 * max_lag + 1
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
+    fr, fi, smax = f32(c, b, n), f32(c, b, n), f32(c, b)  # scratch: spectra, row maxima
+    score, arg, nf, out = f32(c, b, s), f32(c, b, s), f32(c, b), f32(c, p, width)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    err = fn(
+        ptr(re), ptr(im), ptr(ft.w1), ptr(ft.w2), ptr(ft.tw), ptr(it.w1), ptr(it.w2), ptr(it.tw),
+        ptr(pi), ptr(pj), ptr(fr), ptr(fi), ptr(smax),
+        ptr(score), ptr(arg), ptr(nf), ptr(out),
+        c, b, p, n1, n2, nneg, npos, max_lag,
+        eps * eps, 1.0 / n,
+        *fft_detect.plan_args(plan),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    build.check(err, "channel_step_partials")
+    launch_count += 1
+    return (
+        score.reshape(*lead, b, s), arg.reshape(*lead, b, s), nf.reshape(*lead, b),
+        out.reshape(*lead, p, width),
+    )
+
+
+def channel_step_partials_plain(re_pad, im_pad, pair_i, pair_j, plan, max_lag, eps=0.05):
+    """Plain PyTorch version of K8: plain K1, then plain K2 with the l2rx
+    gate on K1's row maxima. Same contract as :func:`channel_step_partials`."""
+    *lead, b, n = re_pad.shape
+    fr, fi, score, arg, nf, rmax = fft_detect.fft_detect_rows_ct_plain(
+        re_pad.reshape(-1, n), im_pad.reshape(-1, n), plan
+    )
+    mags = gcc_pair._k2_plain(
+        fr.reshape(-1, b, n), fi.reshape(-1, b, n), rmax.reshape(-1, b),
+        pair_i, pair_j, max_lag, eps, "l2rx",
+    )
+    s = plan.segments
+    return (
+        score.reshape(*lead, b, s), arg.reshape(*lead, b, s), nf.reshape(*lead, b),
+        mags.reshape(*lead, mags.shape[-2], mags.shape[-1]),
+    )

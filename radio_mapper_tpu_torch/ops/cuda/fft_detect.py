@@ -10,9 +10,10 @@ runs in place — inner n2-point DFT over q with the twiddle folded into
 the write-back, then the outer n1-point DFT over p — in FP32 FMA on the
 CUDA cores with the tables of :func:`ct_plan.ct_constants`. The spectra
 are written once (the pair stage reads them); the detect body then runs
-on the power array in shared memory: row max, the 24-step dB bisection
-over the stride-8 subsample, the circular ±radius sliding max in natural
-bin order, the gates, and the per-8-bin-segment (max, lowest argmax).
+on the power array in shared memory (``csrc/ct_detect.cuh``, shared with
+kernels K4 and K8): row max, the 24-step dB bisection over the stride-8
+subsample, the circular ±radius sliding max in natural bin order, the
+gates, and the per-8-bin-segment (max, lowest argmax).
 
 What bounds it on the H100: the two direct DFT stages, n·(n1+n2) complex
 multiply-adds per row (≈ 37 MFLOP at 17408), issued from shared memory
@@ -46,7 +47,9 @@ _ARGTYPES = (
 )
 
 
-def _check(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan) -> None:
+def check_rows(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan) -> None:
+    """float32, contiguous ``[rows ≥ 1, plan.nfft]`` re/im on one device
+    (the input contract of kernels K1 and K4)."""
     if re.shape != im.shape or re.dim() != 2 or re.shape[0] < 1:
         raise ValueError(f"need re/im of one shape [rows ≥ 1, nfft], got {tuple(re.shape)}, {tuple(im.shape)}")
     if re.shape[-1] != plan.nfft:
@@ -57,6 +60,17 @@ def _check(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan) -> None
         raise ValueError(f"re on {re.device}, im on {im.device}")
     if not (re.is_contiguous() and im.is_contiguous()):
         raise ValueError("re/im must be contiguous")
+
+
+def plan_args(plan: ct_plan.DetectPlan) -> list:
+    """The detection parameters as the C entries of K1, K4 and K8 take
+    them (``rm_det::DetectParams``)."""
+    return [
+        plan.radius, plan.keep_lo, plan.keep_hi,
+        plan.thr_lin, int(plan.conf_cs is not None),
+        0.0 if plan.conf_cs is None else plan.conf_cs,
+        plan.power_offset_db, plan.bisect_iters,
+    ]
 
 
 def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
@@ -76,7 +90,7 @@ def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectP
     CPU tensors go through :func:`fft_detect_rows_ct_plain`; CUDA tensors
     launch the kernel.
     """
-    _check(re, im, plan)
+    check_rows(re, im, plan)
     if re.device.type == "cpu":
         return fft_detect_rows_ct_plain(re, im, plan)
     if re.device.type != "cuda":
@@ -106,10 +120,7 @@ def _launch(re, im, plan):
     err = fn(
         ptr(re), ptr(im), ptr(t.w1), ptr(t.w2), ptr(t.tw),
         ptr(fr), ptr(fi), ptr(score), ptr(arg), ptr(nf), ptr(rmax),
-        rows, n1, n2, plan.radius, plan.keep_lo, plan.keep_hi,
-        plan.thr_lin, int(plan.conf_cs is not None),
-        0.0 if plan.conf_cs is None else plan.conf_cs,
-        plan.power_offset_db, plan.bisect_iters,
+        rows, n1, n2, *plan_args(plan),
         ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream),
     )
     build.check(err, "fft_detect_rows_ct")

@@ -1,7 +1,8 @@
-"""Kernels K2, K5 and K6: PHAT whitening × inverse DFT × lag window.
+"""Kernels K2, K5 and K6: whitening × inverse DFT × lag window.
 
-Three entries into one CUDA body (``radio_mapper_tpu_torch/csrc/gcc_pair.cu``),
-each with its plain PyTorch version and its own launch counter:
+Three entries into one CUDA body (``radio_mapper_tpu_torch/csrc/gcc_pair.cu``
+around ``csrc/gcc_pair.cuh``, which kernel K8 shares), each with its plain
+PyTorch version and its own launch counter:
 
 - **K2** :func:`gcc_pair_lag_mags` replaces
   ``radio_mapper_tpu/ops/pallas/gcc_kernel.py::gcc_pair_lag_mags``: all
@@ -19,24 +20,29 @@ Design (first, simple version): one thread block per pair. It reads
 X_i and Y_j by index straight from the CT-order spectra (the TPU's
 resident spectra and one-hot matmul gather are a VMEM/MXU layout device
 with no use here; one subchannel's 64 spectra, 2.6 MB, stay in the
-50 MB L2), forms R = X·conj(Y), applies R·rsqrt(|R|² + ε²·s2 + 1e-30),
-and runs the four-step inverse in chunks of CT rows: the inner n1-point
-inverse DFT over k1 and the inverse twiddle, then the outer inverse DFT
-over k2 accumulated ONLY into the lag-window time rows (``ceil(L/n1)``
-tail rows and ``L//n1 + 1`` head rows). Shared memory holds one chunk
-and the window accumulators (≈ 26 KB at nfft 17408 / max_lag 512,
-≈ 19 KB at nfft 5120 / max_lag 128), so several blocks share an SM.
-FP32 FMA on the CUDA cores.
+50 MB L2), forms R = X·conj(Y), whitens it, and runs the four-step
+inverse in chunks of CT rows: the inner n1-point inverse DFT over k1 and
+the inverse twiddle, then the outer inverse DFT over k2 accumulated ONLY
+into the lag-window time rows (``ceil(L/n1)`` tail rows and ``L//n1 + 1``
+head rows). Shared memory holds one chunk and the window accumulators
+(≈ 26 KB at nfft 17408 / max_lag 512, ≈ 19 KB at nfft 5120 / max_lag
+128), so several blocks share an SM. FP32 FMA on the CUDA cores.
+
+Whitening (``gcc_kernel._whiten``, chosen by :func:`set_phat_gate` and
+``weighting``): "phat" takes the gate of the knob — "l2rx" (default)
+R·rsqrt(|R|² + ε²·s2 + 1e-30) with s2 = max|X_i|²·max|Y_j|² from the
+per-receiver maxima, "l2" the same with s2 = max|R|² of the pair, "l1"
+R / (|R| + ε·max|R| + 1e-30); "l2rx" without gate scales runs as "l2",
+as in the reference. "cc" is not whitened. The per-pair gates need the
+pair's maximum first: one more pass over X and Y.
 
 What bounds it on the H100: the inner inverse DFT, n·n1 complex
 multiply-adds per pair (≈ 2.2 M at nfft 17408, 0.66 M at 5120) — compute
 bound; each pair reads two spectra, mostly L2 hits since a channel's B
 spectra are shared by all its pairs. Left for later PRs: both DFT stages
 on tensor cores, TMA loads of the spectra rows, and fusing the forward
-transform into this kernel so spectra stay on chip.
-
-Only "phat" with the "l2rx" gate is ported: the l1/l2 gates (no gate
-scale given) and "cc" raise ``NotImplementedError`` (ROADMAP M6).
+transform into this kernel so spectra stay on chip (kernel K8 does the
+latter through a scratch).
 """
 
 from __future__ import annotations
@@ -61,16 +67,47 @@ SMEM_LIMIT = 232_448  # H100 per-block shared memory
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 9
-    + [ctypes.c_int] * 8
-    + [ctypes.c_float, ctypes.c_float]
+    + [ctypes.c_int] * 9
+    + [ctypes.c_float] * 3
     + [ctypes.c_void_p]
 )
 _ROWS_ARGTYPES = (
     [ctypes.c_void_p] * 9
-    + [ctypes.c_int] * 6
-    + [ctypes.c_float, ctypes.c_float]
+    + [ctypes.c_int] * 7
+    + [ctypes.c_float] * 3
     + [ctypes.c_void_p]
 )
+
+WEIGHTINGS = ("phat", "cc")  # gcc_kernel.WEIGHTINGS
+GATES = ("l2rx", "l2", "l1")  # PHAT gate algebras (gcc_kernel._PHAT_GATE)
+_GATE_CODE = {"l2rx": 0, "l2": 1, "l1": 2, "none": 3}  # rm_pair::Gate
+_PHAT_GATE = "l2rx"
+
+
+def set_phat_gate(mode: str) -> None:
+    """The PHAT gate of K2/K5/K6 ("l2rx", "l2" or "l1"; the reference's
+    ``gcc_kernel.set_phat_gate``). Kernel K8 keeps "l2rx" whatever it is."""
+    if mode not in GATES:
+        raise ValueError(f"unknown phat gate {mode!r}")
+    global _PHAT_GATE
+    _PHAT_GATE = mode
+
+
+def phat_gate() -> str:
+    return _PHAT_GATE
+
+
+def resolve_gate(weighting: str, have_scales: bool) -> str:
+    """The whitening a call runs: "none" for "cc"; for "phat" the knob's
+    gate, with "l2rx" falling back to "l2" when no gate scales are given
+    (``gcc_kernel.py:388-390``)."""
+    if weighting not in WEIGHTINGS:
+        raise ValueError(f"the fused pair stage supports {WEIGHTINGS}, not {weighting!r}")
+    if weighting == "cc":
+        return "none"
+    if _PHAT_GATE == "l2rx" and not have_scales:
+        return "l2"
+    return _PHAT_GATE
 
 # Routing of the wideband pair stage between K5 and K6 (the reference's
 # trace-time knob ``gcc_kernel.set_onehot_pairs``): "auto" keeps the
@@ -141,15 +178,6 @@ def _check_lag(nfft: int, max_lag: int) -> None:
     ct_plan.ct_split(nfft)
 
 
-def _l2rx_phat_only(weighting: str, s2) -> None:
-    if weighting != "phat":
-        raise NotImplementedError(f"weighting {weighting!r} is not ported (phat only; ROADMAP M6)")
-    if s2 is None:
-        raise NotImplementedError(
-            "the l1/l2 PHAT gates (no per-pair gate scale s2) are not ported; ROADMAP M6"
-        )
-
-
 def _geometry(n: int, max_lag: int, what: str):
     """``(n1, n2, nneg, npos)`` for a kernel launch; raises where the
     block layout or shared memory does not fit."""
@@ -167,8 +195,8 @@ def _stream(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
 
-def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(x.data_ptr())
+def _ptr(x: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if x is None else x.data_ptr())
 
 
 # -- K2: all pairs of every channel, per-receiver gate --------------------
@@ -177,19 +205,23 @@ def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
 def gcc_pair_lag_mags(
     spec_re: torch.Tensor,
     spec_im: torch.Tensor,
-    row_smax: torch.Tensor,
+    row_smax: Optional[torch.Tensor],
     pair_i: np.ndarray,
     pair_j: np.ndarray,
     *,
     max_lag: int,
     eps: float = 0.05,
+    weighting: str = "phat",
 ) -> torch.Tensor:
-    """PHAT correlation magnitudes |r|/nfft at lags −max_lag..+max_lag.
+    """Correlation magnitudes |r|/nfft at lags −max_lag..+max_lag.
 
     Args:
       spec_re/spec_im: float32 ``[C, B, nfft]`` CT-order spectra (K1 output).
-      row_smax: float32 ``[C, B]`` per-receiver max linear power (K1 output).
+      row_smax: float32 ``[C, B]`` per-receiver max linear power (K1
+        output) for the "l2rx" gate, or None (the gate then runs as "l2").
       pair_i/pair_j: host int arrays of length P (receiver i, receiver j).
+      weighting: "phat" (whitened by the gate of :func:`set_phat_gate`) or
+        "cc" (not whitened).
     Returns:
       float32 ``[C, P, 2·max_lag+1]``; lag > 0 ⇒ receiver i heard later.
 
@@ -201,21 +233,22 @@ def gcc_pair_lag_mags(
     c, b, nfft = spec_re.shape
     if c < 1:
         raise ValueError("need at least one channel")
-    if row_smax.shape != (c, b):
+    gate = resolve_gate(weighting, row_smax is not None)
+    if row_smax is not None and row_smax.shape != (c, b):
         raise ValueError(f"row_smax {tuple(row_smax.shape)} does not match spectra [{c}, {b}, ·]")
-    _check_float32(spec_re.device, spec_re=spec_re, spec_im=spec_im, row_smax=row_smax)
+    scales = dict(row_smax=row_smax) if gate == "l2rx" else {}
+    _check_float32(spec_re.device, spec_re=spec_re, spec_im=spec_im, **scales)
     _check_pairs(pair_i, pair_j, b)
     _check_lag(nfft, max_lag)
     if spec_re.device.type == "cpu":
-        return gcc_pair_lag_mags_plain(
-            spec_re, spec_im, row_smax, pair_i, pair_j, max_lag=max_lag, eps=eps
-        )
+        return _k2_plain(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate)
     if spec_re.device.type != "cuda":
         raise ValueError(f"no K2 implementation for device {spec_re.device}")
-    return _launch(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps)
+    return _launch(spec_re, spec_im, row_smax if gate == "l2rx" else None, pair_i, pair_j,
+                   max_lag, eps, gate)
 
 
-def _launch(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps):
+def _launch(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate):
     global launch_count
     c, b, n = spec_re.shape
     n1, n2, nneg, npos = _geometry(n, max_lag, "K2")
@@ -229,8 +262,8 @@ def _launch(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps):
     err = fn(
         _ptr(spec_re), _ptr(spec_im), _ptr(row_smax), _ptr(pi), _ptr(pj),
         _ptr(t.w1), _ptr(t.w2), _ptr(t.tw), _ptr(out),
-        c, b, p, n1, n2, nneg, npos, max_lag,
-        eps * eps, 1.0 / n,
+        c, b, p, n1, n2, nneg, npos, max_lag, _GATE_CODE[gate],
+        eps * eps, eps, 1.0 / n,
         _stream(spec_re),
     )
     build.check(err, "gcc_pair_lag_mags")
@@ -241,41 +274,64 @@ def _launch(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps):
 def gcc_pair_lag_mags_plain(
     spec_re: torch.Tensor,
     spec_im: torch.Tensor,
-    row_smax: torch.Tensor,
+    row_smax: Optional[torch.Tensor],
     pair_i: np.ndarray,
     pair_j: np.ndarray,
     *,
     max_lag: int,
     eps: float = 0.05,
+    weighting: str = "phat",
 ) -> torch.Tensor:
     """Plain PyTorch version of K2: the same whitening and four-step
     inverse on the same tables, as batched tensor ops. Same contract as
     :func:`gcc_pair_lag_mags`. On the card it is the comparison only,
     with ``torch.backends.cuda.matmul.allow_tf32 = False`` set by the
     caller (full FP32 products)."""
+    gate = resolve_gate(weighting, row_smax is not None)
+    return _k2_plain(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate)
+
+
+def _k2_plain(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate):
+    """K2's plain body under an explicit ``gate`` (kernel K8's plain
+    version passes "l2rx")."""
     pi = torch.as_tensor(np.asarray(pair_i, np.int64), device=spec_re.device)
     pj = torch.as_tensor(np.asarray(pair_j, np.int64), device=spec_re.device)
-    s2 = row_smax[:, pi] * row_smax[:, pj]  # ≥ max|R|² per pair
+    s2 = row_smax[:, pi] * row_smax[:, pj] if gate == "l2rx" else None  # ≥ max|R|² per pair
     return _whiten_invert_plain(
-        spec_re[:, pi], spec_im[:, pi], spec_re[:, pj], spec_im[:, pj], s2, max_lag, eps
+        spec_re[:, pi], spec_im[:, pi], spec_re[:, pj], spec_im[:, pj], s2, max_lag, eps, gate
     )
 
 
-def _whiten_invert_plain(xr, xi, yr, yi, s2, max_lag, eps):
-    """Pair spectra ``[..., n]`` (CT order) and gate scales ``s2 [...]`` →
-    lag windows ``[..., 2·max_lag+1]``: the body all three plain versions
-    share."""
+def _whiten(rr, ri, s2, eps, gate):
+    """``gcc_kernel._whiten`` on cross-power ``(rr, ri) [..., n]``; ``s2
+    [...]`` is used by "l2rx" only."""
+    if gate == "none":
+        return rr, ri
+    p2 = rr * rr + ri * ri
+    if gate == "l1":
+        mag = p2 * torch.rsqrt(p2 + 1e-30)
+        scale = mag.amax(dim=-1, keepdim=True)  # per-pair gate
+        inv = 1.0 / (mag + eps * scale + 1e-30)
+    else:
+        if gate == "l2":
+            s2 = p2.amax(dim=-1)  # max|R|² per pair
+        inv = torch.rsqrt(p2 + (eps * eps) * s2.unsqueeze(-1) + 1e-30)
+    return rr * inv, ri * inv
+
+
+def _whiten_invert_plain(xr, xi, yr, yi, s2, max_lag, eps, gate):
+    """Pair spectra ``[..., n]`` (CT order), gate scales ``s2 [...]`` (or
+    None) and the gate → lag windows ``[..., 2·max_lag+1]``: the body all
+    the plain versions share."""
     n = xr.shape[-1]
     lead = xr.shape[:-1]
     n1, n2 = ct_plan.ct_split(n)
     nneg, npos = window_rows(n, max_lag)
     t = ct_plan.device_tables(n, True, xr.device)
 
-    rr = xr * yr + xi * yi  # R = X · conj(Y)
-    ri = xi * yr - xr * yi
-    inv = torch.rsqrt(rr * rr + ri * ri + (eps * eps) * s2.unsqueeze(-1) + 1e-30)
-    rr = (rr * inv).reshape(*lead, n2, n1)
-    ri = (ri * inv).reshape(*lead, n2, n1)
+    rr, ri = _whiten(xr * yr + xi * yi, xi * yr - xr * yi, s2, eps, gate)  # R = X · conj(Y)
+    rr = rr.reshape(*lead, n2, n1)
+    ri = ri.reshape(*lead, n2, n1)
 
     # inner inverse DFT over k1, then the inverse twiddle W_n^{+p·k2}
     er = rr @ t.w1re - ri @ t.w1im
@@ -314,34 +370,36 @@ def gcc_pairs_onehot_lag_mags(
         subchannels) run in the same launch.
       pair_i/pair_j: host int arrays of length P (copied to the device
         once and cached; the kernel reads them there).
+      weighting: "phat" or "cc" (see :func:`resolve_gate`).
       s2: float32 ``[..., P]`` per-pair l2rx gate scales
-        (max|X_i|²·max|Y_j|²). Required: without it the reference falls
-        back to the l2 gate, which is not ported.
+        (max|X_i|²·max|Y_j|²), or None (the "l2rx" gate then runs as
+        "l2").
     Returns:
       float32 ``[..., P, 2·max_lag+1]`` |r| at lags −max_lag..+max_lag.
 
     CPU tensors go through :func:`gcc_pairs_onehot_lag_mags_plain`; CUDA
     tensors launch the kernel.
     """
-    _l2rx_phat_only(weighting, s2)
+    gate = resolve_gate(weighting, s2 is not None)
     if spec_re.shape != spec_im.shape or spec_re.dim() < 2 or spec_re.numel() == 0:
         raise ValueError(f"need spectra [..., B, nfft], got {tuple(spec_re.shape)}, {tuple(spec_im.shape)}")
     *lead, b, nfft = spec_re.shape
     pi, _ = _check_pairs(pair_i, pair_j, b)
-    if s2.shape != (*lead, pi.size):
+    if s2 is not None and s2.shape != (*lead, pi.size):
         raise ValueError(f"s2 {tuple(s2.shape)} does not match [{', '.join(map(str, lead + [pi.size]))}]")
-    _check_float32(spec_re.device, spec_re=spec_re, spec_im=spec_im, s2=s2)
+    s2 = s2 if gate == "l2rx" else None
+    _check_float32(spec_re.device, spec_re=spec_re, spec_im=spec_im, **({} if s2 is None else {"s2": s2}))
     _check_lag(nfft, max_lag)
     if spec_re.device.type == "cpu":
         return gcc_pairs_onehot_lag_mags_plain(
-            spec_re, spec_im, pair_i, pair_j, max_lag=max_lag, eps=eps, s2=s2
+            spec_re, spec_im, pair_i, pair_j, max_lag=max_lag, eps=eps, weighting=weighting, s2=s2
         )
     if spec_re.device.type != "cuda":
         raise ValueError(f"no K5 implementation for device {spec_re.device}")
-    return _launch_onehot(spec_re, spec_im, pair_i, pair_j, s2, max_lag, eps)
+    return _launch_onehot(spec_re, spec_im, pair_i, pair_j, s2, max_lag, eps, gate)
 
 
-def _launch_onehot(spec_re, spec_im, pair_i, pair_j, s2, max_lag, eps):
+def _launch_onehot(spec_re, spec_im, pair_i, pair_j, s2, max_lag, eps, gate):
     global onehot_launch_count
     *lead, b, n = spec_re.shape
     c = spec_re.numel() // (b * n)
@@ -356,8 +414,8 @@ def _launch_onehot(spec_re, spec_im, pair_i, pair_j, s2, max_lag, eps):
     err = fn(
         _ptr(spec_re), _ptr(spec_im), _ptr(s2), _ptr(pi), _ptr(pj),
         _ptr(t.w1), _ptr(t.w2), _ptr(t.tw), _ptr(out),
-        c, b, p, n1, n2, nneg, npos, max_lag,
-        eps * eps, 1.0 / n,
+        c, b, p, n1, n2, nneg, npos, max_lag, _GATE_CODE[gate],
+        eps * eps, eps, 1.0 / n,
         _stream(spec_re),
     )
     build.check(err, "gcc_pairs_onehot_lag_mags")
@@ -373,15 +431,17 @@ def gcc_pairs_onehot_lag_mags_plain(
     *,
     max_lag: int,
     eps: float = 0.05,
-    s2: torch.Tensor,
+    weighting: str = "phat",
+    s2: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K5: gather by ``index_select``, then the
     K2 body. Same contract as :func:`gcc_pairs_onehot_lag_mags`."""
+    gate = resolve_gate(weighting, s2 is not None)
     pi = torch.as_tensor(np.asarray(pair_i, np.int64), device=spec_re.device)
     pj = torch.as_tensor(np.asarray(pair_j, np.int64), device=spec_re.device)
     sel = lambda x, idx: x.index_select(-2, idx)
     return _whiten_invert_plain(
-        sel(spec_re, pi), sel(spec_im, pi), sel(spec_re, pj), sel(spec_im, pj), s2, max_lag, eps
+        sel(spec_re, pi), sel(spec_im, pi), sel(spec_re, pj), sel(spec_im, pj), s2, max_lag, eps, gate
     )
 
 
@@ -403,31 +463,31 @@ def gcc_rows_lag_mags(
 
     Args:
       xre/xim, yre/yim: float32 ``[P, nfft]`` CT-order spectra.
-      s2: float32 ``[P]`` per-pair l2rx gate scales. Required (see
-        :func:`gcc_pairs_onehot_lag_mags`).
+      weighting, s2: as :func:`gcc_pairs_onehot_lag_mags`, ``s2 [P]``.
     Returns:
       float32 ``[P, 2·max_lag+1]``.
 
     CPU tensors go through :func:`gcc_rows_lag_mags_plain`; CUDA tensors
     launch the kernel.
     """
-    _l2rx_phat_only(weighting, s2)
+    gate = resolve_gate(weighting, s2 is not None)
     if not (xre.shape == xim.shape == yre.shape == yim.shape) or xre.dim() != 2 or xre.shape[0] < 1:
         raise ValueError(f"need four [P ≥ 1, nfft] spectra, got {tuple(xre.shape)}, {tuple(xim.shape)}, "
                          f"{tuple(yre.shape)}, {tuple(yim.shape)}")
     p, nfft = xre.shape
-    if s2.shape != (p,):
+    if s2 is not None and s2.shape != (p,):
         raise ValueError(f"s2 {tuple(s2.shape)} does not match [{p}]")
-    _check_float32(xre.device, xre=xre, xim=xim, yre=yre, yim=yim, s2=s2)
+    s2 = s2 if gate == "l2rx" else None
+    _check_float32(xre.device, xre=xre, xim=xim, yre=yre, yim=yim, **({} if s2 is None else {"s2": s2}))
     _check_lag(nfft, max_lag)
     if xre.device.type == "cpu":
-        return gcc_rows_lag_mags_plain(xre, xim, yre, yim, max_lag=max_lag, eps=eps, s2=s2)
+        return gcc_rows_lag_mags_plain(xre, xim, yre, yim, max_lag=max_lag, eps=eps, weighting=weighting, s2=s2)
     if xre.device.type != "cuda":
         raise ValueError(f"no K6 implementation for device {xre.device}")
-    return _launch_rows(xre, xim, yre, yim, s2, max_lag, eps)
+    return _launch_rows(xre, xim, yre, yim, s2, max_lag, eps, gate)
 
 
-def _launch_rows(xre, xim, yre, yim, s2, max_lag, eps):
+def _launch_rows(xre, xim, yre, yim, s2, max_lag, eps, gate):
     global rows_launch_count
     p, n = xre.shape
     n1, n2, nneg, npos = _geometry(n, max_lag, "K6")
@@ -437,8 +497,8 @@ def _launch_rows(xre, xim, yre, yim, s2, max_lag, eps):
     err = fn(
         _ptr(xre), _ptr(xim), _ptr(yre), _ptr(yim), _ptr(s2),
         _ptr(t.w1), _ptr(t.w2), _ptr(t.tw), _ptr(out),
-        p, n1, n2, nneg, npos, max_lag,
-        eps * eps, 1.0 / n,
+        p, n1, n2, nneg, npos, max_lag, _GATE_CODE[gate],
+        eps * eps, eps, 1.0 / n,
         _stream(xre),
     )
     build.check(err, "gcc_rows_lag_mags")
@@ -454,8 +514,10 @@ def gcc_rows_lag_mags_plain(
     *,
     max_lag: int,
     eps: float = 0.05,
-    s2: torch.Tensor,
+    weighting: str = "phat",
+    s2: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K6: the K2 body on row-aligned pairs. Same
     contract as :func:`gcc_rows_lag_mags`."""
-    return _whiten_invert_plain(xre, xim, yre, yim, s2, max_lag, eps)
+    gate = resolve_gate(weighting, s2 is not None)
+    return _whiten_invert_plain(xre, xim, yre, yim, s2 if gate == "l2rx" else None, max_lag, eps, gate)

@@ -4,9 +4,13 @@ natural-order detector.
 Port of ``radio_mapper_tpu/ops/detect.py``:
 
 - ``peaks_from_ct_partials`` (single-dwell route): kernel K1
-  (:mod:`.cuda.fft_detect`) already applied every gate and reduced each
+  (:mod:`.cuda.fft_detect`), K4 (:mod:`.cuda.detect_ct`) or K8
+  (:mod:`.cuda.channel_step`) already applied every gate and reduced each
   8-bin segment to (max, argmax); this tail picks the K strongest
   segments and converts only those to dB / frequency / confidence;
+- ``detect_peaks_ct``: K4 on CT-order spectra (or given partials), then
+  that tail; and the routing knobs of the fused detect
+  (``set_fused_detect``, ``set_fused_fft_detect``);
 - ``detect_peaks`` and ``sliding_local_max`` (multi-dwell route and the
   buoy dwell) on a natural-order dB spectrum, with the reference's
   safe-mode semantics — the ones the TPU runs: circular sliding max,
@@ -23,6 +27,7 @@ import torch
 
 from radio_mapper_tpu_torch import constants
 from radio_mapper_tpu_torch.ops import ct_plan, safe, spectral
+from radio_mapper_tpu_torch.ops.cuda import detect_ct
 
 
 class PeakSet(NamedTuple):
@@ -42,6 +47,102 @@ class PeakSet(NamedTuple):
     confidence: torch.Tensor  # float32 in [0, 1]
     valid: torch.Tensor  # bool — False entries are padding
     noise_floor_db: torch.Tensor  # float32, [...] (no K axis)
+
+
+# Routing of the single-dwell detect stage (the reference's trace-time
+# knobs). "auto" means what it means on the TPU, where the reference runs
+# in safe mode as the port always does: the fused detect whenever
+# detect_ct.supported says it covers the configuration; "on" is the same;
+# "off" sends the stage to ct_power_db + the natural-order detect_peaks.
+_FUSED_DETECT = "auto"
+# "auto"/"on": the forward transform and the detect run as one kernel
+# (K1) whenever the fused detect runs; "off": two kernels, K3 then K4.
+_FUSED_FFT_DETECT = "auto"
+
+
+def set_fused_detect(mode: str) -> None:
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"unknown fused-detect mode {mode!r}")
+    global _FUSED_DETECT
+    _FUSED_DETECT = mode
+
+
+def set_fused_fft_detect(mode: str) -> None:
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"unknown fused-fft-detect mode {mode!r}")
+    global _FUSED_FFT_DETECT
+    _FUSED_FFT_DETECT = mode
+
+
+def fused_detect_enabled(nfft: int, *, min_distance_bins: int, noise_floor_stride: int) -> bool:
+    """Route the detect stage to the fused CT-order detect (K1 or K4)?"""
+    if _FUSED_DETECT == "off":
+        return False
+    return detect_ct.supported(
+        nfft, min_distance_bins=min_distance_bins, noise_floor_stride=noise_floor_stride
+    )
+
+
+def fused_fft_detect_enabled(nfft: int, *, min_distance_bins: int, noise_floor_stride: int) -> bool:
+    """Route the forward FFT and the detect to the one kernel K1?"""
+    if _FUSED_FFT_DETECT == "off":
+        return False
+    return fused_detect_enabled(
+        nfft, min_distance_bins=min_distance_bins, noise_floor_stride=noise_floor_stride
+    )
+
+
+def detect_peaks_ct(
+    spec_re: torch.Tensor,
+    spec_im: torch.Tensor,
+    *,
+    sample_rate_hz: float,
+    max_peaks: int = 8,
+    threshold_db: float = constants.DEFAULT_DETECTION_THRESHOLD_DBM,
+    min_distance_bins: int = constants.DEFAULT_PEAK_MIN_DISTANCE_BINS,
+    dc_notch_hz: Optional[float] = constants.DEFAULT_DC_NOTCH_HZ,
+    confidence_floor: float = constants.DEFAULT_CONFIDENCE_FLOOR,
+    snr_fullscale_db: float = constants.DEFAULT_SNR_FULLSCALE_DB,
+    power_offset_db: float = 0.0,
+    partials=None,
+) -> PeakSet:
+    """Top-K peaks of CT-order spectra ``[..., nfft]``.
+
+    Kernel K4 (:func:`.cuda.detect_ct.detect_ct_partials`) computes the
+    segment partials, unless ``partials = (seg_score, seg_arg,
+    noise_floor_db)`` come from K1 or K8 run with the same parameters;
+    then :func:`peaks_from_ct_partials`. Equal to ``detect_peaks(
+    ct_power_db(fr, fi) + power_offset_db, noise_floor_stride=8, ...)``
+    up to the floor's last ulps, except that exactly-equal candidates in
+    different segments tie-break by CT segment order.
+    """
+    nfft = spec_re.shape[-1]
+    if partials is None:
+        plan = ct_plan.detect_plan(
+            nfft,
+            sample_rate_hz=sample_rate_hz,
+            threshold_db=threshold_db,
+            min_distance_bins=min_distance_bins,
+            dc_notch_hz=dc_notch_hz,
+            confidence_floor=confidence_floor,
+            snr_fullscale_db=snr_fullscale_db,
+            power_offset_db=power_offset_db,
+        )
+        batch = spec_re.shape[:-1]
+        rows = lambda a: a.reshape(-1, nfft).contiguous()
+        score, arg, nf = detect_ct.detect_ct_partials(rows(spec_re), rows(spec_im), plan)
+        partials = (
+            score.reshape(*batch, plan.segments), arg.reshape(*batch, plan.segments),
+            nf.reshape(batch),
+        )
+    return peaks_from_ct_partials(
+        *partials,
+        nfft=nfft,
+        sample_rate_hz=sample_rate_hz,
+        max_peaks=max_peaks,
+        snr_fullscale_db=snr_fullscale_db,
+        power_offset_db=power_offset_db,
+    )
 
 
 def peaks_from_ct_partials(

@@ -6,6 +6,13 @@ Port of ``radio_mapper_tpu/ops/split_complex.py``:
   ``receiver_spectra_ct`` (zero-pad to the planner's nfft, then the
   CT-order forward FFT — kernel K3 on a CUDA device, its plain version
   on the CPU);
+- the single-dwell step's fused stages: ``receiver_spectra_ct_detect``
+  (kernel K1: spectra + detect partials + row maxima),
+  ``flagship_channel_step`` (kernel K8: partials + lag windows, no
+  spectra), ``ct_power_db`` (CT-order spectra → natural-order dB, an
+  un-permute, not a second FFT) and ``gcc_phat_all_pairs_split_fused``
+  (kernel K2 on CT-order spectra), with the route knob
+  ``set_gcc_fused``/``gcc_fused_enabled``;
 - ``power_spectrum_db_split``, ``receiver_spectra_split``, ``ifft_re_im``
   and ``gcc_phat_all_pairs_split``: the natural-order chain of the
   multi-dwell route, on :func:`.fft.fft_re_im` (kernel K7 for the
@@ -23,9 +30,34 @@ import torch.nn.functional as F
 
 from radio_mapper_tpu_torch.ops import channelizer, ct_plan, gcc_phat
 from radio_mapper_tpu_torch.ops import fft as fft_ops
-from radio_mapper_tpu_torch.ops.cuda import fft_rows
+from radio_mapper_tpu_torch.ops.cuda import channel_step, fft_detect, fft_rows, gcc_pair
 
 WEIGHTINGS = ("cc", "phat", "scot", "roth")
+
+# Route of the single-dwell pair stage: the fused CT-order chain (K1/K3 →
+# K2, or K8) for the weightings kernel K2 takes, or the natural-order
+# split GCC below. "auto" means what it means on the TPU (the fused chain
+# where supported); "on" is the same; "off" never fuses.
+_GCC_FUSED = "auto"
+
+
+def set_gcc_fused(mode: str) -> None:
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(f"unknown fused-GCC mode {mode!r}")
+    global _GCC_FUSED
+    _GCC_FUSED = mode
+
+
+def gcc_fused_enabled(min_len: int, weighting: str) -> bool:
+    """Route the pair stage to the fused CT-order chain?"""
+    if _GCC_FUSED == "off":
+        return False
+    return weighting in gcc_pair.WEIGHTINGS and ct_plan.ct_supported(ct_plan.plan_nfft(min_len))
+
+
+def planned_ct_nfft(min_len: int) -> int:
+    """The fused chain's FFT length for ``min_len`` samples."""
+    return ct_plan.plan_nfft(min_len)
 
 
 def channelize_split(
@@ -69,23 +101,125 @@ def channelize_split(
     return cre, cim
 
 
-def receiver_spectra_ct(
-    sig_re: torch.Tensor, sig_im: torch.Tensor, *, max_lag: int
+def pad_ct(
+    sig_re: torch.Tensor, sig_im: torch.Tensor, *, max_lag: int,
+    plan: Optional[ct_plan.DetectPlan] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Per-receiver CT-order spectra for the pair stage.
-
-    ``sig_re/sig_im [..., n]`` are zero-padded to
-    ``nfft = ct_plan.plan_nfft(n + max_lag)`` (alias-free for ±max_lag) and
-    transformed by kernel K3 in one launch over all leading rows. Returns
-    ``(fr, fi, nfft)`` with ``fr/fi [..., nfft]``.
-    """
+    """``sig_re/sig_im [..., n]`` zero-padded to ``nfft =
+    ct_plan.plan_nfft(n + max_lag)`` (alias-free for ±max_lag), contiguous:
+    ``(xr, xi, nfft)``. A detect ``plan`` must be for that nfft."""
     n = sig_re.shape[-1]
     if max_lag >= n:
         raise ValueError(f"max_lag {max_lag} must be < block length {n}")
     nfft = ct_plan.plan_nfft(n + max_lag)
+    if plan is not None and plan.nfft != nfft:
+        raise ValueError(f"detect plan for nfft {plan.nfft}, but block {n} + max_lag {max_lag} plans {nfft}")
     pad = lambda a: F.pad(a, (0, nfft - n)).contiguous()
-    fr, fi = fft_rows.fft_rows_ct(pad(sig_re), pad(sig_im))
+    return pad(sig_re), pad(sig_im), nfft
+
+
+def receiver_spectra_ct(
+    sig_re: torch.Tensor, sig_im: torch.Tensor, *, max_lag: int
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Per-receiver CT-order spectra for the pair stage: :func:`pad_ct`,
+    then kernel K3 in one launch over all leading rows. Returns ``(fr, fi,
+    nfft)`` with ``fr/fi [..., nfft]``.
+    """
+    xr, xi, nfft = pad_ct(sig_re, sig_im, max_lag=max_lag)
+    fr, fi = fft_rows.fft_rows_ct(xr, xi)
     return fr, fi, nfft
+
+
+def receiver_spectra_ct_detect(
+    sig_re: torch.Tensor, sig_im: torch.Tensor, *, max_lag: int, plan: ct_plan.DetectPlan
+):
+    """CT-order spectra, detect partials and per-receiver power maxima from
+    one launch of kernel K1 over every row of ``[..., n]``.
+
+    Returns ``((fr, fi, nfft), (seg_score, seg_arg, noise_floor_db),
+    row_max)``: spectra ``[..., nfft]``, partials ``[..., nfft/8]``, floor
+    and max linear power ``[...]`` (the l2rx gate input).
+    """
+    xr, xi, n = pad_ct(sig_re, sig_im, max_lag=max_lag, plan=plan)
+    batch = xr.shape[:-1]
+    fr, fi, score, arg, nf, rmax = fft_detect.fft_detect_rows_ct(
+        xr.reshape(-1, n), xi.reshape(-1, n), plan
+    )
+    s = plan.segments
+    return (
+        (fr.reshape(*batch, n), fi.reshape(*batch, n), n),
+        (score.reshape(*batch, s), arg.reshape(*batch, s), nf.reshape(batch)),
+        rmax.reshape(batch),
+    )
+
+
+def flagship_channel_step(
+    sig_re: torch.Tensor,
+    sig_im: torch.Tensor,
+    pair_i,
+    pair_j,
+    *,
+    max_lag: int,
+    eps: float,
+    plan: ct_plan.DetectPlan,
+):
+    """Pad, then kernel K8: FFT × detect × GCC (l2rx) per channel, the
+    spectra never returned. ``sig_re/sig_im [..., B, n]`` → ``(nfft,
+    (seg_score, seg_arg, noise_floor_db), lag_mags [..., P, 2L+1])``."""
+    xr, xi, _ = pad_ct(sig_re, sig_im, max_lag=max_lag, plan=plan)
+    score, arg, nf, window = channel_step.channel_step_partials(
+        xr, xi, pair_i, pair_j, plan, max_lag, eps
+    )
+    return plan.nfft, (score, arg, nf), window
+
+
+def ct_power_db(fr: torch.Tensor, fi: torch.Tensor) -> torch.Tensor:
+    """Natural-bin-order power spectrum in dB from CT-order spectra: the
+    power ``[..., n2, n1]`` transposed, which is the inverse of
+    :func:`ct_plan.ct_permutation` (bin k = k2 + n2·k1 sits at m = k2·n1 +
+    k1); values are those of an nfft-point zero-padded FFT."""
+    n = fr.shape[-1]
+    n1, n2 = ct_plan.ct_split(n)
+    p = (fr * fr + fi * fi).reshape(*fr.shape[:-1], n2, n1).transpose(-1, -2)
+    return 10.0 * torch.log10(p.reshape(*fr.shape[:-1], n) + 1e-24)
+
+
+def gcc_phat_all_pairs_split_fused(
+    sig_re: torch.Tensor,
+    sig_im: torch.Tensor,
+    *,
+    sample_rate_hz: float,
+    max_lag: int,
+    weighting: str = "phat",
+    eps: float = 0.05,
+    psr_exclude: int = 8,
+    spectra: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None,
+    row_smax: Optional[torch.Tensor] = None,
+) -> gcc_phat.CorrelationPeak:
+    """All i<j pairs of ``[..., B, N]`` through kernel K2 on CT-order
+    spectra (from :func:`receiver_spectra_ct` or K1, or computed here by
+    K3), then the sub-sample peak pick. ``row_smax [..., B]`` enables the
+    l2rx gate; the whitening follows :func:`gcc_pair.resolve_gate`."""
+    n, b = sig_re.shape[-1], sig_re.shape[-2]
+    if max_lag >= n:
+        raise ValueError(f"max_lag {max_lag} must be < block length {n}")
+    fr, fi, nfft = spectra if spectra is not None else receiver_spectra_ct(sig_re, sig_im, max_lag=max_lag)
+    if nfft < n + max_lag or fr.shape[-1] != nfft:
+        raise ValueError(
+            f"provided spectra (nfft={nfft}, last dim {fr.shape[-1]}) violate the "
+            f"alias-free bound for block {n} + max_lag {max_lag}"
+        )
+    batch = fr.shape[:-2]
+    i_idx, j_idx = gcc_phat.pair_indices(b)
+    mags = gcc_pair.gcc_pair_lag_mags(
+        fr.reshape(-1, b, nfft), fi.reshape(-1, b, nfft),
+        None if row_smax is None else row_smax.reshape(-1, b),
+        i_idx, j_idx, max_lag=max_lag, eps=eps, weighting=weighting,
+    )
+    return gcc_phat.peaks_from_lag_mags(
+        mags.reshape(*batch, len(i_idx), 2 * max_lag + 1),
+        sample_rate_hz=sample_rate_hz, max_lag=max_lag, psr_exclude=psr_exclude,
+    )
 
 
 def power_spectrum_db_split(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:

@@ -18,7 +18,13 @@ as its plain version is against JAX:
   float32-tied segments (see :func:`fragile_segments`), scores within
   1e-4 of the row's max power;
 - K2, K5 and K6 lag windows within 1e-4 of each pair's window max, with
-  the same argmax;
+  the same argmax, in every whitening mode (l2rx, l2, l1, "cc");
+- K4 on K1's spectra equal to K1's own partials and floor, bit for bit
+  (the same device function on the same floats), and K4 vs its plain
+  version as K1's partials;
+- K8 equal, bit for bit, to K1 → K2 (l2rx) on the same rows (the same
+  device functions in the same order), and vs its plain version within
+  K1's and K2's bounds;
 - K7 spectra within 1e-4 of the row's max |X|, in natural order;
 - pipelines on the card vs the CPU: lags within 1e-3 samples, fixes
   within 0.5 m (the narrowband ELT scene: 1e-2 samples and 1 m, see its
@@ -33,7 +39,7 @@ from radio_mapper_tpu_torch import sim
 from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
 from radio_mapper_tpu_torch.models.wideband import WidebandConfig, WidebandTDOAPipeline
 from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat
-from radio_mapper_tpu_torch.ops.cuda import fft_detect, fft_natural, fft_rows, gcc_pair
+from radio_mapper_tpu_torch.ops.cuda import channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair
 from radio_mapper_tpu_torch.testing import cap_cpu_threads
 
 cap_cpu_threads()
@@ -113,14 +119,13 @@ def assert_spectra_close(out, ref):
     assert (np.abs(ofi - fi).max(axis=-1, keepdims=True) <= 1e-4 * mag).all()
 
 
-def assert_k1_close(out, ref, plan):
-    """K1 outputs ``out`` against reference outputs ``ref`` (numpy-able)."""
-    fr, fi, score, arg, nf, rmax = (np.asarray(o) for o in ref)
-    ofr, ofi, oscore, oarg, onf, ormax = (np.asarray(o) for o in out)
-    assert_spectra_close((ofr, ofi), (fr, fi))
-    np.testing.assert_allclose(ormax, rmax, rtol=1e-5)
+def assert_partials_close(out, ref, fr, fi, plan):
+    """Detect partials ``(seg_score, seg_arg, noise_floor_db)`` against the
+    reference's, on rows whose CT-order spectra are ``(fr, fi)``."""
+    score, arg, nf = (np.asarray(o) for o in ref)
+    oscore, oarg, onf = (np.asarray(o) for o in out)
+    fr, fi = np.asarray(fr), np.asarray(fi)
     np.testing.assert_allclose(onf, nf, atol=1e-3, rtol=0)
-
     fragile = fragile_segments(fr, fi, nf, plan)
     assert fragile.mean() < 0.01, fragile.mean()
     solid = ~fragile
@@ -128,8 +133,17 @@ def assert_k1_close(out, ref, plan):
     both = solid & np.isfinite(score) & np.isfinite(oscore)
     assert both.sum() > 0
     np.testing.assert_array_equal(oarg[both], arg[both])
-    pmax = np.broadcast_to(rmax[:, None], score.shape)
+    pmax = (fr.astype(np.float64) ** 2 + fi.astype(np.float64) ** 2).max(axis=-1, keepdims=True)
+    pmax = np.broadcast_to(pmax, score.shape)
     assert (np.abs(oscore[both] - score[both]) <= 1e-4 * pmax[both]).all()
+
+
+def assert_k1_close(out, ref, plan):
+    """K1 outputs ``out`` against reference outputs ``ref`` (numpy-able)."""
+    fr, fi, *_, rmax = (np.asarray(o) for o in ref)
+    assert_spectra_close(out[:2], (fr, fi))
+    np.testing.assert_allclose(np.asarray(out[5]), rmax, rtol=1e-5)
+    assert_partials_close(out[2:5], ref[2:5], fr, fi, plan)
 
 
 def assert_windows_close(ours, ref):
@@ -209,6 +223,113 @@ def test_k2_kernel_matches_plain(cuda_device, c, b, nfft, max_lag):
     assert gcc_pair.launch_count == before + 1
     ref = gcc_pair.gcc_pair_lag_mags_plain(sre, sim_, smax, pi, pj, max_lag=max_lag)
     assert_windows_close(out.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate,weighting", [("l2", "phat"), ("l1", "phat"), ("l2rx", "cc")])
+def test_k2_modes_kernel_match_plain(cuda_device, gate, weighting):
+    """K2's l2 and l1 gates (the pair's own maximum, a first pass) and "cc"."""
+    sre, sim_, smax = (torch.from_numpy(a).to(cuda_device) for a in correlated_spectra(4, 8, 17408, 9))
+    pi, pj = gcc_phat.pair_indices(8)
+    gcc_pair.set_phat_gate(gate)
+    try:
+        before = gcc_pair.launch_count
+        out = gcc_pair.gcc_pair_lag_mags(sre, sim_, smax, pi, pj, max_lag=512, weighting=weighting)
+        torch.cuda.synchronize()
+        assert gcc_pair.launch_count == before + 1
+        ref = gcc_pair.gcc_pair_lag_mags_plain(sre, sim_, smax, pi, pj, max_lag=512, weighting=weighting)
+    finally:
+        gcc_pair.set_phat_gate("l2rx")
+    assert_windows_close(out.cpu().numpy(), ref.cpu().numpy())
+    np.testing.assert_array_equal(out.argmax(-1).cpu().numpy(), ref.argmax(-1).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft,n_valid", [(9216, 8192), (17408, 16384)])
+def test_k4_kernel_matches_plain_and_k1(cuda_device, nfft, n_valid):
+    re, im = tone_rows(16, nfft, 14, n_valid=n_valid)
+    plan = ct_plan.detect_plan(nfft, **DET)
+    xr = torch.from_numpy(re).to(cuda_device)
+    xi = torch.from_numpy(im).to(cuda_device)
+    fr, fi, score, arg, nf, rmax = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    before = detect_ct.launch_count
+    out = detect_ct.detect_ct_partials(fr, fi, plan)
+    torch.cuda.synchronize()
+    assert detect_ct.launch_count == before + 1
+    for a, b in zip(out, (score, arg, nf)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    ref = detect_ct.detect_ct_partials_plain(fr, fi, plan)
+    host = lambda xs: [x.cpu() for x in xs]
+    assert_k1_close(host((fr, fi, *out, rmax)), host((fr, fi, *ref, rmax)), plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b,nfft,max_lag", [
+    (3, 4, 5120, 128), (4, 8, 17408, 512), (2, 3, 5120, 128), (2, 12, 5120, 64),
+    (2, 11, 17408, 512), (1, 13, 17408, 512), (1, 16, 17408, 512),
+])
+def test_k8_kernel_matches_composition_and_plain(cuda_device, c, b, nfft, max_lag):
+    """Clusters of 4 and 8 blocks (portable), 3 (not a power of two) and 12
+    (non-portable, past 8); at nfft 17408, where each block holds 139 KB of
+    shared memory and so one SM, 11 (the most receivers ``supported`` routes
+    to K8: 55 pairs pad to 56 of 64), 13 and 16 (the wrapper's limit)."""
+    re, im = tone_rows(c * b, nfft, 15, n_valid=nfft - max_lag - 512)
+    plan = ct_plan.detect_plan(nfft, **DET)
+    xr = torch.from_numpy(re).to(cuda_device)
+    xi = torch.from_numpy(im).to(cuda_device)
+    pi, pj = gcc_phat.pair_indices(b)
+    before = channel_step.launch_count
+    score, arg, nf, win = channel_step.channel_step_partials(
+        xr.view(c, b, nfft), xi.view(c, b, nfft), pi, pj, plan, max_lag
+    )
+    torch.cuda.synchronize()
+    assert channel_step.launch_count == before + 1
+    fr, fi, s1, a1, nf1, rmax = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    w2 = gcc_pair.gcc_pair_lag_mags(fr.view(c, b, nfft), fi.view(c, b, nfft), rmax.view(c, b), pi, pj,
+                                    max_lag=max_lag)
+    for x, y in ((score.view(-1, nfft // 8), s1), (arg.view(-1, nfft // 8), a1), (nf.view(-1), nf1), (win, w2)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    ps, pa, pn, pw = channel_step.channel_step_partials_plain(
+        xr.view(c, b, nfft), xi.view(c, b, nfft), pi, pj, plan, max_lag
+    )
+    assert_windows_close(win.cpu().numpy(), pw.cpu().numpy())
+    np.testing.assert_allclose(nf.cpu().numpy(), pn.cpu().numpy(), atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["mega", "two-kernel"])
+def test_pipeline_routes_on_card_match_cpu(cuda_device, route):
+    """The scene of ``test_pipeline_on_card_matches_cpu`` on the mega route
+    (K8 once) and the two-kernel route (K3, K4, K2 once each)."""
+    from radio_mapper_tpu_torch.ops import detect
+
+    scen = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8)
+    cap = sim.synthesize(scen)
+    cfg = PipelineConfig(num_buoys=4, block_len=scen.block_len,
+                         sample_rate_hz=scen.sample_rate_hz, max_lag=600, power_offset_db=40.0)
+    host = [torch.from_numpy(a.astype(np.float32)) for a in (cap.iq.real, cap.iq.imag, cap.buoy_enu)]
+    counters = lambda: (channel_step.launch_count, fft_rows.launch_count, detect_ct.launch_count,
+                        gcc_pair.launch_count, fft_detect.launch_count)
+    set_knob, default, want = {
+        "mega": (channel_step.set_mega_fused, "off", (1, 0, 0, 0, 0)),
+        "two-kernel": (detect.set_fused_fft_detect, "auto", (0, 1, 1, 1, 0)),
+    }[route]
+    set_knob("on" if route == "mega" else "off")
+    try:
+        cpu = TDOAPipeline(cfg, device="cpu").step_split(*host)
+        before = counters()
+        gpu = TDOAPipeline(cfg, device=cuda_device).step_split(*(a.to(cuda_device) for a in host))
+        torch.cuda.synchronize()
+    finally:
+        set_knob(default)
+    assert tuple(a - b for a, b in zip(counters(), before)) == want
+    np.testing.assert_array_equal(gpu.peaks.bin_index.cpu().numpy(), cpu.peaks.bin_index.numpy())
+    np.testing.assert_allclose(
+        gpu.correlation.lag_samples.cpu().numpy(), cpu.correlation.lag_samples.numpy(), atol=1e-3
+    )
+    pos = gpu.fix.position_enu.cpu().numpy()
+    np.testing.assert_allclose(pos, cpu.fix.position_enu.numpy(), atol=0.5)
+    assert np.linalg.norm(pos[:2] - cap.emitter_enu[0][:2]) < 50.0
 
 
 @pytest.mark.cuda

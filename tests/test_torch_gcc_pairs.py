@@ -111,14 +111,13 @@ def test_k5_k6_wrappers_reject_bad_inputs():
     sre, sim, pi, pj, s2 = _inputs(4, 2048, None, seed=13)
     sre, sim, s2 = torch.from_numpy(sre), torch.from_numpy(sim), torch.from_numpy(s2)
     rows = [x.index_select(0, torch.as_tensor(idx, dtype=torch.int64)) for idx in (pi, pj) for x in (sre, sim)]
-    with pytest.raises(NotImplementedError):  # no gate scales: the l1/l2 gates are not ported
-        gcc_pair.gcc_pairs_onehot_lag_mags(sre, sim, pi, pj, max_lag=64)
-    with pytest.raises(NotImplementedError):
-        gcc_pair.gcc_rows_lag_mags(*rows, max_lag=64)
-    with pytest.raises(NotImplementedError):  # "cc" is not ported
-        gcc_pair.gcc_pairs_onehot_lag_mags(sre, sim, pi, pj, max_lag=64, weighting="cc", s2=s2)
-    with pytest.raises(NotImplementedError):
-        gcc_pair.gcc_rows_lag_mags(*rows, max_lag=64, weighting="cc", s2=s2)
+    # no gate scales: l2rx runs as l2; "cc" ignores them
+    assert gcc_pair.gcc_pairs_onehot_lag_mags(sre, sim, pi, pj, max_lag=64).shape == (len(pi), 129)
+    assert gcc_pair.gcc_rows_lag_mags(*rows, max_lag=64, weighting="cc", s2=s2).shape == (len(pi), 129)
+    with pytest.raises(ValueError):  # the fused pair stage takes "phat" and "cc" only
+        gcc_pair.gcc_pairs_onehot_lag_mags(sre, sim, pi, pj, max_lag=64, weighting="scot", s2=s2)
+    with pytest.raises(ValueError):
+        gcc_pair.gcc_rows_lag_mags(*rows, max_lag=64, weighting="roth")
     with pytest.raises(ValueError):  # pair index out of range
         gcc_pair.gcc_pairs_onehot_lag_mags(sre, sim, pi, pj + 1, max_lag=64, s2=s2)
     with pytest.raises(ValueError):  # s2 of the wrong length

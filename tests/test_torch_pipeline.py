@@ -149,7 +149,7 @@ def test_stage_hook_sees_every_stage():
     raw, anchors = pipe.example_inputs(batch=(2,), seed=0, uint8=True)
     seen = []
     pipe.step_split_uint8(raw, anchors, on_stage=seen.append)
-    assert seen == ["decode", "pad", "fft_detect", "peaks", "gcc_pair", "lag_peaks", "solve"]
+    assert seen == ["decode", "fft_detect", "peaks", "gcc_pair", "solve"]
 
 
 def test_inputs_must_be_on_the_pipeline_device():

@@ -144,16 +144,16 @@ def test_config_from_dict_and_unported_routes():
     assert dataclasses.asdict(pipeline.PipelineConfig.from_dict(dataclasses.asdict(jcfg))) == (
         dataclasses.asdict(jcfg)
     )
-    # the single-dwell (fused K1/K2) route has only the phat gate and the
-    # stride-8 floor; the multi-dwell route takes every weighting and stride
-    for bad in (dict(weighting="cc"), dict(noise_floor_stride=1)):
-        with pytest.raises(NotImplementedError):
-            pipeline.TDOAPipeline(pipeline.PipelineConfig(**bad), device="cpu")
+    # every route of the reference's single-dwell table is ported: each
+    # weighting and any noise-floor stride build on both routes
     for good in (dict(correlation_dwells=8, solver_starts=4), dict(solver_starts=4),
-                 dict(correlation_dwells=2, weighting="cc", noise_floor_stride=1)):
+                 dict(correlation_dwells=2, weighting="cc", noise_floor_stride=1),
+                 dict(weighting="cc"), dict(weighting="scot"), dict(noise_floor_stride=1)):
         pipeline.TDOAPipeline(pipeline.PipelineConfig(**good), device="cpu")
-    with pytest.raises(ValueError):
-        pipeline.PipelineConfig(correlation_dwells=2, weighting="gauss").validate()
+    for bad in (dict(correlation_dwells=2, weighting="gauss"), dict(weighting="gauss"),
+                dict(noise_floor_stride=0)):
+        with pytest.raises(ValueError):
+            pipeline.PipelineConfig(**bad).validate()
 
 
 def test_package_imports_no_jax():

@@ -159,5 +159,44 @@ def test_config_from_dict_validate_and_unported_routes():
         small_wideband_config(max_lag=1024).validate()
     with pytest.raises(ValueError):
         small_wideband_config(num_buoys=1).validate()
-    with pytest.raises(NotImplementedError):  # "cc" is not ported (ROADMAP M6)
-        wideband.WidebandTDOAPipeline(small_wideband_config(weighting="cc"), device="cpu")
+    wideband.WidebandTDOAPipeline(small_wideband_config(weighting="cc"), device="cpu")
+    with pytest.raises(NotImplementedError):  # the fused pair stage takes phat and cc only
+        wideband.WidebandTDOAPipeline(small_wideband_config(weighting="scot"), device="cpu")
+
+
+@pytest.mark.parametrize("variant", ["cc", "l1", "l2"])
+@pytest.mark.parametrize("route", ["on", "off"])
+def test_wideband_weightings_and_gates_match_jax(route, variant):
+    """"cc" (not whitened) and the per-pair PHAT gates l1 and l2 (no gate
+    scales) through both pair routes, against the JAX pipeline under the
+    same ``set_phat_gate``; the same tolerances as the default route."""
+    weighting, gate = ("cc", "l2rx") if variant == "cc" else ("phat", variant)
+    cfg = small_wideband_config(weighting=weighting)
+    re, im, anchors, emitter = wideband_scene(cfg, SUB, 1)
+
+    def jax_step():
+        gcc_kernel.set_onehot_pairs(route)
+        gcc_kernel.set_phat_gate(gate)
+        try:
+            pipe = jwb.WidebandTDOAPipeline(jwb.WidebandConfig(**dataclasses.asdict(cfg)))
+            assert pipe._use_fused
+            return pipe.jit_step_split()(jnp.asarray(re), jnp.asarray(im), jnp.asarray(anchors))
+        finally:
+            gcc_kernel.set_onehot_pairs("auto")
+            gcc_kernel.set_phat_gate("l2rx")
+
+    ref = _jax_fused_run(jax_step)
+    gcc_pair.set_onehot_pairs(route)
+    gcc_pair.set_phat_gate(gate)
+    try:
+        ours = wideband.WidebandTDOAPipeline(cfg, device="cpu").step_split(
+            *(torch.from_numpy(a) for a in (re, im, anchors))
+        )
+    finally:
+        gcc_pair.set_onehot_pairs("auto")
+        gcc_pair.set_phat_gate("l2rx")
+    np.testing.assert_allclose(ours.lags[SUB].numpy(), np.asarray(ref.lags)[SUB], atol=1e-3)
+    np.testing.assert_allclose(ours.weights[SUB].numpy(), np.asarray(ref.weights)[SUB], atol=1e-3)
+    fix = ours.fixes_enu[SUB].numpy()
+    np.testing.assert_allclose(fix, np.asarray(ref.fixes_enu)[SUB], atol=0.5)
+    assert np.linalg.norm(fix[:2] - emitter[:2]) < 300.0
