@@ -51,10 +51,12 @@ per source, in parallel, sm_90a), then:
     max_lag 512, 4 solver starts — through ``step_split_uint8_scan``,
     with ms/block, IQ samples/s, the ratio to real time, peak device
     memory (limit 40 GiB), a per-stage split and K7 launches per block;
-14. K4 (CT-order detect on spectra read from memory) vs its plain version
-    at [1024, 17408] on K3's spectra of the phase-5 flagship block, within
-    K1's limits; and K4 on K1's spectra of that block, which must equal
-    K1's own partials and noise floor bit for bit;
+14. K3 vs its plain version at the two-kernel route's shape [1024, 17408]
+    (the phase-5 flagship block, padded), with ``torch.fft.fft`` + the CT
+    permutation beside it; K4 (CT-order detect on spectra read from
+    memory) vs its plain version on those K3 spectra, within K1's limits;
+    and K4 on K1's spectra of that block, which must equal K1's own
+    partials and noise floor bit for bit;
 15. K2 in its l2, l1 and "cc" modes vs its plain version at [128, 8,
     17408] → [128, 28, 1025], within 1e-4 of the window max;
 16. K8 (the per-channel megakernel) vs its plain version at [128, 8,
@@ -77,8 +79,9 @@ units and phase 15 prints them relative to the window max), its bound
 TFLOP/s — 5·n·log2(n) FLOP an FFT, an inverse pruned to the lag window
 for the pair stages, 6 FLOP a bin for the detect body — and its bytes,
 each input read once and each output written once, over 3.35 TB/s: the
-H100 SXM's published peaks), the FLOPs of the repo's own algorithm, the
-direct four-step DFT (``algorithm_flops``), and, where one PyTorch call
+H100 SXM's published peaks), the FLOPs of the repo's own algorithm
+(``algorithm_flops``: the direct four-step DFT; K3's radix steps), and,
+where one PyTorch call
 computes the same function, that call's time (``library_ms``:
 ``torch.fft.fft`` for K7, plus the CT permutation by index for K3; null
 for the others, which no single call computes).
@@ -210,6 +213,15 @@ def _dft_flops(rows, n1, n2):
     """The repo's algorithm, a direct four-step DFT of ``rows`` rows of
     n1·n2 points: n·(n1 + n2) complex FMAs a row, 8 FLOP each."""
     return 8.0 * rows * n1 * n2 * (n1 + n2)
+
+
+def _radix_flops(rows, n, a, r):
+    """K3's algorithm (``csrc/ct_fft.cuh``) on ``rows`` rows of n = 128·a·r
+    points: step A's a-point radix-2 FFTs (5·n·log2(a) FLOP) and their
+    twiddles (6·n), step B's direct r-point DFTs (128·a·r² complex FMAs,
+    8 FLOP each) and the row twiddle (6·n), step C's 128-point radix-2
+    FFTs (5·n·7)."""
+    return rows * (5.0 * n * math.log2(a) + 12.0 * n + 8.0 * 128 * a * r * r + 35.0 * n)
 
 
 def _dft_pair_flops(pairs, n1, n2, rows_w):
@@ -725,8 +737,27 @@ def main() -> int:
     nrows, npairs, width = chans * buoys, len(pi), 2 * lag + 1
     rows_w = sum(gcc_pair.window_rows(nfft, lag))
 
-    # ---- phase 14: K4 vs plain on K3's spectra; K4 on K1's spectra = K1's partials
-    f3r, f3i = fft_rows.fft_rows_ct(rows(xr), rows(xi))
+    # ---- phase 14: K3 vs plain at [1024, 17408]; K4 vs plain on K3's
+    # spectra; K4 on K1's spectra = K1's partials
+    x3r, x3i = rows(xr), rows(xi)
+    f3r, f3i = fft_rows.fft_rows_ct(x3r, x3i)
+    p3 = fft_rows.fft_rows_ct_plain(x3r, x3i)
+    torch.cuda.synchronize()
+    f3_abs, f3_rel = _row_rel_error((f3r, f3i), p3)
+    del p3
+    f3_ms = _cuda_ms(torch, lambda: fft_rows.fft_rows_ct(x3r, x3i))
+    f3_plain_ms = _cuda_ms(torch, lambda: fft_rows.fft_rows_ct_plain(x3r, x3i))
+    xc = torch.complex(x3r, x3i)
+    perm = torch.as_tensor(ct_plan.ct_permutation(nfft), device=dev)
+    f3_lib_ms = _cuda_ms(torch, lambda: torch.fft.fft(xc)[:, perm])
+    del xc
+    f3_bound = _bound(_fft_flops(nrows, nfft), 2 * 8 * nrows * nfft)
+    print(
+        f"phase 14: K3 [{nrows}, {nfft}] (flagship block 0, two-kernel route) spectra max|err| {f3_abs:.3e} "
+        f"(rel to row max|X| {f3_rel:.3e}, tol 1e-4); kernel {f3_ms:.3f} ms, plain {f3_plain_ms:.3f} ms, "
+        f"torch.fft.fft + CT permutation {f3_lib_ms:.3f} ms, bound {f3_bound[0]:.4f} ms ({f3_bound[1]}) {tag}"
+    )
+    _require(f3_rel <= 1e-4, f"K3 spectra disagree at [{nrows}, {nfft}]: {f3_rel}")
     k4 = detect_ct.detect_ct_partials(f3r, f3i, plan)
     p4 = detect_ct.detect_ct_partials_plain(f3r, f3i, plan)
     fr1, fi1, s1, a1, nf1, rmax1 = fft_detect.fft_detect_rows_ct(rows(xr), rows(xi), plan)
@@ -754,7 +785,7 @@ def main() -> int:
     _require(k4_nf <= 1e-3 and k4_score_rel <= 1e-4, f"K4 floor or scores disagree: {k4_nf}, {k4_score_rel}")
     _require(both.any().item(), "K4 produced no candidates to compare")
     _require(k4_same_as_k1, "K4 on K1's spectra differs from K1's own partials")
-    del f3r, f3i, k4, p4, k4_on_k1
+    del f3r, f3i, x3r, x3i, k4, p4, k4_on_k1
 
     # ---- phase 15: K2's l2, l1 and "cc" modes vs plain, fed K1's outputs
     sre, sim_, smax = fr1.view(chans, buoys, nfft), fi1.view(chans, buoys, nfft), rmax1.view(chans, buoys)
@@ -919,7 +950,8 @@ def main() -> int:
               _bound(_pair_flops(chans * npairs, nfft, width),
                      nrows * nfft * 8 + nrows * 4 + chans * npairs * width * 4), k2_dft),
         entry("fft_rows_ct", "fft_rows_ct.cu", "fft_kernel.py:446",
-              wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound, _dft_flops(m_sub * wb, wn1, wn2), k3_lib_ms),
+              wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound,
+              _radix_flops(m_sub * wb, wn, *ct_plan.radix_split(wn)[1:]), k3_lib_ms),
         entry("detect_ct_partials", "detect_ct.cu", "detect_kernel.py:309",
               route_launches["detect_ct_partials"], max(k4_score_abs, k4_nf), k4_ms, k4_plain_ms, k4_bound,
               nrows * nfft * (3 + 2 * plan.radius + 1)),  # power, then the sliding max's compares

@@ -1,12 +1,37 @@
-"""The CUDA card the port runs on, and a check that one is present."""
+"""The CUDA card the port runs on, a check that one is present, and the
+thread count of the kernels' plain versions on the CPU."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import shutil
 import subprocess
+from typing import Iterator
 
 import torch
+
+
+@contextlib.contextmanager
+def cpu_single_thread() -> Iterator[None]:
+    """Run the body at one PyTorch intra-op thread; restore the caller's
+    count on exit, on an exception too.
+
+    Every kernel wrapper runs its plain version inside this on the CPU
+    (fault F2): with two intra-op threads, PyTorch's CPU build on an
+    AMX-capable Xeon returned a wrong result from the first plain K5 call
+    (``gcc_pairs_onehot_lag_mags``) of 3 in 96 fresh processes, 18 in 96
+    after a one-thread warm-up product and 5 in 96 with oneDNN disabled,
+    each off by the same 1.856e-4 of the global max; none in 96 with
+    ``MKL_ENABLE_INSTRUCTIONS=AVX2`` and none in 256 at one thread. The
+    fault is MKL's AVX-512/AMX float32 product on more than one thread.
+    """
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(prev)
 
 
 @dataclasses.dataclass(frozen=True)

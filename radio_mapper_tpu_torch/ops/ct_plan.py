@@ -102,6 +102,59 @@ def device_tables(n: int, inverse: bool, device: torch.device) -> DeviceTables:
     )
 
 
+RADIX_N1 = 128  # the outer length of every split kernel K3 takes (n ≤ 24576)
+RADIX_MAX_A = 8  # the largest first factor of the inner n2-point transform
+
+
+class RadixTables(NamedTuple):
+    """Kernel K3's schedule of the inner n2-point transform, n2 = a·r, and
+    its twiddles: float32 ``[..., 2]`` (re, im) pairs of float64 values.
+
+    ``a = min(8, 2^v₂(n2))`` (v₂: the factors of 2 in n2); step A runs an
+    a-point radix-2 FFT, step B a direct r-point DFT, step C the outer
+    128-point radix-2 FFT (``csrc/ct_fft.cuh``).
+    """
+
+    n2: int
+    a: int
+    r: int
+    w128: np.ndarray  # [64, 2]: W_128^e, e < 64 (the radix-2 stages of steps A and C)
+    wn2: np.ndarray  # [n2, 2]: W_n2^e, e < n2 (step A's W_n2^{j·k}, j·k < n2)
+    wr: np.ndarray  # [r, r, 2]: W_r^{j·s}
+
+
+def radix_split(n: int) -> Tuple[int, int, int]:
+    """``(n2, a, r)`` of :class:`RadixTables`; raises ValueError unless
+    ``ct_split(n)`` has n1 = 128."""
+    n1, n2 = ct_split(n)
+    if n1 != RADIX_N1:
+        raise ValueError(f"FFT length {n} splits as {n1}·{n2}, not {RADIX_N1}·n2")
+    a = min(RADIX_MAX_A, n2 & -n2)
+    return n2, a, n2 // a
+
+
+@functools.lru_cache(maxsize=16)
+def radix_tables(n: int) -> RadixTables:
+    n2, a, r = radix_split(n)
+    pairs = lambda e, m: np.stack(  # W_m^e in float64, rounded once to float32
+        [np.cos(2 * np.pi * e / m), -np.sin(2 * np.pi * e / m)], axis=-1
+    ).astype(np.float32)
+    jr = np.arange(r)
+    return RadixTables(
+        n2, a, r,
+        w128=pairs(np.arange(RADIX_N1 // 2), RADIX_N1),
+        wn2=pairs(np.arange(n2), n2),
+        wr=pairs(np.outer(jr, jr) % r, r),
+    )
+
+
+@functools.lru_cache(maxsize=16)
+def device_radix_tables(n: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(w128, wn2, wr)`` of :func:`radix_tables` on ``device``."""
+    t = radix_tables(n)
+    return tuple(torch.from_numpy(a).to(device) for a in (t.w128, t.wn2, t.wr))
+
+
 def ct_permutation(n: int) -> np.ndarray:
     """perm with X_ct[m] = X_natural[perm[m]]."""
     n1, n2 = ct_split(n)

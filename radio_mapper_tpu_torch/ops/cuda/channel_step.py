@@ -39,6 +39,7 @@ import ctypes
 import numpy as np
 import torch
 
+from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import build, detect_ct, fft_detect, gcc_pair
 
@@ -128,7 +129,8 @@ def channel_step_partials(
     gcc_pair._check_pairs(pair_i, pair_j, b)
     gcc_pair._check_lag(n, max_lag)
     if re_pad.device.type == "cpu":
-        return channel_step_partials_plain(re_pad, im_pad, pair_i, pair_j, plan, max_lag, eps)
+        with device.cpu_single_thread():
+            return channel_step_partials_plain(re_pad, im_pad, pair_i, pair_j, plan, max_lag, eps)
     if re_pad.device.type != "cuda":
         raise ValueError(f"no K8 implementation for device {re_pad.device}")
     return _launch(re_pad, im_pad, pair_i, pair_j, plan, max_lag, eps)
@@ -175,7 +177,9 @@ def _launch(re, im, pair_i, pair_j, plan, max_lag, eps):
 
 def channel_step_partials_plain(re_pad, im_pad, pair_i, pair_j, plan, max_lag, eps=0.05):
     """Plain PyTorch version of K8: plain K1, then plain K2 with the l2rx
-    gate on K1's row maxima. Same contract as :func:`channel_step_partials`."""
+    gate on K1's row maxima. Same contract as :func:`channel_step_partials`.
+    Through its wrapper on the CPU it runs at one intra-op thread
+    (:func:`device.cpu_single_thread`, fault F2)."""
     *lead, b, n = re_pad.shape
     fr, fi, score, arg, nf, rmax = fft_detect.fft_detect_rows_ct_plain(
         re_pad.reshape(-1, n), im_pad.reshape(-1, n), plan

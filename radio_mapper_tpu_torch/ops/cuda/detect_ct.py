@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import build, fft_detect
 
@@ -76,7 +77,8 @@ def detect_ct_partials(spec_re: torch.Tensor, spec_im: torch.Tensor, plan: ct_pl
     """
     fft_detect.check_rows(spec_re, spec_im, plan)
     if spec_re.device.type == "cpu":
-        return detect_ct_partials_plain(spec_re, spec_im, plan)
+        with device.cpu_single_thread():
+            return detect_ct_partials_plain(spec_re, spec_im, plan)
     if spec_re.device.type != "cuda":
         raise ValueError(f"no K4 implementation for device {spec_re.device}")
     return _launch(spec_re, spec_im, plan)
@@ -105,6 +107,7 @@ def _launch(fr, fi, plan):
 
 def detect_ct_partials_plain(spec_re: torch.Tensor, spec_im: torch.Tensor, plan: ct_plan.DetectPlan):
     """Plain PyTorch version of K4: the detect half of K1's plain version.
-    Same contract as :func:`detect_ct_partials`."""
+    Same contract as :func:`detect_ct_partials`. Through its wrapper on the CPU it runs at one intra-op thread
+    (:func:`device.cpu_single_thread`, fault F2)."""
     score, arg, nf, _row_max = fft_detect.detect_plain(spec_re, spec_im, plan)
     return score, arg, nf

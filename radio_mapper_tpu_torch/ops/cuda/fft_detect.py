@@ -29,6 +29,7 @@ import ctypes
 
 import torch
 
+from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import build, fft_rows
 
@@ -92,7 +93,8 @@ def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectP
     """
     check_rows(re, im, plan)
     if re.device.type == "cpu":
-        return fft_detect_rows_ct_plain(re, im, plan)
+        with device.cpu_single_thread():
+            return fft_detect_rows_ct_plain(re, im, plan)
     if re.device.type != "cuda":
         raise ValueError(f"no K1 implementation for device {re.device}")
     return _launch(re, im, plan)
@@ -133,7 +135,8 @@ def fft_detect_rows_ct_plain(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.D
     tables, as batched tensor ops. Same contract as
     :func:`fft_detect_rows_ct`. On the card it is the comparison only,
     with ``torch.backends.cuda.matmul.allow_tf32 = False`` set by the
-    caller (full FP32 products)."""
+    caller (full FP32 products). Through its wrapper on the CPU it runs at one intra-op thread
+    (:func:`device.cpu_single_thread`, fault F2)."""
     fr, fi = fft_rows.fft_rows_ct_plain(re, im)  # the four-step transform of K3
     return (fr, fi, *detect_plain(fr, fi, plan))
 

@@ -34,6 +34,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops.cuda import build
 
 launch_count = 0  # calls that launched the CUDA kernel (not the plain version)
@@ -139,7 +140,8 @@ def fft_rows(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.Te
     """
     _check(re, im)
     if re.device.type == "cpu":
-        return fft_rows_plain(re, im)
+        with device.cpu_single_thread():
+            return fft_rows_plain(re, im)
     if re.device.type != "cuda":
         raise ValueError(f"no K7 implementation for device {re.device}")
     return _launch(re, im)
@@ -174,7 +176,9 @@ def fft_rows_plain(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, to
     """Plain PyTorch version of K7: the reference kernel's four-step on the
     same tables, as batched matrix products. Same contract as
     :func:`fft_rows`. On the card it is the comparison only, with
-    ``torch.backends.cuda.matmul.allow_tf32 = False`` set by the caller."""
+    ``torch.backends.cuda.matmul.allow_tf32 = False`` set by the caller.
+    Through its wrapper on the CPU it runs at one intra-op thread
+    (:func:`device.cpu_single_thread`, fault F2)."""
     shape = re.shape
     n = shape[-1]
     n1, n2 = split(n)

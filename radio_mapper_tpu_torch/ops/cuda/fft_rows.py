@@ -1,24 +1,30 @@
-"""Kernel K3: forward CT-order four-step FFT of rows.
+"""Kernel K3: forward CT-order FFT of rows.
 
 Replaces ``radio_mapper_tpu/ops/pallas/fft_kernel.py::fft_rows_ct`` (body
 ``fft_kernel.ct_fft_core``). The CUDA source is
-``radio_mapper_tpu_torch/csrc/fft_rows_ct.cu``; its two DFT stages are
-the ones kernel K1 runs (``csrc/ct_dft.cuh``).
+``radio_mapper_tpu_torch/csrc/fft_rows_ct.cu``; its steps are
+``csrc/ct_fft.cuh``.
 
-Design (first, simple version): one thread block per row keeps the row
-(re+im, 40,960 B at the wideband nfft 5120) in shared memory; the inner
-n2-point DFT over q with the twiddle folded into its write-back, then the
-outer n1-point DFT over p, both in place, in FP32 FMA on the CUDA cores
-with the tables of :func:`ct_plan.ct_constants`; the spectra are written
-once, in CT order. Two 512-thread blocks share an SM (launch bounds cap
-registers at 64 a thread; shared memory allows five rows).
+Design: one 512-thread block per row keeps the row (re+im, 40,960 B at
+the wideband nfft 5120) in shared memory. Every length K3 takes splits as
+n = 128·n2 with n2 = a·r, a = min(8, 2^v₂(n2)) (:func:`ct_plan.radix_split`):
+step A runs an a-point radix-2 FFT in registers; step B the direct
+r-point DFT with the row twiddle folded into its write (its r ≤ 24
+inputs in registers, as on every length the pipelines plan; streamed
+from shared memory above that); step C one warp per 128-point row, a
+radix-2 FFT across lanes with ``__shfl_xor_sync`` that stores the
+spectra, coalesced, in CT order. All twiddles are float32 tables of
+float64 roots of unity (:func:`ct_plan.radix_tables`, ``ct_constants``'
+twiddle).
 
-What bounds it on the H100: the direct DFT stages, n·(n1+n2) complex
-multiply-adds per row (0.86 M at 5120 = 128·40) — compute and
-shared-memory-issue bound; a row is read and its spectrum written once
-(80 KB per row). The wideband path launches it once per block on all
-M·B = 1024 rows. Left for later PRs: the DFT stages on tensor cores,
-TMA row loads, and fusing the transform into the pair stage.
+What bounds it on the H100: device-memory bytes — a row read and its
+spectrum written once, 80 KB a row at 5120 — and then the three block
+barriers between a row's loads and its stores; the arithmetic is 128·a·r²
+complex FMAs a row for step B plus the radix-2 butterflies (the direct
+four-step it replaces, ``csrc/ct_dft.cuh``, issued n·(128 + n2) from
+shared memory). The wideband path launches it once per block on all
+M·B = 1024 rows; the two-kernel flagship route on 1024 rows of 17408.
+Left for later PRs: TMA row loads and tensor cores.
 
 Precision: the reference's module default (``precision=None``) runs the
 products as explicit bf16x3; the PHAT chain passes ``"default"``, which
@@ -32,17 +38,15 @@ import ctypes
 
 import torch
 
+from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import build
 
 launch_count = 0  # launches of the CUDA kernel (not of the plain version)
 
-THREADS = 512  # must match K3_THREADS in fft_rows_ct.cu
-MAX_N2 = 256  # inner-DFT register tile: n2 ≤ (THREADS/32)·K3_MAX_KJ
-MAX_N = 24_576  # the same row range as kernel K1
-SMEM_LIMIT = 232_448  # H100 per-block shared memory
+MAX_N = 24_576  # one row in a block's shared memory; the same row range as kernel K1
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 
 def _check(re: torch.Tensor, im: torch.Tensor) -> None:
@@ -72,7 +76,8 @@ def fft_rows_ct(re: torch.Tensor, im: torch.Tensor):
     """
     _check(re, im)
     if re.device.type == "cpu":
-        return fft_rows_ct_plain(re, im)
+        with device.cpu_single_thread():
+            return fft_rows_ct_plain(re, im)
     if re.device.type != "cuda":
         raise ValueError(f"no K3 implementation for device {re.device}")
     return _launch(re, im)
@@ -81,20 +86,20 @@ def fft_rows_ct(re: torch.Tensor, im: torch.Tensor):
 def _launch(re, im):
     global launch_count
     n = re.shape[-1]
-    n1, n2 = ct_plan.ct_split(n)
-    if THREADS % n1 or n2 > MAX_N2 or n > MAX_N or n * 8 > SMEM_LIMIT:
+    n2, a, r = ct_plan.radix_split(n)  # raises unless n1 = 128
+    if n > MAX_N:
         raise ValueError(
-            f"K3 supports n1 dividing {THREADS}, n2 ≤ {MAX_N2} and nfft ≤ {MAX_N} "
-            f"(one row in shared memory); got nfft {n} = {n1}·{n2}"
+            f"K3 supports nfft = 128·n2 ≤ {MAX_N} (one row in shared memory); got nfft {n} = 128·{n2}"
         )
     fn = build.kernel("rm_fft_rows_ct", _ARGTYPES)
-    t = ct_plan.device_tables(n, False, re.device)
+    w128, wn2, wr = ct_plan.device_radix_tables(n, re.device)
+    tw = ct_plan.device_tables(n, False, re.device).tw
     fr = torch.empty_like(re)
     fi = torch.empty_like(im)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     err = fn(
-        ptr(re), ptr(im), ptr(t.w1), ptr(t.w2), ptr(t.tw), ptr(fr), ptr(fi),
-        re.numel() // n, n1, n2,
+        ptr(re), ptr(im), ptr(w128), ptr(wn2), ptr(wr), ptr(tw), ptr(fr), ptr(fi),
+        re.numel() // n, n2, a, r,
         ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream),
     )
     build.check(err, "fft_rows_ct")
@@ -103,11 +108,12 @@ def _launch(re, im):
 
 
 def fft_rows_ct_plain(re: torch.Tensor, im: torch.Tensor):
-    """Plain PyTorch version of K3: the same four-step math on the same
-    tables, as batched tensor ops. Same contract as :func:`fft_rows_ct`.
-    On the card it is the comparison only, with
+    """Plain PyTorch version of K3: the same function as the four-step
+    DFT on ``ct_constants``' tables, as batched tensor ops. Same contract
+    as :func:`fft_rows_ct`. On the card it is the comparison only, with
     ``torch.backends.cuda.matmul.allow_tf32 = False`` set by the caller
-    (full FP32 products)."""
+    (full FP32 products). Through :func:`fft_rows_ct` on the CPU it runs
+    at one intra-op thread (:func:`device.cpu_single_thread`, fault F2)."""
     shape = re.shape
     n = shape[-1]
     n1, n2 = ct_plan.ct_split(n)

@@ -54,6 +54,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import build
 
@@ -241,7 +242,8 @@ def gcc_pair_lag_mags(
     _check_pairs(pair_i, pair_j, b)
     _check_lag(nfft, max_lag)
     if spec_re.device.type == "cpu":
-        return _k2_plain(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate)
+        with device.cpu_single_thread():
+            return _k2_plain(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate)
     if spec_re.device.type != "cuda":
         raise ValueError(f"no K2 implementation for device {spec_re.device}")
     return _launch(spec_re, spec_im, row_smax if gate == "l2rx" else None, pair_i, pair_j,
@@ -286,7 +288,8 @@ def gcc_pair_lag_mags_plain(
     inverse on the same tables, as batched tensor ops. Same contract as
     :func:`gcc_pair_lag_mags`. On the card it is the comparison only,
     with ``torch.backends.cuda.matmul.allow_tf32 = False`` set by the
-    caller (full FP32 products)."""
+    caller (full FP32 products). Through its wrapper on the CPU it runs at one intra-op thread
+    (:func:`device.cpu_single_thread`, fault F2)."""
     gate = resolve_gate(weighting, row_smax is not None)
     return _k2_plain(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate)
 
@@ -391,9 +394,10 @@ def gcc_pairs_onehot_lag_mags(
     _check_float32(spec_re.device, spec_re=spec_re, spec_im=spec_im, **({} if s2 is None else {"s2": s2}))
     _check_lag(nfft, max_lag)
     if spec_re.device.type == "cpu":
-        return gcc_pairs_onehot_lag_mags_plain(
-            spec_re, spec_im, pair_i, pair_j, max_lag=max_lag, eps=eps, weighting=weighting, s2=s2
-        )
+        with device.cpu_single_thread():
+            return gcc_pairs_onehot_lag_mags_plain(
+                spec_re, spec_im, pair_i, pair_j, max_lag=max_lag, eps=eps, weighting=weighting, s2=s2
+            )
     if spec_re.device.type != "cuda":
         raise ValueError(f"no K5 implementation for device {spec_re.device}")
     return _launch_onehot(spec_re, spec_im, pair_i, pair_j, s2, max_lag, eps, gate)
@@ -435,7 +439,11 @@ def gcc_pairs_onehot_lag_mags_plain(
     s2: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K5: gather by ``index_select``, then the
-    K2 body. Same contract as :func:`gcc_pairs_onehot_lag_mags`."""
+    K2 body. Same contract as :func:`gcc_pairs_onehot_lag_mags`.
+    Through its wrapper on the CPU it runs at one intra-op thread
+    (:func:`device.cpu_single_thread`, fault F2). The fault showed
+    first here: with two threads, the first call of 3 in 96 fresh
+    processes returned lag windows off by 2.6e-3 of their maximum."""
     gate = resolve_gate(weighting, s2 is not None)
     pi = torch.as_tensor(np.asarray(pair_i, np.int64), device=spec_re.device)
     pj = torch.as_tensor(np.asarray(pair_j, np.int64), device=spec_re.device)
@@ -481,7 +489,10 @@ def gcc_rows_lag_mags(
     _check_float32(xre.device, xre=xre, xim=xim, yre=yre, yim=yim, **({} if s2 is None else {"s2": s2}))
     _check_lag(nfft, max_lag)
     if xre.device.type == "cpu":
-        return gcc_rows_lag_mags_plain(xre, xim, yre, yim, max_lag=max_lag, eps=eps, weighting=weighting, s2=s2)
+        with device.cpu_single_thread():
+            return gcc_rows_lag_mags_plain(
+                xre, xim, yre, yim, max_lag=max_lag, eps=eps, weighting=weighting, s2=s2
+            )
     if xre.device.type != "cuda":
         raise ValueError(f"no K6 implementation for device {xre.device}")
     return _launch_rows(xre, xim, yre, yim, s2, max_lag, eps, gate)
@@ -518,6 +529,7 @@ def gcc_rows_lag_mags_plain(
     s2: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of K6: the K2 body on row-aligned pairs. Same
-    contract as :func:`gcc_rows_lag_mags`."""
+    contract as :func:`gcc_rows_lag_mags`. Through its wrapper on the CPU it runs at one intra-op thread
+    (:func:`device.cpu_single_thread`, fault F2)."""
     gate = resolve_gate(weighting, s2 is not None)
     return _whiten_invert_plain(xre, xim, yre, yim, s2 if gate == "l2rx" else None, max_lag, eps, gate)

@@ -5,12 +5,12 @@ live services with deadlines. PyTorch's CPU operators would otherwise
 each spread over every core of the machine; every ``tests/test_torch_*``
 module calls :func:`cap_cpu_threads` when it is imported.
 
-One thread, not two: with two intra-op threads, PyTorch 2.13's CPU build
-on an AMX-capable Xeon returned a wrong result from the first plain K5
-call of about 3% of fresh processes (lag windows off by 2.6e-3 of their
-maximum in some pairs, the same wrong values every time; later calls in
-the same process right), and none of 256 with one thread. The fault is
-inside PyTorch's CPU threading, not in the port's arithmetic.
+One thread, not two: with two intra-op threads, PyTorch's CPU build on
+an AMX-capable Xeon returned wrong float32 products (MKL's AVX-512/AMX
+path) in a few fresh processes in a hundred. The kernel wrappers run
+their plain versions at one thread themselves
+(:func:`radio_mapper_tpu_torch.device.cpu_single_thread`); the cap keeps
+the tests' other torch code at one thread too.
 """
 
 from __future__ import annotations

@@ -359,9 +359,12 @@ def test_pipeline_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nfft", [5120, 9216])
+@pytest.mark.parametrize("nfft", [1152, 5120, 5760, 9216, 16384, 17408, 24576])
 def test_k3_kernel_matches_plain(cuda_device, nfft):
-    re, im = tone_rows(64, nfft, 12, n_valid=nfft - 1024)
+    """K3 (ct_fft.cuh) at n = 128·n2, n2 = a·r: 1152 (a 1, r 9), 5120 (8, 5),
+    5760 (1, 45: step B streamed), 9216 (8, 9), 16384 (8, 16), 17408 (8,
+    17) and 24576 (8, 24)."""
+    re, im = tone_rows(64, nfft, 12, n_valid=nfft - nfft // 5)
     xr = torch.from_numpy(re).to(cuda_device)
     xi = torch.from_numpy(im).to(cuda_device)
     before = fft_rows.launch_count
@@ -370,6 +373,15 @@ def test_k3_kernel_matches_plain(cuda_device, nfft):
     assert fft_rows.launch_count == before + 1
     ref = fft_rows.fft_rows_ct_plain(xr, xi)
     assert_spectra_close([o.cpu() for o in out], [o.cpu() for o in ref])
+
+
+@pytest.mark.cuda
+def test_k3_kernel_rejects_rows_past_shared_memory(cuda_device):
+    x = torch.zeros(2, 32768, device=cuda_device)  # 128·256: a CT split, but 256 KB a row
+    before = fft_rows.launch_count
+    with pytest.raises(ValueError):
+        fft_rows.fft_rows_ct(x, x)
+    assert fft_rows.launch_count == before
 
 
 @pytest.mark.cuda
