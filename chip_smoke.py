@@ -37,8 +37,11 @@ per source, in parallel, sm_90a), then:
    with launch counts, ms/block, wideband samples/s, pair correlations/s
    and a per-stage split; then the same 8 blocks on the K6 route;
 10. K7 (natural-order FFT) vs its plain version at [8192, 16384] (one
-    full-width narrowband block's dwells), [32, 32768] (the ELT scene's
-    dwells) and [8, 65536];
+    full-width narrowband block's dwells), the same bytes as [16384,
+    8192] and [32768, 4096], [32, 32768] (the ELT scene's dwells) and
+    [8, 65536], with ``torch.fft.fft`` beside it; per shape the design
+    that ran (``fft_natural.design``: one-launch radix for n ≤ 16384,
+    two-pass tiled above) and its achieved TB/s beside the bound's 3.35;
 11. the 121.5 MHz ELT scene (OKC buoys, 5 kHz chirp, 8 dwells × 32768,
     max_lag 600, 4 solver starts) through the multi-dwell
     ``TDOAPipeline.step_split`` on the card: the fix within 500 m and
@@ -80,9 +83,9 @@ TFLOP/s — 5·n·log2(n) FLOP an FFT, an inverse pruned to the lag window
 for the pair stages, 6 FLOP a bin for the detect body — and its bytes,
 each input read once and each output written once, over 3.35 TB/s: the
 H100 SXM's published peaks), the FLOPs of the repo's own algorithm
-(``algorithm_flops``: the direct four-step DFT; K3's radix steps), and,
-where one PyTorch call
-computes the same function, that call's time (``library_ms``:
+(``algorithm_flops``: the direct four-step DFT; K3's radix steps; K7's
+radix passes at 16384), and, where one PyTorch call computes the same
+function, that call's time (``library_ms``:
 ``torch.fft.fft`` for K7, plus the CT permutation by index for K3; null
 for the others, which no single call computes).
 
@@ -222,6 +225,16 @@ def _radix_flops(rows, n, a, r):
     8 FLOP each) and the row twiddle (6·n), step C's 128-point radix-2
     FFTs (5·n·7)."""
     return rows * (5.0 * n * math.log2(a) + 12.0 * n + 8.0 * 128 * a * r * r + 35.0 * n)
+
+
+def _natural_radix_flops(rows, plan):
+    """K7's radix design (``csrc/fft_natural_radix.cu``) on ``rows`` rows of
+    ``plan.n`` points: each pass's R-point radix-2 FFTs (5·n·log2(R) FLOP)
+    and, after the first pass, its twiddles (6 FLOP for each of the
+    (R − 1)·n/R twiddled points)."""
+    n = plan.n
+    return rows * sum(5.0 * n * math.log2(r) + (6.0 * n * (r - 1) / r if ns > 1 else 0.0)
+                      for r, ns in plan.passes)
 
 
 def _dft_pair_flops(pairs, n1, n2, rows_w):
@@ -612,14 +625,20 @@ def main() -> int:
     elt = sim.synthesize(_elt_scene(sim))
     elt_host = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
                 for a in (elt.iq.real, elt.iq.imag, elt.buoy_enu)]
+    nb_rows = [x.reshape(-1, n).contiguous() for x in iq.decode_uint8_split(raw)]
     shapes = {
-        (chans * buoys * 8, n): [x.reshape(-1, n).contiguous() for x in iq.decode_uint8_split(raw)],
+        (chans * buoys * 8, n): nb_rows,
+        # the radix design's two shorter lengths on the same bytes (on no path)
+        (chans * buoys * 16, 8192): [x.view(-1, 8192) for x in nb_rows],
+        (chans * buoys * 32, 4096): [x.view(-1, 4096) for x in nb_rows],
         (32, 32_768): [x.reshape(32, 32_768).to(dev) for x in elt_host[:2]],
         (8, 65_536): [x.reshape(-1, 65_536)[:8].contiguous().to(dev) for x in elt_host[:2]],
     }
     k7 = {}
     for shape, (xr, xi) in shapes.items():
+        by_design = dict(fft_natural.design_counts)
         out = fft_natural.fft_rows(xr, xi)
+        ran = [k for k, v in fft_natural.design_counts.items() if v != by_design[k]]
         ref = fft_natural.fft_rows_plain(xr, xi)
         torch.cuda.synchronize()
         err_abs, err_rel = _row_rel_error(out, ref)
@@ -630,13 +649,19 @@ def main() -> int:
         lib_ms = _cuda_ms(torch, lambda: torch.fft.fft(xc))
         del xc
         k7[shape] = (err_abs, err_rel, k_ms, p_ms, lib_ms)
+        nbytes = 2 * 8 * shape[0] * shape[1]  # a row read once, its spectrum written once
+        factors = ("·".join(str(r) for r, _ in fft_natural.radix_plan(shape[1]).passes) if ran == ["radix"]
+                   else "·".join(map(str, fft_natural.split(shape[1]))))
         print(
-            f"phase 10: K7 {list(shape)} = {'·'.join(map(str, fft_natural.split(shape[1])))} spectra "
-            f"max|err| {err_abs:.3e} (rel to row max|X| {err_rel:.3e}, tol 1e-4); kernel {k_ms:.3f} ms, "
-            f"plain {p_ms:.3f} ms, torch.fft.fft {lib_ms:.3f} ms {tag}"
+            f"phase 10: K7 {list(shape)}, design {'+'.join(ran)} ({factors}): spectra max|err| {err_abs:.3e} "
+            f"(rel to row max|X| {err_rel:.3e}, tol 1e-4); kernel {k_ms:.3f} ms "
+            f"({nbytes / k_ms / 1e9:.3f} TB/s of the bound's {H100_HBM_BYTES / 1e12:.2f}; bound "
+            f"{_bound(_fft_flops(*shape), nbytes)[0]:.4f} ms), plain {p_ms:.3f} ms, torch.fft.fft "
+            f"{lib_ms:.3f} ms {tag}"
         )
+        _require(ran == [fft_natural.design(shape[1])], f"K7 at {shape} ran {ran}")
         _require(err_rel <= 1e-4, f"K7 spectra disagree at {shape}: {err_rel}")
-    del shapes, xr, xi
+    del shapes, nb_rows, xr, xi
     torch.cuda.empty_cache()
 
     # ---- phase 11: the ELT scene, multi-dwell, on the card and on the CPU
@@ -964,10 +989,10 @@ def main() -> int:
               wl6["gcc_rows_lag_mags"], k6_abs, k6_ms, k6_plain_ms,
               _bound(_pair_flops(wp, wn, w_width), 4 * wp * wn * 4 + wp * 4 + wp * w_width * 4),
               _dft_pair_flops(wp, wn1, wn2, w_rows)),
-        entry("fft_rows", "fft_rows.cu", "fft_kernel.py:212",
+        entry("fft_rows", "fft_natural_radix.cu", "fft_kernel.py:212",
               k7_launches, max(v[0] for v in k7.values()), k7_main[2], k7_main[3],
               _bound(_fft_flops(k7_rows, n), 2 * 8 * k7_rows * n),
-              _dft_flops(k7_rows, *fft_natural.split(n)), k7_main[4]),
+              _natural_radix_flops(k7_rows, fft_natural.radix_plan(n)), k7_main[4]),
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
               route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_dft + k2_dft),
     ]}))

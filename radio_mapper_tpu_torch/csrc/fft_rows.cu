@@ -1,4 +1,7 @@
-// Kernel K7: natural-order four-step forward FFT of [rows, n] rows.
+// Kernel K7, tiled design: natural-order four-step forward FFT of
+// [rows, n] rows too long for one SM (32768 and 65536 on the routed path;
+// fft_natural.design(n) == "tiled"). Rows of 4096-16384 points take the
+// one-launch radix design, fft_natural_radix.cu.
 //
 // Replaces radio_mapper_tpu/ops/pallas/fft_kernel.py::fft_rows (body
 // _fft_rows_kernel). Python wrapper, tables and plain PyTorch version:
@@ -21,18 +24,16 @@
 // the k-major element (j, k1)), B = S, C = the spectrum. Every global
 // load and store is row-contiguous across a warp.
 //
-// Why two passes and not one row per block (kernel K3's form): a complex
-// row is 128 KiB at n = 16384 but 256 KiB at 32768 and 512 KiB at 65536,
-// beyond the 227 KB a block can hold; a thread-block cluster sharing
-// distributed shared memory would need a second code path for the short
-// lengths. The scratch adds 16 B of traffic per point against
-// 8*(n1+n2) FP32 FMAs per point (1,024 at n = 16384), so the extra pass
-// costs little next to the direct DFT stages.
+// Why two passes and not one row per block: a complex row is 256 KiB at
+// 32768 and 512 KiB at 65536, beyond the 227 KB a block can hold. The
+// scratch adds 16 B of traffic per point against 8*(n1+n2) FP32 FMAs per
+// point (3,072 at n = 32768), so the extra pass costs little next to the
+// direct DFT stages.
 //
 // Bound on the H100: the direct DFT stages, n*(n1+n2) complex FMAs per
-// row (4.2 M at 16384 = 128*128), FP32 on the CUDA cores from shared
-// memory. Later PRs: tensor cores, radix stages in place of direct DFTs,
-// TMA tile loads.
+// row (12.6 M at 32768 = 256*128), FP32 on the CUDA cores from shared
+// memory. Queued (ROADMAP R2b): the radix design's passes on a row held
+// in a thread-block cluster's distributed shared memory.
 
 #include <cuda_runtime.h>
 

@@ -1,28 +1,44 @@
-"""Kernel K7: forward natural-order four-step FFT of rows.
+"""Kernel K7: forward natural-order FFT of rows.
 
 Replaces ``radio_mapper_tpu/ops/pallas/fft_kernel.py::fft_rows`` (body
 ``_fft_rows_kernel``; the ``fft``/``ifft`` wrappers are the conjugation
-identity around it). The CUDA source is
-``radio_mapper_tpu_torch/csrc/fft_rows.cu``.
+identity around it). Two CUDA designs, chosen by length alone
+(:func:`design`); a length neither takes raises:
 
-Split and tables are the reference's (``fft_kernel._split``,
+- ``"radix"`` (``csrc/fft_natural_radix.cu``), n = 2^m with 4096 ≤ n ≤
+  16384, a row small enough for one SM: one launch, one block of n/16
+  threads a row, each thread holding 16 complex points in registers. A
+  Stockham (autosort) plan of radix-16 passes and a last radix-2 or
+  radix-4 one (:func:`radix_plan`: 16384 = 16·16·16·4, 8192 = 16·16·16·2,
+  4096 = 16·16·16): each pass twiddles, runs its 16-, 4- or 2-point FFT
+  in a thread's registers, and hands its outputs to the next pass
+  through one planar, XOR-swizzled shared-memory buffer (2·4·n bytes,
+  128 KiB at 16384; at most two accesses a bank per warp). The row is
+  read from device memory straight into registers and the last pass
+  stores straight to natural bin order: 16 B of device traffic a point,
+  no scratch. Twiddles are float32 tables of float64 roots of unity,
+  rounded once. Bound: bytes, 16 B a point (0.641 ms at [8192, 16384]
+  on an H100 SXM's 3.35 TB/s). Register form: n/16 threads × 16 points
+  under a 64-register cap (1024 threads at 16384); ``-Xptxas -v`` on
+  sm_90a reports 64 registers and no spills at 16384 and 4096, 8 bytes
+  spilled at 8192 (on no path).
+- ``"tiled"`` (``csrc/fft_rows.cu``), the other lengths whose four-step
+  factors are multiples of ``TILE`` (32768 and 65536 on the routed
+  path): a row past one block's 227 KB. Two launches of one tiled
+  complex product through a ``[rows, n1, n2]`` scratch — inner DFT with
+  the twiddle folded into its write-back, then the outer DFT, whose
+  output is already in natural order. Bound in practice: the direct DFT
+  stages, n·(n1+n2) complex FMAs a row (12.6 M at 32768, 33.6 M at
+  65536), plus 16 B a point for the scratch.
+
+The four-step split and tables are the reference's (``fft_kernel._split``,
 ``_constants``), copied here and held equal to it by a test: n = n1·n2
 with n2 the largest divisor ≤ √n and n1 ≤ 256; x[j + n1·q] is viewed as
 ``[n2, n1]``; inner n2-point DFT over q, twiddle exp(−2πi·j·k2/n), outer
-n1-point DFT over j; bin k = k2 + n2·k1.
-
-Design (first, simple version): two launches of one tiled complex
-product kernel through a ``[rows, n1, n2]`` scratch — inner DFT with the
-twiddle folded into its write-back, then the outer DFT, whose output is
-already in natural order (the source says why two passes: a row of
-32768 or 65536 points does not fit one block's shared memory). FP32 FMA
-on the CUDA cores. The TPU kernel runs its products as explicit bf16x3
-(module precision HIGH); FP32 is at least as precise.
-
-What bounds it on the H100: the direct DFT stages, n·(n1+n2) complex
-multiply-adds per row (4.2 M at 16384 = 128·128, 12.6 M at 32768,
-33.6 M at 65536); the scratch adds 16 B of device traffic per point.
-Left for later PRs: tensor cores, radix stages, TMA loads.
+n1-point DFT over j; bin k = k2 + n2·k1. :func:`fft_rows_plain` runs it
+(the CPU path and the card's comparison). Both designs compute in FP32
+on the CUDA cores; the TPU kernel runs its products as explicit bf16x3
+(module precision HIGH), so FP32 is at least as precise.
 """
 
 from __future__ import annotations
@@ -37,13 +53,19 @@ import torch
 from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops.cuda import build
 
-launch_count = 0  # calls that launched the CUDA kernel (not the plain version)
+launch_count = 0  # calls that launched a CUDA kernel, either design (not the plain version)
+design_counts = {"radix": 0, "tiled": 0}  # the same launches, by design
 
 MAX_FACTOR = 256  # fft_kernel.MAX_FACTOR
 THREADS = 256  # must match K7_THREADS in fft_rows.cu
-TILE = 64  # must match K7_TILE: the kernel needs n1 and n2 multiples of it
+TILE = 64  # must match K7_TILE: the tiled design needs n1 and n2 multiples of it
+RADIX_MIN_N = 4096  # the radix design's lengths: powers of two in [RADIX_MIN_N, RADIX_MAX_N]
+RADIX_MAX_N = 16384  # a planar complex row of 128 KiB, one block's exchange buffer
+POINTS = 16  # complex points a thread holds in the radix design (POINTS in fft_natural_radix.cu)
+RADIX = 16  # the radix of every pass but the last
 
 _ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_RADIX_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 def split(n: int) -> Tuple[int, int]:
@@ -73,6 +95,72 @@ def lane_aligned(n: int) -> bool:
     except ValueError:
         return False
     return n1 % 128 == 0 and n2 % 128 == 0
+
+
+def design(n: int) -> str:
+    """The CUDA design that transforms rows of ``n`` points: ``"radix"``
+    for a power of two in [``RADIX_MIN_N``, ``RADIX_MAX_N``], ``"tiled"``
+    for another length whose :func:`split` factors are multiples of
+    ``TILE``. Raises ValueError for any other length."""
+    if RADIX_MIN_N <= n <= RADIX_MAX_N and n & (n - 1) == 0:
+        return "radix"
+    n1, n2 = split(n)
+    if n1 % TILE or n2 % TILE:
+        raise ValueError(
+            f"K7 takes powers of two in [{RADIX_MIN_N}, {RADIX_MAX_N}] or n = n1·n2 with both "
+            f"factors multiples of {TILE}; got {n} = {n1}·{n2}"
+        )
+    return "tiled"
+
+
+class RadixPlan(NamedTuple):
+    """The radix design's Stockham passes and twiddles for one length.
+
+    Pass p has radix ``passes[p][0]`` and stride ``passes[p][1]`` (NS, the
+    product of the earlier radices). Butterfly j < n/R of a pass takes
+    inputs ``j + r·n/R`` (r < R), multiplies input r by
+    ``W_{NS·R}^{r·(j mod NS)}``, runs the R-point FFT and writes output r
+    to ``(j // NS)·NS·R + j mod NS + r·NS``; after the last pass that is
+    bin order. Pass p's twiddles are ``twiddles[offsets[p]:][:(R−1)·NS]``
+    as ``[R−1, NS]`` (row r−1, column j mod NS); the first pass (NS = 1)
+    has none. The kernel computes the same offsets.
+    """
+
+    n: int
+    points: int  # complex points a thread holds
+    threads: int  # n // points, one block a row
+    passes: Tuple[Tuple[int, int], ...]  # (radix, NS) per pass
+    offsets: Tuple[int, ...]  # into twiddles, per pass
+    twiddles: np.ndarray  # [Σ (R−1)·NS, 2] float32 (re, im) of float64 roots
+
+
+@functools.lru_cache(maxsize=None)
+def radix_plan(n: int) -> RadixPlan:
+    if design(n) != "radix":
+        raise ValueError(f"no radix plan for {n}")
+    radices = []
+    rest = n
+    while rest > 1:
+        radices.append(min(RADIX, rest))
+        rest //= radices[-1]
+    passes, offsets, tables = [], [], []
+    ns, off = 1, 0
+    for r in radices:
+        passes.append((r, ns))
+        offsets.append(off)
+        if ns > 1:
+            e = np.outer(np.arange(1, r), np.arange(ns))  # [R−1, NS]: r·k
+            w = np.exp(-2j * np.pi * e / (ns * r))  # complex128, rounded once below
+            tables.append(np.stack([w.real, w.imag], axis=-1).reshape(-1, 2).astype(np.float32))
+            off += (r - 1) * ns
+        ns *= r
+    return RadixPlan(n, POINTS, n // POINTS, tuple(passes), tuple(offsets), np.concatenate(tables))
+
+
+@functools.lru_cache(maxsize=8)
+def device_radix_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """:func:`radix_plan`'s twiddles on ``device``, ``[T, 2]`` float32."""
+    return torch.from_numpy(radix_plan(n).twiddles).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,8 +223,8 @@ def fft_rows(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.Te
       ``(fr, fi)`` of the same shape, bin k at index k.
 
     CPU tensors go through :func:`fft_rows_plain`; CUDA tensors launch the
-    kernel, which needs both factors to be multiples of ``TILE`` and
-    raises otherwise.
+    kernel of :func:`design`, which raises for a length neither design
+    takes.
     """
     _check(re, im)
     if re.device.type == "cpu":
@@ -144,31 +232,47 @@ def fft_rows(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.Te
             return fft_rows_plain(re, im)
     if re.device.type != "cuda":
         raise ValueError(f"no K7 implementation for device {re.device}")
-    return _launch(re, im)
-
-
-def _launch(re, im):
+    kind = design(re.shape[-1])
+    out = _launch_radix(re, im) if kind == "radix" else _launch_tiled(re, im)
     global launch_count
+    launch_count += 1
+    design_counts[kind] += 1
+    return out
+
+
+def _stream(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(x.data_ptr())
+
+
+def _launch_radix(re, im):
+    n = re.shape[-1]
+    fn = build.kernel("rm_fft_natural_radix", _RADIX_ARGTYPES)
+    tw = device_radix_twiddles(n, re.device)
+    fr = torch.empty_like(re)
+    fi = torch.empty_like(im)
+    err = fn(_ptr(re), _ptr(im), _ptr(tw), _ptr(fr), _ptr(fi), re.numel() // n, n, _stream(re))
+    build.check(err, "fft_rows (radix)")
+    return fr, fi
+
+
+def _launch_tiled(re, im):
     n = re.shape[-1]
     n1, n2 = split(n)
-    if n1 % TILE or n2 % TILE:
-        raise ValueError(
-            f"K7 needs both factors of n = n1·n2 to be multiples of {TILE}; got {n} = {n1}·{n2}"
-        )
     fn = build.kernel("rm_fft_rows", _ARGTYPES)
     t = device_tables(n, re.device)
     scratch = (torch.empty_like(re), torch.empty_like(im))
     fr = torch.empty_like(re)
     fi = torch.empty_like(im)
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     err = fn(
-        ptr(re), ptr(im), ptr(t.w1re), ptr(t.w1im), ptr(t.w2re), ptr(t.w2im),
-        ptr(t.twtre), ptr(t.twtim), ptr(scratch[0]), ptr(scratch[1]), ptr(fr), ptr(fi),
-        re.numel() // n, n1, n2,
-        ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream),
+        _ptr(re), _ptr(im), _ptr(t.w1re), _ptr(t.w1im), _ptr(t.w2re), _ptr(t.w2im),
+        _ptr(t.twtre), _ptr(t.twtim), _ptr(scratch[0]), _ptr(scratch[1]), _ptr(fr), _ptr(fi),
+        re.numel() // n, n1, n2, _stream(re),
     )
-    build.check(err, "fft_rows")
-    launch_count += 1
+    build.check(err, "fft_rows (tiled)")
     return fr, fi
 
 

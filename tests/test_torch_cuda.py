@@ -385,28 +385,41 @@ def test_k3_kernel_rejects_rows_past_shared_memory(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,n", [(8, 4096), (40, 16384), (6, 32768), (3, 65536)])
-def test_k7_kernel_matches_plain(cuda_device, rows, n):
-    """K7 (two passes through scratch) vs its plain version, natural order,
-    on every length the routing sends it plus 4096 (64·64)."""
+@pytest.mark.parametrize(
+    "rows,n,kind",
+    [(1, 4096, "radix"), (8, 4096, "radix"), (13, 8192, "radix"), (40, 16384, "radix"),
+     (6, 32768, "tiled"), (3, 65536, "tiled")],
+)
+def test_k7_kernel_matches_plain(cuda_device, rows, n, kind):
+    """K7 vs its plain version, natural order: the one-launch radix design
+    on 4096, 8192 and 16384 (the routed length), the two-pass tiled design
+    on 32768 and 65536; one row, and row counts off a multiple of 8."""
     re, im = tone_rows(rows, n, 13)
     xr = torch.from_numpy(re).to(cuda_device)
     xi = torch.from_numpy(im).to(cuda_device)
+    assert fft_natural.design(n) == kind
     before = fft_natural.launch_count
+    by_design = dict(fft_natural.design_counts)
     out = fft_natural.fft_rows(xr, xi)
     torch.cuda.synchronize()
     assert fft_natural.launch_count == before + 1
+    assert fft_natural.design_counts == {**by_design, kind: by_design[kind] + 1}
     ref = fft_natural.fft_rows_plain(xr, xi)
     assert_spectra_close([o.cpu() for o in out], [o.cpu() for o in ref])
-    # natural order: the tones of tone_rows sit at their own bins
-    assert out[0][0].abs().argmax().item() == 137
+    # natural order: the tones of tone_rows sit at their own bins (137 alone
+    # in row 0 from 3 rows up; all three tones there for one row)
+    tones = {f % n for k, f in enumerate((137, 1031, 4099)) if k % rows == 0}
+    assert 137 in tones
+    assert set(out[0][0].abs().topk(len(tones)).indices.tolist()) == tones
 
 
 @pytest.mark.cuda
 def test_k7_kernel_rejects_unsupported_input(cuda_device):
-    x = torch.zeros(2, 17280, device=cuda_device)  # 135·128: factors not multiples of 64
+    x = torch.zeros(2, 17280, device=cuda_device)  # 135·128: not a power of two, factors not multiples of 64
+    before = fft_natural.launch_count
     with pytest.raises(ValueError):
         fft_natural.fft_rows(x, x)
+    assert fft_natural.launch_count == before
     y = torch.zeros(16384, 2, device=cuda_device).t()
     with pytest.raises(ValueError):  # not contiguous
         fft_natural.fft_rows(y, y)
