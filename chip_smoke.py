@@ -12,7 +12,8 @@ per source, in parallel, sm_90a), then:
 2. K1 (fused FFT + detect) vs its plain PyTorch version at the flagship
    shape [1024 rows, 17408], with errors and median CUDA-event times;
 3. K2 (PHAT pair stage) vs its plain version at [128, 8, 17408] →
-   [128, 28, 1025], fed K1's outputs;
+   [128, 28, 1025], fed K1's outputs, and at the pair body's other inner
+   length, n1 = 256: [16, 8, 34816] → [16, 28, 1025] on spectra made here;
 4. a simulated scene (4 buoys, 16384 samples, max_lag 600) through
    ``TDOAPipeline.step_split`` on the card: the fix must land within
    50 m and agree with the port's CPU run;
@@ -24,7 +25,8 @@ per source, in parallel, sm_90a), then:
    5120]: the full-width ``WidebandTDOAPipeline.example_inputs(seed=0)``
    block after the channelizer;
 7. K5 (pair list as data, per-pair gate) vs its plain version at
-   [16, 64, 5120] + s2 [16, 2016] → [16, 2016, 257], fed K3's outputs;
+   [16, 64, 5120] + s2 [16, 2016] → [16, 2016, 257], fed K3's outputs,
+   and at n1 = 256, [1, 64, 34816] → [1, 2016, 1025];
    K6 (row-aligned pairs) vs its plain version and vs K5 on one
    subchannel, [2016, 5120] × 4;
 8. a full-width wideband scene (64 buoys on a 12 km ring, emitter in
@@ -83,8 +85,9 @@ TFLOP/s — 5·n·log2(n) FLOP an FFT, an inverse pruned to the lag window
 for the pair stages, 6 FLOP a bin for the detect body — and its bytes,
 each input read once and each output written once, over 3.35 TB/s: the
 H100 SXM's published peaks), the FLOPs of the repo's own algorithm
-(``algorithm_flops``: the direct four-step DFT; K3's radix steps; K7's
-radix passes at 16384), and, where one PyTorch call computes the same
+(``algorithm_flops``: K1's direct four-step DFT; K3's radix steps; K7's
+radix passes at 16384; the pair body's warp FFT and window fold for K2,
+K5, K6 and K8's pair half), and, where one PyTorch call computes the same
 function, that call's time (``library_ms``:
 ``torch.fft.fft`` for K7, plus the CT permutation by index for K3; null
 for the others, which no single call computes).
@@ -237,10 +240,27 @@ def _natural_radix_flops(rows, plan):
                       for r, ns in plan.passes)
 
 
-def _dft_pair_flops(pairs, n1, n2, rows_w):
-    """The repo's pair body: the inner inverse DFT over all n2 rows (n·n1
-    complex FMAs) and the outer one for the ``rows_w`` window rows."""
-    return 8.0 * pairs * n1 * n2 * (n1 + rows_w)
+def _fft_pair_flops(pairs, n1, n2, rows_w):
+    """The repo's pair body (``csrc/gcc_pair.cuh``): the inner inverse
+    radix-2 FFT of every CT row (5·n·log2(n1) FLOP), the inverse twiddle
+    (6·n) and the fold into the ``rows_w`` window rows (rows_w·n complex
+    FMAs, 8 FLOP each), per pair."""
+    n = n1 * n2
+    return pairs * (5.0 * n * math.log2(n1) + 6.0 * n + 8.0 * rows_w * n)
+
+
+def _ct_spectra(torch, ct_plan, c, b, nfft, dev, seed):
+    """``(re, im, row max power)``: CT-order spectra ``[c, b, nfft]`` of
+    circularly shifted copies of one complex noise source per channel plus
+    independent noise (a correlation peak per pair), from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = lambda *shape: torch.randn(*shape, dtype=torch.complex64, device=dev, generator=g)
+    src = noise(c, nfft)
+    shifts = torch.randint(-40, 41, (b,), device=dev, generator=g).tolist()
+    x = torch.stack([torch.roll(src, s, -1) for s in shifts], 1) + 0.5 * noise(c, b, nfft)
+    spec = torch.fft.fft(x)[..., torch.as_tensor(ct_plan.ct_permutation(nfft), device=dev)]
+    re, im = spec.real.contiguous(), spec.imag.contiguous()
+    return re, im, (re * re + im * im).amax(-1)
 
 
 def _window_errors(a, b):
@@ -365,6 +385,23 @@ def main() -> int:
     )
     _require(tuple(k2.shape) == (chans, len(pi), 2 * lag + 1), "K2 output shape")
     _require(win_rel <= 1e-4, f"K2 lag windows disagree: {win_rel}")
+    n256 = 34_816  # = 256·136: the pair body's warp FFT at n1 = 256
+    s256 = _ct_spectra(torch, ct_plan, 16, buoys, n256, dev, seed=3)
+    k2b = gcc_pair.gcc_pair_lag_mags(*s256, pi, pj, max_lag=lag)
+    p2b = gcc_pair.gcc_pair_lag_mags_plain(*s256, pi, pj, max_lag=lag)
+    torch.cuda.synchronize()
+    k2b_abs, k2b_rel = _window_errors(k2b, p2b)
+    k2b_same = bool((k2b.argmax(-1) == p2b.argmax(-1)).all())
+    k2b_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_pair_lag_mags(*s256, pi, pj, max_lag=lag))
+    print(
+        f"phase 3: K2 at n1 = {ct_plan.ct_split(n256)[0]}, [16, {buoys}, {n256}] -> {list(k2b.shape)} window "
+        f"max|err| {k2b_abs:.3e} (rel to window max {k2b_rel:.3e}, tol 1e-4), same argmax {k2b_same}; "
+        f"kernel {k2b_ms:.3f} ms {tag}"
+    )
+    _require(ct_plan.ct_split(n256)[0] == 256 and tuple(k2b.shape) == (16, len(pi), 2 * lag + 1),
+             "K2 n1 = 256 shape")
+    _require(k2b_rel <= 1e-4 and k2b_same, f"K2 lag windows disagree at n1 = 256: {k2b_rel}")
+    del s256, k2b, p2b
     del k1, p1, k2, p2, fr, fi, score, arg, pfr, pfi, pscore, parg, xr, xi, re, im, raw
 
     # ---- phase 4: a simulated scene, fixed on the card and on the CPU
@@ -508,6 +545,24 @@ def main() -> int:
     _require(tuple(k5.shape) == (m_sub, wp, 2 * wlag + 1), "K5 output shape")
     _require(tuple(k6.shape) == (wp, 2 * wlag + 1), "K6 output shape")
     _require(k5_rel <= 1e-4, f"K5 lag windows disagree: {k5_rel}")
+    n256 = 34_816  # n1 = 256
+    b256r, b256i, b256m = _ct_spectra(torch, ct_plan, 1, wb, n256, dev, seed=4)
+    s2b = (b256m[:, ti] * b256m[:, tj]).contiguous()
+    kwb = dict(max_lag=512, eps=wcfg.gcc_eps, s2=s2b)
+    k5b = gcc_pair.gcc_pairs_onehot_lag_mags(b256r, b256i, wpi, wpj, **kwb)
+    p5b = gcc_pair.gcc_pairs_onehot_lag_mags_plain(b256r, b256i, wpi, wpj, **kwb)
+    torch.cuda.synchronize()
+    k5b_abs, k5b_rel = _window_errors(k5b, p5b)
+    k5b_same = bool((k5b.argmax(-1) == p5b.argmax(-1)).all())
+    k5b_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_pairs_onehot_lag_mags(b256r, b256i, wpi, wpj, **kwb))
+    print(
+        f"phase 7: K5 at n1 = {ct_plan.ct_split(n256)[0]}, [1, {wb}, {n256}] -> {list(k5b.shape)} window "
+        f"max|err| {k5b_abs:.3e} (rel to window max {k5b_rel:.3e}, tol 1e-4), same argmax {k5b_same}; "
+        f"kernel {k5b_ms:.3f} ms {tag}"
+    )
+    _require(tuple(k5b.shape) == (1, wp, 1025), "K5 n1 = 256 output shape")
+    _require(k5b_rel <= 1e-4 and k5b_same, f"K5 lag windows disagree at n1 = 256: {k5b_rel}")
+    del b256r, b256i, b256m, s2b, k5b, p5b
     _require(k6_rel <= 1e-4 and k65_rel <= 1e-4, f"K6 lag windows disagree: {k6_rel}, {k65_rel}")
     del k3, k5, k6, p6, rows, f3r, f3i, xr, xi, cre, cim
     torch.cuda.empty_cache()
@@ -964,7 +1019,7 @@ def main() -> int:
     w_width = 2 * wlag + 1
     k7_rows = chans * buoys * 8
     k1_dft = _dft_flops(nrows, n1, n2)
-    k2_dft = _dft_pair_flops(chans * npairs, n1, n2, rows_w)
+    k2_fft = _fft_pair_flops(chans * npairs, n1, n2, rows_w)
     print(json.dumps({"kernels": [
         entry("fft_detect_rows_ct", "fft_detect.cu", "detect_kernel.py:443",
               launches["fft_detect_rows_ct"], spec_abs, k1_ms, k1_plain_ms,
@@ -973,7 +1028,7 @@ def main() -> int:
         entry("gcc_pair_lag_mags", "gcc_pair.cu", "gcc_kernel.py:358",
               launches["gcc_pair_lag_mags"], max(win_abs, k2_modes["l2"][0], k2_modes["l1"][0]), k2_ms, k2_plain_ms,
               _bound(_pair_flops(chans * npairs, nfft, width),
-                     nrows * nfft * 8 + nrows * 4 + chans * npairs * width * 4), k2_dft),
+                     nrows * nfft * 8 + nrows * 4 + chans * npairs * width * 4), k2_fft),
         entry("fft_rows_ct", "fft_rows_ct.cu", "fft_kernel.py:446",
               wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound,
               _radix_flops(m_sub * wb, wn, *ct_plan.radix_split(wn)[1:]), k3_lib_ms),
@@ -984,17 +1039,17 @@ def main() -> int:
               wl5["gcc_pairs_onehot_lag_mags"], k5_abs, k5_ms, k5_plain_ms,
               _bound(_pair_flops(m_sub * wp, wn, w_width),
                      m_sub * wb * wn * 8 + m_sub * wp * 4 + m_sub * wp * w_width * 4),
-              _dft_pair_flops(m_sub * wp, wn1, wn2, w_rows)),
+              _fft_pair_flops(m_sub * wp, wn1, wn2, w_rows)),
         entry("gcc_rows_lag_mags", "gcc_pair.cu", "gcc_kernel.py:548",
               wl6["gcc_rows_lag_mags"], k6_abs, k6_ms, k6_plain_ms,
               _bound(_pair_flops(wp, wn, w_width), 4 * wp * wn * 4 + wp * 4 + wp * w_width * 4),
-              _dft_pair_flops(wp, wn1, wn2, w_rows)),
+              _fft_pair_flops(wp, wn1, wn2, w_rows)),
         entry("fft_rows", "fft_natural_radix.cu", "fft_kernel.py:212",
               k7_launches, max(v[0] for v in k7.values()), k7_main[2], k7_main[3],
               _bound(_fft_flops(k7_rows, n), 2 * 8 * k7_rows * n),
               _natural_radix_flops(k7_rows, fft_natural.radix_plan(n)), k7_main[4]),
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
-              route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_dft + k2_dft),
+              route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_dft + k2_fft),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))
     return 0

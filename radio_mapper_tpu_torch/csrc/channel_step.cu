@@ -36,11 +36,12 @@
 // 209 KB per block (spectrum + candidate scratch, power recomputed from the
 // spectrum) before the pair buffers, and remote reads in the inner loop.
 //
-// What bounds it as written: K1's direct DFT stages plus K2's inner inverse
-// DFT, n*(n1+n2) + P/B * n*(n1 + window rows) complex FMAs per block, on
-// the FP32 CUDA cores; the pair stage runs at one 512-thread block per SM
-// (the row's shared memory is reserved for the whole launch). The function
-// needs about 20x fewer operations with FFTs in place of the direct DFTs.
+// What bounds it as written: K1's direct DFT stages, n*(n1 + n2) complex
+// FMAs per row, on the FP32 CUDA cores; the pair half runs gcc_pair.cuh's
+// warp-shuffle inverse FFT body (iwr: W_n1^-e, e < n1/2), whose window
+// fold is now its largest part, at one 512-thread block per SM (the row's
+// shared memory is reserved for the whole launch). K1's forward stages onto
+// ct_fft.cuh would cut the forward half's work about 20x.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -64,7 +65,7 @@ __global__ void __launch_bounds__(K8_THREADS, 1)
 channel_step_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
                     const float2* __restrict__ fw1, const float2* __restrict__ fw2,
                     const float2* __restrict__ ftw,
-                    const float2* __restrict__ iw1, const float2* __restrict__ iw2,
+                    const float2* __restrict__ iwr, const float2* __restrict__ iw2,
                     const float2* __restrict__ itw,
                     const int* __restrict__ pair_i, const int* __restrict__ pair_j,
                     float* fre, float* fim, float* smax,
@@ -72,7 +73,8 @@ channel_step_kernel(const float* __restrict__ xre, const float* __restrict__ xim
                     float* __restrict__ nf_out, float* __restrict__ out,
                     int nb, int np, int n1, int n2, int nneg, int npos, int max_lag,
                     float eps2, float inv_n, DetectParams prm) {
-  extern __shared__ float2 xs[];  // [n] complex row, CT layout; later the pair buffers
+  extern __shared__ float4 smem[];  // float4: the pair body stores 16 bytes at a time
+  float2* xs = reinterpret_cast<float2*>(smem);  // [n] complex row, CT layout; later the pair buffers
   cg::cluster_group cluster = cg::this_cluster();
 
   const int n = n1 * n2;
@@ -134,7 +136,7 @@ channel_step_kernel(const float* __restrict__ xre, const float* __restrict__ xim
     const size_t xo = static_cast<size_t>(bi) * n, yo = static_cast<size_t>(bj) * n;
     rm_pair::pair_lag_window<K8_THREADS, true>(
         cre + xo, cim + xo, cre + yo, cim + yo, rm_pair::GATE_L2RX, floor2, eps2, 0.f,
-        iw1, iw2, itw, out + (static_cast<size_t>(c) * np + p) * width, xs,
+        iwr, iw2, itw, out + (static_cast<size_t>(c) * np + p) * width, xs,
         n1, n2, nneg, npos, max_lag, inv_n);
     __syncthreads();  // the next pair zeroes the window buffers
   }
@@ -145,7 +147,7 @@ channel_step_kernel(const float* __restrict__ xre, const float* __restrict__ xim
 extern "C" int rm_channel_step_partials(
     const float* xre, const float* xim,
     const float2* fw1, const float2* fw2, const float2* ftw,
-    const float2* iw1, const float2* iw2, const float2* itw,
+    const float2* iwr, const float2* iw2, const float2* itw,
     const int* pair_i, const int* pair_j,
     float* fre, float* fim, float* smax,
     float* seg_score, float* seg_arg, float* nf, float* out,
@@ -155,7 +157,7 @@ extern "C" int rm_channel_step_partials(
     float thr_lin, int has_conf, float conf_cs, float off, int bisect_iters,
     cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(n1) * n2 * sizeof(float2);
-  if (rm_pair::pair_smem_bytes<K8_THREADS>(n1, nneg, npos) > smem) {
+  if (!rm_pair::pair_n1_supported(n1) || rm_pair::pair_smem_bytes<K8_THREADS>(n1, nneg, npos) > smem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t e = cudaFuncSetAttribute(
@@ -179,7 +181,7 @@ extern "C" int rm_channel_step_partials(
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, channel_step_kernel,
-                         xre, xim, fw1, fw2, ftw, iw1, iw2, itw, pair_i, pair_j,
+                         xre, xim, fw1, fw2, ftw, iwr, iw2, itw, pair_i, pair_j,
                          fre, fim, smax, seg_score, seg_arg, nf, out,
                          nb, np, n1, n2, nneg, npos, max_lag, eps2, inv_n, prm);
   if (e != cudaSuccess) return static_cast<int>(e);

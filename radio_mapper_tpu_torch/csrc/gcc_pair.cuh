@@ -1,5 +1,5 @@
 // Shared device code: one GCC pair's lag window -- cross-power R = X conj(Y),
-// whitening, four-step inverse DFT of the lag-window rows only, |r|/n.
+// whitening, four-step inverse transform of the lag-window rows only, |r|/n.
 //
 // The body of kernels K2, K5 and K6 (gcc_pair.cu) and of the pair stage of
 // kernel K8 (channel_step.cu); it is radio_mapper_tpu/ops/pallas/
@@ -8,12 +8,30 @@
 // Input spectra are in CT order (bin k = k2 + n2*k1 at m = k2*n1 + k1); the
 // inverse consumes that order and emits time t = q*n1 + p:
 //   R[k2][k1] = whiten(X * conj(Y))
-//   E[k2][p]  = sum_k1 R[k2][k1] W1c[k1][p]      (inner inverse n1-point DFT)
+//   E[k2][p]  = sum_k1 R[k2][k1] W_n1^(-k1 p)    (inner inverse n1-point FFT)
 //   C[k2][p]  = E[k2][p] * TWc[k2][p]
 //   z[q][p]   = sum_k2 W2c[q][k2] C[k2][p]       (outer, window rows q only)
-// The rows k2 are processed in chunks; each chunk's C is folded straight
-// into the window accumulators, in k2 order whatever the chunk size, so a
-// block of any THREADS gives the same sums.
+//
+// Inner transform, n1 = 128 or 256 (P = n1/32 points a lane): one warp per
+// CT row k2. Lane l loads bins k1 = l + 32*i (i < P) of X and Y (each load
+// of the warp one coalesced 128-byte line), forms the whitened R in
+// registers and runs a radix-2 DIF FFT with conjugate twiddles W_n1^-e
+// (e < n1/2, ct_plan.inverse_radix_table): the stages of half-size
+// h = n1/2 .. 32 pair points i and i + h/32 in registers, the stages
+// h = 16 .. 1 pair lane l with lane l ^ h through __shfl_xor_sync. In this
+// layout every twiddle exponent depends on the lane (and i) but not on the
+// row, so each lane loads its P - 1 + 5 twiddles once a block. Point i of
+// lane l then holds E[brev(l + 32*i)] = E[P*brev5(l) + brev(i)]: P
+// consecutive times, multiplied by the inverse twiddle and stored to the
+// chunk buffer with 16-byte stores, at swizzled places (swz) that keep the
+// stores and the fold's reads free of bank conflicts.
+// tests/test_torch_pair_fft.py replays this schedule in numpy and counts
+// the banks of those stores and reads.
+//
+// Outer transform: the rows k2 are processed in chunks of 256/n1 rows a
+// warp; each chunk's C is folded straight into the window accumulators, in
+// k2 order whatever the chunk size, so a block of any THREADS gives the
+// same sums (kernel K8, 512 threads, equals K2, 256 threads, bit for bit).
 //
 // Whitening (gcc_kernel._whiten, the gate of set_phat_gate):
 //   l2rx  R * rsqrt(|R|^2 + eps^2 * s2 + 1e-30), s2 given per pair
@@ -30,10 +48,11 @@
 #include <cuda_runtime.h>
 
 #include "ct_dft.cuh"
+#include "ct_fft.cuh"
 
 namespace rm_pair {
 
-constexpr int RJ = 8;  // inner DFT: chunk rows per thread
+constexpr int RJ = 8;  // chunk rows = (THREADS / n1) * RJ = 256 / n1 rows a warp
 
 enum Gate : int { GATE_L2RX = 0, GATE_L2 = 1, GATE_L1 = 2, GATE_NONE = 3 };
 
@@ -46,31 +65,194 @@ __device__ __forceinline__ float load(const float* p) {
   else return __ldg(p);
 }
 
-template <bool FRESH>
-__device__ __forceinline__ void cross_power(const float* xr, const float* xi, const float* yr,
-                                            const float* yi, int m, float& rr, float& ri) {
-  const float ar = load<FRESH>(xr + m), ai = load<FRESH>(xi + m);
-  const float br = load<FRESH>(yr + m), bim = load<FRESH>(yi + m);
+__device__ __forceinline__ void cross(float ar, float ai, float br, float bim, float& rr, float& ri) {
   rr = __fadd_rn(__fmul_rn(ar, br), __fmul_rn(ai, bim));
   ri = __fsub_rn(__fmul_rn(ai, br), __fmul_rn(ar, bim));
 }
 
-// One pair: X = (xr, xi), Y = (yr, yi) CT-order rows of n = n1*n2, gate
-// mode `gate` (l2rx floor eps2 * s2 in floor2; eps2 = eps^2 and eps for
-// the per-pair gates), window |r|/n written to orow[0 .. 2*max_lag].
-// sm: (THREADS/n1 * RJ + nneg + npos) * n1 float2 of shared memory.
+// The gate on one cross-power bin (floor2: eps^2 * s2 for l2rx and l2;
+// l1_floor: eps * max mag for l1).
+__device__ __forceinline__ float2 whiten(float rr, float ri, int gate, float floor2, float l1_floor) {
+  if (gate == GATE_NONE) return make_float2(rr, ri);
+  const float p2 = __fadd_rn(__fmul_rn(rr, rr), __fmul_rn(ri, ri));
+  float inv;
+  if (gate == GATE_L1) {
+    const float mag = __fmul_rn(p2, rsqrtf(__fadd_rn(p2, 1e-30f)));
+    inv = __fdiv_rn(1.f, __fadd_rn(__fadd_rn(mag, l1_floor), 1e-30f));
+  } else {
+    inv = rsqrtf(__fadd_rn(__fadd_rn(p2, floor2), 1e-30f));
+  }
+  return make_float2(__fmul_rn(rr, inv), __fmul_rn(ri, inv));
+}
+
+// A lane's twiddles for the warp FFT of N1 points: reg[P - h/16 + j] for
+// the register stage h (h = N1/2 .. 32, j < h/32) is W^-((l + 32j)*N1/(2h)),
+// lane[s] for the shuffle stage h = 16 >> s is W^-((l mod h)*N1/(2h)) where
+// lane bit h is set and 1 where it is clear (that lane keeps the sum).
+template <int N1>
+struct RowTwiddles {
+  float2 reg[N1 / 32 - 1];
+  float2 lane[5];
+};
+
+template <int N1>
+__device__ __forceinline__ RowTwiddles<N1> row_twiddles(const float2* __restrict__ wi, int lane) {
+  constexpr int P = N1 / 32;
+  RowTwiddles<N1> t;
+#pragma unroll
+  for (int h = N1 / 2; h >= 32; h >>= 1) {
+#pragma unroll
+    for (int j = 0; j < h / 32; ++j) t.reg[P - h / 16 + j] = __ldg(wi + (lane + 32 * j) * (N1 / 2 / h));
+  }
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    const int h = 16 >> s;
+    t.lane[s] = (lane & h) ? __ldg(wi + (lane & (h - 1)) * (N1 / 2 / h)) : make_float2(1.f, 0.f);
+  }
+  return t;
+}
+
+// The inverse N1-point FFT of one row held by a warp, point i of lane l at
+// k1 = l + 32*i (see the header).
+template <int N1>
+__device__ __forceinline__ void inverse_row_fft(float2 (&v)[N1 / 32], const RowTwiddles<N1>& tw,
+                                                int lane) {
+  constexpr int P = N1 / 32;
+#pragma unroll
+  for (int h = N1 / 2; h >= 32; h >>= 1) {
+    const int g = h / 32;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      if (i & g) continue;
+      const float2 a = v[i], b = v[i + g];
+      v[i] = rm_fft::cadd(a, b);
+      v[i + g] = rm_ct::cmul(rm_fft::csub(a, b), tw.reg[P - h / 16 + (i & (g - 1))]);
+    }
+  }
+  // lane bit h clear: v + w (times 1); set: (w - v) * W, with no select
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    const int h = 16 >> s;
+    const float sg = (lane & h) ? -1.f : 1.f;
+#pragma unroll
+    for (int i = 0; i < P; ++i) {
+      const float2 w = make_float2(__shfl_xor_sync(0xffffffffu, v[i].x, h),
+                                   __shfl_xor_sync(0xffffffffu, v[i].y, h));
+      v[i] = rm_ct::cmul(make_float2(fmaf(sg, v[i].x, w.x), fmaf(sg, v[i].y, w.y)), tw.lane[s]);
+    }
+  }
+}
+
+// Where time p of a row sits in the chunk buffer: bits 1..3 of p XOR the
+// three bits above log2(4P). A lane stores P consecutive times from
+// p0 = P*brev5(lane), so the 8 lanes of a quarter-warp differ only in those
+// three bits: swizzled, their 16-byte stores hit 8 different bank groups
+// (unswizzled, all 8 hit the same 4 banks). Bit 0 stays, so a pair of times
+// stays one 16-byte word, and 16 consecutive times stay a permutation of
+// themselves, so the fold's reads of consecutive p stay conflict-free.
+template <int P>
+__device__ __forceinline__ int swz(int p) {
+  return p ^ (((p / (4 * P)) & 7) << 1);
+}
+
+// A lane's P times p0 + q (q = Q, Q + 1, ...) from its points i = brev(q),
+// times the inverse twiddle, two per 16-byte load and store (the point
+// indices are constants, so v stays in registers); row: the chunk buffer's
+// row, 16-byte aligned.
+template <int P, int Q>
+__device__ __forceinline__ void twiddle_store(const float2 (&v)[P], const float4* __restrict__ tq,
+                                              float2* row, int p0) {
+  if constexpr (Q < P) {
+    constexpr int i0 = rm_fft::brev_bits(Q, rm_fft::log2_of(P));
+    constexpr int i1 = rm_fft::brev_bits(Q + 1, rm_fft::log2_of(P));
+    const float4 t = __ldg(tq + Q / 2);
+    const float2 c0 = rm_ct::cmul(v[i0], make_float2(t.x, t.y));
+    const float2 c1 = rm_ct::cmul(v[i1], make_float2(t.z, t.w));
+    *reinterpret_cast<float4*>(row + swz<P>(p0 + Q)) = make_float4(c0.x, c0.y, c1.x, c1.y);
+    twiddle_store<P, Q + 2>(v, tq, row, p0);
+  }
+}
+
+// The chunk loop of pair_lag_window for n1 = N1: each warp whitens and
+// transforms its rows of the chunk into rbuf [chunk][N1] (16-byte aligned),
+// then the block folds the chunk into the window accumulators
+// z [nneg + npos][N1].
+template <int N1, int THREADS, bool FRESH>
+__device__ __forceinline__ void pair_chunks(
+    const float* xr, const float* xi, const float* yr, const float* yi,
+    int gate, float floor2, float l1_floor,
+    const float2* __restrict__ wi, const float2* __restrict__ w2,
+    const float2* __restrict__ tw, float2* rbuf, float2* z, int n2, int nneg, int npos) {
+  constexpr int P = N1 / 32;
+  constexpr int WARPS = THREADS / 32;
+  constexpr int ROWS = RJ * 32 / N1;  // chunk rows a warp
+  constexpr int chunk = WARPS * ROWS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = nneg + npos;
+  const int p0 = P * static_cast<int>(__brev(lane) >> 27);  // this lane's first time p
+  const RowTwiddles<N1> rtw = row_twiddles<N1>(wi, lane);
+  for (int r0 = 0; r0 < n2; r0 += chunk) {
+    const int rows = min(chunk, n2 - r0);
+
+    // Every branch around the loads and shuffles is the same for the whole
+    // block, so the shuffles need no warp-sync fallback: a warp past the
+    // chunk's last row (only where rows is not a multiple of WARPS)
+    // transforms the chunk's first row again and stores nothing.
+#pragma unroll
+    for (int j = 0; j < ROWS; ++j) {
+      if (WARPS * j >= rows) break;
+      const int rl = warp + WARPS * j;
+      const bool live = rl < rows;
+      const int k2 = r0 + (live ? rl : 0);
+      const int off = k2 * N1 + lane;
+      const float *ar = xr + off, *ai = xi + off, *br = yr + off, *bi = yi + off;
+      float2 v[P];
+#pragma unroll
+      for (int i = 0; i < P; ++i) {
+        float rr, ri;
+        cross(load<FRESH>(ar + 32 * i), load<FRESH>(ai + 32 * i), load<FRESH>(br + 32 * i),
+              load<FRESH>(bi + 32 * i), rr, ri);
+        v[i] = whiten(rr, ri, gate, floor2, l1_floor);
+      }
+      inverse_row_fft<N1>(v, rtw, lane);
+      if (live) {
+        twiddle_store<P, 0>(v, reinterpret_cast<const float4*>(tw + k2 * N1 + p0), rbuf + rl * N1, p0);
+      }
+    }
+    __syncthreads();
+
+    // outer inverse DFT over this chunk's k2, window rows only: neg rows
+    // q = n2 - nneg .. n2 - 1 first, then pos rows q = 0 .. npos - 1
+    for (int o = tid; o < nw * N1; o += THREADS) {
+      const int qw = o / N1, pp = o - qw * N1;
+      const int q = (qw < nneg) ? (n2 - nneg + qw) : (qw - nneg);
+      const float2* wq = w2 + q * n2 + r0;
+      const float2* cp = rbuf + swz<P>(pp);
+      float2 a = z[o];
+      for (int rl = 0; rl < rows; ++rl) rm_ct::cmac(a, __ldg(wq + rl), cp[rl * N1]);
+      z[o] = a;
+    }
+    __syncthreads();  // rbuf is overwritten by the next chunk
+  }
+}
+
+// One pair: X = (xr, xi), Y = (yr, yi) CT-order rows of n = n1*n2 (n1 = 128
+// or 256), gate mode `gate` (l2rx floor eps2 * s2 in floor2; eps2 = eps^2
+// and eps for the per-pair gates), window |r|/n written to
+// orow[0 .. 2*max_lag]. wi: W_n1^-e, e < n1/2; tw: the inverse twiddle
+// [n2][n1], 16-byte aligned. sm: (THREADS/n1 * RJ + nneg + npos) * n1
+// float2 of shared memory, 16-byte aligned.
 template <int THREADS, bool FRESH>
 __device__ void pair_lag_window(
     const float* xr, const float* xi, const float* yr, const float* yi,
     int gate, float floor2, float eps2, float eps,
-    const float2* __restrict__ w1, const float2* __restrict__ w2,
+    const float2* __restrict__ wi, const float2* __restrict__ w2,
     const float2* __restrict__ tw, float* __restrict__ orow, float2* sm,
     int n1, int n2, int nneg, int npos, int max_lag, float inv_n) {
   __shared__ float red[THREADS / 32];
-  const int groups = THREADS / n1;
-  const int chunk = groups * RJ;
+  const int chunk = (THREADS / n1) * RJ;
   const int nw = nneg + npos;
-  float2* rbuf = sm;              // [chunk][n1] whitened R, then C
+  float2* rbuf = sm;              // [chunk][n1] C of the chunk's rows
   float2* z = sm + chunk * n1;    // [nw][n1] window accumulators
   const int tid = threadIdx.x;
 
@@ -83,7 +265,7 @@ __device__ void pair_lag_window(
     float v = 0.f;  // |R|^2 and mag are >= 0
     for (int m = tid; m < n; m += THREADS) {
       float rr, ri;
-      cross_power<FRESH>(xr, xi, yr, yi, m, rr, ri);
+      cross(load<FRESH>(xr + m), load<FRESH>(xi + m), load<FRESH>(yr + m), load<FRESH>(yi + m), rr, ri);
       const float p2 = __fadd_rn(__fmul_rn(rr, rr), __fmul_rn(ri, ri));
       v = fmaxf(v, gate == GATE_L2 ? p2 : __fmul_rn(p2, rsqrtf(__fadd_rn(p2, 1e-30f))));
     }
@@ -97,60 +279,12 @@ __device__ void pair_lag_window(
   }
   const float l1_floor = __fmul_rn(eps, scale);
 
-  const int p = tid % n1, g = tid / n1;
-  for (int r0 = 0; r0 < n2; r0 += chunk) {
-    const int rows = min(chunk, n2 - r0);
-
-    // R = X conj(Y), whitened
-    for (int idx = tid; idx < rows * n1; idx += THREADS) {
-      float rr, ri;
-      cross_power<FRESH>(xr, xi, yr, yi, r0 * n1 + idx, rr, ri);
-      float inv = 1.f;
-      if (gate != GATE_NONE) {
-        const float p2 = __fadd_rn(__fmul_rn(rr, rr), __fmul_rn(ri, ri));
-        if (gate == GATE_L1) {
-          const float mag = __fmul_rn(p2, rsqrtf(__fadd_rn(p2, 1e-30f)));
-          inv = __fdiv_rn(1.f, __fadd_rn(__fadd_rn(mag, l1_floor), 1e-30f));
-        } else {
-          inv = rsqrtf(__fadd_rn(__fadd_rn(p2, floor2), 1e-30f));
-        }
-      }
-      rbuf[idx] = gate == GATE_NONE ? make_float2(rr, ri) : make_float2(rr * inv, ri * inv);
-    }
-    __syncthreads();
-
-    // inner inverse DFT over k1 + inverse twiddle; thread owns column p of
-    // chunk rows g + groups j (W1 loads coalesced, R reads broadcast)
-    float2 acc[RJ];
-#pragma unroll
-    for (int j = 0; j < RJ; ++j) acc[j] = make_float2(0.f, 0.f);
-    for (int k1 = 0; k1 < n1; ++k1) {
-      const float2 w = __ldg(w1 + k1 * n1 + p);
-#pragma unroll
-      for (int j = 0; j < RJ; ++j) {
-        const int rl = g + groups * j;
-        if (rl < rows) rm_ct::cmac(acc[j], rbuf[rl * n1 + k1], w);
-      }
-    }
-    __syncthreads();  // every read of rbuf is done
-#pragma unroll
-    for (int j = 0; j < RJ; ++j) {
-      const int rl = g + groups * j;
-      if (rl < rows) rbuf[rl * n1 + p] = rm_ct::cmul(acc[j], __ldg(tw + (r0 + rl) * n1 + p));
-    }
-    __syncthreads();
-
-    // outer inverse DFT over this chunk's k2, window rows only: neg rows
-    // q = n2 - nneg .. n2 - 1 first, then pos rows q = 0 .. npos - 1
-    for (int o = tid; o < nw * n1; o += THREADS) {
-      const int qw = o / n1, pp = o - qw * n1;
-      const int q = (qw < nneg) ? (n2 - nneg + qw) : (qw - nneg);
-      const float2* wq = w2 + q * n2 + r0;
-      float2 a = z[o];
-      for (int rl = 0; rl < rows; ++rl) rm_ct::cmac(a, __ldg(wq + rl), rbuf[rl * n1 + pp]);
-      z[o] = a;
-    }
-    __syncthreads();  // rbuf is overwritten by the next chunk
+  if (n1 == 256) {
+    pair_chunks<256, THREADS, FRESH>(xr, xi, yr, yi, gate, floor2, l1_floor, wi, w2, tw, rbuf, z, n2,
+                                     nneg, npos);
+  } else {
+    pair_chunks<128, THREADS, FRESH>(xr, xi, yr, yi, gate, floor2, l1_floor, wi, w2, tw, rbuf, z, n2,
+                                     nneg, npos);
   }
 
   // lags -L..-1 are the last L samples of the neg rows, 0..L the first
@@ -162,6 +296,9 @@ __device__ void pair_lag_window(
     orow[t] = __fmul_rn(sqrtf(__fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y))), inv_n);
   }
 }
+
+// The inner lengths pair_lag_window takes.
+inline bool pair_n1_supported(int n1) { return n1 == 128 || n1 == 256; }
 
 // Shared memory of pair_lag_window for a block of THREADS.
 template <int THREADS>

@@ -133,18 +133,22 @@ def radix_split(n: int) -> Tuple[int, int, int]:
     return n2, a, n2 // a
 
 
+def _roots(e: np.ndarray, m: int, inverse: bool = False) -> np.ndarray:
+    """``[..., 2]`` float32 (re, im) of W_m^e (W_m^−e for the inverse),
+    computed in float64 and rounded once."""
+    ang = 2 * np.pi * e / m
+    return np.stack([np.cos(ang), np.sin(ang) if inverse else -np.sin(ang)], axis=-1).astype(np.float32)
+
+
 @functools.lru_cache(maxsize=16)
 def radix_tables(n: int) -> RadixTables:
     n2, a, r = radix_split(n)
-    pairs = lambda e, m: np.stack(  # W_m^e in float64, rounded once to float32
-        [np.cos(2 * np.pi * e / m), -np.sin(2 * np.pi * e / m)], axis=-1
-    ).astype(np.float32)
     jr = np.arange(r)
     return RadixTables(
         n2, a, r,
-        w128=pairs(np.arange(RADIX_N1 // 2), RADIX_N1),
-        wn2=pairs(np.arange(n2), n2),
-        wr=pairs(np.outer(jr, jr) % r, r),
+        w128=_roots(np.arange(RADIX_N1 // 2), RADIX_N1),
+        wn2=_roots(np.arange(n2), n2),
+        wr=_roots(np.outer(jr, jr) % r, r),
     )
 
 
@@ -153,6 +157,20 @@ def device_radix_tables(n: int, device: torch.device) -> Tuple[torch.Tensor, tor
     """``(w128, wn2, wr)`` of :func:`radix_tables` on ``device``."""
     t = radix_tables(n)
     return tuple(torch.from_numpy(a).to(device) for a in (t.w128, t.wn2, t.wr))
+
+
+@functools.lru_cache(maxsize=4)
+def inverse_radix_table(n1: int) -> np.ndarray:
+    """``[n1/2, 2]`` float32: W_n1^−e for e < n1/2, the twiddles of the
+    GCC pair body's inverse radix-2 n1-point FFT (``csrc/gcc_pair.cuh``),
+    as :func:`radix_tables`' ``w128`` is for K3's forward stages."""
+    return _roots(np.arange(n1 // 2), n1, inverse=True)
+
+
+@functools.lru_cache(maxsize=8)
+def device_inverse_radix_table(n1: int, device: torch.device) -> torch.Tensor:
+    """:func:`inverse_radix_table` on ``device``."""
+    return torch.from_numpy(inverse_radix_table(n1)).to(device)
 
 
 def ct_permutation(n: int) -> np.ndarray:

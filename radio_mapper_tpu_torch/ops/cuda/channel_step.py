@@ -19,10 +19,11 @@ memory and reading partners through distributed shared memory would drop
 the scratch's traffic (2 × 142.6 MB at 128 channels × 8 receivers) but
 needs ≈ 209 KB a block before the pair buffers: a later redesign.
 
-What bounds it on the H100 as written: the FP32 direct-DFT FMAs of K1 and
-K2 together (≈ 106 GFLOP at [128, 8, 17408], ≈ 1.6 ms at 67 TFLOP/s); its
-pair stage runs one 512-thread block per SM (the row's shared memory stays
-reserved). The function itself needs ≈ 4.9 GFLOP with FFTs (≈ 0.07 ms).
+What bounds it on the H100 as written: K1's FP32 direct-DFT FMAs (≈ 38
+GFLOP at [128, 8, 17408], ≈ 0.56 ms at 67 TFLOP/s); its pair stage runs
+K2's warp-FFT body (≈ 7 GFLOP, most of it the window fold) at one
+512-thread block per SM (the row's shared memory stays reserved). The
+function itself needs ≈ 4.9 GFLOP with FFTs (≈ 0.07 ms).
 
 Routing (``channel_kernel.set_mega_fused``/``supported``, copied): "off"
 by default, "auto" follows "off"; the kernel needs "phat", B padded to a
@@ -140,26 +141,28 @@ def _launch(re, im, pair_i, pair_j, plan, max_lag, eps):
     global launch_count
     *lead, b, n = re.shape
     n1, n2 = plan.n1, plan.n2
-    if THREADS % n1 or n2 > fft_detect.MAX_N2 or n > fft_detect.MAX_N or n * 8 > fft_detect.SMEM_LIMIT:
-        raise ValueError(f"K8 runs K1's body: n1 dividing {THREADS}, n2 ≤ {fft_detect.MAX_N2}, "
+    if (n1 not in gcc_pair.PAIR_N1 or n2 > fft_detect.MAX_N2 or n > fft_detect.MAX_N
+            or n * 8 > fft_detect.SMEM_LIMIT):
+        raise ValueError(f"K8 runs K1's and K2's bodies: n1 in {gcc_pair.PAIR_N1}, n2 ≤ {fft_detect.MAX_N2}, "
                          f"nfft ≤ {fft_detect.MAX_N}; got nfft {n} = {n1}·{n2}")
     if b > MAX_B_PAD:
         raise ValueError(f"K8 runs a cluster of one block per receiver: at most {MAX_B_PAD}, got {b}")
     nneg, npos = gcc_pair.window_rows(n, max_lag)
-    if ((THREADS // n1) * gcc_pair.RJ + nneg + npos) * n1 * 8 > n * 8:
+    if gcc_pair.smem_bytes(n1, nneg, npos, THREADS) > n * 8:
         raise ValueError(f"max_lag {max_lag} does not fit K8's pair buffers at nfft {n}")
     fn = build.kernel("rm_channel_step_partials", _ARGTYPES)
     dev = re.device
     ft = ct_plan.device_tables(n, False, dev)
     it = ct_plan.device_tables(n, True, dev)
-    pi, pj = gcc_pair._pair_tensors(tuple(int(v) for v in pair_i), tuple(int(v) for v in pair_j), dev)
+    iwr = ct_plan.device_inverse_radix_table(n1, dev)  # the pair body's inverse FFT twiddles
+    pi, pj = gcc_pair.device_pairs(pair_i, pair_j, dev)
     c, p, s, width = re.numel() // (b * n), pi.shape[0], plan.segments, 2 * max_lag + 1
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     fr, fi, smax = f32(c, b, n), f32(c, b, n), f32(c, b)  # scratch: spectra, row maxima
     score, arg, nf, out = f32(c, b, s), f32(c, b, s), f32(c, b), f32(c, p, width)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     err = fn(
-        ptr(re), ptr(im), ptr(ft.w1), ptr(ft.w2), ptr(ft.tw), ptr(it.w1), ptr(it.w2), ptr(it.tw),
+        ptr(re), ptr(im), ptr(ft.w1), ptr(ft.w2), ptr(ft.tw), ptr(iwr), ptr(it.w2), ptr(it.tw),
         ptr(pi), ptr(pj), ptr(fr), ptr(fi), ptr(smax),
         ptr(score), ptr(arg), ptr(nf), ptr(out),
         c, b, p, n1, n2, nneg, npos, max_lag,

@@ -16,17 +16,23 @@ PyTorch version and its own launch counter:
   row k of X pairs with row k of Y, pre-gathered by the caller (the
   wideband route when :func:`onehot_pairs_enabled` says no).
 
-Design (first, simple version): one thread block per pair. It reads
-X_i and Y_j by index straight from the CT-order spectra (the TPU's
-resident spectra and one-hot matmul gather are a VMEM/MXU layout device
-with no use here; one subchannel's 64 spectra, 2.6 MB, stay in the
-50 MB L2), forms R = X·conj(Y), whitens it, and runs the four-step
-inverse in chunks of CT rows: the inner n1-point inverse DFT over k1 and
-the inverse twiddle, then the outer inverse DFT over k2 accumulated ONLY
-into the lag-window time rows (``ceil(L/n1)`` tail rows and ``L//n1 + 1``
-head rows). Shared memory holds one chunk and the window accumulators
-(≈ 26 KB at nfft 17408 / max_lag 512, ≈ 19 KB at nfft 5120 / max_lag
-128), so several blocks share an SM. FP32 FMA on the CUDA cores.
+Design: one thread block per pair. It reads X_i and Y_j by index
+straight from the CT-order spectra (the TPU's resident spectra and
+one-hot matmul gather are a VMEM/MXU layout device with no use here; one
+subchannel's 64 spectra, 2.6 MB, stay in the 50 MB L2) and runs the
+four-step inverse in chunks of CT rows. Each warp takes whole rows k2:
+its lanes load the row's n1 bins (coalesced), form and whiten
+R = X·conj(Y) in registers, run the inner n1-point inverse FFT (radix-2,
+stages across lanes by ``__shfl_xor_sync`` and in registers; n1 = 128 or
+256, the two inner lengths the kernels take) and store it times the
+inverse twiddle to shared memory. The block then folds the chunk into
+the outer inverse DFT over k2, accumulated ONLY into the lag-window time
+rows (``ceil(L/n1)`` tail rows and ``L//n1 + 1`` head rows), in k2
+order whatever the chunk size. Shared memory holds one chunk and the
+window accumulators (≈ 26 KB at nfft 17408 / max_lag 512, ≈ 19 KB at
+nfft 5120 / max_lag 128), so several blocks share an SM. FP32 on the
+CUDA cores; ``tests/test_torch_pair_fft.py`` replays the schedule in
+numpy.
 
 Whitening (``gcc_kernel._whiten``, chosen by :func:`set_phat_gate` and
 ``weighting``): "phat" takes the gate of the knob — "l2rx" (default)
@@ -36,13 +42,15 @@ R / (|R| + ε·max|R| + 1e-30); "l2rx" without gate scales runs as "l2",
 as in the reference. "cc" is not whitened. The per-pair gates need the
 pair's maximum first: one more pass over X and Y.
 
-What bounds it on the H100: the inner inverse DFT, n·n1 complex
-multiply-adds per pair (≈ 2.2 M at nfft 17408, 0.66 M at 5120) — compute
-bound; each pair reads two spectra, mostly L2 hits since a channel's B
-spectra are shared by all its pairs. Left for later PRs: both DFT stages
-on tensor cores, TMA loads of the spectra rows, and fusing the forward
-transform into this kernel so spectra stay on chip (kernel K8 does the
-latter through a scratch).
+What bounds it on the H100: with the inner transform an FFT
+(5·n·log2(n1) FLOP a pair), the outer fold, 8·n·(window rows) FLOP a
+pair with a shared-memory read for each complex multiply-add (1.25 M
+FLOP at nfft 17408 / max_lag 512, 0.12 M at 5120 / 128), is the largest
+part of the work; each pair reads two spectra, mostly L2 hits since a
+channel's B spectra are shared by all its pairs. Left for later PRs:
+several pairs that share a receiver in one block, the fold on tensor
+cores, and fusing the forward transform into this kernel so spectra stay
+on chip (kernel K8 does the latter through a scratch).
 """
 
 from __future__ import annotations
@@ -63,7 +71,8 @@ onehot_launch_count = 0  # K5 launches
 rows_launch_count = 0  # K6 launches
 
 THREADS = 256  # must match K2_THREADS in gcc_pair.cu
-RJ = 8  # must match K2_RJ in gcc_pair.cu
+RJ = 8  # must match rm_pair::RJ in gcc_pair.cuh: (THREADS // n1) * RJ chunk rows
+PAIR_N1 = (128, 256)  # the inner lengths of the pair body's warp FFT (rm_pair::pair_n1_supported)
 SMEM_LIMIT = 232_448  # H100 per-block shared memory
 
 _ARGTYPES = (
@@ -146,9 +155,17 @@ def window_rows(nfft: int, max_lag: int):
     return -(-max_lag // n1), max_lag // n1 + 1
 
 
+def device_pairs(pair_i, pair_j, device: torch.device):
+    """Host pair lists as int32 tensors on ``device``, copied there once
+    per list: cached by the lists' bytes, a cheaper key than a tuple of
+    thousands of Python ints."""
+    key = lambda p: np.ascontiguousarray(p, dtype=np.int32).tobytes()
+    return _pair_tensors(key(pair_i), key(pair_j), device)
+
+
 @functools.lru_cache(maxsize=16)
-def _pair_tensors(pair_i: tuple, pair_j: tuple, device: torch.device):
-    to = lambda p: torch.tensor(p, dtype=torch.int32, device=device)
+def _pair_tensors(pair_i: bytes, pair_j: bytes, device: torch.device):
+    to = lambda b: torch.from_numpy(np.frombuffer(b, dtype=np.int32).copy()).to(device)
     return to(pair_i), to(pair_j)
 
 
@@ -179,17 +196,31 @@ def _check_lag(nfft: int, max_lag: int) -> None:
     ct_plan.ct_split(nfft)
 
 
+def smem_bytes(n1: int, nneg: int, npos: int, threads: int = THREADS) -> int:
+    """Dynamic shared memory of the pair body for a block of ``threads``
+    (``rm_pair::pair_smem_bytes``): a chunk of ``(threads // n1)·RJ`` CT
+    rows and the ``nneg + npos`` window rows, n1 complex floats each."""
+    return ((threads // n1) * RJ + nneg + npos) * n1 * 8
+
+
 def _geometry(n: int, max_lag: int, what: str):
     """``(n1, n2, nneg, npos)`` for a kernel launch; raises where the
-    block layout or shared memory does not fit."""
+    inner length or shared memory does not fit."""
     n1, n2 = ct_plan.ct_split(n)
-    if THREADS % n1:
-        raise ValueError(f"{what} supports n1 dividing {THREADS}; got nfft {n} = {n1}·{n2}")
+    if n1 not in PAIR_N1:
+        raise ValueError(f"{what} supports n1 in {PAIR_N1}; got nfft {n} = {n1}·{n2}")
     nneg, npos = window_rows(n, max_lag)
-    smem = ((THREADS // n1) * RJ + nneg + npos) * n1 * 8
+    smem = smem_bytes(n1, nneg, npos)
     if smem > SMEM_LIMIT:
         raise ValueError(f"max_lag {max_lag} needs {smem} B of shared memory (limit {SMEM_LIMIT})")
     return n1, n2, nneg, npos
+
+
+def _tables(n: int, n1: int, device: torch.device):
+    """The kernel's ``(wi, w2, tw)``: the inverse radix table of the warp
+    FFT and the inverse four-step's outer DFT and twiddle."""
+    t = ct_plan.device_tables(n, True, device)
+    return ct_plan.device_inverse_radix_table(n1, device), t.w2, t.tw
 
 
 def _stream(x: torch.Tensor) -> ctypes.c_void_p:
@@ -255,15 +286,13 @@ def _launch(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate):
     c, b, n = spec_re.shape
     n1, n2, nneg, npos = _geometry(n, max_lag, "K2")
     fn = build.kernel("rm_gcc_pair_lag_mags", _ARGTYPES)
-    t = ct_plan.device_tables(n, True, spec_re.device)
-    pi, pj = _pair_tensors(
-        tuple(int(v) for v in pair_i), tuple(int(v) for v in pair_j), spec_re.device
-    )
+    wi, w2, tw = _tables(n, n1, spec_re.device)
+    pi, pj = device_pairs(pair_i, pair_j, spec_re.device)
     p = pi.shape[0]
     out = torch.empty((c, p, 2 * max_lag + 1), dtype=torch.float32, device=spec_re.device)
     err = fn(
         _ptr(spec_re), _ptr(spec_im), _ptr(row_smax), _ptr(pi), _ptr(pj),
-        _ptr(t.w1), _ptr(t.w2), _ptr(t.tw), _ptr(out),
+        _ptr(wi), _ptr(w2), _ptr(tw), _ptr(out),
         c, b, p, n1, n2, nneg, npos, max_lag, _GATE_CODE[gate],
         eps * eps, eps, 1.0 / n,
         _stream(spec_re),
@@ -409,15 +438,13 @@ def _launch_onehot(spec_re, spec_im, pair_i, pair_j, s2, max_lag, eps, gate):
     c = spec_re.numel() // (b * n)
     n1, n2, nneg, npos = _geometry(n, max_lag, "K5")
     fn = build.kernel("rm_gcc_pairs_onehot_lag_mags", _ARGTYPES)
-    t = ct_plan.device_tables(n, True, spec_re.device)
-    pi, pj = _pair_tensors(
-        tuple(int(v) for v in pair_i), tuple(int(v) for v in pair_j), spec_re.device
-    )
+    wi, w2, tw = _tables(n, n1, spec_re.device)
+    pi, pj = device_pairs(pair_i, pair_j, spec_re.device)
     p = pi.shape[0]
     out = torch.empty((*lead, p, 2 * max_lag + 1), dtype=torch.float32, device=spec_re.device)
     err = fn(
         _ptr(spec_re), _ptr(spec_im), _ptr(s2), _ptr(pi), _ptr(pj),
-        _ptr(t.w1), _ptr(t.w2), _ptr(t.tw), _ptr(out),
+        _ptr(wi), _ptr(w2), _ptr(tw), _ptr(out),
         c, b, p, n1, n2, nneg, npos, max_lag, _GATE_CODE[gate],
         eps * eps, eps, 1.0 / n,
         _stream(spec_re),
@@ -503,11 +530,11 @@ def _launch_rows(xre, xim, yre, yim, s2, max_lag, eps, gate):
     p, n = xre.shape
     n1, n2, nneg, npos = _geometry(n, max_lag, "K6")
     fn = build.kernel("rm_gcc_rows_lag_mags", _ROWS_ARGTYPES)
-    t = ct_plan.device_tables(n, True, xre.device)
+    wi, w2, tw = _tables(n, n1, xre.device)
     out = torch.empty((p, 2 * max_lag + 1), dtype=torch.float32, device=xre.device)
     err = fn(
         _ptr(xre), _ptr(xim), _ptr(yre), _ptr(yim), _ptr(s2),
-        _ptr(t.w1), _ptr(t.w2), _ptr(t.tw), _ptr(out),
+        _ptr(wi), _ptr(w2), _ptr(tw), _ptr(out),
         p, n1, n2, nneg, npos, max_lag, _GATE_CODE[gate],
         eps * eps, eps, 1.0 / n,
         _stream(xre),

@@ -18,7 +18,8 @@ as its plain version is against JAX:
   float32-tied segments (see :func:`fragile_segments`), scores within
   1e-4 of the row's max power;
 - K2, K5 and K6 lag windows within 1e-4 of each pair's window max, with
-  the same argmax, in every whitening mode (l2rx, l2, l1, "cc");
+  the same argmax, in every whitening mode (l2rx, l2, l1, "cc"), at both
+  inner lengths of their warp FFT (n1 = 128, and 256 at nfft 34816);
 - K4 on K1's spectra equal to K1's own partials and floor, bit for bit
   (the same device function on the same floats), and K4 vs its plain
   version as K1's partials;
@@ -213,8 +214,10 @@ def test_k1_kernel_matches_plain(cuda_device, nfft, n_valid):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,b,nfft,max_lag", [(2, 4, 9216, 256), (4, 8, 17408, 512)])
+@pytest.mark.parametrize("c,b,nfft,max_lag", [(2, 4, 9216, 256), (4, 8, 17408, 512), (2, 4, 34816, 512)])
 def test_k2_kernel_matches_plain(cuda_device, c, b, nfft, max_lag):
+    """n1 = 128 (9216, 17408) and n1 = 256 (34816 = 256·136): both inner
+    lengths of the pair body's warp FFT."""
     sre, sim_, smax = (torch.from_numpy(a).to(cuda_device) for a in correlated_spectra(c, b, nfft, 5))
     pi, pj = gcc_phat.pair_indices(b)
     before = gcc_pair.launch_count
@@ -428,7 +431,9 @@ def test_k7_kernel_rejects_unsupported_input(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,b,nfft,max_lag,pairs", [(3, 8, 5120, 128, None), (2, 12, 2048, 64, 37)])
+@pytest.mark.parametrize("m,b,nfft,max_lag,pairs", [
+    (3, 8, 5120, 128, None), (2, 12, 2048, 64, 37), (2, 6, 34816, 512, None),
+])
 def test_k5_kernel_matches_plain(cuda_device, m, b, nfft, max_lag, pairs):
     sre, sim_, smax = correlated_spectra(m, b, nfft, 6)
     pi, pj = gcc_phat.pair_indices(b) if pairs is None else some_pairs(b, pairs, 6)
@@ -445,8 +450,8 @@ def test_k5_kernel_matches_plain(cuda_device, m, b, nfft, max_lag, pairs):
 
 
 @pytest.mark.cuda
-def test_k6_kernel_matches_plain_and_k5(cuda_device):
-    b, nfft, max_lag = 8, 5120, 128
+@pytest.mark.parametrize("b,nfft,max_lag", [(8, 5120, 128), (5, 34816, 512)])
+def test_k6_kernel_matches_plain_and_k5(cuda_device, b, nfft, max_lag):
     sre, sim_, smax = correlated_spectra(1, b, nfft, 7)
     pi, pj = gcc_phat.pair_indices(b)
     s2 = torch.from_numpy(pair_gate_scales(smax[0], pi, pj)).to(cuda_device)
