@@ -60,8 +60,10 @@ per source, in parallel, sm_90a), then:
     (the phase-5 flagship block, padded), with ``torch.fft.fft`` + the CT
     permutation beside it; K4 (CT-order detect on spectra read from
     memory) vs its plain version on those K3 spectra, within K1's limits;
-    and K4 on K1's spectra of that block, which must equal K1's own
-    partials and noise floor bit for bit;
+    K1 on the same rows, whose spectra must equal K3's bit for bit (the
+    same radix steps of ``ct_fft.cuh``); and K4 on K1's spectra and on
+    K3's, which must both equal K1's own partials and noise floor bit for
+    bit;
 15. K2 in its l2, l1 and "cc" modes vs its plain version at [128, 8,
     17408] → [128, 28, 1025], within 1e-4 of the window max;
 16. K8 (the per-channel megakernel) vs its plain version at [128, 8,
@@ -85,9 +87,10 @@ TFLOP/s — 5·n·log2(n) FLOP an FFT, an inverse pruned to the lag window
 for the pair stages, 6 FLOP a bin for the detect body — and its bytes,
 each input read once and each output written once, over 3.35 TB/s: the
 H100 SXM's published peaks), the FLOPs of the repo's own algorithm
-(``algorithm_flops``: K1's direct four-step DFT; K3's radix steps; K7's
-radix passes at 16384; the pair body's warp FFT and window fold for K2,
-K5, K6 and K8's pair half), and, where one PyTorch call computes the same
+(``algorithm_flops``: K3's radix steps, for K1 and K8's forward half with
+the detect body's least work; K7's radix passes at 16384; the pair body's
+warp FFT and window fold for K2, K5, K6 and K8's pair half), and, where
+one PyTorch call computes the same
 function, that call's time (``library_ms``:
 ``torch.fft.fft`` for K7, plus the CT permutation by index for K3; null
 for the others, which no single call computes).
@@ -213,12 +216,6 @@ def _pair_flops(pairs, n, width):
     whitening is not counted), an inverse FFT pruned to the ``width``
     window lags (5·n·log2(width)) and |r| (3 FLOP a lag), per pair."""
     return pairs * (6.0 * n + 5.0 * n * math.log2(width) + 3.0 * width)
-
-
-def _dft_flops(rows, n1, n2):
-    """The repo's algorithm, a direct four-step DFT of ``rows`` rows of
-    n1·n2 points: n·(n1 + n2) complex FMAs a row, 8 FLOP each."""
-    return 8.0 * rows * n1 * n2 * (n1 + n2)
 
 
 def _radix_flops(rows, n, a, r):
@@ -851,6 +848,8 @@ def main() -> int:
     k4_score_abs = (k4[0] - p4[0])[both].abs().max().item()
     k4_score_rel = ((k4[0] - p4[0]).abs() / (f3r * f3r + f3i * f3i).amax(-1, keepdim=True))[both].max().item()
     k4_same_as_k1 = all(torch.equal(x, y) for x, y in zip(k4_on_k1, (s1, a1, nf1)))
+    k1_same_as_k3 = torch.equal(fr1, f3r) and torch.equal(fi1, f3i)
+    k3k4_same_as_k1 = all(torch.equal(x, y) for x, y in zip(k4, (s1, a1, nf1)))
     k4_ms = _cuda_ms(torch, lambda: detect_ct.detect_ct_partials(f3r, f3i, plan))
     k4_plain_ms = _cuda_ms(torch, lambda: detect_ct.detect_ct_partials_plain(f3r, f3i, plan))
     k4_bound = _bound(_detect_flops(nrows, nfft), nrows * nfft * 8 + nrows * plan.segments * 8 + nrows * 4)
@@ -861,10 +860,16 @@ def main() -> int:
         f"equal to K1's partials and floor: {k4_same_as_k1}; kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms, "
         f"bound {k4_bound[0]:.4f} ms ({k4_bound[1]}) {tag}"
     )
+    print(
+        f"phase 14: K1 [{nrows}, {nfft}] on the same rows: spectra equal to K3's bit for bit: {k1_same_as_k3}; "
+        f"K3 -> K4 partials and floor equal to K1's bit for bit: {k3k4_same_as_k1} {tag}"
+    )
     _require(k4_pattern <= 1e-3 and k4_arg <= 1e-3, "K4 detect partials disagree")
     _require(k4_nf <= 1e-3 and k4_score_rel <= 1e-4, f"K4 floor or scores disagree: {k4_nf}, {k4_score_rel}")
     _require(both.any().item(), "K4 produced no candidates to compare")
     _require(k4_same_as_k1, "K4 on K1's spectra differs from K1's own partials")
+    _require(k1_same_as_k3, "K1's spectra differ from K3's on the same rows")
+    _require(k3k4_same_as_k1, "K3 -> K4 partials differ from K1's")
     del f3r, f3i, x3r, x3i, k4, p4, k4_on_k1
 
     # ---- phase 15: K2's l2, l1 and "cc" modes vs plain, fed K1's outputs
@@ -1018,13 +1023,13 @@ def main() -> int:
     w_rows = sum(gcc_pair.window_rows(wn, wlag))
     w_width = 2 * wlag + 1
     k7_rows = chans * buoys * 8
-    k1_dft = _dft_flops(nrows, n1, n2)
+    k1_radix = _radix_flops(nrows, nfft, *ct_plan.radix_split(nfft)[1:]) + _detect_flops(nrows, nfft)
     k2_fft = _fft_pair_flops(chans * npairs, n1, n2, rows_w)
     print(json.dumps({"kernels": [
         entry("fft_detect_rows_ct", "fft_detect.cu", "detect_kernel.py:443",
               launches["fft_detect_rows_ct"], spec_abs, k1_ms, k1_plain_ms,
               _bound(_fft_flops(nrows, nfft) + _detect_flops(nrows, nfft),
-                     nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_dft),
+                     nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_radix),
         entry("gcc_pair_lag_mags", "gcc_pair.cu", "gcc_kernel.py:358",
               launches["gcc_pair_lag_mags"], max(win_abs, k2_modes["l2"][0], k2_modes["l1"][0]), k2_ms, k2_plain_ms,
               _bound(_pair_flops(chans * npairs, nfft, width),
@@ -1049,7 +1054,7 @@ def main() -> int:
               _bound(_fft_flops(k7_rows, n), 2 * 8 * k7_rows * n),
               _natural_radix_flops(k7_rows, fft_natural.radix_plan(n)), k7_main[4]),
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
-              route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_dft + k2_fft),
+              route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))
     return 0

@@ -11,10 +11,12 @@
 // is a thread-block cluster of B blocks (cudaLaunchAttributeClusterDimension;
 // B <= 8 is portable, 9..16 non-portable), one block per receiver:
 //
-//   1. each block runs kernel K1's body on its receiver's row: the two DFT
-//      stages of ct_dft.cuh in shared memory, the spectra written to a
-//      scratch [C, B, n] that the wrapper allocates, then ct_detect.cuh's
-//      detect_row, whose row max is the receiver's l2rx gate input;
+//   1. each block runs kernel K1's body on its receiver's row: ct_fft.cuh's
+//      fft_power_row (kernel K3's radix steps A, B and C in shared memory,
+//      the spectra written to a scratch [C, B, n] that the wrapper
+//      allocates, the power kept in registers and written back over the
+//      row), then ct_detect.cuh's detect_row, whose row max is the
+//      receiver's l2rx gate input;
 //   2. the cluster barrier (after a device-scope fence): the channel's B
 //      spectra and maxima are complete;
 //   3. block `rank` runs gcc_pair.cuh's pair_lag_window, the body of
@@ -22,11 +24,12 @@
 //      spectra from the scratch through L2 (__ldcg), in the shared memory
 //      the row no longer needs.
 //
-// The same device functions run in the same order as K1 followed by K2
-// with the l2rx gate (the pair body sums its chunks in k2 order at any
-// block size), so the partials, noise floors and windows equal that
-// composition's bit for bit. The gate is l2rx whatever set_phat_gate
-// says, as in the reference.
+// The same device functions run in the same order, with the same template
+// arguments (step B's register tile RMAX) and the same 512 threads, as K1
+// followed by K2 with the l2rx gate (the pair body sums its chunks in k2
+// order at any block size), so the partials, noise floors and windows
+// equal that composition's bit for bit. The gate is l2rx whatever
+// set_phat_gate says, as in the reference.
 //
 // Design taken: spectra through a device-memory scratch (1.1 MB per
 // channel, written once and read back at once, mostly from L2). The other
@@ -36,89 +39,62 @@
 // 209 KB per block (spectrum + candidate scratch, power recomputed from the
 // spectrum) before the pair buffers, and remote reads in the inner loop.
 //
-// What bounds it as written: K1's direct DFT stages, n*(n1 + n2) complex
-// FMAs per row, on the FP32 CUDA cores; the pair half runs gcc_pair.cuh's
-// warp-shuffle inverse FFT body (iwr: W_n1^-e, e < n1/2), whose window
-// fold is now its largest part, at one 512-thread block per SM (the row's
-// shared memory is reserved for the whole launch). K1's forward stages onto
-// ct_fft.cuh would cut the forward half's work about 20x.
+// What bounds it as written: the pair half, gcc_pair.cuh's warp-shuffle
+// inverse FFT body (iwr: W_n1^-e, e < n1/2), whose window fold is its
+// largest part, at one 512-thread block per SM (the row's shared memory is
+// reserved for the whole launch); the forward half is K1's radix body,
+// bound by its bytes and barriers.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "ct_detect.cuh"
-#include "ct_dft.cuh"
+#include "ct_fft.cuh"
 #include "gcc_pair.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int K8_THREADS = 512;            // channel_step.THREADS, = K1's block
-constexpr int K8_MAX_KJ = 16;              // as K1
-constexpr int K8_RJ = 8;                   // as K1
-constexpr int K8_MAX_PER_THREAD = 48;      // as K1
+constexpr int K8_THREADS = 512;  // channel_step.THREADS, = K1's block
+static_assert(K8_THREADS == rm_fft::THREADS, "K8 runs K1's forward half at ct_fft.cuh's block size");
 
 using rm_det::DetectParams;
+using rm_fft::N1;
 
+template <int RMAX>
 __global__ void __launch_bounds__(K8_THREADS, 1)
 channel_step_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
-                    const float2* __restrict__ fw1, const float2* __restrict__ fw2,
-                    const float2* __restrict__ ftw,
+                    const float2* __restrict__ w128, const float2* __restrict__ wn2,
+                    const float2* __restrict__ wr, const float2* __restrict__ ftw,
                     const float2* __restrict__ iwr, const float2* __restrict__ iw2,
                     const float2* __restrict__ itw,
                     const int* __restrict__ pair_i, const int* __restrict__ pair_j,
                     float* fre, float* fim, float* smax,
                     float* __restrict__ seg_score, float* __restrict__ seg_arg,
                     float* __restrict__ nf_out, float* __restrict__ out,
-                    int nb, int np, int n1, int n2, int nneg, int npos, int max_lag,
+                    int nb, int np, int n2, int r, int nneg, int npos, int max_lag,
                     float eps2, float inv_n, DetectParams prm) {
-  extern __shared__ float4 smem[];  // float4: the pair body stores 16 bytes at a time
-  float2* xs = reinterpret_cast<float2*>(smem);  // [n] complex row, CT layout; later the pair buffers
+  extern __shared__ float4 smem[];  // float4: step C and the pair body move 16 bytes at a time
+  float2* xs = reinterpret_cast<float2*>(smem);  // [n] slot rows + [64] W_128; later the pair buffers
   cg::cluster_group cluster = cg::this_cluster();
 
-  const int n = n1 * n2;
-  const int tid = threadIdx.x;
+  const int n = N1 * n2;
   const size_t row = blockIdx.x;  // = c * nb + rank: the cluster is the channel
   const int c = blockIdx.x / nb;
   const int rank = static_cast<int>(cluster.block_rank());
 
   // ---- 1. K1's body on this receiver's row
-  const float* xr = xre + row * n;
-  const float* xi = xim + row * n;
-  for (int m = tid; m < n; m += K8_THREADS) xs[m] = make_float2(xr[m], xi[m]);
-  __syncthreads();
-
-  rm_ct::inner_dft<K8_THREADS, K8_MAX_KJ>(xs, fw2, ftw, n1, n2);
-  rm_ct::outer_dft<K8_THREADS, K8_RJ>(xs, fw1, n1, n2);
-
-  float* fr = fre + row * n;
-  float* fi = fim + row * n;
-  float pv[K8_MAX_PER_THREAD];
-#pragma unroll
-  for (int j = 0; j < K8_MAX_PER_THREAD; ++j) {
-    const int m = tid + K8_THREADS * j;
-    if (m < n) {
-      const float2 v = xs[m];
-      fr[m] = v.x;
-      fi[m] = v.y;
-      pv[j] = __fadd_rn(__fmul_rn(v.x, v.x), __fmul_rn(v.y, v.y));
-    }
-  }
-  __syncthreads();
+  const size_t off = row * n;
+  rm_fft::fft_power_row<RMAX>(xre + off, xim + off, w128, wn2, wr, ftw, fre + off, fim + off, xs, n2, r);
   float* pwr = reinterpret_cast<float*>(xs);
   float* aux = pwr + n;
-#pragma unroll
-  for (int j = 0; j < K8_MAX_PER_THREAD; ++j) {
-    const int m = tid + K8_THREADS * j;
-    if (m < n) pwr[m] = pv[j];
-  }
   const int s = n / rm_det::SEG;
-  const float2 r = rm_det::detect_row<K8_THREADS>(pwr, aux, n1, n2, prm, seg_score + row * s,
-                                                  seg_arg + row * s);
-  if (tid == 0) {
-    nf_out[row] = r.x;
-    smax[row] = r.y;
+  const float2 res = rm_det::detect_row<K8_THREADS>(pwr, aux, N1, n2, prm, seg_score + row * s,
+                                                    seg_arg + row * s);
+  if (threadIdx.x == 0) {
+    nf_out[row] = res.x;
+    smax[row] = res.y;
   }
 
   // ---- 2. the channel's spectra and maxima are complete
@@ -137,37 +113,26 @@ channel_step_kernel(const float* __restrict__ xre, const float* __restrict__ xim
     rm_pair::pair_lag_window<K8_THREADS, true>(
         cre + xo, cim + xo, cre + yo, cim + yo, rm_pair::GATE_L2RX, floor2, eps2, 0.f,
         iwr, iw2, itw, out + (static_cast<size_t>(c) * np + p) * width, xs,
-        n1, n2, nneg, npos, max_lag, inv_n);
+        N1, n2, nneg, npos, max_lag, inv_n);
     __syncthreads();  // the next pair zeroes the window buffers
   }
 }
 
-}  // namespace
-
-extern "C" int rm_channel_step_partials(
-    const float* xre, const float* xim,
-    const float2* fw1, const float2* fw2, const float2* ftw,
-    const float2* iwr, const float2* iw2, const float2* itw,
-    const int* pair_i, const int* pair_j,
-    float* fre, float* fim, float* smax,
-    float* seg_score, float* seg_arg, float* nf, float* out,
-    int nc, int nb, int np, int n1, int n2, int nneg, int npos, int max_lag,
-    float eps2, float inv_n,
-    int radius, int keep_lo, int keep_hi,
-    float thr_lin, int has_conf, float conf_cs, float off, int bisect_iters,
-    cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(n1) * n2 * sizeof(float2);
-  if (!rm_pair::pair_n1_supported(n1) || rm_pair::pair_smem_bytes<K8_THREADS>(n1, nneg, npos) > smem) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int RMAX>
+int launch(const float* xre, const float* xim, const float2* w128, const float2* wn2, const float2* wr,
+           const float2* ftw, const float2* iwr, const float2* iw2, const float2* itw,
+           const int* pair_i, const int* pair_j, float* fre, float* fim, float* smax,
+           float* seg_score, float* seg_arg, float* nf, float* out,
+           int nc, int nb, int np, int n2, int r, int nneg, int npos, int max_lag,
+           float eps2, float inv_n, const DetectParams& prm, cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(N1) * n2 + N1 / 2) * sizeof(float2);  // row + W_128
   cudaError_t e = cudaFuncSetAttribute(
-      channel_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      channel_step_kernel<RMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   if (nb > 8) {
-    e = cudaFuncSetAttribute(channel_step_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    e = cudaFuncSetAttribute(channel_step_kernel<RMAX>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const DetectParams prm{radius, keep_lo, keep_hi, thr_lin, has_conf, conf_cs, off, bisect_iters};
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = nb;
@@ -180,10 +145,48 @@ extern "C" int rm_channel_step_partials(
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, channel_step_kernel,
-                         xre, xim, fw1, fw2, ftw, iwr, iw2, itw, pair_i, pair_j,
+  e = cudaLaunchKernelEx(&cfg, channel_step_kernel<RMAX>,
+                         xre, xim, w128, wn2, wr, ftw, iwr, iw2, itw, pair_i, pair_j,
                          fre, fim, smax, seg_score, seg_arg, nf, out,
-                         nb, np, n1, n2, nneg, npos, max_lag, eps2, inv_n, prm);
+                         nb, np, n2, r, nneg, npos, max_lag, eps2, inv_n, prm);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int rm_channel_step_partials(
+    const float* xre, const float* xim,
+    const float2* w128, const float2* wn2, const float2* wr, const float2* ftw,
+    const float2* iwr, const float2* iw2, const float2* itw,
+    const int* pair_i, const int* pair_j,
+    float* fre, float* fim, float* smax,
+    float* seg_score, float* seg_arg, float* nf, float* out,
+    int nc, int nb, int np, int n2, int a, int r, int nneg, int npos, int max_lag,
+    float eps2, float inv_n,
+    int radius, int keep_lo, int keep_hi,
+    float thr_lin, int has_conf, float conf_cs, float off, int bisect_iters,
+    cudaStream_t stream) {
+  // the pair buffers start at the row and stay inside its n float2 (W_128 after it is left alone)
+  if (a != rm_fft::HANDOFF_A || a * r != n2 || !rm_pair::pair_n1_supported(N1) ||
+      rm_pair::pair_smem_bytes<K8_THREADS>(N1, nneg, npos) > static_cast<size_t>(N1) * n2 * sizeof(float2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DetectParams prm{radius, keep_lo, keep_hi, thr_lin, has_conf, conf_cs, off, bisect_iters};
+  switch (rm_fft::handoff_rmax(r)) {
+    case 8:
+      return launch<8>(xre, xim, w128, wn2, wr, ftw, iwr, iw2, itw, pair_i, pair_j, fre, fim, smax,
+                       seg_score, seg_arg, nf, out, nc, nb, np, n2, r, nneg, npos, max_lag, eps2, inv_n,
+                       prm, stream);
+    case 16:
+      return launch<16>(xre, xim, w128, wn2, wr, ftw, iwr, iw2, itw, pair_i, pair_j, fre, fim, smax,
+                        seg_score, seg_arg, nf, out, nc, nb, np, n2, r, nneg, npos, max_lag, eps2, inv_n,
+                        prm, stream);
+    case 24:
+      return launch<24>(xre, xim, w128, wn2, wr, ftw, iwr, iw2, itw, pair_i, pair_j, fre, fim, smax,
+                        seg_score, seg_arg, nf, out, nc, nb, np, n2, r, nneg, npos, max_lag, eps2, inv_n,
+                        prm, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

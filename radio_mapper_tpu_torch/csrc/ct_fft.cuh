@@ -1,9 +1,12 @@
-// Kernel K3's forward CT-order FFT of one row held in shared memory.
+// Kernel K3's forward CT-order FFT of one row held in shared memory, and
+// the forward half that kernels K1 and K8 run on it before their detect
+// body.
 //
 // Layout: a row of n = 128*n2 samples is x[q][p] at time q*128 + p, kept
 // as n2 "slot rows" of 128 float2. The transform emits bin k = k2 + n2*k1
-// at CT address m = k2*128 + k1, as ct_dft.cuh's direct four-step does,
-// but with n2 = A*r (A = min(8, 2^v2(n2))) and three in-place steps:
+// at CT address m = k2*128 + k1 (the order of the reference's four-step
+// ct_fft_core), with n2 = A*r (A = min(8, 2^v2(n2))) and three in-place
+// steps:
 //
 //   step A  for each column p and j < r: an A-point radix-2 FFT in
 //           registers over the slots j + r*t (t < A); output k times
@@ -13,12 +16,17 @@
 //           W_n^{(k + A*s)*p} goes to slot s + r*k;
 //   step C  one warp per slot row: the 128-point radix-2 FFT, two stages
 //           in registers and five across lanes (__shfl_xor_sync); the
-//           outputs, bit-reversed across lanes, are stored straight to
-//           device memory at CT row k2 = k + A*s in natural k1 order.
+//           outputs, bit-reversed across lanes, belong at CT row
+//           k2 = k + A*s in natural k1 order. K3 stores them to device
+//           memory (step_c_store); K1 and K8 store them the same way and
+//           keep each value's power in registers (step_c_handoff), then,
+//           after a barrier, write the power over the row in CT order
+//           (power_store) for the detect body (fft_power_row).
 //
 // Every twiddle comes from a float32 table of float64 roots of unity
 // (ct_plan.radix_tables, ct_constants' tw). tests/test_torch_fft_radix.py
-// replays this schedule in numpy.
+// replays K3's schedule in numpy, tests/test_torch_fft_detect_radix.py
+// K1's hand-off.
 
 #pragma once
 
@@ -32,6 +40,8 @@ constexpr int N1 = 128;       // the outer length of every split K3 takes
 constexpr int THREADS = 512;  // one block per row: 4 threads per column in steps A and B
 constexpr int WARPS = THREADS / 32;
 constexpr int STREAM_MAX_SJ = 12;  // streamed step B: r <= WARPS * STREAM_MAX_SJ = 192
+constexpr int HANDOFF_A = 8;       // K1 and K8 take n2 = 8*r (detect plans have 8 | n2)
+constexpr int HANDOFF_MAX_HELD = 48;  // powers a thread holds: n2 <= WARPS * 48 / 4 = 192, n <= 24576
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
 __device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
@@ -104,7 +114,7 @@ __device__ __forceinline__ void step_b(float2* xs, const float2* __restrict__ wr
 
 // Step B for r too large for registers: 32 columns at a time, lane =
 // column, warp w owns outputs s = w + WARPS*i; the inputs stream from
-// shared memory, as ct_dft.cuh's inner_dft does. Ends with a barrier.
+// shared memory. Ends with a barrier.
 template <int A>
 __device__ __forceinline__ void step_b_stream(float2* xs, const float2* __restrict__ wr,
                                               const float2* __restrict__ tw, int r) {
@@ -135,41 +145,135 @@ __device__ __forceinline__ void step_b_stream(float2* xs, const float2* __restri
   }
 }
 
-// Step C and the store. Lane l holds positions p = 4l + i (i < 4); the
-// stages of half-size h = 64..4 pair lane l with lane l ^ (h/4), h = 2
-// and 1 pair registers. Position 4l + i then holds bin brev7(4l + i) =
-// brev2(i)*32 + brev5(l), so each i stores 32 consecutive floats a plane.
-__device__ __forceinline__ void step_c_store(const float2* xs, const float2* w128, float* fr, float* fi,
-                                             int n2, int a, int r) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int k1_lane = static_cast<int>(__brev(lane) >> 27);
-  for (int sr = warp; sr < n2; sr += WARPS) {
-    const float4* row4 = reinterpret_cast<const float4*>(xs + sr * N1) + 2 * lane;
-    const float4 lo = row4[0], hi = row4[1];
-    float2 v[4] = {make_float2(lo.x, lo.y), make_float2(lo.z, lo.w), make_float2(hi.x, hi.y),
-                   make_float2(hi.z, hi.w)};
+// Step C on slot row sr, in one warp. Lane l holds positions p = 4l + i
+// (i < 4); the stages of half-size h = 64..4 pair lane l with lane
+// l ^ (h/4), h = 2 and 1 pair registers. Position 4l + i then holds bin
+// brev7(4l + i) = brev2(i)*32 + brev5(l), returned in v[i].
+__device__ __forceinline__ void step_c_row(const float2* xs, const float2* w128, int sr, float2 (&v)[4]) {
+  const int lane = threadIdx.x & 31;
+  const float4* row4 = reinterpret_cast<const float4*>(xs + sr * N1) + 2 * lane;
+  const float4 lo = row4[0], hi = row4[1];
+  v[0] = make_float2(lo.x, lo.y);
+  v[1] = make_float2(lo.z, lo.w);
+  v[2] = make_float2(hi.x, hi.y);
+  v[3] = make_float2(hi.z, hi.w);
 #pragma unroll
-    for (int h = 64; h >= 4; h >>= 1) {
-      const int d = h >> 2;
-      const bool top = (lane & d) == 0;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 w = make_float2(__shfl_xor_sync(0xffffffffu, v[i].x, d),
-                                     __shfl_xor_sync(0xffffffffu, v[i].y, d));
-        const int e = ((4 * lane + i) & (h - 1)) * (64 / h);
-        v[i] = top ? cadd(v[i], w) : rm_ct::cmul(csub(w, v[i]), w128[e]);
-      }
-    }
-    dif_regs<4>(v, w128);
-    const int k = sr / r, s = sr - r * k;
-    const size_t base = static_cast<size_t>(k + a * s) * N1 + k1_lane;
+  for (int h = 64; h >= 4; h >>= 1) {
+    const int d = h >> 2;
+    const bool top = (lane & d) == 0;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int k1 = brev_bits(i, 2) * 32;
-      fr[base + k1] = v[i].x;
-      fi[base + k1] = v[i].y;
+      const float2 w = make_float2(__shfl_xor_sync(0xffffffffu, v[i].x, d),
+                                   __shfl_xor_sync(0xffffffffu, v[i].y, d));
+      const int e = ((4 * lane + i) & (h - 1)) * (64 / h);
+      v[i] = top ? cadd(v[i], w) : rm_ct::cmul(csub(w, v[i]), w128[e]);
     }
   }
+  dif_regs<4>(v, w128);
+}
+
+// CT address of value i of this lane's step-C output of slot row sr =
+// s + r*k: row k2 = k + a*s, column k1 = brev2(i)*32 + brev5(lane).
+__device__ __forceinline__ size_t ct_address(int sr, int i, int a, int r) {
+  const int k = sr / r, s = sr - r * k;
+  const int k1 = brev_bits(i, 2) * 32 + static_cast<int>(__brev(threadIdx.x & 31) >> 27);
+  return static_cast<size_t>(k + a * s) * N1 + k1;
+}
+
+// Step C and K3's store: warp w takes slot rows w, w + WARPS, ...; each i
+// stores 32 consecutive floats a plane.
+__device__ __forceinline__ void step_c_store(const float2* xs, const float2* w128, float* fr, float* fi,
+                                             int n2, int a, int r) {
+  for (int sr = threadIdx.x >> 5; sr < n2; sr += WARPS) {
+    float2 v[4];
+    step_c_row(xs, w128, sr, v);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const size_t m = ct_address(sr, i, a, r);
+      fr[m] = v[i].x;
+      fi[m] = v[i].y;
+    }
+  }
+}
+
+// Step C and K1's hand-off: the spectra stored as step_c_store stores
+// them, and each value's power fr^2 + fi^2 (the expression of K4) kept in
+// pv[4*t + i] for slot row warp + WARPS*t. The slot rows are still being
+// read by other warps, so nothing goes to shared memory here.
+template <int MAX_SR>
+__device__ __forceinline__ void step_c_handoff(const float2* xs, const float2* w128, float* fr, float* fi,
+                                               float (&pv)[4 * MAX_SR], int n2, int r) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < MAX_SR; ++t) {
+    const int sr = warp + WARPS * t;
+    if (sr < n2) {
+      float2 v[4];
+      step_c_row(xs, w128, sr, v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const size_t m = ct_address(sr, i, HANDOFF_A, r);
+        fr[m] = v[i].x;
+        fi[m] = v[i].y;
+        pv[4 * t + i] = __fadd_rn(__fmul_rn(v[i].x, v[i].x), __fmul_rn(v[i].y, v[i].y));
+      }
+    }
+  }
+}
+
+// After a barrier: the held powers to pwr[k2*128 + k1], the CT address of
+// each value (not its slot row), over the row's first n floats.
+template <int MAX_SR>
+__device__ __forceinline__ void power_store(float* pwr, const float (&pv)[4 * MAX_SR], int n2, int r) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int t = 0; t < MAX_SR; ++t) {
+    const int sr = warp + WARPS * t;
+    if (sr < n2) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pwr[ct_address(sr, i, HANDOFF_A, r)] = pv[4 * t + i];
+    }
+  }
+}
+
+// The step-B register tile K1 and K8 launch for r (as K3's launch_a picks
+// it), 0 where they take no such r.
+__host__ __device__ constexpr int handoff_rmax(int r) {
+  return r < 1 ? 0 : r <= 8 ? 8 : r <= 16 ? 16 : r <= 24 ? 24 : 0;
+}
+
+// The forward half of kernels K1 and K8 on one row of n = 128*n2 samples,
+// n2 = 8*r, r <= RMAX: the row and W_128 loaded to xs (n + 64 float2),
+// steps A and B, step C with the hand-off (spectra to fr/fi), a barrier,
+// and the power store. On return pwr = (float*)xs holds the row's linear
+// power in CT order, visible after the detect body's first barrier; xs's
+// other n floats are free for its scratch. Every thread of the block calls
+// it.
+template <int RMAX>
+__device__ __forceinline__ void fft_power_row(const float* __restrict__ xr, const float* __restrict__ xi,
+                                              const float2* __restrict__ w128,
+                                              const float2* __restrict__ wn2,
+                                              const float2* __restrict__ wr,
+                                              const float2* __restrict__ tw, float* fr, float* fi,
+                                              float2* xs, int n2, int r) {
+  constexpr int MAX_SR = RMAX / 2;  // slot rows a warp takes: ceil(8*r / WARPS) <= RMAX/2
+  static_assert(RMAX % 2 == 0 && 4 * MAX_SR <= HANDOFF_MAX_HELD, "the hand-off holds at most 48 powers");
+  const int n = N1 * n2;
+  const int tid = threadIdx.x;
+  float2* w128s = xs + n;  // [64] W_128^e
+#pragma unroll 4
+  for (int m = tid; m < n; m += THREADS) xs[m] = make_float2(xr[m], xi[m]);
+  if (tid < N1 / 2) w128s[tid] = w128[tid];
+  __syncthreads();
+
+  step_a<HANDOFF_A>(xs, w128s, wn2, r);
+  __syncthreads();
+  step_b<HANDOFF_A, RMAX>(xs, wr, tw, r);
+  __syncthreads();
+  float pv[4 * MAX_SR];
+  step_c_handoff<MAX_SR>(xs, w128s, fr, fi, pv, n2, r);
+  __syncthreads();  // every warp has read its slot rows
+  power_store<MAX_SR>(reinterpret_cast<float*>(xs), pv, n2, r);
 }
 
 }  // namespace rm_fft

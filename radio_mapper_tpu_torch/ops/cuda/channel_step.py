@@ -8,22 +8,25 @@ Replaces ``radio_mapper_tpu/ops/pallas/channel_kernel.py::channel_step_partials`
 Design (first, simple version): a channel is a thread-block cluster of B
 blocks, one per receiver (a complex row at nfft 17408 is 139,264 B, so a
 channel's 8 rows cannot share one block's 227 KB as the TPU kernel's VMEM
-holds them). Each block runs kernel K1's body on its row — the spectra go
-to a scratch that this wrapper allocates, the detect partials and noise
-floor to the outputs, the row max to a per-receiver gate scratch — then
-the cluster synchronises and block ``rank`` runs kernel K2's pair body
-(l2rx gate) for pairs rank, rank + B, ... . The same device functions run
-in the same order as K1 → K2 (l2rx), so the outputs equal that
-composition's bit for bit. Keeping each spectrum in its block's shared
+holds them). Each block runs kernel K1's body on its row — K3's radix
+steps in shared memory (``csrc/ct_fft.cuh`` ``fft_power_row``), the
+spectra to a scratch that this wrapper allocates and the power through
+registers to the detect body, the detect partials and noise floor to the
+outputs, the row max to a per-receiver gate scratch — then the cluster
+synchronises and block ``rank`` runs kernel K2's pair body (l2rx gate)
+for pairs rank, rank + B, ... . The same device functions run in the
+same order, with the same template arguments and block size, as K1 → K2
+(l2rx), so the outputs equal that composition's bit for bit. Keeping each spectrum in its block's shared
 memory and reading partners through distributed shared memory would drop
 the scratch's traffic (2 × 142.6 MB at 128 channels × 8 receivers) but
 needs ≈ 209 KB a block before the pair buffers: a later redesign.
 
-What bounds it on the H100 as written: K1's FP32 direct-DFT FMAs (≈ 38
-GFLOP at [128, 8, 17408], ≈ 0.56 ms at 67 TFLOP/s); its pair stage runs
-K2's warp-FFT body (≈ 7 GFLOP, most of it the window fold) at one
-512-thread block per SM (the row's shared memory stays reserved). The
-function itself needs ≈ 4.9 GFLOP with FFTs (≈ 0.07 ms).
+What bounds it on the H100 as written: its pair stage, K2's warp-FFT body
+(≈ 7 GFLOP at [128, 8, 17408], most of it the window fold), at one
+512-thread block per SM (the row's shared memory stays reserved); the
+forward half is K1's radix body (≈ 3.5 GFLOP with the detect body),
+bound by its bytes and barriers. The function itself needs ≈ 4.9 GFLOP
+with FFTs (≈ 0.07 ms at 67 TFLOP/s).
 
 Routing (``channel_kernel.set_mega_fused``/``supported``, copied): "off"
 by default, "auto" follows "off"; the kernel needs "phat", B padded to a
@@ -51,8 +54,8 @@ MAX_PAIR_ROWS = 64  # channel_kernel.MAX_PAIR_ROWS
 MAX_B_PAD = 16  # channel_kernel.MAX_B_PAD
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 17
-    + [ctypes.c_int] * 8
+    [ctypes.c_void_p] * 18
+    + [ctypes.c_int] * 9
     + [ctypes.c_float] * 2
     + [ctypes.c_int] * 3
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int]
@@ -140,19 +143,17 @@ def channel_step_partials(
 def _launch(re, im, pair_i, pair_j, plan, max_lag, eps):
     global launch_count
     *lead, b, n = re.shape
-    n1, n2 = plan.n1, plan.n2
-    if (n1 not in gcc_pair.PAIR_N1 or n2 > fft_detect.MAX_N2 or n > fft_detect.MAX_N
-            or n * 8 > fft_detect.SMEM_LIMIT):
-        raise ValueError(f"K8 runs K1's and K2's bodies: n1 in {gcc_pair.PAIR_N1}, n2 ≤ {fft_detect.MAX_N2}, "
-                         f"nfft ≤ {fft_detect.MAX_N}; got nfft {n} = {n1}·{n2}")
+    n2, a, r = fft_detect.radix_geometry(n, "K8 (K1's body, then K2's)")
+    n1 = ct_plan.RADIX_N1
     if b > MAX_B_PAD:
         raise ValueError(f"K8 runs a cluster of one block per receiver: at most {MAX_B_PAD}, got {b}")
     nneg, npos = gcc_pair.window_rows(n, max_lag)
-    if gcc_pair.smem_bytes(n1, nneg, npos, THREADS) > n * 8:
+    if gcc_pair.smem_bytes(n1, nneg, npos, THREADS) > n * 8:  # the row's bytes; W_128 after it stays
         raise ValueError(f"max_lag {max_lag} does not fit K8's pair buffers at nfft {n}")
     fn = build.kernel("rm_channel_step_partials", _ARGTYPES)
     dev = re.device
-    ft = ct_plan.device_tables(n, False, dev)
+    w128, wn2, wr = ct_plan.device_radix_tables(n, dev)
+    ftw = ct_plan.device_tables(n, False, dev).tw
     it = ct_plan.device_tables(n, True, dev)
     iwr = ct_plan.device_inverse_radix_table(n1, dev)  # the pair body's inverse FFT twiddles
     pi, pj = gcc_pair.device_pairs(pair_i, pair_j, dev)
@@ -162,10 +163,10 @@ def _launch(re, im, pair_i, pair_j, plan, max_lag, eps):
     score, arg, nf, out = f32(c, b, s), f32(c, b, s), f32(c, b), f32(c, p, width)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     err = fn(
-        ptr(re), ptr(im), ptr(ft.w1), ptr(ft.w2), ptr(ft.tw), ptr(iwr), ptr(it.w2), ptr(it.tw),
+        ptr(re), ptr(im), ptr(w128), ptr(wn2), ptr(wr), ptr(ftw), ptr(iwr), ptr(it.w2), ptr(it.tw),
         ptr(pi), ptr(pj), ptr(fr), ptr(fi), ptr(smax),
         ptr(score), ptr(arg), ptr(nf), ptr(out),
-        c, b, p, n1, n2, nneg, npos, max_lag,
+        c, b, p, n2, a, r, nneg, npos, max_lag,
         eps * eps, 1.0 / n,
         *fft_detect.plan_args(plan),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),

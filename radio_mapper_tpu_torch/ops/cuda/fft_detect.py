@@ -4,23 +4,28 @@ Replaces ``radio_mapper_tpu/ops/pallas/detect_kernel.py::fft_detect_rows_ct``
 (body ``fft_kernel.ct_fft_core`` + ``detect_kernel._detect_body``). The
 CUDA source is ``radio_mapper_tpu_torch/csrc/fft_detect.cu``.
 
-Design (first, simple version): one thread block per row keeps the whole
-row (re+im, 139,264 B at nfft 17408) in shared memory; the four-step DFT
-runs in place — inner n2-point DFT over q with the twiddle folded into
-the write-back, then the outer n1-point DFT over p — in FP32 FMA on the
-CUDA cores with the tables of :func:`ct_plan.ct_constants`. The spectra
-are written once (the pair stage reads them); the detect body then runs
-on the power array in shared memory (``csrc/ct_detect.cuh``, shared with
-kernels K4 and K8): row max, the 24-step dB bisection over the stride-8
-subsample, the circular ±radius sliding max in natural bin order, the
-gates, and the per-8-bin-segment (max, lowest argmax).
+Design: one 512-thread block per row keeps the whole row (re+im, 139,264
+B at nfft 17408) in shared memory and runs kernel K3's radix steps on it
+(``csrc/ct_fft.cuh`` ``fft_power_row``): every row K1 takes is n = 128·n2
+with n2 = 8·r, r ≤ 24 (:func:`ct_plan.radix_split`; a detect plan has
+8 | n2), so step A is an 8-point radix-2 FFT and step B a direct r-point
+DFT with its inputs in registers; step C, a warp-shuffle 128-point FFT
+per slot row, stores the spectra as K3 does (K1's spectra equal K3's bit
+for bit) and hands each value's power to the detect body through
+registers (at most 48 a thread), written back over the row in CT order
+after a barrier. The detect body then runs on that power array
+(``csrc/ct_detect.cuh``, shared with kernels K4 and K8): row max, the
+24-step dB bisection over the stride-8 subsample, the circular ±radius
+sliding max in natural bin order, the gates, and the per-8-bin-segment
+(max, lowest argmax).
 
-What bounds it on the H100: the two direct DFT stages, n·(n1+n2) complex
-multiply-adds per row (≈ 37 MFLOP at 17408), issued from shared memory
-and L1 — compute and load-issue bound, not HBM bound (the row is read and
-the spectra written once, ≈ 0.28 MB per row). Left for later PRs: the DFT
-stages on tensor cores (TF32/bf16 ``wgmma``), TMA row loads, and fusing
-K1 into the pair stage (K2) so the spectra never reach device memory.
+What bounds it on the H100: device-memory bytes (the row read and the
+spectra written once, ≈ 0.28 MB a row at 17408) and then the block
+barriers and shared-memory passes of the radix steps and of the detect
+body, whose sliding max reads the power 2·radius + 1 times. Left for
+later PRs: the detect body (a register-tiled sliding max), TMA row loads,
+and fusing K1 into the pair stage (K2) so the spectra never reach device
+memory.
 """
 
 from __future__ import annotations
@@ -35,14 +40,14 @@ from radio_mapper_tpu_torch.ops.cuda import build, fft_rows
 
 launch_count = 0  # launches of the CUDA kernel (not of the plain version)
 
-THREADS = 512  # must match K1_THREADS in fft_detect.cu
-MAX_N2 = 256  # inner-DFT register tile: n2 ≤ (THREADS/32)·K1_MAX_KJ
-MAX_N = 24_576  # power held in registers: n ≤ THREADS·K1_MAX_PER_THREAD
+THREADS = 512  # must match K1_THREADS in fft_detect.cu (= ct_fft.cuh's THREADS)
+MAX_N = 24_576  # power held in registers: n2 ≤ (THREADS/32)·HANDOFF_MAX_HELD/4 = 192
 SMEM_LIMIT = 232_448 - 256  # H100 per-block shared memory less the static part
+W128_BYTES = 64 * 8  # W_128^e, e < 64, after the row in shared memory
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 11
-    + [ctypes.c_int] * 6
+    [ctypes.c_void_p] * 12
+    + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int]
     + [ctypes.c_void_p]
 )
@@ -74,6 +79,19 @@ def plan_args(plan: ct_plan.DetectPlan) -> list:
     ]
 
 
+def radix_geometry(n: int, kernel: str = "K1"):
+    """``(n2, a, r)`` of a row K1's forward half takes (K8's too): n =
+    128·n2, n2 = 8·r, n ≤ :data:`MAX_N`, the row and W_128 in shared
+    memory. Raises ValueError otherwise."""
+    n2, a, r = ct_plan.radix_split(n)  # raises unless n = 128·n2
+    if a != ct_plan.RADIX_MAX_A or n > MAX_N or n * 8 + W128_BYTES > SMEM_LIMIT:
+        raise ValueError(
+            f"{kernel} supports nfft = 128·n2 with 8 | n2 and nfft ≤ {MAX_N} (one row and W_128 "
+            f"in shared memory); got nfft {n} = 128·{n2}"
+        )
+    return n2, a, r
+
+
 def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
     """Forward CT-order FFT + fused detection of ``[rows, nfft]`` rows.
 
@@ -102,14 +120,11 @@ def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectP
 
 def _launch(re, im, plan):
     global launch_count
-    n1, n2, n = plan.n1, plan.n2, plan.nfft
-    if THREADS % n1 or n2 > MAX_N2 or n > MAX_N or n * 8 > SMEM_LIMIT:
-        raise ValueError(
-            f"K1 supports n1 dividing {THREADS}, n2 ≤ {MAX_N2} and nfft ≤ {MAX_N} "
-            f"(one row in shared memory); got nfft {n} = {n1}·{n2}"
-        )
+    n = plan.nfft
+    n2, a, r = radix_geometry(n)
     fn = build.kernel("rm_fft_detect_rows_ct", _ARGTYPES)
-    t = ct_plan.device_tables(n, False, re.device)
+    w128, wn2, wr = ct_plan.device_radix_tables(n, re.device)
+    tw = ct_plan.device_tables(n, False, re.device).tw
     rows = re.shape[0]
     s = plan.segments
     fr = torch.empty_like(re)
@@ -120,9 +135,9 @@ def _launch(re, im, plan):
     rmax = torch.empty((rows,), dtype=torch.float32, device=re.device)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     err = fn(
-        ptr(re), ptr(im), ptr(t.w1), ptr(t.w2), ptr(t.tw),
+        ptr(re), ptr(im), ptr(w128), ptr(wn2), ptr(wr), ptr(tw),
         ptr(fr), ptr(fi), ptr(score), ptr(arg), ptr(nf), ptr(rmax),
-        rows, n1, n2, *plan_args(plan),
+        rows, n2, a, r, *plan_args(plan),
         ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream),
     )
     build.check(err, "fft_detect_rows_ct")
@@ -131,8 +146,8 @@ def _launch(re, im, plan):
 
 
 def fft_detect_rows_ct_plain(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
-    """Plain PyTorch version of K1: the same four-step math on the same
-    tables, as batched tensor ops. Same contract as
+    """Plain PyTorch version of K1: the same function as the four-step
+    DFT on ``ct_constants``' tables, as batched tensor ops. Same contract as
     :func:`fft_detect_rows_ct`. On the card it is the comparison only,
     with ``torch.backends.cuda.matmul.allow_tf32 = False`` set by the
     caller (full FP32 products). Through its wrapper on the CPU it runs at one intra-op thread

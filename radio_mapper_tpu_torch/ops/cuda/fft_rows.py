@@ -21,9 +21,11 @@ What bounds it on the H100: device-memory bytes — a row read and its
 spectrum written once, 80 KB a row at 5120 — and then the three block
 barriers between a row's loads and its stores; the arithmetic is 128·a·r²
 complex FMAs a row for step B plus the radix-2 butterflies (the direct
-four-step it replaces, ``csrc/ct_dft.cuh``, issued n·(128 + n2) from
-shared memory). The wideband path launches it once per block on all
-M·B = 1024 rows; the two-kernel flagship route on 1024 rows of 17408.
+four-step DFT it replaced issued n·(128 + n2) from shared memory).
+Kernels K1 and K8 run the same steps (``ct_fft.cuh`` ``fft_power_row``)
+and store the same spectra. The wideband path launches it once per block
+on all M·B = 1024 rows; the two-kernel flagship route on 1024 rows of
+17408.
 Left for later PRs: TMA row loads and tensor cores.
 
 Precision: the reference's module default (``precision=None``) runs the

@@ -22,7 +22,8 @@ as its plain version is against JAX:
   inner lengths of their warp FFT (n1 = 128, and 256 at nfft 34816);
 - K4 on K1's spectra equal to K1's own partials and floor, bit for bit
   (the same device function on the same floats), and K4 vs its plain
-  version as K1's partials;
+  version as K1's partials; K1's spectra equal to K3's bit for bit (the
+  same radix steps of ``ct_fft.cuh``), so K3 → K4 gives K1's partials;
 - K8 equal, bit for bit, to K1 → K2 (l2rx) on the same rows (the same
   device functions in the same order), and vs its plain version within
   K1's and K2's bounds;
@@ -199,7 +200,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nfft,n_valid", [(9216, 8192), (17408, 16384)])
+@pytest.mark.parametrize("nfft,n_valid", [(5120, 4096), (9216, 8192), (17408, 16384)])
 def test_k1_kernel_matches_plain(cuda_device, nfft, n_valid):
     re, im = tone_rows(16, nfft, 11, n_valid=n_valid)
     plan = ct_plan.detect_plan(nfft, **DET)
@@ -245,6 +246,24 @@ def test_k2_modes_kernel_match_plain(cuda_device, gate, weighting):
         gcc_pair.set_phat_gate("l2rx")
     assert_windows_close(out.cpu().numpy(), ref.cpu().numpy())
     np.testing.assert_array_equal(out.argmax(-1).cpu().numpy(), ref.argmax(-1).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", [5120, 9216, 16384, 17408, 24576])
+def test_k1_spectra_equal_k3_and_k4_on_them_equals_k1(cuda_device, nfft):
+    """K1 runs K3's steps (``ct_fft.cuh``) at every step-B tile (r = 5, 9,
+    16, 17, 24): its spectra equal K3's bit for bit, and K4 on K3's spectra
+    gives K1's partials and floor bit for bit."""
+    re, im = tone_rows(16, nfft, 13, n_valid=nfft - nfft // 5)
+    plan = ct_plan.detect_plan(nfft, **DET)
+    xr = torch.from_numpy(re).to(cuda_device)
+    xi = torch.from_numpy(im).to(cuda_device)
+    fr, fi, score, arg, nf, _ = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    f3r, f3i = fft_rows.fft_rows_ct(xr, xi)
+    out = detect_ct.detect_ct_partials(f3r, f3i, plan)
+    torch.cuda.synchronize()
+    for x, y in ((fr, f3r), (fi, f3i), *zip(out, (score, arg, nf))):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
 @pytest.mark.cuda

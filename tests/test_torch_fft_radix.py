@@ -55,8 +55,10 @@ def _radix2_dif(v, w128):
     return v
 
 
-def k3_schedule(x: np.ndarray) -> np.ndarray:
-    """K3's steps A, B, C and store on complex64 rows ``x [rows, n]``."""
+def k3_registers(x: np.ndarray) -> np.ndarray:
+    """K3's steps A, B and C on complex64 rows ``x [rows, n]``:
+    ``v[:, sr, l, j]`` is value j of lane l after step C on slot row sr,
+    position 4l + j of the row, which holds bin bitrev7(4l + j)."""
     rows, n = x.shape
     t = ct_plan.radix_tables(n)
     n2, a, r = t.n2, t.a, t.r
@@ -84,12 +86,21 @@ def k3_schedule(x: np.ndarray) -> np.ndarray:
 
     # step C: position p of a slot row holds bin bitrev7(p)
     planes = _radix2_dif([xs[:, :, p].copy() for p in range(128)], w128)
-    nat = np.empty_like(xs)
+    return np.stack(planes, axis=-1).reshape(rows, n2, 32, 4)
+
+
+def k3_schedule(x: np.ndarray) -> np.ndarray:
+    """K3's steps A, B, C and store on complex64 rows ``x [rows, n]``."""
+    rows, n = x.shape
+    t = ct_plan.radix_tables(n)
+    n2, a, r = t.n2, t.a, t.r
+    v = k3_registers(x).reshape(rows, n2, 128)
+    nat = np.empty_like(v)
     for p in range(128):
-        nat[:, :, _bitrev(p, 7)] = planes[p]
+        nat[:, :, _bitrev(p, 7)] = v[:, :, p]
 
     # store
-    out = np.empty_like(xs)
+    out = np.empty_like(nat)
     for k in range(a):
         for s in range(r):
             out[:, k + a * s] = nat[:, s + r * k]
