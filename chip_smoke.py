@@ -76,9 +76,25 @@ per source, in parallel, sm_90a), then:
 18. the phase-5 flagship blocks on the mega route and on the two-kernel
     route, in the same call as phase 5's default route: ms/block, IQ
     samples/s, launches per block (K8 once; K3, K4, K2 once each) and a
-    per-stage split.
+    per-stage split;
+19. rows past one block's shared memory (fault F3): the long-row designs
+    of K3 (``fft_rows_ct_long.cu``) and K1 (the long K3, then K4's column
+    tiles, ``detect_ct.cu``), and K4, vs their plain versions at
+    [1024, 33792] (the flagship block at block_len 32768), [1024, 34816]
+    (n1 = 256, max_lag 2048) and [1024, 66560] (block_len 65536), with
+    times, bounds and ``torch.fft.fft`` + the CT permutation beside K3;
+    K1's outputs equal to K3 → K4 bit for bit; the long K3 and K1 forced
+    onto 17408 and 24576 equal to the one-block designs bit for bit, and
+    K4 on the one-block K3's spectra equal to the one-block K1's partials;
+    the phase-4 scene at block_len 32768 on the default and two-kernel
+    routes, card vs CPU; and 4 flagship blocks at full width, 128 ch × 8
+    buoys × 32768 uint8 IQ, max_lag 600, through
+    ``step_split_uint8_scan`` on the default route: ms/block, launches by
+    design and a per-stage split.
 
-Each kernel's entry in the ``kernels`` line carries its time and its
+Each kernel's entry in the ``kernels`` line carries its sources (K1 and
+K3 with their long-row files), the long rows' numbers (K1, K3, K4), its
+time and its
 plain version's at the main path's shapes (K2's error is the largest of
 its PHAT modes; "cc" windows are unwhitened, so their errors are in other
 units and phase 15 prints them relative to the window max), its bound
@@ -103,6 +119,7 @@ non-zero at once.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -264,6 +281,25 @@ def _window_errors(a, b):
     """(max |a − b|, max over windows of max|a − b| / max|b|)."""
     d = (a - b).abs()
     return d.max().item(), (d.amax(-1) / b.abs().amax(-1)).max().item()
+
+
+def _partials_errors(torch, out, ref, fr, fi):
+    """Detect partials ``out`` vs ``ref`` (seg_score, seg_arg, noise floor)
+    on CT spectra ``(fr, fi)``: (share of segments whose candidate pattern
+    differs, share of common candidates whose argmax differs, floor max
+    |err| dB, score max |err|, score max |err| over the row's max power,
+    any common candidate)."""
+    fin, pfin = torch.isfinite(out[0]), torch.isfinite(ref[0])
+    both = fin & pfin
+    pmax = (fr * fr + fi * fi).amax(-1, keepdim=True)
+    return (
+        (fin != pfin).float().mean().item(),
+        (out[1] != ref[1])[both].float().mean().item(),
+        (out[2] - ref[2]).abs().max().item(),
+        (out[0] - ref[0])[both].abs().max().item(),
+        ((out[0] - ref[0]).abs() / pmax)[both].max().item(),
+        bool(both.any().item()),
+    )
 
 
 def main() -> int:
@@ -1003,8 +1039,202 @@ def main() -> int:
         route_launches.update(got)
     del raw, out
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, algorithm_flops, library_ms=None):
-        return {
+    # ---- phase 19: rows past one block's shared memory (fault F3)
+    long_cfg = PipelineConfig(num_buoys=buoys, block_len=32_768, sample_rate_hz=fs, max_lag=600)
+    long_pipe = TDOAPipeline(long_cfg, device=dev)
+    lraw, lanchors = long_pipe.example_inputs(batch=(4, chans), seed=0, uint8=True)
+    lanchors = lanchors[0]
+    lre, lim = iq.decode_uint8_split(lraw[0])  # [chans, buoys, 32768]
+    wraw, _ = TDOAPipeline(dataclasses.replace(long_cfg, block_len=65_536), device=dev).example_inputs(
+        batch=(chans,), seed=0, uint8=True)
+    wre, wim = iq.decode_uint8_split(wraw)  # [chans, buoys, 65536]
+    del wraw
+    fill = lambda a, nf: F.pad(a, (0, nf - a.shape[-1])).reshape(-1, nf).contiguous()
+    long_shapes = {  # nfft -> rows: flagship block 0 at block_len 32768 (max_lag 600, 2048) and 65536
+        33_792: (fill(lre, 33_792), fill(lim, 33_792)),
+        34_816: (fill(lre, 34_816), fill(lim, 34_816)),
+        66_560: (fill(wre, 66_560), fill(wim, 66_560)),
+    }
+    del wre, wim
+    long_rows, long_row_count = {}, {}
+    for ln, (lxr, lxi) in long_shapes.items():
+        lplan = ct_plan.detect_plan(
+            ln, sample_rate_hz=fs, threshold_db=-70.0, min_distance_bins=10,
+            dc_notch_hz=10_000.0, confidence_floor=0.3, snr_fullscale_db=20.0,
+        )
+        rows_l = lxr.shape[0]
+        _require(fft_rows.geometry(ln) == fft_detect.geometry(ln) == "long", f"nfft {ln} is not a long row")
+        designs = lambda: (fft_rows.design_counts["long"], detect_ct.launch_count, fft_detect.design_counts["long"])
+        before = designs()
+        l3 = fft_rows.fft_rows_ct(lxr, lxi)
+        l4 = detect_ct.detect_ct_partials(*l3, lplan)
+        l1 = fft_detect.fft_detect_rows_ct(lxr, lxi, lplan)
+        torch.cuda.synchronize()
+        ran_long = tuple(a - b for a, b in zip(designs(), before)) == (1, 1, 1)
+        p3l = fft_rows.fft_rows_ct_plain(lxr, lxi)
+        l3_abs, l3_rel = _row_rel_error(l3, p3l)
+        del p3l
+        l4e = _partials_errors(torch, l4, detect_ct.detect_ct_partials_plain(*l3, lplan), *l3)
+        p1l = fft_detect.fft_detect_rows_ct_plain(lxr, lxi, lplan)
+        l1_abs, l1_rel = _row_rel_error(l1[:2], p1l[:2])
+        l1e = _partials_errors(torch, l1[2:5], p1l[2:5], *p1l[:2])
+        l1_rmax = ((l1[5] - p1l[5]).abs() / p1l[5]).max().item()
+        del p1l
+        l1_is_k3k4 = all(torch.equal(x, y) for x, y in zip(l1[:5], (*l3, *l4)))
+        del l1
+        l3_ms = _cuda_ms(torch, lambda: fft_rows.fft_rows_ct(lxr, lxi))
+        l3_plain_ms = _cuda_ms(torch, lambda: fft_rows.fft_rows_ct_plain(lxr, lxi))
+        lxc = torch.complex(lxr, lxi)
+        lperm = torch.as_tensor(ct_plan.ct_permutation(ln), device=dev)
+        l3_lib_ms = _cuda_ms(torch, lambda: torch.fft.fft(lxc)[:, lperm])
+        del lxc
+        l4_ms = _cuda_ms(torch, lambda: detect_ct.detect_ct_partials(*l3, lplan))
+        l4_plain_ms = _cuda_ms(torch, lambda: detect_ct.detect_ct_partials_plain(*l3, lplan))
+        l1_ms = _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct(lxr, lxi, lplan))
+        l1_plain_ms = _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct_plain(lxr, lxi, lplan))
+        segs = rows_l * lplan.segments
+        long_row_count[ln] = rows_l
+        long_rows[ln] = {
+            "K3": (l3_abs, l3_ms, l3_plain_ms, _bound(_fft_flops(rows_l, ln), 2 * 8 * rows_l * ln), l3_lib_ms),
+            "K4": (max(l4e[3], l4e[2]), l4_ms, l4_plain_ms,
+                   _bound(_detect_flops(rows_l, ln), rows_l * ln * 8 + segs * 8 + rows_l * 4), None),
+            "K1": (l1_abs, l1_ms, l1_plain_ms,
+                   _bound(_fft_flops(rows_l, ln) + _detect_flops(rows_l, ln), rows_l * ln * 16 + segs * 8 + rows_l * 8),
+                   None),
+        }
+        n1l, n2l = ct_plan.ct_split(ln)
+        for name, (err, ms, pms, bnd, lib) in long_rows[ln].items():
+            print(
+                f"phase 19: long {name} [{rows_l}, {ln}] ({n1l}·{n2l}): max|err| {err:.3e}; kernel {ms:.3f} ms, plain "
+                f"{pms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})"
+                + (f", torch.fft.fft + CT permutation {lib:.3f} ms" if lib is not None else "") + f" {tag}"
+            )
+        print(
+            f"phase 19: [{rows_l}, {ln}] K3 spectra rel to row max|X| {l3_rel:.3e} (tol 1e-4); K4 on K3's spectra: "
+            f"pattern differs {l4e[0]:.2e}, argmax differs {l4e[1]:.2e} (tol 1e-3 each), floor {l4e[2]:.3e} dB "
+            f"(tol 1e-3), score rel {l4e[4]:.3e} (tol 1e-4); K1 spectra rel {l1_rel:.3e}, floor {l1e[2]:.3e} dB, row "
+            f"max rel {l1_rmax:.3e} (tol 1e-5), pattern {l1e[0]:.2e}, argmax {l1e[1]:.2e}, score rel {l1e[4]:.3e}; "
+            f"K1 = K3 -> K4 bit for bit: {l1_is_k3k4}; long designs ran: {ran_long} {tag}"
+        )
+        _require(ran_long, f"the long designs did not run at {ln}")
+        _require(l3_rel <= 1e-4 and l1_rel <= 1e-4, f"long K3/K1 spectra disagree at {ln}: {l3_rel}, {l1_rel}")
+        for e in (l4e, l1e):
+            _require(e[0] <= 1e-3 and e[1] <= 1e-3 and e[2] <= 1e-3 and e[4] <= 1e-4 and e[5],
+                     f"K4/long K1 partials disagree at {ln}: {e}")
+        _require(l1_rmax <= 1e-5, f"long K1 row max disagrees at {ln}: {l1_rmax}")
+        _require(l1_is_k3k4, f"long K1 differs from K3 -> K4 at {ln}")
+        del l3, l4
+    del long_shapes, lxr, lxi
+
+    # the long K3 and K1 forced onto lengths the one-block designs take; K4 there
+    fraw, _ = pipe.example_inputs(batch=(1, chans), seed=0, uint8=True)
+    fre_, fim_ = iq.decode_uint8_split(fraw[0])
+    forced = {17_408: (fill(fre_, 17_408), fill(fim_, 17_408)),
+              24_576: (fill(lre[..., :24_064], 24_576), fill(lim[..., :24_064], 24_576))}
+    del fraw, fre_, fim_
+    for fn_, (fxr, fxi) in forced.items():
+        fplan = ct_plan.detect_plan(
+            fn_, sample_rate_hz=fs, threshold_db=-70.0, min_distance_bins=10,
+            dc_notch_hz=10_000.0, confidence_floor=0.3, snr_fullscale_db=20.0,
+        )
+        b3 = fft_rows.fft_rows_ct(fxr, fxi)
+        b1 = fft_detect.fft_detect_rows_ct(fxr, fxi, fplan)
+        same = {
+            "K3": all(torch.equal(x, y) for x, y in zip(fft_rows.fft_rows_ct_long(fxr, fxi), b3)),
+            "K4": all(torch.equal(x, y) for x, y in zip(detect_ct.detect_ct_partials(*b3, fplan), b1[2:5])),
+            "K1": all(torch.equal(x, y) for x, y in zip(fft_detect.fft_detect_rows_ct_long(fxr, fxi, fplan), b1)),
+        }
+        torch.cuda.synchronize()
+        f_ms = {
+            "K3 block": _cuda_ms(torch, lambda: fft_rows.fft_rows_ct(fxr, fxi)),
+            "K3 long": _cuda_ms(torch, lambda: fft_rows.fft_rows_ct_long(fxr, fxi)),
+            "K1 block": _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct(fxr, fxi, fplan)),
+            "K1 long": _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct_long(fxr, fxi, fplan)),
+        }
+        print(
+            f"phase 19: long K3, K1 forced onto [{fxr.shape[0]}, {fn_}], K4 on K3's spectra: bit-equal to the "
+            f"one-block K3, K1 and K1's partials {same}; "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in f_ms.items()) + f" {tag}"
+        )
+        _require(all(same.values()), f"long designs differ from the one-block designs at {fn_}: {same}")
+        del b3, b1
+    del forced, fxr, fxi, lre, lim
+
+    # the phase-4 scene at block_len 32768 on the default and two-kernel routes
+    scen32 = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8, block_len=32_768)
+    cap32 = sim.synthesize(scen32)
+    cfg32 = PipelineConfig(num_buoys=4, block_len=32_768, sample_rate_hz=scen32.sample_rate_hz, max_lag=600,
+                           power_offset_db=40.0)
+    host32 = [torch.from_numpy(a.astype(np.float32)) for a in (cap32.iq.real, cap32.iq.imag, cap32.buoy_enu)]
+    for route, (knob, on, default, kernels) in (("default", (detect_ops.set_fused_fft_detect, "auto", "auto",
+                                                            ["fft_detect_rows_ct", "gcc_pair_lag_mags"])),
+                                               ("two-kernel", routes["two-kernel"])):
+        knob(on)
+        try:
+            zero_counts()
+            longs = (fft_detect.design_counts["long"], fft_rows.design_counts["long"], detect_ct.launch_count)
+            on_card = TDOAPipeline(cfg32, device=dev).step_split(*(a.to(dev) for a in host32))
+            torch.cuda.synchronize()
+            got = {k: v for k, v in launch_counts().items() if v}
+            longs = tuple(a - b for a, b in zip(
+                (fft_detect.design_counts["long"], fft_rows.design_counts["long"], detect_ct.launch_count),
+                longs))
+            on_cpu = TDOAPipeline(cfg32, device="cpu").step_split(*host32)
+        finally:
+            knob(default)
+        pos = on_card.fix.position_enu.cpu().numpy()
+        err_m = float(np.linalg.norm(pos[:2] - cap32.emitter_enu[0][:2]))
+        fix_gap = float(np.abs(pos - on_cpu.fix.position_enu.numpy()).max())
+        lag_gap = (on_card.correlation.lag_samples.cpu() - on_cpu.correlation.lag_samples).abs().max().item()
+        same_peaks = bool((on_card.peaks.bin_index.cpu() == on_cpu.peaks.bin_index).all())
+        print(
+            f"phase 19: scene at block_len 32768 (nfft 33792), {route} route: fix error {err_m:.3f} m (limit 50), "
+            f"card vs CPU: fix {fix_gap:.3e} m (tol 0.5), lags {lag_gap:.2e} samples (tol 1e-3), peaks equal "
+            f"{same_peaks}, launches {got}, long K1, long K3, K4 {longs} {tag}"
+        )
+        _require(err_m < 50.0 and fix_gap <= 0.5 and lag_gap <= 1e-3 and same_peaks,
+                 f"block_len 32768 scene, {route} route: card and CPU disagree")
+        _require(got == dict.fromkeys(kernels, 1), f"block_len 32768 {route} route launches {got}")
+        _require(longs == ((1, 0, 0) if route == "default" else (0, 1, 1)), f"{route} route long designs {longs}")
+
+    # the flagship at full width at block_len 32768: 4 blocks, default route
+    lblocks = 4
+    long_pipe.step_split_uint8(lraw[0], lanchors)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    k1_long0 = fft_detect.design_counts["long"]
+    t0 = time.perf_counter()
+    lout = long_pipe.step_split_uint8_scan(lraw, lanchors)
+    torch.cuda.synchronize()
+    lwall = time.perf_counter() - t0
+    long_launches = {k: v for k, v in launch_counts().items() if v}
+    k1_long_runs = fft_detect.design_counts["long"] - k1_long0
+    lfinite = all(torch.isfinite(x).all().item() for x in _leaves(torch, lout) if x.is_floating_point())
+    print(
+        f"phase 19: flagship at block_len 32768, {lblocks} blocks x {chans} ch x {buoys} buoys x 32768 uint8 IQ "
+        f"(nfft {long_pipe.plan.nfft}): {1e3 * lwall / lblocks:.3f} ms/block (real time "
+        f"{1e3 * 32_768 / fs:.3f}), {lblocks * chans * buoys * 32_768 / lwall:.4e} IQ samples/s, peak mem "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {long_launches}, K1 long design "
+        f"{k1_long_runs}, all finite {lfinite} {tag}"
+    )
+    _require(tuple(lout.fix.position_enu.shape) == (lblocks, chans, 3) and lfinite, "block_len 32768 outputs")
+    _require(long_launches == {"fft_detect_rows_ct": lblocks, "gcc_pair_lag_mags": lblocks}
+             and k1_long_runs == lblocks, f"block_len 32768 launches {long_launches}, K1 long {k1_long_runs}")
+    med = _stage_split(
+        torch, lambda mark: long_pipe.step_split_uint8(lraw[0], lanchors, on_stage=mark),
+        ["decode", "fft_detect", "peaks", "gcc_pair", "solve"],
+    )
+    print(
+        "phase 19: block_len 32768 stage split ms/block (median of 3, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f", sum {sum(med.values()):.3f}, before the solve {sum(v for k, v in med.items() if k != 'solve'):.3f} {tag}"
+    )
+    del lraw, lout
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound, algorithm_flops, library_ms=None,
+              long_source=(), long_name=None):
+        out = {
             "name": name,
             "route": "cuda",
             "source": f"radio_mapper_tpu_torch/csrc/{source}",
@@ -1018,6 +1248,16 @@ def main() -> int:
             "library_ms": library_ms,
             "algorithm_flops": algorithm_flops,
         }
+        if long_name is not None:  # rows past one block's shared memory (fault F3)
+            out["sources"] = [out["source"]] + [f"radio_mapper_tpu_torch/csrc/{f}" for f in long_source]
+            out["long_rows"] = [
+                {"shape": [long_row_count[ln], ln], "max_abs_err": v[long_name][0], "ms": v[long_name][1],
+                 "plain_ms": v[long_name][2], "bound_ms": v[long_name][3][0], "bound_by": v[long_name][3][1],
+                 "library_ms": v[long_name][4]}
+                for ln, v in long_rows.items()
+            ]
+            out["long_launches_block_len_32768"] = long_launches.get(name, 0)
+        return out
 
     wn1, wn2 = ct_plan.ct_split(wn)
     w_rows = sum(gcc_pair.window_rows(wn, wlag))
@@ -1029,17 +1269,20 @@ def main() -> int:
         entry("fft_detect_rows_ct", "fft_detect.cu", "detect_kernel.py:443",
               launches["fft_detect_rows_ct"], spec_abs, k1_ms, k1_plain_ms,
               _bound(_fft_flops(nrows, nfft) + _detect_flops(nrows, nfft),
-                     nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_radix),
+                     nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_radix,
+              long_source=["fft_rows_ct_long.cu", "detect_ct.cu"], long_name="K1"),
         entry("gcc_pair_lag_mags", "gcc_pair.cu", "gcc_kernel.py:358",
               launches["gcc_pair_lag_mags"], max(win_abs, k2_modes["l2"][0], k2_modes["l1"][0]), k2_ms, k2_plain_ms,
               _bound(_pair_flops(chans * npairs, nfft, width),
                      nrows * nfft * 8 + nrows * 4 + chans * npairs * width * 4), k2_fft),
         entry("fft_rows_ct", "fft_rows_ct.cu", "fft_kernel.py:446",
               wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound,
-              _radix_flops(m_sub * wb, wn, *ct_plan.radix_split(wn)[1:]), k3_lib_ms),
+              _radix_flops(m_sub * wb, wn, *ct_plan.radix_split(wn)[1:]), k3_lib_ms,
+              long_source=["fft_rows_ct_long.cu"], long_name="K3"),
         entry("detect_ct_partials", "detect_ct.cu", "detect_kernel.py:309",
               route_launches["detect_ct_partials"], max(k4_score_abs, k4_nf), k4_ms, k4_plain_ms, k4_bound,
-              nrows * nfft * (3 + 2 * plan.radius + 1)),  # power, then the sliding max's compares
+              nrows * nfft * (3 + 2 * plan.radius + 1),  # power, then the sliding max's compares
+              long_name="K4"),
         entry("gcc_pairs_onehot_lag_mags", "gcc_pair.cu", "gcc_kernel.py:743",
               wl5["gcc_pairs_onehot_lag_mags"], k5_abs, k5_ms, k5_plain_ms,
               _bound(_pair_flops(m_sub * wp, wn, w_width),

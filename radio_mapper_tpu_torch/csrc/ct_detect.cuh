@@ -1,14 +1,17 @@
 // Shared device code: the spectral detect epilogue of kernels K1, K4 and K8
-// on one row's linear power array in shared memory.
+// on one row's linear power array in shared memory, and its parts.
 //
 // The body of radio_mapper_tpu/ops/pallas/detect_kernel.py::_detect_body
 // with emit_topk = 0: the row max, the 24-step dB bisection noise floor
 // over the stride-8 natural subsample, the circular +/-radius sliding max
 // in natural bin order, the gates, and the per-8-bin-segment (max, lowest
 // argmax) partials. K1 (fft_detect.cu) runs it on the spectra it has just
-// transformed, K4 (detect_ct.cu) on spectra read from memory, K8
-// (channel_step.cu) inside the per-channel megakernel: the same float
-// inputs give the same outputs bit for bit in all three.
+// transformed and K8 (channel_step.cu) inside the per-channel megakernel;
+// K4 (detect_ct.cu) runs its parts (power, sub_db, bisect_floor,
+// conf_level, candidate, segment_partial) on column tiles of spectra read
+// from memory, so it takes rows that do not fit shared memory. Every
+// reduction is a max, a min or an integer count, so the same float inputs
+// give the same outputs bit for bit in all three.
 //
 // CT layout: the power of natural bin k = k2 + n2*k1 sits at m = k2*n1 + k1.
 
@@ -51,6 +54,60 @@ __device__ T block_reduce(T v, Op op, T* scratch) {
   return r;
 }
 
+// Linear power of one bin (the expression every kernel uses).
+__device__ __forceinline__ float power(float re, float im) {
+  return __fadd_rn(__fmul_rn(re, re), __fmul_rn(im, im));
+}
+
+// A power in dB, plus the power offset: the noise floor's scale.
+__device__ __forceinline__ float sub_db(float p, const DetectParams& prm) {
+  return __fadd_rn(__fmul_rn(10.f, log10f(__fadd_rn(p, 1e-24f))), prm.off);
+}
+
+// The noise floor: bisection of [lo, hi] (the block's min and max of aux)
+// over the s dB values aux[0..s) in shared memory, which every thread has
+// written before the reductions that gave lo and hi.
+template <int THREADS>
+__device__ float bisect_floor(const float* aux, int s, float lo, float hi, const DetectParams& prm,
+                              int* red_i) {
+  const int tid = threadIdx.x;
+  for (int it = 0; it < prm.bisect_iters; ++it) {
+    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
+    int c = 0;
+    for (int i = tid; i < s; i += THREADS) c += (aux[i] <= mid) ? 1 : 0;
+    c = block_reduce<THREADS>(c, SumOp(), red_i);
+    if (2 * c < s) lo = mid; else hi = mid;
+  }
+  return __fmul_rn(0.5f, __fadd_rn(lo, hi));
+}
+
+// The confidence gate's linear power for noise floor nf (0 without a gate).
+__device__ __forceinline__ float conf_level(float nf, const DetectParams& prm) {
+  return prm.has_conf ? expf(__fmul_rn(__fadd_rn(__fsub_rn(nf, prm.off), prm.conf_cs), LN10_OVER_10)) : 0.f;
+}
+
+// The gates on bin k of power p whose +/-radius window max is mx: its
+// score, -inf where it is no candidate.
+__device__ __forceinline__ float candidate(float p, float mx, int k, const DetectParams& prm, float conf_lin) {
+  const float pe = __fadd_rn(p, 1e-24f);
+  bool cand = (p >= mx) && (pe > prm.thr_lin) && (k >= prm.keep_lo) && (k <= prm.keep_hi);
+  if (prm.has_conf) cand = cand && (pe >= conf_lin);
+  return cand ? p : -CUDART_INF_F;
+}
+
+// One segment's (max, lowest in-segment argmax) over the 8 scores
+// v[0], v[stride], ..., v[7*stride] (8 consecutive natural bins).
+__device__ __forceinline__ void segment_partial(const float* v, int stride, float* sc, float* sa) {
+  float best = v[0];
+#pragma unroll
+  for (int o = 1; o < SEG; ++o) best = fmaxf(best, v[o * stride]);
+  int arg = SEG;
+#pragma unroll
+  for (int o = SEG - 1; o >= 0; --o) arg = (v[o * stride] >= best) ? o : arg;
+  *sc = best;
+  *sa = static_cast<float>(arg);
+}
+
 // Detect one row. pwr: [n] linear power, CT order; aux: [n] scratch; both
 // in shared memory. Every thread of the block calls it once it has
 // written its share of pwr. Writes the n/8 partials to sc (score, -inf
@@ -75,31 +132,20 @@ __device__ float2 detect_row(const float* pwr, float* aux, int n1, int n2, const
   float lo = CUDART_INF_F, hi = -CUDART_INF_F;
   for (int i = tid; i < s; i += THREADS) {
     const int b2 = i / n1, k1 = i - b2 * n1;
-    const float p = pwr[(SEG * b2) * n1 + k1];
-    const float db = __fadd_rn(__fmul_rn(10.f, log10f(__fadd_rn(p, 1e-24f))), prm.off);
+    const float db = sub_db(pwr[(SEG * b2) * n1 + k1], prm);
     aux[i] = db;
     lo = fminf(lo, db);
     hi = fmaxf(hi, db);
   }
   lo = block_reduce<THREADS>(lo, MinOp(), red_f);
   hi = block_reduce<THREADS>(hi, MaxOp(), red_f);
-  for (int it = 0; it < prm.bisect_iters; ++it) {
-    const float mid = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-    int c = 0;
-    for (int i = tid; i < s; i += THREADS) c += (aux[i] <= mid) ? 1 : 0;
-    c = block_reduce<THREADS>(c, SumOp(), red_i);
-    if (2 * c < s) lo = mid; else hi = mid;
-  }
-  const float nf = __fmul_rn(0.5f, __fadd_rn(lo, hi));
-  const float conf_lin =
-      prm.has_conf ? expf(__fmul_rn(__fadd_rn(__fsub_rn(nf, prm.off), prm.conf_cs), LN10_OVER_10))
-                   : 0.f;
+  const float nf = bisect_floor<THREADS>(aux, s, lo, hi, prm, red_i);
+  const float conf_lin = conf_level(nf, prm);
 
   // ---- candidacy: circular +/-radius sliding max in natural bin order
   // (natural k = k2 + n2 k1 sits at CT address k2 n1 + k1), then gates.
   for (int m = tid; m < n; m += THREADS) {
     const int k2 = m / n1, k1 = m - k2 * n1;
-    const int k = k2 + n2 * k1;
     const float p = pwr[m];
     float mx = p;
     for (int d = -prm.radius; d <= prm.radius; ++d) {
@@ -108,10 +154,7 @@ __device__ float2 detect_row(const float* pwr, float* aux, int n1, int n2, const
       else if (a2 >= n2) { a2 -= n2; a1 = (a1 == n1 - 1) ? 0 : a1 + 1; }
       mx = fmaxf(mx, pwr[a2 * n1 + a1]);
     }
-    const float pe = __fadd_rn(p, 1e-24f);
-    bool cand = (p >= mx) && (pe > prm.thr_lin) && (k >= prm.keep_lo) && (k <= prm.keep_hi);
-    if (prm.has_conf) cand = cand && (pe >= conf_lin);
-    aux[m] = cand ? p : -CUDART_INF_F;
+    aux[m] = candidate(p, mx, k2 + n2 * k1, prm, conf_lin);
   }
   __syncthreads();
 
@@ -119,15 +162,7 @@ __device__ float2 detect_row(const float* pwr, float* aux, int n1, int n2, const
   // is the 8 CT rows 8 b2 .. 8 b2 + 7 of column k1.
   for (int f = tid; f < s; f += THREADS) {
     const int b2 = f / n1, k1 = f - b2 * n1;
-    const float* v = aux + (SEG * b2) * n1 + k1;
-    float best = v[0];
-#pragma unroll
-    for (int o = 1; o < SEG; ++o) best = fmaxf(best, v[o * n1]);
-    int arg = SEG;
-#pragma unroll
-    for (int o = SEG - 1; o >= 0; --o) arg = (v[o * n1] >= best) ? o : arg;
-    sc[f] = best;
-    sa[f] = static_cast<float>(arg);
+    segment_partial(aux + (SEG * b2) * n1 + k1, n1, sc + f, sa + f);
   }
   return make_float2(nf, row_max);
 }

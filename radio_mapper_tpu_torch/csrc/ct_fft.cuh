@@ -1,12 +1,11 @@
-// Kernel K3's forward CT-order FFT of one row held in shared memory, and
-// the forward half that kernels K1 and K8 run on it before their detect
-// body.
+// Kernel K3's forward CT-order FFT of one row held in shared memory, the
+// forward half that kernels K1 and K8 run on it before their detect body,
+// and the column and row passes of K3's long-row design.
 //
-// Layout: a row of n = 128*n2 samples is x[q][p] at time q*128 + p, kept
-// as n2 "slot rows" of 128 float2. The transform emits bin k = k2 + n2*k1
-// at CT address m = k2*128 + k1 (the order of the reference's four-step
-// ct_fft_core), with n2 = A*r (A = min(8, 2^v2(n2))) and three in-place
-// steps:
+// Layout: a row of n = n1*n2 samples is x[q][p] at time q*n1 + p, kept as
+// n2 "slot rows" of n1 float2. The transform emits bin k = k2 + n2*k1 at
+// CT address m = k2*n1 + k1 (the order of the reference's four-step
+// ct_fft_core), with n2 = A*r (A = min(8, 2^v2(n2))) and three steps:
 //
 //   step A  for each column p and j < r: an A-point radix-2 FFT in
 //           registers over the slots j + r*t (t < A); output k times
@@ -14,19 +13,28 @@
 //   step B  for each column p and k < A: the direct r-point DFT over the
 //           slots j + r*k (j < r); X[k + A*s] times the row twiddle
 //           W_n^{(k + A*s)*p} goes to slot s + r*k;
-//   step C  one warp per slot row: the 128-point radix-2 FFT, two stages
-//           in registers and five across lanes (__shfl_xor_sync); the
-//           outputs, bit-reversed across lanes, belong at CT row
-//           k2 = k + A*s in natural k1 order. K3 stores them to device
-//           memory (step_c_store); K1 and K8 store them the same way and
-//           keep each value's power in registers (step_c_handoff), then,
-//           after a barrier, write the power over the row in CT order
-//           (power_store) for the detect body (fft_power_row).
+//   step C  one warp per slot row: the n1-point radix-2 FFT, P = n1/32
+//           points a lane, the stages across lanes (__shfl_xor_sync) and
+//           then log2(P) in registers; the outputs, bit-reversed, belong at
+//           CT row k2 = k + A*s in natural k1 order.
+//
+// One-block design (n1 = 128, the row in shared memory): K3 runs the
+// three steps in place and stores (step_c_store); K1 and K8 store the
+// spectra the same way and keep each value's power in registers
+// (step_c_handoff), then, after a barrier, write the power over the row
+// in CT order (power_store) for the detect body (fft_power_row).
+//
+// Long-row design (fft_rows_ct_long.cu, n1 = 128 or 256): steps A and B
+// run on a tile of COLS columns of the row (the template parameter COLS
+// of step_a, step_b and step_b_stream) and write the slot rows to a
+// device-memory workspace; step C then runs from there, one warp a slot
+// row, and stores as K3 does. The per-value arithmetic is the same in
+// both designs.
 //
 // Every twiddle comes from a float32 table of float64 roots of unity
 // (ct_plan.radix_tables, ct_constants' tw). tests/test_torch_fft_radix.py
-// replays K3's schedule in numpy, tests/test_torch_fft_detect_radix.py
-// K1's hand-off.
+// replays K3's one-block schedule in numpy, tests/test_torch_fft_detect_radix.py
+// K1's hand-off, tests/test_torch_long_rows_radix.py the long-row design.
 
 #pragma once
 
@@ -36,10 +44,10 @@
 
 namespace rm_fft {
 
-constexpr int N1 = 128;       // the outer length of every split K3 takes
+constexpr int N1 = 128;       // the outer length of the one-block design
 constexpr int THREADS = 512;  // one block per row: 4 threads per column in steps A and B
 constexpr int WARPS = THREADS / 32;
-constexpr int STREAM_MAX_SJ = 12;  // streamed step B: r <= WARPS * STREAM_MAX_SJ = 192
+constexpr int STREAM_MAX_SJ = 12;  // streamed step B: outputs a thread holds (one-block: r <= 192 in one pass)
 constexpr int HANDOFF_A = 8;       // K1 and K8 take n2 = 8*r (detect plans have 8 | n2)
 constexpr int HANDOFF_MAX_HELD = 48;  // powers a thread holds: n2 <= WARPS * 48 / 4 = 192, n <= 24576
 
@@ -55,129 +63,152 @@ __host__ __device__ constexpr int brev_bits(int x, int bits) {
 __host__ __device__ constexpr int log2_of(int x) { return x <= 1 ? 0 : 1 + log2_of(x / 2); }
 
 // Radix-2 DIF over v[0..L) in registers: the pair (t, t + h) of sub-size
-// 2h becomes (a + b, (a - b) * W_2h^(t mod h)), W_2h^u = W_128^(u*64/h).
-// Position t then holds output brev(t).
-template <int L>
-__device__ __forceinline__ void dif_regs(float2 (&v)[L], const float2* w128) {
+// 2h becomes (a + b, (a - b) * W_2h^(t mod h)), W_2h^u = W_NW^(u*NW/(2h)),
+// from the table w of W_NW^e, e < NW/2. Position t then holds output
+// brev(t).
+template <int L, int NW = N1>
+__device__ __forceinline__ void dif_regs(float2 (&v)[L], const float2* w) {
 #pragma unroll
   for (int h = L / 2; h >= 1; h /= 2) {
 #pragma unroll
     for (int t = 0; t < L; ++t) {
       if (t & h) continue;
       const float2 a = v[t], b = v[t + h];
-      const int e = (t & (h - 1)) * (64 / h);
+      const int e = (t & (h - 1)) * (NW / 2 / h);
       v[t] = cadd(a, b);
-      v[t + h] = e ? rm_ct::cmul(csub(a, b), w128[e]) : csub(a, b);
+      v[t + h] = e ? rm_ct::cmul(csub(a, b), w[e]) : csub(a, b);
     }
   }
 }
 
-// Step A. Thread (p, j0) takes j = j0, j0 + 4, ... < r.
-template <int A>
+// Step A on COLS columns held as xs[q*COLS + p]. Thread (p, j0) takes
+// j = j0, j0 + THREADS/COLS, ... < r.
+template <int A, int COLS = N1>
 __device__ __forceinline__ void step_a(float2* xs, const float2* w128, const float2* __restrict__ wn2,
                                        int r) {
-  const int p = threadIdx.x & (N1 - 1);
-  for (int j = threadIdx.x / N1; j < r; j += THREADS / N1) {
+  const int p = threadIdx.x & (COLS - 1);
+  for (int j = threadIdx.x / COLS; j < r; j += THREADS / COLS) {
     float2 v[A];
 #pragma unroll
-    for (int t = 0; t < A; ++t) v[t] = xs[(j + r * t) * N1 + p];
+    for (int t = 0; t < A; ++t) v[t] = xs[(j + r * t) * COLS + p];
     dif_regs<A>(v, w128);
 #pragma unroll
     for (int t = 0; t < A; ++t) {
       constexpr int bits = log2_of(A);
       const int k = brev_bits(t, bits);
-      xs[(j + r * k) * N1 + p] = k ? rm_ct::cmul(v[t], __ldg(wn2 + j * k)) : v[t];
+      xs[(j + r * k) * COLS + p] = k ? rm_ct::cmul(v[t], __ldg(wn2 + j * k)) : v[t];
     }
   }
 }
 
-// Step B with the r inputs of a column in registers (r <= RMAX). Thread
-// (p, k0) takes k = k0, k0 + 4, ... < A; the W_r loads are warp-uniform.
-template <int A, int RMAX>
+// Step B with the r inputs of a column in registers (r <= RMAX), on COLS
+// columns held as xs[q*COLS + p]. Output s of column block k times
+// tw[(k + A*s)*tw_ld + p] goes to dst[(s + r*k)*dst_ld + p]: back into xs
+// (one block: dst = xs, both strides N1) or to a workspace row. Thread
+// (p, k0) takes k = k0, k0 + THREADS/COLS, ... < A; the W_r loads are
+// warp-uniform.
+template <int A, int RMAX, int COLS = N1>
 __device__ __forceinline__ void step_b(float2* xs, const float2* __restrict__ wr,
-                                       const float2* __restrict__ tw, int r) {
-  const int p = threadIdx.x & (N1 - 1);
-  for (int k = threadIdx.x / N1; k < A; k += THREADS / N1) {
-    float2* col = xs + r * k * N1 + p;
+                                       const float2* __restrict__ tw, int tw_ld, float2* dst, int dst_ld,
+                                       int r) {
+  const int p = threadIdx.x & (COLS - 1);
+  for (int k = threadIdx.x / COLS; k < A; k += THREADS / COLS) {
+    const float2* col = xs + r * k * COLS + p;
     float2 y[RMAX];
 #pragma unroll
-    for (int j = 0; j < RMAX; ++j) y[j] = j < r ? col[j * N1] : make_float2(0.f, 0.f);
+    for (int j = 0; j < RMAX; ++j) y[j] = j < r ? col[j * COLS] : make_float2(0.f, 0.f);
     for (int s = 0; s < r; ++s) {
       float2 acc = make_float2(0.f, 0.f);
 #pragma unroll
       for (int j = 0; j < RMAX; ++j)
         if (j < r) rm_ct::cmac(acc, __ldg(wr + j * r + s), y[j]);
-      col[s * N1] = rm_ct::cmul(acc, __ldg(tw + (k + A * s) * N1 + p));
+      dst[(s + r * k) * dst_ld + p] = rm_ct::cmul(acc, __ldg(tw + (k + A * s) * tw_ld + p));
     }
   }
 }
 
-// Step B for r too large for registers: 32 columns at a time, lane =
-// column, warp w owns outputs s = w + WARPS*i; the inputs stream from
-// shared memory. Ends with a barrier.
-template <int A>
+// Step B for r too large for registers, with step_b's operands: the
+// inputs stream from xs. Lanes take columns, LANES = min(32, COLS) a
+// group, 32/LANES groups a warp; each of the OWNERS groups of the block
+// owns outputs s = s0 + owner + OWNERS*i (i < SJ), in passes s0 = 0,
+// OWNERS*SJ, ... . A barrier separates each pass's reads from its writes,
+// so dst may be xs (in place) when r fits one pass (r <= 192 at 128
+// columns and SJ = STREAM_MAX_SJ). Ends with a barrier.
+template <int A, int COLS = N1, int SJ = STREAM_MAX_SJ>
 __device__ __forceinline__ void step_b_stream(float2* xs, const float2* __restrict__ wr,
-                                              const float2* __restrict__ tw, int r) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+                                              const float2* __restrict__ tw, int tw_ld, float2* dst,
+                                              int dst_ld, int r) {
+  constexpr int LANES = COLS < 32 ? COLS : 32;
+  constexpr int OWNERS = WARPS * (32 / LANES);
+  const int lane = threadIdx.x & 31;
+  const int owner = (threadIdx.x >> 5) * (32 / LANES) + lane / LANES;
   for (int k = 0; k < A; ++k) {
-    for (int p0 = 0; p0 < N1; p0 += 32) {
-      const int p = p0 + lane;
-      float2* col = xs + r * k * N1 + p;
-      float2 acc[STREAM_MAX_SJ];
+    for (int p0 = 0; p0 < COLS; p0 += LANES) {
+      const int p = p0 + lane % LANES;
+      const float2* col = xs + r * k * COLS + p;
+      for (int s0 = 0; s0 < r; s0 += OWNERS * SJ) {
+        float2 acc[SJ];
 #pragma unroll
-      for (int i = 0; i < STREAM_MAX_SJ; ++i) acc[i] = make_float2(0.f, 0.f);
-      for (int j = 0; j < r; ++j) {
-        const float2 y = col[j * N1];
+        for (int i = 0; i < SJ; ++i) acc[i] = make_float2(0.f, 0.f);
+        for (int j = 0; j < r; ++j) {
+          const float2 y = col[j * COLS];
 #pragma unroll
-        for (int i = 0; i < STREAM_MAX_SJ; ++i) {
-          const int s = warp + WARPS * i;
-          if (s < r) rm_ct::cmac(acc[i], __ldg(wr + j * r + s), y);
+          for (int i = 0; i < SJ; ++i) {
+            const int s = s0 + owner + OWNERS * i;
+            if (s < r) rm_ct::cmac(acc[i], __ldg(wr + j * r + s), y);
+          }
         }
-      }
-      __syncthreads();  // every read of these columns is done
+        __syncthreads();  // every read of these columns is done
 #pragma unroll
-      for (int i = 0; i < STREAM_MAX_SJ; ++i) {
-        const int s = warp + WARPS * i;
-        if (s < r) col[s * N1] = rm_ct::cmul(acc[i], __ldg(tw + (k + A * s) * N1 + p));
+        for (int i = 0; i < SJ; ++i) {
+          const int s = s0 + owner + OWNERS * i;
+          if (s < r) dst[(s + r * k) * dst_ld + p] = rm_ct::cmul(acc[i], __ldg(tw + (k + A * s) * tw_ld + p));
+        }
+        __syncthreads();
       }
-      __syncthreads();
     }
   }
 }
 
-// Step C on slot row sr, in one warp. Lane l holds positions p = 4l + i
-// (i < 4); the stages of half-size h = 64..4 pair lane l with lane
-// l ^ (h/4), h = 2 and 1 pair registers. Position 4l + i then holds bin
-// brev7(4l + i) = brev2(i)*32 + brev5(l), returned in v[i].
-__device__ __forceinline__ void step_c_row(const float2* xs, const float2* w128, int sr, float2 (&v)[4]) {
+// Step C on one slot row of R1 points (R1 = 128 or 256), in one warp: row
+// is the slot row (shared or device memory, 16-byte aligned), w1 the
+// table W_R1^e, e < R1/2. Lane l holds positions P*l + i (i < P = R1/32);
+// the stages of half-size h = R1/2..P pair lane l with lane l ^ (h/P), the
+// stages h < P pair registers. Position P*l + i then holds bin
+// brev(P*l + i) = brev_P(i)*32 + brev5(l), returned in v[i].
+template <int R1 = N1>
+__device__ __forceinline__ void step_c_row(const float2* row, const float2* w1, float2 (&v)[R1 / 32]) {
+  constexpr int P = R1 / 32;
   const int lane = threadIdx.x & 31;
-  const float4* row4 = reinterpret_cast<const float4*>(xs + sr * N1) + 2 * lane;
-  const float4 lo = row4[0], hi = row4[1];
-  v[0] = make_float2(lo.x, lo.y);
-  v[1] = make_float2(lo.z, lo.w);
-  v[2] = make_float2(hi.x, hi.y);
-  v[3] = make_float2(hi.z, hi.w);
+  const float4* row4 = reinterpret_cast<const float4*>(row) + (P / 2) * lane;
 #pragma unroll
-  for (int h = 64; h >= 4; h >>= 1) {
-    const int d = h >> 2;
+  for (int q = 0; q < P / 2; ++q) {
+    const float4 f = row4[q];
+    v[2 * q] = make_float2(f.x, f.y);
+    v[2 * q + 1] = make_float2(f.z, f.w);
+  }
+#pragma unroll
+  for (int h = R1 / 2; h >= P; h >>= 1) {
+    const int d = h / P;
     const bool top = (lane & d) == 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < P; ++i) {
       const float2 w = make_float2(__shfl_xor_sync(0xffffffffu, v[i].x, d),
                                    __shfl_xor_sync(0xffffffffu, v[i].y, d));
-      const int e = ((4 * lane + i) & (h - 1)) * (64 / h);
-      v[i] = top ? cadd(v[i], w) : rm_ct::cmul(csub(w, v[i]), w128[e]);
+      const int e = ((P * lane + i) & (h - 1)) * (R1 / 2 / h);
+      v[i] = top ? cadd(v[i], w) : rm_ct::cmul(csub(w, v[i]), w1[e]);
     }
   }
-  dif_regs<4>(v, w128);
+  dif_regs<P, R1>(v, w1);
 }
 
 // CT address of value i of this lane's step-C output of slot row sr =
-// s + r*k: row k2 = k + a*s, column k1 = brev2(i)*32 + brev5(lane).
+// s + r*k: row k2 = k + a*s, column k1 = brev_P(i)*32 + brev5(lane).
+template <int R1 = N1>
 __device__ __forceinline__ size_t ct_address(int sr, int i, int a, int r) {
   const int k = sr / r, s = sr - r * k;
-  const int k1 = brev_bits(i, 2) * 32 + static_cast<int>(__brev(threadIdx.x & 31) >> 27);
-  return static_cast<size_t>(k + a * s) * N1 + k1;
+  const int k1 = brev_bits(i, log2_of(R1 / 32)) * 32 + static_cast<int>(__brev(threadIdx.x & 31) >> 27);
+  return static_cast<size_t>(k + a * s) * R1 + k1;
 }
 
 // Step C and K3's store: warp w takes slot rows w, w + WARPS, ...; each i
@@ -186,7 +217,7 @@ __device__ __forceinline__ void step_c_store(const float2* xs, const float2* w12
                                              int n2, int a, int r) {
   for (int sr = threadIdx.x >> 5; sr < n2; sr += WARPS) {
     float2 v[4];
-    step_c_row(xs, w128, sr, v);
+    step_c_row(xs + sr * N1, w128, v);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const size_t m = ct_address(sr, i, a, r);
@@ -209,7 +240,7 @@ __device__ __forceinline__ void step_c_handoff(const float2* xs, const float2* w
     const int sr = warp + WARPS * t;
     if (sr < n2) {
       float2 v[4];
-      step_c_row(xs, w128, sr, v);
+      step_c_row(xs + sr * N1, w128, v);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const size_t m = ct_address(sr, i, HANDOFF_A, r);
@@ -268,7 +299,7 @@ __device__ __forceinline__ void fft_power_row(const float* __restrict__ xr, cons
 
   step_a<HANDOFF_A>(xs, w128s, wn2, r);
   __syncthreads();
-  step_b<HANDOFF_A, RMAX>(xs, wr, tw, r);
+  step_b<HANDOFF_A, RMAX>(xs, wr, tw, N1, xs, N1, r);
   __syncthreads();
   float pv[4 * MAX_SR];
   step_c_handoff<MAX_SR>(xs, w128s, fr, fi, pv, n2, r);

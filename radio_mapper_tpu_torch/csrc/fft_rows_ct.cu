@@ -58,10 +58,10 @@ fft_rows_ct_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
     __syncthreads();
   }
   if constexpr (RMAX > 0) {
-    rm_fft::step_b<A, RMAX>(xs, wr, tw, r);
+    rm_fft::step_b<A, RMAX>(xs, wr, tw, N1, xs, N1, r);
     __syncthreads();
   } else {
-    rm_fft::step_b_stream<A>(xs, wr, tw, r);
+    rm_fft::step_b_stream<A>(xs, wr, tw, N1, xs, N1, r);
   }
   rm_fft::step_c_store(xs, w128s, fre + off, fim + off, n2, A, r);
 }

@@ -1,0 +1,165 @@
+// Kernel K3 for rows longer than one block's shared memory: forward
+// CT-order FFT of [rows, n] rows, n = n1*n2 with n1 = 128 or 256 and
+// n2 = 8*r <= 1024 (every planned length's split), in two passes through a
+// device-memory workspace.
+//
+// Replaces radio_mapper_tpu/ops/pallas/fft_kernel.py::fft_rows_ct (body
+// fft_kernel.ct_fft_core) above n = 24576, where the one-block design
+// (fft_rows_ct.cu) no longer holds a row. Python wrapper:
+// radio_mapper_tpu_torch/ops/cuda/fft_rows.py; kernel K1's long rows run it
+// too (ops/cuda/fft_detect.py).
+//
+// The four-step split of ct_fft.cuh, with the same per-value arithmetic as
+// the one-block design; only the data movement changes:
+//
+//   column pass  a block takes a tile of COLS columns p of one row (COLS =
+//                32 for n2 <= 512, else 16: at most 128 KB of shared
+//                memory), loads x[q][p] for every q < n2, runs steps A and
+//                B on the tile (step A 8-point; step B's r inputs in
+//                registers for r <= 24, streamed from shared memory above,
+//                2, 3 or 4 outputs a thread) and writes the slot rows
+//                s + r*k, times the row twiddle, to the workspace
+//                ws[row][s + r*k][p];
+//   row pass     one warp a workspace slot row runs step C, the n1-point
+//                radix-2 FFT across lanes (P = n1/32 points a lane), and
+//                stores the row at CT row k + a*s, coalesced, as the
+//                one-block K3 stores it.
+//
+// At r <= 24 the column pass issues the one-block step B's fmaf sequence,
+// so on a length both designs take the two give the same spectra bit for
+// bit (card test). The workspace cannot be the output planes: slot row
+// s + r*k and CT row k + a*s are different rows, written by different
+// blocks.
+//
+// Bound on the H100: device-memory bytes. Each sample is read and written
+// twice (32 B a sample, against 16 B for the one-block design), 0.33 ms at
+// [1024, 33792] at 3.35 TB/s. Later PRs: the row held across a
+// thread-block cluster's distributed shared memory, so that the
+// workspace round trip goes (ROADMAP, shared with K7's long rows).
+
+#include <cuda_runtime.h>
+
+#include "ct_fft.cuh"
+
+namespace {
+
+using rm_fft::THREADS;
+
+constexpr int ROW_THREADS = 256;  // the row pass: one warp a slot row
+constexpr int MAX_N2 = 1024;      // ct_plan.ct_split's largest n2
+
+// RMAX > 0: step B holds up to RMAX inputs in registers; RMAX == 0: it
+// streams them from shared memory, SJ outputs a thread a pass.
+template <int A, int RMAX, int COLS, int SJ>
+__global__ void __launch_bounds__(THREADS, (RMAX > 0 ? RMAX <= 16 : SJ <= 8) ? 2 : 1)
+ct_columns_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
+                  const float2* __restrict__ w1, const float2* __restrict__ wn2,
+                  const float2* __restrict__ wr, const float2* __restrict__ tw,
+                  float2* __restrict__ ws, int n1, int n2, int r) {
+  extern __shared__ float2 tile[];  // [n2][COLS] slot rows of the tile, then [64] W_128
+  float2* w128s = tile + COLS * n2;
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * COLS;
+  const size_t off = static_cast<size_t>(blockIdx.y) * n1 * n2;
+  const float* xr = xre + off + p0;
+  const float* xi = xim + off + p0;
+
+  for (int m = tid; m < COLS * n2; m += THREADS) {
+    const int q = m / COLS, p = m - q * COLS;
+    tile[m] = make_float2(xr[static_cast<size_t>(q) * n1 + p], xi[static_cast<size_t>(q) * n1 + p]);
+  }
+  // W_128^e = W_n1^(e*n1/128): the same float32 values (the angles are
+  // equal in float64), so step A rounds as the one-block design's does
+  if (tid < 64) w128s[tid] = w1[tid * (n1 / 128)];
+  __syncthreads();
+
+  if constexpr (A > 1) {
+    rm_fft::step_a<A, COLS>(tile, w128s, wn2, r);
+    __syncthreads();
+  }
+  float2* dst = ws + off + p0;  // slot row sr of this row at dst[sr * n1]
+  if constexpr (RMAX > 0) {
+    rm_fft::step_b<A, RMAX, COLS>(tile, wr, tw + p0, n1, dst, n1, r);
+  } else {
+    rm_fft::step_b_stream<A, COLS, SJ>(tile, wr, tw + p0, n1, dst, n1, r);
+  }
+}
+
+template <int R1>
+__global__ void __launch_bounds__(ROW_THREADS)
+ct_rows_kernel(const float2* __restrict__ ws, const float2* __restrict__ w1, float* __restrict__ fre,
+               float* __restrict__ fim, int rows, int n2, int a, int r) {
+  const size_t g = static_cast<size_t>(blockIdx.x) * (ROW_THREADS / 32) + (threadIdx.x >> 5);
+  if (g >= static_cast<size_t>(rows) * n2) return;  // whole warps: the shuffles stay full
+  const size_t row = g / n2;
+  const int sr = static_cast<int>(g - row * n2);
+  float2 v[R1 / 32];
+  rm_fft::step_c_row<R1>(ws + g * R1, w1, v);
+  const size_t off = row * n2 * R1;
+#pragma unroll
+  for (int i = 0; i < R1 / 32; ++i) {
+    const size_t m = off + rm_fft::ct_address<R1>(sr, i, a, r);
+    fre[m] = v[i].x;
+    fim[m] = v[i].y;
+  }
+}
+
+template <int A, int RMAX, int COLS, int SJ = 0>
+int launch_columns(const float* xre, const float* xim, const float2* w1, const float2* wn2, const float2* wr,
+                   const float2* tw, float2* ws, int rows, int n1, int n2, int r, cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(COLS) * n2 + 64) * sizeof(float2);
+  cudaError_t e = cudaFuncSetAttribute(ct_columns_kernel<A, RMAX, COLS, SJ>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(n1 / COLS, rows);
+  ct_columns_kernel<A, RMAX, COLS, SJ><<<grid, THREADS, smem, stream>>>(xre, xim, w1, wn2, wr, tw, ws, n1, n2, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Step B's variant for r, a = 8: inputs in registers up to r = 24;
+// streamed above, with as many outputs a thread as r needs in one pass
+// (OWNERS*SJ >= r), so no thread holds idle accumulators. Only the
+// variants the planned lengths reach are built (fft_rows.long_geometry):
+// 32 columns for n2 <= 512 (r <= 64), 16 columns above (64 < r <= 128).
+int launch_columns_32(const float* xre, const float* xim, const float2* w1, const float2* wn2, const float2* wr,
+                      const float2* tw, float2* ws, int rows, int n1, int n2, int r, cudaStream_t stream) {
+  constexpr int OWNERS = rm_fft::WARPS;  // one 32-lane owner a warp
+  if (r <= 8) return launch_columns<8, 8, 32>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
+  if (r <= 24) return launch_columns<8, 24, 32>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
+  if (r <= 2 * OWNERS) return launch_columns<8, 0, 32, 2>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
+  if (r <= 3 * OWNERS) return launch_columns<8, 0, 32, 3>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
+  if (r <= 4 * OWNERS) return launch_columns<8, 0, 32, 4>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_columns_16(const float* xre, const float* xim, const float2* w1, const float2* wn2, const float2* wr,
+                      const float2* tw, float2* ws, int rows, int n1, int n2, int r, cudaStream_t stream) {
+  constexpr int OWNERS = 2 * rm_fft::WARPS;  // two 16-lane owners a warp
+  if (r <= 3 * OWNERS) return launch_columns<8, 0, 16, 3>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
+  if (r <= 4 * OWNERS) return launch_columns<8, 0, 16, 4>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int R1>
+int launch_rows(const float2* ws, const float2* w1, float* fre, float* fim, int rows, int n2, int a, int r,
+                cudaStream_t stream) {
+  const size_t warps = static_cast<size_t>(rows) * n2;
+  const size_t blocks = (warps + ROW_THREADS / 32 - 1) / (ROW_THREADS / 32);
+  ct_rows_kernel<R1><<<static_cast<unsigned>(blocks), ROW_THREADS, 0, stream>>>(ws, w1, fre, fim, rows, n2, a, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// w1: W_n1^e (e < n1/2); wn2, wr, tw: ct_plan.radix_tables and ct_constants'
+// twiddle for this n; ws: [rows, n2, n1] float2 workspace.
+extern "C" int rm_fft_rows_ct_long(const float* xre, const float* xim, const float2* w1, const float2* wn2,
+                                   const float2* wr, const float2* tw, float2* ws, float* fre, float* fim,
+                                   int rows, int n1, int n2, int a, int r, cudaStream_t stream) {
+  if (a != 8 || a * r != n2 || n2 > MAX_N2 || (n1 != 128 && n1 != 256)) return static_cast<int>(cudaErrorInvalidValue);
+  const int err = n2 <= 512 ? launch_columns_32(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream)
+                            : launch_columns_16(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
+  if (err != 0) return err;
+  if (n1 == 128) return launch_rows<128>(ws, w1, fre, fim, rows, n2, a, r, stream);
+  return launch_rows<256>(ws, w1, fre, fim, rows, n2, a, r, stream);
+}

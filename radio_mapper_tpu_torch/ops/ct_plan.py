@@ -102,7 +102,7 @@ def device_tables(n: int, inverse: bool, device: torch.device) -> DeviceTables:
     )
 
 
-RADIX_N1 = 128  # the outer length of every split kernel K3 takes (n ≤ 24576)
+RADIX_N1 = (128, 256)  # the outer lengths of K3's radix steps: 128 up to 24576 (one block), 128 or 256 above
 RADIX_MAX_A = 8  # the largest first factor of the inner n2-point transform
 
 
@@ -112,23 +112,24 @@ class RadixTables(NamedTuple):
 
     ``a = min(8, 2^v₂(n2))`` (v₂: the factors of 2 in n2); step A runs an
     a-point radix-2 FFT, step B a direct r-point DFT, step C the outer
-    128-point radix-2 FFT (``csrc/ct_fft.cuh``).
+    n1-point radix-2 FFT (``csrc/ct_fft.cuh``).
     """
 
+    n1: int
     n2: int
     a: int
     r: int
-    w128: np.ndarray  # [64, 2]: W_128^e, e < 64 (the radix-2 stages of steps A and C)
+    w1: np.ndarray  # [n1/2, 2]: W_n1^e, e < n1/2 (the radix-2 stages of steps A and C)
     wn2: np.ndarray  # [n2, 2]: W_n2^e, e < n2 (step A's W_n2^{j·k}, j·k < n2)
     wr: np.ndarray  # [r, r, 2]: W_r^{j·s}
 
 
 def radix_split(n: int) -> Tuple[int, int, int]:
     """``(n2, a, r)`` of :class:`RadixTables`; raises ValueError unless
-    ``ct_split(n)`` has n1 = 128."""
+    ``ct_split(n)`` has n1 in :data:`RADIX_N1`."""
     n1, n2 = ct_split(n)
-    if n1 != RADIX_N1:
-        raise ValueError(f"FFT length {n} splits as {n1}·{n2}, not {RADIX_N1}·n2")
+    if n1 not in RADIX_N1:
+        raise ValueError(f"FFT length {n} splits as {n1}·{n2}, not n1·n2 with n1 in {RADIX_N1}")
     a = min(RADIX_MAX_A, n2 & -n2)
     return n2, a, n2 // a
 
@@ -142,11 +143,12 @@ def _roots(e: np.ndarray, m: int, inverse: bool = False) -> np.ndarray:
 
 @functools.lru_cache(maxsize=16)
 def radix_tables(n: int) -> RadixTables:
+    n1 = ct_split(n)[0]
     n2, a, r = radix_split(n)
     jr = np.arange(r)
     return RadixTables(
-        n2, a, r,
-        w128=_roots(np.arange(RADIX_N1 // 2), RADIX_N1),
+        n1, n2, a, r,
+        w1=_roots(np.arange(n1 // 2), n1),
         wn2=_roots(np.arange(n2), n2),
         wr=_roots(np.outer(jr, jr) % r, r),
     )
@@ -154,16 +156,16 @@ def radix_tables(n: int) -> RadixTables:
 
 @functools.lru_cache(maxsize=16)
 def device_radix_tables(n: int, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``(w128, wn2, wr)`` of :func:`radix_tables` on ``device``."""
+    """``(w1, wn2, wr)`` of :func:`radix_tables` on ``device``."""
     t = radix_tables(n)
-    return tuple(torch.from_numpy(a).to(device) for a in (t.w128, t.wn2, t.wr))
+    return tuple(torch.from_numpy(a).to(device) for a in (t.w1, t.wn2, t.wr))
 
 
 @functools.lru_cache(maxsize=4)
 def inverse_radix_table(n1: int) -> np.ndarray:
     """``[n1/2, 2]`` float32: W_n1^−e for e < n1/2, the twiddles of the
     GCC pair body's inverse radix-2 n1-point FFT (``csrc/gcc_pair.cuh``),
-    as :func:`radix_tables`' ``w128`` is for K3's forward stages."""
+    as :func:`radix_tables`' ``w1`` is for K3's forward stages."""
     return _roots(np.arange(n1 // 2), n1, inverse=True)
 
 

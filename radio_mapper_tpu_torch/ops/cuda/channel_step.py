@@ -45,7 +45,7 @@ import torch
 
 from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import ct_plan
-from radio_mapper_tpu_torch.ops.cuda import build, detect_ct, fft_detect, gcc_pair
+from radio_mapper_tpu_torch.ops.cuda import build, detect_ct, fft_detect, fft_rows, gcc_pair
 
 launch_count = 0  # launches of the CUDA kernel (not of the plain version)
 
@@ -99,6 +99,18 @@ def supported(
     return ct_plan.ct_supported(nfft)
 
 
+def geometry(n: int):
+    """``(n2, a, r)`` of a row K8 takes, decided without a card: K1's
+    one-block body (:func:`fft_detect.radix_geometry`), nfft ≤
+    :data:`fft_detect.MAX_N`. K8 has no long-row design: above that it
+    raises ValueError, fault F3b (ROADMAP §3)."""
+    if n > fft_detect.MAX_N:
+        raise ValueError(
+            f"K8 runs K1's one-block body, nfft ≤ {fft_detect.MAX_N}; nfft {n} is {fft_rows.F3B}"
+        )
+    return fft_detect.radix_geometry(n, "K8 (K1's body, then K2's)")
+
+
 def channel_step_partials(
     re_pad: torch.Tensor,
     im_pad: torch.Tensor,
@@ -143,8 +155,8 @@ def channel_step_partials(
 def _launch(re, im, pair_i, pair_j, plan, max_lag, eps):
     global launch_count
     *lead, b, n = re.shape
-    n2, a, r = fft_detect.radix_geometry(n, "K8 (K1's body, then K2's)")
-    n1 = ct_plan.RADIX_N1
+    n2, a, r = geometry(n)
+    n1 = ct_plan.ct_split(n)[0]  # 128: K1's one-block body
     if b > MAX_B_PAD:
         raise ValueError(f"K8 runs a cluster of one block per receiver: at most {MAX_B_PAD}, got {b}")
     nneg, npos = gcc_pair.window_rows(n, max_lag)

@@ -2,25 +2,32 @@
 
 Replaces ``radio_mapper_tpu/ops/pallas/detect_kernel.py::detect_ct_partials``
 (body ``detect_kernel._detect_body`` with ``emit_topk=0``). The CUDA
-source is ``radio_mapper_tpu_torch/csrc/detect_ct.cu``; its body is kernel
-K1's detect epilogue (``csrc/ct_detect.cuh``).
+source is ``radio_mapper_tpu_torch/csrc/detect_ct.cu``; it runs the parts
+of kernel K1's detect epilogue (``csrc/ct_detect.cuh``).
 
-Design (first, simple version): one thread block per row reads the row's
-spectra once, keeps the linear power ``fr² + fi²`` (69,632 B at nfft
-17408) and a scratch of the same size in shared memory, and runs the
-detect epilogue there: the 24-step dB bisection over the stride-8
-subsample, the circular ±radius sliding max in natural bin order, the
-gates and the per-8-bin-segment (max, lowest argmax). The reference's
-``rows_per_block`` and row padding tile the TPU's VMEM and are dropped.
-On K1's own spectra it gives K1's partials and noise floor bit for bit.
+Design: one thread block a row, in two phases,
+without holding the row in shared memory, so it takes any length a
+detect plan gives (n1 a multiple of :data:`TILE`, radius ≤ n2). Phase a
+reads the row once for its max and the stride-8 subsample's dB values
+(n/8 floats in shared memory) and runs the 24-step dB bisection of the
+noise floor over them. Phase b walks tiles of :data:`TILE` columns k1,
+each a run of n2 natural bins, read again with a halo of radius bins from
+the neighbour columns (circular), and runs the circular ±radius sliding
+max in natural bin order, the gates and the per-8-bin-segment (max,
+lowest argmax). Every reduction is a max, a min or a count, so on K1's own
+spectra K4 gives K1's partials and noise floor bit for bit. The
+reference's ``rows_per_block`` and row padding tile the TPU's VMEM and
+are dropped.
 
-What bounds it on the H100: device-memory bytes — 8 B read and 1 B
-written per bin (≈ 160 MB at [1024, 17408], ≈ 0.05 ms at 3.35 TB/s); the
-sliding max reads shared memory 2·radius + 1 times per bin. Left for later
-PRs: several short rows per block and a register-tiled sliding max.
+What bounds it on the H100: device-memory bytes — the spectra read twice
+(16 B a bin) and the partials written once (1 B a bin), ≈ 0.1 ms at
+[1024, 17408] at 3.35 TB/s; the sliding max reads shared memory
+2·radius + 1 times per bin. Left for later PRs: a register-tiled sliding
+max.
 
 It runs on the two-kernel detect route of the single-dwell pipeline
-(K3 → K4, ``detect.set_fused_fft_detect("off")``).
+(K3 → K4, ``detect.set_fused_fft_detect("off")``); kernel K1's long rows
+run it after the long K3 and take its row max (:mod:`.fft_detect`).
 """
 
 from __future__ import annotations
@@ -33,12 +40,13 @@ from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import build, fft_detect
 
-launch_count = 0  # launches of the CUDA kernel (not of the plain version)
+launch_count = 0  # launches of K4 (not of the plain version, nor K1's long rows)
 
 THREADS = 512  # must match K4_THREADS in detect_ct.cu
+TILE = 16  # columns k1 a phase-b tile (TILE in detect_ct.cu)
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 5
+    [ctypes.c_void_p] * 6
     + [ctypes.c_int] * 6
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int]
     + [ctypes.c_void_p]
@@ -73,36 +81,52 @@ def detect_ct_partials(spec_re: torch.Tensor, spec_im: torch.Tensor, plan: ct_pl
       (8·b2 + off) + n2·k1 — and the noise floor in dB, ``[rows]``.
 
     CPU tensors go through :func:`detect_ct_partials_plain`; CUDA tensors
-    launch the kernel.
+    launch the kernel (:func:`geometry` checks the length).
     """
+    global launch_count
     fft_detect.check_rows(spec_re, spec_im, plan)
     if spec_re.device.type == "cpu":
         with device.cpu_single_thread():
             return detect_ct_partials_plain(spec_re, spec_im, plan)
     if spec_re.device.type != "cuda":
         raise ValueError(f"no K4 implementation for device {spec_re.device}")
-    return _launch(spec_re, spec_im, plan)
+    score, arg, nf, _ = launch(spec_re, spec_im, plan, row_max=False)
+    launch_count += 1
+    return score, arg, nf
 
 
-def _launch(fr, fi, plan):
-    global launch_count
-    n1, n2, n = plan.n1, plan.n2, plan.nfft
-    if 2 * n * 4 > fft_detect.SMEM_LIMIT:
-        raise ValueError(f"K4 keeps 2·nfft floats of a row in shared memory; nfft {n} is too long")
+def geometry(nfft: int, radius: int) -> int:
+    """The dynamic shared memory K4 takes for rows of nfft bins and a
+    ±radius sliding max, decided without a card: the larger of phase a's
+    n/8 floats and phase b's tile (``2·TILE·n2 + 2·radius`` floats). Raises
+    ValueError unless n1 is a multiple of :data:`TILE`, 8 | n2, radius ≤ n2
+    and that fits a block."""
+    n1, n2 = ct_plan.ct_split(nfft)
+    smem = 4 * max(nfft // ct_plan.SEGMENT, 2 * TILE * n2 + 2 * radius)
+    if n1 % TILE or n2 % ct_plan.SEGMENT or not 0 <= radius <= n2 or smem > fft_detect.SMEM_LIMIT:
+        raise ValueError(f"K4 takes n1 a multiple of {TILE}, 8 | n2 and radius ≤ n2 within {fft_detect.SMEM_LIMIT} B "
+                         f"of shared memory; got nfft {nfft} = {n1}·{n2}, radius {radius}")
+    return smem
+
+
+def launch(fr: torch.Tensor, fi: torch.Tensor, plan: ct_plan.DetectPlan, *, row_max: bool):
+    """The kernel on ``[rows, nfft]`` CUDA spectra, counted by the caller
+    (K4 as one launch of K4, kernel K1's long rows as part of one launch
+    of K1): ``(seg_score, seg_arg, noise_floor_db, row_max or None)``."""
+    geometry(plan.nfft, plan.radius)
     fn = build.kernel("rm_detect_ct_partials", _ARGTYPES)
     rows, s = fr.shape[0], plan.segments
-    score = torch.empty((rows, s), dtype=torch.float32, device=fr.device)
-    arg = torch.empty((rows, s), dtype=torch.float32, device=fr.device)
-    nf = torch.empty((rows,), dtype=torch.float32, device=fr.device)
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=fr.device)
+    score, arg, nf = f32(rows, s), f32(rows, s), f32(rows)
+    rmax = f32(rows) if row_max else None
+    ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
     err = fn(
-        ptr(fr), ptr(fi), ptr(score), ptr(arg), ptr(nf),
-        rows, n1, n2, *fft_detect.plan_args(plan),
+        ptr(fr), ptr(fi), ptr(score), ptr(arg), ptr(nf), ptr(rmax),
+        rows, plan.n1, plan.n2, *fft_detect.plan_args(plan),
         ctypes.c_void_p(torch.cuda.current_stream(fr.device).cuda_stream),
     )
     build.check(err, "detect_ct_partials")
-    launch_count += 1
-    return score, arg, nf
+    return score, arg, nf, rmax
 
 
 def detect_ct_partials_plain(spec_re: torch.Tensor, spec_im: torch.Tensor, plan: ct_plan.DetectPlan):

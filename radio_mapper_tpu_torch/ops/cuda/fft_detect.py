@@ -4,25 +4,39 @@ Replaces ``radio_mapper_tpu/ops/pallas/detect_kernel.py::fft_detect_rows_ct``
 (body ``fft_kernel.ct_fft_core`` + ``detect_kernel._detect_body``). The
 CUDA source is ``radio_mapper_tpu_torch/csrc/fft_detect.cu``.
 
-Design: one 512-thread block per row keeps the whole row (re+im, 139,264
-B at nfft 17408) in shared memory and runs kernel K3's radix steps on it
-(``csrc/ct_fft.cuh`` ``fft_power_row``): every row K1 takes is n = 128·n2
-with n2 = 8·r, r ≤ 24 (:func:`ct_plan.radix_split`; a detect plan has
-8 | n2), so step A is an 8-point radix-2 FFT and step B a direct r-point
-DFT with its inputs in registers; step C, a warp-shuffle 128-point FFT
-per slot row, stores the spectra as K3 does (K1's spectra equal K3's bit
-for bit) and hands each value's power to the detect body through
-registers (at most 48 a thread), written back over the row in CT order
-after a barrier. The detect body then runs on that power array
-(``csrc/ct_detect.cuh``, shared with kernels K4 and K8): row max, the
+Two designs, chosen by length inside :func:`fft_detect_rows_ct`
+(:func:`geometry`); a length neither takes raises ``ValueError``.
+
+Up to :data:`MAX_N` (``csrc/fft_detect.cu``): one 512-thread block per row
+keeps the whole row (re+im, 139,264 B at nfft 17408) in shared memory and
+runs kernel K3's radix steps on it (``csrc/ct_fft.cuh`` ``fft_power_row``):
+every such row is n = 128·n2 with n2 = 8·r, r ≤ 24
+(:func:`ct_plan.radix_split`; a detect plan has 8 | n2), so step A is an
+8-point radix-2 FFT and step B a direct r-point DFT with its inputs in
+registers; step C, a warp-shuffle 128-point FFT per slot row, stores the
+spectra as K3 does (K1's spectra equal K3's bit for bit) and hands each
+value's power to the detect body through registers (at most 48 a
+thread), written back over the row in CT order after a barrier. The
+detect body then runs on that power array (``csrc/ct_detect.cuh``,
+shared with kernel K8; K4 runs its parts on column tiles): row max, the
 24-step dB bisection over the stride-8 subsample, the circular ±radius
 sliding max in natural bin order, the gates, and the per-8-bin-segment
 (max, lowest argmax).
 
+Above :data:`MAX_N`, with n1 = 128 or 256 (:func:`fft_detect_rows_ct_long`):
+two hand-written kernels in turn, the long-row K3 (``csrc/fft_rows_ct_long.cu``)
+and then K4 (``csrc/detect_ct.cu``, which holds no row in shared memory) on
+its spectra, with the row max. The reference's function is that composition, so the outputs
+are those of K3 → K4 bit for bit; the pair counts as one launch of K1.
+Splits with n1 ∈ {384, 640, 896} are fault F3b (ROADMAP §3) and raise.
+Fusing the two halves for long rows (a row across a thread-block
+cluster's distributed shared memory) is a later redesign.
+
 What bounds it on the H100: device-memory bytes (the row read and the
-spectra written once, ≈ 0.28 MB a row at 17408) and then the block
-barriers and shared-memory passes of the radix steps and of the detect
-body, whose sliding max reads the power 2·radius + 1 times. Left for
+spectra written once, ≈ 0.28 MB a row at 17408; the long design moves
+the row through the workspace and reads the spectra back twice) and then
+the block barriers and shared-memory passes of the radix steps and of the
+detect body, whose sliding max reads the power 2·radius + 1 times. Left for
 later PRs: the detect body (a register-tiled sliding max), TMA row loads,
 and fusing K1 into the pair stage (K2) so the spectra never reach device
 memory.
@@ -36,12 +50,13 @@ import torch
 
 from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import ct_plan
-from radio_mapper_tpu_torch.ops.cuda import build, fft_rows
+from radio_mapper_tpu_torch.ops.cuda import build, detect_ct, fft_rows
 
-launch_count = 0  # launches of the CUDA kernel (not of the plain version)
+launch_count = 0  # launches of K1 (not of the plain version); a long-row call counts once
+design_counts = {"block": 0, "long": 0}  # the same launches, by design
 
 THREADS = 512  # must match K1_THREADS in fft_detect.cu (= ct_fft.cuh's THREADS)
-MAX_N = 24_576  # power held in registers: n2 ≤ (THREADS/32)·HANDOFF_MAX_HELD/4 = 192
+MAX_N = 24_576  # the one-block design's limit: power held in registers, n2 ≤ (THREADS/32)·HANDOFF_MAX_HELD/4 = 192
 SMEM_LIMIT = 232_448 - 256  # H100 per-block shared memory less the static part
 W128_BYTES = 64 * 8  # W_128^e, e < 64, after the row in shared memory
 
@@ -80,9 +95,9 @@ def plan_args(plan: ct_plan.DetectPlan) -> list:
 
 
 def radix_geometry(n: int, kernel: str = "K1"):
-    """``(n2, a, r)`` of a row K1's forward half takes (K8's too): n =
-    128·n2, n2 = 8·r, n ≤ :data:`MAX_N`, the row and W_128 in shared
-    memory. Raises ValueError otherwise."""
+    """``(n2, a, r)`` of a row the one-block design of K1's forward half
+    takes (K8's too): n = 128·n2, n2 = 8·r, n ≤ :data:`MAX_N`, the row and
+    W_128 in shared memory. Raises ValueError otherwise."""
     n2, a, r = ct_plan.radix_split(n)  # raises unless n = 128·n2
     if a != ct_plan.RADIX_MAX_A or n > MAX_N or n * 8 + W128_BYTES > SMEM_LIMIT:
         raise ValueError(
@@ -90,6 +105,17 @@ def radix_geometry(n: int, kernel: str = "K1"):
             f"in shared memory); got nfft {n} = 128·{n2}"
         )
     return n2, a, r
+
+
+def geometry(n: int) -> str:
+    """K1's design for rows of n samples, decided without a card:
+    ``"block"`` (:func:`radix_geometry`) or ``"long"`` (n > :data:`MAX_N`,
+    the long-row K3's lengths, :func:`fft_rows.geometry`). Raises
+    ValueError otherwise: for n1 ∈ {384, 640, 896} that is fault F3b."""
+    if n <= MAX_N:
+        radix_geometry(n)
+        return "block"
+    return fft_rows.geometry(n)  # "long" above MAX_N, or it raises
 
 
 def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
@@ -107,7 +133,8 @@ def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectP
       linear power, ``[rows]``.
 
     CPU tensors go through :func:`fft_detect_rows_ct_plain`; CUDA tensors
-    launch the kernel.
+    launch the design :func:`geometry` picks: one kernel up to
+    :data:`MAX_N`, above it the long-row K3 and K4 in turn.
     """
     check_rows(re, im, plan)
     if re.device.type == "cpu":
@@ -115,7 +142,26 @@ def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectP
             return fft_detect_rows_ct_plain(re, im, plan)
     if re.device.type != "cuda":
         raise ValueError(f"no K1 implementation for device {re.device}")
+    if geometry(plan.nfft) == "long":
+        return fft_detect_rows_ct_long(re, im, plan)
     return _launch(re, im, plan)
+
+
+def fft_detect_rows_ct_long(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
+    """:func:`fft_detect_rows_ct` through the long-row design on CUDA rows
+    with n1 = 128 or 256: the long K3, then K4 with the row max,
+    counted as one launch of K1. The wrapper routes only n > :data:`MAX_N`
+    here; the card tests also force shorter rows through it, where its
+    outputs equal the one-block K1's bit for bit."""
+    global launch_count
+    check_rows(re, im, plan)
+    if re.device.type != "cuda":
+        raise ValueError(f"the long-row K1 runs on CUDA tensors, not {re.device}")
+    fr, fi = fft_rows.long_rows(re, im)
+    score, arg, nf, rmax = detect_ct.launch(fr, fi, plan, row_max=True)
+    launch_count += 1
+    design_counts["long"] += 1
+    return fr, fi, score, arg, nf, rmax
 
 
 def _launch(re, im, plan):
@@ -142,6 +188,7 @@ def _launch(re, im, plan):
     )
     build.check(err, "fft_detect_rows_ct")
     launch_count += 1
+    design_counts["block"] += 1
     return fr, fi, score, arg, nf, rmax
 
 

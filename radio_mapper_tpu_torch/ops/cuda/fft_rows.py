@@ -5,28 +5,46 @@ Replaces ``radio_mapper_tpu/ops/pallas/fft_kernel.py::fft_rows_ct`` (body
 ``radio_mapper_tpu_torch/csrc/fft_rows_ct.cu``; its steps are
 ``csrc/ct_fft.cuh``.
 
-Design: one 512-thread block per row keeps the row (re+im, 40,960 B at
-the wideband nfft 5120) in shared memory. Every length K3 takes splits as
-n = 128·n2 with n2 = a·r, a = min(8, 2^v₂(n2)) (:func:`ct_plan.radix_split`):
-step A runs an a-point radix-2 FFT in registers; step B the direct
-r-point DFT with the row twiddle folded into its write (its r ≤ 24
-inputs in registers, as on every length the pipelines plan; streamed
-from shared memory above that); step C one warp per 128-point row, a
-radix-2 FFT across lanes with ``__shfl_xor_sync`` that stores the
-spectra, coalesced, in CT order. All twiddles are float32 tables of
-float64 roots of unity (:func:`ct_plan.radix_tables`, ``ct_constants``'
-twiddle).
+Two designs, chosen by length inside :func:`fft_rows_ct`
+(:func:`geometry`); a length neither takes raises ``ValueError``.
+
+One block a row, n = 128·n2 ≤ :data:`MAX_N` (``csrc/fft_rows_ct.cu``):
+one 512-thread block keeps the row (re+im, 40,960 B at the wideband nfft
+5120) in shared memory. The length splits as n2 = a·r, a = min(8,
+2^v₂(n2)) (:func:`ct_plan.radix_split`): step A runs an a-point radix-2
+FFT in registers; step B the direct r-point DFT with the row twiddle
+folded into its write (its r ≤ 24 inputs in registers, as on every
+length the pipelines plan up to 24576; streamed from shared memory above
+that); step C one warp per 128-point row, a radix-2 FFT across lanes with
+``__shfl_xor_sync`` that stores the spectra, coalesced, in CT order. All
+twiddles are float32 tables of float64 roots of unity
+(:func:`ct_plan.radix_tables`, ``ct_constants``' twiddle).
+
+Long rows, n > :data:`MAX_N` with n1 = 128 or 256 and 8 | n2
+(``csrc/fft_rows_ct_long.cu``, :func:`fft_rows_ct_long`,
+:func:`long_geometry`): the same steps in two passes through a
+[rows, n] float2 workspace that the wrapper allocates (277 MB at
+[1024, 33792]). A column pass takes a tile of 32 (or, for n2 > 512, 16)
+columns of a row, runs steps A and B on it (streamed for r > 24) and
+writes the slot rows to the workspace; a row pass runs step C, one warp
+a slot row (P = n1/32 points a lane), and stores in CT order. At r ≤ 24
+its spectra equal the one-block design's bit for bit. Lengths whose
+split has n1 ∈ {384, 640, 896} (the first planned one 52224) are fault
+F3b (ROADMAP §3) and raise.
 
 What bounds it on the H100: device-memory bytes — a row read and its
-spectrum written once, 80 KB a row at 5120 — and then the three block
-barriers between a row's loads and its stores; the arithmetic is 128·a·r²
-complex FMAs a row for step B plus the radix-2 butterflies (the direct
-four-step DFT it replaced issued n·(128 + n2) from shared memory).
+spectrum written once, 80 KB a row at 5120 (twice that for the long
+design's workspace round trip) — and then the three block barriers
+between a row's loads and its stores; the arithmetic is n1·a·r² complex
+FMAs a row for step B plus the radix-2 butterflies (the direct four-step
+DFT it replaced issued n·(n1 + n2) from shared memory).
 Kernels K1 and K8 run the same steps (``ct_fft.cuh`` ``fft_power_row``)
 and store the same spectra. The wideband path launches it once per block
 on all M·B = 1024 rows; the two-kernel flagship route on 1024 rows of
-17408.
-Left for later PRs: TMA row loads and tensor cores.
+17408; the single-dwell step's long rows (block_len 32768: 33792) run
+the long design.
+Left for later PRs: TMA row loads, tensor cores, and the long rows across
+a thread-block cluster instead of the workspace.
 
 Precision: the reference's module default (``precision=None``) runs the
 products as explicit bf16x3; the PHAT chain passes ``"default"``, which
@@ -45,10 +63,14 @@ from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import build
 
 launch_count = 0  # launches of the CUDA kernel (not of the plain version)
+design_counts = {"block": 0, "long": 0}  # the same launches, by design
 
-MAX_N = 24_576  # one row in a block's shared memory; the same row range as kernel K1
+MAX_N = 24_576  # the one-block design's limit: one row in a block's shared memory (as kernel K1's)
+LONG_MAX_ROWS = 65_535  # the column pass's grid rows
+F3B = "fault F3b (ROADMAP §3)"
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_LONG_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _check(re: torch.Tensor, im: torch.Tensor) -> None:
@@ -74,7 +96,8 @@ def fft_rows_ct(re: torch.Tensor, im: torch.Tensor):
       DFT bin ``k2 + n2·k1`` at ``m = k2·n1 + k1``.
 
     CPU tensors go through :func:`fft_rows_ct_plain`; CUDA tensors launch
-    the kernel.
+    the design :func:`geometry` picks for nfft: one block a row up to
+    :data:`MAX_N`, the long-row design above.
     """
     _check(re, im)
     if re.device.type == "cpu":
@@ -82,17 +105,85 @@ def fft_rows_ct(re: torch.Tensor, im: torch.Tensor):
             return fft_rows_ct_plain(re, im)
     if re.device.type != "cuda":
         raise ValueError(f"no K3 implementation for device {re.device}")
+    if geometry(re.shape[-1]) == "long":
+        return fft_rows_ct_long(re, im)
     return _launch(re, im)
+
+
+def geometry(n: int) -> str:
+    """K3's design for rows of n samples, decided without a card:
+    ``"block"`` (n = 128·n2 ≤ :data:`MAX_N`) or ``"long"`` (n > MAX_N,
+    :func:`long_geometry`). Raises ValueError for a length without a CT
+    split, and for n1 ∈ {384, 640, 896}: fault F3b."""
+    n1, n2 = ct_plan.ct_split(n)
+    if n1 == 128 and n <= MAX_N:
+        return "block"
+    if n > MAX_N:
+        long_geometry(n)
+        return "long"
+    raise ValueError(f"K3 takes nfft = n1·n2 with n1 in {ct_plan.RADIX_N1}; nfft {n} = {n1}·{n2} is {F3B}")
+
+
+def long_geometry(n: int):
+    """``(n1, n2, a, r)`` of a row the long-row design takes: n1 ∈
+    :data:`ct_plan.RADIX_N1` and a = 8 (8 | n2), as every planned length
+    with such an n1 splits. Only these column-pass variants are built:
+    32 columns for n2 ≤ 512, 16 above, step B's inputs in registers up to
+    r = 24 and 2, 3 or 4 outputs a thread above. Raises ValueError otherwise:
+    for n1 ∈ {384, 640, 896} that is fault F3b."""
+    n1, n2 = ct_plan.ct_split(n)
+    if n1 not in ct_plan.RADIX_N1:
+        raise ValueError(f"the long-row K3 takes n1 in {ct_plan.RADIX_N1}; nfft {n} = {n1}·{n2} is {F3B}")
+    _, a, r = ct_plan.radix_split(n)
+    if a != ct_plan.RADIX_MAX_A:
+        raise ValueError(f"the long-row K3 takes n2 a multiple of {ct_plan.RADIX_MAX_A}; nfft {n} = {n1}·{n2}")
+    return n1, n2, a, r
+
+
+def fft_rows_ct_long(re: torch.Tensor, im: torch.Tensor):
+    """:func:`fft_rows_ct` through the long-row design on CUDA rows of a
+    length :func:`long_geometry` takes (the wrapper routes only n >
+    :data:`MAX_N` here; the card tests also force shorter rows through
+    it, where its spectra equal the one-block design's bit for bit)."""
+    global launch_count
+    _check(re, im)
+    if re.device.type != "cuda":
+        raise ValueError(f"the long-row K3 runs on CUDA tensors, not {re.device}")
+    out = long_rows(re, im)
+    launch_count += 1
+    design_counts["long"] += 1
+    return out
+
+
+def long_rows(re: torch.Tensor, im: torch.Tensor):
+    """The long-row design's two passes on contiguous float32 CUDA rows,
+    counted by the caller: K3 as one launch of K3, kernel K1's long rows
+    as part of one launch of K1."""
+    n = re.shape[-1]
+    n1, n2, a, r = long_geometry(n)
+    rows = re.numel() // n
+    if rows > LONG_MAX_ROWS:
+        raise ValueError(f"the long-row K3 takes at most {LONG_MAX_ROWS} rows, got {rows}")
+    fn = build.kernel("rm_fft_rows_ct_long", _LONG_ARGTYPES)
+    w1, wn2, wr = ct_plan.device_radix_tables(n, re.device)
+    tw = ct_plan.device_tables(n, False, re.device).tw
+    ws = torch.empty((rows, n, 2), dtype=torch.float32, device=re.device)  # [rows, n2, n1] slot rows
+    fr = torch.empty_like(re)
+    fi = torch.empty_like(im)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    err = fn(
+        ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(wr), ptr(tw), ptr(ws), ptr(fr), ptr(fi),
+        rows, n1, n2, a, r,
+        ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream),
+    )
+    build.check(err, "fft_rows_ct_long")
+    return fr, fi
 
 
 def _launch(re, im):
     global launch_count
     n = re.shape[-1]
-    n2, a, r = ct_plan.radix_split(n)  # raises unless n1 = 128
-    if n > MAX_N:
-        raise ValueError(
-            f"K3 supports nfft = 128·n2 ≤ {MAX_N} (one row in shared memory); got nfft {n} = 128·{n2}"
-        )
+    n2, a, r = ct_plan.radix_split(n)
     fn = build.kernel("rm_fft_rows_ct", _ARGTYPES)
     w128, wn2, wr = ct_plan.device_radix_tables(n, re.device)
     tw = ct_plan.device_tables(n, False, re.device).tw
@@ -106,6 +197,7 @@ def _launch(re, im):
     )
     build.check(err, "fft_rows_ct")
     launch_count += 1
+    design_counts["block"] += 1
     return fr, fi
 
 

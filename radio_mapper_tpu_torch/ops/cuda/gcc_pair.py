@@ -208,7 +208,7 @@ def _geometry(n: int, max_lag: int, what: str):
     inner length or shared memory does not fit."""
     n1, n2 = ct_plan.ct_split(n)
     if n1 not in PAIR_N1:
-        raise ValueError(f"{what} supports n1 in {PAIR_N1}; got nfft {n} = {n1}·{n2}")
+        raise ValueError(f"{what} supports n1 in {PAIR_N1}; nfft {n} = {n1}·{n2} is fault F3b (ROADMAP §3)")
     nneg, npos = window_rows(n, max_lag)
     smem = smem_bytes(n1, nneg, npos)
     if smem > SMEM_LIMIT:

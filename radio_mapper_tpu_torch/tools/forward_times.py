@@ -11,13 +11,28 @@ wrappers, K1 (``fft_detect``) at the card tests' shape [16, 9216] (the
 (``channel_step``) at [128, 8, 17408] with max_lag 512: the mean of 20
 back-to-back launches between two CUDA events, median of 3, so the host's
 time to call the wrapper overlaps the card's work. K1 less K3 is what K1
-spends past the transform: the power hand-off and the detect body. The
-wrappers' signatures are those of every version since K8 was ported, so
-with ``PYTHONPATH`` at another checkout it times that checkout's kernels.
+spends past the transform: the power hand-off and the detect body. Then
+K1, K3 and K4 on rows past one block's shared memory, [1024, 33792],
+[1024, 34816] (n1 = 256) and [1024, 66560], which run the long-row
+designs (a checkout without them prints that the wrapper raises), and
+the long-row K3 and K1 forced onto [1024, 17408] beside the one-block ones.
+Last, one line of digests: SHA-256 of the outputs on seeded rows up to
+17408, K3 at every instantiation of the one-block design a length up to
+24576 reaches (a ∈ {1, 2, 4, 8}, step B in registers or streamed), K1 at
+5120, 9216 and 17408, K4 at 9216 and 17408, K8 at [16, 8, 5120] (max_lag
+256), [16, 8, 9216] and [128, 8, 17408] (max_lag 512). Equal digests from
+two checkouts in one call mean equal outputs bit for bit.
+
+The wrappers' signatures are those of every version since K8 was ported,
+so with ``PYTHONPATH`` at another checkout it times that checkout's
+kernels. Run this file by its path (``python3
+radio_mapper_tpu_torch/tools/forward_times.py``) to time another
+checkout with this version of the script.
 """
 
 from __future__ import annotations
 
+import hashlib
 import statistics
 import sys
 
@@ -46,6 +61,32 @@ def _mean_ms(fn, reps=20):
     return statistics.median(out)
 
 
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _digests(dev, tag) -> None:
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = lambda *shape: 40.0 * torch.randn(*shape, device=dev, generator=g)
+    out = {"K3": [], "K1": [], "K4": [], "K8": []}
+    for n2 in (5, 9, 17, 25, 10, 18, 34, 50, 20, 36, 68, 100, 40, 72, 136):  # (a, r) of every K3 instantiation
+        out["K3"] += fft_rows.fft_rows_ct(rows(64, 128 * n2), rows(64, 128 * n2))
+    for nfft in (5120, 9216, 17408):
+        plan = ct_plan.detect_plan(nfft, **DETECT)
+        xr, xi = rows(128, 8, nfft), rows(128, 8, nfft)
+        out["K1"] += fft_detect.fft_detect_rows_ct(xr.view(-1, nfft), xi.view(-1, nfft), plan)
+        if nfft > 5120:
+            out["K4"] += detect_ct.detect_ct_partials(*fft_rows.fft_rows_ct(xr.view(-1, nfft), xi.view(-1, nfft)), plan)
+        c = 128 if nfft == 17408 else 16
+        pi, pj = gcc_phat.pair_indices(8)
+        lag = 256 if nfft == 5120 else 512  # K8's pair buffers take max_lag ≤ 256 at 5120
+        out["K8"] += channel_step.channel_step_partials(xr[:c], xi[:c], pi, pj, plan, lag)
+    print("digests: " + ", ".join(f"{k} {_digest(v)}" for k, v in out.items()) + f" {tag}")
+
+
 def main() -> int:
     card = device.require_cuda()
     tag = card.label()
@@ -67,6 +108,36 @@ def main() -> int:
     x8r, x8i = xr.view(c, b, nfft), xi.view(c, b, nfft)
     t8 = _mean_ms(lambda: channel_step.channel_step_partials(x8r, x8i, pi, pj, plan, lag))
     print(f"[{c}, {b}, {nfft}], max_lag {lag}: K8 {t8:.4f} ms {tag}")
+    del x8r, x8i
+    for rows, nfft in ((1024, 33_792), (1024, 34_816), (1024, 66_560)):
+        plan = ct_plan.detect_plan(nfft, **DETECT)
+        xr = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
+        xi = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
+        try:
+            fr, fi = fft_rows.fft_rows_ct(xr, xi)
+        except ValueError as e:
+            print(f"[{rows}, {nfft}]: K3 raises: {e}")
+            continue
+        t1 = _mean_ms(lambda: fft_detect.fft_detect_rows_ct(xr, xi, plan))
+        t3 = _mean_ms(lambda: fft_rows.fft_rows_ct(xr, xi))
+        t4 = _mean_ms(lambda: detect_ct.detect_ct_partials(fr, fi, plan))
+        print(f"[{rows}, {nfft}] ({'·'.join(map(str, ct_plan.ct_split(nfft)))}), long rows: K1 {t1:.4f} ms, "
+              f"K3 {t3:.4f} ms, K4 {t4:.4f} ms {tag}")
+        del xr, xi, fr, fi
+    if hasattr(fft_rows, "fft_rows_ct_long"):
+        rows, nfft = 1024, 17_408
+        plan = ct_plan.detect_plan(nfft, **DETECT)
+        xr = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
+        xi = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
+        times = {
+            "K1 block": _mean_ms(lambda: fft_detect.fft_detect_rows_ct(xr, xi, plan)),
+            "K1 long": _mean_ms(lambda: fft_detect.fft_detect_rows_ct_long(xr, xi, plan)),
+            "K3 block": _mean_ms(lambda: fft_rows.fft_rows_ct(xr, xi)),
+            "K3 long": _mean_ms(lambda: fft_rows.fft_rows_ct_long(xr, xi)),
+        }
+        print(f"[{rows}, {nfft}], long designs forced: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+              + f" {tag}")
+    _digests(dev, tag)
     return 0
 
 

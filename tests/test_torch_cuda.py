@@ -12,7 +12,10 @@ The input builders and comparisons are shared with the JAX parity tests
 ``test_torch_wideband.py``, ``test_torch_fft_natural.py``), so a kernel is held to the same tolerances
 as its plain version is against JAX:
 
-- K1 and K3 spectra within 1e-4 of the row's max |X|; K1 ``row_max``
+- K1 and K3 spectra within 1e-4 of the row's max |X|, in both designs
+  (one block a row up to 24576; the long-row designs at 33792, 34816 and
+  66560, and forced onto 5120-24576, where they equal the one-block
+  outputs bit for bit); K1 ``row_max``
   within 1e-5 relative, ``noise_floor_db`` within 1e-3 dB (log10 differs
   by ulps between libraries), segment partials exact outside
   float32-tied segments (see :func:`fragile_segments`), scores within
@@ -398,12 +401,108 @@ def test_k3_kernel_matches_plain(cuda_device, nfft):
 
 
 @pytest.mark.cuda
-def test_k3_kernel_rejects_rows_past_shared_memory(cuda_device):
-    x = torch.zeros(2, 32768, device=cuda_device)  # 128·256: a CT split, but 256 KB a row
-    before = fft_rows.launch_count
-    with pytest.raises(ValueError):
+def test_k3_kernel_takes_long_rows_and_rejects_f3b(cuda_device):
+    """32768 = 128·256 (256 KB a row) runs the long-row design; 52224 =
+    384·136 is fault F3b and raises before any launch."""
+    re, im = tone_rows(4, 32768, 16)
+    xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
+    before, long_before = fft_rows.launch_count, fft_rows.design_counts["long"]
+    out = fft_rows.fft_rows_ct(xr, xi)
+    torch.cuda.synchronize()
+    assert (fft_rows.launch_count, fft_rows.design_counts["long"]) == (before + 1, long_before + 1)
+    assert_spectra_close([o.cpu() for o in out], [o.cpu() for o in fft_rows.fft_rows_ct_plain(xr, xi)])
+    x = torch.zeros(2, 52224, device=cuda_device)
+    with pytest.raises(ValueError, match="F3b"):
         fft_rows.fft_rows_ct(x, x)
-    assert fft_rows.launch_count == before
+    assert fft_rows.launch_count == before + 1
+
+
+LONG_SHAPES = [(16, 33792), (16, 34816), (8, 66560)]  # n1·n2 = 128·264, 256·136, 128·520
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,nfft", LONG_SHAPES)
+def test_long_kernels_match_plain(cuda_device, rows, nfft):
+    """K3, K4 and K1 on rows past one block's shared memory (the long-row
+    designs, one launch of each wrapper) vs their plain versions: K3's
+    spectra within 1e-4 of the row's max |X|; K4 on K3's spectra and K1 as
+    K1 is held; K1's outputs equal K3 → K4 on the same rows bit for bit."""
+    re, im = tone_rows(rows, nfft, 17, n_valid=nfft - 1024)
+    plan = ct_plan.detect_plan(nfft, **DET)
+    xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
+    counts = lambda: (fft_rows.design_counts["long"], fft_detect.design_counts["long"],
+                      fft_rows.launch_count, detect_ct.launch_count, fft_detect.launch_count)
+    before = counts()
+    f3r, f3i = fft_rows.fft_rows_ct(xr, xi)
+    k4 = detect_ct.detect_ct_partials(f3r, f3i, plan)
+    k1 = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1,) * 5
+    host = lambda xs: [x.cpu() for x in xs]
+    assert_spectra_close(host((f3r, f3i)), host(fft_rows.fft_rows_ct_plain(xr, xi)))
+    p4 = detect_ct.detect_ct_partials_plain(f3r, f3i, plan)
+    assert_partials_close(host(k4), host(p4), f3r.cpu(), f3i.cpu(), plan)
+    assert_k1_close(host(k1), host(fft_detect.fft_detect_rows_ct_plain(xr, xi, plan)), plan)
+    for x, y in zip(k1[:5], (f3r, f3i, *k4)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", [5120, 17408, 24576])
+def test_long_design_forced_equals_one_block_design(cuda_device, nfft):
+    """On lengths the one-block designs take, the long-row K3 and K1
+    (called directly) give the one-block outputs bit for bit, and K4 (one
+    design, column tiles) on the one-block K3's spectra gives the one-block
+    K1's partials and floor bit for bit: the same per-value arithmetic
+    (ct_fft.cuh's steps at r ≤ 24, ct_detect.cuh's parts), only the data
+    movement differs."""
+    re, im = tone_rows(16, nfft, 18, n_valid=nfft - nfft // 5)
+    plan = ct_plan.detect_plan(nfft, **DET)
+    xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
+    assert fft_rows.geometry(nfft) == fft_detect.geometry(nfft) == "block"
+    block = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    k3_block = fft_rows.fft_rows_ct(xr, xi)
+    k4 = detect_ct.detect_ct_partials(*k3_block, plan)
+    k3_long = fft_rows.fft_rows_ct_long(xr, xi)
+    k1_long = fft_detect.fft_detect_rows_ct_long(xr, xi, plan)
+    torch.cuda.synchronize()
+    for x, y in [*zip(k3_long, k3_block), *zip(k4, block[2:5]), *zip(k1_long, block)]:
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["default", "two-kernel"])
+def test_pipeline_long_rows_on_card_match_cpu(cuda_device, route):
+    """The phase-4 scene at block_len 32768 (nfft 33792, the long-row
+    designs) on the default route (K1, K2) and the two-kernel route (K3,
+    K4, K2) vs the CPU: detections equal, lags within 1e-3 samples, the fix
+    within 0.5 m, under 50 m."""
+    from radio_mapper_tpu_torch.ops import detect
+
+    scen = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8, block_len=32768)
+    cap = sim.synthesize(scen)
+    cfg = PipelineConfig(num_buoys=4, block_len=32768, sample_rate_hz=scen.sample_rate_hz, max_lag=600,
+                         power_offset_db=40.0)
+    host = [torch.from_numpy(a.astype(np.float32)) for a in (cap.iq.real, cap.iq.imag, cap.buoy_enu)]
+    counters = lambda: (fft_detect.design_counts["long"], fft_rows.design_counts["long"],
+                        detect_ct.launch_count, gcc_pair.launch_count)
+    want = {"default": (1, 0, 0, 1), "two-kernel": (0, 1, 1, 1)}[route]
+    detect.set_fused_fft_detect("off" if route == "two-kernel" else "auto")
+    try:
+        cpu = TDOAPipeline(cfg, device="cpu").step_split(*host)
+        before = counters()
+        gpu = TDOAPipeline(cfg, device=cuda_device).step_split(*(a.to(cuda_device) for a in host))
+        torch.cuda.synchronize()
+    finally:
+        detect.set_fused_fft_detect("auto")
+    assert tuple(a - b for a, b in zip(counters(), before)) == want
+    np.testing.assert_array_equal(gpu.peaks.bin_index.cpu().numpy(), cpu.peaks.bin_index.numpy())
+    np.testing.assert_allclose(
+        gpu.correlation.lag_samples.cpu().numpy(), cpu.correlation.lag_samples.numpy(), atol=1e-3
+    )
+    pos = gpu.fix.position_enu.cpu().numpy()
+    np.testing.assert_allclose(pos, cpu.fix.position_enu.numpy(), atol=0.5)
+    assert np.linalg.norm(pos[:2] - cap.emitter_enu[0][:2]) < 50.0
 
 
 @pytest.mark.cuda

@@ -62,7 +62,7 @@ def k3_registers(x: np.ndarray) -> np.ndarray:
     rows, n = x.shape
     t = ct_plan.radix_tables(n)
     n2, a, r = t.n2, t.a, t.r
-    w128, wn2, wr = _c64(t.w128), _c64(t.wn2), _c64(t.wr)
+    w128, wn2, wr = _c64(t.w1), _c64(t.wn2), _c64(t.wr)
     _, _, _, _, _, _, twre, twim = ct_plan.ct_constants(n)
     tw = (twre + 1j * twim).astype(np.complex64)  # [n2, 128]
     xs = x.reshape(rows, n2, 128).astype(np.complex64)  # slot rows
@@ -129,7 +129,7 @@ def test_radix_tables_are_float64_rounded_once():
         t = ct_plan.radix_tables(n)
         assert t.a * t.r == t.n2 and t.a == min(8, t.n2 & -t.n2)
         for table, m, e in (
-            (t.w128, 128, np.arange(64)),
+            (t.w1, t.n1, np.arange(t.n1 // 2)),
             (t.wn2, t.n2, np.arange(t.n2)),
             (t.wr, t.r, np.outer(np.arange(t.r), np.arange(t.r)) % t.r),
         ):

@@ -253,7 +253,7 @@ def test_inverse_radix_table_is_float64_rounded_once(n1):
     np.testing.assert_array_equal(t[:, 0], w.real.astype(np.float32))
     np.testing.assert_array_equal(t[:, 1], w.imag.astype(np.float32))
     if n1 == 128:  # the conjugate of K3's forward table
-        w128 = ct_plan.radix_tables(5120).w128
+        w128 = ct_plan.radix_tables(5120).w1
         np.testing.assert_array_equal(t, w128 * np.array([1, -1], np.float32))
 
 
