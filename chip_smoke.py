@@ -90,10 +90,26 @@ per source, in parallel, sm_90a), then:
     routes, card vs CPU; and 4 flagship blocks at full width, 128 ch × 8
     buoys × 32768 uint8 IQ, max_lag 600, through
     ``step_split_uint8_scan`` on the default route: ms/block, launches by
-    design and a per-stage split.
+    design and a per-stage split;
+20. the lengths whose split has n1 ∈ {384, 640, 896} (once fault F3b;
+    the mixed-radix warp FFT) and the in-kernel top-K (T1): the long K3
+    vs its plain version at [1024, 58368] (the flagship block at
+    block_len 57344), [512, 87040] and [256, 121856], with times, bounds
+    and ``torch.fft.fft`` + the CT permutation; K1 = K3 → K4 bit for bit
+    at 58368; K2 at [16, 8, 58368] and [8, 8, 121856] and K5 at [1, 64,
+    58368] vs plain; K8's long design at [16, 8, 58368] equal to K1 → K2
+    bit for bit; K1 and K4 with ``emit_topk = 8`` at 17408, 33792 and
+    58368 equal to their own partials + the port's top-K tail bit for
+    bit, and close to their plain versions; the phase-4 scene at
+    block_len 57344 on the default, two-kernel, mega and combined-topk
+    routes, card vs CPU; and 4 flagship blocks at full width, 128 ch × 8
+    buoys × 57344 uint8 IQ, max_lag 600, on the default route: ms/block,
+    launches by design and a per-stage split.
 
 Each kernel's entry in the ``kernels`` line carries its sources (K1 and
-K3 with their long-row files), the long rows' numbers (K1, K3, K4), its
+K3 with their long-row files, K8 with its long design's), the long rows'
+numbers (K1, K3, K4), phase 20's (``mixed_rows`` of K1, K2, K3, K5; K8's
+``long_rows``; ``topk`` of K1 and K4), its
 time and its
 plain version's at the main path's shapes (K2's error is the largest of
 its PHAT modes; "cc" windows are unwhitened, so their errors are in other
@@ -307,7 +323,7 @@ def main() -> int:
     import torch
     import torch.nn.functional as F
 
-    from radio_mapper_tpu_torch import device, sim
+    from radio_mapper_tpu_torch import device, sim, testing
     from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
     from radio_mapper_tpu_torch.models.wideband import WidebandConfig, WidebandTDOAPipeline
     from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat, iq, split_complex
@@ -1232,8 +1248,267 @@ def main() -> int:
     )
     del lraw, lout
 
+    # ---- phase 20: the mixed-radix inner lengths (n1 = 384, 640, 896: the
+    # lengths that were fault F3b) and the in-kernel top-K (T1, emit_topk)
+    mcfg = PipelineConfig(num_buoys=buoys, block_len=57_344, sample_rate_hz=fs, max_lag=600)
+    mpipe = TDOAPipeline(mcfg, device=dev)
+    mnfft = mpipe.plan.nfft
+    _require(mnfft == 58_368 and ct_plan.ct_split(mnfft) == (384, 152), f"block_len 57344 plans nfft {mnfft}")
+    mraw, manchors = mpipe.example_inputs(batch=(4, chans), seed=0, uint8=True)
+    manchors = manchors[0]
+    mre, mim = iq.decode_uint8_split(mraw[0])  # [chans, buoys, 57344]
+    gen = torch.Generator(device=dev).manual_seed(20)
+    noise_rows = lambda r, nf: (40.0 * torch.randn(r, nf, device=dev, generator=gen),
+                                40.0 * torch.randn(r, nf, device=dev, generator=gen))
+    mixed_rows = {}  # K3 (and K1 at 58368) at the three mixed-radix row passes
+    for rows_m, mn in ((1024, 58_368), (512, 87_040), (256, 121_856)):
+        mxr, mxi = (fill(mre, mn), fill(mim, mn)) if mn == mnfft else noise_rows(rows_m, mn)
+        n1m, n2m = ct_plan.ct_split(mn)
+        before = fft_rows.design_counts["long"]
+        m3 = fft_rows.fft_rows_ct(mxr, mxi)
+        torch.cuda.synchronize()
+        _require(fft_rows.design_counts["long"] == before + 1, f"the long K3 did not run at {mn}")
+        pm3 = fft_rows.fft_rows_ct_plain(mxr, mxi)
+        m3_abs, m3_rel = _row_rel_error(m3, pm3)
+        del pm3
+        m3_ms = _cuda_ms(torch, lambda: fft_rows.fft_rows_ct(mxr, mxi))
+        m3_plain_ms = _cuda_ms(torch, lambda: fft_rows.fft_rows_ct_plain(mxr, mxi))
+        mxc = torch.complex(mxr, mxi)
+        mperm = torch.as_tensor(ct_plan.ct_permutation(mn), device=dev)
+        m3_lib_ms = _cuda_ms(torch, lambda: torch.fft.fft(mxc)[:, mperm])
+        del mxc
+        m3_bound = _bound(_fft_flops(rows_m, mn), 2 * 8 * rows_m * mn)
+        mixed_rows[("K3", mn)] = ([rows_m, mn], m3_abs, m3_ms, m3_plain_ms, m3_bound, m3_lib_ms)
+        print(
+            f"phase 20: long K3 [{rows_m}, {mn}] ({n1m}·{n2m}, P = {n1m // 32} a lane): spectra max|err| {m3_abs:.3e} "
+            f"(rel to row max|X| {m3_rel:.3e}, tol 1e-4); kernel {m3_ms:.3f} ms, plain {m3_plain_ms:.3f} ms, "
+            f"torch.fft.fft + CT permutation {m3_lib_ms:.3f} ms, bound {m3_bound[0]:.4f} ms ({m3_bound[1]}) {tag}"
+        )
+        _require(m3_rel <= 1e-4, f"long K3 spectra disagree at {mn}: {m3_rel}")
+        if mn == mnfft:  # K1's long rows there: the long K3 then K4, bit for bit
+            mplan = mpipe.plan
+            m1 = fft_detect.fft_detect_rows_ct(mxr, mxi, mplan)
+            m4 = detect_ct.detect_ct_partials(*m3, mplan)
+            torch.cuda.synchronize()
+            m1_is_k3k4 = all(torch.equal(x, y) for x, y in zip(m1[:5], (*m3, *m4)))
+            pm1 = fft_detect.fft_detect_rows_ct_plain(mxr, mxi, mplan)
+            m1e = _partials_errors(torch, m1[2:5], pm1[2:5], *pm1[:2])
+            m1_abs = _row_rel_error(m1[:2], pm1[:2])[0]
+            del pm1
+            m1_ms = _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct(mxr, mxi, mplan))
+            m1_plain_ms = _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct_plain(mxr, mxi, mplan))
+            m1_bound = _bound(_fft_flops(rows_m, mn) + _detect_flops(rows_m, mn),
+                              rows_m * mn * 16 + rows_m * mplan.segments * 8 + rows_m * 8)
+            mixed_rows[("K1", mn)] = ([rows_m, mn], m1_abs, m1_ms, m1_plain_ms, m1_bound, None)
+            print(
+                f"phase 20: long K1 [{rows_m}, {mn}]: = K3 -> K4 bit for bit: {m1_is_k3k4}; vs plain: floor "
+                f"{m1e[2]:.3e} dB, pattern {m1e[0]:.2e}, argmax {m1e[1]:.2e}, score rel {m1e[4]:.3e}; kernel "
+                f"{m1_ms:.3f} ms, plain {m1_plain_ms:.3f} ms, bound {m1_bound[0]:.4f} ms ({m1_bound[1]}) {tag}"
+            )
+            _require(m1_is_k3k4, f"long K1 differs from K3 -> K4 at {mn}")
+            _require(m1e[0] <= 1e-3 and m1e[1] <= 1e-3 and m1e[2] <= 1e-3 and m1e[4] <= 1e-4 and m1e[5],
+                     f"long K1 partials disagree at {mn}: {m1e}")
+            del m1, m4
+        del m3, mxr, mxi
+
+    # K2 and K5 (the pair body's mixed-radix inverse) and K8's long design
+    for name, c_m, b_m, mn in (("K2", 16, 8, 58_368), ("K2", 8, 8, 121_856), ("K5", 1, 64, 58_368)):
+        sre_m, sim_m, smax_m = _ct_spectra(torch, ct_plan, c_m, b_m, mn, dev, seed=mn % 97)
+        pi_m, pj_m = gcc_phat.pair_indices(b_m)
+        if name == "K2":
+            run = lambda: gcc_pair.gcc_pair_lag_mags(sre_m, sim_m, smax_m, pi_m, pj_m, max_lag=600)
+            plain = lambda: gcc_pair.gcc_pair_lag_mags_plain(sre_m, sim_m, smax_m, pi_m, pj_m, max_lag=600)
+        else:
+            s2_m = smax_m[:, pi_m] * smax_m[:, pj_m]
+            run = lambda: gcc_pair.gcc_pairs_onehot_lag_mags(sre_m, sim_m, pi_m, pj_m, max_lag=600, s2=s2_m)
+            plain = lambda: gcc_pair.gcc_pairs_onehot_lag_mags_plain(sre_m, sim_m, pi_m, pj_m, max_lag=600, s2=s2_m)
+        km, pm = run(), plain()
+        torch.cuda.synchronize()
+        km_abs, km_rel = _window_errors(km, pm)
+        km_arg = bool((km.argmax(-1) == pm.argmax(-1)).all())
+        km_ms, km_plain_ms = _cuda_ms(torch, run), _cuda_ms(torch, plain)
+        npm = c_m * len(pi_m)
+        km_bound = _bound(_pair_flops(npm, mn, 1201), c_m * b_m * mn * 8 + npm * 4 + npm * 1201 * 4)
+        mixed_rows[(name, mn)] = ([c_m, b_m, mn], km_abs, km_ms, km_plain_ms, km_bound, None)
+        print(
+            f"phase 20: {name} at n1 = {ct_plan.ct_split(mn)[0]}, [{c_m}, {b_m}, {mn}] -> {list(km.shape)} window "
+            f"max|err| {km_abs:.3e} (rel to window max {km_rel:.3e}, tol 1e-4), same argmax {km_arg}; kernel "
+            f"{km_ms:.3f} ms, plain {km_plain_ms:.3f} ms, bound {km_bound[0]:.4f} ms ({km_bound[1]}) {tag}"
+        )
+        _require(km_rel <= 1e-4 and km_arg, f"{name} lag windows disagree at {mn}: {km_rel}")
+        del km, pm, sre_m, sim_m, smax_m
+    m8r, m8i = (fill(a[:16], mnfft).view(16, buoys, mnfft) for a in (mre, mim))
+    _require(channel_step.geometry(mnfft) == "long", "K8 at 58368 is not its long design")
+    before = (channel_step.launch_count, channel_step.design_counts["long"])
+    k8m = channel_step.channel_step_partials(m8r, m8i, pi, pj, mpipe.plan, 600)
+    torch.cuda.synchronize()
+    k8_long_ran = (channel_step.launch_count - before[0], channel_step.design_counts["long"] - before[1]) == (1, 1)
+    c1 = fft_detect.fft_detect_rows_ct(m8r.view(-1, mnfft), m8i.view(-1, mnfft), mpipe.plan)
+    c2 = gcc_pair.gcc_pair_lag_mags(c1[0].view(16, buoys, mnfft), c1[1].view(16, buoys, mnfft),
+                                    c1[5].view(16, buoys), pi, pj, max_lag=600)
+    k8m_same = all(torch.equal(x.reshape(y.shape), y) for x, y in zip(k8m, (*c1[2:5], c2)))
+    p8m = channel_step.channel_step_partials_plain(m8r, m8i, pi, pj, mpipe.plan, 600)
+    k8m_abs, k8m_rel = _window_errors(k8m[3], p8m[3])
+    k8m_nf = (k8m[2] - p8m[2]).abs().max().item()
+    del p8m, c1, c2
+    k8m_ms = _cuda_ms(torch, lambda: channel_step.channel_step_partials(m8r, m8i, pi, pj, mpipe.plan, 600))
+    k8m_plain_ms = _cuda_ms(torch, lambda: channel_step.channel_step_partials_plain(m8r, m8i, pi, pj, mpipe.plan, 600))
+    mrows8 = 16 * buoys
+    k8m_bound = _bound(
+        _fft_flops(mrows8, mnfft) + _detect_flops(mrows8, mnfft) + _pair_flops(16 * npairs, mnfft, 1201),
+        mrows8 * mnfft * 8 + mrows8 * (mnfft // 8) * 8 + mrows8 * 4 + 16 * npairs * 1201 * 4,
+    )
+    mixed_rows[("K8", mnfft)] = ([16, buoys, mnfft], k8m_abs, k8m_ms, k8m_plain_ms, k8m_bound, None)
+    print(
+        f"phase 20: K8 long design [16, {buoys}, {mnfft}] (long K3, K4, K2 as one K8 launch: {k8_long_ran}): = K1 -> "
+        f"K2 (l2rx) bit for bit: {k8m_same}; vs plain window max|err| {k8m_abs:.3e} (rel {k8m_rel:.3e}, tol 1e-4), "
+        f"floor {k8m_nf:.3e} dB; kernel {k8m_ms:.3f} ms, plain {k8m_plain_ms:.3f} ms, bound {k8m_bound[0]:.4f} ms "
+        f"({k8m_bound[1]}) {tag}"
+    )
+    _require(k8_long_ran and k8m_same, "K8's long design is not K1 -> K2")
+    _require(k8m_rel <= 1e-4 and k8m_nf <= 1e-3, f"K8 long design disagrees with its plain version: {k8m_rel}")
+    del k8m, m8r, m8i
+
+    # T1: K1 and K4 with emit_topk = 8, at one-block, long and mixed-radix lengths
+    traw, _ = pipe.example_inputs(batch=(1, chans), seed=0, uint8=True)
+    t17 = iq.decode_uint8_split(traw[0])
+    traw, _ = long_pipe.example_inputs(batch=(1, chans), seed=0, uint8=True)
+    t33 = iq.decode_uint8_split(traw[0])
+    del traw
+    topk_rows = {}
+    for tn, (tre, tim) in ((17_408, t17), (33_792, t33), (mnfft, (mre, mim))):
+        txr, txi = fill(tre, tn), fill(tim, tn)
+        tplan = ct_plan.detect_plan(
+            tn, sample_rate_hz=fs, threshold_db=-70.0, min_distance_bins=10,
+            dc_notch_hz=10_000.0, confidence_floor=0.3, snr_fullscale_db=20.0,
+        )
+        t1 = fft_detect.fft_detect_rows_ct(txr, txi, tplan, emit_topk=8)
+        t0_ = fft_detect.fft_detect_rows_ct(txr, txi, tplan)
+        t4 = detect_ct.detect_ct_partials(t0_[0], t0_[1], tplan, emit_topk=8)
+        tail = fft_detect.topk_plain(t0_[2], t0_[3], 8)
+        torch.cuda.synchronize()
+        same = {
+            "K1": all(torch.equal(x, y) for x, y in zip(t1, (*t0_[:2], *tail, *t0_[4:]))),
+            "K4": all(torch.equal(x, y) for x, y in zip(t4, (*tail, t0_[4]))),
+        }
+        tp1 = fft_detect.fft_detect_rows_ct_plain(txr, txi, tplan, emit_topk=8)
+        tp4 = detect_ct.detect_ct_partials_plain(t0_[0], t0_[1], tplan, emit_topk=8)
+        te1 = testing.topk_errors(t1[2:4], tp1[2:4], tp1[5], 8)
+        te4 = testing.topk_errors(t4[:2], tp4[:2], tp1[5], 8)
+        del tp1, tp4
+        tms = {
+            "K1": _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct(txr, txi, tplan, emit_topk=8)),
+            "K1 partials": _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct(txr, txi, tplan)),
+            "K1 plain": _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct_plain(txr, txi, tplan, emit_topk=8)),
+            "K4": _cuda_ms(torch, lambda: detect_ct.detect_ct_partials(t0_[0], t0_[1], tplan, emit_topk=8)),
+            "K4 partials": _cuda_ms(torch, lambda: detect_ct.detect_ct_partials(t0_[0], t0_[1], tplan)),
+            "K4 plain": _cuda_ms(torch, lambda: detect_ct.detect_ct_partials_plain(t0_[0], t0_[1], tplan, emit_topk=8)),
+        }
+        trows = txr.shape[0]
+        tb1 = _bound(_fft_flops(trows, tn) + _detect_flops(trows, tn), trows * tn * 16 + trows * 128 * 8 + trows * 8)
+        tb4 = _bound(_detect_flops(trows, tn), trows * tn * 8 + trows * 128 * 8 + trows * 4)
+        topk_rows[tn] = {"K1": ([trows, tn], te1[0], tms["K1"], tms["K1 plain"], tb1, tms["K1 partials"]),
+                         "K4": ([trows, tn], te4[0], tms["K4"], tms["K4 plain"], tb4, tms["K4 partials"])}
+        print(
+            f"phase 20: emit_topk 8 at [{trows}, {tn}] ({fft_detect.geometry(tn)} K1): = partials + the port's top-K "
+            f"tail bit for bit {same}; vs plain: K1 value max|err| {te1[0]:.3e} (rel to row max power {te1[1]:.3e}, "
+            f"tol 1e-4), packed differ outside near-ties {te1[2]} ({te1[3]:.2f} of lanes checked); K4 {te4[0]:.3e} "
+            f"({te4[1]:.3e}), {te4[2]} ({te4[3]:.2f}); " + ", ".join(f"{k} {v:.3f} ms" for k, v in tms.items())
+            + f" {tag}"
+        )
+        _require(all(same.values()), f"emit_topk differs from partials + tail at {tn}: {same}")
+        for te in (te1, te4):
+            _require(te[1] <= 1e-4 and te[2] == 0 and te[3] > 0.5, f"emit_topk disagrees with plain at {tn}: {te}")
+        del t1, t0_, t4, tail, txr, txi
+    del t17, t33
+
+    # the phase-4 scene at block_len 57344 on four routes, card vs CPU
+    scen57 = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8, block_len=57_344)
+    cap57 = sim.synthesize(scen57)
+    cfg57 = PipelineConfig(num_buoys=4, block_len=57_344, sample_rate_hz=scen57.sample_rate_hz, max_lag=600,
+                           power_offset_db=40.0)
+    host57 = [torch.from_numpy(a.astype(np.float32)) for a in (cap57.iq.real, cap57.iq.imag, cap57.buoy_enu)]
+    routes57 = {  # route → (knob, on, default, kernels launched)
+        "default": (detect_ops.set_fused_fft_detect, "auto", "auto", ["fft_detect_rows_ct", "gcc_pair_lag_mags"]),
+        "two-kernel": routes["two-kernel"],
+        "mega": routes["mega"],
+        "combined-topk": (detect_ops.set_combined_topk, True, False, ["fft_detect_rows_ct", "gcc_pair_lag_mags"]),
+    }
+    mega_long_launches = 0
+    for route, (knob, on, default, kernels) in routes57.items():
+        knob(on)
+        try:
+            zero_counts()
+            k8_long0 = channel_step.design_counts["long"]
+            on_card = TDOAPipeline(cfg57, device=dev).step_split(*(a.to(dev) for a in host57))
+            torch.cuda.synchronize()
+            got = {k: v for k, v in launch_counts().items() if v}
+            k8_long = channel_step.design_counts["long"] - k8_long0
+            on_cpu = TDOAPipeline(cfg57, device="cpu").step_split(*host57)
+        finally:
+            knob(default)
+        if route == "mega":
+            mega_long_launches = got.get("channel_step_partials", 0)
+        pos = on_card.fix.position_enu.cpu().numpy()
+        err_m = float(np.linalg.norm(pos[:2] - cap57.emitter_enu[0][:2]))
+        fix_gap = float(np.abs(pos - on_cpu.fix.position_enu.numpy()).max())
+        lag_gap = (on_card.correlation.lag_samples.cpu() - on_cpu.correlation.lag_samples).abs().max().item()
+        same_peaks = bool((on_card.peaks.bin_index.cpu() == on_cpu.peaks.bin_index).all())
+        print(
+            f"phase 20: scene at block_len 57344 (nfft {mnfft} = 384·152), {route} route: fix error {err_m:.3f} m "
+            f"(limit 50), card vs CPU: fix {fix_gap:.3e} m (tol 0.5), lags {lag_gap:.2e} samples (tol 1e-3), peaks "
+            f"equal {same_peaks}, launches {got}, K8 long design {k8_long} {tag}"
+        )
+        _require(err_m < 50.0 and fix_gap <= 0.5 and lag_gap <= 1e-3 and same_peaks,
+                 f"block_len 57344 scene, {route} route: card and CPU disagree")
+        _require(got == dict.fromkeys(kernels, 1), f"block_len 57344 {route} route launches {got}")
+        _require(k8_long == (1 if route == "mega" else 0), f"block_len 57344 {route} route K8 long {k8_long}")
+
+    # the flagship at full width at block_len 57344: 4 blocks, default route
+    mblocks = 4
+    mpipe.step_split_uint8(mraw[0], manchors)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    designs0 = (dict(fft_detect.design_counts), dict(fft_rows.design_counts))
+    t0 = time.perf_counter()
+    mout = mpipe.step_split_uint8_scan(mraw, manchors)
+    torch.cuda.synchronize()
+    mwall = time.perf_counter() - t0
+    mixed_launches = {k: v for k, v in launch_counts().items() if v}
+    k1_designs = {k: v - designs0[0][k] for k, v in fft_detect.design_counts.items()}
+    mfinite = all(torch.isfinite(x).all().item() for x in _leaves(torch, mout) if x.is_floating_point())
+    print(
+        f"phase 20: flagship at block_len 57344, {mblocks} blocks x {chans} ch x {buoys} buoys x 57344 uint8 IQ "
+        f"(nfft {mnfft}): {1e3 * mwall / mblocks:.3f} ms/block (real time {1e3 * 57_344 / fs:.3f}), "
+        f"{mblocks * chans * buoys * 57_344 / mwall:.4e} IQ samples/s, peak mem "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {mixed_launches}, K1 by design "
+        f"{k1_designs}, all finite {mfinite} {tag}"
+    )
+    _require(tuple(mout.fix.position_enu.shape) == (mblocks, chans, 3) and mfinite, "block_len 57344 outputs")
+    _require(mixed_launches == {"fft_detect_rows_ct": mblocks, "gcc_pair_lag_mags": mblocks}
+             and k1_designs == {"block": 0, "long": mblocks},
+             f"block_len 57344 launches {mixed_launches}, K1 designs {k1_designs}")
+    med = _stage_split(
+        torch, lambda mark: mpipe.step_split_uint8(mraw[0], manchors, on_stage=mark),
+        ["decode", "fft_detect", "peaks", "gcc_pair", "solve"],
+    )
+    print(
+        "phase 20: block_len 57344 stage split ms/block (median of 3, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+        + f", sum {sum(med.values()):.3f}, before the solve {sum(v for k, v in med.items() if k != 'solve'):.3f} {tag}"
+    )
+    del mraw, mout, mre, mim
+
+    def rows_entry(shape, err, ms, plain_ms, bound, library_ms):
+        return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": library_ms}
+
+    def topk_entry(shape, err, ms, plain_ms, bound, partials_ms):
+        return {**rows_entry(shape, err, ms, plain_ms, bound, None), "emit_topk": 8, "partials_ms": partials_ms}
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, algorithm_flops, library_ms=None,
-              long_source=(), long_name=None):
+              long_source=(), long_name=None, **extra):
         out = {
             "name": name,
             "route": "cuda",
@@ -1257,7 +1532,10 @@ def main() -> int:
                 for ln, v in long_rows.items()
             ]
             out["long_launches_block_len_32768"] = long_launches.get(name, 0)
-        return out
+        return {**out, **extra}
+
+    mixed = lambda name: [rows_entry(*v) for (k, _), v in mixed_rows.items() if k == name]
+    topk = lambda name: [topk_entry(*v[name]) for v in topk_rows.values()]
 
     wn1, wn2 = ct_plan.ct_split(wn)
     w_rows = sum(gcc_pair.window_rows(wn, wlag))
@@ -1270,24 +1548,27 @@ def main() -> int:
               launches["fft_detect_rows_ct"], spec_abs, k1_ms, k1_plain_ms,
               _bound(_fft_flops(nrows, nfft) + _detect_flops(nrows, nfft),
                      nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_radix,
-              long_source=["fft_rows_ct_long.cu", "detect_ct.cu"], long_name="K1"),
+              long_source=["fft_rows_ct_long.cu", "detect_ct.cu"], long_name="K1",
+              mixed_rows=mixed("K1"), topk=topk("K1"),
+              launches_block_len_57344=mixed_launches.get("fft_detect_rows_ct", 0)),
         entry("gcc_pair_lag_mags", "gcc_pair.cu", "gcc_kernel.py:358",
               launches["gcc_pair_lag_mags"], max(win_abs, k2_modes["l2"][0], k2_modes["l1"][0]), k2_ms, k2_plain_ms,
               _bound(_pair_flops(chans * npairs, nfft, width),
-                     nrows * nfft * 8 + nrows * 4 + chans * npairs * width * 4), k2_fft),
+                     nrows * nfft * 8 + nrows * 4 + chans * npairs * width * 4), k2_fft,
+              mixed_rows=mixed("K2"), launches_block_len_57344=mixed_launches.get("gcc_pair_lag_mags", 0)),
         entry("fft_rows_ct", "fft_rows_ct.cu", "fft_kernel.py:446",
               wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound,
               _radix_flops(m_sub * wb, wn, *ct_plan.radix_split(wn)[1:]), k3_lib_ms,
-              long_source=["fft_rows_ct_long.cu"], long_name="K3"),
+              long_source=["fft_rows_ct_long.cu"], long_name="K3", mixed_rows=mixed("K3")),
         entry("detect_ct_partials", "detect_ct.cu", "detect_kernel.py:309",
               route_launches["detect_ct_partials"], max(k4_score_abs, k4_nf), k4_ms, k4_plain_ms, k4_bound,
               nrows * nfft * (3 + 2 * plan.radius + 1),  # power, then the sliding max's compares
-              long_name="K4"),
+              long_name="K4", topk=topk("K4")),
         entry("gcc_pairs_onehot_lag_mags", "gcc_pair.cu", "gcc_kernel.py:743",
               wl5["gcc_pairs_onehot_lag_mags"], k5_abs, k5_ms, k5_plain_ms,
               _bound(_pair_flops(m_sub * wp, wn, w_width),
                      m_sub * wb * wn * 8 + m_sub * wp * 4 + m_sub * wp * w_width * 4),
-              _fft_pair_flops(m_sub * wp, wn1, wn2, w_rows)),
+              _fft_pair_flops(m_sub * wp, wn1, wn2, w_rows), mixed_rows=mixed("K5")),
         entry("gcc_rows_lag_mags", "gcc_pair.cu", "gcc_kernel.py:548",
               wl6["gcc_rows_lag_mags"], k6_abs, k6_ms, k6_plain_ms,
               _bound(_pair_flops(wp, wn, w_width), 4 * wp * wn * 4 + wp * 4 + wp * w_width * 4),
@@ -1297,7 +1578,10 @@ def main() -> int:
               _bound(_fft_flops(k7_rows, n), 2 * 8 * k7_rows * n),
               _natural_radix_flops(k7_rows, fft_natural.radix_plan(n)), k7_main[4]),
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
-              route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft),
+              route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft,
+              sources=[f"radio_mapper_tpu_torch/csrc/{f}" for f in
+                       ("channel_step.cu", "fft_rows_ct_long.cu", "detect_ct.cu", "gcc_pair.cu")],
+              long_rows=mixed("K8"), long_launches_block_len_57344_mega=mega_long_launches),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))
     return 0

@@ -1,12 +1,14 @@
 // Shared device code: the spectral detect epilogue of kernels K1, K4 and K8
 // on one row's linear power array in shared memory, and its parts.
 //
-// The body of radio_mapper_tpu/ops/pallas/detect_kernel.py::_detect_body
-// with emit_topk = 0: the row max, the 24-step dB bisection noise floor
-// over the stride-8 natural subsample, the circular +/-radius sliding max
-// in natural bin order, the gates, and the per-8-bin-segment (max, lowest
-// argmax) partials. K1 (fft_detect.cu) runs it on the spectra it has just
-// transformed and K8 (channel_step.cu) inside the per-channel megakernel;
+// The body of radio_mapper_tpu/ops/pallas/detect_kernel.py::_detect_body:
+// the row max, the 24-step dB bisection noise floor over the stride-8
+// natural subsample, the circular +/-radius sliding max in natural bin
+// order, the gates, and the per-8-bin-segment (max, lowest argmax)
+// partials; with emit_topk = K (K1 and K4, not K8) the K masked-argmax
+// passes over those partials (block_topk) instead of writing them. K1
+// (fft_detect.cu) runs it on the spectra it has just transformed and K8
+// (channel_step.cu) inside the per-channel megakernel;
 // K4 (detect_ct.cu) runs its parts (power, sub_db, bisect_floor,
 // conf_level, candidate, segment_partial) on column tiles of spectra read
 // from memory, so it takes rows that do not fit shared memory. Every
@@ -39,6 +41,9 @@ struct DetectParams {
 struct MaxOp { __device__ float operator()(float a, float b) const { return fmaxf(a, b); } };
 struct MinOp { __device__ float operator()(float a, float b) const { return fminf(a, b); } };
 struct SumOp { __device__ int operator()(int a, int b) const { return a + b; } };
+struct IntMinOp { __device__ int operator()(int a, int b) const { return min(a, b); } };
+
+constexpr int TOPK_LANES = 128;  // the emit_topk output block: [rows, 128]
 
 // Every thread returns the block-wide reduction (same value, same order).
 template <int THREADS, typename T, typename Op>
@@ -165,6 +170,42 @@ __device__ float2 detect_row(const float* pwr, float* aux, int n1, int n2, const
     segment_partial(aux + (SEG * b2) * n1 + k1, n1, sc + f, sa + f);
   }
   return make_float2(nf, row_max);
+}
+
+// The in-kernel top-K (detect_kernel._detect_body with emit_topk = k):
+// k passes over the s segment partials, each a block max m of work, then
+// the lowest index sel holding it (s where none does), as safe.top_k picks
+// (an all -inf row picks 0). Lane j < k of the outputs gets m and the
+// packed 8*sel + arg[sel] (exact in float32 below 2^24); work[sel] becomes
+// -inf; lanes k .. 127 get 0. work: the scores in shared memory
+// (overwritten); arg: the in-segment offsets (shared, or device memory this
+// block wrote before a barrier). Every thread of the block calls it after
+// a barrier that follows the last write of work and arg.
+template <int THREADS>
+__device__ void block_topk(float* work, const float* arg, int s, int k, float* __restrict__ vals,
+                           float* __restrict__ packed) {
+  __shared__ float red_f[THREADS / 32];
+  __shared__ int red_i[THREADS / 32];
+  const int tid = threadIdx.x;
+  for (int j = 0; j < k; ++j) {
+    float vmax = -CUDART_INF_F;
+    for (int f = tid; f < s; f += THREADS) vmax = fmaxf(vmax, work[f]);
+    const float m = block_reduce<THREADS>(vmax, MaxOp(), red_f);
+    int first = s;
+    for (int f = tid; f < s; f += THREADS) first = (work[f] >= m) ? min(first, f) : first;
+    const int sel = block_reduce<THREADS>(first, IntMinOp(), red_i);
+    if (tid == 0) {
+      const float off = sel < s ? arg[sel] : 0.f;
+      vals[j] = m;
+      packed[j] = __fadd_rn(__fmul_rn(8.f, static_cast<float>(sel)), off);
+      if (sel < s) work[sel] = -CUDART_INF_F;
+    }
+    __syncthreads();  // work[sel] is -inf for every thread's next pass
+  }
+  for (int j = k + tid; j < TOPK_LANES; j += THREADS) {
+    vals[j] = 0.f;
+    packed[j] = 0.f;
+  }
 }
 
 }  // namespace rm_det

@@ -13,10 +13,12 @@
 //   step B  for each column p and k < A: the direct r-point DFT over the
 //           slots j + r*k (j < r); X[k + A*s] times the row twiddle
 //           W_n^{(k + A*s)*p} goes to slot s + r*k;
-//   step C  one warp per slot row: the n1-point radix-2 FFT, P = n1/32
-//           points a lane, the stages across lanes (__shfl_xor_sync) and
-//           then log2(P) in registers; the outputs, bit-reversed, belong at
-//           CT row k2 = k + A*s in natural k1 order.
+//   step C  one warp per slot row: the n1-point FFT, P = n1/32 points a
+//           lane, five radix-2 stages across lanes (__shfl_xor_sync) and
+//           then a P-point transform in registers (radix-2 for P = 4 or 8;
+//           for P = 4q, q = 3, 5, 7, two radix-2 stages and a direct
+//           q-point DFT); the outputs, in that transform's digit order
+//           (digit<P>) times brev5(lane), belong at CT row k2 = k + A*s.
 //
 // One-block design (n1 = 128, the row in shared memory): K3 runs the
 // three steps in place and stores (step_c_store); K1 and K8 store the
@@ -24,7 +26,7 @@
 // (step_c_handoff), then, after a barrier, write the power over the row
 // in CT order (power_store) for the detect body (fft_power_row).
 //
-// Long-row design (fft_rows_ct_long.cu, n1 = 128 or 256): steps A and B
+// Long-row design (fft_rows_ct_long.cu, n1 = 128, 256, 384, 640 or 896): steps A and B
 // run on a tile of COLS columns of the row (the template parameter COLS
 // of step_a, step_b and step_b_stream) and write the slot rows to a
 // device-memory workspace; step C then runs from there, one warp a slot
@@ -62,6 +64,32 @@ __host__ __device__ constexpr int brev_bits(int x, int bits) {
 
 __host__ __device__ constexpr int log2_of(int x) { return x <= 1 ? 0 : 1 + log2_of(x / 2); }
 
+__host__ __device__ constexpr bool is_pow2(int x) { return (x & (x - 1)) == 0; }
+
+// The register transform's output order: after step C (or the pair body's
+// inverse), register i of lane l holds bin digit<P>(i)*32 + brev5(l)
+// (forward) or time P*brev5(l) + digit<P>(i) (inverse). Radix-2 (P a power
+// of two): brev(i). Mixed (P = 4q, q odd): register i = b*q + u holds the
+// output brev2(b) + 4u of block b's q-point DFT.
+template <int P>
+__host__ __device__ constexpr int digit(int i) {
+  if constexpr (is_pow2(P)) {
+    return brev_bits(i, log2_of(P));
+  } else {
+    return brev_bits(i / (P / 4), 2) + 4 * (i % (P / 4));
+  }
+}
+
+// The register that holds output m: digit<P>(digit_inv<P>(m)) = m.
+template <int P>
+__host__ __device__ constexpr int digit_inv(int m) {
+  if constexpr (is_pow2(P)) {
+    return brev_bits(m, log2_of(P));
+  } else {
+    return brev_bits(m % 4, 2) * (P / 4) + m / 4;
+  }
+}
+
 // Radix-2 DIF over v[0..L) in registers: the pair (t, t + h) of sub-size
 // 2h becomes (a + b, (a - b) * W_2h^(t mod h)), W_2h^u = W_NW^(u*NW/(2h)),
 // from the table w of W_NW^e, e < NW/2. Position t then holds output
@@ -79,6 +107,67 @@ __device__ __forceinline__ void dif_regs(float2 (&v)[L], const float2* w) {
       v[t + h] = e ? rm_ct::cmul(csub(a, b), w[e]) : csub(a, b);
     }
   }
+}
+
+// The roots of a q-point DFT: wq[m] = W_q^m, read as w[m*NW/q] for
+// m <= q/2 and conj(W_q^(q-m)) above (w: W_NW^e, e < NW/2; the pair body
+// passes its table of W_NW^-e and so gets the inverse's roots).
+template <int Q, int NW>
+__device__ __forceinline__ void q_roots(const float2* w, float2 (&wq)[Q]) {
+  wq[0] = make_float2(1.f, 0.f);
+#pragma unroll
+  for (int m = 1; m <= Q / 2; ++m) {
+    wq[m] = w[m * (NW / Q)];
+    wq[Q - m] = make_float2(wq[m].x, -wq[m].y);
+  }
+}
+
+// The direct q-point DFT (q = P/4, odd) of each of v's four blocks of q
+// registers, in place: y[u] = sum_t x[t] * wq[t*u mod q].
+template <int P>
+__device__ __forceinline__ void q_dfts(float2 (&v)[P], const float2 (&wq)[P / 4]) {
+  constexpr int Q = P / 4;
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    float2 x[Q];
+#pragma unroll
+    for (int t = 0; t < Q; ++t) x[t] = v[b * Q + t];
+#pragma unroll
+    for (int u = 0; u < Q; ++u) {
+      float2 acc = x[0];
+#pragma unroll
+      for (int t = 1; t < Q; ++t) {
+        if ((t * u) % Q == 0) acc = cadd(acc, x[t]);
+        else rm_ct::cmac(acc, x[t], wq[(t * u) % Q]);
+      }
+      v[b * Q + u] = acc;
+    }
+  }
+}
+
+// The registers' transform for P = 4q, q odd (3, 5, 7): the two radix-2
+// DIF stages of dif_regs (h = 2q, then q; the pair (t, t + h) becomes
+// (a + b, (a - b) * W_2h^(t mod h)), W_2h = W_NW^(NW/(2h))), after which
+// block b = t/q holds a q-point problem whose outputs are brev2(b) + 4u
+// (digit<P>); then q_dfts.
+template <int P, int NW>
+__device__ __forceinline__ void mixed_regs(float2 (&v)[P], const float2* w) {
+  constexpr int Q = P / 4;
+  static_assert(P % 4 == 0 && Q % 2 == 1 && Q > 1, "mixed_regs takes P = 4q, q odd");
+#pragma unroll
+  for (int h = 2 * Q; h >= Q; h -= Q) {
+#pragma unroll
+    for (int t = 0; t < P; ++t) {
+      if (t % (2 * h) >= h) continue;
+      const float2 a = v[t], b = v[t + h];
+      const int e = (t % h) * (NW / 2 / h);
+      v[t] = cadd(a, b);
+      v[t + h] = e ? rm_ct::cmul(csub(a, b), w[e]) : csub(a, b);
+    }
+  }
+  float2 wq[Q];
+  q_roots<Q, NW>(w, wq);
+  q_dfts<P>(v, wq);
 }
 
 // Step A on COLS columns held as xs[q*COLS + p]. Thread (p, j0) takes
@@ -170,12 +259,14 @@ __device__ __forceinline__ void step_b_stream(float2* xs, const float2* __restri
   }
 }
 
-// Step C on one slot row of R1 points (R1 = 128 or 256), in one warp: row
-// is the slot row (shared or device memory, 16-byte aligned), w1 the
-// table W_R1^e, e < R1/2. Lane l holds positions P*l + i (i < P = R1/32);
-// the stages of half-size h = R1/2..P pair lane l with lane l ^ (h/P), the
-// stages h < P pair registers. Position P*l + i then holds bin
-// brev(P*l + i) = brev_P(i)*32 + brev5(l), returned in v[i].
+// Step C on one slot row of R1 = 32*P points (P = 4, 8, 12, 20 or 28), in
+// one warp: row is the slot row (shared or device memory, 16-byte aligned),
+// w1 the table W_R1^e, e < R1/2. Lane l holds positions P*l + i (i < P);
+// the five radix-2 DIF stages of half-size h = R1/2 .. P pair lane l with
+// lane l ^ (h/P), twiddle W_R1^(((P*l + i) mod h) * R1/(2h)); after them
+// lane l holds the P-point problem whose outputs are bins brev5(l) + 32*u,
+// solved in registers (dif_regs, or mixed_regs for P = 4q, q odd).
+// Register i then holds bin digit<P>(i)*32 + brev5(l), returned in v[i].
 template <int R1 = N1>
 __device__ __forceinline__ void step_c_row(const float2* row, const float2* w1, float2 (&v)[R1 / 32]) {
   constexpr int P = R1 / 32;
@@ -195,19 +286,22 @@ __device__ __forceinline__ void step_c_row(const float2* row, const float2* w1, 
     for (int i = 0; i < P; ++i) {
       const float2 w = make_float2(__shfl_xor_sync(0xffffffffu, v[i].x, d),
                                    __shfl_xor_sync(0xffffffffu, v[i].y, d));
-      const int e = ((P * lane + i) & (h - 1)) * (R1 / 2 / h);
+      int e;
+      if constexpr (is_pow2(P)) e = ((P * lane + i) & (h - 1)) * (R1 / 2 / h);
+      else e = ((P * lane + i) % h) * (R1 / 2 / h);
       v[i] = top ? cadd(v[i], w) : rm_ct::cmul(csub(w, v[i]), w1[e]);
     }
   }
-  dif_regs<P, R1>(v, w1);
+  if constexpr (is_pow2(P)) dif_regs<P, R1>(v, w1);
+  else mixed_regs<P, R1>(v, w1);
 }
 
 // CT address of value i of this lane's step-C output of slot row sr =
-// s + r*k: row k2 = k + a*s, column k1 = brev_P(i)*32 + brev5(lane).
+// s + r*k: row k2 = k + a*s, column k1 = digit<P>(i)*32 + brev5(lane).
 template <int R1 = N1>
 __device__ __forceinline__ size_t ct_address(int sr, int i, int a, int r) {
   const int k = sr / r, s = sr - r * k;
-  const int k1 = brev_bits(i, log2_of(R1 / 32)) * 32 + static_cast<int>(__brev(threadIdx.x & 31) >> 27);
+  const int k1 = digit<R1 / 32>(i) * 32 + static_cast<int>(__brev(threadIdx.x & 31) >> 27);
   return static_cast<size_t>(k + a * s) * R1 + k1;
 }
 

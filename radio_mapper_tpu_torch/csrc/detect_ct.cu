@@ -3,11 +3,11 @@
 // with 8 | n2, without holding the row in shared memory.
 //
 // Replaces radio_mapper_tpu/ops/pallas/detect_kernel.py::detect_ct_partials
-// (detect_kernel._detect_body with emit_topk = 0). Kernel K1's long rows
-// run it after the long K3 and take its row max (K4 itself emits none, as
-// the reference's). Python wrapper: radio_mapper_tpu_torch/ops/cuda/
-// detect_ct.py. The reference's rows_per_block and row padding tile the
-// TPU's VMEM and are dropped.
+// (detect_kernel._detect_body). Kernel K1's long rows run it after the
+// long K3 and take its row max (K4 itself emits none, as the reference's).
+// Python wrapper: radio_mapper_tpu_torch/ops/cuda/detect_ct.py. The
+// reference's rows_per_block and row padding tile the TPU's VMEM and are
+// dropped.
 //
 // Two phases, with the parts of ct_detect.cuh's detect body:
 //
@@ -24,9 +24,19 @@
 //            the sliding max, the gates and the per-8-bin segment partials,
 //            segment b2*n1 + k1 being 8 consecutive bins of the tile.
 //
+//   phase c  (emit_topk = K only) the partials phase b wrote to a device-
+//            memory scratch [rows, n/8] x 2 (the wrapper's) are this
+//            block's own writes, visible after a barrier: the scores come
+//            back to shared memory and ct_detect.cuh's block_topk writes
+//            the row's [128] block of top-K values and packed 8*f + offset
+//            (detect_kernel._detect_body's emit_topk), in the same launch,
+//            an instantiation of its own (TOPK), so the partials-only
+//            kernel keeps its registers and occupancy.
+//
 // Every reduction of the body is a max, a min or an integer count, so the
 // tiling changes no output bit: on K1's own spectra the partials, the
-// floor and the row max equal K1's bit for bit (card test).
+// floor and the row max equal K1's bit for bit (card test), and phase c's
+// output equals the partials followed by the port's top-K tail.
 //
 // Bound on the H100: device-memory bytes, the spectra read twice (16 B a
 // bin) and the partials written once; the sliding max reads shared memory
@@ -46,11 +56,12 @@ constexpr int TILE = 16;         // columns k1 a phase-b tile (detect_ct.TILE)
 using rm_det::DetectParams;
 using rm_det::SEG;
 
+template <bool TOPK>
 __global__ void __launch_bounds__(K4_THREADS)
 detect_ct_kernel(const float* __restrict__ fre, const float* __restrict__ fim,
                  float* __restrict__ seg_score, float* __restrict__ seg_arg,
                  float* __restrict__ nf_out, float* __restrict__ rmax_out, int n1, int n2,
-                 DetectParams prm) {
+                 DetectParams prm, int topk, float* __restrict__ top_vals, float* __restrict__ top_packed) {
   extern __shared__ float sbuf[];  // phase a: [n/8] dB subsample; phase b: the tile
   __shared__ float red_f[K4_THREADS / 32];
   __shared__ int red_i[K4_THREADS / 32];
@@ -122,24 +133,38 @@ detect_ct_kernel(const float* __restrict__ fre, const float* __restrict__ fim,
       rm_det::segment_partial(score + c * n2 + SEG * b2, 1, sc + f, sa + f);
     }
   }
+  if constexpr (TOPK) {
+    // ---- phase c: top-K over this row's partials (sc, sa: the scratch)
+    __syncthreads();  // every partial of the row is written
+    for (int f = tid; f < s; f += K4_THREADS) sbuf[f] = sc[f];
+    __syncthreads();
+    rm_det::block_topk<K4_THREADS>(sbuf, sa, s, topk, top_vals + row * rm_det::TOPK_LANES,
+                                   top_packed + row * rm_det::TOPK_LANES);
+  }
 }
 
 }  // namespace
 
 // rmax may be null (kernel K4 emits no row max; K1's long rows take it).
+// topk = 0: the partials to seg_score/seg_arg, top_vals/top_packed null;
+// topk = K (1..128): seg_score/seg_arg are the scratch, and the [rows, 128]
+// top-K block goes to top_vals/top_packed.
 extern "C" int rm_detect_ct_partials(
     const float* fre, const float* fim, float* seg_score, float* seg_arg, float* nf, float* rmax,
     int rows, int n1, int n2, int radius, int keep_lo, int keep_hi,
     float thr_lin, int has_conf, float conf_cs, float off, int bisect_iters,
-    cudaStream_t stream) {
-  if (n1 % TILE != 0 || n2 % SEG != 0 || radius < 0 || radius > n2) return static_cast<int>(cudaErrorInvalidValue);
+    int topk, float* top_vals, float* top_packed, cudaStream_t stream) {
+  if (n1 % TILE != 0 || n2 % SEG != 0 || radius < 0 || radius > n2 || topk < 0 || topk > rm_det::TOPK_LANES) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t sub = static_cast<size_t>(n1) * n2 / SEG;
   const size_t tile = 2 * static_cast<size_t>(TILE) * n2 + 2 * radius;
   const size_t smem = (sub > tile ? sub : tile) * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      detect_ct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const auto kernel = topk > 0 ? detect_ct_kernel<true> : detect_ct_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   const DetectParams prm{radius, keep_lo, keep_hi, thr_lin, has_conf, conf_cs, off, bisect_iters};
-  detect_ct_kernel<<<rows, K4_THREADS, smem, stream>>>(fre, fim, seg_score, seg_arg, nf, rmax, n1, n2, prm);
+  kernel<<<rows, K4_THREADS, smem, stream>>>(fre, fim, seg_score, seg_arg, nf, rmax, n1, n2, prm, topk, top_vals,
+                                             top_packed);
   return static_cast<int>(cudaGetLastError());
 }

@@ -14,7 +14,10 @@
 // bit) and keeps each value's power in registers (at most 48 a thread).
 // After a barrier the powers overwrite the row in CT order and the detect
 // epilogue, ct_detect.cuh's detect_row (shared with kernels K4 and K8),
-// runs on them.
+// runs on them. With emit_topk = K the segment partials go to shared memory
+// over the power (no longer read) and ct_detect.cuh's block_topk writes
+// the row's [128] block of top-K values and packed 8*f + offset instead
+// (detect_kernel._detect_body's emit_topk).
 //
 // Bound on the H100: device-memory bytes, a row read and its spectrum
 // written once (16 B a sample); the radix steps are a few passes over the
@@ -44,7 +47,7 @@ fft_detect_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
                   float* __restrict__ fre, float* __restrict__ fim,
                   float* __restrict__ seg_score, float* __restrict__ seg_arg,
                   float* __restrict__ nf_out, float* __restrict__ rmax_out,
-                  int n2, int r, DetectParams prm) {
+                  int n2, int r, DetectParams prm, int topk) {
   extern __shared__ float4 smem[];  // float4: step C reads a lane's 4 values as two float4
   float2* xs = reinterpret_cast<float2*>(smem);  // [n2][128] slot rows, then [64] W_128
   const int n = N1 * n2;
@@ -55,8 +58,21 @@ fft_detect_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
   float* pwr = reinterpret_cast<float*>(xs);  // [n] linear power, CT order
   float* aux = pwr + n;                       // [n] scratch
   const int s = n / rm_det::SEG;
-  const float2 res = rm_det::detect_row<K1_THREADS>(pwr, aux, N1, n2, prm, seg_score + row * s,
-                                                    seg_arg + row * s);
+  if (topk == 0) {
+    const float2 res = rm_det::detect_row<K1_THREADS>(pwr, aux, N1, n2, prm, seg_score + row * s,
+                                                      seg_arg + row * s);
+    if (threadIdx.x == 0) {
+      nf_out[row] = res.x;
+      rmax_out[row] = res.y;
+    }
+    return;
+  }
+  // emit_topk: the partials over the power (read for the last time before
+  // detect_row's segment pass), then the K passes
+  const float2 res = rm_det::detect_row<K1_THREADS>(pwr, aux, N1, n2, prm, pwr, pwr + s);
+  __syncthreads();
+  rm_det::block_topk<K1_THREADS>(pwr, pwr + s, s, topk, seg_score + row * rm_det::TOPK_LANES,
+                                 seg_arg + row * rm_det::TOPK_LANES);
   if (threadIdx.x == 0) {
     nf_out[row] = res.x;
     rmax_out[row] = res.y;
@@ -66,13 +82,13 @@ fft_detect_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
 template <int RMAX>
 int launch(const float* xre, const float* xim, const float2* w128, const float2* wn2, const float2* wr,
            const float2* tw, float* fre, float* fim, float* seg_score, float* seg_arg, float* nf,
-           float* rmax, int rows, int n2, int r, const DetectParams& prm, cudaStream_t stream) {
+           float* rmax, int rows, int n2, int r, const DetectParams& prm, int topk, cudaStream_t stream) {
   const size_t smem = (static_cast<size_t>(N1) * n2 + N1 / 2) * sizeof(float2);
   cudaError_t e = cudaFuncSetAttribute(fft_detect_kernel<RMAX>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   fft_detect_kernel<RMAX><<<rows, K1_THREADS, smem, stream>>>(
-      xre, xim, w128, wn2, wr, tw, fre, fim, seg_score, seg_arg, nf, rmax, n2, r, prm);
+      xre, xim, w128, wn2, wr, tw, fre, fim, seg_score, seg_arg, nf, rmax, n2, r, prm, topk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -82,20 +98,22 @@ extern "C" int rm_fft_detect_rows_ct(
     const float* xre, const float* xim, const float2* w128, const float2* wn2, const float2* wr,
     const float2* tw, float* fre, float* fim, float* seg_score, float* seg_arg, float* nf, float* rmax,
     int rows, int n2, int a, int r, int radius, int keep_lo, int keep_hi,
-    float thr_lin, int has_conf, float conf_cs, float off, int bisect_iters,
+    float thr_lin, int has_conf, float conf_cs, float off, int bisect_iters, int topk,
     cudaStream_t stream) {
-  if (a != rm_fft::HANDOFF_A || a * r != n2) return static_cast<int>(cudaErrorInvalidValue);
+  if (a != rm_fft::HANDOFF_A || a * r != n2 || topk < 0 || topk > rm_det::TOPK_LANES) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const DetectParams prm{radius, keep_lo, keep_hi, thr_lin, has_conf, conf_cs, off, bisect_iters};
   switch (rm_fft::handoff_rmax(r)) {
     case 8:
       return launch<8>(xre, xim, w128, wn2, wr, tw, fre, fim, seg_score, seg_arg, nf, rmax, rows, n2, r, prm,
-                       stream);
+                       topk, stream);
     case 16:
       return launch<16>(xre, xim, w128, wn2, wr, tw, fre, fim, seg_score, seg_arg, nf, rmax, rows, n2, r, prm,
-                        stream);
+                        topk, stream);
     case 24:
       return launch<24>(xre, xim, w128, wn2, wr, tw, fre, fim, seg_score, seg_arg, nf, rmax, rows, n2, r, prm,
-                        stream);
+                        topk, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,7 +1,7 @@
 // Kernel K3 for rows longer than one block's shared memory: forward
-// CT-order FFT of [rows, n] rows, n = n1*n2 with n1 = 128 or 256 and
-// n2 = 8*r <= 1024 (every planned length's split), in two passes through a
-// device-memory workspace.
+// CT-order FFT of [rows, n] rows, n = n1*n2 with n1 = 128, 256, 384, 640
+// or 896 and n2 = 8*r <= 1024 (every planned length's split), in two passes
+// through a device-memory workspace.
 //
 // Replaces radio_mapper_tpu/ops/pallas/fft_kernel.py::fft_rows_ct (body
 // fft_kernel.ct_fft_core) above n = 24576, where the one-block design
@@ -21,9 +21,11 @@
 //                s + r*k, times the row twiddle, to the workspace
 //                ws[row][s + r*k][p];
 //   row pass     one warp a workspace slot row runs step C, the n1-point
-//                radix-2 FFT across lanes (P = n1/32 points a lane), and
-//                stores the row at CT row k + a*s, coalesced, as the
-//                one-block K3 stores it.
+//                FFT: five radix-2 stages across lanes and a P-point
+//                transform in registers (P = n1/32 points a lane; radix-2
+//                for P = 4, 8, two radix-2 stages and a direct q-point DFT
+//                for P = 4q = 12, 20, 28), and stores the row at CT row
+//                k + a*s, coalesced, as the one-block K3 stores it.
 //
 // At r <= 24 the column pass issues the one-block step B's fmaf sequence,
 // so on a length both designs take the two give the same spectra bit for
@@ -156,10 +158,16 @@ int launch_rows(const float2* ws, const float2* w1, float* fre, float* fim, int 
 extern "C" int rm_fft_rows_ct_long(const float* xre, const float* xim, const float2* w1, const float2* wn2,
                                    const float2* wr, const float2* tw, float2* ws, float* fre, float* fim,
                                    int rows, int n1, int n2, int a, int r, cudaStream_t stream) {
-  if (a != 8 || a * r != n2 || n2 > MAX_N2 || (n1 != 128 && n1 != 256)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool n1_ok = n1 == 128 || n1 == 256 || n1 == 384 || n1 == 640 || n1 == 896;
+  if (a != 8 || a * r != n2 || n2 > MAX_N2 || !n1_ok) return static_cast<int>(cudaErrorInvalidValue);
   const int err = n2 <= 512 ? launch_columns_32(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream)
                             : launch_columns_16(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
   if (err != 0) return err;
-  if (n1 == 128) return launch_rows<128>(ws, w1, fre, fim, rows, n2, a, r, stream);
-  return launch_rows<256>(ws, w1, fre, fim, rows, n2, a, r, stream);
+  switch (n1) {
+    case 128: return launch_rows<128>(ws, w1, fre, fim, rows, n2, a, r, stream);
+    case 256: return launch_rows<256>(ws, w1, fre, fim, rows, n2, a, r, stream);
+    case 384: return launch_rows<384>(ws, w1, fre, fim, rows, n2, a, r, stream);
+    case 640: return launch_rows<640>(ws, w1, fre, fim, rows, n2, a, r, stream);
+    default: return launch_rows<896>(ws, w1, fre, fim, rows, n2, a, r, stream);
+  }
 }

@@ -17,9 +17,12 @@
 //
 // (bodies _gcc_pairs_kernel / _gcc_onehot_kernel / _gcc_rows_kernel +
 // _whiten + _invert_to_lag_windows). The pair body, shared with kernel K8,
-// is gcc_pair.cuh's pair_lag_window: one warp a CT row, whose n1 = 128 or
-// 256 points go through a warp-shuffle inverse radix-2 FFT in registers,
-// then a fold of each chunk of rows into the window rows. `gate` is its
+// is gcc_pair.cuh's pair_lag_window: one warp a CT row, whose n1 = 32*P
+// points (n1 = 128 or 256; or, in the kernels' WIDE instantiations, 384,
+// 640 or 896) go through a warp-shuffle inverse FFT in registers, then a
+// fold of each chunk of rows into the window rows. The WIDE kernels hold up
+// to 28 points and 39 twiddles a lane, so they run at one block an SM's
+// register budget; the n1 = 128/256 kernels keep four. `gate` is its
 // rm_pair::Gate, and the gate-scale pointer may be null unless gate is
 // l2rx; `wi` is the inverse radix table W_n1^-e (e < n1/2). Python
 // wrappers and plain PyTorch versions: radio_mapper_tpu_torch/ops/cuda/
@@ -49,7 +52,8 @@ constexpr int K2_THREADS = 256;  // gcc_pair.THREADS
 using rm_pair::pair_lag_window;
 
 // K2: block = (channel c, pair pidx); gate from per-receiver maxima.
-__global__ void __launch_bounds__(K2_THREADS, 4)
+template <bool WIDE>
+__global__ void __launch_bounds__(K2_THREADS, WIDE ? 1 : 4)
 gcc_pair_kernel(const float* __restrict__ sre, const float* __restrict__ sim,
                 const float* __restrict__ smax,
                 const int* __restrict__ pair_i, const int* __restrict__ pair_j,
@@ -66,14 +70,15 @@ gcc_pair_kernel(const float* __restrict__ sre, const float* __restrict__ sim,
   const size_t yo = (static_cast<size_t>(c) * nb + bj) * n;
   const float floor2 =
       gate == rm_pair::GATE_L2RX ? eps2 * (__ldg(smax + c * nb + bi) * __ldg(smax + c * nb + bj)) : 0.f;
-  pair_lag_window<K2_THREADS, false>(sre + xo, sim + xo, sre + yo, sim + yo, gate, floor2, eps2, eps,
+  pair_lag_window<K2_THREADS, false, WIDE>(sre + xo, sim + xo, sre + yo, sim + yo, gate, floor2, eps2, eps,
                   wi, w2, tw,
                   out + static_cast<size_t>(blockIdx.x) * (2 * max_lag + 1), sm,
                   n1, n2, nneg, npos, max_lag, inv_n);
 }
 
 // K5: block = (subchannel c, pair pidx) = blockIdx.x; per-pair gate s2[c, pidx].
-__global__ void __launch_bounds__(K2_THREADS, 4)
+template <bool WIDE>
+__global__ void __launch_bounds__(K2_THREADS, WIDE ? 1 : 4)
 gcc_pairs_onehot_kernel(const float* __restrict__ sre, const float* __restrict__ sim,
                         const float* __restrict__ s2,
                         const int* __restrict__ pair_i, const int* __restrict__ pair_j,
@@ -89,14 +94,15 @@ gcc_pairs_onehot_kernel(const float* __restrict__ sre, const float* __restrict__
   const size_t xo = (static_cast<size_t>(c) * nb + bi) * n;
   const size_t yo = (static_cast<size_t>(c) * nb + bj) * n;
   const float floor2 = gate == rm_pair::GATE_L2RX ? eps2 * __ldg(s2 + blockIdx.x) : 0.f;
-  pair_lag_window<K2_THREADS, false>(sre + xo, sim + xo, sre + yo, sim + yo, gate, floor2, eps2, eps,
+  pair_lag_window<K2_THREADS, false, WIDE>(sre + xo, sim + xo, sre + yo, sim + yo, gate, floor2, eps2, eps,
                   wi, w2, tw,
                   out + static_cast<size_t>(blockIdx.x) * (2 * max_lag + 1), sm,
                   n1, n2, nneg, npos, max_lag, inv_n);
 }
 
 // K6: block = row k; X row k pairs with Y row k, gate s2[k].
-__global__ void __launch_bounds__(K2_THREADS, 4)
+template <bool WIDE>
+__global__ void __launch_bounds__(K2_THREADS, WIDE ? 1 : 4)
 gcc_rows_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
                 const float* __restrict__ yre, const float* __restrict__ yim,
                 const float* __restrict__ s2,
@@ -108,7 +114,7 @@ gcc_rows_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
   float2* sm = reinterpret_cast<float2*>(smem);
   const size_t o = static_cast<size_t>(blockIdx.x) * n1 * n2;
   const float floor2 = gate == rm_pair::GATE_L2RX ? eps2 * __ldg(s2 + blockIdx.x) : 0.f;
-  pair_lag_window<K2_THREADS, false>(xre + o, xim + o, yre + o, yim + o, gate, floor2, eps2, eps,
+  pair_lag_window<K2_THREADS, false, WIDE>(xre + o, xim + o, yre + o, yim + o, gate, floor2, eps2, eps,
                   wi, w2, tw,
                   out + static_cast<size_t>(blockIdx.x) * (2 * max_lag + 1), sm,
                   n1, n2, nneg, npos, max_lag, inv_n);
@@ -128,10 +134,10 @@ extern "C" int rm_gcc_pair_lag_mags(
     int gate, float eps2, float eps, float inv_n, cudaStream_t stream) {
   if (!rm_pair::pair_n1_supported(n1)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(n1, nneg, npos);
-  cudaError_t e = cudaFuncSetAttribute(
-      gcc_pair_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const auto kernel = rm_pair::pair_n1_wide(n1) ? gcc_pair_kernel<true> : gcc_pair_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  gcc_pair_kernel<<<nc * np, K2_THREADS, smem, stream>>>(
+  kernel<<<nc * np, K2_THREADS, smem, stream>>>(
       sre, sim, smax, pair_i, pair_j, wi, w2, tw, out,
       nb, np, n1, n2, nneg, npos, max_lag, gate, eps2, eps, inv_n);
   return static_cast<int>(cudaGetLastError());
@@ -145,11 +151,10 @@ extern "C" int rm_gcc_pairs_onehot_lag_mags(
     int gate, float eps2, float eps, float inv_n, cudaStream_t stream) {
   if (!rm_pair::pair_n1_supported(n1)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(n1, nneg, npos);
-  cudaError_t e = cudaFuncSetAttribute(
-      gcc_pairs_onehot_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  const auto kernel = rm_pair::pair_n1_wide(n1) ? gcc_pairs_onehot_kernel<true> : gcc_pairs_onehot_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  gcc_pairs_onehot_kernel<<<nc * np, K2_THREADS, smem, stream>>>(
+  kernel<<<nc * np, K2_THREADS, smem, stream>>>(
       sre, sim, s2, pair_i, pair_j, wi, w2, tw, out,
       nb, np, n1, n2, nneg, npos, max_lag, gate, eps2, eps, inv_n);
   return static_cast<int>(cudaGetLastError());
@@ -162,10 +167,10 @@ extern "C" int rm_gcc_rows_lag_mags(
     int gate, float eps2, float eps, float inv_n, cudaStream_t stream) {
   if (!rm_pair::pair_n1_supported(n1)) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(n1, nneg, npos);
-  cudaError_t e = cudaFuncSetAttribute(
-      gcc_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const auto kernel = rm_pair::pair_n1_wide(n1) ? gcc_rows_kernel<true> : gcc_rows_kernel<false>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  gcc_rows_kernel<<<np, K2_THREADS, smem, stream>>>(
+  kernel<<<np, K2_THREADS, smem, stream>>>(
       xre, xim, yre, yim, s2, wi, w2, tw, out, n1, n2, nneg, npos, max_lag, gate, eps2, eps, inv_n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -272,13 +272,14 @@ class TDOAPipeline:
             return self._solve_marked(peaks, corr, anchors_enu, mark)
         row_smax = None
         if combined:
+            in_kernel_topk = detect_ops.combined_topk_enabled()  # K1 finishes the selection
             spectra, partials, row_smax = sc_ops.receiver_spectra_ct_detect(
-                re, im, max_lag=c.max_lag, plan=self.plan
+                re, im, max_lag=c.max_lag, plan=self.plan, emit_topk=c.max_peaks if in_kernel_topk else 0
             )
             mark("fft_detect")
             peaks = detect_ops.detect_peaks_ct(
                 spectra[0], spectra[1], threshold_db=c.detection_threshold_db,
-                partials=partials, **tail,
+                partials=partials, kernel_topk=in_kernel_topk, **tail,
             )
             mark("peaks")
         else:

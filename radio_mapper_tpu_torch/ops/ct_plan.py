@@ -102,7 +102,9 @@ def device_tables(n: int, inverse: bool, device: torch.device) -> DeviceTables:
     )
 
 
-RADIX_N1 = (128, 256)  # the outer lengths of K3's radix steps: 128 up to 24576 (one block), 128 or 256 above
+# the outer lengths of K3's radix steps: 128 up to 24576 (one block); above,
+# every n1 a planned length splits with (P = n1/32 points a lane of step C)
+RADIX_N1 = (128, 256, 384, 640, 896)
 RADIX_MAX_A = 8  # the largest first factor of the inner n2-point transform
 
 
@@ -112,14 +114,15 @@ class RadixTables(NamedTuple):
 
     ``a = min(8, 2^v₂(n2))`` (v₂: the factors of 2 in n2); step A runs an
     a-point radix-2 FFT, step B a direct r-point DFT, step C the outer
-    n1-point radix-2 FFT (``csrc/ct_fft.cuh``).
+    n1-point FFT, radix-2 across a warp's lanes and a P = n1/32-point
+    transform in registers (``csrc/ct_fft.cuh``).
     """
 
     n1: int
     n2: int
     a: int
     r: int
-    w1: np.ndarray  # [n1/2, 2]: W_n1^e, e < n1/2 (the radix-2 stages of steps A and C)
+    w1: np.ndarray  # [n1/2, 2]: W_n1^e, e < n1/2 (the stages of steps A and C, and step C's q-point roots)
     wn2: np.ndarray  # [n2, 2]: W_n2^e, e < n2 (step A's W_n2^{j·k}, j·k < n2)
     wr: np.ndarray  # [r, r, 2]: W_r^{j·s}
 
@@ -163,9 +166,10 @@ def device_radix_tables(n: int, device: torch.device) -> Tuple[torch.Tensor, tor
 
 @functools.lru_cache(maxsize=4)
 def inverse_radix_table(n1: int) -> np.ndarray:
-    """``[n1/2, 2]`` float32: W_n1^−e for e < n1/2, the twiddles of the
-    GCC pair body's inverse radix-2 n1-point FFT (``csrc/gcc_pair.cuh``),
-    as :func:`radix_tables`' ``w1`` is for K3's forward stages."""
+    """``[n1/2, 2]`` float32: W_n1^−e for e < n1/2, the twiddles and
+    q-point roots of the GCC pair body's inverse n1-point warp FFT
+    (``csrc/gcc_pair.cuh``, n1 ∈ :data:`RADIX_N1`), as
+    :func:`radix_tables`' ``w1`` is for K3's forward stages."""
     return _roots(np.arange(n1 // 2), n1, inverse=True)
 
 

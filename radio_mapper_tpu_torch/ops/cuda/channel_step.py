@@ -5,7 +5,11 @@ Replaces ``radio_mapper_tpu/ops/pallas/channel_kernel.py::channel_step_partials`
 ``_invert_to_lag_windows``, one grid cell per channel). The CUDA source is
 ``radio_mapper_tpu_torch/csrc/channel_step.cu``.
 
-Design (first, simple version): a channel is a thread-block cluster of B
+Two designs, chosen by length inside :func:`channel_step_partials`
+(:func:`geometry`): "cluster" up to :data:`fft_detect.MAX_N`, "long"
+above.
+
+Cluster design (first, simple version): a channel is a thread-block cluster of B
 blocks, one per receiver (a complex row at nfft 17408 is 139,264 B, so a
 channel's 8 rows cannot share one block's 227 KB as the TPU kernel's VMEM
 holds them). Each block runs kernel K1's body on its row — K3's radix
@@ -20,6 +24,16 @@ same order, with the same template arguments and block size, as K1 → K2
 memory and reading partners through distributed shared memory would drop
 the scratch's traffic (2 × 142.6 MB at 128 channels × 8 receivers) but
 needs ≈ 209 KB a block before the pair buffers: a later redesign.
+
+Long design (nfft > 24576, where one block no longer holds a row): the
+long K1 (the long K3 of ``csrc/fft_rows_ct_long.cu``, then K4 of
+``csrc/detect_ct.cu`` with the row maxima), then K2's launch (``csrc/
+gcc_pair.cu``, l2rx gate on those maxima): three launches, counted as
+one launch of K8 (and not of K1, K3, K4 or K2). The reference's K8 takes
+every length ``ct_supported`` accepts; its function is K1 → K2 (l2rx),
+so the outputs equal that composition bit for bit. One launch for long
+rows (the row across a thread-block cluster's distributed shared memory)
+is a later redesign.
 
 What bounds it on the H100 as written: its pair stage, K2's warp-FFT body
 (≈ 7 GFLOP at [128, 8, 17408], most of it the window fold), at one
@@ -47,7 +61,8 @@ from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import build, detect_ct, fft_detect, fft_rows, gcc_pair
 
-launch_count = 0  # launches of the CUDA kernel (not of the plain version)
+launch_count = 0  # launches of the CUDA kernel (not of the plain version); a long-row call counts once
+design_counts = {"cluster": 0, "long": 0}  # the same launches, by design
 
 THREADS = 512  # must match K8_THREADS in channel_step.cu (K1's block)
 MAX_PAIR_ROWS = 64  # channel_kernel.MAX_PAIR_ROWS
@@ -99,16 +114,17 @@ def supported(
     return ct_plan.ct_supported(nfft)
 
 
-def geometry(n: int):
-    """``(n2, a, r)`` of a row K8 takes, decided without a card: K1's
-    one-block body (:func:`fft_detect.radix_geometry`), nfft ≤
-    :data:`fft_detect.MAX_N`. K8 has no long-row design: above that it
-    raises ValueError, fault F3b (ROADMAP §3)."""
+def geometry(n: int) -> str:
+    """K8's design for rows of n samples, decided without a card:
+    ``"cluster"`` (K1's one-block body, :func:`fft_detect.radix_geometry`,
+    nfft ≤ :data:`fft_detect.MAX_N`) or ``"long"`` (above, the long K1's
+    lengths, :func:`fft_rows.long_geometry`). Raises ValueError
+    otherwise."""
     if n > fft_detect.MAX_N:
-        raise ValueError(
-            f"K8 runs K1's one-block body, nfft ≤ {fft_detect.MAX_N}; nfft {n} is {fft_rows.F3B}"
-        )
-    return fft_detect.radix_geometry(n, "K8 (K1's body, then K2's)")
+        fft_rows.long_geometry(n)
+        return "long"
+    fft_detect.radix_geometry(n, "K8 (K1's body, then K2's)")
+    return "cluster"
 
 
 def channel_step_partials(
@@ -155,7 +171,12 @@ def channel_step_partials(
 def _launch(re, im, pair_i, pair_j, plan, max_lag, eps):
     global launch_count
     *lead, b, n = re.shape
-    n2, a, r = geometry(n)
+    if geometry(n) == "long":
+        out = _long(re, im, pair_i, pair_j, plan, max_lag, eps)
+        launch_count += 1
+        design_counts["long"] += 1
+        return out
+    n2, a, r = fft_detect.radix_geometry(n, "K8 (K1's body, then K2's)")
     n1 = ct_plan.ct_split(n)[0]  # 128: K1's one-block body
     if b > MAX_B_PAD:
         raise ValueError(f"K8 runs a cluster of one block per receiver: at most {MAX_B_PAD}, got {b}")
@@ -185,9 +206,26 @@ def _launch(re, im, pair_i, pair_j, plan, max_lag, eps):
     )
     build.check(err, "channel_step_partials")
     launch_count += 1
+    design_counts["cluster"] += 1
     return (
         score.reshape(*lead, b, s), arg.reshape(*lead, b, s), nf.reshape(*lead, b),
         out.reshape(*lead, p, width),
+    )
+
+
+def _long(re, im, pair_i, pair_j, plan, max_lag, eps):
+    """K8's long design on CUDA rows ``[..., B, n]``: the long K3, K4 with
+    the row maxima, then K2's kernel (l2rx), none of them counted."""
+    *lead, b, n = re.shape
+    fr, fi = fft_rows.long_rows(re.reshape(-1, n), im.reshape(-1, n))
+    score, arg, nf, rmax = detect_ct.launch(fr, fi, plan, row_max=True)
+    c, s = fr.shape[0] // b, plan.segments
+    mags = gcc_pair.launch_k2(
+        fr.reshape(c, b, n), fi.reshape(c, b, n), rmax.reshape(c, b), pair_i, pair_j, max_lag, eps, "l2rx"
+    )
+    return (
+        score.reshape(*lead, b, s), arg.reshape(*lead, b, s), nf.reshape(*lead, b),
+        mags.reshape(*lead, mags.shape[-2], mags.shape[-1]),
     )
 
 

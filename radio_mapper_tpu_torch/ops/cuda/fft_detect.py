@@ -21,16 +21,21 @@ detect body then runs on that power array (``csrc/ct_detect.cuh``,
 shared with kernel K8; K4 runs its parts on column tiles): row max, the
 24-step dB bisection over the stride-8 subsample, the circular ±radius
 sliding max in natural bin order, the gates, and the per-8-bin-segment
-(max, lowest argmax).
+(max, lowest argmax). With ``emit_topk = K`` (1..128, the reference's
+in-kernel top-K) those partials stay in shared memory and K block-wide
+masked-argmax passes over them (``ct_detect.cuh`` ``block_topk``: a max,
+then the lowest index holding it) write a [rows, 128] block of values and
+packed 8·f + offset in place of the F/8 partials; the long rows run K4's
+same phase.
 
-Above :data:`MAX_N`, with n1 = 128 or 256 (:func:`fft_detect_rows_ct_long`):
-two hand-written kernels in turn, the long-row K3 (``csrc/fft_rows_ct_long.cu``)
-and then K4 (``csrc/detect_ct.cu``, which holds no row in shared memory) on
-its spectra, with the row max. The reference's function is that composition, so the outputs
-are those of K3 → K4 bit for bit; the pair counts as one launch of K1.
-Splits with n1 ∈ {384, 640, 896} are fault F3b (ROADMAP §3) and raise.
-Fusing the two halves for long rows (a row across a thread-block
-cluster's distributed shared memory) is a later redesign.
+Above :data:`MAX_N` (:func:`fft_detect_rows_ct_long`), for every n1 the
+long-row K3 takes (128, 256, 384, 640, 896): two hand-written kernels in
+turn, the long-row K3 (``csrc/fft_rows_ct_long.cu``) and then K4
+(``csrc/detect_ct.cu``, which holds no row in shared memory) on its
+spectra, with the row max. The reference's function is that composition,
+so the outputs are those of K3 → K4 bit for bit; the pair counts as one
+launch of K1. Fusing the two halves for long rows (a row across a
+thread-block cluster's distributed shared memory) is a later redesign.
 
 What bounds it on the H100: device-memory bytes (the row read and the
 spectra written once, ≈ 0.28 MB a row at 17408; the long design moves
@@ -49,7 +54,7 @@ import ctypes
 import torch
 
 from radio_mapper_tpu_torch import device
-from radio_mapper_tpu_torch.ops import ct_plan
+from radio_mapper_tpu_torch.ops import ct_plan, safe
 from radio_mapper_tpu_torch.ops.cuda import build, detect_ct, fft_rows
 
 launch_count = 0  # launches of K1 (not of the plain version); a long-row call counts once
@@ -64,8 +69,16 @@ _ARGTYPES = (
     [ctypes.c_void_p] * 12
     + [ctypes.c_int] * 7
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int]
-    + [ctypes.c_void_p]
+    + [ctypes.c_int, ctypes.c_void_p]
 )
+TOPK_LANES = 128  # the emit_topk output block, [rows, 128] (rm_det::TOPK_LANES)
+
+
+def check_topk(emit_topk: int) -> None:
+    """``emit_topk`` in 0 (off) or 1..128, as the reference checks it
+    (``detect_kernel._detect_plan``)."""
+    if not 0 <= emit_topk <= TOPK_LANES:
+        raise ValueError(f"emit_topk must be in 1..{TOPK_LANES} (one lane block), or 0; got {emit_topk}")
 
 
 def check_rows(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan) -> None:
@@ -111,60 +124,68 @@ def geometry(n: int) -> str:
     """K1's design for rows of n samples, decided without a card:
     ``"block"`` (:func:`radix_geometry`) or ``"long"`` (n > :data:`MAX_N`,
     the long-row K3's lengths, :func:`fft_rows.geometry`). Raises
-    ValueError otherwise: for n1 ∈ {384, 640, 896} that is fault F3b."""
+    ValueError otherwise."""
     if n <= MAX_N:
         radix_geometry(n)
         return "block"
     return fft_rows.geometry(n)  # "long" above MAX_N, or it raises
 
 
-def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
+def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan, emit_topk: int = 0):
     """Forward CT-order FFT + fused detection of ``[rows, nfft]`` rows.
 
     Args:
       re/im: float32 ``[rows, nfft]`` time rows, already zero-padded.
       plan: :func:`ct_plan.detect_plan` for this nfft.
+      emit_topk: 0, or K in 1..128 to finish the peak selection in the
+        kernel (the reference's ``emit_topk``).
     Returns:
       ``(fr, fi, seg_score, seg_arg, noise_floor_db, row_max)``: CT-order
       spectra ``[rows, nfft]``; per-segment partials ``[rows, nfft/8]``
       (linear power, −inf where the segment holds no candidate; float
       in-segment offset 0-7 — segment f = b2·n1 + k1 covers natural bins
       (8·b2 + off) + n2·k1); the noise floor in dB and each row's max
-      linear power, ``[rows]``.
+      linear power, ``[rows]``. With ``emit_topk = K`` the partials are
+      replaced by ``[rows, 128]`` blocks: lane k < K holds the k-th
+      largest segment score and its packed ``8·f + off`` (as float, exact),
+      lanes ≥ K are 0.
 
     CPU tensors go through :func:`fft_detect_rows_ct_plain`; CUDA tensors
     launch the design :func:`geometry` picks: one kernel up to
     :data:`MAX_N`, above it the long-row K3 and K4 in turn.
     """
     check_rows(re, im, plan)
+    check_topk(emit_topk)
     if re.device.type == "cpu":
         with device.cpu_single_thread():
-            return fft_detect_rows_ct_plain(re, im, plan)
+            return fft_detect_rows_ct_plain(re, im, plan, emit_topk)
     if re.device.type != "cuda":
         raise ValueError(f"no K1 implementation for device {re.device}")
     if geometry(plan.nfft) == "long":
-        return fft_detect_rows_ct_long(re, im, plan)
-    return _launch(re, im, plan)
+        return fft_detect_rows_ct_long(re, im, plan, emit_topk)
+    return _launch(re, im, plan, emit_topk)
 
 
-def fft_detect_rows_ct_long(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
+def fft_detect_rows_ct_long(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan, emit_topk: int = 0):
     """:func:`fft_detect_rows_ct` through the long-row design on CUDA rows
-    with n1 = 128 or 256: the long K3, then K4 with the row max,
+    of a length :func:`fft_rows.long_geometry` takes: the long K3, then K4
+    with the row max,
     counted as one launch of K1. The wrapper routes only n > :data:`MAX_N`
     here; the card tests also force shorter rows through it, where its
     outputs equal the one-block K1's bit for bit."""
     global launch_count
     check_rows(re, im, plan)
+    check_topk(emit_topk)
     if re.device.type != "cuda":
         raise ValueError(f"the long-row K1 runs on CUDA tensors, not {re.device}")
     fr, fi = fft_rows.long_rows(re, im)
-    score, arg, nf, rmax = detect_ct.launch(fr, fi, plan, row_max=True)
+    score, arg, nf, rmax = detect_ct.launch(fr, fi, plan, row_max=True, emit_topk=emit_topk)
     launch_count += 1
     design_counts["long"] += 1
     return fr, fi, score, arg, nf, rmax
 
 
-def _launch(re, im, plan):
+def _launch(re, im, plan, emit_topk):
     global launch_count
     n = plan.nfft
     n2, a, r = radix_geometry(n)
@@ -172,7 +193,7 @@ def _launch(re, im, plan):
     w128, wn2, wr = ct_plan.device_radix_tables(n, re.device)
     tw = ct_plan.device_tables(n, False, re.device).tw
     rows = re.shape[0]
-    s = plan.segments
+    s = TOPK_LANES if emit_topk else plan.segments
     fr = torch.empty_like(re)
     fi = torch.empty_like(im)
     score = torch.empty((rows, s), dtype=torch.float32, device=re.device)
@@ -183,7 +204,7 @@ def _launch(re, im, plan):
     err = fn(
         ptr(re), ptr(im), ptr(w128), ptr(wn2), ptr(wr), ptr(tw),
         ptr(fr), ptr(fi), ptr(score), ptr(arg), ptr(nf), ptr(rmax),
-        rows, n2, a, r, *plan_args(plan),
+        rows, n2, a, r, *plan_args(plan), emit_topk,
         ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream),
     )
     build.check(err, "fft_detect_rows_ct")
@@ -192,7 +213,7 @@ def _launch(re, im, plan):
     return fr, fi, score, arg, nf, rmax
 
 
-def fft_detect_rows_ct_plain(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
+def fft_detect_rows_ct_plain(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan, emit_topk: int = 0):
     """Plain PyTorch version of K1: the same function as the four-step
     DFT on ``ct_constants``' tables, as batched tensor ops. Same contract as
     :func:`fft_detect_rows_ct`. On the card it is the comparison only,
@@ -200,12 +221,25 @@ def fft_detect_rows_ct_plain(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.D
     caller (full FP32 products). Through its wrapper on the CPU it runs at one intra-op thread
     (:func:`device.cpu_single_thread`, fault F2)."""
     fr, fi = fft_rows.fft_rows_ct_plain(re, im)  # the four-step transform of K3
-    return (fr, fi, *detect_plain(fr, fi, plan))
+    return (fr, fi, *detect_plain(fr, fi, plan, emit_topk))
 
 
-def detect_plain(fr: torch.Tensor, fi: torch.Tensor, plan: ct_plan.DetectPlan):
+def topk_plain(score: torch.Tensor, arg: torch.Tensor, k: int):
+    """The in-kernel top-K's plain version on ``[rows, s]`` partials:
+    ``(vals, packed)`` ``[rows, 128]``, lane j < k the j-th of k
+    masked-argmax passes (:func:`safe.top_k`: the max, the lowest index f
+    holding it, an all −inf row picks 0) and ``8·f + arg[f]``; lanes ≥ k
+    are 0."""
+    vals, f = safe.top_k(score, k)
+    packed = 8.0 * f.to(torch.float32) + torch.gather(arg, -1, f)
+    pad = lambda x: torch.nn.functional.pad(x, (0, TOPK_LANES - k))
+    return pad(vals), pad(packed)
+
+
+def detect_plain(fr: torch.Tensor, fi: torch.Tensor, plan: ct_plan.DetectPlan, emit_topk: int = 0):
     """K1's detect body on CT-order spectra: ``(seg_score, seg_arg,
-    noise_floor_db, row_max)`` (``detect_kernel._detect_body``)."""
+    noise_floor_db, row_max)`` (``detect_kernel._detect_body``); with
+    ``emit_topk`` the partials become :func:`topk_plain`'s blocks."""
     rows, n = fr.shape
     n1, n2, seg = plan.n1, plan.n2, ct_plan.SEGMENT
     n2g, s = n2 // seg, plan.segments
@@ -249,4 +283,7 @@ def detect_plain(fr: torch.Tensor, fi: torch.Tensor, plan: ct_plan.DetectPlan):
     seg_max = s4.amax(dim=2)
     offs = torch.arange(seg, device=fr.device).view(1, 1, seg, 1)
     seg_arg = torch.where(s4 >= seg_max.unsqueeze(2), offs, seg).amin(dim=2)
-    return seg_max.reshape(rows, s), seg_arg.reshape(rows, s).to(torch.float32), nf, row_max
+    seg_max, seg_arg = seg_max.reshape(rows, s), seg_arg.reshape(rows, s).to(torch.float32)
+    if emit_topk:
+        seg_max, seg_arg = topk_plain(seg_max, seg_arg, emit_topk)
+    return seg_max, seg_arg, nf, row_max

@@ -20,17 +20,18 @@ that); step C one warp per 128-point row, a radix-2 FFT across lanes with
 twiddles are float32 tables of float64 roots of unity
 (:func:`ct_plan.radix_tables`, ``ct_constants``' twiddle).
 
-Long rows, n > :data:`MAX_N` with n1 = 128 or 256 and 8 | n2
-(``csrc/fft_rows_ct_long.cu``, :func:`fft_rows_ct_long`,
-:func:`long_geometry`): the same steps in two passes through a
-[rows, n] float2 workspace that the wrapper allocates (277 MB at
-[1024, 33792]). A column pass takes a tile of 32 (or, for n2 > 512, 16)
-columns of a row, runs steps A and B on it (streamed for r > 24) and
-writes the slot rows to the workspace; a row pass runs step C, one warp
-a slot row (P = n1/32 points a lane), and stores in CT order. At r ≤ 24
-its spectra equal the one-block design's bit for bit. Lengths whose
-split has n1 ∈ {384, 640, 896} (the first planned one 52224) are fault
-F3b (ROADMAP §3) and raise.
+Long rows, n > :data:`MAX_N` with n1 ∈ :data:`ct_plan.RADIX_N1` (128,
+256, 384, 640, 896) and 8 | n2 (``csrc/fft_rows_ct_long.cu``,
+:func:`fft_rows_ct_long`, :func:`long_geometry`): the same steps in two
+passes through a [rows, n] float2 workspace that the wrapper allocates
+(277 MB at [1024, 33792]). A column pass takes a tile of 32 (or, for
+n2 > 512, 16) columns of a row, runs steps A and B on it (streamed for
+r > 24) and writes the slot rows to the workspace; a row pass runs step
+C, one warp a slot row (P = n1/32 points a lane: five radix-2 stages
+across lanes, then radix-2 in registers for P = 4, 8, or two radix-2
+stages and a direct q-point DFT for P = 4q = 12, 20, 28), and stores in
+CT order. At r ≤ 24 its spectra equal the one-block design's bit for
+bit. Every planned length up to 131072 has such a split.
 
 What bounds it on the H100: device-memory bytes — a row read and its
 spectrum written once, 80 KB a row at 5120 (twice that for the long
@@ -67,7 +68,6 @@ design_counts = {"block": 0, "long": 0}  # the same launches, by design
 
 MAX_N = 24_576  # the one-block design's limit: one row in a block's shared memory (as kernel K1's)
 LONG_MAX_ROWS = 65_535  # the column pass's grid rows
-F3B = "fault F3b (ROADMAP §3)"
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _LONG_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -114,14 +114,14 @@ def geometry(n: int) -> str:
     """K3's design for rows of n samples, decided without a card:
     ``"block"`` (n = 128·n2 ≤ :data:`MAX_N`) or ``"long"`` (n > MAX_N,
     :func:`long_geometry`). Raises ValueError for a length without a CT
-    split, and for n1 ∈ {384, 640, 896}: fault F3b."""
+    split or that neither design takes."""
     n1, n2 = ct_plan.ct_split(n)
     if n1 == 128 and n <= MAX_N:
         return "block"
     if n > MAX_N:
         long_geometry(n)
         return "long"
-    raise ValueError(f"K3 takes nfft = n1·n2 with n1 in {ct_plan.RADIX_N1}; nfft {n} = {n1}·{n2} is {F3B}")
+    raise ValueError(f"K3 takes nfft ≤ {MAX_N} only as 128·n2; nfft {n} = {n1}·{n2}")
 
 
 def long_geometry(n: int):
@@ -129,11 +129,11 @@ def long_geometry(n: int):
     :data:`ct_plan.RADIX_N1` and a = 8 (8 | n2), as every planned length
     with such an n1 splits. Only these column-pass variants are built:
     32 columns for n2 ≤ 512, 16 above, step B's inputs in registers up to
-    r = 24 and 2, 3 or 4 outputs a thread above. Raises ValueError otherwise:
-    for n1 ∈ {384, 640, 896} that is fault F3b."""
+    r = 24 and 2, 3 or 4 outputs a thread above. Raises ValueError
+    otherwise."""
     n1, n2 = ct_plan.ct_split(n)
     if n1 not in ct_plan.RADIX_N1:
-        raise ValueError(f"the long-row K3 takes n1 in {ct_plan.RADIX_N1}; nfft {n} = {n1}·{n2} is {F3B}")
+        raise ValueError(f"the long-row K3 takes n1 in {ct_plan.RADIX_N1}; nfft {n} = {n1}·{n2}")
     _, a, r = ct_plan.radix_split(n)
     if a != ct_plan.RADIX_MAX_A:
         raise ValueError(f"the long-row K3 takes n2 a multiple of {ct_plan.RADIX_MAX_A}; nfft {n} = {n1}·{n2}")

@@ -22,17 +22,20 @@ one-hot matmul gather are a VMEM/MXU layout device with no use here; one
 subchannel's 64 spectra, 2.6 MB, stay in the 50 MB L2) and runs the
 four-step inverse in chunks of CT rows. Each warp takes whole rows k2:
 its lanes load the row's n1 bins (coalesced), form and whiten
-R = X·conj(Y) in registers, run the inner n1-point inverse FFT (radix-2,
-stages across lanes by ``__shfl_xor_sync`` and in registers; n1 = 128 or
-256, the two inner lengths the kernels take) and store it times the
-inverse twiddle to shared memory. The block then folds the chunk into
+R = X·conj(Y) in registers, run the inner n1-point inverse FFT (a
+P = n1/32-point transform in registers — radix-2 for n1 = 128, 256; two
+radix-2 stages and a direct q-point DFT for n1 = 384, 640, 896, q = 3,
+5, 7 — then five radix-2 stages across lanes by ``__shfl_xor_sync``) and
+store it times the inverse twiddle to shared memory. The block then folds the chunk into
 the outer inverse DFT over k2, accumulated ONLY into the lag-window time
 rows (``ceil(L/n1)`` tail rows and ``L//n1 + 1`` head rows), in k2
-order whatever the chunk size. Shared memory holds one chunk and the
+order whatever the chunk size (:func:`chunk_rows`: 256/n1 rows a warp,
+one row a warp for n1 ≥ 384). Shared memory holds one chunk and the
 window accumulators (≈ 26 KB at nfft 17408 / max_lag 512, ≈ 19 KB at
-nfft 5120 / max_lag 128), so several blocks share an SM. FP32 on the
-CUDA cores; ``tests/test_torch_pair_fft.py`` replays the schedule in
-numpy.
+nfft 5120 / max_lag 128, ≈ 71 KB at nfft 121856 = 896·136 / max_lag
+600), so several blocks share an SM. FP32 on the CUDA cores;
+``tests/test_torch_pair_fft.py`` and ``tests/test_torch_mixed_radix.py``
+replay the schedule in numpy.
 
 Whitening (``gcc_kernel._whiten``, chosen by :func:`set_phat_gate` and
 ``weighting``): "phat" takes the gate of the knob — "l2rx" (default)
@@ -71,8 +74,8 @@ onehot_launch_count = 0  # K5 launches
 rows_launch_count = 0  # K6 launches
 
 THREADS = 256  # must match K2_THREADS in gcc_pair.cu
-RJ = 8  # must match rm_pair::RJ in gcc_pair.cuh: (THREADS // n1) * RJ chunk rows
-PAIR_N1 = (128, 256)  # the inner lengths of the pair body's warp FFT (rm_pair::pair_n1_supported)
+RJ = 8  # must match rm_pair::RJ in gcc_pair.cuh: (THREADS // n1) * RJ chunk rows for n1 ≤ 256
+PAIR_N1 = ct_plan.RADIX_N1  # the inner lengths of the pair body's warp FFT (rm_pair::pair_n1_supported)
 SMEM_LIMIT = 232_448  # H100 per-block shared memory
 
 _ARGTYPES = (
@@ -196,11 +199,17 @@ def _check_lag(nfft: int, max_lag: int) -> None:
     ct_plan.ct_split(nfft)
 
 
+def chunk_rows(threads: int, n1: int) -> int:
+    """CT rows a chunk of the pair body holds (``rm_pair::chunk_rows``):
+    ``(threads // n1)·RJ`` for n1 ≤ 256, one row a warp above."""
+    return (threads // n1) * RJ if n1 <= RJ * 32 else threads // 32
+
+
 def smem_bytes(n1: int, nneg: int, npos: int, threads: int = THREADS) -> int:
     """Dynamic shared memory of the pair body for a block of ``threads``
-    (``rm_pair::pair_smem_bytes``): a chunk of ``(threads // n1)·RJ`` CT
-    rows and the ``nneg + npos`` window rows, n1 complex floats each."""
-    return ((threads // n1) * RJ + nneg + npos) * n1 * 8
+    (``rm_pair::pair_smem_bytes``): a chunk of :func:`chunk_rows` CT rows
+    and the ``nneg + npos`` window rows, n1 complex floats each."""
+    return (chunk_rows(threads, n1) + nneg + npos) * n1 * 8
 
 
 def _geometry(n: int, max_lag: int, what: str):
@@ -208,7 +217,7 @@ def _geometry(n: int, max_lag: int, what: str):
     inner length or shared memory does not fit."""
     n1, n2 = ct_plan.ct_split(n)
     if n1 not in PAIR_N1:
-        raise ValueError(f"{what} supports n1 in {PAIR_N1}; nfft {n} = {n1}·{n2} is fault F3b (ROADMAP §3)")
+        raise ValueError(f"{what} supports n1 in {PAIR_N1}; nfft {n} = {n1}·{n2}")
     nneg, npos = window_rows(n, max_lag)
     smem = smem_bytes(n1, nneg, npos)
     if smem > SMEM_LIMIT:
@@ -283,6 +292,15 @@ def gcc_pair_lag_mags(
 
 def _launch(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate):
     global launch_count
+    out = launch_k2(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate)
+    launch_count += 1
+    return out
+
+
+def launch_k2(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate):
+    """K2's kernel on checked CUDA spectra under an explicit ``gate``,
+    counted by the caller: K2 as one launch of K2, kernel K8's long rows as
+    part of one launch of K8."""
     c, b, n = spec_re.shape
     n1, n2, nneg, npos = _geometry(n, max_lag, "K2")
     fn = build.kernel("rm_gcc_pair_lag_mags", _ARGTYPES)
@@ -298,7 +316,6 @@ def _launch(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate):
         _stream(spec_re),
     )
     build.check(err, "gcc_pair_lag_mags")
-    launch_count += 1
     return out
 
 

@@ -10,7 +10,9 @@ Port of ``radio_mapper_tpu/ops/detect.py``:
   segments and converts only those to dB / frequency / confidence;
 - ``detect_peaks_ct``: K4 on CT-order spectra (or given partials), then
   that tail; and the routing knobs of the fused detect
-  (``set_fused_detect``, ``set_fused_fft_detect``);
+  (``set_fused_detect``, ``set_fused_fft_detect``, and
+  ``set_combined_topk``, which finishes the selection inside K1:
+  ``kernel_topk``);
 - ``detect_peaks`` and ``sliding_local_max`` (multi-dwell route and the
   buoy dwell) on a natural-order dB spectrum, with the reference's
   safe-mode semantics — the ones the TPU runs: circular sliding max,
@@ -74,6 +76,21 @@ def set_fused_fft_detect(mode: str) -> None:
     _FUSED_FFT_DETECT = mode
 
 
+# Finish the peak selection inside K1 (its ``emit_topk``) on the combined
+# route: the F/8 partials are never written and the tail only unpacks.
+# Off by default, as in the reference.
+_COMBINED_TOPK = False
+
+
+def set_combined_topk(on: bool) -> None:
+    global _COMBINED_TOPK
+    _COMBINED_TOPK = bool(on)
+
+
+def combined_topk_enabled() -> bool:
+    return _COMBINED_TOPK
+
+
 def fused_detect_enabled(nfft: int, *, min_distance_bins: int, noise_floor_stride: int) -> bool:
     """Route the detect stage to the fused CT-order detect (K1 or K4)?"""
     if _FUSED_DETECT == "off":
@@ -104,6 +121,7 @@ def detect_peaks_ct(
     confidence_floor: float = constants.DEFAULT_CONFIDENCE_FLOOR,
     snr_fullscale_db: float = constants.DEFAULT_SNR_FULLSCALE_DB,
     power_offset_db: float = 0.0,
+    kernel_topk: bool = False,
     partials=None,
 ) -> PeakSet:
     """Top-K peaks of CT-order spectra ``[..., nfft]``.
@@ -111,7 +129,9 @@ def detect_peaks_ct(
     Kernel K4 (:func:`.cuda.detect_ct.detect_ct_partials`) computes the
     segment partials, unless ``partials = (seg_score, seg_arg,
     noise_floor_db)`` come from K1 or K8 run with the same parameters;
-    then :func:`peaks_from_ct_partials`. Equal to ``detect_peaks(
+    then :func:`peaks_from_ct_partials`. With ``kernel_topk`` the kernel
+    (K4 here, or K1 for given partials) ran ``emit_topk = max_peaks`` and
+    the partials are its packed top-K blocks. Equal to ``detect_peaks(
     ct_power_db(fr, fi) + power_offset_db, noise_floor_stride=8, ...)``
     up to the floor's last ulps, except that exactly-equal candidates in
     different segments tie-break by CT segment order.
@@ -130,11 +150,11 @@ def detect_peaks_ct(
         )
         batch = spec_re.shape[:-1]
         rows = lambda a: a.reshape(-1, nfft).contiguous()
-        score, arg, nf = detect_ct.detect_ct_partials(rows(spec_re), rows(spec_im), plan)
-        partials = (
-            score.reshape(*batch, plan.segments), arg.reshape(*batch, plan.segments),
-            nf.reshape(batch),
+        score, arg, nf = detect_ct.detect_ct_partials(
+            rows(spec_re), rows(spec_im), plan, emit_topk=max_peaks if kernel_topk else 0
         )
+        cols = score.shape[-1]
+        partials = (score.reshape(*batch, cols), arg.reshape(*batch, cols), nf.reshape(batch))
     return peaks_from_ct_partials(
         *partials,
         nfft=nfft,
@@ -142,6 +162,7 @@ def detect_peaks_ct(
         max_peaks=max_peaks,
         snr_fullscale_db=snr_fullscale_db,
         power_offset_db=power_offset_db,
+        kernel_topk=kernel_topk,
     )
 
 
@@ -155,13 +176,23 @@ def peaks_from_ct_partials(
     max_peaks: int = 8,
     snr_fullscale_db: float = constants.DEFAULT_SNR_FULLSCALE_DB,
     power_offset_db: float = 0.0,
+    kernel_topk: bool = False,
 ) -> PeakSet:
     """K winners from ``[..., nfft/8]`` partials (linear power, −inf where
     a segment holds no candidate; float in-segment offsets 0-7) and the
-    ``[...]`` noise floor in dB."""
+    ``[...]`` noise floor in dB. With ``kernel_topk`` the selection already
+    ran in the kernel (``emit_topk = max_peaks``): ``score`` holds the K
+    winners' values and ``seg_arg`` their packed ``8·f + off`` (exact in
+    float32) in its first K lanes, which are only unpacked here."""
     n1, n2 = ct_plan.ct_split(nfft)
-    top_vals, top_f = safe.top_k(score, max_peaks)
-    off = torch.gather(seg_arg, -1, top_f).to(torch.int64)
+    if kernel_topk:
+        top_vals = score[..., :max_peaks]
+        packed = seg_arg[..., :max_peaks].to(torch.int64)
+        top_f = packed // ct_plan.SEGMENT
+        off = packed - top_f * ct_plan.SEGMENT
+    else:
+        top_vals, top_f = safe.top_k(score, max_peaks)
+        off = torch.gather(seg_arg, -1, top_f).to(torch.int64)
     # segment f = b2·n1 + k1 covers natural bins (8·b2 + off) + n2·k1
     b2 = top_f // n1
     k1 = top_f - b2 * n1

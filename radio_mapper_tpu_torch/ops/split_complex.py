@@ -131,21 +131,23 @@ def receiver_spectra_ct(
 
 
 def receiver_spectra_ct_detect(
-    sig_re: torch.Tensor, sig_im: torch.Tensor, *, max_lag: int, plan: ct_plan.DetectPlan
+    sig_re: torch.Tensor, sig_im: torch.Tensor, *, max_lag: int, plan: ct_plan.DetectPlan,
+    emit_topk: int = 0,
 ):
     """CT-order spectra, detect partials and per-receiver power maxima from
     one launch of kernel K1 over every row of ``[..., n]``.
 
     Returns ``((fr, fi, nfft), (seg_score, seg_arg, noise_floor_db),
-    row_max)``: spectra ``[..., nfft]``, partials ``[..., nfft/8]``, floor
-    and max linear power ``[...]`` (the l2rx gate input).
+    row_max)``: spectra ``[..., nfft]``, partials ``[..., nfft/8]`` (with
+    ``emit_topk``, K1's ``[..., 128]`` top-K blocks), floor and max linear
+    power ``[...]`` (the l2rx gate input).
     """
     xr, xi, n = pad_ct(sig_re, sig_im, max_lag=max_lag, plan=plan)
     batch = xr.shape[:-1]
     fr, fi, score, arg, nf, rmax = fft_detect.fft_detect_rows_ct(
-        xr.reshape(-1, n), xi.reshape(-1, n), plan
+        xr.reshape(-1, n), xi.reshape(-1, n), plan, emit_topk
     )
-    s = plan.segments
+    s = score.shape[-1]
     return (
         (fr.reshape(*batch, n), fi.reshape(*batch, n), n),
         (score.reshape(*batch, s), arg.reshape(*batch, s), nf.reshape(batch)),

@@ -13,8 +13,10 @@ back-to-back launches between two CUDA events, median of 3, so the host's
 time to call the wrapper overlaps the card's work. K1 less K3 is what K1
 spends past the transform: the power hand-off and the detect body. Then
 K1, K3 and K4 on rows past one block's shared memory, [1024, 33792],
-[1024, 34816] (n1 = 256) and [1024, 66560], which run the long-row
-designs (a checkout without them prints that the wrapper raises), and
+[1024, 34816] (n1 = 256), [1024, 66560] and the mixed-radix row passes
+[1024, 58368], [512, 87040] and [256, 121856] (n1 = 384, 640, 896), which
+run the long-row designs (a checkout without them prints that the wrapper
+raises), and
 the long-row K3 and K1 forced onto [1024, 17408] beside the one-block ones.
 Last, one line of digests: SHA-256 of the outputs on seeded rows up to
 17408, K3 at every instantiation of the one-block design a length up to
@@ -109,7 +111,8 @@ def main() -> int:
     t8 = _mean_ms(lambda: channel_step.channel_step_partials(x8r, x8i, pi, pj, plan, lag))
     print(f"[{c}, {b}, {nfft}], max_lag {lag}: K8 {t8:.4f} ms {tag}")
     del x8r, x8i
-    for rows, nfft in ((1024, 33_792), (1024, 34_816), (1024, 66_560)):
+    for rows, nfft in ((1024, 33_792), (1024, 34_816), (1024, 66_560), (1024, 58_368), (512, 87_040),
+                       (256, 121_856)):
         plan = ct_plan.detect_plan(nfft, **DETECT)
         xr = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
         xi = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)

@@ -21,15 +21,22 @@ as its plain version is against JAX:
   float32-tied segments (see :func:`fragile_segments`), scores within
   1e-4 of the row's max power;
 - K2, K5 and K6 lag windows within 1e-4 of each pair's window max, with
-  the same argmax, in every whitening mode (l2rx, l2, l1, "cc"), at both
-  inner lengths of their warp FFT (n1 = 128, and 256 at nfft 34816);
+  the same argmax, in every whitening mode (l2rx, l2, l1, "cc"), at every
+  inner length of their warp FFT (n1 = 128; 256 at nfft 34816; the mixed
+  radix 384, 640 and 896 at 52224/58368, 87040 and 121856);
 - K4 on K1's spectra equal to K1's own partials and floor, bit for bit
   (the same device function on the same floats), and K4 vs its plain
   version as K1's partials; K1's spectra equal to K3's bit for bit (the
   same radix steps of ``ct_fft.cuh``), so K3 → K4 gives K1's partials;
 - K8 equal, bit for bit, to K1 → K2 (l2rx) on the same rows (the same
-  device functions in the same order), and vs its plain version within
-  K1's and K2's bounds;
+  device functions in the same order; above 24576 its long design is
+  that composition), and vs its plain version within K1's and K2's
+  bounds;
+- K1's and K4's top-K blocks (``emit_topk``) equal, bit for bit, to their
+  own partials followed by the port's top-K tail, and close to the plain
+  versions' (:func:`radio_mapper_tpu_torch.testing.topk_errors`: values
+  within 1e-4 of the row's max power, packed indices equal outside
+  float32 near-ties);
 - K7 spectra within 1e-4 of the row's max |X|, in natural order;
 - pipelines on the card vs the CPU: lags within 1e-3 samples, fixes
   within 0.5 m (the narrowband ELT scene: 1e-2 samples and 1 m, see its
@@ -45,6 +52,7 @@ from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
 from radio_mapper_tpu_torch.models.wideband import WidebandConfig, WidebandTDOAPipeline
 from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat
 from radio_mapper_tpu_torch.ops.cuda import channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair
+from radio_mapper_tpu_torch import testing
 from radio_mapper_tpu_torch.testing import cap_cpu_threads
 
 cap_cpu_threads()
@@ -218,10 +226,14 @@ def test_k1_kernel_matches_plain(cuda_device, nfft, n_valid):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,b,nfft,max_lag", [(2, 4, 9216, 256), (4, 8, 17408, 512), (2, 4, 34816, 512)])
+@pytest.mark.parametrize("c,b,nfft,max_lag", [
+    (2, 4, 9216, 256), (4, 8, 17408, 512), (2, 4, 34816, 512),
+    (2, 4, 52224, 600), (1, 4, 87040, 600), (1, 3, 121856, 2048),
+])
 def test_k2_kernel_matches_plain(cuda_device, c, b, nfft, max_lag):
-    """n1 = 128 (9216, 17408) and n1 = 256 (34816 = 256·136): both inner
-    lengths of the pair body's warp FFT."""
+    """n1 = 128 (9216, 17408), n1 = 256 (34816 = 256·136) and the mixed
+    radix 384, 640, 896 (52224, 87040, 121856 = n1·136): every inner
+    length of the pair body's warp FFT."""
     sre, sim_, smax = (torch.from_numpy(a).to(cuda_device) for a in correlated_spectra(c, b, nfft, 5))
     pi, pj = gcc_phat.pair_indices(b)
     before = gcc_pair.launch_count
@@ -402,22 +414,27 @@ def test_k3_kernel_matches_plain(cuda_device, nfft):
 
 @pytest.mark.cuda
 def test_k3_kernel_takes_long_rows_and_rejects_f3b(cuda_device):
-    """32768 = 128·256 (256 KB a row) runs the long-row design; 52224 =
-    384·136 is fault F3b and raises before any launch."""
-    re, im = tone_rows(4, 32768, 16)
-    xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
-    before, long_before = fft_rows.launch_count, fft_rows.design_counts["long"]
-    out = fft_rows.fft_rows_ct(xr, xi)
-    torch.cuda.synchronize()
-    assert (fft_rows.launch_count, fft_rows.design_counts["long"]) == (before + 1, long_before + 1)
-    assert_spectra_close([o.cpu() for o in out], [o.cpu() for o in fft_rows.fft_rows_ct_plain(xr, xi)])
-    x = torch.zeros(2, 52224, device=cuda_device)
-    with pytest.raises(ValueError, match="F3b"):
+    """32768 = 128·256 (256 KB a row) runs the long-row design, and so do
+    the lengths that were fault F3b: 384·136, 640·136 and 896·136 (the
+    row pass's mixed-radix warp FFT, P = 12, 20, 28), each within 1e-4
+    of the row's max |X| of the plain version; a length with no CT split
+    raises before any launch."""
+    for nfft, rows in ((32768, 4), (52224, 4), (87040, 2), (121856, 2)):
+        re, im = tone_rows(rows, nfft, 16, n_valid=nfft - 1024)
+        xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
+        before, long_before = fft_rows.launch_count, fft_rows.design_counts["long"]
+        out = fft_rows.fft_rows_ct(xr, xi)
+        torch.cuda.synchronize()
+        assert (fft_rows.launch_count, fft_rows.design_counts["long"]) == (before + 1, long_before + 1)
+        assert_spectra_close([o.cpu() for o in out], [o.cpu() for o in fft_rows.fft_rows_ct_plain(xr, xi)])
+    x = torch.zeros(2, 128 * 1031, device=cuda_device)  # n2 = 1031 > 1024 and prime: no split
+    with pytest.raises(ValueError, match="factorization"):
         fft_rows.fft_rows_ct(x, x)
     assert fft_rows.launch_count == before + 1
 
 
-LONG_SHAPES = [(16, 33792), (16, 34816), (8, 66560)]  # n1·n2 = 128·264, 256·136, 128·520
+# n1·n2 = 128·264, 256·136, 128·520, 384·152, 640·136, 896·136
+LONG_SHAPES = [(16, 33792), (16, 34816), (8, 66560), (8, 58368), (4, 87040), (4, 121856)]
 
 
 @pytest.mark.cuda
@@ -551,6 +568,7 @@ def test_k7_kernel_rejects_unsupported_input(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,b,nfft,max_lag,pairs", [
     (3, 8, 5120, 128, None), (2, 12, 2048, 64, 37), (2, 6, 34816, 512, None),
+    (1, 8, 58368, 600, None), (1, 4, 121856, 600, None),
 ])
 def test_k5_kernel_matches_plain(cuda_device, m, b, nfft, max_lag, pairs):
     sre, sim_, smax = correlated_spectra(m, b, nfft, 6)
@@ -568,7 +586,7 @@ def test_k5_kernel_matches_plain(cuda_device, m, b, nfft, max_lag, pairs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,nfft,max_lag", [(8, 5120, 128), (5, 34816, 512)])
+@pytest.mark.parametrize("b,nfft,max_lag", [(8, 5120, 128), (5, 34816, 512), (4, 87040, 600)])
 def test_k6_kernel_matches_plain_and_k5(cuda_device, b, nfft, max_lag):
     sre, sim_, smax = correlated_spectra(1, b, nfft, 7)
     pi, pj = gcc_phat.pair_indices(b)
@@ -613,6 +631,106 @@ def test_wideband_on_card_matches_cpu(cuda_device, route):
     fix = gpu.fixes_enu[sub].cpu().numpy()
     np.testing.assert_allclose(fix, cpu.fixes_enu[sub].numpy(), atol=0.5)
     assert np.linalg.norm(fix[:2] - emitter[:2]) < 300.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,nfft", [(16, 17408), (8, 33792), (8, 58368)])
+def test_topk_kernels_match_their_partials_tail_and_plain(cuda_device, rows, nfft):
+    """K1 (one block at 17408, the long design above: K3 then K4's top-K
+    phase) and K4 with ``emit_topk = 8``: bit for bit the kernels' own
+    partials followed by the port's tail (``fft_detect.topk_plain``), the
+    spectra, floor and row max untouched; close to the plain versions'."""
+    re, im = tone_rows(rows, nfft, 19, n_valid=nfft - 1024)
+    plan = ct_plan.detect_plan(nfft, **DET)
+    xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
+    counts = lambda: (fft_detect.launch_count, detect_ct.launch_count)
+    before = counts()
+    k1 = fft_detect.fft_detect_rows_ct(xr, xi, plan, emit_topk=8)
+    k4 = detect_ct.detect_ct_partials(k1[0], k1[1], plan, emit_topk=8)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1)
+    base = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    tail = fft_detect.topk_plain(base[2], base[3], 8)
+    for x, y in [*zip(k1[:2], base[:2]), *zip(k1[2:4], tail), *zip(k1[4:], base[4:]), *zip(k4[:2], tail),
+                 (k4[2], base[4])]:
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    plain = fft_detect.fft_detect_rows_ct_plain(xr, xi, plan, emit_topk=8)
+    p4 = detect_ct.detect_ct_partials_plain(k1[0], k1[1], plan, emit_topk=8)
+    for out, ref in ((k1[2:4], plain[2:4]), (k4[:2], p4[:2])):
+        _, rel, bad, checked = testing.topk_errors(out, ref, plain[5], 8)
+        assert rel <= 1e-4 and bad == 0 and checked > 0.5, (rel, bad, checked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,b,nfft,max_lag", [(2, 8, 58368, 600), (1, 4, 121856, 600), (1, 4, 33792, 600)])
+def test_k8_long_design_equals_composition_and_plain(cuda_device, c, b, nfft, max_lag):
+    """K8 above 24576: the long K1 (long K3, then K4) and K2 (l2rx),
+    counted as one K8 launch, equal to K1 → K2 bit for bit."""
+    re, im = tone_rows(c * b, nfft, 20, n_valid=nfft - max_lag - 512)
+    plan = ct_plan.detect_plan(nfft, **DET)
+    xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
+    pi, pj = gcc_phat.pair_indices(b)
+    assert channel_step.geometry(nfft) == "long"
+    counts = lambda: (channel_step.launch_count, channel_step.design_counts["long"], fft_detect.launch_count,
+                      fft_rows.launch_count, detect_ct.launch_count, gcc_pair.launch_count)
+    before = counts()
+    score, arg, nf, win = channel_step.channel_step_partials(
+        xr.view(c, b, nfft), xi.view(c, b, nfft), pi, pj, plan, max_lag
+    )
+    torch.cuda.synchronize()
+    assert tuple(a - b_ for a, b_ in zip(counts(), before)) == (1, 1, 0, 0, 0, 0)
+    fr, fi, s1, a1, nf1, rmax = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    w2 = gcc_pair.gcc_pair_lag_mags(fr.view(c, b, nfft), fi.view(c, b, nfft), rmax.view(c, b), pi, pj,
+                                    max_lag=max_lag)
+    for x, y in ((score.view(-1, nfft // 8), s1), (arg.view(-1, nfft // 8), a1), (nf.view(-1), nf1), (win, w2)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    ps, pa, pn, pw = channel_step.channel_step_partials_plain(
+        xr.view(c, b, nfft), xi.view(c, b, nfft), pi, pj, plan, max_lag
+    )
+    assert_windows_close(win.cpu().numpy(), pw.cpu().numpy())
+    np.testing.assert_allclose(nf.cpu().numpy(), pn.cpu().numpy(), atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["default", "two-kernel", "mega", "combined-topk"])
+def test_pipeline_mixed_radix_rows_on_card_match_cpu(cuda_device, route):
+    """The phase-4 scene at block_len 57344 (nfft 58368 = 384·152: the
+    long K3's mixed-radix row pass, K2's mixed-radix pair body) on the
+    default route (K1), the two-kernel route (K3, K4), the mega route (K8's
+    long design) and the default route with the in-kernel top-K, vs the
+    CPU on the same route: detections equal, lags within 1e-3 samples, the
+    fix within 0.5 m, under 50 m."""
+    from radio_mapper_tpu_torch.ops import detect
+
+    scen = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8, block_len=57344)
+    cap = sim.synthesize(scen)
+    cfg = PipelineConfig(num_buoys=4, block_len=57344, sample_rate_hz=scen.sample_rate_hz, max_lag=600,
+                         power_offset_db=40.0)
+    host = [torch.from_numpy(a.astype(np.float32)) for a in (cap.iq.real, cap.iq.imag, cap.buoy_enu)]
+    counters = lambda: (fft_detect.launch_count, fft_rows.launch_count, detect_ct.launch_count,
+                        gcc_pair.launch_count, channel_step.design_counts["long"])
+    knob, on, off, want = {
+        "default": (detect.set_fused_fft_detect, "auto", "auto", (1, 0, 0, 1, 0)),
+        "two-kernel": (detect.set_fused_fft_detect, "off", "auto", (0, 1, 1, 1, 0)),
+        "mega": (channel_step.set_mega_fused, "on", "off", (0, 0, 0, 0, 1)),
+        "combined-topk": (detect.set_combined_topk, True, False, (1, 0, 0, 1, 0)),
+    }[route]
+    knob(on)
+    try:
+        cpu = TDOAPipeline(cfg, device="cpu").step_split(*host)
+        before = counters()
+        gpu = TDOAPipeline(cfg, device=cuda_device).step_split(*(a.to(cuda_device) for a in host))
+        torch.cuda.synchronize()
+    finally:
+        knob(off)
+    assert tuple(a - b for a, b in zip(counters(), before)) == want
+    np.testing.assert_array_equal(gpu.peaks.bin_index.cpu().numpy(), cpu.peaks.bin_index.numpy())
+    np.testing.assert_allclose(
+        gpu.correlation.lag_samples.cpu().numpy(), cpu.correlation.lag_samples.numpy(), atol=1e-3
+    )
+    pos = gpu.fix.position_enu.cpu().numpy()
+    np.testing.assert_allclose(pos, cpu.fix.position_enu.numpy(), atol=0.5)
+    assert np.linalg.norm(pos[:2] - cap.emitter_enu[0][:2]) < 50.0
 
 
 def elt_scene(dwells, n, seed=11):

@@ -3,17 +3,18 @@ long rows), replayed in numpy on the CPU, and the routing walk over every
 planned FFT length.
 
 K3's long design (``csrc/fft_rows_ct_long.cu``) runs the steps of
-``csrc/ct_fft.cuh`` on a row of n = n1·n2 samples, n1 = 128 or 256, in two
-passes through a device-memory workspace:
+``csrc/ct_fft.cuh`` on a row of n = n1·n2 samples, n1 = 128, 256, 384, 640
+or 896, in two passes through a device-memory workspace:
 
 - column pass: a block loads a tile of ``cols`` columns p (32, or 16 for
   n2 > 512), ``tile[q][p] = x[q·n1 + p0 + p]``, runs step A on it with
   W_128^e read as W_n1^(e·n1/128), then step B, and writes slot row
   ``s + r·k`` times the row twiddle to ``ws[(s + r·k)·n1 + p0 + p]``;
 - row pass: one warp a slot row, lane l holding positions P·l + i (P =
-  n1/32): the n1-point radix-2 DIF across lanes and registers, after
-  which position P·l + i holds bin brev_P(i)·32 + brev5(l), stored at CT
-  address ``(k + a·s)·n1 + k1``.
+  n1/32): five radix-2 DIF stages across lanes and the P-point transform
+  in registers (``tests/test_torch_mixed_radix.py``), after which
+  register i holds bin digit(i)·32 + brev5(l), stored at CT address
+  ``(k + a·s)·n1 + k1``.
 
 K4 (``csrc/detect_ct.cu``): phase a writes the stride-8
 subsample's dB values to ``sub[(k2/8)·n1 + k1]`` and bisects the floor;
@@ -31,6 +32,8 @@ float32 spectra (every step is a max, a min, a count or a float32
 comparison).
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -41,6 +44,7 @@ from radio_mapper_tpu_torch.ops.cuda import channel_step, detect_ct, fft_detect,
 from radio_mapper_tpu_torch.testing import cap_cpu_threads
 from test_torch_cuda import DET
 from test_torch_fft_radix import _bitrev, _c64, k3_schedule
+from test_torch_mixed_radix import digit, warp_forward_fft
 
 cap_cpu_threads()
 
@@ -92,9 +96,8 @@ def column_tile(n2: int) -> int:
 def ct_address(sr, i, lane, n1, a, r):
     """``rm_fft::ct_address<n1>``: CT address of value i of lane ``lane``'s
     step-C output of slot row sr = s + r·k."""
-    p = n1 // 32
     k, s = sr // r, sr % r
-    return (k + a * s) * n1 + _bitrev(i, p.bit_length() - 1) * 32 + _bitrev(lane, 5)
+    return (k + a * s) * n1 + digit(n1 // 32, i) * 32 + _bitrev(lane, 5)
 
 
 def k3_long_schedule(x: np.ndarray, n1: int, n2: int) -> np.ndarray:
@@ -122,15 +125,14 @@ def k3_long_schedule(x: np.ndarray, n1: int, n2: int) -> np.ndarray:
                     acc += wr[j, s] * y[:, j]
                 ws[:, (s + r * k) * n1 + p0 + np.arange(cols)] = acc * tw[k + a * s, p0:p0 + cols]
     assert not np.isnan(ws).any()
-    # row pass: position P·l + i of slot row sr holds bin brev(P·l + i)
-    slots = ws.reshape(rows, n2, n1)
-    planes = _dif([slots[:, :, t].copy() for t in range(n1)], w1, n1)
-    out = np.full((rows, n), np.nan, np.complex64)
+    # row pass: register i of lane l of slot row sr holds bin digit(i)·32 + brev5(l)
     pp = n1 // 32
+    v = warp_forward_fft(ws.reshape(rows, n2, 32, pp), n1)
+    out = np.full((rows, n), np.nan, np.complex64)
     for lane in range(32):
         for i in range(pp):
             m = np.array([ct_address(sr, i, lane, n1, a, r) for sr in range(n2)])
-            out[:, m] = planes[pp * lane + i]
+            out[:, m] = v[:, :, lane, i]
     assert not np.isnan(out).any()
     return out
 
@@ -159,6 +161,10 @@ def _ct_fft(x, n1, n2):
     (256, 52),   # a 4, r 13
     (256, 50),   # a 2, r 25 (streamed)
     (256, 64),   # a 8, r 8
+    (384, 136),  # 52224: P = 12, a 8, r 17, the first planned mixed length
+    (384, 264),  # 101376: r 33 (streamed)
+    (640, 152),  # 97280: P = 20, r 19
+    (896, 136),  # 121856: P = 28, r 17
 ])
 def test_long_k3_replica_equals_numpy_fft_in_ct_order(n1, n2):
     x = _rows(n1 * n2, n1 + n2)
@@ -228,6 +234,15 @@ def test_n1_256_tables_hold_the_128_point_table_bit_for_bit(n):
     t = ct_plan.radix_tables(n)
     assert t.n1 == 256 and t.w1.shape == (128, 2)
     np.testing.assert_array_equal(t.w1[::2], ct_plan.radix_tables(17408).w1)
+
+
+@pytest.mark.parametrize("n,n1", [(52_224, 384), (87_040, 640), (121_856, 896)])
+def test_mixed_tables_hold_the_128_point_table_bit_for_bit(n, n1):
+    """n1 = 384, 640, 896: the column pass reads W_128^e as W_n1^(e·n1/128),
+    the same float32 values as the one-block design's table."""
+    t = ct_plan.radix_tables(n)
+    assert t.n1 == n1 and t.w1.shape == (n1 // 2, 2) and (t.a, t.n2 % 8) == (8, 0)
+    np.testing.assert_array_equal(t.w1[:: n1 // 128], ct_plan.radix_tables(17408).w1)
 
 
 # -- K4's long design ----------------------------------------------------
@@ -376,8 +391,10 @@ def test_long_k4_replica_with_a_wrong_halo_disagrees(mutant):
 # -- routing walk ----------------------------------------------------------
 
 PLANNED = sorted({ct_plan.plan_nfft(m) for m in range(1024, 131_073, 1024)})
-# planned lengths whose split has n1 ∈ {384, 640, 896}: no K1/K3/K2/K5/K6 design (fault F3b)
-F3B_SET = [
+# planned lengths no CUDA design takes (once fault F3b: n1 ∈ {384, 640, 896}, and K8 above 24576)
+F3B_SET = []
+# the 23 planned lengths whose split has n1 ∈ {384, 640, 896}: the mixed-radix warp FFT's
+MIXED_SET = [
     52_224, 58_368, 64_512, 70_656, 76_800, 82_944, 87_040, 89_088, 95_232, 97_280, 101_376, 104_448,
     107_520, 110_592, 113_664, 116_736, 117_760, 119_808, 121_856, 122_880, 125_952, 128_000, 129_024,
 ]
@@ -390,8 +407,9 @@ def test_planned_lengths_split_as_the_routing_walk_expects():
     for n in PLANNED:
         by_n1.setdefault(ct_plan.ct_split(n)[0], []).append(n)
     assert {k: len(v) for k, v in by_n1.items()} == {128: 62, 256: 43, 384: 18, 640: 4, 896: 1}
-    assert len(F3B_SET) == 23 and sorted(by_n1[384] + by_n1[640] + by_n1[896]) == F3B_SET
-    assert min(F3B_SET) == 52_224 and all(ct_plan.ct_split(n)[0] in (128, 256) for n in PLANNED if n <= 51_200)
+    assert len(MIXED_SET) == 23 and sorted(by_n1[384] + by_n1[640] + by_n1[896]) == MIXED_SET
+    assert min(MIXED_SET) == 52_224 and all(ct_plan.ct_split(n)[0] in (128, 256) for n in PLANNED if n <= 51_200)
+    assert F3B_SET == [] and set(by_n1) == set(ct_plan.RADIX_N1)
 
 
 def _route_kernels(n: int, *, mega: bool, fft_detect_on: bool, detect_on: bool):
@@ -432,34 +450,40 @@ ROUTE_KNOBS = {
 @pytest.mark.parametrize("route", sorted(ROUTE_KNOBS))
 def test_every_planned_length_has_a_kernel_on_each_route_but_f3b(route):
     """Every planned nfft up to 131072 (block_len ≤ 65536 at any max_lag <
-    block_len) is taken by each kernel its route sends it to, except fault
-    F3b: n1 ∈ {384, 640, 896} on the K1/K3/K2 routes, and every length
-    above 24576 on the mega route (K8), each raising with F3b's name."""
+    block_len) is taken by each kernel its route sends it to: the F3b set
+    of lengths no design takes is empty. K1 and K3 pick one block a row up
+    to 24576 and the long design above, K8 its cluster design and its long
+    one (the long K1, then K2)."""
     seen = set()
+    designs = {}
     for n in PLANNED:
         for name, check in _route_kernels(n, **ROUTE_KNOBS[route]):
             seen.add(name)
-            expect_f3b = n > fft_detect.MAX_N if name == "K8" else n in F3B_SET and name != "K4"
-            if expect_f3b:
-                with pytest.raises(ValueError, match="F3b"):
-                    check()
-            else:
-                check()
+            design = check()
+            if isinstance(design, str):
+                designs.setdefault(name, set()).add((design, n > fft_detect.MAX_N))
     want = {"default": {"K1"}, "two-kernel": {"K3", "K4"}, "unfused-detect": {"K3"}, "mega": {"K8"}}[route]
     assert want <= seen
+    short = {"K1": "block", "K3": "block", "K8": "cluster"}
+    for name, got in designs.items():
+        assert got <= {(short[name], False), ("long", True)}, (name, got)
+        if name in want:
+            assert got == {(short[name], False), ("long", True)}, (name, got)
 
 
 def test_wideband_k3_and_pair_stage_take_every_planned_length_but_f3b():
     """The wideband path's K3 and K5/K6 (``gcc_pair._geometry``) at every
-    planned nfft."""
+    planned nfft, with the inner length of the split; and no message of
+    the port names fault F3b any more."""
     for n in PLANNED:
-        checks = [lambda: fft_rows.geometry(n)] + [lambda lag=lag: gcc_pair._geometry(n, lag, "K5") for lag in MAX_LAGS]
-        for check in checks:
-            if n in F3B_SET:
-                with pytest.raises(ValueError, match="F3b"):
-                    check()
-            else:
-                check()
+        n1 = ct_plan.ct_split(n)[0]
+        assert fft_rows.geometry(n) in ("block", "long")
+        for lag in MAX_LAGS:
+            assert gcc_pair._geometry(n, lag, "K5")[0] == n1
+    assert not F3B_SET
+    package = Path(ct_plan.__file__).resolve().parents[1]
+    sources = [*package.rglob("*.py"), *package.rglob("*.cu"), *package.rglob("*.cuh")]
+    assert len(sources) > 30 and not [p for p in sources if "F3b" in p.read_text()]
 
 
 def test_design_choice_by_length():
@@ -473,10 +497,9 @@ def test_design_choice_by_length():
             assert 0 < detect_ct.geometry(n, 10) <= detect_ct.geometry(n, n2) <= fft_detect.SMEM_LIMIT, n
         else:
             assert n2 < 10, n
-        if n in F3B_SET:
-            continue
         want = "block" if n <= fft_rows.MAX_N else "long"
         assert fft_rows.geometry(n) == want and fft_detect.geometry(n) == want, n
+        assert channel_step.geometry(n) == ("cluster" if want == "block" else "long"), n
     with pytest.raises(ValueError, match="radius"):
         detect_ct.geometry(17408, 137)  # radius > n2 = 136
 
@@ -499,7 +522,7 @@ def test_long_k3_builds_only_the_variants_planned_lengths_reach():
     built column-pass variant, and together they reach every built one; a
     long split with 8 ∤ n2 raises before any launch."""
     reached = set()
-    for n in [5120, 17408, 24576] + [n for n in PLANNED if n > fft_rows.MAX_N and n not in F3B_SET]:
+    for n in [5120, 17408, 24576] + [n for n in PLANNED if n > fft_rows.MAX_N]:
         n1, n2, a, r = fft_rows.long_geometry(n)
         assert a == 8 and n2 <= 1024, n
         reached.add(column_variant(n2, r))

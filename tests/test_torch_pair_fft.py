@@ -4,18 +4,20 @@
 spectra X, Y (bin k = k2 + n2·k1 at m = k2·n1 + k1) into its lag window:
 
 - one warp per CT row k2, point i of lane l holding bin k1 = l + 32·i
-  (i < P = n1/32, n1 = 128 or 256): R = X·conj(Y), whitened by the gate,
-  in registers;
+  (i < P = n1/32, n1 = 128, 256, 384, 640 or 896): R = X·conj(Y),
+  whitened by the gate, in registers;
 - the inner inverse n1-point FFT, radix-2 DIF with conjugate twiddles
   W_n1^−e, e = (t mod h)·(n1/2)/h for the pair (t, t + h): the stages of
   half-size h = n1/2 .. 32 pair points i and i + h/32 of a lane in
   registers, the stages h = 16 .. 1 pair lane l with lane l ^ h (the lane
   whose bit h is clear keeps a + b, its partner (a − b)·W); each lane's
   exponents depend on the lane and i, never on the row; point i of lane l
-  then holds E[brev(l + 32·i)] = E[P·brev5(l) + brev(i)];
+  then holds E[brev(l + 32·i)] = E[P·brev5(l) + brev(i)] (n1 = 384, 640,
+  896 run the mixed-radix form of ``tests/test_torch_mixed_radix.py``:
+  E[P·brev5(l) + digit(i)]);
 - that times the inverse twiddle W_n^(k2·p), stored in 16-byte words at
   the swizzled place ``swz(p)`` of the chunk buffer, and each chunk of
-  ``(THREADS // n1)·RJ`` rows folded into the window rows
+  ``gcc_pair.chunk_rows(THREADS, n1)`` rows folded into the window rows
   z[q] += W_n2^(−q·k2)·C[k2], k2 ascending;
 - |z|/n over lags −L..L.
 
@@ -23,8 +25,9 @@ The replica runs exactly that in float32/complex64 and must equal
 ``np.fft.ifft``·n1 and the direct DFT of the ``w1`` table row by row, and
 the whole body must equal ``gcc_pair._whiten_invert_plain`` (the plain
 version the kernels are held to) within 1e-5 of each window's max, for
-the four gates, at nfft 5120 (L 128) and 17408 (L 512), n1 = 128, and
-34816 (L 512), n1 = 256. Blocks of 256 (K2, K5, K6) and 512 threads (K8)
+the four gates, at nfft 5120 (L 128) and 17408 (L 512), n1 = 128,
+34816 (L 512), n1 = 256, and 52224, 87040 and 121856 (L 600), n1 = 384,
+640 and 896. Blocks of 256 (K2, K5, K6) and 512 threads (K8)
 chunk the rows differently and must give identical windows. The chunk
 buffer's stores and the fold's reads are held free of bank conflicts, and
 the text edits of ``tools/pair_parts.py`` to the current sources. No JAX
@@ -40,15 +43,17 @@ from radio_mapper_tpu_torch.ops.cuda import channel_step, gcc_pair
 from radio_mapper_tpu_torch.testing import cap_cpu_threads
 
 from test_torch_cuda import correlated_spectra, pair_gate_scales
+from test_torch_mixed_radix import digit, warp_inverse_mixed
 
 cap_cpu_threads()
 
 WARP, BANKS = 32, 32
 LANES = np.arange(WARP)
 GATES = ("l2rx", "l2", "l1", "none")
-# (nfft, max_lag): the wideband and flagship lengths (n1 = 128), and
-# 34816 = 256·136, a length the kernels serve with n1 = 256
-CASES = [(5120, 128), (17408, 512), (34816, 512)]
+# (nfft, max_lag): the wideband and flagship lengths (n1 = 128),
+# 34816 = 256·136, a length the kernels serve with n1 = 256, and the
+# mixed-radix inner lengths 384·136, 640·136 and 896·136
+CASES = [(5120, 128), (17408, 512), (34816, 512), (52224, 600), (87040, 600), (121856, 600)]
 
 
 def _brev(x: int, bits: int) -> int:
@@ -61,10 +66,9 @@ def _c64(pairs: np.ndarray) -> np.ndarray:
 
 def positions(n1: int) -> np.ndarray:
     """``[32, P]``: the time p point i of lane l holds after the FFT,
-    brev(l + 32·i) over log2(n1) bits."""
+    P·brev5(l) + digit(i) (for P = 4, 8: brev(l + 32·i) over log2(n1) bits)."""
     p = n1 // WARP
-    bits = n1.bit_length() - 1
-    return np.array([[_brev(lane + WARP * i, bits) for i in range(p)] for lane in LANES])
+    return np.array([[p * _brev(lane, 5) + digit(p, i) for i in range(p)] for lane in LANES])
 
 
 def swz(p, pts: int):
@@ -96,6 +100,8 @@ def lane_stages(n1: int):
 def warp_inverse_fft(v: np.ndarray, n1: int) -> np.ndarray:
     """``inverse_row_fft<n1>`` on rows held as ``v [..., 32, P]`` complex64
     (lane l, point i = bin l + 32·i); returns the registers after the FFT."""
+    if n1 not in (128, 256):
+        return warp_inverse_mixed(v, n1)
     wi = _c64(ct_plan.inverse_radix_table(n1))
     v = v.copy()
     for _, g, pairs in register_stages(n1):
@@ -147,7 +153,7 @@ def pair_body(xr, xi, yr, yi, s2, max_lag, eps, gate, threads):
     w2 = (w2re + 1j * w2im).astype(np.complex64)
     tw = (twre + 1j * twim).astype(np.complex64)
     q = np.concatenate([np.arange(n2 - nneg, n2), np.arange(npos)])  # window rows
-    chunk = (threads // n1) * gcc_pair.RJ
+    chunk = gcc_pair.chunk_rows(threads, n1)
     warps = threads // WARP
     z = np.zeros((pairs, nneg + npos, n1), np.complex64)
     for r0 in range(0, n2, chunk):
@@ -281,7 +287,9 @@ def test_pair_body_replica_matches_plain(nfft, max_lag, gate):
 def test_geometry_takes_n1_128_and_256_and_keeps_shared_memory():
     """The kernels' inner lengths and shared memory: no more than the
     direct-DFT body took at the main paths' shapes (it is the same
-    formula), and K8's pair buffers inside its row."""
+    formula), and K8's pair buffers inside its row; the mixed-radix inner
+    lengths are taken too, one CT row a warp a chunk, and a split outside
+    them raises."""
     assert gcc_pair._geometry(17408, 512, "K2") == (128, 136, 4, 5)
     assert gcc_pair._geometry(5120, 128, "K5") == (128, 40, 1, 2)
     assert gcc_pair._geometry(34816, 512, "K2") == (256, 136, 2, 3)
@@ -289,5 +297,8 @@ def test_geometry_takes_n1_128_and_256_and_keeps_shared_memory():
     assert gcc_pair.smem_bytes(128, 1, 2) == 19_456  # [16, 64, 5120], L 128
     assert gcc_pair.smem_bytes(128, 4, 5, channel_step.THREADS) == 41_984 <= 17408 * 8  # K8
     n = next(n for n in range(128, 1 << 20, 128) if ct_plan.ct_supported(n) and ct_plan.ct_split(n)[0] == 384)
+    assert gcc_pair._geometry(n, 64, "K2")[0] == 384 and gcc_pair.PAIR_N1 == (128, 256, 384, 640, 896)
+    assert gcc_pair.smem_bytes(384, 1, 1) == (8 + 2) * 384 * 8  # 8 warps, one row each
+    n = next(n for n in range(128, 1 << 20, 128) if ct_plan.ct_supported(n) and ct_plan.ct_split(n)[0] == 512)
     with pytest.raises(ValueError, match="n1 in"):
         gcc_pair._geometry(n, 64, "K2")
