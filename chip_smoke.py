@@ -1308,7 +1308,28 @@ def main() -> int:
             _require(m1_is_k3k4, f"long K1 differs from K3 -> K4 at {mn}")
             _require(m1e[0] <= 1e-3 and m1e[1] <= 1e-3 and m1e[2] <= 1e-3 and m1e[4] <= 1e-4 and m1e[5],
                      f"long K1 partials disagree at {mn}: {m1e}")
-            del m1, m4
+            # K2 at the flagship's own shape, fed these K1 outputs, as phase 3 does at 17408
+            m2in = (m1[0].view(chans, buoys, mn), m1[1].view(chans, buoys, mn), m1[5].view(chans, buoys), pi, pj)
+            m2 = gcc_pair.gcc_pair_lag_mags(*m2in, max_lag=600)
+            pm2 = gcc_pair.gcc_pair_lag_mags_plain(*m2in, max_lag=600)
+            torch.cuda.synchronize()
+            m2_abs, m2_rel = _window_errors(m2, pm2)
+            m2_arg = bool((m2.argmax(-1) == pm2.argmax(-1)).all())
+            del pm2
+            m2_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_pair_lag_mags(*m2in, max_lag=600))
+            m2_plain_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_pair_lag_mags_plain(*m2in, max_lag=600))
+            m2_bound = _bound(_pair_flops(chans * npairs, mn, 1201),
+                              rows_m * mn * 8 + rows_m * 4 + chans * npairs * 1201 * 4)
+            mixed_rows[("K2", "flagship")] = ([chans, buoys, mn], m2_abs, m2_ms, m2_plain_ms, m2_bound, None)
+            print(
+                f"phase 20: K2 at n1 = {n1m}, [{chans}, {buoys}, {mn}] (the flagship's shape, fed long K1) -> "
+                f"{list(m2.shape)} window max|err| {m2_abs:.3e} (rel to window max {m2_rel:.3e}, tol 1e-4), same "
+                f"argmax {m2_arg}; kernel {m2_ms:.3f} ms, plain {m2_plain_ms:.3f} ms, bound {m2_bound[0]:.4f} ms "
+                f"({m2_bound[1]}) {tag}"
+            )
+            _require(tuple(m2.shape) == (chans, npairs, 1201), f"K2 output shape at {mn}")
+            _require(m2_rel <= 1e-4 and m2_arg, f"K2 lag windows disagree at the flagship's shape: {m2_rel}")
+            del m1, m4, m2, m2in
         del m3, mxr, mxi
 
     # K2 and K5 (the pair body's mixed-radix inverse) and K8's long design

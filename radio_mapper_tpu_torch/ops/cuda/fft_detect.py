@@ -225,14 +225,15 @@ def fft_detect_rows_ct_plain(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.D
 
 
 def topk_plain(score: torch.Tensor, arg: torch.Tensor, k: int):
-    """The in-kernel top-K's plain version on ``[rows, s]`` partials:
-    ``(vals, packed)`` ``[rows, 128]``, lane j < k the j-th of k
+    """The in-kernel top-K's plain version on ``[..., s]`` partials, and
+    the port's one top-K selection (``detect.peaks_from_ct_partials``):
+    ``(vals, packed)`` ``[..., 128]``, lane j < k the j-th of k
     masked-argmax passes (:func:`safe.top_k`: the max, the lowest index f
-    holding it, an all −inf row picks 0) and ``8·f + arg[f]``; lanes ≥ k
-    are 0."""
+    holding it, an all −inf row picks 0) and ``8·f + arg[f]`` (exact in
+    float32); lanes ≥ k are 0."""
     vals, f = safe.top_k(score, k)
     packed = 8.0 * f.to(torch.float32) + torch.gather(arg, -1, f)
-    pad = lambda x: torch.nn.functional.pad(x, (0, TOPK_LANES - k))
+    pad = lambda x: torch.nn.functional.pad(x, (0, max(TOPK_LANES - k, 0)))
     return pad(vals), pad(packed)
 
 

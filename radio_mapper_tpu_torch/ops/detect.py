@@ -29,7 +29,7 @@ import torch
 
 from radio_mapper_tpu_torch import constants
 from radio_mapper_tpu_torch.ops import ct_plan, safe, spectral
-from radio_mapper_tpu_torch.ops.cuda import detect_ct
+from radio_mapper_tpu_torch.ops.cuda import detect_ct, fft_detect
 
 
 class PeakSet(NamedTuple):
@@ -185,14 +185,12 @@ def peaks_from_ct_partials(
     winners' values and ``seg_arg`` their packed ``8·f + off`` (exact in
     float32) in its first K lanes, which are only unpacked here."""
     n1, n2 = ct_plan.ct_split(nfft)
-    if kernel_topk:
-        top_vals = score[..., :max_peaks]
-        packed = seg_arg[..., :max_peaks].to(torch.int64)
-        top_f = packed // ct_plan.SEGMENT
-        off = packed - top_f * ct_plan.SEGMENT
-    else:
-        top_vals, top_f = safe.top_k(score, max_peaks)
-        off = torch.gather(seg_arg, -1, top_f).to(torch.int64)
+    if not kernel_topk:  # the selection the kernel's emit_topk runs
+        score, seg_arg = fft_detect.topk_plain(score, seg_arg, max_peaks)
+    top_vals = score[..., :max_peaks]
+    packed = seg_arg[..., :max_peaks].to(torch.int64)
+    top_f = packed // ct_plan.SEGMENT
+    off = packed - top_f * ct_plan.SEGMENT
     # segment f = b2·n1 + k1 covers natural bins (8·b2 + off) + n2·k1
     b2 = top_f // n1
     k1 = top_f - b2 * n1

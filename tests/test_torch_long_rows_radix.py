@@ -32,7 +32,6 @@ float32 spectra (every step is a max, a min, a count or a float32
 comparison).
 """
 
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -391,8 +390,6 @@ def test_long_k4_replica_with_a_wrong_halo_disagrees(mutant):
 # -- routing walk ----------------------------------------------------------
 
 PLANNED = sorted({ct_plan.plan_nfft(m) for m in range(1024, 131_073, 1024)})
-# planned lengths no CUDA design takes (once fault F3b: n1 ∈ {384, 640, 896}, and K8 above 24576)
-F3B_SET = []
 # the 23 planned lengths whose split has n1 ∈ {384, 640, 896}: the mixed-radix warp FFT's
 MIXED_SET = [
     52_224, 58_368, 64_512, 70_656, 76_800, 82_944, 87_040, 89_088, 95_232, 97_280, 101_376, 104_448,
@@ -409,7 +406,7 @@ def test_planned_lengths_split_as_the_routing_walk_expects():
     assert {k: len(v) for k, v in by_n1.items()} == {128: 62, 256: 43, 384: 18, 640: 4, 896: 1}
     assert len(MIXED_SET) == 23 and sorted(by_n1[384] + by_n1[640] + by_n1[896]) == MIXED_SET
     assert min(MIXED_SET) == 52_224 and all(ct_plan.ct_split(n)[0] in (128, 256) for n in PLANNED if n <= 51_200)
-    assert F3B_SET == [] and set(by_n1) == set(ct_plan.RADIX_N1)
+    assert set(by_n1) == set(ct_plan.RADIX_N1)
 
 
 def _route_kernels(n: int, *, mega: bool, fft_detect_on: bool, detect_on: bool):
@@ -473,17 +470,12 @@ def test_every_planned_length_has_a_kernel_on_each_route_but_f3b(route):
 
 def test_wideband_k3_and_pair_stage_take_every_planned_length_but_f3b():
     """The wideband path's K3 and K5/K6 (``gcc_pair._geometry``) at every
-    planned nfft, with the inner length of the split; and no message of
-    the port names fault F3b any more."""
+    planned nfft, with the inner length of the split."""
     for n in PLANNED:
         n1 = ct_plan.ct_split(n)[0]
         assert fft_rows.geometry(n) in ("block", "long")
         for lag in MAX_LAGS:
             assert gcc_pair._geometry(n, lag, "K5")[0] == n1
-    assert not F3B_SET
-    package = Path(ct_plan.__file__).resolve().parents[1]
-    sources = [*package.rglob("*.py"), *package.rglob("*.cu"), *package.rglob("*.cuh")]
-    assert len(sources) > 30 and not [p for p in sources if "F3b" in p.read_text()]
 
 
 def test_design_choice_by_length():
