@@ -40,10 +40,15 @@ per source, in parallel, sm_90a), then:
    and a per-stage split; then the same 8 blocks on the K6 route;
 10. K7 (natural-order FFT) vs its plain version at [8192, 16384] (one
     full-width narrowband block's dwells), the same bytes as [16384,
-    8192] and [32768, 4096], [32, 32768] (the ELT scene's dwells) and
-    [8, 65536], with ``torch.fft.fft`` beside it; per shape the design
-    that ran (``fft_natural.design``: one-launch radix for n ≤ 16384,
-    two-pass tiled above) and its achieved TB/s beside the bound's 3.35;
+    8192] and [32768, 4096], [32, 32768] (the ELT scene's dwells),
+    [8, 65536], [8192, 32768] (a full-width narrowband block at
+    block_len 32768) and the same bytes as [4096, 65536], with
+    ``torch.fft.fft`` beside it; per shape the design that ran
+    (``fft_natural.design``: one-launch radix for n ≤ 16384, the
+    thread-block cluster design for 32768 and 65536, whose c, shared
+    memory a block and ``cudaOccupancyMaxActiveClusters`` it prints), the
+    error (limit 1e-4 of the row max), the bound and the achieved TB/s
+    beside the bound's 3.35;
 11. the 121.5 MHz ELT scene (OKC buoys, 5 kHz chirp, 8 dwells × 32768,
     max_lag 600, 4 solver starts) through the multi-dwell
     ``TDOAPipeline.step_split`` on the card: the fix within 500 m and
@@ -56,6 +61,10 @@ per source, in parallel, sm_90a), then:
     max_lag 512, 4 solver starts — through ``step_split_uint8_scan``,
     with ms/block, IQ samples/s, the ratio to real time, peak device
     memory (limit 40 GiB), a per-stage split and K7 launches per block;
+    then 2 blocks of the same at block_len 32768 (8 dwells × 32768, K7's
+    cluster design on [8192, 32768]): ms/block against real time, peak
+    memory, K7 launches by design and the per-stage split (the psd
+    stage's ms/block);
 14. K3 vs its plain version at the two-kernel route's shape [1024, 17408]
     (the phase-5 flagship block, padded), with ``torch.fft.fft`` + the CT
     permutation beside it; K4 (CT-order detect on spectra read from
@@ -78,7 +87,9 @@ per source, in parallel, sm_90a), then:
     samples/s, launches per block (K8 once; K3, K4, K2 once each) and a
     per-stage split;
 19. rows past one block's shared memory (fault F3): the long-row designs
-    of K3 (``fft_rows_ct_long.cu``) and K1 (the long K3, then K4's column
+    of K3 (``fft_rows_ct_cluster.cu``, a row on a thread-block cluster,
+    whose c, shared memory a block and ``cudaOccupancyMaxActiveClusters``
+    it prints at each length) and K1 (the long K3, then K4's column
     tiles, ``detect_ct.cu``), and K4, vs their plain versions at
     [1024, 33792] (the flagship block at block_len 32768), [1024, 34816]
     (n1 = 256, max_lag 2048) and [1024, 66560] (block_len 65536), with
@@ -107,8 +118,9 @@ per source, in parallel, sm_90a), then:
     launches by design and a per-stage split.
 
 Each kernel's entry in the ``kernels`` line carries its sources (K1 and
-K3 with their long-row files, K8 with its long design's), the long rows'
-numbers (K1, K3, K4), phase 20's (``mixed_rows`` of K1, K2, K3, K5; K8's
+K3 with their long-row files, K7 with its cluster design's, K8 with its
+long design's), the long rows' numbers (K1, K3, K4; K7's
+``cluster_rows``), phase 20's (``mixed_rows`` of K1, K2, K3, K5; K8's
 ``long_rows``; ``topk`` of K1 and K4), its
 time and its
 plain version's at the main path's shapes (K2's error is the largest of
@@ -730,6 +742,12 @@ def main() -> int:
     elt_host = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
                 for a in (elt.iq.real, elt.iq.imag, elt.buoy_enu)]
     nb_rows = [x.reshape(-1, n).contiguous() for x in iq.decode_uint8_split(raw)]
+    # the narrowband configuration at block_len 32768 (phase 13's second run): its decoded dwells are
+    # K7's cluster rows at full width, [8192, 32768], and the same bytes as [4096, 65536]
+    ncfg32 = dataclasses.replace(ncfg, block_len=32_768)
+    npipe32 = TDOAPipeline(ncfg32, device=dev)
+    raw32, nanchors32 = npipe32.example_inputs(batch=(chans,), seed=0, uint8=True)
+    nb32_rows = [x.reshape(-1, 32_768).contiguous() for x in iq.decode_uint8_split(raw32)]
     shapes = {
         (chans * buoys * 8, n): nb_rows,
         # the radix design's two shorter lengths on the same bytes (on no path)
@@ -737,7 +755,14 @@ def main() -> int:
         (chans * buoys * 32, 4096): [x.view(-1, 4096) for x in nb_rows],
         (32, 32_768): [x.reshape(32, 32_768).to(dev) for x in elt_host[:2]],
         (8, 65_536): [x.reshape(-1, 65_536)[:8].contiguous().to(dev) for x in elt_host[:2]],
+        (chans * buoys * 8, 32_768): nb32_rows,
+        (chans * buoys * 4, 65_536): [x.view(-1, 65_536) for x in nb32_rows],
     }
+    for cn in fft_natural.CLUSTER_N:
+        info = fft_natural.cluster_info(cn)
+        print(f"phase 10: K7 cluster design at n = {cn}: c = {info['c']} blocks a row, {info['smem']} B of shared "
+              f"memory a block, cudaOccupancyMaxActiveClusters {info['clusters']} {tag}")
+        _require(info["clusters"] > 0, f"K7's cluster at {cn} does not fit the card")
     k7 = {}
     for shape, (xr, xi) in shapes.items():
         by_design = dict(fft_natural.design_counts)
@@ -752,20 +777,20 @@ def main() -> int:
         xc = torch.complex(xr, xi)
         lib_ms = _cuda_ms(torch, lambda: torch.fft.fft(xc))
         del xc
-        k7[shape] = (err_abs, err_rel, k_ms, p_ms, lib_ms)
         nbytes = 2 * 8 * shape[0] * shape[1]  # a row read once, its spectrum written once
+        bound = _bound(_fft_flops(*shape), nbytes)
+        k7[shape] = (err_abs, err_rel, k_ms, p_ms, lib_ms, bound, ran)
         factors = ("·".join(str(r) for r, _ in fft_natural.radix_plan(shape[1]).passes) if ran == ["radix"]
-                   else "·".join(map(str, fft_natural.split(shape[1]))))
+                   else f"{shape[1] // fft_natural.CLUSTER_SUB_N} blocks × 16384")
         print(
             f"phase 10: K7 {list(shape)}, design {'+'.join(ran)} ({factors}): spectra max|err| {err_abs:.3e} "
             f"(rel to row max|X| {err_rel:.3e}, tol 1e-4); kernel {k_ms:.3f} ms "
             f"({nbytes / k_ms / 1e9:.3f} TB/s of the bound's {H100_HBM_BYTES / 1e12:.2f}; bound "
-            f"{_bound(_fft_flops(*shape), nbytes)[0]:.4f} ms), plain {p_ms:.3f} ms, torch.fft.fft "
-            f"{lib_ms:.3f} ms {tag}"
+            f"{bound[0]:.4f} ms), plain {p_ms:.3f} ms, torch.fft.fft {lib_ms:.3f} ms {tag}"
         )
         _require(ran == [fft_natural.design(shape[1])], f"K7 at {shape} ran {ran}")
         _require(err_rel <= 1e-4, f"K7 spectra disagree at {shape}: {err_rel}")
-    del shapes, nb_rows, xr, xi
+    del shapes, nb_rows, nb32_rows, xr, xi
     torch.cuda.empty_cache()
 
     # ---- phase 11: the ELT scene, multi-dwell, on the card and on the CPU
@@ -855,6 +880,49 @@ def main() -> int:
     )
     k7_main = k7[(chans * buoys * 8, n)]
     del nraw, nout, raw
+    torch.cuda.empty_cache()
+
+    # the same configuration at block_len 32768 (the ELT dwell): K7's cluster design on [8192, 32768]
+    nblocks32 = 2
+    nraw32 = torch.stack([raw32] + [npipe32.example_inputs(batch=(chans,), seed=k, uint8=True)[0]
+                                    for k in range(1, nblocks32)])
+    npipe32.step_split_uint8(raw32, nanchors32)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    cluster0 = fft_natural.design_counts["cluster"]
+    t0 = time.perf_counter()
+    nout32 = npipe32.step_split_uint8_scan(nraw32, nanchors32)
+    torch.cuda.synchronize()
+    wall32 = time.perf_counter() - t0
+    k7_launches32 = launch_counts()["fft_rows"]
+    nb32_other = {k: v for k, v in launch_counts().items() if v and k != "fft_rows"}
+    k7_cluster_runs = fft_natural.design_counts["cluster"] - cluster0
+    peak32_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    finite32 = all(torch.isfinite(x).all().item() for x in _leaves(torch, nout32) if x.is_floating_point())
+    ms_block32 = 1e3 * wall32 / nblocks32
+    real_ms32 = 1e3 * ncfg32.correlation_dwells * 32_768 / fs
+    print(
+        f"phase 13: narrowband at block_len 32768, {nblocks32} blocks x {chans} ch x {buoys} buoys x 8 dwells x "
+        f"32768 uint8 IQ (nfft {fft_ops.friendly_fft_len(8 * 32_768 + lag)} for the pair stage): "
+        f"{ms_block32:.3f} ms/block (real time {real_ms32:.3f}, ratio {ms_block32 / real_ms32:.3f}), peak mem "
+        f"{peak32_gib:.2f} GiB, K7 launches {k7_launches32} (cluster design {k7_cluster_runs}), all finite "
+        f"{finite32} {tag}"
+    )
+    _require(tuple(nout32.fix.position_enu.shape) == (nblocks32, chans, 3) and finite32,
+             "narrowband block_len 32768 outputs")
+    _require(k7_launches32 == nblocks32 == k7_cluster_runs and not nb32_other,
+             f"block_len 32768 K7 launches {k7_launches32}, cluster {k7_cluster_runs}, others {nb32_other}")
+    med32 = _stage_split(
+        torch, lambda mark: npipe32.step_split_uint8(raw32, nanchors32, on_stage=mark),
+        ["decode", "psd", "detect", "spectra", "pair_corr", "lag_peaks", "solve"],
+    )
+    print(
+        "phase 13: block_len 32768 stage split ms/block (median of 3, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med32.items()) + f", sum {sum(med32.values()):.3f}; K7 psd "
+        f"{med32['psd']:.3f} ms/block {tag}"
+    )
+    del nraw32, nout32, raw32
     torch.cuda.empty_cache()
 
     # ---- phases 14-18 run on the phase-5 flagship blocks (the same seed)
@@ -1056,6 +1124,13 @@ def main() -> int:
     del raw, out
 
     # ---- phase 19: rows past one block's shared memory (fault F3)
+    def k3_cluster_report(nf, phase):
+        g, info = fft_rows.long_geometry(nf), fft_rows.cluster_info(nf)
+        print(f"phase {phase}: K3 cluster design at nfft {nf} = {g.n1}·{g.n2}: c = {info['c']} blocks a row, {g.cols}-column "
+              f"tiles, step B {'in registers' if g.rmax else 'streamed'}, {info['smem']} B of shared memory a "
+              f"block, cudaOccupancyMaxActiveClusters {info['clusters']} {tag}")
+        _require(info["clusters"] > 0, f"K3's cluster at {nf} does not fit the card")
+
     long_cfg = PipelineConfig(num_buoys=buoys, block_len=32_768, sample_rate_hz=fs, max_lag=600)
     long_pipe = TDOAPipeline(long_cfg, device=dev)
     lraw, lanchors = long_pipe.example_inputs(batch=(4, chans), seed=0, uint8=True)
@@ -1080,6 +1155,7 @@ def main() -> int:
         )
         rows_l = lxr.shape[0]
         _require(fft_rows.geometry(ln) == fft_detect.geometry(ln) == "long", f"nfft {ln} is not a long row")
+        k3_cluster_report(ln, 19)
         designs = lambda: (fft_rows.design_counts["long"], detect_ct.launch_count, fft_detect.design_counts["long"])
         before = designs()
         l3 = fft_rows.fft_rows_ct(lxr, lxi)
@@ -1264,6 +1340,7 @@ def main() -> int:
     for rows_m, mn in ((1024, 58_368), (512, 87_040), (256, 121_856)):
         mxr, mxi = (fill(mre, mn), fill(mim, mn)) if mn == mnfft else noise_rows(rows_m, mn)
         n1m, n2m = ct_plan.ct_split(mn)
+        k3_cluster_report(mn, 20)
         before = fft_rows.design_counts["long"]
         m3 = fft_rows.fft_rows_ct(mxr, mxi)
         torch.cuda.synchronize()
@@ -1569,7 +1646,7 @@ def main() -> int:
               launches["fft_detect_rows_ct"], spec_abs, k1_ms, k1_plain_ms,
               _bound(_fft_flops(nrows, nfft) + _detect_flops(nrows, nfft),
                      nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_radix,
-              long_source=["fft_rows_ct_long.cu", "detect_ct.cu"], long_name="K1",
+              long_source=["fft_rows_ct_cluster.cu", "detect_ct.cu"], long_name="K1",
               mixed_rows=mixed("K1"), topk=topk("K1"),
               launches_block_len_57344=mixed_launches.get("fft_detect_rows_ct", 0)),
         entry("gcc_pair_lag_mags", "gcc_pair.cu", "gcc_kernel.py:358",
@@ -1580,7 +1657,7 @@ def main() -> int:
         entry("fft_rows_ct", "fft_rows_ct.cu", "fft_kernel.py:446",
               wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound,
               _radix_flops(m_sub * wb, wn, *ct_plan.radix_split(wn)[1:]), k3_lib_ms,
-              long_source=["fft_rows_ct_long.cu"], long_name="K3", mixed_rows=mixed("K3")),
+              long_source=["fft_rows_ct_cluster.cu"], long_name="K3", mixed_rows=mixed("K3")),
         entry("detect_ct_partials", "detect_ct.cu", "detect_kernel.py:309",
               route_launches["detect_ct_partials"], max(k4_score_abs, k4_nf), k4_ms, k4_plain_ms, k4_bound,
               nrows * nfft * (3 + 2 * plan.radius + 1),  # power, then the sliding max's compares
@@ -1597,11 +1674,15 @@ def main() -> int:
         entry("fft_rows", "fft_natural_radix.cu", "fft_kernel.py:212",
               k7_launches, max(v[0] for v in k7.values()), k7_main[2], k7_main[3],
               _bound(_fft_flops(k7_rows, n), 2 * 8 * k7_rows * n),
-              _natural_radix_flops(k7_rows, fft_natural.radix_plan(n)), k7_main[4]),
+              _natural_radix_flops(k7_rows, fft_natural.radix_plan(n)), k7_main[4],
+              sources=[f"radio_mapper_tpu_torch/csrc/{f}" for f in ("fft_natural_radix.cu", "fft_natural_cluster.cu")],
+              cluster_rows=[rows_entry(list(shape), v[0], v[2], v[3], v[5], v[4])
+                            for shape, v in k7.items() if v[6] == ["cluster"]],
+              launches_block_len_32768=k7_launches32 // nblocks32),
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
               route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft,
               sources=[f"radio_mapper_tpu_torch/csrc/{f}" for f in
-                       ("channel_step.cu", "fft_rows_ct_long.cu", "detect_ct.cu", "gcc_pair.cu")],
+                       ("channel_step.cu", "fft_rows_ct_cluster.cu", "detect_ct.cu", "gcc_pair.cu")],
               long_rows=mixed("K8"), long_launches_block_len_57344_mega=mega_long_launches),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))

@@ -2,9 +2,8 @@
 // multiply-add, with every product an explicit fmaf, so each kernel that
 // inlines them rounds the same way.
 //
-// Used by ct_fft.cuh (the forward radix steps of kernels K3, K1 and K8),
-// gcc_pair.cuh (the pair body of kernels K2, K5, K6 and K8) and
-// fft_rows.cu (kernel K7's two-pass tiled DFT).
+// Used by ct_fft.cuh (the forward radix steps of kernels K3, K1 and K8)
+// and gcc_pair.cuh (the pair body of kernels K2, K5, K6 and K8).
 
 #pragma once
 

@@ -26,17 +26,19 @@
 // (step_c_handoff), then, after a barrier, write the power over the row
 // in CT order (power_store) for the detect body (fft_power_row).
 //
-// Long-row design (fft_rows_ct_long.cu, n1 = 128, 256, 384, 640 or 896): steps A and B
-// run on a tile of COLS columns of the row (the template parameter COLS
-// of step_a, step_b and step_b_stream) and write the slot rows to a
-// device-memory workspace; step C then runs from there, one warp a slot
-// row, and stores as K3 does. The per-value arithmetic is the same in
-// both designs.
+// Long-row design (fft_rows_ct_cluster.cu, n1 = 128, 256, 384, 640 or
+// 896): a row on a thread-block cluster; each block runs steps A and B in
+// place on tiles of COLS columns of the row (the template parameter COLS
+// of step_a, step_b and step_b_stream), then step C (step_c_regs) on slot
+// rows whose points its lanes gather from the blocks' shared memory, and
+// stores as K3 does. The per-value arithmetic is the same in both
+// designs.
 //
 // Every twiddle comes from a float32 table of float64 roots of unity
 // (ct_plan.radix_tables, ct_constants' tw). tests/test_torch_fft_radix.py
 // replays K3's one-block schedule in numpy, tests/test_torch_fft_detect_radix.py
-// K1's hand-off, tests/test_torch_long_rows_radix.py the long-row design.
+// K1's hand-off, tests/test_torch_long_rows_radix.py and
+// tests/test_torch_cluster_fft.py the long-row design.
 
 #pragma once
 
@@ -193,7 +195,7 @@ __device__ __forceinline__ void step_a(float2* xs, const float2* w128, const flo
 // Step B with the r inputs of a column in registers (r <= RMAX), on COLS
 // columns held as xs[q*COLS + p]. Output s of column block k times
 // tw[(k + A*s)*tw_ld + p] goes to dst[(s + r*k)*dst_ld + p]: back into xs
-// (one block: dst = xs, both strides N1) or to a workspace row. Thread
+// (in place: dst = xs, dst_ld the tile's width) or to another buffer. Thread
 // (p, k0) takes k = k0, k0 + THREADS/COLS, ... < A; the W_r loads are
 // warp-uniform.
 template <int A, int RMAX, int COLS = N1>
@@ -260,24 +262,18 @@ __device__ __forceinline__ void step_b_stream(float2* xs, const float2* __restri
 }
 
 // Step C on one slot row of R1 = 32*P points (P = 4, 8, 12, 20 or 28), in
-// one warp: row is the slot row (shared or device memory, 16-byte aligned),
-// w1 the table W_R1^e, e < R1/2. Lane l holds positions P*l + i (i < P);
-// the five radix-2 DIF stages of half-size h = R1/2 .. P pair lane l with
-// lane l ^ (h/P), twiddle W_R1^(((P*l + i) mod h) * R1/(2h)); after them
-// lane l holds the P-point problem whose outputs are bins brev5(l) + 32*u,
-// solved in registers (dif_regs, or mixed_regs for P = 4q, q odd).
-// Register i then holds bin digit<P>(i)*32 + brev5(l), returned in v[i].
+// one warp, lane l holding positions P*l + i (i < P) of the row in v[i]
+// (loaded by step_c_row, or gathered from a cluster's blocks by the
+// cluster design); w1 the table W_R1^e, e < R1/2. The five radix-2 DIF
+// stages of half-size h = R1/2 .. P pair lane l with lane l ^ (h/P),
+// twiddle W_R1^(((P*l + i) mod h) * R1/(2h)); after them lane l holds the
+// P-point problem whose outputs are bins brev5(l) + 32*u, solved in
+// registers (dif_regs, or mixed_regs for P = 4q, q odd). Register i then
+// holds bin digit<P>(i)*32 + brev5(l).
 template <int R1 = N1>
-__device__ __forceinline__ void step_c_row(const float2* row, const float2* w1, float2 (&v)[R1 / 32]) {
+__device__ __forceinline__ void step_c_regs(float2 (&v)[R1 / 32], const float2* w1) {
   constexpr int P = R1 / 32;
   const int lane = threadIdx.x & 31;
-  const float4* row4 = reinterpret_cast<const float4*>(row) + (P / 2) * lane;
-#pragma unroll
-  for (int q = 0; q < P / 2; ++q) {
-    const float4 f = row4[q];
-    v[2 * q] = make_float2(f.x, f.y);
-    v[2 * q + 1] = make_float2(f.z, f.w);
-  }
 #pragma unroll
   for (int h = R1 / 2; h >= P; h >>= 1) {
     const int d = h / P;
@@ -294,6 +290,24 @@ __device__ __forceinline__ void step_c_row(const float2* row, const float2* w1, 
   }
   if constexpr (is_pow2(P)) dif_regs<P, R1>(v, w1);
   else mixed_regs<P, R1>(v, w1);
+}
+
+// Step C on one slot row held contiguously: row is the slot row (shared or
+// device memory, 16-byte aligned); lane l loads its P positions as P/2
+// 16-byte loads, then step_c_regs. Register i of v returns bin
+// digit<P>(i)*32 + brev5(l).
+template <int R1 = N1>
+__device__ __forceinline__ void step_c_row(const float2* row, const float2* w1, float2 (&v)[R1 / 32]) {
+  constexpr int P = R1 / 32;
+  const int lane = threadIdx.x & 31;
+  const float4* row4 = reinterpret_cast<const float4*>(row) + (P / 2) * lane;
+#pragma unroll
+  for (int q = 0; q < P / 2; ++q) {
+    const float4 f = row4[q];
+    v[2 * q] = make_float2(f.x, f.y);
+    v[2 * q + 1] = make_float2(f.z, f.w);
+  }
+  step_c_regs<R1>(v, w1);
 }
 
 // CT address of value i of this lane's step-C output of slot row sr =

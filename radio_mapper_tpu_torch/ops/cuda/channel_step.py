@@ -26,7 +26,7 @@ the scratch's traffic (2 × 142.6 MB at 128 channels × 8 receivers) but
 needs ≈ 209 KB a block before the pair buffers: a later redesign.
 
 Long design (nfft > 24576, where one block no longer holds a row): the
-long K1 (the long K3 of ``csrc/fft_rows_ct_long.cu``, then K4 of
+long K1 (the long K3 of ``csrc/fft_rows_ct_cluster.cu``, then K4 of
 ``csrc/detect_ct.cu`` with the row maxima), then K2's launch (``csrc/
 gcc_pair.cu``, l2rx gate on those maxima): three launches, counted as
 one launch of K8 (and not of K1, K3, K4 or K2). The reference's K8 takes

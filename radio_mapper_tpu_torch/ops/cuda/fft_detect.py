@@ -30,7 +30,8 @@ same phase.
 
 Above :data:`MAX_N` (:func:`fft_detect_rows_ct_long`), for every n1 the
 long-row K3 takes (128, 256, 384, 640, 896): two hand-written kernels in
-turn, the long-row K3 (``csrc/fft_rows_ct_long.cu``) and then K4
+turn, the long-row K3 (``csrc/fft_rows_ct_cluster.cu``, a row on a
+thread-block cluster) and then K4
 (``csrc/detect_ct.cu``, which holds no row in shared memory) on its
 spectra, with the row max. The reference's function is that composition,
 so the outputs are those of K3 → K4 bit for bit; the pair counts as one
@@ -38,8 +39,8 @@ launch of K1. Fusing the two halves for long rows (a row across a
 thread-block cluster's distributed shared memory) is a later redesign.
 
 What bounds it on the H100: device-memory bytes (the row read and the
-spectra written once, ≈ 0.28 MB a row at 17408; the long design moves
-the row through the workspace and reads the spectra back twice) and then
+spectra written once, ≈ 0.28 MB a row at 17408; the long design writes
+the spectra and reads them back twice) and then
 the block barriers and shared-memory passes of the radix steps and of the
 detect body, whose sliding max reads the power 2·radius + 1 times. Left for
 later PRs: the detect body (a register-tiled sliding max), TMA row loads,

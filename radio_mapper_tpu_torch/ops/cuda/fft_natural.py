@@ -22,21 +22,24 @@ identity around it). Two CUDA designs, chosen by length alone
   under a 64-register cap (1024 threads at 16384); ``-Xptxas -v`` on
   sm_90a reports 64 registers and no spills at 16384 and 4096, 8 bytes
   spilled at 8192 (on no path).
-- ``"tiled"`` (``csrc/fft_rows.cu``), the other lengths whose four-step
-  factors are multiples of ``TILE`` (32768 and 65536 on the routed
-  path): a row past one block's 227 KB. Two launches of one tiled
-  complex product through a ``[rows, n1, n2]`` scratch — inner DFT with
-  the twiddle folded into its write-back, then the outer DFT, whose
-  output is already in natural order. Bound in practice: the direct DFT
-  stages, n·(n1+n2) complex FMAs a row (12.6 M at 32768, 33.6 M at
-  65536), plus 16 B a point for the scratch.
+- ``"cluster"`` (``csrc/fft_natural_cluster.cu``), n = 32768 and 65536,
+  a row past one block's 227 KB: one launch, a row on a thread-block
+  cluster of c = n/16384 blocks (2, 4). Block r folds a radix-c
+  decimation-in-frequency stage into its loads, y_r[j] = W_n^(r·j) ·
+  Σ_s x[j + s·n/c]·W_c^(r·s) (:func:`cluster_plan`'s twiddles), runs the
+  radix design's 16384-point passes on y_r with the last pass stored to
+  its own shared memory, and after a cluster barrier writes natural bins
+  [r·n/c, (r+1)·n/c) contiguously, gathering X[c·k + r'] = Y_{r'}[k] from
+  the c blocks through distributed shared memory. 16 B of device traffic
+  a point, no scratch; bound: bytes (1.282 ms at [8192, 32768] and
+  [4096, 65536]).
 
 The four-step split and tables are the reference's (``fft_kernel._split``,
 ``_constants``), copied here and held equal to it by a test: n = n1·n2
 with n2 the largest divisor ≤ √n and n1 ≤ 256; x[j + n1·q] is viewed as
 ``[n2, n1]``; inner n2-point DFT over q, twiddle exp(−2πi·j·k2/n), outer
 n1-point DFT over j; bin k = k2 + n2·k1. :func:`fft_rows_plain` runs it
-(the CPU path and the card's comparison). Both designs compute in FP32
+(the CPU path and the card's comparison). The designs compute in FP32
 on the CUDA cores; the TPU kernel runs its products as explicit bf16x3
 (module precision HIGH), so FP32 is at least as precise.
 """
@@ -54,17 +57,18 @@ from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops.cuda import build
 
 launch_count = 0  # calls that launched a CUDA kernel, either design (not the plain version)
-design_counts = {"radix": 0, "tiled": 0}  # the same launches, by design
+design_counts = {"radix": 0, "cluster": 0}  # the same launches, by design
 
 MAX_FACTOR = 256  # fft_kernel.MAX_FACTOR
-THREADS = 256  # must match K7_THREADS in fft_rows.cu
-TILE = 64  # must match K7_TILE: the tiled design needs n1 and n2 multiples of it
 RADIX_MIN_N = 4096  # the radix design's lengths: powers of two in [RADIX_MIN_N, RADIX_MAX_N]
 RADIX_MAX_N = 16384  # a planar complex row of 128 KiB, one block's exchange buffer
 POINTS = 16  # complex points a thread holds in the radix design (POINTS in fft_natural_radix.cu)
 RADIX = 16  # the radix of every pass but the last
+CLUSTER_SUB_N = RADIX_MAX_N  # a cluster block's sub-FFT (M in fft_natural_cluster.cu)
+CLUSTER_N = (32_768, 65_536)  # the cluster design's lengths: c = n / CLUSTER_SUB_N blocks a row
 
-_ARGTYPES = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_CLUSTER_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_CLUSTER_INFO_ARGTYPES = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
 _RADIX_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
@@ -99,18 +103,16 @@ def lane_aligned(n: int) -> bool:
 
 def design(n: int) -> str:
     """The CUDA design that transforms rows of ``n`` points: ``"radix"``
-    for a power of two in [``RADIX_MIN_N``, ``RADIX_MAX_N``], ``"tiled"``
-    for another length whose :func:`split` factors are multiples of
-    ``TILE``. Raises ValueError for any other length."""
+    for a power of two in [``RADIX_MIN_N``, ``RADIX_MAX_N``], ``"cluster"``
+    for 32768 and 65536 (:data:`CLUSTER_N`). Raises ValueError for any
+    other length."""
     if RADIX_MIN_N <= n <= RADIX_MAX_N and n & (n - 1) == 0:
         return "radix"
-    n1, n2 = split(n)
-    if n1 % TILE or n2 % TILE:
-        raise ValueError(
-            f"K7 takes powers of two in [{RADIX_MIN_N}, {RADIX_MAX_N}] or n = n1·n2 with both "
-            f"factors multiples of {TILE}; got {n} = {n1}·{n2}"
-        )
-    return "tiled"
+    if n in CLUSTER_N:
+        return "cluster"
+    raise ValueError(
+        f"K7 takes powers of two in [{RADIX_MIN_N}, {RADIX_MAX_N}] and {CLUSTER_N}; got {n}"
+    )
 
 
 class RadixPlan(NamedTuple):
@@ -163,6 +165,35 @@ def device_radix_twiddles(n: int, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(radix_plan(n).twiddles).to(device)
 
 
+class ClusterPlan(NamedTuple):
+    """The cluster design's split of one length: c blocks a row, each a
+    sub-FFT of m = n/c points (:func:`radix_plan` of m) after the radix-c
+    DIF stage. ``pre[(r − 1)·m + j]`` is W_n^(r·j) for r = 1..c−1, j < m,
+    float32 (re, im) of float64 roots rounded once."""
+
+    n: int
+    c: int
+    m: int
+    pre: np.ndarray  # [(c − 1)·m, 2] float32
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(n: int) -> ClusterPlan:
+    if design(n) != "cluster":
+        raise ValueError(f"no cluster plan for {n}")
+    c, m = n // CLUSTER_SUB_N, CLUSTER_SUB_N
+    e = np.outer(np.arange(1, c), np.arange(m))  # [c − 1, m]: r·j
+    w = np.exp(-2j * np.pi * e / n)  # complex128, rounded once below
+    pre = np.stack([w.real, w.imag], axis=-1).reshape(-1, 2).astype(np.float32)
+    return ClusterPlan(n, c, m, pre)
+
+
+@functools.lru_cache(maxsize=8)
+def device_cluster_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """:func:`cluster_plan`'s ``pre`` on ``device``, ``[(c − 1)·m, 2]`` float32."""
+    return torch.from_numpy(cluster_plan(n).pre).to(device)
+
+
 @functools.lru_cache(maxsize=None)
 def constants(n: int):
     """``(n1, n2, w1re, w1im, w2re, w2im, twre, twim)`` float32 tables
@@ -183,23 +214,20 @@ def constants(n: int):
 
 
 class Tables(NamedTuple):
-    """:func:`constants` on a device (planar float32)."""
+    """:func:`constants` on a device (planar float32), the plain version's."""
 
     w1re: torch.Tensor  # [n1, n1]
     w1im: torch.Tensor
     w2re: torch.Tensor  # [n2, n2]
     w2im: torch.Tensor
-    twre: torch.Tensor  # [n2, n1] — the plain version's layout
+    twre: torch.Tensor  # [n2, n1]
     twim: torch.Tensor
-    twtre: torch.Tensor  # [n1, n2] — the kernel's (tw transposed, contiguous)
-    twtim: torch.Tensor
 
 
 @functools.lru_cache(maxsize=8)
 def device_tables(n: int, device: torch.device) -> Tables:
-    _, _, w1re, w1im, w2re, w2im, twre, twim = constants(n)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    return Tables(t(w1re), t(w1im), t(w2re), t(w2im), t(twre), t(twim), t(twre.T), t(twim.T))
+    return Tables(*(t(a) for a in constants(n)[2:]))
 
 
 def _check(re: torch.Tensor, im: torch.Tensor) -> None:
@@ -233,7 +261,7 @@ def fft_rows(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.Te
     if re.device.type != "cuda":
         raise ValueError(f"no K7 implementation for device {re.device}")
     kind = design(re.shape[-1])
-    out = _launch_radix(re, im) if kind == "radix" else _launch_tiled(re, im)
+    out = _launch_radix(re, im) if kind == "radix" else _launch_cluster(re, im)
     global launch_count
     launch_count += 1
     design_counts[kind] += 1
@@ -259,21 +287,43 @@ def _launch_radix(re, im):
     return fr, fi
 
 
-def _launch_tiled(re, im):
+_CLUSTER_LOADS = {"l2": 0, "dsmem": 1}
+_cluster_loads = "l2"
+
+
+def set_cluster_loads(mode: str) -> None:
+    """How a cluster block reads its c inputs: ``"l2"`` (each block reads
+    the whole row from device memory, the partners' repeats from L2) or
+    ``"dsmem"`` (each block reads its own part, the rest through DSMEM)."""
+    global _cluster_loads
+    if mode not in _CLUSTER_LOADS:
+        raise ValueError(f"cluster loads {mode!r} not in {sorted(_CLUSTER_LOADS)}")
+    _cluster_loads = mode
+
+
+def _launch_cluster(re, im):
     n = re.shape[-1]
-    n1, n2 = split(n)
-    fn = build.kernel("rm_fft_rows", _ARGTYPES)
-    t = device_tables(n, re.device)
-    scratch = (torch.empty_like(re), torch.empty_like(im))
+    fn = build.kernel("rm_fft_natural_cluster", _CLUSTER_ARGTYPES)
+    tw = device_radix_twiddles(CLUSTER_SUB_N, re.device)
+    pre = device_cluster_twiddles(n, re.device)
     fr = torch.empty_like(re)
     fi = torch.empty_like(im)
-    err = fn(
-        _ptr(re), _ptr(im), _ptr(t.w1re), _ptr(t.w1im), _ptr(t.w2re), _ptr(t.w2im),
-        _ptr(t.twtre), _ptr(t.twtim), _ptr(scratch[0]), _ptr(scratch[1]), _ptr(fr), _ptr(fi),
-        re.numel() // n, n1, n2, _stream(re),
-    )
-    build.check(err, "fft_rows (tiled)")
+    err = fn(_ptr(re), _ptr(im), _ptr(tw), _ptr(pre), _ptr(fr), _ptr(fi), re.numel() // n, n,
+             _CLUSTER_LOADS[_cluster_loads], _stream(re))
+    build.check(err, "fft_rows (cluster)")
     return fr, fi
+
+
+def cluster_info(n: int) -> dict:
+    """The cluster design's shape at n on the current card: ``c``, shared
+    memory a block (``smem``) and ``cudaOccupancyMaxActiveClusters``
+    (``clusters``; 0 would mean the card cannot run it)."""
+    design(n)
+    c, smem, clusters = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    fn = build.kernel("rm_fft_natural_cluster_info", _CLUSTER_INFO_ARGTYPES)
+    err = fn(n, ctypes.byref(c), ctypes.byref(smem), ctypes.byref(clusters))
+    build.check(err, "fft_natural cluster_info")
+    return {"c": c.value, "smem": smem.value, "clusters": clusters.value}
 
 
 def fft_rows_plain(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -21,21 +21,22 @@ twiddles are float32 tables of float64 roots of unity
 (:func:`ct_plan.radix_tables`, ``ct_constants``' twiddle).
 
 Long rows, n > :data:`MAX_N` with n1 ∈ :data:`ct_plan.RADIX_N1` (128,
-256, 384, 640, 896) and 8 | n2 (``csrc/fft_rows_ct_long.cu``,
-:func:`fft_rows_ct_long`, :func:`long_geometry`): the same steps in two
-passes through a [rows, n] float2 workspace that the wrapper allocates
-(277 MB at [1024, 33792]). A column pass takes a tile of 32 (or, for
-n2 > 512, 16) columns of a row, runs steps A and B on it (streamed for
-r > 24) and writes the slot rows to the workspace; a row pass runs step
-C, one warp a slot row (P = n1/32 points a lane: five radix-2 stages
-across lanes, then radix-2 in registers for P = 4, 8, or two radix-2
-stages and a direct q-point DFT for P = 4q = 12, 20, 28), and stores in
-CT order. At r ≤ 24 its spectra equal the one-block design's bit for
-bit. Every planned length up to 131072 has such a split.
+256, 384, 640, 896) and 8 | n2 (``csrc/fft_rows_ct_cluster.cu``,
+:func:`fft_rows_ct_long`, :func:`long_geometry`): a row is a thread-block
+cluster of c = 2, 4 or 8 blocks, the least c for which n·8/c bytes and
+the W_128 table fit one block's 227 KB (33792: 2, 66560: 4, 121856: 8).
+Block ``rank`` owns n1/c columns, as tiles of 32 (or 16) columns, runs
+steps A and B on them in place (step B's inputs in registers up to r =
+24, streamed above), and after a cluster barrier runs step C on n2/c slot
+rows, each lane gathering its P = n1/32 points from the owning blocks
+through distributed shared memory, then stores in CT order. One pass
+through device memory, 16 B a sample, no workspace. Its spectra equal the
+one-block design's bit for bit where both take a length (the same
+per-value arithmetic). Every planned length up to 131072 has such a split.
 
 What bounds it on the H100: device-memory bytes — a row read and its
 spectrum written once, 80 KB a row at 5120 (twice that for the long
-design's workspace round trip) — and then the three block barriers
+design's) — and then the three block barriers
 between a row's loads and its stores; the arithmetic is n1·a·r² complex
 FMAs a row for step B plus the radix-2 butterflies (the direct four-step
 DFT it replaced issued n·(n1 + n2) from shared memory).
@@ -44,8 +45,7 @@ and store the same spectra. The wideband path launches it once per block
 on all M·B = 1024 rows; the two-kernel flagship route on 1024 rows of
 17408; the single-dwell step's long rows (block_len 32768: 33792) run
 the long design.
-Left for later PRs: TMA row loads, tensor cores, and the long rows across
-a thread-block cluster instead of the workspace.
+Left for later PRs: TMA row loads, tensor cores.
 
 Precision: the reference's module default (``precision=None``) runs the
 products as explicit bf16x3; the PHAT chain passes ``"default"``, which
@@ -56,6 +56,7 @@ float32 (the caller disables TF32 for the plain version's products).
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -67,10 +68,13 @@ launch_count = 0  # launches of the CUDA kernel (not of the plain version)
 design_counts = {"block": 0, "long": 0}  # the same launches, by design
 
 MAX_N = 24_576  # the one-block design's limit: one row in a block's shared memory (as kernel K1's)
-LONG_MAX_ROWS = 65_535  # the column pass's grid rows
+LONG_MAX_ROWS = (2**31 - 1) // 8  # the cluster design's grid: rows·c blocks ≤ 2^31 − 1 at c ≤ 8
+SMEM_LIMIT = 232_448  # bytes of shared memory one block can have (227 KB)
+CLUSTER_SIZES = (2, 4, 8)  # blocks a row in the long design; 8 is the portable cluster limit
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_LONG_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_LONG_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_INFO_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
 
 
 def _check(re: torch.Tensor, im: torch.Tensor) -> None:
@@ -124,20 +128,42 @@ def geometry(n: int) -> str:
     raise ValueError(f"K3 takes nfft ≤ {MAX_N} only as 128·n2; nfft {n} = {n1}·{n2}")
 
 
-def long_geometry(n: int):
-    """``(n1, n2, a, r)`` of a row the long-row design takes: n1 ∈
+class LongGeometry(NamedTuple):
+    """The long-row design's shape for one length (:func:`long_geometry`)."""
+
+    n1: int
+    n2: int
+    a: int  # step A's length, 8
+    r: int  # step B's length, n2 / 8
+    c: int  # blocks a row (the cluster)
+    cols: int  # columns a tile: 32 where n2 ≤ 512 and 32 | n1/c, else 16
+    rmax: int  # step B's inputs in registers (24, r ≤ 24), or 0: streamed
+
+
+def cluster_smem(n1: int, n2: int, c: int) -> int:
+    """Shared memory of one cluster block: its n1/c columns and W_128."""
+    return (n1 // c * n2 + 64) * 8
+
+
+def long_geometry(n: int) -> LongGeometry:
+    """The long-row design's shape for rows of n samples: n1 ∈
     :data:`ct_plan.RADIX_N1` and a = 8 (8 | n2), as every planned length
-    with such an n1 splits. Only these column-pass variants are built:
-    32 columns for n2 ≤ 512, 16 above, step B's inputs in registers up to
-    r = 24 and 2, 3 or 4 outputs a thread above. Raises ValueError
-    otherwise."""
+    with such an n1 splits; c the least of :data:`CLUSTER_SIZES` whose
+    block holds n·8/c bytes and the W_128 table; the column tile and
+    step B's form. Only the kernel variants these reach are built (32 or
+    16 columns, step B in registers up to r = 24, streamed above). Raises
+    ValueError otherwise."""
     n1, n2 = ct_plan.ct_split(n)
     if n1 not in ct_plan.RADIX_N1:
         raise ValueError(f"the long-row K3 takes n1 in {ct_plan.RADIX_N1}; nfft {n} = {n1}·{n2}")
     _, a, r = ct_plan.radix_split(n)
     if a != ct_plan.RADIX_MAX_A:
         raise ValueError(f"the long-row K3 takes n2 a multiple of {ct_plan.RADIX_MAX_A}; nfft {n} = {n1}·{n2}")
-    return n1, n2, a, r
+    c = next((c for c in CLUSTER_SIZES if cluster_smem(n1, n2, c) <= SMEM_LIMIT), None)
+    if c is None:  # pragma: no cover — every n ≤ 131072 fits at c = 8
+        raise ValueError(f"nfft {n} does not fit a cluster of {CLUSTER_SIZES[-1]} blocks")
+    cols = 32 if n2 <= 512 and (n1 // c) % 32 == 0 else 16
+    return LongGeometry(n1, n2, a, r, c, cols, 24 if r <= 24 else 0)
 
 
 def fft_rows_ct_long(re: torch.Tensor, im: torch.Tensor):
@@ -156,28 +182,38 @@ def fft_rows_ct_long(re: torch.Tensor, im: torch.Tensor):
 
 
 def long_rows(re: torch.Tensor, im: torch.Tensor):
-    """The long-row design's two passes on contiguous float32 CUDA rows,
+    """The long-row design's one launch on contiguous float32 CUDA rows,
     counted by the caller: K3 as one launch of K3, kernel K1's long rows
-    as part of one launch of K1."""
+    as part of one launch of K1. A launch the card refuses raises."""
     n = re.shape[-1]
-    n1, n2, a, r = long_geometry(n)
+    g = long_geometry(n)
     rows = re.numel() // n
     if rows > LONG_MAX_ROWS:
         raise ValueError(f"the long-row K3 takes at most {LONG_MAX_ROWS} rows, got {rows}")
-    fn = build.kernel("rm_fft_rows_ct_long", _LONG_ARGTYPES)
+    fn = build.kernel("rm_fft_rows_ct_cluster", _LONG_ARGTYPES)
     w1, wn2, wr = ct_plan.device_radix_tables(n, re.device)
     tw = ct_plan.device_tables(n, False, re.device).tw
-    ws = torch.empty((rows, n, 2), dtype=torch.float32, device=re.device)  # [rows, n2, n1] slot rows
     fr = torch.empty_like(re)
     fi = torch.empty_like(im)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     err = fn(
-        ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(wr), ptr(tw), ptr(ws), ptr(fr), ptr(fi),
-        rows, n1, n2, a, r,
+        ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(wr), ptr(tw), ptr(fr), ptr(fi),
+        rows, g.n1, g.n2, g.a, g.r, g.c,
         ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream),
     )
-    build.check(err, "fft_rows_ct_long")
+    build.check(err, "fft_rows_ct_long (cluster)")
     return fr, fi
+
+
+def cluster_info(n: int) -> dict:
+    """The long design's cluster at n on the current card: ``c``, shared
+    memory a block (``smem``) and ``cudaOccupancyMaxActiveClusters``
+    (``clusters``; 0 would mean the card cannot run it)."""
+    g = long_geometry(n)
+    smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+    fn = build.kernel("rm_fft_rows_ct_cluster_info", _INFO_ARGTYPES)
+    build.check(fn(g.n1, g.n2, g.a, g.r, g.c, ctypes.byref(smem), ctypes.byref(clusters)), "cluster_info")
+    return {"c": g.c, "smem": smem.value, "clusters": clusters.value}
 
 
 def _launch(re, im):

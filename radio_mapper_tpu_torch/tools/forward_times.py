@@ -17,13 +17,18 @@ K1, K3 and K4 on rows past one block's shared memory, [1024, 33792],
 [1024, 58368], [512, 87040] and [256, 121856] (n1 = 384, 640, 896), which
 run the long-row designs (a checkout without them prints that the wrapper
 raises), and
-the long-row K3 and K1 forced onto [1024, 17408] beside the one-block ones.
+the long-row K3 and K1 forced onto [1024, 17408] beside the one-block ones;
+K7 (``fft_natural``) on its rows of 32768 and 65536 points, [32, 32768],
+[8, 65536], [8192, 32768] and [4096, 65536], with the design that ran.
 Last, one line of digests: SHA-256 of the outputs on seeded rows up to
 17408, K3 at every instantiation of the one-block design a length up to
 24576 reaches (a ∈ {1, 2, 4, 8}, step B in registers or streamed), K1 at
 5120, 9216 and 17408, K4 at 9216 and 17408, K8 at [16, 8, 5120] (max_lag
-256), [16, 8, 9216] and [128, 8, 17408] (max_lag 512). Equal digests from
-two checkouts in one call mean equal outputs bit for bit.
+256), [16, 8, 9216] and [128, 8, 17408] (max_lag 512); then one line of the
+long rows' digests: K3, K4 on K3's spectra, K1 and K8 (max_lag 600) on
+[16, 8, n] at n = 33792, 34816, 58368, 66560, 87040 and 121856 (every n1
+of the long K3 and cluster sizes 2, 4, 8). Equal digests from two
+checkouts in one call mean equal outputs bit for bit.
 
 The wrappers' signatures are those of every version since K8 was ported,
 so with ``PYTHONPATH`` at another checkout it times that checkout's
@@ -42,8 +47,9 @@ import torch
 
 from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat
-from radio_mapper_tpu_torch.ops.cuda import build, channel_step, detect_ct, fft_detect, fft_rows
+from radio_mapper_tpu_torch.ops.cuda import build, channel_step, detect_ct, fft_detect, fft_natural, fft_rows
 
+LONG_DIGEST_N = (33_792, 34_816, 58_368, 66_560, 87_040, 121_856)  # the long K3's n1 and cluster classes
 DETECT = dict(sample_rate_hz=2_400_000.0, threshold_db=-70.0, min_distance_bins=10,
               dc_notch_hz=10_000.0, confidence_floor=0.3, snr_fullscale_db=20.0)
 
@@ -87,6 +93,19 @@ def _digests(dev, tag) -> None:
         lag = 256 if nfft == 5120 else 512  # K8's pair buffers take max_lag ≤ 256 at 5120
         out["K8"] += channel_step.channel_step_partials(xr[:c], xi[:c], pi, pj, plan, lag)
     print("digests: " + ", ".join(f"{k} {_digest(v)}" for k, v in out.items()) + f" {tag}")
+    out = {"K3": [], "K1": [], "K4": [], "K8": []}
+    pi, pj = gcc_phat.pair_indices(8)
+    for nfft in LONG_DIGEST_N:
+        plan = ct_plan.detect_plan(nfft, **DETECT)
+        xr, xi = rows(16, 8, nfft), rows(16, 8, nfft)
+        fr, fi = fft_rows.fft_rows_ct(xr.view(-1, nfft), xi.view(-1, nfft))
+        out["K3"] += (fr, fi)
+        out["K4"] += detect_ct.detect_ct_partials(fr, fi, plan)
+        out["K1"] += fft_detect.fft_detect_rows_ct(xr.view(-1, nfft), xi.view(-1, nfft), plan)
+        out["K8"] += channel_step.channel_step_partials(xr, xi, pi, pj, plan, 600)
+        del xr, xi, fr, fi
+    print(f"long digests ({', '.join(map(str, LONG_DIGEST_N))}): "
+          + ", ".join(f"{k} {_digest(v)}" for k, v in out.items()) + f" {tag}")
 
 
 def main() -> int:
@@ -140,6 +159,13 @@ def main() -> int:
         }
         print(f"[{rows}, {nfft}], long designs forced: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
               + f" {tag}")
+    for rows, n in ((32, 32_768), (8, 65_536), (8192, 32_768), (4096, 65_536)):
+        xr = torch.randn(rows, n, device=dev, generator=g)
+        xi = torch.randn(rows, n, device=dev, generator=g)
+        t7 = _mean_ms(lambda: fft_natural.fft_rows(xr, xi))
+        print(f"[{rows}, {n}]: K7 {t7:.4f} ms ({fft_natural.design(n)}) {tag}")
+        del xr, xi
+        torch.cuda.empty_cache()
     _digests(dev, tag)
     return 0
 

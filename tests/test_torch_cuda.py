@@ -13,9 +13,10 @@ The input builders and comparisons are shared with the JAX parity tests
 as its plain version is against JAX:
 
 - K1 and K3 spectra within 1e-4 of the row's max |X|, in both designs
-  (one block a row up to 24576; the long-row designs at 33792, 34816 and
-  66560, and forced onto 5120-24576, where they equal the one-block
-  outputs bit for bit); K1 ``row_max``
+  (one block a row up to 24576; the long-row designs, K3 on thread-block
+  clusters, at 33792, 34816, 58368, 66560, 87040 and 121856, and forced
+  onto 5120-24576, where they equal the one-block outputs bit for bit;
+  ``-k cluster`` runs the cluster designs of K3 and K7 alone); K1 ``row_max``
   within 1e-5 relative, ``noise_floor_db`` within 1e-3 dB (log10 differs
   by ulps between libraries), segment partials exact outside
   float32-tied segments (see :func:`fragile_segments`), scores within
@@ -488,6 +489,45 @@ def test_long_design_forced_equals_one_block_design(cuda_device, nfft):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows,nfft", [(3, 33792), (1, 34816), (5, 58368), (3, 66560), (1, 87040), (3, 121856)])
+def test_k3_cluster_matches_plain_at_each_n1(cuda_device, rows, nfft):
+    """The long K3's cluster design at each inner length n1 = 128, 256,
+    384, 640, 896 and cluster size c = 2, 4, 8, on row counts off a
+    multiple of anything, within 1e-4 of the row's max |X| of the plain
+    version; the card runs such a cluster (cudaOccupancyMaxActiveClusters
+    > 0) in the shared memory the geometry plans."""
+    g = fft_rows.long_geometry(nfft)
+    info = fft_rows.cluster_info(nfft)
+    assert info["c"] == g.c and info["smem"] == fft_rows.cluster_smem(g.n1, g.n2, g.c) and info["clusters"] > 0
+    re, im = tone_rows(rows, nfft, 21, n_valid=nfft - 1024)
+    xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
+    out = fft_rows.fft_rows_ct_long(xr, xi)
+    torch.cuda.synchronize()
+    assert_spectra_close([o.cpu() for o in out], [o.cpu() for o in fft_rows.fft_rows_ct_plain(xr, xi)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", [17408, 24576])
+def test_k3_cluster_forced_equals_one_block_k3(cuda_device, nfft):
+    """Forced onto lengths the one-block K3 takes (c = 2, 64 columns a
+    block, step B in registers), the cluster K3 gives the one-block
+    spectra bit for bit, on 7 rows."""
+    re, im = tone_rows(7, nfft, 22, n_valid=nfft - nfft // 5)
+    xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
+    assert fft_rows.geometry(nfft) == "block" and fft_rows.long_geometry(nfft).c == 2
+    for x, y in zip(fft_rows.fft_rows_ct_long(xr, xi), fft_rows.fft_rows_ct(xr, xi)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_k7_cluster_info(cuda_device):
+    """K7's clusters of 2 and 4 blocks, 128 KiB each, fit the card."""
+    for n, c in ((32768, 2), (65536, 4)):
+        info = fft_natural.cluster_info(n)
+        assert info == {"c": c, "smem": 131072, "clusters": info["clusters"]} and info["clusters"] > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("route", ["default", "two-kernel"])
 def test_pipeline_long_rows_on_card_match_cpu(cuda_device, route):
     """The phase-4 scene at block_len 32768 (nfft 33792, the long-row
@@ -526,12 +566,13 @@ def test_pipeline_long_rows_on_card_match_cpu(cuda_device, route):
 @pytest.mark.parametrize(
     "rows,n,kind",
     [(1, 4096, "radix"), (8, 4096, "radix"), (13, 8192, "radix"), (40, 16384, "radix"),
-     (6, 32768, "tiled"), (3, 65536, "tiled")],
+     (1, 32768, "cluster"), (6, 32768, "cluster"), (3, 65536, "cluster"), (5, 65536, "cluster")],
 )
 def test_k7_kernel_matches_plain(cuda_device, rows, n, kind):
     """K7 vs its plain version, natural order: the one-launch radix design
-    on 4096, 8192 and 16384 (the routed length), the two-pass tiled design
-    on 32768 and 65536; one row, and row counts off a multiple of 8."""
+    on 4096, 8192 and 16384 (the routed length), the cluster design on
+    32768 and 65536 (clusters of 2 and 4 blocks); one row, and row counts
+    off a multiple of 8."""
     re, im = tone_rows(rows, n, 13)
     xr = torch.from_numpy(re).to(cuda_device)
     xi = torch.from_numpy(im).to(cuda_device)

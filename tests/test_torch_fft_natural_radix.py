@@ -162,8 +162,8 @@ def test_design_routes_by_length():
     for n in (4096, 8192, 16384):
         assert fft_natural.design(n) == "radix", n
     for n in (32768, 65536):
-        assert fft_natural.design(n) == "tiled", n
-    for n in (17280, 1000, 2048, 12288):
+        assert fft_natural.design(n) == "cluster", n
+    for n in (17280, 1000, 2048, 12288, 131072, 49152):
         with pytest.raises(ValueError):
             fft_natural.design(n)
     with pytest.raises(ValueError):

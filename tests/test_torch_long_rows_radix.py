@@ -2,14 +2,17 @@
 long rows), replayed in numpy on the CPU, and the routing walk over every
 planned FFT length.
 
-K3's long design (``csrc/fft_rows_ct_long.cu``) runs the steps of
-``csrc/ct_fft.cuh`` on a row of n = n1·n2 samples, n1 = 128, 256, 384, 640
-or 896, in two passes through a device-memory workspace:
+K3's long rows run the steps of ``csrc/ct_fft.cuh`` on a row of n = n1·n2
+samples, n1 = 128, 256, 384, 640 or 896. :func:`k3_long_schedule` replays
+them in the two-pass form of the workspace design that PR 11 built (the
+per-value arithmetic every long design keeps; the cluster design of
+``csrc/fft_rows_ct_cluster.cu`` that replaced it is replayed against this
+one, value for value, by ``tests/test_torch_cluster_fft.py``):
 
-- column pass: a block loads a tile of ``cols`` columns p (32, or 16 for
-  n2 > 512), ``tile[q][p] = x[q·n1 + p0 + p]``, runs step A on it with
-  W_128^e read as W_n1^(e·n1/128), then step B, and writes slot row
-  ``s + r·k`` times the row twiddle to ``ws[(s + r·k)·n1 + p0 + p]``;
+- column pass: a tile of ``cols`` columns p (32, or 16 for n2 > 512),
+  ``tile[q][p] = x[q·n1 + p0 + p]``, step A on it with W_128^e read as
+  W_n1^(e·n1/128), then step B, and slot row ``s + r·k`` times the row
+  twiddle to ``ws[(s + r·k)·n1 + p0 + p]``;
 - row pass: one warp a slot row, lane l holding positions P·l + i (P =
   n1/32): five radix-2 DIF stages across lanes and the P-point transform
   in registers (``tests/test_torch_mixed_radix.py``), after which
@@ -88,7 +91,8 @@ def long_tables(n1: int, n2: int):
 
 
 def column_tile(n2: int) -> int:
-    """The column pass's tile width (``launch_columns_32`` / ``_16``)."""
+    """The replica's column tile: 32 columns for n2 ≤ 512, else 16 (any
+    width gives the same values: steps A and B work column by column)."""
     return 32 if n2 <= 512 else 16
 
 
@@ -184,11 +188,12 @@ def test_long_k3_replica_equals_one_block_replica(n):
 
 
 def stream_sj(r: int, cols: int) -> int:
-    """Outputs a thread holds in the long column pass's streamed step B
-    (``launch_columns_32`` / ``_16``): the fewest of 2, 3, 4 that cover r
-    in one pass; no other variant is built."""
+    """Outputs a thread holds in the long design's streamed step B
+    (``fft_rows_ct_cluster.cu`` STREAM_SJ): 4, one pass for every r ≤ 128
+    at 16 columns and r ≤ 64 at 32 (n2 ≤ 512), which in-place needs."""
     owners = WARPS * (32 // min(32, cols))
-    return next(sj for sj in (2, 3, 4) if r <= sj * owners)
+    assert r <= 4 * owners, (r, cols)
+    return 4
 
 
 @pytest.mark.parametrize("cols,r", [
@@ -199,7 +204,7 @@ def stream_sj(r: int, cols: int) -> int:
 def test_streamed_step_b_map_covers_each_output_once(cols, r):
     """``step_b_stream``: lane → column p0 + lane mod LANES, owner →
     outputs s = s0 + owner + OWNERS·i in passes of OWNERS·SJ; every
-    (column, s) exactly once, with the long column pass's SJ (16 or 32
+    (column, s) exactly once, with the long design's SJ (16 or 32
     columns, always one pass) or the one-block design's 12 (128 columns),
     and one pass where the one-block design runs it in place (r ≤ 192)."""
     lanes = min(32, cols)
@@ -496,29 +501,26 @@ def test_design_choice_by_length():
         detect_ct.geometry(17408, 137)  # radius > n2 = 136
 
 
-# the column-pass variants fft_rows_ct_long.cu builds: (columns, step B's
-# registers RMAX or 0 if streamed, outputs a thread SJ)
-BUILT_COLUMN_VARIANTS = {(32, 8, 0), (32, 24, 0), (32, 0, 2), (32, 0, 3), (32, 0, 4), (16, 0, 3), (16, 0, 4)}
-
-
-def column_variant(n2: int, r: int):
-    cols = column_tile(n2)
-    if r <= 24:
-        return cols, 8 if r <= 8 else 24, 0
-    return cols, 0, stream_sj(r, cols)
+# the instantiations fft_rows_ct_cluster.cu builds: (n1, columns a tile,
+# step B's registers RMAX or 0 if streamed)
+BUILT_CLUSTER_VARIANTS = {
+    (128, 32, 24), (128, 32, 0), (128, 16, 0), (256, 32, 24), (256, 32, 0), (384, 32, 24), (384, 32, 0),
+    (384, 16, 0), (640, 32, 24), (640, 16, 24), (640, 16, 0), (896, 16, 24),
+}
 
 
 def test_long_k3_builds_only_the_variants_planned_lengths_reach():
     """Every planned length the long K3 takes (and the lengths the card
-    tests force onto it: 5120, 17408, 24576) splits with a = 8 into a
-    built column-pass variant, and together they reach every built one; a
-    long split with 8 ∤ n2 raises before any launch."""
+    tests force onto it: 17408, 24576) splits with a = 8 into a built
+    kernel variant, and together they reach every built one; a long split
+    with 8 ∤ n2 raises before any launch."""
     reached = set()
-    for n in [5120, 17408, 24576] + [n for n in PLANNED if n > fft_rows.MAX_N]:
-        n1, n2, a, r = fft_rows.long_geometry(n)
-        assert a == 8 and n2 <= 1024, n
-        reached.add(column_variant(n2, r))
-    assert reached == BUILT_COLUMN_VARIANTS
+    for n in [17408, 24576] + [n for n in PLANNED if n > fft_rows.MAX_N]:
+        g = fft_rows.long_geometry(n)
+        assert g.a == 8 and g.n2 <= 1024, n
+        assert g.rmax == (24 if g.r <= 24 else 0) and stream_sj(g.r, g.cols) == 4, n
+        reached.add((g.n1, g.cols, g.rmax))
+    assert reached == BUILT_CLUSTER_VARIANTS
     assert ct_plan.ct_split(25_728) == (128, 201)
     with pytest.raises(ValueError, match="multiple of 8"):
         fft_rows.geometry(25_728)
