@@ -1125,10 +1125,14 @@ def main() -> int:
 
     # ---- phase 19: rows past one block's shared memory (fault F3)
     def k3_cluster_report(nf, phase):
-        g, info = fft_rows.long_geometry(nf), fft_rows.cluster_info(nf)
-        print(f"phase {phase}: K3 cluster design at nfft {nf} = {g.n1}·{g.n2}: c = {info['c']} blocks a row, {g.cols}-column "
-              f"tiles, step B {'in registers' if g.rmax else 'streamed'}, {info['smem']} B of shared memory a "
-              f"block, cudaOccupancyMaxActiveClusters {info['clusters']} {tag}")
+        g = fft_rows.long_geometry(nf)
+        if g.design != "cluster":
+            print(f"phase {phase}: K3 long design at nfft {nf} = {g.n1}·{g.n2}: {g.design} (two passes) {tag}")
+            return
+        info = fft_rows.cluster_info(nf)
+        print(f"phase {phase}: K3 long design at nfft {nf} = {g.n1}·{g.n2}: cluster, c = {info['c']} blocks a row, "
+              f"{g.cols}-column tiles, r = {g.r}, {info['smem']} B of shared memory a block, "
+              f"cudaOccupancyMaxActiveClusters {info['clusters']} {tag}")
         _require(info["clusters"] > 0, f"K3's cluster at {nf} does not fit the card")
 
     long_cfg = PipelineConfig(num_buoys=buoys, block_len=32_768, sample_rate_hz=fs, max_lag=600)
@@ -1646,7 +1650,7 @@ def main() -> int:
               launches["fft_detect_rows_ct"], spec_abs, k1_ms, k1_plain_ms,
               _bound(_fft_flops(nrows, nfft) + _detect_flops(nrows, nfft),
                      nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_radix,
-              long_source=["fft_rows_ct_cluster.cu", "detect_ct.cu"], long_name="K1",
+              long_source=["fft_rows_ct_cluster.cu", "fft_rows_ct_long.cu", "detect_ct.cu"], long_name="K1",
               mixed_rows=mixed("K1"), topk=topk("K1"),
               launches_block_len_57344=mixed_launches.get("fft_detect_rows_ct", 0)),
         entry("gcc_pair_lag_mags", "gcc_pair.cu", "gcc_kernel.py:358",
@@ -1657,7 +1661,7 @@ def main() -> int:
         entry("fft_rows_ct", "fft_rows_ct.cu", "fft_kernel.py:446",
               wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound,
               _radix_flops(m_sub * wb, wn, *ct_plan.radix_split(wn)[1:]), k3_lib_ms,
-              long_source=["fft_rows_ct_cluster.cu"], long_name="K3", mixed_rows=mixed("K3")),
+              long_source=["fft_rows_ct_cluster.cu", "fft_rows_ct_long.cu"], long_name="K3", mixed_rows=mixed("K3")),
         entry("detect_ct_partials", "detect_ct.cu", "detect_kernel.py:309",
               route_launches["detect_ct_partials"], max(k4_score_abs, k4_nf), k4_ms, k4_plain_ms, k4_bound,
               nrows * nfft * (3 + 2 * plan.radius + 1),  # power, then the sliding max's compares
@@ -1682,7 +1686,7 @@ def main() -> int:
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
               route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft,
               sources=[f"radio_mapper_tpu_torch/csrc/{f}" for f in
-                       ("channel_step.cu", "fft_rows_ct_cluster.cu", "detect_ct.cu", "gcc_pair.cu")],
+                       ("channel_step.cu", "fft_rows_ct_cluster.cu", "fft_rows_ct_long.cu", "detect_ct.cu", "gcc_pair.cu")],
               long_rows=mixed("K8"), long_launches_block_len_57344_mega=mega_long_launches),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))

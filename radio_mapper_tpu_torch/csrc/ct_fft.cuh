@@ -26,13 +26,15 @@
 // (step_c_handoff), then, after a barrier, write the power over the row
 // in CT order (power_store) for the detect body (fft_power_row).
 //
-// Long-row design (fft_rows_ct_cluster.cu, n1 = 128, 256, 384, 640 or
-// 896): a row on a thread-block cluster; each block runs steps A and B in
-// place on tiles of COLS columns of the row (the template parameter COLS
-// of step_a, step_b and step_b_stream), then step C (step_c_regs) on slot
-// rows whose points its lanes gather from the blocks' shared memory, and
-// stores as K3 does. The per-value arithmetic is the same in both
-// designs.
+// Long-row designs: steps A and B run on tiles of COLS columns of the row
+// (the template parameter COLS of step_a, step_b and step_b_stream). The
+// cluster design (fft_rows_ct_cluster.cu, n1 = 128 or 256) holds the row
+// across a thread-block cluster, runs them in place and step C
+// (step_c_regs) on slot rows whose points its lanes gather from the
+// blocks' shared memory; the workspace design (fft_rows_ct_long.cu, n1 =
+// 384, 640 or 896) writes the slot rows to a device-memory workspace and
+// runs step C from there, one warp a slot row. Both store as K3 does; the
+// per-value arithmetic is the same in every design.
 //
 // Every twiddle comes from a float32 table of float64 roots of unity
 // (ct_plan.radix_tables, ct_constants' tw). tests/test_torch_fft_radix.py
@@ -195,7 +197,7 @@ __device__ __forceinline__ void step_a(float2* xs, const float2* w128, const flo
 // Step B with the r inputs of a column in registers (r <= RMAX), on COLS
 // columns held as xs[q*COLS + p]. Output s of column block k times
 // tw[(k + A*s)*tw_ld + p] goes to dst[(s + r*k)*dst_ld + p]: back into xs
-// (in place: dst = xs, dst_ld the tile's width) or to another buffer. Thread
+// (one block: dst = xs, both strides N1) or to a workspace row. Thread
 // (p, k0) takes k = k0, k0 + THREADS/COLS, ... < A; the W_r loads are
 // warp-uniform.
 template <int A, int RMAX, int COLS = N1>

@@ -17,13 +17,14 @@
 //   Y_r    = FFT_m(y_r),
 // one radix-c decimation-in-frequency stage folded into the loads (W_c^e
 // is 1, -i, -1 or i, so the sum is exact adds), and X[c*k + r] = Y_r[k].
-//   - The loads: register m of thread t takes j = t + T*m (T = 1024
-//     threads), the c inputs x[j + s*m] read straight from device memory,
-//     consecutive threads on consecutive addresses. The c blocks of a
-//     cluster read the same row, so L2 serves c - 1 of the c reads
-//     (DSMEM_IN = false). DSMEM_IN = true: block r reads only its own
-//     quarter or half, stores it to its exchange buffer, and takes the
-//     partners' points through DSMEM after a cluster barrier.
+//   - The loads: block r reads only its own part of the row, x[r*m +
+//     t + T*i] (T = 1024 threads, 16 points a thread; consecutive threads
+//     on consecutive addresses), stores it to its exchange buffer, and
+//     after a cluster barrier reads the c inputs of its points, x[j +
+//     s*m] at element j of block s's buffer, through DSMEM; a second
+//     barrier ends those reads before the first exchange writes. (Reading
+//     all c inputs from device memory instead, the partners' repeats
+//     served by L2, took 6-8% longer at both lengths: PERF.md.)
 //   - The sub-FFT is the radix design's 16384-point core as it stands
 //     (fft_natural.cuh: butterflies, exchange; 1024 threads, 16 points a
 //     thread, the 128 KiB XOR-swizzled exchange buffer), except its last
@@ -66,7 +67,7 @@ __device__ __forceinline__ float2 mul_wc(float2 x, int e) {
   }
 }
 
-template <int C, bool DSMEM_IN>
+template <int C>
 __global__ void __launch_bounds__(T, 1)
 fft_natural_cluster_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
                            const float2* __restrict__ tw, const float2* __restrict__ pre,
@@ -80,45 +81,30 @@ fft_natural_cluster_kernel(const float* __restrict__ xre, const float* __restric
   const int t = static_cast<int>(threadIdx.x);
 
   // ---- the radix-c DIF stage: v[i] = y_rank[t + T*i]
-  float2 v[POINTS];
-  if constexpr (DSMEM_IN) {
-    const size_t own = off + static_cast<size_t>(rank) * M;
+  const size_t own = off + static_cast<size_t>(rank) * M;
 #pragma unroll
-    for (int i = 0; i < POINTS; ++i) {
-      const int a = swizzle(t + T * i);
-      sre[a] = __ldcs(xre + own + t + T * i);
-      sim[a] = __ldcs(xim + own + t + T * i);
-    }
-    rm_cluster::sync();
-    uint32_t src[C];
-#pragma unroll
-    for (int s = 0; s < C; ++s) src[s] = rm_cluster::dsmem(sre, s);
-#pragma unroll
-    for (int i = 0; i < POINTS; ++i) {
-      const uint32_t a = 4u * static_cast<uint32_t>(swizzle(t + T * i));
-      float2 acc = make_float2(rm_cluster::ld1(src[0] + a), rm_cluster::ld1(src[0] + a + 4u * M));
-#pragma unroll
-      for (int s = 1; s < C; ++s) {
-        const float2 x = make_float2(rm_cluster::ld1(src[s] + a), rm_cluster::ld1(src[s] + a + 4u * M));
-        acc = cadd(acc, mul_wc<C>(x, rank * s));
-      }
-      v[i] = acc;
-    }
-    rm_cluster::sync();  // every partner has read this buffer before the first exchange writes it
-  } else {
-#pragma unroll
-    for (int i = 0; i < POINTS; ++i) {
-      const size_t j = off + t + T * i;
-      float2 acc = make_float2(__ldg(xre + j), __ldg(xim + j));
-#pragma unroll
-      for (int s = 1; s < C; ++s) {
-        const float2 x = make_float2(__ldg(xre + j + static_cast<size_t>(s) * M),
-                                     __ldg(xim + j + static_cast<size_t>(s) * M));
-        acc = cadd(acc, mul_wc<C>(x, rank * s));
-      }
-      v[i] = acc;
-    }
+  for (int i = 0; i < POINTS; ++i) {
+    const int a = swizzle(t + T * i);
+    sre[a] = __ldcs(xre + own + t + T * i);
+    sim[a] = __ldcs(xim + own + t + T * i);
   }
+  rm_cluster::sync();
+  uint32_t src[C];
+#pragma unroll
+  for (int s = 0; s < C; ++s) src[s] = rm_cluster::dsmem(sre, s);
+  float2 v[POINTS];
+#pragma unroll
+  for (int i = 0; i < POINTS; ++i) {
+    const uint32_t a = 4u * static_cast<uint32_t>(swizzle(t + T * i));
+    float2 acc = make_float2(rm_cluster::ld1(src[0] + a), rm_cluster::ld1(src[0] + a + 4u * M));
+#pragma unroll
+    for (int s = 1; s < C; ++s) {
+      const float2 x = make_float2(rm_cluster::ld1(src[s] + a), rm_cluster::ld1(src[s] + a + 4u * M));
+      acc = cadd(acc, mul_wc<C>(x, rank * s));
+    }
+    v[i] = acc;
+  }
+  rm_cluster::sync();  // every partner has read this buffer before the first exchange writes it
   if (rank > 0) {
     const float2* w = pre + static_cast<size_t>(rank - 1) * M + t;
 #pragma unroll
@@ -138,13 +124,13 @@ fft_natural_cluster_kernel(const float* __restrict__ xre, const float* __restric
   rm_cluster::sync();  // every block's Y is in its buffer
 
   // ---- bins [rank*m, (rank+1)*m): bin g = Y_{t mod C}[g / C]
-  const uint32_t src = rm_cluster::dsmem(sre, static_cast<unsigned>(t % C));
+  const uint32_t part = rm_cluster::dsmem(sre, static_cast<unsigned>(t % C));
   const int k0 = rank * (M / C) + t / C;
   float2 y[POINTS];
 #pragma unroll
   for (int i = 0; i < POINTS; ++i) {
     const uint32_t a = 4u * static_cast<uint32_t>(swizzle(k0 + (T / C) * i));
-    y[i] = make_float2(rm_cluster::ld1(src + a), rm_cluster::ld1(src + a + 4u * M));
+    y[i] = make_float2(rm_cluster::ld1(part + a), rm_cluster::ld1(part + a + 4u * M));
   }
   const size_t o = off + static_cast<size_t>(rank) * M + t;
 #pragma unroll
@@ -155,10 +141,10 @@ fft_natural_cluster_kernel(const float* __restrict__ xre, const float* __restric
   rm_cluster::sync();  // no block exits while a partner reads its buffer
 }
 
-template <int C, bool DSMEM_IN>
+template <int C>
 int launch(const float* xre, const float* xim, const float2* tw, const float2* pre, float* fre,
            float* fim, int rows, cudaStream_t stream) {
-  return rm_cluster::launch(fft_natural_cluster_kernel<C, DSMEM_IN>, rows * C, T, SMEM, C, stream,
+  return rm_cluster::launch(fft_natural_cluster_kernel<C>, rows * C, T, SMEM, C, stream,
                             xre, xim, tw, pre, fre, fim);
 }
 
@@ -167,17 +153,14 @@ int launch(const float* xre, const float* xim, const float2* tw, const float2* p
 // Forward FFT of `rows` rows of n = 32768 or 65536 points, natural bin
 // order, on clusters of c = n / 16384 blocks. tw: radix_plan(16384)'s
 // twiddles; pre: [(c-1), 16384] W_n^(r*j) (fft_natural.cluster_plan), as
-// float2. dsmem_in: 0 = every block reads its c inputs from device memory
-// (through L2), 1 = each block reads its own part, the rest through DSMEM.
+// float2.
 extern "C" int rm_fft_natural_cluster(const float* xre, const float* xim, const float2* tw,
                                       const float2* pre, float* fre, float* fim, int rows, int n,
-                                      int dsmem_in, cudaStream_t stream) {
-  if (rows <= 0 || rows > (1 << 29)) return static_cast<int>(cudaErrorInvalidValue);
-  switch (n * 2 + (dsmem_in ? 1 : 0)) {
-    case 2 * 32768: return launch<2, false>(xre, xim, tw, pre, fre, fim, rows, stream);
-    case 2 * 32768 + 1: return launch<2, true>(xre, xim, tw, pre, fre, fim, rows, stream);
-    case 2 * 65536: return launch<4, false>(xre, xim, tw, pre, fre, fim, rows, stream);
-    case 2 * 65536 + 1: return launch<4, true>(xre, xim, tw, pre, fre, fim, rows, stream);
+                                      cudaStream_t stream) {
+  if (rows <= 0 || rows > 0x7fffffff / 4) return static_cast<int>(cudaErrorInvalidValue);
+  switch (n) {
+    case 32768: return launch<2>(xre, xim, tw, pre, fre, fim, rows, stream);
+    case 65536: return launch<4>(xre, xim, tw, pre, fre, fim, rows, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -188,9 +171,9 @@ extern "C" int rm_fft_natural_cluster_info(int n, int* c, int* smem, int* cluste
   *smem = static_cast<int>(SMEM);
   switch (n) {
     case 32768: *c = 2; return static_cast<int>(
-        rm_cluster::occupancy(fft_natural_cluster_kernel<2, false>, T, SMEM, 2, clusters));
+        rm_cluster::occupancy(fft_natural_cluster_kernel<2>, T, SMEM, 2, clusters));
     case 65536: *c = 4; return static_cast<int>(
-        rm_cluster::occupancy(fft_natural_cluster_kernel<4, false>, T, SMEM, 4, clusters));
+        rm_cluster::occupancy(fft_natural_cluster_kernel<4>, T, SMEM, 4, clusters));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

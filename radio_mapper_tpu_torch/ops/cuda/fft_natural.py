@@ -26,7 +26,9 @@ identity around it). Two CUDA designs, chosen by length alone
   a row past one block's 227 KB: one launch, a row on a thread-block
   cluster of c = n/16384 blocks (2, 4). Block r folds a radix-c
   decimation-in-frequency stage into its loads, y_r[j] = W_n^(r·j) ·
-  Σ_s x[j + s·n/c]·W_c^(r·s) (:func:`cluster_plan`'s twiddles), runs the
+  Σ_s x[j + s·n/c]·W_c^(r·s) (:func:`cluster_plan`'s twiddles; each block
+  reads its own n/c points and its partners' through distributed shared
+  memory), runs the
   radix design's 16384-point passes on y_r with the last pass stored to
   its own shared memory, and after a cluster barrier writes natural bins
   [r·n/c, (r+1)·n/c) contiguously, gathering X[c·k + r'] = Y_{r'}[k] from
@@ -67,7 +69,7 @@ RADIX = 16  # the radix of every pass but the last
 CLUSTER_SUB_N = RADIX_MAX_N  # a cluster block's sub-FFT (M in fft_natural_cluster.cu)
 CLUSTER_N = (32_768, 65_536)  # the cluster design's lengths: c = n / CLUSTER_SUB_N blocks a row
 
-_CLUSTER_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_CLUSTER_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 _CLUSTER_INFO_ARGTYPES = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3
 _RADIX_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
@@ -287,20 +289,6 @@ def _launch_radix(re, im):
     return fr, fi
 
 
-_CLUSTER_LOADS = {"l2": 0, "dsmem": 1}
-_cluster_loads = "l2"
-
-
-def set_cluster_loads(mode: str) -> None:
-    """How a cluster block reads its c inputs: ``"l2"`` (each block reads
-    the whole row from device memory, the partners' repeats from L2) or
-    ``"dsmem"`` (each block reads its own part, the rest through DSMEM)."""
-    global _cluster_loads
-    if mode not in _CLUSTER_LOADS:
-        raise ValueError(f"cluster loads {mode!r} not in {sorted(_CLUSTER_LOADS)}")
-    _cluster_loads = mode
-
-
 def _launch_cluster(re, im):
     n = re.shape[-1]
     fn = build.kernel("rm_fft_natural_cluster", _CLUSTER_ARGTYPES)
@@ -308,8 +296,7 @@ def _launch_cluster(re, im):
     pre = device_cluster_twiddles(n, re.device)
     fr = torch.empty_like(re)
     fi = torch.empty_like(im)
-    err = fn(_ptr(re), _ptr(im), _ptr(tw), _ptr(pre), _ptr(fr), _ptr(fi), re.numel() // n, n,
-             _CLUSTER_LOADS[_cluster_loads], _stream(re))
+    err = fn(_ptr(re), _ptr(im), _ptr(tw), _ptr(pre), _ptr(fr), _ptr(fi), re.numel() // n, n, _stream(re))
     build.check(err, "fft_rows (cluster)")
     return fr, fi
 

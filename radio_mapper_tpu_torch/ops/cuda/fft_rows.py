@@ -21,22 +21,31 @@ twiddles are float32 tables of float64 roots of unity
 (:func:`ct_plan.radix_tables`, ``ct_constants``' twiddle).
 
 Long rows, n > :data:`MAX_N` with n1 ∈ :data:`ct_plan.RADIX_N1` (128,
-256, 384, 640, 896) and 8 | n2 (``csrc/fft_rows_ct_cluster.cu``,
-:func:`fft_rows_ct_long`, :func:`long_geometry`): a row is a thread-block
-cluster of c = 2, 4 or 8 blocks, the least c for which n·8/c bytes and
-the W_128 table fit one block's 227 KB (33792: 2, 66560: 4, 121856: 8).
-Block ``rank`` owns n1/c columns, as tiles of 32 (or 16) columns, runs
-steps A and B on them in place (step B's inputs in registers up to r =
-24, streamed above), and after a cluster barrier runs step C on n2/c slot
-rows, each lane gathering its P = n1/32 points from the owning blocks
-through distributed shared memory, then stores in CT order. One pass
-through device memory, 16 B a sample, no workspace. Its spectra equal the
-one-block design's bit for bit where both take a length (the same
-per-value arithmetic). Every planned length up to 131072 has such a split.
+256, 384, 640, 896) and 8 | n2 (:func:`fft_rows_ct_long`,
+:func:`long_geometry`), two designs by n1:
+
+- n1 = 128 or 256, the cluster design (``csrc/fft_rows_ct_cluster.cu``):
+  a row is a thread-block cluster of c = 2, 4 or 8 blocks
+  (:func:`cluster_size`: the least c for which two blocks fit an SM,
+  33792 and 34816: 4, 66560: 8). Block ``rank`` owns n1/c columns as
+  tiles of 32 (or 16) columns and runs steps A and B on them in place,
+  then, after a cluster barrier, step C on n2/c slot rows, each lane
+  gathering its P = n1/32 points from the owning blocks through
+  distributed shared memory, and stores in CT order. One pass through
+  device memory, 16 B a sample.
+- n1 = 384, 640 or 896, the workspace design (``csrc/fft_rows_ct_long.cu``):
+  a column pass and a row pass (step C's mixed-radix P = 12, 20, 28) through
+  a [rows, n] float2 workspace, 32 B a sample. Its row pass needs more
+  than 128 registers a thread, so the cluster design ran these lengths at
+  one 256-thread block an SM, slower than the two passes (PERF.md §6).
+
+Both give the one-block design's spectra bit for bit where it takes the
+length too (the same per-value arithmetic). Every planned length up to
+131072 has such a split.
 
 What bounds it on the H100: device-memory bytes — a row read and its
-spectrum written once, 80 KB a row at 5120 (twice that for the long
-design's) — and then the three block barriers
+spectrum written once, 80 KB a row at 5120 (twice that for the workspace
+design) — and then the three block barriers
 between a row's loads and its stores; the arithmetic is n1·a·r² complex
 FMAs a row for step B plus the radix-2 butterflies (the direct four-step
 DFT it replaced issued n·(n1 + n2) from shared memory).
@@ -56,8 +65,10 @@ float32 (the caller disables TF32 for the plain version's products).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from radio_mapper_tpu_torch import device
@@ -68,13 +79,17 @@ launch_count = 0  # launches of the CUDA kernel (not of the plain version)
 design_counts = {"block": 0, "long": 0}  # the same launches, by design
 
 MAX_N = 24_576  # the one-block design's limit: one row in a block's shared memory (as kernel K1's)
-LONG_MAX_ROWS = (2**31 - 1) // 8  # the cluster design's grid: rows·c blocks ≤ 2^31 − 1 at c ≤ 8
+LONG_MAX_ROWS = 65_535  # the workspace column pass's grid rows (the cluster grid, rows·c ≤ 2^31 − 1, takes more)
 SMEM_LIMIT = 232_448  # bytes of shared memory one block can have (227 KB)
-CLUSTER_SIZES = (2, 4, 8)  # blocks a row in the long design; 8 is the portable cluster limit
+SM_SMEM = 233_472  # bytes of shared memory an SM has for its blocks (228 KB)
+SMEM_RESERVED = 1_024  # bytes the runtime reserves a block
+CLUSTER_SIZES = (2, 4, 8)  # blocks a row in the cluster design; 8 is the portable cluster limit
+CLUSTER_N1 = (128, 256)  # the cluster design's n1; 384, 640, 896 take the workspace design
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _LONG_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _INFO_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+_WORKSPACE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 
 def _check(re: torch.Tensor, im: torch.Tensor) -> None:
@@ -135,9 +150,9 @@ class LongGeometry(NamedTuple):
     n2: int
     a: int  # step A's length, 8
     r: int  # step B's length, n2 / 8
-    c: int  # blocks a row (the cluster)
+    design: str  # "cluster" (n1 = 128, 256) or "workspace" (n1 = 384, 640, 896)
+    c: int  # blocks a row (the cluster); 0 for the workspace design
     cols: int  # columns a tile: 32 where n2 ≤ 512 and 32 | n1/c, else 16
-    rmax: int  # step B's inputs in registers (24, r ≤ 24), or 0: streamed
 
 
 def cluster_smem(n1: int, n2: int, c: int) -> int:
@@ -145,25 +160,38 @@ def cluster_smem(n1: int, n2: int, c: int) -> int:
     return (n1 // c * n2 + 64) * 8
 
 
+def cluster_size(n1: int, n2: int) -> int:
+    """The cluster design's blocks a row: the least c of
+    :data:`CLUSTER_SIZES` for which two blocks fit one SM's shared memory
+    (two 512-thread blocks an SM hide each other's latency), else the
+    least for which one block does."""
+    for fit in (lambda c: 2 * (cluster_smem(n1, n2, c) + SMEM_RESERVED) <= SM_SMEM,
+                lambda c: cluster_smem(n1, n2, c) <= SMEM_LIMIT):
+        c = next((c for c in CLUSTER_SIZES if (n1 // c) % 16 == 0 and fit(c)), None)
+        if c is not None:
+            return c
+    raise ValueError(f"{n1}·{n2} does not fit a cluster of {CLUSTER_SIZES[-1]} blocks")
+
+
 def long_geometry(n: int) -> LongGeometry:
     """The long-row design's shape for rows of n samples: n1 ∈
     :data:`ct_plan.RADIX_N1` and a = 8 (8 | n2), as every planned length
-    with such an n1 splits; c the least of :data:`CLUSTER_SIZES` whose
-    block holds n·8/c bytes and the W_128 table; the column tile and
-    step B's form. Only the kernel variants these reach are built (32 or
-    16 columns, step B in registers up to r = 24, streamed above). Raises
-    ValueError otherwise."""
+    with such an n1 splits. n1 = 128 or 256: the cluster design, c from
+    :func:`cluster_size`, the column tile; n1 = 384, 640, 896: the
+    workspace design (32-column tiles). Only the kernel variants these
+    reach are built. Raises ValueError otherwise."""
     n1, n2 = ct_plan.ct_split(n)
     if n1 not in ct_plan.RADIX_N1:
         raise ValueError(f"the long-row K3 takes n1 in {ct_plan.RADIX_N1}; nfft {n} = {n1}·{n2}")
     _, a, r = ct_plan.radix_split(n)
     if a != ct_plan.RADIX_MAX_A:
         raise ValueError(f"the long-row K3 takes n2 a multiple of {ct_plan.RADIX_MAX_A}; nfft {n} = {n1}·{n2}")
-    c = next((c for c in CLUSTER_SIZES if cluster_smem(n1, n2, c) <= SMEM_LIMIT), None)
-    if c is None:  # pragma: no cover — every n ≤ 131072 fits at c = 8
-        raise ValueError(f"nfft {n} does not fit a cluster of {CLUSTER_SIZES[-1]} blocks")
-    cols = 32 if n2 <= 512 and (n1 // c) % 32 == 0 else 16
-    return LongGeometry(n1, n2, a, r, c, cols, 24 if r <= 24 else 0)
+    if n1 in CLUSTER_N1:
+        c = cluster_size(n1, n2)
+        return LongGeometry(n1, n2, a, r, "cluster", c, 32 if n2 <= 512 and (n1 // c) % 32 == 0 else 16)
+    if n2 > 512:  # pragma: no cover — every planned length with these n1 has n2 ≤ 336
+        raise ValueError(f"the workspace K3 takes n2 ≤ 512; nfft {n} = {n1}·{n2}")
+    return LongGeometry(n1, n2, a, r, "workspace", 0, 32)
 
 
 def fft_rows_ct_long(re: torch.Tensor, im: torch.Tensor):
@@ -182,34 +210,56 @@ def fft_rows_ct_long(re: torch.Tensor, im: torch.Tensor):
 
 
 def long_rows(re: torch.Tensor, im: torch.Tensor):
-    """The long-row design's one launch on contiguous float32 CUDA rows,
-    counted by the caller: K3 as one launch of K3, kernel K1's long rows
-    as part of one launch of K1. A launch the card refuses raises."""
+    """The long-row design on contiguous float32 CUDA rows, counted by the
+    caller: K3 as one launch of K3, kernel K1's long rows as part of one
+    launch of K1. A launch the card refuses raises."""
     n = re.shape[-1]
     g = long_geometry(n)
     rows = re.numel() // n
     if rows > LONG_MAX_ROWS:
         raise ValueError(f"the long-row K3 takes at most {LONG_MAX_ROWS} rows, got {rows}")
-    fn = build.kernel("rm_fft_rows_ct_cluster", _LONG_ARGTYPES)
     w1, wn2, wr = ct_plan.device_radix_tables(n, re.device)
     tw = ct_plan.device_tables(n, False, re.device).tw
     fr = torch.empty_like(re)
     fi = torch.empty_like(im)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
-    err = fn(
-        ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(wr), ptr(tw), ptr(fr), ptr(fi),
-        rows, g.n1, g.n2, g.a, g.r, g.c,
-        ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream),
-    )
-    build.check(err, "fft_rows_ct_long (cluster)")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream)
+    if g.design == "cluster":
+        fn = build.kernel("rm_fft_rows_ct_cluster", _LONG_ARGTYPES)
+        err = fn(
+            ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(device_step_b_roots(n, re.device)), ptr(tw), ptr(fr), ptr(fi),
+            rows, g.n1, g.n2, g.a, g.r, g.c, stream,
+        )
+    else:
+        fn = build.kernel("rm_fft_rows_ct_long", _WORKSPACE_ARGTYPES)
+        ws = torch.empty((rows, n, 2), dtype=torch.float32, device=re.device)  # [rows, n2, n1] slot rows
+        err = fn(ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(wr), ptr(tw), ptr(ws), ptr(fr), ptr(fi),
+                 rows, g.n1, g.n2, g.a, g.r, stream)
+    build.check(err, f"fft_rows_ct_long ({g.design})")
     return fr, fi
+
+
+@functools.lru_cache(maxsize=8)
+def device_step_b_roots(n: int, device: torch.device) -> torch.Tensor:
+    """Step B's roots for the long design: :func:`ct_plan.radix_tables`'
+    ``wr`` (W_r^(j·s), [r, r, 2]) with each row padded to an even length
+    rp with zeros, ``[r, rp, 2]``, so a lane reads the roots of two
+    consecutive outputs as one 16-byte load. The same float32 values."""
+    wr = ct_plan.radix_tables(n).wr
+    r = wr.shape[0]
+    out = np.zeros((r, r + (r & 1), 2), np.float32)
+    out[:, :r] = wr
+    return torch.from_numpy(out).to(device)
 
 
 def cluster_info(n: int) -> dict:
     """The long design's cluster at n on the current card: ``c``, shared
     memory a block (``smem``) and ``cudaOccupancyMaxActiveClusters``
-    (``clusters``; 0 would mean the card cannot run it)."""
+    (``clusters``; 0 would mean the card cannot run it). Raises for a
+    length the workspace design takes."""
     g = long_geometry(n)
+    if g.design != "cluster":
+        raise ValueError(f"nfft {n} takes the workspace design, not a cluster")
     smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
     fn = build.kernel("rm_fft_rows_ct_cluster_info", _INFO_ARGTYPES)
     build.check(fn(g.n1, g.n2, g.a, g.r, g.c, ctypes.byref(smem), ctypes.byref(clusters)), "cluster_info")

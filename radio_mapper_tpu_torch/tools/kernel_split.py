@@ -105,13 +105,6 @@ def main() -> int:
         call = lambda: fft_natural.fft_rows(xr, xi)
         ms = _mean_ms(call)
         kernels = device_kernels(call)
-        if hasattr(fft_natural, "set_cluster_loads"):  # the cluster design's two ways to load a row
-            loads = {}
-            for mode in ("dsmem", "l2", "dsmem", "l2"):
-                fft_natural.set_cluster_loads(mode)
-                loads.setdefault(mode, []).append(_mean_ms(call))
-            print(f"K7 [{rows}, {n}] cluster loads, back to back, in turns: "
-                  + ", ".join(f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in loads.items()) + f" {tag}")
         xc = torch.complex(xr, xi)
         del xr, xi
         lib_ms = _mean_ms(lambda: torch.fft.fft(xc))

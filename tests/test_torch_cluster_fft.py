@@ -195,12 +195,12 @@ def k3_cluster_schedule(x: np.ndarray, reads: list | None = None) -> np.ndarray:
 
 
 @pytest.mark.parametrize("n", [
-    33_792,   # 128·264, c 2, streamed step B
-    34_816,   # 256·136, c 2, step B in registers
-    58_368,   # 384·152, c 4, P = 12
-    66_560,   # 128·520, c 4, 16-column tiles
-    87_040,   # 640·136, c 4, P = 20
-    121_856,  # 896·136, c 8, 16-column tiles (112 columns a block), P = 28
+    17_408,   # 128·136, c 2 (a length the one-block design takes too)
+    24_576,   # 128·192, c 2
+    33_792,   # 128·264, c 4, the flagship at block_len 32768
+    34_816,   # 256·136, c 4, n1 = 256
+    50_176,   # 128·392, c 4, r 49
+    66_560,   # 128·520, c 8, 16-column tiles
 ])
 def test_k3_cluster_replica_equals_workspace_replica(n):
     x = _rows(n, n + 3)
@@ -212,22 +212,31 @@ def test_k3_cluster_replica_equals_workspace_replica(n):
         np.testing.assert_array_equal(block, 1)
 
 
-STREAM_OWNERS = {32: 16, 16: 32}  # step_b_stream's output owners a block, by tile width
+STEP_B_OWNERS_PER_K = {32: 8, 16: 16}  # step_b_tile's owners of a column block, by tile width
 
 
 def test_cluster_size_fits_every_planned_length():
-    """For every planned nfft the long design takes (and the lengths the
-    card tests force onto it), c is the least of 2, 4, 8 whose block holds
-    n·8/c bytes and W_128 in 227 KB; n1/c is a multiple of the tile."""
+    """For every planned nfft the long design takes with n1 = 128 or 256
+    (and the lengths the card tests force onto it), c ≤ 8 is the least of
+    2, 4, 8 for which two blocks fit one SM's 228 KB, else the least whose
+    block fits 227 KB; n1/c is a multiple of the tile, and step B's owners
+    cover r. The lengths with n1 = 384, 640, 896 take the workspace
+    design."""
+    fits2 = lambda g, c: 2 * (fft_rows.cluster_smem(g.n1, g.n2, c) + 1024) <= 233_472
     for n in [17_408, 24_576] + [n for n in PLANNED if n > fft_rows.MAX_N]:
         g = fft_rows.long_geometry(n)
+        if g.n1 > 256:
+            assert g.design == "workspace" and g.c == 0, n
+            continue
         smem = fft_rows.cluster_smem(g.n1, g.n2, g.c)
-        assert g.c <= 8 and smem <= fft_rows.SMEM_LIMIT == 232_448, n
-        assert all(fft_rows.cluster_smem(g.n1, g.n2, c) > fft_rows.SMEM_LIMIT for c in (2, 4) if c < g.c), n
+        assert g.design == "cluster" and g.c <= 8 and smem <= fft_rows.SMEM_LIMIT == 232_448, n
+        if fits2(g, g.c):
+            assert not any(fits2(g, c) for c in (2, 4) if c < g.c), n
+        else:
+            assert all(fft_rows.cluster_smem(g.n1, g.n2, c) > 232_448 for c in (2, 4) if c < g.c), n
         assert (g.n1 // g.c) % g.cols == 0 and g.n2 % g.c == 0 and g.cols in (16, 32), n
         assert g.cols == 32 or g.n2 > 512 or (g.n1 // g.c) % 32, n
-        assert g.rmax == (24 if g.r <= 24 else 0)
-        assert g.r <= 4 * STREAM_OWNERS[g.cols], n  # streamed step B in one pass, in place
-    want = {33_792: 2, 34_816: 2, 58_368: 4, 66_560: 4, 87_040: 4, 121_856: 8, 131_072: 8}
+        assert g.r <= 2 * 4 * STEP_B_OWNERS_PER_K[g.cols], n  # step B holds every output of a round
+    want = {17_408: 2, 33_792: 4, 34_816: 4, 66_560: 8, 115_712: 4, 131_072: 8}
     assert {n: fft_rows.long_geometry(n).c for n in want} == want
-    assert fft_rows.cluster_smem(896, 136, 8) == 122_368 and fft_rows.cluster_smem(256, 512, 8) == 131_584
+    assert fft_rows.cluster_smem(128, 904, 4) == 231_936 and fft_rows.cluster_smem(256, 512, 8) == 131_584

@@ -489,16 +489,18 @@ def test_long_design_forced_equals_one_block_design(cuda_device, nfft):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,nfft", [(3, 33792), (1, 34816), (5, 58368), (3, 66560), (1, 87040), (3, 121856)])
-def test_k3_cluster_matches_plain_at_each_n1(cuda_device, rows, nfft):
-    """The long K3's cluster design at each inner length n1 = 128, 256,
-    384, 640, 896 and cluster size c = 2, 4, 8, on row counts off a
-    multiple of anything, within 1e-4 of the row's max |X| of the plain
-    version; the card runs such a cluster (cudaOccupancyMaxActiveClusters
-    > 0) in the shared memory the geometry plans."""
+@pytest.mark.parametrize("rows,nfft", [(3, 25600), (3, 33792), (1, 34816), (3, 66560), (2, 115712), (1, 131072)])
+def test_k3_cluster_matches_plain_at_each_cluster_size(cuda_device, rows, nfft):
+    """The long K3's cluster design at n1 = 128 and 256, cluster sizes c =
+    2, 4, 8, 32- and 16-column tiles and one or two blocks an SM (115712:
+    one), on row counts off a multiple of anything, within 1e-4 of the
+    row's max |X| of the plain version; the card runs such a cluster
+    (cudaOccupancyMaxActiveClusters > 0) in the shared memory the
+    geometry plans."""
     g = fft_rows.long_geometry(nfft)
     info = fft_rows.cluster_info(nfft)
-    assert info["c"] == g.c and info["smem"] == fft_rows.cluster_smem(g.n1, g.n2, g.c) and info["clusters"] > 0
+    assert g.design == "cluster" and info["c"] == g.c and info["clusters"] > 0
+    assert info["smem"] == fft_rows.cluster_smem(g.n1, g.n2, g.c)
     re, im = tone_rows(rows, nfft, 21, n_valid=nfft - 1024)
     xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
     out = fft_rows.fft_rows_ct_long(xr, xi)
@@ -510,8 +512,8 @@ def test_k3_cluster_matches_plain_at_each_n1(cuda_device, rows, nfft):
 @pytest.mark.parametrize("nfft", [17408, 24576])
 def test_k3_cluster_forced_equals_one_block_k3(cuda_device, nfft):
     """Forced onto lengths the one-block K3 takes (c = 2, 64 columns a
-    block, step B in registers), the cluster K3 gives the one-block
-    spectra bit for bit, on 7 rows."""
+    block), the cluster K3 gives the one-block spectra bit for bit, on 7
+    rows."""
     re, im = tone_rows(7, nfft, 22, n_valid=nfft - nfft // 5)
     xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
     assert fft_rows.geometry(nfft) == "block" and fft_rows.long_geometry(nfft).c == 2

@@ -187,29 +187,55 @@ def test_long_k3_replica_equals_one_block_replica(n):
     np.testing.assert_array_equal(k3_long_schedule(x, n1, n2), k3_schedule(x))
 
 
-def stream_sj(r: int, cols: int) -> int:
-    """Outputs a thread holds in the long design's streamed step B
-    (``fft_rows_ct_cluster.cu`` STREAM_SJ): 4, one pass for every r ≤ 128
-    at 16 columns and r ≤ 64 at 32 (n2 ≤ 512), which in-place needs."""
-    owners = WARPS * (32 // min(32, cols))
-    assert r <= 4 * owners, (r, cols)
-    return 4
+def tile_step_b_outputs(cols: int, r: int):
+    """The long design's step B map (``fft_rows_ct_cluster.cu``
+    ``step_b_tile``) on a tile of ``cols`` columns (32 or 16): for each
+    thread and round, ``(k, [p, p + 1], [s, ...])``. A lane takes the
+    column pair p = 2·(lane mod cols/2); owner o (a group of cols/2 lanes,
+    32 or 64 a block) takes, in round u = 0, 1, column block k = o //
+    PER_K + 4·u (PER_K = owners / 4) and the output pairs sp = sub +
+    PER_K·i (i < 4, outputs 2·sp and 2·sp + 1), one pass over the inputs
+    a pair, skipped once sp ≥ ceil(r/2); the outputs it stores are those
+    below r."""
+    lanes = cols // 2
+    owners = WARPS * (32 // lanes)
+    per_k, rh = owners // 4, (r + 1) // 2
+    out = []
+    for t in range(512):
+        lane, warp = t % 32, t // 32
+        owner = warp * (32 // lanes) + lane // lanes
+        sub = owner % per_k
+        pairs = [sub + per_k * i for i in range(4) if sub + per_k * i < rh]
+        assert all(sp * 2 + 1 < r + (r & 1) for sp in pairs)  # the root loads stay in a row of wp
+        p = 2 * (lane % lanes)
+        for k in (owner // per_k, owner // per_k + 4):
+            out.append((k, [p, p + 1], [s for sp in pairs for s in (2 * sp, 2 * sp + 1) if s < r]))
+    return out
 
 
 @pytest.mark.parametrize("cols,r", [
     *((128, r) for r in (25, 33, 65, 127, 193, 385, 1024)),  # the one-block design, 12 outputs a thread
-    *((32, r) for r in (25, 32, 33, 48, 49, 64, 63)),         # long rows, n2 = 8·r ≤ 512
-    *((16, r) for r in (65, 96, 97, 127, 128)),               # long rows, 512 < n2 ≤ 1024
+    *((32, r) for r in (5, 17, 24, 25, 32, 33, 48, 49, 64, 63)),  # long rows, n2 = 8·r ≤ 512
+    *((16, r) for r in (17, 25, 65, 96, 97, 127, 128)),           # long rows, 16-column tiles
 ])
 def test_streamed_step_b_map_covers_each_output_once(cols, r):
-    """``step_b_stream``: lane → column p0 + lane mod LANES, owner →
-    outputs s = s0 + owner + OWNERS·i in passes of OWNERS·SJ; every
-    (column, s) exactly once, with the long design's SJ (16 or 32
-    columns, always one pass) or the one-block design's 12 (128 columns),
-    and one pass where the one-block design runs it in place (r ≤ 192)."""
-    lanes = min(32, cols)
-    owners = WARPS * (32 // lanes)
-    sj = STREAM_MAX_SJ if cols == 128 else stream_sj(r, cols)
+    """Step B's output maps: every (column block, column, s) exactly once.
+    The one-block design's ``step_b_stream`` (128 columns): lane → column
+    p0 + lane mod LANES, owner → outputs s = s0 + owner + OWNERS·i in
+    passes of OWNERS·12, one pass where it runs in place (r ≤ 192). The
+    long design's ``step_b_tile`` (32 or 16 columns): the column blocks
+    in two rounds of four, a lane two columns and at most 8 outputs of
+    each a round, so each round runs in place in one pass for every r ≤
+    128 (n2 ≤ 1024)."""
+    if cols < 128:
+        seen = np.zeros((8, cols, r), np.int64)
+        for k, ps, outs in tile_step_b_outputs(cols, r):
+            assert len(outs) <= 8
+            for s in outs:
+                seen[k, ps, s] += 1
+        np.testing.assert_array_equal(seen, 1)
+        return
+    lanes, owners, sj = 32, WARPS, STREAM_MAX_SJ
     seen = np.zeros((cols, r), np.int64)
     passes = 0
     for s0 in range(0, r, owners * sj):
@@ -224,10 +250,8 @@ def test_streamed_step_b_map_covers_each_output_once(cols, r):
                     if s < r:
                         seen[p, s] += 1
     np.testing.assert_array_equal(seen, 1)
-    if cols == 128 and r <= 192:
+    if r <= 192:
         assert passes == 1
-    if cols < 128:
-        assert passes == 1 and sj <= 4
 
 
 @pytest.mark.parametrize("n", [34816, 69632, 131072])
@@ -501,26 +525,36 @@ def test_design_choice_by_length():
         detect_ct.geometry(17408, 137)  # radius > n2 = 136
 
 
-# the instantiations fft_rows_ct_cluster.cu builds: (n1, columns a tile,
-# step B's registers RMAX or 0 if streamed)
-BUILT_CLUSTER_VARIANTS = {
-    (128, 32, 24), (128, 32, 0), (128, 16, 0), (256, 32, 24), (256, 32, 0), (384, 32, 24), (384, 32, 0),
-    (384, 16, 0), (640, 32, 24), (640, 16, 24), (640, 16, 0), (896, 16, 24),
-}
+# the instantiations fft_rows_ct_cluster.cu builds: (n1, columns a tile)
+BUILT_CLUSTER_VARIANTS = {(128, 32), (128, 16), (256, 32)}
+# fft_rows_ct_long.cu (the workspace design, n1 = 384, 640, 896): its row
+# passes and column-pass variants (step B's registers RMAX or 0 if
+# streamed, outputs a thread SJ)
+BUILT_WORKSPACE_ROWS = {384, 640, 896}
+BUILT_WORKSPACE_COLUMNS = {(24, 0), (0, 2), (0, 3)}
 
 
 def test_long_k3_builds_only_the_variants_planned_lengths_reach():
     """Every planned length the long K3 takes (and the lengths the card
     tests force onto it: 17408, 24576) splits with a = 8 into a built
-    kernel variant, and together they reach every built one; a long split
-    with 8 ∤ n2 raises before any launch."""
-    reached = set()
+    kernel variant, and together they reach every built one: the cluster
+    design at n1 = 128 and 256, the workspace design at n1 = 384, 640 and
+    896 (32-column tiles, step B in registers up to r = 24, else streamed
+    with the fewest outputs a thread that cover r in one pass); a long
+    split with 8 ∤ n2 raises before any launch."""
+    cluster, rows, columns = set(), set(), set()
     for n in [17408, 24576] + [n for n in PLANNED if n > fft_rows.MAX_N]:
         g = fft_rows.long_geometry(n)
         assert g.a == 8 and g.n2 <= 1024, n
-        assert g.rmax == (24 if g.r <= 24 else 0) and stream_sj(g.r, g.cols) == 4, n
-        reached.add((g.n1, g.cols, g.rmax))
-    assert reached == BUILT_CLUSTER_VARIANTS
+        if g.design == "cluster":
+            assert g.n1 in (128, 256), n
+            cluster.add((g.n1, g.cols))
+        else:
+            assert g.design == "workspace" and g.n2 <= 512 and g.cols == 32, n
+            rows.add(g.n1)
+            columns.add((24, 0) if g.r <= 24 else (0, next(sj for sj in (2, 3, 4) if g.r <= sj * WARPS)))
+    assert cluster == BUILT_CLUSTER_VARIANTS
+    assert rows == BUILT_WORKSPACE_ROWS and columns == BUILT_WORKSPACE_COLUMNS
     assert ct_plan.ct_split(25_728) == (128, 201)
     with pytest.raises(ValueError, match="multiple of 8"):
         fft_rows.geometry(25_728)
