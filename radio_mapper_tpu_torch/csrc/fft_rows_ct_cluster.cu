@@ -55,53 +55,32 @@
 
 namespace {
 
-constexpr int NT = 512;  // threads a block; two blocks an SM where their shared memory fits (64 registers)
+using rm_fft::THREADS;  // 512 a block; two blocks an SM where their shared memory fits (64 registers)
+using rm_fft::WARPS;
 
-constexpr int A = 8;           // every long split has 8 | n2
-constexpr int MAX_N2 = 1024;   // ct_plan.ct_split's largest n2
+constexpr int A = 8;              // every long split has 8 | n2
+constexpr int MAX_N2 = 1024;      // ct_plan.ct_split's largest n2
 constexpr int STEP_B_ROUNDS = 2;  // step B takes the column blocks in two rounds of four
 constexpr int STEP_B_NP = 4;      // step B's output pairs a lane a round: PER_K*4 pairs >= r/2 for every n2 <= 1024
 constexpr size_t SMEM_LIMIT = 232448;  // 227 KB a block
 
-// Step A (ct_fft.cuh step_a) on one tile with NT threads: thread (p, j0)
-// takes column p and j = j0, j0 + NT/COLS, ... < r; the same arithmetic.
-template <int COLS, int NT>
-__device__ __forceinline__ void step_a_tile(float2* xs, const float2* w128, const float2* __restrict__ wn2,
-                                            int r) {
-  const int p = threadIdx.x & (COLS - 1);
-  for (int j = threadIdx.x / COLS; j < r; j += NT / COLS) {
-    float2 v[A];
-#pragma unroll
-    for (int t = 0; t < A; ++t) v[t] = xs[(j + r * t) * COLS + p];
-    rm_fft::dif_regs<A>(v, w128);
-#pragma unroll
-    for (int t = 0; t < A; ++t) {
-      constexpr int bits = rm_fft::log2_of(A);
-      const int k = rm_fft::brev_bits(t, bits);
-      xs[(j + r * k) * COLS + p] = k ? rm_ct::cmul(v[t], __ldg(wn2 + j * k)) : v[t];
-    }
-  }
-}
-
-// Step B on one tile of COLS columns held as ts[q*COLS + p], in place, all
-// A column blocks at once. A lane takes a pair of columns (2 pl, 2 pl + 1);
+// Step B on one tile of COLS columns held as ts[q*COLS + p], in place, in
+// two rounds of four column blocks. A lane takes a pair of columns p, p + 1;
 // owner o (a group of COLS/2 lanes: 32 or 64 a block) takes column block
-// k = o / PER_K and the output pairs s = 2 sp, 2 sp + 1 with sp = sub +
-// PER_K*i (sub = o mod PER_K). A pass over j = 0..r-1 reads y_j of both
-// columns as one 16-byte load and, for each of its CH output pairs, the
-// two roots W_r^(j*s), W_r^(j*(s+1)) as one 16-byte load of wp (wr
-// padded to rp = r rounded up to even columns), then runs 4 cmacs. So each
-// output is step_b's: acc = sum over j of cmac(acc, W_r^(j*s), y_j) from
-// zero, in j order, then times the row twiddle; the values equal the
-// one-block design's bit for bit. A pass whose first pair is past r is
-// skipped (warp-uniform for COLS = 32); a later pair past r computes
-// values never stored. Every output stays in registers (NP pairs, at most
-// 8) until one barrier ends every read of the tile.
-template <int COLS, int NT>
+// k = o / PER_K (+ 4 in the second round) and the output pairs s = 2 sp,
+// 2 sp + 1 with sp = sub + PER_K*i, i < 4 (sub = o mod PER_K). For each
+// pair, a pass over j = 0..r-1 reads y_j of both columns as one 16-byte
+// load and the roots W_r^(j*s), W_r^(j*(s+1)) as one 16-byte load of wp
+// (wr with rows padded to even length), then runs 4 cmacs. So each output
+// is step_b's: acc = sum over j of cmac(acc, W_r^(j*s), y_j) from zero, in
+// j order, then times the row twiddle; the values equal the one-block
+// design's bit for bit. A round's outputs (at most 16 a thread) stay in
+// registers until one barrier ends every read of its column blocks.
+template <int COLS>
 __device__ __forceinline__ void step_b_tile(float2* ts, const float2* __restrict__ wp,
                                             const float2* __restrict__ tw, int tw_ld, int r) {
   constexpr int LANES = COLS / 2;  // a lane a column pair
-  constexpr int OWNERS = NT / 32 * (32 / LANES);
+  constexpr int OWNERS = WARPS * (32 / LANES);
   constexpr int KR = A / STEP_B_ROUNDS;  // column blocks a round
   constexpr int PER_K = OWNERS / KR;
   static_assert(PER_K * STEP_B_NP * 2 >= 2 * 32 * 32 / COLS, "the owners of a column block cover r");
@@ -177,13 +156,12 @@ __device__ __forceinline__ void step_c_store(float2 (&v)[R1 / 32], const float2*
 }
 
 template <int R1, int COLS>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(THREADS, 2)
 ct_cluster_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
                   const float2* __restrict__ w1, const float2* __restrict__ wn2,
                   const float2* __restrict__ wp, const float2* __restrict__ tw,
                   float* __restrict__ fre, float* __restrict__ fim, int c, int n2, int r) {
   constexpr int P = R1 / 32;
-  constexpr int WARPS = NT / 32;
   extern __shared__ float4 smem[];  // float4: the row pass reads 16 bytes at a time
   float2* xs = reinterpret_cast<float2*>(smem);  // [tiles][n2][COLS], this block's columns
   const int own = R1 / c;  // columns a block owns
@@ -200,7 +178,7 @@ ct_cluster_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
     const float* xi = xim + off + c0 + t * COLS;
     float2* ts = xs + static_cast<size_t>(t) * n2 * COLS;
 #pragma unroll 4
-    for (int m = tid; m < COLS * n2; m += NT) {
+    for (int m = tid; m < COLS * n2; m += THREADS) {
       const int q = m / COLS, p = m % COLS;
       ts[m] = make_float2(xr[static_cast<size_t>(q) * R1 + p], xi[static_cast<size_t>(q) * R1 + p]);
     }
@@ -213,9 +191,9 @@ ct_cluster_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
   // ---- steps A and B in place on each tile
   for (int t = 0; t < tiles; ++t) {
     float2* ts = xs + static_cast<size_t>(t) * n2 * COLS;
-    step_a_tile<COLS, NT>(ts, w128s, wn2, r);
+    rm_fft::step_a<A, COLS>(ts, w128s, wn2, r);
     __syncthreads();
-    step_b_tile<COLS, NT>(ts, wp, tw + c0 + t * COLS, R1, r);
+    step_b_tile<COLS>(ts, wp, tw + c0 + t * COLS, R1, r);
     __syncthreads();
   }
   rm_cluster::sync();  // every block's slot rows are complete
@@ -245,7 +223,6 @@ int cols_for(int n1, int n2, int c) { return (n2 <= 512 && (n1 / c) % 32 == 0) ?
 using Kernel = void (*)(const float*, const float*, const float2*, const float2*, const float2*,
                         const float2*, float*, float*, int, int, int);
 
-
 // The instantiation for (n1, COLS): only those the planned lengths reach
 // (fft_rows.long_geometry; tests/test_torch_long_rows_radix.py lists
 // them), nullptr otherwise.
@@ -274,7 +251,7 @@ extern "C" int rm_fft_rows_ct_cluster(const float* xre, const float* xim, const 
                                       int n1, int n2, int a, int r, int c, cudaStream_t stream) {
   const Kernel k = kernel_for(n1, n2, a, r, c);
   if (k == nullptr || rows <= 0 || rows > 0x7fffffff / c) return static_cast<int>(cudaErrorInvalidValue);
-  return rm_cluster::launch(k, rows * c, NT, smem_bytes(n1, n2, c), c, stream,
+  return rm_cluster::launch(k, rows * c, THREADS, smem_bytes(n1, n2, c), c, stream,
                             xre, xim, w1, wn2, wr, tw, fre, fim, c, n2, r);
 }
 
@@ -283,5 +260,5 @@ extern "C" int rm_fft_rows_ct_cluster_info(int n1, int n2, int a, int r, int c, 
   const Kernel k = kernel_for(n1, n2, a, r, c);
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   *smem = static_cast<int>(smem_bytes(n1, n2, c));
-  return static_cast<int>(rm_cluster::occupancy(k, NT, smem_bytes(n1, n2, c), c, clusters));
+  return static_cast<int>(rm_cluster::occupancy(k, THREADS, smem_bytes(n1, n2, c), c, clusters));
 }

@@ -27,14 +27,13 @@ identity around it). Two CUDA designs, chosen by length alone
   cluster of c = n/16384 blocks (2, 4). Block r folds a radix-c
   decimation-in-frequency stage into its loads, y_r[j] = W_n^(r·j) ·
   Σ_s x[j + s·n/c]·W_c^(r·s) (:func:`cluster_plan`'s twiddles; each block
-  reads its own n/c points and its partners' through distributed shared
-  memory), runs the
-  radix design's 16384-point passes on y_r with the last pass stored to
-  its own shared memory, and after a cluster barrier writes natural bins
-  [r·n/c, (r+1)·n/c) contiguously, gathering X[c·k + r'] = Y_{r'}[k] from
-  the c blocks through distributed shared memory. 16 B of device traffic
-  a point, no scratch; bound: bytes (1.282 ms at [8192, 32768] and
-  [4096, 65536]).
+  reads its own n/c points, its partners' through distributed shared
+  memory), runs the radix design's 16384-point passes on y_r with the
+  last pass stored to its own shared memory, and after a cluster barrier
+  writes natural bins [r·n/c, (r+1)·n/c) contiguously, gathering
+  X[c·k + r'] = Y_{r'}[k] from the c blocks through distributed shared
+  memory. 16 B of device traffic a point, no scratch; bound: bytes
+  (1.282 ms at [8192, 32768] and [4096, 65536]).
 
 The four-step split and tables are the reference's (``fft_kernel._split``,
 ``_constants``), copied here and held equal to it by a test: n = n1·n2

@@ -87,7 +87,7 @@ CLUSTER_SIZES = (2, 4, 8)  # blocks a row in the cluster design; 8 is the portab
 CLUSTER_N1 = (128, 256)  # the cluster design's n1; 384, 640, 896 take the workspace design
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_LONG_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_CLUSTER_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _INFO_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
 _WORKSPACE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
@@ -225,7 +225,7 @@ def long_rows(re: torch.Tensor, im: torch.Tensor):
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     stream = ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream)
     if g.design == "cluster":
-        fn = build.kernel("rm_fft_rows_ct_cluster", _LONG_ARGTYPES)
+        fn = build.kernel("rm_fft_rows_ct_cluster", _CLUSTER_ARGTYPES)
         err = fn(
             ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(device_step_b_roots(n, re.device)), ptr(tw), ptr(fr), ptr(fi),
             rows, g.n1, g.n2, g.a, g.r, g.c, stream,

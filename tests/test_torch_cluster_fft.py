@@ -13,15 +13,17 @@ within 1e-5 of each row's max |X|, write every bin once, read every
 partner element once, and keep each warp's reads of one buffer in
 distinct banks.
 
-K3 (``csrc/fft_rows_ct_cluster.cu``): block ``rank`` of a row's cluster
-owns columns [rank·n1/c, (rank+1)·n1/c) as tiles of ``cols`` columns, runs
-steps A and B on them in place, and then step C on slot rows
-[rank·n2/c, (rank+1)·n2/c), lane l gathering positions P·l + 2u and
-P·l + 2u + 1 (u < P/2) of a slot row from the tile that holds them. The
-replica must read every slot-row point exactly once, by the lane and
+K3 (``csrc/fft_rows_ct_cluster.cu``, the long rows with n1 = 128 and
+256; 384, 640 and 896 keep the workspace design): block ``rank`` of a
+row's cluster owns columns [rank·n1/c, (rank+1)·n1/c) as tiles of
+``cols`` columns, runs steps A and B on them in place, and then step C on
+slot rows [rank·n2/c, (rank+1)·n2/c), lane l gathering positions P·l + 2u
+and P·l + 2u + 1 (u < P/2) of a slot row from the tile that holds them.
+The replica must read every slot-row point exactly once, by the lane and
 register step C expects, and equal the workspace design's replica
 (``test_torch_long_rows_radix.k3_long_schedule``, the same per-value
-arithmetic) value for value at every n1.
+arithmetic) value for value at both n1, every cluster size and both tile
+widths.
 """
 
 import numpy as np
