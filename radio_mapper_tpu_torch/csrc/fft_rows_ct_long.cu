@@ -1,43 +1,41 @@
-// Kernel K3 for rows longer than one block's shared memory: forward
-// CT-order FFT of [rows, n] rows, n = n1*n2 with n1 = 128, 256, 384, 640
-// or 896 and n2 = 8*r <= 1024 (every planned length's split), in two passes
-// through a device-memory workspace.
+// Kernel K3 for long rows whose split has n1 = 384, 640 or 896 (the
+// mixed-radix row pass, P = 12, 20, 28 points a lane): forward CT-order
+// FFT of [rows, n] rows, n = n1*n2 with n2 = 8*r <= 512 (every such
+// planned length's split), in two passes through a device-memory
+// workspace: the workspace design. Rows with n1 = 128 or 256 take the
+// thread-block cluster design (fft_rows_ct_cluster.cu), which is faster
+// there; at these n1 the cluster design's row pass, P >= 12 points a lane
+// at more than 128 registers a thread, ran one 256-thread block an SM and
+// took longer than these two passes (PERF.md), so these lengths
+// stay here, routed by n1 (fft_rows.long_geometry).
 //
 // Replaces radio_mapper_tpu/ops/pallas/fft_kernel.py::fft_rows_ct (body
-// fft_kernel.ct_fft_core) above n = 24576, where the one-block design
-// (fft_rows_ct.cu) no longer holds a row. Python wrapper:
-// radio_mapper_tpu_torch/ops/cuda/fft_rows.py; kernel K1's long rows run it
-// too (ops/cuda/fft_detect.py).
+// fft_kernel.ct_fft_core) at those lengths. Python wrapper:
+// radio_mapper_tpu_torch/ops/cuda/fft_rows.py; kernel K1's long rows and
+// K8's long design run it too.
 //
-// The four-step split of ct_fft.cuh, with the same per-value arithmetic as
-// the one-block design; only the data movement changes:
+// The four-step split of ct_fft.cuh, with the per-value arithmetic of the
+// one-block design; only the data movement differs:
 //
-//   column pass  a block takes a tile of COLS columns p of one row (COLS =
-//                32 for n2 <= 512, else 16: at most 128 KB of shared
-//                memory), loads x[q][p] for every q < n2, runs steps A and
-//                B on the tile (step A 8-point; step B's r inputs in
-//                registers for r <= 24, streamed from shared memory above,
-//                2, 3 or 4 outputs a thread) and writes the slot rows
-//                s + r*k, times the row twiddle, to the workspace
-//                ws[row][s + r*k][p];
+//   column pass  a block takes a tile of 32 columns p of one row, loads
+//                x[q][p] for every q < n2, runs steps A and B on the tile
+//                (step A 8-point; step B's r inputs in registers for
+//                r <= 24, streamed from shared memory above, 2 or 3
+//                outputs a thread) and writes the slot rows s + r*k, times
+//                the row twiddle, to the workspace ws[row][s + r*k][p];
 //   row pass     one warp a workspace slot row runs step C, the n1-point
 //                FFT: five radix-2 stages across lanes and a P-point
-//                transform in registers (P = n1/32 points a lane; radix-2
-//                for P = 4, 8, two radix-2 stages and a direct q-point DFT
-//                for P = 4q = 12, 20, 28), and stores the row at CT row
-//                k + a*s, coalesced, as the one-block K3 stores it.
+//                transform in registers (P = n1/32 = 4q, two radix-2
+//                stages and a direct q-point DFT, q = 3, 5, 7), and stores
+//                the row at CT row k + a*s, coalesced, as the one-block K3
+//                stores it.
 //
-// At r <= 24 the column pass issues the one-block step B's fmaf sequence,
-// so on a length both designs take the two give the same spectra bit for
-// bit (card test). The workspace cannot be the output planes: slot row
-// s + r*k and CT row k + a*s are different rows, written by different
-// blocks.
+// The workspace cannot be the output planes: slot row s + r*k and CT row
+// k + a*s are different rows, written by different blocks.
 //
 // Bound on the H100: device-memory bytes. Each sample is read and written
-// twice (32 B a sample, against 16 B for the one-block design), 0.33 ms at
-// [1024, 33792] at 3.35 TB/s. Later PRs: the row held across a
-// thread-block cluster's distributed shared memory, so that the
-// workspace round trip goes (ROADMAP, shared with K7's long rows).
+// twice (32 B a sample, against 16 B for the one-block and cluster
+// designs).
 
 #include <cuda_runtime.h>
 
@@ -48,7 +46,7 @@ namespace {
 using rm_fft::THREADS;
 
 constexpr int ROW_THREADS = 256;  // the row pass: one warp a slot row
-constexpr int MAX_N2 = 1024;      // ct_plan.ct_split's largest n2
+constexpr int MAX_N2 = 512;       // n2 of these lengths (at most 336 up to 131072)
 
 // RMAX > 0: step B holds up to RMAX inputs in registers; RMAX == 0: it
 // streams them from shared memory, SJ outputs a thread a pass.
@@ -118,27 +116,16 @@ int launch_columns(const float* xre, const float* xim, const float2* w1, const f
   return static_cast<int>(cudaGetLastError());
 }
 
-// Step B's variant for r, a = 8: inputs in registers up to r = 24;
-// streamed above, with as many outputs a thread as r needs in one pass
-// (OWNERS*SJ >= r), so no thread holds idle accumulators. Only the
-// variants the planned lengths reach are built (fft_rows.long_geometry):
-// 32 columns for n2 <= 512 (r <= 64), 16 columns above (64 < r <= 128).
+// Step B's variant for r, a = 8, 32 columns: inputs in registers up to
+// r = 24; streamed above, with as many outputs a thread as r needs in one
+// pass (OWNERS*SJ >= r). Only the variants the planned lengths reach are
+// built (fft_rows.long_geometry; r <= 42 at n2 <= 336).
 int launch_columns_32(const float* xre, const float* xim, const float2* w1, const float2* wn2, const float2* wr,
                       const float2* tw, float2* ws, int rows, int n1, int n2, int r, cudaStream_t stream) {
   constexpr int OWNERS = rm_fft::WARPS;  // one 32-lane owner a warp
-  if (r <= 8) return launch_columns<8, 8, 32>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
   if (r <= 24) return launch_columns<8, 24, 32>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
   if (r <= 2 * OWNERS) return launch_columns<8, 0, 32, 2>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
   if (r <= 3 * OWNERS) return launch_columns<8, 0, 32, 3>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
-  if (r <= 4 * OWNERS) return launch_columns<8, 0, 32, 4>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int launch_columns_16(const float* xre, const float* xim, const float2* w1, const float2* wn2, const float2* wr,
-                      const float2* tw, float2* ws, int rows, int n1, int n2, int r, cudaStream_t stream) {
-  constexpr int OWNERS = 2 * rm_fft::WARPS;  // two 16-lane owners a warp
-  if (r <= 3 * OWNERS) return launch_columns<8, 0, 16, 3>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
-  if (r <= 4 * OWNERS) return launch_columns<8, 0, 16, 4>(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -158,14 +145,11 @@ int launch_rows(const float2* ws, const float2* w1, float* fre, float* fim, int 
 extern "C" int rm_fft_rows_ct_long(const float* xre, const float* xim, const float2* w1, const float2* wn2,
                                    const float2* wr, const float2* tw, float2* ws, float* fre, float* fim,
                                    int rows, int n1, int n2, int a, int r, cudaStream_t stream) {
-  const bool n1_ok = n1 == 128 || n1 == 256 || n1 == 384 || n1 == 640 || n1 == 896;
-  if (a != 8 || a * r != n2 || n2 > MAX_N2 || !n1_ok) return static_cast<int>(cudaErrorInvalidValue);
-  const int err = n2 <= 512 ? launch_columns_32(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream)
-                            : launch_columns_16(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
+  if (a != 8 || a * r != n2 || n2 > MAX_N2 || (n1 != 384 && n1 != 640 && n1 != 896))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = launch_columns_32(xre, xim, w1, wn2, wr, tw, ws, rows, n1, n2, r, stream);
   if (err != 0) return err;
   switch (n1) {
-    case 128: return launch_rows<128>(ws, w1, fre, fim, rows, n2, a, r, stream);
-    case 256: return launch_rows<256>(ws, w1, fre, fim, rows, n2, a, r, stream);
     case 384: return launch_rows<384>(ws, w1, fre, fim, rows, n2, a, r, stream);
     case 640: return launch_rows<640>(ws, w1, fre, fim, rows, n2, a, r, stream);
     default: return launch_rows<896>(ws, w1, fre, fim, rows, n2, a, r, stream);

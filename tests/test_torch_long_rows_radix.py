@@ -4,10 +4,11 @@ planned FFT length.
 
 K3's long rows run the steps of ``csrc/ct_fft.cuh`` on a row of n = n1·n2
 samples, n1 = 128, 256, 384, 640 or 896. :func:`k3_long_schedule` replays
-them in the two-pass form of the workspace design that PR 11 built (the
-per-value arithmetic every long design keeps; the cluster design of
-``csrc/fft_rows_ct_cluster.cu`` that replaced it is replayed against this
-one, value for value, by ``tests/test_torch_cluster_fft.py``):
+them in the two-pass form of the workspace design (``csrc/
+fft_rows_ct_long.cu``, which runs n1 = 384, 640, 896; its per-value
+arithmetic is every long design's, and the cluster design of
+``csrc/fft_rows_ct_cluster.cu``, n1 = 128, 256, is replayed against it,
+value for value, by ``tests/test_torch_cluster_fft.py``):
 
 - column pass: a tile of ``cols`` columns p (32, or 16 for n2 > 512),
   ``tile[q][p] = x[q·n1 + p0 + p]``, step A on it with W_128^e read as
