@@ -115,13 +115,42 @@ per source, in parallel, sm_90a), then:
     block_len 57344 on the default, two-kernel, mega and combined-topk
     routes, card vs CPU; and 4 flagship blocks at full width, 128 ch × 8
     buoys × 57344 uint8 IQ, max_lag 600, on the default route: ms/block,
-    launches by design and a per-stage split.
+    launches by design and a per-stage split;
+21. the complex-IQ step (``TDOAPipeline.step``) on the phase-4 scene, card
+    vs CPU: the fix within 50 m and within 0.5 m of the CPU's, lags within
+    1e-3 samples, the detections' bins and valid flags equal, their power
+    within 1e-3 dB and the noise floors within 1e-4 dB, K7 launched once
+    (the detection spectrum); then the
+    multi-dwell complex step on the phase-11 ELT scene: the fix within
+    500 m and within 1 m of the CPU's, K7 once (the dwell PSD);
+22. the complex step at full width — 4 blocks of 128 channels × 8 buoys ×
+    16384 uint8 IQ at 2.4 MS/s, max_lag 512 — through ``step_uint8``:
+    ms/block, IQ samples/s, the ratio to real time, peak device memory,
+    K7 launches a block and a per-stage split (decode, psd, detect,
+    spectra, pair corr, lag peaks, solve); and K7 through the complex
+    ``fft`` wrapper (planes split, spectrum joined) on the decoded block 0,
+    [1024, 16384], against the plain four-step within 1e-4 of each row's
+    max |X|, with its time, the plain version's and ``torch.fft.fft``'s;
+23. ``StreamingTDOA`` on the simulated stream of
+    ``tests/test_streaming_tdoa.py``, card vs CPU on the emitter's
+    subchannel (lags within 1e-3 subchannel samples, the fix within 0.5 m
+    and within 600 m of the emitter), and 64 blocks of its default
+    configuration (8 buoys × 16 subchannels × 16384 samples) through
+    ``scan``: ms/block beside the block's real time; and
+    ``TDoAEngine.process_signal_detections`` on a simulated group (4 OKC
+    buoys, 16384-sample snippets at 2.4 MS/s), card vs CPU: the same
+    measurements within 1 ns, the fix within 1 m. These two paths reach
+    no kernel: their 5-smooth FFT lengths (1080 for the default stream's
+    subchannels, 16875 for the engine's snippets) take the matmul
+    four-step.
 
 Each kernel's entry in the ``kernels`` line carries its sources (K1 and
 K3 with their long-row files, K7 with its cluster design's, K8 with its
 long design's), the long rows' numbers (K1, K3, K4; K7's
 ``cluster_rows``), phase 20's (``mixed_rows`` of K1, K2, K3, K5; K8's
-``long_rows``; ``topk`` of K1 and K4), its
+``long_rows``; ``topk`` of K1 and K4), phase 22's (K7's
+``launches_complex_step``, its launches a block, and ``complex_step_rows``,
+the complex wrapper's check and times), its
 time and its
 plain version's at the main path's shapes (K2's error is the largest of
 its PHAT modes; "cc" windows are unwhitened, so their errors are in other
@@ -335,8 +364,9 @@ def main() -> int:
     import torch
     import torch.nn.functional as F
 
-    from radio_mapper_tpu_torch import device, sim, testing
+    from radio_mapper_tpu_torch import device, geo, sim, testing
     from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
+    from radio_mapper_tpu_torch.models.streaming_tdoa import StreamingTDOA, StreamingTDOAConfig
     from radio_mapper_tpu_torch.models.wideband import WidebandConfig, WidebandTDOAPipeline
     from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat, iq, split_complex
     from radio_mapper_tpu_torch.ops import fft as fft_ops
@@ -344,7 +374,8 @@ def main() -> int:
     from radio_mapper_tpu_torch.ops.cuda import (
         build, channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair,
     )
-    from radio_mapper_tpu_torch.runtime import buoy_detect
+    from radio_mapper_tpu_torch.runtime import buoy_detect, datamodel
+    from radio_mapper_tpu_torch.runtime.tdoa_engine import TDoAEngine
 
     # every kernel's launch counter, by the name of its wrapper
     counters = {
@@ -1602,6 +1633,215 @@ def main() -> int:
     )
     del mraw, mout, mre, mim
 
+    # ---- phase 21: the complex step (TDOAPipeline.step) on the phase-4 scene, card vs CPU
+    cscen = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8)
+    ccap = sim.synthesize(cscen)
+    ccfg = PipelineConfig(num_buoys=4, block_len=cscen.block_len, sample_rate_hz=cscen.sample_rate_hz,
+                          max_lag=600, power_offset_db=40.0)
+    chost = [torch.from_numpy(ccap.iq.astype(np.complex64)), torch.from_numpy(ccap.buoy_enu.astype(np.float32))]
+    zero_counts()
+    on_card = TDOAPipeline(ccfg, device=dev).step(*(a.to(dev) for a in chost))
+    torch.cuda.synchronize()
+    c21 = {k: v for k, v in launch_counts().items() if v}
+    on_cpu = TDOAPipeline(ccfg, device="cpu").step(*chost)
+    pos = on_card.fix.position_enu.cpu().numpy()
+    err_m = float(np.linalg.norm(pos[:2] - ccap.emitter_enu[0][:2]))
+    fix_gap = float(np.abs(pos - on_cpu.fix.position_enu.numpy()).max())
+    lag_gap = (on_card.correlation.lag_samples.cpu() - on_cpu.correlation.lag_samples).abs().max().item()
+    pk_card, pk_cpu = on_card.peaks, on_cpu.peaks
+    same_peaks = bool((pk_card.bin_index.cpu() == pk_cpu.bin_index).all()
+                      and (pk_card.valid.cpu() == pk_cpu.valid).all())
+    pdb_gap = (pk_card.power_db.cpu() - pk_cpu.power_db).abs().max().item()
+    nf_gap = (pk_card.noise_floor_db.cpu() - pk_cpu.noise_floor_db).abs().max().item()
+    print(
+        f"phase 21: complex step, scene (4 buoys, {cscen.block_len} samples, max_lag 600, pair nfft "
+        f"{fft_ops.friendly_fft_len(cscen.block_len + 600)}): fix error {err_m:.3f} m (limit 50), card vs CPU: "
+        f"lags {lag_gap:.2e} samples (tol 1e-3), fix {fix_gap:.3e} m (tol 0.5), peak bins and valid equal "
+        f"{same_peaks} ({int(pk_cpu.valid.sum())} valid), peak power {pdb_gap:.2e} dB (tol 1e-3), noise floor "
+        f"{nf_gap:.2e} dB (tol 1e-4), launches {c21} {tag}"
+    )
+    _require(err_m < 50.0, f"complex step fix error {err_m} m")
+    _require(lag_gap <= 1e-3 and fix_gap <= 0.5, "complex step: card and CPU disagree on the lags or the fix")
+    _require(same_peaks and bool(pk_cpu.valid.any()) and pdb_gap <= 1e-3 and nf_gap <= 1e-4,
+             "complex step: card and CPU disagree on the detections")
+    _require(c21 == {"fft_rows": 1}, f"complex step launches {c21} (K7 for the detection spectrum)")
+    # the multi-dwell complex step on the phase-11 ELT scene
+    elt_iq = torch.complex(elt_host[0], elt_host[1])
+    zero_counts()
+    on_card = TDOAPipeline(ecfg, device=dev).step(elt_iq.to(dev), elt_host[2].to(dev))
+    torch.cuda.synchronize()
+    c21e = {k: v for k, v in launch_counts().items() if v}
+    on_cpu = TDOAPipeline(ecfg, device="cpu").step(elt_iq, elt_host[2])
+    pos = on_card.fix.position_enu.cpu().numpy()
+    err_m = float(np.linalg.norm(pos[:2] - elt.emitter_enu[0][:2]))
+    fix_gap = float(np.abs(pos - on_cpu.fix.position_enu.numpy()).max())
+    lag_gap = (on_card.correlation.lag_samples.cpu() - on_cpu.correlation.lag_samples).abs().max().item()
+    print(
+        f"phase 21: complex multi-dwell step, ELT scene (8 dwells x 32768): fix error {err_m:.3f} m (limit 500), "
+        f"card vs CPU: fix {fix_gap:.3e} m (tol 1), lags {lag_gap:.3e} samples, launches {c21e} {tag}"
+    )
+    _require(err_m < 500.0 and fix_gap <= 1.0, "complex multi-dwell ELT step: fix")
+    _require(c21e == {"fft_rows": 1}, f"complex multi-dwell launches {c21e} (K7 for the dwell PSD)")
+    del elt_iq
+
+    # ---- phase 22: the complex step at full width through step_uint8
+    cblocks = 4
+    craw, canchors = pipe.example_inputs(batch=(cblocks, chans), seed=0, uint8=True)
+    canchors = canchors[0]
+    pipe.step_uint8(craw[0], canchors)  # warm-up: tables, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    t0 = time.perf_counter()
+    couts = [pipe.step_uint8(blk, canchors) for blk in craw.unbind(0)]
+    torch.cuda.synchronize()
+    cwall = time.perf_counter() - t0
+    c22 = {k: v for k, v in launch_counts().items() if v}
+    cfinite = all(torch.isfinite(x).all().item() for o in couts for x in _leaves(torch, o) if x.is_floating_point())
+    cpeak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    c_ms_block = 1e3 * cwall / cblocks
+    real_ms = 1e3 * n / fs
+    complex_k7_per_block = c22.get("fft_rows", 0) / cblocks
+    print(
+        f"phase 22: complex step, {cblocks} blocks x {chans} ch x {buoys} buoys x {n} uint8 IQ (pair nfft "
+        f"{fft_ops.friendly_fft_len(n + lag)}): {c_ms_block:.3f} ms/block (real time {real_ms:.3f}, ratio "
+        f"{c_ms_block / real_ms:.3f}), {cblocks * chans * buoys * n / cwall:.4e} IQ samples/s, peak mem "
+        f"{cpeak_gib:.2f} GiB, K7 launches {complex_k7_per_block:g} per block, launches {c22}, all finite "
+        f"{cfinite} {tag}"
+    )
+    _require(all(tuple(o.fix.position_enu.shape) == (chans, 3) for o in couts) and cfinite,
+             "complex step outputs at full width")
+    _require(c22 == {"fft_rows": cblocks}, f"complex step launches {c22}")
+    med = _stage_split(
+        torch, lambda mark: pipe.step_uint8(craw[0], canchors, on_stage=mark),
+        ["decode", "psd", "detect", "spectra", "pair_corr", "lag_peaks", "solve"],
+    )
+    print(
+        "phase 22: complex step stage split ms/block (median of 3, CUDA events): decode "
+        f"{med['decode']:.3f}, psd (K7) {med['psd']:.3f}, detect {med['detect']:.3f}, spectra (matmul four-step) "
+        f"{med['spectra']:.3f}, pair corr {med['pair_corr']:.3f}, lag peaks {med['lag_peaks']:.3f}, solve "
+        f"{med['solve']:.3f}, sum {sum(med.values()):.3f} {tag}"
+    )
+    # K7 through the complex wrapper (complex64 split into planes, the
+    # spectrum joined again) at the shape this path gives it, against the
+    # plain four-step on the same planes
+    cx = iq.decode_uint8_iq(craw[0])
+    crows = cx.numel() // n
+    k7_before = fft_natural.launch_count
+    cfft = fft_ops.fft(cx)
+    cfft_k7 = fft_natural.launch_count - k7_before
+    plain_fft = lambda: torch.complex(*fft_ops.fft_re_im_plain(cx.real.contiguous(), cx.imag.contiguous()))
+    cref = plain_fft()
+    torch.cuda.synchronize()
+    cf_abs, cf_rel = _row_rel_error((cfft.real, cfft.imag), (cref.real, cref.imag))
+    del cfft, cref
+    cf_ms = _cuda_ms(torch, lambda: fft_ops.fft(cx))
+    cf_plain_ms = _cuda_ms(torch, plain_fft)
+    cf_lib_ms = _cuda_ms(torch, lambda: torch.fft.fft(cx))
+    cf_bound = _bound(_fft_flops(crows, n), 2 * 8 * crows * n)
+    print(
+        f"phase 22: K7 through the complex fft at [{crows}, {n}] (the decoded block 0): K7 launches {cfft_k7}, "
+        f"spectra max|err| {cf_abs:.3e} (rel to row max|X| {cf_rel:.3e}, tol 1e-4) against the plain four-step; "
+        f"fft {cf_ms:.3f} ms (split, K7, join), plain {cf_plain_ms:.3f} ms, torch.fft.fft {cf_lib_ms:.3f} ms, "
+        f"bound {cf_bound[0]:.4f} ms {tag}"
+    )
+    _require(cfft_k7 == 1, f"the complex fft at [{crows}, {n}] launched K7 {cfft_k7} times")
+    _require(cf_rel <= 1e-4, f"K7 through the complex fft disagrees with the plain four-step: {cf_rel}")
+    del craw, couts, cx
+    torch.cuda.empty_cache()
+
+    # ---- phase 23: the streaming model and the central engine
+    sscen = sim.default_scenario(signal="noise", bandwidth_hz=110e3, snr_db=25.0, seed=6, block_len=32_768)
+    scap = sim.synthesize(sscen)
+    scfg = StreamingTDOAConfig(num_buoys=4, num_subchannels=8, taps_per_channel=6, sample_rate_hz=sscen.sample_rate_hz,
+                               block_len=16_384, max_lag=8, solver_iterations=25)
+    shost = [torch.from_numpy(scap.iq.astype(np.complex64).reshape(4, 2, 16_384).transpose(1, 0, 2).copy()),
+             torch.from_numpy(scap.buoy_enu.astype(np.float32))]
+    zero_counts()
+    _, s_card = StreamingTDOA(scfg, device=dev).scan(*(a.to(dev) for a in shost))
+    torch.cuda.synchronize()
+    c23s = {k: v for k, v in launch_counts().items() if v}
+    _, s_cpu = StreamingTDOA(scfg, device="cpu").scan(*shost)
+    best = int(np.argmax(s_cpu.weights[1].numpy().sum(-1)))
+    best_card = int(np.argmax(s_card.weights[1].cpu().numpy().sum(-1)))
+    pos = s_card.fixes_enu[1, best].cpu().numpy()
+    err_m = float(np.linalg.norm(pos[:2] - scap.emitter_enu[0][:2]))
+    fix_gap = float(np.abs(pos - s_cpu.fixes_enu[1, best].numpy()).max())
+    lag_gap = (s_card.lags[:, best].cpu() - s_cpu.lags[:, best]).abs().max().item()
+    print(
+        f"phase 23: streaming scene (4 buoys, 8 subchannels, 2 blocks of 16384): emitter subchannel {best} "
+        f"(card {best_card}), fix error {err_m:.3f} m (limit 600), card vs CPU there: lags {lag_gap:.2e} "
+        f"subchannel samples (tol 1e-3), fix {fix_gap:.3e} m (tol 0.5); launches {c23s} (nfft "
+        f"{fft_ops.friendly_fft_len(16_384 // 8 + 8)}: the matmul four-step) {tag}"
+    )
+    _require(best == best_card and err_m < 600.0, f"streaming fix: subchannel {best}/{best_card}, {err_m} m")
+    _require(lag_gap <= 1e-3 and fix_gap <= 0.5, "streaming: card and CPU disagree on the emitter's subchannel")
+    stream = StreamingTDOA(StreamingTDOAConfig(), device=dev)
+    sblocks, sanchors = stream.example_inputs(num_blocks=64, seed=0)
+    stream.scan(sblocks[:1], sanchors)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, sout = stream.scan(sblocks, sanchors)
+    torch.cuda.synchronize()
+    swall = time.perf_counter() - t0
+    sc = stream.config
+    s_ms_block = 1e3 * swall / 64
+    s_real_ms = 1e3 * sc.block_len / sc.sample_rate_hz
+    sfinite = all(torch.isfinite(x).all().item() for x in sout)
+    print(
+        f"phase 23: StreamingTDOA default config ({sc.num_buoys} buoys, {sc.num_subchannels} subchannels, "
+        f"{sc.block_len} samples a step), scan over 64 blocks: {s_ms_block:.3f} ms/block (real time "
+        f"{s_real_ms:.3f}, ratio {s_ms_block / s_real_ms:.3f}), {64 * sc.num_buoys * sc.block_len / swall:.4e} "
+        f"IQ samples/s, all finite {sfinite} {tag}"
+    )
+    _require(tuple(sout.fixes_enu.shape) == (64, sc.num_subchannels, 3) and sfinite, "streaming scan outputs")
+    del sblocks, sout
+
+    escen = sim.default_scenario(emitter_lat=35.47, emitter_lng=-97.51, signal="noise", bandwidth_hz=150e3,
+                                 snr_db=20.0, seed=3, sample_rate_hz=fs)
+    ecap = sim.synthesize(escen)
+    clock_ns = (80_000, -120_000, 40_000, -60_000)
+    t_ns = 1_700_000_000_000_000_000
+    group = [
+        datamodel.SignalDetection(
+            buoy_id=b.buoy_id, frequency_mhz=121.5, signal_strength_dbm=-55.0,
+            timestamp_utc="2026-08-17T00:00:00+00:00",
+            gps_timestamp_ns=t_ns + int(ecap.geometric_delays_s[k, 0] * 1e9) + clock_ns[k],
+            lat=b.lat, lng=b.lng, confidence=0.9, signal_type="emergency",
+            iq_samples=ecap.iq[k].astype(np.complex64), iq_sample_rate_hz=fs, iq_anchor_ns=t_ns + clock_ns[k],
+        )
+        for k, b in enumerate(escen.buoys)
+    ]
+
+    def engine_run(where):
+        eng = TDoAEngine(device=where)
+        for b in escen.buoys:
+            eng.register_buoy(datamodel.BuoyPosition(b.buoy_id, b.lat, b.lng, b.alt_m, 100_000))
+        return eng.process_signal_detections(group)
+
+    engine_run(dev)  # warm-up
+    zero_counts()
+    t0 = time.perf_counter()
+    e_card = engine_run(dev)
+    e_ms = 1e3 * (time.perf_counter() - t0)
+    c23e = {k: v for k, v in launch_counts().items() if v}
+    e_cpu = engine_run("cpu")
+    _require(len(e_card) == len(e_cpu) == 1 and e_card[0].method == e_cpu[0].method == "gcc-phat+lm",
+             "engine: one waveform-mode fix on each side")
+    dt_gap = max(abs(a.time_difference_ns - b.time_difference_ns)
+                 for a, b in zip(e_card[0].tdoa_measurements, e_cpu[0].tdoa_measurements))
+    gap = geo.lat_lng_to_enu_np(e_card[0].estimated_lat, e_card[0].estimated_lng, 0.0,
+                                e_cpu[0].estimated_lat, e_cpu[0].estimated_lng, 0.0)
+    err = geo.lat_lng_to_enu_np(e_card[0].estimated_lat, e_card[0].estimated_lng, 0.0, 35.47, -97.51, 0.0)
+    print(
+        f"phase 23: TDoAEngine.process_signal_detections, 4 OKC buoys, {ecap.iq.shape[1]}-sample snippets at "
+        f"{fs / 1e6:.1f} MS/s: {e_ms:.3f} ms on the card, fix error {float(np.linalg.norm(err[:2])):.3f} m, card vs "
+        f"CPU: measurements {dt_gap} ns apart (tol 1), fix {float(np.linalg.norm(gap[:2])):.3e} m (tol 1); launches "
+        f"{c23e} {tag}"
+    )
+    _require(dt_gap <= 1 and float(np.linalg.norm(gap[:2])) <= 1.0, "engine: card and CPU disagree")
+    _require(len(e_card[0].tdoa_measurements) == 6, "engine: six pair measurements")
+
     def rows_entry(shape, err, ms, plain_ms, bound, library_ms):
         return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms}
@@ -1676,13 +1916,15 @@ def main() -> int:
               _bound(_pair_flops(wp, wn, w_width), 4 * wp * wn * 4 + wp * 4 + wp * w_width * 4),
               _fft_pair_flops(wp, wn1, wn2, w_rows)),
         entry("fft_rows", "fft_natural_radix.cu", "fft_kernel.py:212",
-              k7_launches, max(v[0] for v in k7.values()), k7_main[2], k7_main[3],
+              k7_launches, max([v[0] for v in k7.values()] + [cf_abs]), k7_main[2], k7_main[3],
               _bound(_fft_flops(k7_rows, n), 2 * 8 * k7_rows * n),
               _natural_radix_flops(k7_rows, fft_natural.radix_plan(n)), k7_main[4],
               sources=[f"radio_mapper_tpu_torch/csrc/{f}" for f in ("fft_natural_radix.cu", "fft_natural_cluster.cu")],
               cluster_rows=[rows_entry(list(shape), v[0], v[2], v[3], v[5], v[4])
                             for shape, v in k7.items() if v[6] == ["cluster"]],
-              launches_block_len_32768=k7_launches32 // nblocks32),
+              launches_block_len_32768=k7_launches32 // nblocks32,
+              launches_complex_step=complex_k7_per_block,
+              complex_step_rows=[rows_entry([crows, n], cf_abs, cf_ms, cf_plain_ms, cf_bound, cf_lib_ms)]),
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
               route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft,
               sources=[f"radio_mapper_tpu_torch/csrc/{f}" for f in

@@ -1,6 +1,6 @@
 """radio_mapper_tpu_torch — the TDOA pipelines in PyTorch with CUDA kernels.
 
-A port of three slices of :mod:`radio_mapper_tpu` (JAX/Pallas on a TPU) to
+A port of slices of :mod:`radio_mapper_tpu` (JAX/Pallas on a TPU) to
 PyTorch on an NVIDIA H100, with the module layout of the JAX package, so
 each counterpart sits at the same path:
 
@@ -23,7 +23,15 @@ each counterpart sits at the same path:
   natural-order FFT (K7, :mod:`.ops.cuda.fft_natural`, routed by
   :mod:`.ops.fft`) → natural-order detection → one coherent all-pairs
   GCC over the whole capture → multi-start LM; and the buoy's detection
-  dwell (:mod:`.runtime.buoy_detect`) on the same FFT and detector.
+  dwell (:mod:`.runtime.buoy_detect`) on the same FFT and detector;
+- the complex-IQ paths: ``TDOAPipeline.step``/``step_uint8`` on complex64
+  input (the power spectrum through K7 at 16384, 32768, 65536 points →
+  natural-order detection → the complex all-pairs GCC of
+  :mod:`.ops.gcc_phat` → LM), the streaming model
+  (:mod:`.models.streaming_tdoa`: overlap-save channelizer → per-subchannel
+  GCC → LM) and the central node's TDOA engine
+  (:mod:`.runtime.tdoa_engine`: waveform and timestamp measurements →
+  multi-start LM → latitude and longitude).
 
 Each kernel is CUDA C++ under ``csrc/`` with a plain PyTorch version
 beside it. The package imports ``torch`` and numpy only; it never

@@ -28,3 +28,9 @@ DEFAULT_BLOCK_SAMPLES = 16_384
 
 # --- uint8 IQ decode offset (dongle bytes are centered at 127.5)
 UINT8_OFFSET = 127.5
+
+# --- TDOA engine defaults (the central node's grouping and solve gates)
+DEFAULT_MIN_BUOYS = 3
+DEFAULT_MAX_BASELINE_KM = 50.0
+DEFAULT_FREQ_TOLERANCE_MHZ = 0.01
+DEFAULT_CORRELATION_WINDOW_S = 10.0

@@ -1,2 +1,3 @@
-"""End-to-end models of the port: the flagship TDOA pipeline (single dwell
-and narrowband multi-dwell) and the wideband config-4 pipeline."""
+"""End-to-end models of the port: the flagship TDOA pipeline (single dwell,
+narrowband multi-dwell, complex-IQ step), the wideband config-4 pipeline
+and the streaming model."""

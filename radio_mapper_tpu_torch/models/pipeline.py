@@ -29,6 +29,14 @@ and the others, each ending in the same tail:
 "cc" runs the fused chain unwhitened; ``gcc_pair.set_phat_gate`` picks
 K2's PHAT gate (l2rx, l2, l1).
 
+The complex-IQ step (``step``/``step_uint8``, complex64 ``[..., B, K·N]``)
+is the reference's own: the power spectrum of each dwell (``ops.spectral``;
+K7 at N = 16384, 32768, 65536 on the card) → natural-order
+``detect_peaks`` (the dwell-averaged PSD when K > 1) → all-pairs GCC of
+the whole capture at the 5-smooth nfft on the capture's float32 planes
+(``ops.gcc_phat``, in chunks of channels: the multi-dwell route's pair
+stage) → the same tail.
+
 Narrowband multi-dwell (``correlation_dwells = K > 1``, inputs
 ``[..., B, K·N]``): the dwell-averaged PSD on the N-point grid (kernel K7
 at N = 16384, 32768, 65536 on the card, :mod:`.ops.fft`) → natural-order
@@ -57,10 +65,12 @@ from radio_mapper_tpu_torch.ops import detect as detect_ops
 from radio_mapper_tpu_torch.ops import fft as fft_ops
 from radio_mapper_tpu_torch.ops import gcc_phat as gcc_ops
 from radio_mapper_tpu_torch.ops import iq as iq_ops
+from radio_mapper_tpu_torch.ops import spectral
 from radio_mapper_tpu_torch.ops import split_complex as sc_ops
 from radio_mapper_tpu_torch.ops.cuda import channel_step, detect_ct
 
-# The multi-dwell pair stage runs over channels in chunks whose [P, nfft]
+# The natural-order pair stage (the complex step's and the multi-dwell
+# route's) runs over channels in chunks whose [P, nfft]
 # float32 planes hold at most this many bytes: the matmul four-step keeps
 # about a dozen such planes alive, so at the full narrowband width (128
 # channels × 28 pairs × nfft 135000, 1.9 GB a plane) device memory stays
@@ -176,6 +186,72 @@ class TDOAPipeline:
 
     # -- stages ---------------------------------------------------------
 
+    def detect(self, iq: torch.Tensor) -> detect_ops.PeakSet:
+        """Peaks of complex ``iq [..., N]`` (the reference's ``detect``)."""
+        c = self.config
+        return detect_ops.detect_signals(
+            iq,
+            sample_rate_hz=c.sample_rate_hz,
+            max_peaks=c.max_peaks,
+            power_offset_db=c.power_offset_db,
+            threshold_db=c.detection_threshold_db,
+            noise_floor_stride=c.noise_floor_stride,
+        )
+
+    def correlate(self, iq: torch.Tensor, *, on_stage: StageHook = None) -> gcc_ops.CorrelationPeak:
+        """All-pairs GCC of complex ``iq [..., B, L]`` (the reference's
+        ``correlate``: ``gcc_phat_all_pairs`` at ``friendly_fft_len(L +
+        max_lag)``), on its float32 planes by :meth:`_pair_stage`."""
+        return self._pair_stage(iq.real, iq.imag, on_stage or (lambda _name: None))
+
+    def _pair_stage(self, re: torch.Tensor, im: torch.Tensor, mark) -> gcc_ops.CorrelationPeak:
+        """All-pairs GCC of ``(re, im) [..., B, L]`` at ``friendly_fft_len(L
+        + max_lag)``, in chunks of the flattened leading dims whose float32
+        ``[P, nfft]`` planes stay under ``PAIR_PLANE_BYTES``; each chunk
+        marks "spectra", "pair_corr" and "lag_peaks"."""
+        c = self.config
+        batch = re.shape[:-2]
+        length = re.shape[-1]
+        flat = lambda a: a.reshape(-1, c.num_buoys, length)
+        nfft = fft_ops.friendly_fft_len(length + c.max_lag)
+        chunk = max(1, PAIR_PLANE_BYTES // (4 * c.num_pairs * nfft))
+        parts = []
+        for cre, cim in zip(flat(re).split(chunk), flat(im).split(chunk)):
+            fr, fi, _ = sc_ops.receiver_spectra_split(cre, cim, max_lag=c.max_lag)
+            mark("spectra")
+            mags = gcc_ops.pair_lag_mags(
+                fr, fi, self.pair_i, self.pair_j,
+                max_lag=c.max_lag, weighting=c.weighting, eps=c.gcc_eps,
+            )
+            del fr, fi
+            mark("pair_corr")
+            parts.append(gcc_ops.peaks_from_lag_mags(
+                mags, sample_rate_hz=c.sample_rate_hz, max_lag=c.max_lag
+            ))
+            mark("lag_peaks")
+        return gcc_ops.CorrelationPeak(
+            *(torch.cat(f).reshape(*batch, c.num_pairs) for f in zip(*parts))
+        )
+
+    def solve(
+        self, anchors_enu: torch.Tensor, corr: gcc_ops.CorrelationPeak, weights: torch.Tensor
+    ) -> solver.SolveResult:
+        """The LM solve of one set of pair delays (multi-start when
+        ``solver_starts > 1``)."""
+        c = self.config
+        solve = solver.solve_tdoa
+        if c.solver_starts > 1:
+            solve = functools.partial(solver.solve_tdoa_multistart, num_starts=c.solver_starts)
+        return solve(
+            anchors_enu,
+            self.pair_i,
+            self.pair_j,
+            solver.tau_to_distance_difference(corr.tau_s),
+            weights,
+            solve_2d=c.solve_2d,
+            iterations=c.solver_iterations,
+        )
+
     def pair_weights(
         self, peaks: detect_ops.PeakSet, corr: gcc_ops.CorrelationPeak
     ) -> torch.Tensor:
@@ -189,20 +265,8 @@ class TDOAPipeline:
 
     def _finish(self, peaks, corr: gcc_ops.CorrelationPeak, anchors_enu) -> PipelineOutput:
         """Shared tail: weights → solve → output."""
-        c = self.config
         weights = self.pair_weights(peaks, corr)
-        solve = solver.solve_tdoa_impl
-        if c.solver_starts > 1:
-            solve = functools.partial(solver.solve_tdoa_multistart, num_starts=c.solver_starts)
-        fix = solve(
-            anchors_enu,
-            self.pair_i,
-            self.pair_j,
-            solver.tau_to_distance_difference(corr.tau_s),
-            weights,
-            solve_2d=c.solve_2d,
-            iterations=c.solver_iterations,
-        )
+        fix = self.solve(anchors_enu, corr, weights)
         buoy_conf = torch.where(peaks.valid, peaks.confidence, 0.0).amax(dim=-1)
         return PipelineOutput(
             peaks=peaks,
@@ -213,6 +277,51 @@ class TDOAPipeline:
         )
 
     # -- full steps -----------------------------------------------------
+
+    def step(
+        self, iq: torch.Tensor, anchors_enu: torch.Tensor, *, on_stage: StageHook = None
+    ) -> PipelineOutput:
+        """Full pipeline on complex64 ``iq [..., B, K·N]`` (K =
+        ``correlation_dwells``) and anchors ``[..., B, 3]``: the reference's
+        ``step``. Detection reads each dwell's power spectrum ("psd"; the
+        dwell-averaged PSD on the N-point grid when K > 1), then
+        ``detect_peaks`` ("detect"); the pair stage correlates the whole
+        capture (:meth:`correlate`: "spectra", "pair_corr", "lag_peaks" per
+        chunk of channels); then "solve". ``on_stage`` marks change no value.
+        """
+        c = self.config
+        mark = on_stage or (lambda _name: None)
+        self._on_device(iq, anchors_enu)
+        k, n = c.correlation_dwells, c.block_len
+        if not iq.is_complex() or iq.shape[-2:] != (c.num_buoys, k * n):
+            raise ValueError(
+                f"need complex iq [..., {c.num_buoys}, {k * n}], got {iq.dtype} {tuple(iq.shape)}"
+            )
+        iq = iq.to(torch.complex64)
+        if k > 1:
+            dwell_db = spectral.power_spectrum_db(iq.reshape(*iq.shape[:-1], k, n))  # [..., B, K, N]
+            power_db = 10.0 * torch.log10((10.0 ** (dwell_db / 10.0)).mean(dim=-2) + 1e-30)
+            del dwell_db
+        else:
+            power_db = spectral.power_spectrum_db(iq)
+        power_db = power_db + c.power_offset_db
+        mark("psd")
+        peaks = self._detect_natural(power_db)
+        del power_db
+        mark("detect")
+        corr = self.correlate(iq, on_stage=mark)
+        return self._solve_marked(peaks, corr, anchors_enu, mark)
+
+    def step_uint8(
+        self, raw: torch.Tensor, anchors_enu: torch.Tensor, *, on_stage: StageHook = None
+    ) -> PipelineOutput:
+        """:meth:`step` from raw interleaved uint8 bytes ``[..., B, 2·K·N]``
+        (decoded to complex64: "decode")."""
+        self._on_device(raw)
+        iq = iq_ops.decode_uint8_iq(raw)
+        if on_stage is not None:
+            on_stage("decode")
+        return self.step(iq, anchors_enu, on_stage=on_stage)
 
     def step_split(
         self, re: torch.Tensor, im: torch.Tensor, anchors_enu: torch.Tensor,
@@ -364,27 +473,7 @@ class TDOAPipeline:
         )
         mark("detect")
 
-        batch = re.shape[:-2]
-        flat = lambda a: a.reshape(-1, c.num_buoys, k * n)
-        nfft = fft_ops.friendly_fft_len(k * n + c.max_lag)
-        chunk = max(1, PAIR_PLANE_BYTES // (4 * c.num_pairs * nfft))
-        parts = []
-        for cre, cim in zip(flat(re).split(chunk), flat(im).split(chunk)):
-            fr, fi, _ = sc_ops.receiver_spectra_split(cre, cim, max_lag=c.max_lag)
-            mark("spectra")
-            mags = sc_ops.gcc_lag_mags_split(
-                fr, fi, self.pair_i, self.pair_j,
-                max_lag=c.max_lag, weighting=c.weighting, eps=c.gcc_eps,
-            )
-            del fr, fi
-            mark("pair_corr")
-            parts.append(gcc_ops.peaks_from_lag_mags(
-                mags, sample_rate_hz=c.sample_rate_hz, max_lag=c.max_lag
-            ))
-            mark("lag_peaks")
-        corr = gcc_ops.CorrelationPeak(
-            *(torch.cat(f).reshape(*batch, c.num_pairs) for f in zip(*parts))
-        )
+        corr = self._pair_stage(re, im, mark)
         return self._solve_marked(peaks, corr, anchors_enu, mark)
 
     def step_split_uint8(

@@ -17,7 +17,8 @@ Port of ``radio_mapper_tpu/ops/detect.py``:
   buoy dwell) on a natural-order dB spectrum, with the reference's
   safe-mode semantics — the ones the TPU runs: circular sliding max,
   bisected median floor, segmented top-K with the lowest-index
-  tie-break.
+  tie-break; and ``detect_signals``, the complex power spectrum then
+  ``detect_peaks`` (the complex step's detector).
 """
 
 from __future__ import annotations
@@ -279,3 +280,18 @@ def detect_peaks(
         valid=valid,
         noise_floor_db=noise_floor,
     )
+
+
+def detect_signals(
+    iq: torch.Tensor,
+    *,
+    sample_rate_hz: float,
+    max_peaks: int = 8,
+    power_offset_db: float = 0.0,
+    **peak_kwargs,
+) -> PeakSet:
+    """Top-K peaks of complex ``iq [..., N]``: :func:`.spectral.power_spectrum_db`
+    plus ``power_offset_db`` (the calibration to the reference's raw-count
+    "dBm" scale), then :func:`detect_peaks` with ``peak_kwargs``."""
+    p = spectral.power_spectrum_db(iq) + power_offset_db
+    return detect_peaks(p, sample_rate_hz=sample_rate_hz, max_peaks=max_peaks, **peak_kwargs)

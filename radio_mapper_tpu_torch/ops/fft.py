@@ -1,10 +1,13 @@
-"""Forward FFT of split-complex rows: direct DFT, matmul four-step, kernel K7.
+"""Forward FFT of split-complex rows: direct DFT, matmul four-step, kernel K7;
+and the complex ``fft``/``ifft``/``fftshift`` on top of it.
 
 Port of ``radio_mapper_tpu/ops/fft.py``: ``dft_matrix``/``dft_direct``
 (``_dft_matrix``/``_dft_direct``), ``twiddle`` (``_twiddle``),
 ``split_length`` (``_split_length``), the recursive matmul four-step
-``fft_re_im_plain`` (``_fft_re_im``), ``friendly_fft_len`` and the entry
-point ``fft_re_im``. The reference computes the direct DFT and the
+``fft_re_im_plain`` (``_fft_re_im``), ``friendly_fft_len``, the entry
+point ``fft_re_im``, ``ifft_re_im`` (the reference's
+``split_complex.ifft_re_im``), and ``fft``, ``ifft``, ``fftshift`` on the
+plane split ``re_im``. The reference computes the direct DFT and the
 four-step with XLA dots outside any Pallas kernel, so ``torch.matmul`` on
 the same float32 tables is the port; the products are float32 unless the
 caller has enabled TF32 (``torch.backends.cuda.matmul.allow_tf32``).
@@ -19,7 +22,7 @@ every CPU tensor, takes the matmul four-step.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,3 +138,55 @@ def fft_re_im(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     if route(re.shape[-1], re.device) == "k7":
         return fft_natural.fft_rows(re.contiguous(), im.contiguous())
     return fft_re_im_plain(re, im)
+
+
+def re_im(x: torch.Tensor, n: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Contiguous float32 ``(re, im)`` planes of complex ``x [..., N]``,
+    zero-padded or cut to ``n`` points."""
+    re, im = x.real.to(torch.float32), x.imag.to(torch.float32)
+    if n is None or n == x.shape[-1]:
+        return re.contiguous(), im.contiguous()
+    if n < x.shape[-1]:
+        return re[..., :n].contiguous(), im[..., :n].contiguous()
+    pad = lambda a: torch.nn.functional.pad(a, (0, n - x.shape[-1]))
+    return pad(re), pad(im)
+
+
+def ifft_re_im(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split-representation inverse FFT over the last axis by the
+    conjugation identity ``conj(fft(conj(x)))/N``, as the reference computes
+    it on the TPU: the forward route (K7 where :func:`route` says so) runs
+    the inverse too."""
+    n = re.shape[-1]
+    yre, yim = fft_re_im(re, -im)
+    return yre / n, -yim / n
+
+
+def fft(x: torch.Tensor, n: Optional[int] = None, axis: int = -1) -> torch.Tensor:
+    """Complex forward FFT over one axis (zero-padded or cut to ``n``),
+    complex64 out.
+
+    The complex input is split into contiguous float32 planes (:func:`re_im`)
+    and goes through :func:`fft_re_im`, so a CUDA tensor of a length
+    :func:`route` sends to kernel K7 runs K7, and every other length (and
+    every CPU tensor) the matmul four-step. The reference's ``fft`` under
+    its default backend runs XLA's native FFT on the CPU and its matmul
+    four-step on the TPU, and reaches its Pallas kernel only under
+    ``set_backend("pallas")``; the results agree within float32 rounding.
+    """
+    if axis not in (-1, x.dim() - 1):
+        return fft(x.movedim(axis, -1), n=n).movedim(-1, axis)
+    return torch.complex(*fft_re_im(*re_im(x, n)))
+
+
+def ifft(x: torch.Tensor, n: Optional[int] = None, axis: int = -1) -> torch.Tensor:
+    """Complex inverse FFT over one axis (zero-padded or cut to ``n``) by
+    :func:`ifft_re_im`."""
+    if axis not in (-1, x.dim() - 1):
+        return ifft(x.movedim(axis, -1), n=n).movedim(-1, axis)
+    return torch.complex(*ifft_re_im(*re_im(x, n)))
+
+
+def fftshift(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Zero frequency to the centre of ``axis`` (``np.fft.fftshift``)."""
+    return torch.roll(x, x.shape[axis] // 2, dims=axis)

@@ -1,17 +1,44 @@
-"""Spectral helpers of the natural-order detection: bin frequencies and
-the −3 dB bandwidth walk.
+"""Spectral helpers of the natural-order detection: the complex power
+spectrum, bin frequencies and the −3 dB bandwidth walk.
 
-Port of ``radio_mapper_tpu/ops/spectral.py`` (``fft_frequencies_hz``,
-``estimate_bandwidth_hz`` with its safe-mode branch — the one the TPU
-runs: a boxcar built from rolls and a gather-free walk).
+Port of ``radio_mapper_tpu/ops/spectral.py`` (``power_spectrum_db``,
+``fft_frequencies_hz``, ``estimate_bandwidth_hz`` with its safe-mode
+branch — the one the TPU runs: a boxcar built from rolls and a
+gather-free walk).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
+from radio_mapper_tpu_torch.ops import fft as fft_ops
 from radio_mapper_tpu_torch.ops import safe
+from radio_mapper_tpu_torch.ops.windows import get_window
+
+DB_EPS = 1e-12
+
+
+def power_spectrum_db(
+    iq: torch.Tensor,
+    *,
+    window: Optional[str] = None,
+    nfft: Optional[int] = None,
+    shift: bool = False,
+) -> torch.Tensor:
+    """``20·log10(|FFT(iq)| + 1e-12)`` over the last axis of complex
+    ``[..., N]``, optionally windowed, zero-padded or cut to ``nfft``, and
+    fftshifted. The transform is :func:`.fft.fft`: kernel K7 on the card
+    at 16384, 32768 and 65536 points."""
+    n = iq.shape[-1]
+    if window is not None:
+        iq = iq * torch.from_numpy(get_window(window, n)).to(iq.device)
+    x = fft_ops.fft(iq, n=nfft)
+    if shift:
+        x = fft_ops.fftshift(x)
+    return 20.0 * torch.log10(x.abs() + DB_EPS)
 
 
 def fft_frequencies_hz(n: int, sample_rate_hz: float) -> np.ndarray:

@@ -13,11 +13,13 @@ Port of ``radio_mapper_tpu/ops/split_complex.py``:
   un-permute, not a second FFT) and ``gcc_phat_all_pairs_split_fused``
   (kernel K2 on CT-order spectra), with the route knob
   ``set_gcc_fused``/``gcc_fused_enabled``;
-- ``power_spectrum_db_split``, ``receiver_spectra_split``, ``ifft_re_im``
-  and ``gcc_phat_all_pairs_split``: the natural-order chain of the
+- ``power_spectrum_db_split``, ``receiver_spectra_split``, ``ifft_re_im``,
+  ``gcc_phat_all_pairs_split``, and the pairwise ``cross_correlate_split``
+  and ``gcc_phat_split`` (``CorrelationPeakSC``): the natural-order chain of the
   multi-dwell route, on :func:`.fft.fft_re_im` (kernel K7 for the
-  lengths it routes there, the matmul four-step otherwise). Its whitening
-  is the textbook ``|.| + eps·max|.|`` gate per pair, not the fused
+  lengths it routes there, the matmul four-step otherwise). Its weighting
+  is :func:`.gcc_phat.weighted_lag_window`, the complex GCC's own body:
+  the textbook ``|.| + eps·max|.|`` gate per pair, not the fused
   kernels' l2rx gate.
 """
 
@@ -32,7 +34,7 @@ from radio_mapper_tpu_torch.ops import channelizer, ct_plan, gcc_phat
 from radio_mapper_tpu_torch.ops import fft as fft_ops
 from radio_mapper_tpu_torch.ops.cuda import channel_step, fft_detect, fft_rows, gcc_pair
 
-WEIGHTINGS = ("cc", "phat", "scot", "roth")
+WEIGHTINGS = gcc_phat.WEIGHTINGS
 
 # Route of the single-dwell pair stage: the fused CT-order chain (K1/K3 →
 # K2, or K8) for the weightings kernel K2 takes, or the natural-order
@@ -53,6 +55,10 @@ def gcc_fused_enabled(min_len: int, weighting: str) -> bool:
     if _GCC_FUSED == "off":
         return False
     return weighting in gcc_pair.WEIGHTINGS and ct_plan.ct_supported(ct_plan.plan_nfft(min_len))
+
+
+# The reference's name for the split GCC's peak tuple: the same fields.
+CorrelationPeakSC = gcc_phat.CorrelationPeak
 
 
 def planned_ct_nfft(min_len: int) -> int:
@@ -78,27 +84,9 @@ def channelize_split(
     axis by M/2 so offsets increase from −fs/2. ``sample_rate_hz`` is
     kept for the reference's signature; the output does not depend on it.
     """
-    m, t = num_channels, taps_per_channel
-    n = re.shape[-1]
-    if n % m != 0:
-        raise ValueError(f"block length {n} must be a multiple of num_channels {m}")
-    num_cols = n // m
-    num_frames = num_cols - t + 1
-    if num_frames <= 0:
-        raise ValueError(f"need at least {m * t} samples, got {n}")
-    h = channelizer.prototype_filter_on(m, t, re.device)
-
-    def filter_part(x):
-        cols = x.reshape(*x.shape[:-1], num_cols, m)
-        return channelizer.polyphase_filter_apply(cols, h, num_frames)
-
-    cre, cim = fft_ops.fft_re_im(filter_part(re), filter_part(im))  # branch DFT over M
-    cre = cre.movedim(-1, -2)
-    cim = cim.movedim(-1, -2)
-    if shift:
-        cre = torch.roll(cre, m // 2, dims=-2)
-        cim = torch.roll(cim, m // 2, dims=-2)
-    return cre, cim
+    return channelizer.channelize_parts(
+        re, im, num_channels, taps_per_channel=taps_per_channel, shift=shift
+    )
 
 
 def pad_ct(
@@ -230,11 +218,8 @@ def power_spectrum_db_split(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     return 10.0 * torch.log10(fre * fre + fim * fim + 1e-24)
 
 
-def ifft_re_im(re: torch.Tensor, im: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Inverse DFT over the last axis by the conjugation identity."""
-    n = re.shape[-1]
-    yre, yim = fft_ops.fft_re_im(re, -im)
-    return yre / n, -yim / n
+# the inverse by the conjugation identity, shared with the complex path
+ifft_re_im = fft_ops.ifft_re_im
 
 
 def receiver_spectra_split(
@@ -253,45 +238,47 @@ def receiver_spectra_split(
     return fr, fi, nfft
 
 
-def gcc_lag_mags_split(
-    fr: torch.Tensor,
-    fi: torch.Tensor,
-    pair_i: torch.Tensor,
-    pair_j: torch.Tensor,
+# |r| of every pair from natural-order spectra: the one weighting body of
+# the complex and the split GCC (R = X_i·conj(X_j), the phat/scot/roth/cc
+# gate, the inverse transform, the lag window)
+gcc_lag_mags_split = gcc_phat.pair_lag_mags
+
+
+def cross_correlate_split(
+    xre: torch.Tensor, xim: torch.Tensor, yre: torch.Tensor, yim: torch.Tensor,
     *,
     max_lag: int,
     weighting: str = "phat",
     eps: float = 0.05,
-) -> torch.Tensor:
-    """|r| over lags −max_lag..max_lag for every pair, ``[..., P, 2L+1]``,
-    from natural-order receiver spectra ``fr/fi [..., B, nfft]``.
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Split-complex :func:`.gcc_phat.cross_correlate`: ``(re, im)`` of the
+    GCC of x and y ``[..., N]`` at lags −max_lag..+max_lag, both padded to
+    ``friendly_fft_len(N + max_lag)``."""
+    n = xre.shape[-1]
+    if max_lag >= n:
+        raise ValueError(f"max_lag {max_lag} must be < block length {n}")
+    nfft = fft_ops.friendly_fft_len(n + max_lag)
+    pad = lambda a: F.pad(a.to(torch.float32), (0, nfft - n))
+    xfr, xfi = fft_ops.fft_re_im(pad(xre), pad(xim))
+    yfr, yfi = fft_ops.fft_re_im(pad(yre), pad(yim))
+    return gcc_phat.weighted_lag_window(xfr, xfi, yfr, yfi, max_lag=max_lag, weighting=weighting, eps=eps)
 
-    R = X_i·conj(X_j), weighted by 1/(D + eps·max D + 1e-30) with D = |R|
-    ("phat"), √(|X_i|²|X_j|²) ("scot"), |X_i|² ("roth"), or unweighted
-    ("cc"), then the inverse transform and the lag window.
-    """
-    if weighting not in WEIGHTINGS:
-        raise ValueError(f"unknown weighting {weighting!r}")
-    nfft = fr.shape[-1]
-    xfr, xfi = fr.index_select(-2, pair_i), fi.index_select(-2, pair_i)
-    yfr, yfi = fr.index_select(-2, pair_j), fi.index_select(-2, pair_j)
-    rre = xfr * yfr + xfi * yfi  # R = X · conj(Y)
-    rim = xfi * yfr - xfr * yfi
-    if weighting != "cc":
-        if weighting == "phat":
-            denom_base = torch.sqrt(rre * rre + rim * rim)
-        elif weighting == "scot":
-            denom_base = torch.sqrt((xfr * xfr + xfi * xfi) * (yfr * yfr + yfi * yfi))
-        else:  # roth
-            denom_base = xfr * xfr + xfi * xfi
-        scale = denom_base.amax(dim=-1, keepdim=True)
-        denom = denom_base + eps * scale + 1e-30
-        rre = rre / denom
-        rim = rim / denom
-    cre, cim = ifft_re_im(rre, rim)
-    take = lambda a: torch.cat([a[..., nfft - max_lag:], a[..., : max_lag + 1]], dim=-1)
-    cre, cim = take(cre), take(cim)
-    return torch.sqrt(cre * cre + cim * cim)
+
+def gcc_phat_split(
+    xre, xim, yre, yim,
+    *,
+    sample_rate_hz: float,
+    max_lag: int,
+    weighting: str = "phat",
+    eps: float = 0.05,
+    psr_exclude: int = 8,
+) -> CorrelationPeakSC:
+    """Split-complex :func:`.gcc_phat.gcc_phat`."""
+    cre, cim = cross_correlate_split(xre, xim, yre, yim, max_lag=max_lag, weighting=weighting, eps=eps)
+    return gcc_phat.peaks_from_lag_mags(
+        torch.sqrt(cre * cre + cim * cim),
+        sample_rate_hz=sample_rate_hz, max_lag=max_lag, psr_exclude=psr_exclude,
+    )
 
 
 def gcc_phat_all_pairs_split(
@@ -318,11 +305,8 @@ def gcc_phat_all_pairs_split(
             f"provided spectra (nfft={nfft}, last dim {fr.shape[-1]}) violate the "
             f"alias-free bound for block {sig_re.shape[-1]} + max_lag {max_lag}"
         )
-    i_idx, j_idx = gcc_phat.pair_indices(sig_re.shape[-2])
-    as_idx = lambda a: torch.as_tensor(a, dtype=torch.int64, device=fr.device)
-    mags = gcc_lag_mags_split(
-        fr, fi, as_idx(i_idx), as_idx(j_idx), max_lag=max_lag, weighting=weighting, eps=eps
-    )
+    pair_i, pair_j = gcc_phat.pair_index_tensors(sig_re.shape[-2], fr.device)
+    mags = gcc_lag_mags_split(fr, fi, pair_i, pair_j, max_lag=max_lag, weighting=weighting, eps=eps)
     return gcc_phat.peaks_from_lag_mags(
         mags, sample_rate_hz=sample_rate_hz, max_lag=max_lag, psr_exclude=psr_exclude
     )

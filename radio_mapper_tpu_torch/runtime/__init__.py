@@ -1,2 +1,3 @@
-"""Compute bodies of the runtime services (the services themselves stay
-in the JAX package)."""
+"""Compute bodies of the runtime services: the buoy's detection dwell and
+the central node's TDOA engine (the services around them stay in the JAX
+package)."""

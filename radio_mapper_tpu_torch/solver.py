@@ -1,8 +1,9 @@
 """Batched hyperbolic (TDOA) Levenberg-Marquardt positioning.
 
-Port of ``radio_mapper_tpu/solver.py`` (``solve_tdoa_impl`` with the
-per-receiver noise model and no pair-parallel axis; ``perturbed_starts``
-and ``solve_tdoa_multistart``). The fixed-count LM
+Port of ``radio_mapper_tpu/solver.py`` (``solve_tdoa_impl`` with both
+noise models and no pair-parallel axis, and its public name
+``solve_tdoa``; ``perturbed_starts``, ``solve_tdoa_multistart`` and
+``pair_weights_from_confidence``). The fixed-count LM
 loop is a Python loop of branchless ``torch.where`` updates — no
 ``.item()``, no host synchronisation, so on the card it only enqueues.
 
@@ -116,6 +117,7 @@ def solve_tdoa_impl(
     solve_2d: bool = True,
     iterations: int = 40,
     grad_tol: float = 1e-2,
+    noise_model: str = "receiver",
     sigma_m: Optional[torch.Tensor] = None,
     sigma_floor_m: Optional[torch.Tensor] = None,
 ) -> SolveResult:
@@ -128,12 +130,17 @@ def solve_tdoa_impl(
       weights: ``[..., P]`` non-negative weights; 0 masks a measurement.
       init_enu: ``[..., 3]`` initial guess; default the anchor centroid.
       solve_2d: freeze the Up component at its initial value.
-      sigma_m / sigma_floor_m: known per-receiver 1σ noise / its floor.
-
-    The covariance uses the per-receiver noise model (all-pairs dd
-    measurements correlated through the pair-differencing matrix A): the
-    GLS sandwich Cov = σ_r²·M⁻¹(JᵀWA)(JᵀWA)ᵀM⁻¹, σ_r² estimated without bias.
+      noise_model: ``"receiver"`` (default): noise per receiver, so the
+        all-pairs dd measurements are correlated through the
+        pair-differencing matrix A, and the covariance is the GLS sandwich
+        Cov = σ_r²·M⁻¹(JᵀWA)(JᵀWA)ᵀM⁻¹, σ_r² estimated without bias;
+        ``"pair"``: independent per-pair noise, Cov = σ_p²·M⁻¹ with σ_p² =
+        Σwr² / max(measurements − unknowns, 1).
+      sigma_m / sigma_floor_m: known 1σ noise (per receiver, or per
+        unit-weight pair) / its floor.
     """
+    if noise_model not in ("receiver", "pair"):
+        raise ValueError(f"unknown noise_model {noise_model!r}")
     dev = dd_m.device
     f32 = torch.float32
     anchors_enu = anchors_enu.to(f32)
@@ -200,25 +207,31 @@ def solve_tdoa_impl(
         m_inv = torch.stack([row0, row1, row2], dim=-2)
     else:
         m_inv = _inv3(m_u)
-    # A[p, r] = +1 at pair_i[p], −1 at pair_j[p]
-    num_receivers = anchors_enu.shape[-2]
-    a_mat = (
-        torch.nn.functional.one_hot(pair_i, num_receivers).to(f32)
-        - torch.nn.functional.one_hot(pair_j, num_receivers).to(f32)
-    )
-    g = torch.einsum("...pk,pb->...kb", jac * w.unsqueeze(-1), a_mat)
-    # unbiased σ_r²: E[Σwr²] = σ_r²·(2·wsum − tr(GᵀM⁻¹G))
-    m_inv_g = torch.einsum("...kl,...lb->...kb", m_inv, g)
-    denom = 2.0 * wsum - torch.einsum("...kb,...kb->...", g, m_inv_g)
-    sigma2 = wrr / torch.clamp(denom, min=0.25)
+    if noise_model == "receiver":
+        # A[p, r] = +1 at pair_i[p], −1 at pair_j[p]
+        num_receivers = anchors_enu.shape[-2]
+        a_mat = (
+            torch.nn.functional.one_hot(pair_i, num_receivers).to(f32)
+            - torch.nn.functional.one_hot(pair_j, num_receivers).to(f32)
+        )
+        g = torch.einsum("...pk,pb->...kb", jac * w.unsqueeze(-1), a_mat)
+        # unbiased σ_r²: E[Σwr²] = σ_r²·(2·wsum − tr(GᵀM⁻¹G))
+        m_inv_g = torch.einsum("...kl,...lb->...kb", m_inv, g)
+        denom = 2.0 * wsum - torch.einsum("...kb,...kb->...", g, m_inv_g)
+        sigma2 = wrr / torch.clamp(denom, min=0.25)
+    else:
+        n_unknowns = 2 if solve_2d else 3
+        sigma2 = wrr / torch.clamp(num_measurements.to(f32) - n_unknowns, min=1.0)
     if sigma_m is not None:
         sigma2 = torch.square(torch.as_tensor(sigma_m, dtype=f32, device=dev)).expand(sigma2.shape)
     if sigma_floor_m is not None:
         sigma2 = torch.maximum(
             sigma2, torch.square(torch.as_tensor(sigma_floor_m, dtype=f32, device=dev))
         )
-    sandwich = torch.einsum("...kb,...lb->...kl", m_inv_g, m_inv_g)
-    cov_enu = sigma2[..., None, None] * sandwich
+    if noise_model == "receiver":
+        cov_enu = sigma2[..., None, None] * torch.einsum("...kb,...lb->...kl", m_inv_g, m_inv_g)
+    else:
+        cov_enu = sigma2[..., None, None] * m_inv
     # degenerate geometry can overflow f32: clamp to a finite
     # "no information" bound (1e16 m² ⇒ 1e8 m axes)
     cov_enu = torch.clamp(
@@ -238,6 +251,10 @@ def solve_tdoa_impl(
         ellipse_minor_m=minor,
         ellipse_orientation_deg=bearing,
     )
+
+
+# The reference's public (jitted) name for the solve.
+solve_tdoa = solve_tdoa_impl
 
 
 def perturbed_starts(anchors_enu: torch.Tensor, num_starts: int, spread_m: float = 0.0) -> torch.Tensor:
@@ -299,3 +316,13 @@ def solve_tdoa_multistart(
 def tau_to_distance_difference(tau_s: torch.Tensor) -> torch.Tensor:
     """c·τ."""
     return tau_s * SPEED_OF_LIGHT_M_S
+
+
+def pair_weights_from_confidence(
+    conf_i: torch.Tensor, conf_j: torch.Tensor, timing_sigma_ns: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """min(conf_i, conf_j), times exp(−σ/100 µs) when a timing 1σ is given."""
+    conf = torch.minimum(conf_i, conf_j)
+    if timing_sigma_ns is not None:
+        conf = conf * torch.exp(-torch.as_tensor(timing_sigma_ns, device=conf.device) / 100_000.0)
+    return conf

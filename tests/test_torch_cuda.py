@@ -41,7 +41,10 @@ as its plain version is against JAX:
 - K7 spectra within 1e-4 of the row's max |X|, in natural order;
 - pipelines on the card vs the CPU: lags within 1e-3 samples, fixes
   within 0.5 m (the narrowband ELT scene: 1e-2 samples and 1 m, see its
-  test); the buoy dwell's peaks and bandwidths exactly.
+  test); the buoy dwell's peaks and bandwidths exactly;
+- the complex ``fft``/``ifft`` through K7 vs the plain four-step within
+  1e-4 of the row's max |X|, the complex ``step`` and ``StreamingTDOA``
+  (the emitter's subchannel) on the card vs the CPU (``-k complex``).
 """
 
 import numpy as np
@@ -835,3 +838,73 @@ def test_buoy_dwell_on_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(peaks.valid.cpu().numpy(), cpu_peaks.valid.numpy())
     np.testing.assert_allclose(peaks.power_db.cpu().numpy(), cpu_peaks.power_db.numpy(), atol=1e-3, rtol=0)
     np.testing.assert_array_equal(bw.cpu().numpy(), cpu_bw.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n", [(6, 16384), (3, 32768)])
+def test_complex_fft_ifft_through_k7_match_plain(cuda_device, rows, n):
+    """The complex ``fft`` and ``ifft`` at lengths routed to K7 split the
+    complex64 rows into contiguous planes, launch K7 once each and agree
+    with the plain four-step on the same card tensors."""
+    from radio_mapper_tpu_torch.ops import fft as fft_ops
+
+    re, im = tone_rows(rows, n, 17)
+    x = torch.complex(torch.from_numpy(re), torch.from_numpy(im)).to(cuda_device)
+    assert fft_ops.route(n, x.device) == "k7"
+    before = fft_natural.launch_count
+    y = fft_ops.fft(x)
+    back = fft_ops.ifft(y)
+    torch.cuda.synchronize()
+    assert fft_natural.launch_count == before + 2
+    assert y.dtype == torch.complex64 and y.shape == x.shape
+    ref = fft_ops.fft_re_im_plain(x.real.contiguous(), x.imag.contiguous())
+    assert_spectra_close([y.real.cpu(), y.imag.cpu()], [r.cpu() for r in ref])
+    assert_spectra_close([back.real.cpu(), back.imag.cpu()], [x.real.cpu(), x.imag.cpu()])
+
+
+@pytest.mark.cuda
+def test_complex_step_on_card_matches_cpu(cuda_device):
+    """The library-surface scene (4 buoys, 16384 samples, max_lag 600)
+    through the complex ``step``: K7 runs the detection spectrum; lags
+    within 1e-3 samples, the fix within 0.5 m of the CPU's and 50 m of the
+    emitter."""
+    cap = sim.synthesize(sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8))
+    cfg = PipelineConfig(num_buoys=4, block_len=cap.scenario.block_len, sample_rate_hz=cap.scenario.sample_rate_hz,
+                         max_lag=600, power_offset_db=40.0)
+    host = [torch.from_numpy(cap.iq.astype(np.complex64)), torch.from_numpy(cap.buoy_enu.astype(np.float32))]
+    cpu = TDOAPipeline(cfg, device="cpu").step(*host)
+    before = fft_natural.launch_count
+    gpu = TDOAPipeline(cfg, device=cuda_device).step(*(a.to(cuda_device) for a in host))
+    torch.cuda.synchronize()
+    assert fft_natural.launch_count == before + 1
+    np.testing.assert_array_equal(gpu.peaks.bin_index.cpu().numpy(), cpu.peaks.bin_index.numpy())
+    np.testing.assert_allclose(
+        gpu.correlation.lag_samples.cpu().numpy(), cpu.correlation.lag_samples.numpy(), atol=1e-3
+    )
+    pos = gpu.fix.position_enu.cpu().numpy()
+    np.testing.assert_allclose(pos, cpu.fix.position_enu.numpy(), atol=0.5)
+    assert np.linalg.norm(pos[:2] - cap.emitter_enu[0][:2]) < 50.0
+
+
+@pytest.mark.cuda
+def test_complex_streaming_on_card_matches_cpu(cuda_device):
+    """``tests/test_streaming_tdoa.py``'s scene through ``StreamingTDOA.scan``
+    (4 buoys, 8 subchannels × 6 taps, two 16384-sample blocks): the
+    emitter's subchannel within 1e-3 subchannel samples and 0.5 m of the
+    CPU's, and within 600 m of the emitter."""
+    from radio_mapper_tpu_torch.models.streaming_tdoa import StreamingTDOA, StreamingTDOAConfig
+
+    scen = sim.default_scenario(signal="noise", bandwidth_hz=110e3, snr_db=25.0, seed=6, block_len=32_768)
+    cap = sim.synthesize(scen)
+    cfg = StreamingTDOAConfig(num_buoys=4, num_subchannels=8, taps_per_channel=6, sample_rate_hz=scen.sample_rate_hz,
+                              block_len=16_384, max_lag=8, solver_iterations=25)
+    host = [torch.from_numpy(cap.iq.astype(np.complex64).reshape(4, 2, 16_384).transpose(1, 0, 2).copy()),
+            torch.from_numpy(cap.buoy_enu.astype(np.float32))]
+    _, cpu = StreamingTDOA(cfg, device="cpu").scan(*host)
+    _, gpu = StreamingTDOA(cfg, device=cuda_device).scan(*(a.to(cuda_device) for a in host))
+    best = int(np.argmax(cpu.weights[1].numpy().sum(-1)))
+    assert best == int(np.argmax(gpu.weights[1].cpu().numpy().sum(-1)))
+    np.testing.assert_allclose(gpu.lags[:, best].cpu().numpy(), cpu.lags[:, best].numpy(), atol=1e-3)
+    pos = gpu.fixes_enu[1, best].cpu().numpy()
+    np.testing.assert_allclose(pos, cpu.fixes_enu[1, best].numpy(), atol=0.5)
+    assert np.linalg.norm(pos[:2] - cap.emitter_enu[0][:2]) < 600.0
