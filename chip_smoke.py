@@ -143,6 +143,31 @@ per source, in parallel, sm_90a), then:
     no kernel: their 5-smooth FFT lengths (1080 for the default stream's
     subchannels, 16875 for the engine's snippets) take the matmul
     four-step.
+24. the multi-device layer (``radio_mapper_tpu_torch/parallel``), phases
+    24-26 each at world size 1 (one rank, NCCL) and 2 (two ranks on the
+    one card over gloo: a functional check, not a multi-card measurement),
+    each rank a process started by ``parallel.launch.run_ranks``: the
+    pair-parallel (EP) step at ``PairEPConfig()`` (64 buoys, 2016 pairs,
+    block 4096 at 2.048 MS/s, max_lag 256, nfft 5120: K3, then K5 on the
+    rank's pair slice) on a simulated 8 × 8 grid of buoys, against CPU
+    ranks running the same algorithm on the plain versions (fix within
+    0.5 m, lags within 1e-3 samples), world size 2 against 1, every rank
+    holding the same fix; ms/block, pair correlations/s, launches, the
+    all_gather and all_reduce times from CUDA events, peak memory; then
+    256 buoys (32640 pairs, K6) at world size 2; K5 and K6 held against
+    their plain versions on a rank's pair slice;
+25. BASELINE config 5 through ``build_sharded_step_split``: 256 channels ×
+    8 buoys × 32768 samples a step at 2.4 MS/s, 16 subchannels × 4 taps,
+    max_lag 32, on a (1, 1) mesh (nfft 3072) and a (1, 2) mesh (a halo
+    exchange, nfft 2048): ms/step against the 13.653 ms budget, peak
+    memory, K3 and K2 launches; each rank's frames equal bit for bit to
+    the one-rank channelizer on the rank's span of the stream (the halo
+    checked) and within 1e-6 of the largest frame of the one-rank
+    channelizer on the whole stream; K3 and K2 held on the rank's block;
+26. the sharded wideband step (``build_wideband_sharded_step``) at config 4
+    (``WidebandConfig()``): ms/block, launches, rank 0's outputs against
+    the one-device ``step_split`` on the same block (phase 9's), K3 and
+    K5 held on the rank's subchannels.
 
 Each kernel's entry in the ``kernels`` line carries its sources (K1 and
 K3 with their long-row files, K7 with its cluster design's, K8 with its
@@ -166,7 +191,11 @@ warp FFT and window fold for K2, K5, K6 and K8's pair half), and, where
 one PyTorch call computes the same
 function, that call's time (``library_ms``:
 ``torch.fft.fft`` for K7, plus the CT permutation by index for K3; null
-for the others, which no single call computes).
+for the others, which no single call computes). Every entry also carries
+``parallel``: its launches on each path of phases 24-26, by path, world
+size and rank (each counted in its rank from 0 just before that path's
+step), and its checks against the plain version inside the ranks
+(``rank_rows``, with times and bounds).
 
 Any failed check raises, so the run exits non-zero and prints no result
 line. The last two lines are a JSON object describing the kernels and,
@@ -359,6 +388,459 @@ def _partials_errors(torch, out, ref, fr, fi):
     )
 
 
+def _kernel_counters():
+    """Every kernel's launch counter, by the name of its wrapper:
+    ``{name: (module, attribute)}``."""
+    from radio_mapper_tpu_torch.ops.cuda import (
+        channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair,
+    )
+
+    return {
+        "fft_detect_rows_ct": (fft_detect, "launch_count"),
+        "gcc_pair_lag_mags": (gcc_pair, "launch_count"),
+        "fft_rows_ct": (fft_rows, "launch_count"),
+        "detect_ct_partials": (detect_ct, "launch_count"),
+        "gcc_pairs_onehot_lag_mags": (gcc_pair, "onehot_launch_count"),
+        "gcc_rows_lag_mags": (gcc_pair, "rows_launch_count"),
+        "fft_rows": (fft_natural, "launch_count"),
+        "channel_step_partials": (channel_step, "launch_count"),
+    }
+
+
+def _zero_counts(counters):
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def _read_counts(counters):
+    return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+
+def _step_ms(torch, fn, reps):
+    """Median host milliseconds of ``fn()`` through a device synchronise,
+    after one warm-up call: a whole step with its host work."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def _path_run(torch, counters, step, args, reps):
+    """Drive one multi-rank path on this rank: a warm-up step; one step with
+    the launch counts set to 0 just before and read just after; one step
+    with the collectives' CUDA-event times recorded; ``reps`` timed steps
+    with the peak memory. Returns ``(output of the counted step, facts)``."""
+    from radio_mapper_tpu_torch.parallel import collectives
+
+    step(*args)
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    out = step(*args)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_counts(counters).items() if v}
+    with collectives.recording() as rec:
+        step(*args)
+        coll_ms, coll_calls = rec.ms(), rec.calls()
+    torch.cuda.reset_peak_memory_stats()
+    ms = _step_ms(torch, lambda: step(*args), reps)
+    return out, {"launches": launches, "coll_ms": coll_ms, "coll_calls": coll_calls, "ms": ms,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _held(torch, name, kernel, plain, shape, window, bound):
+    """``kernel()`` against ``plain()`` on this rank's tensors: errors
+    (spectra: rel to each row's max |X|; windows: rel to each window's
+    max, with the argmax compared), the kernel's and the plain version's
+    CUDA-event times, and the ``bound`` (:func:`_bound`) of the call."""
+    k, p = kernel(), plain()
+    torch.cuda.synchronize()
+    if window:
+        err, rel = _window_errors(k, p)
+        same = bool((k.argmax(-1) == p.argmax(-1)).all())
+    else:
+        err, rel = _row_rel_error(k, p)
+        same = True
+    del k, p
+    return {"name": name, "shape": shape, "max_abs_err": err, "rel_err": rel, "same_argmax": same,
+            "ms": _cuda_ms(torch, kernel), "plain_ms": _cuda_ms(torch, plain, reps=3),
+            "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def _ep_rank(ctx, cases, reps, measure=True):
+    """Phase 24 on one rank: the EP step of each case (name, config,
+    global re, im, anchors). With ``measure`` (the card's ranks): the
+    path's launches, collective times, ms/block, peak memory, and K5 or K6
+    held against its plain version on this rank's pair slice; without (the
+    CPU ranks, the fused route forced on: the plain versions of the card's
+    algorithm), the outputs only."""
+    import numpy as np
+    import torch
+
+    from radio_mapper_tpu_torch.ops import split_complex
+    from radio_mapper_tpu_torch.ops.cuda import gcc_pair
+    from radio_mapper_tpu_torch.parallel import mesh as mesh_lib
+    from radio_mapper_tpu_torch.parallel.pair_ep import OUT_SPEC, build_pair_ep_step
+
+    counters = _kernel_counters()
+    mesh = mesh_lib.make_mesh((ctx.world_size,), ("pair",), device=ctx.device.type)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(ctx.device)
+    res = {}
+    for name, cfg, re, im, anchors in cases:
+        prev = split_complex.gcc_fused_mode()
+        if ctx.device.type == "cpu":  # the card's route, on the plain versions
+            split_complex.set_gcc_fused("on")
+        try:
+            step, specs, _ = build_pair_ep_step(mesh, cfg)
+        finally:
+            split_complex.set_gcc_fused(prev)
+        args = [to(mesh_lib.local_block(a, mesh, s)) for a, s in zip((re, im, anchors), specs)]
+        r = {}
+        if measure:
+            out, r = _path_run(torch, counters, step, args, reps)
+            fr, fi = step.spectra(*args[:2])
+            kw = dict(max_lag=cfg.max_lag, eps=cfg.gcc_eps, weighting=cfg.weighting, s2=step.gate_scales(fr, fi))
+            p_loc, (b, nfft), width = len(step.pair_i), fr.shape, 2 * cfg.max_lag + 1
+            flops = _pair_flops(p_loc, nfft, width)
+            if step.onehot():
+                k = lambda: gcc_pair.gcc_pairs_onehot_lag_mags(fr, fi, step.pair_i, step.pair_j, **kw)
+                p = lambda: gcc_pair.gcc_pairs_onehot_lag_mags_plain(fr, fi, step.pair_i, step.pair_j, **kw)
+                bound = _bound(flops, b * nfft * 8 + p_loc * 4 + p_loc * width * 4)
+                r["held"] = _held(torch, "gcc_pairs_onehot_lag_mags", k, p, [b, nfft, p_loc], True, bound)
+            else:
+                rows = step.gathered_pairs(fr, fi)
+                k = lambda: gcc_pair.gcc_rows_lag_mags(*rows, **kw)
+                p = lambda: gcc_pair.gcc_rows_lag_mags_plain(*rows, **kw)
+                bound = _bound(flops, 4 * p_loc * nfft * 4 + p_loc * 4 + p_loc * width * 4)
+                r["held"] = _held(torch, "gcc_rows_lag_mags", k, p, list(rows[0].shape), True, bound)
+            r["nfft"] = fr.shape[-1]
+            del fr, fi
+        else:
+            out = step(*args)
+        r["fix"], r["cost"] = out.fix_enu, out.cost
+        r["lags"] = mesh_lib.gather_global(out.lags, mesh, OUT_SPEC.lags)
+        r["weights"] = mesh_lib.gather_global(out.weights, mesh, OUT_SPEC.weights)
+        r["pairs"] = step.num_real_pairs
+        res[name] = r
+        if measure:
+            torch.cuda.empty_cache()
+    return res
+
+
+def _config5_rank(ctx, reps):
+    """Phase 25 on one rank: ``build_sharded_step_split`` at BASELINE
+    config 5 (256 ch × 8 buoys × 32768 samples a step at 2.4 MS/s, 16
+    subchannels × 4 taps, max_lag 32) on a (1, world) ("ch", "blk") mesh;
+    the rank's channelized frames against the one-rank channelizer on its
+    span of the stream (the history read from the stream, not exchanged),
+    bit for bit, and against the one-rank channelizer on the whole stream;
+    K3 and K2 held against their plain versions on the rank's block."""
+    import numpy as np
+    import torch
+
+    from radio_mapper_tpu_torch.ops import gcc_phat, split_complex
+    from radio_mapper_tpu_torch.ops.cuda import fft_rows, gcc_pair
+    from radio_mapper_tpu_torch.parallel import mesh as mesh_lib
+    from radio_mapper_tpu_torch.parallel import sharded
+
+    cfg = sharded.ShardedStepConfig(
+        num_channels=256, num_buoys=8, num_subchannels=16, taps_per_channel=4,
+        sample_rate_hz=2_400_000.0, max_lag=32,
+    )
+    n_step = 32_768
+    mesh = mesh_lib.make_mesh((1, ctx.world_size), device="cuda")
+    blk = mesh_lib.axis(mesh, "blk")
+    step, _ = sharded.build_sharded_step_split(mesh, cfg)
+    args = sharded.example_inputs_split(mesh, cfg, samples_per_shard=n_step // ctx.world_size)
+    out, r = _path_run(torch, _kernel_counters(), step, args, reps)
+    fixes = mesh_lib.gather_global(out.fixes_enu, mesh, sharded.OUT_SPEC)
+    r["fix_shape"] = list(fixes.shape)
+    r["finite"] = all(bool(torch.isfinite(x).all()) for x in out)
+
+    # the rank's frames against the one-rank channelizer: on the rank's
+    # span of the stream (its history read from the stream: the halo
+    # exchange checked bit for bit), and on the whole stream
+    ch_re, ch_im = sharded.sharded_channelize_split(args[0], args[1], cfg, blk)
+    (g_re, g_im), _ = sharded.global_inputs(cfg, n_step, 0, split=True)
+    hist = (cfg.taps_per_channel - 1) * cfg.num_subchannels
+    n_l = n_step // blk.size
+    padded = lambda g: torch.cat([torch.zeros(*g.shape[:-1], hist), torch.from_numpy(g)], -1).to(ctx.device)
+    one = lambda a, b: split_complex.channelize_split(
+        a, b, cfg.num_subchannels, sample_rate_hz=cfg.sample_rate_hz, taps_per_channel=cfg.taps_per_channel,
+    )
+    g_re, g_im = padded(g_re), padded(g_im)  # sample t of the stream at hist + t
+    span = slice(blk.index * n_l, blk.index * n_l + hist + n_l)
+    span_re, span_im = one(g_re[..., span].contiguous(), g_im[..., span].contiguous())
+    r["frames_equal_span"] = bool(torch.equal(ch_re, span_re) and torch.equal(ch_im, span_im))
+    del span_re, span_im
+    one_re, one_im = one(g_re, g_im)
+    del g_re, g_im
+    f_l = ch_re.shape[-1]
+    mine = slice(blk.index * f_l, (blk.index + 1) * f_l)
+    r["frames_equal"] = bool(torch.equal(ch_re, one_re[..., mine]) and torch.equal(ch_im, one_im[..., mine]))
+    r["frames_max_err"] = max((ch_re - one_re[..., mine]).abs().max().item(),
+                              (ch_im - one_im[..., mine]).abs().max().item())
+    r["frames_max"] = max(one_re.abs().max().item(), one_im.abs().max().item())
+    del one_re, one_im
+
+    # K3, then K2, on this rank's block as the step runs them
+    xr, xi, nfft = split_complex.pad_ct(ch_re.movedim(1, 2), ch_im.movedim(1, 2), max_lag=cfg.max_lag)
+    rows = (xr.reshape(-1, nfft), xi.reshape(-1, nfft))
+    del ch_re, ch_im, xr, xi
+    r["nfft"] = nfft
+    n_rows = rows[0].shape[0]
+    r["held_k3"] = _held(torch, "fft_rows_ct", lambda: fft_rows.fft_rows_ct(*rows),
+                         lambda: fft_rows.fft_rows_ct_plain(*rows), [n_rows, nfft], False,
+                         _bound(_fft_flops(n_rows, nfft), 2 * 8 * n_rows * nfft))
+    fr, fi = (x.view(-1, cfg.num_buoys, nfft) for x in fft_rows.fft_rows_ct(*rows))
+    del rows
+    i_idx, j_idx = gcc_phat.pair_indices(cfg.num_buoys)
+    kw = dict(max_lag=cfg.max_lag, eps=0.05)
+    c, pairs, width = fr.shape[0], len(i_idx), 2 * cfg.max_lag + 1
+    r["held_k2"] = _held(torch, "gcc_pair_lag_mags", lambda: gcc_pair.gcc_pair_lag_mags(fr, fi, None, i_idx, j_idx, **kw),
+                         lambda: gcc_pair.gcc_pair_lag_mags_plain(fr, fi, None, i_idx, j_idx, **kw),
+                         list(fr.shape), True,
+                         _bound(_pair_flops(c * pairs, nfft, width), fr.numel() * 8 + c * pairs * width * 4))
+    del fr, fi
+    torch.cuda.empty_cache()
+    return r
+
+
+def _wideband_rank(ctx, reps):
+    """Phase 26 on one rank: ``build_wideband_sharded_step`` at config 4
+    (``WidebandConfig()``) over a "sub" axis of every rank, against the
+    one-device ``step_split`` on the same block (rank 0); K3 and K5 held
+    against their plain versions on the rank's subchannels."""
+    import numpy as np
+    import torch
+
+    from radio_mapper_tpu_torch.models.wideband import (
+        WidebandConfig, WidebandTDOAPipeline, build_wideband_sharded_step,
+    )
+    from radio_mapper_tpu_torch.ops import safe, split_complex
+    from radio_mapper_tpu_torch.ops.cuda import fft_rows, gcc_pair
+    from radio_mapper_tpu_torch.parallel import mesh as mesh_lib
+
+    cfg = WidebandConfig()
+    mesh = mesh_lib.make_mesh((ctx.world_size,), ("sub",), device="cuda")
+    ax = mesh_lib.axis(mesh, "sub")
+    step, _ = build_wideband_sharded_step(mesh, cfg)
+    pipe = WidebandTDOAPipeline(cfg, device=ctx.device)
+    args = pipe.example_inputs(seed=0)
+    out, r = _path_run(torch, _kernel_counters(), step, args, reps)
+    r["finite"] = all(bool(torch.isfinite(x).all()) for x in out[:4])
+    if ctx.rank == 0:
+        one = pipe.step_split(*args)
+        r["vs_one_device"] = {f: (getattr(out, f) - getattr(one, f)).abs().max().item()
+                              for f in ("fixes_enu", "cost", "lags", "weights")}
+        r["equal_one_device"] = all(torch.equal(getattr(out, f), getattr(one, f))
+                                    for f in ("fixes_enu", "cost", "lags", "weights"))
+        r["fix_rel"] = ((out.fixes_enu - one.fixes_enu).norm(dim=-1) / one.fixes_enu.norm(dim=-1)).max().item()
+        del one
+
+    # K3 and K5 on this rank's subchannels, as the step runs them
+    m_loc = cfg.num_subchannels // ax.size
+    cre, cim = split_complex.channelize_split(
+        args[0], args[1], cfg.num_subchannels, sample_rate_hz=cfg.wide_rate_hz,
+        taps_per_channel=cfg.taps_per_channel, shift=False,
+    )
+    mine = slice(ax.index * m_loc, (ax.index + 1) * m_loc)
+    xr, xi, nfft = split_complex.pad_ct(cre.movedim(-2, 0)[mine], cim.movedim(-2, 0)[mine], max_lag=cfg.max_lag)
+    rows = (xr.reshape(-1, nfft), xi.reshape(-1, nfft))
+    n_rows = rows[0].shape[0]
+    r["held_k3"] = _held(torch, "fft_rows_ct", lambda: fft_rows.fft_rows_ct(*rows),
+                         lambda: fft_rows.fft_rows_ct_plain(*rows), [n_rows, nfft], False,
+                         _bound(_fft_flops(n_rows, nfft), 2 * 8 * n_rows * nfft))
+    fr, fi = (x.view(m_loc, cfg.num_buoys, nfft) for x in fft_rows.fft_rows_ct(*rows))
+    rmax = (fr * fr + fi * fi).amax(-1)
+    s2 = safe.pair_select(rmax, pipe.pair_i) * safe.pair_select(rmax, pipe.pair_j)
+    kw = dict(max_lag=cfg.max_lag, eps=cfg.gcc_eps, s2=s2)
+    pairs, width = m_loc * cfg.num_pairs, 2 * cfg.max_lag + 1
+    r["held_k5"] = _held(
+        torch, "gcc_pairs_onehot_lag_mags",
+        lambda: gcc_pair.gcc_pairs_onehot_lag_mags(fr, fi, pipe.pair_i_np, pipe.pair_j_np, **kw),
+        lambda: gcc_pair.gcc_pairs_onehot_lag_mags_plain(fr, fi, pipe.pair_i_np, pipe.pair_j_np, **kw),
+        list(fr.shape), True,
+        _bound(_pair_flops(pairs, nfft, width), fr.numel() * 8 + pairs * 4 + pairs * width * 4),
+    )
+    r["nfft"] = nfft
+    torch.cuda.empty_cache()
+    return r
+
+
+def _parallel_rank(ctx, ep_cases, reps):
+    """Phases 24, 25 and 26 on one rank of the card, in that order."""
+    return {"ep": _ep_rank(ctx, ep_cases, reps), "config5": _config5_rank(ctx, reps),
+            "wideband": _wideband_rank(ctx, reps)}
+
+
+def _grid_scene(sim, side, spacing_deg, seed):
+    """A ``side × side`` grid of buoys around the OKC emitter, one
+    4096-sample block at 2.048 MS/s, a 500 kHz noise emitter at 25 dB SNR:
+    the EP scene of ``tests/test_pair_ep.py``, on a grid that keeps every
+    pair's delay inside max_lag 256."""
+    buoys = [(f"b{k}", 35.47 - spacing_deg * (side - 1) / 2 + spacing_deg * (k % side),
+              -97.51 - spacing_deg * (side - 1) / 2 + spacing_deg * (k // side), 0.0) for k in range(side * side)]
+    return sim.synthesize(sim.default_scenario(
+        block_len=4096, snr_db=25.0, seed=seed, bandwidth_hz=500e3, buoys=buoys,
+        emitter_lat=35.475, emitter_lng=-97.505,
+    ))
+
+
+def _parallel_phases(np, torch, sim, wcfg, tag):
+    """Phases 24-26: the multi-device layer (``radio_mapper_tpu_torch/parallel``),
+    every path at world size 1 (NCCL) and 2 (two ranks on the one card,
+    gloo), each rank in its own process; the CPU ranks of phase 24 are its
+    reference. Returns ``parallel(kernel)``: the kernel's launches on these
+    paths and its checks in the ranks, for the ``kernels`` line."""
+    from radio_mapper_tpu_torch.parallel import launch
+    from radio_mapper_tpu_torch.parallel.pair_ep import PairEPConfig
+
+    torch.cuda.empty_cache()
+    par_reps = 10
+    ep_cfg = PairEPConfig()
+    cap64 = _grid_scene(sim, 8, 0.02, seed=11)
+    cap256 = _grid_scene(sim, 16, 0.01, seed=12)
+    as_case = lambda name, cfg, cap: (name, cfg, cap.iq.real.astype(np.float32), cap.iq.imag.astype(np.float32),
+                                      cap.buoy_enu.astype(np.float32))
+    ep64 = as_case("ep64", ep_cfg, cap64)
+    ep256 = as_case("ep256", dataclasses.replace(ep_cfg, num_buoys=256), cap256)
+    t0 = time.perf_counter()
+    par = {1: launch.run_ranks(_parallel_rank, 1, device="cuda", args=([ep64], par_reps), timeout_s=600)}
+    par[2] = launch.run_ranks(_parallel_rank, 2, device="cuda", args=([ep64, ep256], par_reps), timeout_s=600)
+    cpu_ep = launch.run_ranks(_ep_rank, 2, device="cpu", args=([ep64], par_reps, False), timeout_s=600)
+    par_s = time.perf_counter() - t0
+    backends = {ws: launch.default_backend("cuda", ws) for ws in par}
+    print(f"phases 24-26: ranks on the card: world size 1 over {backends[1]}, world size 2 over {backends[2]} "
+          f"(two ranks on one card: gloo copies the CUDA tensors of its collectives through host memory "
+          f"itself; no collective is staged by the port); 3 launches in {par_s:.1f} s {tag}")
+    _require(backends == {1: "nccl", 2: "gloo"}, f"backends {backends}")
+
+    def coll(r):
+        return ", ".join(f"{k} {r['coll_calls'][k]} calls {r['coll_ms'][k]:.3f} ms" for k in r["coll_ms"]
+                         if r["coll_calls"][k])
+
+    def held(h):
+        return (f"{h['name']} {h['shape']}: max|err| {h['max_abs_err']:.3e} (rel {h['rel_err']:.3e}, tol 1e-4"
+                f"{', same argmax ' + str(h['same_argmax']) if h['name'] != 'fft_rows_ct' else ''}), kernel "
+                f"{h['ms']:.3f} ms, plain {h['plain_ms']:.3f} ms")
+
+    def require_held(h, what):
+        _require(h["rel_err"] <= 1e-4 and h["same_argmax"], f"{what}: {h['name']} disagrees with its plain version")
+
+    # ---- phase 24: EP at PairEPConfig() (64 buoys, 2016 pairs, nfft 5120: K3, K5)
+    cpu64 = cpu_ep[0]["ep64"]
+    _require(np.array_equal(cpu_ep[1]["ep64"]["fix"], cpu64["fix"]), "EP CPU ranks disagree")
+    emit64 = cap64.emitter_enu[0]
+    for ws, ranks in par.items():
+        for rank, rr in enumerate(ranks):
+            e = rr["ep"]["ep64"]
+            err_m = float(np.linalg.norm(e["fix"][:2] - emit64[:2]))
+            gap_cpu = float(np.abs(e["fix"] - cpu64["fix"]).max())
+            gap_ws = float(np.abs(e["fix"] - par[1][0]["ep"]["ep64"]["fix"]).max())
+            p = e["pairs"]
+            lag_gap = float(np.abs(e["lags"][:p] - cpu64["lags"][:p]).max())
+            print(
+                f"phase 24: EP world size {ws} rank {rank}, {ep_cfg.num_buoys} buoys x {ep_cfg.block_len} samples, "
+                f"{p} pairs ({len(e['lags']) // ws} a rank), nfft {e['nfft']}: fix error {err_m:.3f} m (limit 100), "
+                f"card vs CPU ranks: fix {gap_cpu:.3e} m (tol 0.5), lags {lag_gap:.3e} samples (tol 1e-3); "
+                f"world size {ws} vs 1: fix {gap_ws:.3e} m (tol 0.5); {e['ms']:.3f} ms/block, "
+                f"{p / e['ms'] * 1e3:.4e} pair correlations/s, peak mem {e['peak_gib']:.2f} GiB, launches "
+                f"{e['launches']}, collectives (CUDA events, one block): {coll(e)}; held on this rank's slice: "
+                f"{held(e['held'])} {tag}"
+            )
+            _require(err_m < 100.0 and gap_cpu <= 0.5 and lag_gap <= 1e-3 and gap_ws <= 0.5, "EP fix")
+            _require(e["launches"] == {"fft_rows_ct": 1, "gcc_pairs_onehot_lag_mags": 1}, f"EP launches {e['launches']}")
+            require_held(e["held"], "EP")
+            _require(np.array_equal(e["fix"], ranks[0]["ep"]["ep64"]["fix"]), "EP ranks hold different fixes")
+    emit256 = cap256.emitter_enu[0]
+    for rank, rr in enumerate(par[2]):
+        e = rr["ep"]["ep256"]
+        err_m = float(np.linalg.norm(e["fix"][:2] - emit256[:2]))
+        print(
+            f"phase 24: EP world size 2 rank {rank}, 256 buoys x {ep_cfg.block_len} samples, {e['pairs']} pairs "
+            f"({len(e['lags']) // 2} a rank; the B spectra exceed K5's 8 MB gate: K6): fix error {err_m:.3f} m "
+            f"(limit 100); {e['ms']:.3f} ms/block, {e['pairs'] / e['ms'] * 1e3:.4e} pair correlations/s, peak mem "
+            f"{e['peak_gib']:.2f} GiB, launches {e['launches']}, collectives: {coll(e)}; held on this rank's "
+            f"slice: {held(e['held'])} {tag}"
+        )
+        _require(err_m < 100.0, f"EP 256 fix error {err_m}")
+        _require(e["launches"] == {"fft_rows_ct": 1, "gcc_rows_lag_mags": 1}, f"EP 256 launches {e['launches']}")
+        require_held(e["held"], "EP 256")
+        _require(np.array_equal(e["fix"], par[2][0]["ep"]["ep256"]["fix"]), "EP 256 ranks hold different fixes")
+
+    # ---- phase 25: config 5, 256 ch x 8 buoys x 32768 samples a step (K3, K2)
+    c5_real = 1e3 * 32_768 / 2_400_000.0
+    for ws, ranks in par.items():
+        for rank, rr in enumerate(ranks):
+            c = rr["config5"]
+            print(
+                f"phase 25: config 5 on a (1, {ws}) mesh, rank {rank}: 256 ch x 8 buoys x {32_768 // ws} samples "
+                f"(nfft {c['nfft']}), fixes {c['fix_shape']}: {c['ms']:.3f} ms/step (real-time budget "
+                f"{c5_real:.3f}, ratio {c['ms'] / c5_real:.3f}), peak mem {c['peak_gib']:.2f} GiB, launches "
+                f"{c['launches']}, collectives: {coll(c) or 'none'}; frames vs the one-rank channelizer on the "
+                f"rank's span of the stream: equal bit for bit {c['frames_equal_span']}; on the whole stream: "
+                f"equal bit for bit {c['frames_equal']}, max|err| {c['frames_max_err']:.3e} (tol 1e-6 of the "
+                f"largest frame, {c['frames_max']:.3e}); held on this rank's block: "
+                f"{held(c['held_k3'])}; {held(c['held_k2'])} {tag}"
+            )
+            _require(c["finite"] and c["fix_shape"] == [ws, 256, 16, 3], "config 5 outputs")
+            _require(c["frames_equal_span"], "config 5: the halo did not deliver the left neighbour's history")
+            _require(c["frames_max_err"] <= 1e-6 * c["frames_max"], "config 5: the frames differ from the whole stream's")
+            _require(c["launches"] == {"fft_rows_ct": 1, "gcc_pair_lag_mags": 1}, f"config 5 launches {c['launches']}")
+            require_held(c["held_k3"], "config 5")
+            require_held(c["held_k2"], "config 5")
+
+    # ---- phase 26: config 4 with subchannels over "sub" (K3, K5)
+    w_real = 1e3 * wcfg.wide_block / wcfg.wide_rate_hz
+    for ws, ranks in par.items():
+        for rank, rr in enumerate(ranks):
+            w = rr["wideband"]
+            one = (f"vs the one-device step_split on the same block: equal {w['equal_one_device']}, max|diff| "
+                   + ", ".join(f"{k} {v:.3e}" for k, v in w["vs_one_device"].items())
+                   + f" (fixes: {w['fix_rel']:.3e} of |fix|; the example block is noise); ") if rank == 0 else ""
+            print(
+                f"phase 26: sharded wideband, world size {ws} rank {rank}: {wcfg.num_subchannels // ws} of "
+                f"{wcfg.num_subchannels} subchannels, {wcfg.num_buoys} buoys, nfft {w['nfft']}: {w['ms']:.3f} ms/block (real "
+                f"time {w_real:.3f}), peak mem {w['peak_gib']:.2f} GiB, launches {w['launches']}, collectives: "
+                f"{coll(w)}; {one}held on this rank's subchannels: {held(w['held_k3'])}; {held(w['held_k5'])} {tag}"
+            )
+            _require(w["finite"], "sharded wideband outputs")
+            _require(w["launches"] == {"fft_rows_ct": 1, "gcc_pairs_onehot_lag_mags": 1}, f"wideband launches {w['launches']}")
+            require_held(w["held_k3"], "sharded wideband")
+            require_held(w["held_k5"], "sharded wideband")
+            if rank == 0:
+                d = w["vs_one_device"]
+                _require(d["lags"] <= 1e-3 and d["weights"] <= 1e-3, f"sharded wideband vs step_split {d}")
+
+    def par_launches(kernel):
+        """This kernel's launches on each multi-rank path, by path, world size and rank."""
+        return {f"{path} ws{ws} rank{rank}": r["launches"].get(kernel, 0)
+                for ws, ranks in par.items() for rank, rr in enumerate(ranks)
+                for path, r in (*rr["ep"].items(), ("config5", rr["config5"]), ("wideband", rr["wideband"]))}
+
+    def par_rows(kernel):
+        """The rank-side checks of this kernel against its plain version."""
+        out = []
+        for ws, ranks in par.items():
+            for rank, rr in enumerate(ranks):
+                for path, r in (*rr["ep"].items(), ("config5", rr["config5"]), ("wideband", rr["wideband"])):
+                    for h in (r.get("held"), r.get("held_k3"), r.get("held_k2"), r.get("held_k5")):
+                        if h is not None and h["name"] == kernel:
+                            out.append({"path": f"{path} ws{ws} rank{rank}",
+                                        **{k: v for k, v in h.items() if k != "name"}})
+        return out
+
+    def parallel(kernel):
+        return {"launches": par_launches(kernel), "rank_rows": par_rows(kernel)}
+
+    return parallel
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -377,24 +859,9 @@ def main() -> int:
     from radio_mapper_tpu_torch.runtime import buoy_detect, datamodel
     from radio_mapper_tpu_torch.runtime.tdoa_engine import TDoAEngine
 
-    # every kernel's launch counter, by the name of its wrapper
-    counters = {
-        "fft_detect_rows_ct": (fft_detect, "launch_count"),
-        "gcc_pair_lag_mags": (gcc_pair, "launch_count"),
-        "fft_rows_ct": (fft_rows, "launch_count"),
-        "detect_ct_partials": (detect_ct, "launch_count"),
-        "gcc_pairs_onehot_lag_mags": (gcc_pair, "onehot_launch_count"),
-        "gcc_rows_lag_mags": (gcc_pair, "rows_launch_count"),
-        "fft_rows": (fft_natural, "launch_count"),
-        "channel_step_partials": (channel_step, "launch_count"),
-    }
-
-    def zero_counts():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-
-    def launch_counts():
-        return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    counters = _kernel_counters()
+    zero_counts = lambda: _zero_counts(counters)
+    launch_counts = lambda: _read_counts(counters)
 
     card = device.require_cuda()
     tag = card.label()
@@ -1842,6 +2309,8 @@ def main() -> int:
     _require(dt_gap <= 1 and float(np.linalg.norm(gap[:2])) <= 1.0, "engine: card and CPU disagree")
     _require(len(e_card[0].tdoa_measurements) == 6, "engine: six pair measurements")
 
+    parallel = _parallel_phases(np, torch, sim, wcfg, tag)
+
     def rows_entry(shape, err, ms, plain_ms, bound, library_ms):
         return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms}
@@ -1892,29 +2361,35 @@ def main() -> int:
                      nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_radix,
               long_source=["fft_rows_ct_cluster.cu", "fft_rows_ct_long.cu", "detect_ct.cu"], long_name="K1",
               mixed_rows=mixed("K1"), topk=topk("K1"),
-              launches_block_len_57344=mixed_launches.get("fft_detect_rows_ct", 0)),
+              launches_block_len_57344=mixed_launches.get("fft_detect_rows_ct", 0),
+              parallel=parallel("fft_detect_rows_ct")),
         entry("gcc_pair_lag_mags", "gcc_pair.cu", "gcc_kernel.py:358",
               launches["gcc_pair_lag_mags"], max(win_abs, k2_modes["l2"][0], k2_modes["l1"][0]), k2_ms, k2_plain_ms,
               _bound(_pair_flops(chans * npairs, nfft, width),
                      nrows * nfft * 8 + nrows * 4 + chans * npairs * width * 4), k2_fft,
-              mixed_rows=mixed("K2"), launches_block_len_57344=mixed_launches.get("gcc_pair_lag_mags", 0)),
+              mixed_rows=mixed("K2"), launches_block_len_57344=mixed_launches.get("gcc_pair_lag_mags", 0),
+              parallel=parallel("gcc_pair_lag_mags")),
         entry("fft_rows_ct", "fft_rows_ct.cu", "fft_kernel.py:446",
               wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound,
               _radix_flops(m_sub * wb, wn, *ct_plan.radix_split(wn)[1:]), k3_lib_ms,
-              long_source=["fft_rows_ct_cluster.cu", "fft_rows_ct_long.cu"], long_name="K3", mixed_rows=mixed("K3")),
+              long_source=["fft_rows_ct_cluster.cu", "fft_rows_ct_long.cu"], long_name="K3", mixed_rows=mixed("K3"),
+              parallel=parallel("fft_rows_ct")),
         entry("detect_ct_partials", "detect_ct.cu", "detect_kernel.py:309",
               route_launches["detect_ct_partials"], max(k4_score_abs, k4_nf), k4_ms, k4_plain_ms, k4_bound,
               nrows * nfft * (3 + 2 * plan.radius + 1),  # power, then the sliding max's compares
-              long_name="K4", topk=topk("K4")),
+              long_name="K4", topk=topk("K4"),
+              parallel=parallel("detect_ct_partials")),
         entry("gcc_pairs_onehot_lag_mags", "gcc_pair.cu", "gcc_kernel.py:743",
               wl5["gcc_pairs_onehot_lag_mags"], k5_abs, k5_ms, k5_plain_ms,
               _bound(_pair_flops(m_sub * wp, wn, w_width),
                      m_sub * wb * wn * 8 + m_sub * wp * 4 + m_sub * wp * w_width * 4),
-              _fft_pair_flops(m_sub * wp, wn1, wn2, w_rows), mixed_rows=mixed("K5")),
+              _fft_pair_flops(m_sub * wp, wn1, wn2, w_rows), mixed_rows=mixed("K5"),
+              parallel=parallel("gcc_pairs_onehot_lag_mags")),
         entry("gcc_rows_lag_mags", "gcc_pair.cu", "gcc_kernel.py:548",
               wl6["gcc_rows_lag_mags"], k6_abs, k6_ms, k6_plain_ms,
               _bound(_pair_flops(wp, wn, w_width), 4 * wp * wn * 4 + wp * 4 + wp * w_width * 4),
-              _fft_pair_flops(wp, wn1, wn2, w_rows)),
+              _fft_pair_flops(wp, wn1, wn2, w_rows),
+              parallel=parallel("gcc_rows_lag_mags")),
         entry("fft_rows", "fft_natural_radix.cu", "fft_kernel.py:212",
               k7_launches, max([v[0] for v in k7.values()] + [cf_abs]), k7_main[2], k7_main[3],
               _bound(_fft_flops(k7_rows, n), 2 * 8 * k7_rows * n),
@@ -1924,12 +2399,14 @@ def main() -> int:
                             for shape, v in k7.items() if v[6] == ["cluster"]],
               launches_block_len_32768=k7_launches32 // nblocks32,
               launches_complex_step=complex_k7_per_block,
-              complex_step_rows=[rows_entry([crows, n], cf_abs, cf_ms, cf_plain_ms, cf_bound, cf_lib_ms)]),
+              complex_step_rows=[rows_entry([crows, n], cf_abs, cf_ms, cf_plain_ms, cf_bound, cf_lib_ms)],
+              parallel=parallel("fft_rows")),
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
               route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft,
               sources=[f"radio_mapper_tpu_torch/csrc/{f}" for f in
                        ("channel_step.cu", "fft_rows_ct_cluster.cu", "fft_rows_ct_long.cu", "detect_ct.cu", "gcc_pair.cu")],
-              long_rows=mixed("K8"), long_launches_block_len_57344_mega=mega_long_launches),
+              long_rows=mixed("K8"), long_launches_block_len_57344_mega=mega_long_launches,
+              parallel=parallel("channel_step_partials")),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))
     return 0

@@ -1,11 +1,15 @@
 """Streaming (stateful) channelization: overlap-save across blocks.
 
-Port of the sequential half of ``radio_mapper_tpu/models/streaming.py``
-(``ChannelizerState``, ``StreamingChannelizer``). The channelizer carries
-its (T−1)·M-sample filter history from block to block, so back-to-back
-calls produce the same channel samples as one call on the concatenated
-stream (after the same zero history). The sharded half
-(``sharded_channelize``, a halo exchange over a mesh axis) is not ported.
+Port of ``radio_mapper_tpu/models/streaming.py``. Two deployment shapes:
+
+- **Sequential** (``ChannelizerState``, ``StreamingChannelizer``): the
+  channelizer carries its (T−1)·M-sample filter history from block to
+  block, so back-to-back calls produce the same channel samples as one
+  call on the concatenated stream (after the same zero history).
+- **Sharded** (:func:`sharded_channelize`): one long capture laid out
+  across the "blk" mesh axis, one block a rank; the history arrives from
+  the left neighbour by a halo exchange (:mod:`..parallel.halo`) instead
+  of a carry. The ranks' frames, concatenated, are the sequential ones.
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from radio_mapper_tpu_torch.ops import channelizer as pfb
+from radio_mapper_tpu_torch.parallel.halo import with_left_halo
+from radio_mapper_tpu_torch.parallel.mesh import MeshAxis
 
 
 class ChannelizerState(NamedTuple):
@@ -57,3 +63,31 @@ class StreamingChannelizer:
             ext, self.m, sample_rate_hz=self.sample_rate_hz, taps_per_channel=self.taps
         )
         return ChannelizerState(tail=ext[..., -self.history:]), out
+
+
+def sharded_channelize(
+    x_local: torch.Tensor,
+    num_channels: int,
+    *,
+    sample_rate_hz: float,
+    taps_per_channel: int = 8,
+    block_axis: MeshAxis,
+) -> pfb.ChannelizedStream:
+    """Rank-local overlap-save channelization (every rank of
+    ``block_axis`` calls it with its block).
+
+    ``x_local``: this rank's complex ``[..., L]`` slice of a stream sharded
+    on the last axis over ``block_axis`` ("blk"). The (T−1)·M-sample
+    history comes from the left neighbour by one halo exchange; shard 0
+    sees zeros (the stream-start transient), matching
+    :class:`StreamingChannelizer`'s initial state. Output frames
+    concatenated across ranks equal the sequential output.
+    """
+    m = num_channels
+    history = (taps_per_channel - 1) * m
+    if x_local.shape[-1] % m != 0:
+        raise ValueError(f"shard length {x_local.shape[-1]} not a multiple of {m}")
+    ext = with_left_halo(x_local.to(torch.complex64), block_axis, history)
+    return pfb.channelize(
+        ext, m, sample_rate_hz=sample_rate_hz, taps_per_channel=taps_per_channel
+    )

@@ -21,6 +21,11 @@ The reference scans subchannels only to bound TPU memory; here the K5
 route holds the [M, B, nfft] spectra (42 MB at full width) and runs every
 subchannel in one launch. The K6 route keeps the reference's loop: its
 gathered rows are 165 MB per subchannel.
+
+:func:`build_wideband_sharded_step` runs the same step over a mesh of
+ranks: the channelizer replicated, the subchannels split over the "sub"
+axis, each rank's pair stage and tail on its M/n subchannels, the outputs
+gathered.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ from radio_mapper_tpu_torch.ops import ct_plan, safe
 from radio_mapper_tpu_torch.ops import gcc_phat as gcc_ops
 from radio_mapper_tpu_torch.ops import split_complex as sc_ops
 from radio_mapper_tpu_torch.ops.cuda import gcc_pair
+from radio_mapper_tpu_torch.parallel import collectives
+from radio_mapper_tpu_torch.parallel import mesh as mesh_lib
 
 StageHook = Optional[Callable[[str], None]]
 
@@ -248,3 +255,49 @@ class WidebandTDOAPipeline:
         anchors[:, 2] = 0.0
         to = lambda a: torch.from_numpy(a).to(self.device)
         return to(re), to(im), to(anchors)
+
+
+def build_wideband_sharded_step(mesh, config: WidebandConfig, *, axis: str = "sub"):
+    """Config 4 across a mesh of ranks: SUBCHANNELS split over ``axis``.
+
+    Port of the reference's ``build_wideband_sharded_step``. Every rank
+    channelizes the whole block (replicated: ~2% of one subchannel's pair
+    stage), keeps its M/n subchannels, runs :meth:`WidebandTDOAPipeline._pair_stage`
+    (K3, then K5 or K6) and :meth:`WidebandTDOAPipeline._batched_tail` on
+    them (no collective in the hot path), and all_gathers the outputs over
+    ``axis``.
+
+    Returns ``(step, in_specs)`` with ``step(re, im, anchors) ->
+    WidebandOutput`` on every rank, the inputs replicated (whole on every
+    rank, on its device).
+    """
+    cfg = config.validate()
+    ax = mesh_lib.axis(mesh, axis)
+    if cfg.num_subchannels % ax.size:
+        raise ValueError(
+            f"num_subchannels {cfg.num_subchannels} must divide over {ax.size} shards"
+        )
+    pipe = WidebandTDOAPipeline(cfg, device=mesh_lib.rank_device(mesh))
+    m_loc = cfg.num_subchannels // ax.size
+    mine = slice(ax.index * m_loc, (ax.index + 1) * m_loc)
+
+    def step(re: torch.Tensor, im: torch.Tensor, anchors: torch.Tensor) -> WidebandOutput:
+        c = cfg
+        pipe._on_device(re, im, anchors)
+        cre, cim = sc_ops.channelize_split(
+            re.to(torch.float32), im.to(torch.float32), c.num_subchannels,
+            sample_rate_hz=c.wide_rate_hz,
+            taps_per_channel=c.taps_per_channel,
+            shift=False,
+        )  # [B, M, n_sub]
+        cre, cim = cre.movedim(-2, 0)[mine], cim.movedim(-2, 0)[mine]  # [M/n, B, n_sub]
+        mags = pipe._pair_stage(cre, cim)
+        local = pipe._batched_tail(mags, anchors.to(torch.float32))
+        fixes, cost, lags, weights = (collectives.all_gather(x, ax, dim=0) for x in local)
+        return WidebandOutput(
+            fixes_enu=fixes, cost=cost, lags=lags, weights=weights,
+            channel_offset_hz=np.fft.fftfreq(c.num_subchannels, d=1.0 / c.wide_rate_hz),
+        )
+
+    repl = mesh_lib.replicated()
+    return step, (repl, repl, repl)

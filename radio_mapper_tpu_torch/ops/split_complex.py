@@ -12,7 +12,7 @@ Port of ``radio_mapper_tpu/ops/split_complex.py``:
   spectra), ``ct_power_db`` (CT-order spectra → natural-order dB, an
   un-permute, not a second FFT) and ``gcc_phat_all_pairs_split_fused``
   (kernel K2 on CT-order spectra), with the route knob
-  ``set_gcc_fused``/``gcc_fused_enabled``;
+  ``set_gcc_fused``/``gcc_fused_mode``/``gcc_fused_enabled``;
 - ``power_spectrum_db_split``, ``receiver_spectra_split``, ``ifft_re_im``,
   ``gcc_phat_all_pairs_split``, and the pairwise ``cross_correlate_split``
   and ``gcc_phat_split`` (``CorrelationPeakSC``): the natural-order chain of the
@@ -48,6 +48,13 @@ def set_gcc_fused(mode: str) -> None:
         raise ValueError(f"unknown fused-GCC mode {mode!r}")
     global _GCC_FUSED
     _GCC_FUSED = mode
+
+
+def gcc_fused_mode() -> str:
+    """The route knob ("auto", "on" or "off"): the multi-device steps fuse
+    on CPU ranks only when it is forced "on", as the reference does off
+    the TPU."""
+    return _GCC_FUSED
 
 
 def gcc_fused_enabled(min_len: int, weighting: str) -> bool:

@@ -1,8 +1,9 @@
 """Batched hyperbolic (TDOA) Levenberg-Marquardt positioning.
 
 Port of ``radio_mapper_tpu/solver.py`` (``solve_tdoa_impl`` with both
-noise models and no pair-parallel axis, and its public name
-``solve_tdoa``; ``perturbed_starts``, ``solve_tdoa_multistart`` and
+noise models and its pair-parallel mode, a ``psum`` callable in place of
+the ``axis_name``, and its public name ``solve_tdoa``;
+``perturbed_starts``, ``solve_tdoa_multistart`` and
 ``pair_weights_from_confidence``). The fixed-count LM
 loop is a Python loop of branchless ``torch.where`` updates — no
 ``.item()``, no host synchronisation, so on the card it only enqueues.
@@ -13,7 +14,7 @@ signal later ⇒ τ_ij > 0), ``dd_ij = c·τ_ij ≈ ‖x − p_i‖ − ‖x −
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -120,6 +121,7 @@ def solve_tdoa_impl(
     noise_model: str = "receiver",
     sigma_m: Optional[torch.Tensor] = None,
     sigma_floor_m: Optional[torch.Tensor] = None,
+    psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> SolveResult:
     """Levenberg-Marquardt hyperbolic solve, batched over leading dims.
 
@@ -138,6 +140,13 @@ def solve_tdoa_impl(
         Σwr² / max(measurements − unknowns, 1).
       sigma_m / sigma_floor_m: known 1σ noise (per receiver, or per
         unit-weight pair) / its floor.
+      psum: pair-parallel (EP) mode: this rank holds a slice of the
+        measurements, and ``psum(x)`` returns the sum of ``x`` over the
+        ranks that hold the others (:func:`..parallel.collectives.psum`).
+        The normal equations, the cost and the counts are sums over
+        measurements, so every rank takes the identical step: per LM
+        iteration one 12-float sum of the gradient and the normal matrix,
+        and one of the cost.
     """
     if noise_model not in ("receiver", "pair"):
         raise ValueError(f"unknown noise_model {noise_model!r}")
@@ -149,31 +158,50 @@ def solve_tdoa_impl(
     pair_j = pair_j.to(device=dev, dtype=torch.int64)
     w = torch.ones_like(dd_m) if weights is None else torch.clamp(weights.to(f32), min=0.0)
 
+    _psum = psum if psum is not None else (lambda x: x)
+
+    def _psum_gh(g_loc, h_loc):
+        """``(Σg, Σh)`` through one sum of 12 floats per batch element."""
+        if psum is None:
+            return g_loc, h_loc
+        s = psum(torch.cat([g_loc, h_loc.flatten(-2)], dim=-1))
+        return s[..., :3], s[..., 3:].unflatten(-1, (3, 3))
+
     # All-zero weights would freeze the solver at its initial guess; degrade
-    # to uniform weighting (the measurements still carry geometry).
-    w_total = w.sum(dim=-1, keepdim=True)
+    # to uniform weighting (the measurements still carry geometry). With
+    # psum the check is global: a rank whose pairs are all masked still
+    # has live measurements elsewhere.
+    w_total = _psum(w.sum(dim=-1, keepdim=True))
     w = torch.where(w_total > 1e-9, w, torch.ones_like(w))
 
     x0 = anchors_enu.mean(dim=-2) if init_enu is None else init_enu.to(f32)
     batch_shape = torch.broadcast_shapes(x0.shape[:-1], dd_m.shape[:-1])
-    x0 = x0.expand(*batch_shape, 3) + 0.0 * dd_m[..., :1]
+    x0 = x0.expand(*batch_shape, 3)
+    if psum is None:
+        x0 = x0 + 0.0 * dd_m[..., :1]  # as the reference
     dim_mask = torch.tensor([1.0, 1.0, 0.0] if solve_2d else [1.0, 1.0, 1.0], dtype=f32, device=dev)
     eye = torch.eye(3, dtype=f32, device=dev)
 
-    wsum = w.sum(dim=-1) + 1e-12
+    wsum = _psum(w.sum(dim=-1)) + 1e-12
 
     def cost_fn(x):
         r, _ = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
-        return (w * r * r).sum(dim=-1) / wsum
+        return _psum((w * r * r).sum(dim=-1)) / wsum
 
     x = x0
-    lam = torch.full(dd_m.shape[:-1], 1e-3, dtype=f32, device=dev) + 0.0 * dd_m[..., 0]
+    lam = torch.full(dd_m.shape[:-1], 1e-3, dtype=f32, device=dev)
+    if psum is None:
+        lam = lam + 0.0 * dd_m[..., 0]
     cost = cost_fn(x0)
     for _ in range(iterations):
         r, jac = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
         jac = jac * dim_mask  # frozen dims contribute nothing
-        g = torch.einsum("...pk,...p->...k", jac, w * r) / wsum.unsqueeze(-1)
-        h = torch.einsum("...pk,...pl->...kl", jac, jac * w.unsqueeze(-1)) / wsum[..., None, None]
+        g, h = _psum_gh(
+            torch.einsum("...pk,...p->...k", jac, w * r),
+            torch.einsum("...pk,...pl->...kl", jac, jac * w.unsqueeze(-1)),
+        )
+        g = g / wsum.unsqueeze(-1)
+        h = h / wsum[..., None, None]
         # Marquardt scaling plus a floor keeps H invertible for degenerate
         # geometry or frozen dims.
         diag = torch.diagonal(h, dim1=-2, dim2=-1)
@@ -188,12 +216,12 @@ def solve_tdoa_impl(
 
     r, jac = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
     jac = jac * dim_mask
-    g = torch.einsum("...pk,...p->...k", jac, w * r) / wsum.unsqueeze(-1)
+    g = _psum(torch.einsum("...pk,...p->...k", jac, w * r)) / wsum.unsqueeze(-1)
     grad_norm = torch.linalg.vector_norm(g, dim=-1)
-    num_measurements = (w > 0).sum(dim=-1)
+    num_measurements = _psum((w > 0).sum(dim=-1))
 
     # -- error ellipse from the undamped normal matrix
-    m_u = torch.einsum("...pk,...pl->...kl", jac, jac * w.unsqueeze(-1))
+    m_u = _psum(torch.einsum("...pk,...pl->...kl", jac, jac * w.unsqueeze(-1)))
     wrr = cost * wsum  # Σ w r²
     if solve_2d:
         # Up is frozen ⇒ m_u's Up row/col is zero; invert the EN block.
@@ -214,7 +242,7 @@ def solve_tdoa_impl(
             torch.nn.functional.one_hot(pair_i, num_receivers).to(f32)
             - torch.nn.functional.one_hot(pair_j, num_receivers).to(f32)
         )
-        g = torch.einsum("...pk,pb->...kb", jac * w.unsqueeze(-1), a_mat)
+        g = _psum(torch.einsum("...pk,pb->...kb", jac * w.unsqueeze(-1), a_mat))
         # unbiased σ_r²: E[Σwr²] = σ_r²·(2·wsum − tr(GᵀM⁻¹G))
         m_inv_g = torch.einsum("...kl,...lb->...kb", m_inv, g)
         denom = 2.0 * wsum - torch.einsum("...kb,...kb->...", g, m_inv_g)

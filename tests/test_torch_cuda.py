@@ -44,7 +44,13 @@ as its plain version is against JAX:
   test); the buoy dwell's peaks and bandwidths exactly;
 - the complex ``fft``/``ifft`` through K7 vs the plain four-step within
   1e-4 of the row's max |X|, the complex ``step`` and ``StreamingTDOA``
-  (the emitter's subchannel) on the card vs the CPU (``-k complex``).
+  (the emitter's subchannel) on the card vs the CPU (``-k complex``);
+- the multi-device layer (``-k parallel``): the EP step, the sharded
+  split step and the sharded wideband step with their ranks on the card
+  at world size 1 (NCCL) and 2 (two ranks on one card, gloo) vs ranks on
+  the CPU running the same algorithm (the fused chain forced on): lags
+  within 1e-3 samples and fixes within 0.5 m where the peaks stand clear;
+  ``dryrun_multichip(2)`` on the card.
 """
 
 import numpy as np
@@ -908,3 +914,134 @@ def test_complex_streaming_on_card_matches_cpu(cuda_device):
     pos = gpu.fixes_enu[1, best].cpu().numpy()
     np.testing.assert_allclose(pos, cpu.fixes_enu[1, best].numpy(), atol=0.5)
     assert np.linalg.norm(pos[:2] - cap.emitter_enu[0][:2]) < 600.0
+
+
+# -- the multi-device layer (``-k parallel``): ranks on the card vs ranks on the CPU
+
+
+def _parallel_cases():
+    """The card checks' inputs: the 8-buoy EP scene of ``tests/test_pair_ep.py``
+    (K3, K5); config 5's shape cut to 4 channels × 16384 samples on scenes
+    of 8 buoys (K3, K2); the small wideband config-4 scene (K3, K5)."""
+    from radio_mapper_tpu_torch.parallel.pair_ep import PairEPConfig
+    from radio_mapper_tpu_torch.parallel.sharded import ShardedStepConfig
+
+    grid = [(f"b{k}", 35.40 + 0.05 * (k % 4), -97.60 + 0.06 * (k // 4), 0.0) for k in range(8)]
+    cap = sim.synthesize(sim.default_scenario(block_len=4096, snr_db=25.0, seed=11, bandwidth_hz=500e3, buoys=grid))
+    ep = dict(config=PairEPConfig(num_buoys=8, block_len=4096, sample_rate_hz=cap.scenario.sample_rate_hz,
+                                  max_lag=256),
+              re=cap.iq.real.astype(np.float32), im=cap.iq.imag.astype(np.float32),
+              anchors=cap.buoy_enu.astype(np.float32))
+    c5 = ShardedStepConfig(num_channels=4, num_buoys=8, num_subchannels=16, taps_per_channel=4,
+                           sample_rate_hz=2_400_000.0, max_lag=32)
+    caps = [sim.synthesize(sim.default_scenario(
+        block_len=16_384, snr_db=25.0, seed=20 + c, bandwidth_hz=300e3, sample_rate_hz=2_400_000.0, buoys=grid,
+        emitter_lat=35.45 + 0.01 * c, emitter_lng=-97.55,
+    )) for c in range(c5.num_channels)]
+    x = np.stack([c.iq for c in caps])
+    sharded = dict(config=c5, x=(x.real.astype(np.float32), x.imag.astype(np.float32)),
+                   anchors=caps[0].buoy_enu.astype(np.float32), split=True)
+    wcfg = small_wideband_config()
+    re, im, anchors, _ = wideband_scene(wcfg, 3, 2)
+    return ep, sharded, dict(config=wcfg, re=re, im=im, anchors=anchors)
+
+
+@pytest.fixture(scope="module")
+def parallel_runs():
+    """Each world size's outputs on the card (its default routes) and on
+    CPU ranks (the fused chain forced on: the same algorithm on the plain
+    versions): ``{(where, world): [ep, sharded, wideband] of rank 0}``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    from radio_mapper_tpu_torch.parallel import jobs, launch
+
+    ep, sharded, wide = _parallel_cases()
+    out = {}
+    for where in ("cuda", "cpu"):
+        fused = "auto" if where == "cuda" else "on"
+        for world in (1, 2):
+            todo = [(jobs.ep_step, dict(ep, fused=fused)),
+                    (jobs.sharded_step, dict(sharded, mesh_shape=(1, world), fused=fused)),
+                    (jobs.wideband_sharded, wide)]
+            ranks = launch.run_ranks(jobs.run_jobs, world, device=where, args=(todo,), timeout_s=600)
+            for r in ranks[1:]:  # the EP fix is the same on every rank
+                np.testing.assert_array_equal(r[0].fix_enu, ranks[0][0].fix_enu)
+            out[where, world] = ranks[0]
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2])
+def test_parallel_ep_on_card_matches_cpu(parallel_runs, world):
+    """EP at world size 1 (NCCL) and 2 (two ranks on one card, gloo):
+    lags within 1e-3 samples and the fix within 0.5 m of the CPU ranks'."""
+    gpu, cpu = parallel_runs["cuda", world][0], parallel_runs["cpu", world][0]
+    np.testing.assert_allclose(gpu.lags, cpu.lags, atol=1e-3)
+    np.testing.assert_allclose(gpu.fix_enu, cpu.fix_enu, atol=0.5)
+    np.testing.assert_allclose(gpu.fix_enu, parallel_runs["cuda", 1][0].fix_enu, atol=0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2])
+def test_parallel_sharded_step_on_card_matches_cpu(parallel_runs, world):
+    """The sharded split step on a (1, world) mesh (K3 → K2 on the card):
+    on the subchannels whose peaks stand clear (the CPU's mean pair weight
+    above 0.5) lags within 1e-3 samples and fixes within 0.5 m."""
+    gpu, cpu = parallel_runs["cuda", world][1], parallel_runs["cpu", world][1]
+    strong = cpu.weights.mean(axis=-1) > 0.5
+    assert strong.any() and all(np.isfinite(v).all() for v in gpu)
+    np.testing.assert_allclose(gpu.lags[strong], cpu.lags[strong], atol=1e-3)
+    np.testing.assert_allclose(gpu.fixes_enu[strong], cpu.fixes_enu[strong], atol=0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world", [1, 2])
+def test_parallel_wideband_on_card_matches_cpu(parallel_runs, world):
+    """The sharded wideband step (K3 → K5 on the card) on the emitter's
+    subchannel: lags within 1e-3 samples and the fix within 0.5 m."""
+    gpu, cpu = parallel_runs["cuda", world][2], parallel_runs["cpu", world][2]
+    np.testing.assert_allclose(gpu.lags[3], cpu.lags[3], atol=1e-3)
+    np.testing.assert_allclose(gpu.fixes_enu[3], cpu.fixes_enu[3], atol=0.5)
+
+
+@pytest.mark.cuda
+def test_parallel_dryrun_multichip_on_card(cuda_device):
+    """``dryrun_multichip(2)`` on the card: two ranks on the cards there
+    are, every leg."""
+    from radio_mapper_tpu_torch import entry
+
+    s = entry.dryrun_multichip(2)
+    assert s[0]["config5"] == (2, 256, 16, 3) and s[0]["flagship"] == (32, 3)
+    np.testing.assert_array_equal(s[0]["ep64"], s[1]["ep64"])
+
+
+@pytest.mark.cuda
+def test_parallel_nccl_shift_across_cards():
+    """With two or more cards (one rank a card, NCCL): the halo shift's
+    ``batch_isend_irecv`` path, left and right, with and without wrap,
+    equal bit for bit to CPU ranks' (gloo: an all_gather of the tails);
+    and the sharded split step on a (1, cards) mesh against CPU ranks, as
+    ``test_parallel_sharded_step_on_card_matches_cpu``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more cards: NCCL takes one rank a card, so one card has no NCCL shift")
+    from radio_mapper_tpu_torch.parallel import jobs, launch
+
+    assert launch.default_backend("cuda", n) == "nccl"
+    _, sharded, _ = _parallel_cases()
+    x = np.arange(2 * 8 * n, dtype=np.float32).reshape(2, 8 * n)
+    out = {}
+    for where, fused in (("cuda", "auto"), ("cpu", "on")):
+        todo = [(jobs.halos, dict(x=x, halo_len=3, mesh_shape=(1, n))),
+                (jobs.sharded_step, dict(sharded, mesh_shape=(1, n), fused=fused))]
+        out[where] = launch.run_ranks(jobs.run_jobs, n, device=where, args=(todo,), timeout_s=600)
+    for rank in range(n):
+        for key, v in out["cpu"][rank][0].items():
+            np.testing.assert_array_equal(out["cuda"][rank][0][key], v, err_msg=f"rank {rank} {key}")
+    gpu, cpu = out["cuda"][0][1], out["cpu"][0][1]
+    strong = cpu.weights.mean(axis=-1) > 0.5
+    assert strong.any()
+    np.testing.assert_allclose(gpu.lags[strong], cpu.lags[strong], atol=1e-3)
+    np.testing.assert_allclose(gpu.fixes_enu[strong], cpu.fixes_enu[strong], atol=0.5)
