@@ -167,7 +167,34 @@ per source, in parallel, sm_90a), then:
 26. the sharded wideband step (``build_wideband_sharded_step``) at config 4
     (``WidebandConfig()``): ms/block, launches, rank 0's outputs against
     the one-device ``step_split`` on the same block (phase 9's), K3 and
-    K5 held on the rank's subchannels.
+    K5 held on the rank's subchannels;
+27. fault F4: config 4 at full width under ``set_gcc_fused("off")``, the
+    reference's natural-grid fallback (nfft 4320, the matmul four-step):
+    8 blocks, ms/block and pair correlations/s, no kernel launched (no K3,
+    no K5), a per-stage split; the phase-8 scene's active fix within 300 m;
+    card vs CPU at the small wideband config under "off";
+28. the ingest loop (``ingest.runner.IngestLoop``) over the native ring
+    (``ingest.native.NativeIngest``, built from ``native/ingest.cpp`` with
+    g++ at the first open) at the flagship's width, 128 ch × 8 buoys ×
+    16384 uint8 IQ at 2.4 MS/s, max_lag 512: an unpaced synthetic ring
+    (``open_synthetic(seed)``, large enough that every byte read is the
+    seed's stream) through 8 steps, the last output against
+    ``step_split_uint8`` called directly on the same bytes (fixes within
+    1e-3 m, lags within 1e-4 samples; bit for bit printed), K1 and K2
+    launches a step; the paced ring at real time with ``bench.py
+    run_ingest_bench``'s settings at 32 and 128 channels, each with
+    ``blocks_per_dispatch`` 1 and 4: IQ samples/s, ``real_time_ratio``,
+    host-read, copy-issue and copy CUDA-event ms a step, dropped, consumed
+    and written bytes (the check is the accounting: the step is slower
+    than real time); and ``bench.py run_ingest_loopback_bench``'s leg at
+    32 ch (paced ring → pinned slot → copy → decode and a sparse reduce on
+    the card): its dropped bytes;
+29. the buoy service: ``runtime.buoy.simulated_buoy`` on the card,
+    ``scan_once`` on the scenario's channel, against a CPU ``BuoyNode`` on
+    the same samples (detections and bandwidths equal, power within 1e-3
+    dB), K7 launched once a dwell, ``detect_block`` ms a dwell, and
+    ``match_signal_pattern`` over the node's history within 1e-5 of the
+    CPU's scores, lags equal.
 
 Each kernel's entry in the ``kernels`` line carries its sources (K1 and
 K3 with their long-row files, K7 with its cluster design's, K8 with its
@@ -195,7 +222,9 @@ for the others, which no single call computes). Every entry also carries
 ``parallel``: its launches on each path of phases 24-26, by path, world
 size and rank (each counted in its rank from 0 just before that path's
 step), and its checks against the plain version inside the ranks
-(``rank_rows``, with times and bounds).
+(``rank_rows``, with times and bounds). K1 and K2 carry
+``launches_ingest`` (phase 28's deterministic run, 8 steps) and K7
+``launches_buoy`` (phase 29's dwell).
 
 Any failed check raises, so the run exits non-zero and prints no result
 line. The last two lines are a JSON object describing the kernels and,
@@ -839,6 +868,262 @@ def _parallel_phases(np, torch, sim, wcfg, tag):
         return {"launches": par_launches(kernel), "rank_rows": par_rows(kernel)}
 
     return parallel
+
+
+def _wideband_fallback_phase(np, torch, sim, dev, tag, counters, wcfg, blocks):
+    """Phase 27 (fault F4): config 4 at full width under
+    ``set_gcc_fused("off")``, the reference's natural-grid fallback (nfft
+    4320: the matmul four-step, no kernel). Returns its facts."""
+    from radio_mapper_tpu_torch.models.wideband import WidebandConfig, WidebandTDOAPipeline
+    from radio_mapper_tpu_torch.ops import fft as fft_ops
+    from radio_mapper_tpu_torch.ops import split_complex
+
+    split_complex.set_gcc_fused("off")
+    try:
+        wpipe = WidebandTDOAPipeline(wcfg, device=dev)
+        _require(not wpipe.use_fused and wpipe.pair_nfft == fft_ops.friendly_fft_len(wcfg.sub_block + wcfg.max_lag),
+                 "config 4 under 'off' takes the fallback at the 5-smooth nfft (4320)")
+        m_sub, wb, wp = wcfg.num_subchannels, wcfg.num_buoys, wcfg.num_pairs
+        wblocks = [wpipe.example_inputs(seed=k) for k in range(blocks)]
+        wpipe.step_split(*wblocks[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        outs = [wpipe.step_split(*blk) for blk in wblocks]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _read_counts(counters).items() if v}
+        ok = all(torch.isfinite(x).all().item() for o in outs for x in o[:4]) and all(
+            tuple(o.lags.shape) == (m_sub, wp) for o in outs)
+        mem = torch.cuda.max_memory_allocated(dev) / 2**30
+        med = _stage_split(torch, lambda mark: wpipe.step_split(*wblocks[0], on_stage=mark),
+                           ["channelize", "fft", "s2", "pair", "lag_peaks", "solve"])
+        del wblocks, outs
+        ms_block = 1e3 * wall / blocks
+        print(
+            f"phase 27: config 4 under set_gcc_fused('off') (natural-grid fallback, nfft {wpipe.pair_nfft}), {blocks} "
+            f"blocks x {wb} buoys x {wcfg.wide_block} samples -> {m_sub} subchannels x {wp} pairs: {ms_block:.3f} "
+            f"ms/block (real time {1e3 * wcfg.wide_block / wcfg.wide_rate_hz:.3f}), {blocks * m_sub * wp / wall:.4e} "
+            f"pair correlations/s, peak mem {mem:.2f} GiB, launches {counts}, finite+shapes {ok}; stage split "
+            f"(median of 3, CUDA events): channelize {med['channelize']:.3f}, spectra {med['fft']:.3f}, pair "
+            f"{med['pair']:.3f}, lag peaks {med['lag_peaks']:.3f}, solve {med['solve']:.3f} {tag}"
+        )
+        _require(ok, "non-finite or misshapen fallback outputs")
+        _require(counts == {}, f"the fallback launched kernels: {counts}")
+
+        sub, ring, emitter = 5, _ring(np, wb, 12_000.0), np.array([2_000.0, -3_000.0, 0.0])
+        sre, sim_ = sim.synthesize_wideband(wcfg, active_subchannel=sub, anchors_enu=ring, emitter_enu=emitter,
+                                            snr_db=25.0, seed=0)
+        on = wpipe.step_split(*(torch.from_numpy(a).to(dev) for a in (sre, sim_, ring)))
+        err_m = float(np.linalg.norm(on.fixes_enu[sub, :2].cpu().numpy() - emitter[:2]))
+        w = on.weights.cpu().numpy()
+        quiet = (sub + m_sub // 2) % m_sub
+        scfg = WidebandConfig(num_buoys=8, wide_rate_hz=4_096_000.0, num_subchannels=8,
+                              sub_block=1024, max_lag=64, solver_iterations=20)
+        sring = _ring(np, scfg.num_buoys, 9_000.0)
+        shost = [torch.from_numpy(a) for a in (*sim.synthesize_wideband(
+            scfg, active_subchannel=3, anchors_enu=sring, emitter_enu=np.array([1_500.0, -2_200.0, 0.0]),
+            snr_db=25.0, seed=1), sring)]
+        s_card = WidebandTDOAPipeline(scfg, device=dev).step_split(*(a.to(dev) for a in shost))
+        s_cpu = WidebandTDOAPipeline(scfg, device="cpu").step_split(*shost)
+        s_lag = (s_card.lags[3].cpu() - s_cpu.lags[3]).abs().max().item()
+        s_fix = (s_card.fixes_enu[3].cpu() - s_cpu.fixes_enu[3]).abs().max().item()
+        print(
+            f"phase 27: phase-8 scene under 'off': active subchannel {sub} fix error {err_m:.3f} m (limit 300), mean "
+            f"weight {w[sub].mean():.4f} vs quiet {w[quiet].mean():.4f}; small config card vs CPU under 'off': lags "
+            f"{s_lag:.3e} samples (tol 1e-3), fix {s_fix:.3e} m (tol 0.5) {tag}"
+        )
+        _require(err_m < 300.0, f"fallback wideband fix error {err_m} m")
+        _require(s_lag <= 1e-3 and s_fix <= 0.5, "fallback wideband: card and CPU disagree")
+    finally:
+        split_complex.set_gcc_fused("auto")
+    return {"ms_block": ms_block, "launches": counts}
+
+
+def _ingest_phase(np, torch, dev, tag, counters, wide=128, narrow=32, n=16_384):
+    """Phase 28: the ingest loop (``ingest.runner.IngestLoop``) over the
+    native ring at the flagship's width (``wide`` channels; the paced legs
+    also at ``narrow``). Returns the kernel launches of its deterministic
+    run and the legs' numbers."""
+    from radio_mapper_tpu_torch.ingest import runner
+    from radio_mapper_tpu_torch.ingest.native import NativeIngest
+    from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
+    from radio_mapper_tpu_torch.ops import iq
+
+    fs, lag, buoys = 2_400_000.0, 512, 8
+    ms = lambda v: "n/a" if v is None else f"{v:.3f}"
+    pipe = TDOAPipeline(PipelineConfig(num_buoys=buoys, block_len=n, sample_rate_hz=fs, max_lag=lag), device=dev)
+    rng = np.random.default_rng(0)
+    anchors_np = rng.normal(scale=8_000.0, size=(buoys, 3)).astype(np.float32)
+    anchors_np[:, 2] = 0.0
+    anchors = lambda ch: torch.from_numpy(np.broadcast_to(anchors_np, (ch, buoys, 3)).copy()).to(dev)
+
+    # 28.1: an unpaced deterministic ring (the first ring_bytes are the seed's stream) through the loop
+    chans, steps, seed = wide, 8, 7
+    block_bytes = chans * buoys * 2 * n
+    ring_bytes = 1 << (steps * block_bytes - 1).bit_length()
+    loop = runner.IngestLoop.from_pipeline(pipe, None, channels=chans, anchors=anchors(chans))
+    outs, step = [], loop.step
+    loop.step = lambda raw, a: outs.append(step(raw, a)) or outs[-1]
+    loop.warm_compile()
+    outs.clear()
+    ing = NativeIngest.open_synthetic(seed, ring_bytes=ring_bytes)
+    loop.ingest = ing
+    try:
+        _zero_counts(counters)
+        stats = loop.run(steps, warmup_steps=0)
+        launches = {k: v for k, v in _read_counts(counters).items() if v}
+    finally:
+        ing.close()
+    again = NativeIngest.open_synthetic(seed, ring_bytes=ring_bytes)
+    try:
+        buf = np.empty(block_bytes, np.uint8)
+        for _ in range(steps):
+            got, _ = again.read_into(buf, 60_000)
+            _require(got == block_bytes, "replay ring underrun")
+    finally:
+        again.close()
+    direct = pipe.step_split_uint8(torch.from_numpy(buf.reshape(chans, buoys, 2 * n)).to(dev), anchors(chans))
+    last = outs[-1]
+    fix_gap = (last.fix.position_enu - direct.fix.position_enu).abs().max().item()
+    lag_gap = (last.correlation.lag_samples - direct.correlation.lag_samples).abs().max().item()
+    bit_equal = all(torch.equal(a, b) for a, b in zip(_leaves(torch, last), _leaves(torch, direct)))
+    per_step = {k: v / steps for k, v in launches.items()}
+    print(
+        f"phase 28: IngestLoop, unpaced synthetic ring (seed {seed}, {ring_bytes >> 20} MiB) -> {steps} steps of "
+        f"{chans} ch x {buoys} buoys x {n} uint8 IQ: last output vs step_split_uint8 on the same bytes: fixes "
+        f"{fix_gap:.3e} m (tol 1e-3), lags {lag_gap:.3e} samples (tol 1e-4), bit for bit {bit_equal}; launches a "
+        f"step {per_step}; {stats.sustained_samples_per_s:.4e} IQ samples/s, {1e3 * stats.elapsed_s / steps:.3f} "
+        f"ms/step, host read {stats.host_read_ms_per_step:.3f} ms, copy issue {stats.transfer_ms_per_step:.3f} ms, "
+        f"copy (CUDA events) {ms(loop.copy_ms_per_step())} ms a step; consumed {stats.bytes_consumed} B {tag}"
+    )
+    _require(fix_gap <= 1e-3 and lag_gap <= 1e-4, "the loop's output differs from the direct step on its bytes")
+    _require(launches == {"fft_detect_rows_ct": steps, "gcc_pair_lag_mags": steps}, f"loop launches {launches}")
+    _require(stats.bytes_consumed == steps * block_bytes, "loop byte accounting")
+    del outs, last, direct, loop
+    torch.cuda.empty_cache()
+
+    # 28.2: the paced ring at real time, bench.py run_ingest_bench's settings
+    legs = []
+    for chans, bpd, steps in ((narrow, 1, 30), (narrow, 4, 8), (wide, 1, 30), (wide, 4, 8)):
+        rate = chans * buoys * fs
+        loop = runner.IngestLoop.from_pipeline(pipe, None, channels=chans, anchors=anchors(chans),
+                                               blocks_per_dispatch=bpd, source_samples_per_s=rate)
+        loop.warm_compile()
+        ring = 1 << max(24, (loop.block_bytes * 8).bit_length())
+        ing = NativeIngest.open_synthetic_paced(1, bytes_per_s=2.0 * rate, ring_bytes=ring)
+        loop.ingest = ing
+        try:
+            st = loop.run(steps, warmup_steps=0)
+            ring_st = ing.stats()
+        finally:
+            ing.close()
+        copy_ms = loop.copy_ms_per_step()
+        print(
+            f"phase 28: paced ring at real time ({2.0 * rate / 1e9:.3f} GB/s, ring {ring >> 20} MiB), {chans} ch x "
+            f"{buoys} buoys x {n}, blocks_per_dispatch {bpd}, {steps} steps: {st.sustained_samples_per_s:.4e} IQ "
+            f"samples/s, real_time_ratio {st.real_time_ratio:.4f}, {1e3 * st.elapsed_s / steps:.3f} ms/step, host read "
+            f"{st.host_read_ms_per_step:.3f} ms, copy issue {st.transfer_ms_per_step:.3f} ms, copy (CUDA events) "
+            f"{ms(copy_ms)} ms a step; dropped {st.dropped_bytes} B, consumed {st.bytes_consumed} B, written "
+            f"{ring_st['bytes_written']} B {tag}"
+        )
+        _require(st.bytes_consumed == steps * loop.block_bytes and ring_st["error"] == 0
+                 and ring_st["bytes_written"] >= st.bytes_consumed, "paced ring accounting")
+        legs.append({"channels": chans, "blocks_per_dispatch": bpd, "real_time_ratio": st.real_time_ratio,
+                     "dropped_bytes": st.dropped_bytes, "copy_ms": copy_ms})
+        del loop
+        torch.cuda.empty_cache()
+
+    # 28.3: the loopback leg: paced ring -> pinned slot -> copy -> decode + a sparse reduce on the card
+    chans, steps = narrow, 60
+    rate = chans * buoys * fs
+
+    def consume(raw, _anchors):
+        re, im = iq.decode_uint8_split(raw)
+        return re[..., ::4097].sum() + im[..., ::4097].sum()
+
+    loop = runner.IngestLoop(consume, None, channels=chans, num_buoys=buoys, block_len=n,
+                             anchors=anchors(1), source_samples_per_s=rate, device=dev, drain_threads=4)
+    loop.warm_compile()
+    ring = 1 << max(24, (loop.block_bytes * 32).bit_length())
+    ing = NativeIngest.open_synthetic_paced(2, bytes_per_s=2.0 * rate, ring_bytes=ring, chunk_bytes=1 << 18)
+    loop.ingest = ing
+    try:
+        st = loop.run(steps, warmup_steps=0)
+    finally:
+        ing.close()
+    print(
+        f"phase 28: loopback leg ({chans} ch, paced ring -> pinned slot, 4-thread drain -> copy -> decode + sparse "
+        f"reduce on the card), {steps} steps: real_time_ratio {st.real_time_ratio:.4f}, host read "
+        f"{st.host_read_ms_per_step:.3f} ms, copy issue {st.transfer_ms_per_step:.3f} ms, copy (CUDA events) "
+        f"{ms(loop.copy_ms_per_step())} ms a step; dropped {st.dropped_bytes} B, consumed {st.bytes_consumed} B {tag}"
+    )
+    _require(st.bytes_consumed == steps * loop.block_bytes, "loopback accounting")
+    legs.append({"channels": chans, "loopback": True, "real_time_ratio": st.real_time_ratio,
+                 "dropped_bytes": st.dropped_bytes})
+    return {"launches": launches, "steps": steps, "legs": legs}
+
+
+def _buoy_phase(np, torch, sim, dev, tag, counters):
+    """Phase 29: ``runtime.buoy.simulated_buoy`` on the card against a CPU
+    ``BuoyNode`` on the same samples. Returns K7's launches a dwell."""
+    import asyncio
+
+    from radio_mapper_tpu_torch import constants
+    from radio_mapper_tpu_torch.runtime import buoy
+
+    scen = sim.default_scenario(signal="fm", bandwidth_hz=16e3, freq_offset_hz=150e3, snr_db=25.0, seed=5,
+                                block_len=16_384)
+    node = buoy.simulated_buoy(scen, 0, device=dev)
+    node.gps.initialize()
+    node.schedule = (constants.ScheduleEntry(scen.center_frequency_mhz, 35.0, "emergency"),)  # on channel
+    seen, read = [], node.source.read
+    node.source.read = lambda k: seen.append(read(k)) or seen[-1]
+    asyncio.run(node.scan_once())  # warm-up: the kernels' first launch
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    dets = asyncio.run(node.scan_once())
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_counts(counters).items() if v}
+    iq_block = seen[-1]
+    center = scen.center_frequency_mhz * 1e6
+    cpu = buoy.BuoyNode(node.config, source=node.source, gps=node.gps, device="cpu")
+    ref = cpu.detect_block(iq_block, center)
+    same = len(dets) == len(ref) and all(
+        (a.frequency_mhz, a.confidence, a.signal_type) == (b.frequency_mhz, b.confidence, b.signal_type)
+        for a, b in zip(dets, ref))
+    same_bw = bool(np.array_equal(node.last_bandwidths_hz, cpu.last_bandwidths_hz))
+    to = lambda a, where: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(where)
+    gp, _ = node._detector()(to(iq_block.real, dev), to(iq_block.imag, dev))
+    cp, _ = cpu._detector()(to(iq_block.real, "cpu"), to(iq_block.imag, "cpu"))
+    valid = cp.valid.numpy()
+    same_valid = bool(np.array_equal(gp.valid.cpu().numpy(), valid))
+    pw_gap = float(np.abs(gp.power_db.cpu().numpy()[valid] - cp.power_db.numpy()[valid]).max()) if valid.any() else 0.0
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        node.detect_block(iq_block, center)
+        times.append(1e3 * (time.perf_counter() - t0))
+    detect_ms = statistics.median(times)
+    # waveform search over the node's history, on the card and on the CPU
+    cpu.signal_history.extend(node.signal_history)
+    cpu.snippet_history.extend(node.snippet_history)
+    pattern = np.roll(node.snippet_history[-1][1], 11) * np.exp(0.7j)
+    g_match, c_match = node.match_signal_pattern(pattern, min_score=0.0), cpu.match_signal_pattern(pattern, min_score=0.0)
+    score_gap = max(abs(a[1] - b[1]) for a, b in zip(g_match, c_match))
+    same_lags = [a[2] for a in g_match] == [b[2] for b in c_match]
+    print(
+        f"phase 29: simulated buoy on the card, scan_once on {scen.center_frequency_mhz} MHz ({len(dets)} detections, "
+        f"strongest {dets[0].frequency_mhz if dets else None} MHz): vs a CPU BuoyNode on the same samples: detections "
+        f"equal {same}, bandwidths equal {same_bw}, peaks valid equal {same_valid}, power {pw_gap:.3e} dB (tol 1e-3); "
+        f"launches a dwell {launches}; detect_block {detect_ms:.3f} ms a dwell; match_signal_pattern over "
+        f"{len(g_match)} snippets: scores {score_gap:.3e} apart (tol 1e-5), lags equal {same_lags} {tag}"
+    )
+    _require(dets and same and same_bw and same_valid and pw_gap <= 1e-3, "buoy: card and CPU disagree")
+    _require(launches == {"fft_rows": 1}, f"buoy dwell launches {launches}")
+    _require(g_match and score_gap <= 1e-5 and same_lags, "buoy pattern match: card and CPU disagree")
+    return {"launches": launches, "detect_ms": detect_ms}
 
 
 def main() -> int:
@@ -2311,6 +2596,11 @@ def main() -> int:
 
     parallel = _parallel_phases(np, torch, sim, wcfg, tag)
 
+    # ---- phases 27-29: the wideband fallback (F4), the ingest loop, the buoy service
+    fallback = _wideband_fallback_phase(np, torch, sim, dev, tag, counters, wcfg, blocks)
+    ingest = _ingest_phase(np, torch, dev, tag, counters)
+    buoy_run = _buoy_phase(np, torch, sim, dev, tag, counters)
+
     def rows_entry(shape, err, ms, plain_ms, bound, library_ms):
         return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms}
@@ -2362,12 +2652,14 @@ def main() -> int:
               long_source=["fft_rows_ct_cluster.cu", "fft_rows_ct_long.cu", "detect_ct.cu"], long_name="K1",
               mixed_rows=mixed("K1"), topk=topk("K1"),
               launches_block_len_57344=mixed_launches.get("fft_detect_rows_ct", 0),
+              launches_ingest=ingest["launches"].get("fft_detect_rows_ct", 0),
               parallel=parallel("fft_detect_rows_ct")),
         entry("gcc_pair_lag_mags", "gcc_pair.cu", "gcc_kernel.py:358",
               launches["gcc_pair_lag_mags"], max(win_abs, k2_modes["l2"][0], k2_modes["l1"][0]), k2_ms, k2_plain_ms,
               _bound(_pair_flops(chans * npairs, nfft, width),
                      nrows * nfft * 8 + nrows * 4 + chans * npairs * width * 4), k2_fft,
               mixed_rows=mixed("K2"), launches_block_len_57344=mixed_launches.get("gcc_pair_lag_mags", 0),
+              launches_ingest=ingest["launches"].get("gcc_pair_lag_mags", 0),
               parallel=parallel("gcc_pair_lag_mags")),
         entry("fft_rows_ct", "fft_rows_ct.cu", "fft_kernel.py:446",
               wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound,
@@ -2400,6 +2692,7 @@ def main() -> int:
               launches_block_len_32768=k7_launches32 // nblocks32,
               launches_complex_step=complex_k7_per_block,
               complex_step_rows=[rows_entry([crows, n], cf_abs, cf_ms, cf_plain_ms, cf_bound, cf_lib_ms)],
+              launches_buoy=buoy_run["launches"].get("fft_rows", 0),
               parallel=parallel("fft_rows")),
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
               route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft,

@@ -1,5 +1,6 @@
-"""The CUDA card the port runs on, a check that one is present, and the
-thread count of the kernels' plain versions on the CPU."""
+"""The CUDA card the port runs on, a check that one is present, the
+thread count of the kernels' plain versions on the CPU, and the barrier
+that closes a timed run of queued device work."""
 
 from __future__ import annotations
 
@@ -10,6 +11,21 @@ import subprocess
 from typing import Iterator
 
 import torch
+
+
+def completion_barrier(device: torch.device) -> None:
+    """Wait until the work queued on ``device``'s current stream has
+    finished.
+
+    Replaces the reference's ``utils/device.force_fetch`` (one host fetch
+    of a value derived from every output): on a CUDA device a CUDA event is
+    recorded on the current stream, after the last queued step, and
+    synchronized; on the CPU the work is already done and this is a no-op.
+    """
+    if device.type == "cuda":
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(device))
+        ev.synchronize()
 
 
 @contextlib.contextmanager

@@ -1,7 +1,9 @@
 """Wideband channelized TDOA (BASELINE config 4) on one device.
 
 Port of ``radio_mapper_tpu/models/wideband.py`` (``WidebandConfig``,
-``WidebandOutput``, ``WidebandTDOAPipeline``) on the fused pair stage the
+``WidebandOutput``, ``WidebandTDOAPipeline``). Where
+``split_complex.gcc_fused_enabled(sub_block + max_lag, weighting)`` holds
+(the default for "phat" and "cc"), the pair stage is the fused one the
 reference runs on the TPU: "phat" under the gate of
 ``gcc_pair.set_phat_gate`` (l2rx by default, with s2 from per-receiver
 maxima; l2 or l1 from each pair's own maximum) or "cc" (not whitened):
@@ -16,6 +18,16 @@ maxima; l2 or l1 from each pair's own maximum) or "cc" (not whitened):
         (or, when the reference's gate says no, per subchannel:
          index gather of 4 × [P, nfft] rows → K6)
       → peak pick + PSR weights + LM solve, batched over M  ops.gcc_phat, solver
+
+Otherwise (``set_gcc_fused("off")``, or "scot" and "roth") it is the
+reference's natural-grid fallback, per subchannel: zero-pad to
+``fft.friendly_fft_len(sub_block + max_lag)``, the natural-order forward
+(``fft.fft_re_im``), the pair gather by index, then
+``gcc_phat.weighted_lag_window``: R = X·conj(Y), the textbook
+``|R| + eps·max|R|`` whitening for "phat" only (the other weightings run
+unwhitened, as in the reference), the inverse by conjugation and the lag
+window. At config 4 that nfft is 4320, which the matmul four-step takes:
+no kernel, as in the reference.
 
 The reference scans subchannels only to bound TPU memory; here the K5
 route holds the [M, B, nfft] spectra (42 MB at full width) and runs every
@@ -35,9 +47,11 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from radio_mapper_tpu_torch import solver
 from radio_mapper_tpu_torch.ops import ct_plan, safe
+from radio_mapper_tpu_torch.ops import fft as fft_ops
 from radio_mapper_tpu_torch.ops import gcc_phat as gcc_ops
 from radio_mapper_tpu_torch.ops import split_complex as sc_ops
 from radio_mapper_tpu_torch.ops.cuda import gcc_pair
@@ -86,6 +100,8 @@ class WidebandConfig:
 
     @property
     def nfft(self) -> int:
+        """The fused pair stage's FFT length (the fallback's is
+        ``fft.friendly_fft_len(sub_block + max_lag)``)."""
         return ct_plan.plan_nfft(self.sub_block + self.max_lag)
 
     def validate(self) -> "WidebandConfig":
@@ -93,11 +109,8 @@ class WidebandConfig:
             raise ValueError("max_lag must be < sub_block")
         if self.num_buoys < 2:
             raise ValueError("need at least 2 receivers")
-        if self.weighting not in gcc_pair.WEIGHTINGS:
-            raise NotImplementedError(
-                f"weighting {self.weighting!r} is not ported: the fused pair stage takes "
-                f"{gcc_pair.WEIGHTINGS} (ROADMAP M6)"
-            )
+        if self.weighting not in gcc_ops.WEIGHTINGS:
+            raise ValueError(f"unknown weighting {self.weighting!r}; expected one of {gcc_ops.WEIGHTINGS}")
         return self
 
 
@@ -115,6 +128,9 @@ class WidebandTDOAPipeline:
     Inputs must already lie on ``device`` (the card by default; CPU callers
     pass ``device="cpu"``). On a CUDA device K3 and K5 (or K6) run the
     hand-written kernels; on the CPU they run their plain PyTorch versions.
+    The route is fixed when the pipeline is built, from the knob
+    ``split_complex.set_gcc_fused`` and the weighting (``use_fused``), as
+    the reference fixes it.
     """
 
     def __init__(self, config: WidebandConfig, *, device: torch.device | str = "cuda"):
@@ -127,6 +143,9 @@ class WidebandTDOAPipeline:
         self.pair_i_np, self.pair_j_np = i_idx, j_idx
         self.pair_i = torch.as_tensor(i_idx, dtype=torch.int64, device=self.device)
         self.pair_j = torch.as_tensor(j_idx, dtype=torch.int64, device=self.device)
+        self.use_fused = sc_ops.gcc_fused_enabled(config.sub_block + config.max_lag, config.weighting)
+        self.pair_nfft = (config.nfft if self.use_fused
+                          else fft_ops.friendly_fft_len(config.sub_block + config.max_lag))
 
     def _on_device(self, *xs: torch.Tensor) -> None:
         for x in xs:
@@ -142,11 +161,14 @@ class WidebandTDOAPipeline:
         ``[..., P, 2L+1]`` (the reference's per-subchannel ``_pair_stage``,
         here over any leading axes at once).
 
-        ``on_stage`` is called after "fft", "s2" and "pair".
+        ``on_stage`` is called after "fft", "s2" and "pair" (on the
+        fallback, which has no gate scales, "s2" marks an empty span).
         """
         c = self.config
         mark = on_stage or (lambda _name: None)
         lag = c.max_lag
+        if not self.use_fused:
+            return self._natural_pair_stage(cre, cim, mark)
         fr, fi, nfft = sc_ops.receiver_spectra_ct(cre, cim, max_lag=lag)  # K3
         mark("fft")
         # Per-pair l2rx gate scales from per-receiver maxima: one [.., B, nfft]
@@ -173,6 +195,30 @@ class WidebandTDOAPipeline:
             ]).reshape(*lead, p, 2 * lag + 1)
         mark("pair")
         return mags
+
+    def _natural_pair_stage(self, cre, cim, mark) -> torch.Tensor:
+        """The reference's fallback pair stage (``_pair_stage`` when not
+        ``_use_fused``) over any leading axes, one subchannel at a time as
+        the reference's scan runs it: natural-order spectra at the 5-smooth
+        nfft, the pair gather, then the GCC body of ``ops.gcc_phat``
+        (R = X·conj(Y), whitened for "phat" only, the inverse by
+        conjugation, the ±max_lag window) and |r|."""
+        c = self.config
+        nfft = self.pair_nfft
+        pad = lambda a: F.pad(a.to(torch.float32), (0, nfft - c.sub_block))
+        fr, fi = fft_ops.fft_re_im(pad(cre), pad(cim))
+        mark("fft")
+        mark("s2")
+        lead = fr.shape[:-2]
+        frs, fis = fr.reshape(-1, c.num_buoys, nfft), fi.reshape(-1, c.num_buoys, nfft)
+        weighting = "phat" if c.weighting == "phat" else "cc"  # the reference whitens "phat" only here
+        mags = [
+            gcc_ops.pair_lag_mags(xr, xi, self.pair_i, self.pair_j, max_lag=c.max_lag,
+                                  weighting=weighting, eps=c.gcc_eps)
+            for xr, xi in zip(frs, fis)
+        ]
+        mark("pair")
+        return torch.stack(mags).reshape(*lead, c.num_pairs, 2 * c.max_lag + 1)
 
     def _rows_pair_stage(self, fr, fi, s2):
         """One subchannel on the K6 route: gather 4 × [P, nfft] rows by
@@ -263,7 +309,8 @@ def build_wideband_sharded_step(mesh, config: WidebandConfig, *, axis: str = "su
     Port of the reference's ``build_wideband_sharded_step``. Every rank
     channelizes the whole block (replicated: ~2% of one subchannel's pair
     stage), keeps its M/n subchannels, runs :meth:`WidebandTDOAPipeline._pair_stage`
-    (K3, then K5 or K6) and :meth:`WidebandTDOAPipeline._batched_tail` on
+    (K3, then K5 or K6; or the natural-grid fallback where the route knob
+    says so) and :meth:`WidebandTDOAPipeline._batched_tail` on
     them (no collective in the hot path), and all_gathers the outputs over
     ``axis``.
 

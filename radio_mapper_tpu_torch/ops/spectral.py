@@ -1,10 +1,13 @@
-"""Spectral helpers of the natural-order detection: the complex power
-spectrum, bin frequencies and the −3 dB bandwidth walk.
+"""Spectral analysis: the complex power spectrum, bin frequencies,
+framing, Welch averaging, spectrograms and the −3 dB bandwidth walk.
 
 Port of ``radio_mapper_tpu/ops/spectral.py`` (``power_spectrum_db``,
-``fft_frequencies_hz``, ``estimate_bandwidth_hz`` with its safe-mode
-branch — the one the TPU runs: a boxcar built from rolls and a
-gather-free walk).
+``fft_frequencies_hz``, ``absolute_frequencies_hz``, ``frame_signal``,
+``welch_psd_db``, ``spectrogram_db``, ``estimate_bandwidth_hz`` with its
+safe-mode branch — the one the TPU runs: a boxcar built from rolls and a
+gather-free walk). Everything is batched over leading axes; the
+transforms go through :func:`.fft.fft` (kernel K7 on the card at the
+lengths it routes there).
 """
 
 from __future__ import annotations
@@ -41,10 +44,73 @@ def power_spectrum_db(
     return 20.0 * torch.log10(x.abs() + DB_EPS)
 
 
-def fft_frequencies_hz(n: int, sample_rate_hz: float) -> np.ndarray:
-    """Baseband bin frequencies of an ``n``-point FFT, un-shifted (numpy;
-    static)."""
-    return np.fft.fftfreq(n, d=1.0 / sample_rate_hz)
+def fft_frequencies_hz(n: int, sample_rate_hz: float, *, shift: bool = False) -> np.ndarray:
+    """Baseband bin frequencies of an ``n``-point FFT (numpy; static),
+    fftshifted with ``shift``."""
+    f = np.fft.fftfreq(n, d=1.0 / sample_rate_hz)
+    return np.fft.fftshift(f) if shift else f
+
+
+def absolute_frequencies_hz(
+    n: int, sample_rate_hz: float, center_frequency_hz: float, *, shift: bool = False
+) -> np.ndarray:
+    """Absolute RF frequency of each bin."""
+    return fft_frequencies_hz(n, sample_rate_hz, shift=shift) + center_frequency_hz
+
+
+def frame_signal(iq: torch.Tensor, frame_len: int, hop: int) -> torch.Tensor:
+    """Overlapping frames of ``[..., N]``: ``[..., num_frames, frame_len]``,
+    the trailing remainder dropped."""
+    n = iq.shape[-1]
+    num_frames = 1 + (n - frame_len) // hop if n >= frame_len else 0
+    if num_frames <= 0:
+        raise ValueError(f"signal length {n} < frame_len {frame_len}")
+    idx = np.arange(num_frames)[:, None] * hop + np.arange(frame_len)[None, :]
+    return iq[..., torch.as_tensor(idx, device=iq.device)]
+
+
+def _windowed_frame_spectra(iq, nfft, overlap, window):
+    hop = max(1, int(nfft * (1.0 - overlap)))
+    frames = frame_signal(iq, nfft, hop)
+    w = torch.from_numpy(get_window(window, nfft)).to(frames.device)
+    return fft_ops.fft(frames * w)
+
+
+def welch_psd_db(
+    iq: torch.Tensor,
+    *,
+    nfft: int = 1024,
+    overlap: float = 0.5,
+    window: str = "hann",
+    shift: bool = True,
+    reduce: str = "mean",
+) -> torch.Tensor:
+    """Welch-averaged power spectral density in dB, ``[..., nfft]``:
+    windowed frames at ``overlap``, |X|² averaged over the frames (or their
+    per-bin maximum, ``reduce="peak"``: rtl_power's peak hold), then
+    ``10·log10(p + 1e-12)``."""
+    if reduce not in ("mean", "peak"):
+        raise ValueError(f"unknown reduce {reduce!r}")
+    mag2 = _windowed_frame_spectra(iq, nfft, overlap, window).abs() ** 2
+    p = mag2.amax(dim=-2) if reduce == "peak" else mag2.mean(dim=-2)
+    if shift:
+        p = fft_ops.fftshift(p)
+    return 10.0 * torch.log10(p + DB_EPS)
+
+
+def spectrogram_db(
+    iq: torch.Tensor,
+    *,
+    nfft: int = 1024,
+    overlap: float = 0.5,
+    window: str = "hann",
+    shift: bool = True,
+) -> torch.Tensor:
+    """Per-frame power spectra ``[..., num_frames, nfft]`` in dB."""
+    spec = _windowed_frame_spectra(iq, nfft, overlap, window)
+    if shift:
+        spec = fft_ops.fftshift(spec)
+    return 20.0 * torch.log10(spec.abs() + DB_EPS)
 
 
 def estimate_bandwidth_hz(

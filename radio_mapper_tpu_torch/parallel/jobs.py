@@ -120,13 +120,18 @@ def ep_step(ctx: RankContext, config: pair_ep.PairEPConfig, re: np.ndarray, im: 
 
 
 def wideband_sharded(ctx: RankContext, config: wb.WidebandConfig, re: np.ndarray, im: np.ndarray,
-                     anchors: np.ndarray, onehot: str = "auto") -> wb.WidebandOutput:
+                     anchors: np.ndarray, onehot: str = "auto", fused: str = "auto") -> wb.WidebandOutput:
     """``build_wideband_sharded_step`` over one "sub" axis of every rank;
-    ``onehot`` sets ``gcc_pair.set_onehot_pairs`` (K5 "on", K6 "off")."""
+    ``onehot`` sets ``gcc_pair.set_onehot_pairs`` (K5 "on", K6 "off") and
+    ``fused`` ``split_complex.set_gcc_fused`` ("off": the natural-grid
+    fallback) while the step is built and run."""
     mesh = mesh_lib.make_mesh((ctx.world_size,), ("sub",), device=ctx.device.type)
+    prev = sc_ops.gcc_fused_mode()
     gcc_pair.set_onehot_pairs(onehot)
+    sc_ops.set_gcc_fused(fused)
     try:
         step, _ = wb.build_wideband_sharded_step(mesh, config)
         return step(_to(ctx, re), _to(ctx, im), _to(ctx, anchors))
     finally:
+        sc_ops.set_gcc_fused(prev)
         gcc_pair.set_onehot_pairs("auto")

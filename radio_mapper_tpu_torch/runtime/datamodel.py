@@ -1,21 +1,115 @@
-"""The records the central TDOA engine reads and writes.
+"""The records the central TDOA engine and the buoy service read and
+write, and the buoy's wire helpers.
 
 Copies of ``radio_mapper_tpu/runtime/datamodel.py``'s ``BuoyPosition``,
-``SignalDetection``, ``TDoAMeasurement`` and ``TriangulationResult`` and
-of ``utc_now_iso``: importing the reference's module would load JAX
-through its package ``__init__``. A test asserts that the field names,
-types and defaults equal the reference's.
+``SignalDetection``, ``TDoAMeasurement``, ``TriangulationResult`` and
+``BuoyStatus``, and of its wire helpers (``utc_now_iso``, ``parse_iso``,
+``NumpyJSONEncoder``, ``to_json``, the IQ snippet codecs
+``encode_iq_wire``/``decode_iq_wire`` and ``detection_wire_dict``):
+importing the reference's module would load JAX through its package
+``__init__``. Tests assert that the field names, types and defaults and
+the wire bytes equal the reference's.
 """
 
 from __future__ import annotations
 
+import base64
 import dataclasses
+import json
 from datetime import datetime, timezone
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
+
+import numpy as np
 
 
 def utc_now_iso() -> str:
     return datetime.now(timezone.utc).isoformat()
+
+
+def parse_iso(ts: str) -> datetime:
+    """Tolerant ISO parse (accepts a trailing 'Z')."""
+    return datetime.fromisoformat(ts.replace("Z", "+00:00"))
+
+
+class NumpyJSONEncoder(json.JSONEncoder):
+    """JSON encoder for numpy scalars and arrays, datetimes and complex IQ
+    snippets (as ``[re, im]`` pairs)."""
+
+    def default(self, obj):
+        if isinstance(obj, np.bool_):
+            return bool(obj)
+        if isinstance(obj, (np.integer,)):
+            return int(obj)
+        if isinstance(obj, (np.floating,)):
+            return float(obj)
+        if isinstance(obj, np.ndarray):
+            if np.iscomplexobj(obj):
+                return [[float(v.real), float(v.imag)] for v in obj]
+            return obj.tolist()
+        if isinstance(obj, (complex, np.complexfloating)):
+            return [float(obj.real), float(obj.imag)]
+        if isinstance(obj, datetime):
+            return obj.isoformat()
+        return super().default(obj)
+
+
+def to_json(obj: Any) -> str:
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        obj = dataclasses.asdict(obj)
+    return json.dumps(obj, cls=NumpyJSONEncoder)
+
+
+# IQ snippets travel as base64 of interleaved I/Q: "u8" (uint8 about 127.5
+# with a per-snippet scale, the dongle's own 8 bits), "f16" (half floats),
+# or "json" (float pairs, the format a message without ``iq_format`` has).
+IQ_WIRE_FORMATS = ("json", "u8", "f16")
+
+
+def encode_iq_wire(iq, fmt: str = "u8"):
+    """Encode a complex snippet for the wire: ``(samples, extra)``, the
+    message's ``iq_samples`` value and the ``iq_format`` (plus ``iq_scale``
+    for "u8") keys to merge into the message."""
+    arr = np.asarray(iq, np.complex64)
+    inter = np.empty(2 * arr.size, np.float32)
+    inter[0::2] = arr.real
+    inter[1::2] = arr.imag
+    if fmt == "u8":
+        scale = float(np.max(np.abs(inter))) or 1.0
+        q = np.clip(np.round(inter / scale * 127.5 + 127.5), 0, 255).astype(np.uint8)
+        return base64.b64encode(q.tobytes()).decode("ascii"), {"iq_format": "u8", "iq_scale": scale}
+    if fmt == "f16":
+        return base64.b64encode(inter.astype(np.float16).tobytes()).decode("ascii"), {"iq_format": "f16"}
+    if fmt == "json":
+        return [[float(v.real), float(v.imag)] for v in arr], {"iq_format": "json"}
+    raise ValueError(f"unknown iq wire format {fmt!r} (want one of {IQ_WIRE_FORMATS})")
+
+
+def decode_iq_wire(samples, fmt: Optional[str] = None, scale: float = 1.0) -> np.ndarray:
+    """Decode a wire ``iq_samples`` payload back to complex64."""
+    if fmt in (None, "json"):
+        return np.asarray(
+            [complex(v[0], v[1]) if isinstance(v, (list, tuple)) else complex(v) for v in samples],
+            np.complex64,
+        )
+    raw = base64.b64decode(samples)
+    if fmt == "u8":
+        inter = (np.frombuffer(raw, np.uint8).astype(np.float32) - 127.5) / 127.5
+        inter = inter * np.float32(scale or 1.0)
+    elif fmt == "f16":
+        inter = np.frombuffer(raw, np.float16).astype(np.float32)
+    else:
+        raise ValueError(f"unknown iq wire format {fmt!r}")
+    return (inter[0::2] + 1j * inter[1::2]).astype(np.complex64)
+
+
+def detection_wire_dict(det: "SignalDetection", iq_format: str = "u8") -> Dict:
+    """``asdict(det)`` with the snippet encoded for the wire."""
+    d = dataclasses.asdict(det)
+    if det.iq_samples is not None and len(det.iq_samples):
+        samples, extra = encode_iq_wire(det.iq_samples, iq_format)
+        d["iq_samples"] = samples
+        d.update(extra)
+    return d
 
 
 @dataclasses.dataclass
@@ -81,3 +175,18 @@ class TriangulationResult:
     ellipse_major_m: float = 0.0
     ellipse_minor_m: float = 0.0
     ellipse_orientation_deg: float = 0.0
+
+
+@dataclasses.dataclass
+class BuoyStatus:
+    """A buoy's heartbeat payload."""
+
+    buoy_id: str
+    lat: float
+    lng: float
+    gps_locked: bool
+    timing_accuracy_ns: int
+    sdr_active: bool
+    last_detection: Optional[str]
+    uptime_seconds: float
+    signals_detected: int

@@ -45,6 +45,9 @@ as its plain version is against JAX:
 - the complex ``fft``/``ifft`` through K7 vs the plain four-step within
   1e-4 of the row's max |X|, the complex ``step`` and ``StreamingTDOA``
   (the emitter's subchannel) on the card vs the CPU (``-k complex``);
+- the node side (``-k node``): ``IngestLoop`` on the card bit for bit
+  equal to the direct step on the ring's bytes; the buoy's
+  ``detect_block`` on the card equal to the CPU's;
 - the multi-device layer (``-k parallel``): the EP step, the sharded
   split step and the sharded wideband step with their ranks on the card
   at world size 1 (NCCL) and 2 (two ranks on one card, gloo) vs ranks on
@@ -1045,3 +1048,61 @@ def test_parallel_nccl_shift_across_cards():
     assert strong.any()
     np.testing.assert_allclose(gpu.lags[strong], cpu.lags[strong], atol=1e-3)
     np.testing.assert_allclose(gpu.fixes_enu[strong], cpu.fixes_enu[strong], atol=0.5)
+
+
+@pytest.mark.cuda
+def test_node_ingest_loop_on_card_equals_the_direct_step(cuda_device):
+    """``IngestLoop`` over an unpaced synthetic ring (every byte read is the
+    seed's stream) through pinned slots and a side stream: each output
+    equal, bit for bit, to ``step_split_uint8`` on the same bytes, K1 and
+    K2 once a step (``-k node``)."""
+    from radio_mapper_tpu_torch.ingest import native, runner
+
+    ch, b, n, steps = 4, 8, 16_384, 4
+    pipe = TDOAPipeline(PipelineConfig(num_buoys=b, block_len=n, sample_rate_hz=2.4e6, max_lag=512),
+                        device=cuda_device)
+    anchors = torch.from_numpy(np.random.default_rng(0).normal(scale=8e3, size=(ch, b, 3)).astype(np.float32))
+    loop = runner.IngestLoop.from_pipeline(pipe, None, channels=ch, anchors=anchors.to(cuda_device))
+    outs, step = [], loop.step
+    loop.step = lambda raw, a: outs.append(step(raw, a)) or outs[-1]
+    loop.warm_compile()
+    outs.clear()
+    ring = 1 << 23
+    loop.ingest = native.NativeIngest.open_synthetic(3, ring_bytes=ring)
+    k1, k2 = fft_detect.launch_count, gcc_pair.launch_count
+    try:
+        stats = loop.run(steps, warmup_steps=0)
+    finally:
+        loop.ingest.close()
+    assert (fft_detect.launch_count - k1, gcc_pair.launch_count - k2) == (steps, steps)
+    assert stats.bytes_consumed == steps * loop.block_bytes and loop.copy_ms_per_step() > 0
+    again = native.NativeIngest.open_synthetic(3, ring_bytes=ring)
+    try:
+        for out in outs:
+            raw, _ = again.read_bytes(loop.block_bytes, 30_000)
+            direct = pipe.step_split_uint8(torch.from_numpy(raw.reshape(ch, b, 2 * n)).to(cuda_device),
+                                           anchors.to(cuda_device))
+            leaves = lambda x: [x] if isinstance(x, torch.Tensor) else [t for f in x for t in leaves(f)]
+            for x, y in zip(leaves(out), leaves(direct)):
+                assert torch.equal(x, y)
+    finally:
+        again.close()
+
+
+@pytest.mark.cuda
+def test_node_buoy_on_card_matches_cpu(cuda_device):
+    """``BuoyNode.detect_block`` on the card (K7 once a dwell) and on the CPU
+    on the same simulated dwell: the same detections and bandwidths
+    (``-k node``)."""
+    from radio_mapper_tpu_torch.runtime import buoy
+
+    scen = sim.default_scenario(signal="fm", bandwidth_hz=16e3, freq_offset_hz=150e3, snr_db=25.0, seed=5)
+    node = buoy.simulated_buoy(scen, 0, device=cuda_device)
+    cpu = buoy.BuoyNode(node.config, source=node.source, gps=node.gps, device="cpu")
+    iq = node.source.read(node.config.block_len)
+    before = fft_natural.launch_count
+    gpu_dets = node.detect_block(iq, 121.5e6)
+    assert fft_natural.launch_count == before + 1
+    cpu_dets = cpu.detect_block(iq, 121.5e6)
+    assert [(d.frequency_mhz, d.confidence) for d in gpu_dets] == [(d.frequency_mhz, d.confidence) for d in cpu_dets]
+    assert gpu_dets and np.array_equal(node.last_bandwidths_hz, cpu.last_bandwidths_hz)

@@ -37,6 +37,10 @@ cap_cpu_threads()
         "DEFAULT_CONFIDENCE_FLOOR", "DEFAULT_SNR_FULLSCALE_DB",
         "DEFAULT_DC_NOTCH_HZ", "DEFAULT_PEAK_MIN_DISTANCE_BINS",
         "DEFAULT_BLOCK_SAMPLES",
+        # the ingest sources' and the buoy service's
+        "EARTH_RADIUS_M", "SDR_MIN_SAMPLE_RATE_HZ", "SDR_MAX_SAMPLE_RATE_HZ",
+        "SDR_LOSSLESS_MAX_RATE_HZ", "STREAM_BLOCK_SAMPLES", "EMERGENCY_FREQUENCIES_MHZ",
+        "TESTING_FREQUENCIES_MHZ", "SCAN_RANGES_MHZ", "CENTRAL_CORRELATION_WINDOW_S",
     ],
 )
 def test_constants_equal(name):

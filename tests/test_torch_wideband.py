@@ -159,9 +159,13 @@ def test_config_from_dict_validate_and_unported_routes():
         small_wideband_config(max_lag=1024).validate()
     with pytest.raises(ValueError):
         small_wideband_config(num_buoys=1).validate()
-    wideband.WidebandTDOAPipeline(small_wideband_config(weighting="cc"), device="cpu")
-    with pytest.raises(NotImplementedError):  # the fused pair stage takes phat and cc only
-        wideband.WidebandTDOAPipeline(small_wideband_config(weighting="scot"), device="cpu")
+    assert wideband.WidebandTDOAPipeline(small_wideband_config(weighting="cc"), device="cpu").use_fused
+    # "scot" and "roth" take the natural-grid fallback, as in the reference
+    for weighting in ("scot", "roth"):
+        pipe = wideband.WidebandTDOAPipeline(small_wideband_config(weighting=weighting), device="cpu")
+        assert not pipe.use_fused and pipe.pair_nfft == 1125  # friendly_fft_len(1088)
+    with pytest.raises(ValueError):
+        small_wideband_config(weighting="gauss").validate()
 
 
 @pytest.mark.parametrize("variant", ["cc", "l1", "l2"])
