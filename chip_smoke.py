@@ -194,7 +194,36 @@ per source, in parallel, sm_90a), then:
     the same samples (detections and bandwidths equal, power within 1e-3
     dB), K7 launched once a dwell, ``detect_block`` ms a dwell, and
     ``match_signal_pattern`` over the node's history within 1e-5 of the
-    CPU's scores, lags equal.
+    CPU's scores, lags equal;
+30. the demodulators (``ops/demod``): ``watch_demod_block`` on 8 watch
+    channels 250 kHz apart from one 2.4 MS/s capture (FM, broadcast FM
+    and AM carriers, the rest empty and squelched), 20 blocks of the
+    CLI's 0.1 s dwell with its channel and audio factors
+    (``cli.watch_block_plan``: 9 × 8) in nbfm, wbfm and am: ms a block
+    with its copies against the block's real time and on the card, card
+    vs CPU on 5 blocks a mode (open masks equal, audio within 1e-4 of the
+    max); the CLI's single-channel wbfm (2 s at 1.024 MS/s), card vs CPU;
+31. ADS-B: ``detect_frames`` on 64 blocks of 2^18 samples (the CLI's read
+    at 2 MS/s) holding 96 planted encoder frames (19 with a corrupted
+    CRC) and 16 noise-only blocks: starts, valid flags and bits equal to
+    the CPU's, scores within 1e-5; the decoded hex equal to the planted
+    frames (the corrupted ones only with the CRC gate off); ms a block;
+32. the power scan (``tools/power_scan.run_scan``) on the tone scene over
+    88–108 MHz at 10 kHz bins (nfft 256, 13 hops of 1 s, no kernel) and
+    one 1 s hop at 125 Hz bins on the tone's channel (nfft 16384: K7 on
+    the frames, its launches counted): dB within 1e-3 of the CPU's on
+    every bin, ms a hop;
+33. the central service: ``CentralProcessor(device="cuda")``, no socket
+    opened, fed the wire messages of 8 simulated buoys over 16 frequency
+    groups with 2048-sample u8 snippets through ``_dispatch``: 16
+    waveform fixes, equal to ``TDoAEngine.process_signal_detections``
+    called directly (within 1e-3 m) and within 1 m of the CPU service;
+    ms a correlation pass;
+34. the command line: ``python -m radio_mapper_tpu_torch --device cuda``
+    for ``simulate``, ``wideband``, ``stream`` (4 blocks), ``adsb --source
+    selftest``, ``demod --source sim`` (nbfm, 0.05 s) and ``scan --source
+    sim`` (120.5–122.5 MHz), six subprocesses started together: each exits
+    0 and prints its checked lines, ``simulate``'s error under 100 m.
 
 Each kernel's entry in the ``kernels`` line carries its sources (K1 and
 K3 with their long-row files, K7 with its cluster design's, K8 with its
@@ -224,7 +253,8 @@ size and rank (each counted in its rank from 0 just before that path's
 step), and its checks against the plain version inside the ranks
 (``rank_rows``, with times and bounds). K1 and K2 carry
 ``launches_ingest`` (phase 28's deterministic run, 8 steps) and K7
-``launches_buoy`` (phase 29's dwell).
+``launches_buoy`` (phase 29's dwell) and ``launches_scan`` (phase 32's
+125 Hz hop).
 
 Any failed check raises, so the run exits non-zero and prints no result
 line. The last two lines are a JSON object describing the kernels and,
@@ -236,6 +266,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import logging
 import math
 import statistics
 import sys
@@ -1124,6 +1155,346 @@ def _buoy_phase(np, torch, sim, dev, tag, counters):
     _require(launches == {"fft_rows": 1}, f"buoy dwell launches {launches}")
     _require(g_match and score_gap <= 1e-5 and same_lags, "buoy pattern match: card and CPU disagree")
     return {"launches": launches, "detect_ms": detect_ms}
+
+
+def _demod_phase(np, torch, dev, tag, counters):
+    """Phase 30: ``watch_demod_block`` on 8 watch channels of one 2.4 MS/s
+    capture, 20 blocks of the CLI's 0.1 s dwell in nbfm, wbfm and am, and
+    the CLI's single-channel wbfm for 2 s at 1.024 MS/s; card against CPU."""
+    from radio_mapper_tpu_torch import cli, sim
+    from radio_mapper_tpu_torch.ingest import SimulatedSource
+    from radio_mapper_tpu_torch.ops import demod
+
+    fs, blocks = 2_400_000.0, 20
+    factor, audio_factor, block = cli.watch_block_plan(fs, 256_000.0, 32_000.0, 0.1)
+    offsets = tuple(250e3 * (k - 3.5) for k in range(8))  # −875 … +875 kHz
+    n = blocks * block
+    t = np.arange(n) / fs
+    rng = np.random.default_rng(30)
+
+    def fm(dev_hz, msg_hz):
+        return np.exp(2j * np.pi * dev_hz * np.cumsum(np.sin(2 * np.pi * msg_hz * t)) / fs)
+
+    iq = (fm(5e3, 700.0) * np.exp(2j * np.pi * offsets[0] * t)  # narrowband FM
+          + 0.8 * fm(60e3, 1000.0) * np.exp(2j * np.pi * offsets[2] * t)  # broadcast-style FM
+          + 0.7 * (1 + 0.5 * np.sin(2 * np.pi * 600.0 * t)) * np.exp(2j * np.pi * (offsets[3] + 1.5e3) * t)  # AM
+          + 0.5 * fm(3e3, 400.0) * np.exp(2j * np.pi * offsets[5] * t)
+          + 0.01 * (rng.standard_normal(n) + 1j * rng.standard_normal(n))).astype(np.complex64)
+    del t
+    kw = dict(sample_rate_hz=fs, offsets_hz=offsets, channel_rate_hz=fs / factor,
+              audio_rate_hz=fs / factor / audio_factor, squelch_threshold=0.01)
+    host = lambda k: iq[k * block:(k + 1) * block]
+    real_ms = 1e3 * block / fs
+    checked = 5  # blocks held against the CPU a mode
+    _zero_counts(counters)
+    for mode in ("nbfm", "wbfm", "am"):
+        step = lambda x, mode=mode: demod.watch_demod_block(x, mode=mode, **kw)
+        step(torch.from_numpy(host(0)).to(dev))  # warm-up: tables built, cached on the card
+        torch.cuda.synchronize()
+        outs, opens, times = [], [], []
+        for k in range(blocks):  # as the CLI's loop: block up, demodulate, audio down
+            t0 = time.perf_counter()
+            audio, open_ = step(torch.from_numpy(host(k)).to(dev))
+            outs.append(audio.cpu().numpy())
+            opens.append(open_.cpu().numpy())
+            times.append(1e3 * (time.perf_counter() - t0))
+        xd = torch.from_numpy(host(0)).to(dev)
+        dev_ms = _cuda_ms(torch, lambda: step(xd))
+        err, same_open = 0.0, True
+        for k in range(checked):
+            ca, co = step(torch.from_numpy(host(k)))
+            same_open &= bool(np.array_equal(co.numpy(), opens[k]))
+            err = max(err, float(np.abs(outs[k] - ca.numpy()).max() / max(np.abs(ca.numpy()).max(), 1e-30)))
+        wall_ms = statistics.median(times)
+        print(
+            f"phase 30: watch {mode}, 8 channels 250 kHz apart from one {fs / 1e6:.1f} MS/s capture, {blocks} blocks "
+            f"of {block} samples (factor {factor} x {audio_factor}, audio [8, {outs[0].shape[-1]}]): {wall_ms:.3f} ms "
+            f"a block with its copies (real time {real_ms:.3f}, ratio {wall_ms / real_ms:.4f}), {dev_ms:.3f} ms on the "
+            f"card (CUDA events); open {opens[0].astype(int).tolist()}; card vs CPU over {checked} blocks: open "
+            f"masks equal {same_open}, audio {err:.3e} of the CPU's max (tol 1e-4) {tag}"
+        )
+        _require(same_open and err <= 1e-4, f"watch {mode}: card and CPU disagree")
+        _require(opens[0].tolist() == [True, False, True, True, False, True, False, False],
+                 f"watch {mode}: squelch {opens[0].tolist()}")
+    # the CLI's single-channel wbfm: `demod --source sim` defaults, 2 s at 1.024 MS/s
+    src = SimulatedSource(sim.default_scenario(signal="fm", bandwidth_hz=150e3), 0)
+    src.tune(src.scenario.center_frequency_mhz * 1e6)
+    x = src.read(int(2.0 * 1_024_000.0))
+    one = lambda where: cli._demod_audio(x, "wbfm", 1_024_000.0, 32_000.0, where)
+    one(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = one(dev).cpu().numpy()
+    one_ms = 1e3 * (time.perf_counter() - t0)
+    xd = torch.from_numpy(x).to(dev)
+    one_dev_ms = _cuda_ms(torch, lambda: cli._demod_audio(xd, "wbfm", 1_024_000.0, 32_000.0, dev))
+    c = one("cpu").numpy()
+    one_err = float(np.abs(a - c).max() / np.abs(c).max())
+    launches = {k: v for k, v in _read_counts(counters).items() if v}
+    print(
+        f"phase 30: wbfm, one channel, {x.size} samples (2 s at 1.024 MS/s) -> {a.size} audio samples: {one_ms:.3f} ms "
+        f"with its copies, {one_dev_ms:.3f} ms on the card (CUDA events); card vs CPU {one_err:.3e} of the max (tol "
+        f"1e-4); kernel launches in phase 30 {launches} (none: elementwise, the FIR and the recurrence) {tag}"
+    )
+    _require(one_err <= 1e-4 and np.isfinite(a).all() and a.size == 64_000, "wbfm: card and CPU disagree")
+
+
+def _adsb_phase(np, torch, dev, tag):
+    """Phase 31: ``detect_frames`` on 64 blocks of 2^18 samples at 2 MS/s
+    (the CLI's read), planted encoder frames and noise-only blocks; card
+    against CPU and the decoded frames against the planted ones."""
+    from radio_mapper_tpu_torch.ops import adsb
+
+    rows, n = 64, 1 << 18
+    rng = np.random.default_rng(31)
+    x = ((rng.standard_normal((rows, n), np.float32) + 1j * rng.standard_normal((rows, n), np.float32))
+         * 0.05).astype(np.complex64)
+    good, bad = [set() for _ in range(rows)], [set() for _ in range(rows)]
+    for r in range(48):  # rows 48-63 carry noise only
+        starts = np.sort(rng.choice(np.arange(1_000, n - 1_000, 1_000), 1 + r % 3, replace=False))
+        for j, s in enumerate(starts):
+            full = adsb.append_crc("8d" + bytes(rng.integers(0, 256, 10, dtype=np.uint8)).hex())
+            if (r + j) % 5 == 4:  # a corrupted frame: one byte of its payload flipped
+                b = bytearray(bytes.fromhex(full))
+                b[4] ^= 0x21
+                full = b.hex()
+                bad[r].add(f"*{full};")
+            else:
+                good[r].add(f"*{full};")
+            w = adsb.encode_frame_iq(full, noise=0.0, pad_before=0, pad_after=0)
+            x[r, s:s + w.size] += w
+    xd = torch.from_numpy(x).to(dev)
+    card = adsb.detect_frames(xd)
+    torch.cuda.synchronize()
+    cpu = adsb.detect_frames(torch.from_numpy(x))
+    same = all(torch.equal(getattr(card, f).cpu(), getattr(cpu, f)) for f in ("start_index", "valid", "bits"))
+    scale = cpu.score.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+    score_rel = ((card.score.cpu() - cpu.score).abs() / scale).max().item()
+
+    def decode():
+        c = adsb.detect_frames(xd)
+        packed = torch.cat([c.valid.to(torch.uint8).unsqueeze(-1), c.bits], dim=-1).cpu().numpy()
+        return packed[..., 0].astype(bool), packed[..., 1:]
+
+    valid, bits = decode()
+    strict = [set(adsb.frames_hex(valid[r], bits[r])) for r in range(rows)]
+    loose = [set(adsb.frames_hex(valid[r], bits[r], require_crc=False)) for r in range(rows)]
+    decoded_ok = strict == good and all(bad[r] <= loose[r] for r in range(rows))
+    det_ms = _cuda_ms(torch, lambda: adsb.detect_frames(xd))
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        decode()
+        times.append(1e3 * (time.perf_counter() - t0))
+    wall = statistics.median(times)
+    planted = sum(map(len, good)) + sum(map(len, bad))
+    print(
+        f"phase 31: ADS-B detect_frames on [{rows}, {n}] (2 MS/s, {1e3 * n / 2e6:.3f} ms a block), {planted} planted "
+        f"frames ({sum(map(len, bad))} with a bad CRC), 16 noise-only blocks: card vs CPU starts/valid/bits equal "
+        f"{same}, scores {score_rel:.3e} rel (tol 1e-5); decoded = planted (CRC on), bad frames seen with the CRC "
+        f"off: {decoded_ok}; {det_ms / rows:.4f} ms a block on the card (CUDA events), {wall / rows:.4f} ms a block "
+        f"with the candidates' copy to the host {tag}"
+    )
+    _require(same and score_rel <= 1e-5, "adsb: card and CPU candidates differ")
+    _require(decoded_ok, "adsb: decoded frames differ from the planted ones")
+
+
+def _scan_phase(np, torch, sim, dev, tag, counters):
+    """Phase 32: ``run_scan`` on the tone scene over 88-108 MHz at 10 kHz
+    bins (nfft 256) and one hop at 125 Hz bins (nfft 16384, K7), card vs
+    CPU. Returns K7's launches on the 125 Hz hop."""
+    from radio_mapper_tpu_torch.ingest import SimulatedSource
+    from radio_mapper_tpu_torch.tools import power_scan
+
+    src = lambda: SimulatedSource(sim.default_scenario(signal="tone"), 0)
+    out = {}
+    for name, lo, hi, bin_hz in (("coarse", 88e6, 108e6, 10_000.0), ("fine", 120.9e6, 121.1e6, 125.0)):
+        plan = power_scan.plan_scan(lo, hi, bin_hz=bin_hz)
+        if name == "fine":
+            power_scan.run_scan(src(), plan, device=dev)  # warm-up: K7's first launch
+        torch.cuda.synchronize()
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        res = power_scan.run_scan(src(), plan, device=dev)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / len(plan.hops)
+        launches = {k: v for k, v in _read_counts(counters).items() if v}
+        ref = power_scan.run_scan(src(), plan, device="cpu")
+        db = np.concatenate(res.power_db)
+        rdb = np.concatenate(ref.power_db)
+        db_gap = float(np.abs(db - rdb).max())
+        iq = src().read(res.samples_per_hop)
+        xd = torch.from_numpy(iq).to(dev)
+        psd_ms = _cuda_ms(torch, lambda: power_scan.welch_psd_db(xd, nfft=plan.nfft, window="hamming"))
+        print(
+            f"phase 32: scan {lo / 1e6:.1f}-{hi / 1e6:.1f} MHz at {plan.bin_hz:.2f} Hz bins: nfft {plan.nfft}, "
+            f"{len(plan.hops)} hops of {res.samples_per_hop} samples, {len(db)} bins; {wall:.3f} ms a hop with the "
+            f"source and the copies, {psd_ms:.3f} ms a hop's PSD on the card (CUDA events); card vs CPU "
+            f"{db_gap:.3e} dB (tol 1e-3, every bin); peak {rdb.max() - np.median(rdb):.1f} dB over the median; "
+            f"launches {launches} {tag}"
+        )
+        _require(db_gap <= 1e-3 and np.isfinite(db).all(), f"scan {name}: card and CPU differ")
+        out[name] = launches
+    _require(not out["coarse"], f"scan at nfft 256 launched {out['coarse']}")
+    _require(out["fine"].get("fft_rows", 0) >= 1, f"scan at nfft 16384: K7 not launched ({out['fine']})")
+    return out["fine"].get("fft_rows", 0)
+
+
+def _central_phase(np, torch, sim, dev, tag, counters):
+    """Phase 33: ``CentralProcessor(device="cuda")`` fed the wire messages
+    of 8 simulated buoys over 16 frequency groups (2048-sample u8
+    snippets), no socket opened; against the engine called directly and
+    against the CPU."""
+    import asyncio
+
+    from radio_mapper_tpu_torch import geo
+    from radio_mapper_tpu_torch.runtime import alerts, central, datamodel
+    from radio_mapper_tpu_torch.runtime.tdoa_engine import TDoAEngine
+
+    lat0, lng0, fs, t0_ns = 35.47, -97.51, 2_048_000.0, 1_700_000_000_000_000_000
+    ang = 2 * np.pi * np.arange(8) / 8
+    buoys = [(f"buoy-{k}", lat0 + 0.07 * np.sin(a), lng0 + 0.09 * np.cos(a), 10.0) for k, a in enumerate(ang)]
+    clock_ns = [int(v) for v in np.random.default_rng(33).integers(-120_000, 120_000, 8)]
+    now = datamodel.utc_now_iso()
+    regs = [{"type": "node_registration", "node_id": b[0], "lat": b[1], "lng": b[2], "timing_accuracy_ns": 100_000}
+            for b in buoys]
+    dets, emitters = [], []
+    for g in range(16):
+        elat, elng = lat0 + 0.03 * np.cos(g), lng0 + 0.03 * np.sin(1.7 * g)
+        scen = sim.default_scenario(emitter_lat=elat, emitter_lng=elng, signal="noise", bandwidth_hz=150e3,
+                                    snr_db=20.0, seed=100 + g, sample_rate_hz=fs, block_len=2048, buoys=buoys)
+        cap = sim.synthesize(scen)
+        emitters.append((elat, elng))
+        anchor = t0_ns + g * 2_000_000_000
+        for k, b in enumerate(scen.buoys):
+            det = datamodel.SignalDetection(
+                buoy_id=b.buoy_id, frequency_mhz=121.5 + 0.05 * g, signal_strength_dbm=-55.0, timestamp_utc=now,
+                gps_timestamp_ns=anchor + int(cap.geometric_delays_s[k, 0] * 1e9) + clock_ns[k], lat=b.lat,
+                lng=b.lng, confidence=0.9, signal_type="emergency", iq_samples=cap.iq[k].astype(np.complex64),
+                iq_sample_rate_hz=fs, iq_anchor_ns=anchor + clock_ns[k])
+            dets.append({"type": "signal_detection", "data": datamodel.detection_wire_dict(det, "u8")})
+
+    class Socket:
+        async def send(self, msg):
+            pass
+
+    def feed(where):
+        proc = central.CentralProcessor(host="127.0.0.1", ws_port=0, http_port=0, device=where,
+                                        correlation_window_s=3600.0, alerter=alerts.EmergencyAlerter(methods=[]))
+
+        async def run():
+            for m in regs:
+                await proc._dispatch(Socket(), None, m)
+            for m in dets:
+                await proc._dispatch(Socket(), m["data"]["buoy_id"], m)
+            while proc._corr_task is not None and not proc._corr_task.done():
+                await proc._corr_task
+
+        asyncio.run(run())
+        return proc
+
+    quiet = logging.getLogger("radio_mapper_tpu_torch.runtime.tdoa_engine")
+    level = quiet.level
+    quiet.setLevel(logging.ERROR)  # the engine logs a warning a fix of an emergency signal
+    feed(dev)  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    card = feed(dev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_counts(counters).items() if v}
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        asyncio.run(card.process_signal_correlations())
+        times.append(1e3 * (time.perf_counter() - t0))
+    pass_ms = statistics.median(times)
+    cpu = feed("cpu")
+    fixes, rfixes = card.triangulated_signals[:16], cpu.triangulated_signals
+    _require(len(fixes) == len(rfixes) == 16, f"central: {len(fixes)} / {len(rfixes)} fixes of 16 groups")
+    # the engine called directly on the groups the service built
+    eng = TDoAEngine(min_buoys=3, device=dev)
+    for b in buoys:
+        eng.register_buoy(datamodel.BuoyPosition(buoy_id=b[0], lat=b[1], lng=b[2], timing_accuracy_ns=100_000))
+    groups = {}
+    for d in card._recent:
+        groups.setdefault(round(d.frequency_mhz, 2), []).append(datamodel.SignalDetection(
+            buoy_id=d.node_id, frequency_mhz=d.frequency_mhz, signal_strength_dbm=d.signal_strength_dbm,
+            timestamp_utc=d.timestamp_utc, gps_timestamp_ns=d.gps_timestamp_ns, lat=d.lat, lng=d.lng,
+            confidence=d.confidence, signal_type=d.signal_type, iq_samples=d.iq_samples,
+            iq_sample_rate_hz=d.iq_sample_rate_hz, iq_anchor_ns=d.iq_anchor_ns))
+    direct = [r for g in groups.values() for r in eng.process_signal_detections(g)]
+    quiet.setLevel(level)
+    enu = lambda a, b: float(np.linalg.norm(geo.lat_lng_to_enu_np(a.estimated_lat, a.estimated_lng, 0.0,
+                                                                   b.estimated_lat, b.estimated_lng, 0.0)[:2]))
+    direct_gap = max(enu(a, b) for a, b in zip(fixes, direct))
+    bit_equal = all((a.estimated_lat, a.estimated_lng) == (b.estimated_lat, b.estimated_lng)
+                    for a, b in zip(fixes, direct))
+    cpu_gap = max(enu(a, b) for a, b in zip(fixes, rfixes))
+    methods = sorted({f.triangulation_method for f in fixes})
+    errs = [float(np.linalg.norm(geo.lat_lng_to_enu_np(f.estimated_lat, f.estimated_lng, 0.0, *e, 0.0)[:2]))
+            for f, e in zip(fixes, emitters)]
+    print(
+        f"phase 33: CentralProcessor(device='cuda'), 8 buoys x 16 frequency groups, 2048-sample u8 snippets, "
+        f"{len(dets)} detections through _dispatch: 16 fixes {methods}, error median {statistics.median(errs):.3f} m, "
+        f"max {max(errs):.3f} m; vs TDoAEngine called directly {direct_gap:.3e} m (tol 1e-3; bit for bit "
+        f"{bit_equal}); vs the CPU service {cpu_gap:.3e} m (tol 1); {pass_ms:.3f} ms a correlation pass "
+        f"({pass_ms / 16:.3f} a group); launches {launches} {tag}"
+    )
+    _require(methods == ["gcc-phat+lm"] and direct_gap <= 1e-3 and cpu_gap <= 1.0, "central: fixes disagree")
+    _require(max(errs) < 200.0, f"central: fix errors {errs}")
+
+
+def _cli_phase(tag):
+    """Phase 34: ``python -m radio_mapper_tpu_torch ... --device cuda`` in
+    subprocesses, all started together: each exits 0 and prints its
+    checked lines."""
+    import os
+    import re
+    import subprocess
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {
+            "simulate": ["simulate", "--seed", "4"],
+            "wideband": ["wideband"],
+            "stream": ["stream", "--blocks", "4"],
+            "adsb": ["adsb", "--source", "selftest"],
+            "demod": ["demod", "--source", "sim", "--mode", "nbfm", "--seconds", "0.05", "--output",
+                      os.path.join(tmp, "audio.s16le")],
+            "scan": ["scan", "120.5", "122.5", "--source", "sim"],
+        }
+        t0 = time.perf_counter()
+        procs = {k: subprocess.Popen([sys.executable, "-m", "radio_mapper_tpu_torch", "--device", "cuda", *v],
+                                     cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for k, v in runs.items()}
+        outs = {}
+        try:
+            for k, p in procs.items():
+                out, err = p.communicate(timeout=600)
+                outs[k] = (p.returncode, out, err)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+    for k, (rc, out, err) in outs.items():
+        _require(rc == 0, f"cli {k}: exit {rc}\n{err[-3000:]}")
+    sim_out = outs["simulate"][1]
+    err_m = float(re.search(r"^error: ([0-9.]+) m", sim_out, re.M).group(1))
+    checks = {
+        "simulate": "emitter (fix):" in sim_out and err_m < 100.0,
+        "wideband": "<- active" in outs["wideband"][1] and "active subchannel fix" in outs["wideband"][1],
+        "stream": len(re.findall(r"^block \d+: best subchannel", outs["stream"][1], re.M)) == 4,
+        "adsb": outs["adsb"][1].splitlines() == ["*8d4840d6202cc371c32ce0576098;"],
+        "demod": re.search(r"^wrote \d+ s16le samples @ 32000 Hz", outs["demod"][1], re.M) is not None,
+        "scan": len(outs["scan"][1].splitlines()) == 2,
+    }
+    lines = "; ".join(f"{k}: {(outs[k][1].strip().splitlines() or [''])[-1][:90]!r}" for k in runs)
+    print(f"phase 34: CLI on the card, {len(runs)} subprocesses together in {wall:.1f} s, all exit 0; simulate error "
+          f"{err_m:.1f} m (limit 100); checked lines {checks}; last lines: {lines} {tag}")
+    _require(all(checks.values()), f"cli: checks {checks}")
 
 
 def main() -> int:
@@ -2601,6 +2972,13 @@ def main() -> int:
     ingest = _ingest_phase(np, torch, dev, tag, counters)
     buoy_run = _buoy_phase(np, torch, sim, dev, tag, counters)
 
+    # ---- phases 30-34: demod, ADS-B, the power scan, the central service, the CLI
+    _demod_phase(np, torch, dev, tag, counters)
+    _adsb_phase(np, torch, dev, tag)
+    k7_scan = _scan_phase(np, torch, sim, dev, tag, counters)
+    _central_phase(np, torch, sim, dev, tag, counters)
+    _cli_phase(tag)
+
     def rows_entry(shape, err, ms, plain_ms, bound, library_ms):
         return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms}
@@ -2693,6 +3071,7 @@ def main() -> int:
               launches_complex_step=complex_k7_per_block,
               complex_step_rows=[rows_entry([crows, n], cf_abs, cf_ms, cf_plain_ms, cf_bound, cf_lib_ms)],
               launches_buoy=buoy_run["launches"].get("fft_rows", 0),
+              launches_scan=k7_scan,
               parallel=parallel("fft_rows")),
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
               route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft,

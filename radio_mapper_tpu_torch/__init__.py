@@ -31,7 +31,13 @@ each counterpart sits at the same path:
   (:mod:`.models.streaming_tdoa`: overlap-save channelizer → per-subchannel
   GCC → LM) and the central node's TDOA engine
   (:mod:`.runtime.tdoa_engine`: waveform and timestamp measurements →
-  multi-start LM → latitude and longitude).
+  multi-start LM → latitude and longitude);
+- the node and service side: the ingest loop (:mod:`.ingest`), the buoy
+  service and the central service (:mod:`.runtime.buoy`,
+  :mod:`.runtime.central`);
+- the receiver tools: demodulators (:mod:`.ops.demod`), ADS-B
+  (:mod:`.ops.adsb`) and the power scan (:mod:`.tools.power_scan`); and
+  the command line, ``python -m radio_mapper_tpu_torch`` (:mod:`.cli`).
 
 Each kernel is CUDA C++ under ``csrc/`` with a plain PyTorch version
 beside it. The package imports ``torch`` and numpy only; it never

@@ -1,3 +1,3 @@
-"""Compute bodies of the runtime services: the buoy's detection dwell and
-the central node's TDOA engine (the services around them stay in the JAX
-package)."""
+"""The runtime services: the buoy node and its detection dwell, the
+central service and its TDOA engine, GPS time, the wire datamodel and the
+emergency alerter."""

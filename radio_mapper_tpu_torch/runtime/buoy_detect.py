@@ -4,8 +4,8 @@ Port of the body of ``radio_mapper_tpu/runtime/buoy.py``
 ``BuoyNode._detector.fn``: the split-complex power spectrum of one dwell
 (kernel K7 at 16384, 32768 and 65536 samples on the card), the
 natural-order top-K detector with its default stride-1 noise floor, and
-the −3 dB bandwidth of every peak over a 9-bin boxcar. Only the compute
-is ported; the service around it stays in the JAX package.
+the −3 dB bandwidth of every peak over a 9-bin boxcar. The service
+around it is :mod:`radio_mapper_tpu_torch.runtime.buoy`.
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 write, and the buoy's wire helpers.
 
 Copies of ``radio_mapper_tpu/runtime/datamodel.py``'s ``BuoyPosition``,
-``SignalDetection``, ``TDoAMeasurement``, ``TriangulationResult`` and
-``BuoyStatus``, and of its wire helpers (``utc_now_iso``, ``parse_iso``,
+``SignalDetection``, ``LiveSignalDetection`` (the central service's
+record, built from the wire), ``TDoAMeasurement``, ``TriangulationResult``,
+``TriangulatedSignal`` (the API's fix record), ``BuoyStatus`` and
+``UserSignalRequest``, and of its wire helpers (``utc_now_iso``, ``parse_iso``,
 ``NumpyJSONEncoder``, ``to_json``, the IQ snippet codecs
 ``encode_iq_wire``/``decode_iq_wire`` and ``detection_wire_dict``):
 importing the reference's module would load JAX through its package
@@ -147,6 +149,43 @@ class SignalDetection:
 
 
 @dataclasses.dataclass
+class LiveSignalDetection:
+    """The central service's detection record."""
+
+    node_id: str
+    frequency_mhz: float
+    signal_strength_dbm: float
+    timestamp_utc: str
+    gps_timestamp_ns: int
+    lat: float
+    lng: float
+    confidence: float
+    signal_type: str
+    bandwidth_hz: float = 10_000.0
+    detection_method: str = "unknown"
+    iq_samples: Optional[List[complex]] = None
+    iq_sample_rate_hz: float = 0.0
+    iq_anchor_ns: int = 0
+
+    @classmethod
+    def from_message(cls, data: Dict) -> "LiveSignalDetection":
+        """Build from a wire dict, tolerating buoy-style field names
+        (``buoy_id``) and decoding an encoded IQ snippet."""
+        d = dict(data)
+        if "buoy_id" in d:
+            d["node_id"] = d.pop("buoy_id")
+        d.setdefault("bandwidth_hz", 10_000.0)
+        for unwanted in ("iq_sample_file", "correlation_id"):
+            d.pop(unwanted, None)
+        fmt = d.pop("iq_format", None)
+        scale = d.pop("iq_scale", 1.0)
+        if d.get("iq_samples") is not None and len(d["iq_samples"]):
+            d["iq_samples"] = decode_iq_wire(d["iq_samples"], fmt, scale)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+
+@dataclasses.dataclass
 class TDoAMeasurement:
     buoy1_id: str
     buoy2_id: str
@@ -178,6 +217,26 @@ class TriangulationResult:
 
 
 @dataclasses.dataclass
+class TriangulatedSignal:
+    """The API's triangulated signal record."""
+
+    signal_id: str
+    frequency_mhz: float
+    estimated_lat: float
+    estimated_lng: float
+    confidence: float
+    detected_by: List[str]
+    detection_timestamps: List[str]
+    signal_type: str
+    triangulation_method: str
+    accuracy_meters: float
+    # 1σ horizontal error ellipse (see TriangulationResult)
+    ellipse_major_m: float = 0.0
+    ellipse_minor_m: float = 0.0
+    ellipse_orientation_deg: float = 0.0
+
+
+@dataclasses.dataclass
 class BuoyStatus:
     """A buoy's heartbeat payload."""
 
@@ -190,3 +249,15 @@ class BuoyStatus:
     last_detection: Optional[str]
     uptime_seconds: float
     signals_detected: int
+
+
+@dataclasses.dataclass
+class UserSignalRequest:
+    """A frequency-search request."""
+
+    request_id: str
+    frequency_mhz: float
+    bandwidth_khz: float = 12.5
+    duration_seconds: float = 30.0
+    priority: str = "normal"
+    timestamp_utc: str = ""

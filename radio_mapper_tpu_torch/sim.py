@@ -1,7 +1,8 @@
 """Synthetic scenario generator: emitter at a known position → per-buoy IQ.
 
 A numpy port of ``radio_mapper_tpu/sim.py`` (scenario classes,
-``default_scenario``, ``synthesize`` and ``synthesize_wideband``): the
+``default_scenario``, ``synthesize``, ``quantize_uint8``, ``batch_blocks``
+and ``synthesize_wideband``): the
 same float64 arithmetic on
 the same ``default_rng(seed)`` stream, so a seed gives the same capture
 bit for bit in both packages. Delays are applied as frequency-domain
@@ -11,12 +12,13 @@ phase ramps, exact for the periodic block.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from radio_mapper_tpu_torch import geo
 from radio_mapper_tpu_torch.constants import SPEED_OF_LIGHT_M_S
+from radio_mapper_tpu_torch.ops import iq as iq_ops
 
 # The reference's simulated 4-buoy Oklahoma City square.
 OKC_BUOYS = (
@@ -192,6 +194,21 @@ def synthesize(scenario: Scenario) -> Capture:
     )
 
 
+def quantize_uint8(capture: Capture, *, target_rms_counts: float = 32.0) -> np.ndarray:
+    """The RTL-SDR 8-bit front end: scale, round, clip, decode back.
+
+    Returns ``[B, N]`` complex128 decoded from the uint8 bytes as a dongle's
+    bytes are decoded (``ops.iq.decode_uint8_iq_numpy``).
+    """
+    rms = np.sqrt(np.mean(np.abs(capture.iq) ** 2)) + 1e-30
+    scaled = capture.iq * (target_rms_counts / rms)
+    b, n = scaled.shape
+    raw = np.empty((b, 2 * n), dtype=np.uint8)
+    raw[:, 0::2] = np.clip(np.round(scaled.real + 127.5), 0, 255).astype(np.uint8)
+    raw[:, 1::2] = np.clip(np.round(scaled.imag + 127.5), 0, 255).astype(np.uint8)
+    return iq_ops.decode_uint8_iq_numpy(raw)
+
+
 def default_scenario(
     *,
     emitter_lat: float = 35.47,
@@ -229,6 +246,11 @@ def default_scenario(
         timing_jitter_s=timing_jitter_s,
         seed=seed,
     )
+
+
+def batch_blocks(captures: List[Capture]) -> np.ndarray:
+    """Stack captures into a ``[num_blocks, B, N]`` complex64 batch."""
+    return np.stack([c.iq for c in captures]).astype(np.complex64)
 
 
 def synthesize_wideband(

@@ -1,1 +1,2 @@
-"""Measurement tools of the port that run on the card."""
+"""Tools of the port: the power scan (rtl_power parity) and the
+measurement scripts that run on the card."""

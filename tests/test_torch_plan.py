@@ -161,7 +161,10 @@ def test_config_from_dict_and_unported_routes():
 
 
 def test_package_imports_no_jax():
-    """Every module of the port imports without JAX or the JAX package."""
+    """Every module of the port imports without JAX or the JAX package, and
+    without the service libraries the card's machine lacks (``aiohttp``,
+    ``websockets``, ``requests``: the central service and the alerter
+    import them lazily)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import radio_mapper_tpu_torch as p\n"
@@ -170,6 +173,8 @@ def test_package_imports_no_jax():
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')"
         " or k == 'radio_mapper_tpu' or k.startswith('radio_mapper_tpu.'))\n"
         "assert not bad, bad\n"
+        "lazy = sorted(k for k in sys.modules if k.split('.')[0] in ('aiohttp', 'websockets', 'requests'))\n"
+        "assert not lazy, lazy\n"
         "print('ok')\n"
     )
     out = subprocess.run(
