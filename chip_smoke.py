@@ -223,7 +223,33 @@ per source, in parallel, sm_90a), then:
     for ``simulate``, ``wideband``, ``stream`` (4 blocks), ``adsb --source
     selftest``, ``demod --source sim`` (nbfm, 0.05 s) and ``scan --source
     sim`` (120.5–122.5 MHz), six subprocesses started together: each exits
-    0 and prints its checked lines, ``simulate``'s error under 100 m.
+    0 and prints its checked lines, ``simulate``'s error under 100 m;
+35. the modeled dongle: every tuner type through ``usb_proto.Rtl2832u``
+    on the port's ``MockRtlUsbTransport`` (open, probe, rate, tune, gain,
+    a gap-free counter test), its achieved rate and LO printed;
+    ``Rtl2832uSource(open_model_device())`` in counter test mode under a
+    card ``BuoyNode`` (``scan_once``) against a CPU node on the same
+    samples (detections equal, at least one), K7 once a
+    dwell, ``detect_block`` ms a dwell; the CLI's ``_pipeline_smoke`` on
+    the card and ``_l0_smoke``;
+36. rtl_tcp on the loopback: an in-process ``RtlTcpServer`` on port 0
+    serving phase 29's FM scene unthrottled; ``RtlTcpSource`` under a card
+    ``BuoyNode`` against a CPU node on the recorded samples (detections
+    equal, at least one, power within 1e-3 dB, K7 once a dwell,
+    ``detect_block`` ms); ``power_scan.run_scan`` at 125 Hz bins over it
+    (K7 once a hop, dB within 3e-4 of the CPU's on the same samples, ms a
+    hop, the PSD's CUDA-event ms); ``sdr_test_rtl_tcp`` with short
+    windows: 0 lost bytes, 0 gaps;
+37. the new CLI: ``usbprobe``, ``capture --source usbmodel`` then
+    ``analyze`` (peaks equal to the CPU analyzer's, their dB and the max
+    within 1e-6; the mean, over the constant capture's rounding residue,
+    printed),
+    ``eeprom`` generate then parse, ``sdrtest --loopback`` on port 0, and
+    ``demod``, ``adsb``, ``scan`` with ``--source rtl_tcp`` against
+    servers on port 0, all ``--device cuda`` subprocesses in two waves;
+    ``test`` and ``setup`` probe the host's network and ``web`` serves
+    until stopped, so the CPU tests hold them and phase 35 runs ``test``'s
+    device part.
 
 Each kernel's entry in the ``kernels`` line carries its sources (K1 and
 K3 with their long-row files, K7 with its cluster design's, K8 with its
@@ -253,8 +279,10 @@ size and rank (each counted in its rank from 0 just before that path's
 step), and its checks against the plain version inside the ranks
 (``rank_rows``, with times and bounds). K1 and K2 carry
 ``launches_ingest`` (phase 28's deterministic run, 8 steps) and K7
-``launches_buoy`` (phase 29's dwell) and ``launches_scan`` (phase 32's
-125 Hz hop).
+``launches_buoy`` (phase 29's dwell), ``launches_scan`` (phase 32's
+125 Hz hop), ``launches_buoy_rtl_tcp`` and ``launches_scan_rtl_tcp``
+(phase 36's dwell and hop) and ``launches_buoy_usbmodel`` (phase 35's
+dwell).
 
 Any failed check raises, so the run exits non-zero and prints no result
 line. The last two lines are a JSON object describing the kernels and,
@@ -1495,6 +1523,363 @@ def _cli_phase(tag):
     print(f"phase 34: CLI on the card, {len(runs)} subprocesses together in {wall:.1f} s, all exit 0; simulate error "
           f"{err_m:.1f} m (limit 100); checked lines {checks}; last lines: {lines} {tag}")
     _require(all(checks.values()), f"cli: checks {checks}")
+
+
+class _Recorded:
+    """An IQ source that keeps a copy of every block it returns."""
+
+    def __init__(self, source):
+        self.source, self.blocks = source, []
+
+    def __getattr__(self, name):
+        return getattr(self.source, name)
+
+    def read(self, n):
+        self.blocks.append(self.source.read(n))
+        return self.blocks[-1]
+
+
+class _Replay:
+    """The blocks a ``_Recorded`` source returned, read back in order."""
+
+    def __init__(self, template, blocks):
+        self.sample_rate_hz = template.sample_rate_hz
+        self.center_frequency_hz = template.center_frequency_hz
+        self.power_offset_db = template.power_offset_db
+        self.blocks = iter(blocks)
+
+    def tune(self, hz):
+        self.center_frequency_hz = float(hz)
+
+    def read(self, n):
+        out = next(self.blocks)
+        assert len(out) == n, (len(out), n)
+        return out
+
+
+def _serve_rtl_tcp(source):
+    """An in-process ``RtlTcpServer`` on a free port, unthrottled, serving
+    ``source`` from its thread; returns the port it bound."""
+    from radio_mapper_tpu_torch.net import rtl_tcp
+
+    server = rtl_tcp.RtlTcpServer(source, host="127.0.0.1", port=0, throttle=False)
+    rtl_tcp.serve_in_thread(server)
+    return server.port
+
+
+def _fm_scene(sim, block_len=16_384):
+    """Phase 29's scene: FM, 16 kHz wide, 150 kHz above the 121.5 MHz
+    channel, 25 dB SNR."""
+    return sim.default_scenario(signal="fm", bandwidth_hz=16e3, freq_offset_hz=150e3, snr_db=25.0, seed=5,
+                                block_len=block_len)
+
+
+def _buoy_dwell(np, torch, node, counters, center_hz):
+    """One warm-up ``scan_once`` and one counted: its detections, the block
+    it read, K7's launches and ``detect_block`` ms a dwell (median of 5)."""
+    import asyncio
+
+    from radio_mapper_tpu_torch import constants
+
+    node.gps.initialize()
+    node.schedule = (constants.ScheduleEntry(center_hz / 1e6, 35.0, "emergency"),)
+    rec = _Recorded(node.source)
+    node.source = rec
+    asyncio.run(node.scan_once())  # warm-up
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    dets = asyncio.run(node.scan_once())
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _read_counts(counters).items() if v}
+    block = rec.blocks[-1]
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        node.detect_block(block, center_hz)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return dets, block, launches, statistics.median(times)
+
+
+def _cpu_agrees(np, torch, node, dets, block, center_hz, by_frequency=False):
+    """A CPU ``BuoyNode`` on the card node's block: (detections equal, peaks
+    valid equal, power gap in dB on the valid peaks). ``by_frequency``
+    compares the detections sorted by frequency, for a scene whose peaks
+    tie in pairs."""
+    from radio_mapper_tpu_torch.runtime import buoy
+
+    cpu = buoy.BuoyNode(node.config, source=node.source, gps=node.gps, device="cpu")
+    ref = cpu.detect_block(block, center_hz)
+    if by_frequency:
+        dets, ref = (sorted(d, key=lambda x: x.frequency_mhz) for d in (dets, ref))
+    same = len(dets) == len(ref) and all(
+        (a.frequency_mhz, a.confidence, a.signal_type) == (b.frequency_mhz, b.confidence, b.signal_type)
+        for a, b in zip(dets, ref))
+    to = lambda a, where: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(where)
+    gp, _ = node._detector()(to(block.real, node.device), to(block.imag, node.device))
+    cp, _ = cpu._detector()(to(block.real, "cpu"), to(block.imag, "cpu"))
+    valid = cp.valid.numpy()
+    same_valid = bool(np.array_equal(gp.valid.cpu().numpy(), valid))
+    gap = float(np.abs(gp.power_db.cpu().numpy()[valid] - cp.power_db.numpy()[valid]).max()) if valid.any() else 0.0
+    return same, same_valid, gap
+
+
+def _usbmodel_phase(np, torch, dev, tag, counters):
+    """Phase 35: the modeled dongle on the card. Every tuner type through
+    ``usb_proto.Rtl2832u`` on the port's ``MockRtlUsbTransport`` (open →
+    probe → rate → tune → gain → counter test, 0 lost); the L0-closed
+    source, ``Rtl2832uSource(open_model_device())``, under a card
+    ``BuoyNode.scan_once()`` against a CPU node on the same samples (K7
+    once a dwell). The dongle runs its counter test pattern, a complex
+    sawtooth with harmonics every fs/128: the idle model's constant
+    mid-scale bytes leave only float32 rounding residue above the
+    detector's notch, which no two FFTs share. Then the CLI's self-test parts, ``_pipeline_smoke`` on the card
+    and ``_l0_smoke``: the device part of ``test``, which phase 37 does not
+    run (it probes the host's network).
+    Returns K7's launches a dwell and ``detect_block`` ms."""
+    from radio_mapper_tpu_torch import cli
+    from radio_mapper_tpu_torch.ingest import Rtl2832uSource
+    from radio_mapper_tpu_torch.net import rtl2832u_model, usb_proto
+    from radio_mapper_tpu_torch.runtime import buoy
+    from radio_mapper_tpu_torch.tools.sdr_test import DropStats
+
+    probes = []
+    for tuner in usb_proto.TunerType:
+        t = rtl2832u_model.MockRtlUsbTransport(None if tuner == usb_proto.TunerType.UNKNOWN else tuner)
+        drv = usb_proto.Rtl2832u(t)
+        found = drv.open()
+        rate = drv.set_sample_rate(2_400_000)
+        lo = drv.set_center_freq(433_920_000)
+        gain = drv.set_tuner_gain(280) if found != usb_proto.TunerType.UNKNOWN else None
+        drv.set_testmode(True)
+        stats = DropStats()
+        for _ in range(8):
+            stats.update(np.frombuffer(drv.read_sync(16384), np.uint8))
+        drv.close()
+        _require(found == tuner and stats.lost_bytes == 0 and stats.gaps == 0 and stats.total_bytes == 8 * 16384,
+                 f"usbmodel {tuner.name}: found {found.name}, {stats}")
+        probes.append(f"{tuner.name} rate {rate:.3f} Hz LO {lo:.1f} Hz gain {gain}")
+    src = Rtl2832uSource(rtl2832u_model.open_model_device(), sample_rate_hz=2_048_000)
+    src.dev.set_testmode(True)
+    cfg = buoy.BuoyNodeConfig(buoy_id="usbmodel", lat=35.5, lng=-97.5, sample_rate_hz=src.sample_rate_hz)
+    node = buoy.BuoyNode(cfg, source=src, device=dev)
+    center = 121.5e6
+    dets, block, launches, detect_ms = _buoy_dwell(np, torch, node, counters, center)
+    # the sawtooth is real times (1 + j): its ± harmonics tie in exact
+    # arithmetic and rounding orders each pair
+    same, same_valid, gap = _cpu_agrees(np, torch, node, dets, block, center, by_frequency=True)
+    src.close()
+    smoke = cli._pipeline_smoke(dev)
+    l0 = cli._l0_smoke()
+    print(
+        f"phase 35: the modeled dongle: {len(probes)} tuner types open, tune and stream a gap-free counter "
+        f"(8 x 16384 bytes, 0 lost): {'; '.join(probes)}; Rtl2832uSource under a card BuoyNode at "
+        f"{src.sample_rate_hz:.3f} Hz (LO {src.achieved_lo_hz:.1f} Hz), counter pattern: {len(dets)} detections "
+        f"(strongest {dets[0].frequency_mhz if dets else None} MHz), CPU equal {same}, "
+        f"peaks valid equal {same_valid}, power {gap:.3e} dB; launches a dwell {launches}; detect_block "
+        f"{detect_ms:.3f} ms a dwell; _pipeline_smoke on the card {smoke!r}; _l0_smoke {l0!r} {tag}"
+    )
+    _require(dets and same and same_valid and gap <= 1e-3, "usbmodel buoy: card and CPU disagree")
+    _require(launches == {"fft_rows": 1}, f"usbmodel buoy dwell launches {launches}")
+    _require(smoke == "ok" and l0.endswith("0 dropped"), "self-test parts failed")
+    return {"launches": launches.get("fft_rows", 0), "detect_ms": detect_ms}
+
+
+def _rtl_tcp_phase(np, torch, sim, dev, tag, counters):
+    """Phase 36: rtl_tcp loopback on the card. An in-process
+    ``RtlTcpServer`` on port 0 serves phase 29's FM scene unthrottled;
+    ``RtlTcpSource`` feeds a card ``BuoyNode.scan_once()`` (against a CPU
+    node on the recorded samples: equal detections, at least one, power
+    within 1e-3 dB, K7 once a dwell) and ``power_scan.run_scan`` at 125 Hz
+    bins (K7 once a hop; dB within 3e-4 of the CPU's on the same samples);
+    ``sdr_test_rtl_tcp`` over the loopback with short windows: 0 lost
+    bytes, 0 gaps. Returns K7's launches a dwell and a hop, and the times."""
+    from radio_mapper_tpu_torch.ingest import SimulatedSource
+    from radio_mapper_tpu_torch.net import rtl_tcp
+    from radio_mapper_tpu_torch.runtime import buoy
+    from radio_mapper_tpu_torch.tools import power_scan, sdr_test
+
+    scen = _fm_scene(sim)
+    center = scen.center_frequency_mhz * 1e6
+    serve = lambda: _serve_rtl_tcp(SimulatedSource(scen, 0))
+    src = rtl_tcp.RtlTcpSource("127.0.0.1", serve(), sample_rate_hz=scen.sample_rate_hz)
+    try:
+        cfg = buoy.BuoyNodeConfig(buoy_id="rtl_tcp", lat=35.5, lng=-97.5, sample_rate_hz=src.sample_rate_hz)
+        node = buoy.BuoyNode(cfg, source=src, device=dev)
+        dets, block, b_launches, detect_ms = _buoy_dwell(np, torch, node, counters, center)
+        same, same_valid, gap = _cpu_agrees(np, torch, node, dets, block, center)
+    finally:
+        src.close()
+    print(
+        f"phase 36: buoy over rtl_tcp (loopback, port 0, unthrottled), scan_once on {scen.center_frequency_mhz} MHz: "
+        f"{len(dets)} detections (strongest {dets[0].frequency_mhz if dets else None} MHz); vs a CPU BuoyNode on "
+        f"the same samples: detections equal {same}, peaks valid equal {same_valid}, power {gap:.3e} dB (tol "
+        f"1e-3); launches a dwell {b_launches}; detect_block {detect_ms:.3f} ms a dwell {tag}"
+    )
+    _require(dets and same and same_valid and gap <= 1e-3, "rtl_tcp buoy: card and CPU disagree")
+    _require(b_launches == {"fft_rows": 1}, f"rtl_tcp buoy dwell launches {b_launches}")
+
+    plan = power_scan.plan_scan(center - 100e3, center + 100e3, bin_hz=125.0)
+    src = _Recorded(rtl_tcp.RtlTcpSource("127.0.0.1", serve(), sample_rate_hz=plan.sample_rate_hz))
+    try:
+        power_scan.run_scan(src, plan, device=dev)  # warm-up
+        torch.cuda.synchronize()
+        src.blocks.clear()
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        res = power_scan.run_scan(src, plan, device=dev)
+        torch.cuda.synchronize()
+        hop_ms = 1e3 * (time.perf_counter() - t0) / len(plan.hops)
+        s_launches = {k: v for k, v in _read_counts(counters).items() if v}
+    finally:
+        src.close()
+    ref = power_scan.run_scan(_Replay(src, src.blocks), plan, device="cpu")
+    db, rdb = np.concatenate(res.power_db), np.concatenate(ref.power_db)
+    db_gap = float(np.abs(db - rdb).max())
+    xd = torch.from_numpy(src.blocks[-1]).to(dev)
+    psd_ms = _cuda_ms(torch, lambda: power_scan.welch_psd_db(xd, nfft=plan.nfft, window="hamming"))
+    hops = len(plan.hops)
+    print(
+        f"phase 36: scan over rtl_tcp {plan.hops[0].center_hz / 1e6:.4f} MHz at {plan.bin_hz:.2f} Hz bins: nfft "
+        f"{plan.nfft}, {hops} hop(s) of {res.samples_per_hop} samples, {len(db)} bins; {hop_ms:.3f} ms a hop with "
+        f"the socket reads and the copies, {psd_ms:.3f} ms a hop's PSD on the card (CUDA events); card vs CPU on the "
+        f"same samples {db_gap:.3e} dB (tol 3e-4); launches {s_launches} {tag}"
+    )
+    _require(db_gap <= 3e-4 and np.isfinite(db).all(), "rtl_tcp scan: card and CPU differ")
+    _require(s_launches == {"fft_rows": hops}, f"rtl_tcp scan: K7 launches {s_launches} over {hops} hop(s)")
+
+    t0 = time.perf_counter()
+    report = sdr_test.sdr_test_rtl_tcp("127.0.0.1", serve(), drop_seconds=0.5, ppm_seconds=0.3)
+    d = report["drop_test"]
+    print(f"phase 36: sdr_test_rtl_tcp over the loopback: {d['total_bytes']} counter bytes, {d['lost_bytes']} lost, "
+          f"{d['gaps']} gaps; {report['ppm_test']['total_samples']} samples in the rate window; "
+          f"{time.perf_counter() - t0:.2f} s {tag}")
+    _require(d["lost_bytes"] == 0 and d["gaps"] == 0 and d["total_bytes"] > 0, f"sdr_test loopback: {d}")
+    _require(report["ppm_test"]["total_samples"] > 0, "sdr_test loopback: no samples in the rate window")
+    return {"buoy": b_launches.get("fft_rows", 0), "scan": s_launches.get("fft_rows", 0) // hops,
+            "detect_ms": detect_ms, "hop_ms": hop_ms, "psd_ms": psd_ms}
+
+
+class _LoopSource:
+    """A fixed buffer served cyclically, whatever the source is tuned to."""
+
+    power_offset_db = 0.0
+
+    def __init__(self, np, buf, sample_rate_hz):
+        self.np, self.buf, self.pos = np, np.asarray(buf, np.complex64), 0
+        self.sample_rate_hz, self.center_frequency_hz = float(sample_rate_hz), 0.0
+
+    def tune(self, hz):
+        self.center_frequency_hz = float(hz)
+
+    def read(self, n):
+        idx = (self.pos + self.np.arange(n)) % self.buf.size
+        self.pos = int((self.pos + n) % self.buf.size)
+        return self.buf[idx]
+
+
+def _cli_tools_phase(np, torch, sim, dev, tag):
+    """Phase 37: the new subcommands and sources, ``python -m
+    radio_mapper_tpu_torch --device cuda ...`` in subprocesses started
+    together (two waves: the second reads the first's files): ``usbprobe``;
+    ``capture --source usbmodel`` then ``analyze`` of that file (its peaks
+    and max equal the CPU analyzer's within 1e-6 dB); ``eeprom`` generate, then
+    parse; ``sdrtest --loopback --rtl-tcp 127.0.0.1:0`` (0 lost); ``demod``,
+    ``adsb`` and ``scan`` with ``--source rtl_tcp`` against servers this
+    process runs on port 0. ``test`` and ``setup`` probe the host's
+    network (the local address by a UDP connect to a public address, the
+    clock by ``timedatectl``, ``chronyc`` or ``ntpdate``) and ``web``
+    serves until stopped: the CPU tests hold them, and phase 35 runs
+    ``test``'s device part. Returns the wall seconds."""
+    import os
+    import re
+    import subprocess
+    import tempfile
+
+    from radio_mapper_tpu_torch import analyzer
+    from radio_mapper_tpu_torch.ingest import SimulatedSource
+    from radio_mapper_tpu_torch.ops import adsb, iq
+
+    serve = lambda source: f"127.0.0.1:{_serve_rtl_tcp(source)}"
+
+    frames = ["8d4840d6202cc371c32ce057", "8d40621d58c382d690c8ac28"]
+    burst = np.concatenate([adsb.encode_frame_iq(adsb.append_crc(f), noise=0.02, seed=k) for k, f in enumerate(frames)])
+    adsb_buf = 60.0 * np.concatenate([burst, np.zeros((1 << 18) - burst.size, np.complex64)])
+    # what the CLI should print for each 2^18-sample read: the CPU decode of the bytes the server sends
+    wire = iq.decode_uint8_iq_numpy(iq.encode_uint8_iq_numpy(adsb_buf)).astype(np.complex64)
+    adsb_cpu = list(adsb.decode_block(wire, device="cpu"))
+    scen = _fm_scene(sim)
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def wave(runs):
+        procs = {k: subprocess.Popen([sys.executable, "-m", "radio_mapper_tpu_torch", "--device", "cuda", *v],
+                                     cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for k, v in runs.items()}
+        outs = {}
+        try:
+            for k, p in procs.items():
+                out, err = p.communicate(timeout=600)
+                outs[k] = (p.returncode, out, err)
+        finally:
+            for p in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for k, (rc, out, err) in outs.items():
+            _require(rc == 0, f"cli {k}: exit {rc}\n{out[-1500:]}\n{err[-3000:]}")
+        return {k: v[1] for k, v in outs.items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cap, img = os.path.join(tmp, "usbmodel.bin"), os.path.join(tmp, "eeprom.bin")
+        t0 = time.perf_counter()
+        first = wave({
+            "usbprobe": ["usbprobe", "--tuner", "r820t"],
+            "capture": ["capture", "--source", "usbmodel", "--samples", "262144", "--output", cap],
+            "eeprom": ["eeprom", "--generate", "realtek_oem", "--serial", "BUOY37", "--out", img],
+            "sdrtest": ["sdrtest", "--loopback", "--rtl-tcp", "127.0.0.1:0", "--drop-seconds", "0.5",
+                        "--ppm-seconds", "0.3"],
+            "demod": ["demod", "--source", "rtl_tcp", "--rtl-tcp", serve(SimulatedSource(scen, 0)), "--mode", "nbfm",
+                      "--frequency", "121.65", "--sample-rate", "2048000", "--seconds", "0.1", "--output",
+                      os.path.join(tmp, "audio.s16le")],
+            "adsb": ["adsb", "--source", "rtl_tcp", "--rtl-tcp", serve(_LoopSource(np, adsb_buf, adsb.ADSB_RATE_HZ)),
+                     "--blocks", "2"],
+            "scan": ["scan", "120.5", "122.5", "--source", "rtl_tcp", "--rtl-tcp", serve(SimulatedSource(scen, 0)),
+                     "--integration", "0.1"],
+        })
+        second = wave({
+            "analyze": ["analyze", cap, "--frequency", "121.5"],
+            "eeprom_read": ["eeprom", "--read", img],
+        })
+        wall = time.perf_counter() - t0
+        cpu = analyzer.analyze_iq_file(cap, center_frequency_hz=121.5e6, device="cpu")
+        card = analyzer.analyze_iq_file(cap, center_frequency_hz=121.5e6, device=dev)
+    # the capture is the idle model's constant: its spectrum is the DC bin
+    # over float rounding residue, so the mean power (over the residue) is
+    # printed, and the peaks and the max are held
+    peaks_equal = card.peak_frequencies_hz == cpu.peak_frequencies_hz and len(cpu.peak_frequencies_hz) >= 1
+    db_gap = max([abs(a - b) for a, b in zip(card.peak_powers_db, cpu.peak_powers_db)]
+                 + [abs(card.max_power_db - cpu.max_power_db)])
+    mean_gap = abs(card.mean_power_db - cpu.mean_power_db)
+    peak_lines = lambda text: [ln for ln in text.splitlines() if ln.startswith(("samples:", "peaks:", "  "))]
+    report = json.loads(first["sdrtest"][: first["sdrtest"].rindex("}") + 1])
+    checks = {
+        "usbprobe": "tuner: R820T" in first["usbprobe"] and "0 lost, 0 gaps" in first["usbprobe"],
+        "capture": "via the L0 driver stack" in first["capture"],
+        "analyze": peak_lines(second["analyze"]) == peak_lines(cpu.summary()) and peaks_equal and db_gap <= 1e-6,
+        "eeprom": "BUOY37" in second["eeprom_read"] and "0x2838" in second["eeprom_read"],
+        "sdrtest": report["drop_test"]["lost_bytes"] == 0 and report["drop_test"]["gaps"] == 0,
+        "demod": re.search(r"^wrote \d+ s16le samples @ 32000 Hz", first["demod"], re.M) is not None,
+        "adsb": first["adsb"].splitlines() == adsb_cpu * 2 and len(adsb_cpu) == 2,
+        "scan": len(first["scan"].splitlines()) == 2,
+    }
+    outs = {**first, **second}
+    lines = "; ".join(f"{k}: {(v.strip().splitlines() or [''])[-1][:90]!r}" for k, v in outs.items())
+    print(f"phase 37: the new CLI on the card, {len(outs)} subprocesses in two waves in {wall:.1f} s, all exit 0; "
+          f"analyze vs the CPU analyzer: peaks equal {peaks_equal}, peaks and max {db_gap:.3e} dB apart (tol 1e-6), "
+          f"mean power over the residue {mean_gap:.3e} dB apart (not held); checked lines "
+          f"{checks}; last lines: {lines} {tag}")
+    _require(all(checks.values()), f"cli tools: checks {checks}")
+    return wall
 
 
 def main() -> int:
@@ -2979,6 +3364,11 @@ def main() -> int:
     _central_phase(np, torch, sim, dev, tag, counters)
     _cli_phase(tag)
 
+    # ---- phases 35-37: the modeled dongle, rtl_tcp, the new CLI
+    usbmodel = _usbmodel_phase(np, torch, dev, tag, counters)
+    tcp = _rtl_tcp_phase(np, torch, sim, dev, tag, counters)
+    _cli_tools_phase(np, torch, sim, dev, tag)
+
     def rows_entry(shape, err, ms, plain_ms, bound, library_ms):
         return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms}
@@ -3072,6 +3462,9 @@ def main() -> int:
               complex_step_rows=[rows_entry([crows, n], cf_abs, cf_ms, cf_plain_ms, cf_bound, cf_lib_ms)],
               launches_buoy=buoy_run["launches"].get("fft_rows", 0),
               launches_scan=k7_scan,
+              launches_buoy_rtl_tcp=tcp["buoy"],
+              launches_buoy_usbmodel=usbmodel["launches"],
+              launches_scan_rtl_tcp=tcp["scan"],
               parallel=parallel("fft_rows")),
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
               route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft,

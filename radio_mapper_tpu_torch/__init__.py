@@ -37,10 +37,18 @@ each counterpart sits at the same path:
   :mod:`.runtime.central`);
 - the receiver tools: demodulators (:mod:`.ops.demod`), ADS-B
   (:mod:`.ops.adsb`) and the power scan (:mod:`.tools.power_scan`); and
-  the command line, ``python -m radio_mapper_tpu_torch`` (:mod:`.cli`).
+  the command line, ``python -m radio_mapper_tpu_torch`` (:mod:`.cli`);
+- the host side of the receiver: the RTL2832U USB driver and its
+  register-level dongle model (:mod:`.net.usb_proto`,
+  :mod:`.net.rtl2832u_model`), rtl_tcp (:mod:`.net.rtl_tcp`), rtl_test
+  and rtl_eeprom (:mod:`.tools.sdr_test`, :mod:`.tools.eeprom`), the
+  config system (:mod:`.config`), the offline analyzer (:mod:`.analyzer`)
+  and the dashboard (:mod:`.webapp`).
 
 Each kernel is CUDA C++ under ``csrc/`` with a plain PyTorch version
 beside it. The package imports ``torch`` and numpy only; it never
 imports JAX. Its pipelines run on the card unless the caller passes
 ``device="cpu"``.
 """
+
+from radio_mapper_tpu_torch.version import __version__

@@ -1,25 +1,34 @@
 """Command-line runner of the PyTorch/CUDA port: ``python -m radio_mapper_tpu_torch``.
 
-Port of ``radio_mapper_tpu/cli.py``'s compute subcommands, with the same
-options and printed lines:
+Port of ``radio_mapper_tpu/cli.py``, with the same options and printed
+lines:
 
   server    — central processor (WS ingest + HTTP API + triangulation)
-  buoy      — a buoy node (sim / file / rtl_sdr / native-file / native-tcp source)
+  buoy      — a buoy node (sim / file / rtl_sdr / rtl_tcp / native-file /
+              native-tcp / usbmodel source)
+  web       — dashboard (Leaflet map + API proxy)
   simulate  — synthesize a scenario, run the pipeline, print the fix
   wideband  — the config-4 wideband demo (channelizer → per-subchannel GCC → fixes)
-  stream    — continuous streaming TDOA over a simulated scenario
+  analyze   — offline .bin capture analysis (spectrum PNG + stats)
+  capture   — one-shot IQ capture to .bin (rtl_sdr / sim / usbmodel)
   demod     — demodulate to audio PCM (rtl_fm parity: raw, single, squelch-hop
               scan, simultaneous ``--watch``)
   adsb      — Mode-S/ADS-B decoder (rtl_adsb parity)
   scan      — wideband power survey to CSV (rtl_power parity)
+  stream    — continuous streaming TDOA over a simulated scenario
+  sdrtest   — drop and sample-clock PPM check over rtl_tcp (rtl_test parity)
+  test      — environment self-test
+  setup     — autodetect hardware + generate example config
+  eeprom    — RTL2832 EEPROM image tool (rtl_eeprom parity)
+  usbprobe  — the USB driver's bring-up against the register-level dongle model
 
 The reference's ``--backend`` is ``--device {cuda,cpu}`` here, default
-``cuda``: every subcommand runs on the card unless ``--device cpu`` is
-given, and with ``cuda`` and no card it raises
+``cuda`` for every subcommand: the compute runs on the card unless
+``--device cpu`` is given, and with ``cuda`` and no card it raises
 (:func:`radio_mapper_tpu_torch.device.require_cuda`); nothing falls back to
-the CPU. The ``rtl_tcp`` and ``usbmodel`` sources and the ``capture``,
-``sdrtest``, ``usbprobe``, ``eeprom``, ``setup``, ``test``, ``analyze``,
-``web`` and ``bench`` subcommands are not ported (ROADMAP M12–M14).
+the CPU. ``capture``, ``sdrtest``, ``usbprobe``, ``eeprom``, ``setup`` and
+``web`` do no tensor work and leave the device unused. The reference's
+``bench`` is not here: it waits for the port's benchmark (ROADMAP M5).
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import argparse
 import asyncio
 import dataclasses
 import logging
+import sys
 
 
 def _setup_logging(verbose: bool):
@@ -47,6 +57,14 @@ def _device(args):
         device.require_cuda()
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device("cpu")
+
+
+def _rtl_tcp_source(args, **kw):
+    """An ``RtlTcpSource`` on ``--rtl-tcp HOST[:PORT]`` (port 1234 if none)."""
+    from radio_mapper_tpu_torch.net.rtl_tcp import RtlTcpSource
+
+    host, _, port = args.rtl_tcp.partition(":")
+    return RtlTcpSource(host, int(port or 1234), **kw)
 
 
 def cmd_server(args):
@@ -86,6 +104,8 @@ def cmd_buoy(args):
         from radio_mapper_tpu_torch.ingest import FileSource
 
         node = BuoyNode(cfg, source=FileSource(args.file, sample_rate_hz=args.sample_rate), device=args.dev)
+    elif args.source == "rtl_tcp":
+        node = BuoyNode(cfg, source=_rtl_tcp_source(args, sample_rate_hz=args.sample_rate), device=args.dev)
     elif args.source == "native-file":
         from radio_mapper_tpu_torch.ingest.native import NativeIngest, NativeRingSource
 
@@ -98,11 +118,32 @@ def cmd_buoy(args):
         node = BuoyNode(cfg, source=NativeRingSource(
             NativeIngest.open_tcp(host, int(port or 1234)),
             sample_rate_hz=args.sample_rate), device=args.dev)
+    elif args.source == "usbmodel":
+        # live node on the in-process L0 driver stack (device model —
+        # swap the transport for a libusb adapter on real hardware)
+        from radio_mapper_tpu_torch.ingest.sources import Rtl2832uSource
+        from radio_mapper_tpu_torch.net.rtl2832u_model import open_model_device
+
+        src = Rtl2832uSource(open_model_device(), sample_rate_hz=args.sample_rate)
+        # the dongle resampler QUANTIZES the rate — the node must use
+        # the achieved value, not the request
+        cfg = dataclasses.replace(cfg, sample_rate_hz=src.sample_rate_hz)
+        node = BuoyNode(cfg, source=src, device=args.dev)
     else:  # rtl_sdr subprocess
         from radio_mapper_tpu_torch.ingest import RtlSdrProcessSource
 
         node = BuoyNode(cfg, source=RtlSdrProcessSource(sample_rate_hz=args.sample_rate), device=args.dev)
     asyncio.run(node.run())
+
+
+def cmd_web(args):
+    from radio_mapper_tpu_torch.webapp.app import WebApp
+
+    app = WebApp(
+        central_http_url=args.central, host=args.host, port=args.port,
+        dev_mock=args.mock,
+    )
+    asyncio.run(app.run_forever())
 
 
 def cmd_simulate(args):
@@ -190,6 +231,68 @@ def cmd_wideband(args):
           f"— error {err:.1f} m (true ({emitter[0]:.0f}, {emitter[1]:.0f}))")
 
 
+def cmd_analyze(args):
+    from radio_mapper_tpu_torch.analyzer import analyze_directory, analyze_iq_file
+
+    kwargs = dict(
+        sample_rate_hz=args.sample_rate,
+        center_frequency_hz=args.frequency * 1e6,
+        plot_path=args.plot,
+        device=args.dev,
+    )
+    if args.path.endswith(".bin"):
+        print(analyze_iq_file(args.path, **kwargs).summary())
+    else:
+        for a in analyze_directory(args.path, **kwargs):
+            print(a.summary())
+            print()
+
+
+def cmd_capture(args):
+    import subprocess
+
+    out = args.output
+    if args.source == "rtl_sdr":
+        # `sdr_capture.py:13-81` parity: shell out to rtl_sdr.
+        n_bytes = args.samples * 2
+        cmd = [
+            "rtl_sdr", "-f", str(int(args.frequency * 1e6)),
+            "-s", str(int(args.sample_rate)), "-n", str(n_bytes), out,
+        ]
+        print("+", " ".join(cmd))
+        try:
+            subprocess.run(cmd, check=True, timeout=args.samples / args.sample_rate + 15)
+        except FileNotFoundError:
+            print("rtl_sdr binary not found — use --source sim for synthetic capture")
+            sys.exit(1)
+    elif args.source == "usbmodel":
+        # capture through the full L0 driver stack against the modeled
+        # dongle: open/probe/tune ride the real register/PLL path
+        from radio_mapper_tpu_torch.ingest.sources import Rtl2832uSource
+        from radio_mapper_tpu_torch.net.rtl2832u_model import open_model_device
+        from radio_mapper_tpu_torch.ops import iq as iq_ops
+
+        src = Rtl2832uSource(
+            open_model_device(), sample_rate_hz=args.sample_rate,
+            center_frequency_hz=args.frequency * 1e6)
+        data = src.read(args.samples)
+        src.close()
+        iq_ops.save_iq_bin(out, data)
+        print(f"wrote {args.samples} samples via the L0 driver stack to "
+              f"{out} (achieved LO {src.achieved_lo_hz:.1f} Hz, "
+              f"rate {src.sample_rate_hz:.3f} Hz)")
+    else:
+        from radio_mapper_tpu_torch import sim
+        from radio_mapper_tpu_torch.ingest import SimulatedSource
+        from radio_mapper_tpu_torch.ops import iq as iq_ops
+
+        scen = sim.default_scenario()
+        src = SimulatedSource(scen, 0)
+        data = src.read(args.samples)
+        iq_ops.save_iq_bin(out, data * 40.0)
+        print(f"wrote {args.samples} synthetic samples to {out}")
+
+
 def cmd_scan(args):
     """rtl_power-style wideband survey to CSV."""
     from radio_mapper_tpu_torch.tools import power_scan
@@ -199,6 +302,8 @@ def cmd_scan(args):
         from radio_mapper_tpu_torch.ingest import SimulatedSource
 
         source = SimulatedSource(sim.default_scenario(signal="tone"), 0)
+    elif args.source == "rtl_tcp":
+        source = _rtl_tcp_source(args, sample_rate_hz=args.sample_rate)
     else:
         from radio_mapper_tpu_torch.ingest import RtlSdrProcessSource
 
@@ -408,6 +513,8 @@ def cmd_demod(args):
         scen = sim.default_scenario(signal="fm", bandwidth_hz=150e3)
         source = SimulatedSource(scen, 0)
         source.tune(scen.center_frequency_mhz * 1e6)
+    elif args.source == "rtl_tcp":
+        source = _rtl_tcp_source(args, sample_rate_hz=args.sample_rate, center_frequency_hz=args.frequency * 1e6)
     else:
         from radio_mapper_tpu_torch.ingest import RtlSdrProcessSource
 
@@ -498,9 +605,12 @@ def cmd_adsb(args):
         for frame in adsb_ops.decode_block(iq, require_crc=not args.no_crc, device=args.dev):
             print(frame)
         return
-    from radio_mapper_tpu_torch.ingest import RtlSdrProcessSource
+    if args.source == "rtl_tcp":
+        source = _rtl_tcp_source(args, sample_rate_hz=adsb_ops.ADSB_RATE_HZ, center_frequency_hz=1090e6)
+    else:
+        from radio_mapper_tpu_torch.ingest import RtlSdrProcessSource
 
-    source = RtlSdrProcessSource(sample_rate_hz=adsb_ops.ADSB_RATE_HZ, center_frequency_hz=1090e6)
+        source = RtlSdrProcessSource(sample_rate_hz=adsb_ops.ADSB_RATE_HZ, center_frequency_hz=1090e6)
     try:
         for _ in range(args.blocks):
             iq = source.read(1 << 18)
@@ -508,6 +618,250 @@ def cmd_adsb(args):
                 print(frame, flush=True)
     finally:
         source.close()
+
+
+def cmd_sdrtest(args):
+    """rtl_test-style SDR health benchmark (drops + sample-clock PPM)."""
+    import json
+
+    from radio_mapper_tpu_torch.tools import sdr_test
+
+    host, _, port = args.rtl_tcp.partition(":")
+    port = int(port or 1234)
+    if args.loopback:
+        # Hermetic self-drive: serve a simulated source in-process and
+        # benchmark our own transport (no hardware needed). Port 0 asks
+        # for a free port; the test connects to the one bound.
+        from radio_mapper_tpu_torch import sim
+        from radio_mapper_tpu_torch.ingest import SimulatedSource
+        from radio_mapper_tpu_torch.net import rtl_tcp
+
+        server = rtl_tcp.RtlTcpServer(
+            SimulatedSource(sim.default_scenario(signal="tone"), 0),
+            host="127.0.0.1",
+            port=port,
+            throttle=args.throttle,
+        )
+        rtl_tcp.serve_in_thread(server)
+        host, port = "127.0.0.1", server.port
+    report = sdr_test.sdr_test_rtl_tcp(
+        host,
+        port,
+        sample_rate_hz=args.sample_rate,
+        drop_seconds=args.drop_seconds,
+        ppm_seconds=args.ppm_seconds,
+    )
+    print(json.dumps(report, indent=2))
+    d = report["drop_test"]
+    p = report["ppm_test"]
+    print(
+        f"# drops: {d['lost_bytes']} bytes in {d['gaps']} gaps "
+        f"({100*d['loss_ratio']:.4f}% loss); "
+        f"rate: {p['measured_rate_hz']:.0f} Hz vs nominal "
+        f"{p['nominal_rate_hz']:.0f} ({p['ppm_error']:+.1f} ppm)"
+    )
+
+
+# the service ports `test` checks: the central's WS and HTTP ports and
+# the dashboard's (the `server` and `web` defaults)
+SERVICE_PORTS = (8081, 4000, 7000)
+
+
+def cmd_test(args):
+    """Environment self-test (`run.py:246-320` parity)."""
+    import importlib
+    import socket
+
+    ok = True
+
+    def check(name, fn):
+        nonlocal ok
+        try:
+            result = fn()
+            print(f"  [PASS] {name}" + (f" — {result}" if result not in (None, True) else ""))
+        except Exception as e:
+            ok = False
+            print(f"  [FAIL] {name} — {e}")
+
+    print("Configuration:")
+    check("config defaults validate", lambda: __import__(
+        "radio_mapper_tpu_torch.config", fromlist=["Config"]).Config().validate() and None)
+    print("Dependencies:")
+    for mod in ("torch", "numpy", "scipy", "websockets", "aiohttp", "yaml"):
+        check(f"import {mod}", lambda m=mod: importlib.import_module(m).__name__)
+    print("Compute:")
+    check("torch device", lambda: _device_report(args.dev))
+    check("pipeline smoke (tiny)", lambda: _pipeline_smoke(args.dev))
+    print("L0 driver stack:")
+    check("USB bring-up + counter test (device model)", lambda: _l0_smoke())
+    print("Hardware:")
+    from radio_mapper_tpu_torch.config.autodetect import auto_detect_interfaces
+
+    report = auto_detect_interfaces()
+    print(f"  local ip: {report['local_ip']}")
+    print(f"  gps devices: {report['gps_devices'] or 'none'}")
+    print(f"  sdr count: {report['sdr_count']}")
+    print(f"  gpu: {report['gpu']}")
+    print("Ports:")
+    for port in SERVICE_PORTS:
+        s = socket.socket()
+        try:
+            s.bind(("127.0.0.1", port))
+            print(f"  [PASS] port {port} available")
+        except OSError:
+            print(f"  [WARN] port {port} in use")
+        finally:
+            s.close()
+    sys.exit(0 if ok else 1)
+
+
+def _device_report(dev) -> str:
+    """torch's version and the device ``dev``, with the card's name on
+    ``cuda``."""
+    import torch
+
+    if dev.type == "cuda":
+        return f"torch {torch.__version__}, {dev} ({torch.cuda.get_device_name(dev)})"
+    return f"torch {torch.__version__}, {dev}"
+
+
+def _pipeline_smoke(dev) -> str:
+    """A tiny complex-IQ pipeline step on ``dev``; its fix must be finite."""
+    import torch
+
+    from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
+
+    pipe = TDOAPipeline(PipelineConfig(num_buoys=3, block_len=1024, max_lag=64,
+                                       solver_iterations=5), device=dev)
+    re, im, anchors = pipe.example_inputs()
+    out = pipe.step(torch.complex(re, im), anchors)
+    assert bool(torch.isfinite(out.fix.position_enu).all())
+    return "ok"
+
+
+def _l0_smoke() -> str:
+    """Open→probe→tune→counter-stream through the full USB driver
+    protocol against the register-level device model (the reference's
+    `rtl_test -t` drop check, hardware-free)."""
+    import numpy as np
+
+    from radio_mapper_tpu_torch.net.rtl2832u_model import open_model_device
+    from radio_mapper_tpu_torch.net.usb_proto import TunerType
+    from radio_mapper_tpu_torch.tools.sdr_test import DropStats
+
+    dev = open_model_device()
+    assert dev.tuner_type == TunerType.R820T
+    rate = dev.set_sample_rate(2_048_000)
+    dev.set_testmode(True)
+    stats = DropStats()
+    stats.update(np.frombuffer(dev.read_sync(16384), np.uint8))
+    dev.close()
+    assert stats.lost_bytes == 0 and stats.gaps == 0
+    return f"{dev.tuner_type.name} @ {rate:.0f} Hz, 0 dropped"
+
+
+def _check_time_sync() -> str:
+    """Best-effort host clock-sync probe for `setup` — the reference
+    shells out to `ntpdate -q` (`run.py:209-220`); here we try the
+    commands a modern host actually has, degrading gracefully (offline
+    boxes and containers report 'unavailable', never fail)."""
+    import shutil
+    import subprocess
+
+    probes = [
+        (["timedatectl", "show", "--property=NTPSynchronized"],
+         lambda out: "synchronized" if "NTPSynchronized=yes" in out
+         else "NOT synchronized"),
+        (["chronyc", "tracking"],
+         lambda out: next((ln.strip() for ln in out.splitlines()
+                           if "System time" in ln), "tracking ok")),
+        (["ntpdate", "-q", "pool.ntp.org"], lambda out: "reachable"),
+    ]
+    failed = []
+    for cmd, interpret in probes:
+        if shutil.which(cmd[0]) is None:
+            continue
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=10)
+        except Exception:
+            # a timeout/exec failure is still a failed probe of a tool
+            # that EXISTS — report it, don't claim the tool is absent
+            failed.append(cmd[0])
+            continue
+        if r.returncode == 0:
+            return f"{cmd[0]}: {interpret(r.stdout)}"
+        failed.append(cmd[0])  # e.g. timedatectl without systemd
+    if failed:
+        return f"probe failed ({', '.join(failed)})"
+    return "unavailable (no timedatectl/chronyc/ntpdate)"
+
+
+def cmd_setup(args):
+    from radio_mapper_tpu_torch.config.autodetect import auto_detect_interfaces
+    from radio_mapper_tpu_torch.config.loader import generate_example_yaml
+    from radio_mapper_tpu_torch.config.schema import TimingConfig
+
+    report = auto_detect_interfaces()
+    print("Detected interfaces:")
+    for k, v in report.items():
+        print(f"  {k}: {v}")
+    # timing self-test (`run.py:204-220` parity): GPS hardware feeds the
+    # sub-µs path; the host clock is the fallback the ntp check covers
+    timing = TimingConfig()
+    print("Time synchronization:")
+    print(f"  method: {timing.method} "
+          f"(target {timing.target_accuracy_microseconds:g} us, "
+          f"max {timing.max_acceptable_microseconds:g} us)")
+    print(f"  host clock: {_check_time_sync()}")
+    generate_example_yaml(args.output)
+    print(f"example config written to {args.output}")
+
+
+def cmd_eeprom(args):
+    """rtl_eeprom-parity image tool (`Code/src/rtl_eeprom.c`)."""
+    from radio_mapper_tpu_torch.tools import eeprom
+
+    sys.exit(eeprom.run(args))
+
+
+def cmd_usbprobe(args):
+    """Run the librtlsdr-equivalent USB bring-up protocol
+    (`Code/src/librtlsdr.c:1407-1602`) against the register-level device
+    model — demonstrates the L0 open→init→probe→tune→stream state
+    machine end-to-end without hardware."""
+    import numpy as np
+
+    from radio_mapper_tpu_torch.net.rtl2832u_model import MockRtlUsbTransport
+    from radio_mapper_tpu_torch.net.usb_proto import Rtl2832u, TunerType
+    from radio_mapper_tpu_torch.tools.sdr_test import DropStats
+
+    tuner = TunerType[args.tuner.upper()]
+    transport = MockRtlUsbTransport(tuner)
+    dev = Rtl2832u(transport)
+    found = dev.open()
+    real_rate = dev.set_sample_rate(int(args.rate))
+    achieved = dev.set_center_freq(int(args.freq))
+    snapped = dev.set_tuner_gain(args.gain) if found != TunerType.UNKNOWN \
+        else None
+    dev.set_testmode(True)
+    stats = DropStats()
+    for _ in range(8):
+        stats.update(np.frombuffer(dev.read_sync(16384), np.uint8))
+    dev.set_testmode(False)
+    dev.close()
+    print(f"tuner: {found.name}")
+    print(f"sample rate: requested {args.rate} -> achieved {real_rate:.3f} Hz")
+    print(f"center freq: requested {args.freq} -> achieved {achieved:.1f} Hz "
+          f"(LO error {achieved - float(args.freq):+.1f} Hz)")
+    if snapped is not None:
+        print(f"gain: requested {args.gain/10:.1f} dB -> "
+              f"snapped {snapped/10:.1f} dB")
+    print(f"counter test: {stats.total_bytes} bytes, "
+          f"{stats.lost_bytes} lost, {stats.gaps} gaps")
+    print(f"control transfers: {transport.stats.control_out} out / "
+          f"{transport.stats.control_in} in; "
+          f"bulk bytes: {transport.stats.bulk_bytes}")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -537,9 +891,11 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--central", default="ws://localhost:8081")
     s.add_argument(
         "--source",
-        choices=["sim", "file", "rtl_sdr", "native-file", "native-tcp"],
+        choices=["sim", "file", "rtl_sdr", "rtl_tcp", "native-file",
+                 "native-tcp", "usbmodel"],
         default="sim",
-        help="native-* variants ingest through the C++ ring (native/)",
+        help="native-* variants ingest through the C++ ring (native/); "
+             "usbmodel runs the in-process L0 driver stack",
     )
     s.add_argument("--sim-index", type=int, default=0)
     s.add_argument("--file", help="raw uint8 I/Q .bin for --source file")
@@ -551,6 +907,14 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--snippet-samples", type=int, default=2048,
                    help="IQ samples attached per detection for waveform TDOA")
     s.set_defaults(fn=cmd_buoy)
+
+    s = sub.add_parser("web", help="run the web dashboard")
+    s.add_argument("--central", default="http://localhost:4000")
+    s.add_argument("--host", default="0.0.0.0")
+    s.add_argument("--port", type=int, default=7000)
+    s.add_argument("--mock", action="store_true",
+                   help="serve canned data when central is unreachable (dev)")
+    s.set_defaults(fn=cmd_web)
 
     s = sub.add_parser("simulate", help="synthetic scenario through the pipeline")
     s.add_argument("--lat", type=float, default=35.47)
@@ -581,6 +945,22 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--seed", type=int, default=0)
     s.set_defaults(fn=cmd_wideband)
 
+    s = sub.add_parser("analyze", help="analyze .bin IQ captures")
+    s.add_argument("path")
+    s.add_argument("--sample-rate", type=float, default=2_048_000.0)
+    s.add_argument("--frequency", type=float, default=0.0, help="center freq MHz")
+    s.add_argument("--plot", help="write spectrum PNG here")
+    s.set_defaults(fn=cmd_analyze)
+
+    s = sub.add_parser("capture", help="capture IQ to .bin")
+    s.add_argument("--source", choices=["rtl_sdr", "sim", "usbmodel"],
+                   default="rtl_sdr")
+    s.add_argument("--frequency", type=float, default=121.5, help="MHz")
+    s.add_argument("--sample-rate", type=float, default=2_048_000.0)
+    s.add_argument("--samples", type=int, default=2_048_000)
+    s.add_argument("--output", default="iq_capture.bin")
+    s.set_defaults(fn=cmd_capture)
+
     s = sub.add_parser("demod", help="demodulate to audio PCM (rtl_fm parity)")
     s.add_argument(
         "--mode",
@@ -589,7 +969,8 @@ def build_parser() -> argparse.ArgumentParser:
     )
     s.add_argument("--squelch", type=float, default=0.0,
                    help="mean-power squelch threshold (rtl_fm -l), 0 = off")
-    s.add_argument("--source", choices=["sim", "rtl_sdr"], default="sim")
+    s.add_argument("--source", choices=["sim", "rtl_tcp", "rtl_sdr"], default="sim")
+    s.add_argument("--rtl-tcp", default="127.0.0.1:1234")
     s.add_argument(
         "--frequency", nargs="+", default=["105.7"],
         help="MHz; several values or lower:upper:step ranges scan with "
@@ -612,7 +993,8 @@ def build_parser() -> argparse.ArgumentParser:
     s.set_defaults(fn=cmd_demod)
 
     s = sub.add_parser("adsb", help="Mode-S/ADS-B decoder (rtl_adsb parity)")
-    s.add_argument("--source", choices=["selftest", "rtl_sdr"], default="selftest")
+    s.add_argument("--source", choices=["selftest", "rtl_tcp", "rtl_sdr"], default="selftest")
+    s.add_argument("--rtl-tcp", default="127.0.0.1:1234")
     s.add_argument("--blocks", type=int, default=8)
     s.add_argument("--no-crc", action="store_true", help="permissive (rtl_adsb's behavior)")
     s.set_defaults(fn=cmd_adsb)
@@ -620,7 +1002,8 @@ def build_parser() -> argparse.ArgumentParser:
     s = sub.add_parser("scan", help="wideband power survey (rtl_power CSV)")
     s.add_argument("freq_lo", type=float, help="MHz")
     s.add_argument("freq_hi", type=float, help="MHz")
-    s.add_argument("--source", choices=["sim", "rtl_sdr"], default="sim")
+    s.add_argument("--source", choices=["sim", "rtl_tcp", "rtl_sdr"], default="sim")
+    s.add_argument("--rtl-tcp", default="127.0.0.1:1234")
     s.add_argument("--sample-rate", type=float, default=2_048_000.0)
     s.add_argument("--bin-hz", type=float, default=10_000.0)
     s.add_argument("--integration", type=float, default=1.0)
@@ -638,6 +1021,48 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--bandwidth", type=float, default=110e3)
     s.add_argument("--snr", type=float, default=25.0)
     s.set_defaults(fn=cmd_stream)
+
+    s = sub.add_parser(
+        "sdrtest", help="SDR drop/PPM health benchmark (rtl_test parity)"
+    )
+    s.add_argument("--rtl-tcp", default="127.0.0.1:1234")
+    s.add_argument("--sample-rate", type=float, default=2_048_000.0)
+    s.add_argument("--drop-seconds", type=float, default=5.0)
+    s.add_argument("--ppm-seconds", type=float, default=10.0)
+    s.add_argument(
+        "--loopback", action="store_true",
+        help="serve a simulated source in-process and test our own transport",
+    )
+    s.add_argument("--throttle", action="store_true",
+                   help="loopback server paces at the nominal sample rate")
+    s.set_defaults(fn=cmd_sdrtest)
+
+    s = sub.add_parser("test", help="environment self-test")
+    s.set_defaults(fn=cmd_test)
+
+    s = sub.add_parser("setup", help="autodetect hardware, write example config")
+    s.add_argument("--output", default="config.example.yaml")
+    s.set_defaults(fn=cmd_setup)
+
+    s = sub.add_parser("eeprom", help="RTL2832 EEPROM image tool (rtl_eeprom parity)")
+    from radio_mapper_tpu_torch.tools import eeprom as _eeprom
+
+    _eeprom.add_args(s)
+    s.set_defaults(fn=cmd_eeprom)
+
+    s = sub.add_parser(
+        "usbprobe",
+        help="librtlsdr-equivalent USB bring-up against the device model",
+    )
+    s.add_argument("--tuner", default="r820t",
+                   choices=["e4000", "fc0012", "fc0013", "fc2580",
+                            "r820t", "r828d", "unknown"],
+                   help="tuner chip the modeled dongle carries")
+    s.add_argument("--freq", type=float, default=121.5e6)
+    s.add_argument("--rate", type=float, default=2_048_000)
+    s.add_argument("--gain", type=int, default=400,
+                   help="tenth-dB, snapped to the tuner table")
+    s.set_defaults(fn=cmd_usbprobe)
 
     return p
 

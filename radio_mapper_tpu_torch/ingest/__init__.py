@@ -8,6 +8,11 @@ pipeline do not care where samples come from:
   :mod:`radio_mapper_tpu_torch.sim` scenario (the hardware-free path);
 - :class:`FileSource`: loops a raw uint8 I/Q ``.bin`` capture;
 - :class:`RtlSdrProcessSource`: a persistent ``rtl_sdr`` subprocess;
+- :class:`Rtl2832uSource`: the in-process USB driver
+  (:mod:`radio_mapper_tpu_torch.net.usb_proto`) on any transport, the
+  register-level dongle model included;
+- :class:`~radio_mapper_tpu_torch.net.rtl_tcp.RtlTcpSource`: a client of
+  the rtl_tcp wire protocol;
 - the C++ ring (``native/``) through
   :class:`radio_mapper_tpu_torch.ingest.native.NativeRingSource`, and
   :class:`radio_mapper_tpu_torch.ingest.runner.IngestLoop`, which feeds a
@@ -17,8 +22,10 @@ pipeline do not care where samples come from:
 from radio_mapper_tpu_torch.ingest.sources import (
     FileSource,
     IQSource,
+    Rtl2832uSource,
     RtlSdrProcessSource,
     SimulatedSource,
 )
 
-__all__ = ["IQSource", "SimulatedSource", "FileSource", "RtlSdrProcessSource"]
+__all__ = ["IQSource", "SimulatedSource", "FileSource", "RtlSdrProcessSource",
+           "Rtl2832uSource"]

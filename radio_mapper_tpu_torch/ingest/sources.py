@@ -1,7 +1,8 @@
 """IQ sources: a retunable stream of complex64 baseband blocks.
 
 Port of ``radio_mapper_tpu/ingest/sources.py`` (``IQSource``,
-``SimulatedSource``, ``FileSource``, ``RtlSdrProcessSource``) on the
+``SimulatedSource``, ``FileSource``, ``RtlSdrProcessSource``,
+``Rtl2832uSource``) on the
 port's :mod:`~radio_mapper_tpu_torch.sim` and :mod:`~radio_mapper_tpu_torch.ops.iq`.
 The sources are host code: they return numpy blocks, and the caller moves
 them to its device. For the same scenario and seed, ``SimulatedSource``
@@ -250,3 +251,76 @@ class RtlSdrProcessSource(IQSource):
                 except subprocess.TimeoutExpired:
                     self._proc.kill()
                 self._proc = None
+
+
+class Rtl2832uSource(IQSource):
+    """IQ from an in-process :class:`~radio_mapper_tpu_torch.net.usb_proto.
+    Rtl2832u` driver — the L0-closed source.
+
+    `RtlSdrProcessSource` and `RtlTcpSource` delegate the USB layer to
+    external binaries; this source drives our own driver stack instead
+    (`rtlsdr_read_sync` semantics, `Code/src/librtlsdr.c:1643-1659`),
+    over whatever transport the driver was opened on: the register-level
+    device model in CI (`net/rtl2832u_model.py`), a libusb adapter on
+    real hardware. Tuning goes through the real register/PLL planning
+    path, so the achieved (quantized) rate and LO are what the stream
+    geometry uses. Decode is raw-count scale (power_offset_db = 0), like
+    every other uint8 source.
+    """
+
+    def __init__(self, dev, *, sample_rate_hz: float = 2_048_000.0,
+                 center_frequency_hz: float = 121.5e6):
+        self.dev = dev
+        # one transport, many threads: RtlTcpServer reads in an executor
+        # while its command handler tunes from the event loop — control
+        # and bulk transfers must never interleave mid-operation (same
+        # guard as RtlSdrProcessSource._lock)
+        self._lock = threading.Lock()
+        self._sample_rate_hz = 0.0
+        self.sample_rate_hz = float(sample_rate_hz)  # programs the dongle
+        self._achieved_lo_hz = float(dev.set_center_freq(int(center_frequency_hz)))
+        self.center_frequency_hz = float(center_frequency_hz)
+        self.power_offset_db = 0.0
+
+    @property
+    def sample_rate_hz(self) -> float:
+        """The ACHIEVED (resampler-quantized) rate. Assigning programs
+        the dongle — rtl_tcp's CMD_SET_SAMPLE_RATE handler assigns
+        `source.sample_rate_hz` directly, and the device must follow."""
+        return self._sample_rate_hz
+
+    @sample_rate_hz.setter
+    def sample_rate_hz(self, hz: float) -> None:
+        with self._lock:
+            self._sample_rate_hz = float(self.dev.set_sample_rate(int(hz)))
+
+    @property
+    def achieved_lo_hz(self) -> float:
+        """PLL-quantized LO actually programmed (the frequency-offset
+        budget input for coherent correlation)."""
+        return self._achieved_lo_hz
+
+    def read(self, num_samples: int) -> np.ndarray:
+        # bulk INs may return short on real hardware (librtlsdr's
+        # read_sync reports n_read for this reason) — loop until filled
+        # so the fixed-shape consumers always get full blocks
+        need = 2 * num_samples
+        buf = bytearray()
+        with self._lock:
+            while len(buf) < need:
+                chunk = self.dev.read_sync(need - len(buf))
+                if not chunk:
+                    raise IOError("USB bulk stream ended mid-block")
+                buf += chunk
+        raw = np.frombuffer(bytes(buf), np.uint8)
+        return iq_ops.decode_uint8_iq_numpy(raw).astype(np.complex64)
+
+    def tune(self, center_frequency_hz: float) -> None:
+        super().tune(center_frequency_hz)
+        with self._lock:
+            self._achieved_lo_hz = float(
+                self.dev.set_center_freq(int(center_frequency_hz)))
+
+    def close(self) -> None:
+        with self._lock:
+            self.dev.close()

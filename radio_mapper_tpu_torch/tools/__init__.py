@@ -1,2 +1,3 @@
-"""Tools of the port: the power scan (rtl_power parity) and the
+"""Tools of the port: the power scan (rtl_power parity), the SDR health
+check (rtl_test), the EEPROM image codec (rtl_eeprom) and the
 measurement scripts that run on the card."""

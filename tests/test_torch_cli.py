@@ -223,6 +223,19 @@ def test_help_lists_the_subcommands(capsys):
         cli.main(["--help"])
     assert e.value.code == 0
     text = capsys.readouterr().out
-    for name in ("server", "buoy", "simulate", "wideband", "stream", "demod", "adsb", "scan"):
+    for name in ("server", "buoy", "simulate", "wideband", "stream", "demod", "adsb", "scan",
+                 "web", "analyze", "capture", "sdrtest", "test", "setup", "eeprom", "usbprobe"):
         assert name in text
     assert "--device {cuda,cpu}" in text
+    # every subcommand of the JAX package's CLI but ``bench`` (the port's
+    # benchmark is still to come), each with the reference's options
+    ours, ref = cli.build_parser(), jcli.build_parser()
+    sub = lambda p: next(a for a in p._actions if a.dest == "command").choices
+    assert set(sub(ours)) == set(sub(ref)) - {"bench"}
+    for name, parser in sub(ours).items():
+        opts = lambda p: sorted((a.dest, a.default, tuple(a.choices or ()), a.nargs) for a in p._actions
+                                if a.dest != "help")
+        mine, theirs = opts(parser), opts(sub(ref)[name])
+        if name == "buoy":  # the port keeps --dev's flag under dest dev_mode (args.dev is the torch device)
+            mine = [("dev",) + o[1:] if o[0] == "dev_mode" else o for o in mine]
+        assert mine == sorted(theirs), name

@@ -47,7 +47,8 @@ as its plain version is against JAX:
   (the emitter's subchannel) on the card vs the CPU (``-k complex``);
 - the node side (``-k node``): ``IngestLoop`` on the card bit for bit
   equal to the direct step on the ring's bytes; the buoy's
-  ``detect_block`` on the card equal to the CPU's;
+  ``detect_block`` on the card equal to the CPU's, also fed by rtl_tcp
+  (an in-process server on port 0);
 - the multi-device layer (``-k parallel``): the EP step, the sharded
   split step and the sharded wideband step with their ranks on the card
   at world size 1 (NCCL) and 2 (two ranks on one card, gloo) vs ranks on
@@ -1105,4 +1106,41 @@ def test_node_buoy_on_card_matches_cpu(cuda_device):
     assert fft_natural.launch_count == before + 1
     cpu_dets = cpu.detect_block(iq, 121.5e6)
     assert [(d.frequency_mhz, d.confidence) for d in gpu_dets] == [(d.frequency_mhz, d.confidence) for d in cpu_dets]
+    assert gpu_dets and np.array_equal(node.last_bandwidths_hz, cpu.last_bandwidths_hz)
+
+
+@pytest.mark.cuda
+def test_node_buoy_over_rtl_tcp_on_card_matches_cpu(cuda_device):
+    """A buoy on the card fed by rtl_tcp: an in-process ``RtlTcpServer`` on
+    port 0 (unthrottled) serving the FM scene, ``RtlTcpSource`` under a
+    card ``BuoyNode.scan_once()`` (K7 once a dwell), and a CPU node's
+    ``detect_block`` on the samples the card node read: the same
+    detections, at least one (``-k node``)."""
+    import asyncio
+
+    from radio_mapper_tpu_torch import constants
+    from radio_mapper_tpu_torch.ingest import SimulatedSource
+    from radio_mapper_tpu_torch.net import rtl_tcp
+    from radio_mapper_tpu_torch.runtime import buoy
+
+    scen = sim.default_scenario(signal="fm", bandwidth_hz=16e3, freq_offset_hz=150e3, snr_db=25.0, seed=5)
+    server = rtl_tcp.RtlTcpServer(SimulatedSource(scen, 0), host="127.0.0.1", port=0, throttle=False)
+    rtl_tcp.serve_in_thread(server)
+    src = rtl_tcp.RtlTcpSource("127.0.0.1", server.port, sample_rate_hz=scen.sample_rate_hz)
+    try:
+        cfg = buoy.BuoyNodeConfig(buoy_id="tcp", lat=35.5, lng=-97.5, sample_rate_hz=src.sample_rate_hz)
+        node = buoy.BuoyNode(cfg, source=src, device=cuda_device)
+        node.gps.initialize()
+        node.schedule = (constants.ScheduleEntry(121.5, 35.0, "emergency"),)
+        seen, read = [], src.read
+        src.read = lambda n: seen.append(read(n)) or seen[-1]
+        before = fft_natural.launch_count
+        gpu_dets = asyncio.run(node.scan_once())
+        assert fft_natural.launch_count == before + 1
+    finally:
+        src.close()
+    cpu = buoy.BuoyNode(cfg, source=None, gps=node.gps, device="cpu")
+    cpu_dets = cpu.detect_block(seen[-1], 121.5e6)
+    assert [(d.frequency_mhz, d.confidence, d.signal_type) for d in gpu_dets] == [
+        (d.frequency_mhz, d.confidence, d.signal_type) for d in cpu_dets]
     assert gpu_dets and np.array_equal(node.last_bandwidths_hz, cpu.last_bandwidths_hz)
