@@ -249,7 +249,17 @@ per source, in parallel, sm_90a), then:
     servers on port 0, all ``--device cuda`` subprocesses in two waves;
     ``test`` and ``setup`` probe the host's network and ``web`` serves
     until stopped, so the CPU tests hold them and phase 35 runs ``test``'s
-    device part.
+    device part;
+38. the benchmark (``radio_mapper_tpu_torch/bench.py``, ``python -m
+    radio_mapper_tpu_torch bench``): each leg at full width and small depth
+    (scan 2, 2 iterations, one epoch) — the flagship at 128 ch (K1 and K2
+    once a block; its complex path, K7 once a block), the FFT leg (K7 once
+    a call, held against ``fft_re_im_plain`` at [256, 16384]), the GCC leg
+    (K3 and K2 once a block), EP (K3 and K5 or K6 once a step, counted in
+    its rank), config 4 (K3 and K5 once a block), the ingest leg at 8 ch
+    for 4 steps (K1 and K2 once a step) and the loopback for 8 steps, each
+    value finite and above 0; then ``bench.main`` shallow, its last stdout
+    line parsed: the reference's keys, ``"backend": "cuda"``.
 
 Each kernel's entry in the ``kernels`` line carries its sources (K1 and
 K3 with their long-row files, K7 with its cluster design's, K8 with its
@@ -283,6 +293,9 @@ step), and its checks against the plain version inside the ranks
 125 Hz hop), ``launches_buoy_rtl_tcp`` and ``launches_scan_rtl_tcp``
 (phase 36's dwell and hop) and ``launches_buoy_usbmodel`` (phase 35's
 dwell).
+
+K1, K2, K3, K5, K6 and K7 also carry ``launches_bench``, their launches by
+leg of phase 38; K7 ``bench_rows``, its check at the FFT leg's shape.
 
 Any failed check raises, so the run exits non-zero and prints no result
 line. The last two lines are a JSON object describing the kernels and,
@@ -1882,6 +1895,120 @@ def _cli_tools_phase(np, torch, sim, dev, tag):
     return wall
 
 
+def _bench_phase(np, torch, dev, tag, counters):
+    """Phase 38: the benchmark's legs at full width and small depth, each
+    with its launch counts; then ``bench.main`` shallow. Returns the
+    launches by leg and K7's check at the FFT leg's shape."""
+    import contextlib
+    import io
+
+    from radio_mapper_tpu_torch import bench
+    from radio_mapper_tpu_torch.ops import fft as fft_ops
+
+    k1, k2, k3, k5, k6, k7 = ("fft_detect_rows_ct", "gcc_pair_lag_mags", "fft_rows_ct", "gcc_pairs_onehot_lag_mags",
+                              "gcc_rows_lag_mags", "fft_rows")
+    positive = lambda *xs: all(math.isfinite(x) and x > 0 for x in xs)
+    launches = {}
+
+    def leg(name, run):
+        torch.cuda.empty_cache()
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        out = run()
+        wall = time.perf_counter() - t0
+        launches[name] = {k: v for k, v in _read_counts(counters).items() if v}
+        return out, launches[name], wall
+
+    # the flagship: 1 warm-up + 2 dispatches of 2 blocks
+    (rate, path, block_s, flops), n, wall = leg("flagship", lambda: bench.run_pipeline_bench(
+        num_channels=128, iters=2, scan_blocks=2, device=dev))
+    print(f"phase 38: bench flagship leg, {path}, 128 ch x 8 buoys x 16384: {rate:.4e} IQ samples/s, "
+          f"{1e3 * block_s:.3f} ms/block, {flops / 1e9:.3f} GFLOP/block; launches {n} over 6 blocks; {wall:.1f} s {tag}")
+    _require(positive(rate, block_s, flops) and n == {k1: 6, k2: 6}, f"bench flagship: {rate}, {n}")
+    # its complex path: the first call, 1 warm-up, 2 timed
+    (rate, path, block_s, _), n, wall = leg("flagship_complex", lambda: bench.run_pipeline_bench(
+        num_channels=128, iters=2, path="complex", device=dev))
+    print(f"phase 38: bench flagship leg, {path}, 128 ch: {rate:.4e} IQ samples/s, {1e3 * block_s:.3f} ms/block; "
+          f"launches {n} over 4 blocks; {wall:.1f} s {tag}")
+    _require(positive(rate, block_s) and n == {k7: 4}, f"bench flagship complex: {rate}, {n}")
+
+    # the FFT leg: 2 warm-up + 2 calls; K7 held at its shape on the leg's draws
+    rate, n, wall = leg("fft", lambda: bench.run_fft_microbench(iters=2, epochs=1, device=dev))
+    rng = np.random.default_rng(0)
+    xr, xi = (torch.from_numpy(rng.normal(size=(256, 16_384)).astype(np.float32)).to(dev) for _ in range(2))
+    _zero_counts(counters)
+    out, ref = fft_ops.fft_re_im(xr, xi), fft_ops.fft_re_im_plain(xr, xi)
+    torch.cuda.synchronize()
+    _require(_read_counts(counters)[k7] == 1, "the FFT leg's fft_re_im did not run K7")
+    err_abs, err_rel = _row_rel_error(out, ref)
+    del out, ref
+    k_ms = _cuda_ms(torch, lambda: fft_ops.fft_re_im(xr, xi))
+    p_ms = _cuda_ms(torch, lambda: fft_ops.fft_re_im_plain(xr, xi), reps=3)
+    xc = torch.complex(xr, xi)
+    lib_ms = _cuda_ms(torch, lambda: torch.fft.fft(xc))
+    del xc, xr, xi
+    bound = _bound(_fft_flops(256, 16_384), 2 * 8 * 256 * 16_384)
+    print(f"phase 38: bench FFT leg [256, 16384]: {rate / 1e6:.1f} M complex samples/s; launches {n} over 4 calls; "
+          f"K7 vs fft_re_im_plain max|err| {err_abs:.3e} (rel to row max|X| {err_rel:.3e}, tol 1e-4), kernel "
+          f"{k_ms:.3f} ms, plain {p_ms:.3f} ms, torch.fft.fft {lib_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}) "
+          f"{tag}")
+    _require(positive(rate) and n == {k7: 4}, f"bench FFT leg: {rate}, {n}")
+    _require(err_rel <= 1e-4, f"K7 disagrees at the FFT leg's shape: {err_rel}")
+    fft_row = {"shape": [256, 16_384], "max_abs_err": err_abs, "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound[0],
+               "bound_by": bound[1], "library_ms": lib_ms}
+
+    # the GCC leg: (2 warm-up + 2) dispatches of 2 blocks
+    rate, n, wall = leg("gcc", lambda: bench.run_gcc_microbench(iters=2, scan_blocks=2, epochs=1, device=dev))
+    print(f"phase 38: bench GCC leg [32, 8, 16384], max_lag 512: {rate:.4e} pair correlations/s; launches {n} over 8 "
+          f"blocks; {wall:.1f} s {tag}")
+    _require(positive(rate) and n == {k3: 8, k2: 8}, f"bench GCC leg: {rate}, {n}")
+
+    # EP in a one-rank process group: (2 + 2) dispatches of 2 steps, counted in the rank
+    ep = {}
+    t0 = time.perf_counter()
+    rate = bench.run_ep_microbench(iters=2, scan_blocks=2, epochs=1, device=dev, launches=ep)
+    launches["ep"] = ep
+    print(f"phase 38: bench EP leg, 64 buoys x 4096, 2016 pairs: {rate:.4e} pair correlations/s; launches in the "
+          f"rank {ep} over 8 steps; {time.perf_counter() - t0:.1f} s {tag}")
+    _require(positive(rate) and ep.get(k3) == 8 and ep.get(k5, 0) + ep.get(k6, 0) == 8 and set(ep) <= {k3, k5, k6},
+             f"bench EP leg: {rate}, {ep}")
+
+    # config 4: the first dispatch, 1 warm-up and 2 timed, of 2 blocks
+    (wb_ms, wide_rate, pair_rate), n, wall = leg("wideband", lambda: bench.run_wideband_bench(
+        iters=2, scan_blocks=2, device=dev))
+    print(f"phase 38: bench wideband leg (config 4): {wb_ms:.3f} ms/block, {wide_rate / 1e6:.1f} wide MS/s, "
+          f"{pair_rate:.4e} pairs/s; launches {n} over 8 blocks; {wall:.1f} s {tag}")
+    _require(positive(wb_ms, wide_rate, pair_rate) and n == {k3: 8, k5: 8}, f"bench wideband leg: {wb_ms}, {n}")
+
+    # the ingest leg: the warm-up step and 4 paced steps
+    st, n, wall = leg("ingest", lambda: bench.run_ingest_bench(channels=8, steps=4, device=dev))
+    print(f"phase 38: bench ingest leg, 8 ch at real time, 4 steps: {st.sustained_samples_per_s:.4e} IQ samples/s, "
+          f"real_time_ratio {st.real_time_ratio:.4f} (keeps up: {st.dropped_bytes == 0 and st.real_time_ratio >= 0.95}), "
+          f"dropped {st.dropped_bytes} B, host read {st.host_read_ms_per_step:.3f} ms; launches {n} over 5 steps; "
+          f"{wall:.1f} s {tag}")
+    _require(positive(st.sustained_samples_per_s, st.real_time_ratio) and n == {k1: 5, k2: 5}, f"bench ingest: {n}")
+    st, n, wall = leg("loopback", lambda: bench.run_ingest_loopback_bench(steps=8, device=dev))
+    print(f"phase 38: bench loopback leg, 32 ch, 8 steps: {st.sustained_samples_per_s * 2 / 1e9:.3f} GB/s, "
+          f"real_time_ratio {st.real_time_ratio:.4f}, dropped {st.dropped_bytes} B, host read "
+          f"{st.host_read_ms_per_step:.3f} ms; consumed {st.bytes_consumed} B {tag}")
+    _require(positive(st.sustained_samples_per_s) and st.bytes_consumed == 8 * 32 * 8 * 2 * 16_384 and not n,
+             f"bench loopback leg: {st}, {n}")
+
+    # the whole benchmark, shallow: its last stdout line
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        bench.main(device=dev, sweep_epochs=1, sweep_iters=1, scan_blocks=2, micro_epochs=1, fft_iters=2,
+                   gcc_iters=2, gcc_scan_blocks=2, ep_iters=2, ep_scan_blocks=2, wideband_iters=2,
+                   wideband_scan_blocks=2, ingest_steps=4, loopback_steps=8)
+    line = json.loads(buf.getvalue().strip().splitlines()[-1])
+    print(f"phase 38: bench.main shallow in {time.perf_counter() - t0:.1f} s: {json.dumps(line)} {tag}")
+    _require(tuple(line) == bench.RESULT_KEYS and line["backend"] == "cuda" and positive(line["value"])
+             and line["path"] == "split-scan2", f"bench.main's line: {line}")
+    torch.cuda.empty_cache()
+    return {"launches": launches, "fft_row": fft_row}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3369,6 +3496,10 @@ def main() -> int:
     tcp = _rtl_tcp_phase(np, torch, sim, dev, tag, counters)
     _cli_tools_phase(np, torch, sim, dev, tag)
 
+    # ---- phase 38: the benchmark's legs and bench.main
+    bench_run = _bench_phase(np, torch, dev, tag, counters)
+    by_leg = lambda name: {leg: n[name] for leg, n in bench_run["launches"].items() if n.get(name)}
+
     def rows_entry(shape, err, ms, plain_ms, bound, library_ms):
         return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms}
@@ -3421,6 +3552,7 @@ def main() -> int:
               mixed_rows=mixed("K1"), topk=topk("K1"),
               launches_block_len_57344=mixed_launches.get("fft_detect_rows_ct", 0),
               launches_ingest=ingest["launches"].get("fft_detect_rows_ct", 0),
+              launches_bench=by_leg("fft_detect_rows_ct"),
               parallel=parallel("fft_detect_rows_ct")),
         entry("gcc_pair_lag_mags", "gcc_pair.cu", "gcc_kernel.py:358",
               launches["gcc_pair_lag_mags"], max(win_abs, k2_modes["l2"][0], k2_modes["l1"][0]), k2_ms, k2_plain_ms,
@@ -3428,11 +3560,13 @@ def main() -> int:
                      nrows * nfft * 8 + nrows * 4 + chans * npairs * width * 4), k2_fft,
               mixed_rows=mixed("K2"), launches_block_len_57344=mixed_launches.get("gcc_pair_lag_mags", 0),
               launches_ingest=ingest["launches"].get("gcc_pair_lag_mags", 0),
+              launches_bench=by_leg("gcc_pair_lag_mags"),
               parallel=parallel("gcc_pair_lag_mags")),
         entry("fft_rows_ct", "fft_rows_ct.cu", "fft_kernel.py:446",
               wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound,
               _radix_flops(m_sub * wb, wn, *ct_plan.radix_split(wn)[1:]), k3_lib_ms,
               long_source=["fft_rows_ct_cluster.cu", "fft_rows_ct_long.cu"], long_name="K3", mixed_rows=mixed("K3"),
+              launches_bench=by_leg("fft_rows_ct"),
               parallel=parallel("fft_rows_ct")),
         entry("detect_ct_partials", "detect_ct.cu", "detect_kernel.py:309",
               route_launches["detect_ct_partials"], max(k4_score_abs, k4_nf), k4_ms, k4_plain_ms, k4_bound,
@@ -3444,11 +3578,13 @@ def main() -> int:
               _bound(_pair_flops(m_sub * wp, wn, w_width),
                      m_sub * wb * wn * 8 + m_sub * wp * 4 + m_sub * wp * w_width * 4),
               _fft_pair_flops(m_sub * wp, wn1, wn2, w_rows), mixed_rows=mixed("K5"),
+              launches_bench=by_leg("gcc_pairs_onehot_lag_mags"),
               parallel=parallel("gcc_pairs_onehot_lag_mags")),
         entry("gcc_rows_lag_mags", "gcc_pair.cu", "gcc_kernel.py:548",
               wl6["gcc_rows_lag_mags"], k6_abs, k6_ms, k6_plain_ms,
               _bound(_pair_flops(wp, wn, w_width), 4 * wp * wn * 4 + wp * 4 + wp * w_width * 4),
               _fft_pair_flops(wp, wn1, wn2, w_rows),
+              launches_bench=by_leg("gcc_rows_lag_mags"),
               parallel=parallel("gcc_rows_lag_mags")),
         entry("fft_rows", "fft_natural_radix.cu", "fft_kernel.py:212",
               k7_launches, max([v[0] for v in k7.values()] + [cf_abs]), k7_main[2], k7_main[3],
@@ -3465,6 +3601,8 @@ def main() -> int:
               launches_buoy_rtl_tcp=tcp["buoy"],
               launches_buoy_usbmodel=usbmodel["launches"],
               launches_scan_rtl_tcp=tcp["scan"],
+              launches_bench=by_leg("fft_rows"),
+              bench_rows=[bench_run["fft_row"]],
               parallel=parallel("fft_rows")),
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
               route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft,

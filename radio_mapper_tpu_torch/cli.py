@@ -21,14 +21,15 @@ lines:
   setup     — autodetect hardware + generate example config
   eeprom    — RTL2832 EEPROM image tool (rtl_eeprom parity)
   usbprobe  — the USB driver's bring-up against the register-level dongle model
+  bench     — the throughput benchmark (:mod:`radio_mapper_tpu_torch.bench`):
+              one JSON line with the reference's keys
 
 The reference's ``--backend`` is ``--device {cuda,cpu}`` here, default
 ``cuda`` for every subcommand: the compute runs on the card unless
 ``--device cpu`` is given, and with ``cuda`` and no card it raises
 (:func:`radio_mapper_tpu_torch.device.require_cuda`); nothing falls back to
 the CPU. ``capture``, ``sdrtest``, ``usbprobe``, ``eeprom``, ``setup`` and
-``web`` do no tensor work and leave the device unused. The reference's
-``bench`` is not here: it waits for the port's benchmark (ROADMAP M5).
+``web`` do no tensor work and leave the device unused.
 """
 
 from __future__ import annotations
@@ -864,6 +865,12 @@ def cmd_usbprobe(args):
           f"bulk bytes: {transport.stats.bulk_bytes}")
 
 
+def cmd_bench(args):
+    from radio_mapper_tpu_torch import bench
+
+    bench.main(device=args.dev)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="radio_mapper_tpu_torch", description="TDOA geolocation framework on PyTorch and CUDA"
@@ -1063,6 +1070,9 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--gain", type=int, default=400,
                    help="tenth-dB, snapped to the tuner table")
     s.set_defaults(fn=cmd_usbprobe)
+
+    s = sub.add_parser("bench", help="run the throughput benchmark")
+    s.set_defaults(fn=cmd_bench)
 
     return p
 

@@ -4,7 +4,8 @@ ECEF, and local ENU tangent frames.
 Port of ``radio_mapper_tpu/geo.py``. Two halves:
 
 - numpy float64: ``lat_lng_to_enu_np`` (the simulator's and the engine's
-  forward transform), and ``lat_lng_to_ecef_wgs84``,
+  forward transform), ``lat_lng_to_ecef_sphere_np`` (the spherical
+  model's golden), and ``lat_lng_to_ecef_wgs84``,
   ``ecef_to_lat_lng_wgs84`` (Bowring's closed form), ``enu_rotation`` and
   ``enu_to_lat_lng`` (the engine's fix back to latitude and longitude),
   which the reference writes in jnp and runs in float32 on its default
@@ -161,6 +162,15 @@ def enu_to_lat_lng(enu, ref_lat_deg, ref_lng_deg, ref_alt_m=0.0):
     rot = enu_rotation(ref_lat_deg, ref_lng_deg)
     p = o + np.einsum("...ji,...j->...i", rot, enu)
     return ecef_to_lat_lng_wgs84(p[..., 0], p[..., 1], p[..., 2])
+
+
+def lat_lng_to_ecef_sphere_np(lat_deg, lng_deg, alt_m=0.0):
+    """Spherical ECEF in numpy float64: the golden of
+    :func:`lat_lng_to_ecef_sphere`."""
+    lat = np.deg2rad(np.asarray(lat_deg, dtype=np.float64))
+    lng = np.deg2rad(np.asarray(lng_deg, dtype=np.float64))
+    r = EARTH_RADIUS_M + np.asarray(alt_m, dtype=np.float64)
+    return r * np.cos(lat) * np.cos(lng), r * np.cos(lat) * np.sin(lng), r * np.sin(lat)
 
 
 def lat_lng_to_enu_np(lat_deg, lng_deg, alt_m, ref_lat, ref_lng, ref_alt=0.0) -> np.ndarray:

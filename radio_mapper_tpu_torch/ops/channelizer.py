@@ -123,3 +123,12 @@ def channelize(
     if shift:
         offsets = np.fft.fftshift(offsets)
     return ChannelizedStream(channels=ch, channel_offset_hz=offsets, channel_rate_hz=sample_rate_hz / num_channels)
+
+
+def synthesize_tone_response(num_channels: int, taps_per_channel: int = 8, points: int = 512) -> np.ndarray:
+    """|H(f)| of the prototype across ±2 channel widths (float64, numpy;
+    for tests and docs)."""
+    h = prototype_filter(num_channels, taps_per_channel).reshape(-1) / num_channels
+    w = np.linspace(0, 2.0 / num_channels, points)
+    e = np.exp(-2j * np.pi * np.outer(w, np.arange(h.size)))
+    return np.abs(e @ h)

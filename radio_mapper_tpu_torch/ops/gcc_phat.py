@@ -274,3 +274,46 @@ def gcc_phat_all_pairs_coherent(
     return peaks_from_lag_mags(
         torch.sqrt(cre * cre + cim * cim), sample_rate_hz=sample_rate_hz, max_lag=max_lag
     )
+
+
+# --- float64 golden model ----------------------------------------------------
+
+
+def gcc_phat_numpy(
+    x: np.ndarray,
+    y: np.ndarray,
+    *,
+    sample_rate_hz: float,
+    max_lag: int,
+    weighting: str = "phat",
+    eps: float = 0.05,
+) -> Tuple[float, float, float]:
+    """Float64 numpy reference of :func:`gcc_phat` (one pair, 1-D inputs),
+    at the reference's 5-smooth nfft. Returns ``(lag_samples, tau_s,
+    peak_value)``."""
+    n = x.shape[-1]
+    nfft = fft_ops.friendly_fft_len(n + max_lag)
+    x_f = np.fft.fft(x, n=nfft)
+    y_f = np.fft.fft(y, n=nfft)
+    r = x_f * np.conj(y_f)
+    if weighting == "phat":
+        mag = np.abs(r)
+        r = r / (mag + eps * mag.max() + 1e-30)
+    elif weighting == "scot":
+        d = np.sqrt(np.abs(x_f) ** 2 * np.abs(y_f) ** 2)
+        r = r / (d + eps * d.max() + 1e-30)
+    elif weighting == "roth":
+        d = np.abs(x_f) ** 2
+        r = r / (d + eps * d.max() + 1e-30)
+    elif weighting != "cc":
+        raise ValueError(f"unknown weighting {weighting!r}")
+    corr = np.fft.ifft(r)
+    m = np.abs(np.concatenate([corr[nfft - max_lag:], corr[: max_lag + 1]]))
+    k = int(np.argmax(m))
+    delta = 0.0
+    if 1 <= k <= len(m) - 2:
+        denom = m[k - 1] - 2.0 * m[k] + m[k + 1]
+        if abs(denom) > 1e-12:
+            delta = float(np.clip(0.5 * (m[k - 1] - m[k + 1]) / denom, -0.999, 0.999))
+    lag = k - max_lag + delta
+    return lag, lag / sample_rate_hz, float(m[k])

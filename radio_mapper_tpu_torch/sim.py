@@ -91,6 +91,11 @@ class Capture:
     emitter_enu: np.ndarray  # [E, 3]
     scenario: Scenario
 
+    def true_pair_lag_samples(self, i: int, j: int, emitter: int = 0) -> float:
+        """Expected GCC lag (samples) of buoy i relative to buoy j."""
+        d = self.delays_s[i, emitter] - self.delays_s[j, emitter]
+        return float(d * self.scenario.sample_rate_hz)
+
 
 def _baseband_source(e: Emitter, n: int, fs: float, rng: np.random.Generator) -> np.ndarray:
     """Unit-power complex baseband source waveform of length n (float64)."""

@@ -208,6 +208,7 @@ def test_scan(monkeypatch, capsys):
 
 @pytest.mark.parametrize("argv", [
     ["simulate"], ["wideband"], ["stream"], ["adsb"], ["demod"], ["scan", "88", "108"], ["server"], ["buoy"],
+    ["bench"],
 ])
 def test_cuda_without_a_card_raises(argv):
     if torch.cuda.is_available():
@@ -224,14 +225,13 @@ def test_help_lists_the_subcommands(capsys):
     assert e.value.code == 0
     text = capsys.readouterr().out
     for name in ("server", "buoy", "simulate", "wideband", "stream", "demod", "adsb", "scan",
-                 "web", "analyze", "capture", "sdrtest", "test", "setup", "eeprom", "usbprobe"):
+                 "web", "analyze", "capture", "sdrtest", "test", "setup", "eeprom", "usbprobe", "bench"):
         assert name in text
     assert "--device {cuda,cpu}" in text
-    # every subcommand of the JAX package's CLI but ``bench`` (the port's
-    # benchmark is still to come), each with the reference's options
+    # every subcommand of the JAX package's CLI, each with the reference's options
     ours, ref = cli.build_parser(), jcli.build_parser()
     sub = lambda p: next(a for a in p._actions if a.dest == "command").choices
-    assert set(sub(ours)) == set(sub(ref)) - {"bench"}
+    assert set(sub(ours)) == set(sub(ref))
     for name, parser in sub(ours).items():
         opts = lambda p: sorted((a.dest, a.default, tuple(a.choices or ()), a.nargs) for a in p._actions
                                 if a.dest != "help")
