@@ -309,7 +309,10 @@ import dataclasses
 import json
 import logging
 import math
+import os
+import re
 import statistics
+import subprocess
 import sys
 import time
 
@@ -551,6 +554,19 @@ def _path_run(torch, counters, step, args, reps):
     ms = _step_ms(torch, lambda: step(*args), reps)
     return out, {"launches": launches, "coll_ms": coll_ms, "coll_calls": coll_calls, "ms": ms,
                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def _pair_times(tree):
+    """``tools/forward_times.py --pair`` of this checkout run by path on the
+    package under ``tree`` (this checkout's or a parent's): K2 at [128, 8,
+    58368] in ms and the n1 = 128/256 pair digests."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "radio_mapper_tpu_torch", "tools",
+                          "forward_times.py")
+    out = subprocess.run([sys.executable, script, "--pair"], env={**os.environ, "PYTHONPATH": tree},
+                         capture_output=True, text=True, timeout=600, check=True).stdout
+    ms = float(re.search(r"\[128, 8, 58368\], max_lag 600: K2 ([0-9.]+) ms", out).group(1))
+    digests = re.search(r"pair digests \(n1 = 128, 256\): (.*) \[", out).group(1)
+    return ms, digests
 
 
 def _held(torch, name, kernel, plain, shape, window, bound):
@@ -3268,6 +3284,52 @@ def main() -> int:
     )
     del mraw, mout, mre, mim
 
+    # the wide pair body: one kernel a length for K2, K5 and K6, its registers,
+    # spills and resident blocks at the launches' shared memory (max_lag 600)
+    ptx = {r["kernel"]: r for r in build.ptxas_report(build.build_log()) if "_wide_kernel<" in r["kernel"]}
+    wide_kernels = []
+    for kind, pairs, kname in (("K2", 2, "gcc_pair"), ("K5", 1, "gcc_pairs_onehot"), ("K6", 1, "gcc_rows")):
+        for xn in (58_368, 87_040, 121_856):
+            xn1, xn2 = ct_plan.ct_split(xn)
+            wplan = gcc_pair.wide_plan(xn1, xn2, *gcc_pair.window_rows(xn, 600), pairs)
+            info = gcc_pair.wide_info(kind, xn1, wplan.smem)
+            spill = ptx[f"{kname}_wide_kernel<{xn1}>"]
+            wide_kernels.append({"kernel": kind, "n1": xn1, "registers": info["registers"],
+                                 "spill_bytes": spill["spill_stores"] + spill["spill_loads"],
+                                 "local_bytes": info["local_bytes"], "blocks_an_sm": info["blocks"],
+                                 "smem_bytes": wplan.smem, "pairs_a_block": wplan.pairs, "rows_a_chunk": wplan.rows})
+            print(
+                f"phase 20: {kind} wide kernel {kname}_wide_kernel<{xn1}> at nfft {xn}: {info['registers']} registers, "
+                f"spills {spill['spill_stores']}/{spill['spill_loads']} B, local memory {info['local_bytes']} B, "
+                f"{info['blocks']} blocks of 256 threads an SM at {wplan.smem} B of shared memory ({wplan.pairs} "
+                f"pair(s) a block, {wplan.rows} rows a chunk) {tag}"
+            )
+            _require(info["local_bytes"] == 0 and spill["spill_stores"] == 0 and spill["spill_loads"] == 0,
+                     f"{kind} wide kernel at n1 = {xn1} spills")
+            _require(info["blocks"] >= (2 if xn1 == 384 else 1), f"{kind} wide kernel at n1 = {xn1}: {info}")
+
+    # K2 at [128, 8, 58368] beside the parent's, back to back in this call
+    # (tools/forward_times.py --pair by path: parent, this, this, parent);
+    # RM_PARENT_TREE names an unpacked parent checkout, else this tree alone
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    parent_tree = os.environ.get("RM_PARENT_TREE")
+    order = [parent_tree, here, here, parent_tree] if parent_tree else [here]
+    k2_runs = [(tree, *_pair_times(tree)) for tree in order]
+    ours = [ms for tree, ms, _ in k2_runs if tree == here]
+    theirs = [ms for tree, ms, _ in k2_runs if tree != here]
+    k2_parent = {"ms": ours, "parent_ms": theirs or None}
+    print(
+        f"phase 20: K2 at [128, 8, 58368] (flagship at block_len 57344, max_lag 600) back to back: this tree "
+        f"{', '.join(f'{t:.4f}' for t in ours)} ms"
+        + (f", parent {', '.join(f'{t:.4f}' for t in theirs)} ms" if theirs else " (RM_PARENT_TREE unset: no parent)")
+        + f"; pair digests at n1 = 128, 256: {k2_runs[0][2]} {tag}"
+    )
+    if theirs:
+        same = len({d for _, _, d in k2_runs}) == 1
+        print(f"phase 20: n1 = 128/256 pair digests equal the parent's: {same} {tag}")
+        _require(same, "the n1 = 128/256 pair kernels differ from the parent's")
+
     # ---- phase 21: the complex step (TDOAPipeline.step) on the phase-4 scene, card vs CPU
     cscen = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8)
     ccap = sim.synthesize(cscen)
@@ -3559,6 +3621,7 @@ def main() -> int:
               _bound(_pair_flops(chans * npairs, nfft, width),
                      nrows * nfft * 8 + nrows * 4 + chans * npairs * width * 4), k2_fft,
               mixed_rows=mixed("K2"), launches_block_len_57344=mixed_launches.get("gcc_pair_lag_mags", 0),
+              wide_kernels=[w for w in wide_kernels if w["kernel"] == "K2"], flagship_57344_back_to_back=k2_parent,
               launches_ingest=ingest["launches"].get("gcc_pair_lag_mags", 0),
               launches_bench=by_leg("gcc_pair_lag_mags"),
               parallel=parallel("gcc_pair_lag_mags")),
@@ -3578,12 +3641,14 @@ def main() -> int:
               _bound(_pair_flops(m_sub * wp, wn, w_width),
                      m_sub * wb * wn * 8 + m_sub * wp * 4 + m_sub * wp * w_width * 4),
               _fft_pair_flops(m_sub * wp, wn1, wn2, w_rows), mixed_rows=mixed("K5"),
+              wide_kernels=[w for w in wide_kernels if w["kernel"] == "K5"],
               launches_bench=by_leg("gcc_pairs_onehot_lag_mags"),
               parallel=parallel("gcc_pairs_onehot_lag_mags")),
         entry("gcc_rows_lag_mags", "gcc_pair.cu", "gcc_kernel.py:548",
               wl6["gcc_rows_lag_mags"], k6_abs, k6_ms, k6_plain_ms,
               _bound(_pair_flops(wp, wn, w_width), 4 * wp * wn * 4 + wp * 4 + wp * w_width * 4),
               _fft_pair_flops(wp, wn1, wn2, w_rows),
+              wide_kernels=[w for w in wide_kernels if w["kernel"] == "K6"],
               launches_bench=by_leg("gcc_rows_lag_mags"),
               parallel=parallel("gcc_rows_lag_mags")),
         entry("fft_rows", "fft_natural_radix.cu", "fft_kernel.py:212",

@@ -1,9 +1,12 @@
 // Shared device code: one GCC pair's lag window -- cross-power R = X conj(Y),
 // whitening, four-step inverse transform of the lag-window rows only, |r|/n.
 //
-// The body of kernels K2, K5 and K6 (gcc_pair.cu) and of the pair stage of
-// kernel K8 (channel_step.cu); it is radio_mapper_tpu/ops/pallas/
-// gcc_kernel.py::_whiten + _invert_to_lag_windows for one pair.
+// The body of kernels K2, K5 and K6 (gcc_pair.cu) at the inner lengths
+// n1 = 128 and 256, and of the pair stage of kernel K8 (channel_step.cu);
+// it is radio_mapper_tpu/ops/pallas/gcc_kernel.py::_whiten +
+// _invert_to_lag_windows for one pair. The wide lengths n1 = 384, 640 and
+// 896 run gcc_pair_wide.cuh's body (one kernel a length, bulk copies, the
+// fold on tensor cores), which reuses the whitening below.
 //
 // Input spectra are in CT order (bin k = k2 + n2*k1 at m = k2*n1 + k1); the
 // inverse consumes that order and emits time t = q*n1 + p:
@@ -12,31 +15,27 @@
 //   C[k2][p]  = E[k2][p] * TWc[k2][p]
 //   z[q][p]   = sum_k2 W2c[q][k2] C[k2][p]       (outer, window rows q only)
 //
-// Inner transform, n1 = 32*P with P = 4, 8, 12, 20 or 28: one warp per CT
-// row k2. Lane l loads bins k1 = l + 32*i (i < P) of X and Y (each load
-// of the warp one coalesced 128-byte line), forms the whitened R in
-// registers and runs a DIF FFT with conjugate twiddles W_n1^-e (e < n1/2,
-// ct_plan.inverse_radix_table): first the P-point part in registers, then
-// the stages h = 16 .. 1, which pair lane l with lane l ^ h through
-// __shfl_xor_sync. The register part is, for P = 4 or 8, the radix-2
-// stages of half-size h = n1/2 .. 32 (points i and i + h/32); for
-// P = 4q (q = 3, 5, 7) the two radix-2 stages h = n1/2 and n1/4, then each
-// block of q points' direct q-point DFT times W_n1^-(4*l*u) (u: its output).
+// Inner transform, n1 = 32*P with P = 4 or 8: one warp per CT row k2.
+// Lane l loads bins k1 = l + 32*i (i < P) of X and Y (each load of the warp
+// one coalesced 128-byte line), forms the whitened R in registers and runs
+// a DIF FFT with conjugate twiddles W_n1^-e (e < n1/2,
+// ct_plan.inverse_radix_table): first the radix-2 stages of half-size
+// h = n1/2 .. 32 in registers (points i and i + h/32), then the stages
+// h = 16 .. 1, which pair lane l with lane l ^ h through __shfl_xor_sync.
 // In this layout every twiddle exponent depends on the lane (and i) but not
 // on the row, so each lane loads its P - 1 + 5 twiddles once a block. Point
-// i of lane l then holds E[P*brev5(l) + digit<P>(i)] (ct_fft.cuh; for
-// P = 4, 8: E[brev(l + 32*i)]): P consecutive times, multiplied by the
-// inverse twiddle and stored to the chunk buffer with 16-byte stores, at
-// swizzled places (swz) that keep the n1 = 128/256 stores and the fold's
-// reads free of bank conflicts. tests/test_torch_pair_fft.py and
-// tests/test_torch_mixed_radix.py replay this schedule in numpy and count
+// i of lane l then holds E[brev(l + 32*i)] = E[P*brev5(l) + brev(i)]: P
+// consecutive times, multiplied by the inverse twiddle and stored to the
+// chunk buffer with 16-byte stores, at swizzled places (swz) that keep the
+// stores and the fold's reads free of bank conflicts.
+// tests/test_torch_pair_fft.py replays this schedule in numpy and counts
 // the banks of those stores and reads.
 //
 // Outer transform: the rows k2 are processed in chunks of 256/n1 rows a
-// warp (one row a warp for n1 >= 384); each chunk's C is folded straight
-// into the window accumulators, in k2 order whatever the chunk size, so a
-// block of any THREADS gives the same sums (kernel K8, 512 threads, equals
-// K2, 256 threads, bit for bit).
+// warp; each chunk's C is folded straight into the window accumulators on
+// the CUDA cores, in k2 order whatever the chunk size, so a block of any
+// THREADS gives the same sums (kernel K8, 512 threads, equals K2, 256
+// threads, bit for bit).
 //
 // Whitening (gcc_kernel._whiten, the gate of set_phat_gate):
 //   l2rx  R * rsqrt(|R|^2 + eps^2 * s2 + 1e-30), s2 given per pair
@@ -59,11 +58,9 @@ namespace rm_pair {
 
 constexpr int RJ = 8;  // chunk rows = (THREADS / n1) * RJ = 256 / n1 rows a warp (n1 <= 256)
 
-// Chunk rows of a block of THREADS at inner length n1: 256/n1 rows a warp
-// for n1 = 128, 256; one row a warp for n1 >= 384.
-__host__ __device__ constexpr int chunk_rows(int threads, int n1) {
-  return n1 <= RJ * 32 ? (threads / n1) * RJ : threads / 32;
-}
+// Chunk rows of a block of THREADS at inner length n1 = 128, 256: 256/n1
+// rows a warp.
+__host__ __device__ constexpr int chunk_rows(int threads, int n1) { return (threads / n1) * RJ; }
 
 enum Gate : int { GATE_L2RX = 0, GATE_L2 = 1, GATE_L1 = 2, GATE_NONE = 3 };
 
@@ -96,44 +93,26 @@ __device__ __forceinline__ float2 whiten(float rr, float ri, int gate, float flo
   return make_float2(__fmul_rn(rr, inv), __fmul_rn(ri, inv));
 }
 
-// A lane's twiddles for the warp FFT of N1 points. P a power of two:
+// A lane's twiddles for the warp FFT of N1 = 32*P points, P = 4 or 8:
 // reg[P - h/16 + j] for the register stage h (h = N1/2 .. 32, j < h/32) is
-// W^-((l + 32j)*N1/(2h)). P = 4q: reg[j] (j < 2q) is W^-(l + 32j) for the
-// stage h = N1/2, reg[2q + j] (j < q) W^-(2(l + 32j)) for h = N1/4, and
-// reg[3q + u - 1] (0 < u < q) W^-(4*l*u) for output u of the q-point DFTs,
-// whose roots are wq. lane[s] for the shuffle stage h = 16 >> s is
+// W^-((l + 32j)*N1/(2h)); lane[s] for the shuffle stage h = 16 >> s is
 // W^-((l mod h)*N1/(2h)) where lane bit h is set and 1 where it is clear
 // (that lane keeps the sum).
 template <int N1>
 struct RowTwiddles {
   float2 reg[N1 / 32 - 1];
   float2 lane[5];
-  float2 wq[rm_fft::is_pow2(N1 / 32) ? 1 : N1 / 128];
 };
 
 template <int N1>
 __device__ __forceinline__ RowTwiddles<N1> row_twiddles(const float2* __restrict__ wi, int lane) {
   constexpr int P = N1 / 32;
+  static_assert(rm_fft::is_pow2(P), "the narrow pair body takes n1 = 128, 256");
   RowTwiddles<N1> t;
-  if constexpr (rm_fft::is_pow2(P)) {
 #pragma unroll
-    for (int h = N1 / 2; h >= 32; h >>= 1) {
+  for (int h = N1 / 2; h >= 32; h >>= 1) {
 #pragma unroll
-      for (int j = 0; j < h / 32; ++j) t.reg[P - h / 16 + j] = __ldg(wi + (lane + 32 * j) * (N1 / 2 / h));
-    }
-  } else {
-    constexpr int Q = P / 4;
-#pragma unroll
-    for (int j = 0; j < 2 * Q; ++j) t.reg[j] = __ldg(wi + lane + 32 * j);
-#pragma unroll
-    for (int j = 0; j < Q; ++j) t.reg[2 * Q + j] = __ldg(wi + 2 * (lane + 32 * j));
-#pragma unroll
-    for (int u = 1; u < Q; ++u) {
-      const int e = (4 * lane * u) % N1;  // W^-e = -W^-(e - N1/2) above N1/2
-      const float2 w = __ldg(wi + (e < N1 / 2 ? e : e - N1 / 2));
-      t.reg[3 * Q + u - 1] = e < N1 / 2 ? w : make_float2(-w.x, -w.y);
-    }
-    rm_fft::q_roots<Q, N1>(wi, t.wq);
+    for (int j = 0; j < h / 32; ++j) t.reg[P - h / 16 + j] = __ldg(wi + (lane + 32 * j) * (N1 / 2 / h));
   }
 #pragma unroll
   for (int s = 0; s < 5; ++s) {
@@ -149,35 +128,15 @@ template <int N1>
 __device__ __forceinline__ void inverse_row_fft(float2 (&v)[N1 / 32], const RowTwiddles<N1>& tw,
                                                 int lane) {
   constexpr int P = N1 / 32;
-  if constexpr (rm_fft::is_pow2(P)) {
 #pragma unroll
-    for (int h = N1 / 2; h >= 32; h >>= 1) {
-      const int g = h / 32;
+  for (int h = N1 / 2; h >= 32; h >>= 1) {
+    const int g = h / 32;
 #pragma unroll
-      for (int i = 0; i < P; ++i) {
-        if (i & g) continue;
-        const float2 a = v[i], b = v[i + g];
-        v[i] = rm_fft::cadd(a, b);
-        v[i + g] = rm_ct::cmul(rm_fft::csub(a, b), tw.reg[P - h / 16 + (i & (g - 1))]);
-      }
-    }
-  } else {
-    constexpr int Q = P / 4;
-#pragma unroll
-    for (int g = 2 * Q; g >= Q; g -= Q) {  // the stages h = N1/2 and N1/4
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        if (i % (2 * g) >= g) continue;
-        const float2 a = v[i], b = v[i + g];
-        v[i] = rm_fft::cadd(a, b);
-        v[i + g] = rm_ct::cmul(rm_fft::csub(a, b), tw.reg[(g == 2 * Q ? 0 : 2 * Q) + i % g]);
-      }
-    }
-    rm_fft::q_dfts<P>(v, tw.wq);
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-#pragma unroll
-      for (int u = 1; u < Q; ++u) v[b * Q + u] = rm_ct::cmul(v[b * Q + u], tw.reg[3 * Q + u - 1]);
+    for (int i = 0; i < P; ++i) {
+      if (i & g) continue;
+      const float2 a = v[i], b = v[i + g];
+      v[i] = rm_fft::cadd(a, b);
+      v[i + g] = rm_ct::cmul(rm_fft::csub(a, b), tw.reg[P - h / 16 + (i & (g - 1))]);
     }
   }
   // lane bit h clear: v + w (times 1); set: (w - v) * W, with no select
@@ -288,14 +247,12 @@ __device__ __forceinline__ void pair_chunks(
 }
 
 // One pair: X = (xr, xi), Y = (yr, yi) CT-order rows of n = n1*n2 (n1 = 128
-// or 256; with WIDE, 384, 640 or 896), gate mode `gate` (l2rx floor
+// or 256; gcc_pair_wide.cuh takes 384, 640 and 896), gate mode `gate` (l2rx floor
 // eps2 * s2 in floor2; eps2 = eps^2 and eps for the per-pair gates), window
 // |r|/n written to orow[0 .. 2*max_lag]. wi: W_n1^-e, e < n1/2; tw: the
 // inverse twiddle [n2][n1], 16-byte aligned. sm: (chunk_rows(THREADS, n1)
-// + nneg + npos) * n1 float2 of shared memory, 16-byte aligned. WIDE keeps
-// the three long inner lengths' code out of the kernels that take only
-// n1 = 128 and 256 (their register budget).
-template <int THREADS, bool FRESH, bool WIDE = false>
+// + nneg + npos) * n1 float2 of shared memory, 16-byte aligned.
+template <int THREADS, bool FRESH>
 __device__ void pair_lag_window(
     const float* xr, const float* xi, const float* yr, const float* yi,
     int gate, float floor2, float eps2, float eps,
@@ -332,18 +289,7 @@ __device__ void pair_lag_window(
   }
   const float l1_floor = __fmul_rn(eps, scale);
 
-  if constexpr (WIDE) {
-    if (n1 == 896) {
-      pair_chunks<896, THREADS, FRESH>(xr, xi, yr, yi, gate, floor2, l1_floor, wi, w2, tw, rbuf, z, n2,
-                                       nneg, npos);
-    } else if (n1 == 640) {
-      pair_chunks<640, THREADS, FRESH>(xr, xi, yr, yi, gate, floor2, l1_floor, wi, w2, tw, rbuf, z, n2,
-                                       nneg, npos);
-    } else {
-      pair_chunks<384, THREADS, FRESH>(xr, xi, yr, yi, gate, floor2, l1_floor, wi, w2, tw, rbuf, z, n2,
-                                       nneg, npos);
-    }
-  } else if (n1 == 256) {
+  if (n1 == 256) {
     pair_chunks<256, THREADS, FRESH>(xr, xi, yr, yi, gate, floor2, l1_floor, wi, w2, tw, rbuf, z, n2,
                                      nneg, npos);
   } else {
@@ -361,10 +307,8 @@ __device__ void pair_lag_window(
   }
 }
 
-// The inner lengths pair_lag_window takes: 128 and 256, and with WIDE the
-// three of pair_n1_wide.
-inline bool pair_n1_wide(int n1) { return n1 == 384 || n1 == 640 || n1 == 896; }
-inline bool pair_n1_supported(int n1) { return n1 == 128 || n1 == 256 || pair_n1_wide(n1); }
+// The inner lengths pair_lag_window takes (gcc_pair_wide.cuh: the rest).
+inline bool pair_n1_supported(int n1) { return n1 == 128 || n1 == 256; }
 
 // Shared memory of pair_lag_window for a block of THREADS.
 template <int THREADS>

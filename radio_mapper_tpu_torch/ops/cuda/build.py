@@ -18,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -129,6 +130,50 @@ def build_log() -> str:
     """nvcc's output for the current library (``-Xptxas -v`` report)."""
     log = library_path().with_suffix(".log")
     return log.read_text() if log.exists() else ""
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name with its template arguments from its mangled name:
+    ``_ZN12_GLOBAL__N_115gcc_pair_kernelILb1EEEv...`` → ``gcc_pair_kernel<1>``
+    (the anonymous namespace's component is skipped)."""
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name = ""
+    while True:  # skip the anonymous namespace's component
+        m = re.match(r"(\d+)", rest)
+        if m is None:
+            return mangled
+        n = int(m.group(1))
+        name, rest = rest[m.end():m.end() + n], rest[m.end() + n:]
+        if not name.startswith("_GLOBAL__N"):
+            break
+    if rest.startswith("I"):
+        args = re.match(r"I((?:L[a-z]\d+E)+)E", rest)
+        if args:
+            name += "<" + ", ".join(re.findall(r"L[a-z](\d+)E", args.group(1))) + ">"
+    return name
+
+
+def ptxas_report(text: str) -> list:
+    """Each kernel's line of an ``nvcc -Xptxas -v`` log: ``{"kernel",
+    "registers", "spill_stores", "spill_loads", "stack"}`` (bytes), in the
+    order ptxas compiled them."""
+    out, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": _kernel_name(m.group(1)), "registers": None, "spill_stores": 0,
+                   "spill_loads": 0, "stack": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
 
 
 def kernel(name: str, argtypes: Sequence[type]):

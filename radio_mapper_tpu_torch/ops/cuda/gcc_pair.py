@@ -1,8 +1,9 @@
 """Kernels K2, K5 and K6: whitening × inverse DFT × lag window.
 
-Three entries into one CUDA body (``radio_mapper_tpu_torch/csrc/gcc_pair.cu``
-around ``csrc/gcc_pair.cuh``, which kernel K8 shares), each with its plain
-PyTorch version and its own launch counter:
+Three entries into two CUDA bodies (``radio_mapper_tpu_torch/csrc/gcc_pair.cu``
+around ``csrc/gcc_pair.cuh``, which kernel K8 shares, for n1 = 128 and
+256, and ``csrc/gcc_pair_wide.cuh`` for n1 = 384, 640, 896), each with its
+plain PyTorch version and its own launch counter:
 
 - **K2** :func:`gcc_pair_lag_mags` replaces
   ``radio_mapper_tpu/ops/pallas/gcc_kernel.py::gcc_pair_lag_mags``: all
@@ -16,26 +17,41 @@ PyTorch version and its own launch counter:
   row k of X pairs with row k of Y, pre-gathered by the caller (the
   wideband route when :func:`onehot_pairs_enabled` says no).
 
-Design: one thread block per pair. It reads X_i and Y_j by index
-straight from the CT-order spectra (the TPU's resident spectra and
-one-hot matmul gather are a VMEM/MXU layout device with no use here; one
-subchannel's 64 spectra, 2.6 MB, stay in the 50 MB L2) and runs the
-four-step inverse in chunks of CT rows. Each warp takes whole rows k2:
-its lanes load the row's n1 bins (coalesced), form and whiten
-R = X·conj(Y) in registers, run the inner n1-point inverse FFT (a
-P = n1/32-point transform in registers — radix-2 for n1 = 128, 256; two
-radix-2 stages and a direct q-point DFT for n1 = 384, 640, 896, q = 3,
-5, 7 — then five radix-2 stages across lanes by ``__shfl_xor_sync``) and
-store it times the inverse twiddle to shared memory. The block then folds the chunk into
-the outer inverse DFT over k2, accumulated ONLY into the lag-window time
-rows (``ceil(L/n1)`` tail rows and ``L//n1 + 1`` head rows), in k2
-order whatever the chunk size (:func:`chunk_rows`: 256/n1 rows a warp,
-one row a warp for n1 ≥ 384). Shared memory holds one chunk and the
-window accumulators (≈ 26 KB at nfft 17408 / max_lag 512, ≈ 19 KB at
-nfft 5120 / max_lag 128, ≈ 71 KB at nfft 121856 = 896·136 / max_lag
-600), so several blocks share an SM. FP32 on the CUDA cores;
-``tests/test_torch_pair_fft.py`` and ``tests/test_torch_mixed_radix.py``
-replay the schedule in numpy.
+Design, n1 = 128 and 256 (``csrc/gcc_pair.cuh``, shared with kernel K8):
+one thread block per pair. It reads X_i and Y_j by index straight from
+the CT-order spectra (the TPU's resident spectra and one-hot matmul
+gather are a VMEM/MXU layout device with no use here; one subchannel's 64
+spectra, 2.6 MB, stay in the 50 MB L2) and runs the four-step inverse in
+chunks of CT rows. Each warp takes whole rows k2: its lanes load the
+row's n1 bins (coalesced), form and whiten R = X·conj(Y) in registers,
+run the inner n1-point inverse FFT (a P = n1/32-point radix-2 transform
+in registers, then five radix-2 stages across lanes by
+``__shfl_xor_sync``) and store it times the inverse twiddle to shared
+memory. The block then folds the chunk into the outer inverse DFT over
+k2, accumulated ONLY into the lag-window time rows (``ceil(L/n1)`` tail
+rows and ``L//n1 + 1`` head rows), in k2 order whatever the chunk size
+(:func:`chunk_rows`: 256/n1 rows a warp). Shared memory holds one chunk
+and the window accumulators (≈ 26 KB at nfft 17408 / max_lag 512, ≈ 19
+KB at nfft 5120 / max_lag 128), so several blocks share an SM. FP32 on
+the CUDA cores; ``tests/test_torch_pair_fft.py`` replays the schedule in
+numpy.
+
+Design, n1 = 384, 640 and 896 (``csrc/gcc_pair_wide.cuh``, one kernel
+instantiated for each length): K2 takes tiles of two pairs of a channel
+that share a receiver (:func:`wide_tiles`), K5 and K6 one pair; the
+tile's CT rows arrive by bulk copies (``cp.async.bulk`` completing on an
+mbarrier) into a double buffer in shared memory, a chunk of
+:func:`wide_plan`'s rows ahead; one warp a (pair, row) runs the
+mixed-radix warp FFT (two radix-2 stages, direct q-point DFTs, q = 3, 5,
+7, then the lane stages) and stores C = E·TW, TW formed from two small
+tables (:func:`wide_twiddle_factors`); the window rows are folded on the
+tensor cores, ``mma.sync.m16n8k8`` TF32 in the 3xTF32 split with FP32
+accumulators in registers, the block's rows of W2 staged once in shared
+memory; the window's n-tiles past two a pair go to more blocks along
+``blockIdx.y``. :func:`wide_info` reads each kernel's registers, local
+memory and resident blocks on the card.
+``tests/test_torch_pair_wide.py`` and ``tests/test_torch_mixed_radix.py``
+replay it in numpy.
 
 Whitening (``gcc_kernel._whiten``, chosen by :func:`set_phat_gate` and
 ``weighting``): "phat" takes the gate of the knob — "l2rx" (default)
@@ -47,20 +63,19 @@ pair's maximum first: one more pass over X and Y.
 
 What bounds it on the H100: with the inner transform an FFT
 (5·n·log2(n1) FLOP a pair), the outer fold, 8·n·(window rows) FLOP a
-pair with a shared-memory read for each complex multiply-add (1.25 M
-FLOP at nfft 17408 / max_lag 512, 0.12 M at 5120 / 128), is the largest
-part of the work; each pair reads two spectra, mostly L2 hits since a
-channel's B spectra are shared by all its pairs. Left for later PRs:
-several pairs that share a receiver in one block, the fold on tensor
-cores, and fusing the forward transform into this kernel so spectra stay
-on chip (kernel K8 does the latter through a scratch).
+pair (1.25 M FLOP at nfft 17408 / max_lag 512, 0.12 M at 5120 / 128), is
+the largest part of the work; each pair reads two spectra (one and a
+half in K2's wide tiles), mostly L2 hits since a channel's B spectra are
+shared by all its pairs. Left for later PRs: fusing the forward
+transform into this kernel so spectra stay on chip (kernel K8 does the
+latter through a scratch at n1 = 128).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -73,10 +88,15 @@ launch_count = 0  # K2 launches (not of the plain version)
 onehot_launch_count = 0  # K5 launches
 rows_launch_count = 0  # K6 launches
 
-THREADS = 256  # must match K2_THREADS in gcc_pair.cu
+THREADS = 256  # must match K2_THREADS in gcc_pair.cu and rm_wide::THREADS
 RJ = 8  # must match rm_pair::RJ in gcc_pair.cuh: (THREADS // n1) * RJ chunk rows for n1 ≤ 256
-PAIR_N1 = ct_plan.RADIX_N1  # the inner lengths of the pair body's warp FFT (rm_pair::pair_n1_supported)
+PAIR_N1 = ct_plan.RADIX_N1  # the inner lengths of the pair body's warp FFT
+WIDE_N1 = (384, 640, 896)  # gcc_pair_wide.cuh's lengths (rm_wide::wide_n1); 128, 256: gcc_pair.cuh
+WIDE_SLOTS = 2  # rm_wide::SLOTS: accumulator (pair, n-tile) slots a warp
+WIDE_TW_LO = 256  # rm_wide::TW_LO: W_n^e = W_n^(256·(e // 256))·W_n^(e % 256)
+WIDE_KINDS = {"K2": 0, "K5": 1, "K6": 2}  # rm_gcc_pair_wide_info's kind
 SMEM_LIMIT = 232_448  # H100 per-block shared memory
+WIDE_STATIC_SMEM = 1024  # room left for the wide kernels' static shared memory (the tile, barriers)
 
 _ARGTYPES = (
     [ctypes.c_void_p] * 9
@@ -90,6 +110,10 @@ _ROWS_ARGTYPES = (
     + [ctypes.c_float] * 3
     + [ctypes.c_void_p]
 )
+_WIDE_K2_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+_WIDE_K5_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+_WIDE_K6_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+_WIDE_INFO_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 WEIGHTINGS = ("phat", "cc")  # gcc_kernel.WEIGHTINGS
 GATES = ("l2rx", "l2", "l1")  # PHAT gate algebras (gcc_kernel._PHAT_GATE)
@@ -200,29 +224,150 @@ def _check_lag(nfft: int, max_lag: int) -> None:
 
 
 def chunk_rows(threads: int, n1: int) -> int:
-    """CT rows a chunk of the pair body holds (``rm_pair::chunk_rows``):
-    ``(threads // n1)·RJ`` for n1 ≤ 256, one row a warp above."""
+    """CT rows a chunk of the n1 = 128/256 pair body holds
+    (``rm_pair::chunk_rows``): ``(threads // n1)·RJ``. Above 256 (one row
+    a warp) it is the chunk ``tests/test_torch_pair_fft.py`` replays that
+    body's fold with; the kernels run the wide body there."""
     return (threads // n1) * RJ if n1 <= RJ * 32 else threads // 32
 
 
 def smem_bytes(n1: int, nneg: int, npos: int, threads: int = THREADS) -> int:
     """Dynamic shared memory of the pair body for a block of ``threads``
-    (``rm_pair::pair_smem_bytes``): a chunk of :func:`chunk_rows` CT rows
-    and the ``nneg + npos`` window rows, n1 complex floats each."""
+    at n1 = 128, 256 (``rm_pair::pair_smem_bytes``): a chunk of
+    :func:`chunk_rows` CT rows and the ``nneg + npos`` window rows, n1
+    complex floats each. The wide lengths' is :func:`wide_plan`'s."""
+    if n1 in WIDE_N1:
+        raise ValueError(f"n1 {n1} runs the wide pair body: see wide_plan")
     return (chunk_rows(threads, n1) + nneg + npos) * n1 * 8
+
+
+class WidePlan(NamedTuple):
+    """A wide launch (``csrc/gcc_pair_wide.cuh``): ``pairs`` a block,
+    ``nsrc`` staged sources, ``rows`` CT rows a chunk, ``ntg`` n-tiles a
+    pair a block, ``groups`` blocks along ``blockIdx.y``, ``smem`` bytes of
+    dynamic shared memory."""
+
+    pairs: int
+    nsrc: int
+    rows: int
+    ntg: int
+    groups: int
+    smem: int
+
+
+def wide_smem_bytes(n1: int, n2: int, nsrc: int, rows: int, ntg: int) -> int:
+    """``rm_wide::smem_floats`` in bytes: two buffers of ``nsrc`` sources ×
+    2 planes × ``rows`` rows of n1 floats; the block's ``ntg``·4
+    window rows of W2 (n2 complex floats each); the warp
+    FFT's twiddle table ([P − 1][32] + q complex floats); the inverse
+    twiddle's factors (ceil(n/256) + 256 complex floats)."""
+    p = n1 // 32
+    return 4 * (2 * nsrc * 2 * rows * n1 + 2 * ntg * 4 * n2 + 2 * ((p - 1) * 32 + p // 4)
+                + 2 * (-(-n1 * n2 // WIDE_TW_LO) + WIDE_TW_LO))
+
+
+def wide_plan(n1: int, n2: int, nneg: int, npos: int, pairs: int) -> WidePlan:
+    """How a wide kernel covers a window of ``nneg + npos`` rows: tiles of
+    ``pairs`` pairs (K2: 2 sharing a receiver; K5, K6: 1) while the window
+    fits one 8-column n-tile (max_lag < 2·n1 or so), else one pair a block
+    with its n-tiles two a block; 8 rows a chunk for one pair, 4 for two,
+    4 where 8 do not fit shared memory."""
+    if n1 not in WIDE_N1:
+        raise ValueError(f"the wide pair body takes n1 in {WIDE_N1}, not {n1}")
+    nt = -(-(nneg + npos) // 4)  # 8 columns: 4 window rows, re and im
+    g = pairs if pairs * nt <= WIDE_SLOTS else 1
+    ntg = min(nt, WIDE_SLOTS // g)
+    rows = 8 // g
+    if wide_smem_bytes(n1, n2, g + 1, rows, ntg) > SMEM_LIMIT - WIDE_STATIC_SMEM:
+        rows = 4
+    smem = wide_smem_bytes(n1, n2, g + 1, rows, ntg)
+    if smem > SMEM_LIMIT - WIDE_STATIC_SMEM:
+        raise ValueError(f"the wide pair body at {n1}·{n2} needs {smem} B of shared memory")
+    return WidePlan(g, g + 1, rows, ntg, -(-nt // ntg), smem)
+
+
+def wide_twiddle_factors(n: int) -> np.ndarray:
+    """``[ceil(n/256) + 256, 2]`` float32: W_n^(256·a), then W_n^b (b <
+    256), W_n = exp(+2πi/n) (the inverse's), float64 rounded once: the
+    wide body forms TW[k2][p] = W_n^(k2·p) from them."""
+    e = np.concatenate([np.arange(-(-n // WIDE_TW_LO)) * WIDE_TW_LO, np.arange(WIDE_TW_LO)])
+    w = np.exp(2j * np.pi * e / n)
+    return np.stack([w.real, w.imag], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def device_twiddle_factors(n: int, device: torch.device) -> torch.Tensor:
+    """:func:`wide_twiddle_factors` on ``device``."""
+    return torch.from_numpy(wide_twiddle_factors(n)).to(device)
+
+
+def wide_tiles(pair_i, pair_j, pairs: int) -> np.ndarray:
+    """K2's tiles (``gcc_pair_wide_kernel``): int32 ``[T, 8]``, each
+    (slot-0 receiver, slot-1, slot-2 or −1, pairs in the tile, then per
+    pair its index and 1 where its X is the leaf). With ``pairs = 2`` each
+    receiver r in turn takes its pairs not yet in a tile, in list order,
+    two at a time: a tile of two shares r (slot 0), each pair's other
+    receiver is its leaf. What is left (and every pair, with ``pairs =
+    1``) is a tile of one. For all 28 pairs of 8 receivers: 14 tiles of
+    two, every receiver the centre of at least one."""
+    pi, pj = (np.asarray(a, np.int64) for a in (pair_i, pair_j))
+    tiles, used = [], np.zeros(pi.size, bool)
+    if pairs == 2:
+        for r in range(int(max(pi.max(), pj.max())) + 1):
+            mine = [k for k in range(pi.size) if not used[k] and r in (pi[k], pj[k])]
+            for a, b in zip(mine[0::2], mine[1::2]):
+                leaf = lambda k: int(pj[k] if pi[k] == r else pi[k])
+                tiles.append([r, leaf(a), leaf(b), 2, a, int(pi[a] != r), b, int(pi[b] != r)])
+                used[a] = used[b] = True
+    tiles += [[int(pi[k]), int(pj[k]), -1, 1, k, 0, 0, 0] for k in np.flatnonzero(~used)]
+    return np.asarray(tiles, np.int32).reshape(-1, 8)
+
+
+@functools.lru_cache(maxsize=16)
+def _tile_tensor(pair_i: bytes, pair_j: bytes, pairs: int, device: torch.device) -> torch.Tensor:
+    to = lambda b: np.frombuffer(b, dtype=np.int32)
+    return torch.from_numpy(wide_tiles(to(pair_i), to(pair_j), pairs)).to(device)
+
+
+def device_tiles(pair_i, pair_j, pairs: int, device: torch.device) -> torch.Tensor:
+    """:func:`wide_tiles` on ``device``, cached by the lists' bytes."""
+    key = lambda p: np.ascontiguousarray(p, dtype=np.int32).tobytes()
+    return _tile_tensor(key(pair_i), key(pair_j), pairs, device)
+
+
+def wide_info(kind: str, n1: int, smem: int) -> dict:
+    """What the card makes of a wide kernel (``rm_gcc_pair_wide_info``):
+    registers a thread, local memory a thread in bytes (0: no spills),
+    blocks resident on an SM at ``smem`` bytes of dynamic shared memory,
+    static shared memory in bytes."""
+    fn = build.kernel("rm_gcc_pair_wide_info", _WIDE_INFO_ARGTYPES)
+    info = (ctypes.c_int * 4)()
+    build.check(fn(WIDE_KINDS[kind], n1, smem, ctypes.cast(info, ctypes.c_void_p)), f"wide info {kind} n1 {n1}")
+    return dict(zip(("registers", "local_bytes", "blocks", "static_smem"), info))
 
 
 def _geometry(n: int, max_lag: int, what: str):
     """``(n1, n2, nneg, npos)`` for a kernel launch; raises where the
-    inner length or shared memory does not fit."""
+    inner length or shared memory does not fit (the wide lengths' shared
+    memory does not grow with the window)."""
     n1, n2 = ct_plan.ct_split(n)
     if n1 not in PAIR_N1:
         raise ValueError(f"{what} supports n1 in {PAIR_N1}; nfft {n} = {n1}·{n2}")
     nneg, npos = window_rows(n, max_lag)
-    smem = smem_bytes(n1, nneg, npos)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"max_lag {max_lag} needs {smem} B of shared memory (limit {SMEM_LIMIT})")
+    if n1 in WIDE_N1:
+        wide_plan(n1, n2, nneg, npos, 1)  # raises where even one pair a block does not fit
+    else:
+        smem = smem_bytes(n1, nneg, npos)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"max_lag {max_lag} needs {smem} B of shared memory (limit {SMEM_LIMIT})")
     return n1, n2, nneg, npos
+
+
+def _check_aligned(what: str, **tensors) -> None:
+    """The wide body's bulk copies read 16-byte aligned rows."""
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte boundary")
 
 
 def _tables(n: int, n1: int, device: torch.device):
@@ -303,6 +448,9 @@ def launch_k2(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate):
     part of one launch of K8."""
     c, b, n = spec_re.shape
     n1, n2, nneg, npos = _geometry(n, max_lag, "K2")
+    if n1 in WIDE_N1:
+        return _launch_k2_wide(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate,
+                               n1, n2, nneg, npos)
     fn = build.kernel("rm_gcc_pair_lag_mags", _ARGTYPES)
     wi, w2, tw = _tables(n, n1, spec_re.device)
     pi, pj = device_pairs(pair_i, pair_j, spec_re.device)
@@ -316,6 +464,30 @@ def launch_k2(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate):
         _stream(spec_re),
     )
     build.check(err, "gcc_pair_lag_mags")
+    return out
+
+
+def _launch_k2_wide(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate, n1, n2, nneg, npos):
+    """K2 at n1 = 384, 640, 896: tiles of two pairs that share a receiver
+    (:func:`wide_tiles`), ``gcc_pair_wide_kernel<n1>``."""
+    c, b, n = spec_re.shape
+    _check_aligned("K2", spec_re=spec_re, spec_im=spec_im)
+    plan = wide_plan(n1, n2, nneg, npos, 2)
+    fn = build.kernel("rm_gcc_pair_wide_lag_mags", _WIDE_K2_ARGTYPES)
+    wi, w2, _ = _tables(n, n1, spec_re.device)
+    tw = device_twiddle_factors(n, spec_re.device)
+    tiles = device_tiles(pair_i, pair_j, plan.pairs, spec_re.device)
+    p = len(pair_i)
+    out = torch.empty((c, p, 2 * max_lag + 1), dtype=torch.float32, device=spec_re.device)
+    err = fn(
+        _ptr(spec_re), _ptr(spec_im), _ptr(row_smax), _ptr(tiles),
+        _ptr(wi), _ptr(w2), _ptr(tw), _ptr(out),
+        c, b, p, tiles.shape[0], n1, n2, nneg, npos, max_lag,
+        plan.nsrc, plan.rows, plan.ntg, plan.groups, _GATE_CODE[gate],
+        eps * eps, eps, 1.0 / n,
+        _stream(spec_re),
+    )
+    build.check(err, "gcc_pair_lag_mags (wide)")
     return out
 
 
@@ -454,15 +626,23 @@ def _launch_onehot(spec_re, spec_im, pair_i, pair_j, s2, max_lag, eps, gate):
     *lead, b, n = spec_re.shape
     c = spec_re.numel() // (b * n)
     n1, n2, nneg, npos = _geometry(n, max_lag, "K5")
-    fn = build.kernel("rm_gcc_pairs_onehot_lag_mags", _ARGTYPES)
-    wi, w2, tw = _tables(n, n1, spec_re.device)
+    wi, w2, tw = _tables(n, n1, spec_re.device)  # the wide body takes W_n's factors for tw
     pi, pj = device_pairs(pair_i, pair_j, spec_re.device)
     p = pi.shape[0]
     out = torch.empty((*lead, p, 2 * max_lag + 1), dtype=torch.float32, device=spec_re.device)
+    if n1 in WIDE_N1:  # gcc_pairs_onehot_wide_kernel<n1>, one pair a block
+        _check_aligned("K5", spec_re=spec_re, spec_im=spec_im)
+        plan = wide_plan(n1, n2, nneg, npos, 1)
+        tw = device_twiddle_factors(n, spec_re.device)
+        fn = build.kernel("rm_gcc_pairs_onehot_wide_lag_mags", _WIDE_K5_ARGTYPES)
+        wide = (plan.rows, plan.ntg, plan.groups)
+    else:
+        fn = build.kernel("rm_gcc_pairs_onehot_lag_mags", _ARGTYPES)
+        wide = ()
     err = fn(
         _ptr(spec_re), _ptr(spec_im), _ptr(s2), _ptr(pi), _ptr(pj),
         _ptr(wi), _ptr(w2), _ptr(tw), _ptr(out),
-        c, b, p, n1, n2, nneg, npos, max_lag, _GATE_CODE[gate],
+        c, b, p, n1, n2, nneg, npos, max_lag, *wide, _GATE_CODE[gate],
         eps * eps, eps, 1.0 / n,
         _stream(spec_re),
     )
@@ -546,13 +726,21 @@ def _launch_rows(xre, xim, yre, yim, s2, max_lag, eps, gate):
     global rows_launch_count
     p, n = xre.shape
     n1, n2, nneg, npos = _geometry(n, max_lag, "K6")
-    fn = build.kernel("rm_gcc_rows_lag_mags", _ROWS_ARGTYPES)
-    wi, w2, tw = _tables(n, n1, xre.device)
+    wi, w2, tw = _tables(n, n1, xre.device)  # the wide body takes W_n's factors for tw
     out = torch.empty((p, 2 * max_lag + 1), dtype=torch.float32, device=xre.device)
+    if n1 in WIDE_N1:  # gcc_rows_wide_kernel<n1>, one pair a block
+        _check_aligned("K6", xre=xre, xim=xim, yre=yre, yim=yim)
+        plan = wide_plan(n1, n2, nneg, npos, 1)
+        tw = device_twiddle_factors(n, xre.device)
+        fn = build.kernel("rm_gcc_rows_wide_lag_mags", _WIDE_K6_ARGTYPES)
+        wide = (plan.rows, plan.ntg, plan.groups)
+    else:
+        fn = build.kernel("rm_gcc_rows_lag_mags", _ROWS_ARGTYPES)
+        wide = ()
     err = fn(
         _ptr(xre), _ptr(xim), _ptr(yre), _ptr(yim), _ptr(s2),
         _ptr(wi), _ptr(w2), _ptr(tw), _ptr(out),
-        p, n1, n2, nneg, npos, max_lag, _GATE_CODE[gate],
+        p, n1, n2, nneg, npos, max_lag, *wide, _GATE_CODE[gate],
         eps * eps, eps, 1.0 / n,
         _stream(xre),
     )

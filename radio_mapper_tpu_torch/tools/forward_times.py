@@ -28,7 +28,12 @@ Last, one line of digests: SHA-256 of the outputs on seeded rows up to
 long rows' digests: K3, K4 on K3's spectra, K1 and K8 (max_lag 600) on
 [16, 8, n] at n = 33792, 34816, 58368, 66560, 87040 and 121856 (every n1
 of the long K3 and cluster sizes 2, 4, 8). Equal digests from two
-checkouts in one call mean equal outputs bit for bit.
+checkouts in one call mean equal outputs bit for bit. A third line: K2
+(each gate), K5, K6 and K8 at n1 = 128 (5120, 17408) and 256 (34816).
+
+``--pair`` times only K2 at [128, 8, 58368] (the flagship at block_len
+57344, n1 = 384) and [8, 8, 121856] (n1 = 896) and K5 at [1, 64, 58368],
+then prints the pair digests.
 
 The wrappers' signatures are those of every version since K8 was ported,
 so with ``PYTHONPATH`` at another checkout it times that checkout's
@@ -47,7 +52,8 @@ import torch
 
 from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat
-from radio_mapper_tpu_torch.ops.cuda import build, channel_step, detect_ct, fft_detect, fft_natural, fft_rows
+from radio_mapper_tpu_torch.ops.cuda import (build, channel_step, detect_ct, fft_detect, fft_natural, fft_rows,
+                                             gcc_pair)
 
 LONG_DIGEST_N = (33_792, 34_816, 58_368, 66_560, 87_040, 121_856)  # the long K3's n1 and cluster classes
 DETECT = dict(sample_rate_hz=2_400_000.0, threshold_db=-70.0, min_distance_bins=10,
@@ -108,12 +114,63 @@ def _digests(dev, tag) -> None:
           + ", ".join(f"{k} {_digest(v)}" for k, v in out.items()) + f" {tag}")
 
 
+def pair_digests(dev) -> dict:
+    """K2 (every gate), K5, K6 and K8 at n1 = 128 (5120, 17408) and 256
+    (34816; K8 there is its long design, K1 then K2): one digest each."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = lambda *shape: torch.randn(*shape, device=dev, generator=g)
+    out = {"K2": [], "K5": [], "K6": [], "K8": []}
+    pi, pj = gcc_phat.pair_indices(8)
+    for nfft, lag in ((5120, 128), (17408, 512), (34816, 512)):  # n1 = 128, 128, 256
+        sre, sim, smax = rows(16, 8, nfft), rows(16, 8, nfft), rows(16, 8).abs() + 1.0
+        for gate in ("l2rx", "l2", "l1"):
+            gcc_pair.set_phat_gate(gate)
+            try:
+                out["K2"].append(gcc_pair.gcc_pair_lag_mags(sre, sim, smax, pi, pj, max_lag=lag))
+            finally:
+                gcc_pair.set_phat_gate("l2rx")
+        out["K2"].append(gcc_pair.gcc_pair_lag_mags(sre, sim, smax, pi, pj, max_lag=lag, weighting="cc"))
+        s2 = (smax[:, pi] * smax[:, pj]).contiguous()
+        out["K5"].append(gcc_pair.gcc_pairs_onehot_lag_mags(sre, sim, pi, pj, max_lag=lag, s2=s2))
+        gather = lambda x, idx: x[0][torch.as_tensor(idx, device=dev)].contiguous()
+        xr, xi, yr, yi = gather(sre, pi), gather(sim, pi), gather(sre, pj), gather(sim, pj)
+        out["K6"].append(gcc_pair.gcc_rows_lag_mags(xr, xi, yr, yi, max_lag=lag, s2=s2[0].contiguous()))
+        if nfft > 5120:
+            plan = ct_plan.detect_plan(nfft, **DETECT)
+            out["K8"] += channel_step.channel_step_partials(40.0 * sre, 40.0 * sim, pi, pj, plan, lag)
+    return {k: _digest(v) for k, v in out.items()}
+
+
+def pair_main(dev, tag) -> None:
+    """``--pair``: K2 at the flagship's block_len-57344 shape [128, 8,
+    58368] (n1 = 384, max_lag 600, l2rx), at [8, 8, 121856] (n1 = 896) and
+    K5 at [1, 64, 58368], then the pair digests at n1 = 128 and 256."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    pi, pj = gcc_phat.pair_indices(8)
+    for c, nfft in ((128, 58_368), (8, 121_856)):
+        sre, sim = torch.randn(c, 8, nfft, device=dev, generator=g), torch.randn(c, 8, nfft, device=dev, generator=g)
+        smax = torch.rand(c, 8, device=dev, generator=g) + 1.0
+        t2 = _mean_ms(lambda: gcc_pair.gcc_pair_lag_mags(sre, sim, smax, pi, pj, max_lag=600))
+        print(f"[{c}, 8, {nfft}], max_lag 600: K2 {t2:.4f} ms {tag}")
+        del sre, sim
+    wpi, wpj = gcc_phat.pair_indices(64)
+    sre, sim = torch.randn(1, 64, 58_368, device=dev, generator=g), torch.randn(1, 64, 58_368, device=dev, generator=g)
+    s2 = torch.rand(1, len(wpi), device=dev, generator=g) + 1.0
+    t5 = _mean_ms(lambda: gcc_pair.gcc_pairs_onehot_lag_mags(sre, sim, wpi, wpj, max_lag=600, s2=s2))
+    print(f"[1, 64, 58368], max_lag 600: K5 {t5:.4f} ms {tag}")
+    del sre, sim
+    print("pair digests (n1 = 128, 256): " + ", ".join(f"{k} {v}" for k, v in pair_digests(dev).items()) + f" {tag}")
+
+
 def main() -> int:
     card = device.require_cuda()
     tag = card.label()
     print(card.smi)
     dev = torch.device("cuda", 0)
     build.library()
+    if "--pair" in sys.argv[1:]:
+        pair_main(dev, tag)
+        return 0
     g = torch.Generator(device=dev).manual_seed(0)
     for rows, nfft in ((16, 9216), (1024, 17408)):
         plan = ct_plan.detect_plan(nfft, **DETECT)
@@ -167,6 +224,7 @@ def main() -> int:
         del xr, xi
         torch.cuda.empty_cache()
     _digests(dev, tag)
+    print("pair digests (n1 = 128, 256): " + ", ".join(f"{k} {v}" for k, v in pair_digests(dev).items()) + f" {tag}")
     return 0
 
 

@@ -6,21 +6,28 @@ Run from the repository root on a machine with an NVIDIA GPU and nvcc:
 
 It copies ``csrc/gcc_pair.cu`` and the headers it includes into
 ``radio_mapper_tpu_torch/_build/pair_parts/<variant>/``, takes parts of
-``rm_pair::pair_lag_window`` out of each copy by the text edits of
-:data:`EDITS`, builds every copy with nvcc in parallel and times, through
+the pair bodies (``rm_pair::pair_lag_window`` for n1 = 128, 256,
+``rm_wide::wide_pair_body`` for 384, 640, 896) out of each copy by the
+text edits of :data:`EDITS` (the wide body's "loads" are its bulk
+copies), builds every copy with nvcc in parallel and times, through
 the package's own wrappers, K5 at the wideband shape [16, 64, 5120] →
 [16, 2016, 257], K2 at the flagship shape [128, 8, 17408] → [128, 28,
-1025] (l2rx, and l2 with its first pass) and K6 at [2016, 5120] × 4: the
-mean of 20 back-to-back launches between two CUDA events, median of 3, so
-the host's time to call the wrapper overlaps the card's work. A variant
-without a part computes wrong windows; its time says how much of the
-kernel's time that part holds. The full body's windows are checked
-against the plain version (1e-4 of the window max).
+1025] (l2rx, and l2 with its first pass) and K6 at [2016, 5120] × 4, then
+the wide inner lengths: K2 at [128, 8, 58368] (n1 = 384, the flagship at
+block_len 57344, max_lag 600) and [8, 8, 121856] (n1 = 896), K5 at
+[1, 64, 58368]: the mean of 20 back-to-back launches between two CUDA
+events, median of 3, so the host's time to call the wrapper overlaps the
+card's work. Each build's ``-Xptxas -v`` report gives every kernel's
+registers and spilled bytes. A variant without a part computes wrong
+windows; its time says how much of the kernel's time that part holds.
+The full body's windows are checked against the plain version (1e-4 of
+the window max, same argmax).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import shutil
 import statistics
 import subprocess
@@ -32,20 +39,26 @@ from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import gcc_phat
 from radio_mapper_tpu_torch.ops.cuda import build, gcc_pair
 
-SOURCES = ("gcc_pair.cu", "gcc_pair.cuh", "ct_fft.cuh", "ct_dft.cuh")
+SOURCES = ("gcc_pair.cu", "gcc_pair.cuh", "gcc_pair_wide.cuh", "ct_fft.cuh", "ct_dft.cuh")
+NARROW, WIDE = "gcc_pair.cuh", "gcc_pair_wide.cuh"  # n1 = 128, 256; n1 = 384, 640, 896
 
-# part → (file, text, replacement): the text occurs exactly once
+# part → [(file, text, replacement)]: each text occurs exactly once
 EDITS = {
-    "fft": ("gcc_pair.cuh", "      inverse_row_fft<N1>(v, rtw, lane);\n", ""),
-    "fold": ("gcc_pair.cuh", "for (int rl = 0; rl < rows; ++rl) rm_ct::cmac(",
-             "for (int rl = 0; rl < 0; ++rl) rm_ct::cmac("),
-    # spectra values made from their addresses: no device-memory or L2 reads
-    "loads": ("gcc_pair.cuh", "  if constexpr (FRESH) return __ldcg(p);\n  else return __ldg(p);",
-              "  return static_cast<float>(reinterpret_cast<size_t>(p) & 1023);"),
-    "whiten": ("gcc_pair.cuh", "        v[i] = whiten(rr, ri, gate, floor2, l1_floor);",
-               "        v[i] = make_float2(rr, ri);"),
+    "fft": [(NARROW, "      inverse_row_fft<N1>(v, rtw, lane);\n", ""),
+            (WIDE, "        inverse_row_fft_wide<N1>(v, twt, tl, lane);\n", "")],
+    "fold": [(NARROW, "for (int rl = 0; rl < rows; ++rl) rm_ct::cmac(", "for (int rl = 0; rl < 0; ++rl) rm_ct::cmac("),
+             (WIDE, "for (int ks = 0; ks < rows / 4; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {")],
+    # spectra values made from their addresses (n1 <= 256), or no bulk copies
+    # (wide): no device-memory or L2 reads of the spectra
+    "loads": [(NARROW, "  if constexpr (FRESH) return __ldcg(p);\n  else return __ldg(p);",
+               "  return static_cast<float>(reinterpret_cast<size_t>(p) & 1023);"),
+              (WIDE, "  const int ncopy = t.nsrc * 2;", "  const int ncopy = 0;")],
+    "whiten": [(NARROW, "        v[i] = whiten(rr, ri, gate, floor2, l1_floor);", "        v[i] = make_float2(rr, ri);"),
+               (WIDE, "          v[i] = rm_pair::whiten(rr_, ri_, gate, floor2, l1_floor);",
+                "          v[i] = make_float2(rr_, ri_);")],
     # no store: nothing reads the row, so its loads and arithmetic go too
-    "store": ("gcc_pair.cuh", "      if (live) {\n        twiddle_store", "      if (false) {\n        twiddle_store"),
+    "store": [(NARROW, "      if (live) {\n        twiddle_store", "      if (false) {\n        twiddle_store"),
+              (WIDE, "          cre[o] = c.x;\n          cim[o] = c.y;\n", "")],
 }
 
 VARIANTS = {
@@ -63,10 +76,10 @@ def variant_sources(parts) -> dict:
     """The edited sources of a variant without ``parts``: name → text."""
     src = {f: (build.CSRC / f).read_text() for f in SOURCES}
     for part in parts:
-        f, old, new = EDITS[part]
-        if src[f].count(old) != 1:
-            raise RuntimeError(f"edit {part!r} no longer matches {f}")
-        src[f] = src[f].replace(old, new)
+        for f, old, new in EDITS[part]:
+            if src[f].count(old) != 1:
+                raise RuntimeError(f"edit {part!r} no longer matches {f}")
+            src[f] = src[f].replace(old, new)
     return src
 
 
@@ -96,6 +109,33 @@ def _mean_ms(fn, reps=20):
     return statistics.median(out)
 
 
+def _shapes(dev):
+    """The timed calls: name → (kernel call, plain call or None)."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=g)
+    out = {}
+    w_re, w_im = rnd(16, 64, 5120), rnd(16, 64, 5120)  # K5: 16 subchannels × 64 receivers
+    wpi, wpj = gcc_phat.pair_indices(64)
+    s2 = rnd(16, len(wpi)).abs() + 1.0
+    out["K5"] = (lambda: gcc_pair.gcc_pairs_onehot_lag_mags(w_re, w_im, wpi, wpj, max_lag=128, s2=s2),
+                 lambda: gcc_pair.gcc_pairs_onehot_lag_mags_plain(w_re, w_im, wpi, wpj, max_lag=128, s2=s2))
+    pi, pj = gcc_phat.pair_indices(8)
+    for c, n, lag in ((128, 17408, 512), (128, 58368, 600), (8, 121856, 600)):  # K2: c channels × 8 receivers
+        f_re, f_im, smax = rnd(c, 8, n), rnd(c, 8, n), rnd(c, 8).abs() + 1.0
+        name = f"K2 [{c}, 8, {n}]"
+        out[name] = (functools.partial(gcc_pair.gcc_pair_lag_mags, f_re, f_im, smax, pi, pj, max_lag=lag),
+                     functools.partial(gcc_pair.gcc_pair_lag_mags_plain, f_re, f_im, smax, pi, pj, max_lag=lag))
+    rows = [rnd(len(wpi), 5120) for _ in range(4)]  # K6: one subchannel's pairs, gathered
+    s6 = rnd(len(wpi)).abs() + 1.0
+    out["K6"] = (lambda: gcc_pair.gcc_rows_lag_mags(*rows, max_lag=128, s2=s6), None)
+    m_re, m_im = rnd(1, 64, 58368), rnd(1, 64, 58368)  # K5 at n1 = 384
+    ms2 = rnd(1, len(wpi)).abs() + 1.0
+    out["K5 [1, 64, 58368]"] = (
+        lambda: gcc_pair.gcc_pairs_onehot_lag_mags(m_re, m_im, wpi, wpj, max_lag=600, s2=ms2),
+        lambda: gcc_pair.gcc_pairs_onehot_lag_mags_plain(m_re, m_im, wpi, wpj, max_lag=600, s2=ms2))
+    return out
+
+
 def main() -> int:
     card = device.require_cuda()
     tag = card.label()
@@ -108,40 +148,32 @@ def main() -> int:
         text, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name!r}:\n{text}")
-        regs = sorted({ln.split(":", 1)[1].strip() for ln in text.splitlines() if "Used" in ln})
-        print(f"{name}: ptxas {'; '.join(regs)}")
+        report = build.ptxas_report(text)
+        print(f"{name}: ptxas " + "; ".join(
+            f"{r['kernel']} {r['registers']} registers, spills {r['spill_stores']}/{r['spill_loads']} B"
+            for r in report))
         libs[name] = ctypes.CDLL(str(so))
 
-    g = torch.Generator(device=dev).manual_seed(0)
-    rnd = lambda *s: torch.randn(*s, device=dev, generator=g)
-    w_re, w_im = rnd(16, 64, 5120), rnd(16, 64, 5120)  # K5: 16 subchannels × 64 receivers
-    wpi, wpj = gcc_phat.pair_indices(64)
-    s2 = rnd(16, len(wpi)).abs() + 1.0
-    f_re, f_im = rnd(128, 8, 17408), rnd(128, 8, 17408)  # K2: 128 channels × 8 receivers
-    smax = rnd(128, 8).abs() + 1.0
-    pi, pj = gcc_phat.pair_indices(8)
-    rows = [rnd(len(wpi), 5120) for _ in range(4)]  # K6: one subchannel's pairs, gathered
-    s6 = rnd(len(wpi)).abs() + 1.0
-    k5 = lambda: gcc_pair.gcc_pairs_onehot_lag_mags(w_re, w_im, wpi, wpj, max_lag=128, s2=s2)
-    k2 = lambda: gcc_pair.gcc_pair_lag_mags(f_re, f_im, smax, pi, pj, max_lag=512)
-    k6 = lambda: gcc_pair.gcc_rows_lag_mags(*rows, max_lag=128, s2=s6)
-    ref = gcc_pair.gcc_pairs_onehot_lag_mags_plain(w_re, w_im, wpi, wpj, max_lag=128, s2=s2)
-
+    calls = _shapes(dev)
+    refs = {k: plain() for k, (_, plain) in calls.items() if plain is not None}
+    torch.cuda.synchronize()
     saved = build._lib
     try:
         for name, lib in libs.items():
             build._lib = lib  # the wrappers look their entries up here
             if not VARIANTS[name]:
-                rel = ((k5() - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
-                if rel > 1e-4:
-                    raise AssertionError(f"the full body's K5 windows disagree with the plain version: {rel}")
-            t5, t2, t6 = _mean_ms(k5), _mean_ms(k2), _mean_ms(k6)
+                for k, ref in refs.items():
+                    got = calls[k][0]()
+                    rel = ((got - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+                    if rel > 1e-4 or not bool((got.argmax(-1) == ref.argmax(-1)).all()):
+                        raise AssertionError(f"the full body's {k} windows disagree with the plain version: {rel}")
+            times = {k: _mean_ms(run) for k, (run, _) in calls.items()}
             gcc_pair.set_phat_gate("l2")
             try:
-                t2l2 = _mean_ms(k2)
+                times["K2 [128, 8, 17408] l2"] = _mean_ms(calls["K2 [128, 8, 17408]"][0])
             finally:
                 gcc_pair.set_phat_gate("l2rx")
-            print(f"{name:24s} K5 {t5:.3f} ms, K2 {t2:.3f} ms (l2 {t2l2:.3f}), K6 {t6:.3f} ms {tag}")
+            print(f"{name:24s} " + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()) + f" {tag}")
     finally:
         build._lib = saved
     return 0

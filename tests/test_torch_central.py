@@ -94,7 +94,29 @@ def _drive(proc, regs, dets):
     return sockets
 
 
+def _stamped(dets):
+    """The detections stamped now, as buoys send them just before a drive:
+    the service drops detections older than its 5 s correlation window
+    against the wall clock, and one processor's drive can take most of
+    that (the reference's waveform drive alone, 4.7 s on an idle CPU).
+    Returns the messages and the stamp; IQ, GPS stamps and the window are
+    untouched."""
+    now = datamodel.utc_now_iso()
+    return [{**m, "data": {**m["data"], "timestamp_utc": now}} for m in dets], now
+
+
+def _as_ref(value, stamps):
+    """``value`` (a stamp, or JSON-like records holding it) with the port's
+    drive's stamp in place of the reference's, so the two compare equal
+    where each service echoes the stamp it was sent."""
+    ours, ref = stamps
+    return json.loads(json.dumps(value).replace(json.dumps(ours)[1:-1], json.dumps(ref)[1:-1]))
+
+
 def _run_both(tmp_path, monkeypatch, with_iq, **kw):
+    """Both services driven by the same messages, each stamped just before
+    its own drive. Returns ``(scen, ours, ref, seen, our_sockets,
+    ref_sockets, stamps)``, stamps = (the port's, the reference's)."""
     scen, regs, dets = _messages(with_iq)
     seen = []
     convert = jgeo.enu_to_lat_lng
@@ -109,19 +131,21 @@ def _run_both(tmp_path, monkeypatch, with_iq, **kw):
         alerter=amod.EmergencyAlerter(methods=["log"], confidence_threshold=0.0), **kw, **x)
     ref = mk(jcentral, jalerts, jstorage, "ref")
     ours = mk(central, alerts, storage, "ours", device="cpu")
-    ref_sockets = _drive(ref, regs, dets)
-    our_sockets = _drive(ours, regs, dets)
-    return scen, ours, ref, seen, our_sockets, ref_sockets
+    ref_dets, ref_stamp = _stamped(dets)
+    ref_sockets = _drive(ref, regs, ref_dets)
+    our_dets, our_stamp = _stamped(dets)
+    our_sockets = _drive(ours, regs, our_dets)
+    return scen, ours, ref, seen, our_sockets, ref_sockets, (our_stamp, ref_stamp)
 
 
-def _hold_fixes(scen, ours, ref, seen):
+def _hold_fixes(scen, ours, ref, seen, stamps):
     assert len(ours.triangulated_signals) == len(ref.triangulated_signals) == len(seen) == 1
     lat0 = float(np.mean([b.lat for b in scen.buoys]))  # the engine's ENU origin
     lng0 = float(np.mean([b.lng for b in scen.buoys]))
     for a, b, ref_enu in zip(ours.triangulated_signals, ref.triangulated_signals, seen):
         assert a.triangulation_method == b.triangulation_method
         assert a.detected_by == b.detected_by and len(a.detected_by) == 4
-        assert (a.frequency_mhz, a.signal_type, a.detection_timestamps) == (
+        assert (a.frequency_mhz, a.signal_type, _as_ref(a.detection_timestamps, stamps)) == (
             b.frequency_mhz, b.signal_type, b.detection_timestamps)
         enu = geo.lat_lng_to_enu_np(a.estimated_lat, a.estimated_lng, 0.0, lat0, lng0, 0.0)
         assert np.linalg.norm(enu[:2] - ref_enu[:2]) <= 0.5
@@ -146,8 +170,8 @@ def _hold_service_state(ours, ref, our_sockets, ref_sockets):
 
 @pytest.mark.parametrize("with_iq", [True, False], ids=["waveform", "timestamps"])
 def test_central_matches_jax(tmp_path, monkeypatch, with_iq):
-    scen, ours, ref, seen, our_sockets, ref_sockets = _run_both(tmp_path, monkeypatch, with_iq)
-    fix = _hold_fixes(scen, ours, ref, seen)
+    scen, ours, ref, seen, our_sockets, ref_sockets, stamps = _run_both(tmp_path, monkeypatch, with_iq)
+    fix = _hold_fixes(scen, ours, ref, seen, stamps)
     assert fix.triangulation_method == ("gcc-phat+lm" if with_iq else "hyperbolic-lm")
     if with_iq:
         err = geo.lat_lng_to_enu_np(fix.estimated_lat, fix.estimated_lng, 0.0, *EMITTER, 0.0)
@@ -159,7 +183,7 @@ def test_central_matches_jax(tmp_path, monkeypatch, with_iq):
 
 def test_http_handlers_match_jax(tmp_path, monkeypatch):
     """The API handlers called directly (no server): the same bodies."""
-    _, ours, ref, _, _, _ = _run_both(tmp_path, monkeypatch, True)
+    _, ours, ref, _, _, _, _ = _run_both(tmp_path, monkeypatch, True)
     volatile = {"id", "lastSeen", "latest_signal_timestamp", "timestamp", "lat", "lng", "accuracy_meters",
                 "ellipse_major_m", "ellipse_minor_m", "ellipse_orientation_deg", "confidence",
                 "uptime_seconds", "server_time"}
@@ -177,12 +201,12 @@ def test_http_handlers_match_jax(tmp_path, monkeypatch):
 
 
 def test_store_round_trip(tmp_path, monkeypatch):
-    _, ours, ref, _, _, _ = _run_both(tmp_path, monkeypatch, True)
+    _, ours, ref, _, _, _, stamps = _run_both(tmp_path, monkeypatch, True)
     ours.store.close()
     ref.store.close()
     read = lambda sub, kind: [json.loads(ln) for p in sorted((tmp_path / sub).glob(f"{kind}-*.jsonl"))
                               for ln in p.read_text().splitlines()]
-    assert read("ours", "detections") == read("ref", "detections")
+    assert _as_ref(read("ours", "detections"), stamps) == read("ref", "detections")
     fixes, jfixes = read("ours", "fixes"), read("ref", "fixes")
     assert [sorted(f) for f in fixes] == [sorted(f) for f in jfixes] and len(fixes) == 1
     # a restarted service resumes both from the port's files and the reference's

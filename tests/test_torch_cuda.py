@@ -57,6 +57,8 @@ as its plain version is against JAX:
   ``dryrun_multichip(2)`` on the card.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -745,6 +747,103 @@ def test_k8_long_design_equals_composition_and_plain(cuda_device, c, b, nfft, ma
     )
     assert_windows_close(win.cpu().numpy(), pw.cpu().numpy())
     np.testing.assert_allclose(nf.cpu().numpy(), pn.cpu().numpy(), atol=1e-3, rtol=0)
+
+
+@functools.lru_cache(maxsize=4)
+def _wide_spectra(c, b, nfft):
+    return correlated_spectra(c, b, nfft, nfft % 83)
+
+
+WIDE_CASES = [("K2", 2, 8, 58_368), ("K2", 1, 4, 87_040), ("K2", 1, 4, 121_856), ("K5", 1, 64, 58_368),
+              ("K6", 1, 64, 58_368)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gate", ["l2rx", "l2", "l1", "none"])
+@pytest.mark.parametrize("kind,c,b,nfft", WIDE_CASES)
+def test_wide_pair_kernels_match_plain_at_every_gate(cuda_device, kind, c, b, nfft, gate):
+    """The wide pair body (n1 = 384, 640, 896; tiles of two pairs in K2,
+    the fold on tensor cores in the 3xTF32 split, bulk copies) against
+    the plain versions at max_lag 600 (one n-tile) and 2048 (two blocks
+    along the window): 1e-4 of the window max, the same argmax. K6 on
+    the 2016 pairs of 64 receivers gathered at 58368."""
+    sre, sim_, smax = _wide_spectra(c, b, nfft)
+    pi, pj = gcc_phat.pair_indices(b)
+    dev = cuda_device
+    sre, sim_ = torch.from_numpy(sre).to(dev), torch.from_numpy(sim_).to(dev)
+    weighting = "cc" if gate == "none" else "phat"
+    if kind == "K2":
+        sm = torch.from_numpy(smax).to(dev) if gate == "l2rx" else None
+        run = lambda lag: gcc_pair.gcc_pair_lag_mags(sre, sim_, sm, pi, pj, max_lag=lag, weighting=weighting)
+        plain = lambda lag: gcc_pair.gcc_pair_lag_mags_plain(sre, sim_, sm, pi, pj, max_lag=lag, weighting=weighting)
+        count = lambda: gcc_pair.launch_count
+    else:
+        s2 = torch.from_numpy(pair_gate_scales(smax, pi, pj)).to(dev) if gate == "l2rx" else None
+        if kind == "K5":
+            run = lambda lag: gcc_pair.gcc_pairs_onehot_lag_mags(sre, sim_, pi, pj, max_lag=lag, weighting=weighting,
+                                                                 s2=s2)
+            plain = lambda lag: gcc_pair.gcc_pairs_onehot_lag_mags_plain(sre, sim_, pi, pj, max_lag=lag,
+                                                                         weighting=weighting, s2=s2)
+            count = lambda: gcc_pair.onehot_launch_count
+        else:
+            rows = [x[0][torch.as_tensor(idx, dtype=torch.int64, device=dev)].contiguous()
+                    for idx in (pi, pj) for x in (sre, sim_)]
+            s6 = None if s2 is None else s2[0].contiguous()
+            run = lambda lag: gcc_pair.gcc_rows_lag_mags(*rows, max_lag=lag, weighting=weighting, s2=s6)
+            plain = lambda lag: gcc_pair.gcc_rows_lag_mags_plain(*rows, max_lag=lag, weighting=weighting, s2=s6)
+            count = lambda: gcc_pair.rows_launch_count
+    assert ct_plan.ct_split(nfft)[0] in gcc_pair.WIDE_N1
+    if gate in ("l2", "l1"):
+        gcc_pair.set_phat_gate(gate)
+    try:
+        for lag in (600, 2048):
+            before = count()
+            out = run(lag)
+            torch.cuda.synchronize()
+            assert count() == before + 1
+            ref = plain(lag)
+            assert out.shape == ref.shape and out.shape[-1] == 2 * lag + 1
+            assert_windows_close(out.cpu().numpy(), ref.cpu().numpy())
+            np.testing.assert_array_equal(out.argmax(-1).cpu().numpy(), ref.argmax(-1).cpu().numpy())
+    finally:
+        gcc_pair.set_phat_gate("l2rx")
+
+
+@pytest.mark.cuda
+def test_wide_kernels_one_a_length_no_spills_two_blocks_at_384(cuda_device):
+    """K2, K5 and K6 each have a kernel for n1 = 384, 640 and 896 alone
+    with no local memory (no spills, in the card's attributes and in the
+    build's -Xptxas -v report), n1 = 384 two 256-thread blocks an SM at
+    its launches' shared memory, 640 and 896 at least one."""
+    from radio_mapper_tpu_torch.ops.cuda import build
+
+    for kind, pairs in (("K2", 2), ("K5", 1), ("K6", 1)):
+        for n1 in gcc_pair.WIDE_N1:
+            plan = gcc_pair.wide_plan(n1, 152, -(-600 // n1), 600 // n1 + 1, pairs)
+            info = gcc_pair.wide_info(kind, n1, plan.smem)
+            assert info["local_bytes"] == 0, (kind, n1, info)
+            assert info["blocks"] >= (2 if n1 == 384 else 1), (kind, n1, info)
+    wide = [r for r in build.ptxas_report(build.build_log()) if "_wide_kernel<" in r["kernel"]]
+    assert sorted(r["kernel"] for r in wide) == sorted(
+        f"{k}_wide_kernel<{n1}>" for k in ("gcc_pair", "gcc_pairs_onehot", "gcc_rows") for n1 in gcc_pair.WIDE_N1)
+    assert all(r["spill_stores"] == r["spill_loads"] == 0 for r in wide), wide
+
+
+# SHA-256 digests (first 16 hex digits) of the n1 = 128/256 pair kernels'
+# outputs in ``tools/forward_times.pair_digests``, as they were on an H100
+# before the wide pair body got its own kernels: that redesign left them
+# bit for bit as they were
+NARROW_PAIR_DIGESTS = {"K2": "30788fb5f397afa0", "K5": "f761e162871a394a", "K6": "0f4c1e143e267348",
+                       "K8": "4b822411cb612001"}
+
+
+@pytest.mark.cuda
+def test_narrow_pair_kernels_keep_their_digests(cuda_device):
+    """K2 (every gate), K5, K6 and K8 at n1 = 128 (5120, 17408) and 256
+    (34816) give the outputs they gave before the wide body's redesign."""
+    from radio_mapper_tpu_torch.tools import forward_times
+
+    assert forward_times.pair_digests(cuda_device) == NARROW_PAIR_DIGESTS
 
 
 @pytest.mark.cuda

@@ -12,7 +12,8 @@ registers (``csrc/ct_fft.cuh`` ``mixed_regs``, ``q_roots``, ``q_dfts``):
   positions P·l + i; the lane stages of half-size h = n1/2 .. P pair lane
   l with l ^ (h/P), twiddle W_n1^(((P·l + i) mod h)·n1/(2h)); register i
   then holds bin ``digit(i)·32 + brev5(l)``;
-- inverse (the pair body of K2, K5, K6, ``inverse_row_fft``): lane l
+- inverse (the wide pair body of K2, K5, K6, ``csrc/gcc_pair_wide.cuh``
+  ``inverse_row_fft_wide``): lane l
   holds bins l + 32·i; the register part comes first, with twiddles that
   depend on the lane (the two radix-2 stages W^−(l + 32j) and
   W^−(2(l + 32j)), then W^−(4·l·u) after output u of each q-point DFT),
@@ -138,7 +139,7 @@ def forward_bins(n1: int) -> np.ndarray:
 
 
 def inverse_lane_twiddles(n1: int) -> np.ndarray:
-    """``RowTwiddles::reg`` of every lane for P = 4q, ``[32, P − 1]``
+    """``reg_twiddle`` of every lane for P = 4q, ``[32, P − 1]``
     complex64: W^−(l + 32j) (j < 2q), W^−(2(l + 32j)) (j < q), then
     W^−(4·l·u) for 0 < u < q, from ``ct_plan.inverse_radix_table``."""
     p, q = n1 // WARP, n1 // 128
@@ -156,7 +157,7 @@ def inverse_lane_twiddles(n1: int) -> np.ndarray:
 
 
 def warp_inverse_mixed(v: np.ndarray, n1: int) -> np.ndarray:
-    """``inverse_row_fft<n1>`` for P = 4q on rows held as ``v [..., 32, P]``
+    """``inverse_row_fft_wide<n1>`` for P = 4q on rows held as ``v [..., 32, P]``
     (lane l, point i = bin l + 32·i); returns the registers after it."""
     p, q = n1 // WARP, n1 // 128
     wi = _c64(ct_plan.inverse_radix_table(n1))
@@ -283,13 +284,15 @@ def test_mixed_chunk_buffer_swizzle_is_a_permutation(n1):
 
 
 def test_pair_geometry_takes_the_mixed_lengths_within_shared_memory():
-    """The chunk is one CT row a warp for n1 ≥ 384 (8 rows in K2's 256
-    threads), and the pair body's shared memory stays far inside the
-    card's 227 KB at the largest inner length and lag window the planned
-    lengths reach."""
-    assert [gcc_pair.chunk_rows(256, n1) for n1 in N1S] == [16, 8, 8, 8, 8]
-    assert [gcc_pair.chunk_rows(512, n1) for n1 in N1S] == [32, 16, 16, 16, 16]
+    """The mixed lengths run the wide pair body (``csrc/gcc_pair_wide.cuh``;
+    n1 = 128 and 256 keep ``chunk_rows``' chunks): one pair a block on 8
+    CT rows a chunk, 4 at n1 = 896 where 8 do not fit twice, and its
+    shared memory stays inside the card's 227 KB at the largest inner
+    length and lag window the planned lengths reach."""
+    assert [gcc_pair.chunk_rows(256, n1) for n1 in N1S[:2]] == [16, 8]
+    assert [gcc_pair.chunk_rows(512, n1) for n1 in N1S[:2]] == [32, 16]
     assert gcc_pair._geometry(121_856, 600, "K2") == (896, 136, 1, 1)
-    assert gcc_pair.smem_bytes(896, 1, 1) == 71_680
+    plan = gcc_pair.wide_plan(896, 136, 1, 1, 1)
+    assert (plan.rows, plan.smem) == (4, 131_864)
     n1, n2, nneg, npos = gcc_pair._geometry(129_024, 2048, "K5")  # 384·336, the widest window planned
-    assert gcc_pair.smem_bytes(n1, nneg, npos) <= gcc_pair.SMEM_LIMIT
+    assert gcc_pair.wide_plan(n1, n2, nneg, npos, 1).smem <= gcc_pair.SMEM_LIMIT

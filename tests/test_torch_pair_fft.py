@@ -1,20 +1,19 @@
 """The GCC pair body of kernels K2, K5, K6 and K8, replayed in numpy on the CPU.
 
-``csrc/gcc_pair.cuh`` (``pair_lag_window``) turns a pair's CT-order
-spectra X, Y (bin k = k2 + n2·k1 at m = k2·n1 + k1) into its lag window:
+``csrc/gcc_pair.cuh`` (``pair_lag_window``, n1 = 128 and 256; the wide
+lengths' body, ``csrc/gcc_pair_wide.cuh``, is replayed in
+``tests/test_torch_pair_wide.py``) turns a pair's CT-order spectra X, Y
+(bin k = k2 + n2·k1 at m = k2·n1 + k1) into its lag window:
 
 - one warp per CT row k2, point i of lane l holding bin k1 = l + 32·i
-  (i < P = n1/32, n1 = 128, 256, 384, 640 or 896): R = X·conj(Y),
-  whitened by the gate, in registers;
+  (i < P = n1/32): R = X·conj(Y), whitened by the gate, in registers;
 - the inner inverse n1-point FFT, radix-2 DIF with conjugate twiddles
   W_n1^−e, e = (t mod h)·(n1/2)/h for the pair (t, t + h): the stages of
   half-size h = n1/2 .. 32 pair points i and i + h/32 of a lane in
   registers, the stages h = 16 .. 1 pair lane l with lane l ^ h (the lane
   whose bit h is clear keeps a + b, its partner (a − b)·W); each lane's
   exponents depend on the lane and i, never on the row; point i of lane l
-  then holds E[brev(l + 32·i)] = E[P·brev5(l) + brev(i)] (n1 = 384, 640,
-  896 run the mixed-radix form of ``tests/test_torch_mixed_radix.py``:
-  E[P·brev5(l) + digit(i)]);
+  then holds E[brev(l + 32·i)] = E[P·brev5(l) + brev(i)];
 - that times the inverse twiddle W_n^(k2·p), stored in 16-byte words at
   the swizzled place ``swz(p)`` of the chunk buffer, and each chunk of
   ``gcc_pair.chunk_rows(THREADS, n1)`` rows folded into the window rows
@@ -26,8 +25,10 @@ The replica runs exactly that in float32/complex64 and must equal
 the whole body must equal ``gcc_pair._whiten_invert_plain`` (the plain
 version the kernels are held to) within 1e-5 of each window's max, for
 the four gates, at nfft 5120 (L 128) and 17408 (L 512), n1 = 128,
-34816 (L 512), n1 = 256, and 52224, 87040 and 121856 (L 600), n1 = 384,
-640 and 896. Blocks of 256 (K2, K5, K6) and 512 threads (K8)
+34816 (L 512), n1 = 256, and — the same chunked fold around the
+mixed-radix warp FFT of ``tests/test_torch_mixed_radix.py`` — at 52224,
+87040 and 121856 (L 600), n1 = 384, 640 and 896. Blocks of 256 (K2, K5,
+K6) and 512 threads (K8)
 chunk the rows differently and must give identical windows. The chunk
 buffer's stores and the fold's reads are held free of bank conflicts, and
 the text edits of ``tools/pair_parts.py`` to the current sources. No JAX
@@ -288,8 +289,8 @@ def test_geometry_takes_n1_128_and_256_and_keeps_shared_memory():
     """The kernels' inner lengths and shared memory: no more than the
     direct-DFT body took at the main paths' shapes (it is the same
     formula), and K8's pair buffers inside its row; the mixed-radix inner
-    lengths are taken too, one CT row a warp a chunk, and a split outside
-    them raises."""
+    lengths are taken too (the wide body, one CT row a warp a chunk), and
+    a split outside them raises."""
     assert gcc_pair._geometry(17408, 512, "K2") == (128, 136, 4, 5)
     assert gcc_pair._geometry(5120, 128, "K5") == (128, 40, 1, 2)
     assert gcc_pair._geometry(34816, 512, "K2") == (256, 136, 2, 3)
@@ -298,7 +299,7 @@ def test_geometry_takes_n1_128_and_256_and_keeps_shared_memory():
     assert gcc_pair.smem_bytes(128, 4, 5, channel_step.THREADS) == 41_984 <= 17408 * 8  # K8
     n = next(n for n in range(128, 1 << 20, 128) if ct_plan.ct_supported(n) and ct_plan.ct_split(n)[0] == 384)
     assert gcc_pair._geometry(n, 64, "K2")[0] == 384 and gcc_pair.PAIR_N1 == (128, 256, 384, 640, 896)
-    assert gcc_pair.smem_bytes(384, 1, 1) == (8 + 2) * 384 * 8  # 8 warps, one row each
+    assert gcc_pair.wide_plan(384, n // 384, 1, 1, 1).rows == 8  # the wide body: 8 warps, one row each
     n = next(n for n in range(128, 1 << 20, 128) if ct_plan.ct_supported(n) and ct_plan.ct_split(n)[0] == 512)
     with pytest.raises(ValueError, match="n1 in"):
         gcc_pair._geometry(n, 64, "K2")
