@@ -106,8 +106,14 @@ per source, in parallel, sm_90a), then:
     the mixed-radix warp FFT) and the in-kernel top-K (T1): the long K3
     vs its plain version at [1024, 58368] (the flagship block at
     block_len 57344), [512, 87040] and [256, 121856], with times, bounds
-    and ``torch.fft.fft`` + the CT permutation; K1 = K3 → K4 bit for bit
-    at 58368; K2 at [16, 8, 58368] and [8, 8, 121856] and K5 at [1, 64,
+    and ``torch.fft.fft`` + the CT permutation; at 58368 (n1 = 384) the
+    wide design: K1 one launch of it (no K4), its c, shared memory,
+    registers, spills, blocks an SM and active clusters printed, K1 = K3
+    → K4 and both equal to the workspace K3 → K4 (the parent design) bit
+    for bit; K1 and K3 there back to back against ``RM_PARENT_TREE``'s
+    (``tools/forward_times.py --k1`` by path: parent, this, this,
+    parent), with the long rows' digests equal to the parent's; K2 at
+    [16, 8, 58368] and [8, 8, 121856] and K5 at [1, 64,
     58368] vs plain; K8's long design at [16, 8, 58368] equal to K1 → K2
     bit for bit; K1 and K4 with ``emit_topk = 8`` at 17408, 33792 and
     58368 equal to their own partials + the port's top-K tail bit for
@@ -567,6 +573,19 @@ def _pair_times(tree):
     ms = float(re.search(r"\[128, 8, 58368\], max_lag 600: K2 ([0-9.]+) ms", out).group(1))
     digests = re.search(r"pair digests \(n1 = 128, 256\): (.*) \[", out).group(1)
     return ms, digests
+
+
+def _k1_times(tree):
+    """``tools/forward_times.py --k1`` of this checkout run by path on the
+    package under ``tree``: K1 and K3 at [1024, 58368] in ms and the long
+    rows' digests."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "radio_mapper_tpu_torch", "tools",
+                          "forward_times.py")
+    out = subprocess.run([sys.executable, script, "--k1"], env={**os.environ, "PYTHONPATH": tree},
+                         capture_output=True, text=True, timeout=600, check=True).stdout
+    m = re.search(r"\[1024, 58368\], n1 = 384: K1 ([0-9.]+) ms, K3 ([0-9.]+) ms", out)
+    digests = re.search(r"long digests \([0-9, ]+\): (.*) \[", out).group(1)
+    return float(m.group(1)), float(m.group(2)), digests
 
 
 def _held(torch, name, kernel, plain, shape, window, bound):
@@ -2808,6 +2827,22 @@ def main() -> int:
     # ---- phase 19: rows past one block's shared memory (fault F3)
     def k3_cluster_report(nf, phase):
         g = fft_rows.long_geometry(nf)
+        if g.design == "wide":
+            ptx = {r["kernel"]: r for r in build.ptxas_report(build.build_log())}
+            out = {}
+            for detect in (True, False):
+                info = fft_rows.wide_info(nf, detect)
+                spill = ptx[f"fft_detect_cluster_kernel<{int(detect)}>"]
+                out["K1" if detect else "K3"] = {**info, "spill_bytes": spill["spill_stores"] + spill["spill_loads"]}
+                print(f"phase {phase}: {'K1' if detect else 'K3'} wide design at nfft {nf} = {g.n1}·{g.n2}: one "
+                      f"launch, c = {info['c']} blocks a row, r = {g.r}, {info['smem']} B of shared memory a block, "
+                      f"{info['registers']} registers, spills {spill['spill_stores']}/{spill['spill_loads']} B, "
+                      f"local memory {info['local_bytes']} B, {info['blocks']} blocks of {fft_rows.WIDE_THREADS} "
+                      f"threads an SM, cudaOccupancyMaxActiveClusters {info['clusters']} {tag}")
+                _require(info["clusters"] > 0 and info["registers"] <= 65_536 // (2 * fft_rows.WIDE_THREADS)
+                         and info["blocks"] == fft_rows.wide_blocks(g.n1, g.n2, detect),
+                         f"the wide design at {nf}: {info}")
+            return out
         if g.design != "cluster":
             print(f"phase {phase}: K3 long design at nfft {nf} = {g.n1}·{g.n2}: {g.design} (two passes) {tag}")
             return
@@ -3023,14 +3058,16 @@ def main() -> int:
     noise_rows = lambda r, nf: (40.0 * torch.randn(r, nf, device=dev, generator=gen),
                                 40.0 * torch.randn(r, nf, device=dev, generator=gen))
     mixed_rows = {}  # K3 (and K1 at 58368) at the three mixed-radix row passes
+    wide_report = None  # the wide design's shape at 58368 (K1, K3)
     for rows_m, mn in ((1024, 58_368), (512, 87_040), (256, 121_856)):
         mxr, mxi = (fill(mre, mn), fill(mim, mn)) if mn == mnfft else noise_rows(rows_m, mn)
         n1m, n2m = ct_plan.ct_split(mn)
-        k3_cluster_report(mn, 20)
-        before = fft_rows.design_counts["long"]
+        wide_report = k3_cluster_report(mn, 20) or wide_report
+        key = "wide" if fft_rows.long_geometry(mn).design == "wide" else "long"
+        before = fft_rows.design_counts[key]
         m3 = fft_rows.fft_rows_ct(mxr, mxi)
         torch.cuda.synchronize()
-        _require(fft_rows.design_counts["long"] == before + 1, f"the long K3 did not run at {mn}")
+        _require(fft_rows.design_counts[key] == before + 1, f"the long K3 did not run its {key} design at {mn}")
         pm3 = fft_rows.fft_rows_ct_plain(mxr, mxi)
         m3_abs, m3_rel = _row_rel_error(m3, pm3)
         del pm3
@@ -3048,12 +3085,21 @@ def main() -> int:
             f"torch.fft.fft + CT permutation {m3_lib_ms:.3f} ms, bound {m3_bound[0]:.4f} ms ({m3_bound[1]}) {tag}"
         )
         _require(m3_rel <= 1e-4, f"long K3 spectra disagree at {mn}: {m3_rel}")
-        if mn == mnfft:  # K1's long rows there: the long K3 then K4, bit for bit
+        if mn == mnfft:  # K1's long rows there: the wide design, one launch, = K3 -> K4 bit for bit
             mplan = mpipe.plan
+            k1_counts = lambda: (fft_detect.launch_count, fft_detect.design_counts["wide"], fft_rows.launch_count,
+                                 detect_ct.launch_count)
+            before = k1_counts()
             m1 = fft_detect.fft_detect_rows_ct(mxr, mxi, mplan)
+            torch.cuda.synchronize()
+            m1_one_launch = tuple(a - b for a, b in zip(k1_counts(), before)) == (1, 1, 0, 0)
             m4 = detect_ct.detect_ct_partials(*m3, mplan)
+            w3 = fft_rows.workspace_rows(mxr, mxi)  # the parent's design: workspace K3, then K4
+            w4 = detect_ct.launch(*w3, mplan, row_max=True)
             torch.cuda.synchronize()
             m1_is_k3k4 = all(torch.equal(x, y) for x, y in zip(m1[:5], (*m3, *m4)))
+            m1_is_ws = all(torch.equal(x, y) for x, y in zip((*m3, *m1), (*w3, *w3, *w4)))
+            del w3, w4
             pm1 = fft_detect.fft_detect_rows_ct_plain(mxr, mxi, mplan)
             m1e = _partials_errors(torch, m1[2:5], pm1[2:5], *pm1[:2])
             m1_abs = _row_rel_error(m1[:2], pm1[:2])[0]
@@ -3064,11 +3110,30 @@ def main() -> int:
                               rows_m * mn * 16 + rows_m * mplan.segments * 8 + rows_m * 8)
             mixed_rows[("K1", mn)] = ([rows_m, mn], m1_abs, m1_ms, m1_plain_ms, m1_bound, None)
             print(
-                f"phase 20: long K1 [{rows_m}, {mn}]: = K3 -> K4 bit for bit: {m1_is_k3k4}; vs plain: floor "
-                f"{m1e[2]:.3e} dB, pattern {m1e[0]:.2e}, argmax {m1e[1]:.2e}, score rel {m1e[4]:.3e}; kernel "
-                f"{m1_ms:.3f} ms, plain {m1_plain_ms:.3f} ms, bound {m1_bound[0]:.4f} ms ({m1_bound[1]}) {tag}"
+                f"phase 20: long K1 [{rows_m}, {mn}]: one launch of the wide design (no K4): {m1_one_launch}; "
+                f"= K3 -> K4 bit for bit: {m1_is_k3k4}; K3 and K1 = the workspace K3 -> K4 bit for bit: {m1_is_ws}; "
+                f"vs plain: floor {m1e[2]:.3e} dB, pattern {m1e[0]:.2e}, argmax {m1e[1]:.2e}, score rel "
+                f"{m1e[4]:.3e}; kernel {m1_ms:.3f} ms, plain {m1_plain_ms:.3f} ms, bound {m1_bound[0]:.4f} ms "
+                f"({m1_bound[1]}) {tag}"
             )
-            _require(m1_is_k3k4, f"long K1 differs from K3 -> K4 at {mn}")
+            _require(m1_one_launch, f"long K1 at {mn} is not one launch of the wide design")
+            _require(m1_is_k3k4 and m1_is_ws, f"long K1 differs from K3 -> K4 at {mn}")
+            # rows of a receiver with no signal: zeros and an impulse, whose powers
+            # are all equal (more than 512 of the floor's values share one histogram
+            # bucket, so block 0 takes rm_det::bisect_floor), and a constant offset
+            flat = torch.zeros((2, 3, mn), dtype=torch.float32, device=dev)
+            flat[0, 1, 0], flat[0, 2], flat[1, 2] = 1.0, 0.25, -0.5
+            f1 = fft_detect.fft_detect_rows_ct(flat[0], flat[1], mplan)
+            fw3 = fft_rows.workspace_rows(flat[0], flat[1])
+            fw4 = detect_ct.launch(*fw3, mplan, row_max=True)
+            sub = (fw3[0] * fw3[0] + fw3[1] * fw3[1]).view(3, n2m, n1m)[:2, ::8]  # CT rows k2 = 0 mod 8
+            flat_ties = min(int(torch.unique(x, return_counts=True)[1].max()) for x in sub)
+            flat_is_ws = all(torch.equal(x, y) for x, y in zip(f1, (*fw3, *fw4)))
+            del flat, f1, fw3, fw4, sub
+            print(f"phase 20: long K1 on rows with no signal (zeros and an impulse, at least {flat_ties} equal "
+                  f"floor values a row: the bisection's fallback; a constant): = the workspace K3 -> K4 bit for bit: "
+                  f"{flat_is_ws}")
+            _require(flat_ties > 512 and flat_is_ws, f"long K1's floor fallback differs at {mn}: {flat_ties}")
             _require(m1e[0] <= 1e-3 and m1e[1] <= 1e-3 and m1e[2] <= 1e-3 and m1e[4] <= 1e-4 and m1e[5],
                      f"long K1 partials disagree at {mn}: {m1e}")
             # K2 at the flagship's own shape, fed these K1 outputs, as phase 3 does at 17408
@@ -3271,7 +3336,7 @@ def main() -> int:
     )
     _require(tuple(mout.fix.position_enu.shape) == (mblocks, chans, 3) and mfinite, "block_len 57344 outputs")
     _require(mixed_launches == {"fft_detect_rows_ct": mblocks, "gcc_pair_lag_mags": mblocks}
-             and k1_designs == {"block": 0, "long": mblocks},
+             and k1_designs == {"block": 0, "long": 0, "wide": mblocks},
              f"block_len 57344 launches {mixed_launches}, K1 designs {k1_designs}")
     med = _stage_split(
         torch, lambda mark: mpipe.step_split_uint8(mraw[0], manchors, on_stage=mark),
@@ -3329,6 +3394,24 @@ def main() -> int:
         same = len({d for _, _, d in k2_runs}) == 1
         print(f"phase 20: n1 = 128/256 pair digests equal the parent's: {same} {tag}")
         _require(same, "the n1 = 128/256 pair kernels differ from the parent's")
+    # K1 and K3 at [1024, 58368] beside the parent's (tools/forward_times.py
+    # --k1 by path: parent, this, this, parent), and the long rows' digests
+    k1_runs = [(tree, *_k1_times(tree)) for tree in order]
+    k1_parent = {"K1_ms": [k1 for tree, k1, _, _ in k1_runs if tree == here],
+                 "K3_ms": [k3 for tree, _, k3, _ in k1_runs if tree == here],
+                 "parent_K1_ms": [k1 for tree, k1, _, _ in k1_runs if tree != here] or None,
+                 "parent_K3_ms": [k3 for tree, _, k3, _ in k1_runs if tree != here] or None}
+    ms_list = lambda key: ", ".join(f"{t:.4f}" for t in k1_parent[key])
+    print(
+        f"phase 20: K1 and K3 at [1024, 58368] (n1 = 384) back to back: this tree K1 {ms_list('K1_ms')} ms, "
+        f"K3 {ms_list('K3_ms')} ms"
+        + (f"; parent K1 {ms_list('parent_K1_ms')} ms, K3 {ms_list('parent_K3_ms')} ms" if theirs else " (no parent)")
+        + f"; long digests: {k1_runs[0][3]} {tag}"
+    )
+    if theirs:
+        same = len({d for *_, d in k1_runs}) == 1
+        print(f"phase 20: long-row digests (K3, K4, K1, K8 at 33792 ... 121856) equal the parent's: {same} {tag}")
+        _require(same, "the long-row kernels differ from the parent's")
 
     # ---- phase 21: the complex step (TDOAPipeline.step) on the phase-4 scene, card vs CPU
     cscen = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8)
@@ -3610,8 +3693,9 @@ def main() -> int:
               launches["fft_detect_rows_ct"], spec_abs, k1_ms, k1_plain_ms,
               _bound(_fft_flops(nrows, nfft) + _detect_flops(nrows, nfft),
                      nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_radix,
-              long_source=["fft_rows_ct_cluster.cu", "fft_rows_ct_long.cu", "detect_ct.cu"], long_name="K1",
-              mixed_rows=mixed("K1"), topk=topk("K1"),
+              long_source=["fft_rows_ct_cluster.cu", "fft_detect_cluster.cu", "fft_rows_ct_long.cu", "detect_ct.cu"],
+              long_name="K1", mixed_rows=mixed("K1"), topk=topk("K1"),
+              wide_design=(wide_report or {}).get("K1"), flagship_57344_back_to_back=k1_parent,
               launches_block_len_57344=mixed_launches.get("fft_detect_rows_ct", 0),
               launches_ingest=ingest["launches"].get("fft_detect_rows_ct", 0),
               launches_bench=by_leg("fft_detect_rows_ct"),
@@ -3628,7 +3712,8 @@ def main() -> int:
         entry("fft_rows_ct", "fft_rows_ct.cu", "fft_kernel.py:446",
               wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound,
               _radix_flops(m_sub * wb, wn, *ct_plan.radix_split(wn)[1:]), k3_lib_ms,
-              long_source=["fft_rows_ct_cluster.cu", "fft_rows_ct_long.cu"], long_name="K3", mixed_rows=mixed("K3"),
+              long_source=["fft_rows_ct_cluster.cu", "fft_detect_cluster.cu", "fft_rows_ct_long.cu"], long_name="K3",
+              mixed_rows=mixed("K3"), wide_design=(wide_report or {}).get("K3"),
               launches_bench=by_leg("fft_rows_ct"),
               parallel=parallel("fft_rows_ct")),
         entry("detect_ct_partials", "detect_ct.cu", "detect_kernel.py:309",
@@ -3672,7 +3757,8 @@ def main() -> int:
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
               route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft,
               sources=[f"radio_mapper_tpu_torch/csrc/{f}" for f in
-                       ("channel_step.cu", "fft_rows_ct_cluster.cu", "fft_rows_ct_long.cu", "detect_ct.cu", "gcc_pair.cu")],
+                       ("channel_step.cu", "fft_rows_ct_cluster.cu", "fft_detect_cluster.cu", "fft_rows_ct_long.cu",
+                        "detect_ct.cu", "gcc_pair.cu")],
               long_rows=mixed("K8"), long_launches_block_len_57344_mega=mega_long_launches,
               parallel=parallel("channel_step_partials")),
     ]}))

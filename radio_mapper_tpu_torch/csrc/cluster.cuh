@@ -1,6 +1,7 @@
 // Thread-block cluster machinery of the long-row FFT designs: kernel K7's
-// rows of 32768 and 65536 points (fft_natural_cluster.cu) and kernel K3's
-// rows past one block's shared memory (fft_rows_ct_cluster.cu). A row is
+// rows of 32768 and 65536 points (fft_natural_cluster.cu), kernel K3's
+// rows past one block's shared memory (fft_rows_ct_cluster.cu) and kernel
+// K1's (and K3's) rows at n1 = 384 (fft_detect_cluster.cu). A row is
 // one cluster of c blocks on c SMs of one GPC; each block holds its part
 // of the row in its own shared memory and reads its partners' parts
 // through distributed shared memory (DSMEM).
@@ -11,12 +12,14 @@
 // with cudaLaunchKernelEx and cudaLaunchAttributeClusterDimension.
 // occupancy() returns that count for the wrappers' reports.
 //
-// Device side: rank() and sync() of cg::this_cluster(); dsmem() maps an
-// address of this block's shared memory to the same offset in a partner's
-// (mapa.shared::cluster, a 32-bit shared::cluster address, so a lane can
-// hold one for each of its loads), and ld2/ld4 read 8 or 16 bytes there
-// (ld.shared::cluster). Every kernel that reads a partner ends with sync(),
-// so no block exits while a partner still reads its shared memory.
+// Device side: rank() and sync() of cg::this_cluster(), and sync()'s two
+// halves, arrive() (release) and wait() (acquire), for work between them;
+// dsmem() maps an address of this block's shared memory to the same offset
+// in a partner's (mapa.shared::cluster, a 32-bit shared::cluster address,
+// so a lane can hold one for each of its loads), ld1/ld4 read 4 or 16
+// bytes there and st1 writes 4 (ld/st.shared::cluster). Every kernel that
+// reads a partner ends with a cluster barrier, so no block exits while a
+// partner still reads its shared memory.
 
 #pragma once
 
@@ -33,6 +36,14 @@ namespace cg = cooperative_groups;
 __device__ __forceinline__ unsigned rank() { return cg::this_cluster().block_rank(); }
 
 __device__ __forceinline__ void sync() { cg::this_cluster().sync(); }
+
+// sync() in two halves: every thread of the cluster calls arrive() and
+// then wait(), which returns once all have arrived; writes before a
+// thread's arrive() (to its own or a partner's shared memory) are visible
+// to every thread after its wait().
+__device__ __forceinline__ void arrive() { asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory"); }
+
+__device__ __forceinline__ void wait() { asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory"); }
 
 // The shared::cluster address of `local` (an address in this block's
 // shared memory) in block `r` of the cluster.
@@ -56,6 +67,10 @@ __device__ __forceinline__ float4 ld4(uint32_t addr) {
                : "r"(addr)
                : "memory");
   return v;
+}
+
+__device__ __forceinline__ void st1(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
 }
 
 // The launch configuration of `blocks` blocks in clusters of `c` along x.

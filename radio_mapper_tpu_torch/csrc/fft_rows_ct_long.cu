@@ -1,13 +1,14 @@
-// Kernel K3 for long rows whose split has n1 = 384, 640 or 896 (the
-// mixed-radix row pass, P = 12, 20, 28 points a lane): forward CT-order
-// FFT of [rows, n] rows, n = n1*n2 with n2 = 8*r <= 512 (every such
-// planned length's split), in two passes through a device-memory
-// workspace: the workspace design. Rows with n1 = 128 or 256 take the
-// thread-block cluster design (fft_rows_ct_cluster.cu), which is faster
-// there; at these n1 the cluster design's row pass, P >= 12 points a lane
-// at more than 128 registers a thread, ran one 256-thread block an SM and
-// took longer than these two passes (PERF.md), so these lengths
-// stay here, routed by n1 (fft_rows.long_geometry).
+// Kernel K3 for long rows whose split has n1 = 640 or 896 (the
+// mixed-radix row pass, P = 20, 28 points a lane): forward CT-order FFT
+// of [rows, n] rows, n = n1*n2 with n2 = 8*r <= 512 (every such planned
+// length's split), in two passes through a device-memory workspace: the
+// workspace design. Rows with n1 = 128 or 256 take the thread-block
+// cluster design (fft_rows_ct_cluster.cu), rows with n1 = 384 the wide
+// design (fft_detect_cluster.cu, K1's one-pass kernel with its detect
+// half off), routed by n1 (fft_rows.long_geometry). The n1 = 384
+// instantiation stays built as the wide design's comparison only
+// (fft_rows.workspace_rows: the card tests, tools/forward_times.py);
+// no route reaches it.
 //
 // Replaces radio_mapper_tpu/ops/pallas/fft_kernel.py::fft_rows_ct (body
 // fft_kernel.ct_fft_core) at those lengths. Python wrapper:

@@ -26,14 +26,15 @@ the scratch's traffic (2 × 142.6 MB at 128 channels × 8 receivers) but
 needs ≈ 209 KB a block before the pair buffers: a later redesign.
 
 Long design (nfft > 24576, where one block no longer holds a row): the
-long K1 (the long K3 of ``csrc/fft_rows_ct_cluster.cu``, then K4 of
-``csrc/detect_ct.cu`` with the row maxima), then K2's launch (``csrc/
-gcc_pair.cu``, l2rx gate on those maxima): three launches, counted as
-one launch of K8 (and not of K1, K3, K4 or K2). The reference's K8 takes
-every length ``ct_supported`` accepts; its function is K1 → K2 (l2rx),
-so the outputs equal that composition bit for bit. One launch for long
-rows (the row across a thread-block cluster's distributed shared memory)
-is a later redesign.
+long K1 — at n1 = 384 its one-pass kernel on a thread-block cluster
+(``csrc/fft_detect_cluster.cu``), else the long K3 (``csrc/
+fft_rows_ct_cluster.cu`` or ``csrc/fft_rows_ct_long.cu``) and then K4 of
+``csrc/detect_ct.cu`` with the row maxima — then K2's launch (``csrc/
+gcc_pair.cu``, l2rx gate on those maxima): two or three launches,
+counted as one launch of K8 (and not of K1, K3, K4 or K2). The
+reference's K8 takes every length ``ct_supported`` accepts; its function
+is K1 → K2 (l2rx), so the outputs equal that composition bit for bit.
+K2 fused into the long K1 is a later redesign.
 
 What bounds it on the H100 as written: its pair stage, K2's warp-FFT body
 (≈ 7 GFLOP at [128, 8, 17408], most of it the window fold), at one
@@ -214,11 +215,16 @@ def _launch(re, im, pair_i, pair_j, plan, max_lag, eps):
 
 
 def _long(re, im, pair_i, pair_j, plan, max_lag, eps):
-    """K8's long design on CUDA rows ``[..., B, n]``: the long K3, K4 with
-    the row maxima, then K2's kernel (l2rx), none of them counted."""
+    """K8's long design on CUDA rows ``[..., B, n]``: the long K1 (at n1 =
+    384 the wide design's one kernel, else the long K3 and K4 with the row
+    maxima), then K2's kernel (l2rx), none of them counted."""
     *lead, b, n = re.shape
-    fr, fi = fft_rows.long_rows(re.reshape(-1, n), im.reshape(-1, n))
-    score, arg, nf, rmax = detect_ct.launch(fr, fi, plan, row_max=True)
+    rows = (re.reshape(-1, n), im.reshape(-1, n))
+    if fft_rows.long_geometry(n).design == "wide":  # n1 = 384: K1's one-pass kernel
+        fr, fi, score, arg, nf, rmax = fft_detect.wide_detect(*rows, plan)
+    else:
+        fr, fi = fft_rows.long_rows(*rows)
+        score, arg, nf, rmax = detect_ct.launch(fr, fi, plan, row_max=True)
     c, s = fr.shape[0] // b, plan.segments
     mags = gcc_pair.launch_k2(
         fr.reshape(c, b, n), fi.reshape(c, b, n), rmax.reshape(c, b), pair_i, pair_j, max_lag, eps, "l2rx"

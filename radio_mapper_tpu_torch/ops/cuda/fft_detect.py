@@ -29,14 +29,28 @@ packed 8·f + offset in place of the F/8 partials; the long rows run K4's
 same phase.
 
 Above :data:`MAX_N` (:func:`fft_detect_rows_ct_long`), for every n1 the
-long-row K3 takes (128, 256, 384, 640, 896): two hand-written kernels in
-turn, the long-row K3 (``csrc/fft_rows_ct_cluster.cu``, a row on a
-thread-block cluster) and then K4
-(``csrc/detect_ct.cu``, which holds no row in shared memory) on its
-spectra, with the row max. The reference's function is that composition,
-so the outputs are those of K3 → K4 bit for bit; the pair counts as one
-launch of K1. Fusing the two halves for long rows (a row across a
-thread-block cluster's distributed shared memory) is a later redesign.
+long-row K3 takes (128, 256, 384, 640, 896), by n1
+(:func:`fft_rows.long_geometry`):
+
+- n1 = 384, the wide design (``csrc/fft_detect_cluster.cu``,
+  :func:`wide_detect`): one launch, a row on a thread-block
+  cluster of 8 blocks. Each block transforms 48 columns and then its CT
+  rows k2 ≡ rank (mod 8) through distributed shared memory, stores the
+  spectra and keeps their power; block 0's rows are the stride-8
+  subsample, so it bisects the noise floor alone and hands it to the
+  others; each block then pulls its columns' power in natural order from
+  the 8 blocks and runs the sliding max, the gates and the segment
+  partials. One pass through device memory, 16 B a sample, and K3 → K4's
+  outputs bit for bit. With ``emit_topk`` it is K3 (the same kernel, its
+  detect half off) and then K4's phase c: the in-kernel top-K is not
+  fused at n1 = 384.
+- n1 = 128, 256, 640, 896: two hand-written kernels in turn, the
+  long-row K3 (``csrc/fft_rows_ct_cluster.cu``, a row on a thread-block
+  cluster; ``csrc/fft_rows_ct_long.cu``, the workspace design) and then
+  K4 (``csrc/detect_ct.cu``, which holds no row in shared memory) on its
+  spectra, with the row max. The reference's function is that
+  composition, so the outputs are those of K3 → K4 bit for bit; the pair
+  counts as one launch of K1.
 
 What bounds it on the H100: device-memory bytes (the row read and the
 spectra written once, ≈ 0.28 MB a row at 17408; the long design writes
@@ -59,7 +73,7 @@ from radio_mapper_tpu_torch.ops import ct_plan, safe
 from radio_mapper_tpu_torch.ops.cuda import build, detect_ct, fft_rows
 
 launch_count = 0  # launches of K1 (not of the plain version); a long-row call counts once
-design_counts = {"block": 0, "long": 0}  # the same launches, by design
+design_counts = {"block": 0, "long": 0, "wide": 0}  # the same launches, by design ("long": K3 → K4)
 
 THREADS = 512  # must match K1_THREADS in fft_detect.cu (= ct_fft.cuh's THREADS)
 MAX_N = 24_576  # the one-block design's limit: power held in registers, n2 ≤ (THREADS/32)·HANDOFF_MAX_HELD/4 = 192
@@ -169,21 +183,46 @@ def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectP
 
 def fft_detect_rows_ct_long(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan, emit_topk: int = 0):
     """:func:`fft_detect_rows_ct` through the long-row design on CUDA rows
-    of a length :func:`fft_rows.long_geometry` takes: the long K3, then K4
-    with the row max,
-    counted as one launch of K1. The wrapper routes only n > :data:`MAX_N`
-    here; the card tests also force shorter rows through it, where its
-    outputs equal the one-block K1's bit for bit."""
+    of a length :func:`fft_rows.long_geometry` takes, counted as one launch
+    of K1: at n1 = 384 without ``emit_topk`` the wide design's one kernel
+    (``design_counts["wide"]``), else the long K3 and then K4 with the row
+    max (``"long"``). The wrapper routes only n > :data:`MAX_N` here; the
+    card tests also force shorter rows through it, where its outputs equal
+    the one-block K1's bit for bit."""
     global launch_count
     check_rows(re, im, plan)
     check_topk(emit_topk)
     if re.device.type != "cuda":
         raise ValueError(f"the long-row K1 runs on CUDA tensors, not {re.device}")
-    fr, fi = fft_rows.long_rows(re, im)
-    score, arg, nf, rmax = detect_ct.launch(fr, fi, plan, row_max=True, emit_topk=emit_topk)
+    if fft_rows.long_geometry(plan.nfft).design == "wide" and not emit_topk:
+        out = wide_detect(re, im, plan)
+        design = "wide"
+    else:
+        fr, fi = fft_rows.long_rows(re, im)
+        out = (fr, fi, *detect_ct.launch(fr, fi, plan, row_max=True, emit_topk=emit_topk))
+        design = "long"
     launch_count += 1
-    design_counts["long"] += 1
-    return fr, fi, score, arg, nf, rmax
+    design_counts[design] += 1
+    return out
+
+
+def wide_detect(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
+    """K1 through the wide design (n1 = 384, ``csrc/fft_detect_cluster.cu``
+    with its detect half on) on contiguous float32 CUDA rows, uncounted:
+    ``(fr, fi, seg_score, seg_arg, noise_floor_db, row_max)`` from one
+    launch (:func:`fft_rows.wide_launch`), without ``emit_topk``. Kernel
+    K8's long design calls it too."""
+    if plan.nfft != re.shape[-1] or plan.radius < 2:
+        raise ValueError(
+            f"the wide K1 takes a plan for nfft {re.shape[-1]} with radius ≥ 2, got {plan.nfft}, {plan.radius}"
+        )
+    rows = re.numel() // plan.nfft
+    det = tuple(
+        torch.empty(shape, dtype=torch.float32, device=re.device)
+        for shape in ((rows, plan.segments), (rows, plan.segments), (rows,), (rows,))
+    )
+    fr, fi = fft_rows.wide_launch(re, im, det, tuple(plan_args(plan)))
+    return (fr, fi, *det)
 
 
 def _launch(re, im, plan, emit_topk):

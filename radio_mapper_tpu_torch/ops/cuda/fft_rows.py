@@ -22,7 +22,7 @@ twiddles are float32 tables of float64 roots of unity
 
 Long rows, n > :data:`MAX_N` with n1 ∈ :data:`ct_plan.RADIX_N1` (128,
 256, 384, 640, 896) and 8 | n2 (:func:`fft_rows_ct_long`,
-:func:`long_geometry`), two designs by n1:
+:func:`long_geometry`), three designs by n1:
 
 - n1 = 128 or 256, the cluster design (``csrc/fft_rows_ct_cluster.cu``):
   a row is a thread-block cluster of c = 2, 4 or 8 blocks
@@ -33,14 +33,20 @@ Long rows, n > :data:`MAX_N` with n1 ∈ :data:`ct_plan.RADIX_N1` (128,
   gathering its P = n1/32 points from the owning blocks through
   distributed shared memory, and stores in CT order. One pass through
   device memory, 16 B a sample.
-- n1 = 384, 640 or 896, the workspace design (``csrc/fft_rows_ct_long.cu``):
-  a column pass and a row pass (step C's mixed-radix P = 12, 20, 28) through
-  a [rows, n] float2 workspace, 32 B a sample. Its row pass needs more
-  than 128 registers a thread, so the cluster design ran these lengths at
-  one 256-thread block an SM, slower than the two passes (PERF.md §6).
+- n1 = 384, the wide design (``csrc/fft_detect_cluster.cu``, kernel K1's
+  one-pass kernel with its detect half off; :func:`wide_launch`): a cluster
+  of 8 blocks of 512 threads, 48 columns a block, step C's mixed-radix
+  P = 12 in a register layout that runs two of its five lane stages in
+  registers, at most 64 registers a thread, so two blocks an SM up to
+  nfft 70656 (:func:`wide_blocks`). One pass, 16 B a sample.
+- n1 = 640 or 896, the workspace design (``csrc/fft_rows_ct_long.cu``):
+  a column pass and a row pass (step C's mixed-radix P = 20, 28) through
+  a [rows, n] float2 workspace, 32 B a sample. It keeps n1 = 384 too, as
+  the card tests' and ``tools/forward_times.py``'s comparison only
+  (:func:`workspace_rows`); no route reaches it there.
 
-Both give the one-block design's spectra bit for bit where it takes the
-length too (the same per-value arithmetic). Every planned length up to
+All three give the one-block design's spectra bit for bit where it takes
+the length too (the same per-value arithmetic). Every planned length up to
 131072 has such a split.
 
 What bounds it on the H100: device-memory bytes — a row read and its
@@ -76,7 +82,7 @@ from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import build
 
 launch_count = 0  # launches of the CUDA kernel (not of the plain version)
-design_counts = {"block": 0, "long": 0}  # the same launches, by design
+design_counts = {"block": 0, "long": 0, "wide": 0}  # the same launches, by design ("long": cluster, workspace)
 
 MAX_N = 24_576  # the one-block design's limit: one row in a block's shared memory (as kernel K1's)
 LONG_MAX_ROWS = 65_535  # the workspace column pass's grid rows (the cluster grid, rows·c ≤ 2^31 − 1, takes more)
@@ -84,12 +90,23 @@ SMEM_LIMIT = 232_448  # bytes of shared memory one block can have (227 KB)
 SM_SMEM = 233_472  # bytes of shared memory an SM has for its blocks (228 KB)
 SMEM_RESERVED = 1_024  # bytes the runtime reserves a block
 CLUSTER_SIZES = (2, 4, 8)  # blocks a row in the cluster design; 8 is the portable cluster limit
-CLUSTER_N1 = (128, 256)  # the cluster design's n1; 384, 640, 896 take the workspace design
+CLUSTER_N1 = (128, 256)  # the cluster design's n1
+WIDE_N1 = (384,)  # the wide design's n1; 640 and 896 take the workspace design
+WIDE_C = 8  # blocks a row in the wide design: block 0 holds the CT rows k2 = 0 mod 8
+WIDE_THREADS = 512  # its block (fft_detect_cluster.cu THREADS)
+WIDE_TABLE_BYTES = (384 // 2 + 378) * 8  # W_384 and step C's twiddles in its shared memory
+WIDE_STATIC_BYTES = 256  # its static shared memory (reduction scratch), at most
+WIDE_MAX_R = 168  # step B's column block (r/4 output quads x 12 column groups) fits one round, an item a thread
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _CLUSTER_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _INFO_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
 _WORKSPACE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_WIDE_ARGTYPES = (
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p]
+)
+_WIDE_INFO_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 5
 
 
 def _check(re: torch.Tensor, im: torch.Tensor) -> None:
@@ -150,9 +167,9 @@ class LongGeometry(NamedTuple):
     n2: int
     a: int  # step A's length, 8
     r: int  # step B's length, n2 / 8
-    design: str  # "cluster" (n1 = 128, 256) or "workspace" (n1 = 384, 640, 896)
+    design: str  # "cluster" (n1 = 128, 256), "wide" (384) or "workspace" (640, 896)
     c: int  # blocks a row (the cluster); 0 for the workspace design
-    cols: int  # columns a tile: 32 where n2 ≤ 512 and 32 | n1/c, else 16
+    cols: int  # columns a tile: 32 where n2 ≤ 512 and 32 | n1/c, else 16; the wide design's n1/8
 
 
 def cluster_smem(n1: int, n2: int, c: int) -> int:
@@ -173,13 +190,32 @@ def cluster_size(n1: int, n2: int) -> int:
     raise ValueError(f"{n1}·{n2} does not fit a cluster of {CLUSTER_SIZES[-1]} blocks")
 
 
+def wide_smem(n1: int, n2: int, detect: bool) -> int:
+    """Dynamic shared memory of one wide-design block: its n1/8 columns (n
+    bytes of float2); with the detect half the power of its n2/8 CT rows
+    (n/2 bytes), which holds step B's table (W_r with rows padded to a
+    multiple of 4) until step C, else that table; then W_384 and step C's
+    stage twiddles."""
+    n, r = n1 * n2, n2 // 8
+    ab = r * 4 * (-(-r // 4)) * 8
+    return n + (n // 2 if detect else ab) + WIDE_TABLE_BYTES
+
+
+def wide_blocks(n1: int, n2: int, detect: bool) -> int:
+    """Wide-design blocks one SM holds: two where two fit its shared
+    memory (each ≤ 64 registers a thread), else one."""
+    need = wide_smem(n1, n2, detect) + WIDE_STATIC_BYTES + SMEM_RESERVED
+    return 2 if 2 * need <= SM_SMEM else 1
+
+
 def long_geometry(n: int) -> LongGeometry:
     """The long-row design's shape for rows of n samples: n1 ∈
     :data:`ct_plan.RADIX_N1` and a = 8 (8 | n2), as every planned length
     with such an n1 splits. n1 = 128 or 256: the cluster design, c from
-    :func:`cluster_size`, the column tile; n1 = 384, 640, 896: the
-    workspace design (32-column tiles). Only the kernel variants these
-    reach are built. Raises ValueError otherwise."""
+    :func:`cluster_size`, the column tile; n1 = 384: the wide design (c =
+    8, 48 columns a block); n1 = 640, 896: the workspace design (32-column
+    tiles). Only the kernel variants these reach are built. Raises
+    ValueError otherwise."""
     n1, n2 = ct_plan.ct_split(n)
     if n1 not in ct_plan.RADIX_N1:
         raise ValueError(f"the long-row K3 takes n1 in {ct_plan.RADIX_N1}; nfft {n} = {n1}·{n2}")
@@ -189,6 +225,10 @@ def long_geometry(n: int) -> LongGeometry:
     if n1 in CLUSTER_N1:
         c = cluster_size(n1, n2)
         return LongGeometry(n1, n2, a, r, "cluster", c, 32 if n2 <= 512 and (n1 // c) % 32 == 0 else 16)
+    if n1 in WIDE_N1:
+        if r > WIDE_MAX_R or wide_smem(n1, n2, True) > SMEM_LIMIT:  # pragma: no cover — n2 ≤ 336 up to 131072
+            raise ValueError(f"the wide K1/K3 takes n2 ≤ {8 * WIDE_MAX_R} within one block; nfft {n} = {n1}·{n2}")
+        return LongGeometry(n1, n2, a, r, "wide", WIDE_C, n1 // WIDE_C)
     if n2 > 512:  # pragma: no cover — every planned length with these n1 has n2 ≤ 336
         raise ValueError(f"the workspace K3 takes n2 ≤ 512; nfft {n} = {n1}·{n2}")
     return LongGeometry(n1, n2, a, r, "workspace", 0, 32)
@@ -198,14 +238,15 @@ def fft_rows_ct_long(re: torch.Tensor, im: torch.Tensor):
     """:func:`fft_rows_ct` through the long-row design on CUDA rows of a
     length :func:`long_geometry` takes (the wrapper routes only n >
     :data:`MAX_N` here; the card tests also force shorter rows through
-    it, where its spectra equal the one-block design's bit for bit)."""
+    it, where its spectra equal the one-block design's bit for bit).
+    Counted under ``design_counts["wide"]`` at n1 = 384, else ``"long"``."""
     global launch_count
     _check(re, im)
     if re.device.type != "cuda":
         raise ValueError(f"the long-row K3 runs on CUDA tensors, not {re.device}")
     out = long_rows(re, im)
     launch_count += 1
-    design_counts["long"] += 1
+    design_counts["wide" if long_geometry(re.shape[-1]).design == "wide" else "long"] += 1
     return out
 
 
@@ -218,25 +259,98 @@ def long_rows(re: torch.Tensor, im: torch.Tensor):
     rows = re.numel() // n
     if rows > LONG_MAX_ROWS:
         raise ValueError(f"the long-row K3 takes at most {LONG_MAX_ROWS} rows, got {rows}")
-    w1, wn2, wr = ct_plan.device_radix_tables(n, re.device)
+    if g.design == "wide":
+        return wide_launch(re, im)
+    if g.design == "workspace":
+        return workspace_rows(re, im)
+    w1, wn2, _ = ct_plan.device_radix_tables(n, re.device)
     tw = ct_plan.device_tables(n, False, re.device).tw
     fr = torch.empty_like(re)
     fi = torch.empty_like(im)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     stream = ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream)
-    if g.design == "cluster":
-        fn = build.kernel("rm_fft_rows_ct_cluster", _CLUSTER_ARGTYPES)
-        err = fn(
-            ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(device_step_b_roots(n, re.device)), ptr(tw), ptr(fr), ptr(fi),
-            rows, g.n1, g.n2, g.a, g.r, g.c, stream,
-        )
-    else:
-        fn = build.kernel("rm_fft_rows_ct_long", _WORKSPACE_ARGTYPES)
-        ws = torch.empty((rows, n, 2), dtype=torch.float32, device=re.device)  # [rows, n2, n1] slot rows
-        err = fn(ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(wr), ptr(tw), ptr(ws), ptr(fr), ptr(fi),
-                 rows, g.n1, g.n2, g.a, g.r, stream)
-    build.check(err, f"fft_rows_ct_long ({g.design})")
+    fn = build.kernel("rm_fft_rows_ct_cluster", _CLUSTER_ARGTYPES)
+    err = fn(
+        ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(device_step_b_roots(n, re.device)), ptr(tw), ptr(fr), ptr(fi),
+        rows, g.n1, g.n2, g.a, g.r, g.c, stream,
+    )
+    build.check(err, "fft_rows_ct_long (cluster)")
     return fr, fi
+
+
+def workspace_rows(re: torch.Tensor, im: torch.Tensor):
+    """The workspace design (``csrc/fft_rows_ct_long.cu``) on contiguous
+    float32 CUDA rows with n1 ∈ {384, 640, 896}, uncounted: the long K3 at
+    640 and 896 (:func:`long_rows`), and at 384 the comparison the card
+    tests and ``tools/forward_times.py`` hold the wide design against."""
+    n = re.shape[-1]
+    n1, n2 = ct_plan.ct_split(n)
+    _, a, r = ct_plan.radix_split(n)
+    rows = re.numel() // n
+    if n1 not in (384, 640, 896) or a != ct_plan.RADIX_MAX_A or n2 > 512 or rows > LONG_MAX_ROWS:
+        raise ValueError(f"the workspace K3 takes n1 in (384, 640, 896), 8 | n2 ≤ 512; nfft {n} = {n1}·{n2}")
+    w1, wn2, wr = ct_plan.device_radix_tables(n, re.device)
+    tw = ct_plan.device_tables(n, False, re.device).tw
+    fr = torch.empty_like(re)
+    fi = torch.empty_like(im)
+    ws = torch.empty((rows, n, 2), dtype=torch.float32, device=re.device)  # [rows, n2, n1] slot rows
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    fn = build.kernel("rm_fft_rows_ct_long", _WORKSPACE_ARGTYPES)
+    err = fn(ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(wr), ptr(tw), ptr(ws), ptr(fr), ptr(fi),
+             rows, n1, n2, a, r, ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream))
+    build.check(err, "fft_rows_ct_long (workspace)")
+    return fr, fi
+
+
+def wide_launch(re: torch.Tensor, im: torch.Tensor, detect: tuple = (), args: tuple = ()):
+    """One launch of the wide kernel, uncounted; returns the spectra
+    ``(fr, fi)``. With ``detect`` empty its detect half is off (K3); K1's
+    launch (``fft_detect.wide_detect``) passes its four outputs (segment
+    scores and offsets ``[rows, nfft/8]``, floor and row max ``[rows]``)
+    and its detection parameters (``rm_det::DetectParams``' order) to turn
+    it on. Rows must start on 16 bytes (the column loads are 16 bytes
+    wide); a launch the card refuses (no cluster of this shape fits)
+    raises."""
+    n = re.shape[-1]
+    g = long_geometry(n)
+    if g.design != "wide":
+        raise ValueError(f"the wide K1/K3 takes n1 in {WIDE_N1}; nfft {n} = {g.n1}·{g.n2}")
+    if re.data_ptr() % 16 or im.data_ptr() % 16:
+        raise ValueError("the wide K1/K3 takes rows that start on 16 bytes")
+    if len(detect) not in (0, 4) or len(args) != (8 if detect else 0):
+        raise ValueError("the wide K1 takes four outputs and eight detection parameters, or neither")
+    dev, rows = re.device, re.numel() // n
+    w1, wn2, wr = ct_plan.device_radix_tables(n, dev)
+    tw = ct_plan.device_tables(n, False, dev).tw
+    fr = torch.empty_like(re)
+    fi = torch.empty_like(im)
+    ptr = lambda x: ctypes.c_void_p(None if x is None else x.data_ptr())
+    fn = build.kernel("rm_fft_detect_wide", _WIDE_ARGTYPES)
+    err = fn(
+        ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(wr), ptr(tw), ptr(fr), ptr(fi),
+        *(ptr(x) for x in (detect or (None,) * 4)), rows, g.n1, g.n2, g.a, g.r, int(bool(detect)),
+        *(args or (0, 0, 0, 0.0, 0, 0.0, 0.0, 0)),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    build.check(err, "wide K1/K3")
+    return fr, fi
+
+
+def wide_info(n: int, detect: bool = True) -> dict:
+    """The wide design at n on the current card: ``c``, dynamic shared
+    memory a block (``smem``), blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), active clusters
+    (``cudaOccupancyMaxActiveClusters``; 0 would mean the card cannot run
+    it), registers a thread and local memory in bytes."""
+    g = long_geometry(n)
+    if g.design != "wide":
+        raise ValueError(f"nfft {n} does not take the wide design")
+    vals = [ctypes.c_int(0) for _ in range(5)]
+    fn = build.kernel("rm_fft_detect_wide_info", _WIDE_INFO_ARGTYPES)
+    build.check(fn(g.n1, g.n2, g.a, g.r, int(detect), *(ctypes.byref(v) for v in vals)), "wide_info")
+    smem, blocks, clusters, registers, local = (v.value for v in vals)
+    return {"c": g.c, "smem": smem, "blocks": blocks, "clusters": clusters, "registers": registers,
+            "local_bytes": local}
 
 
 @functools.lru_cache(maxsize=8)
@@ -256,10 +370,10 @@ def cluster_info(n: int) -> dict:
     """The long design's cluster at n on the current card: ``c``, shared
     memory a block (``smem``) and ``cudaOccupancyMaxActiveClusters``
     (``clusters``; 0 would mean the card cannot run it). Raises for a
-    length the workspace design takes."""
+    length the wide or the workspace design takes."""
     g = long_geometry(n)
     if g.design != "cluster":
-        raise ValueError(f"nfft {n} takes the workspace design, not a cluster")
+        raise ValueError(f"nfft {n} takes the {g.design} design, not the cluster design")
     smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
     fn = build.kernel("rm_fft_rows_ct_cluster_info", _INFO_ARGTYPES)
     build.check(fn(g.n1, g.n2, g.a, g.r, g.c, ctypes.byref(smem), ctypes.byref(clusters)), "cluster_info")

@@ -33,7 +33,9 @@ checkouts in one call mean equal outputs bit for bit. A third line: K2
 
 ``--pair`` times only K2 at [128, 8, 58368] (the flagship at block_len
 57344, n1 = 384) and [8, 8, 121856] (n1 = 896) and K5 at [1, 64, 58368],
-then prints the pair digests.
+then prints the pair digests. ``--k1`` times only K1 and K3 at [1024,
+58368] (n1 = 384: the wide design, K1 in one launch), then prints the
+long rows' digests.
 
 The wrappers' signatures are those of every version since K8 was ported,
 so with ``PYTHONPATH`` at another checkout it times that checkout's
@@ -82,9 +84,28 @@ def _digest(tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def _digests(dev, tag) -> None:
+def _digests(dev, tag, short=True) -> None:
+    """The digest lines: the rows up to 17408 (``short``), then the long rows."""
     g = torch.Generator(device=dev).manual_seed(1)
     rows = lambda *shape: 40.0 * torch.randn(*shape, device=dev, generator=g)
+    if short:
+        _short_digests(tag, rows)
+    out = {"K3": [], "K1": [], "K4": [], "K8": []}
+    pi, pj = gcc_phat.pair_indices(8)
+    for nfft in LONG_DIGEST_N:
+        plan = ct_plan.detect_plan(nfft, **DETECT)
+        xr, xi = rows(16, 8, nfft), rows(16, 8, nfft)
+        fr, fi = fft_rows.fft_rows_ct(xr.view(-1, nfft), xi.view(-1, nfft))
+        out["K3"] += (fr, fi)
+        out["K4"] += detect_ct.detect_ct_partials(fr, fi, plan)
+        out["K1"] += fft_detect.fft_detect_rows_ct(xr.view(-1, nfft), xi.view(-1, nfft), plan)
+        out["K8"] += channel_step.channel_step_partials(xr, xi, pi, pj, plan, 600)
+        del xr, xi, fr, fi
+    print(f"long digests ({', '.join(map(str, LONG_DIGEST_N))}): "
+          + ", ".join(f"{k} {_digest(v)}" for k, v in out.items()) + f" {tag}")
+
+
+def _short_digests(tag, rows) -> None:
     out = {"K3": [], "K1": [], "K4": [], "K8": []}
     for n2 in (5, 9, 17, 25, 10, 18, 34, 50, 20, 36, 68, 100, 40, 72, 136):  # (a, r) of every K3 instantiation
         out["K3"] += fft_rows.fft_rows_ct(rows(64, 128 * n2), rows(64, 128 * n2))
@@ -99,19 +120,6 @@ def _digests(dev, tag) -> None:
         lag = 256 if nfft == 5120 else 512  # K8's pair buffers take max_lag ≤ 256 at 5120
         out["K8"] += channel_step.channel_step_partials(xr[:c], xi[:c], pi, pj, plan, lag)
     print("digests: " + ", ".join(f"{k} {_digest(v)}" for k, v in out.items()) + f" {tag}")
-    out = {"K3": [], "K1": [], "K4": [], "K8": []}
-    pi, pj = gcc_phat.pair_indices(8)
-    for nfft in LONG_DIGEST_N:
-        plan = ct_plan.detect_plan(nfft, **DETECT)
-        xr, xi = rows(16, 8, nfft), rows(16, 8, nfft)
-        fr, fi = fft_rows.fft_rows_ct(xr.view(-1, nfft), xi.view(-1, nfft))
-        out["K3"] += (fr, fi)
-        out["K4"] += detect_ct.detect_ct_partials(fr, fi, plan)
-        out["K1"] += fft_detect.fft_detect_rows_ct(xr.view(-1, nfft), xi.view(-1, nfft), plan)
-        out["K8"] += channel_step.channel_step_partials(xr, xi, pi, pj, plan, 600)
-        del xr, xi, fr, fi
-    print(f"long digests ({', '.join(map(str, LONG_DIGEST_N))}): "
-          + ", ".join(f"{k} {_digest(v)}" for k, v in out.items()) + f" {tag}")
 
 
 def pair_digests(dev) -> dict:
@@ -162,6 +170,23 @@ def pair_main(dev, tag) -> None:
     print("pair digests (n1 = 128, 256): " + ", ".join(f"{k} {v}" for k, v in pair_digests(dev).items()) + f" {tag}")
 
 
+def k1_main(dev, tag) -> None:
+    """``--k1``: K1 and K3 at the flagship's block_len-57344 rows [1024,
+    58368] (n1 = 384, the detect plan of :data:`DETECT`), then the long
+    rows' digests."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows, nfft = 1024, 58_368
+    plan = ct_plan.detect_plan(nfft, **DETECT)
+    xr = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
+    xi = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
+    t1 = _mean_ms(lambda: fft_detect.fft_detect_rows_ct(xr, xi, plan))
+    t3 = _mean_ms(lambda: fft_rows.fft_rows_ct(xr, xi))
+    print(f"[{rows}, {nfft}], n1 = 384: K1 {t1:.4f} ms, K3 {t3:.4f} ms {tag}")
+    del xr, xi
+    torch.cuda.empty_cache()
+    _digests(dev, tag, short=False)
+
+
 def main() -> int:
     card = device.require_cuda()
     tag = card.label()
@@ -170,6 +195,9 @@ def main() -> int:
     build.library()
     if "--pair" in sys.argv[1:]:
         pair_main(dev, tag)
+        return 0
+    if "--k1" in sys.argv[1:]:
+        k1_main(dev, tag)
         return 0
     g = torch.Generator(device=dev).manual_seed(0)
     for rows, nfft in ((16, 9216), (1024, 17408)):

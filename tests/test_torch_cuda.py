@@ -16,7 +16,10 @@ as its plain version is against JAX:
   (one block a row up to 24576; the long-row designs, K3 on thread-block
   clusters, at 33792, 34816, 58368, 66560, 87040 and 121856, and forced
   onto 5120-24576, where they equal the one-block outputs bit for bit;
-  ``-k cluster`` runs the cluster designs of K3 and K7 alone); K1 ``row_max``
+  ``-k cluster`` runs the cluster designs of K3 and K7 alone; at n1 = 384
+  the wide design, K1 in one launch and K3 its forward half, equal to the
+  workspace K3 → K4 bit for bit at 52224, 58368, 101376 and 129024,
+  ``-k wide_k1``); K1 ``row_max``
   within 1e-5 relative, ``noise_floor_db`` within 1e-3 dB (log10 differs
   by ulps between libraries), segment partials exact outside
   float32-tied segments (see :func:`fragile_segments`), scores within
@@ -438,10 +441,11 @@ def test_k3_kernel_takes_long_rows_and_rejects_f3b(cuda_device):
     for nfft, rows in ((32768, 4), (52224, 4), (87040, 2), (121856, 2)):
         re, im = tone_rows(rows, nfft, 16, n_valid=nfft - 1024)
         xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
-        before, long_before = fft_rows.launch_count, fft_rows.design_counts["long"]
+        key = "wide" if fft_rows.long_geometry(nfft).design == "wide" else "long"
+        before, long_before = fft_rows.launch_count, fft_rows.design_counts[key]
         out = fft_rows.fft_rows_ct(xr, xi)
         torch.cuda.synchronize()
-        assert (fft_rows.launch_count, fft_rows.design_counts["long"]) == (before + 1, long_before + 1)
+        assert (fft_rows.launch_count, fft_rows.design_counts[key]) == (before + 1, long_before + 1)
         assert_spectra_close([o.cpu() for o in out], [o.cpu() for o in fft_rows.fft_rows_ct_plain(xr, xi)])
     x = torch.zeros(2, 128 * 1031, device=cuda_device)  # n2 = 1031 > 1024 and prime: no split
     with pytest.raises(ValueError, match="factorization"):
@@ -463,7 +467,8 @@ def test_long_kernels_match_plain(cuda_device, rows, nfft):
     re, im = tone_rows(rows, nfft, 17, n_valid=nfft - 1024)
     plan = ct_plan.detect_plan(nfft, **DET)
     xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
-    counts = lambda: (fft_rows.design_counts["long"], fft_detect.design_counts["long"],
+    key = "wide" if fft_rows.long_geometry(nfft).design == "wide" else "long"  # n1 = 384: one launch
+    counts = lambda: (fft_rows.design_counts[key], fft_detect.design_counts[key],
                       fft_rows.launch_count, detect_ct.launch_count, fft_detect.launch_count)
     before = counts()
     f3r, f3i = fft_rows.fft_rows_ct(xr, xi)
@@ -720,10 +725,12 @@ def test_topk_kernels_match_their_partials_tail_and_plain(cuda_device, rows, nff
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c,b,nfft,max_lag", [(2, 8, 58368, 600), (1, 4, 121856, 600), (1, 4, 33792, 600)])
+@pytest.mark.parametrize("c,b,nfft,max_lag", [(2, 8, 58368, 600), (1, 4, 121856, 600), (1, 4, 33792, 600),
+                                               (16, 8, 58368, 600)])
 def test_k8_long_design_equals_composition_and_plain(cuda_device, c, b, nfft, max_lag):
-    """K8 above 24576: the long K1 (long K3, then K4) and K2 (l2rx),
-    counted as one K8 launch, equal to K1 → K2 bit for bit."""
+    """K8 above 24576: the long K1 (at n1 = 384 the wide design's one
+    kernel, else the long K3, then K4) and K2 (l2rx), counted as one K8
+    launch, equal to K1 → K2 bit for bit."""
     re, im = tone_rows(c * b, nfft, 20, n_valid=nfft - max_lag - 512)
     plan = ct_plan.detect_plan(nfft, **DET)
     xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
@@ -747,6 +754,96 @@ def test_k8_long_design_equals_composition_and_plain(cuda_device, c, b, nfft, ma
     )
     assert_windows_close(win.cpu().numpy(), pw.cpu().numpy())
     np.testing.assert_allclose(nf.cpu().numpy(), pn.cpu().numpy(), atol=1e-3, rtol=0)
+
+
+# the wide design's lengths: n1 = 384, r = 17, 19 (the flagship at block_len
+# 57344), 33 (one block an SM) and 42 (the longest planned, 129024)
+WIDE_K1_SHAPES = [(8, 52224), (8, 58368), (4, 101376), (2, 129024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,nfft", WIDE_K1_SHAPES)
+def test_wide_k1_and_k3_equal_workspace_k3_k4(cuda_device, rows, nfft):
+    """K1 at n1 = 384 is one launch of the wide design and K3 the same
+    kernel without its detect half (``design_counts["wide"]``, no K4): the
+    spectra, partials, floor and row max equal the workspace K3 → K4's
+    (``fft_rows.workspace_rows``, the parent design) bit for bit and are
+    held to the plain version as K1 is; with ``emit_topk = 8`` K1 is the
+    wide K3, then K4's top-K phase, equal to its own partials followed by
+    the port's top-K tail; the card runs the cluster (active clusters >
+    0) at the blocks an SM, shared memory and registers planned."""
+    re, im = tone_rows(rows, nfft, 23, n_valid=nfft - 1024)
+    plan = ct_plan.detect_plan(nfft, **DET)
+    xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
+    g = fft_rows.long_geometry(nfft)
+    assert g.design == "wide" and fft_detect.geometry(nfft) == fft_rows.geometry(nfft) == "long"
+    counts = lambda: (fft_detect.design_counts["wide"], fft_rows.design_counts["wide"], fft_detect.launch_count,
+                      fft_rows.launch_count, detect_ct.launch_count)
+    before = counts()
+    k1 = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    k3 = fft_rows.fft_rows_ct(xr, xi)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 1, 0)
+    w3 = fft_rows.workspace_rows(xr, xi)
+    w4 = detect_ct.launch(*w3, plan, row_max=True)
+    for x, y in [*zip(k3, w3), *zip(k1, (*w3, *w4))]:
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    host = lambda xs: [x.cpu() for x in xs]
+    assert_k1_close(host(k1), host(fft_detect.fft_detect_rows_ct_plain(xr, xi, plan)), plan)
+    long_before = fft_detect.design_counts["long"]
+    t1 = fft_detect.fft_detect_rows_ct(xr, xi, plan, emit_topk=8)
+    torch.cuda.synchronize()
+    assert fft_detect.design_counts["long"] == long_before + 1
+    for x, y in zip(t1, (*k1[:2], *fft_detect.topk_plain(k1[2], k1[3], 8), *k1[4:])):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    for detect in (True, False):
+        info = fft_rows.wide_info(nfft, detect)
+        assert info["c"] == 8 and info["clusters"] > 0
+        assert info["registers"] <= 65_536 // (2 * fft_rows.WIDE_THREADS)  # two blocks' worth of registers
+        assert info["smem"] == fft_rows.wide_smem(g.n1, g.n2, detect)
+        assert info["blocks"] == fft_rows.wide_blocks(g.n1, g.n2, detect), (detect, info)
+
+
+# every planned length whose split has n1 = 384: the wide design's 18
+WIDE_PLANNED = sorted({n for n in map(ct_plan.plan_nfft, range(1024, 131_073, 1024)) if ct_plan.ct_split(n)[0] == 384})
+
+
+def flat_rows(nfft):
+    """Three rows of a receiver with no signal: zeros and an impulse, whose
+    powers are all equal, and a constant offset (a DC bin, the rest zero
+    or nearly)."""
+    re, im = np.zeros((3, nfft), np.float32), np.zeros((3, nfft), np.float32)
+    re[1, 0], re[2], im[2] = 1.0, 0.25, -0.5
+    return re, im
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", WIDE_PLANNED)
+def test_wide_k1_and_k3_run_at_every_planned_length(cuda_device, nfft):
+    """At each of the 18 planned n1 = 384 lengths, K1 and K3 are one launch
+    of the wide design each and equal the workspace K3 → K4 bit for bit, on
+    two tone rows and on :func:`flat_rows`: on the zeros and the impulse the
+    floor's values fill one histogram bucket past the 512 its selection
+    ranks, so block 0 takes ``rm_det::bisect_floor``."""
+    assert len(WIDE_PLANNED) == 18
+    tr, ti = tone_rows(2, nfft, nfft % 89, n_valid=nfft - 1024)
+    fr_, fi_ = flat_rows(nfft)
+    xr = torch.from_numpy(np.concatenate([tr, fr_])).to(cuda_device)
+    xi = torch.from_numpy(np.concatenate([ti, fi_])).to(cuda_device)
+    plan = ct_plan.detect_plan(nfft, **DET)
+    counts = lambda: (fft_detect.design_counts["wide"], fft_rows.design_counts["wide"], detect_ct.launch_count)
+    before = counts()
+    k1 = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    k3 = fft_rows.fft_rows_ct(xr, xi)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 0)
+    w3 = fft_rows.workspace_rows(xr, xi)
+    w4 = detect_ct.launch(*w3, plan, row_max=True)
+    for x, y in [*zip(k3, w3), *zip(k1, (*w3, *w4))]:
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    n1, n2 = ct_plan.ct_split(nfft)
+    sub = (w3[0] * w3[0] + w3[1] * w3[1]).view(-1, n2, n1)[2:4, ::8].cpu().numpy()  # CT rows k2 = 0 mod 8
+    assert all(np.unique(x, return_counts=True)[1].max() > 512 for x in sub)
 
 
 @functools.lru_cache(maxsize=4)

@@ -30,7 +30,11 @@ from test_torch_cuda import DET, assert_k1_close, tone_rows
 
 cap_cpu_threads()
 
-@pytest.mark.parametrize("nfft,n_valid,seed", [(5120, 4096, 1), (9216, 8192, 2)])
+@pytest.mark.parametrize("nfft,n_valid,seed", [
+    (5120, 4096, 1), (9216, 8192, 2),
+    (58368, 57344, 3),  # 384·152, the flagship at block_len 57344 (the wide K1 on the card)
+    (52224, 51200, 4),  # 384·136, the shortest n1 = 384 length
+])
 def test_plain_k1_matches_pallas_interpret(nfft, n_valid, seed):
     re, im = tone_rows(5, nfft, seed, n_valid=n_valid)
     ref = detect_kernel.fft_detect_rows_ct(re, im, **DET, interpret=True, precision="default")

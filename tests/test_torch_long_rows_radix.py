@@ -480,15 +480,22 @@ def test_every_planned_length_has_a_kernel_on_each_route_but_f3b(route):
     block_len) is taken by each kernel its route sends it to: the F3b set
     of lengths no design takes is empty. K1 and K3 pick one block a row up
     to 24576 and the long design above, K8 its cluster design and its long
-    one (the long K1, then K2)."""
+    one (the long K1, then K2); the long rows take the cluster design at
+    n1 = 128, 256, the wide one at 384 and the workspace one at 640, 896."""
     seen = set()
     designs = {}
+    long_designs = {}
     for n in PLANNED:
         for name, check in _route_kernels(n, **ROUTE_KNOBS[route]):
             seen.add(name)
             design = check()
             if isinstance(design, str):
                 designs.setdefault(name, set()).add((design, n > fft_detect.MAX_N))
+                if design == "long":
+                    n1 = ct_plan.ct_split(n)[0]
+                    got = fft_rows.long_geometry(n).design
+                    assert got == {128: "cluster", 256: "cluster", 384: "wide"}.get(n1, "workspace"), (name, n)
+                    long_designs.setdefault(name, set()).add(got)
     want = {"default": {"K1"}, "two-kernel": {"K3", "K4"}, "unfused-detect": {"K3"}, "mega": {"K8"}}[route]
     assert want <= seen
     short = {"K1": "block", "K3": "block", "K8": "cluster"}
@@ -496,6 +503,7 @@ def test_every_planned_length_has_a_kernel_on_each_route_but_f3b(route):
         assert got <= {(short[name], False), ("long", True)}, (name, got)
         if name in want:
             assert got == {(short[name], False), ("long", True)}, (name, got)
+            assert long_designs[name] == {"cluster", "wide", "workspace"}, (name, long_designs[name])
 
 
 def test_wideband_k3_and_pair_stage_take_every_planned_length_but_f3b():
@@ -510,11 +518,13 @@ def test_wideband_k3_and_pair_stage_take_every_planned_length_but_f3b():
 
 def test_design_choice_by_length():
     """One block a row up to 24576, the long design above, for K3 and K1;
-    K4 has one design, whose shared memory (n/8 floats, or a 16-column
-    tile) fits at every planned length the fused detect takes, at any
-    radius up to n2."""
+    above, the cluster design at n1 = 128 and 256, the wide design (K1 in
+    one launch, K3 its forward half) at 384, the workspace design at 640
+    and 896. K4 has one design, whose shared memory (n/8 floats, or a
+    16-column tile) fits at every planned length the fused detect takes,
+    at any radius up to n2."""
     for n in PLANNED:
-        n2 = ct_plan.ct_split(n)[1]
+        n1, n2 = ct_plan.ct_split(n)
         if detect_ct.supported(n, min_distance_bins=10, noise_floor_stride=8):
             assert 0 < detect_ct.geometry(n, 10) <= detect_ct.geometry(n, n2) <= fft_detect.SMEM_LIMIT, n
         else:
@@ -522,15 +532,20 @@ def test_design_choice_by_length():
         want = "block" if n <= fft_rows.MAX_N else "long"
         assert fft_rows.geometry(n) == want and fft_detect.geometry(n) == want, n
         assert channel_step.geometry(n) == ("cluster" if want == "block" else "long"), n
+        if want == "long":
+            design = {128: "cluster", 256: "cluster", 384: "wide"}.get(n1, "workspace")
+            assert fft_rows.long_geometry(n).design == design, n
     with pytest.raises(ValueError, match="radius"):
         detect_ct.geometry(17408, 137)  # radius > n2 = 136
 
 
 # the instantiations fft_rows_ct_cluster.cu builds: (n1, columns a tile)
 BUILT_CLUSTER_VARIANTS = {(128, 32), (128, 16), (256, 32)}
-# fft_rows_ct_long.cu (the workspace design, n1 = 384, 640, 896): its row
-# passes and column-pass variants (step B's registers RMAX or 0 if
-# streamed, outputs a thread SJ)
+# fft_detect_cluster.cu (the wide design): its n1
+BUILT_WIDE = {384}
+# fft_rows_ct_long.cu (the workspace design, n1 = 640, 896, and 384 as the
+# wide design's comparison only): its row passes and column-pass variants
+# (step B's registers RMAX or 0 if streamed, outputs a thread SJ)
 BUILT_WORKSPACE_ROWS = {384, 640, 896}
 BUILT_WORKSPACE_COLUMNS = {(24, 0), (0, 2), (0, 3)}
 
@@ -539,22 +554,29 @@ def test_long_k3_builds_only_the_variants_planned_lengths_reach():
     """Every planned length the long K3 takes (and the lengths the card
     tests force onto it: 17408, 24576) splits with a = 8 into a built
     kernel variant, and together they reach every built one: the cluster
-    design at n1 = 128 and 256, the workspace design at n1 = 384, 640 and
-    896 (32-column tiles, step B in registers up to r = 24, else streamed
-    with the fewest outputs a thread that cover r in one pass); a long
-    split with 8 ∤ n2 raises before any launch."""
-    cluster, rows, columns = set(), set(), set()
+    design at n1 = 128 and 256, the wide design at 384, the workspace
+    design at n1 = 640 and 896 (32-column tiles, step B in registers up to
+    r = 24, else streamed with the fewest outputs a thread that cover r in
+    one pass), and at 384 the workspace design as the wide design's
+    comparison (``fft_rows.workspace_rows``, no route); a long split with
+    8 ∤ n2 raises before any launch."""
+    cluster, wide, rows, columns = set(), set(), set(), set()
     for n in [17408, 24576] + [n for n in PLANNED if n > fft_rows.MAX_N]:
         g = fft_rows.long_geometry(n)
         assert g.a == 8 and g.n2 <= 1024, n
         if g.design == "cluster":
             assert g.n1 in (128, 256), n
             cluster.add((g.n1, g.cols))
+            continue
+        if g.design == "wide":
+            assert g.n1 == 384 and g.c == 8 and g.cols == 48, n
+            wide.add(g.n1)
         else:
-            assert g.design == "workspace" and g.n2 <= 512 and g.cols == 32, n
-            rows.add(g.n1)
-            columns.add((24, 0) if g.r <= 24 else (0, next(sj for sj in (2, 3, 4) if g.r <= sj * WARPS)))
-    assert cluster == BUILT_CLUSTER_VARIANTS
+            assert g.design == "workspace" and g.n1 in (640, 896) and g.cols == 32, n
+        assert g.n2 <= 512, n  # the workspace design takes every such length (at 384, as the comparison)
+        rows.add(g.n1)
+        columns.add((24, 0) if g.r <= 24 else (0, next(sj for sj in (2, 3, 4) if g.r <= sj * WARPS)))
+    assert cluster == BUILT_CLUSTER_VARIANTS and wide == BUILT_WIDE
     assert rows == BUILT_WORKSPACE_ROWS and columns == BUILT_WORKSPACE_COLUMNS
     assert ct_plan.ct_split(25_728) == (128, 201)
     with pytest.raises(ValueError, match="multiple of 8"):
