@@ -105,17 +105,26 @@ per source, in parallel, sm_90a), then:
 20. the lengths whose split has n1 ∈ {384, 640, 896} (once fault F3b;
     the mixed-radix warp FFT) and the in-kernel top-K (T1): the long K3
     vs its plain version at [1024, 58368] (the flagship block at
-    block_len 57344), [512, 87040] and [256, 121856], with times, bounds
-    and ``torch.fft.fft`` + the CT permutation; at 58368 (n1 = 384) the
-    wide design: K1 one launch of it (no K4), its c, shared memory,
-    registers, spills, blocks an SM and active clusters printed, K1 = K3
-    → K4 and both equal to the workspace K3 → K4 (the parent design) bit
-    for bit; K1 and K3 there back to back against ``RM_PARENT_TREE``'s
-    (``tools/forward_times.py --k1`` by path: parent, this, this,
-    parent), with the long rows' digests equal to the parent's; K2 at
-    [16, 8, 58368] and [8, 8, 121856] and K5 at [1, 64,
-    58368] vs plain; K8's long design at [16, 8, 58368] equal to K1 → K2
-    bit for bit; K1 and K4 with ``emit_topk = 8`` at 17408, 33792 and
+    block_len 57344), [512, 87040], [1024, 97280] (block_len 96000),
+    [256, 117760], [256, 128000] and [1024, 121856], with times, bounds
+    and ``torch.fft.fft`` + the CT permutation; at each the wide design:
+    K1 one launch of it (no K4), its c, shared memory, registers, spills,
+    blocks an SM and active clusters printed, K1 = K3 → K4 and both equal
+    to the workspace K3 → K4 (the parent design) bit for bit, also on
+    rows of equal powers (zeros, an impulse) that take the floor's
+    bisection fallback, K1 vs its plain version, and the workspace K3 and
+    K3 → K4 timed beside the wide K3 and K1; K1 and K3 at [1024, 58368],
+    [1024, 97280] and [256, 121856] back to back against
+    ``RM_PARENT_TREE``'s (``tools/forward_times.py --k1
+    58368,97280,121856`` by path: parent, this, this, parent), with the
+    long rows' digests equal to the parent's; at [1024, 58368] and [1024,
+    97280] the rows are the flagship's uint8 inputs at block_len 57344 and
+    96000 (elsewhere noise), and K2 runs on K1's outputs there, [128, 8,
+    58368] and [128, 8, 97280], vs plain (window within 1e-4 of its max,
+    same argmax); K2 at [16, 8, 58368] and
+    [8, 8, 121856] and K5 at [1, 64, 58368] vs plain; K8's long design at
+    [16, 8, 58368] and [16, 8, 121856] equal to K1 → K2 bit for bit and
+    vs plain; K1 and K4 with ``emit_topk = 8`` at 17408, 33792 and
     58368 equal to their own partials + the port's top-K tail bit for
     bit, and close to their plain versions; the phase-4 scene at
     block_len 57344 on the default, two-kernel, mega and combined-topk
@@ -265,13 +274,22 @@ per source, in parallel, sm_90a), then:
     its rank), config 4 (K3 and K5 once a block), the ingest leg at 8 ch
     for 4 steps (K1 and K2 once a step) and the loopback for 8 steps, each
     value finite and above 0; then ``bench.main`` shallow, its last stdout
-    line parsed: the reference's keys, ``"backend": "cuda"``.
+    line parsed: the reference's keys, ``"backend": "cuda"``;
+39. the flagship at block_len 96000 (nfft 97280 = 640·152, the wide K1 at
+    n1 = 640): the phase-4 scene at block_len 96000 on the default route,
+    card vs CPU (fix within 50 m of the emitter and 0.5 m of the CPU's, K1
+    one wide launch, K2 one launch), then 4 full-width blocks, 128 ch × 8
+    buoys × 96000 uint8 IQ, max_lag 600, through ``step_split_uint8_scan``:
+    ms/block, launches by design (K1 wide and K2 once a block) and a
+    per-stage split.
 
 Each kernel's entry in the ``kernels`` line carries its sources (K1 and
 K3 with their long-row files, K7 with its cluster design's, K8 with its
 long design's), the long rows' numbers (K1, K3, K4; K7's
 ``cluster_rows``), phase 20's (``mixed_rows`` of K1, K2, K3, K5; K8's
-``long_rows``; ``topk`` of K1 and K4), phase 22's (K7's
+``long_rows``; ``topk`` of K1 and K4; K1's and K3's ``wide_design`` by
+length, K1's ``wide_vs_workspace`` and ``wide_back_to_back``), phase 39's
+(K1's and K2's ``launches_block_len_96000``), phase 22's (K7's
 ``launches_complex_step``, its launches a block, and ``complex_step_rows``,
 the complex wrapper's check and times), its
 time and its
@@ -575,17 +593,24 @@ def _pair_times(tree):
     return ms, digests
 
 
+K1_LENGTHS = (58_368, 97_280, 121_856)  # forward_times.py --k1's lengths here: n1 = 384, 640, 896
+
+
 def _k1_times(tree):
-    """``tools/forward_times.py --k1`` of this checkout run by path on the
-    package under ``tree``: K1 and K3 at [1024, 58368] in ms and the long
-    rows' digests."""
+    """``tools/forward_times.py --k1 58368,97280,121856`` of this checkout
+    run by path on the package under ``tree``: ``{nfft: (rows, K1 ms, K3
+    ms)}`` and the long rows' digests."""
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "radio_mapper_tpu_torch", "tools",
                           "forward_times.py")
-    out = subprocess.run([sys.executable, script, "--k1"], env={**os.environ, "PYTHONPATH": tree},
-                         capture_output=True, text=True, timeout=600, check=True).stdout
-    m = re.search(r"\[1024, 58368\], n1 = 384: K1 ([0-9.]+) ms, K3 ([0-9.]+) ms", out)
+    out = subprocess.run([sys.executable, script, "--k1", ",".join(map(str, K1_LENGTHS))],
+                         env={**os.environ, "PYTHONPATH": tree}, capture_output=True, text=True, timeout=600,
+                         check=True).stdout
+    times = {}
+    for n in K1_LENGTHS:
+        m = re.search(rf"\[([0-9]+), {n}\], n1 = [0-9]+: K1 ([0-9.]+) ms, K3 ([0-9.]+) ms", out)
+        times[n] = (int(m.group(1)), float(m.group(2)), float(m.group(3)))
     digests = re.search(r"long digests \([0-9, ]+\): (.*) \[", out).group(1)
-    return float(m.group(1)), float(m.group(2)), digests
+    return times, digests
 
 
 def _held(torch, name, kernel, plain, shape, window, bound):
@@ -2832,15 +2857,16 @@ def main() -> int:
             out = {}
             for detect in (True, False):
                 info = fft_rows.wide_info(nf, detect)
-                spill = ptx[f"fft_detect_cluster_kernel<{int(detect)}>"]
+                min_blocks = info["min_blocks"]
+                spill = ptx[f"fft_detect_cluster_kernel<{g.n1}, {int(detect)}, {min_blocks}>"]
                 out["K1" if detect else "K3"] = {**info, "spill_bytes": spill["spill_stores"] + spill["spill_loads"]}
                 print(f"phase {phase}: {'K1' if detect else 'K3'} wide design at nfft {nf} = {g.n1}·{g.n2}: one "
                       f"launch, c = {info['c']} blocks a row, r = {g.r}, {info['smem']} B of shared memory a block, "
                       f"{info['registers']} registers, spills {spill['spill_stores']}/{spill['spill_loads']} B, "
                       f"local memory {info['local_bytes']} B, {info['blocks']} blocks of {fft_rows.WIDE_THREADS} "
                       f"threads an SM, cudaOccupancyMaxActiveClusters {info['clusters']} {tag}")
-                _require(info["clusters"] > 0 and info["registers"] <= 65_536 // (2 * fft_rows.WIDE_THREADS)
-                         and info["blocks"] == fft_rows.wide_blocks(g.n1, g.n2, detect),
+                _require(info["clusters"] > 0 and info["registers"] <= 65_536 // (min_blocks * fft_rows.WIDE_THREADS)
+                         and info["blocks"] == fft_rows.wide_blocks(g.n1, g.n2, detect) <= min_blocks,
                          f"the wide design at {nf}: {info}")
             return out
         if g.design != "cluster":
@@ -3046,7 +3072,9 @@ def main() -> int:
     del lraw, lout
 
     # ---- phase 20: the mixed-radix inner lengths (n1 = 384, 640, 896: the
-    # lengths that were fault F3b) and the in-kernel top-K (T1, emit_topk)
+    # lengths that were fault F3b; K1 and K3 there are the wide design at
+    # every planned n1 = 640/896 length, beside the parent's workspace K3 ->
+    # K4) and the in-kernel top-K (T1, emit_topk)
     mcfg = PipelineConfig(num_buoys=buoys, block_len=57_344, sample_rate_hz=fs, max_lag=600)
     mpipe = TDOAPipeline(mcfg, device=dev)
     mnfft = mpipe.plan.nfft
@@ -3054,15 +3082,25 @@ def main() -> int:
     mraw, manchors = mpipe.example_inputs(batch=(4, chans), seed=0, uint8=True)
     manchors = manchors[0]
     mre, mim = iq.decode_uint8_split(mraw[0])  # [chans, buoys, 57344]
+    # the flagship's inputs at block_len 57344 and 96000 (phase 39's path),
+    # each padded to its nfft: K1 and K2 run on them at the path's shapes
+    pipe96_20 = TDOAPipeline(PipelineConfig(num_buoys=buoys, block_len=96_000, sample_rate_hz=fs, max_lag=600),
+                             device=dev)
+    raw96_20, _ = pipe96_20.example_inputs(batch=(1, chans), seed=0, uint8=True)
+    flagship_rows = {mnfft: (mre, mim, mpipe.plan), 97_280: (*iq.decode_uint8_split(raw96_20[0]), pipe96_20.plan)}
+    del raw96_20
     gen = torch.Generator(device=dev).manual_seed(20)
     noise_rows = lambda r, nf: (40.0 * torch.randn(r, nf, device=dev, generator=gen),
                                 40.0 * torch.randn(r, nf, device=dev, generator=gen))
-    mixed_rows = {}  # K3 (and K1 at 58368) at the three mixed-radix row passes
-    wide_report = None  # the wide design's shape at 58368 (K1, K3)
-    for rows_m, mn in ((1024, 58_368), (512, 87_040), (256, 121_856)):
-        mxr, mxi = (fill(mre, mn), fill(mim, mn)) if mn == mnfft else noise_rows(rows_m, mn)
+    mixed_rows = {}  # K3 and K1 at the mixed-radix row passes
+    wide_report = {}  # the wide design's shape (K1, K3) at each length
+    wide_vs_workspace = []  # K1 and K3 beside the parent's design, the workspace K3 (-> K4), in this call
+    for rows_m, mn in ((1024, 58_368), (512, 87_040), (1024, 97_280), (256, 117_760), (256, 128_000),
+                       (1024, 121_856)):
+        mxr, mxi = (fill(flagship_rows[mn][0], mn), fill(flagship_rows[mn][1], mn)) if mn in flagship_rows \
+            else noise_rows(rows_m, mn)
         n1m, n2m = ct_plan.ct_split(mn)
-        wide_report = k3_cluster_report(mn, 20) or wide_report
+        wide_report[mn] = k3_cluster_report(mn, 20)
         key = "wide" if fft_rows.long_geometry(mn).design == "wide" else "long"
         before = fft_rows.design_counts[key]
         m3 = fft_rows.fft_rows_ct(mxr, mxi)
@@ -3085,58 +3123,67 @@ def main() -> int:
             f"torch.fft.fft + CT permutation {m3_lib_ms:.3f} ms, bound {m3_bound[0]:.4f} ms ({m3_bound[1]}) {tag}"
         )
         _require(m3_rel <= 1e-4, f"long K3 spectra disagree at {mn}: {m3_rel}")
-        if mn == mnfft:  # K1's long rows there: the wide design, one launch, = K3 -> K4 bit for bit
-            mplan = mpipe.plan
-            k1_counts = lambda: (fft_detect.launch_count, fft_detect.design_counts["wide"], fft_rows.launch_count,
-                                 detect_ct.launch_count)
-            before = k1_counts()
-            m1 = fft_detect.fft_detect_rows_ct(mxr, mxi, mplan)
-            torch.cuda.synchronize()
-            m1_one_launch = tuple(a - b for a, b in zip(k1_counts(), before)) == (1, 1, 0, 0)
-            m4 = detect_ct.detect_ct_partials(*m3, mplan)
-            w3 = fft_rows.workspace_rows(mxr, mxi)  # the parent's design: workspace K3, then K4
-            w4 = detect_ct.launch(*w3, mplan, row_max=True)
-            torch.cuda.synchronize()
-            m1_is_k3k4 = all(torch.equal(x, y) for x, y in zip(m1[:5], (*m3, *m4)))
-            m1_is_ws = all(torch.equal(x, y) for x, y in zip((*m3, *m1), (*w3, *w3, *w4)))
-            del w3, w4
-            pm1 = fft_detect.fft_detect_rows_ct_plain(mxr, mxi, mplan)
-            m1e = _partials_errors(torch, m1[2:5], pm1[2:5], *pm1[:2])
-            m1_abs = _row_rel_error(m1[:2], pm1[:2])[0]
-            del pm1
-            m1_ms = _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct(mxr, mxi, mplan))
-            m1_plain_ms = _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct_plain(mxr, mxi, mplan))
-            m1_bound = _bound(_fft_flops(rows_m, mn) + _detect_flops(rows_m, mn),
-                              rows_m * mn * 16 + rows_m * mplan.segments * 8 + rows_m * 8)
-            mixed_rows[("K1", mn)] = ([rows_m, mn], m1_abs, m1_ms, m1_plain_ms, m1_bound, None)
-            print(
-                f"phase 20: long K1 [{rows_m}, {mn}]: one launch of the wide design (no K4): {m1_one_launch}; "
-                f"= K3 -> K4 bit for bit: {m1_is_k3k4}; K3 and K1 = the workspace K3 -> K4 bit for bit: {m1_is_ws}; "
-                f"vs plain: floor {m1e[2]:.3e} dB, pattern {m1e[0]:.2e}, argmax {m1e[1]:.2e}, score rel "
-                f"{m1e[4]:.3e}; kernel {m1_ms:.3f} ms, plain {m1_plain_ms:.3f} ms, bound {m1_bound[0]:.4f} ms "
-                f"({m1_bound[1]}) {tag}"
-            )
-            _require(m1_one_launch, f"long K1 at {mn} is not one launch of the wide design")
-            _require(m1_is_k3k4 and m1_is_ws, f"long K1 differs from K3 -> K4 at {mn}")
-            # rows of a receiver with no signal: zeros and an impulse, whose powers
-            # are all equal (more than 512 of the floor's values share one histogram
-            # bucket, so block 0 takes rm_det::bisect_floor), and a constant offset
-            flat = torch.zeros((2, 3, mn), dtype=torch.float32, device=dev)
-            flat[0, 1, 0], flat[0, 2], flat[1, 2] = 1.0, 0.25, -0.5
-            f1 = fft_detect.fft_detect_rows_ct(flat[0], flat[1], mplan)
-            fw3 = fft_rows.workspace_rows(flat[0], flat[1])
-            fw4 = detect_ct.launch(*fw3, mplan, row_max=True)
-            sub = (fw3[0] * fw3[0] + fw3[1] * fw3[1]).view(3, n2m, n1m)[:2, ::8]  # CT rows k2 = 0 mod 8
-            flat_ties = min(int(torch.unique(x, return_counts=True)[1].max()) for x in sub)
-            flat_is_ws = all(torch.equal(x, y) for x, y in zip(f1, (*fw3, *fw4)))
-            del flat, f1, fw3, fw4, sub
-            print(f"phase 20: long K1 on rows with no signal (zeros and an impulse, at least {flat_ties} equal "
-                  f"floor values a row: the bisection's fallback; a constant): = the workspace K3 -> K4 bit for bit: "
-                  f"{flat_is_ws}")
-            _require(flat_ties > 512 and flat_is_ws, f"long K1's floor fallback differs at {mn}: {flat_ties}")
-            _require(m1e[0] <= 1e-3 and m1e[1] <= 1e-3 and m1e[2] <= 1e-3 and m1e[4] <= 1e-4 and m1e[5],
-                     f"long K1 partials disagree at {mn}: {m1e}")
-            # K2 at the flagship's own shape, fed these K1 outputs, as phase 3 does at 17408
+        # K1's long rows there: the wide design, one launch, = K3 -> K4 bit for bit
+        mplan = flagship_rows[mn][2] if mn in flagship_rows else ct_plan.detect_plan(
+            mn, sample_rate_hz=fs, threshold_db=-70.0, min_distance_bins=10, dc_notch_hz=10_000.0,
+            confidence_floor=0.3, snr_fullscale_db=20.0)
+        k1_counts = lambda: (fft_detect.launch_count, fft_detect.design_counts["wide"], fft_rows.launch_count,
+                             detect_ct.launch_count)
+        before = k1_counts()
+        m1 = fft_detect.fft_detect_rows_ct(mxr, mxi, mplan)
+        torch.cuda.synchronize()
+        m1_one_launch = tuple(a - b for a, b in zip(k1_counts(), before)) == (1, 1, 0, 0)
+        m4 = detect_ct.detect_ct_partials(*m3, mplan)
+        w3 = fft_rows.workspace_rows(mxr, mxi)  # the parent's design: workspace K3, then K4
+        w4 = detect_ct.launch(*w3, mplan, row_max=True)
+        torch.cuda.synchronize()
+        m1_is_k3k4 = all(torch.equal(x, y) for x, y in zip(m1[:5], (*m3, *m4)))
+        m1_is_ws = all(torch.equal(x, y) for x, y in zip((*m3, *m1), (*w3, *w3, *w4)))
+        del w3, w4
+        ws3_ms = _cuda_ms(torch, lambda: fft_rows.workspace_rows(mxr, mxi))
+        ws34_ms = _cuda_ms(torch, lambda: detect_ct.launch(*fft_rows.workspace_rows(mxr, mxi), mplan, row_max=True))
+        pm1 = fft_detect.fft_detect_rows_ct_plain(mxr, mxi, mplan)
+        m1e = _partials_errors(torch, m1[2:5], pm1[2:5], *pm1[:2])
+        m1_abs = _row_rel_error(m1[:2], pm1[:2])[0]
+        del pm1
+        m1_ms = _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct(mxr, mxi, mplan))
+        m1_plain_ms = _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct_plain(mxr, mxi, mplan))
+        m1_bound = _bound(_fft_flops(rows_m, mn) + _detect_flops(rows_m, mn),
+                          rows_m * mn * 16 + rows_m * mplan.segments * 8 + rows_m * 8)
+        mixed_rows[("K1", mn)] = ([rows_m, mn], m1_abs, m1_ms, m1_plain_ms, m1_bound, None)
+        print(
+            f"phase 20: long K1 [{rows_m}, {mn}]: one launch of the wide design (no K4): {m1_one_launch}; "
+            f"= K3 -> K4 bit for bit: {m1_is_k3k4}; K3 and K1 = the workspace K3 -> K4 bit for bit: {m1_is_ws}; "
+            f"vs plain: floor {m1e[2]:.3e} dB, pattern {m1e[0]:.2e}, argmax {m1e[1]:.2e}, score rel "
+            f"{m1e[4]:.3e}; kernel {m1_ms:.3f} ms, plain {m1_plain_ms:.3f} ms, bound {m1_bound[0]:.4f} ms "
+            f"({m1_bound[1]}) {tag}"
+        )
+        wide_vs_workspace.append({"shape": [rows_m, mn], "K1_ms": m1_ms, "K3_ms": m3_ms, "workspace_K3_ms": ws3_ms,
+                                  "workspace_K3_K4_ms": ws34_ms})
+        print(f"phase 20: [{rows_m}, {mn}] in this call: wide K1 {m1_ms:.3f} ms against the parent's design "
+              f"(workspace K3 -> K4) {ws34_ms:.3f} ms ({ws34_ms / m1_ms:.2f}x); wide K3 {m3_ms:.3f} ms against the "
+              f"workspace K3 {ws3_ms:.3f} ms ({ws3_ms / m3_ms:.2f}x) {tag}")
+        _require(m1_one_launch, f"long K1 at {mn} is not one launch of the wide design")
+        _require(m1_is_k3k4 and m1_is_ws, f"long K1 differs from K3 -> K4 at {mn}")
+        # rows of a receiver with no signal: zeros and an impulse, whose powers
+        # are all equal (more than 512 of the floor's values share one histogram
+        # bucket, so block 0 takes rm_det::bisect_floor), and a constant offset
+        flat = torch.zeros((2, 3, mn), dtype=torch.float32, device=dev)
+        flat[0, 1, 0], flat[0, 2], flat[1, 2] = 1.0, 0.25, -0.5
+        f1 = fft_detect.fft_detect_rows_ct(flat[0], flat[1], mplan)
+        fw3 = fft_rows.workspace_rows(flat[0], flat[1])
+        fw4 = detect_ct.launch(*fw3, mplan, row_max=True)
+        sub = (fw3[0] * fw3[0] + fw3[1] * fw3[1]).view(3, n2m, n1m)[:2, ::8]  # CT rows k2 = 0 mod 8
+        flat_ties = min(int(torch.unique(x, return_counts=True)[1].max()) for x in sub)
+        flat_is_ws = all(torch.equal(x, y) for x, y in zip(f1, (*fw3, *fw4)))
+        del flat, f1, fw3, fw4, sub
+        print(f"phase 20: long K1 on rows with no signal (zeros and an impulse, at least {flat_ties} equal "
+              f"floor values a row: the bisection's fallback; a constant): = the workspace K3 -> K4 bit for bit: "
+              f"{flat_is_ws}")
+        _require(flat_ties > 512 and flat_is_ws, f"long K1's floor fallback differs at {mn}: {flat_ties}")
+        _require(m1e[0] <= 1e-3 and m1e[1] <= 1e-3 and m1e[2] <= 1e-3 and m1e[4] <= 1e-4 and m1e[5],
+                 f"long K1 partials disagree at {mn}: {m1e}")
+        if mn in flagship_rows:  # K2 at the flagship's own shapes, fed these K1 outputs, as phase 3 does at 17408
             m2in = (m1[0].view(chans, buoys, mn), m1[1].view(chans, buoys, mn), m1[5].view(chans, buoys), pi, pj)
             m2 = gcc_pair.gcc_pair_lag_mags(*m2in, max_lag=600)
             pm2 = gcc_pair.gcc_pair_lag_mags_plain(*m2in, max_lag=600)
@@ -3148,7 +3195,7 @@ def main() -> int:
             m2_plain_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_pair_lag_mags_plain(*m2in, max_lag=600))
             m2_bound = _bound(_pair_flops(chans * npairs, mn, 1201),
                               rows_m * mn * 8 + rows_m * 4 + chans * npairs * 1201 * 4)
-            mixed_rows[("K2", "flagship")] = ([chans, buoys, mn], m2_abs, m2_ms, m2_plain_ms, m2_bound, None)
+            mixed_rows[("K2", ("flagship", mn))] = ([chans, buoys, mn], m2_abs, m2_ms, m2_plain_ms, m2_bound, None)
             print(
                 f"phase 20: K2 at n1 = {n1m}, [{chans}, {buoys}, {mn}] (the flagship's shape, fed long K1) -> "
                 f"{list(m2.shape)} window max|err| {m2_abs:.3e} (rel to window max {m2_rel:.3e}, tol 1e-4), same "
@@ -3156,9 +3203,10 @@ def main() -> int:
                 f"({m2_bound[1]}) {tag}"
             )
             _require(tuple(m2.shape) == (chans, npairs, 1201), f"K2 output shape at {mn}")
-            _require(m2_rel <= 1e-4 and m2_arg, f"K2 lag windows disagree at the flagship's shape: {m2_rel}")
-            del m1, m4, m2, m2in
-        del m3, mxr, mxi
+            _require(m2_rel <= 1e-4 and m2_arg, f"K2 lag windows disagree at the flagship's shape {mn}: {m2_rel}")
+            del m2, m2in
+        del m1, m4, m3, mxr, mxi
+    del flagship_rows, pipe96_20
 
     # K2 and K5 (the pair body's mixed-radix inverse) and K8's long design
     for name, c_m, b_m, mn in (("K2", 16, 8, 58_368), ("K2", 8, 8, 121_856), ("K5", 1, 64, 58_368)):
@@ -3186,37 +3234,44 @@ def main() -> int:
         )
         _require(km_rel <= 1e-4 and km_arg, f"{name} lag windows disagree at {mn}: {km_rel}")
         del km, pm, sre_m, sim_m, smax_m
-    m8r, m8i = (fill(a[:16], mnfft).view(16, buoys, mnfft) for a in (mre, mim))
-    _require(channel_step.geometry(mnfft) == "long", "K8 at 58368 is not its long design")
-    before = (channel_step.launch_count, channel_step.design_counts["long"])
-    k8m = channel_step.channel_step_partials(m8r, m8i, pi, pj, mpipe.plan, 600)
-    torch.cuda.synchronize()
-    k8_long_ran = (channel_step.launch_count - before[0], channel_step.design_counts["long"] - before[1]) == (1, 1)
-    c1 = fft_detect.fft_detect_rows_ct(m8r.view(-1, mnfft), m8i.view(-1, mnfft), mpipe.plan)
-    c2 = gcc_pair.gcc_pair_lag_mags(c1[0].view(16, buoys, mnfft), c1[1].view(16, buoys, mnfft),
-                                    c1[5].view(16, buoys), pi, pj, max_lag=600)
-    k8m_same = all(torch.equal(x.reshape(y.shape), y) for x, y in zip(k8m, (*c1[2:5], c2)))
-    p8m = channel_step.channel_step_partials_plain(m8r, m8i, pi, pj, mpipe.plan, 600)
-    k8m_abs, k8m_rel = _window_errors(k8m[3], p8m[3])
-    k8m_nf = (k8m[2] - p8m[2]).abs().max().item()
-    del p8m, c1, c2
-    k8m_ms = _cuda_ms(torch, lambda: channel_step.channel_step_partials(m8r, m8i, pi, pj, mpipe.plan, 600))
-    k8m_plain_ms = _cuda_ms(torch, lambda: channel_step.channel_step_partials_plain(m8r, m8i, pi, pj, mpipe.plan, 600))
-    mrows8 = 16 * buoys
-    k8m_bound = _bound(
-        _fft_flops(mrows8, mnfft) + _detect_flops(mrows8, mnfft) + _pair_flops(16 * npairs, mnfft, 1201),
-        mrows8 * mnfft * 8 + mrows8 * (mnfft // 8) * 8 + mrows8 * 4 + 16 * npairs * 1201 * 4,
-    )
-    mixed_rows[("K8", mnfft)] = ([16, buoys, mnfft], k8m_abs, k8m_ms, k8m_plain_ms, k8m_bound, None)
-    print(
-        f"phase 20: K8 long design [16, {buoys}, {mnfft}] (long K3, K4, K2 as one K8 launch: {k8_long_ran}): = K1 -> "
-        f"K2 (l2rx) bit for bit: {k8m_same}; vs plain window max|err| {k8m_abs:.3e} (rel {k8m_rel:.3e}, tol 1e-4), "
-        f"floor {k8m_nf:.3e} dB; kernel {k8m_ms:.3f} ms, plain {k8m_plain_ms:.3f} ms, bound {k8m_bound[0]:.4f} ms "
-        f"({k8m_bound[1]}) {tag}"
-    )
-    _require(k8_long_ran and k8m_same, "K8's long design is not K1 -> K2")
-    _require(k8m_rel <= 1e-4 and k8m_nf <= 1e-3, f"K8 long design disagrees with its plain version: {k8m_rel}")
-    del k8m, m8r, m8i
+    for k8n in (mnfft, 121_856):  # K8's long design at n1 = 384 (the flagship's rows) and 896 (noise rows)
+        if k8n == mnfft:
+            m8r, m8i = (fill(a[:16], mnfft).view(16, buoys, mnfft) for a in (mre, mim))
+            k8plan = mpipe.plan
+        else:
+            m8r, m8i = (x.view(16, buoys, k8n) for x in noise_rows(16 * buoys, k8n))
+            k8plan = ct_plan.detect_plan(k8n, sample_rate_hz=fs, threshold_db=-70.0, min_distance_bins=10,
+                                         dc_notch_hz=10_000.0, confidence_floor=0.3, snr_fullscale_db=20.0)
+        _require(channel_step.geometry(k8n) == "long", f"K8 at {k8n} is not its long design")
+        before = (channel_step.launch_count, channel_step.design_counts["long"])
+        k8m = channel_step.channel_step_partials(m8r, m8i, pi, pj, k8plan, 600)
+        torch.cuda.synchronize()
+        k8_long_ran = (channel_step.launch_count - before[0], channel_step.design_counts["long"] - before[1]) == (1, 1)
+        c1 = fft_detect.fft_detect_rows_ct(m8r.view(-1, k8n), m8i.view(-1, k8n), k8plan)
+        c2 = gcc_pair.gcc_pair_lag_mags(c1[0].view(16, buoys, k8n), c1[1].view(16, buoys, k8n),
+                                        c1[5].view(16, buoys), pi, pj, max_lag=600)
+        k8m_same = all(torch.equal(x.reshape(y.shape), y) for x, y in zip(k8m, (*c1[2:5], c2)))
+        p8m = channel_step.channel_step_partials_plain(m8r, m8i, pi, pj, k8plan, 600)
+        k8m_abs, k8m_rel = _window_errors(k8m[3], p8m[3])
+        k8m_nf = (k8m[2] - p8m[2]).abs().max().item()
+        del p8m, c1, c2
+        k8m_ms = _cuda_ms(torch, lambda: channel_step.channel_step_partials(m8r, m8i, pi, pj, k8plan, 600))
+        k8m_plain_ms = _cuda_ms(torch, lambda: channel_step.channel_step_partials_plain(m8r, m8i, pi, pj, k8plan, 600))
+        mrows8 = 16 * buoys
+        k8m_bound = _bound(
+            _fft_flops(mrows8, k8n) + _detect_flops(mrows8, k8n) + _pair_flops(16 * npairs, k8n, 1201),
+            mrows8 * k8n * 8 + mrows8 * (k8n // 8) * 8 + mrows8 * 4 + 16 * npairs * 1201 * 4,
+        )
+        mixed_rows[("K8", k8n)] = ([16, buoys, k8n], k8m_abs, k8m_ms, k8m_plain_ms, k8m_bound, None)
+        print(
+            f"phase 20: K8 long design [16, {buoys}, {k8n}] (the wide K1, then K2, as one K8 launch: {k8_long_ran}): "
+            f"= K1 -> K2 (l2rx) bit for bit: {k8m_same}; vs plain window max|err| {k8m_abs:.3e} (rel {k8m_rel:.3e}, "
+            f"tol 1e-4), floor {k8m_nf:.3e} dB; kernel {k8m_ms:.3f} ms, plain {k8m_plain_ms:.3f} ms, bound "
+            f"{k8m_bound[0]:.4f} ms ({k8m_bound[1]}) {tag}"
+        )
+        _require(k8_long_ran and k8m_same, f"K8's long design at {k8n} is not K1 -> K2")
+        _require(k8m_rel <= 1e-4 and k8m_nf <= 1e-3, f"K8 long design disagrees with its plain version at {k8n}: {k8m_rel}")
+        del k8m, m8r, m8i
 
     # T1: K1 and K4 with emit_topk = 8, at one-block, long and mixed-radix lengths
     traw, _ = pipe.example_inputs(batch=(1, chans), seed=0, uint8=True)
@@ -3394,23 +3449,27 @@ def main() -> int:
         same = len({d for _, _, d in k2_runs}) == 1
         print(f"phase 20: n1 = 128/256 pair digests equal the parent's: {same} {tag}")
         _require(same, "the n1 = 128/256 pair kernels differ from the parent's")
-    # K1 and K3 at [1024, 58368] beside the parent's (tools/forward_times.py
-    # --k1 by path: parent, this, this, parent), and the long rows' digests
+    # K1 and K3 at [1024, 58368], [1024, 97280] and [256, 121856] beside the
+    # parent's (tools/forward_times.py --k1 by path: parent, this, this,
+    # parent), and the long rows' digests
     k1_runs = [(tree, *_k1_times(tree)) for tree in order]
-    k1_parent = {"K1_ms": [k1 for tree, k1, _, _ in k1_runs if tree == here],
-                 "K3_ms": [k3 for tree, _, k3, _ in k1_runs if tree == here],
-                 "parent_K1_ms": [k1 for tree, k1, _, _ in k1_runs if tree != here] or None,
-                 "parent_K3_ms": [k3 for tree, _, k3, _ in k1_runs if tree != here] or None}
-    ms_list = lambda key: ", ".join(f"{t:.4f}" for t in k1_parent[key])
-    print(
-        f"phase 20: K1 and K3 at [1024, 58368] (n1 = 384) back to back: this tree K1 {ms_list('K1_ms')} ms, "
-        f"K3 {ms_list('K3_ms')} ms"
-        + (f"; parent K1 {ms_list('parent_K1_ms')} ms, K3 {ms_list('parent_K3_ms')} ms" if theirs else " (no parent)")
-        + f"; long digests: {k1_runs[0][3]} {tag}"
-    )
+    k1_parent = {}  # nfft -> back-to-back times of this tree and the parent's
+    for kn in K1_LENGTHS:
+        pick = lambda mine, i: [t[kn][i] for tree, t, _ in k1_runs if (tree == here) == mine]
+        k1_parent[kn] = {"shape": [k1_runs[0][1][kn][0], kn], "K1_ms": pick(True, 1), "K3_ms": pick(True, 2),
+                        "parent_K1_ms": pick(False, 1) or None, "parent_K3_ms": pick(False, 2) or None}
+        ms_list = lambda key: ", ".join(f"{t:.4f}" for t in k1_parent[kn][key])
+        print(
+            f"phase 20: K1 and K3 at {k1_parent[kn]['shape']} (n1 = {ct_plan.ct_split(kn)[0]}) back to back: this "
+            f"tree K1 {ms_list('K1_ms')} ms, K3 {ms_list('K3_ms')} ms"
+            + (f"; parent K1 {ms_list('parent_K1_ms')} ms, K3 {ms_list('parent_K3_ms')} ms" if theirs else
+               " (no parent)") + f" {tag}"
+        )
+    print(f"phase 20: long digests: {k1_runs[0][2]} {tag}")
     if theirs:
         same = len({d for *_, d in k1_runs}) == 1
-        print(f"phase 20: long-row digests (K3, K4, K1, K8 at 33792 ... 121856) equal the parent's: {same} {tag}")
+        print(f"phase 20: long-row digests (K3, K4, K1, K8 at 33792 ... 121856, the wide design at 58368, 87040, "
+              f"97280, 121856) equal the parent's: {same} {tag}")
         _require(same, "the long-row kernels differ from the parent's")
 
     # ---- phase 21: the complex step (TDOAPipeline.step) on the phase-4 scene, card vs CPU
@@ -3645,6 +3704,77 @@ def main() -> int:
     bench_run = _bench_phase(np, torch, dev, tag, counters)
     by_leg = lambda name: {leg: n[name] for leg, n in bench_run["launches"].items() if n.get(name)}
 
+    # ---- phase 39: the flagship at block_len 96000 (nfft 97280 = 640·152):
+    # K1 is one launch of the wide design at n1 = 640, K2 its wide body
+    cfg96 = PipelineConfig(num_buoys=buoys, block_len=96_000, sample_rate_hz=fs, max_lag=600)
+    pipe96 = TDOAPipeline(cfg96, device=dev)
+    _require(pipe96.plan.nfft == 97_280 and ct_plan.ct_split(97_280) == (640, 152)
+             and fft_rows.long_geometry(97_280).design == "wide", f"block_len 96000 plans nfft {pipe96.plan.nfft}")
+    scen96 = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8, block_len=96_000)
+    cap96 = sim.synthesize(scen96)
+    cfg96s = PipelineConfig(num_buoys=4, block_len=96_000, sample_rate_hz=scen96.sample_rate_hz, max_lag=600,
+                            power_offset_db=40.0)
+    host96 = [torch.from_numpy(a.astype(np.float32)) for a in (cap96.iq.real, cap96.iq.imag, cap96.buoy_enu)]
+    zero_counts()
+    wide0 = fft_detect.design_counts["wide"]
+    on_card = TDOAPipeline(cfg96s, device=dev).step_split(*(a.to(dev) for a in host96))
+    torch.cuda.synchronize()
+    got96 = {k: v for k, v in launch_counts().items() if v}
+    wide96 = fft_detect.design_counts["wide"] - wide0
+    on_cpu = TDOAPipeline(cfg96s, device="cpu").step_split(*host96)
+    pos = on_card.fix.position_enu.cpu().numpy()
+    err_m = float(np.linalg.norm(pos[:2] - cap96.emitter_enu[0][:2]))
+    fix_gap = float(np.abs(pos - on_cpu.fix.position_enu.numpy()).max())
+    lag_gap = (on_card.correlation.lag_samples.cpu() - on_cpu.correlation.lag_samples).abs().max().item()
+    same_peaks = bool((on_card.peaks.bin_index.cpu() == on_cpu.peaks.bin_index).all())
+    print(
+        f"phase 39: scene at block_len 96000 (nfft 97280 = 640·152), default route: fix error {err_m:.3f} m (limit "
+        f"50), card vs CPU: fix {fix_gap:.3e} m (tol 0.5), lags {lag_gap:.2e} samples (tol 1e-3), peaks equal "
+        f"{same_peaks}, launches {got96}, K1 wide design {wide96} {tag}"
+    )
+    _require(err_m < 50.0 and fix_gap <= 0.5 and lag_gap <= 1e-3 and same_peaks,
+             "block_len 96000 scene: card and CPU disagree")
+    _require(got96 == {"fft_detect_rows_ct": 1, "gcc_pair_lag_mags": 1} and wide96 == 1,
+             f"block_len 96000 scene launches {got96}, K1 wide {wide96}")
+    del on_card, on_cpu, host96, cap96
+    blocks96 = 4
+    raw96, anchors96 = pipe96.example_inputs(batch=(blocks96, chans), seed=0, uint8=True)
+    anchors96 = anchors96[0]
+    pipe96.step_split_uint8(raw96[0], anchors96)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    designs0 = dict(fft_detect.design_counts)
+    zero_counts()
+    t0 = time.perf_counter()
+    out96 = pipe96.step_split_uint8_scan(raw96, anchors96)
+    torch.cuda.synchronize()
+    wall96 = time.perf_counter() - t0
+    launches96 = {k: v for k, v in launch_counts().items() if v}
+    k1_designs96 = {k: v - designs0[k] for k, v in fft_detect.design_counts.items()}
+    finite96 = all(torch.isfinite(x).all().item() for x in _leaves(torch, out96) if x.is_floating_point())
+    print(
+        f"phase 39: flagship at block_len 96000, {blocks96} blocks x {chans} ch x {buoys} buoys x 96000 uint8 IQ "
+        f"(nfft 97280): {1e3 * wall96 / blocks96:.3f} ms/block (real time {1e3 * 96_000 / fs:.3f}), "
+        f"{blocks96 * chans * buoys * 96_000 / wall96:.4e} IQ samples/s, peak mem "
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {launches96}, K1 by design "
+        f"{k1_designs96}, all finite {finite96} {tag}"
+    )
+    _require(tuple(out96.fix.position_enu.shape) == (blocks96, chans, 3) and finite96, "block_len 96000 outputs")
+    _require(launches96 == {"fft_detect_rows_ct": blocks96, "gcc_pair_lag_mags": blocks96}
+             and k1_designs96 == {"block": 0, "long": 0, "wide": blocks96},
+             f"block_len 96000 launches {launches96}, K1 designs {k1_designs96}")
+    med96 = _stage_split(
+        torch, lambda mark: pipe96.step_split_uint8(raw96[0], anchors96, on_stage=mark),
+        ["decode", "fft_detect", "peaks", "gcc_pair", "solve"],
+    )
+    print(
+        "phase 39: block_len 96000 stage split ms/block (median of 3, CUDA events): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in med96.items())
+        + f", sum {sum(med96.values()):.3f}, before the solve "
+        f"{sum(v for k, v in med96.items() if k != 'solve'):.3f} {tag}"
+    )
+    del raw96, out96
+
     def rows_entry(shape, err, ms, plain_ms, bound, library_ms):
         return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms}
@@ -3693,10 +3823,13 @@ def main() -> int:
               launches["fft_detect_rows_ct"], spec_abs, k1_ms, k1_plain_ms,
               _bound(_fft_flops(nrows, nfft) + _detect_flops(nrows, nfft),
                      nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_radix,
-              long_source=["fft_rows_ct_cluster.cu", "fft_detect_cluster.cu", "fft_rows_ct_long.cu", "detect_ct.cu"],
+              long_source=["fft_rows_ct_cluster.cu", "fft_detect_cluster.cu", "fft_detect_cluster_mixed.cu",
+                           "detect_ct.cu"],
               long_name="K1", mixed_rows=mixed("K1"), topk=topk("K1"),
-              wide_design=(wide_report or {}).get("K1"), flagship_57344_back_to_back=k1_parent,
+              wide_design={n: r["K1"] for n, r in wide_report.items() if r}, wide_back_to_back=k1_parent,
+              wide_vs_workspace=wide_vs_workspace,
               launches_block_len_57344=mixed_launches.get("fft_detect_rows_ct", 0),
+              launches_block_len_96000=launches96.get("fft_detect_rows_ct", 0),
               launches_ingest=ingest["launches"].get("fft_detect_rows_ct", 0),
               launches_bench=by_leg("fft_detect_rows_ct"),
               parallel=parallel("fft_detect_rows_ct")),
@@ -3705,6 +3838,7 @@ def main() -> int:
               _bound(_pair_flops(chans * npairs, nfft, width),
                      nrows * nfft * 8 + nrows * 4 + chans * npairs * width * 4), k2_fft,
               mixed_rows=mixed("K2"), launches_block_len_57344=mixed_launches.get("gcc_pair_lag_mags", 0),
+              launches_block_len_96000=launches96.get("gcc_pair_lag_mags", 0),
               wide_kernels=[w for w in wide_kernels if w["kernel"] == "K2"], flagship_57344_back_to_back=k2_parent,
               launches_ingest=ingest["launches"].get("gcc_pair_lag_mags", 0),
               launches_bench=by_leg("gcc_pair_lag_mags"),
@@ -3712,8 +3846,9 @@ def main() -> int:
         entry("fft_rows_ct", "fft_rows_ct.cu", "fft_kernel.py:446",
               wl5["fft_rows_ct"], k3_abs, k3_ms, k3_plain_ms, k3_bound,
               _radix_flops(m_sub * wb, wn, *ct_plan.radix_split(wn)[1:]), k3_lib_ms,
-              long_source=["fft_rows_ct_cluster.cu", "fft_detect_cluster.cu", "fft_rows_ct_long.cu"], long_name="K3",
-              mixed_rows=mixed("K3"), wide_design=(wide_report or {}).get("K3"),
+              long_source=["fft_rows_ct_cluster.cu", "fft_detect_cluster.cu", "fft_detect_cluster_mixed.cu"],
+              long_name="K3",
+              mixed_rows=mixed("K3"), wide_design={n: r["K3"] for n, r in wide_report.items() if r},
               launches_bench=by_leg("fft_rows_ct"),
               parallel=parallel("fft_rows_ct")),
         entry("detect_ct_partials", "detect_ct.cu", "detect_kernel.py:309",
@@ -3757,8 +3892,8 @@ def main() -> int:
         entry("channel_step_partials", "channel_step.cu", "channel_kernel.py:161",
               route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft,
               sources=[f"radio_mapper_tpu_torch/csrc/{f}" for f in
-                       ("channel_step.cu", "fft_rows_ct_cluster.cu", "fft_detect_cluster.cu", "fft_rows_ct_long.cu",
-                        "detect_ct.cu", "gcc_pair.cu")],
+                       ("channel_step.cu", "fft_rows_ct_cluster.cu", "fft_detect_cluster.cu",
+                        "fft_detect_cluster_mixed.cu", "detect_ct.cu", "gcc_pair.cu")],
               long_rows=mixed("K8"), long_launches_block_len_57344_mega=mega_long_launches,
               parallel=parallel("channel_step_partials")),
     ]}))

@@ -1,7 +1,7 @@
 // Thread-block cluster machinery of the long-row FFT designs: kernel K7's
 // rows of 32768 and 65536 points (fft_natural_cluster.cu), kernel K3's
 // rows past one block's shared memory (fft_rows_ct_cluster.cu) and kernel
-// K1's (and K3's) rows at n1 = 384 (fft_detect_cluster.cu). A row is
+// K1's (and K3's) rows at n1 = 384, 640, 896 (fft_detect_cluster.cuh). A row is
 // one cluster of c blocks on c SMs of one GPC; each block holds its part
 // of the row in its own shared memory and reads its partners' parts
 // through distributed shared memory (DSMEM).

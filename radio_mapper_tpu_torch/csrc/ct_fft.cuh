@@ -31,13 +31,13 @@
 // cluster design (fft_rows_ct_cluster.cu, n1 = 128 or 256) holds the row
 // across a thread-block cluster, runs them in place and step C
 // (step_c_regs) on slot rows whose points its lanes gather from the
-// blocks' shared memory; the wide design (fft_detect_cluster.cu, n1 =
-// 384) does the same on a cluster of 8 blocks, with step C's twiddles in
-// shared memory, and is kernel K1's one-pass kernel too; the workspace
-// design (fft_rows_ct_long.cu, n1 = 640 or 896) writes the slot rows to
-// a device-memory workspace and runs step C from there, one warp a slot
-// row. All store as K3 does; the per-value arithmetic is the same in
-// every design.
+// blocks' shared memory; the wide design (fft_detect_cluster.cuh, n1 =
+// 384, 640, 896) does the same on a cluster of 8 blocks, with step C's
+// twiddles in shared memory, and is kernel K1's one-pass kernel too; the
+// workspace design (fft_rows_ct_long.cu, the wide design's comparison
+// only) writes the slot rows to a device-memory workspace and runs step C
+// from there, one warp a slot row. All store as K3 does; the per-value
+// arithmetic is the same in every design.
 //
 // Every twiddle comes from a float32 table of float64 roots of unity
 // (ct_plan.radix_tables, ct_constants' tw). tests/test_torch_fft_radix.py

@@ -40,11 +40,10 @@
 //
 // Bound on the H100: device-memory bytes, the spectra read twice (16 B a
 // bin) and the partials written once; the sliding max reads shared memory
-// 2*radius + 1 times a bin. At n1 = 384 K1 no longer launches it: the wide
-// design (fft_detect_cluster.cu) runs these parts over a thread-block
-// cluster in the transform's launch, and K4 keeps K1's rows at n1 = 128,
-// 256, 640, 896 and K1's top-K at 384. Later PRs: the wide design at 640
-// and 896 (ROADMAP).
+// 2*radius + 1 times a bin. At n1 = 384, 640, 896 K1 no longer launches
+// it: the wide design (fft_detect_cluster.cuh) runs these parts over a
+// thread-block cluster in the transform's launch, and K4 keeps K1's rows
+// at n1 = 128, 256 and K1's top-K at 384, 640, 896.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>

@@ -1,637 +1,32 @@
-// Kernel K1 for rows whose CT split has n1 = 384 (nfft 52224 ... 129024,
-// n2 = 136 ... 336; the flagship at block_len 57344 is 58368 = 384*152):
-// forward CT-order FFT + spectral detection of [rows, n] rows in one
-// launch and one pass through device memory, a row on a thread-block
-// cluster of C = 8 blocks. Instantiated without its detect half it is
-// kernel K3's long rows at n1 = 384. The wide design (fft_rows.long_geometry
-// "wide"); n1 = 640 and 896 keep the workspace design
-// (fft_rows_ct_long.cu) and K3 -> K4.
-//
-// Replaces radio_mapper_tpu/ops/pallas/detect_kernel.py::fft_detect_rows_ct
-// (fft_kernel.ct_fft_core + detect_kernel._detect_body) and, with DETECT
-// off, fft_kernel.py::fft_rows_ct at these lengths. Python wrappers:
-// radio_mapper_tpu_torch/ops/cuda/fft_rows.py (wide_launch: K3) and
-// fft_detect.py (wide_detect: K1), under fft_rows.fft_rows_ct_long,
-// fft_detect.fft_detect_rows_ct_long and K8's long design
-// (channel_step._long). tests/test_torch_k1_cluster.py replays
-// the schedule, the pull map and the floor's rows in numpy.
-//
-// A row of n = 384*n2 samples, n2 = 8*r, is x[q][p] at time q*384 + p.
-// Block `rank` (512 threads, 16 warps) of the row's cluster:
-//
-//   columns  its OWN = 48 columns p = 48*rank + [0, 48): a thread a
-//            (column, j) loads x[(j + r*t)*384 + p], t < 8, to registers
-//            and runs ct_fft.cuh's step A on them (the 8-point radix-2
-//            FFT, W_128^e read as W_384^(3e), then W_n2^(j*k)), writing
-//            slots j + r*k of xs[q][p] (n bytes of float2); then step B,
-//            the direct r-point DFT (r = 17 ... 42), in place from shared
-//            memory, in rounds of whole column blocks: a thread an item of
-//            4 outputs s = 4*sq .. 4*sq + 3 of columns p, p + 1, p + 24,
-//            p + 25 (two 16-byte loads of y_j, contiguous across a quad of
-//            lanes, and the roots W_r^(j*s) from a table padded to rows of
-//            4*ceil(r/4)), its 16 outputs in registers until one barrier
-//            ends the round's reads; every output acc = sum over j of
-//            cmac(acc, W_r^(j*s), y_j) from zero in j order, then times the
-//            row twiddle, as step_b and step_b_stream compute it.
-//   cluster barrier.
-//   rows     its slot rows sr = rank*r + s (s < r), a warp each: lane l
-//            gathers positions 3*l + 96*g + [0, 3) (g < 4) from blocks 2*g
-//            + l/16 through DSMEM (eight 16-byte loads), the layout in which
-//            step C (row_fft: step_c_regs' five radix-2 stages and the
-//            12-point mixed-radix transform, the same butterflies in the
-//            same order) runs two stages in registers and trades a lane bit
-//            for a register digit before each other one, half the shuffles
-//            of step_c_regs; the spectra stored at CT row k2 = rank + 8*s,
-//            as every K3 design stores them, and (DETECT) each value's
-//            power, rm_det::power (no FMA contraction: K4's expression on
-//            the stored spectra), to this block's pw[s][k1], and the
-//            block's max power.
-//   cluster barrier (the K3 instantiation ends here).
-//   floor    the CT rows k2 = 0 mod 8, the detect body's stride-8 natural
-//            subsample, are exactly block 0's rows: block 0 alone writes
-//            their dB values over its free column buffer and finds the
-//            noise floor from one order statistic (floor_select: a
-//            histogram, then a rank of one bucket's values; the 24
-//            bisection steps then need no pass over the values), takes the
-//            row max over the 8 blocks' maxima and writes the floor into
-//            every block's shared memory before its half of a split
-//            cluster barrier.
-//   detect   meanwhile blocks 1 .. 7 take the detect columns (56 each, 48
-//            the last; block 0 none): each pulls, for its columns k1 and
-//            every k2, the power of CT (k2, k1) from block k2 mod 8 (one
-//            16-byte DSMEM load for 4 columns), with `radius` halo bins of
-//            the neighbour columns (circular at k1 = 0 and 383), into
-//            natural order over its free column buffer; then 4 bins a lane:
-//            the circular +/-radius sliding max (float4 window reads, the
-//            positions the 4 windows share maxed once), ct_detect.cuh's
-//            gates but the confidence gate, and over the lane pair of a
-//            segment its (max, lowest in-segment argmax); after the floor
-//            arrives the confidence gate (monotone in the power: a
-//            segment's best passes it or none of its bins does) and the
-//            partials go out. A last cluster barrier: no block exits while
-//            a partner reads its powers.
-//
-// Every reduction is a max, a min, an integer count or an order statistic
-// and the per-value arithmetic is the workspace K3's and K4's, so the
-// spectra, partials, floor and row max equal the workspace K3 -> K4 bit
-// for bit (card tests, tools/forward_times.py's long-row digests).
-//
-// Shared memory a block: xs (n bytes), with DETECT pw (n/2 bytes), and the
-// tables (4.5 KB): 92,064 B at 58368. Two blocks an SM (2 x 512 threads,
-// __launch_bounds__ at most 64 registers a thread) up to nfft 70656 (K3:
-// 101376), one above (fft_rows.wide_blocks; rm_fft_detect_wide_info
-// reports it from the card).
-//
-// Bound on the H100: device-memory bytes, a row read once and its spectra
-// written once (16 B a sample) and the partials (1 B a sample), 0.30 ms at
-// [1024, 58368] at 3.35 TB/s (the workspace K3 -> K4 moved 48 B a sample);
-// the time goes to step B's direct DFT (n*r complex FMAs a row), step C
-// and, for K1, the floor on block 0 and the others' detect (PERF.md).
+// Kernel K1 (and K3's long rows) at n1 = 384, 640, 896, the wide design
+// (fft_detect_cluster.cuh): its n1 = 384 instantiations and the entries
+// rm_fft_detect_wide and rm_fft_detect_wide_info, which take every n1
+// (640 and 896 from fft_detect_cluster_mixed.cu).
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-
-#include "cluster.cuh"
-#include "ct_detect.cuh"
-#include "ct_fft.cuh"
+#include "fft_detect_cluster.cuh"
 
 namespace {
 
-using rm_det::DetectParams;
-using rm_det::SEG;
-
-constexpr int R1 = 384;             // n1
-constexpr int P = R1 / 32;          // step C's points a lane
-constexpr int C = 8;                // blocks a row; block 0 holds the CT rows k2 = 0 mod 8
-constexpr int OWN = R1 / C;         // columns a block
-constexpr int QPAIRS = OWN / 4;     // step B's column pair pairs (p, p + 1, p + 24, p + 25)
-constexpr int A = 8;                // step A's length (8 | n2)
-constexpr int THREADS = 512;        // fft_rows.WIDE_THREADS
-constexpr int WARPS = THREADS / 32;
-constexpr int DCOLS = 56;           // detect columns of blocks 1 .. 6 (block 7: 48, block 0: none)
-constexpr int MAX_R = 4 * (THREADS / QPAIRS);  // a column block's items (4 outputs x 4 columns) fit one round
-constexpr size_t SMEM_LIMIT = 232448;  // 227 KB a block
-constexpr int ROW_TW = 192 + 96 + 48 + 24 + 12 + 6;  // step C's twiddles (row_fft)
-constexpr size_t TABLE_BYTES = (R1 / 2 + ROW_TW) * sizeof(float2);  // W_384, then step C's twiddles
-constexpr int NB = 1024;            // the floor's histogram buckets
-constexpr int CAND = THREADS;       // values the floor's selection ranks, one a thread; a larger bucket takes the bisection
-
-__host__ __device__ constexpr int quads(int r) { return (r + 3) / 4; }  // step B's output quads
-
-// Step B's table: W_r^(j*s) with rows padded to 4*quads(r).
-__host__ __device__ constexpr size_t ab_bytes(int r) {
-  return static_cast<size_t>(r) * 4 * quads(r) * sizeof(float2);
+Kernel kernel_for(int n1, int n2, int a, int r, int detect, int* min_blocks) {
+  switch (n1) {
+    case 384: return kernel_at<384>(n2, a, r, detect, min_blocks);
+    case 640:
+    case 896: return rm_wide_kernel_mixed(n1, n2, a, r, detect, min_blocks);
+    default: return nullptr;
+  }
 }
 
-// Dynamic shared memory of a block: xs, then pw (DETECT; it holds step
-// B's table until step C) or that table, then W_384 and the stage
-// twiddles.
-size_t smem_bytes(int n2, bool detect) {
-  const size_t n = static_cast<size_t>(R1) * n2;
-  return n + (detect ? n / 2 : ab_bytes(n2 / A)) + TABLE_BYTES;
-}
-
-// ---- step C in a register layout of its own ------------------------------
-//
-// Position p = i + 12*b of a slot row (i < 12, b < 32; i = 6*i_hi +
-// 3*i_mid + u) is, in step_c_regs<384>, point i of lane b: its five
-// radix-2 stages pair lanes b, b ^ 16 .. b ^ 1 (h = 192 .. 12) and its
-// 12-point transform runs two radix-2 stages (h = 6 on i_hi, 3 on i_mid)
-// and the 3-point DFTs on u in registers. Here register j = u + 3*g of
-// lane l holds p = 3*l + 96*g + u: the two top bits of b (b4, b3) are
-// register digits (g = b3 + 2*b4) and lane l's bits are (b2 b1 b0 i_hi
-// i_mid). So the stages on b4 and b3 run in registers, and each later
-// stage first trades its lane bit for a register digit already done (a
-// lane sends the half of its pairs the partner keeps, one shuffle a
-// value), then runs the butterflies in registers: the same butterflies,
-// twiddles and order as step_c_regs and mixed_regs, with half the
-// shuffles. At the end lane l is b again, and register j holds bin
-// (j/3 + 4*(j mod 3))*32 + brev5(l).
-//
-// Twiddles: the pair whose top register is j0 takes W_384^e, e below by
-// stage; rts holds them a stage, a u (and at h = 192 a g) and a lane class
-// apart, so a warp reads consecutive float2s or broadcasts.
-
-// W_384 exponent of entry k of rts (its fill): stage h = 192 [g*3 + u][l]:
-// u + 96*g + 3*l; 96 [u][l]: 2*(u + 3*l); 48 [u][l mod 16]: 4*(u + 3*l);
-// 24 [u][l mod 8]: 8*(u + 3*l); 12 [u][l mod 4]: 16*(u + 3*l); 6 [u][l mod
-// 2]: 32*(u + 3*l).
-__device__ __forceinline__ int row_tw_exponent(int k) {
-  if (k < 192) return k / 32 % 3 + 96 * (k / 96) + 3 * (k % 32);
-  int o = 192, lanes = 32, scale = 2;
-  while (k >= o + 3 * lanes) { o += 3 * lanes; lanes /= 2; scale *= 2; }
-  return scale * ((k - o) / lanes + 3 * ((k - o) % lanes));
-}
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) { return make_float2(a.x + b.x, a.y + b.y); }
-__device__ __forceinline__ float2 csub(float2 a, float2 b) { return make_float2(a.x - b.x, a.y - b.y); }
-
-// The radix-2 butterfly of step_c_regs (and of mixed_regs where mul):
-// (a, b) -> (a + b, (a - b)*w).
-__device__ __forceinline__ void butterfly(float2& a, float2& b, float2 w, bool mul = true) {
-  const float2 d = csub(a, b);
-  a = cadd(a, b);
-  b = mul ? rm_ct::cmul(d, w) : d;
-}
-
-// Lanes l and l ^ d trade: the one with the bit set sends its digit-0
-// value a and takes the partner's digit-1 value b, so afterwards a and b
-// are the pair of the stage on that lane bit.
-__device__ __forceinline__ void exchange(float2& a, float2& b, bool bit, int d) {
-  const float2 send = bit ? a : b;
-  const float2 recv = make_float2(__shfl_xor_sync(0xffffffffu, send.x, d), __shfl_xor_sync(0xffffffffu, send.y, d));
-  a = bit ? recv : a;
-  b = bit ? b : recv;
-}
-
-__device__ __forceinline__ void row_fft(float2 (&v)[P], const float2* rts, const float2* w1s, int lane) {
-#pragma unroll
-  for (int j = 0; j < 6; ++j) butterfly(v[j], v[j + 6], rts[j * 32 + lane]);  // h = 192, b4
-#pragma unroll
-  for (int k = 0; k < 6; ++k) {  // h = 96, b3: pairs j, j + 3 for j = 0, 1, 2, 6, 7, 8
-    const int j = k + k / 3 * 3;
-    butterfly(v[j], v[j + 3], rts[192 + j % 3 * 32 + lane]);
+size_t smem_for(int n1, int n2, int detect) {
+  switch (n1) {
+    case 384: return smem_bytes<384>(n2, detect != 0);
+    case 640: return smem_bytes<640>(n2, detect != 0);
+    default: return smem_bytes<896>(n2, detect != 0);
   }
-  int o = 288;
-#pragma unroll
-  for (int d = 16; d >= 2; d >>= 1) {  // h = 48, 24, 12 (b2, b1, b0), then 6 (i_hi)
-    const int wt = (d == 16 || d == 4) ? 6 : 3;  // the register digit traded: b4, b3, b2, b1
-    const bool bit = (lane & d) != 0;
-    const float2* t = rts + o + (lane & (d - 1));
-#pragma unroll
-    for (int j = 0; j < 12; ++j) {
-      if ((j / wt) % 2) continue;
-      exchange(v[j], v[j + wt], bit, d);
-      butterfly(v[j], v[j + wt], t[j % 3 * d], d > 2 || j % 3 != 0 || (lane & 1) != 0);
-    }
-    o += 3 * d;
-  }
-  const bool bit = (lane & 1) != 0;  // h = 3 (i_mid), traded for b0; e = 64*u
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    exchange(v[j], v[j + 6], bit, 1);
-    butterfly(v[j], v[j + 6], w1s[64 * (j % 3)], j % 3 != 0);
-  }
-  float2 wq[P / 4];
-  rm_fft::q_roots<P / 4, R1>(w1s, wq);
-  rm_fft::q_dfts<P>(v, wq);
-}
-
-// The noise floor as rm_det::bisect_floor computes it, from one order
-// statistic: a bisection step asks whether 2*count(aux <= mid) < s, that
-// is whether fewer than k = (s + 1)/2 values are <= mid: mid < T for T
-// the k-th smallest value (true as well where mid is NaN or fewer than k
-// values are not NaN). A histogram of [lo, hi] in NB buckets (a monotone
-// map) finds T's bucket, a second pass collects that bucket's values and
-// each thread ranks one; the bisect_iters steps then run on T alone. A
-// bucket of more than CAND values (a row of equal powers) takes
-// rm_det::bisect_floor itself. hist: NB ints, cand: CAND floats of shared
-// memory, red: WARPS ints.
-__device__ float floor_select(const float* aux, int s, float lo, float hi, const DetectParams& prm, int* hist,
-                              float* cand, int* red) {
-  __shared__ int sel[3];  // T's bucket (-1: fewer than k values), T's rank in it, the values collected
-  __shared__ float t_val;
-  constexpr int PER = NB / THREADS;
-  const int tid = static_cast<int>(threadIdx.x), lane = tid & 31, warp = tid >> 5;
-  const int k = (s + 1) / 2;
-  const float scale = hi > lo ? static_cast<float>(NB) / (hi - lo) : 0.f;
-  const auto bucket = [&](float v) { return min(NB - 1, static_cast<int>(__fmul_rn(__fsub_rn(v, lo), scale))); };
-  const auto mid = [](float a, float b) { return __fmul_rn(0.5f, __fadd_rn(a, b)); };
-  for (int b = tid; b < NB; b += THREADS) hist[b] = 0;
-  if (tid == 0) sel[2] = 0;
-  __syncthreads();
-  for (int i = tid; i < s; i += THREADS) {
-    const float v = aux[i];
-    if (v == v) atomicAdd(&hist[bucket(v)], 1);
-  }
-  __syncthreads();
-  int loc[PER], sum = 0;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    loc[j] = hist[tid * PER + j];
-    sum += loc[j];
-  }
-  int inc = sum;  // inclusive scan over the warp, then over the warps
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += y;
-  }
-  if (lane == 31) red[warp] = inc;
-  __syncthreads();
-  int before = 0, total = 0;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    const int t = red[w];
-    before += w < warp ? t : 0;
-    total += t;
-  }
-  int c = before + inc - sum;  // values in the buckets before this thread's
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    if (c <= k - 1 && k - 1 < c + loc[j] && total >= k) {
-      sel[0] = tid * PER + j;
-      sel[1] = k - 1 - c;
-    }
-    c += loc[j];
-  }
-  if (tid == 0 && total < k) sel[0] = -1;
-  __syncthreads();
-  const int bstar = sel[0];
-  if (bstar < 0) {  // every step is below
-    for (int it = 0; it < prm.bisect_iters; ++it) lo = mid(lo, hi);
-    return mid(lo, hi);
-  }
-  for (int i = tid; i < s; i += THREADS) {
-    const float v = aux[i];
-    if (v == v && bucket(v) == bstar) {
-      const int j = atomicAdd(&sel[2], 1);
-      if (j < CAND) cand[j] = v;
-    }
-  }
-  __syncthreads();
-  const int m = sel[2];
-  if (m > CAND) return rm_det::bisect_floor<THREADS>(aux, s, lo, hi, prm, red);
-  if (tid < m) {  // value tid's rank among the bucket's (ties by index): one holds rank sel[1]
-    const float cj = cand[tid];
-    int rank = 0;
-    for (int i = 0; i < m; ++i) {
-      const float ci = cand[i];
-      rank += (ci < cj || (ci == cj && i < tid)) ? 1 : 0;
-    }
-    if (rank == sel[1]) t_val = cj;
-  }
-  __syncthreads();
-  const float t = t_val;
-  for (int it = 0; it < prm.bisect_iters; ++it) {
-    const float m0 = mid(lo, hi);
-    if (m0 != m0 || m0 < t) lo = m0; else hi = m0;
-  }
-  return mid(lo, hi);
-}
-
-template <bool DETECT>
-__global__ void __launch_bounds__(THREADS, 2)
-fft_detect_cluster_kernel(const float* __restrict__ xre, const float* __restrict__ xim, const float2* __restrict__ w1,
-            const float2* __restrict__ wn2, const float2* __restrict__ wr, const float2* __restrict__ tw,
-            float* __restrict__ fre, float* __restrict__ fim, float* __restrict__ seg_score,
-            float* __restrict__ seg_arg, float* __restrict__ nf_out, float* __restrict__ rmax_out, int n2, int r,
-            DetectParams prm) {
-  extern __shared__ float4 smem[];
-  __shared__ float red_f[WARPS];
-  __shared__ int red_i[WARPS];
-  __shared__ float2 red_lh[WARPS];
-  __shared__ float s_lmax, s_nf;
-  const int rq = quads(r), rp = 4 * rq;  // step B's output quads; wrs's row length
-  float2* xs = reinterpret_cast<float2*>(smem);  // [n2][OWN] this block's columns
-  float* pw = reinterpret_cast<float*>(xs + static_cast<size_t>(n2) * OWN);  // [r][R1] powers (DETECT)
-  float2* wrs = reinterpret_cast<float2*>(pw);  // [r][rp] W_r^(j*s), until step C
-  float2* w1s = reinterpret_cast<float2*>(
-      reinterpret_cast<char*>(pw) + (DETECT ? static_cast<size_t>(r) * R1 * sizeof(float) : ab_bytes(r)));
-  float2* rts = w1s + R1 / 2;  // [ROW_TW] step C's twiddles
-  const int tid = static_cast<int>(threadIdx.x), lane = tid & 31, warp = tid >> 5;
-  const int rank = static_cast<int>(rm_cluster::rank());
-  const int n = R1 * n2;
-  const size_t row = blockIdx.x / C;
-  const size_t off = row * n;
-  const int c0 = rank * OWN;
-
-  for (int e = tid; e < r * rp; e += THREADS) {
-    const int j = e / rp, s = e - j * rp;
-    wrs[e] = s < r ? wr[j * r + s] : make_float2(0.f, 0.f);
-  }
-  for (int e = tid; e < R1 / 2; e += THREADS) w1s[e] = w1[e];
-  for (int e = tid; e < ROW_TW; e += THREADS) rts[e] = w1[row_tw_exponent(e)];
-
-  // ---- columns and step A: column p, j < r loads x[(j + r*t)*R1 + c0 + p]
-  // (t < 8) to registers, runs the 8-point FFT (its twiddles from device
-  // memory, so the tables above need no barrier of their own) and writes
-  // slots j + r*t of xs[q][p]. W_128^e = W_384^(3e) (the same float32
-  // values), so it rounds as every other design's does.
-  {
-    const float* xr = xre + off + c0;
-    const float* xi = xim + off + c0;
-#pragma unroll 2
-    for (int u = tid; u < OWN * r; u += THREADS) {
-      const int j = u / OWN, p = u - j * OWN;
-      float2 v[A];
-#pragma unroll
-      for (int t = 0; t < A; ++t) {
-        const size_t q = static_cast<size_t>(j + r * t) * R1 + p;
-        v[t] = make_float2(__ldg(xr + q), __ldg(xi + q));
-      }
-      rm_fft::dif_regs<A, R1>(v, w1);
-#pragma unroll
-      for (int t = 0; t < A; ++t) {
-        const int k = rm_fft::brev_bits(t, 3);
-        xs[(j + r * k) * OWN + p] = k ? rm_ct::cmul(v[t], __ldg(wn2 + j * k)) : v[t];
-      }
-    }
-  }
-  __syncthreads();
-
-  // ---- step B in place, kr column blocks a round. Item u of a round (one
-  // a thread): column block k0 + u / per_k, outputs s = 4*sq .. 4*sq + 3,
-  // columns p, p + 1 and p + 24, p + 25; a pass over j reads y_j of the
-  // four columns (two 16-byte loads, each contiguous across the lanes of
-  // a quad) and W_r^(j*s) of the four outputs (32 bytes), then 16 cmacs.
-  {
-    const int per_k = rq * QPAIRS;
-    int kr = A;
-    while (kr > 1 && kr * per_k > THREADS) kr /= 2;
-#pragma unroll 1
-    for (int k0 = 0; k0 < A; k0 += kr) {
-      const int ku = tid / per_k, rem = tid - ku * per_k;
-      const int k = k0 + ku, sq = rem / QPAIRS, p = 2 * (rem - sq * QPAIRS);
-      const bool mine = tid < kr * per_k;
-      float2 acc[4][4];  // output 4*sq + e, column p, p + 1, p + 24, p + 25
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[e][c] = make_float2(0.f, 0.f);
-      if (mine) {
-        const float2* yrow = xs + r * k * OWN + p;
-        const float4* w4 = reinterpret_cast<const float4*>(wrs + 4 * sq);
-#pragma unroll 2
-        for (int j = 0; j < r; ++j, yrow += OWN, w4 += rp / 2) {
-          const float4 wa = w4[0], wb = w4[1];
-          const float2 w[4] = {make_float2(wa.x, wa.y), make_float2(wa.z, wa.w), make_float2(wb.x, wb.y),
-                               make_float2(wb.z, wb.w)};
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const float4 y = *reinterpret_cast<const float4*>(yrow + h * (OWN / 2));
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              rm_ct::cmac(acc[e][2 * h], w[e], make_float2(y.x, y.y));
-              rm_ct::cmac(acc[e][2 * h + 1], w[e], make_float2(y.z, y.w));
-            }
-          }
-        }
-      }
-      __syncthreads();  // every read of this round's column blocks is done
-      if (mine) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int s = 4 * sq + e;
-          if (s < r) {
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int q = p + h * (OWN / 2);
-              const float4 t = __ldg(reinterpret_cast<const float4*>(tw + static_cast<size_t>(k + A * s) * R1 + c0 + q));
-              const float2 a = rm_ct::cmul(acc[e][2 * h], make_float2(t.x, t.y));
-              const float2 b = rm_ct::cmul(acc[e][2 * h + 1], make_float2(t.z, t.w));
-              *reinterpret_cast<float4*>(xs + (s + r * k) * OWN + q) = make_float4(a.x, a.y, b.x, b.y);
-            }
-          }
-        }
-      }
-    }
-  }
-  rm_cluster::sync();  // every block's slot rows are complete
-
-  // ---- step C: slot rows rank*r + s, one a warp, in row_fft's layout:
-  // lane l's register 3*g + u is position 3*l + 96*g + u, column 3*(l mod
-  // 16) + u of block 2*g + l/16, read as two 16-byte loads from the even
-  // column at or below 3*(l mod 16)
-  float lmax = -CUDART_INF_F;
-  {
-    const bool odd = (lane & 1) != 0;
-    const float2* src = xs + 3 * (lane & 15) - (odd ? 1 : 0);
-    const int b5 = static_cast<int>(__brev(static_cast<unsigned>(lane)) >> 27);
-    for (int s = warp; s < r; s += WARPS) {
-      float2 v[P];
-      const float2* rowp = src + (rank * r + s) * OWN;
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const unsigned owner = static_cast<unsigned>(2 * g + (lane >> 4));
-        const float4 f0 = rm_cluster::ld4(rm_cluster::dsmem(rowp, owner));
-        const float4 f1 = rm_cluster::ld4(rm_cluster::dsmem(rowp + 2, owner));
-        v[3 * g] = odd ? make_float2(f0.z, f0.w) : make_float2(f0.x, f0.y);
-        v[3 * g + 1] = odd ? make_float2(f1.x, f1.y) : make_float2(f0.z, f0.w);
-        v[3 * g + 2] = odd ? make_float2(f1.z, f1.w) : make_float2(f1.x, f1.y);
-      }
-      row_fft(v, rts, w1s, lane);
-      const size_t base = off + static_cast<size_t>(rank + A * s) * R1;  // CT row k2 = rank + 8 s
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const int k1 = (j / 3 + 4 * (j % 3)) * 32 + b5;
-        fre[base + k1] = v[j].x;
-        fim[base + k1] = v[j].y;
-        if constexpr (DETECT) {
-          const float pv = rm_det::power(v[j].x, v[j].y);
-          pw[s * R1 + k1] = pv;
-          lmax = fmaxf(lmax, pv);
-        }
-      }
-    }
-  }
-  if constexpr (DETECT) {
-    lmax = rm_det::block_reduce<THREADS>(lmax, rm_det::MaxOp(), red_f);
-    if (tid == 0) s_lmax = lmax;
-  }
-  rm_cluster::sync();  // the partners' gathers are done; every block's powers are complete
-  if constexpr (!DETECT) return;
-
-  // ---- floor (block 0: its rows are the stride-8 subsample) and row max
-  float* aux = reinterpret_cast<float*>(xs);  // free: block 0's dB values, then every block's pull
-  const int s_all = r * R1;  // n/8: the subsample's size, the row's segments
-  if (rank == 0) {
-    // the row max: lane q of warp 0 reads block q's max (one round trip)
-    const float bmax = tid < C ? rm_cluster::ld1(rm_cluster::dsmem(&s_lmax, static_cast<unsigned>(tid))) : -CUDART_INF_F;
-    float lo = CUDART_INF_F, hi = -CUDART_INF_F;
-    for (int i = tid; i < s_all; i += THREADS) {
-      const float db = rm_det::sub_db(pw[i], prm);
-      aux[i] = db;
-      lo = fminf(lo, db);
-      hi = fmaxf(hi, db);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-      hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-    }
-    if (lane == 0) red_lh[warp] = make_float2(lo, hi);
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      lo = fminf(lo, red_lh[w].x);
-      hi = fmaxf(hi, red_lh[w].y);
-    }
-    int* hist = reinterpret_cast<int*>(aux + s_all);
-    const float nf = floor_select(aux, s_all, lo, hi, prm, hist, reinterpret_cast<float*>(hist + NB), red_i);
-    if (tid < C) rm_cluster::st1(rm_cluster::dsmem(&s_nf, static_cast<unsigned>(tid)), nf);
-    if (warp == 0) {
-      float rmax = bmax;
-#pragma unroll
-      for (int o = 1; o < C; o <<= 1) rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, o));
-      if (tid == 0) {
-        nf_out[row] = nf;
-        rmax_out[row] = rmax;
-      }
-    }
-    __syncthreads();  // every read of aux is done
-  }
-  rm_cluster::arrive();  // block 0: its floor is in every block's s_nf
-
-  // ---- pull: this block's detect columns d0 .. d0 + dn - 1 (none on
-  // block 0, which bisects the floor meanwhile; 56 on blocks 1 .. 6, 48
-  // on block 7): nat[rad + c*n2 + k2] = power of CT (k2, d0 + c), natural
-  // order
-  const int d0 = rank == 0 ? 0 : DCOLS * (rank - 1);
-  const int dn = rank == 0 ? 0 : rank < C - 1 ? DCOLS : R1 - DCOLS * (C - 2);
-  const int bins = dn * n2;
-  const int rad = prm.radius;
-  float* nat = aux;                                  // [rad | dn*n2 | rad]
-  float* st_sc = nat + bins + 2 * rad + 4;           // [r][dn] staged partials (after the windows' overrun)
-  float* st_sa = st_sc + r * dn;
-  for (int u = tid; u < n2 * (dn / 4); u += THREADS) {
-    const int q = u / n2, k2 = u - q * n2;
-    const float4 f = rm_cluster::ld4(rm_cluster::dsmem(pw + (k2 / A) * R1 + d0 + 4 * q, static_cast<unsigned>(k2 % A)));
-    float* d = nat + rad + 4 * q * n2 + k2;
-    d[0] = f.x;
-    d[n2] = f.y;
-    d[2 * n2] = f.z;
-    d[3 * n2] = f.w;
-  }
-  for (int h = tid; h < (dn > 0 ? 2 * rad : 0); h += THREADS) {
-    const bool before = h < rad;
-    const int k2 = before ? n2 - rad + h : h - rad;  // the left column's last / the right column's first bins
-    const int k1 = before ? (d0 == 0 ? R1 - 1 : d0 - 1) : (d0 + dn == R1 ? 0 : d0 + dn);
-    nat[before ? h : bins + h] =
-        rm_cluster::ld1(rm_cluster::dsmem(pw + (k2 / A) * R1 + k1, static_cast<unsigned>(k2 % A)));
-  }
-  __syncthreads();
-
-  // ---- detect: 4 bins u .. u + 3 a lane (one column, 8 | n2), a segment
-  // two lanes, 128 bins a warp (the last warp's lanes past the block's
-  // bins compute on what follows nat and write nothing). Bin u + b's window is nat[u + b .. u + b + 2 rad], read as
-  // float4s: the positions q = 3 .. 2 rad all four share (core), q < 3
-  // (lo[b], b <= q) and q > 2 rad (hi[b], b >= q - 2 rad). The gates but
-  // the confidence gate, which waits for the floor: a segment's best
-  // score passes it or none of its scores does (monotone in the power).
-  {
-    const int w2 = 2 * rad;
-    const int nq = (w2 + 7) / 4;  // float4s covering q = 0 .. 2 rad + 3
-    const int pure = (w2 - 3) / 4;  // chunks 1 .. pure hold core positions only
-    for (int u0 = 128 * warp; u0 < bins; u0 += 128 * WARPS) {
-      const int u = u0 + 4 * lane;
-      const float4* win = reinterpret_cast<const float4*>(nat + u);
-      float core = -CUDART_INF_F;
-      float lo[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
-      float hi[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
-      for (int ch = 1; ch <= pure; ++ch) {
-        const float4 f = win[ch];
-        core = fmaxf(core, fmaxf(fmaxf(f.x, f.y), fmaxf(f.z, f.w)));
-      }
-      for (int ch = 0; ch < nq; ch = (ch == 0 ? pure + 1 : ch + 1)) {
-        const float4 f = win[ch];
-        const float fv[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = 4 * ch + e;
-          if (q < 3) {
-#pragma unroll
-            for (int b = 0; b < 3; ++b) if (b <= q) lo[b] = fmaxf(lo[b], fv[e]);
-          } else if (q <= w2) {
-            core = fmaxf(core, fv[e]);
-          } else {
-#pragma unroll
-            for (int b = 1; b < 4; ++b) if (q - w2 <= b) hi[b] = fmaxf(hi[b], fv[e]);
-          }
-        }
-      }
-      const int c = u / n2, k2 = u - c * n2;
-      float sc[4];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float pv = nat[u + b + rad];
-        const float mx = fmaxf(core, fmaxf(b < 3 ? lo[b] : -CUDART_INF_F, hi[b]));
-        const float pe = __fadd_rn(pv, 1e-24f);
-        const int k = k2 + b + n2 * (d0 + c);
-        const bool cand = (pv >= mx) && (pe > prm.thr_lin) && (k >= prm.keep_lo) && (k <= prm.keep_hi);
-        sc[b] = cand ? pv : -CUDART_INF_F;
-      }
-      float best = fmaxf(fmaxf(sc[0], sc[1]), fmaxf(sc[2], sc[3]));
-      best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 1));
-      int arg = SEG;
-#pragma unroll
-      for (int b = 3; b >= 0; --b) arg = sc[b] >= best ? 4 * (lane & 1) + b : arg;
-      arg = min(arg, __shfl_xor_sync(0xffffffffu, arg, 1));
-      if ((lane & 1) == 0 && u < bins) {
-        st_sc[(k2 / SEG) * dn + c] = best;
-        st_sa[(k2 / SEG) * dn + c] = static_cast<float>(arg);
-      }
-    }
-  }
-  __syncthreads();
-  rm_cluster::wait();    // the floor is here
-  rm_cluster::arrive();  // this block's pulls are done
-  const float conf_lin = rm_det::conf_level(s_nf, prm);
-  // segment f = b2*R1 + k1, through the confidence gate
-  for (int g = tid; g < r * dn; g += THREADS) {
-    const int b2 = g / dn, c = g - b2 * dn;
-    const size_t f = row * s_all + static_cast<size_t>(b2) * R1 + d0 + c;
-    const float best = st_sc[g];
-    const bool pass = !prm.has_conf || __fadd_rn(best, 1e-24f) >= conf_lin;
-    seg_score[f] = pass ? best : -CUDART_INF_F;
-    seg_arg[f] = pass ? st_sa[g] : 0.f;
-  }
-  rm_cluster::wait();  // no block exits while a partner pulls its powers
-}
-
-using Kernel = void (*)(const float*, const float*, const float2*, const float2*, const float2*, const float2*,
-                        float*, float*, float*, float*, float*, float*, int, int, DetectParams);
-
-Kernel kernel_for(int n1, int n2, int a, int r, int detect) {
-  if (n1 != R1 || a != A || a * r != n2 || r < 1 || r > MAX_R || smem_bytes(n2, detect != 0) > SMEM_LIMIT) {
-    return nullptr;
-  }
-  return detect ? fft_detect_cluster_kernel<true> : fft_detect_cluster_kernel<false>;
 }
 
 }  // namespace
 
-// w1: W_384^e (e < 192); wn2, wr: ct_plan.radix_tables' (wr [r][r]); tw:
+// w1: W_n1^e (e < n1/2); wn2, wr: ct_plan.radix_tables' (wr [r][r]); tw:
 // ct_constants' twiddle. detect = 0: K3 (seg_score ... rmax unused, may
 // be null); detect = 1: K1's outputs, 2 <= radius <= n2. Rows 16-byte
 // aligned (the wrapper checks).
@@ -640,23 +35,25 @@ extern "C" int rm_fft_detect_wide(const float* xre, const float* xim, const floa
                                   float* seg_arg, float* nf, float* rmax, int rows, int n1, int n2, int a, int r,
                                   int detect, int radius, int keep_lo, int keep_hi, float thr_lin, int has_conf,
                                   float conf_cs, float off, int bisect_iters, cudaStream_t stream) {
-  const Kernel k = kernel_for(n1, n2, a, r, detect);
+  int min_blocks = 0;
+  const Kernel k = kernel_for(n1, n2, a, r, detect, &min_blocks);
   if (k == nullptr || rows <= 0 || rows > 0x7fffffff / C || (detect && (radius < 2 || radius > n2))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DetectParams prm{radius, keep_lo, keep_hi, thr_lin, has_conf, conf_cs, off, bisect_iters};
-  return rm_cluster::launch(k, rows * C, THREADS, smem_bytes(n2, detect != 0), C, stream, xre, xim, w1, wn2, wr,
+  return rm_cluster::launch(k, rows * C, THREADS, smem_for(n1, n2, detect), C, stream, xre, xim, w1, wn2, wr,
                             tw, fre, fim, seg_score, seg_arg, nf, rmax, n2, r, prm);
 }
 
 // The design's shape on this card: dynamic shared memory a block, blocks
 // an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// cudaOccupancyMaxActiveClusters, registers a thread and local memory.
+// cudaOccupancyMaxActiveClusters, registers a thread, local memory and the
+// instantiation's __launch_bounds__ blocks an SM (MIN_BLOCKS).
 extern "C" int rm_fft_detect_wide_info(int n1, int n2, int a, int r, int detect, int* smem, int* blocks,
-                                       int* clusters, int* registers, int* local_bytes) {
-  const Kernel k = kernel_for(n1, n2, a, r, detect);
+                                       int* clusters, int* registers, int* local_bytes, int* min_blocks) {
+  const Kernel k = kernel_for(n1, n2, a, r, detect, min_blocks);
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t bytes = smem_bytes(n2, detect != 0);
+  const size_t bytes = smem_for(n1, n2, detect);
   *smem = static_cast<int>(bytes);
   cudaError_t e = rm_cluster::occupancy(k, THREADS, bytes, C, clusters);
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -1,9 +1,8 @@
 // Kernel K3 for rows longer than one block's shared memory, n1 = 128 or
 // 256: forward CT-order FFT of [rows, n] rows, n = n1*n2 with n2 = 8*r <=
 // 1024, one row a thread-block cluster of c = 2, 4 or 8 blocks, in one
-// pass through device memory. (Long rows with n1 = 384 take the wide
-// design, fft_detect_cluster.cu; 640 and 896 the workspace design,
-// fft_rows_ct_long.cu.)
+// pass through device memory. (Long rows with n1 = 384, 640 or 896 take
+// the wide design, fft_detect_cluster.cuh.)
 //
 // Replaces radio_mapper_tpu/ops/pallas/fft_kernel.py::fft_rows_ct (body
 // fft_kernel.ct_fft_core) above n = 24576, where the one-block design

@@ -1,19 +1,18 @@
-// Kernel K3 for long rows whose split has n1 = 640 or 896 (the
-// mixed-radix row pass, P = 20, 28 points a lane): forward CT-order FFT
-// of [rows, n] rows, n = n1*n2 with n2 = 8*r <= 512 (every such planned
-// length's split), in two passes through a device-memory workspace: the
-// workspace design. Rows with n1 = 128 or 256 take the thread-block
-// cluster design (fft_rows_ct_cluster.cu), rows with n1 = 384 the wide
-// design (fft_detect_cluster.cu, K1's one-pass kernel with its detect
-// half off), routed by n1 (fft_rows.long_geometry). The n1 = 384
-// instantiation stays built as the wide design's comparison only
-// (fft_rows.workspace_rows: the card tests, tools/forward_times.py);
-// no route reaches it.
+// The workspace design of kernel K3's long rows, n1 = 384, 640 or 896
+// (the mixed-radix row pass, P = 12, 20, 28 points a lane): forward
+// CT-order FFT of [rows, n] rows, n = n1*n2 with n2 = 8*r <= 512 (every
+// such planned length's split), in two passes through a device-memory
+// workspace. No route reaches it: rows with these n1 take the wide design
+// (fft_detect_cluster.cuh, K1's one-pass kernel, with its detect half off
+// for K3), routed by n1 (fft_rows.long_geometry), and rows with n1 = 128
+// or 256 the thread-block cluster design (fft_rows_ct_cluster.cu). It
+// stays built as the wide design's comparison only
+// (fft_rows.workspace_rows: the card tests, chip_smoke.py phase 20,
+// tools/forward_times.py), which must equal it bit for bit.
 //
-// Replaces radio_mapper_tpu/ops/pallas/fft_kernel.py::fft_rows_ct (body
-// fft_kernel.ct_fft_core) at those lengths. Python wrapper:
-// radio_mapper_tpu_torch/ops/cuda/fft_rows.py; kernel K1's long rows and
-// K8's long design run it too.
+// Replaced radio_mapper_tpu/ops/pallas/fft_kernel.py::fft_rows_ct (body
+// fft_kernel.ct_fft_core) at those lengths before the wide design. Python
+// wrapper: radio_mapper_tpu_torch/ops/cuda/fft_rows.py (workspace_rows).
 //
 // The four-step split of ct_fft.cuh, with the per-value arithmetic of the
 // one-block design; only the data movement differs:

@@ -32,9 +32,9 @@ max.
 
 It runs on the two-kernel detect route of the single-dwell pipeline
 (K3 → K4, ``detect.set_fused_fft_detect("off")``); kernel K1's long rows
-at n1 = 128, 256, 640 and 896 (and at 384 with ``emit_topk``) run it after
-the long K3 and take its row max (:mod:`.fft_detect`); at n1 = 384 K1's
-wide design runs its parts in the transform's own launch.
+at n1 = 128 and 256 (and at 384, 640, 896 with ``emit_topk``) run it after
+the long K3 and take its row max (:mod:`.fft_detect`); at n1 = 384, 640,
+896 K1's wide design runs its parts in the transform's own launch.
 """
 
 from __future__ import annotations

@@ -32,23 +32,22 @@ Above :data:`MAX_N` (:func:`fft_detect_rows_ct_long`), for every n1 the
 long-row K3 takes (128, 256, 384, 640, 896), by n1
 (:func:`fft_rows.long_geometry`):
 
-- n1 = 384, the wide design (``csrc/fft_detect_cluster.cu``,
-  :func:`wide_detect`): one launch, a row on a thread-block
-  cluster of 8 blocks. Each block transforms 48 columns and then its CT
-  rows k2 ≡ rank (mod 8) through distributed shared memory, stores the
-  spectra and keeps their power; block 0's rows are the stride-8
-  subsample, so it bisects the noise floor alone and hands it to the
-  others; each block then pulls its columns' power in natural order from
-  the 8 blocks and runs the sliding max, the gates and the segment
-  partials. One pass through device memory, 16 B a sample, and K3 → K4's
-  outputs bit for bit. With ``emit_topk`` it is K3 (the same kernel, its
-  detect half off) and then K4's phase c: the in-kernel top-K is not
-  fused at n1 = 384.
-- n1 = 128, 256, 640, 896: two hand-written kernels in turn, the
-  long-row K3 (``csrc/fft_rows_ct_cluster.cu``, a row on a thread-block
-  cluster; ``csrc/fft_rows_ct_long.cu``, the workspace design) and then
-  K4 (``csrc/detect_ct.cu``, which holds no row in shared memory) on its
-  spectra, with the row max. The reference's function is that
+- n1 = 384, 640, 896, the wide design (``csrc/fft_detect_cluster.cuh``, a
+  template on n1; :func:`wide_detect`): one launch, a row on a
+  thread-block cluster of 8 blocks. Each block transforms n1/8 columns
+  and then its CT rows k2 ≡ rank (mod 8) through distributed shared
+  memory, stores the spectra and keeps their power; block 0's rows are
+  the stride-8 subsample, so it finds the noise floor alone and hands it
+  to the others; each block then pulls its columns' power in natural
+  order from the 8 blocks and runs the sliding max, the gates and the
+  segment partials. One pass through device memory, 16 B a sample, and
+  K3 → K4's outputs bit for bit. With ``emit_topk`` it is K3 (the same
+  kernel, its detect half off) and then K4's phase c: the in-kernel top-K
+  is not fused at these n1.
+- n1 = 128, 256: two hand-written kernels in turn, the long-row K3
+  (``csrc/fft_rows_ct_cluster.cu``, a row on a thread-block cluster) and
+  then K4 (``csrc/detect_ct.cu``, which holds no row in shared memory) on
+  its spectra, with the row max. The reference's function is that
   composition, so the outputs are those of K3 → K4 bit for bit; the pair
   counts as one launch of K1.
 
@@ -184,7 +183,7 @@ def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectP
 def fft_detect_rows_ct_long(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan, emit_topk: int = 0):
     """:func:`fft_detect_rows_ct` through the long-row design on CUDA rows
     of a length :func:`fft_rows.long_geometry` takes, counted as one launch
-    of K1: at n1 = 384 without ``emit_topk`` the wide design's one kernel
+    of K1: at n1 = 384, 640, 896 without ``emit_topk`` the wide design's one kernel
     (``design_counts["wide"]``), else the long K3 and then K4 with the row
     max (``"long"``). The wrapper routes only n > :data:`MAX_N` here; the
     card tests also force shorter rows through it, where its outputs equal
@@ -207,7 +206,7 @@ def fft_detect_rows_ct_long(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.De
 
 
 def wide_detect(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
-    """K1 through the wide design (n1 = 384, ``csrc/fft_detect_cluster.cu``
+    """K1 through the wide design (n1 = 384, 640, 896, ``csrc/fft_detect_cluster.cuh``
     with its detect half on) on contiguous float32 CUDA rows, uncounted:
     ``(fr, fi, seg_score, seg_arg, noise_floor_db, row_max)`` from one
     launch (:func:`fft_rows.wide_launch`), without ``emit_topk``. Kernel

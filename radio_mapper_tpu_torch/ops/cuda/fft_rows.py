@@ -22,7 +22,7 @@ twiddles are float32 tables of float64 roots of unity
 
 Long rows, n > :data:`MAX_N` with n1 ∈ :data:`ct_plan.RADIX_N1` (128,
 256, 384, 640, 896) and 8 | n2 (:func:`fft_rows_ct_long`,
-:func:`long_geometry`), three designs by n1:
+:func:`long_geometry`), two designs by n1:
 
 - n1 = 128 or 256, the cluster design (``csrc/fft_rows_ct_cluster.cu``):
   a row is a thread-block cluster of c = 2, 4 or 8 blocks
@@ -33,25 +33,29 @@ Long rows, n > :data:`MAX_N` with n1 ∈ :data:`ct_plan.RADIX_N1` (128,
   gathering its P = n1/32 points from the owning blocks through
   distributed shared memory, and stores in CT order. One pass through
   device memory, 16 B a sample.
-- n1 = 384, the wide design (``csrc/fft_detect_cluster.cu``, kernel K1's
-  one-pass kernel with its detect half off; :func:`wide_launch`): a cluster
-  of 8 blocks of 512 threads, 48 columns a block, step C's mixed-radix
-  P = 12 in a register layout that runs two of its five lane stages in
-  registers, at most 64 registers a thread, so two blocks an SM up to
-  nfft 70656 (:func:`wide_blocks`). One pass, 16 B a sample.
-- n1 = 640 or 896, the workspace design (``csrc/fft_rows_ct_long.cu``):
-  a column pass and a row pass (step C's mixed-radix P = 20, 28) through
-  a [rows, n] float2 workspace, 32 B a sample. It keeps n1 = 384 too, as
-  the card tests' and ``tools/forward_times.py``'s comparison only
-  (:func:`workspace_rows`); no route reaches it there.
+- n1 = 384, 640 or 896, the wide design (``csrc/fft_detect_cluster.cuh``,
+  kernel K1's one-pass kernel with its detect half off, a template on n1;
+  :func:`wide_launch`): a cluster of 8 blocks of 512 threads, n1/8 = 48,
+  80 or 112 columns a block, step C's mixed-radix P = 12, 20 or 28 in a
+  register layout that runs two of its five lane stages in registers. At
+  n1 = 384 at most 64 registers a thread, so two blocks an SM up to nfft
+  70656; at 640 and 896 up to 128, one block an SM, but for K3 at 640
+  where two fit by shared memory (up to 102400; the kernel picks its
+  launch bounds, :func:`wide_info` reports them).
+  One pass, 16 B a sample.
 
-All three give the one-block design's spectra bit for bit where it takes
-the length too (the same per-value arithmetic). Every planned length up to
+The workspace design (``csrc/fft_rows_ct_long.cu``: a column pass and a
+row pass through a [rows, n] float2 workspace, 32 B a sample) stays built
+at n1 = 384, 640 and 896 as the card tests' and
+``tools/forward_times.py``'s comparison only (:func:`workspace_rows`); no
+route reaches it.
+
+Both give the one-block design's spectra bit for bit where it takes the
+length too (the same per-value arithmetic). Every planned length up to
 131072 has such a split.
 
 What bounds it on the H100: device-memory bytes — a row read and its
-spectrum written once, 80 KB a row at 5120 (twice that for the workspace
-design) — and then the three block barriers
+spectrum written once, 80 KB a row at 5120 — and then the three block barriers
 between a row's loads and its stores; the arithmetic is n1·a·r² complex
 FMAs a row for step B plus the radix-2 butterflies (the direct four-step
 DFT it replaced issued n·(n1 + n2) from shared memory).
@@ -82,21 +86,19 @@ from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import build
 
 launch_count = 0  # launches of the CUDA kernel (not of the plain version)
-design_counts = {"block": 0, "long": 0, "wide": 0}  # the same launches, by design ("long": cluster, workspace)
+design_counts = {"block": 0, "long": 0, "wide": 0}  # the same launches, by design ("long": the cluster design)
 
 MAX_N = 24_576  # the one-block design's limit: one row in a block's shared memory (as kernel K1's)
-LONG_MAX_ROWS = 65_535  # the workspace column pass's grid rows (the cluster grid, rows·c ≤ 2^31 − 1, takes more)
+WORKSPACE_MAX_ROWS = 65_535  # rows the workspace design takes (its column pass's grid rows)
 SMEM_LIMIT = 232_448  # bytes of shared memory one block can have (227 KB)
 SM_SMEM = 233_472  # bytes of shared memory an SM has for its blocks (228 KB)
 SMEM_RESERVED = 1_024  # bytes the runtime reserves a block
 CLUSTER_SIZES = (2, 4, 8)  # blocks a row in the cluster design; 8 is the portable cluster limit
 CLUSTER_N1 = (128, 256)  # the cluster design's n1
-WIDE_N1 = (384,)  # the wide design's n1; 640 and 896 take the workspace design
+WIDE_N1 = (384, 640, 896)  # the wide design's n1 (fft_detect_cluster.cuh's instantiations)
 WIDE_C = 8  # blocks a row in the wide design: block 0 holds the CT rows k2 = 0 mod 8
-WIDE_THREADS = 512  # its block (fft_detect_cluster.cu THREADS)
-WIDE_TABLE_BYTES = (384 // 2 + 378) * 8  # W_384 and step C's twiddles in its shared memory
+WIDE_THREADS = 512  # its block (fft_detect_cluster.cuh THREADS)
 WIDE_STATIC_BYTES = 256  # its static shared memory (reduction scratch), at most
-WIDE_MAX_R = 168  # step B's column block (r/4 output quads x 12 column groups) fits one round, an item a thread
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 _CLUSTER_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -106,7 +108,7 @@ _WIDE_ARGTYPES = (
     [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p]
 )
-_WIDE_INFO_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 5
+_WIDE_INFO_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 6
 
 
 def _check(re: torch.Tensor, im: torch.Tensor) -> None:
@@ -167,8 +169,8 @@ class LongGeometry(NamedTuple):
     n2: int
     a: int  # step A's length, 8
     r: int  # step B's length, n2 / 8
-    design: str  # "cluster" (n1 = 128, 256), "wide" (384) or "workspace" (640, 896)
-    c: int  # blocks a row (the cluster); 0 for the workspace design
+    design: str  # "cluster" (n1 = 128, 256) or "wide" (384, 640, 896)
+    c: int  # blocks a row (the cluster)
     cols: int  # columns a tile: 32 where n2 ≤ 512 and 32 | n1/c, else 16; the wide design's n1/8
 
 
@@ -190,32 +192,45 @@ def cluster_size(n1: int, n2: int) -> int:
     raise ValueError(f"{n1}·{n2} does not fit a cluster of {CLUSTER_SIZES[-1]} blocks")
 
 
+def wide_table_bytes(n1: int) -> int:
+    """The wide design's tables in shared memory: W_n1^e (e < n1/2) and
+    step C's stage twiddles, 126·q entries for n1 = 128·q (4,560, 7,600
+    and 10,640 B at 384, 640, 896)."""
+    return (n1 // 2 + 126 * (n1 // 128)) * 8
+
+
+def wide_max_r(n1: int) -> int:
+    """The largest r whose step-B column block (⌈r/4⌉ output quads × n1/32
+    column groups) fits one round, an item a thread: 168, 100, 72."""
+    return 4 * (WIDE_THREADS // (n1 // 32))
+
+
 def wide_smem(n1: int, n2: int, detect: bool) -> int:
     """Dynamic shared memory of one wide-design block: its n1/8 columns (n
     bytes of float2); with the detect half the power of its n2/8 CT rows
     (n/2 bytes), which holds step B's table (W_r with rows padded to a
-    multiple of 4) until step C, else that table; then W_384 and step C's
-    stage twiddles."""
+    multiple of 4) until step C, else that table; then the tables
+    (:func:`wide_table_bytes`)."""
     n, r = n1 * n2, n2 // 8
     ab = r * 4 * (-(-r // 4)) * 8
-    return n + (n // 2 if detect else ab) + WIDE_TABLE_BYTES
+    return n + (n // 2 if detect else ab) + wide_table_bytes(n1)
 
 
 def wide_blocks(n1: int, n2: int, detect: bool) -> int:
-    """Wide-design blocks one SM holds: two where two fit its shared
-    memory (each ≤ 64 registers a thread), else one."""
-    need = wide_smem(n1, n2, detect) + WIDE_STATIC_BYTES + SMEM_RESERVED
-    return 2 if 2 * need <= SM_SMEM else 1
+    """Wide-design blocks one SM's shared memory holds: two or one. The
+    card holds that many where the instantiation's launch bounds allow it
+    (``min_blocks`` of :func:`wide_info`, which ``fft_detect_cluster.cuh``
+    ``kernel_at`` alone picks), else one."""
+    return 2 if 2 * (wide_smem(n1, n2, detect) + WIDE_STATIC_BYTES + SMEM_RESERVED) <= SM_SMEM else 1
 
 
 def long_geometry(n: int) -> LongGeometry:
     """The long-row design's shape for rows of n samples: n1 ∈
     :data:`ct_plan.RADIX_N1` and a = 8 (8 | n2), as every planned length
     with such an n1 splits. n1 = 128 or 256: the cluster design, c from
-    :func:`cluster_size`, the column tile; n1 = 384: the wide design (c =
-    8, 48 columns a block); n1 = 640, 896: the workspace design (32-column
-    tiles). Only the kernel variants these reach are built. Raises
-    ValueError otherwise."""
+    :func:`cluster_size`, the column tile; n1 = 384, 640, 896: the wide
+    design (c = 8, n1/8 columns a block). Only the kernel variants these
+    reach are built. Raises ValueError otherwise."""
     n1, n2 = ct_plan.ct_split(n)
     if n1 not in ct_plan.RADIX_N1:
         raise ValueError(f"the long-row K3 takes n1 in {ct_plan.RADIX_N1}; nfft {n} = {n1}·{n2}")
@@ -225,13 +240,9 @@ def long_geometry(n: int) -> LongGeometry:
     if n1 in CLUSTER_N1:
         c = cluster_size(n1, n2)
         return LongGeometry(n1, n2, a, r, "cluster", c, 32 if n2 <= 512 and (n1 // c) % 32 == 0 else 16)
-    if n1 in WIDE_N1:
-        if r > WIDE_MAX_R or wide_smem(n1, n2, True) > SMEM_LIMIT:  # pragma: no cover — n2 ≤ 336 up to 131072
-            raise ValueError(f"the wide K1/K3 takes n2 ≤ {8 * WIDE_MAX_R} within one block; nfft {n} = {n1}·{n2}")
-        return LongGeometry(n1, n2, a, r, "wide", WIDE_C, n1 // WIDE_C)
-    if n2 > 512:  # pragma: no cover — every planned length with these n1 has n2 ≤ 336
-        raise ValueError(f"the workspace K3 takes n2 ≤ 512; nfft {n} = {n1}·{n2}")
-    return LongGeometry(n1, n2, a, r, "workspace", 0, 32)
+    if r > wide_max_r(n1) or wide_smem(n1, n2, True) > SMEM_LIMIT:  # pragma: no cover — n2 ≤ 336 up to 131072
+        raise ValueError(f"the wide K1/K3 takes {n1}·n2 within one block's shared memory; nfft {n} = {n1}·{n2}")
+    return LongGeometry(n1, n2, a, r, "wide", WIDE_C, n1 // WIDE_C)
 
 
 def fft_rows_ct_long(re: torch.Tensor, im: torch.Tensor):
@@ -239,7 +250,8 @@ def fft_rows_ct_long(re: torch.Tensor, im: torch.Tensor):
     length :func:`long_geometry` takes (the wrapper routes only n >
     :data:`MAX_N` here; the card tests also force shorter rows through
     it, where its spectra equal the one-block design's bit for bit).
-    Counted under ``design_counts["wide"]`` at n1 = 384, else ``"long"``."""
+    Counted under ``design_counts["wide"]`` at n1 = 384, 640, 896, else
+    ``"long"``."""
     global launch_count
     _check(re, im)
     if re.device.type != "cuda":
@@ -257,12 +269,8 @@ def long_rows(re: torch.Tensor, im: torch.Tensor):
     n = re.shape[-1]
     g = long_geometry(n)
     rows = re.numel() // n
-    if rows > LONG_MAX_ROWS:
-        raise ValueError(f"the long-row K3 takes at most {LONG_MAX_ROWS} rows, got {rows}")
     if g.design == "wide":
         return wide_launch(re, im)
-    if g.design == "workspace":
-        return workspace_rows(re, im)
     w1, wn2, _ = ct_plan.device_radix_tables(n, re.device)
     tw = ct_plan.device_tables(n, False, re.device).tw
     fr = torch.empty_like(re)
@@ -280,14 +288,14 @@ def long_rows(re: torch.Tensor, im: torch.Tensor):
 
 def workspace_rows(re: torch.Tensor, im: torch.Tensor):
     """The workspace design (``csrc/fft_rows_ct_long.cu``) on contiguous
-    float32 CUDA rows with n1 ∈ {384, 640, 896}, uncounted: the long K3 at
-    640 and 896 (:func:`long_rows`), and at 384 the comparison the card
-    tests and ``tools/forward_times.py`` hold the wide design against."""
+    float32 CUDA rows with n1 ∈ {384, 640, 896}, uncounted: no route
+    reaches it; it is the comparison the card tests, ``chip_smoke.py`` and
+    ``tools/forward_times.py`` hold the wide design against."""
     n = re.shape[-1]
     n1, n2 = ct_plan.ct_split(n)
     _, a, r = ct_plan.radix_split(n)
     rows = re.numel() // n
-    if n1 not in (384, 640, 896) or a != ct_plan.RADIX_MAX_A or n2 > 512 or rows > LONG_MAX_ROWS:
+    if n1 not in (384, 640, 896) or a != ct_plan.RADIX_MAX_A or n2 > 512 or rows > WORKSPACE_MAX_ROWS:
         raise ValueError(f"the workspace K3 takes n1 in (384, 640, 896), 8 | n2 ≤ 512; nfft {n} = {n1}·{n2}")
     w1, wn2, wr = ct_plan.device_radix_tables(n, re.device)
     tw = ct_plan.device_tables(n, False, re.device).tw
@@ -341,16 +349,18 @@ def wide_info(n: int, detect: bool = True) -> dict:
     memory a block (``smem``), blocks an SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), active clusters
     (``cudaOccupancyMaxActiveClusters``; 0 would mean the card cannot run
-    it), registers a thread and local memory in bytes."""
+    it), registers a thread, local memory in bytes and the launch bounds'
+    blocks an SM of the instantiation it launches (``min_blocks``: 2, at
+    most 64 registers a thread, or 1, at most 128)."""
     g = long_geometry(n)
     if g.design != "wide":
         raise ValueError(f"nfft {n} does not take the wide design")
-    vals = [ctypes.c_int(0) for _ in range(5)]
+    vals = [ctypes.c_int(0) for _ in range(6)]
     fn = build.kernel("rm_fft_detect_wide_info", _WIDE_INFO_ARGTYPES)
     build.check(fn(g.n1, g.n2, g.a, g.r, int(detect), *(ctypes.byref(v) for v in vals)), "wide_info")
-    smem, blocks, clusters, registers, local = (v.value for v in vals)
+    smem, blocks, clusters, registers, local, min_blocks = (v.value for v in vals)
     return {"c": g.c, "smem": smem, "blocks": blocks, "clusters": clusters, "registers": registers,
-            "local_bytes": local}
+            "local_bytes": local, "min_blocks": min_blocks}
 
 
 @functools.lru_cache(maxsize=8)
@@ -370,7 +380,7 @@ def cluster_info(n: int) -> dict:
     """The long design's cluster at n on the current card: ``c``, shared
     memory a block (``smem``) and ``cudaOccupancyMaxActiveClusters``
     (``clusters``; 0 would mean the card cannot run it). Raises for a
-    length the wide or the workspace design takes."""
+    length the wide design takes."""
     g = long_geometry(n)
     if g.design != "cluster":
         raise ValueError(f"nfft {n} takes the {g.design} design, not the cluster design")

@@ -14,7 +14,8 @@ time to call the wrapper overlaps the card's work. K1 less K3 is what K1
 spends past the transform: the power hand-off and the detect body. Then
 K1, K3 and K4 on rows past one block's shared memory, [1024, 33792],
 [1024, 34816] (n1 = 256), [1024, 66560] and the mixed-radix row passes
-[1024, 58368], [512, 87040] and [256, 121856] (n1 = 384, 640, 896), which
+[1024, 58368], [512, 87040], [1024, 97280] and [256, 121856] (n1 = 384,
+640, 896), which
 run the long-row designs (a checkout without them prints that the wrapper
 raises), and
 the long-row K3 and K1 forced onto [1024, 17408] beside the one-block ones;
@@ -26,8 +27,8 @@ Last, one line of digests: SHA-256 of the outputs on seeded rows up to
 5120, 9216 and 17408, K4 at 9216 and 17408, K8 at [16, 8, 5120] (max_lag
 256), [16, 8, 9216] and [128, 8, 17408] (max_lag 512); then one line of the
 long rows' digests: K3, K4 on K3's spectra, K1 and K8 (max_lag 600) on
-[16, 8, n] at n = 33792, 34816, 58368, 66560, 87040 and 121856 (every n1
-of the long K3 and cluster sizes 2, 4, 8). Equal digests from two
+[16, 8, n] at n = 33792, 34816, 58368, 66560, 87040, 97280 and 121856
+(every n1 of the long K3 and cluster sizes 2, 4, 8). Equal digests from two
 checkouts in one call mean equal outputs bit for bit. A third line: K2
 (each gate), K5, K6 and K8 at n1 = 128 (5120, 17408) and 256 (34816).
 
@@ -35,7 +36,8 @@ checkouts in one call mean equal outputs bit for bit. A third line: K2
 57344, n1 = 384) and [8, 8, 121856] (n1 = 896) and K5 at [1, 64, 58368],
 then prints the pair digests. ``--k1`` times only K1 and K3 at [1024,
 58368] (n1 = 384: the wide design, K1 in one launch), then prints the
-long rows' digests.
+long rows' digests; ``--k1 97280,121856`` times them at the lengths named
+instead (rows by length, :data:`K1_ROWS`: [1024, 97280], [256, 121856]).
 
 The wrappers' signatures are those of every version since K8 was ported,
 so with ``PYTHONPATH`` at another checkout it times that checkout's
@@ -57,7 +59,10 @@ from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat
 from radio_mapper_tpu_torch.ops.cuda import (build, channel_step, detect_ct, fft_detect, fft_natural, fft_rows,
                                              gcc_pair)
 
-LONG_DIGEST_N = (33_792, 34_816, 58_368, 66_560, 87_040, 121_856)  # the long K3's n1 and cluster classes
+LONG_DIGEST_N = (33_792, 34_816, 58_368, 66_560, 87_040, 97_280, 121_856)  # the long K3's n1 and cluster classes
+# --k1's rows a length: the flagship's 128 ch x 8 buoys at block_len 57344
+# and 96000, and the long rows of PERF.md's K3 table at 87040, 121856
+K1_ROWS = {58_368: 1024, 97_280: 1024, 87_040: 512, 117_760: 256, 128_000: 256, 121_856: 256}
 DETECT = dict(sample_rate_hz=2_400_000.0, threshold_db=-70.0, min_distance_bins=10,
               dc_notch_hz=10_000.0, confidence_floor=0.3, snr_fullscale_db=20.0)
 
@@ -170,20 +175,22 @@ def pair_main(dev, tag) -> None:
     print("pair digests (n1 = 128, 256): " + ", ".join(f"{k} {v}" for k, v in pair_digests(dev).items()) + f" {tag}")
 
 
-def k1_main(dev, tag) -> None:
-    """``--k1``: K1 and K3 at the flagship's block_len-57344 rows [1024,
-    58368] (n1 = 384, the detect plan of :data:`DETECT`), then the long
-    rows' digests."""
+def k1_main(dev, tag, lengths=(58_368,)) -> None:
+    """``--k1``: K1 and K3 at [rows, nfft] for each length (rows
+    :data:`K1_ROWS`, 1024 for a length it does not name; the detect plan of
+    :data:`DETECT`), by default the flagship's block_len-57344 rows [1024,
+    58368] (n1 = 384), then the long rows' digests."""
     g = torch.Generator(device=dev).manual_seed(0)
-    rows, nfft = 1024, 58_368
-    plan = ct_plan.detect_plan(nfft, **DETECT)
-    xr = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
-    xi = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
-    t1 = _mean_ms(lambda: fft_detect.fft_detect_rows_ct(xr, xi, plan))
-    t3 = _mean_ms(lambda: fft_rows.fft_rows_ct(xr, xi))
-    print(f"[{rows}, {nfft}], n1 = 384: K1 {t1:.4f} ms, K3 {t3:.4f} ms {tag}")
-    del xr, xi
-    torch.cuda.empty_cache()
+    for nfft in lengths:
+        rows = K1_ROWS.get(nfft, 1024)
+        plan = ct_plan.detect_plan(nfft, **DETECT)
+        xr = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
+        xi = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
+        t1 = _mean_ms(lambda: fft_detect.fft_detect_rows_ct(xr, xi, plan))
+        t3 = _mean_ms(lambda: fft_rows.fft_rows_ct(xr, xi))
+        print(f"[{rows}, {nfft}], n1 = {ct_plan.ct_split(nfft)[0]}: K1 {t1:.4f} ms, K3 {t3:.4f} ms {tag}")
+        del xr, xi
+        torch.cuda.empty_cache()
     _digests(dev, tag, short=False)
 
 
@@ -197,7 +204,9 @@ def main() -> int:
         pair_main(dev, tag)
         return 0
     if "--k1" in sys.argv[1:]:
-        k1_main(dev, tag)
+        i = sys.argv.index("--k1")
+        named = sys.argv[i + 1] if i + 1 < len(sys.argv) and not sys.argv[i + 1].startswith("-") else None
+        k1_main(dev, tag, tuple(int(n) for n in named.split(",")) if named else (58_368,))
         return 0
     g = torch.Generator(device=dev).manual_seed(0)
     for rows, nfft in ((16, 9216), (1024, 17408)):
@@ -216,7 +225,7 @@ def main() -> int:
     print(f"[{c}, {b}, {nfft}], max_lag {lag}: K8 {t8:.4f} ms {tag}")
     del x8r, x8i
     for rows, nfft in ((1024, 33_792), (1024, 34_816), (1024, 66_560), (1024, 58_368), (512, 87_040),
-                       (256, 121_856)):
+                       (1024, 97_280), (256, 121_856)):
         plan = ct_plan.detect_plan(nfft, **DETECT)
         xr = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
         xi = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)

@@ -14,8 +14,8 @@ partner element once, and keep each warp's reads of one buffer in
 distinct banks.
 
 K3 (``csrc/fft_rows_ct_cluster.cu``, the long rows with n1 = 128 and
-256; 384 takes the wide design, ``tests/test_torch_k1_cluster.py``, and
-640 and 896 the workspace design): block ``rank`` of a
+256; 384, 640 and 896 take the wide design,
+``tests/test_torch_k1_cluster.py``): block ``rank`` of a
 row's cluster owns columns [rank·n1/c, (rank+1)·n1/c) as tiles of
 ``cols`` columns, runs steps A and B on them in place, and then step C on
 slot rows [rank·n2/c, (rank+1)·n2/c), lane l gathering positions P·l + 2u
@@ -223,13 +223,13 @@ def test_cluster_size_fits_every_planned_length():
     (and the lengths the card tests force onto it), c ≤ 8 is the least of
     2, 4, 8 for which two blocks fit one SM's 228 KB, else the least whose
     block fits 227 KB; n1/c is a multiple of the tile, and step B's owners
-    cover r. The lengths with n1 = 384 take the wide design (8 blocks),
-    640 and 896 the workspace design."""
+    cover r. The lengths with n1 = 384, 640 and 896 take the wide design
+    (8 blocks)."""
     fits2 = lambda g, c: 2 * (fft_rows.cluster_smem(g.n1, g.n2, c) + 1024) <= 233_472
     for n in [17_408, 24_576] + [n for n in PLANNED if n > fft_rows.MAX_N]:
         g = fft_rows.long_geometry(n)
         if g.n1 > 256:
-            assert (g.design, g.c) == (("wide", 8) if g.n1 == 384 else ("workspace", 0)), n
+            assert (g.design, g.c) == ("wide", 8), n
             continue
         smem = fft_rows.cluster_smem(g.n1, g.n2, g.c)
         assert g.design == "cluster" and g.c <= 8 and smem <= fft_rows.SMEM_LIMIT == 232_448, n

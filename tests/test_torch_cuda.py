@@ -16,10 +16,11 @@ as its plain version is against JAX:
   (one block a row up to 24576; the long-row designs, K3 on thread-block
   clusters, at 33792, 34816, 58368, 66560, 87040 and 121856, and forced
   onto 5120-24576, where they equal the one-block outputs bit for bit;
-  ``-k cluster`` runs the cluster designs of K3 and K7 alone; at n1 = 384
-  the wide design, K1 in one launch and K3 its forward half, equal to the
-  workspace K3 → K4 bit for bit at 52224, 58368, 101376 and 129024,
-  ``-k wide_k1``); K1 ``row_max``
+  ``-k cluster`` runs the cluster designs of K3 and K7 alone; at n1 = 384,
+  640 and 896 the wide design, K1 in one launch and K3 its forward half,
+  equal to the workspace K3 → K4 bit for bit at 52224, 58368, 101376,
+  129024, 87040, 97280, 117760, 128000 and 121856, and at every planned
+  length with these n1, ``-k wide_k1``); K1 ``row_max``
   within 1e-5 relative, ``noise_floor_db`` within 1e-3 dB (log10 differs
   by ulps between libraries), segment partials exact outside
   float32-tied segments (see :func:`fragile_segments`), scores within
@@ -467,7 +468,7 @@ def test_long_kernels_match_plain(cuda_device, rows, nfft):
     re, im = tone_rows(rows, nfft, 17, n_valid=nfft - 1024)
     plan = ct_plan.detect_plan(nfft, **DET)
     xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
-    key = "wide" if fft_rows.long_geometry(nfft).design == "wide" else "long"  # n1 = 384: one launch
+    key = "wide" if fft_rows.long_geometry(nfft).design == "wide" else "long"  # n1 = 384, 640, 896: one launch
     counts = lambda: (fft_rows.design_counts[key], fft_detect.design_counts[key],
                       fft_rows.launch_count, detect_ct.launch_count, fft_detect.launch_count)
     before = counts()
@@ -757,14 +758,16 @@ def test_k8_long_design_equals_composition_and_plain(cuda_device, c, b, nfft, ma
 
 
 # the wide design's lengths: n1 = 384, r = 17, 19 (the flagship at block_len
-# 57344), 33 (one block an SM) and 42 (the longest planned, 129024)
-WIDE_K1_SHAPES = [(8, 52224), (8, 58368), (4, 101376), (2, 129024)]
+# 57344), 33 (one block an SM) and 42 (the longest planned, 129024); n1 =
+# 640, r = 17, 19 (the flagship at block_len 96000), 23, 25; n1 = 896, r = 17
+WIDE_K1_SHAPES = [(8, 52224), (8, 58368), (4, 101376), (2, 129024),
+                  (4, 87040), (4, 97280), (2, 117760), (2, 128000), (2, 121856)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,nfft", WIDE_K1_SHAPES)
 def test_wide_k1_and_k3_equal_workspace_k3_k4(cuda_device, rows, nfft):
-    """K1 at n1 = 384 is one launch of the wide design and K3 the same
+    """K1 at n1 = 384, 640, 896 is one launch of the wide design and K3 the same
     kernel without its detect half (``design_counts["wide"]``, no K4): the
     spectra, partials, floor and row max equal the workspace K3 → K4's
     (``fft_rows.workspace_rows``, the parent design) bit for bit and are
@@ -799,13 +802,16 @@ def test_wide_k1_and_k3_equal_workspace_k3_k4(cuda_device, rows, nfft):
     for detect in (True, False):
         info = fft_rows.wide_info(nfft, detect)
         assert info["c"] == 8 and info["clusters"] > 0
-        assert info["registers"] <= 65_536 // (2 * fft_rows.WIDE_THREADS)  # two blocks' worth of registers
+        # the launch bounds' register budget: two blocks' worth, or one
+        assert info["registers"] <= 65_536 // (info["min_blocks"] * fft_rows.WIDE_THREADS)
         assert info["smem"] == fft_rows.wide_smem(g.n1, g.n2, detect)
-        assert info["blocks"] == fft_rows.wide_blocks(g.n1, g.n2, detect), (detect, info)
+        # two blocks an SM wherever two fit its shared memory: the launch bounds allow them
+        assert info["blocks"] == fft_rows.wide_blocks(g.n1, g.n2, detect) <= info["min_blocks"], (detect, info)
 
 
-# every planned length whose split has n1 = 384: the wide design's 18
-WIDE_PLANNED = sorted({n for n in map(ct_plan.plan_nfft, range(1024, 131_073, 1024)) if ct_plan.ct_split(n)[0] == 384})
+# every planned length whose split has n1 = 384, 640 or 896: the wide design's 23
+WIDE_PLANNED = sorted({n for n in map(ct_plan.plan_nfft, range(1024, 131_073, 1024))
+                       if ct_plan.ct_split(n)[0] in (384, 640, 896)})
 
 
 def flat_rows(nfft):
@@ -820,12 +826,12 @@ def flat_rows(nfft):
 @pytest.mark.cuda
 @pytest.mark.parametrize("nfft", WIDE_PLANNED)
 def test_wide_k1_and_k3_run_at_every_planned_length(cuda_device, nfft):
-    """At each of the 18 planned n1 = 384 lengths, K1 and K3 are one launch
+    """At each of the 23 planned n1 = 384, 640, 896 lengths, K1 and K3 are one launch
     of the wide design each and equal the workspace K3 → K4 bit for bit, on
     two tone rows and on :func:`flat_rows`: on the zeros and the impulse the
     floor's values fill one histogram bucket past the 512 its selection
     ranks, so block 0 takes ``rm_det::bisect_floor``."""
-    assert len(WIDE_PLANNED) == 18
+    assert len(WIDE_PLANNED) == 23
     tr, ti = tone_rows(2, nfft, nfft % 89, n_valid=nfft - 1024)
     fr_, fi_ = flat_rows(nfft)
     xr = torch.from_numpy(np.concatenate([tr, fr_])).to(cuda_device)

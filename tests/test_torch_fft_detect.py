@@ -34,6 +34,8 @@ cap_cpu_threads()
     (5120, 4096, 1), (9216, 8192, 2),
     (58368, 57344, 3),  # 384·152, the flagship at block_len 57344 (the wide K1 on the card)
     (52224, 51200, 4),  # 384·136, the shortest n1 = 384 length
+    (97280, 96000, 5),  # 640·152, the flagship at block_len 96000 (the wide K1 at n1 = 640)
+    (121856, 121000, 6),  # 896·136, block_len 121000 (the wide K1 at n1 = 896)
 ])
 def test_plain_k1_matches_pallas_interpret(nfft, n_valid, seed):
     re, im = tone_rows(5, nfft, seed, n_valid=n_valid)

@@ -14,6 +14,8 @@ and K6. On the CPU both packages run their plain four-step versions.
   Tolerances of ``tests/test_torch_long_rows.py``: detections exactly,
   the floor within 1e-3 dB, lags within 1e-3 samples, the fix within
   0.5 m of JAX's and under 50 m from the emitter.
+- ``step_split`` at block_len 96000 (nfft 97280 = 640·152, the wide K1 at
+  n1 = 640 on the card) on the default route, with the same tolerances.
 - K2 and K5's plain windows vs the Pallas kernels in interpret mode at
   nfft 87040 = 640·136 and 121856 = 896·136, within 1e-4 of each
   window's max (``tests/test_torch_gcc_pair.py``'s tolerance).
@@ -44,26 +46,42 @@ ROUTES = {"default": ({}, FUSED), "two-kernel": ({"fft_detect": "off"}, TWO_KERN
 BLOCK_LEN, MAX_LAG, NFFT = 57_344, 600, 58_368
 
 
-@pytest.fixture(scope="module")
-def scene():
-    scen = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=20.0, seed=13, block_len=BLOCK_LEN)
+def _scene(block_len):
+    scen = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=20.0, seed=13, block_len=block_len)
     cap = sim.synthesize(scen)
     arrays = [np.real(cap.iq).astype(np.float32), np.imag(cap.iq).astype(np.float32),
               np.asarray(cap.buoy_enu, np.float32)]
     jcfg = jpipe.PipelineConfig(
-        num_buoys=arrays[0].shape[0], block_len=BLOCK_LEN, sample_rate_hz=scen.sample_rate_hz,
+        num_buoys=arrays[0].shape[0], block_len=block_len, sample_rate_hz=scen.sample_rate_hz,
         max_lag=MAX_LAG, power_offset_db=40.0, solver_iterations=20,
     )
     return cap, arrays, jcfg
 
 
+@pytest.fixture(scope="module")
+def scene():
+    return _scene(BLOCK_LEN)
+
+
 @pytest.mark.parametrize("route", sorted(ROUTES))
 def test_mixed_radix_step_matches_jax(scene, route, monkeypatch):
-    cap, arrays, jcfg = scene
     assert ct_plan.plan_nfft(BLOCK_LEN + MAX_LAG) == NFFT and ct_plan.ct_split(NFFT) == (384, 152)
-    # the card's designs: the long K3 (row pass P = 12), K1 through it, K2's mixed body, K8's long design
-    assert fft_rows.geometry(NFFT) == fft_detect.geometry(NFFT) == channel_step.geometry(NFFT) == "long"
-    assert gcc_pair._geometry(NFFT, MAX_LAG, "K2")[0] == 384
+    _step_matches_jax(scene, NFFT, 384, route, monkeypatch)
+
+
+def test_mixed_radix_step_matches_jax_at_block_len_96000(monkeypatch):
+    """The flagship's dwell at block_len 96000: nfft 97280 = 640·152, where
+    the card runs K1 in one launch of the wide design at n1 = 640."""
+    assert ct_plan.plan_nfft(96_000 + MAX_LAG) == 97_280 and ct_plan.ct_split(97_280) == (640, 152)
+    assert fft_rows.long_geometry(97_280).design == "wide"
+    _step_matches_jax(_scene(96_000), 97_280, 640, "default", monkeypatch)
+
+
+def _step_matches_jax(scene, nfft, n1, route, monkeypatch):
+    cap, arrays, jcfg = scene
+    # the card's designs: the wide K1/K3 (row pass P = n1/32), K2's mixed body, K8's long design
+    assert fft_rows.geometry(nfft) == fft_detect.geometry(nfft) == channel_step.geometry(nfft) == "long"
+    assert gcc_pair._geometry(nfft, MAX_LAG, "K2")[0] == n1
     knobs, (marks, kernels) = ROUTES[route]
     ref = _forced(knobs, 0, lambda: jpipe.TDOAPipeline(jcfg).step_split(*map(jnp.asarray, arrays)))
     seen = []
@@ -75,7 +93,7 @@ def test_mixed_radix_step_matches_jax(scene, route, monkeypatch):
     assert seen == marks
     assert called == kernels
     assert ours.peaks.valid.any()
-    assert int(ours.peaks.bin_index.max()) < NFFT
+    assert int(ours.peaks.bin_index.max()) < nfft
     np.testing.assert_array_equal(ours.peaks.valid.numpy(), np.asarray(ref.peaks.valid))
     np.testing.assert_array_equal(ours.peaks.bin_index.numpy(), np.asarray(ref.peaks.bin_index))
     np.testing.assert_allclose(ours.peaks.noise_floor_db.numpy(), np.asarray(ref.peaks.noise_floor_db), atol=1e-3)

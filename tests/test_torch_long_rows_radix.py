@@ -5,8 +5,10 @@ planned FFT length.
 K3's long rows run the steps of ``csrc/ct_fft.cuh`` on a row of n = n1·n2
 samples, n1 = 128, 256, 384, 640 or 896. :func:`k3_long_schedule` replays
 them in the two-pass form of the workspace design (``csrc/
-fft_rows_ct_long.cu``, which runs n1 = 384, 640, 896; its per-value
-arithmetic is every long design's, and the cluster design of
+fft_rows_ct_long.cu``, built at n1 = 384, 640, 896 as the wide design's
+comparison; its per-value arithmetic is every long design's, the wide
+design of ``csrc/fft_detect_cluster.cuh`` is replayed against it by
+``tests/test_torch_k1_cluster.py``, and the cluster design of
 ``csrc/fft_rows_ct_cluster.cu``, n1 = 128, 256, is replayed against it,
 value for value, by ``tests/test_torch_cluster_fft.py``):
 
@@ -481,7 +483,7 @@ def test_every_planned_length_has_a_kernel_on_each_route_but_f3b(route):
     of lengths no design takes is empty. K1 and K3 pick one block a row up
     to 24576 and the long design above, K8 its cluster design and its long
     one (the long K1, then K2); the long rows take the cluster design at
-    n1 = 128, 256, the wide one at 384 and the workspace one at 640, 896."""
+    n1 = 128, 256 and the wide one at 384, 640, 896."""
     seen = set()
     designs = {}
     long_designs = {}
@@ -494,7 +496,7 @@ def test_every_planned_length_has_a_kernel_on_each_route_but_f3b(route):
                 if design == "long":
                     n1 = ct_plan.ct_split(n)[0]
                     got = fft_rows.long_geometry(n).design
-                    assert got == {128: "cluster", 256: "cluster", 384: "wide"}.get(n1, "workspace"), (name, n)
+                    assert got == {128: "cluster", 256: "cluster"}.get(n1, "wide"), (name, n)
                     long_designs.setdefault(name, set()).add(got)
     want = {"default": {"K1"}, "two-kernel": {"K3", "K4"}, "unfused-detect": {"K3"}, "mega": {"K8"}}[route]
     assert want <= seen
@@ -503,7 +505,7 @@ def test_every_planned_length_has_a_kernel_on_each_route_but_f3b(route):
         assert got <= {(short[name], False), ("long", True)}, (name, got)
         if name in want:
             assert got == {(short[name], False), ("long", True)}, (name, got)
-            assert long_designs[name] == {"cluster", "wide", "workspace"}, (name, long_designs[name])
+            assert long_designs[name] == {"cluster", "wide"}, (name, long_designs[name])
 
 
 def test_wideband_k3_and_pair_stage_take_every_planned_length_but_f3b():
@@ -519,8 +521,7 @@ def test_wideband_k3_and_pair_stage_take_every_planned_length_but_f3b():
 def test_design_choice_by_length():
     """One block a row up to 24576, the long design above, for K3 and K1;
     above, the cluster design at n1 = 128 and 256, the wide design (K1 in
-    one launch, K3 its forward half) at 384, the workspace design at 640
-    and 896. K4 has one design, whose shared memory (n/8 floats, or a
+    one launch, K3 its forward half) at 384, 640 and 896. K4 has one design, whose shared memory (n/8 floats, or a
     16-column tile) fits at every planned length the fused detect takes,
     at any radius up to n2."""
     for n in PLANNED:
@@ -533,7 +534,7 @@ def test_design_choice_by_length():
         assert fft_rows.geometry(n) == want and fft_detect.geometry(n) == want, n
         assert channel_step.geometry(n) == ("cluster" if want == "block" else "long"), n
         if want == "long":
-            design = {128: "cluster", 256: "cluster", 384: "wide"}.get(n1, "workspace")
+            design = {128: "cluster", 256: "cluster"}.get(n1, "wide")
             assert fft_rows.long_geometry(n).design == design, n
     with pytest.raises(ValueError, match="radius"):
         detect_ct.geometry(17408, 137)  # radius > n2 = 136
@@ -541,11 +542,11 @@ def test_design_choice_by_length():
 
 # the instantiations fft_rows_ct_cluster.cu builds: (n1, columns a tile)
 BUILT_CLUSTER_VARIANTS = {(128, 32), (128, 16), (256, 32)}
-# fft_detect_cluster.cu (the wide design): its n1
-BUILT_WIDE = {384}
-# fft_rows_ct_long.cu (the workspace design, n1 = 640, 896, and 384 as the
-# wide design's comparison only): its row passes and column-pass variants
-# (step B's registers RMAX or 0 if streamed, outputs a thread SJ)
+# fft_detect_cluster.cuh (the wide design): its n1
+BUILT_WIDE = {384, 640, 896}
+# fft_rows_ct_long.cu (the workspace design, the wide design's comparison
+# only): its row passes and column-pass variants (step B's registers RMAX
+# or 0 if streamed, outputs a thread SJ)
 BUILT_WORKSPACE_ROWS = {384, 640, 896}
 BUILT_WORKSPACE_COLUMNS = {(24, 0), (0, 2), (0, 3)}
 
@@ -554,12 +555,12 @@ def test_long_k3_builds_only_the_variants_planned_lengths_reach():
     """Every planned length the long K3 takes (and the lengths the card
     tests force onto it: 17408, 24576) splits with a = 8 into a built
     kernel variant, and together they reach every built one: the cluster
-    design at n1 = 128 and 256, the wide design at 384, the workspace
-    design at n1 = 640 and 896 (32-column tiles, step B in registers up to
-    r = 24, else streamed with the fewest outputs a thread that cover r in
-    one pass), and at 384 the workspace design as the wide design's
-    comparison (``fft_rows.workspace_rows``, no route); a long split with
-    8 ∤ n2 raises before any launch."""
+    design at n1 = 128 and 256, the wide design at 384, 640 and 896, and
+    there the workspace design as the wide design's comparison
+    (``fft_rows.workspace_rows``, no route; 32-column tiles, step B in
+    registers up to r = 24, else streamed with the fewest outputs a thread
+    that cover r in one pass); a long split with 8 ∤ n2 raises before any
+    launch."""
     cluster, wide, rows, columns = set(), set(), set(), set()
     for n in [17408, 24576] + [n for n in PLANNED if n > fft_rows.MAX_N]:
         g = fft_rows.long_geometry(n)
@@ -568,12 +569,9 @@ def test_long_k3_builds_only_the_variants_planned_lengths_reach():
             assert g.n1 in (128, 256), n
             cluster.add((g.n1, g.cols))
             continue
-        if g.design == "wide":
-            assert g.n1 == 384 and g.c == 8 and g.cols == 48, n
-            wide.add(g.n1)
-        else:
-            assert g.design == "workspace" and g.n1 in (640, 896) and g.cols == 32, n
-        assert g.n2 <= 512, n  # the workspace design takes every such length (at 384, as the comparison)
+        assert g.design == "wide" and g.n1 in (384, 640, 896) and g.c == 8 and g.cols == g.n1 // 8, n
+        wide.add(g.n1)
+        assert g.n2 <= 512, n  # the workspace design takes every such length, as the comparison
         rows.add(g.n1)
         columns.add((24, 0) if g.r <= 24 else (0, next(sj for sj in (2, 3, 4) if g.r <= sj * WARPS)))
     assert cluster == BUILT_CLUSTER_VARIANTS and wide == BUILT_WIDE
