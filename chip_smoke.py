@@ -13,7 +13,9 @@ per source, in parallel, sm_90a), then:
    shape [1024 rows, 17408], with errors and median CUDA-event times;
 3. K2 (PHAT pair stage) vs its plain version at [128, 8, 17408] →
    [128, 28, 1025], fed K1's outputs, and at the pair body's other inner
-   length, n1 = 256: [16, 8, 34816] → [16, 28, 1025] on spectra made here;
+   length, n1 = 256: [16, 8, 34816] → [16, 28, 1025] on spectra made here
+   (window within 1e-4 of its max, same argmax), with its kernel's
+   registers, spills and blocks an SM at both;
 4. a simulated scene (4 buoys, 16384 samples, max_lag 600) through
    ``TDOAPipeline.step_split`` on the card: the fix must land within
    50 m and agree with the port's CPU run;
@@ -28,7 +30,8 @@ per source, in parallel, sm_90a), then:
    [16, 64, 5120] + s2 [16, 2016] → [16, 2016, 257], fed K3's outputs,
    and at n1 = 256, [1, 64, 34816] → [1, 2016, 1025];
    K6 (row-aligned pairs) vs its plain version and vs K5 on one
-   subchannel, [2016, 5120] × 4;
+   subchannel, [2016, 5120] × 4 (same argmax each); K5's and K6's
+   registers, spills and blocks an SM;
 8. a full-width wideband scene (64 buoys on a 12 km ring, emitter in
    subchannel 5): the active fix within 300 m and its weights well above
    a quiet subchannel's, the K6 route agreeing with the K5 route, and the
@@ -74,11 +77,12 @@ per source, in parallel, sm_90a), then:
     K3's, which must both equal K1's own partials and noise floor bit for
     bit;
 15. K2 in its l2, l1 and "cc" modes vs its plain version at [128, 8,
-    17408] → [128, 28, 1025], within 1e-4 of the window max;
+    17408] → [128, 28, 1025], within 1e-4 of the window max, same argmax;
 16. K8 (the per-channel megakernel) vs its plain version at [128, 8,
     17408], and vs K1 → K2 (l2rx) on the same block: partials, noise
     floors and windows equal bit for bit (the same device functions run
-    in the same order);
+    in the same order; the pair body folds a window by the same k-steps
+    at 512 threads); its pair plan, registers and spills;
 17. the phase-4 scene on the mega route and on the two-kernel route
     (K3 → K4 → K2): each fix within 50 m and within 0.5 m of the port's
     CPU run on the same route;
@@ -124,7 +128,13 @@ per source, in parallel, sm_90a), then:
     same argmax); K2 at [16, 8, 58368] and
     [8, 8, 121856] and K5 at [1, 64, 58368] vs plain; K8's long design at
     [16, 8, 58368] and [16, 8, 121856] equal to K1 → K2 bit for bit and
-    vs plain; K1 and K4 with ``emit_topk = 8`` at 17408, 33792 and
+    vs plain; the pair body's kernels (K2, K5, K6) at 58368, 87040 and
+    121856: registers, spills, blocks an SM; K2 at [128, 8, 58368] and, at
+    n1 = 128, K2 and K8 at [128, 8, 17408], K5 at [16, 64, 5120] and K6 at
+    [2016, 5120] × 4 back to back against ``RM_PARENT_TREE``'s
+    (``tools/forward_times.py --pair`` by path), with the n1 = 128/256
+    pair digests compared (they differ from a parent before the tensor-core
+    fold); K1 and K4 with ``emit_topk = 8`` at 17408, 33792 and
     58368 equal to their own partials + the port's top-K tail bit for
     bit, and close to their plain versions; the phase-4 scene at
     block_len 57344 on the default, two-kernel, mega and combined-topk
@@ -469,12 +479,39 @@ def _natural_radix_flops(rows, plan):
 
 
 def _fft_pair_flops(pairs, n1, n2, rows_w):
-    """The repo's pair body (``csrc/gcc_pair.cuh``): the inner inverse
-    radix-2 FFT of every CT row (5·n·log2(n1) FLOP), the inverse twiddle
-    (6·n) and the fold into the ``rows_w`` window rows (rows_w·n complex
-    FMAs, 8 FLOP each), per pair."""
+    """The repo's pair body (``csrc/gcc_pair_wide.cuh``): the inner inverse
+    FFT of every CT row (5·n·log2(n1) FLOP), the inverse twiddle (6·n) and
+    the fold into the ``rows_w`` window rows (rows_w·n complex FMAs, 8 FLOP
+    each), per pair."""
     n = n1 * n2
     return pairs * (5.0 * n * math.log2(n1) + 6.0 * n + 8.0 * rows_w * n)
+
+
+PAIR_KERNELS = {"K2": ("gcc_pair_tile_kernel<{n1}, 0>", 2), "K5": ("gcc_pair_tile_kernel<{n1}, 1>", None),
+                "K6": ("gcc_rows_kernel<{n1}>", 1)}  # the pair body's kernels: name, pairs a tile (None: TILE_PAIRS)
+
+
+def _pair_kernel_info(build, gcc_pair, ct_plan, kind, n, lag):
+    """What the card makes of the pair body's kernel of ``kind`` at nfft
+    ``n``, max_lag ``lag``: registers, spills (the build's -Xptxas -v
+    report), local memory and blocks of 256 threads an SM at its launch's
+    shared memory (``gcc_pair.wide_info``), and the launch plan."""
+    n1, n2 = ct_plan.ct_split(n)
+    name, pairs = PAIR_KERNELS[kind]
+    plan = gcc_pair.wide_plan(n1, n2, *gcc_pair.window_rows(n, lag), pairs or gcc_pair.TILE_PAIRS)
+    info = gcc_pair.wide_info(kind, n1, plan.smem)
+    ptx = {r["kernel"]: r for r in build.ptxas_report(build.build_log())}[name.format(n1=n1)]
+    return {"kernel": kind, "name": name.format(n1=n1), "nfft": n, "n1": n1, "max_lag": lag,
+            "registers": info["registers"], "spill_bytes": ptx["spill_stores"] + ptx["spill_loads"],
+            "local_bytes": info["local_bytes"], "blocks_an_sm": info["blocks"], "smem_bytes": plan.smem,
+            "pairs_a_block": plan.pairs, "rows_a_chunk": plan.rows, "ntiles_a_block": plan.ntg}
+
+
+def _pair_info_text(i):
+    return (f"{i['name']} at nfft {i['nfft']}, max_lag {i['max_lag']}: {i['registers']} registers, spills "
+            f"{i['spill_bytes']} B, local memory {i['local_bytes']} B, {i['blocks_an_sm']} blocks of 256 threads an "
+            f"SM at {i['smem_bytes']} B of shared memory ({i['pairs_a_block']} pair(s) a block, {i['rows_a_chunk']} "
+            f"rows a chunk, {i['ntiles_a_block']} n-tile(s) a pair)")
 
 
 def _ct_spectra(torch, ct_plan, c, b, nfft, dev, seed):
@@ -580,17 +617,31 @@ def _path_run(torch, counters, step, args, reps):
                  "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+# tools/forward_times.py --pair's times at n1 = 128: key -> shape
+PAIR_SHAPES = {"K2 17408": [128, 8, 17408], "K8 17408": [128, 8, 17408], "K5 5120": [16, 64, 5120],
+               "K6 5120": [2016, 5120]}
+
+
 def _pair_times(tree):
     """``tools/forward_times.py --pair`` of this checkout run by path on the
-    package under ``tree`` (this checkout's or a parent's): K2 at [128, 8,
-    58368] in ms and the n1 = 128/256 pair digests."""
+    package under ``tree`` (this checkout's or a parent's): ``{key: ms}``
+    for K2 at [128, 8, 58368] (``"K2 58368"``) and :data:`PAIR_SHAPES`, and
+    the n1 = 128/256 pair digests."""
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "radio_mapper_tpu_torch", "tools",
                           "forward_times.py")
     out = subprocess.run([sys.executable, script, "--pair"], env={**os.environ, "PYTHONPATH": tree},
                          capture_output=True, text=True, timeout=600, check=True).stdout
-    ms = float(re.search(r"\[128, 8, 58368\], max_lag 600: K2 ([0-9.]+) ms", out).group(1))
+    num = lambda pattern: float(re.search(pattern, out).group(1))
+    times = {"K2 58368": num(r"\[128, 8, 58368\], max_lag 600: K2 ([0-9.]+) ms"),
+             "K2 17408": num(r"\[128, 8, 17408\], max_lag 512: K2 ([0-9.]+) ms"),
+             "K8 17408": num(r"\[128, 8, 17408\], max_lag 512: K2 [0-9.]+ ms, K8 ([0-9.]+) ms"),
+             "K5 5120": num(r"\[16, 64, 5120\], max_lag 128: K5 ([0-9.]+) ms"),
+             "K6 5120": num(r"K6 \[2016, 5120\] x 4 ([0-9.]+) ms")}
+    one = re.search(r"K5 \(one pair a block\) ([0-9.]+) ms", out)
+    if one:  # K5 in the tile kernel, also timed one pair a block
+        times["K5 5120 one pair a block"] = float(one.group(1))
     digests = re.search(r"pair digests \(n1 = 128, 256\): (.*) \[", out).group(1)
-    return ms, digests
+    return times, digests
 
 
 K1_LENGTHS = (58_368, 97_280, 121_856)  # forward_times.py --k1's lengths here: n1 = 384, 640, 896
@@ -609,7 +660,7 @@ def _k1_times(tree):
     for n in K1_LENGTHS:
         m = re.search(rf"\[([0-9]+), {n}\], n1 = [0-9]+: K1 ([0-9.]+) ms, K3 ([0-9.]+) ms", out)
         times[n] = (int(m.group(1)), float(m.group(2)), float(m.group(3)))
-    digests = re.search(r"long digests \([0-9, ]+\): (.*) \[", out).group(1)
+    digests = re.search(r"long digests \([^)]*\): (.*) \[", out).group(1)
     return times, digests
 
 
@@ -2161,17 +2212,19 @@ def main() -> int:
     torch.cuda.synchronize()
     win_abs = (k2 - p2).abs().max().item()
     win_rel = ((k2 - p2).abs().amax(-1) / p2.abs().amax(-1)).max().item()
+    k2_same = bool((k2.argmax(-1) == p2.argmax(-1)).all())
     k2_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_pair_lag_mags(sre, sim_, smax, pi, pj, max_lag=lag))
     k2_plain_ms = _cuda_ms(
         torch, lambda: gcc_pair.gcc_pair_lag_mags_plain(sre, sim_, smax, pi, pj, max_lag=lag)
     )
     print(
         f"phase 3: K2 [{chans}, {buoys}, {nfft}] -> {list(k2.shape)} window max|err| {win_abs:.3e} "
-        f"(rel to window max {win_rel:.3e}, tol 1e-4); kernel {k2_ms:.3f} ms, plain "
+        f"(rel to window max {win_rel:.3e}, tol 1e-4), same argmax {k2_same}; kernel {k2_ms:.3f} ms, plain "
         f"{k2_plain_ms:.3f} ms {tag}"
     )
     _require(tuple(k2.shape) == (chans, len(pi), 2 * lag + 1), "K2 output shape")
-    _require(win_rel <= 1e-4, f"K2 lag windows disagree: {win_rel}")
+    _require(win_rel <= 1e-4 and k2_same, f"K2 lag windows disagree: {win_rel}")
+    pair_info = [_pair_kernel_info(build, gcc_pair, ct_plan, "K2", n_, lag) for n_ in (nfft, 34_816)]
     n256 = 34_816  # = 256·136: the pair body's warp FFT at n1 = 256
     s256 = _ct_spectra(torch, ct_plan, 16, buoys, n256, dev, seed=3)
     k2b = gcc_pair.gcc_pair_lag_mags(*s256, pi, pj, max_lag=lag)
@@ -2188,6 +2241,9 @@ def main() -> int:
     _require(ct_plan.ct_split(n256)[0] == 256 and tuple(k2b.shape) == (16, len(pi), 2 * lag + 1),
              "K2 n1 = 256 shape")
     _require(k2b_rel <= 1e-4 and k2b_same, f"K2 lag windows disagree at n1 = 256: {k2b_rel}")
+    for i in pair_info:
+        print(f"phase 3: K2 {_pair_info_text(i)} {tag}")
+        _require(i["spill_bytes"] == 0 and i["local_bytes"] == 0 and i["blocks_an_sm"] >= 2, f"K2: {i}")
     del s256, k2b, p2b
     del k1, p1, k2, p2, fr, fi, score, arg, pfr, pfi, pscore, parg, xr, xi, re, im, raw
 
@@ -2309,6 +2365,7 @@ def main() -> int:
     p5 = gcc_pair.gcc_pairs_onehot_lag_mags_plain(f3r, f3i, wpi, wpj, s2=s2, **kw)
     torch.cuda.synchronize()
     k5_abs, k5_rel = _window_errors(k5, p5)
+    k5_same = bool((k5.argmax(-1) == p5.argmax(-1)).all())
     k5_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_pairs_onehot_lag_mags(f3r, f3i, wpi, wpj, s2=s2, **kw))
     k5_plain_ms = _cuda_ms(
         torch, lambda: gcc_pair.gcc_pairs_onehot_lag_mags_plain(f3r, f3i, wpi, wpj, s2=s2, **kw)
@@ -2320,18 +2377,26 @@ def main() -> int:
     p6 = gcc_pair.gcc_rows_lag_mags_plain(*rows, s2=s2_0, **kw)
     torch.cuda.synchronize()
     k6_abs, k6_rel = _window_errors(k6, p6)
+    k6_same = bool((k6.argmax(-1) == p6.argmax(-1)).all())
     k65_abs, k65_rel = _window_errors(k6, k5[0])
     k6_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_rows_lag_mags(*rows, s2=s2_0, **kw))
     k6_plain_ms = _cuda_ms(torch, lambda: gcc_pair.gcc_rows_lag_mags_plain(*rows, s2=s2_0, **kw))
     print(
         f"phase 7: K5 [{m_sub}, {wb}, {wn}] -> {list(k5.shape)} window max|err| {k5_abs:.3e} (rel to "
-        f"window max {k5_rel:.3e}, tol 1e-4); kernel {k5_ms:.3f} ms, plain {k5_plain_ms:.3f} ms; "
-        f"K6 [{wp}, {wn}] x 4 -> {list(k6.shape)} max|err| {k6_abs:.3e} (rel {k6_rel:.3e}), vs K5 "
-        f"{k65_abs:.3e} (rel {k65_rel:.3e}), tol 1e-4; kernel {k6_ms:.3f} ms, plain {k6_plain_ms:.3f} ms {tag}"
+        f"window max {k5_rel:.3e}, tol 1e-4), same argmax {k5_same}; kernel {k5_ms:.3f} ms, plain "
+        f"{k5_plain_ms:.3f} ms; K6 [{wp}, {wn}] x 4 -> {list(k6.shape)} max|err| {k6_abs:.3e} (rel {k6_rel:.3e}), "
+        f"same argmax {k6_same}, vs K5 {k65_abs:.3e} (rel {k65_rel:.3e}), tol 1e-4; kernel {k6_ms:.3f} ms, plain "
+        f"{k6_plain_ms:.3f} ms {tag}"
     )
     _require(tuple(k5.shape) == (m_sub, wp, 2 * wlag + 1), "K5 output shape")
     _require(tuple(k6.shape) == (wp, 2 * wlag + 1), "K6 output shape")
-    _require(k5_rel <= 1e-4, f"K5 lag windows disagree: {k5_rel}")
+    _require(k5_rel <= 1e-4 and k5_same, f"K5 lag windows disagree: {k5_rel}")
+    _require(k6_same, "K6's window peaks differ from the plain version's")
+    pair_info += [_pair_kernel_info(build, gcc_pair, ct_plan, kind, wn, wlag) for kind in ("K5", "K6")]
+    pair_info.append(_pair_kernel_info(build, gcc_pair, ct_plan, "K5", 34_816, 512))
+    for i in pair_info[-3:]:
+        print(f"phase 7: {i['kernel']} {_pair_info_text(i)} {tag}")
+        _require(i["spill_bytes"] == 0 and i["local_bytes"] == 0 and i["blocks_an_sm"] >= 2, f"{i['kernel']}: {i}")
     n256 = 34_816  # n1 = 256
     b256r, b256i, b256m = _ct_spectra(torch, ct_plan, 1, wb, n256, dev, seed=4)
     s2b = (b256m[:, ti] * b256m[:, tj]).contiguous()
@@ -2741,7 +2806,8 @@ def main() -> int:
             f"plain {m_plain_ms:.3f} ms (l2rx: kernel {k2_ms:.3f}) {tag}"
         )
         _require(tuple(k2.shape) == (chans, npairs, width), f"K2 {mode} output shape")
-        _require(m_rel <= 1e-4, f"K2 {mode} lag windows disagree: {m_rel}")
+        _require(m_rel <= 1e-4 and same_arg, f"K2 {mode} lag windows disagree: {m_rel}")
+    print(f"phase 15: every gate runs K2's kernel {_pair_info_text(pair_info[0])} {tag}")
     del k2, p2
 
     # ---- phase 16: K8 vs plain, and vs K1 -> K2 (l2rx) on the same block
@@ -2772,6 +2838,14 @@ def main() -> int:
     )
     _require(k8_rel <= 1e-4 and k8_nf <= 1e-3 and k8_pattern <= 1e-3, "K8 disagrees with its plain version")
     _require(all(k8_same.values()), f"K8 differs from K1 -> K2: {k8_same}")
+    k8_plan = channel_step.pair_plan(nfft, *gcc_pair.window_rows(nfft, lag))
+    k8_ptx = [r for r in build.ptxas_report(build.build_log()) if r["kernel"].startswith("channel_step_kernel<")]
+    print(f"phase 16: K8's pair half: K2's body on 512 threads, {k8_plan.pairs} pair(s) a tile, {k8_plan.rows} rows a "
+          f"chunk, {k8_plan.smem} B of its row's {nfft * 8} B of shared memory; "
+          + "; ".join(f"{r['kernel']} {r['registers']} registers, spills {r['spill_stores']}/{r['spill_loads']} B"
+                      for r in k8_ptx) + f", one 512-thread block an SM {tag}")
+    _require(k8_plan.smem <= nfft * 8 and all(r["spill_stores"] == r["spill_loads"] == 0 for r in k8_ptx),
+             f"K8's pair half: {k8_plan}, {k8_ptx}")
     del k8, p8, w12, fr1, fi1, s1, a1, nf1, rmax1, sre, sim_, smax, xr, xi
     torch.cuda.empty_cache()
 
@@ -3404,29 +3478,17 @@ def main() -> int:
     )
     del mraw, mout, mre, mim
 
-    # the wide pair body: one kernel a length for K2, K5 and K6, its registers,
-    # spills and resident blocks at the launches' shared memory (max_lag 600)
-    ptx = {r["kernel"]: r for r in build.ptxas_report(build.build_log()) if "_wide_kernel<" in r["kernel"]}
-    wide_kernels = []
-    for kind, pairs, kname in (("K2", 2, "gcc_pair"), ("K5", 1, "gcc_pairs_onehot"), ("K6", 1, "gcc_rows")):
+    # the pair body at the mixed lengths: one kernel a length for K2, K5 and
+    # K6, its registers, spills and resident blocks at the launches' shared
+    # memory (max_lag 600); n1 = 128 and 256 in phases 3 and 7
+    wide_kernels = [i for i in pair_info]
+    for kind in ("K2", "K5", "K6"):
         for xn in (58_368, 87_040, 121_856):
-            xn1, xn2 = ct_plan.ct_split(xn)
-            wplan = gcc_pair.wide_plan(xn1, xn2, *gcc_pair.window_rows(xn, 600), pairs)
-            info = gcc_pair.wide_info(kind, xn1, wplan.smem)
-            spill = ptx[f"{kname}_wide_kernel<{xn1}>"]
-            wide_kernels.append({"kernel": kind, "n1": xn1, "registers": info["registers"],
-                                 "spill_bytes": spill["spill_stores"] + spill["spill_loads"],
-                                 "local_bytes": info["local_bytes"], "blocks_an_sm": info["blocks"],
-                                 "smem_bytes": wplan.smem, "pairs_a_block": wplan.pairs, "rows_a_chunk": wplan.rows})
-            print(
-                f"phase 20: {kind} wide kernel {kname}_wide_kernel<{xn1}> at nfft {xn}: {info['registers']} registers, "
-                f"spills {spill['spill_stores']}/{spill['spill_loads']} B, local memory {info['local_bytes']} B, "
-                f"{info['blocks']} blocks of 256 threads an SM at {wplan.smem} B of shared memory ({wplan.pairs} "
-                f"pair(s) a block, {wplan.rows} rows a chunk) {tag}"
-            )
-            _require(info["local_bytes"] == 0 and spill["spill_stores"] == 0 and spill["spill_loads"] == 0,
-                     f"{kind} wide kernel at n1 = {xn1} spills")
-            _require(info["blocks"] >= (2 if xn1 == 384 else 1), f"{kind} wide kernel at n1 = {xn1}: {info}")
+            i = _pair_kernel_info(build, gcc_pair, ct_plan, kind, xn, 600)
+            wide_kernels.append(i)
+            print(f"phase 20: {kind} {_pair_info_text(i)} {tag}")
+            _require(i["local_bytes"] == 0 and i["spill_bytes"] == 0, f"{kind} at n1 = {i['n1']} spills")
+            _require(i["blocks_an_sm"] >= (2 if i["n1"] == 384 else 1), f"{kind} at n1 = {i['n1']}: {i}")
 
     # K2 at [128, 8, 58368] beside the parent's, back to back in this call
     # (tools/forward_times.py --pair by path: parent, this, this, parent);
@@ -3436,19 +3498,32 @@ def main() -> int:
     parent_tree = os.environ.get("RM_PARENT_TREE")
     order = [parent_tree, here, here, parent_tree] if parent_tree else [here]
     k2_runs = [(tree, *_pair_times(tree)) for tree in order]
-    ours = [ms for tree, ms, _ in k2_runs if tree == here]
-    theirs = [ms for tree, ms, _ in k2_runs if tree != here]
+    ours = [t["K2 58368"] for tree, t, _ in k2_runs if tree == here]
+    theirs = [t["K2 58368"] for tree, t, _ in k2_runs if tree != here]
     k2_parent = {"ms": ours, "parent_ms": theirs or None}
     print(
         f"phase 20: K2 at [128, 8, 58368] (flagship at block_len 57344, max_lag 600) back to back: this tree "
         f"{', '.join(f'{t:.4f}' for t in ours)} ms"
         + (f", parent {', '.join(f'{t:.4f}' for t in theirs)} ms" if theirs else " (RM_PARENT_TREE unset: no parent)")
-        + f"; pair digests at n1 = 128, 256: {k2_runs[0][2]} {tag}"
+        + f"; pair digests at n1 = 128, 256: {next(d for tree, _, d in k2_runs if tree == here)} {tag}"
     )
+    narrow_parent = {}  # the pair kernels at n1 = 128 on the main paths' shapes, this tree and the parent's
+    for key, shape in PAIR_SHAPES.items():
+        narrow_parent[key] = {"shape": shape, "ms": [t[key] for tree, t, _ in k2_runs if tree == here],
+                              "parent_ms": [t[key] for tree, t, _ in k2_runs if tree != here] or None}
+        if key == "K5 5120":
+            narrow_parent[key]["one_pair_a_block_ms"] = [t[key + " one pair a block"] for tree, t, _ in k2_runs
+                                                         if tree == here]
+        print(f"phase 20: {key} {shape} back to back: this tree "
+              + ", ".join(f"{t:.4f}" for t in narrow_parent[key]["ms"]) + " ms"
+              + ("" if key != "K5 5120" else " in tiles of six, one pair a block "
+                 + ", ".join(f"{t:.4f}" for t in narrow_parent[key]["one_pair_a_block_ms"]) + " ms")
+              + (", parent " + ", ".join(f"{t:.4f}" for t in narrow_parent[key]["parent_ms"]) + " ms" if theirs
+                 else "") + f" {tag}")
     if theirs:
         same = len({d for _, _, d in k2_runs}) == 1
-        print(f"phase 20: n1 = 128/256 pair digests equal the parent's: {same} {tag}")
-        _require(same, "the n1 = 128/256 pair kernels differ from the parent's")
+        print(f"phase 20: n1 = 128/256 pair digests equal the parent's: {same} (the fold's TF32 split changes "
+              f"their bits; phases 3, 7, 15 and 16 hold them to the plain versions) {tag}")
     # K1 and K3 at [1024, 58368], [1024, 97280] and [256, 121856] beside the
     # parent's (tools/forward_times.py --k1 by path: parent, this, this,
     # parent), and the long rows' digests
@@ -3468,8 +3543,9 @@ def main() -> int:
     print(f"phase 20: long digests: {k1_runs[0][2]} {tag}")
     if theirs:
         same = len({d for *_, d in k1_runs}) == 1
-        print(f"phase 20: long-row digests (K3, K4, K1, K8 at 33792 ... 121856, the wide design at 58368, 87040, "
-              f"97280, 121856) equal the parent's: {same} {tag}")
+        print(f"phase 20: long-row digests (K3, K4, K1 at 33792 ... 121856, the wide design at 58368, 87040, "
+              f"97280, 121856) equal the parent's: {same} (K8's long design, whose K2 folds on tensor cores "
+              f"otherwise since this tree, is held to K1 -> K2 above) {tag}")
         _require(same, "the long-row kernels differ from the parent's")
 
     # ---- phase 21: the complex step (TDOAPipeline.step) on the phase-4 scene, card vs CPU
@@ -3840,6 +3916,8 @@ def main() -> int:
               mixed_rows=mixed("K2"), launches_block_len_57344=mixed_launches.get("gcc_pair_lag_mags", 0),
               launches_block_len_96000=launches96.get("gcc_pair_lag_mags", 0),
               wide_kernels=[w for w in wide_kernels if w["kernel"] == "K2"], flagship_57344_back_to_back=k2_parent,
+              flagship_back_to_back=narrow_parent["K2 17408"],
+              sources=[f"radio_mapper_tpu_torch/csrc/{f}" for f in ("gcc_pair.cu", "gcc_pair_wide.cuh", "gcc_pair.cuh")],
               launches_ingest=ingest["launches"].get("gcc_pair_lag_mags", 0),
               launches_bench=by_leg("gcc_pair_lag_mags"),
               parallel=parallel("gcc_pair_lag_mags")),
@@ -3862,6 +3940,7 @@ def main() -> int:
                      m_sub * wb * wn * 8 + m_sub * wp * 4 + m_sub * wp * w_width * 4),
               _fft_pair_flops(m_sub * wp, wn1, wn2, w_rows), mixed_rows=mixed("K5"),
               wide_kernels=[w for w in wide_kernels if w["kernel"] == "K5"],
+              wideband_back_to_back=narrow_parent["K5 5120"],
               launches_bench=by_leg("gcc_pairs_onehot_lag_mags"),
               parallel=parallel("gcc_pairs_onehot_lag_mags")),
         entry("gcc_rows_lag_mags", "gcc_pair.cu", "gcc_kernel.py:548",
@@ -3869,6 +3948,7 @@ def main() -> int:
               _bound(_pair_flops(wp, wn, w_width), 4 * wp * wn * 4 + wp * 4 + wp * w_width * 4),
               _fft_pair_flops(wp, wn1, wn2, w_rows),
               wide_kernels=[w for w in wide_kernels if w["kernel"] == "K6"],
+              wideband_back_to_back=narrow_parent["K6 5120"],
               launches_bench=by_leg("gcc_rows_lag_mags"),
               parallel=parallel("gcc_rows_lag_mags")),
         entry("fft_rows", "fft_natural_radix.cu", "fft_kernel.py:212",
@@ -3893,7 +3973,8 @@ def main() -> int:
               route_launches["channel_step_partials"], k8_abs, k8_ms, k8_plain_ms, k8_bound, k1_radix + k2_fft,
               sources=[f"radio_mapper_tpu_torch/csrc/{f}" for f in
                        ("channel_step.cu", "fft_rows_ct_cluster.cu", "fft_detect_cluster.cu",
-                        "fft_detect_cluster_mixed.cu", "detect_ct.cu", "gcc_pair.cu")],
+                        "fft_detect_cluster_mixed.cu", "detect_ct.cu", "gcc_pair.cu", "gcc_pair_wide.cuh")],
+              flagship_back_to_back=narrow_parent["K8 17408"],
               long_rows=mixed("K8"), long_launches_block_len_57344_mega=mega_long_launches,
               parallel=parallel("channel_step_partials")),
     ]}))

@@ -19,17 +19,21 @@
 //      receiver's l2rx gate input;
 //   2. the cluster barrier (after a device-scope fence): the channel's B
 //      spectra and maxima are complete;
-//   3. block `rank` runs gcc_pair.cuh's pair_lag_window, the body of
-//      kernel K2, for pairs p = rank, rank + B, ..., reading the partners'
-//      spectra from the scratch through L2 (__ldcg), in the shared memory
-//      the row no longer needs.
+//   3. block `rank` runs gcc_pair_wide.cuh's wide_pair_body, the body of
+//      kernel K2, on K2's tiles t = rank, rank + B, ... (two pairs that
+//      share a receiver, gcc_pair.wide_tiles), its bulk copies reading the
+//      partners' spectra from the scratch (async-proxy reads, ordered after
+//      the other blocks' writes by proxy fences on both sides of the
+//      barrier), in the shared memory the row no longer needs
+//      (channel_step.pair_plan: the pair buffers fit the row's n float2).
 //
 // The same device functions run in the same order, with the same template
-// arguments (step B's register tile RMAX) and the same 512 threads, as K1
-// followed by K2 with the l2rx gate (the pair body sums its chunks in k2
-// order at any block size), so the partials, noise floors and windows
-// equal that composition's bit for bit. The gate is l2rx whatever
-// set_phat_gate says, as in the reference.
+// arguments (step B's register tile RMAX) and the same 512 threads, as K1,
+// followed by K2's body with the l2rx gate (which folds a pair's window by
+// the same k-steps of 4 rows in k2 order at any chunk size, tile or block
+// size: 512 threads split its accumulator slots in two), so the partials,
+// noise floors and windows equal that composition's bit for bit. The gate
+// is l2rx whatever set_phat_gate says, as in the reference.
 //
 // Design taken: spectra through a device-memory scratch (1.1 MB per
 // channel, written once and read back at once, mostly from L2). The other
@@ -39,11 +43,10 @@
 // 209 KB per block (spectrum + candidate scratch, power recomputed from the
 // spectrum) before the pair buffers, and remote reads in the inner loop.
 //
-// What bounds it as written: the pair half, gcc_pair.cuh's warp-shuffle
-// inverse FFT body (iwr: W_n1^-e, e < n1/2), whose window fold is its
-// largest part, at one 512-thread block per SM (the row's shared memory is
-// reserved for the whole launch); the forward half is K1's radix body,
-// bound by its bytes and barriers.
+// What bounds it as written: the forward half, K1's radix body, bound by
+// its bytes and barriers, at one 512-thread block per SM (the row's shared
+// memory is reserved for the whole launch); the pair half is K2's body
+// (bulk copies, the fold on tensor cores) at that one block an SM.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -51,6 +54,7 @@
 #include "ct_detect.cuh"
 #include "ct_fft.cuh"
 #include "gcc_pair.cuh"
+#include "gcc_pair_wide.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -68,15 +72,15 @@ channel_step_kernel(const float* __restrict__ xre, const float* __restrict__ xim
                     const float2* __restrict__ w128, const float2* __restrict__ wn2,
                     const float2* __restrict__ wr, const float2* __restrict__ ftw,
                     const float2* __restrict__ iwr, const float2* __restrict__ iw2,
-                    const float2* __restrict__ itw,
-                    const int* __restrict__ pair_i, const int* __restrict__ pair_j,
+                    const float2* __restrict__ itwx, const int* __restrict__ tiles,
                     float* fre, float* fim, float* smax,
                     float* __restrict__ seg_score, float* __restrict__ seg_arg,
                     float* __restrict__ nf_out, float* __restrict__ out,
-                    int nb, int np, int n2, int r, int nneg, int npos, int max_lag,
-                    float eps2, float inv_n, DetectParams prm) {
-  extern __shared__ float4 smem[];  // float4: step C and the pair body move 16 bytes at a time
+                    int nb, int np, int ntiles, int n2, int r, int nneg, int npos, int max_lag,
+                    int nsrc, int rows, int ntg, int groups, float eps2, float inv_n, DetectParams prm) {
+  extern __shared__ float4 smem[];  // float4: step C moves 16 bytes at a time
   float2* xs = reinterpret_cast<float2*>(smem);  // [n] slot rows + [64] W_128; later the pair buffers
+  __shared__ rm_wide::Tile tile;
   cg::cluster_group cluster = cg::this_cluster();
 
   const int n = N1 * n2;
@@ -97,34 +101,38 @@ channel_step_kernel(const float* __restrict__ xre, const float* __restrict__ xim
     smax[row] = res.y;
   }
 
-  // ---- 2. the channel's spectra and maxima are complete
+  // ---- 2. the channel's spectra and maxima are complete (and ordered
+  // before the bulk copies that read them)
+  rm_wide::fence_proxy_async_global();
   __threadfence();
   cluster.sync();
 
-  // ---- 3. K2's body (l2rx) for pairs rank, rank + nb, ...
-  const float* cre = fre + static_cast<size_t>(c) * nb * n;
-  const float* cim = fim + static_cast<size_t>(c) * nb * n;
-  const float* csm = smax + static_cast<size_t>(c) * nb;
+  // ---- 3. K2's body (l2rx) on tiles rank, rank + nb, ...
+  const size_t co = static_cast<size_t>(c) * nb * n;
   const int width = 2 * max_lag + 1;
-  for (int p = rank; p < np; p += nb) {
-    const int bi = __ldg(pair_i + p), bj = __ldg(pair_j + p);
-    const float floor2 = eps2 * (__ldcg(csm + bi) * __ldcg(csm + bj));
-    const size_t xo = static_cast<size_t>(bi) * n, yo = static_cast<size_t>(bj) * n;
-    rm_pair::pair_lag_window<K8_THREADS, true>(
-        cre + xo, cim + xo, cre + yo, cim + yo, rm_pair::GATE_L2RX, floor2, eps2, 0.f,
-        iwr, iw2, itw, out + (static_cast<size_t>(c) * np + p) * width, xs,
-        N1, n2, nneg, npos, max_lag, inv_n);
-    __syncthreads();  // the next pair zeroes the window buffers
+  for (int ti = rank; ti < ntiles; ti += nb) {
+    for (int grp = 0; grp < groups; ++grp) {
+      if (threadIdx.x == 0) {
+        rm_wide::load_tile<true>(tile, tiles + rm_wide::TILE_INTS * ti, fre + co, fim + co,
+                                 smax + static_cast<size_t>(c) * nb, out + static_cast<size_t>(c) * np * width, n,
+                                 width, rm_pair::GATE_L2RX, eps2);
+      }
+      rm_wide::wide_pair_body<N1, K8_THREADS>(tile, rm_pair::GATE_L2RX, eps2, 0.f, iwr, iw2, itwx,
+                                              reinterpret_cast<float*>(xs), nsrc, n2, nneg, npos, max_lag,
+                                              inv_n, rows, ntg, grp);
+      __syncthreads();  // the next body call rewrites the tile and the buffers
+    }
   }
 }
 
 template <int RMAX>
 int launch(const float* xre, const float* xim, const float2* w128, const float2* wn2, const float2* wr,
-           const float2* ftw, const float2* iwr, const float2* iw2, const float2* itw,
-           const int* pair_i, const int* pair_j, float* fre, float* fim, float* smax,
+           const float2* ftw, const float2* iwr, const float2* iw2, const float2* itwx,
+           const int* tiles, float* fre, float* fim, float* smax,
            float* seg_score, float* seg_arg, float* nf, float* out,
-           int nc, int nb, int np, int n2, int r, int nneg, int npos, int max_lag,
-           float eps2, float inv_n, const DetectParams& prm, cudaStream_t stream) {
+           int nc, int nb, int np, int ntiles, int n2, int r, int nneg, int npos, int max_lag,
+           int nsrc, int rows, int ntg, int groups, float eps2, float inv_n, const DetectParams& prm,
+           cudaStream_t stream) {
   const size_t smem = (static_cast<size_t>(N1) * n2 + N1 / 2) * sizeof(float2);  // row + W_128
   cudaError_t e = cudaFuncSetAttribute(
       channel_step_kernel<RMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -146,9 +154,9 @@ int launch(const float* xre, const float* xim, const float2* w128, const float2*
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, channel_step_kernel<RMAX>,
-                         xre, xim, w128, wn2, wr, ftw, iwr, iw2, itw, pair_i, pair_j,
+                         xre, xim, w128, wn2, wr, ftw, iwr, iw2, itwx, tiles,
                          fre, fim, smax, seg_score, seg_arg, nf, out,
-                         nb, np, n2, r, nneg, npos, max_lag, eps2, inv_n, prm);
+                         nb, np, ntiles, n2, r, nneg, npos, max_lag, nsrc, rows, ntg, groups, eps2, inv_n, prm);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -158,35 +166,35 @@ int launch(const float* xre, const float* xim, const float2* w128, const float2*
 extern "C" int rm_channel_step_partials(
     const float* xre, const float* xim,
     const float2* w128, const float2* wn2, const float2* wr, const float2* ftw,
-    const float2* iwr, const float2* iw2, const float2* itw,
-    const int* pair_i, const int* pair_j,
+    const float2* iwr, const float2* iw2, const float2* itwx, const int* tiles,
     float* fre, float* fim, float* smax,
     float* seg_score, float* seg_arg, float* nf, float* out,
-    int nc, int nb, int np, int n2, int a, int r, int nneg, int npos, int max_lag,
+    int nc, int nb, int np, int ntiles, int n2, int a, int r, int nneg, int npos, int max_lag,
+    int nsrc, int rows, int ntg, int groups,
     float eps2, float inv_n,
     int radius, int keep_lo, int keep_hi,
     float thr_lin, int has_conf, float conf_cs, float off, int bisect_iters,
     cudaStream_t stream) {
-  // the pair buffers start at the row and stay inside its n float2 (W_128 after it is left alone)
-  if (a != rm_fft::HANDOFF_A || a * r != n2 || !rm_pair::pair_n1_supported(N1) ||
-      rm_pair::pair_smem_bytes<K8_THREADS>(N1, nneg, npos) > static_cast<size_t>(N1) * n2 * sizeof(float2)) {
+  // the pair body's buffers start at the row and stay inside its n float2
+  // (W_128 after it is left alone)
+  if (a != rm_fft::HANDOFF_A || a * r != n2 || nsrc < 2 || nsrc > rm_wide::MAX_SRC || rows % 4 != 0 ||
+      ntg * (nsrc - 1) > rm_wide::SLOTS<N1> ||
+      rm_wide::smem_floats(N1, n2, nsrc, rows, ntg) * sizeof(float) > static_cast<size_t>(N1) * n2 * sizeof(float2)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DetectParams prm{radius, keep_lo, keep_hi, thr_lin, has_conf, conf_cs, off, bisect_iters};
+#define RM_K8_LAUNCH(R)                                                                                         \
+  launch<R>(xre, xim, w128, wn2, wr, ftw, iwr, iw2, itwx, tiles, fre, fim, smax, seg_score, seg_arg, nf, out, nc, \
+            nb, np, ntiles, n2, r, nneg, npos, max_lag, nsrc, rows, ntg, groups, eps2, inv_n, prm, stream)
   switch (rm_fft::handoff_rmax(r)) {
     case 8:
-      return launch<8>(xre, xim, w128, wn2, wr, ftw, iwr, iw2, itw, pair_i, pair_j, fre, fim, smax,
-                       seg_score, seg_arg, nf, out, nc, nb, np, n2, r, nneg, npos, max_lag, eps2, inv_n,
-                       prm, stream);
+      return RM_K8_LAUNCH(8);
     case 16:
-      return launch<16>(xre, xim, w128, wn2, wr, ftw, iwr, iw2, itw, pair_i, pair_j, fre, fim, smax,
-                        seg_score, seg_arg, nf, out, nc, nb, np, n2, r, nneg, npos, max_lag, eps2, inv_n,
-                        prm, stream);
+      return RM_K8_LAUNCH(16);
     case 24:
-      return launch<24>(xre, xim, w128, wn2, wr, ftw, iwr, iw2, itw, pair_i, pair_j, fre, fim, smax,
-                        seg_score, seg_arg, nf, out, nc, nb, np, n2, r, nneg, npos, max_lag, eps2, inv_n,
-                        prm, stream);
+      return RM_K8_LAUNCH(24);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef RM_K8_LAUNCH
 }

@@ -3,7 +3,7 @@
 // inlines them rounds the same way.
 //
 // Used by ct_fft.cuh (the forward radix steps of kernels K3, K1 and K8)
-// and gcc_pair.cuh (the pair body of kernels K2, K5, K6 and K8).
+// and gcc_pair_wide.cuh (the pair body of kernels K2, K5, K6 and K8).
 
 #pragma once
 

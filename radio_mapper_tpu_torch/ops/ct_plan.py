@@ -168,7 +168,7 @@ def device_radix_tables(n: int, device: torch.device) -> Tuple[torch.Tensor, tor
 def inverse_radix_table(n1: int) -> np.ndarray:
     """``[n1/2, 2]`` float32: W_n1^−e for e < n1/2, the twiddles and
     q-point roots of the GCC pair body's inverse n1-point warp FFT
-    (``csrc/gcc_pair.cuh``, n1 ∈ :data:`RADIX_N1`), as
+    (``csrc/gcc_pair_wide.cuh``, n1 ∈ :data:`RADIX_N1`), as
     :func:`radix_tables`' ``w1`` is for K3's forward stages."""
     return _roots(np.arange(n1 // 2), n1, inverse=True)
 

@@ -17,10 +17,14 @@ steps in shared memory (``csrc/ct_fft.cuh`` ``fft_power_row``), the
 spectra to a scratch that this wrapper allocates and the power through
 registers to the detect body, the detect partials and noise floor to the
 outputs, the row max to a per-receiver gate scratch — then the cluster
-synchronises and block ``rank`` runs kernel K2's pair body (l2rx gate)
-for pairs rank, rank + B, ... . The same device functions run in the
-same order, with the same template arguments and block size, as K1 → K2
-(l2rx), so the outputs equal that composition's bit for bit. Keeping each spectrum in its block's shared
+synchronises and block ``rank`` runs kernel K2's pair body (l2rx gate,
+``csrc/gcc_pair_wide.cuh``: bulk copies of the partners' spectra, the
+fold on tensor cores) on K2's tiles rank, rank + B, ... in the shared
+memory the row no longer needs (:func:`pair_plan`). The same device
+functions run in the same order, with the same template arguments, as K1
+→ K2 (l2rx); the pair body folds a window by the same k-steps at any
+block size, chunk or tile, so the outputs equal that composition's bit
+for bit. Keeping each spectrum in its block's shared
 memory and reading partners through distributed shared memory would drop
 the scratch's traffic (2 × 142.6 MB at 128 channels × 8 receivers) but
 needs ≈ 209 KB a block before the pair buffers: a later redesign.
@@ -36,11 +40,10 @@ reference's K8 takes every length ``ct_supported`` accepts; its function
 is K1 → K2 (l2rx), so the outputs equal that composition bit for bit.
 K2 fused into the long K1 is a later redesign.
 
-What bounds it on the H100 as written: its pair stage, K2's warp-FFT body
-(≈ 7 GFLOP at [128, 8, 17408], most of it the window fold), at one
-512-thread block per SM (the row's shared memory stays reserved); the
-forward half is K1's radix body (≈ 3.5 GFLOP with the detect body),
-bound by its bytes and barriers. The function itself needs ≈ 4.9 GFLOP
+What bounds it on the H100 as written: one 512-thread block per SM (the
+row's shared memory stays reserved) for both halves; the forward half is
+K1's radix body (≈ 3.5 GFLOP with the detect body), bound by its bytes
+and barriers; the pair half K2's body. The function itself needs ≈ 4.9 GFLOP
 with FFTs (≈ 0.07 ms at 67 TFLOP/s).
 
 Routing (``channel_kernel.set_mega_fused``/``supported``, copied): "off"
@@ -70,8 +73,8 @@ MAX_PAIR_ROWS = 64  # channel_kernel.MAX_PAIR_ROWS
 MAX_B_PAD = 16  # channel_kernel.MAX_B_PAD
 
 _ARGTYPES = (
-    [ctypes.c_void_p] * 18
-    + [ctypes.c_int] * 9
+    [ctypes.c_void_p] * 17
+    + [ctypes.c_int] * 14
     + [ctypes.c_float] * 2
     + [ctypes.c_int] * 3
     + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int]
@@ -128,6 +131,21 @@ def geometry(n: int) -> str:
     return "cluster"
 
 
+def pair_plan(n: int, nneg: int, npos: int) -> gcc_pair.WidePlan:
+    """K8's pair half (``csrc/channel_step.cu``): K2's body at n1 = 128 in
+    the shared memory of the block's row (n complex floats; W_128 after it
+    stays), on K2's tiles of two pairs where they fit, else one pair a
+    block, 16 rows a chunk (fewer where they do not fit: the block has the
+    SM to itself, so K2's 8 rows for a third block would buy nothing);
+    raises where even one pair does not fit."""
+    n1, n2 = ct_plan.ct_split(n)
+    rows = gcc_pair.CHUNK_ROWS[n1][0]
+    try:
+        return gcc_pair.wide_plan(n1, n2, nneg, npos, 2, limit=n * 8, rows=rows)
+    except ValueError:
+        return gcc_pair.wide_plan(n1, n2, nneg, npos, 1, limit=n * 8, rows=rows)
+
+
 def channel_step_partials(
     re_pad: torch.Tensor,
     im_pad: torch.Tensor,
@@ -182,25 +200,24 @@ def _launch(re, im, pair_i, pair_j, plan, max_lag, eps):
     if b > MAX_B_PAD:
         raise ValueError(f"K8 runs a cluster of one block per receiver: at most {MAX_B_PAD}, got {b}")
     nneg, npos = gcc_pair.window_rows(n, max_lag)
-    if gcc_pair.smem_bytes(n1, nneg, npos, THREADS) > n * 8:  # the row's bytes; W_128 after it stays
-        raise ValueError(f"max_lag {max_lag} does not fit K8's pair buffers at nfft {n}")
+    pp = pair_plan(n, nneg, npos)
     fn = build.kernel("rm_channel_step_partials", _ARGTYPES)
     dev = re.device
     w128, wn2, wr = ct_plan.device_radix_tables(n, dev)
     ftw = ct_plan.device_tables(n, False, dev).tw
-    it = ct_plan.device_tables(n, True, dev)
-    iwr = ct_plan.device_inverse_radix_table(n1, dev)  # the pair body's inverse FFT twiddles
-    pi, pj = gcc_pair.device_pairs(pair_i, pair_j, dev)
-    c, p, s, width = re.numel() // (b * n), pi.shape[0], plan.segments, 2 * max_lag + 1
+    iwr, iw2, itwx = gcc_pair._tables(n, n1, dev)  # the pair body's tables
+    tiles = gcc_pair.device_tiles(pair_i, pair_j, pp.pairs, dev)
+    c, p, s, width = re.numel() // (b * n), len(pair_i), plan.segments, 2 * max_lag + 1
     f32 = lambda *shape: torch.empty(shape, dtype=torch.float32, device=dev)
     fr, fi, smax = f32(c, b, n), f32(c, b, n), f32(c, b)  # scratch: spectra, row maxima
     score, arg, nf, out = f32(c, b, s), f32(c, b, s), f32(c, b), f32(c, p, width)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     err = fn(
-        ptr(re), ptr(im), ptr(w128), ptr(wn2), ptr(wr), ptr(ftw), ptr(iwr), ptr(it.w2), ptr(it.tw),
-        ptr(pi), ptr(pj), ptr(fr), ptr(fi), ptr(smax),
+        ptr(re), ptr(im), ptr(w128), ptr(wn2), ptr(wr), ptr(ftw), ptr(iwr), ptr(iw2), ptr(itwx),
+        ptr(tiles), ptr(fr), ptr(fi), ptr(smax),
         ptr(score), ptr(arg), ptr(nf), ptr(out),
-        c, b, p, n2, a, r, nneg, npos, max_lag,
+        c, b, p, tiles.shape[0], n2, a, r, nneg, npos, max_lag,
+        pp.nsrc, pp.rows, pp.ntg, pp.groups,
         eps * eps, 1.0 / n,
         *fft_detect.plan_args(plan),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),

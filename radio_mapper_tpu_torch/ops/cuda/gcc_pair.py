@@ -1,9 +1,9 @@
 """Kernels K2, K5 and K6: whitening × inverse DFT × lag window.
 
-Three entries into two CUDA bodies (``radio_mapper_tpu_torch/csrc/gcc_pair.cu``
-around ``csrc/gcc_pair.cuh``, which kernel K8 shares, for n1 = 128 and
-256, and ``csrc/gcc_pair_wide.cuh`` for n1 = 384, 640, 896), each with its
-plain PyTorch version and its own launch counter:
+Three entries into one CUDA body (``radio_mapper_tpu_torch/csrc/gcc_pair.cu``
+around ``csrc/gcc_pair_wide.cuh``'s ``wide_pair_body``, which kernel K8's
+pair half shares), each with its plain PyTorch version and its own launch
+counter:
 
 - **K2** :func:`gcc_pair_lag_mags` replaces
   ``radio_mapper_tpu/ops/pallas/gcc_kernel.py::gcc_pair_lag_mags``: all
@@ -17,41 +17,31 @@ plain PyTorch version and its own launch counter:
   row k of X pairs with row k of Y, pre-gathered by the caller (the
   wideband route when :func:`onehot_pairs_enabled` says no).
 
-Design, n1 = 128 and 256 (``csrc/gcc_pair.cuh``, shared with kernel K8):
-one thread block per pair. It reads X_i and Y_j by index straight from
-the CT-order spectra (the TPU's resident spectra and one-hot matmul
-gather are a VMEM/MXU layout device with no use here; one subchannel's 64
-spectra, 2.6 MB, stay in the 50 MB L2) and runs the four-step inverse in
-chunks of CT rows. Each warp takes whole rows k2: its lanes load the
-row's n1 bins (coalesced), form and whiten R = X·conj(Y) in registers,
-run the inner n1-point inverse FFT (a P = n1/32-point radix-2 transform
-in registers, then five radix-2 stages across lanes by
-``__shfl_xor_sync``) and store it times the inverse twiddle to shared
-memory. The block then folds the chunk into the outer inverse DFT over
-k2, accumulated ONLY into the lag-window time rows (``ceil(L/n1)`` tail
-rows and ``L//n1 + 1`` head rows), in k2 order whatever the chunk size
-(:func:`chunk_rows`: 256/n1 rows a warp). Shared memory holds one chunk
-and the window accumulators (≈ 26 KB at nfft 17408 / max_lag 512, ≈ 19
-KB at nfft 5120 / max_lag 128), so several blocks share an SM. FP32 on
-the CUDA cores; ``tests/test_torch_pair_fft.py`` replays the schedule in
-numpy.
-
-Design, n1 = 384, 640 and 896 (``csrc/gcc_pair_wide.cuh``, one kernel
-instantiated for each length): K2 takes tiles of two pairs of a channel
-that share a receiver (:func:`wide_tiles`), K5 and K6 one pair; the
-tile's CT rows arrive by bulk copies (``cp.async.bulk`` completing on an
-mbarrier) into a double buffer in shared memory, a chunk of
-:func:`wide_plan`'s rows ahead; one warp a (pair, row) runs the
-mixed-radix warp FFT (two radix-2 stages, direct q-point DFTs, q = 3, 5,
-7, then the lane stages) and stores C = E·TW, TW formed from two small
-tables (:func:`wide_twiddle_factors`); the window rows are folded on the
-tensor cores, ``mma.sync.m16n8k8`` TF32 in the 3xTF32 split with FP32
-accumulators in registers, the block's rows of W2 staged once in shared
-memory; the window's n-tiles past two a pair go to more blocks along
-``blockIdx.y``. :func:`wide_info` reads each kernel's registers, local
-memory and resident blocks on the card.
-``tests/test_torch_pair_wide.py`` and ``tests/test_torch_mixed_radix.py``
-replay it in numpy.
+Design, at every inner length n1 = 128, 256, 384, 640, 896 of the CT split
+(one kernel instantiated for each length and kind): K2 takes tiles of two
+pairs of a channel that share a receiver (:func:`wide_tiles`), K5 tiles
+of up to :data:`TILE_PAIRS` where its window is one n-tile, K6 one pair;
+pairs are read by index straight from the CT-order spectra (the
+TPU's resident spectra and one-hot matmul gather are a VMEM/MXU layout
+device with no use here; one subchannel's 64 spectra, 2.6 MB, stay in the
+50 MB L2). The tile's CT rows arrive by bulk copies (``cp.async.bulk``
+completing on an mbarrier) into a double buffer in shared memory, a chunk
+of :func:`wide_plan`'s rows ahead; one warp a (pair, row) forms and
+whitens R = X·conj(Y) from shared memory and runs the warp FFT (radix-2
+stages in registers for n1 = 128, 256; two radix-2 stages and direct
+q-point DFTs, q = 3, 5, 7, for the mixed lengths; then five stages across
+lanes by ``__shfl_xor_sync``) and stores C = E·TW, TW formed from two
+small tables (:func:`wide_twiddle_factors`); the window rows (``ceil(L/n1)``
+tail rows and ``L//n1 + 1`` head rows) are folded on the tensor cores,
+``mma.sync.m16n8k8`` TF32 in the 3xTF32 split, each k-step of 4 CT rows
+summed on the tensor cores and added to FP32 accumulators in registers,
+in k2 order whatever the chunk (so kernel K8, which runs the same body on
+512 threads, gives the same windows bit for bit), the block's rows of W2
+staged once in shared memory; the window's n-tiles past a block's :data:`WIDE_SLOTS` go to more
+blocks along ``blockIdx.y``. :func:`wide_info` reads each kernel's
+registers, local memory and resident blocks on the card.
+``tests/test_torch_pair_wide.py``, ``tests/test_torch_pair_fft.py`` and
+``tests/test_torch_mixed_radix.py`` replay it in numpy.
 
 Whitening (``gcc_kernel._whiten``, chosen by :func:`set_phat_gate` and
 ``weighting``): "phat" takes the gate of the knob — "l2rx" (default)
@@ -64,11 +54,11 @@ pair's maximum first: one more pass over X and Y.
 What bounds it on the H100: with the inner transform an FFT
 (5·n·log2(n1) FLOP a pair), the outer fold, 8·n·(window rows) FLOP a
 pair (1.25 M FLOP at nfft 17408 / max_lag 512, 0.12 M at 5120 / 128), is
-the largest part of the work; each pair reads two spectra (one and a
-half in K2's wide tiles), mostly L2 hits since a channel's B spectra are
-shared by all its pairs. Left for later PRs: fusing the forward
-transform into this kernel so spectra stay on chip (kernel K8 does the
-latter through a scratch at n1 = 128).
+the largest part of the work, on tensor cores three times over for the
+split; each pair reads two spectra (one and a half in K2's tiles), mostly
+L2 hits since a channel's B spectra are shared by all its pairs. Left for
+later PRs: fusing the forward transform into this kernel so spectra stay
+on chip (kernel K8 does the latter through a scratch at n1 = 128).
 """
 
 from __future__ import annotations
@@ -88,32 +78,25 @@ launch_count = 0  # K2 launches (not of the plain version)
 onehot_launch_count = 0  # K5 launches
 rows_launch_count = 0  # K6 launches
 
-THREADS = 256  # must match K2_THREADS in gcc_pair.cu and rm_wide::THREADS
-RJ = 8  # must match rm_pair::RJ in gcc_pair.cuh: (THREADS // n1) * RJ chunk rows for n1 ≤ 256
-PAIR_N1 = ct_plan.RADIX_N1  # the inner lengths of the pair body's warp FFT
-WIDE_N1 = (384, 640, 896)  # gcc_pair_wide.cuh's lengths (rm_wide::wide_n1); 128, 256: gcc_pair.cuh
-WIDE_SLOTS = 2  # rm_wide::SLOTS: accumulator (pair, n-tile) slots a warp
+THREADS = 256  # must match rm_wide::THREADS (the K2, K5 and K6 blocks)
+PAIR_N1 = ct_plan.RADIX_N1  # the inner lengths of the pair body (one kernel a length and kind)
+# rm_wide::SLOTS<n1>: accumulator (pair, n-tile) slots a block, 24 or 32
+# accumulator registers a thread of a 256-thread block
+WIDE_SLOTS = {128: 6, 256: 4, 384: 2, 640: 2, 896: 2}
+# CT rows a chunk for one pair, two pairs and more a block (a multiple of 4:
+# a k-step of the fold): at n1 = 128 K2's 8 rows keep three blocks an SM
+# (16 rows would keep two), K5's tiles of six take 4
+CHUNK_ROWS = {128: (16, 8, 4), 256: (8, 8, 4), 384: (8, 4, 4), 640: (8, 4, 4), 896: (8, 4, 4)}
+TILE_PAIRS = 6  # rm_wide::MAX_PAIRS: the most pairs a tile (K5's at one n-tile a window)
+TILE_INTS = (TILE_PAIRS + 1) + 1 + 2 * TILE_PAIRS  # rm_wide::TILE_INTS: a row of wide_tiles
 WIDE_TW_LO = 256  # rm_wide::TW_LO: W_n^e = W_n^(256·(e // 256))·W_n^(e % 256)
-WIDE_KINDS = {"K2": 0, "K5": 1, "K6": 2}  # rm_gcc_pair_wide_info's kind
+WIDE_KINDS = {"K2": 0, "K5": 1, "K6": 2}  # rm_gcc_pair_info's kind
 SMEM_LIMIT = 232_448  # H100 per-block shared memory
-WIDE_STATIC_SMEM = 1024  # room left for the wide kernels' static shared memory (the tile, barriers)
+WIDE_STATIC_SMEM = 1024  # room left for the kernels' static shared memory (the tile, barriers)
 
-_ARGTYPES = (
-    [ctypes.c_void_p] * 9
-    + [ctypes.c_int] * 9
-    + [ctypes.c_float] * 3
-    + [ctypes.c_void_p]
-)
-_ROWS_ARGTYPES = (
-    [ctypes.c_void_p] * 9
-    + [ctypes.c_int] * 7
-    + [ctypes.c_float] * 3
-    + [ctypes.c_void_p]
-)
-_WIDE_K2_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-_WIDE_K5_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-_WIDE_K6_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-_WIDE_INFO_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_K2_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 14 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+_K6_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+_INFO_ARGTYPES = [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 WEIGHTINGS = ("phat", "cc")  # gcc_kernel.WEIGHTINGS
 GATES = ("l2rx", "l2", "l1")  # PHAT gate algebras (gcc_kernel._PHAT_GATE)
@@ -223,26 +206,8 @@ def _check_lag(nfft: int, max_lag: int) -> None:
     ct_plan.ct_split(nfft)
 
 
-def chunk_rows(threads: int, n1: int) -> int:
-    """CT rows a chunk of the n1 = 128/256 pair body holds
-    (``rm_pair::chunk_rows``): ``(threads // n1)·RJ``. Above 256 (one row
-    a warp) it is the chunk ``tests/test_torch_pair_fft.py`` replays that
-    body's fold with; the kernels run the wide body there."""
-    return (threads // n1) * RJ if n1 <= RJ * 32 else threads // 32
-
-
-def smem_bytes(n1: int, nneg: int, npos: int, threads: int = THREADS) -> int:
-    """Dynamic shared memory of the pair body for a block of ``threads``
-    at n1 = 128, 256 (``rm_pair::pair_smem_bytes``): a chunk of
-    :func:`chunk_rows` CT rows and the ``nneg + npos`` window rows, n1
-    complex floats each. The wide lengths' is :func:`wide_plan`'s."""
-    if n1 in WIDE_N1:
-        raise ValueError(f"n1 {n1} runs the wide pair body: see wide_plan")
-    return (chunk_rows(threads, n1) + nneg + npos) * n1 * 8
-
-
 class WidePlan(NamedTuple):
-    """A wide launch (``csrc/gcc_pair_wide.cuh``): ``pairs`` a block,
+    """A launch of the pair body (``csrc/gcc_pair_wide.cuh``): ``pairs`` a block,
     ``nsrc`` staged sources, ``rows`` CT rows a chunk, ``ntg`` n-tiles a
     pair a block, ``groups`` blocks along ``blockIdx.y``, ``smem`` bytes of
     dynamic shared memory."""
@@ -255,34 +220,48 @@ class WidePlan(NamedTuple):
     smem: int
 
 
+def twiddle_count(n1: int) -> int:
+    """``rm_wide::twiddle_count``: complex floats of the warp FFT's
+    twiddle table, [P − 1][32] a lane's register-stage twiddles, for the
+    mixed lengths the q roots, then [4][32] the shuffle stages'."""
+    p = n1 // 32
+    return (p - 1) * 32 + (0 if p & (p - 1) == 0 else n1 // 128) + 4 * 32
+
+
 def wide_smem_bytes(n1: int, n2: int, nsrc: int, rows: int, ntg: int) -> int:
     """``rm_wide::smem_floats`` in bytes: two buffers of ``nsrc`` sources ×
     2 planes × ``rows`` rows of n1 floats; the block's ``ntg``·4
-    window rows of W2 (n2 complex floats each); the warp
-    FFT's twiddle table ([P − 1][32] + q complex floats); the inverse
-    twiddle's factors (ceil(n/256) + 256 complex floats)."""
-    p = n1 // 32
-    return 4 * (2 * nsrc * 2 * rows * n1 + 2 * ntg * 4 * n2 + 2 * ((p - 1) * 32 + p // 4)
+    window rows of W2 (n2 complex floats each); the warp FFT's twiddle
+    table (:func:`twiddle_count`); the inverse twiddle's factors
+    (ceil(n/256) + 256 complex floats)."""
+    return 4 * (2 * nsrc * 2 * rows * n1 + 2 * ntg * 4 * n2 + 2 * twiddle_count(n1)
                 + 2 * (-(-n1 * n2 // WIDE_TW_LO) + WIDE_TW_LO))
 
 
-def wide_plan(n1: int, n2: int, nneg: int, npos: int, pairs: int) -> WidePlan:
-    """How a wide kernel covers a window of ``nneg + npos`` rows: tiles of
-    ``pairs`` pairs (K2: 2 sharing a receiver; K5, K6: 1) while the window
-    fits one 8-column n-tile (max_lag < 2·n1 or so), else one pair a block
-    with its n-tiles two a block; 8 rows a chunk for one pair, 4 for two,
-    4 where 8 do not fit shared memory."""
-    if n1 not in WIDE_N1:
-        raise ValueError(f"the wide pair body takes n1 in {WIDE_N1}, not {n1}")
-    nt = -(-(nneg + npos) // 4)  # 8 columns: 4 window rows, re and im
-    g = pairs if pairs * nt <= WIDE_SLOTS else 1
-    ntg = min(nt, WIDE_SLOTS // g)
-    rows = 8 // g
-    if wide_smem_bytes(n1, n2, g + 1, rows, ntg) > SMEM_LIMIT - WIDE_STATIC_SMEM:
-        rows = 4
+def wide_plan(n1: int, n2: int, nneg: int, npos: int, pairs: int,
+              limit: int = SMEM_LIMIT - WIDE_STATIC_SMEM, rows: Optional[int] = None) -> WidePlan:
+    """How a kernel of the pair body covers a window of ``nneg + npos``
+    rows: tiles of up to ``pairs`` pairs (K2 and K8: 2 sharing a receiver;
+    K5 in tiles: :data:`TILE_PAIRS`; K5, K6: 1), as many as the tile's
+    n-tiles (8 columns: 4 window rows, re and im) fit :data:`WIDE_SLOTS`,
+    else one pair a block with its n-tiles that many a block;
+    :data:`CHUNK_ROWS` rows a chunk (or ``rows``), 4 fewer at a time
+    where they do not fit ``limit`` bytes of shared memory (kernel K8: its
+    row's)."""
+    if n1 not in PAIR_N1:
+        raise ValueError(f"the pair body takes n1 in {PAIR_N1}, not {n1}")
+    if not 1 <= pairs <= TILE_PAIRS:
+        raise ValueError(f"a tile takes 1 to {TILE_PAIRS} pairs, not {pairs}")
+    slots = WIDE_SLOTS[n1]
+    nt = -(-(nneg + npos) // 4)
+    g = max(1, min(pairs, slots // nt))
+    ntg = min(nt, slots // g)
+    rows = rows or CHUNK_ROWS[n1][min(g, 3) - 1]
+    while rows > 4 and wide_smem_bytes(n1, n2, g + 1, rows, ntg) > limit:
+        rows -= 4
     smem = wide_smem_bytes(n1, n2, g + 1, rows, ntg)
-    if smem > SMEM_LIMIT - WIDE_STATIC_SMEM:
-        raise ValueError(f"the wide pair body at {n1}·{n2} needs {smem} B of shared memory")
+    if smem > limit:
+        raise ValueError(f"the pair body at {n1}·{n2} needs {smem} B of shared memory (limit {limit})")
     return WidePlan(g, g + 1, rows, ntg, -(-nt // ntg), smem)
 
 
@@ -302,25 +281,36 @@ def device_twiddle_factors(n: int, device: torch.device) -> torch.Tensor:
 
 
 def wide_tiles(pair_i, pair_j, pairs: int) -> np.ndarray:
-    """K2's tiles (``gcc_pair_wide_kernel``): int32 ``[T, 8]``, each
-    (slot-0 receiver, slot-1, slot-2 or −1, pairs in the tile, then per
-    pair its index and 1 where its X is the leaf). With ``pairs = 2`` each
+    """The tile kernel's tiles (``gcc_pair_tile_kernel``, kernel K8):
+    int32 ``[T, TILE_INTS]``, each the receivers of slots 0 ..
+    ``TILE_PAIRS`` (−1: none), the pairs in the tile, then per pair its
+    index and 1 where its X is the leaf (0 past the tile's pairs). Each
     receiver r in turn takes its pairs not yet in a tile, in list order,
-    two at a time: a tile of two shares r (slot 0), each pair's other
-    receiver is its leaf. What is left (and every pair, with ``pairs =
-    1``) is a tile of one. For all 28 pairs of 8 receivers: 14 tiles of
-    two, every receiver the centre of at least one."""
+    ``pairs`` at a time (and a last group of two or more): a tile shares
+    r (slot 0), each pair's other receiver is its leaf (slot g + 1). What
+    is left (and every pair, with ``pairs = 1``) is a tile of one. For all
+    28 pairs of 8 receivers and ``pairs = 2``: 14 tiles of two, every
+    receiver the centre of at least one."""
     pi, pj = (np.asarray(a, np.int64) for a in (pair_i, pair_j))
     tiles, used = [], np.zeros(pi.size, bool)
-    if pairs == 2:
+
+    def row(recv, ks, flags):
+        per_pair = [v for k, f in zip(ks, flags) for v in (k, f)]
+        pad = [0] * (2 * TILE_PAIRS - len(per_pair))
+        return recv + [-1] * (TILE_PAIRS + 1 - len(recv)) + [len(ks)] + per_pair + pad
+
+    if pairs > 1:
         for r in range(int(max(pi.max(), pj.max())) + 1):
-            mine = [k for k in range(pi.size) if not used[k] and r in (pi[k], pj[k])]
-            for a, b in zip(mine[0::2], mine[1::2]):
-                leaf = lambda k: int(pj[k] if pi[k] == r else pi[k])
-                tiles.append([r, leaf(a), leaf(b), 2, a, int(pi[a] != r), b, int(pi[b] != r)])
-                used[a] = used[b] = True
-    tiles += [[int(pi[k]), int(pj[k]), -1, 1, k, 0, 0, 0] for k in np.flatnonzero(~used)]
-    return np.asarray(tiles, np.int32).reshape(-1, 8)
+            mine = np.flatnonzero(~used & ((pi == r) | (pj == r))).tolist()
+            for a in range(0, len(mine), pairs):
+                grp = mine[a:a + pairs]
+                if len(grp) < 2:
+                    break
+                leaf = [int(pj[k] if pi[k] == r else pi[k]) for k in grp]
+                tiles.append(row([r] + leaf, grp, [int(pi[k] != r) for k in grp]))
+                used[grp] = True
+    tiles += [row([int(pi[k]), int(pj[k])], [int(k)], [0]) for k in np.flatnonzero(~used)]
+    return np.asarray(tiles, np.int32).reshape(-1, TILE_INTS)
 
 
 @functools.lru_cache(maxsize=16)
@@ -336,30 +326,26 @@ def device_tiles(pair_i, pair_j, pairs: int, device: torch.device) -> torch.Tens
 
 
 def wide_info(kind: str, n1: int, smem: int) -> dict:
-    """What the card makes of a wide kernel (``rm_gcc_pair_wide_info``):
+    """What the card makes of a kernel of the pair body
+    (``rm_gcc_pair_info``; ``kind`` a key of :data:`WIDE_KINDS`):
     registers a thread, local memory a thread in bytes (0: no spills),
     blocks resident on an SM at ``smem`` bytes of dynamic shared memory,
     static shared memory in bytes."""
-    fn = build.kernel("rm_gcc_pair_wide_info", _WIDE_INFO_ARGTYPES)
+    fn = build.kernel("rm_gcc_pair_info", _INFO_ARGTYPES)
     info = (ctypes.c_int * 4)()
-    build.check(fn(WIDE_KINDS[kind], n1, smem, ctypes.cast(info, ctypes.c_void_p)), f"wide info {kind} n1 {n1}")
+    build.check(fn(WIDE_KINDS[kind], n1, smem, ctypes.cast(info, ctypes.c_void_p)), f"pair body info {kind} n1 {n1}")
     return dict(zip(("registers", "local_bytes", "blocks", "static_smem"), info))
 
 
 def _geometry(n: int, max_lag: int, what: str):
     """``(n1, n2, nneg, npos)`` for a kernel launch; raises where the
-    inner length or shared memory does not fit (the wide lengths' shared
-    memory does not grow with the window)."""
+    inner length or shared memory does not fit (the shared memory does not
+    grow with the window)."""
     n1, n2 = ct_plan.ct_split(n)
     if n1 not in PAIR_N1:
         raise ValueError(f"{what} supports n1 in {PAIR_N1}; nfft {n} = {n1}·{n2}")
     nneg, npos = window_rows(n, max_lag)
-    if n1 in WIDE_N1:
-        wide_plan(n1, n2, nneg, npos, 1)  # raises where even one pair a block does not fit
-    else:
-        smem = smem_bytes(n1, nneg, npos)
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"max_lag {max_lag} needs {smem} B of shared memory (limit {SMEM_LIMIT})")
+    wide_plan(n1, n2, nneg, npos, 1)  # raises where even one pair a block does not fit
     return n1, n2, nneg, npos
 
 
@@ -371,10 +357,11 @@ def _check_aligned(what: str, **tensors) -> None:
 
 
 def _tables(n: int, n1: int, device: torch.device):
-    """The kernel's ``(wi, w2, tw)``: the inverse radix table of the warp
-    FFT and the inverse four-step's outer DFT and twiddle."""
-    t = ct_plan.device_tables(n, True, device)
-    return ct_plan.device_inverse_radix_table(n1, device), t.w2, t.tw
+    """The kernel's ``(wi, w2, twx)``: the inverse radix table of the warp
+    FFT, the inverse four-step's outer DFT and the inverse twiddle's two
+    factor tables."""
+    return (ct_plan.device_inverse_radix_table(n1, device), ct_plan.device_tables(n, True, device).w2,
+            device_twiddle_factors(n, device))
 
 
 def _stream(x: torch.Tensor) -> ctypes.c_void_p:
@@ -445,49 +432,37 @@ def _launch(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate):
 def launch_k2(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate):
     """K2's kernel on checked CUDA spectra under an explicit ``gate``,
     counted by the caller: K2 as one launch of K2, kernel K8's long rows as
-    part of one launch of K8."""
+    part of one launch of K8. Tiles of two pairs that share a receiver
+    (:func:`wide_tiles`; six, where a window is one n-tile, were slower
+    at the sharded step's [4096, 8, 3072] on the card: PERF.md §6),
+    ``gcc_pair_tile_kernel<n1>``."""
+    return _launch_tiles("K2", spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate, 2)
+
+
+def _launch_tiles(what, spec_re, spec_im, scale, pair_i, pair_j, max_lag, eps, gate, pairs):
+    """A launch of the tile kernel on spectra ``[C, B, n]`` in tiles of up
+    to ``pairs`` pairs: K2 (``scale`` the per-receiver maxima ``[C, B]``)
+    or K5 in tiles (``scale`` s2 ``[C, P]``); windows ``[C, P, 2·max_lag +
+    1]``."""
     c, b, n = spec_re.shape
-    n1, n2, nneg, npos = _geometry(n, max_lag, "K2")
-    if n1 in WIDE_N1:
-        return _launch_k2_wide(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate,
-                               n1, n2, nneg, npos)
-    fn = build.kernel("rm_gcc_pair_lag_mags", _ARGTYPES)
+    n1, n2, nneg, npos = _geometry(n, max_lag, what)
+    _check_aligned(what, spec_re=spec_re, spec_im=spec_im)
+    plan = wide_plan(n1, n2, nneg, npos, pairs)
+    entry = "rm_gcc_pair_lag_mags" if what == "K2" else "rm_gcc_pairs_onehot_lag_mags"
+    fn = build.kernel(entry, _K2_ARGTYPES)
     wi, w2, tw = _tables(n, n1, spec_re.device)
-    pi, pj = device_pairs(pair_i, pair_j, spec_re.device)
-    p = pi.shape[0]
-    out = torch.empty((c, p, 2 * max_lag + 1), dtype=torch.float32, device=spec_re.device)
-    err = fn(
-        _ptr(spec_re), _ptr(spec_im), _ptr(row_smax), _ptr(pi), _ptr(pj),
-        _ptr(wi), _ptr(w2), _ptr(tw), _ptr(out),
-        c, b, p, n1, n2, nneg, npos, max_lag, _GATE_CODE[gate],
-        eps * eps, eps, 1.0 / n,
-        _stream(spec_re),
-    )
-    build.check(err, "gcc_pair_lag_mags")
-    return out
-
-
-def _launch_k2_wide(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate, n1, n2, nneg, npos):
-    """K2 at n1 = 384, 640, 896: tiles of two pairs that share a receiver
-    (:func:`wide_tiles`), ``gcc_pair_wide_kernel<n1>``."""
-    c, b, n = spec_re.shape
-    _check_aligned("K2", spec_re=spec_re, spec_im=spec_im)
-    plan = wide_plan(n1, n2, nneg, npos, 2)
-    fn = build.kernel("rm_gcc_pair_wide_lag_mags", _WIDE_K2_ARGTYPES)
-    wi, w2, _ = _tables(n, n1, spec_re.device)
-    tw = device_twiddle_factors(n, spec_re.device)
     tiles = device_tiles(pair_i, pair_j, plan.pairs, spec_re.device)
     p = len(pair_i)
     out = torch.empty((c, p, 2 * max_lag + 1), dtype=torch.float32, device=spec_re.device)
     err = fn(
-        _ptr(spec_re), _ptr(spec_im), _ptr(row_smax), _ptr(tiles),
+        _ptr(spec_re), _ptr(spec_im), _ptr(scale), _ptr(tiles),
         _ptr(wi), _ptr(w2), _ptr(tw), _ptr(out),
         c, b, p, tiles.shape[0], n1, n2, nneg, npos, max_lag,
         plan.nsrc, plan.rows, plan.ntg, plan.groups, _GATE_CODE[gate],
         eps * eps, eps, 1.0 / n,
         _stream(spec_re),
     )
-    build.check(err, "gcc_pair_lag_mags (wide)")
+    build.check(err, entry)
     return out
 
 
@@ -622,33 +597,16 @@ def gcc_pairs_onehot_lag_mags(
 
 
 def _launch_onehot(spec_re, spec_im, pair_i, pair_j, s2, max_lag, eps, gate):
+    """K5: the tile kernel with the gate per pair, the leading axes as K2's
+    channels, in tiles of up to :data:`TILE_PAIRS` pairs (one pair a
+    block is slower on the card: PERF.md §6)."""
     global onehot_launch_count
     *lead, b, n = spec_re.shape
     c = spec_re.numel() // (b * n)
-    n1, n2, nneg, npos = _geometry(n, max_lag, "K5")
-    wi, w2, tw = _tables(n, n1, spec_re.device)  # the wide body takes W_n's factors for tw
-    pi, pj = device_pairs(pair_i, pair_j, spec_re.device)
-    p = pi.shape[0]
-    out = torch.empty((*lead, p, 2 * max_lag + 1), dtype=torch.float32, device=spec_re.device)
-    if n1 in WIDE_N1:  # gcc_pairs_onehot_wide_kernel<n1>, one pair a block
-        _check_aligned("K5", spec_re=spec_re, spec_im=spec_im)
-        plan = wide_plan(n1, n2, nneg, npos, 1)
-        tw = device_twiddle_factors(n, spec_re.device)
-        fn = build.kernel("rm_gcc_pairs_onehot_wide_lag_mags", _WIDE_K5_ARGTYPES)
-        wide = (plan.rows, plan.ntg, plan.groups)
-    else:
-        fn = build.kernel("rm_gcc_pairs_onehot_lag_mags", _ARGTYPES)
-        wide = ()
-    err = fn(
-        _ptr(spec_re), _ptr(spec_im), _ptr(s2), _ptr(pi), _ptr(pj),
-        _ptr(wi), _ptr(w2), _ptr(tw), _ptr(out),
-        c, b, p, n1, n2, nneg, npos, max_lag, *wide, _GATE_CODE[gate],
-        eps * eps, eps, 1.0 / n,
-        _stream(spec_re),
-    )
-    build.check(err, "gcc_pairs_onehot_lag_mags")
+    out = _launch_tiles("K5", spec_re.reshape(c, b, n), spec_im.reshape(c, b, n), s2, pair_i, pair_j, max_lag,
+                        eps, gate, TILE_PAIRS)
     onehot_launch_count += 1
-    return out
+    return out.reshape(*lead, *out.shape[1:])
 
 
 def gcc_pairs_onehot_lag_mags_plain(
@@ -723,24 +681,19 @@ def gcc_rows_lag_mags(
 
 
 def _launch_rows(xre, xim, yre, yim, s2, max_lag, eps, gate):
+    """K6: one pair a block, ``gcc_rows_kernel<n1>``."""
     global rows_launch_count
     p, n = xre.shape
     n1, n2, nneg, npos = _geometry(n, max_lag, "K6")
-    wi, w2, tw = _tables(n, n1, xre.device)  # the wide body takes W_n's factors for tw
+    _check_aligned("K6", xre=xre, xim=xim, yre=yre, yim=yim)
+    plan = wide_plan(n1, n2, nneg, npos, 1)
+    wi, w2, tw = _tables(n, n1, xre.device)
     out = torch.empty((p, 2 * max_lag + 1), dtype=torch.float32, device=xre.device)
-    if n1 in WIDE_N1:  # gcc_rows_wide_kernel<n1>, one pair a block
-        _check_aligned("K6", xre=xre, xim=xim, yre=yre, yim=yim)
-        plan = wide_plan(n1, n2, nneg, npos, 1)
-        tw = device_twiddle_factors(n, xre.device)
-        fn = build.kernel("rm_gcc_rows_wide_lag_mags", _WIDE_K6_ARGTYPES)
-        wide = (plan.rows, plan.ntg, plan.groups)
-    else:
-        fn = build.kernel("rm_gcc_rows_lag_mags", _ROWS_ARGTYPES)
-        wide = ()
+    fn = build.kernel("rm_gcc_rows_lag_mags", _K6_ARGTYPES)
     err = fn(
         _ptr(xre), _ptr(xim), _ptr(yre), _ptr(yim), _ptr(s2),
         _ptr(wi), _ptr(w2), _ptr(tw), _ptr(out),
-        p, n1, n2, nneg, npos, max_lag, *wide, _GATE_CODE[gate],
+        p, n1, n2, nneg, npos, max_lag, plan.rows, plan.ntg, plan.groups, _GATE_CODE[gate],
         eps * eps, eps, 1.0 / n,
         _stream(xre),
     )

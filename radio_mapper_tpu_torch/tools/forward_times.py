@@ -28,13 +28,18 @@ Last, one line of digests: SHA-256 of the outputs on seeded rows up to
 256), [16, 8, 9216] and [128, 8, 17408] (max_lag 512); then one line of the
 long rows' digests: K3, K4 on K3's spectra, K1 and K8 (max_lag 600) on
 [16, 8, n] at n = 33792, 34816, 58368, 66560, 87040, 97280 and 121856
-(every n1 of the long K3 and cluster sizes 2, 4, 8). Equal digests from two
-checkouts in one call mean equal outputs bit for bit. A third line: K2
+(every n1 of the long K3 and cluster sizes 2, 4, 8; K8's on a line of its
+own). Equal digests from two checkouts in one call mean equal outputs bit
+for bit. A third line: K2
 (each gate), K5, K6 and K8 at n1 = 128 (5120, 17408) and 256 (34816).
 
-``--pair`` times only K2 at [128, 8, 58368] (the flagship at block_len
-57344, n1 = 384) and [8, 8, 121856] (n1 = 896) and K5 at [1, 64, 58368],
-then prints the pair digests. ``--k1`` times only K1 and K3 at [1024,
+``--pair`` times only the pair kernels: at n1 = 128 K2 at [128, 8,
+17408] (the flagship's default shape, max_lag 512), K5 at [16, 64, 5120]
+(the wideband block, max_lag 128; also one pair a block where the
+checkout has K5's tiles), K6 at [2016, 5120] × 4 and K8 at [128, 8, 17408];
+then K2 at [128, 8, 58368] (the flagship at block_len 57344, n1 = 384)
+and [8, 8, 121856] (n1 = 896) and K5 at [1, 64, 58368]; then it prints
+the pair digests. ``--k1`` times only K1 and K3 at [1024,
 58368] (n1 = 384: the wide design, K1 in one launch), then prints the
 long rows' digests; ``--k1 97280,121856`` times them at the lengths named
 instead (rows by length, :data:`K1_ROWS`: [1024, 97280], [256, 121856]).
@@ -95,7 +100,8 @@ def _digests(dev, tag, short=True) -> None:
     rows = lambda *shape: 40.0 * torch.randn(*shape, device=dev, generator=g)
     if short:
         _short_digests(tag, rows)
-    out = {"K3": [], "K1": [], "K4": [], "K8": []}
+    out = {"K3": [], "K1": [], "K4": []}
+    k8 = []  # K8's long design: the long K1, then K2's launch
     pi, pj = gcc_phat.pair_indices(8)
     for nfft in LONG_DIGEST_N:
         plan = ct_plan.detect_plan(nfft, **DETECT)
@@ -104,10 +110,11 @@ def _digests(dev, tag, short=True) -> None:
         out["K3"] += (fr, fi)
         out["K4"] += detect_ct.detect_ct_partials(fr, fi, plan)
         out["K1"] += fft_detect.fft_detect_rows_ct(xr.view(-1, nfft), xi.view(-1, nfft), plan)
-        out["K8"] += channel_step.channel_step_partials(xr, xi, pi, pj, plan, 600)
+        k8.extend(channel_step.channel_step_partials(xr, xi, pi, pj, plan, 600))
         del xr, xi, fr, fi
     print(f"long digests ({', '.join(map(str, LONG_DIGEST_N))}): "
           + ", ".join(f"{k} {_digest(v)}" for k, v in out.items()) + f" {tag}")
+    print(f"K8 long design digest (the same lengths): {_digest(k8)} {tag}")
 
 
 def _short_digests(tag, rows) -> None:
@@ -155,19 +162,41 @@ def pair_digests(dev) -> dict:
 
 
 def pair_main(dev, tag) -> None:
-    """``--pair``: K2 at the flagship's block_len-57344 shape [128, 8,
-    58368] (n1 = 384, max_lag 600, l2rx), at [8, 8, 121856] (n1 = 896) and
-    K5 at [1, 64, 58368], then the pair digests at n1 = 128 and 256."""
+    """``--pair``: the pair kernels at n1 = 128 on the flagship's and the
+    wideband block's shapes (K2, K5, K6, K8), K2 at the flagship's
+    block_len-57344 shape [128, 8, 58368] (n1 = 384, max_lag 600, l2rx),
+    at [8, 8, 121856] (n1 = 896) and K5 at [1, 64, 58368], then the pair
+    digests at n1 = 128 and 256."""
     g = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, device=dev, generator=g)
     pi, pj = gcc_phat.pair_indices(8)
+    wpi, wpj = gcc_phat.pair_indices(64)
+    sre, sim, smax = rnd(128, 8, 17_408), rnd(128, 8, 17_408), rnd(128, 8).abs() + 1.0
+    t2 = _mean_ms(lambda: gcc_pair.gcc_pair_lag_mags(sre, sim, smax, pi, pj, max_lag=512))
+    plan = ct_plan.detect_plan(17_408, **DETECT)
+    xr, xi = 40.0 * sre, 40.0 * sim
+    t8 = _mean_ms(lambda: channel_step.channel_step_partials(xr, xi, pi, pj, plan, 512))
+    print(f"[128, 8, 17408], max_lag 512: K2 {t2:.4f} ms, K8 {t8:.4f} ms {tag}")
+    del sre, sim, xr, xi
+    w_re, w_im = rnd(16, 64, 5120), rnd(16, 64, 5120)
+    s2 = rnd(16, len(wpi)).abs() + 1.0
+    k5 = lambda: gcc_pair.gcc_pairs_onehot_lag_mags(w_re, w_im, wpi, wpj, max_lag=128, s2=s2)
+    t5 = {"K5": _mean_ms(k5)}
+    if hasattr(gcc_pair, "TILE_PAIRS"):  # K5 in the tile kernel: also one pair a block
+        t5["K5 (one pair a block)"] = _mean_ms(lambda: gcc_pair._launch_tiles(
+            "K5", w_re, w_im, s2, wpi, wpj, 128, 0.05, "l2rx", 1))
+    rows = [rnd(len(wpi), 5120) for _ in range(4)]
+    t6 = _mean_ms(lambda: gcc_pair.gcc_rows_lag_mags(*rows, max_lag=128, s2=s2[0].contiguous()))
+    print("[16, 64, 5120], max_lag 128: " + ", ".join(f"{k} {v:.4f} ms" for k, v in t5.items())
+          + f"; K6 [2016, 5120] x 4 {t6:.4f} ms {tag}")
+    del w_re, w_im, rows
     for c, nfft in ((128, 58_368), (8, 121_856)):
-        sre, sim = torch.randn(c, 8, nfft, device=dev, generator=g), torch.randn(c, 8, nfft, device=dev, generator=g)
+        sre, sim = rnd(c, 8, nfft), rnd(c, 8, nfft)
         smax = torch.rand(c, 8, device=dev, generator=g) + 1.0
         t2 = _mean_ms(lambda: gcc_pair.gcc_pair_lag_mags(sre, sim, smax, pi, pj, max_lag=600))
         print(f"[{c}, 8, {nfft}], max_lag 600: K2 {t2:.4f} ms {tag}")
         del sre, sim
-    wpi, wpj = gcc_phat.pair_indices(64)
-    sre, sim = torch.randn(1, 64, 58_368, device=dev, generator=g), torch.randn(1, 64, 58_368, device=dev, generator=g)
+    sre, sim = rnd(1, 64, 58_368), rnd(1, 64, 58_368)
     s2 = torch.rand(1, len(wpi), device=dev, generator=g) + 1.0
     t5 = _mean_ms(lambda: gcc_pair.gcc_pairs_onehot_lag_mags(sre, sim, wpi, wpj, max_lag=600, s2=s2))
     print(f"[1, 64, 58368], max_lag 600: K5 {t5:.4f} ms {tag}")

@@ -6,10 +6,9 @@ Run from the repository root on a machine with an NVIDIA GPU and nvcc:
 
 It copies ``csrc/gcc_pair.cu`` and the headers it includes into
 ``radio_mapper_tpu_torch/_build/pair_parts/<variant>/``, takes parts of
-the pair bodies (``rm_pair::pair_lag_window`` for n1 = 128, 256,
-``rm_wide::wide_pair_body`` for 384, 640, 896) out of each copy by the
-text edits of :data:`EDITS` (the wide body's "loads" are its bulk
-copies), builds every copy with nvcc in parallel and times, through
+the pair body (``rm_wide::wide_pair_body``, every n1) out of each copy by
+the text edits of :data:`EDITS` ("loads" are its bulk copies), builds
+every copy with nvcc in parallel and times, through
 the package's own wrappers, K5 at the wideband shape [16, 64, 5120] →
 [16, 2016, 257], K2 at the flagship shape [128, 8, 17408] → [128, 28,
 1025] (l2rx, and l2 with its first pass) and K6 at [2016, 5120] × 4, then
@@ -40,25 +39,18 @@ from radio_mapper_tpu_torch.ops import gcc_phat
 from radio_mapper_tpu_torch.ops.cuda import build, gcc_pair
 
 SOURCES = ("gcc_pair.cu", "gcc_pair.cuh", "gcc_pair_wide.cuh", "ct_fft.cuh", "ct_dft.cuh")
-NARROW, WIDE = "gcc_pair.cuh", "gcc_pair_wide.cuh"  # n1 = 128, 256; n1 = 384, 640, 896
+BODY = "gcc_pair_wide.cuh"
 
 # part → [(file, text, replacement)]: each text occurs exactly once
 EDITS = {
-    "fft": [(NARROW, "      inverse_row_fft<N1>(v, rtw, lane);\n", ""),
-            (WIDE, "        inverse_row_fft_wide<N1>(v, twt, tl, lane);\n", "")],
-    "fold": [(NARROW, "for (int rl = 0; rl < rows; ++rl) rm_ct::cmac(", "for (int rl = 0; rl < 0; ++rl) rm_ct::cmac("),
-             (WIDE, "for (int ks = 0; ks < rows / 4; ++ks) {", "for (int ks = 0; ks < 0; ++ks) {")],
-    # spectra values made from their addresses (n1 <= 256), or no bulk copies
-    # (wide): no device-memory or L2 reads of the spectra
-    "loads": [(NARROW, "  if constexpr (FRESH) return __ldcg(p);\n  else return __ldg(p);",
-               "  return static_cast<float>(reinterpret_cast<size_t>(p) & 1023);"),
-              (WIDE, "  const int ncopy = t.nsrc * 2;", "  const int ncopy = 0;")],
-    "whiten": [(NARROW, "        v[i] = whiten(rr, ri, gate, floor2, l1_floor);", "        v[i] = make_float2(rr, ri);"),
-               (WIDE, "          v[i] = rm_pair::whiten(rr_, ri_, gate, floor2, l1_floor);",
+    "fft": [(BODY, "        inverse_row_fft_wide<N1>(v, twt, lane);\n", "")],
+    "fold": [(BODY, "    if (wntl > 0) fold_any<P, MT, SW>(", "    if (false) fold_any<P, MT, SW>(")],
+    # no bulk copies: no device-memory or L2 reads of the spectra
+    "loads": [(BODY, "  const int ncopy = t.nsrc * 2;", "  const int ncopy = 0;")],
+    "whiten": [(BODY, "          v[i] = rm_pair::whiten(rr_, ri_, gate, floor2, l1_floor);",
                 "          v[i] = make_float2(rr_, ri_);")],
     # no store: nothing reads the row, so its loads and arithmetic go too
-    "store": [(NARROW, "      if (live) {\n        twiddle_store", "      if (false) {\n        twiddle_store"),
-              (WIDE, "          cre[o] = c.x;\n          cim[o] = c.y;\n", "")],
+    "store": [(BODY, "    cre[o] = c.x;\n    cim[o] = c.y;\n", "")],
 }
 
 VARIANTS = {

@@ -858,18 +858,20 @@ def _wide_spectra(c, b, nfft):
 
 
 WIDE_CASES = [("K2", 2, 8, 58_368), ("K2", 1, 4, 87_040), ("K2", 1, 4, 121_856), ("K5", 1, 64, 58_368),
-              ("K6", 1, 64, 58_368)]
+              ("K6", 1, 64, 58_368), ("K2", 4, 8, 17_408), ("K2", 2, 4, 34_816), ("K5", 1, 64, 5_120),
+              ("K6", 1, 64, 5_120)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gate", ["l2rx", "l2", "l1", "none"])
 @pytest.mark.parametrize("kind,c,b,nfft", WIDE_CASES)
 def test_wide_pair_kernels_match_plain_at_every_gate(cuda_device, kind, c, b, nfft, gate):
-    """The wide pair body (n1 = 384, 640, 896; tiles of two pairs in K2,
-    the fold on tensor cores in the 3xTF32 split, bulk copies) against
-    the plain versions at max_lag 600 (one n-tile) and 2048 (two blocks
-    along the window): 1e-4 of the window max, the same argmax. K6 on
-    the 2016 pairs of 64 receivers gathered at 58368."""
+    """The pair body (n1 = 384, 640, 896, and 128, 256 at 17408, 34816
+    and 5120; tiles of two pairs in K2, the fold on tensor cores in the
+    3xTF32 split, bulk copies) against the plain versions at max_lag 600
+    (one block of n-tiles at n1 = 128 and up) and 2048 (two blocks along
+    the window): 1e-4 of the window max, the same argmax. K5 and K6 on
+    the 2016 pairs of 64 receivers at 58368 and 5120."""
     sre, sim_, smax = _wide_spectra(c, b, nfft)
     pi, pj = gcc_phat.pair_indices(b)
     dev = cuda_device
@@ -895,7 +897,7 @@ def test_wide_pair_kernels_match_plain_at_every_gate(cuda_device, kind, c, b, nf
             run = lambda lag: gcc_pair.gcc_rows_lag_mags(*rows, max_lag=lag, weighting=weighting, s2=s6)
             plain = lambda lag: gcc_pair.gcc_rows_lag_mags_plain(*rows, max_lag=lag, weighting=weighting, s2=s6)
             count = lambda: gcc_pair.rows_launch_count
-    assert ct_plan.ct_split(nfft)[0] in gcc_pair.WIDE_N1
+    assert ct_plan.ct_split(nfft)[0] in gcc_pair.PAIR_N1
     if gate in ("l2", "l1"):
         gcc_pair.set_phat_gate(gate)
     try:
@@ -914,36 +916,45 @@ def test_wide_pair_kernels_match_plain_at_every_gate(cuda_device, kind, c, b, nf
 
 @pytest.mark.cuda
 def test_wide_kernels_one_a_length_no_spills_two_blocks_at_384(cuda_device):
-    """K2, K5 and K6 each have a kernel for n1 = 384, 640 and 896 alone
+    """K2, K5 (the tile kernel, the gate per pair) and K6 each have a
+    kernel for every inner length n1 = 128, 256, 384, 640 and 896 alone
     with no local memory (no spills, in the card's attributes and in the
-    build's -Xptxas -v report), n1 = 384 two 256-thread blocks an SM at
-    its launches' shared memory, 640 and 896 at least one."""
+    build's -Xptxas -v report), n1 = 128, 256 and 384 two 256-thread
+    blocks an SM at their launches' shared memory on the main paths'
+    shapes, 640 and 896 at least one."""
     from radio_mapper_tpu_torch.ops.cuda import build
 
-    for kind, pairs in (("K2", 2), ("K5", 1), ("K6", 1)):
-        for n1 in gcc_pair.WIDE_N1:
-            plan = gcc_pair.wide_plan(n1, 152, -(-600 // n1), 600 // n1 + 1, pairs)
-            info = gcc_pair.wide_info(kind, n1, plan.smem)
-            assert info["local_bytes"] == 0, (kind, n1, info)
-            assert info["blocks"] >= (2 if n1 == 384 else 1), (kind, n1, info)
-    wide = [r for r in build.ptxas_report(build.build_log()) if "_wide_kernel<" in r["kernel"]]
-    assert sorted(r["kernel"] for r in wide) == sorted(
-        f"{k}_wide_kernel<{n1}>" for k in ("gcc_pair", "gcc_pairs_onehot", "gcc_rows") for n1 in gcc_pair.WIDE_N1)
-    assert all(r["spill_stores"] == r["spill_loads"] == 0 for r in wide), wide
+    shapes = {128: ((136, 512), (40, 128)), 256: ((136, 512),), 384: ((152, 600),), 640: ((152, 600),),
+              896: ((136, 600),)}  # the main paths' (n2, max_lag): 17408, 5120, 34816, 58368, 97280, 121856
+    for kind, pairs in (("K2", 2), ("K5", gcc_pair.TILE_PAIRS), ("K6", 1)):
+        for n1 in gcc_pair.PAIR_N1:
+            for n2, lag in shapes[n1]:
+                plan = gcc_pair.wide_plan(n1, n2, -(-lag // n1), lag // n1 + 1, pairs)
+                info = gcc_pair.wide_info(kind, n1, plan.smem)
+                assert info["local_bytes"] == 0, (kind, n1, info)
+                assert info["blocks"] >= (2 if n1 <= 384 else 1), (kind, n1, info)
+    names = [f"gcc_pair_tile_kernel<{n1}, {s2}>" for n1 in gcc_pair.PAIR_N1 for s2 in (0, 1)]  # K2, K5
+    names += [f"gcc_rows_kernel<{n1}>" for n1 in gcc_pair.PAIR_N1]  # K6
+    body = [r for r in build.ptxas_report(build.build_log()) if r["kernel"].startswith("gcc_")]
+    assert sorted(r["kernel"] for r in body) == sorted(names)
+    assert all(r["spill_stores"] == r["spill_loads"] == 0 for r in body), body
 
 
 # SHA-256 digests (first 16 hex digits) of the n1 = 128/256 pair kernels'
-# outputs in ``tools/forward_times.pair_digests``, as they were on an H100
-# before the wide pair body got its own kernels: that redesign left them
-# bit for bit as they were
-NARROW_PAIR_DIGESTS = {"K2": "30788fb5f397afa0", "K5": "f761e162871a394a", "K6": "0f4c1e143e267348",
-                       "K8": "4b822411cb612001"}
+# outputs in ``tools/forward_times.pair_digests``, as the pair body with
+# bulk copies and the 3xTF32 fold on tensor cores gives them on an H100
+# (the fold's TF32 split and its sums by k-step changed the bits of the
+# earlier CUDA-core body; the 1e-4 and argmax checks against the plain
+# versions hold them still)
+NARROW_PAIR_DIGESTS = {"K2": "87400cfe3c255192", "K5": "ce0ff217327a89b6", "K6": "e6b63b4618fd0b8f",
+                       "K8": "610ed64d82a911f7"}
 
 
 @pytest.mark.cuda
 def test_narrow_pair_kernels_keep_their_digests(cuda_device):
     """K2 (every gate), K5, K6 and K8 at n1 = 128 (5120, 17408) and 256
-    (34816) give the outputs they gave before the wide body's redesign."""
+    (34816) give the outputs pinned above: any later change to the pair
+    body that moves a bit shows here."""
     from radio_mapper_tpu_torch.tools import forward_times
 
     assert forward_times.pair_digests(cuda_device) == NARROW_PAIR_DIGESTS

@@ -269,30 +269,33 @@ def test_inverse_lane_twiddles_fit_the_table(n1):
 
 @pytest.mark.parametrize("n1", MIXED)
 def test_mixed_chunk_buffer_swizzle_is_a_permutation(n1):
-    """``swz<P>`` flips bits 1..3 of a time by its 4P-block, and 4P is a
-    multiple of 16 for P = 12, 20, 28, so it stays a permutation of the
-    row that keeps each 16-byte pair whole; each lane's pair stores stay
-    16-byte aligned."""
+    """The pair body's C rows in the chunk buffer (``rm_wide::swz_wide``:
+    p's two low bits XOR (p / 8P) mod 4, bits 3..4 XOR the row mod 4) stay
+    a permutation of each row at P = 12, 20, 28, and a lane's P times from
+    p0 = P·brev5(l) (a multiple of 4) share p0's (p / 8P) mod 4, so the
+    store's shortcut (p0 + (d ^ kb)) ^ 8·(row mod 4) holds."""
     p = n1 // WARP
     t = np.arange(n1)
-    sw = t ^ (((t // (4 * p)) & 7) << 1)
-    assert sorted(sw) == list(range(n1))
-    np.testing.assert_array_equal(sw[1::2], sw[0::2] + 1)
+    for row in range(4):
+        sw = (t ^ ((t // (8 * p)) & 3)) ^ (row << 3)
+        assert sorted(sw) == list(range(n1))
     p0 = p * np.array([_brev(lane, 5) for lane in LANES])
-    for m in range(0, p, 2):
-        assert ((p0 + m) % 2 == 0).all()
+    assert (p0 % 4 == 0).all()
+    for d in range(p):
+        kb = (p0 // (8 * p)) & 3
+        np.testing.assert_array_equal((p0 + d) ^ (((p0 + d) // (8 * p)) & 3), p0 + (d ^ kb))
 
 
 def test_pair_geometry_takes_the_mixed_lengths_within_shared_memory():
-    """The mixed lengths run the wide pair body (``csrc/gcc_pair_wide.cuh``;
-    n1 = 128 and 256 keep ``chunk_rows``' chunks): one pair a block on 8
-    CT rows a chunk, 4 at n1 = 896 where 8 do not fit twice, and its
+    """The mixed lengths run the pair body (``csrc/gcc_pair_wide.cuh``, as
+    n1 = 128 and 256 do, with 16 and 8 CT rows a chunk for one pair, 8 for
+    two): one pair a block
+    on 8 CT rows a chunk, 4 at n1 = 896 where 8 do not fit twice, and its
     shared memory stays inside the card's 227 KB at the largest inner
     length and lag window the planned lengths reach."""
-    assert [gcc_pair.chunk_rows(256, n1) for n1 in N1S[:2]] == [16, 8]
-    assert [gcc_pair.chunk_rows(512, n1) for n1 in N1S[:2]] == [32, 16]
+    assert [gcc_pair.CHUNK_ROWS[n1][:2] for n1 in N1S[:2]] == [(16, 8), (8, 8)]
     assert gcc_pair._geometry(121_856, 600, "K2") == (896, 136, 1, 1)
     plan = gcc_pair.wide_plan(896, 136, 1, 1, 1)
-    assert (plan.rows, plan.smem) == (4, 131_864)
+    assert (plan.rows, plan.smem) == (4, 132_888)
     n1, n2, nneg, npos = gcc_pair._geometry(129_024, 2048, "K5")  # 384·336, the widest window planned
     assert gcc_pair.wide_plan(n1, n2, nneg, npos, 1).smem <= gcc_pair.SMEM_LIMIT

@@ -1,38 +1,33 @@
-"""The GCC pair body of kernels K2, K5, K6 and K8, replayed in numpy on the CPU.
+"""The warp FFT of the GCC pair body at n1 = 128 and 256, and the whole
+body under each kernel's launch plan, replayed in numpy on the CPU.
 
-``csrc/gcc_pair.cuh`` (``pair_lag_window``, n1 = 128 and 256; the wide
-lengths' body, ``csrc/gcc_pair_wide.cuh``, is replayed in
-``tests/test_torch_pair_wide.py``) turns a pair's CT-order spectra X, Y
-(bin k = k2 + n2·k1 at m = k2·n1 + k1) into its lag window:
+``csrc/gcc_pair_wide.cuh`` (``wide_pair_body``; the rest of the body is
+replayed in ``tests/test_torch_pair_wide.py``) turns a pair's CT-order
+spectra X, Y (bin k = k2 + n2·k1 at m = k2·n1 + k1) into its lag window.
+Its inner transform at n1 = 128 and 256:
 
-- one warp per CT row k2, point i of lane l holding bin k1 = l + 32·i
-  (i < P = n1/32): R = X·conj(Y), whitened by the gate, in registers;
+- one warp per (pair, CT row k2) job, point i of lane l holding bin
+  k1 = l + 32·i (i < P = n1/32): R = X·conj(Y), whitened by the gate;
 - the inner inverse n1-point FFT, radix-2 DIF with conjugate twiddles
   W_n1^−e, e = (t mod h)·(n1/2)/h for the pair (t, t + h): the stages of
   half-size h = n1/2 .. 32 pair points i and i + h/32 of a lane in
-  registers, the stages h = 16 .. 1 pair lane l with lane l ^ h (the lane
+  registers (their twiddles a table slot P − h/16 + j, j = i mod h/32, per
+  lane), the stages h = 16 .. 1 pair lane l with lane l ^ h (the lane
   whose bit h is clear keeps a + b, its partner (a − b)·W); each lane's
   exponents depend on the lane and i, never on the row; point i of lane l
-  then holds E[brev(l + 32·i)] = E[P·brev5(l) + brev(i)];
-- that times the inverse twiddle W_n^(k2·p), stored in 16-byte words at
-  the swizzled place ``swz(p)`` of the chunk buffer, and each chunk of
-  ``gcc_pair.chunk_rows(THREADS, n1)`` rows folded into the window rows
-  z[q] += W_n2^(−q·k2)·C[k2], k2 ascending;
-- |z|/n over lags −L..L.
+  then holds E[brev(l + 32·i)] = E[P·brev5(l) + brev(i)].
 
 The replica runs exactly that in float32/complex64 and must equal
-``np.fft.ifft``·n1 and the direct DFT of the ``w1`` table row by row, and
-the whole body must equal ``gcc_pair._whiten_invert_plain`` (the plain
-version the kernels are held to) within 1e-5 of each window's max, for
-the four gates, at nfft 5120 (L 128) and 17408 (L 512), n1 = 128,
-34816 (L 512), n1 = 256, and — the same chunked fold around the
-mixed-radix warp FFT of ``tests/test_torch_mixed_radix.py`` — at 52224,
-87040 and 121856 (L 600), n1 = 384, 640 and 896. Blocks of 256 (K2, K5,
-K6) and 512 threads (K8)
-chunk the rows differently and must give identical windows. The chunk
-buffer's stores and the fold's reads are held free of bank conflicts, and
-the text edits of ``tools/pair_parts.py`` to the current sources. No JAX
-here.
+``np.fft.ifft``·n1 and the direct DFT of the ``w1`` table row by row. The
+whole body (``test_torch_pair_wide.wide_body``) under the plans of K2
+(tiles of two pairs), K5 and K6 (one pair a block) and, at n1 = 128 up
+to 24576, kernel K8 (its row's shared memory, 512 threads) must give
+identical windows — each folds the same k-steps in k2 order — and equal
+``gcc_pair._whiten_invert_plain`` (the plain version the kernels are held
+to) within 1e-5 of each window's max, for the four gates, at nfft 5120 (L
+128) and 17408 (L 512), n1 = 128, 34816 (L 512), n1 = 256, and at 52224,
+87040 and 121856 (L 600), n1 = 384, 640 and 896. The text edits of
+``tools/pair_parts.py`` are held to the current sources. No JAX here.
 """
 
 import numpy as np
@@ -70,11 +65,6 @@ def positions(n1: int) -> np.ndarray:
     P·brev5(l) + digit(i) (for P = 4, 8: brev(l + 32·i) over log2(n1) bits)."""
     p = n1 // WARP
     return np.array([[p * _brev(lane, 5) + digit(p, i) for i in range(p)] for lane in LANES])
-
-
-def swz(p, pts: int):
-    """``rm_pair::swz<P>``: where time p of a row sits in the chunk buffer."""
-    return p ^ (((p // (4 * pts)) & 7) << 1)
 
 
 def register_stages(n1: int):
@@ -126,47 +116,18 @@ def row_transform(r: np.ndarray) -> np.ndarray:
     return e
 
 
-def pair_body(xr, xi, yr, yi, s2, max_lag, eps, gate, threads):
-    """``pair_lag_window<threads>`` on float32 pair spectra ``[pairs, n]``
-    (CT order); ``s2 [pairs]`` is the l2rx gate scale."""
-    pairs, n = xr.shape
-    n1, n2 = ct_plan.ct_split(n)
-    nneg, npos = gcc_pair.window_rows(n, max_lag)
-    f32 = np.float32
-    rr = xr * yr + xi * yi  # R = X·conj(Y)
-    ri = xi * yr - xr * yi
-    if gate == "none":
-        wr, wim = rr, ri
-    else:
-        p2 = rr * rr + ri * ri
-        if gate == "l1":
-            mag = p2 * (f32(1) / np.sqrt(p2 + f32(1e-30)))
-            l1_floor = f32(eps) * mag.max(axis=-1, keepdims=True)
-            inv = f32(1) / (mag + l1_floor + f32(1e-30))
-        else:
-            scale = p2.max(axis=-1) if gate == "l2" else s2
-            floor2 = f32(eps * eps) * scale[:, None]
-            inv = f32(1) / np.sqrt(p2 + floor2 + f32(1e-30))
-        wr, wim = rr * inv, ri * inv
-    r = (wr + 1j * wim).astype(np.complex64).reshape(pairs, n2, n1)
+def pair_body(xr, xi, yr, yi, s2, max_lag, eps, gate, kernel):
+    """``wide_pair_body`` on float32 pair spectra ``[pairs, n]`` (CT
+    order) as ``kernel`` ("K2", "K5" or "K8") plans its launch; ``s2
+    [pairs]`` is the l2rx gate scale."""
+    from radio_mapper_tpu_torch.ops.cuda import channel_step
+    from test_torch_pair_wide import wide_body
 
-    _, _, _, _, w2re, w2im, twre, twim = ct_plan.ct_constants(n, inverse=True)
-    w2 = (w2re + 1j * w2im).astype(np.complex64)
-    tw = (twre + 1j * twim).astype(np.complex64)
-    q = np.concatenate([np.arange(n2 - nneg, n2), np.arange(npos)])  # window rows
-    chunk = gcc_pair.chunk_rows(threads, n1)
-    warps = threads // WARP
-    z = np.zeros((pairs, nneg + npos, n1), np.complex64)
-    for r0 in range(0, n2, chunk):
-        rows = min(chunk, n2 - r0)
-        c = np.empty((pairs, rows, n1), np.complex64)
-        for w in range(warps):  # warp w takes chunk rows w, w + warps, ...
-            rl = np.arange(w, rows, warps)
-            c[:, rl] = row_transform(r[:, r0 + rl]) * tw[r0 + rl]
-        for rl in range(rows):  # the fold, k2 ascending
-            z = z + w2[q, r0 + rl][None, :, None] * c[:, rl][:, None, :]
-    mags = (np.sqrt(z.real * z.real + z.imag * z.imag) * f32(1.0 / n)).reshape(pairs, -1)
-    return mags[:, nneg * n1 - max_lag: nneg * n1 + max_lag + 1]
+    n = xr.shape[-1]
+    nneg, npos = gcc_pair.window_rows(n, max_lag)
+    plan = channel_step.pair_plan(n, nneg, npos) if kernel == "K8" else None
+    pairs = {"K2": 2, "K5": 1, "K8": 2}[kernel]  # K5 here one pair a block
+    return wide_body(xr, xi, yr, yi, s2, max_lag, eps, gate, pairs=pairs, plan=plan)
 
 
 @pytest.mark.parametrize("n1", [128, 256])
@@ -198,37 +159,9 @@ def test_warp_schedule_partners_twiddles_and_positions(n1):
     assert hs == [n1 >> s for s in range(1, n1.bit_length())]  # h = n1/2 .. 1
 
 
-def _max_bank_load(words, width):
-    """The most accesses any bank gets from lanes writing ``width``
-    consecutive 32-bit words from each of ``words``."""
-    banks = ((np.asarray(words)[:, None] + np.arange(width)) % BANKS).ravel()
-    return np.bincount(banks, minlength=BANKS).max()
-
-
-@pytest.mark.parametrize("n1", [128, 256])
-def test_chunk_buffer_stores_and_fold_reads_are_free_of_bank_conflicts(n1):
-    """Each lane stores its P consecutive times from p0 = P·brev5(l) as
-    16-byte words (a quarter-warp a wavefront); the fold reads 32
-    consecutive times as 8-byte words (a half-warp a wavefront)."""
-    p = n1 // WARP
-    assert sorted(swz(np.arange(n1), p)) == list(range(n1))
-    p0 = p * np.array([_brev(lane, 5) for lane in LANES])
-    for q in range(0, p, 2):
-        word = 2 * swz(p0 + q, p)
-        assert (word % 4 == 0).all() and (swz(p0 + q + 1, p) == swz(p0 + q, p) + 1).all()
-        for quarter in range(4):
-            lanes = slice(8 * quarter, 8 * quarter + 8)
-            assert _max_bank_load(word[lanes], 4) == 1
-            assert _max_bank_load(2 * (p0 + q)[lanes], 4) == 8  # what the swizzle removes
-    for base in range(0, n1, WARP):
-        word = 2 * swz(base + LANES, p)
-        for half in range(2):
-            assert _max_bank_load(word[16 * half:16 * half + 16], 2) == 1
-
-
 def test_pair_parts_edits_match_the_sources():
     """``tools/pair_parts.py`` times the kernels with parts taken out by
-    text edits of ``csrc/gcc_pair.cuh``: each edit must still match."""
+    text edits of ``csrc/gcc_pair_wide.cuh``: each edit must still match."""
     from radio_mapper_tpu_torch.tools import pair_parts
 
     for parts in pair_parts.VARIANTS.values():
@@ -273,9 +206,11 @@ def test_pair_body_replica_matches_plain(nfft, max_lag, gate):
     pi, pj = np.array([0, 0, 1, 2]), np.array([1, 2, 2, 0])
     x = [np.ascontiguousarray(a[idx]) for idx in (pi, pj) for a in (sre, sim)]
     s2 = pair_gate_scales(smax, pi, pj) if gate == "l2rx" else None
-    k2 = pair_body(x[0], x[1], x[2], x[3], s2, max_lag, eps, gate, threads=gcc_pair.THREADS)
-    k8 = pair_body(x[0], x[1], x[2], x[3], s2, max_lag, eps, gate, threads=channel_step.THREADS)
-    np.testing.assert_array_equal(k2, k8)  # the fold's sums do not depend on the chunk
+    k2 = pair_body(x[0], x[1], x[2], x[3], s2, max_lag, eps, gate, "K2")
+    k5 = pair_body(x[0], x[1], x[2], x[3], s2, max_lag, eps, gate, "K5")
+    np.testing.assert_array_equal(k2, k5)  # the fold's sums do not depend on the chunk or the tile
+    if ct_plan.ct_split(nfft)[0] == 128:  # K8's cluster design: nfft <= 24576
+        np.testing.assert_array_equal(k2, pair_body(x[0], x[1], x[2], x[3], s2, max_lag, eps, gate, "K8"))
     ref = gcc_pair._whiten_invert_plain(
         *(torch.from_numpy(a) for a in x), None if s2 is None else torch.from_numpy(s2), max_lag, eps, gate
     ).numpy()
@@ -286,20 +221,19 @@ def test_pair_body_replica_matches_plain(nfft, max_lag, gate):
 
 
 def test_geometry_takes_n1_128_and_256_and_keeps_shared_memory():
-    """The kernels' inner lengths and shared memory: no more than the
-    direct-DFT body took at the main paths' shapes (it is the same
-    formula), and K8's pair buffers inside its row; the mixed-radix inner
-    lengths are taken too (the wide body, one CT row a warp a chunk), and
-    a split outside them raises."""
+    """The kernels' inner lengths and shared memory at the main paths'
+    shapes: the flagship's K2 and the wideband K5 in three blocks an SM,
+    K8's pair buffers inside its row; the mixed-radix inner lengths are
+    taken too, and a split outside them raises."""
     assert gcc_pair._geometry(17408, 512, "K2") == (128, 136, 4, 5)
     assert gcc_pair._geometry(5120, 128, "K5") == (128, 40, 1, 2)
     assert gcc_pair._geometry(34816, 512, "K2") == (256, 136, 2, 3)
-    assert gcc_pair.smem_bytes(128, 4, 5) == 25_600  # [128, 8, 17408], L 512
-    assert gcc_pair.smem_bytes(128, 1, 2) == 19_456  # [16, 64, 5120], L 128
-    assert gcc_pair.smem_bytes(128, 4, 5, channel_step.THREADS) == 41_984 <= 17408 * 8  # K8
+    assert gcc_pair.wide_plan(128, 136, 4, 5, 2).smem == 66_592  # K2 [128, 8, 17408], L 512
+    assert gcc_pair.wide_plan(128, 40, 1, 2, gcc_pair.TILE_PAIRS).smem == 62_624  # K5 [16, 64, 5120], L 128
+    assert channel_step.pair_plan(17408, 4, 5).smem == 115_744 <= 17408 * 8  # K8: 16 rows a chunk
     n = next(n for n in range(128, 1 << 20, 128) if ct_plan.ct_supported(n) and ct_plan.ct_split(n)[0] == 384)
     assert gcc_pair._geometry(n, 64, "K2")[0] == 384 and gcc_pair.PAIR_N1 == (128, 256, 384, 640, 896)
-    assert gcc_pair.wide_plan(384, n // 384, 1, 1, 1).rows == 8  # the wide body: 8 warps, one row each
+    assert gcc_pair.wide_plan(384, n // 384, 1, 1, 1).rows == 8  # one pair: 8 rows a chunk
     n = next(n for n in range(128, 1 << 20, 128) if ct_plan.ct_supported(n) and ct_plan.ct_split(n)[0] == 512)
     with pytest.raises(ValueError, match="n1 in"):
         gcc_pair._geometry(n, 64, "K2")
