@@ -11,6 +11,12 @@ per source, in parallel, sm_90a), then:
 1. prints the card's name and power limit and the kernel build time;
 2. K1 (fused FFT + detect) vs its plain PyTorch version at the flagship
    shape [1024 rows, 17408], with errors and median CUDA-event times;
+   K1 there is one launch of its cluster design (the cluster K3's kernel
+   with its detect half, ``csrc/fft_rows_ct_cluster.cu``): its c, block
+   0's detect columns, shared memory, registers, spills, blocks an SM and
+   active clusters, its outputs equal to the one-block K1's (the design
+   it replaced, ``fft_detect.block_detect``) bit for bit, and both
+   times;
 3. K2 (PHAT pair stage) vs its plain version at [128, 8, 17408] →
    [128, 28, 1025], fed K1's outputs, and at the pair body's other inner
    length, n1 = 256: [16, 8, 34816] → [16, 28, 1025] on spectra made here
@@ -21,8 +27,9 @@ per source, in parallel, sm_90a), then:
    50 m and agree with the port's CPU run;
 5. the flagship at full width — 8 blocks of 128 channels × 8 buoys ×
    16384 uint8 IQ at 2.4 MS/s, max_lag 512 — through
-   ``step_split_uint8_scan``, with both kernels' launch counts, ms/block,
-   IQ samples/s and a per-stage split from CUDA events;
+   ``step_split_uint8_scan``, with both kernels' launch counts (K1 once a
+   block, by design: its cluster design; no K4), ms/block, IQ samples/s
+   and a per-stage split from CUDA events;
 6. K3 (CT-order FFT) vs its plain version at the wideband shape [1024,
    5120]: the full-width ``WidebandTDOAPipeline.example_inputs(seed=0)``
    block after the channelizer;
@@ -75,7 +82,7 @@ per source, in parallel, sm_90a), then:
     K1 on the same rows, whose spectra must equal K3's bit for bit (the
     same radix steps of ``ct_fft.cuh``); and K4 on K1's spectra and on
     K3's, which must both equal K1's own partials and noise floor bit for
-    bit;
+    bit; and K1's cluster design on those rows as in phase 2;
 15. K2 in its l2, l1 and "cc" modes vs its plain version at [128, 8,
     17408] → [128, 28, 1025], within 1e-4 of the window max, same argmax;
 16. K8 (the per-channel megakernel) vs its plain version at [128, 8,
@@ -98,14 +105,17 @@ per source, in parallel, sm_90a), then:
     [1024, 33792] (the flagship block at block_len 32768), [1024, 34816]
     (n1 = 256, max_lag 2048) and [1024, 66560] (block_len 65536), with
     times, bounds and ``torch.fft.fft`` + the CT permutation beside K3;
-    K1's outputs equal to K3 → K4 bit for bit; the long K3 and K1 forced
-    onto 17408 and 24576 equal to the one-block designs bit for bit, and
-    K4 on the one-block K3's spectra equal to the one-block K1's partials;
+    K1 one launch of its cluster design (as in phase 2: its shape on the
+    card, its outputs equal to the parent's design, the cluster K3 then K4,
+    bit for bit, and both times); the long K3 and K1 forced onto 17408 and
+    24576 equal to the one-block designs bit for bit, and K4 on the
+    one-block K3's spectra equal to the one-block K1's partials;
     the phase-4 scene at block_len 32768 on the default and two-kernel
     routes, card vs CPU; and 4 flagship blocks at full width, 128 ch × 8
     buoys × 32768 uint8 IQ, max_lag 600, through
     ``step_split_uint8_scan`` on the default route: ms/block, launches by
-    design and a per-stage split;
+    design (K1 once a block, its cluster design; no K4) and a per-stage
+    split;
 20. the lengths whose split has n1 ∈ {384, 640, 896} (once fault F3b;
     the mixed-radix warp FFT) and the in-kernel top-K (T1): the long K3
     vs its plain version at [1024, 58368] (the flagship block at
@@ -117,11 +127,12 @@ per source, in parallel, sm_90a), then:
     to the workspace K3 → K4 (the parent design) bit for bit, also on
     rows of equal powers (zeros, an impulse) that take the floor's
     bisection fallback, K1 vs its plain version, and the workspace K3 and
-    K3 → K4 timed beside the wide K3 and K1; K1 and K3 at [1024, 58368],
-    [1024, 97280] and [256, 121856] back to back against
-    ``RM_PARENT_TREE``'s (``tools/forward_times.py --k1
-    58368,97280,121856`` by path: parent, this, this, parent), with the
-    long rows' digests equal to the parent's; at [1024, 58368] and [1024,
+    K3 → K4 timed beside the wide K3 and K1; K1 and K3 at [1024, 17408],
+    [1024, 33792], [1024, 34816], [1024, 66560] (n1 = 128/256), [1024,
+    58368], [1024, 97280] and [256, 121856] back to back against
+    ``RM_PARENT_TREE``'s (``tools/forward_times.py --k1`` by path: parent,
+    this, this, parent), with the long rows' digests equal to the
+    parent's; at [1024, 58368] and [1024,
     97280] the rows are the flagship's uint8 inputs at block_len 57344 and
     96000 (elsewhere noise), and K2 runs on K1's outputs there, [128, 8,
     58368] and [128, 8, 97280], vs plain (window within 1e-4 of its max,
@@ -293,9 +304,14 @@ per source, in parallel, sm_90a), then:
     ms/block, launches by design (K1 wide and K2 once a block) and a
     per-stage split.
 
-Each kernel's entry in the ``kernels`` line carries its sources (K1 and
-K3 with their long-row files, K7 with its cluster design's, K8 with its
-long design's), the long rows' numbers (K1, K3, K4; K7's
+Each kernel's entry in the ``kernels`` line carries its sources (K1's
+``source`` is its cluster design's, ``fft_rows_ct_cluster.cu``, with the
+one-block and wide designs' files beside it; K3 with its long-row files,
+K7 with its cluster design's, K8 with its long design's), K1's cluster
+design at each of phases 2, 14 and 19's lengths (``cluster_design``,
+``cluster_design_flagship_block``) and its launches by design on the
+flagship at block_len 16384 and 32768 (``design_counts_*``), the long
+rows' numbers (K1, K3, K4; K7's
 ``cluster_rows``), phase 20's (``mixed_rows`` of K1, K2, K3, K5; K8's
 ``long_rows``; ``topk`` of K1 and K4; K1's and K3's ``wide_design`` by
 length, K1's ``wide_vs_workspace`` and ``wide_back_to_back``), phase 39's
@@ -644,13 +660,15 @@ def _pair_times(tree):
     return times, digests
 
 
-K1_LENGTHS = (58_368, 97_280, 121_856)  # forward_times.py --k1's lengths here: n1 = 384, 640, 896
+# forward_times.py --k1's lengths here: n1 = 128/256 (the flagship at block_len 16384, 32768, 65536 and
+# 32768 at max_lag 2048), then 384, 640, 896
+K1_LENGTHS = (17_408, 33_792, 34_816, 66_560, 58_368, 97_280, 121_856)
 
 
 def _k1_times(tree):
-    """``tools/forward_times.py --k1 58368,97280,121856`` of this checkout
-    run by path on the package under ``tree``: ``{nfft: (rows, K1 ms, K3
-    ms)}`` and the long rows' digests."""
+    """``tools/forward_times.py --k1`` at :data:`K1_LENGTHS` of this
+    checkout run by path on the package under ``tree``: ``{nfft: (rows, K1
+    ms, K3 ms)}`` and the long rows' digests."""
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "radio_mapper_tpu_torch", "tools",
                           "forward_times.py")
     out = subprocess.run([sys.executable, script, "--k1", ",".join(map(str, K1_LENGTHS))],
@@ -662,6 +680,59 @@ def _k1_times(tree):
         times[n] = (int(m.group(1)), float(m.group(2)), float(m.group(3)))
     digests = re.search(r"long digests \([^)]*\): (.*) \[", out).group(1)
     return times, digests
+
+
+def _k1_cluster_report(torch, n, xr, xi, plan, phase, tag):
+    """K1's cluster design (n1 = 128/256, ``csrc/fft_rows_ct_cluster.cu``
+    with its detect half) on the rows ``xr, xi`` of length n: one launch
+    through the wrapper (no K3, no K4), its shape on the card (c, block 0's
+    detect columns, shared memory, registers, spills, blocks an SM, active
+    clusters), its outputs against the design it replaced bit for bit (the
+    one-block K1 up to 24576, the cluster K3 then K4 above: spectra,
+    partials, floor, row max), and the CUDA-event times of both. Returns
+    the facts for the kernels line."""
+    from radio_mapper_tpu_torch.ops.cuda import build, detect_ct, fft_detect, fft_rows
+
+    g = fft_detect.cluster_geometry(n, plan.radius)
+    info = fft_detect.cluster_info(n, plan.radius)
+    ptx = {r["kernel"]: r for r in build.ptxas_report(build.build_log())}[f"ct_cluster_kernel<{g.n1}, {g.cols}, 1>"]
+    spills = ptx["spill_stores"] + ptx["spill_loads"]
+    short = n <= fft_detect.MAX_N
+
+    def parent():
+        if short:
+            return fft_detect.block_detect(xr, xi, plan)
+        f3 = fft_rows.long_rows(xr, xi)
+        return (*f3, *detect_ct.launch(*f3, plan, row_max=True))
+
+    counts = lambda: (fft_detect.design_counts["cluster"], fft_detect.launch_count, fft_rows.launch_count,
+                      detect_ct.launch_count)
+    before = counts()
+    k1 = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    torch.cuda.synchronize()
+    one_launch = tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 0, 0)
+    names = ("spectra re", "spectra im", "segment scores", "segment offsets", "floor", "row max")
+    same = {k: torch.equal(x, y) for k, x, y in zip(names, k1, parent())}
+    del k1
+    ms = _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct(xr, xi, plan))
+    parent_ms = _cuda_ms(torch, parent)
+    parent_name = "the one-block K1" if short else "the cluster K3 -> K4"
+    print(
+        f"phase {phase}: K1 [{xr.shape[0]}, {n}] ({g.n1}·{g.n2}) design {fft_detect.geometry(n, 0, plan.radius)}: one "
+        f"launch (no K3, no K4) {one_launch}; c = {info['c']} blocks a row, block 0's detect columns "
+        f"{info['dcols0']}, {info['smem']} B of shared memory a block, {info['registers']} registers, spills "
+        f"{ptx['spill_stores']}/{ptx['spill_loads']} B, {info['blocks']} blocks of 512 threads an SM, "
+        f"cudaOccupancyMaxActiveClusters {info['clusters']}; = {parent_name} bit for bit: {same}; kernel "
+        f"{ms:.3f} ms, {parent_name} {parent_ms:.3f} ms {tag}"
+    )
+    _require(one_launch, f"K1 at {n} is not one launch of the cluster design")
+    _require(all(same.values()), f"K1's cluster design differs from {parent_name} at {n}: {same}")
+    two = 2 * (info["smem"] + fft_rows.CLUSTER_DETECT_STATIC_BYTES + fft_rows.SMEM_RESERVED) <= fft_rows.SM_SMEM
+    _require(info["clusters"] > 0 and info["registers"] <= 64 and info["blocks"] == (2 if two else 1),
+             f"K1's cluster at {n}: {info}")
+    return {"shape": [xr.shape[0], n], "design": "cluster", **info, "spill_bytes": spills, "ms": ms,
+            "parent_design": "block" if short else "cluster K3 -> K4", "parent_ms": parent_ms,
+            "bit_equal_to_parent": all(same.values())}
 
 
 def _held(torch, name, kernel, plain, shape, window, bound):
@@ -2202,6 +2273,7 @@ def main() -> int:
     _require(pattern_diff <= 1e-3 and arg_diff <= 1e-3, "K1 detect partials disagree")
     _require(score_rel <= 1e-4, f"K1 segment scores disagree: {score_rel}")
     _require(both.any().item(), "K1 produced no candidates to compare")
+    k1_cluster = {nfft: _k1_cluster_report(torch, nfft, xr, xi, plan, 2, tag)}  # nfft -> the cluster design's facts
 
     # ---- phase 3: K2 vs plain, fed K1's outputs
     pi, pj = gcc_phat.pair_indices(buoys)
@@ -2276,11 +2348,13 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
+    k1_designs0 = dict(fft_detect.design_counts)
     t0 = time.perf_counter()
     out = pipe.step_split_uint8_scan(raw, anchors)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for k, v in launch_counts().items() if v}
+    k1_designs16 = {k: v - k1_designs0[k] for k, v in fft_detect.design_counts.items() if v != k1_designs0[k]}
     default_ms_block = 1e3 * wall / blocks
     leaves = _leaves(torch, out)
     finite = all(torch.isfinite(x).all().item() for x in leaves if x.is_floating_point())
@@ -2289,12 +2363,13 @@ def main() -> int:
     print(
         f"phase 5: {blocks} blocks x {chans} ch x {buoys} buoys x {n} uint8 IQ: {ms_block:.3f} ms/block, "
         f"{samples_s:.4e} IQ samples/s, peak mem {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, "
-        f"launches {launches}, all finite {finite} {tag}"
+        f"launches {launches}, K1 by design {k1_designs16}, all finite {finite} {tag}"
     )
     _require(out.fix.position_enu.shape == (blocks, chans, 3), "scan output shape")
     _require(finite, "non-finite outputs at full width")
-    _require(launches == {"fft_detect_rows_ct": blocks, "gcc_pair_lag_mags": blocks},
-             f"kernel launches {launches}")
+    _require(launches == {"fft_detect_rows_ct": blocks, "gcc_pair_lag_mags": blocks}
+             and k1_designs16 == {fft_detect.geometry(nfft): blocks},
+             f"kernel launches {launches}, K1 designs {k1_designs16}")
 
     med = _stage_split(
         torch, lambda mark: pipe.step_split_uint8(raw[0], anchors, on_stage=mark),
@@ -2781,6 +2856,7 @@ def main() -> int:
     _require(k4_same_as_k1, "K4 on K1's spectra differs from K1's own partials")
     _require(k1_same_as_k3, "K1's spectra differ from K3's on the same rows")
     _require(k3k4_same_as_k1, "K3 -> K4 partials differ from K1's")
+    k1_cluster_block0 = _k1_cluster_report(torch, nfft, x3r, x3i, plan, 14, tag)
     del f3r, f3i, x3r, x3i, k4, p4, k4_on_k1
 
     # ---- phase 15: K2's l2, l1 and "cc" modes vs plain, fed K1's outputs
@@ -2975,9 +3051,10 @@ def main() -> int:
             dc_notch_hz=10_000.0, confidence_floor=0.3, snr_fullscale_db=20.0,
         )
         rows_l = lxr.shape[0]
-        _require(fft_rows.geometry(ln) == fft_detect.geometry(ln) == "long", f"nfft {ln} is not a long row")
+        _require(fft_rows.geometry(ln) == "long" and fft_detect.geometry(ln) == "cluster", f"nfft {ln}: designs")
         k3_cluster_report(ln, 19)
-        designs = lambda: (fft_rows.design_counts["long"], detect_ct.launch_count, fft_detect.design_counts["long"])
+        k1_cluster[ln] = _k1_cluster_report(torch, ln, lxr, lxi, lplan, 19, tag)
+        designs = lambda: (fft_rows.design_counts["long"], detect_ct.launch_count, fft_detect.design_counts["cluster"])
         before = designs()
         l3 = fft_rows.fft_rows_ct(lxr, lxi)
         l4 = detect_ct.detect_ct_partials(*l3, lplan)
@@ -2993,7 +3070,6 @@ def main() -> int:
         l1e = _partials_errors(torch, l1[2:5], p1l[2:5], *p1l[:2])
         l1_rmax = ((l1[5] - p1l[5]).abs() / p1l[5]).max().item()
         del p1l
-        l1_is_k3k4 = all(torch.equal(x, y) for x, y in zip(l1[:5], (*l3, *l4)))
         del l1
         l3_ms = _cuda_ms(torch, lambda: fft_rows.fft_rows_ct(lxr, lxi))
         l3_plain_ms = _cuda_ms(torch, lambda: fft_rows.fft_rows_ct_plain(lxr, lxi))
@@ -3027,7 +3103,7 @@ def main() -> int:
             f"pattern differs {l4e[0]:.2e}, argmax differs {l4e[1]:.2e} (tol 1e-3 each), floor {l4e[2]:.3e} dB "
             f"(tol 1e-3), score rel {l4e[4]:.3e} (tol 1e-4); K1 spectra rel {l1_rel:.3e}, floor {l1e[2]:.3e} dB, row "
             f"max rel {l1_rmax:.3e} (tol 1e-5), pattern {l1e[0]:.2e}, argmax {l1e[1]:.2e}, score rel {l1e[4]:.3e}; "
-            f"K1 = K3 -> K4 bit for bit: {l1_is_k3k4}; long designs ran: {ran_long} {tag}"
+            f"K3, K4 and K1's cluster design ran: {ran_long} (K1 = K3 -> K4 bit for bit above) {tag}"
         )
         _require(ran_long, f"the long designs did not run at {ln}")
         _require(l3_rel <= 1e-4 and l1_rel <= 1e-4, f"long K3/K1 spectra disagree at {ln}: {l3_rel}, {l1_rel}")
@@ -3035,7 +3111,6 @@ def main() -> int:
             _require(e[0] <= 1e-3 and e[1] <= 1e-3 and e[2] <= 1e-3 and e[4] <= 1e-4 and e[5],
                      f"K4/long K1 partials disagree at {ln}: {e}")
         _require(l1_rmax <= 1e-5, f"long K1 row max disagrees at {ln}: {l1_rmax}")
-        _require(l1_is_k3k4, f"long K1 differs from K3 -> K4 at {ln}")
         del l3, l4
     del long_shapes, lxr, lxi
 
@@ -3051,7 +3126,7 @@ def main() -> int:
             dc_notch_hz=10_000.0, confidence_floor=0.3, snr_fullscale_db=20.0,
         )
         b3 = fft_rows.fft_rows_ct(fxr, fxi)
-        b1 = fft_detect.fft_detect_rows_ct(fxr, fxi, fplan)
+        b1 = fft_detect.block_detect(fxr, fxi, fplan)  # the one-block K1 (the route takes the cluster design)
         same = {
             "K3": all(torch.equal(x, y) for x, y in zip(fft_rows.fft_rows_ct_long(fxr, fxi), b3)),
             "K4": all(torch.equal(x, y) for x, y in zip(detect_ct.detect_ct_partials(*b3, fplan), b1[2:5])),
@@ -3061,7 +3136,7 @@ def main() -> int:
         f_ms = {
             "K3 block": _cuda_ms(torch, lambda: fft_rows.fft_rows_ct(fxr, fxi)),
             "K3 long": _cuda_ms(torch, lambda: fft_rows.fft_rows_ct_long(fxr, fxi)),
-            "K1 block": _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct(fxr, fxi, fplan)),
+            "K1 block": _cuda_ms(torch, lambda: fft_detect.block_detect(fxr, fxi, fplan)),
             "K1 long": _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct_long(fxr, fxi, fplan)),
         }
         print(
@@ -3085,12 +3160,12 @@ def main() -> int:
         knob(on)
         try:
             zero_counts()
-            longs = (fft_detect.design_counts["long"], fft_rows.design_counts["long"], detect_ct.launch_count)
+            longs = (fft_detect.design_counts["cluster"], fft_rows.design_counts["long"], detect_ct.launch_count)
             on_card = TDOAPipeline(cfg32, device=dev).step_split(*(a.to(dev) for a in host32))
             torch.cuda.synchronize()
             got = {k: v for k, v in launch_counts().items() if v}
             longs = tuple(a - b for a, b in zip(
-                (fft_detect.design_counts["long"], fft_rows.design_counts["long"], detect_ct.launch_count),
+                (fft_detect.design_counts["cluster"], fft_rows.design_counts["long"], detect_ct.launch_count),
                 longs))
             on_cpu = TDOAPipeline(cfg32, device="cpu").step_split(*host32)
         finally:
@@ -3103,7 +3178,7 @@ def main() -> int:
         print(
             f"phase 19: scene at block_len 32768 (nfft 33792), {route} route: fix error {err_m:.3f} m (limit 50), "
             f"card vs CPU: fix {fix_gap:.3e} m (tol 0.5), lags {lag_gap:.2e} samples (tol 1e-3), peaks equal "
-            f"{same_peaks}, launches {got}, long K1, long K3, K4 {longs} {tag}"
+            f"{same_peaks}, launches {got}, K1 cluster design, long K3, K4 {longs} {tag}"
         )
         _require(err_m < 50.0 and fix_gap <= 0.5 and lag_gap <= 1e-3 and same_peaks,
                  f"block_len 32768 scene, {route} route: card and CPU disagree")
@@ -3116,24 +3191,24 @@ def main() -> int:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     zero_counts()
-    k1_long0 = fft_detect.design_counts["long"]
+    k1_designs0 = dict(fft_detect.design_counts)
     t0 = time.perf_counter()
     lout = long_pipe.step_split_uint8_scan(lraw, lanchors)
     torch.cuda.synchronize()
     lwall = time.perf_counter() - t0
     long_launches = {k: v for k, v in launch_counts().items() if v}
-    k1_long_runs = fft_detect.design_counts["long"] - k1_long0
+    k1_designs32 = {k: v - k1_designs0[k] for k, v in fft_detect.design_counts.items() if v != k1_designs0[k]}
     lfinite = all(torch.isfinite(x).all().item() for x in _leaves(torch, lout) if x.is_floating_point())
     print(
         f"phase 19: flagship at block_len 32768, {lblocks} blocks x {chans} ch x {buoys} buoys x 32768 uint8 IQ "
         f"(nfft {long_pipe.plan.nfft}): {1e3 * lwall / lblocks:.3f} ms/block (real time "
         f"{1e3 * 32_768 / fs:.3f}), {lblocks * chans * buoys * 32_768 / lwall:.4e} IQ samples/s, peak mem "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {long_launches}, K1 long design "
-        f"{k1_long_runs}, all finite {lfinite} {tag}"
+        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB, launches {long_launches}, K1 by design "
+        f"{k1_designs32}, all finite {lfinite} {tag}"
     )
     _require(tuple(lout.fix.position_enu.shape) == (lblocks, chans, 3) and lfinite, "block_len 32768 outputs")
     _require(long_launches == {"fft_detect_rows_ct": lblocks, "gcc_pair_lag_mags": lblocks}
-             and k1_long_runs == lblocks, f"block_len 32768 launches {long_launches}, K1 long {k1_long_runs}")
+             and k1_designs32 == {"cluster": lblocks}, f"block_len 32768 launches {long_launches}, K1 {k1_designs32}")
     med = _stage_split(
         torch, lambda mark: long_pipe.step_split_uint8(lraw[0], lanchors, on_stage=mark),
         ["decode", "fft_detect", "peaks", "gcc_pair", "solve"],
@@ -3388,7 +3463,7 @@ def main() -> int:
         topk_rows[tn] = {"K1": ([trows, tn], te1[0], tms["K1"], tms["K1 plain"], tb1, tms["K1 partials"]),
                          "K4": ([trows, tn], te4[0], tms["K4"], tms["K4 plain"], tb4, tms["K4 partials"])}
         print(
-            f"phase 20: emit_topk 8 at [{trows}, {tn}] ({fft_detect.geometry(tn)} K1): = partials + the port's top-K "
+            f"phase 20: emit_topk 8 at [{trows}, {tn}] ({fft_detect.geometry(tn, emit_topk=8)} K1): = partials + the port's top-K "
             f"tail bit for bit {same}; vs plain: K1 value max|err| {te1[0]:.3e} (rel to row max power {te1[1]:.3e}, "
             f"tol 1e-4), packed differ outside near-ties {te1[2]} ({te1[3]:.2f} of lanes checked); K4 {te4[0]:.3e} "
             f"({te4[1]:.3e}), {te4[2]} ({te4[3]:.2f}); " + ", ".join(f"{k} {v:.3f} ms" for k, v in tms.items())
@@ -3465,7 +3540,7 @@ def main() -> int:
     )
     _require(tuple(mout.fix.position_enu.shape) == (mblocks, chans, 3) and mfinite, "block_len 57344 outputs")
     _require(mixed_launches == {"fft_detect_rows_ct": mblocks, "gcc_pair_lag_mags": mblocks}
-             and k1_designs == {"block": 0, "long": 0, "wide": mblocks},
+             and k1_designs == {"block": 0, "cluster": 0, "long": 0, "wide": mblocks},
              f"block_len 57344 launches {mixed_launches}, K1 designs {k1_designs}")
     med = _stage_split(
         torch, lambda mark: mpipe.step_split_uint8(mraw[0], manchors, on_stage=mark),
@@ -3837,7 +3912,7 @@ def main() -> int:
     )
     _require(tuple(out96.fix.position_enu.shape) == (blocks96, chans, 3) and finite96, "block_len 96000 outputs")
     _require(launches96 == {"fft_detect_rows_ct": blocks96, "gcc_pair_lag_mags": blocks96}
-             and k1_designs96 == {"block": 0, "long": 0, "wide": blocks96},
+             and k1_designs96 == {"block": 0, "cluster": 0, "long": 0, "wide": blocks96},
              f"block_len 96000 launches {launches96}, K1 designs {k1_designs96}")
     med96 = _stage_split(
         torch, lambda mark: pipe96.step_split_uint8(raw96[0], anchors96, on_stage=mark),
@@ -3895,13 +3970,15 @@ def main() -> int:
     k1_radix = _radix_flops(nrows, nfft, *ct_plan.radix_split(nfft)[1:]) + _detect_flops(nrows, nfft)
     k2_fft = _fft_pair_flops(chans * npairs, n1, n2, rows_w)
     print(json.dumps({"kernels": [
-        entry("fft_detect_rows_ct", "fft_detect.cu", "detect_kernel.py:443",
+        entry("fft_detect_rows_ct", "fft_rows_ct_cluster.cu", "detect_kernel.py:443",
               launches["fft_detect_rows_ct"], spec_abs, k1_ms, k1_plain_ms,
               _bound(_fft_flops(nrows, nfft) + _detect_flops(nrows, nfft),
                      nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_radix,
-              long_source=["fft_rows_ct_cluster.cu", "fft_detect_cluster.cu", "fft_detect_cluster_mixed.cu",
-                           "detect_ct.cu"],
+              long_source=["ct_detect.cuh", "cluster.cuh", "ct_fft.cuh", "fft_detect.cu", "fft_detect_cluster.cu",
+                           "fft_detect_cluster_mixed.cu", "fft_detect_cluster.cuh", "detect_ct.cu"],
               long_name="K1", mixed_rows=mixed("K1"), topk=topk("K1"),
+              design_counts_block_len_16384=k1_designs16, design_counts_block_len_32768=k1_designs32,
+              cluster_design=k1_cluster, cluster_design_flagship_block=k1_cluster_block0,
               wide_design={n: r["K1"] for n, r in wide_report.items() if r}, wide_back_to_back=k1_parent,
               wide_vs_workspace=wide_vs_workspace,
               launches_block_len_57344=mixed_launches.get("fft_detect_rows_ct", 0),

@@ -1,5 +1,8 @@
 // Kernel K1: forward CT-order FFT + spectral detection, one thread block
-// per row.
+// per row (the one-block design, n <= 24576): the route with emit_topk
+// (the in-kernel top-K), and the card's comparison for the cluster design
+// (fft_rows_ct_cluster.cu), which takes K1 without emit_topk at every
+// n1 = 128/256 length.
 //
 // Replaces radio_mapper_tpu/ops/pallas/detect_kernel.py::fft_detect_rows_ct
 // (fft_kernel.ct_fft_core + detect_kernel._detect_body). Python wrapper and

@@ -12,7 +12,11 @@
 // holds the entries, fft_detect_cluster_mixed.cu instantiates 640 and 896.
 // Apart, because nvcc compiles a kernel's code differently with other
 // instantiations in its translation unit: with 640 and 896 beside it the
-// n1 = 384 K1 ran 2-3% slower, bit for bit the same (PERF.md).
+// n1 = 384 K1 ran 2-3% slower, bit for bit the same (PERF.md). With the
+// detect parts shared with the cluster K1 (ct_detect.cuh), the n1 = 640
+// and 896 K1 run about 3% slower than with the window detect written in
+// the kernel (tools/forward_times.py --k1 beside that tree; PERF.md); no
+// unit or form of the shared code tried on the card brought it back.
 //
 // Replaces radio_mapper_tpu/ops/pallas/detect_kernel.py::fft_detect_rows_ct
 // (fft_kernel.ct_fft_core + detect_kernel._detect_body) and, with DETECT
@@ -60,12 +64,12 @@
 //   floor    the CT rows k2 = 0 mod 8, the detect body's stride-8 natural
 //            subsample, are exactly block 0's rows at any n1: block 0 alone
 //            writes their dB values over its free column buffer and finds
-//            the noise floor from one order statistic (floor_select: a
-//            histogram, then a rank of one bucket's values; the 24
-//            bisection steps then need no pass over the values), takes the
-//            row max over the 8 blocks' maxima and writes the floor into
-//            every block's shared memory before its half of a split
-//            cluster barrier.
+//            the noise floor from one order statistic (ct_detect.cuh
+//            subsample_floor and floor_select: a histogram, then a rank of
+//            one bucket's values; the 24 bisection steps then need no pass
+//            over the values), takes the row max over the 8 blocks' maxima
+//            and writes the floor into every block's shared memory before
+//            its half of a split cluster barrier.
 //   detect   meanwhile blocks 1 .. 7 take the detect columns (DCOLS = 56,
 //            92, 128 each, the last 48, 88, 128; block 0 none): each pulls,
 //            for its columns k1 and every k2, the power of CT (k2, k1) from
@@ -78,8 +82,11 @@
 //            lane pair of a segment its (max, lowest in-segment argmax);
 //            after the floor arrives the confidence gate (monotone in the
 //            power: a segment's best passes it or none of its bins does)
-//            and the partials go out. A last cluster barrier: no block
-//            exits while a partner reads its powers.
+//            and the partials go out (ct_detect.cuh pull_natural,
+//            window_partials, gate_partials: the code the cluster K1 at
+//            n1 = 128/256, fft_rows_ct_cluster.cu, runs too). A last
+//            cluster barrier: no block exits while a partner reads its
+//            powers.
 //
 // Every reduction is a max, a min, an integer count or an order statistic
 // and the per-value arithmetic is the workspace K3's and K4's, so the
@@ -122,8 +129,6 @@ constexpr int A = 8;                // step A's length (8 | n2)
 constexpr int THREADS = 512;        // fft_rows.WIDE_THREADS
 constexpr int WARPS = THREADS / 32;
 constexpr size_t SMEM_LIMIT = 232448;  // 227 KB a block
-constexpr int NB = 1024;            // the floor's histogram buckets
-constexpr int CAND = THREADS;       // values the floor's selection ranks, one a thread; a larger bucket takes the bisection
 
 // The design's shape at n1 = R1 (384, 640, 896).
 template <int R1>
@@ -245,98 +250,18 @@ __device__ __forceinline__ void row_fft(float2 (&v)[Wide<R1>::P], const float2* 
   rm_fft::q_dfts<P>(v, wq);
 }
 
-// The noise floor as rm_det::bisect_floor computes it, from one order
-// statistic: a bisection step asks whether 2*count(aux <= mid) < s, that
-// is whether fewer than k = (s + 1)/2 values are <= mid: mid < T for T
-// the k-th smallest value (true as well where mid is NaN or fewer than k
-// values are not NaN). A histogram of [lo, hi] in NB buckets (a monotone
-// map) finds T's bucket, a second pass collects that bucket's values and
-// each thread ranks one; the bisect_iters steps then run on T alone. A
-// bucket of more than CAND values (a row of equal powers) takes
-// rm_det::bisect_floor itself. hist: NB ints, cand: CAND floats of shared
-// memory, red: WARPS ints.
-__device__ float floor_select(const float* aux, int s, float lo, float hi, const DetectParams& prm, int* hist,
-                              float* cand, int* red) {
-  __shared__ int sel[3];  // T's bucket (-1: fewer than k values), T's rank in it, the values collected
-  __shared__ float t_val;
-  constexpr int PER = NB / THREADS;
-  const int tid = static_cast<int>(threadIdx.x), lane = tid & 31, warp = tid >> 5;
-  const int k = (s + 1) / 2;
-  const float scale = hi > lo ? static_cast<float>(NB) / (hi - lo) : 0.f;
-  const auto bucket = [&](float v) { return min(NB - 1, static_cast<int>(__fmul_rn(__fsub_rn(v, lo), scale))); };
-  const auto mid = [](float a, float b) { return __fmul_rn(0.5f, __fadd_rn(a, b)); };
-  for (int b = tid; b < NB; b += THREADS) hist[b] = 0;
-  if (tid == 0) sel[2] = 0;
-  __syncthreads();
-  for (int i = tid; i < s; i += THREADS) {
-    const float v = aux[i];
-    if (v == v) atomicAdd(&hist[bucket(v)], 1);
+// The power of CT (k2, k1) for rm_det::pull_natural: block k2 mod 8's
+// pw[k2 / 8][k1], through DSMEM.
+template <int R1>
+struct RankPower {
+  const float* pw;
+  __device__ float4 quad(int k2, int k1) const {
+    return rm_cluster::ld4(rm_cluster::dsmem(pw + (k2 / A) * R1 + k1, static_cast<unsigned>(k2 % A)));
   }
-  __syncthreads();
-  int loc[PER], sum = 0;
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    loc[j] = hist[tid * PER + j];
-    sum += loc[j];
+  __device__ float one(int k2, int k1) const {
+    return rm_cluster::ld1(rm_cluster::dsmem(pw + (k2 / A) * R1 + k1, static_cast<unsigned>(k2 % A)));
   }
-  int inc = sum;  // inclusive scan over the warp, then over the warps
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, inc, o);
-    if (lane >= o) inc += y;
-  }
-  if (lane == 31) red[warp] = inc;
-  __syncthreads();
-  int before = 0, total = 0;
-#pragma unroll
-  for (int w = 0; w < WARPS; ++w) {
-    const int t = red[w];
-    before += w < warp ? t : 0;
-    total += t;
-  }
-  int c = before + inc - sum;  // values in the buckets before this thread's
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    if (c <= k - 1 && k - 1 < c + loc[j] && total >= k) {
-      sel[0] = tid * PER + j;
-      sel[1] = k - 1 - c;
-    }
-    c += loc[j];
-  }
-  if (tid == 0 && total < k) sel[0] = -1;
-  __syncthreads();
-  const int bstar = sel[0];
-  if (bstar < 0) {  // every step is below
-    for (int it = 0; it < prm.bisect_iters; ++it) lo = mid(lo, hi);
-    return mid(lo, hi);
-  }
-  for (int i = tid; i < s; i += THREADS) {
-    const float v = aux[i];
-    if (v == v && bucket(v) == bstar) {
-      const int j = atomicAdd(&sel[2], 1);
-      if (j < CAND) cand[j] = v;
-    }
-  }
-  __syncthreads();
-  const int m = sel[2];
-  if (m > CAND) return rm_det::bisect_floor<THREADS>(aux, s, lo, hi, prm, red);
-  if (tid < m) {  // value tid's rank among the bucket's (ties by index): one holds rank sel[1]
-    const float cj = cand[tid];
-    int rank = 0;
-    for (int i = 0; i < m; ++i) {
-      const float ci = cand[i];
-      rank += (ci < cj || (ci == cj && i < tid)) ? 1 : 0;
-    }
-    if (rank == sel[1]) t_val = cj;
-  }
-  __syncthreads();
-  const float t = t_val;
-  for (int it = 0; it < prm.bisect_iters; ++it) {
-    const float m0 = mid(lo, hi);
-    if (m0 != m0 || m0 < t) lo = m0; else hi = m0;
-  }
-  return mid(lo, hi);
-}
+};
 
 // MIN_BLOCKS: __launch_bounds__' blocks an SM, 2 (at most 64 registers a
 // thread) or 1 (128): 2 at n1 = 384; at 640 K3's where two blocks fit an
@@ -517,27 +442,7 @@ fft_detect_cluster_kernel(const float* __restrict__ xre, const float* __restrict
   if (rank == 0) {
     // the row max: lane q of warp 0 reads block q's max (one round trip)
     const float bmax = tid < C ? rm_cluster::ld1(rm_cluster::dsmem(&s_lmax, static_cast<unsigned>(tid))) : -CUDART_INF_F;
-    float lo = CUDART_INF_F, hi = -CUDART_INF_F;
-    for (int i = tid; i < s_all; i += THREADS) {
-      const float db = rm_det::sub_db(pw[i], prm);
-      aux[i] = db;
-      lo = fminf(lo, db);
-      hi = fmaxf(hi, db);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-      hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-    }
-    if (lane == 0) red_lh[warp] = make_float2(lo, hi);
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      lo = fminf(lo, red_lh[w].x);
-      hi = fmaxf(hi, red_lh[w].y);
-    }
-    int* hist = reinterpret_cast<int*>(aux + s_all);
-    const float nf = floor_select(aux, s_all, lo, hi, prm, hist, reinterpret_cast<float*>(hist + NB), red_i);
+    const float nf = rm_det::subsample_floor<THREADS>(pw, s_all, aux, prm, red_lh, red_i);
     if (tid < C) rm_cluster::st1(rm_cluster::dsmem(&s_nf, static_cast<unsigned>(tid)), nf);
     if (warp == 0) {
       float rmax = bmax;
@@ -548,113 +453,26 @@ fft_detect_cluster_kernel(const float* __restrict__ xre, const float* __restrict
         rmax_out[row] = rmax;
       }
     }
-    __syncthreads();  // every read of aux is done
   }
   rm_cluster::arrive();  // block 0: its floor is in every block's s_nf
 
   // ---- pull: this block's detect columns d0 .. d0 + dn - 1 (none on
   // block 0, which finds the floor meanwhile; DCOLS on blocks 1 .. 6, the
-  // rest on block 7): nat[rad + c*n2 + k2] = power of CT (k2, d0 + c), natural
-  // order
+  // rest on block 7), the power of CT (k2, k1) from block k2 mod 8
   const int d0 = rank == 0 ? 0 : DCOLS * (rank - 1);
   const int dn = rank == 0 ? 0 : rank < C - 1 ? DCOLS : R1 - DCOLS * (C - 2);
-  const int bins = dn * n2;
-  const int rad = prm.radius;
   float* nat = aux;                                  // [rad | dn*n2 | rad]
-  float* st_sc = nat + bins + 2 * rad + 4;           // [r][dn] staged partials (after the windows' overrun)
+  float* st_sc = nat + dn * n2 + 2 * prm.radius + 4;  // [r][dn] staged partials (after the windows' overrun)
   float* st_sa = st_sc + r * dn;
-  for (int u = tid; u < n2 * (dn / 4); u += THREADS) {
-    const int q = u / n2, k2 = u - q * n2;
-    const float4 f = rm_cluster::ld4(rm_cluster::dsmem(pw + (k2 / A) * R1 + d0 + 4 * q, static_cast<unsigned>(k2 % A)));
-    float* d = nat + rad + 4 * q * n2 + k2;
-    d[0] = f.x;
-    d[n2] = f.y;
-    d[2 * n2] = f.z;
-    d[3 * n2] = f.w;
-  }
-  for (int h = tid; h < (dn > 0 ? 2 * rad : 0); h += THREADS) {
-    const bool before = h < rad;
-    const int k2 = before ? n2 - rad + h : h - rad;  // the left column's last / the right column's first bins
-    const int k1 = before ? (d0 == 0 ? R1 - 1 : d0 - 1) : (d0 + dn == R1 ? 0 : d0 + dn);
-    nat[before ? h : bins + h] =
-        rm_cluster::ld1(rm_cluster::dsmem(pw + (k2 / A) * R1 + k1, static_cast<unsigned>(k2 % A)));
-  }
-  __syncthreads();
+  rm_det::pull_natural<THREADS>(nat, d0, dn, R1, n2, prm.radius, RankPower<R1>{pw});
 
-  // ---- detect: 4 bins u .. u + 3 a lane (one column, 8 | n2), a segment
-  // two lanes, 128 bins a warp (the last warp's lanes past the block's
-  // bins compute on what follows nat and write nothing). Bin u + b's window is nat[u + b .. u + b + 2 rad], read as
-  // float4s: the positions q = 3 .. 2 rad all four share (core), q < 3
-  // (lo[b], b <= q) and q > 2 rad (hi[b], b >= q - 2 rad). The gates but
-  // the confidence gate, which waits for the floor: a segment's best
-  // score passes it or none of its scores does (monotone in the power).
-  {
-    const int w2 = 2 * rad;
-    const int nq = (w2 + 7) / 4;  // float4s covering q = 0 .. 2 rad + 3
-    const int pure = (w2 - 3) / 4;  // chunks 1 .. pure hold core positions only
-    for (int u0 = 128 * warp; u0 < bins; u0 += 128 * WARPS) {
-      const int u = u0 + 4 * lane;
-      const float4* win = reinterpret_cast<const float4*>(nat + u);
-      float core = -CUDART_INF_F;
-      float lo[3] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
-      float hi[4] = {-CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F, -CUDART_INF_F};
-      for (int ch = 1; ch <= pure; ++ch) {
-        const float4 f = win[ch];
-        core = fmaxf(core, fmaxf(fmaxf(f.x, f.y), fmaxf(f.z, f.w)));
-      }
-      for (int ch = 0; ch < nq; ch = (ch == 0 ? pure + 1 : ch + 1)) {
-        const float4 f = win[ch];
-        const float fv[4] = {f.x, f.y, f.z, f.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int q = 4 * ch + e;
-          if (q < 3) {
-#pragma unroll
-            for (int b = 0; b < 3; ++b) if (b <= q) lo[b] = fmaxf(lo[b], fv[e]);
-          } else if (q <= w2) {
-            core = fmaxf(core, fv[e]);
-          } else {
-#pragma unroll
-            for (int b = 1; b < 4; ++b) if (q - w2 <= b) hi[b] = fmaxf(hi[b], fv[e]);
-          }
-        }
-      }
-      const int c = u / n2, k2 = u - c * n2;
-      float sc[4];
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float pv = nat[u + b + rad];
-        const float mx = fmaxf(core, fmaxf(b < 3 ? lo[b] : -CUDART_INF_F, hi[b]));
-        const float pe = __fadd_rn(pv, 1e-24f);
-        const int k = k2 + b + n2 * (d0 + c);
-        const bool cand = (pv >= mx) && (pe > prm.thr_lin) && (k >= prm.keep_lo) && (k <= prm.keep_hi);
-        sc[b] = cand ? pv : -CUDART_INF_F;
-      }
-      float best = fmaxf(fmaxf(sc[0], sc[1]), fmaxf(sc[2], sc[3]));
-      best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, 1));
-      int arg = SEG;
-#pragma unroll
-      for (int b = 3; b >= 0; --b) arg = sc[b] >= best ? 4 * (lane & 1) + b : arg;
-      arg = min(arg, __shfl_xor_sync(0xffffffffu, arg, 1));
-      if ((lane & 1) == 0 && u < bins) {
-        st_sc[(k2 / SEG) * dn + c] = best;
-        st_sa[(k2 / SEG) * dn + c] = static_cast<float>(arg);
-      }
-    }
-  }
+  // ---- detect: the sliding max, the gates but the confidence gate, the
+  // segment partials; after the floor arrives the confidence gate
+  rm_det::window_partials<THREADS>(nat, d0, dn, n2, prm, st_sc, st_sa);
   __syncthreads();
   rm_cluster::wait();    // the floor is here
   rm_cluster::arrive();  // this block's pulls are done
-  const float conf_lin = rm_det::conf_level(s_nf, prm);
-  // segment f = b2*R1 + k1, through the confidence gate
-  for (int g = tid; g < r * dn; g += THREADS) {
-    const int b2 = g / dn, c = g - b2 * dn;
-    const size_t f = row * s_all + static_cast<size_t>(b2) * R1 + d0 + c;
-    const float best = st_sc[g];
-    const bool pass = !prm.has_conf || __fadd_rn(best, 1e-24f) >= conf_lin;
-    seg_score[f] = pass ? best : -CUDART_INF_F;
-    seg_arg[f] = pass ? st_sa[g] : 0.f;
-  }
+  rm_det::gate_partials<THREADS>(st_sc, st_sa, d0, dn, R1, r, row * s_all, s_nf, prm, seg_score, seg_arg);
   rm_cluster::wait();  // no block exits while a partner pulls its powers
 }
 

@@ -30,12 +30,12 @@ the scratch's traffic (2 × 142.6 MB at 128 channels × 8 receivers) but
 needs ≈ 209 KB a block before the pair buffers: a later redesign.
 
 Long design (nfft > 24576, where one block no longer holds a row): the
-long K1 — at n1 = 384, 640, 896 its one-pass kernel on a thread-block
-cluster (``csrc/fft_detect_cluster.cuh``), else the long K3 (``csrc/
-fft_rows_ct_cluster.cu``) and then K4 of ``csrc/detect_ct.cu`` with the
-row maxima — then K2's launch (``csrc/
-gcc_pair.cu``, l2rx gate on those maxima): two or three launches,
-counted as one launch of K8 (and not of K1, K3, K4 or K2). The
+long K1 — its one-pass kernel on a thread-block cluster at every n1
+(``csrc/fft_rows_ct_cluster.cu`` with its detect half at n1 = 128, 256,
+``csrc/fft_detect_cluster.cuh`` at 384, 640, 896; the long K3 and then
+K4 of ``csrc/detect_ct.cu`` only for a radius outside 2 .. n2) — then
+K2's launch (``csrc/gcc_pair.cu``, l2rx gate on those maxima): two
+launches, counted as one launch of K8 (and not of K1, K3, K4 or K2). The
 reference's K8 takes every length ``ct_supported`` accepts; its function
 is K1 → K2 (l2rx), so the outputs equal that composition bit for bit.
 K2 fused into the long K1 is a later redesign.
@@ -232,12 +232,17 @@ def _launch(re, im, pair_i, pair_j, plan, max_lag, eps):
 
 
 def _long(re, im, pair_i, pair_j, plan, max_lag, eps):
-    """K8's long design on CUDA rows ``[..., B, n]``: the long K1 (at n1 =
-    384, 640, 896 the wide design's one kernel, else the long K3 and K4
-    with the row maxima), then K2's kernel (l2rx), none of them counted."""
+    """K8's long design on CUDA rows ``[..., B, n]``: the long K1 (its
+    one-launch cluster design: at n1 = 128, 256 ``fft_detect.cluster_detect``,
+    at 384, 640, 896 ``fft_detect.wide_detect``; for a plan neither takes,
+    the long K3 and K4 with the row maxima), then K2's kernel (l2rx), none
+    of them counted: two launches at every n1."""
     *lead, b, n = re.shape
     rows = (re.reshape(-1, n), im.reshape(-1, n))
-    if fft_rows.long_geometry(n).design == "wide":  # n1 = 384, 640, 896: K1's one-pass kernel
+    one = fft_detect.one_pass_design(n, 0, plan.radius)
+    if one == "cluster":
+        fr, fi, score, arg, nf, rmax = fft_detect.cluster_detect(*rows, plan)
+    elif one == "wide":
         fr, fi, score, arg, nf, rmax = fft_detect.wide_detect(*rows, plan)
     else:
         fr, fi = fft_rows.long_rows(*rows)

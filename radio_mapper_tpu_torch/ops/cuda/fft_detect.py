@@ -1,62 +1,55 @@
 """Kernel K1: forward CT-order FFT + spectral detection in one pass per row.
 
 Replaces ``radio_mapper_tpu/ops/pallas/detect_kernel.py::fft_detect_rows_ct``
-(body ``fft_kernel.ct_fft_core`` + ``detect_kernel._detect_body``). The
-CUDA source is ``radio_mapper_tpu_torch/csrc/fft_detect.cu``.
+(body ``fft_kernel.ct_fft_core`` + ``detect_kernel._detect_body``).
 
-Two designs, chosen by length inside :func:`fft_detect_rows_ct`
-(:func:`geometry`); a length neither takes raises ``ValueError``.
+Its designs, chosen by length, ``emit_topk`` and detect radius inside
+:func:`fft_detect_rows_ct` (:func:`geometry`); a length none takes raises
+``ValueError``. Every call is one launch of K1 (:data:`launch_count`,
+:data:`design_counts` by design):
 
-Up to :data:`MAX_N` (``csrc/fft_detect.cu``): one 512-thread block per row
-keeps the whole row (re+im, 139,264 B at nfft 17408) in shared memory and
-runs kernel K3's radix steps on it (``csrc/ct_fft.cuh`` ``fft_power_row``):
-every such row is n = 128·n2 with n2 = 8·r, r ≤ 24
-(:func:`ct_plan.radix_split`; a detect plan has 8 | n2), so step A is an
-8-point radix-2 FFT and step B a direct r-point DFT with its inputs in
-registers; step C, a warp-shuffle 128-point FFT per slot row, stores the
-spectra as K3 does (K1's spectra equal K3's bit for bit) and hands each
-value's power to the detect body through registers (at most 48 a
-thread), written back over the row in CT order after a barrier. The
-detect body then runs on that power array (``csrc/ct_detect.cuh``,
-shared with kernel K8; K4 runs its parts on column tiles): row max, the
-24-step dB bisection over the stride-8 subsample, the circular ±radius
-sliding max in natural bin order, the gates, and the per-8-bin-segment
-(max, lowest argmax). With ``emit_topk = K`` (1..128, the reference's
-in-kernel top-K) those partials stay in shared memory and K block-wide
-masked-argmax passes over them (``ct_detect.cuh`` ``block_topk``: a max,
-then the lowest index holding it) write a [rows, 128] block of values and
-packed 8·f + offset in place of the F/8 partials; the long rows run K4's
-same phase.
-
-Above :data:`MAX_N` (:func:`fft_detect_rows_ct_long`), for every n1 the
-long-row K3 takes (128, 256, 384, 640, 896), by n1
-(:func:`fft_rows.long_geometry`):
-
-- n1 = 384, 640, 896, the wide design (``csrc/fft_detect_cluster.cuh``, a
-  template on n1; :func:`wide_detect`): one launch, a row on a
-  thread-block cluster of 8 blocks. Each block transforms n1/8 columns
-  and then its CT rows k2 ≡ rank (mod 8) through distributed shared
-  memory, stores the spectra and keeps their power; block 0's rows are
-  the stride-8 subsample, so it finds the noise floor alone and hands it
-  to the others; each block then pulls its columns' power in natural
-  order from the 8 blocks and runs the sliding max, the gates and the
-  segment partials. One pass through device memory, 16 B a sample, and
-  K3 → K4's outputs bit for bit. With ``emit_topk`` it is K3 (the same
-  kernel, its detect half off) and then K4's phase c: the in-kernel top-K
-  is not fused at these n1.
-- n1 = 128, 256: two hand-written kernels in turn, the long-row K3
-  (``csrc/fft_rows_ct_cluster.cu``, a row on a thread-block cluster) and
-  then K4 (``csrc/detect_ct.cu``, which holds no row in shared memory) on
-  its spectra, with the row max. The reference's function is that
-  composition, so the outputs are those of K3 → K4 bit for bit; the pair
-  counts as one launch of K1.
+- ``"cluster"``, n1 = 128 or 256 at every length, without ``emit_topk``
+  and with 2 ≤ radius ≤ n2 (the default route's K1 from nfft 2048 up: the
+  flagship's 17408, 33792, 34816, 66560; :func:`cluster_detect`,
+  :func:`cluster_geometry`): the long-row K3's cluster kernel
+  (``csrc/fft_rows_ct_cluster.cu``) with its detect half on. A row is a
+  thread-block cluster of c = 2, 4 or 8 blocks; each transforms n1/c
+  columns (steps A, B), then its n2/c slot rows through distributed
+  shared memory (step C), storing the spectra and keeping their power;
+  block 0's first r slot rows are the stride-8 subsample, so it finds the
+  noise floor alone (one order statistic, ``csrc/ct_detect.cuh``
+  ``floor_select``) and hands it to the others, then detects its share of
+  the columns (:data:`BLOCK0_SHARE`); the others pull their columns' power
+  in natural order and run the sliding max, the gates and the segment
+  partials (``ct_detect.cuh`` ``pull_natural``, ``window_partials``,
+  ``gate_partials``: the wide design's code). One pass through device
+  memory, 16 B a sample; the outputs equal the one-block K1's and the
+  cluster K3 → K4's bit for bit.
+- ``"wide"``, n1 = 384, 640, 896 (``csrc/fft_detect_cluster.cuh``, a
+  template on n1; :func:`wide_detect`): the same structure on a cluster of
+  8 blocks, block 0 finding the floor while blocks 1 .. 7 detect.
+- ``"block"``, n ≤ :data:`MAX_N` with ``emit_topk`` (or a radius outside
+  2 .. n2): one 512-thread block per row keeps the whole row (re+im,
+  139,264 B at nfft 17408) in shared memory and runs kernel K3's radix
+  steps on it (``csrc/fft_detect.cu``, ``csrc/ct_fft.cuh``
+  ``fft_power_row``), hands each value's power to ``ct_detect.cuh``'s
+  ``detect_row`` (the 24-step bisection floor, the sliding max, the gates,
+  the segment partials) and, with ``emit_topk = K`` (1..128, the
+  reference's in-kernel top-K), K block-wide masked-argmax passes over
+  the partials (``block_topk``) write a [rows, 128] block of values and
+  packed 8·f + offset in place of the F/8 partials (:func:`block_detect`;
+  the card tests' comparison for the cluster design up to 24576).
+- ``"long"``, above :data:`MAX_N` with ``emit_topk`` (or a radius outside
+  2 .. n2): the long-row K3 (``fft_rows.long_rows``) and then K4
+  (``csrc/detect_ct.cu``, which holds no row in shared memory, with the
+  row max and its top-K phase) on its spectra; the reference's function
+  is that composition, so the outputs are K3 → K4's bit for bit.
 
 What bounds it on the H100: device-memory bytes (the row read and the
-spectra written once, ≈ 0.28 MB a row at 17408; the long design writes
-the spectra and reads them back twice) and then
-the block barriers and shared-memory passes of the radix steps and of the
-detect body, whose sliding max reads the power 2·radius + 1 times. Left for
-later PRs: the detect body (a register-tiled sliding max), TMA row loads,
+spectra written once, ≈ 0.28 MB a row at 17408) and then the radix steps'
+barriers and DSMEM traffic, step B's direct r-point DFT (r = 17 ... 127),
+and the floor on block 0 with the others' detect. Left for later PRs:
+TMA row loads, tensor cores, the in-kernel top-K in the cluster designs,
 and fusing K1 into the pair stage (K2) so the spectra never reach device
 memory.
 """
@@ -64,15 +57,22 @@ memory.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
-from radio_mapper_tpu_torch import device
+from radio_mapper_tpu_torch import constants, device
 from radio_mapper_tpu_torch.ops import ct_plan, safe
 from radio_mapper_tpu_torch.ops.cuda import build, detect_ct, fft_rows
 
 launch_count = 0  # launches of K1 (not of the plain version); a long-row call counts once
-design_counts = {"block": 0, "long": 0, "wide": 0}  # the same launches, by design ("long": K3 → K4)
+design_counts = {"block": 0, "cluster": 0, "long": 0, "wide": 0}  # the same launches, by design ("long": K3 → K4)
+DEFAULT_RADIUS = constants.DEFAULT_PEAK_MIN_DISTANCE_BINS  # the detect radius geometry() assumes
+# block 0's share of the detect columns by cluster size: its floor and its share end with the
+# others' shares (timed on the card over the shares at 17408, 33792, 34816; PERF.md)
+BLOCK0_SHARE = {2: 3 / 8, 4: 1 / 8, 8: 0.0}
+FLOOR_NB = 1024  # its histogram's buckets (rm_det::FLOOR_NB)
 
 THREADS = 512  # must match K1_THREADS in fft_detect.cu (= ct_fft.cuh's THREADS)
 MAX_N = 24_576  # the one-block design's limit: power held in registers, n2 ≤ (THREADS/32)·HANDOFF_MAX_HELD/4 = 192
@@ -86,6 +86,11 @@ _ARGTYPES = (
     + [ctypes.c_int, ctypes.c_void_p]
 )
 TOPK_LANES = 128  # the emit_topk output block, [rows, 128] (rm_det::TOPK_LANES)
+_CLUSTER_ARGTYPES = (
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p]
+)
+_CLUSTER_INFO_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 5
 
 
 def check_topk(emit_topk: int) -> None:
@@ -134,15 +139,103 @@ def radix_geometry(n: int, kernel: str = "K1"):
     return n2, a, r
 
 
-def geometry(n: int) -> str:
-    """K1's design for rows of n samples, decided without a card:
-    ``"block"`` (:func:`radix_geometry`) or ``"long"`` (n > :data:`MAX_N`,
-    the long-row K3's lengths, :func:`fft_rows.geometry`). Raises
-    ValueError otherwise."""
+class ClusterGeometry(NamedTuple):
+    """K1's cluster design at one length (:func:`cluster_geometry`)."""
+
+    n1: int
+    n2: int
+    a: int  # step A's length, 8
+    r: int  # step B's length, n2 / 8
+    c: int  # blocks a row
+    cols: int  # columns a tile of steps A and B
+    dcols0: int  # block 0's detect columns (it finds the floor first)
+    smem: int  # dynamic shared memory a block
+
+
+def cluster_columns(n1: int, c: int) -> int:
+    """Block 0's detect columns in a cluster of c (it finds the floor over
+    the n/8 subsample values first, then detects them): the share
+    :data:`BLOCK0_SHARE` of n1 in quads, the rest over the other blocks
+    (:func:`detect_columns`)."""
+    return 4 * round(n1 * BLOCK0_SHARE[c] / 4)
+
+
+def detect_columns(rank: int, n1: int, c: int, dcols0: int):
+    """The detect columns ``(d0, dn)`` of block ``rank``: ``dcols0`` on
+    block 0, the rest over blocks 1 .. c−1 in quads as evenly as they go,
+    the first blocks a quad more (``fft_rows_ct_cluster.cu``
+    ``detect_columns``)."""
+    if rank == 0:
+        return 0, dcols0
+    quads, b = (n1 - dcols0) // 4, rank - 1
+    per, extra = divmod(quads, c - 1)
+    return dcols0 + 4 * (b * per + min(b, extra)), 4 * (per + (b < extra))
+
+
+@functools.lru_cache(maxsize=64)
+def cluster_geometry(n: int, radius: int = DEFAULT_RADIUS) -> ClusterGeometry:
+    """K1's cluster design (``csrc/fft_rows_ct_cluster.cu`` with its
+    detect half) for rows of n = n1·n2 samples, n1 = 128 or 256, 8 | n2,
+    decided without a card: c from :func:`fft_rows.cluster_size` with the
+    power buffer (two blocks an SM where they fit), the column tile of the
+    long K3 at that c, block 0's detect columns; the detect half's shared
+    memory (block 0's dB values, histogram and bucket; every block's
+    natural-order columns with ``radius`` halo bins, the windows' overrun
+    and the staged partials) fits the freed column buffer, 2·n/c floats.
+    Raises ValueError otherwise (and for radius outside 2 .. n2). Cached:
+    the wrapper asks at every call."""
+    n1, n2 = ct_plan.ct_split(n)
+    _, a, r = ct_plan.radix_split(n)
+    if n1 not in fft_rows.CLUSTER_N1 or a != ct_plan.RADIX_MAX_A or not 2 <= radius <= n2:
+        raise ValueError(f"K1's cluster design takes n1 in {fft_rows.CLUSTER_N1}, 8 | n2 and 2 ≤ radius ≤ n2; "
+                         f"nfft {n} = {n1}·{n2}, radius {radius}")
+    c = fft_rows.cluster_size(n1, n2, detect=True)
+    cols = 32 if n2 <= 512 and (n1 // c) % 32 == 0 else 16
+    dcols0 = cluster_columns(n1, c)
+    buf = 2 * (n1 // c) * n2  # floats
+    dn = max(n for _, n in (detect_columns(k, n1, c, dcols0) for k in range(c)))
+    if r * n1 + FLOOR_NB + THREADS > buf or dn * n2 + 2 * radius + 4 + 2 * r * dn > buf:
+        raise ValueError(f"K1's cluster design at nfft {n} = {n1}·{n2}, c = {c}: the detect half does not fit "
+                         f"{4 * buf} B")
+    return ClusterGeometry(n1, n2, a, r, c, cols, dcols0, fft_rows.cluster_smem(n1, n2, c, detect=True))
+
+
+@functools.lru_cache(maxsize=64)
+def one_pass_design(n: int, emit_topk: int = 0, radius: int = DEFAULT_RADIUS):
+    """K1's one-launch cluster design for rows of n samples at any length,
+    or None: ``"cluster"`` (n1 = 128, 256: :func:`cluster_geometry`) or
+    ``"wide"`` (n1 = 384, 640, 896), without ``emit_topk`` and with 2 ≤
+    radius ≤ n2; neither fuses the top-K."""
+    try:
+        g = fft_rows.long_geometry(n)
+    except ValueError:
+        return None
+    if emit_topk or not 2 <= radius <= g.n2:
+        return None
+    if g.design == "wide":
+        return "wide"
+    try:
+        cluster_geometry(n, radius)
+    except ValueError:
+        return None
+    return "cluster"
+
+
+def geometry(n: int, emit_topk: int = 0, radius: int = DEFAULT_RADIUS) -> str:
+    """K1's design for rows of n samples with this ``emit_topk`` and
+    detect radius, decided without a card: the one-launch cluster designs
+    where they take it (:func:`one_pass_design`; up to :data:`MAX_N` too,
+    where the card ran it faster than the one-block design on 1024 rows at
+    9216, 17408, 20480 and 24576, PERF.md), else ``"block"`` (n ≤
+    :data:`MAX_N`, :func:`radix_geometry`) or ``"long"`` (the long K3,
+    then K4). Raises ValueError for a length no design takes."""
     if n <= MAX_N:
         radix_geometry(n)
-        return "block"
-    return fft_rows.geometry(n)  # "long" above MAX_N, or it raises
+        return one_pass_design(n, emit_topk, radius) or "block"
+    one = one_pass_design(n, emit_topk, radius)
+    if one is None:
+        fft_rows.geometry(n)  # raises unless a long-row K3 design takes n
+    return one or "long"
 
 
 def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan, emit_topk: int = 0):
@@ -165,8 +258,7 @@ def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectP
       lanes ≥ K are 0.
 
     CPU tensors go through :func:`fft_detect_rows_ct_plain`; CUDA tensors
-    launch the design :func:`geometry` picks: one kernel up to
-    :data:`MAX_N`, above it the long-row K3 and K4 in turn.
+    launch the design :func:`geometry` picks, counted as one launch of K1.
     """
     check_rows(re, im, plan)
     check_topk(emit_topk)
@@ -175,34 +267,91 @@ def fft_detect_rows_ct(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectP
             return fft_detect_rows_ct_plain(re, im, plan, emit_topk)
     if re.device.type != "cuda":
         raise ValueError(f"no K1 implementation for device {re.device}")
-    if geometry(plan.nfft) == "long":
-        return fft_detect_rows_ct_long(re, im, plan, emit_topk)
-    return _launch(re, im, plan, emit_topk)
+    return _run(geometry(plan.nfft, emit_topk, plan.radius), re, im, plan, emit_topk)
 
 
 def fft_detect_rows_ct_long(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan, emit_topk: int = 0):
-    """:func:`fft_detect_rows_ct` through the long-row design on CUDA rows
+    """:func:`fft_detect_rows_ct` through the long-row designs on CUDA rows
     of a length :func:`fft_rows.long_geometry` takes, counted as one launch
-    of K1: at n1 = 384, 640, 896 without ``emit_topk`` the wide design's one kernel
-    (``design_counts["wide"]``), else the long K3 and then K4 with the row
-    max (``"long"``). The wrapper routes only n > :data:`MAX_N` here; the
-    card tests also force shorter rows through it, where its outputs equal
-    the one-block K1's bit for bit."""
-    global launch_count
+    of K1: the one-launch cluster design (:func:`one_pass_design`) where it
+    takes the plan, else the long K3 and then K4 with the row max
+    (``design_counts["long"]``). The card tests and ``chip_smoke.py`` also
+    force rows up to :data:`MAX_N` through it."""
     check_rows(re, im, plan)
     check_topk(emit_topk)
     if re.device.type != "cuda":
         raise ValueError(f"the long-row K1 runs on CUDA tensors, not {re.device}")
-    if fft_rows.long_geometry(plan.nfft).design == "wide" and not emit_topk:
+    return _run(one_pass_design(plan.nfft, emit_topk, plan.radius) or "long", re, im, plan, emit_topk)
+
+
+def _run(design: str, re, im, plan, emit_topk):
+    """One launch of K1 through ``design`` (a launch the card refuses
+    raises), counted in :data:`launch_count` and :data:`design_counts`."""
+    global launch_count
+    if design == "block":
+        out = block_detect(re, im, plan, emit_topk)
+    elif design == "cluster":
+        out = cluster_detect(re, im, plan)
+    elif design == "wide":
         out = wide_detect(re, im, plan)
-        design = "wide"
     else:
         fr, fi = fft_rows.long_rows(re, im)
         out = (fr, fi, *detect_ct.launch(fr, fi, plan, row_max=True, emit_topk=emit_topk))
-        design = "long"
     launch_count += 1
     design_counts[design] += 1
     return out
+
+
+def _outputs(rows: int, plan: ct_plan.DetectPlan, dev):
+    """The detect outputs of a launch without ``emit_topk``: segment
+    scores and offsets ``[rows, nfft/8]``, floor and row max ``[rows]``."""
+    return tuple(
+        torch.empty(shape, dtype=torch.float32, device=dev)
+        for shape in ((rows, plan.segments), (rows, plan.segments), (rows,), (rows,))
+    )
+
+
+def cluster_detect(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
+    """K1 through the cluster design (n1 = 128, 256: ``csrc/
+    fft_rows_ct_cluster.cu`` with its detect half on, geometry
+    :func:`cluster_geometry`) on contiguous float32 CUDA rows, uncounted:
+    ``(fr, fi, seg_score, seg_arg, noise_floor_db, row_max)`` from one
+    launch, without ``emit_topk``. A launch the card refuses (no cluster of
+    this shape fits) raises. Kernel K8's long design calls it too."""
+    n = plan.nfft
+    if re.shape[-1] != n:
+        raise ValueError(f"the cluster K1 takes a plan for nfft {re.shape[-1]}, got {n}")
+    g = cluster_geometry(n, plan.radius)
+    dev, rows = re.device, re.numel() // n
+    w1, wn2, _ = ct_plan.device_radix_tables(n, dev)
+    tw = ct_plan.device_tables(n, False, dev).tw
+    fr = torch.empty_like(re)
+    fi = torch.empty_like(im)
+    det = _outputs(rows, plan, dev)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    fn = build.kernel("rm_fft_detect_cluster", _CLUSTER_ARGTYPES)
+    err = fn(
+        ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(fft_rows.device_step_b_roots(n, dev)), ptr(tw), ptr(fr), ptr(fi),
+        *(ptr(x) for x in det), rows, g.n1, g.n2, g.a, g.r, g.c, g.dcols0, *plan_args(plan),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
+    )
+    build.check(err, "fft_detect_rows_ct (cluster)")
+    return (fr, fi, *det)
+
+
+def cluster_info(n: int, radius: int = DEFAULT_RADIUS) -> dict:
+    """K1's cluster design at n on the current card: ``c``, block 0's
+    detect columns ``dcols0``, dynamic shared memory a block (``smem``),
+    blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), active
+    clusters (``cudaOccupancyMaxActiveClusters``; 0 would mean the card
+    cannot run it), registers a thread and local memory in bytes."""
+    g = cluster_geometry(n, radius)
+    vals = [ctypes.c_int(0) for _ in range(5)]
+    fn = build.kernel("rm_fft_detect_cluster_info", _CLUSTER_INFO_ARGTYPES)
+    build.check(fn(g.n1, g.n2, g.a, g.r, g.c, *(ctypes.byref(v) for v in vals)), "cluster_info (K1)")
+    smem, blocks, clusters, registers, local = (v.value for v in vals)
+    return {"c": g.c, "dcols0": g.dcols0, "smem": smem, "blocks": blocks, "clusters": clusters,
+            "registers": registers, "local_bytes": local}
 
 
 def wide_detect(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
@@ -215,17 +364,16 @@ def wide_detect(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
         raise ValueError(
             f"the wide K1 takes a plan for nfft {re.shape[-1]} with radius ≥ 2, got {plan.nfft}, {plan.radius}"
         )
-    rows = re.numel() // plan.nfft
-    det = tuple(
-        torch.empty(shape, dtype=torch.float32, device=re.device)
-        for shape in ((rows, plan.segments), (rows, plan.segments), (rows,), (rows,))
-    )
+    det = _outputs(re.numel() // plan.nfft, plan, re.device)
     fr, fi = fft_rows.wide_launch(re, im, det, tuple(plan_args(plan)))
     return (fr, fi, *det)
 
 
-def _launch(re, im, plan, emit_topk):
-    global launch_count
+def block_detect(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan, emit_topk: int = 0):
+    """K1 through the one-block design (``csrc/fft_detect.cu``, n ≤
+    :data:`MAX_N`) on contiguous float32 CUDA rows, uncounted: the route
+    with ``emit_topk``, and the card tests' and tools' comparison for the
+    cluster design up to 24576."""
     n = plan.nfft
     n2, a, r = radix_geometry(n)
     fn = build.kernel("rm_fft_detect_rows_ct", _ARGTYPES)
@@ -247,8 +395,6 @@ def _launch(re, im, plan, emit_topk):
         ctypes.c_void_p(torch.cuda.current_stream(re.device).cuda_stream),
     )
     build.check(err, "fft_detect_rows_ct")
-    launch_count += 1
-    design_counts["block"] += 1
     return fr, fi, score, arg, nf, rmax
 
 

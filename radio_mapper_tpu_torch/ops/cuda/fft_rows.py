@@ -95,6 +95,7 @@ SM_SMEM = 233_472  # bytes of shared memory an SM has for its blocks (228 KB)
 SMEM_RESERVED = 1_024  # bytes the runtime reserves a block
 CLUSTER_SIZES = (2, 4, 8)  # blocks a row in the cluster design; 8 is the portable cluster limit
 CLUSTER_N1 = (128, 256)  # the cluster design's n1
+CLUSTER_DETECT_STATIC_BYTES = 512  # K1's cluster kernel: its static shared memory (reductions, the floor's), at most
 WIDE_N1 = (384, 640, 896)  # the wide design's n1 (fft_detect_cluster.cuh's instantiations)
 WIDE_C = 8  # blocks a row in the wide design: block 0 holds the CT rows k2 = 0 mod 8
 WIDE_THREADS = 512  # its block (fft_detect_cluster.cuh THREADS)
@@ -174,18 +175,23 @@ class LongGeometry(NamedTuple):
     cols: int  # columns a tile: 32 where n2 ≤ 512 and 32 | n1/c, else 16; the wide design's n1/8
 
 
-def cluster_smem(n1: int, n2: int, c: int) -> int:
-    """Shared memory of one cluster block: its n1/c columns and W_128."""
-    return (n1 // c * n2 + 64) * 8
+def cluster_smem(n1: int, n2: int, c: int, detect: bool = False) -> int:
+    """Dynamic shared memory of one cluster block: its n1/c columns and
+    W_128; with kernel K1's detect half (``fft_detect.cluster_detect``)
+    also the power of its n2/c slot rows (4 bytes a value)."""
+    return (n1 // c * n2 + 64) * 8 + (n2 // c * n1 * 4 if detect else 0)
 
 
-def cluster_size(n1: int, n2: int) -> int:
+def cluster_size(n1: int, n2: int, detect: bool = False) -> int:
     """The cluster design's blocks a row: the least c of
     :data:`CLUSTER_SIZES` for which two blocks fit one SM's shared memory
     (two 512-thread blocks an SM hide each other's latency), else the
-    least for which one block does."""
-    for fit in (lambda c: 2 * (cluster_smem(n1, n2, c) + SMEM_RESERVED) <= SM_SMEM,
-                lambda c: cluster_smem(n1, n2, c) <= SMEM_LIMIT):
+    least for which one block does; ``detect``: kernel K1's, its power
+    buffer and static shared memory (:data:`CLUSTER_DETECT_STATIC_BYTES`)
+    in the fit."""
+    static = CLUSTER_DETECT_STATIC_BYTES if detect else 0
+    for fit in (lambda c: 2 * (cluster_smem(n1, n2, c, detect) + static + SMEM_RESERVED) <= SM_SMEM,
+                lambda c: cluster_smem(n1, n2, c, detect) + static <= SMEM_LIMIT):
         c = next((c for c in CLUSTER_SIZES if (n1 // c) % 16 == 0 and fit(c)), None)
         if c is not None:
             return c

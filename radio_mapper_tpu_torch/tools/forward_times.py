@@ -18,7 +18,8 @@ K1, K3 and K4 on rows past one block's shared memory, [1024, 33792],
 640, 896), which
 run the long-row designs (a checkout without them prints that the wrapper
 raises), and
-the long-row K3 and K1 forced onto [1024, 17408] beside the one-block ones;
+the long-row K3 and K1 forced onto [1024, 17408] beside the one-block ones
+(and K1 through the route, its cluster design where the checkout has it);
 K7 (``fft_natural``) on its rows of 32768 and 65536 points, [32, 32768],
 [8, 65536], [8192, 32768] and [4096, 65536], with the design that ran.
 Last, one line of digests: SHA-256 of the outputs on seeded rows up to
@@ -41,8 +42,11 @@ then K2 at [128, 8, 58368] (the flagship at block_len 57344, n1 = 384)
 and [8, 8, 121856] (n1 = 896) and K5 at [1, 64, 58368]; then it prints
 the pair digests. ``--k1`` times only K1 and K3 at [1024,
 58368] (n1 = 384: the wide design, K1 in one launch), then prints the
-long rows' digests; ``--k1 97280,121856`` times them at the lengths named
-instead (rows by length, :data:`K1_ROWS`: [1024, 97280], [256, 121856]).
+long rows' digests; ``--k1 17408,33792,34816,66560,97280`` times them at
+the lengths named instead (rows by length, :data:`K1_ROWS`: 1024 at these,
+[256, 121856]); K1 at n1 = 128/256 is its cluster design, one launch
+(a checkout before it: the one-block K1 up to 24576, the cluster K3 then
+K4 above).
 
 The wrappers' signatures are those of every version since K8 was ported,
 so with ``PYTHONPATH`` at another checkout it times that checkout's
@@ -65,9 +69,11 @@ from radio_mapper_tpu_torch.ops.cuda import (build, channel_step, detect_ct, fft
                                              gcc_pair)
 
 LONG_DIGEST_N = (33_792, 34_816, 58_368, 66_560, 87_040, 97_280, 121_856)  # the long K3's n1 and cluster classes
-# --k1's rows a length: the flagship's 128 ch x 8 buoys at block_len 57344
-# and 96000, and the long rows of PERF.md's K3 table at 87040, 121856
-K1_ROWS = {58_368: 1024, 97_280: 1024, 87_040: 512, 117_760: 256, 128_000: 256, 121_856: 256}
+# --k1's rows a length: the flagship's 128 ch x 8 buoys at block_len 16384,
+# 32768 (max_lag 600 and 2048), 65536, 57344 and 96000, and the long rows of
+# PERF.md's K3 table at 87040, 121856
+K1_ROWS = {17_408: 1024, 33_792: 1024, 34_816: 1024, 66_560: 1024, 58_368: 1024, 97_280: 1024, 87_040: 512,
+           117_760: 256, 128_000: 256, 121_856: 256}
 DETECT = dict(sample_rate_hz=2_400_000.0, threshold_db=-70.0, min_distance_bins=10,
               dc_notch_hz=10_000.0, confidence_floor=0.3, snr_fullscale_db=20.0)
 
@@ -274,8 +280,10 @@ def main() -> int:
         plan = ct_plan.detect_plan(nfft, **DETECT)
         xr = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
         xi = 40.0 * torch.randn(rows, nfft, device=dev, generator=g)
+        block = getattr(fft_detect, "block_detect", None)  # the one-block K1 where the route takes another
         times = {
-            "K1 block": _mean_ms(lambda: fft_detect.fft_detect_rows_ct(xr, xi, plan)),
+            "K1": _mean_ms(lambda: fft_detect.fft_detect_rows_ct(xr, xi, plan)),
+            **({"K1 block": _mean_ms(lambda: block(xr, xi, plan))} if block else {}),
             "K1 long": _mean_ms(lambda: fft_detect.fft_detect_rows_ct_long(xr, xi, plan)),
             "K3 block": _mean_ms(lambda: fft_rows.fft_rows_ct(xr, xi)),
             "K3 long": _mean_ms(lambda: fft_rows.fft_rows_ct_long(xr, xi)),

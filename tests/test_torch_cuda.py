@@ -16,7 +16,10 @@ as its plain version is against JAX:
   (one block a row up to 24576; the long-row designs, K3 on thread-block
   clusters, at 33792, 34816, 58368, 66560, 87040 and 121856, and forced
   onto 5120-24576, where they equal the one-block outputs bit for bit;
-  ``-k cluster`` runs the cluster designs of K3 and K7 alone; at n1 = 384,
+  K1 at n1 = 128/256 one launch of its cluster design at every length,
+  equal to the one-block K1 up to 24576 and to the cluster K3 → K4 above
+  bit for bit, ``-k cluster_k1``; ``-k cluster`` runs the cluster designs
+  of K3, K7 and K1 alone; at n1 = 384,
   640 and 896 the wide design, K1 in one launch and K3 its forward half,
   equal to the workspace K3 → K4 bit for bit at 52224, 58368, 101376,
   129024, 87040, 97280, 117760, 128000 and 121856, and at every planned
@@ -462,15 +465,17 @@ LONG_SHAPES = [(16, 33792), (16, 34816), (8, 66560), (8, 58368), (4, 87040), (4,
 @pytest.mark.parametrize("rows,nfft", LONG_SHAPES)
 def test_long_kernels_match_plain(cuda_device, rows, nfft):
     """K3, K4 and K1 on rows past one block's shared memory (the long-row
-    designs, one launch of each wrapper) vs their plain versions: K3's
+    designs, one launch of each wrapper; K1 its one-launch cluster design,
+    at n1 = 128/256 the cluster K3's kernel with its detect half, at
+    384/640/896 the wide design) vs their plain versions: K3's
     spectra within 1e-4 of the row's max |X|; K4 on K3's spectra and K1 as
     K1 is held; K1's outputs equal K3 → K4 on the same rows bit for bit."""
     re, im = tone_rows(rows, nfft, 17, n_valid=nfft - 1024)
     plan = ct_plan.detect_plan(nfft, **DET)
     xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
-    key = "wide" if fft_rows.long_geometry(nfft).design == "wide" else "long"  # n1 = 384, 640, 896: one launch
-    counts = lambda: (fft_rows.design_counts[key], fft_detect.design_counts[key],
-                      fft_rows.launch_count, detect_ct.launch_count, fft_detect.launch_count)
+    wide = fft_rows.long_geometry(nfft).design == "wide"  # K1 one launch at every n1: the wide or cluster design
+    counts = lambda: (fft_rows.design_counts["wide" if wide else "long"], fft_detect.design_counts["wide" if wide
+                      else "cluster"], fft_rows.launch_count, detect_ct.launch_count, fft_detect.launch_count)
     before = counts()
     f3r, f3i = fft_rows.fft_rows_ct(xr, xi)
     k4 = detect_ct.detect_ct_partials(f3r, f3i, plan)
@@ -490,22 +495,24 @@ def test_long_kernels_match_plain(cuda_device, rows, nfft):
 @pytest.mark.parametrize("nfft", [5120, 17408, 24576])
 def test_long_design_forced_equals_one_block_design(cuda_device, nfft):
     """On lengths the one-block designs take, the long-row K3 and K1
-    (called directly) give the one-block outputs bit for bit, and K4 (one
-    design, column tiles) on the one-block K3's spectra gives the one-block
-    K1's partials and floor bit for bit: the same per-value arithmetic
-    (ct_fft.cuh's steps at r ≤ 24, ct_detect.cuh's parts), only the data
-    movement differs."""
+    (called directly; K1 there is the cluster design, which the route
+    takes too) give the one-block outputs (``fft_detect.block_detect``) bit
+    for bit, and K4 (one design, column tiles) on the one-block K3's
+    spectra gives the one-block K1's partials and floor bit for bit: the
+    same per-value arithmetic (ct_fft.cuh's steps at r ≤ 24, ct_detect.cuh's
+    parts), only the data movement differs."""
     re, im = tone_rows(16, nfft, 18, n_valid=nfft - nfft // 5)
     plan = ct_plan.detect_plan(nfft, **DET)
     xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
-    assert fft_rows.geometry(nfft) == fft_detect.geometry(nfft) == "block"
-    block = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    assert fft_rows.geometry(nfft) == "block" and fft_detect.geometry(nfft) == "cluster"
+    block = fft_detect.block_detect(xr, xi, plan)
     k3_block = fft_rows.fft_rows_ct(xr, xi)
     k4 = detect_ct.detect_ct_partials(*k3_block, plan)
     k3_long = fft_rows.fft_rows_ct_long(xr, xi)
     k1_long = fft_detect.fft_detect_rows_ct_long(xr, xi, plan)
+    k1 = fft_detect.fft_detect_rows_ct(xr, xi, plan)
     torch.cuda.synchronize()
-    for x, y in [*zip(k3_long, k3_block), *zip(k4, block[2:5]), *zip(k1_long, block)]:
+    for x, y in [*zip(k3_long, k3_block), *zip(k4, block[2:5]), *zip(k1_long, block), *zip(k1, block)]:
         torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
@@ -542,6 +549,82 @@ def test_k3_cluster_forced_equals_one_block_k3(cuda_device, nfft):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
 
 
+# K1's lengths with n1 = 128 (up to 24576 the one-block K1 is the parent
+# design: 2048 ... 24576) and the long rows at n1 = 128/256 (the cluster K3
+# -> K4 before): c = 2, 4, 8, 32- and 16-column tiles, two blocks an SM and
+# one (77824, 115712, 131072)
+CLUSTER_K1_SHORT = [n for n in sorted({ct_plan.plan_nfft(m) for m in range(1024, 24_577, 1024)})
+                    if ct_plan.ct_split(n)[1] >= DET["min_distance_bins"]]
+CLUSTER_K1_LONG = [33_792, 34_816, 66_560, 25_600, 50_176, 77_824, 115_712, 131_072]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft", CLUSTER_K1_SHORT + CLUSTER_K1_LONG)
+def test_cluster_k1_equals_the_parent_design(cuda_device, nfft):
+    """K1 at n1 = 128/256 is one launch of the cluster design (the cluster
+    K3's kernel with its detect half; ``design_counts["cluster"]``, no K3,
+    no K4) and equals, bit for bit, the design it replaces: the one-block
+    K1 up to 24576, the cluster K3 then K4 above — spectra, partials,
+    floor and row max — on two tone rows and on :func:`flat_rows` (the
+    zeros and the impulse fill one histogram bucket of the floor past the
+    512 its selection ranks wherever the subsample holds more than 512
+    values, so block 0 takes ``rm_det::bisect_floor``); held to the plain
+    version as K1 is; the card runs the cluster at the c, shared memory
+    and blocks an SM planned, at most 64 registers."""
+    tr, ti = tone_rows(2, nfft, nfft % 97, n_valid=nfft - nfft // 8)
+    fr_, fi_ = flat_rows(nfft)
+    xr = torch.from_numpy(np.concatenate([tr, fr_])).to(cuda_device)
+    xi = torch.from_numpy(np.concatenate([ti, fi_])).to(cuda_device)
+    plan = ct_plan.detect_plan(nfft, **DET)
+    g = fft_detect.cluster_geometry(nfft)
+    assert fft_detect.geometry(nfft) == "cluster"
+    counts = lambda: (fft_detect.design_counts["cluster"], fft_detect.launch_count, fft_rows.launch_count,
+                      detect_ct.launch_count)
+    before = counts()
+    k1 = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 0, 0)
+    if nfft <= fft_detect.MAX_N:
+        ref = fft_detect.block_detect(xr, xi, plan)
+    else:
+        f3 = fft_rows.long_rows(xr, xi)
+        ref = (*f3, *detect_ct.launch(*f3, plan, row_max=True))
+    for x, y in zip(k1, ref):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    host = lambda xs: [x[:2].cpu() for x in xs]
+    assert_k1_close(host(k1), host(fft_detect.fft_detect_rows_ct_plain(xr[:2], xi[:2], plan)), plan)
+    if nfft // 8 > 512:
+        sub = (k1[0] * k1[0] + k1[1] * k1[1]).view(-1, g.n2, g.n1)[2:4, ::8].cpu().numpy()  # CT rows k2 = 0 mod 8
+        assert all(np.unique(x, return_counts=True)[1].max() > 512 for x in sub)
+    info = fft_detect.cluster_info(nfft)
+    assert info["c"] == g.c and info["clusters"] > 0 and info["registers"] <= 64
+    assert info["smem"] == g.smem
+    two = 2 * (g.smem + fft_rows.CLUSTER_DETECT_STATIC_BYTES + fft_rows.SMEM_RESERVED) <= fft_rows.SM_SMEM
+    assert info["blocks"] == (2 if two else 1), info
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,nfft", [(16, 17408), (8, 33792), (4, 66560)])
+def test_cluster_k1_emit_topk_keeps_the_one_block_k1_and_k3_k4(cuda_device, rows, nfft):
+    """``emit_topk`` (T1, not fused in the cluster design) routes to the
+    one-block K1 up to 24576 and to the cluster K3 then K4's top-K phase
+    above (``design_counts["block"]``, ``["long"]``), whose blocks equal the
+    cluster K1's partials followed by the port's top-K tail bit for bit."""
+    re, im = tone_rows(rows, nfft, 24, n_valid=nfft - 1024)
+    plan = ct_plan.detect_plan(nfft, **DET)
+    xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
+    key = "block" if nfft <= fft_detect.MAX_N else "long"
+    assert fft_detect.geometry(nfft, emit_topk=8) == key
+    before = dict(fft_detect.design_counts)
+    t1 = fft_detect.fft_detect_rows_ct(xr, xi, plan, emit_topk=8)
+    k1 = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in fft_detect.design_counts.items() if v != before[k]}
+    assert ran == {key: 1, "cluster": 1}, ran
+    for x, y in zip(t1, (*k1[:2], *fft_detect.topk_plain(k1[2], k1[3], 8), *k1[4:])):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 def test_k7_cluster_info(cuda_device):
     """K7's clusters of 2 and 4 blocks, 128 KiB each, fit the card."""
@@ -554,9 +637,9 @@ def test_k7_cluster_info(cuda_device):
 @pytest.mark.parametrize("route", ["default", "two-kernel"])
 def test_pipeline_long_rows_on_card_match_cpu(cuda_device, route):
     """The phase-4 scene at block_len 32768 (nfft 33792, the long-row
-    designs) on the default route (K1, K2) and the two-kernel route (K3,
-    K4, K2) vs the CPU: detections equal, lags within 1e-3 samples, the fix
-    within 0.5 m, under 50 m."""
+    designs) on the default route (K1 one launch of its cluster design, no
+    K4; K2) and the two-kernel route (K3, K4, K2) vs the CPU: detections
+    equal, lags within 1e-3 samples, the fix within 0.5 m, under 50 m."""
     from radio_mapper_tpu_torch.ops import detect
 
     scen = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8, block_len=32768)
@@ -564,7 +647,7 @@ def test_pipeline_long_rows_on_card_match_cpu(cuda_device, route):
     cfg = PipelineConfig(num_buoys=4, block_len=32768, sample_rate_hz=scen.sample_rate_hz, max_lag=600,
                          power_offset_db=40.0)
     host = [torch.from_numpy(a.astype(np.float32)) for a in (cap.iq.real, cap.iq.imag, cap.buoy_enu)]
-    counters = lambda: (fft_detect.design_counts["long"], fft_rows.design_counts["long"],
+    counters = lambda: (fft_detect.design_counts["cluster"], fft_rows.design_counts["long"],
                         detect_ct.launch_count, gcc_pair.launch_count)
     want = {"default": (1, 0, 0, 1), "two-kernel": (0, 1, 1, 1)}[route]
     detect.set_fused_fft_detect("off" if route == "two-kernel" else "auto")
@@ -729,9 +812,10 @@ def test_topk_kernels_match_their_partials_tail_and_plain(cuda_device, rows, nff
 @pytest.mark.parametrize("c,b,nfft,max_lag", [(2, 8, 58368, 600), (1, 4, 121856, 600), (1, 4, 33792, 600),
                                                (16, 8, 58368, 600)])
 def test_k8_long_design_equals_composition_and_plain(cuda_device, c, b, nfft, max_lag):
-    """K8 above 24576: the long K1 (at n1 = 384 the wide design's one
-    kernel, else the long K3, then K4) and K2 (l2rx), counted as one K8
-    launch, equal to K1 → K2 bit for bit."""
+    """K8 above 24576: the long K1 (its one-launch cluster design at every
+    n1: the wide design at 384/640/896, the cluster K3's kernel with its
+    detect half at 128/256) and K2 (l2rx), counted as one K8 launch, equal
+    to K1 → K2 bit for bit."""
     re, im = tone_rows(c * b, nfft, 20, n_valid=nfft - max_lag - 512)
     plan = ct_plan.detect_plan(nfft, **DET)
     xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
@@ -779,7 +863,7 @@ def test_wide_k1_and_k3_equal_workspace_k3_k4(cuda_device, rows, nfft):
     plan = ct_plan.detect_plan(nfft, **DET)
     xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
     g = fft_rows.long_geometry(nfft)
-    assert g.design == "wide" and fft_detect.geometry(nfft) == fft_rows.geometry(nfft) == "long"
+    assert g.design == "wide" and fft_detect.geometry(nfft) == "wide" and fft_rows.geometry(nfft) == "long"
     counts = lambda: (fft_detect.design_counts["wide"], fft_rows.design_counts["wide"], fft_detect.launch_count,
                       fft_rows.launch_count, detect_ct.launch_count)
     before = counts()

@@ -415,22 +415,41 @@ def test_floor_by_selection_equals_the_bisection(case):
     assert path == {"constant": "bisect", "halves": "bisect", "all-nan": "absent"}.get(case, "select"), path
 
 
-def wide_detect_replica(fr: np.ndarray, fi: np.ndarray, plan: ct_plan.DetectPlan, owner=lambda k2: k2 % 8,
-                        wrap=True, pulls: list | None = None):
-    """The wide K1's detect half on float32 CT-order spectra ``[rows, n]``:
-    ``(seg_score, seg_arg, noise_floor_db, row_max)``. ``owner`` maps a CT
-    row to the block whose powers the pull reads; ``wrap`` takes the halo
-    circularly (k1 = n1 − 1 before 0, 0 after n1 − 1); ``pulls`` gets each
-    block's count of reads of its ``pw[s][k1]``, halos apart."""
+def slot_powers(pr: np.ndarray, n1: int, n2: int, c: int) -> np.ndarray:
+    """Each block's ``pw`` after step C in a cluster of c blocks: ``[c,
+    rows, n2/c, n1]``, block ``rank`` holding slot rows [rank·n2/c,
+    (rank+1)·n2/c), slot row sr = k·r + s being CT row k2 = k + 8·s (at c
+    = 8, the wide design's: block k2 mod 8, row k2/8)."""
+    rows = pr.shape[0]
+    r, per = n2 // 8, n2 // c
+    sr = np.arange(n2)
+    return pr.reshape(rows, n2, n1)[:, sr // r + 8 * (sr % r), :].reshape(rows, c, per, n1).transpose(1, 0, 2, 3)
+
+
+def power_at(k2: np.ndarray, n2: int, c: int):
+    """The block and row of ``pw`` that hold CT row k2: block (k2 mod 8)/(8/c),
+    row ((k2 mod 8) mod (8/c))·r + k2/8."""
+    g, r = 8 // c, n2 // 8
+    return (k2 % 8) // g, ((k2 % 8) % g) * r + k2 // 8
+
+
+def cluster_detect_replica(fr, fi, plan, c, columns, owner=None, wrap=True, pulls=None):
+    """A cluster K1's detect half on float32 CT-order spectra ``[rows, n]``
+    (the wide design at c = 8, the cluster design at n1 = 128/256 at c =
+    2, 4, 8): ``(seg_score, seg_arg, noise_floor_db, row_max)``. Block 0's
+    first r rows of ``pw`` are the subsample, whose floor it finds;
+    ``columns(rank)`` gives each block's detect columns ``(first, count)``.
+    ``owner`` (k2 → block) replaces the pull's block; ``wrap`` takes the
+    halo circularly (k1 = n1 − 1 before 0, 0 after n1 − 1); ``pulls`` gets
+    each block's count of reads of its ``pw[row][k1]``, halos apart."""
     rows, n = fr.shape
     n1, n2, rad = plan.n1, plan.n2, plan.radius
     r = n2 // 8
     pr = (fr * fr + fi * fi).astype(np.float32)  # rm_det::power: two products, one sum, float32
     ct = pr.reshape(rows, n2, n1)
-    pw = np.stack([ct[:, rank::8, :] for rank in range(C)])  # block rank's CT rows rank + 8·s: [C, rows, r, n1]
-    row_max = pw.max(axis=(2, 3)).max(axis=0)
-    # floor: block 0's powers are the subsample; two bisection steps a pass
-    sub = pw[0].reshape(rows, -1)
+    pw = slot_powers(pr, n1, n2, c)
+    row_max = pw.max(axis=(2, 3)).max(axis=0)  # each block's max, then over the cluster
+    sub = pw[0][:, :r, :].reshape(rows, -1)  # block 0's first r rows: the stride-8 subsample
     np.testing.assert_array_equal(np.sort(sub, axis=-1),
                                   np.sort(ct[:, (np.arange(n2) % 8) == 0, :].reshape(rows, -1), axis=-1))
     db = (10.0 * torch.log10(torch.from_numpy(sub) + 1e-24) + plan.power_offset_db).numpy()
@@ -440,19 +459,21 @@ def wide_detect_replica(fr: np.ndarray, fi: np.ndarray, plan: ct_plan.DetectPlan
         conf = torch.exp((torch.from_numpy(nf) - plan.power_offset_db + plan.conf_cs) * ct_plan.LN10_OVER_10).numpy()
     score = np.full((rows, n // SEG), np.nan, np.float32)
     arg = np.full((rows, n // SEG), np.nan, np.float32)
-    counts = np.zeros((C, r, n1), np.int64)
-    for rank in range(C):
-        c0, dn = detect_columns(rank, n1)
+    counts = np.zeros((c, n2 // c, n1), np.int64)
+    for rank in range(c):
+        c0, dn = columns(rank)
         if dn == 0:
             continue
         nat = np.full((rows, dn * n2 + 2 * rad), np.nan, np.float32)
         u = np.arange(n2 * (dn // 4))
-        qd, k2 = u // n2, u % n2  # consecutive threads, consecutive k2 (owners k2 mod 8)
-        blocks = owner(k2)
+        qd, k2 = u // n2, u % n2  # consecutive threads, consecutive k2
+        blocks, local = power_at(k2, n2, c)
+        if owner is not None:
+            blocks = owner(k2)
         for e in range(4):
             k1 = c0 + 4 * qd + e
-            nat[:, rad + (4 * qd + e) * n2 + k2] = pw[blocks, :, k2 // 8, k1].T
-            np.add.at(counts, (blocks, k2 // 8, k1), 1)
+            nat[:, rad + (4 * qd + e) * n2 + k2] = pw[blocks, :, local, k1].T
+            np.add.at(counts, (blocks, local, k1), 1)
         left = (n1 - 1 if c0 == 0 else c0 - 1) if wrap else max(c0 - 1, 0)
         right = (0 if c0 + dn == n1 else c0 + dn) if wrap else min(c0 + dn, n1 - 1)
         h = np.arange(rad)
@@ -462,8 +483,8 @@ def wide_detect_replica(fr: np.ndarray, fi: np.ndarray, plan: ct_plan.DetectPlan
         win = np.lib.stride_tricks.sliding_window_view(nat, 2 * rad + 1, axis=-1).max(axis=-1)
         p = nat[:, rad:rad + dn * n2]
         b = np.arange(dn * n2)
-        c, kk2 = b // n2, b % n2
-        k = kk2 + n2 * (c0 + c)
+        cc, kk2 = b // n2, b % n2
+        k = kk2 + n2 * (c0 + cc)
         pe = p + np.float32(1e-24)
         cand = (p >= win) & (pe > np.float32(plan.thr_lin)) & (k >= plan.keep_lo) & (k <= plan.keep_hi)
         sc = np.where(cand, p, np.float32(-np.inf)).astype(np.float32).reshape(rows, dn * n2 // SEG, SEG)
@@ -481,6 +502,14 @@ def wide_detect_replica(fr: np.ndarray, fi: np.ndarray, plan: ct_plan.DetectPlan
     if pulls is not None:
         pulls.extend(counts)
     return score, arg, nf, row_max
+
+
+def wide_detect_replica(fr: np.ndarray, fi: np.ndarray, plan: ct_plan.DetectPlan, owner=lambda k2: k2 % 8,
+                        wrap=True, pulls: list | None = None):
+    """The wide K1's detect half (:func:`cluster_detect_replica` at c = 8,
+    block k2 mod 8 holding CT rows k2 in its rows k2/8, the detect columns
+    of :func:`detect_columns`)."""
+    return cluster_detect_replica(fr, fi, plan, C, lambda rank: detect_columns(rank, plan.n1), owner, wrap, pulls)
 
 
 @pytest.mark.parametrize("n,radius,notch", [

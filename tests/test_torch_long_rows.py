@@ -57,7 +57,8 @@ def test_long_rows_step_matches_jax(scene, route, max_lag, nfft, n1, monkeypatch
     cap, arrays, jcfg = scene
     jcfg = dataclasses.replace(jcfg, max_lag=max_lag)
     assert ct_plan.plan_nfft(32_768 + max_lag) == nfft and ct_plan.ct_split(nfft)[0] == n1
-    assert fft_rows.geometry(nfft) == fft_detect.geometry(nfft) == "long"  # the card's design
+    assert fft_rows.geometry(nfft) == "long" and fft_detect.geometry(nfft) == "cluster"  # the card's designs:
+    # the cluster K3 (two-kernel route), K1 in one launch of its cluster design (default route)
     knobs, (marks, kernels) = ROUTES[route]
     ref = _forced(knobs, 0, lambda: jpipe.TDOAPipeline(jcfg).step_split(*map(jnp.asarray, arrays)))
     seen = []

@@ -80,7 +80,7 @@ def test_mixed_radix_step_matches_jax_at_block_len_96000(monkeypatch):
 def _step_matches_jax(scene, nfft, n1, route, monkeypatch):
     cap, arrays, jcfg = scene
     # the card's designs: the wide K1/K3 (row pass P = n1/32), K2's mixed body, K8's long design
-    assert fft_rows.geometry(nfft) == fft_detect.geometry(nfft) == channel_step.geometry(nfft) == "long"
+    assert fft_rows.geometry(nfft) == channel_step.geometry(nfft) == "long" and fft_detect.geometry(nfft) == "wide"
     assert gcc_pair._geometry(nfft, MAX_LAG, "K2")[0] == n1
     knobs, (marks, kernels) = ROUTES[route]
     ref = _forced(knobs, 0, lambda: jpipe.TDOAPipeline(jcfg).step_split(*map(jnp.asarray, arrays)))

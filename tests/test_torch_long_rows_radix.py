@@ -480,32 +480,41 @@ ROUTE_KNOBS = {
 def test_every_planned_length_has_a_kernel_on_each_route_but_f3b(route):
     """Every planned nfft up to 131072 (block_len ≤ 65536 at any max_lag <
     block_len) is taken by each kernel its route sends it to: the F3b set
-    of lengths no design takes is empty. K1 and K3 pick one block a row up
-    to 24576 and the long design above, K8 its cluster design and its long
-    one (the long K1, then K2); the long rows take the cluster design at
-    n1 = 128, 256 and the wide one at 384, 640, 896."""
+    of lengths no design takes is empty. K1 takes its one-launch cluster
+    designs at every length (the cluster design at n1 = 128, 256, the wide
+    one at 384, 640, 896); K3 one block a row up to 24576 and the long
+    design above, K8 its cluster design and its long one (the long K1,
+    then K2); the long rows of K3 take the cluster design at n1 = 128, 256
+    and the wide one at 384, 640, 896."""
     seen = set()
     designs = {}
     long_designs = {}
     for n in PLANNED:
+        n1 = ct_plan.ct_split(n)[0]
         for name, check in _route_kernels(n, **ROUTE_KNOBS[route]):
             seen.add(name)
             design = check()
             if isinstance(design, str):
                 designs.setdefault(name, set()).add((design, n > fft_detect.MAX_N))
-                if design == "long":
-                    n1 = ct_plan.ct_split(n)[0]
+                if name == "K1":
+                    assert design == {128: "cluster", 256: "cluster"}.get(n1, "wide"), (name, n)
+                elif design == "long":
                     got = fft_rows.long_geometry(n).design
                     assert got == {128: "cluster", 256: "cluster"}.get(n1, "wide"), (name, n)
                     long_designs.setdefault(name, set()).add(got)
     want = {"default": {"K1"}, "two-kernel": {"K3", "K4"}, "unfused-detect": {"K3"}, "mega": {"K8"}}[route]
     assert want <= seen
-    short = {"K1": "block", "K3": "block", "K8": "cluster"}
+    allowed = {
+        "K1": {("cluster", False), ("cluster", True), ("wide", True)},
+        "K3": {("block", False), ("long", True)},
+        "K8": {("cluster", False), ("long", True)},
+    }
     for name, got in designs.items():
-        assert got <= {(short[name], False), ("long", True)}, (name, got)
+        assert got <= allowed[name], (name, got)
         if name in want:
-            assert got == {(short[name], False), ("long", True)}, (name, got)
-            assert long_designs[name] == {"cluster", "wide"}, (name, long_designs[name])
+            assert got == allowed[name], (name, got)
+            if name != "K1":
+                assert long_designs[name] == {"cluster", "wide"}, (name, long_designs[name])
 
 
 def test_wideband_k3_and_pair_stage_take_every_planned_length_but_f3b():
@@ -519,11 +528,16 @@ def test_wideband_k3_and_pair_stage_take_every_planned_length_but_f3b():
 
 
 def test_design_choice_by_length():
-    """One block a row up to 24576, the long design above, for K3 and K1;
-    above, the cluster design at n1 = 128 and 256, the wide design (K1 in
-    one launch, K3 its forward half) at 384, 640 and 896. K4 has one design, whose shared memory (n/8 floats, or a
-    16-column tile) fits at every planned length the fused detect takes,
-    at any radius up to n2."""
+    """K3: one block a row up to 24576, the long design above: the cluster
+    design at n1 = 128 and 256, the wide design (K1's kernel without its
+    detect half) at 384, 640 and 896. K1 (the flagship's radius, 10): one
+    launch at every length whose n2 holds the radius, the cluster design
+    (K3's cluster kernel with its detect half) at n1 = 128 and 256 and the
+    wide design at 384, 640 and 896; with ``emit_topk`` the one-block
+    design up to 24576 and the long K3 → K4 above, as K3's split. K4 has
+    one design, whose shared memory (n/8 floats, or a 16-column tile) fits
+    at every planned length the fused detect takes, at any radius up to
+    n2."""
     for n in PLANNED:
         n1, n2 = ct_plan.ct_split(n)
         if detect_ct.supported(n, min_distance_bins=10, noise_floor_stride=8):
@@ -531,7 +545,9 @@ def test_design_choice_by_length():
         else:
             assert n2 < 10, n
         want = "block" if n <= fft_rows.MAX_N else "long"
-        assert fft_rows.geometry(n) == want and fft_detect.geometry(n) == want, n
+        one = {128: "cluster", 256: "cluster"}.get(n1, "wide") if n2 >= 10 else want
+        assert fft_rows.geometry(n) == want and fft_detect.geometry(n, emit_topk=8) == want, n
+        assert fft_detect.geometry(n) == one, n
         assert channel_step.geometry(n) == ("cluster" if want == "block" else "long"), n
         if want == "long":
             design = {128: "cluster", 256: "cluster"}.get(n1, "wide")
@@ -540,8 +556,10 @@ def test_design_choice_by_length():
         detect_ct.geometry(17408, 137)  # radius > n2 = 136
 
 
-# the instantiations fft_rows_ct_cluster.cu builds: (n1, columns a tile)
+# the instantiations fft_rows_ct_cluster.cu builds: (n1, columns a tile),
+# for K3 (detect half off) and for K1 (on)
 BUILT_CLUSTER_VARIANTS = {(128, 32), (128, 16), (256, 32)}
+BUILT_CLUSTER_DETECT_VARIANTS = {(128, 32), (128, 16), (256, 32)}
 # fft_detect_cluster.cuh (the wide design): its n1
 BUILT_WIDE = {384, 640, 896}
 # fft_rows_ct_long.cu (the workspace design, the wide design's comparison
@@ -555,7 +573,8 @@ def test_long_k3_builds_only_the_variants_planned_lengths_reach():
     """Every planned length the long K3 takes (and the lengths the card
     tests force onto it: 17408, 24576) splits with a = 8 into a built
     kernel variant, and together they reach every built one: the cluster
-    design at n1 = 128 and 256, the wide design at 384, 640 and 896, and
+    design at n1 = 128 and 256 (and its K1 instantiations at every planned
+    length K1's cluster design takes), the wide design at 384, 640 and 896, and
     there the workspace design as the wide design's comparison
     (``fft_rows.workspace_rows``, no route; 32-column tiles, step B in
     registers up to r = 24, else streamed with the fewest outputs a thread
@@ -575,6 +594,10 @@ def test_long_k3_builds_only_the_variants_planned_lengths_reach():
         rows.add(g.n1)
         columns.add((24, 0) if g.r <= 24 else (0, next(sj for sj in (2, 3, 4) if g.r <= sj * WARPS)))
     assert cluster == BUILT_CLUSTER_VARIANTS and wide == BUILT_WIDE
+    # K1's cluster design at every planned n1 = 128/256 length it takes (its own c: the power buffer in the fit)
+    detect = {(g.n1, g.cols) for g in (fft_detect.cluster_geometry(n) for n in PLANNED
+                                       if fft_detect.one_pass_design(n) == "cluster")}
+    assert detect == BUILT_CLUSTER_DETECT_VARIANTS
     assert rows == BUILT_WORKSPACE_ROWS and columns == BUILT_WORKSPACE_COLUMNS
     assert ct_plan.ct_split(25_728) == (128, 201)
     with pytest.raises(ValueError, match="multiple of 8"):
