@@ -29,7 +29,12 @@ per source, in parallel, sm_90a), then:
    16384 uint8 IQ at 2.4 MS/s, max_lag 512 — through
    ``step_split_uint8_scan``, with both kernels' launch counts (K1 once a
    block, by design: its cluster design; no K4), ms/block, IQ samples/s
-   and a per-stage split from CUDA events;
+   and a per-stage split from CUDA events; then the same blocks on the
+   combined-topk route (``detect.set_combined_topk(True)``: K1 with
+   ``emit_topk = 8``, one launch of its cluster design a block), its
+   detections, lag peaks and fixes equal to the default route's bit for
+   bit, with both routes' "fft_detect" and "peaks" stages (as in phases
+   19, 20 and 39 at block_len 32768, 57344 and 96000);
 6. K3 (CT-order FFT) vs its plain version at the wideband shape [1024,
    5120]: the full-width ``WidebandTDOAPipeline.example_inputs(seed=0)``
    block after the channelizer;
@@ -145,9 +150,15 @@ per source, in parallel, sm_90a), then:
     [2016, 5120] × 4 back to back against ``RM_PARENT_TREE``'s
     (``tools/forward_times.py --pair`` by path), with the n1 = 128/256
     pair digests compared (they differ from a parent before the tensor-core
-    fold); K1 and K4 with ``emit_topk = 8`` at 17408, 33792 and
-    58368 equal to their own partials + the port's top-K tail bit for
-    bit, and close to their plain versions; the phase-4 scene at
+    fold); K1 and K4 with ``emit_topk = 8`` (T1) at [1024, n], n = 17408,
+    33792, 34816, 66560, 58368 and 97280: K1 one launch of its cluster or
+    wide design, with its registers, spills, blocks an SM and active
+    clusters, equal bit for bit to the parent's T1 design (the one-block
+    K1 up to 24576, the long K3 then K4's top-K phase above), timed beside
+    it, and to its own partials + the port's top-K tail, at K = 8 and 128
+    (K = 128 timed too), K4 to the same, both close to their plain
+    versions; ``tools/forward_times.py --k1 ... --topk 8`` gives T1's
+    back-to-back times beside the parent's too; the phase-4 scene at
     block_len 57344 on the default, two-kernel, mega and combined-topk
     routes, card vs CPU; and 4 flagship blocks at full width, 128 ch × 8
     buoys × 57344 uint8 IQ, max_lag 600, on the default route: ms/block,
@@ -302,7 +313,7 @@ per source, in parallel, sm_90a), then:
     one wide launch, K2 one launch), then 4 full-width blocks, 128 ch × 8
     buoys × 96000 uint8 IQ, max_lag 600, through ``step_split_uint8_scan``:
     ms/block, launches by design (K1 wide and K2 once a block) and a
-    per-stage split.
+    per-stage split, and those blocks on the combined-topk route.
 
 Each kernel's entry in the ``kernels`` line carries its sources (K1's
 ``source`` is its cluster design's, ``fft_rows_ct_cluster.cu``, with the
@@ -666,18 +677,20 @@ K1_LENGTHS = (17_408, 33_792, 34_816, 66_560, 58_368, 97_280, 121_856)
 
 
 def _k1_times(tree):
-    """``tools/forward_times.py --k1`` at :data:`K1_LENGTHS` of this
-    checkout run by path on the package under ``tree``: ``{nfft: (rows, K1
-    ms, K3 ms)}`` and the long rows' digests."""
+    """``tools/forward_times.py --k1 ... --topk 8`` at :data:`K1_LENGTHS` of
+    this checkout run by path on the package under ``tree``: ``{nfft:
+    (rows, K1 ms, K3 ms, K1 with emit_topk = 8 ms, its design)}`` and the
+    long rows' digests (K1's top-K blocks among them)."""
     script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "radio_mapper_tpu_torch", "tools",
                           "forward_times.py")
-    out = subprocess.run([sys.executable, script, "--k1", ",".join(map(str, K1_LENGTHS))],
+    out = subprocess.run([sys.executable, script, "--k1", ",".join(map(str, K1_LENGTHS)), "--topk", "8"],
                          env={**os.environ, "PYTHONPATH": tree}, capture_output=True, text=True, timeout=600,
                          check=True).stdout
     times = {}
     for n in K1_LENGTHS:
         m = re.search(rf"\[([0-9]+), {n}\], n1 = [0-9]+: K1 ([0-9.]+) ms, K3 ([0-9.]+) ms", out)
-        times[n] = (int(m.group(1)), float(m.group(2)), float(m.group(3)))
+        t = re.search(rf"\[[0-9]+, {n}\], n1 = [0-9]+: K1 top-K 8 ([0-9.]+) ms \((\w+)\)", out)
+        times[n] = (int(m.group(1)), float(m.group(2)), float(m.group(3)), float(t.group(1)), t.group(2))
     digests = re.search(r"long digests \([^)]*\): (.*) \[", out).group(1)
     return times, digests
 
@@ -695,7 +708,7 @@ def _k1_cluster_report(torch, n, xr, xi, plan, phase, tag):
 
     g = fft_detect.cluster_geometry(n, plan.radius)
     info = fft_detect.cluster_info(n, plan.radius)
-    ptx = {r["kernel"]: r for r in build.ptxas_report(build.build_log())}[f"ct_cluster_kernel<{g.n1}, {g.cols}, 1>"]
+    ptx = {r["kernel"]: r for r in build.ptxas_report(build.build_log())}[f"ct_cluster_kernel<{g.n1}, {g.cols}, 1, 0>"]
     spills = ptx["spill_stores"] + ptx["spill_loads"]
     short = n <= fft_detect.MAX_N
 
@@ -733,6 +746,58 @@ def _k1_cluster_report(torch, n, xr, xi, plan, phase, tag):
     return {"shape": [xr.shape[0], n], "design": "cluster", **info, "spill_bytes": spills, "ms": ms,
             "parent_design": "block" if short else "cluster K3 -> K4", "parent_ms": parent_ms,
             "bit_equal_to_parent": all(same.values())}
+
+
+def _combined_topk_report(torch, pipe, raw, anchors, default_out, label, phase, tag):
+    """The flagship blocks ``raw`` through ``step_split_uint8_scan`` on the
+    combined-topk route (``detect.set_combined_topk(True)``: K1 with
+    ``emit_topk = max_peaks``, the tail only unpacking) beside the default
+    route's output ``default_out`` on the same blocks: launches by kernel
+    and K1's by design (K1 and K2 once a block, K1 one launch of its
+    cluster or wide design), its detections, lag windows' peaks and fixes
+    equal to the default route's bit for bit, ms/block, and both routes'
+    "fft_detect" and "peaks" stages (CUDA events, median of 3). Returns the
+    facts for the kernels line."""
+    from radio_mapper_tpu_torch.ops import detect as detect_ops
+    from radio_mapper_tpu_torch.ops.cuda import fft_detect
+
+    counters = _kernel_counters()
+    blocks = raw.shape[0]
+    names = ["decode", "fft_detect", "peaks", "gcc_pair", "solve"]
+    split = lambda: _stage_split(torch, lambda mark: pipe.step_split_uint8(raw[0], anchors, on_stage=mark), names)
+    default_med = split()
+    detect_ops.set_combined_topk(True)
+    try:
+        pipe.step_split_uint8(raw[0], anchors)  # warm-up
+        torch.cuda.synchronize()
+        _zero_counts(counters)
+        designs0 = dict(fft_detect.design_counts)
+        t0 = time.perf_counter()
+        out = pipe.step_split_uint8_scan(raw, anchors)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in _read_counts(counters).items() if v}
+        designs = {k: v - designs0[k] for k, v in fft_detect.design_counts.items() if v != designs0[k]}
+        med = split()
+    finally:
+        detect_ops.set_combined_topk(False)
+    same = {part: all(torch.equal(x, y) for x, y in zip(_leaves(torch, getattr(out, part)),
+                                                        _leaves(torch, getattr(default_out, part))))
+            for part in ("peaks", "correlation", "fix")}
+    design = fft_detect.geometry(pipe.plan.nfft, emit_topk=pipe.config.max_peaks)
+    print(
+        f"phase {phase}: flagship {label}, {blocks} blocks, combined-topk route (K1 emit_topk "
+        f"{pipe.config.max_peaks}): {1e3 * wall / blocks:.3f} ms/block, launches {launches}, K1 by design {designs}; "
+        f"= the default route bit for bit {same}; fft_detect {med['fft_detect']:.3f} ms, peaks {med['peaks']:.3f} "
+        f"ms (default route: fft_detect {default_med['fft_detect']:.3f}, peaks {default_med['peaks']:.3f}) {tag}"
+    )
+    _require(launches == {"fft_detect_rows_ct": blocks, "gcc_pair_lag_mags": blocks} and designs == {design: blocks}
+             and design in ("cluster", "wide"), f"combined-topk route {label}: launches {launches}, K1 {designs}")
+    _require(all(same.values()), f"combined-topk route {label} differs from the default route: {same}")
+    return {"block_len": label, "blocks": blocks, "launches": launches, "k1_designs": designs,
+            "ms_block": 1e3 * wall / blocks, "fft_detect_ms": med["fft_detect"], "peaks_ms": med["peaks"],
+            "default_fft_detect_ms": default_med["fft_detect"], "default_peaks_ms": default_med["peaks"],
+            "equal_to_default": all(same.values())}
 
 
 def _held(torch, name, kernel, plain, shape, window, bound):
@@ -2387,6 +2452,7 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
         + f", sum {sum(stage.values()):.3f} {tag}"
     )
+    combined_topk = [_combined_topk_report(torch, pipe, raw, anchors, out, n, 5, tag)]
 
     del raw, out
     torch.cuda.empty_cache()
@@ -3008,7 +3074,7 @@ def main() -> int:
             for detect in (True, False):
                 info = fft_rows.wide_info(nf, detect)
                 min_blocks = info["min_blocks"]
-                spill = ptx[f"fft_detect_cluster_kernel<{g.n1}, {int(detect)}, {min_blocks}>"]
+                spill = ptx[f"fft_detect_cluster_kernel<{g.n1}, {int(detect)}, {min_blocks}, 0>"]
                 out["K1" if detect else "K3"] = {**info, "spill_bytes": spill["spill_stores"] + spill["spill_loads"]}
                 print(f"phase {phase}: {'K1' if detect else 'K3'} wide design at nfft {nf} = {g.n1}·{g.n2}: one "
                       f"launch, c = {info['c']} blocks a row, r = {g.r}, {info['smem']} B of shared memory a block, "
@@ -3218,6 +3284,7 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
         + f", sum {sum(med.values()):.3f}, before the solve {sum(v for k, v in med.items() if k != 'solve'):.3f} {tag}"
     )
+    combined_topk.append(_combined_topk_report(torch, long_pipe, lraw, lanchors, lout, 32_768, 19, tag))
     del lraw, lout
 
     # ---- phase 20: the mixed-radix inner lengths (n1 = 384, 640, 896: the
@@ -3422,28 +3489,56 @@ def main() -> int:
         _require(k8m_rel <= 1e-4 and k8m_nf <= 1e-3, f"K8 long design disagrees with its plain version at {k8n}: {k8m_rel}")
         del k8m, m8r, m8i
 
-    # T1: K1 and K4 with emit_topk = 8, at one-block, long and mixed-radix lengths
+    # T1: K1 and K4 with emit_topk = 8. K1 is one launch of its cluster
+    # design (n1 = 128/256) or wide design (384/640/896) at every length,
+    # held bit for bit against the parent's T1 design in this call (the
+    # one-block K1 up to 24576, the long K3 then K4's top-K phase above)
+    # and against its own partials + the port's top-K tail; K = 128 too
     traw, _ = pipe.example_inputs(batch=(1, chans), seed=0, uint8=True)
     t17 = iq.decode_uint8_split(traw[0])
     traw, _ = long_pipe.example_inputs(batch=(1, chans), seed=0, uint8=True)
     t33 = iq.decode_uint8_split(traw[0])
+    traw, _ = TDOAPipeline(PipelineConfig(num_buoys=buoys, block_len=96_000, sample_rate_hz=fs, max_lag=600),
+                           device=dev).example_inputs(batch=(1, chans), seed=0, uint8=True)
+    t97 = iq.decode_uint8_split(traw[0])
     del traw
     topk_rows = {}
-    for tn, (tre, tim) in ((17_408, t17), (33_792, t33), (mnfft, (mre, mim))):
-        txr, txi = fill(tre, tn), fill(tim, tn)
+    t1_sources = {17_408: t17, 33_792: t33, 34_816: t33, 66_560: None, mnfft: (mre, mim), 97_280: t97}
+    for tn, tsrc in t1_sources.items():
+        txr, txi = (fill(tsrc[0], tn), fill(tsrc[1], tn)) if tsrc is not None else noise_rows(1024, tn)
         tplan = ct_plan.detect_plan(
             tn, sample_rate_hz=fs, threshold_db=-70.0, min_distance_bins=10,
             dc_notch_hz=10_000.0, confidence_floor=0.3, snr_fullscale_db=20.0,
         )
+        tdesign = fft_detect.geometry(tn, emit_topk=8)
+        short = tn <= fft_detect.MAX_N
+
+        def t1_parent(k=8):  # the parent's T1 design
+            if short:
+                return fft_detect.block_detect(txr, txi, tplan, k)
+            f3 = fft_rows.long_rows(txr, txi)
+            return (*f3, *detect_ct.launch(*f3, tplan, row_max=True, emit_topk=k))
+
+        tcounts = lambda: (fft_detect.launch_count, fft_rows.launch_count, detect_ct.launch_count,
+                           fft_detect.design_counts[tdesign])
+        before = tcounts()
         t1 = fft_detect.fft_detect_rows_ct(txr, txi, tplan, emit_topk=8)
+        torch.cuda.synchronize()
+        t1_one = tuple(a - b for a, b in zip(tcounts(), before)) == (1, 0, 0, 1)
         t0_ = fft_detect.fft_detect_rows_ct(txr, txi, tplan)
         t4 = detect_ct.detect_ct_partials(t0_[0], t0_[1], tplan, emit_topk=8)
         tail = fft_detect.topk_plain(t0_[2], t0_[3], 8)
+        t128 = fft_detect.fft_detect_rows_ct(txr, txi, tplan, emit_topk=128)
+        tail128 = fft_detect.topk_plain(t0_[2], t0_[3], 128)
         torch.cuda.synchronize()
         same = {
-            "K1": all(torch.equal(x, y) for x, y in zip(t1, (*t0_[:2], *tail, *t0_[4:]))),
+            "K1 = parent design": all(torch.equal(x, y) for x, y in zip(t1, t1_parent())),
+            "K1 = partials + tail": all(torch.equal(x, y) for x, y in zip(t1, (*t0_[:2], *tail, *t0_[4:]))),
+            "K1 (K = 128) = parent design": all(torch.equal(x, y) for x, y in zip(t128, t1_parent(128))),
+            "K1 (K = 128) = partials + tail": all(torch.equal(x, y) for x, y in zip(t128[2:4], tail128)),
             "K4": all(torch.equal(x, y) for x, y in zip(t4, (*tail, t0_[4]))),
         }
+        del t128, tail128
         tp1 = fft_detect.fft_detect_rows_ct_plain(txr, txi, tplan, emit_topk=8)
         tp4 = detect_ct.detect_ct_partials_plain(t0_[0], t0_[1], tplan, emit_topk=8)
         te1 = testing.topk_errors(t1[2:4], tp1[2:4], tp1[5], 8)
@@ -3451,29 +3546,47 @@ def main() -> int:
         del tp1, tp4
         tms = {
             "K1": _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct(txr, txi, tplan, emit_topk=8)),
+            "K1 parent design": _cuda_ms(torch, t1_parent),
+            "K1 K = 128": _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct(txr, txi, tplan, emit_topk=128)),
             "K1 partials": _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct(txr, txi, tplan)),
             "K1 plain": _cuda_ms(torch, lambda: fft_detect.fft_detect_rows_ct_plain(txr, txi, tplan, emit_topk=8)),
             "K4": _cuda_ms(torch, lambda: detect_ct.detect_ct_partials(t0_[0], t0_[1], tplan, emit_topk=8)),
             "K4 partials": _cuda_ms(torch, lambda: detect_ct.detect_ct_partials(t0_[0], t0_[1], tplan)),
             "K4 plain": _cuda_ms(torch, lambda: detect_ct.detect_ct_partials_plain(t0_[0], t0_[1], tplan, emit_topk=8)),
         }
+        if tdesign == "cluster":
+            tinfo, tg = fft_detect.cluster_info(tn, emit_topk=8), fft_detect.cluster_geometry(tn)
+            tkern = f"ct_cluster_kernel<{tg.n1}, {tg.cols}, 1, 1>"
+        else:
+            tinfo = fft_rows.wide_info(tn, topk=8)
+            tkern = f"fft_detect_cluster_kernel<{ct_plan.ct_split(tn)[0]}, 1, {tinfo['min_blocks']}, 1>"
+        tptx = {r["kernel"]: r for r in build.ptxas_report(build.build_log())}[tkern]
         trows = txr.shape[0]
         tb1 = _bound(_fft_flops(trows, tn) + _detect_flops(trows, tn), trows * tn * 16 + trows * 128 * 8 + trows * 8)
         tb4 = _bound(_detect_flops(trows, tn), trows * tn * 8 + trows * 128 * 8 + trows * 4)
-        topk_rows[tn] = {"K1": ([trows, tn], te1[0], tms["K1"], tms["K1 plain"], tb1, tms["K1 partials"]),
-                         "K4": ([trows, tn], te4[0], tms["K4"], tms["K4 plain"], tb4, tms["K4 partials"])}
+        t1_facts = {"design": tdesign, "parent_design": "block" if short else "long K3 -> K4",
+                    "parent_ms": tms["K1 parent design"], "k128_ms": tms["K1 K = 128"],
+                    "registers": tinfo["registers"], "spill_bytes": tptx["spill_stores"] + tptx["spill_loads"],
+                    "blocks_per_sm": tinfo["blocks"], "clusters": tinfo["clusters"],
+                    "bit_equal_to_parent": same["K1 = parent design"]}
+        topk_rows[tn] = {"K1": ([trows, tn], te1[0], tms["K1"], tms["K1 plain"], tb1, tms["K1 partials"], t1_facts),
+                         "K4": ([trows, tn], te4[0], tms["K4"], tms["K4 plain"], tb4, tms["K4 partials"], {})}
         print(
-            f"phase 20: emit_topk 8 at [{trows}, {tn}] ({fft_detect.geometry(tn, emit_topk=8)} K1): = partials + the port's top-K "
-            f"tail bit for bit {same}; vs plain: K1 value max|err| {te1[0]:.3e} (rel to row max power {te1[1]:.3e}, "
-            f"tol 1e-4), packed differ outside near-ties {te1[2]} ({te1[3]:.2f} of lanes checked); K4 {te4[0]:.3e} "
-            f"({te4[1]:.3e}), {te4[2]} ({te4[3]:.2f}); " + ", ".join(f"{k} {v:.3f} ms" for k, v in tms.items())
-            + f" {tag}"
+            f"phase 20: emit_topk 8 at [{trows}, {tn}] (K1 design {tdesign}, one launch {t1_one}; {tinfo['registers']} "
+            f"registers, spills {tptx['spill_stores']}/{tptx['spill_loads']} B, {tinfo['blocks']} blocks an SM, "
+            f"cudaOccupancyMaxActiveClusters {tinfo['clusters']}): bit for bit {same}; vs plain: K1 value max|err| "
+            f"{te1[0]:.3e} (rel to row max power {te1[1]:.3e}, tol 1e-4), packed differ outside near-ties {te1[2]} "
+            f"({te1[3]:.2f} of lanes checked); K4 {te4[0]:.3e} ({te4[1]:.3e}), {te4[2]} ({te4[3]:.2f}); "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in tms.items())
+            + f" (parent design {t1_facts['parent_design']}); K1 bound {tb1[0]:.4f} ms ({tb1[1]}) {tag}"
         )
-        _require(all(same.values()), f"emit_topk differs from partials + tail at {tn}: {same}")
+        _require(t1_one and tdesign == ("cluster" if ct_plan.ct_split(tn)[0] in fft_rows.CLUSTER_N1 else "wide"),
+                 f"emit_topk at {tn} is not one launch of the cluster designs")
+        _require(all(same.values()), f"emit_topk differs from the parent design or partials + tail at {tn}: {same}")
         for te in (te1, te4):
             _require(te[1] <= 1e-4 and te[2] == 0 and te[3] > 0.5, f"emit_topk disagrees with plain at {tn}: {te}")
         del t1, t0_, t4, tail, txr, txi
-    del t17, t33
+    del t17, t33, t97
 
     # the phase-4 scene at block_len 57344 on four routes, card vs CPU
     scen57 = sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8, block_len=57_344)
@@ -3551,6 +3664,7 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f}" for k, v in med.items())
         + f", sum {sum(med.values()):.3f}, before the solve {sum(v for k, v in med.items() if k != 'solve'):.3f} {tag}"
     )
+    combined_topk.append(_combined_topk_report(torch, mpipe, mraw, manchors, mout, 57_344, 20, tag))
     del mraw, mout, mre, mim
 
     # the pair body at the mixed lengths: one kernel a length for K2, K5 and
@@ -3607,20 +3721,24 @@ def main() -> int:
     for kn in K1_LENGTHS:
         pick = lambda mine, i: [t[kn][i] for tree, t, _ in k1_runs if (tree == here) == mine]
         k1_parent[kn] = {"shape": [k1_runs[0][1][kn][0], kn], "K1_ms": pick(True, 1), "K3_ms": pick(True, 2),
-                        "parent_K1_ms": pick(False, 1) or None, "parent_K3_ms": pick(False, 2) or None}
+                        "parent_K1_ms": pick(False, 1) or None, "parent_K3_ms": pick(False, 2) or None,
+                        "T1_ms": pick(True, 3), "T1_design": pick(True, 4)[0],
+                        "parent_T1_ms": pick(False, 3) or None, "parent_T1_design": (pick(False, 4) or [None])[0]}
         ms_list = lambda key: ", ".join(f"{t:.4f}" for t in k1_parent[kn][key])
         print(
             f"phase 20: K1 and K3 at {k1_parent[kn]['shape']} (n1 = {ct_plan.ct_split(kn)[0]}) back to back: this "
-            f"tree K1 {ms_list('K1_ms')} ms, K3 {ms_list('K3_ms')} ms"
-            + (f"; parent K1 {ms_list('parent_K1_ms')} ms, K3 {ms_list('parent_K3_ms')} ms" if theirs else
+            f"tree K1 {ms_list('K1_ms')} ms, K3 {ms_list('K3_ms')} ms, K1 emit_topk 8 {ms_list('T1_ms')} ms "
+            f"({k1_parent[kn]['T1_design']})"
+            + (f"; parent K1 {ms_list('parent_K1_ms')} ms, K3 {ms_list('parent_K3_ms')} ms, K1 emit_topk 8 "
+               f"{ms_list('parent_T1_ms')} ms ({k1_parent[kn]['parent_T1_design']})" if theirs else
                " (no parent)") + f" {tag}"
         )
     print(f"phase 20: long digests: {k1_runs[0][2]} {tag}")
     if theirs:
         same = len({d for *_, d in k1_runs}) == 1
-        print(f"phase 20: long-row digests (K3, K4, K1 at 33792 ... 121856, the wide design at 58368, 87040, "
-              f"97280, 121856) equal the parent's: {same} (K8's long design, whose K2 folds on tensor cores "
-              f"otherwise since this tree, is held to K1 -> K2 above) {tag}")
+        print(f"phase 20: long-row digests (K3, K4, K1 and K1 with emit_topk 8 at 33792 ... 121856, the wide "
+              f"design at 58368, 87040, 97280, 121856) equal the parent's: {same} (K8's long design, whose K2 "
+              f"folds on tensor cores, is held to K1 -> K2 above) {tag}")
         _require(same, "the long-row kernels differ from the parent's")
 
     # ---- phase 21: the complex step (TDOAPipeline.step) on the phase-4 scene, card vs CPU
@@ -3924,14 +4042,16 @@ def main() -> int:
         + f", sum {sum(med96.values()):.3f}, before the solve "
         f"{sum(v for k, v in med96.items() if k != 'solve'):.3f} {tag}"
     )
+    combined_topk.append(_combined_topk_report(torch, pipe96, raw96, anchors96, out96, 96_000, 39, tag))
     del raw96, out96
 
     def rows_entry(shape, err, ms, plain_ms, bound, library_ms):
         return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms}
 
-    def topk_entry(shape, err, ms, plain_ms, bound, partials_ms):
-        return {**rows_entry(shape, err, ms, plain_ms, bound, None), "emit_topk": 8, "partials_ms": partials_ms}
+    def topk_entry(shape, err, ms, plain_ms, bound, partials_ms, facts):
+        return {**rows_entry(shape, err, ms, plain_ms, bound, None), "emit_topk": 8, "partials_ms": partials_ms,
+                **facts}
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound, algorithm_flops, library_ms=None,
               long_source=(), long_name=None, **extra):
@@ -3976,7 +4096,7 @@ def main() -> int:
                      nrows * nfft * 16 + nrows * plan.segments * 8 + nrows * 8), k1_radix,
               long_source=["ct_detect.cuh", "cluster.cuh", "ct_fft.cuh", "fft_detect.cu", "fft_detect_cluster.cu",
                            "fft_detect_cluster_mixed.cu", "fft_detect_cluster.cuh", "detect_ct.cu"],
-              long_name="K1", mixed_rows=mixed("K1"), topk=topk("K1"),
+              long_name="K1", mixed_rows=mixed("K1"), topk=topk("K1"), combined_topk_flagship=combined_topk,
               design_counts_block_len_16384=k1_designs16, design_counts_block_len_32768=k1_designs32,
               cluster_design=k1_cluster, cluster_design_flagship_block=k1_cluster_block0,
               wide_design={n: r["K1"] for n, r in wide_report.items() if r}, wide_back_to_back=k1_parent,

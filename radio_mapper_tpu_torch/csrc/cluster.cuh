@@ -17,7 +17,8 @@
 // dsmem() maps an address of this block's shared memory to the same offset
 // in a partner's (mapa.shared::cluster, a 32-bit shared::cluster address,
 // so a lane can hold one for each of its loads), ld1/ld4 read 4 or 16
-// bytes there and st1 writes 4 (ld/st.shared::cluster). Every kernel that
+// bytes there and st1 writes 4 (ld/st.shared::cluster); Partners passes
+// ld1, st1 and arrive() to shared code that takes them. Every kernel that
 // reads a partner ends with a cluster barrier, so no block exits while a
 // partner still reads its shared memory.
 
@@ -72,6 +73,15 @@ __device__ __forceinline__ float4 ld4(uint32_t addr) {
 __device__ __forceinline__ void st1(uint32_t addr, float v) {
   asm volatile("st.shared::cluster.f32 [%0], %1;" ::"r"(addr), "f"(v) : "memory");
 }
+
+// The cluster for shared code that takes one as an argument: ld(p, b), the
+// float at this block's shared address p in block b; st(p, b, v), a float
+// there; arrive(), arrive().
+struct Partners {
+  __device__ float ld(const float* p, int b) const { return ld1(dsmem(p, static_cast<unsigned>(b))); }
+  __device__ void st(const float* p, int b, float v) const { st1(dsmem(p, static_cast<unsigned>(b)), v); }
+  __device__ void arrive() const { rm_cluster::arrive(); }
+};
 
 // The launch configuration of `blocks` blocks in clusters of `c` along x.
 struct Config {

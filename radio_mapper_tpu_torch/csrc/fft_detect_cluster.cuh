@@ -87,11 +87,25 @@
 //            n1 = 128/256, fft_rows_ct_cluster.cu, runs too). A last
 //            cluster barrier: no block exits while a partner reads its
 //            powers.
+//   top-K    (TOPK, emit_topk = K in 1 .. 128) in place of the gate and
+//            the partials' stores: blocks 1 .. 7 take their own first K
+//            staged segments in (score desc, segment f asc) order,
+//            ungated, while block 0 finds the floor (ct_detect.cuh
+//            topk_block8 for K <= 8, topk_block above), and arrive at the
+//            floor's barrier only then; block 1, which holds column 0,
+//            gates and merges the 8 lists and writes the row's [128]
+//            values and packed 8*f + offset. For K <= 8 each list goes
+//            through DSMEM into an inbox at the end of block 1's column
+//            buffer before the barrier, which is then the kernel's last
+//            (topk_merge8); above, block 1 pulls the lists after it and a
+//            last cluster barrier follows (topk_merge). No F/8 partials
+//            are written.
 //
 // Every reduction is a max, a min, an integer count or an order statistic
 // and the per-value arithmetic is the workspace K3's and K4's, so the
 // spectra, partials, floor and row max equal the workspace K3 -> K4 bit
-// for bit (card tests, tools/forward_times.py's long-row digests).
+// for bit (card tests, tools/forward_times.py's long-row digests), and
+// the top-K blocks K3 -> K4's top-K phase (block_topk's passes).
 //
 // Shared memory a block: xs (n bytes), with DETECT pw (n/2 bytes), and the
 // tables (W_n1 and step C's twiddles, 190q float2: 4.5, 7.4, 10.4 KB):
@@ -266,14 +280,17 @@ struct RankPower {
 // MIN_BLOCKS: __launch_bounds__' blocks an SM, 2 (at most 64 registers a
 // thread) or 1 (128): 2 at n1 = 384; at 640 K3's where two blocks fit an
 // SM's shared memory (n2 <= 160; faster there, slower at 1 block by
-// shared memory, where 64 registers only add spills); else 1.
-template <int R1, bool DETECT, int MIN_BLOCKS>
+// shared memory, where 64 registers only add spills); else 1. TOPK (with
+// DETECT): emit_topk = topk, the row's [128] top-K block to
+// seg_score/seg_arg in place of the partials, an instantiation of its own.
+template <int R1, bool DETECT, int MIN_BLOCKS, bool TOPK>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 fft_detect_cluster_kernel(const float* __restrict__ xre, const float* __restrict__ xim, const float2* __restrict__ w1,
             const float2* __restrict__ wn2, const float2* __restrict__ wr, const float2* __restrict__ tw,
             float* __restrict__ fre, float* __restrict__ fim, float* __restrict__ seg_score,
             float* __restrict__ seg_arg, float* __restrict__ nf_out, float* __restrict__ rmax_out, int n2, int r,
-            DetectParams prm) {
+            DetectParams prm, int topk) {
+  static_assert(DETECT || !TOPK, "the top-K is the detect half's");
   using W = Wide<R1>;
   constexpr int P = W::P, Q = W::Q, OWN = W::OWN, QPAIRS = W::QPAIRS, DCOLS = W::DCOLS;
   extern __shared__ float4 smem[];
@@ -454,7 +471,7 @@ fft_detect_cluster_kernel(const float* __restrict__ xre, const float* __restrict
       }
     }
   }
-  rm_cluster::arrive();  // block 0: its floor is in every block's s_nf
+  if constexpr (!TOPK) rm_cluster::arrive();  // block 0: its floor is in every block's s_nf
 
   // ---- pull: this block's detect columns d0 .. d0 + dn - 1 (none on
   // block 0, which finds the floor meanwhile; DCOLS on blocks 1 .. 6, the
@@ -470,38 +487,94 @@ fft_detect_cluster_kernel(const float* __restrict__ xre, const float* __restrict
   // segment partials; after the floor arrives the confidence gate
   rm_det::window_partials<THREADS>(nat, d0, dn, n2, prm, st_sc, st_sa);
   __syncthreads();
-  rm_cluster::wait();    // the floor is here
-  rm_cluster::arrive();  // this block's pulls are done
-  rm_det::gate_partials<THREADS>(st_sc, st_sa, d0, dn, R1, r, row * s_all, s_nf, prm, seg_score, seg_arg);
-  rm_cluster::wait();  // no block exits while a partner pulls its powers
+  if constexpr (!TOPK) {
+    rm_cluster::wait();    // the floor is here
+    rm_cluster::arrive();  // this block's pulls are done
+    rm_det::gate_partials<THREADS>(st_sc, st_sa, d0, dn, R1, r, row * s_all, s_nf, prm, seg_score, seg_arg);
+    rm_cluster::wait();  // no block exits while a partner pulls its powers
+  } else {
+    // ---- emit_topk: this block's own list of its ungated segments at the
+    // start of its freed columns while block 0 finds the floor; block 1,
+    // which holds column 0 (its segment 0's gated offset fills the lanes
+    // past the row's candidates), gates and merges the 8 lists
+    constexpr int MERGER = 1;
+    float* tk = aux;
+    float* vals = seg_score + row * rm_det::TOPK_LANES;
+    float* packed = seg_arg + row * rm_det::TOPK_LANES;
+    if (topk <= rm_det::TOPK_FAST) {  // each list into the merger's inbox: no partner is read after the barrier
+      float* inbox = aux + n / 4 - rm_det::TOPK_INBOX;  // the column buffer's last floats
+      rm_det::topk_block8<THREADS>(st_sc, st_sa, r, dn, d0, R1, topk, tk, inbox, rank, MERGER, rm_cluster::Partners{});
+      rm_cluster::arrive();  // block 0: its floor is in every block's s_nf; this block's pulls and store are done
+      rm_cluster::wait();
+      if (rank == MERGER) rm_det::topk_merge8<THREADS>(inbox, tk, C, topk, s_nf, prm, vals, packed);
+    } else {
+      rm_det::topk_block<THREADS>(st_sc, st_sa, r, dn, d0, R1, topk, tk);
+      rm_cluster::arrive();  // block 0: its floor is in every block's s_nf; this block's pulls and list are done
+      rm_cluster::wait();
+      if (rank == MERGER) {  // arrives once every partner's list is read
+        rm_det::topk_merge<THREADS>(tk, C, topk, s_nf, prm, vals, packed, rm_cluster::Partners{});
+      } else {
+        rm_cluster::arrive();
+      }
+      rm_cluster::wait();  // no block exits while the merger reads its list
+    }
+  }
 }
 
 using Kernel = void (*)(const float*, const float*, const float2*, const float2*, const float2*, const float2*,
-                        float*, float*, float*, float*, float*, float*, int, int, DetectParams);
+                        float*, float*, float*, float*, float*, float*, int, int, DetectParams, int);
 
 constexpr size_t SM_SMEM = 233472;    // 228 KB an SM for its blocks
 constexpr size_t BLOCK_EXTRA = 1024 + 256;  // the runtime's reserve and the static shared memory a block, at most
 
-// The instantiation for (n1, n2, detect) and its MIN_BLOCKS: 2 at n1 =
-// 384, and for K3 at 640 where two blocks fit an SM's shared memory; else
-// 1. rm_fft_detect_wide_info reports the choice; nothing else makes it.
+// The instantiation for (n1, n2, detect, top-K) and its MIN_BLOCKS: 2 at
+// n1 = 384, and for K3 at 640 where two blocks fit an SM's shared memory;
+// else 1. rm_fft_detect_wide_info reports the choice; nothing else makes
+// it. topk > 0: K1's top-K instantiation (detect on).
 template <int R1>
-Kernel kernel_at(int n2, int a, int r, int detect, int* min_blocks) {
+Kernel kernel_at(int n2, int a, int r, int detect, int topk, int* min_blocks) {
   const size_t smem = smem_bytes<R1>(n2, detect != 0);
   if (a != A || a * r != n2 || r < 1 || r > Wide<R1>::MAX_R || smem > SMEM_LIMIT) return nullptr;
   const bool two = R1 == 384 || (R1 == 640 && !detect && 2 * (smem + BLOCK_EXTRA) <= SM_SMEM);
   *min_blocks = two ? 2 : 1;
   if constexpr (R1 == 384) {
-    return detect ? fft_detect_cluster_kernel<R1, true, 2> : fft_detect_cluster_kernel<R1, false, 2>;
+    if (detect) {
+      return topk > 0 ? fft_detect_cluster_kernel<R1, true, 2, true> : fft_detect_cluster_kernel<R1, true, 2, false>;
+    }
+    return fft_detect_cluster_kernel<R1, false, 2, false>;
   } else if constexpr (R1 == 640) {
-    if (detect) return fft_detect_cluster_kernel<R1, true, 1>;
-    return two ? fft_detect_cluster_kernel<R1, false, 2> : fft_detect_cluster_kernel<R1, false, 1>;
+    if (detect) {
+      return topk > 0 ? fft_detect_cluster_kernel<R1, true, 1, true> : fft_detect_cluster_kernel<R1, true, 1, false>;
+    }
+    return two ? fft_detect_cluster_kernel<R1, false, 2, false> : fft_detect_cluster_kernel<R1, false, 1, false>;
   } else {
-    return detect ? fft_detect_cluster_kernel<R1, true, 1> : fft_detect_cluster_kernel<R1, false, 1>;
+    if (detect) {
+      return topk > 0 ? fft_detect_cluster_kernel<R1, true, 1, true> : fft_detect_cluster_kernel<R1, true, 1, false>;
+    }
+    return fft_detect_cluster_kernel<R1, false, 1, false>;
   }
+}
+
+// With emit_topk = k (1 .. 128) the top-K scratch fits the freed column
+// buffer (n/4 floats): blocks 1 .. 7's lists and their warps' before their
+// staged partials, the inbox (k <= 8) past everything else, the merger's 8
+// lists (k > 8); a block's staged segments 8 a thread (fft_detect.topk_fits
+// checks the same).
+template <int R1>
+bool topk_fits(int n2, int r, int radius, int k) {
+  const int buf = R1 * n2 / 4;
+  if (k < 1 || k > rm_det::TOPK_LANES) return false;
+  if (r * R1 + rm_det::FLOOR_NB + THREADS + rm_det::TOPK_INBOX > buf) return false;  // block 0's floor
+  for (int rank = 1; rank < C; ++rank) {
+    const int dn = rank < C - 1 ? Wide<R1>::DCOLS : R1 - Wide<R1>::DCOLS * (C - 2);
+    if (rm_det::topk_block_floats(k, WARPS, r * dn) > dn * n2 + 2 * radius + 4) return false;
+    if (dn * n2 + 2 * radius + 4 + 2 * r * dn + rm_det::TOPK_INBOX > buf) return false;
+    if (r * dn > THREADS * rm_det::TOPK_PER_LANE) return false;
+  }
+  return rm_det::topk_stage_floats(k, WARPS, C) <= buf;
 }
 
 }  // namespace
 
 // n1 = 640, 896: kernel_at<640>, kernel_at<896> (fft_detect_cluster_mixed.cu).
-Kernel rm_wide_kernel_mixed(int n1, int n2, int a, int r, int detect, int* min_blocks);
+Kernel rm_wide_kernel_mixed(int n1, int n2, int a, int r, int detect, int topk, int* min_blocks);

@@ -4,10 +4,10 @@
 
 #include "fft_detect_cluster.cuh"
 
-Kernel rm_wide_kernel_mixed(int n1, int n2, int a, int r, int detect, int* min_blocks) {
+Kernel rm_wide_kernel_mixed(int n1, int n2, int a, int r, int detect, int topk, int* min_blocks) {
   switch (n1) {
-    case 640: return kernel_at<640>(n2, a, r, detect, min_blocks);
-    case 896: return kernel_at<896>(n2, a, r, detect, min_blocks);
+    case 640: return kernel_at<640>(n2, a, r, detect, topk, min_blocks);
+    case 896: return kernel_at<896>(n2, a, r, detect, topk, min_blocks);
     default: return nullptr;
   }
 }

@@ -9,9 +9,10 @@
 // fft_kernel.ct_fft_core) above n = 24576, where the one-block design
 // (fft_rows_ct.cu) no longer holds a row, and, with DETECT,
 // radio_mapper_tpu/ops/pallas/detect_kernel.py::fft_detect_rows_ct
-// (ct_fft_core + detect_kernel._detect_body) at every n1 = 128/256 length
-// without emit_topk (the one-block K1, fft_detect.cu, keeps emit_topk and
-// is the card's comparison). Python wrappers:
+// (ct_fft_core + detect_kernel._detect_body) at every n1 = 128/256 length,
+// with emit_topk too (the TOPK instantiation; the one-block K1,
+// fft_detect.cu, and the cluster K3 -> K4 are the card's comparison).
+// Python wrappers:
 // radio_mapper_tpu_torch/ops/cuda/fft_rows.py (long_rows; long_geometry
 // picks c) and fft_detect.py (cluster_detect; cluster_geometry picks c
 // with the power buffer, and block 0's detect columns); K8's long design
@@ -61,6 +62,29 @@
 //             partials) and, once the floor is here, gate_partials: the
 //             wide design's code, fed from this layout. A last cluster
 //             barrier: no block exits while a partner pulls its powers.
+//   top-K     (TOPK, emit_topk = K in 1 .. 128) in place of gate_partials:
+//             each block takes its own first K staged segments in (score
+//             desc, segment f asc) order, ungated, before the floor
+//             arrives, and arrives at the floor's barrier only then. For
+//             K <= 8, the flagship's (ct_detect.cuh topk_block8): the
+//             K-th largest of the warps' largest keys bounds the block's
+//             K-th from below, the dozen or so segments at or above it are
+//             gathered and ranked by one warp (sorting networks in
+//             registers where more than 32 reach it), and the list goes
+//             through DSMEM into an inbox at the end of the merger's
+//             column buffer; the merger (the block that holds column 0:
+//             block 0, or block 1 at c = 8) reads the c lists locally
+//             after the barrier (topk_merge8) and no block reads a
+//             partner after it, so that barrier is the kernel's last. For
+//             larger K (topk_block: warp passes, a rank merge) the lists
+//             stay at the start of each block's column buffer, the merger
+//             pulls them (topk_merge) and a last barrier follows. The
+//             merger gates the lists (the confidence gate is monotone in
+//             the score: a list's passing entries are its first) and
+//             writes the row's [128] values and packed 8*f + offset
+//             (lanes past the row's candidates take segment 0's gated
+//             offset, as the reference's passes do). The F/8 partials are
+//             never written.
 //
 // c is the least of 2, 4, 8 for which two blocks' n*8/c bytes (and the
 // 64-entry W_128 table; K1: and the power buffer's n*4/c) fit one SM, so
@@ -75,7 +99,9 @@
 // both take a length, the one-block design's bit for bit, and K1's
 // partials, floor and row max equal the one-block K1's and the cluster K3
 // -> K4's (every detect step is a max, a min, a count, an order statistic
-// or a float32 comparison; card tests, tools/forward_times.py digests).
+// or a float32 comparison; card tests, tools/forward_times.py digests),
+// its top-K blocks those of the one-block K1 and of K3 -> K4's top-K
+// phase (tests/test_torch_k1_topk_cluster.py replays the selection).
 // Bound on the H100: device-memory bytes, 0.165 ms at [1024, 33792] at
 // 3.35 TB/s (K1: 0.176); the direct r-point DFT of step B is most of the
 // time, then, for K1, the floor and the detect half (PERF.md).
@@ -223,7 +249,7 @@ struct SlotPower {
 // (a multiple of 4, the share that ends with its floor), the rest split
 // over blocks 1 .. c-1 in quads as evenly as they go (the first blocks
 // one quad more). fft_detect.cluster_columns is the same split.
-__device__ __forceinline__ void detect_columns(int rank, int n1, int c, int dcols0, int& d0, int& dn) {
+__host__ __device__ __forceinline__ void detect_columns(int rank, int n1, int c, int dcols0, int& d0, int& dn) {
   if (rank == 0) {
     d0 = 0;
     dn = dcols0;
@@ -231,17 +257,21 @@ __device__ __forceinline__ void detect_columns(int rank, int n1, int c, int dcol
   }
   const int quads = (n1 - dcols0) / 4, per = quads / (c - 1), extra = quads % (c - 1), b = rank - 1;
   dn = 4 * (per + (b < extra ? 1 : 0));
-  d0 = dcols0 + 4 * (b * per + min(b, extra));
+  d0 = dcols0 + 4 * (b * per + (b < extra ? b : extra));
 }
 
-template <int R1, int COLS, bool DETECT>
+// TOPK (with DETECT): K1 with emit_topk = topk, the row's [128] block of
+// top-K values and packed indices to seg_score/seg_arg in place of the
+// partials; an instantiation of its own, so the partials' code is unchanged.
+template <int R1, int COLS, bool DETECT, bool TOPK>
 __global__ void __launch_bounds__(THREADS, 2)
 ct_cluster_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
                   const float2* __restrict__ w1, const float2* __restrict__ wn2,
                   const float2* __restrict__ wp, const float2* __restrict__ tw,
                   float* __restrict__ fre, float* __restrict__ fim, float* __restrict__ seg_score,
                   float* __restrict__ seg_arg, float* __restrict__ nf_out, float* __restrict__ rmax_out,
-                  int c, int n2, int r, DetectParams prm, int dcols0) {
+                  int c, int n2, int r, DetectParams prm, int dcols0, int topk) {
+  static_assert(DETECT || !TOPK, "the top-K is the detect half's");
   constexpr int P = R1 / 32;
   extern __shared__ float4 smem[];  // float4: the row pass reads 16 bytes at a time
   float2* xs = reinterpret_cast<float2*>(smem);  // [tiles][n2][COLS], this block's columns
@@ -330,7 +360,7 @@ ct_cluster_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
         }
       }
     }
-    rm_cluster::arrive();  // block 0: its floor is in every block's s_nf
+    if constexpr (!TOPK) rm_cluster::arrive();  // block 0: its floor is in every block's s_nf
 
     // ---- this block's detect columns (block 0's after its floor), pulled
     // in natural order from the blocks that hold each CT row; the sliding
@@ -344,10 +374,39 @@ ct_cluster_kernel(const float* __restrict__ xre, const float* __restrict__ xim,
     rm_det::pull_natural<THREADS>(nat, d0, dn, R1, n2, prm.radius, SlotPower{pw, R1, r, A / c});
     rm_det::window_partials<THREADS>(nat, d0, dn, n2, prm, st_sc, st_sa);
     __syncthreads();
-    rm_cluster::wait();    // the floor is here
-    rm_cluster::arrive();  // this block's pulls are done
-    rm_det::gate_partials<THREADS>(st_sc, st_sa, d0, dn, R1, r, row * s_all, s_nf, prm, seg_score, seg_arg);
-    rm_cluster::wait();  // no block exits while a partner pulls its powers
+    if constexpr (!TOPK) {
+      rm_cluster::wait();    // the floor is here
+      rm_cluster::arrive();  // this block's pulls are done
+      rm_det::gate_partials<THREADS>(st_sc, st_sa, d0, dn, R1, r, row * s_all, s_nf, prm, seg_score, seg_arg);
+      rm_cluster::wait();  // no block exits while a partner pulls its powers
+    } else {
+      // ---- emit_topk: this block's own list of its ungated segments (over
+      // its freed columns, the same offset in every block) while block 0
+      // finds the floor; the block that holds column 0 (segment 0's gated
+      // offset fills the lanes past the row's candidates) gates and merges
+      const int merger = dcols0 > 0 ? 0 : 1;
+      float* tk = aux;
+      float* vals = seg_score + row * rm_det::TOPK_LANES;
+      float* packed = seg_arg + row * rm_det::TOPK_LANES;
+      if (topk <= rm_det::TOPK_FAST) {  // each list into the merger's inbox: no partner is read after the barrier
+        float* inbox = aux + 2 * own * n2 - rm_det::TOPK_INBOX;  // the column buffer's last floats
+        rm_det::topk_block8<THREADS>(st_sc, st_sa, r, dn, d0, R1, topk, tk, inbox, rank, merger,
+                                     rm_cluster::Partners{});
+        rm_cluster::arrive();  // block 0: its floor is in every block's s_nf; this block's pulls and store are done
+        rm_cluster::wait();
+        if (rank == merger) rm_det::topk_merge8<THREADS>(inbox, tk, c, topk, s_nf, prm, vals, packed);
+      } else {
+        rm_det::topk_block<THREADS>(st_sc, st_sa, r, dn, d0, R1, topk, tk);
+        rm_cluster::arrive();  // block 0: its floor is in every block's s_nf; this block's pulls and list are done
+        rm_cluster::wait();
+        if (rank == merger) {  // arrives once every partner's list is read
+          rm_det::topk_merge<THREADS>(tk, c, topk, s_nf, prm, vals, packed, rm_cluster::Partners{});
+        } else {
+          rm_cluster::arrive();
+        }
+        rm_cluster::wait();  // no block exits while the merger reads its list
+      }
+    }
   }
 }
 
@@ -360,25 +419,28 @@ size_t smem_bytes(int n1, int n2, int c, bool detect) {
 int cols_for(int n1, int n2, int c) { return (n2 <= 512 && (n1 / c) % 32 == 0) ? 32 : 16; }
 
 using Kernel = void (*)(const float*, const float*, const float2*, const float2*, const float2*, const float2*,
-                        float*, float*, float*, float*, float*, float*, int, int, int, DetectParams, int);
+                        float*, float*, float*, float*, float*, float*, int, int, int, DetectParams, int, int);
 
-// The instantiation for (n1, COLS, detect): only those the planned
+// The instantiation for (n1, COLS, detect, top-K): only those the planned
 // lengths reach (fft_rows.long_geometry, fft_detect.cluster_geometry;
 // tests/test_torch_long_rows_radix.py lists them), nullptr otherwise.
-template <bool DETECT>
+template <bool DETECT, bool TOPK>
 Kernel variant(int n1, int cols) {
-  if (n1 == 128 && cols == 32) return ct_cluster_kernel<128, 32, DETECT>;
-  if (n1 == 128 && cols == 16) return ct_cluster_kernel<128, 16, DETECT>;
-  if (n1 == 256 && cols == 32) return ct_cluster_kernel<256, 32, DETECT>;
+  if (n1 == 128 && cols == 32) return ct_cluster_kernel<128, 32, DETECT, TOPK>;
+  if (n1 == 128 && cols == 16) return ct_cluster_kernel<128, 16, DETECT, TOPK>;
+  if (n1 == 256 && cols == 32) return ct_cluster_kernel<256, 32, DETECT, TOPK>;
   return nullptr;
 }
 
 // The kernel for a row of n1*n2 = n1*8*r on clusters of c, or nullptr
-// where the shape is not one this design takes.
-Kernel kernel_for(int n1, int n2, int a, int r, int c, bool detect) {
+// where the shape is not one this design takes. topk > 0: K1's top-K
+// instantiation (detect on).
+Kernel kernel_for(int n1, int n2, int a, int r, int c, bool detect, int topk = 0) {
   if (a != A || a * r != n2 || n2 > MAX_N2 || (c != 2 && c != 4 && c != 8)) return nullptr;
   if (n1 % (16 * c) != 0 || n2 % c != 0 || smem_bytes(n1, n2, c, detect) > SMEM_LIMIT) return nullptr;
-  return detect ? variant<true>(n1, cols_for(n1, n2, c)) : variant<false>(n1, cols_for(n1, n2, c));
+  const int cols = cols_for(n1, n2, c);
+  if (!detect) return variant<false, false>(n1, cols);
+  return topk > 0 ? variant<true, true>(n1, cols) : variant<true, false>(n1, cols);
 }
 
 // The detect half fits the freed column buffer (2*n/c floats): block 0's
@@ -395,6 +457,25 @@ bool detect_fits(int n1, int n2, int r, int c, int dcols0, int radius) {
   return dn * n2 + 2 * static_cast<size_t>(radius) + 4 + 2 * static_cast<size_t>(r) * dn <= buf;
 }
 
+// With emit_topk = k (1 .. 128) the top-K scratch fits too: each block's
+// list and its warps' lists before its staged partials, the inbox (k <= 8)
+// past everything else, the merger's c lists (k > 8) in the column buffer;
+// a block's staged segments 8 a thread (fft_detect.topk_fits checks the
+// same).
+bool topk_fits(int n1, int n2, int r, int c, int dcols0, int radius, int k) {
+  const int buf = 2 * (n1 / c) * n2;
+  if (k < 1 || k > rm_det::TOPK_LANES) return false;
+  if (r * n1 + rm_det::FLOOR_NB + THREADS + rm_det::TOPK_INBOX > buf) return false;  // block 0's floor
+  for (int b = 0; b < c; ++b) {
+    int d0, dn;
+    detect_columns(b, n1, c, dcols0, d0, dn);
+    if (dn > 0 && rm_det::topk_block_floats(k, WARPS, r * dn) > dn * n2 + 2 * radius + 4) return false;
+    if (dn * n2 + 2 * radius + 4 + 2 * r * dn + rm_det::TOPK_INBOX > buf) return false;
+    if (r * dn > THREADS * rm_det::TOPK_PER_LANE) return false;
+  }
+  return rm_det::topk_stage_floats(k, WARPS, c) <= buf;
+}
+
 }  // namespace
 
 // w1: W_n1^e (e < n1/2); wn2, wr, tw: ct_plan.radix_tables and
@@ -408,7 +489,7 @@ extern "C" int rm_fft_rows_ct_cluster(const float* xre, const float* xim, const 
   const DetectParams none{};
   return rm_cluster::launch(k, rows * c, THREADS, smem_bytes(n1, n2, c, false), c, stream, xre, xim, w1, wn2, wr,
                             tw, fre, fim, static_cast<float*>(nullptr), static_cast<float*>(nullptr),
-                            static_cast<float*>(nullptr), static_cast<float*>(nullptr), c, n2, r, none, 0);
+                            static_cast<float*>(nullptr), static_cast<float*>(nullptr), c, n2, r, none, 0, 0);
 }
 
 // The cluster's shape: shared memory a block and cudaOccupancyMaxActiveClusters.
@@ -422,27 +503,32 @@ extern "C" int rm_fft_rows_ct_cluster_info(int n1, int n2, int a, int r, int c, 
 // Kernel K1 at n1 = 128, 256: the same kernel with its detect half on.
 // c: fft_detect.cluster_geometry's (the power buffer in the fit); dcols0:
 // block 0's detect columns; 2 <= radius <= n2. Outputs as K1's: segment
-// scores and offsets [rows, n/8], floor and row max [rows].
+// scores and offsets [rows, n/8], floor and row max [rows]; with topk = K
+// in 1 .. 128 (emit_topk) the [rows, 128] top-K values and packed 8*f +
+// offset in place of the partials.
 extern "C" int rm_fft_detect_cluster(const float* xre, const float* xim, const float2* w1, const float2* wn2,
                                      const float2* wr, const float2* tw, float* fre, float* fim, float* seg_score,
                                      float* seg_arg, float* nf, float* rmax, int rows, int n1, int n2, int a, int r,
                                      int c, int dcols0, int radius, int keep_lo, int keep_hi, float thr_lin,
-                                     int has_conf, float conf_cs, float off, int bisect_iters, cudaStream_t stream) {
-  const Kernel k = kernel_for(n1, n2, a, r, c, true);
-  if (k == nullptr || rows <= 0 || rows > 0x7fffffff / c || !detect_fits(n1, n2, r, c, dcols0, radius)) {
+                                     int has_conf, float conf_cs, float off, int bisect_iters, int topk,
+                                     cudaStream_t stream) {
+  const Kernel k = kernel_for(n1, n2, a, r, c, true, topk);
+  if (k == nullptr || rows <= 0 || rows > 0x7fffffff / c || !detect_fits(n1, n2, r, c, dcols0, radius) ||
+      (topk != 0 && !topk_fits(n1, n2, r, c, dcols0, radius, topk))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DetectParams prm{radius, keep_lo, keep_hi, thr_lin, has_conf, conf_cs, off, bisect_iters};
   return rm_cluster::launch(k, rows * c, THREADS, smem_bytes(n1, n2, c, true), c, stream, xre, xim, w1, wn2, wr,
-                            tw, fre, fim, seg_score, seg_arg, nf, rmax, c, n2, r, prm, dcols0);
+                            tw, fre, fim, seg_score, seg_arg, nf, rmax, c, n2, r, prm, dcols0, topk);
 }
 
-// K1's cluster on this card: dynamic shared memory a block, blocks an SM
+// K1's cluster on this card (topk > 0: its top-K instantiation): dynamic
+// shared memory a block, blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
 // cudaOccupancyMaxActiveClusters, registers a thread and local memory.
-extern "C" int rm_fft_detect_cluster_info(int n1, int n2, int a, int r, int c, int* smem, int* blocks,
+extern "C" int rm_fft_detect_cluster_info(int n1, int n2, int a, int r, int c, int topk, int* smem, int* blocks,
                                           int* clusters, int* registers, int* local_bytes) {
-  const Kernel k = kernel_for(n1, n2, a, r, c, true);
+  const Kernel k = kernel_for(n1, n2, a, r, c, true, topk);
   if (k == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = smem_bytes(n1, n2, c, true);
   *smem = static_cast<int>(bytes);

@@ -8,9 +8,9 @@ Its designs, chosen by length, ``emit_topk`` and detect radius inside
 ``ValueError``. Every call is one launch of K1 (:data:`launch_count`,
 :data:`design_counts` by design):
 
-- ``"cluster"``, n1 = 128 or 256 at every length, without ``emit_topk``
-  and with 2 ≤ radius ≤ n2 (the default route's K1 from nfft 2048 up: the
-  flagship's 17408, 33792, 34816, 66560; :func:`cluster_detect`,
+- ``"cluster"``, n1 = 128 or 256 at every length with 2 ≤ radius ≤ n2,
+  with or without ``emit_topk`` (the default route's K1 from nfft 2048
+  up: the flagship's 17408, 33792, 34816, 66560; :func:`cluster_detect`,
   :func:`cluster_geometry`): the long-row K3's cluster kernel
   (``csrc/fft_rows_ct_cluster.cu``) with its detect half on. A row is a
   thread-block cluster of c = 2, 4 or 8 blocks; each transforms n1/c
@@ -24,12 +24,29 @@ Its designs, chosen by length, ``emit_topk`` and detect radius inside
   partials (``ct_detect.cuh`` ``pull_natural``, ``window_partials``,
   ``gate_partials``: the wide design's code). One pass through device
   memory, 16 B a sample; the outputs equal the one-block K1's and the
-  cluster K3 → K4's bit for bit.
+  cluster K3 → K4's bit for bit. With ``emit_topk = K`` (1..128, the
+  reference's in-kernel top-K, T1) an instantiation of its own has each
+  block take its first K staged segments in (score descending, segment f
+  ascending) order before the floor arrives (``ct_detect.cuh``
+  ``topk_block8`` for K ≤ 8, the flagship's: the K-th largest of the
+  warps' largest scores bounds the block's K-th from below, and one warp
+  ranks the dozen or so segments at or above it; ``topk_block`` above:
+  warp passes and a rank merge). The block holding column 0 merges the c
+  lists: for K ≤ 8 every block stores its list over distributed shared
+  memory into an inbox at the end of the merger's column buffer before
+  the floor's cluster barrier, which is then the kernel's last
+  (``topk_merge8``); above, the merger pulls the lists after it and one
+  more barrier follows (``topk_merge``). It gates them (the confidence
+  gate is monotone in the score, so a list's passing entries are its
+  first), merges them and writes the row's ``[128]`` block (lanes past
+  the row's candidates take segment 0's gated offset, as the reference's
+  passes do): no F/8 partials reach device memory (:func:`topk_fits`).
 - ``"wide"``, n1 = 384, 640, 896 (``csrc/fft_detect_cluster.cuh``, a
   template on n1; :func:`wide_detect`): the same structure on a cluster of
-  8 blocks, block 0 finding the floor while blocks 1 .. 7 detect.
-- ``"block"``, n ≤ :data:`MAX_N` with ``emit_topk`` (or a radius outside
-  2 .. n2): one 512-thread block per row keeps the whole row (re+im,
+  8 blocks, block 0 finding the floor while blocks 1 .. 7 detect; with
+  ``emit_topk`` block 1 merges.
+- ``"block"``, n ≤ :data:`MAX_N` with a radius outside 2 .. n2 (or a
+  length no cluster design takes): one 512-thread block per row keeps the whole row (re+im,
   139,264 B at nfft 17408) in shared memory and runs kernel K3's radix
   steps on it (``csrc/fft_detect.cu``, ``csrc/ct_fft.cuh``
   ``fft_power_row``), hands each value's power to ``ct_detect.cuh``'s
@@ -38,20 +55,21 @@ Its designs, chosen by length, ``emit_topk`` and detect radius inside
   reference's in-kernel top-K), K block-wide masked-argmax passes over
   the partials (``block_topk``) write a [rows, 128] block of values and
   packed 8·f + offset in place of the F/8 partials (:func:`block_detect`;
-  the card tests' comparison for the cluster design up to 24576).
-- ``"long"``, above :data:`MAX_N` with ``emit_topk`` (or a radius outside
-  2 .. n2): the long-row K3 (``fft_rows.long_rows``) and then K4
+  the card tests' comparison for the cluster design up to 24576, with and
+  without ``emit_topk``).
+- ``"long"``, above :data:`MAX_N` with a radius outside 2 .. n2: the
+  long-row K3 (``fft_rows.long_rows``) and then K4
   (``csrc/detect_ct.cu``, which holds no row in shared memory, with the
   row max and its top-K phase) on its spectra; the reference's function
-  is that composition, so the outputs are K3 → K4's bit for bit.
+  is that composition, so the outputs are K3 → K4's bit for bit (the card
+  tests' comparison for the cluster designs above 24576).
 
 What bounds it on the H100: device-memory bytes (the row read and the
 spectra written once, ≈ 0.28 MB a row at 17408) and then the radix steps'
 barriers and DSMEM traffic, step B's direct r-point DFT (r = 17 ... 127),
 and the floor on block 0 with the others' detect. Left for later PRs:
-TMA row loads, tensor cores, the in-kernel top-K in the cluster designs,
-and fusing K1 into the pair stage (K2) so the spectra never reach device
-memory.
+TMA row loads, tensor cores, and fusing K1 into the pair stage (K2) so
+the spectra never reach device memory.
 """
 
 from __future__ import annotations
@@ -88,9 +106,13 @@ _ARGTYPES = (
 TOPK_LANES = 128  # the emit_topk output block, [rows, 128] (rm_det::TOPK_LANES)
 _CLUSTER_ARGTYPES = (
     [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p]
 )
-_CLUSTER_INFO_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 5
+_CLUSTER_INFO_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 5
+TOPK_WARPS = THREADS // 32  # the warps of a cluster block's top-K (rm_det::topk_block)
+TOPK_PER_LANE = 8  # a lane's staged segments in its registers there (rm_det::TOPK_PER_LANE)
+TOPK_FAST = 8  # K up to this takes topk_block8 and the merger's inbox (rm_det::TOPK_FAST; the flagship's max_peaks)
+TOPK_INBOX = 8 * 32  # the inbox's floats at the end of each block's column buffer (rm_det::TOPK_INBOX)
 
 
 def check_topk(emit_topk: int) -> None:
@@ -200,35 +222,97 @@ def cluster_geometry(n: int, radius: int = DEFAULT_RADIUS) -> ClusterGeometry:
     return ClusterGeometry(n1, n2, a, r, c, cols, dcols0, fft_rows.cluster_smem(n1, n2, c, detect=True))
 
 
-@functools.lru_cache(maxsize=64)
+def wide_columns(rank: int, n1: int):
+    """The wide design's detect columns ``(d0, dn)`` of block ``rank``:
+    none on block 0, 4·⌈n1/28⌉ (56, 92, 128) on blocks 1 .. 6, the rest on
+    block 7 (``fft_detect_cluster.cuh``)."""
+    d = 4 * -(-n1 // 28)
+    if rank == 0:
+        return 0, 0
+    return d * (rank - 1), (d if rank < fft_rows.WIDE_C - 1 else n1 - d * (fft_rows.WIDE_C - 2))
+
+
+def topk_block_floats(k: int, staged: int) -> int:
+    """Floats of the top-K scratch a cluster block with ``staged`` = r·dn
+    segments uses before the merge (``rm_det::topk_block_floats``): its
+    list (3k), its length, segment 0's score and offset, the warps'
+    lengths, then the warps' lists: for k ≤ :data:`TOPK_FAST` their 8
+    keys (two words each), else min(k, ⌈staged/16⌉) scores and indices."""
+    per = TOPK_FAST if k <= TOPK_FAST else min(k, -(-staged // TOPK_WARPS))
+    return 3 * k + 3 + TOPK_WARPS + 2 * TOPK_WARPS * per
+
+
+def topk_stage_floats(k: int, c: int) -> int:
+    """Floats the merger's staged c lists reach (``rm_det::topk_stage_floats``)."""
+    return 3 * k + 3 + TOPK_WARPS + 3 * c * k + c
+
+
+def topk_fits(n: int, emit_topk: int, radius: int = DEFAULT_RADIUS) -> bool:
+    """Whether the one-pass design at n holds the in-kernel top-K of K =
+    ``emit_topk`` in its freed column buffer (``topk_fits`` of
+    ``fft_rows_ct_cluster.cu`` and ``fft_detect_cluster.cuh``): every
+    block's list and its warps' lists before its staged partials (after
+    its natural-order columns, halos and the windows' overrun), its r·dn
+    staged segments in its lanes' registers (:data:`TOPK_PER_LANE` a
+    lane), the merger's inbox (:data:`TOPK_INBOX` floats) at the buffer's
+    end past block 0's floor scratch and every block's columns and staged
+    partials, and the merger's c lists within the buffer (2·n/c floats;
+    the wide design's n/4). A length neither design takes does not fit."""
+    check_topk(emit_topk)
+    try:
+        g = fft_rows.long_geometry(n)
+    except ValueError:
+        return False
+    n1, n2, r = g.n1, g.n2, g.r
+    if g.design == "wide":
+        c, buf, cols = fft_rows.WIDE_C, n // 4, [wide_columns(k, n1) for k in range(fft_rows.WIDE_C)]
+    else:
+        try:
+            cg = cluster_geometry(n, radius)
+        except ValueError:
+            return False
+        c, buf = cg.c, 2 * (n1 // cg.c) * n2
+        cols = [detect_columns(k, n1, c, cg.dcols0) for k in range(c)]
+    floor_fits = r * n1 + FLOOR_NB + THREADS + TOPK_INBOX <= buf  # block 0's floor scratch, then the inbox
+    return emit_topk >= 1 and floor_fits and topk_stage_floats(emit_topk, c) <= buf and all(
+        topk_block_floats(emit_topk, r * dn) <= dn * n2 + 2 * radius + 4 and r * dn <= THREADS * TOPK_PER_LANE
+        and dn * n2 + 2 * radius + 4 + 2 * r * dn + TOPK_INBOX <= buf for _, dn in cols if dn)
+
+
+@functools.lru_cache(maxsize=256)
 def one_pass_design(n: int, emit_topk: int = 0, radius: int = DEFAULT_RADIUS):
     """K1's one-launch cluster design for rows of n samples at any length,
     or None: ``"cluster"`` (n1 = 128, 256: :func:`cluster_geometry`) or
-    ``"wide"`` (n1 = 384, 640, 896), without ``emit_topk`` and with 2 ≤
-    radius ≤ n2; neither fuses the top-K."""
+    ``"wide"`` (n1 = 384, 640, 896), with 2 ≤ radius ≤ n2; with
+    ``emit_topk`` where its top-K scratch fits (:func:`topk_fits`: at every
+    planned length, K in 1..128)."""
     try:
         g = fft_rows.long_geometry(n)
     except ValueError:
         return None
-    if emit_topk or not 2 <= radius <= g.n2:
+    if not 2 <= radius <= g.n2:
         return None
-    if g.design == "wide":
-        return "wide"
-    try:
-        cluster_geometry(n, radius)
-    except ValueError:
+    design = "wide"
+    if g.design != "wide":
+        try:
+            cluster_geometry(n, radius)
+        except ValueError:
+            return None
+        design = "cluster"
+    if emit_topk and not topk_fits(n, emit_topk, radius):
         return None
-    return "cluster"
+    return design
 
 
 def geometry(n: int, emit_topk: int = 0, radius: int = DEFAULT_RADIUS) -> str:
     """K1's design for rows of n samples with this ``emit_topk`` and
     detect radius, decided without a card: the one-launch cluster designs
-    where they take it (:func:`one_pass_design`; up to :data:`MAX_N` too,
-    where the card ran it faster than the one-block design on 1024 rows at
-    9216, 17408, 20480 and 24576, PERF.md), else ``"block"`` (n ≤
-    :data:`MAX_N`, :func:`radix_geometry`) or ``"long"`` (the long K3,
-    then K4). Raises ValueError for a length no design takes."""
+    where they take it (:func:`one_pass_design`, with or without
+    ``emit_topk``; up to :data:`MAX_N` too, where the card ran it faster
+    than the one-block design on 1024 rows at 9216, 17408, 20480 and
+    24576, PERF.md), else ``"block"`` (n ≤ :data:`MAX_N`,
+    :func:`radix_geometry`) or ``"long"`` (the long K3, then K4). Raises
+    ValueError for a length no design takes."""
     if n <= MAX_N:
         radix_geometry(n)
         return one_pass_design(n, emit_topk, radius) or "block"
@@ -291,9 +375,9 @@ def _run(design: str, re, im, plan, emit_topk):
     if design == "block":
         out = block_detect(re, im, plan, emit_topk)
     elif design == "cluster":
-        out = cluster_detect(re, im, plan)
+        out = cluster_detect(re, im, plan, emit_topk)
     elif design == "wide":
-        out = wide_detect(re, im, plan)
+        out = wide_detect(re, im, plan, emit_topk)
     else:
         fr, fi = fft_rows.long_rows(re, im)
         out = (fr, fi, *detect_ct.launch(fr, fi, plan, row_max=True, emit_topk=emit_topk))
@@ -302,78 +386,91 @@ def _run(design: str, re, im, plan, emit_topk):
     return out
 
 
-def _outputs(rows: int, plan: ct_plan.DetectPlan, dev):
-    """The detect outputs of a launch without ``emit_topk``: segment
-    scores and offsets ``[rows, nfft/8]``, floor and row max ``[rows]``."""
-    return tuple(
-        torch.empty(shape, dtype=torch.float32, device=dev)
-        for shape in ((rows, plan.segments), (rows, plan.segments), (rows,), (rows,))
-    )
+def _outputs(rows: int, plan: ct_plan.DetectPlan, dev, emit_topk: int = 0):
+    """The detect outputs of a launch: segment scores and offsets ``[rows,
+    nfft/8]`` (with ``emit_topk`` the ``[rows, 128]`` top-K values and
+    packed indices), floor and row max ``[rows]``."""
+    s = TOPK_LANES if emit_topk else plan.segments
+    shapes = ((rows, s), (rows, s), (rows,), (rows,))
+    return tuple(torch.empty(shape, dtype=torch.float32, device=dev) for shape in shapes)
 
 
-def cluster_detect(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
+def _check_topk_fits(n: int, emit_topk: int, radius: int, design: str) -> None:
+    check_topk(emit_topk)
+    if emit_topk and not topk_fits(n, emit_topk, radius):
+        raise ValueError(f"K1's {design} design at nfft {n}: the top-K of {emit_topk} does not fit")
+
+
+def cluster_detect(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan, emit_topk: int = 0):
     """K1 through the cluster design (n1 = 128, 256: ``csrc/
     fft_rows_ct_cluster.cu`` with its detect half on, geometry
     :func:`cluster_geometry`) on contiguous float32 CUDA rows, uncounted:
     ``(fr, fi, seg_score, seg_arg, noise_floor_db, row_max)`` from one
-    launch, without ``emit_topk``. A launch the card refuses (no cluster of
-    this shape fits) raises. Kernel K8's long design calls it too."""
+    launch; with ``emit_topk = K`` its top-K instantiation, the partials
+    replaced by ``[rows, 128]`` blocks. A launch the card refuses (no
+    cluster of this shape fits) raises. Kernel K8's long design calls it
+    too."""
     n = plan.nfft
     if re.shape[-1] != n:
         raise ValueError(f"the cluster K1 takes a plan for nfft {re.shape[-1]}, got {n}")
     g = cluster_geometry(n, plan.radius)
+    _check_topk_fits(n, emit_topk, plan.radius, "cluster")
     dev, rows = re.device, re.numel() // n
     w1, wn2, _ = ct_plan.device_radix_tables(n, dev)
     tw = ct_plan.device_tables(n, False, dev).tw
     fr = torch.empty_like(re)
     fi = torch.empty_like(im)
-    det = _outputs(rows, plan, dev)
+    det = _outputs(rows, plan, dev, emit_topk)
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     fn = build.kernel("rm_fft_detect_cluster", _CLUSTER_ARGTYPES)
     err = fn(
         ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(fft_rows.device_step_b_roots(n, dev)), ptr(tw), ptr(fr), ptr(fi),
-        *(ptr(x) for x in det), rows, g.n1, g.n2, g.a, g.r, g.c, g.dcols0, *plan_args(plan),
+        *(ptr(x) for x in det), rows, g.n1, g.n2, g.a, g.r, g.c, g.dcols0, *plan_args(plan), emit_topk,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     build.check(err, "fft_detect_rows_ct (cluster)")
     return (fr, fi, *det)
 
 
-def cluster_info(n: int, radius: int = DEFAULT_RADIUS) -> dict:
-    """K1's cluster design at n on the current card: ``c``, block 0's
-    detect columns ``dcols0``, dynamic shared memory a block (``smem``),
-    blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), active
-    clusters (``cudaOccupancyMaxActiveClusters``; 0 would mean the card
-    cannot run it), registers a thread and local memory in bytes."""
+def cluster_info(n: int, radius: int = DEFAULT_RADIUS, emit_topk: int = 0) -> dict:
+    """K1's cluster design at n on the current card (with ``emit_topk``
+    its top-K instantiation): ``c``, block 0's detect columns ``dcols0``,
+    dynamic shared memory a block (``smem``), blocks an SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), active clusters
+    (``cudaOccupancyMaxActiveClusters``; 0 would mean the card cannot run
+    it), registers a thread and local memory in bytes."""
     g = cluster_geometry(n, radius)
     vals = [ctypes.c_int(0) for _ in range(5)]
     fn = build.kernel("rm_fft_detect_cluster_info", _CLUSTER_INFO_ARGTYPES)
-    build.check(fn(g.n1, g.n2, g.a, g.r, g.c, *(ctypes.byref(v) for v in vals)), "cluster_info (K1)")
+    build.check(fn(g.n1, g.n2, g.a, g.r, g.c, emit_topk, *(ctypes.byref(v) for v in vals)), "cluster_info (K1)")
     smem, blocks, clusters, registers, local = (v.value for v in vals)
     return {"c": g.c, "dcols0": g.dcols0, "smem": smem, "blocks": blocks, "clusters": clusters,
             "registers": registers, "local_bytes": local}
 
 
-def wide_detect(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan):
+def wide_detect(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan, emit_topk: int = 0):
     """K1 through the wide design (n1 = 384, 640, 896, ``csrc/fft_detect_cluster.cuh``
     with its detect half on) on contiguous float32 CUDA rows, uncounted:
     ``(fr, fi, seg_score, seg_arg, noise_floor_db, row_max)`` from one
-    launch (:func:`fft_rows.wide_launch`), without ``emit_topk``. Kernel
-    K8's long design calls it too."""
+    launch (:func:`fft_rows.wide_launch`); with ``emit_topk = K`` its
+    top-K instantiation, the partials replaced by ``[rows, 128]`` blocks.
+    Kernel K8's long design calls it too."""
     if plan.nfft != re.shape[-1] or plan.radius < 2:
         raise ValueError(
             f"the wide K1 takes a plan for nfft {re.shape[-1]} with radius ≥ 2, got {plan.nfft}, {plan.radius}"
         )
-    det = _outputs(re.numel() // plan.nfft, plan, re.device)
-    fr, fi = fft_rows.wide_launch(re, im, det, tuple(plan_args(plan)))
+    _check_topk_fits(plan.nfft, emit_topk, plan.radius, "wide")
+    det = _outputs(re.numel() // plan.nfft, plan, re.device, emit_topk)
+    fr, fi = fft_rows.wide_launch(re, im, det, tuple(plan_args(plan)), topk=emit_topk)
     return (fr, fi, *det)
 
 
 def block_detect(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.DetectPlan, emit_topk: int = 0):
     """K1 through the one-block design (``csrc/fft_detect.cu``, n ≤
     :data:`MAX_N`) on contiguous float32 CUDA rows, uncounted: the route
-    with ``emit_topk``, and the card tests' and tools' comparison for the
-    cluster design up to 24576."""
+    for a radius outside 2 .. n2, and the card tests' and tools'
+    comparison for the cluster design up to 24576, with and without
+    ``emit_topk``."""
     n = plan.nfft
     n2, a, r = radix_geometry(n)
     fn = build.kernel("rm_fft_detect_rows_ct", _ARGTYPES)

@@ -107,9 +107,9 @@ _INFO_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
 _WORKSPACE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 _WIDE_ARGTYPES = (
     [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int] + [ctypes.c_void_p]
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p]
 )
-_WIDE_INFO_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 6
+_WIDE_INFO_ARGTYPES = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 6
 
 
 def _check(re: torch.Tensor, im: torch.Tensor) -> None:
@@ -316,15 +316,17 @@ def workspace_rows(re: torch.Tensor, im: torch.Tensor):
     return fr, fi
 
 
-def wide_launch(re: torch.Tensor, im: torch.Tensor, detect: tuple = (), args: tuple = ()):
+def wide_launch(re: torch.Tensor, im: torch.Tensor, detect: tuple = (), args: tuple = (), topk: int = 0):
     """One launch of the wide kernel, uncounted; returns the spectra
     ``(fr, fi)``. With ``detect`` empty its detect half is off (K3); K1's
     launch (``fft_detect.wide_detect``) passes its four outputs (segment
     scores and offsets ``[rows, nfft/8]``, floor and row max ``[rows]``)
     and its detection parameters (``rm_det::DetectParams``' order) to turn
-    it on. Rows must start on 16 bytes (the column loads are 16 bytes
-    wide); a launch the card refuses (no cluster of this shape fits)
-    raises."""
+    it on; ``topk`` = K in 1..128 (``emit_topk``, with ``detect``) takes
+    the top-K instantiation, whose first two outputs are ``[rows, 128]``
+    top-K values and packed indices. Rows must start on 16 bytes (the
+    column loads are 16 bytes wide); a launch the card refuses (no cluster
+    of this shape fits) raises."""
     n = re.shape[-1]
     g = long_geometry(n)
     if g.design != "wide":
@@ -333,6 +335,8 @@ def wide_launch(re: torch.Tensor, im: torch.Tensor, detect: tuple = (), args: tu
         raise ValueError("the wide K1/K3 takes rows that start on 16 bytes")
     if len(detect) not in (0, 4) or len(args) != (8 if detect else 0):
         raise ValueError("the wide K1 takes four outputs and eight detection parameters, or neither")
+    if topk and not detect:
+        raise ValueError("the wide K3 has no top-K: topk needs the detect half")
     dev, rows = re.device, re.numel() // n
     w1, wn2, wr = ct_plan.device_radix_tables(n, dev)
     tw = ct_plan.device_tables(n, False, dev).tw
@@ -343,15 +347,16 @@ def wide_launch(re: torch.Tensor, im: torch.Tensor, detect: tuple = (), args: tu
     err = fn(
         ptr(re), ptr(im), ptr(w1), ptr(wn2), ptr(wr), ptr(tw), ptr(fr), ptr(fi),
         *(ptr(x) for x in (detect or (None,) * 4)), rows, g.n1, g.n2, g.a, g.r, int(bool(detect)),
-        *(args or (0, 0, 0, 0.0, 0, 0.0, 0.0, 0)),
+        *(args or (0, 0, 0, 0.0, 0, 0.0, 0.0, 0)), topk,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     )
     build.check(err, "wide K1/K3")
     return fr, fi
 
 
-def wide_info(n: int, detect: bool = True) -> dict:
-    """The wide design at n on the current card: ``c``, dynamic shared
+def wide_info(n: int, detect: bool = True, topk: int = 0) -> dict:
+    """The wide design at n on the current card (``topk`` > 0 with
+    ``detect``: K1's top-K instantiation): ``c``, dynamic shared
     memory a block (``smem``), blocks an SM
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), active clusters
     (``cudaOccupancyMaxActiveClusters``; 0 would mean the card cannot run
@@ -363,7 +368,8 @@ def wide_info(n: int, detect: bool = True) -> dict:
         raise ValueError(f"nfft {n} does not take the wide design")
     vals = [ctypes.c_int(0) for _ in range(6)]
     fn = build.kernel("rm_fft_detect_wide_info", _WIDE_INFO_ARGTYPES)
-    build.check(fn(g.n1, g.n2, g.a, g.r, int(detect), *(ctypes.byref(v) for v in vals)), "wide_info")
+    build.check(fn(g.n1, g.n2, g.a, g.r, int(detect), topk if detect else 0, *(ctypes.byref(v) for v in vals)),
+                "wide_info")
     smem, blocks, clusters, registers, local, min_blocks = (v.value for v in vals)
     return {"c": g.c, "smem": smem, "blocks": blocks, "clusters": clusters, "registers": registers,
             "local_bytes": local, "min_blocks": min_blocks}

@@ -46,7 +46,12 @@ long rows' digests; ``--k1 17408,33792,34816,66560,97280`` times them at
 the lengths named instead (rows by length, :data:`K1_ROWS`: 1024 at these,
 [256, 121856]); K1 at n1 = 128/256 is its cluster design, one launch
 (a checkout before it: the one-block K1 up to 24576, the cluster K3 then
-K4 above).
+K4 above). ``--topk K`` with ``--k1`` also times K1 with ``emit_topk =
+K`` (the in-kernel top-K, T1) at each length, with the design that ran:
+one launch of the cluster or wide design, or, in a checkout before it,
+the one-block K1 up to 24576 and the long K3 then K4 above. The long
+rows' digest line holds K1's top-K blocks at K = 8 too, so two
+checkouts' T1 designs are compared bit for bit.
 
 The wrappers' signatures are those of every version since K8 was ported,
 so with ``PYTHONPATH`` at another checkout it times that checkout's
@@ -106,7 +111,7 @@ def _digests(dev, tag, short=True) -> None:
     rows = lambda *shape: 40.0 * torch.randn(*shape, device=dev, generator=g)
     if short:
         _short_digests(tag, rows)
-    out = {"K3": [], "K1": [], "K4": []}
+    out = {"K3": [], "K1": [], "K4": [], "K1 top-K 8": []}
     k8 = []  # K8's long design: the long K1, then K2's launch
     pi, pj = gcc_phat.pair_indices(8)
     for nfft in LONG_DIGEST_N:
@@ -116,6 +121,7 @@ def _digests(dev, tag, short=True) -> None:
         out["K3"] += (fr, fi)
         out["K4"] += detect_ct.detect_ct_partials(fr, fi, plan)
         out["K1"] += fft_detect.fft_detect_rows_ct(xr.view(-1, nfft), xi.view(-1, nfft), plan)
+        out["K1 top-K 8"] += fft_detect.fft_detect_rows_ct(xr.view(-1, nfft), xi.view(-1, nfft), plan, emit_topk=8)
         k8.extend(channel_step.channel_step_partials(xr, xi, pi, pj, plan, 600))
         del xr, xi, fr, fi
     print(f"long digests ({', '.join(map(str, LONG_DIGEST_N))}): "
@@ -210,11 +216,12 @@ def pair_main(dev, tag) -> None:
     print("pair digests (n1 = 128, 256): " + ", ".join(f"{k} {v}" for k, v in pair_digests(dev).items()) + f" {tag}")
 
 
-def k1_main(dev, tag, lengths=(58_368,)) -> None:
+def k1_main(dev, tag, lengths=(58_368,), topk=0) -> None:
     """``--k1``: K1 and K3 at [rows, nfft] for each length (rows
     :data:`K1_ROWS`, 1024 for a length it does not name; the detect plan of
     :data:`DETECT`), by default the flagship's block_len-57344 rows [1024,
-    58368] (n1 = 384), then the long rows' digests."""
+    58368] (n1 = 384), and with ``topk`` K1 with ``emit_topk = topk`` on
+    the same rows; then the long rows' digests."""
     g = torch.Generator(device=dev).manual_seed(0)
     for nfft in lengths:
         rows = K1_ROWS.get(nfft, 1024)
@@ -224,6 +231,10 @@ def k1_main(dev, tag, lengths=(58_368,)) -> None:
         t1 = _mean_ms(lambda: fft_detect.fft_detect_rows_ct(xr, xi, plan))
         t3 = _mean_ms(lambda: fft_rows.fft_rows_ct(xr, xi))
         print(f"[{rows}, {nfft}], n1 = {ct_plan.ct_split(nfft)[0]}: K1 {t1:.4f} ms, K3 {t3:.4f} ms {tag}")
+        if topk:
+            tk = _mean_ms(lambda: fft_detect.fft_detect_rows_ct(xr, xi, plan, emit_topk=topk))
+            print(f"[{rows}, {nfft}], n1 = {ct_plan.ct_split(nfft)[0]}: K1 top-K {topk} {tk:.4f} ms "
+                  f"({fft_detect.geometry(nfft, emit_topk=topk)}) {tag}")
         del xr, xi
         torch.cuda.empty_cache()
     _digests(dev, tag, short=False)
@@ -241,7 +252,8 @@ def main() -> int:
     if "--k1" in sys.argv[1:]:
         i = sys.argv.index("--k1")
         named = sys.argv[i + 1] if i + 1 < len(sys.argv) and not sys.argv[i + 1].startswith("-") else None
-        k1_main(dev, tag, tuple(int(n) for n in named.split(",")) if named else (58_368,))
+        topk = int(sys.argv[sys.argv.index("--topk") + 1]) if "--topk" in sys.argv[1:] else 0
+        k1_main(dev, tag, tuple(int(n) for n in named.split(",")) if named else (58_368,), topk)
         return 0
     g = torch.Generator(device=dev).manual_seed(0)
     for rows, nfft in ((16, 9216), (1024, 17408)):

@@ -41,7 +41,9 @@ as its plain version is against JAX:
   that composition), and vs its plain version within K1's and K2's
   bounds;
 - K1's and K4's top-K blocks (``emit_topk``) equal, bit for bit, to their
-  own partials followed by the port's top-K tail, and close to the plain
+  own partials followed by the port's top-K tail (K1 one launch of its
+  cluster or wide design, also equal to the parent's design, the
+  one-block K1 or the long K3 → K4, ``-k emit_topk``), and close to the plain
   versions' (:func:`radio_mapper_tpu_torch.testing.topk_errors`: values
   within 1e-4 of the row's max power, packed indices equal outside
   float32 near-ties);
@@ -603,26 +605,76 @@ def test_cluster_k1_equals_the_parent_design(cuda_device, nfft):
     assert info["blocks"] == (2 if two else 1), info
 
 
+# T1's shapes: n1 = 128 at c = 2, 4, 8, n1 = 256, and the wide design at 384, 640, 896
+T1_SHAPES = [(16, 17_408), (8, 33_792), (8, 34_816), (4, 66_560), (4, 58_368), (4, 97_280), (4, 121_856)]
+# the partials instantiations' shape on the card (PERF.md): registers, blocks an SM
+T1_PARTIALS_INFO = {"cluster": (64, 2), 384: (64, 2), 640: (122, 1), 896: (128, 1)}
+
+
+def t1_rows(nfft, rows):
+    """Tone rows, a row with a tone at natural bin 3 (segment 0's offset
+    3 where segment 0 is a candidate) and :func:`flat_rows`."""
+    tr, ti = tone_rows(rows, nfft, 24, n_valid=nfft - 1024)
+    t = np.arange(nfft)
+    tr[-1] += (900.0 * np.cos(2 * np.pi * 3 * t / nfft)).astype(np.float32)
+    ti[-1] += (900.0 * np.sin(2 * np.pi * 3 * t / nfft)).astype(np.float32)
+    fr_, fi_ = flat_rows(nfft)
+    return np.concatenate([tr, fr_]), np.concatenate([ti, fi_])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,nfft", [(16, 17408), (8, 33792), (4, 66560)])
-def test_cluster_k1_emit_topk_keeps_the_one_block_k1_and_k3_k4(cuda_device, rows, nfft):
-    """``emit_topk`` (T1, not fused in the cluster design) routes to the
-    one-block K1 up to 24576 and to the cluster K3 then K4's top-K phase
-    above (``design_counts["block"]``, ``["long"]``), whose blocks equal the
-    cluster K1's partials followed by the port's top-K tail bit for bit."""
-    re, im = tone_rows(rows, nfft, 24, n_valid=nfft - 1024)
-    plan = ct_plan.detect_plan(nfft, **DET)
+@pytest.mark.parametrize("k", [1, 8, 128])
+@pytest.mark.parametrize("rows,nfft", T1_SHAPES)
+def test_cluster_k1_emit_topk_keeps_the_one_block_k1_and_k3_k4(cuda_device, rows, nfft, k):
+    """``emit_topk`` (T1) is one launch of K1's cluster design (n1 =
+    128/256, ``design_counts["cluster"]``) or wide design (384/640/896,
+    ``["wide"]``), no K3 and no K4, and its ``[rows, 128]`` blocks, floor
+    and row max equal, bit for bit, the design it replaces (the one-block
+    K1 up to 24576, the long K3 then K4's top-K phase above) and the
+    cluster K1's own partials followed by the port's top-K tail: on tone
+    rows, :func:`flat_rows` and a tone at natural bin 3, with the
+    flagship's detect plan, with a confidence floor no bin passes (1.5, an
+    infinite threshold: every lane (-inf, segment 0's offset 0)) and with a
+    floor 20 dB over the noise and no DC notch (segment 0's offset 3 fills
+    the lanes past the tones' bins). The partials instantiations keep
+    their registers and blocks an SM."""
+    re, im = t1_rows(nfft, rows)
     xr, xi = torch.from_numpy(re).to(cuda_device), torch.from_numpy(im).to(cuda_device)
-    key = "block" if nfft <= fft_detect.MAX_N else "long"
-    assert fft_detect.geometry(nfft, emit_topk=8) == key
-    before = dict(fft_detect.design_counts)
-    t1 = fft_detect.fft_detect_rows_ct(xr, xi, plan, emit_topk=8)
-    k1 = fft_detect.fft_detect_rows_ct(xr, xi, plan)
-    torch.cuda.synchronize()
-    ran = {k: v - before[k] for k, v in fft_detect.design_counts.items() if v != before[k]}
-    assert ran == {key: 1, "cluster": 1}, ran
-    for x, y in zip(t1, (*k1[:2], *fft_detect.topk_plain(k1[2], k1[3], 8), *k1[4:])):
-        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    n1 = ct_plan.ct_split(nfft)[0]
+    design = "cluster" if n1 in fft_rows.CLUSTER_N1 else "wide"
+    assert fft_detect.geometry(nfft, emit_topk=k) == design
+    counts = lambda: (fft_detect.launch_count, fft_rows.launch_count, detect_ct.launch_count)
+    for extra in ({}, {"confidence_floor": 1.5}, {"confidence_floor": 1.0, "dc_notch_hz": None}):
+        plan = ct_plan.detect_plan(nfft, **{**DET, **extra})
+        before, designs = counts(), dict(fft_detect.design_counts)
+        t1 = fft_detect.fft_detect_rows_ct(xr, xi, plan, emit_topk=k)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), before)) == (1, 0, 0)
+        ran = {d: v - designs[d] for d, v in fft_detect.design_counts.items() if v != designs[d]}
+        assert ran == {design: 1}, ran
+        if nfft <= fft_detect.MAX_N:
+            parent = fft_detect.block_detect(xr, xi, plan, k)
+        else:
+            f3 = fft_rows.long_rows(xr, xi)
+            parent = (*f3, *detect_ct.launch(*f3, plan, row_max=True, emit_topk=k))
+        own = fft_detect.fft_detect_rows_ct(xr, xi, plan)
+        tail = (*own[:2], *fft_detect.topk_plain(own[2], own[3], k), *own[4:])
+        assert t1[2].shape == (xr.shape[0], fft_detect.TOPK_LANES)
+        for x, y, z in zip(t1, parent, tail):
+            torch.testing.assert_close(x, y, rtol=0, atol=0)
+            torch.testing.assert_close(x, z, rtol=0, atol=0)
+        if extra:  # no candidate on the zeros and the impulse; the bin-3 row's last lane: a tone or offset 3
+            assert torch.isinf(t1[2][rows:rows + 2, :k]).all() and not t1[3][rows:rows + 2, :k].any()
+            if "dc_notch_hz" in extra:
+                assert (t1[3][rows - 1, k - 1] == 3.0).item() or torch.isfinite(t1[2][rows - 1, k - 1]).item()
+    if design == "cluster":
+        g = fft_detect.cluster_geometry(nfft)
+        info, t1_info = fft_detect.cluster_info(nfft), fft_detect.cluster_info(nfft, emit_topk=k)
+        assert (info["c"], info["registers"], info["blocks"]) == (g.c, *T1_PARTIALS_INFO["cluster"]), info
+    else:
+        info, t1_info = fft_rows.wide_info(nfft), fft_rows.wide_info(nfft, topk=k)
+        assert (info["registers"], info["blocks"]) == T1_PARTIALS_INFO[n1], info
+    assert t1_info["clusters"] > 0 and t1_info["smem"] == info["smem"], t1_info
 
 
 @pytest.mark.cuda
@@ -783,8 +835,8 @@ def test_wideband_on_card_matches_cpu(cuda_device, route):
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,nfft", [(16, 17408), (8, 33792), (8, 58368)])
 def test_topk_kernels_match_their_partials_tail_and_plain(cuda_device, rows, nfft):
-    """K1 (one block at 17408, the long design above: K3 then K4's top-K
-    phase) and K4 with ``emit_topk = 8``: bit for bit the kernels' own
+    """K1 (one launch of its cluster design at 17408 and 33792, its wide
+    design at 58368) and K4 with ``emit_topk = 8``: bit for bit the kernels' own
     partials followed by the port's tail (``fft_detect.topk_plain``), the
     spectra, floor and row max untouched; close to the plain versions'."""
     re, im = tone_rows(rows, nfft, 19, n_valid=nfft - 1024)
@@ -855,9 +907,10 @@ def test_wide_k1_and_k3_equal_workspace_k3_k4(cuda_device, rows, nfft):
     kernel without its detect half (``design_counts["wide"]``, no K4): the
     spectra, partials, floor and row max equal the workspace K3 → K4's
     (``fft_rows.workspace_rows``, the parent design) bit for bit and are
-    held to the plain version as K1 is; with ``emit_topk = 8`` K1 is the
-    wide K3, then K4's top-K phase, equal to its own partials followed by
-    the port's top-K tail; the card runs the cluster (active clusters >
+    held to the plain version as K1 is; with ``emit_topk = 8`` K1 is one
+    launch of the wide design too (its top-K instantiation), equal to its
+    own partials followed by the port's top-K tail and to the workspace
+    K3 → K4's top-K phase; the card runs the cluster (active clusters >
     0) at the blocks an SM, shared memory and registers planned."""
     re, im = tone_rows(rows, nfft, 23, n_valid=nfft - 1024)
     plan = ct_plan.detect_plan(nfft, **DET)
@@ -877,12 +930,14 @@ def test_wide_k1_and_k3_equal_workspace_k3_k4(cuda_device, rows, nfft):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     host = lambda xs: [x.cpu() for x in xs]
     assert_k1_close(host(k1), host(fft_detect.fft_detect_rows_ct_plain(xr, xi, plan)), plan)
-    long_before = fft_detect.design_counts["long"]
+    t1_before = (fft_detect.design_counts["wide"], fft_detect.design_counts["long"])
     t1 = fft_detect.fft_detect_rows_ct(xr, xi, plan, emit_topk=8)
     torch.cuda.synchronize()
-    assert fft_detect.design_counts["long"] == long_before + 1
-    for x, y in zip(t1, (*k1[:2], *fft_detect.topk_plain(k1[2], k1[3], 8), *k1[4:])):
+    assert (fft_detect.design_counts["wide"], fft_detect.design_counts["long"]) == (t1_before[0] + 1, t1_before[1])
+    w4t = detect_ct.launch(*w3, plan, row_max=True, emit_topk=8)
+    for x, y, z in zip(t1, (*k1[:2], *fft_detect.topk_plain(k1[2], k1[3], 8), *k1[4:]), (*w3, *w4t)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
+        torch.testing.assert_close(x, z, rtol=0, atol=0)
     for detect in (True, False):
         info = fft_rows.wide_info(nfft, detect)
         assert info["c"] == 8 and info["clusters"] > 0

@@ -211,17 +211,20 @@ def test_cluster_geometry_fits_every_planned_narrow_k1_length():
 
 
 def test_design_by_emit_topk_and_radius():
-    """Without ``emit_topk`` and with 2 ≤ radius ≤ n2 every n1 = 128/256
-    length takes the cluster design, 384/640/896 the wide one; with
-    ``emit_topk`` (T1 is not fused there) the one-block design up to 24576
-    and the long K3 → K4 above; a radius outside 2 .. n2 the same."""
+    """With 2 ≤ radius ≤ n2 every n1 = 128/256 length takes the cluster
+    design, 384/640/896 the wide one, with ``emit_topk`` = 1 .. 128 (T1 in
+    the same launch) as without; a radius outside 2 .. n2 takes the
+    one-block design up to 24576 and the long K3 → K4 above, with or
+    without ``emit_topk``."""
     for n, one in ((17_408, "cluster"), (33_792, "cluster"), (34_816, "cluster"), (66_560, "cluster"),
                    (58_368, "wide"), (97_280, "wide")):
         short = n <= fft_detect.MAX_N
         assert fft_detect.geometry(n) == one, n
-        assert fft_detect.geometry(n, emit_topk=8) == ("block" if short else "long"), n
-        assert fft_detect.geometry(n, radius=1) == ("block" if short else "long"), n
-        assert fft_detect.geometry(n, radius=ct_plan.ct_split(n)[1] + 1) == ("block" if short else "long"), n
+        for k in (1, 8, 128):
+            assert fft_detect.geometry(n, emit_topk=k) == one, (n, k)
+        for k in (0, 8):
+            assert fft_detect.geometry(n, k, radius=1) == ("block" if short else "long"), n
+            assert fft_detect.geometry(n, k, radius=ct_plan.ct_split(n)[1] + 1) == ("block" if short else "long"), n
     with pytest.raises(ValueError, match="radius"):
         fft_detect.cluster_geometry(17_408, 137)
     with pytest.raises(ValueError, match="n1"):

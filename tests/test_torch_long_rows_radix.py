@@ -533,8 +533,8 @@ def test_design_choice_by_length():
     detect half) at 384, 640 and 896. K1 (the flagship's radius, 10): one
     launch at every length whose n2 holds the radius, the cluster design
     (K3's cluster kernel with its detect half) at n1 = 128 and 256 and the
-    wide design at 384, 640 and 896; with ``emit_topk`` the one-block
-    design up to 24576 and the long K3 → K4 above, as K3's split. K4 has
+    wide design at 384, 640 and 896, with ``emit_topk`` as without (its
+    top-K in the same launch). K4 has
     one design, whose shared memory (n/8 floats, or a 16-column tile) fits
     at every planned length the fused detect takes, at any radius up to
     n2."""
@@ -546,7 +546,7 @@ def test_design_choice_by_length():
             assert n2 < 10, n
         want = "block" if n <= fft_rows.MAX_N else "long"
         one = {128: "cluster", 256: "cluster"}.get(n1, "wide") if n2 >= 10 else want
-        assert fft_rows.geometry(n) == want and fft_detect.geometry(n, emit_topk=8) == want, n
+        assert fft_rows.geometry(n) == want and fft_detect.geometry(n, emit_topk=8) == one, n
         assert fft_detect.geometry(n) == one, n
         assert channel_step.geometry(n) == ("cluster" if want == "block" else "long"), n
         if want == "long":
