@@ -68,6 +68,7 @@ from radio_mapper_tpu_torch.ops import iq as iq_ops
 from radio_mapper_tpu_torch.ops import spectral
 from radio_mapper_tpu_torch.ops import split_complex as sc_ops
 from radio_mapper_tpu_torch.ops.cuda import channel_step, detect_ct
+from radio_mapper_tpu_torch.utils import spans
 
 # The natural-order pair stage (the complex step's and the multi-dwell
 # route's) runs over channels in chunks whose [P, nfft]
@@ -278,6 +279,7 @@ class TDOAPipeline:
 
     # -- full steps -----------------------------------------------------
 
+    @spans.entry
     def step(
         self, iq: torch.Tensor, anchors_enu: torch.Tensor, *, on_stage: StageHook = None
     ) -> PipelineOutput:
@@ -312,6 +314,7 @@ class TDOAPipeline:
         corr = self.correlate(iq, on_stage=mark)
         return self._solve_marked(peaks, corr, anchors_enu, mark)
 
+    @spans.entry
     def step_uint8(
         self, raw: torch.Tensor, anchors_enu: torch.Tensor, *, on_stage: StageHook = None
     ) -> PipelineOutput:
@@ -323,6 +326,7 @@ class TDOAPipeline:
             on_stage("decode")
         return self.step(iq, anchors_enu, on_stage=on_stage)
 
+    @spans.entry
     def step_split(
         self, re: torch.Tensor, im: torch.Tensor, anchors_enu: torch.Tensor,
         *, on_stage: StageHook = None,
@@ -331,7 +335,8 @@ class TDOAPipeline:
         ``correlation_dwells``, N = ``block_len``) and anchors ``[..., B, 3]``.
 
         ``on_stage(name)``, when given, is called after each stage — a hook
-        for per-stage timing; it changes nothing else. Single dwell, by
+        for per-stage timing that also turns on the step's spans
+        (:mod:`..utils.spans`); it changes no value. Single dwell, by
         route (the first stage includes the zero-padding, "gcc_pair" the
         lag peak pick): default "fft_detect", "peaks", "gcc_pair",
         "solve"; mega "channel_step", "peaks", "lag_peaks", "solve";
@@ -476,6 +481,7 @@ class TDOAPipeline:
         corr = self._pair_stage(re, im, mark)
         return self._solve_marked(peaks, corr, anchors_enu, mark)
 
+    @spans.entry
     def step_split_uint8(
         self, raw: torch.Tensor, anchors_enu: torch.Tensor, *, on_stage: StageHook = None
     ) -> PipelineOutput:

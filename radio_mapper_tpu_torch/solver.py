@@ -7,6 +7,12 @@ the ``axis_name``, and its public name ``solve_tdoa``;
 ``pair_weights_from_confidence``). The fixed-count LM
 loop is a Python loop of branchless ``torch.where`` updates — no
 ``.item()``, no host synchronisation, so on the card it only enqueues.
+Its set-up is not so: ``dim_mask`` is built by ``torch.tensor(...,
+device=)``, a copy from pageable host memory, which on the card blocks
+the host until the queue ahead of it has drained; so the LM's launches
+start only after the kernels before the solve have run. The spans
+``solve.prep`` and ``solve.lm`` (:mod:`.utils.spans`) time the set-up
+and the loop of a traced step.
 
 Measurement model: for pair (i, j) with delay τ_ij (receiver i heard the
 signal later ⇒ τ_ij > 0), ``dd_ij = c·τ_ij ≈ ‖x − p_i‖ − ‖x − p_j‖``.
@@ -19,6 +25,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from radio_mapper_tpu_torch.constants import SPEED_OF_LIGHT_M_S
+from radio_mapper_tpu_torch.utils import spans
 
 
 class SolveResult(NamedTuple):
@@ -150,69 +157,71 @@ def solve_tdoa_impl(
     """
     if noise_model not in ("receiver", "pair"):
         raise ValueError(f"unknown noise_model {noise_model!r}")
-    dev = dd_m.device
-    f32 = torch.float32
-    anchors_enu = anchors_enu.to(f32)
-    dd_m = dd_m.to(f32)
-    pair_i = pair_i.to(device=dev, dtype=torch.int64)
-    pair_j = pair_j.to(device=dev, dtype=torch.int64)
-    w = torch.ones_like(dd_m) if weights is None else torch.clamp(weights.to(f32), min=0.0)
+    with spans.span("solve.prep"):
+        dev = dd_m.device
+        f32 = torch.float32
+        anchors_enu = anchors_enu.to(f32)
+        dd_m = dd_m.to(f32)
+        pair_i = pair_i.to(device=dev, dtype=torch.int64)
+        pair_j = pair_j.to(device=dev, dtype=torch.int64)
+        w = torch.ones_like(dd_m) if weights is None else torch.clamp(weights.to(f32), min=0.0)
 
-    _psum = psum if psum is not None else (lambda x: x)
+        _psum = psum if psum is not None else (lambda x: x)
 
-    def _psum_gh(g_loc, h_loc):
-        """``(Σg, Σh)`` through one sum of 12 floats per batch element."""
+        def _psum_gh(g_loc, h_loc):
+            """``(Σg, Σh)`` through one sum of 12 floats per batch element."""
+            if psum is None:
+                return g_loc, h_loc
+            s = psum(torch.cat([g_loc, h_loc.flatten(-2)], dim=-1))
+            return s[..., :3], s[..., 3:].unflatten(-1, (3, 3))
+
+        # All-zero weights would freeze the solver at its initial guess; degrade
+        # to uniform weighting (the measurements still carry geometry). With
+        # psum the check is global: a rank whose pairs are all masked still
+        # has live measurements elsewhere.
+        w_total = _psum(w.sum(dim=-1, keepdim=True))
+        w = torch.where(w_total > 1e-9, w, torch.ones_like(w))
+
+        x0 = anchors_enu.mean(dim=-2) if init_enu is None else init_enu.to(f32)
+        batch_shape = torch.broadcast_shapes(x0.shape[:-1], dd_m.shape[:-1])
+        x0 = x0.expand(*batch_shape, 3)
         if psum is None:
-            return g_loc, h_loc
-        s = psum(torch.cat([g_loc, h_loc.flatten(-2)], dim=-1))
-        return s[..., :3], s[..., 3:].unflatten(-1, (3, 3))
+            x0 = x0 + 0.0 * dd_m[..., :1]  # as the reference
+        dim_mask = torch.tensor([1.0, 1.0, 0.0] if solve_2d else [1.0, 1.0, 1.0], dtype=f32, device=dev)
+        eye = torch.eye(3, dtype=f32, device=dev)
 
-    # All-zero weights would freeze the solver at its initial guess; degrade
-    # to uniform weighting (the measurements still carry geometry). With
-    # psum the check is global: a rank whose pairs are all masked still
-    # has live measurements elsewhere.
-    w_total = _psum(w.sum(dim=-1, keepdim=True))
-    w = torch.where(w_total > 1e-9, w, torch.ones_like(w))
+        wsum = _psum(w.sum(dim=-1)) + 1e-12
 
-    x0 = anchors_enu.mean(dim=-2) if init_enu is None else init_enu.to(f32)
-    batch_shape = torch.broadcast_shapes(x0.shape[:-1], dd_m.shape[:-1])
-    x0 = x0.expand(*batch_shape, 3)
-    if psum is None:
-        x0 = x0 + 0.0 * dd_m[..., :1]  # as the reference
-    dim_mask = torch.tensor([1.0, 1.0, 0.0] if solve_2d else [1.0, 1.0, 1.0], dtype=f32, device=dev)
-    eye = torch.eye(3, dtype=f32, device=dev)
+        def cost_fn(x):
+            r, _ = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
+            return _psum((w * r * r).sum(dim=-1)) / wsum
 
-    wsum = _psum(w.sum(dim=-1)) + 1e-12
-
-    def cost_fn(x):
-        r, _ = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
-        return _psum((w * r * r).sum(dim=-1)) / wsum
-
-    x = x0
-    lam = torch.full(dd_m.shape[:-1], 1e-3, dtype=f32, device=dev)
-    if psum is None:
-        lam = lam + 0.0 * dd_m[..., 0]
-    cost = cost_fn(x0)
-    for _ in range(iterations):
-        r, jac = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
-        jac = jac * dim_mask  # frozen dims contribute nothing
-        g, h = _psum_gh(
-            torch.einsum("...pk,...p->...k", jac, w * r),
-            torch.einsum("...pk,...pl->...kl", jac, jac * w.unsqueeze(-1)),
-        )
-        g = g / wsum.unsqueeze(-1)
-        h = h / wsum[..., None, None]
-        # Marquardt scaling plus a floor keeps H invertible for degenerate
-        # geometry or frozen dims.
-        diag = torch.diagonal(h, dim1=-2, dim2=-1)
-        damp = lam.unsqueeze(-1) * torch.clamp(diag, min=1e-6) + 1e-6
-        h_damped = h + eye * damp.unsqueeze(-2)
-        x_new = x + _solve3(h_damped, -g) * dim_mask
-        cost_new = cost_fn(x_new)
-        improved = cost_new < cost
-        x = torch.where(improved.unsqueeze(-1), x_new, x)
-        lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 3.0), 1e-8, 1e8)
-        cost = torch.minimum(cost, cost_new)
+        x = x0
+        lam = torch.full(dd_m.shape[:-1], 1e-3, dtype=f32, device=dev)
+        if psum is None:
+            lam = lam + 0.0 * dd_m[..., 0]
+        cost = cost_fn(x0)
+    with spans.span("solve.lm"):
+        for _ in range(iterations):
+            r, jac = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
+            jac = jac * dim_mask  # frozen dims contribute nothing
+            g, h = _psum_gh(
+                torch.einsum("...pk,...p->...k", jac, w * r),
+                torch.einsum("...pk,...pl->...kl", jac, jac * w.unsqueeze(-1)),
+            )
+            g = g / wsum.unsqueeze(-1)
+            h = h / wsum[..., None, None]
+            # Marquardt scaling plus a floor keeps H invertible for degenerate
+            # geometry or frozen dims.
+            diag = torch.diagonal(h, dim1=-2, dim2=-1)
+            damp = lam.unsqueeze(-1) * torch.clamp(diag, min=1e-6) + 1e-6
+            h_damped = h + eye * damp.unsqueeze(-2)
+            x_new = x + _solve3(h_damped, -g) * dim_mask
+            cost_new = cost_fn(x_new)
+            improved = cost_new < cost
+            x = torch.where(improved.unsqueeze(-1), x_new, x)
+            lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 3.0), 1e-8, 1e8)
+            cost = torch.minimum(cost, cost_new)
 
     r, jac = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
     jac = jac * dim_mask
