@@ -187,9 +187,9 @@ per source, in parallel, sm_90a), then:
     ``TDoAEngine.process_signal_detections`` on a simulated group (4 OKC
     buoys, 16384-sample snippets at 2.4 MS/s), card vs CPU: the same
     measurements within 1 ns, the fix within 1 m. These two paths reach
-    no kernel: their 5-smooth FFT lengths (1080 for the default stream's
-    subchannels, 16875 for the engine's snippets) take the matmul
-    four-step.
+    no FFT or pair kernel (only the LM's): their 5-smooth FFT lengths
+    (1080 for the default stream's subchannels, 16875 for the engine's
+    snippets) take the matmul four-step.
 24. the multi-device layer (``radio_mapper_tpu_torch/parallel``), phases
     24-26 each at world size 1 (one rank, NCCL) and 2 (two ranks on the
     one card over gloo: a functional check, not a multi-card measurement),
@@ -217,8 +217,8 @@ per source, in parallel, sm_90a), then:
     K5 held on the rank's subchannels;
 27. fault F4: config 4 at full width under ``set_gcc_fused("off")``, the
     reference's natural-grid fallback (nfft 4320, the matmul four-step):
-    8 blocks, ms/block and pair correlations/s, no kernel launched (no K3,
-    no K5), a per-stage split; the phase-8 scene's active fix within 300 m;
+    8 blocks, ms/block and pair correlations/s, no kernel launched but the
+    LM's (no K3, no K5), a per-stage split; the phase-8 scene's active fix within 300 m;
     card vs CPU at the small wideband config under "off";
 28. the ingest loop (``ingest.runner.IngestLoop``) over the native ring
     (``ingest.native.NativeIngest``, built from ``native/ingest.cpp`` with
@@ -313,7 +313,20 @@ per source, in parallel, sm_90a), then:
     one wide launch, K2 one launch), then 4 full-width blocks, 128 ch × 8
     buoys × 96000 uint8 IQ, max_lag 600, through ``step_split_uint8_scan``:
     ms/block, launches by design (K1 wide and K2 once a block) and a
-    per-stage split, and those blocks on the combined-topk route.
+    per-stage split, and those blocks on the combined-topk route;
+40. the LM solve's kernel (``ops/cuda/lm_solve.py``) at the flagship's
+    shape (16,384 problems, 8 receivers, 28 pairs, 40 iterations, 2-D)
+    and narrowband's (4 starts × 2 captures × 128 channels): one launch,
+    equal bit for bit to its numpy float32 emulation
+    (``testing.lm_emulate``), against ``solver.lm_loop`` on the card (the
+    99th percentile of the gap between the fixes each solve keeps, at
+    narrowband the start ``solver.best_start`` picks, within 0.1 m: the
+    two sum in another order), and both times (CUDA events).
+
+Every phase that solves on the card counts the LM kernel's launches
+(``lm_solve_kernel``, one a solve with no ``psum``) beside the others':
+one a block on every pipeline and wideband route, none in EP (its
+``psum`` keeps the loop).
 
 Each kernel's entry in the ``kernels`` line carries its sources (K1's
 ``source`` is its cluster design's, ``fft_rows_ct_cluster.cu``, with the
@@ -580,14 +593,80 @@ def _partials_errors(torch, out, ref, fr, fi):
     )
 
 
+LM = "lm_solve_kernel"  # the LM's launches: one a solve on the card with no psum
+
+
+def _same_bits(np, got, want):
+    """The same NaNs, and every other float32 bit for bit."""
+    nan = np.isnan(want)
+    return bool(np.array_equal(np.isnan(got), nan) and np.array_equal(got[~nan].view(np.uint32),
+                                                                      want[~nan].view(np.uint32)))
+
+
+def _lm_phase(np, torch, dev, zero_counts, launch_counts, tag):
+    """Phase 40: the LM kernel at the flagship's and narrowband's shapes
+    against its float32 emulation (bit for bit) and the eager loop, with
+    both times. Returns each shape's row for the kernels line."""
+    from radio_mapper_tpu_torch import solver, testing
+    from radio_mapper_tpu_torch.ops.cuda import lm_solve
+    from radio_mapper_tpu_torch.tools import lm_times
+
+    rows = {}
+    for name in ("flagship", "narrowband"):
+        args, iterations = lm_times.inputs(name, dev, seed=29)
+        kern = lambda: lm_solve.lm_solve(*args, iterations=iterations, solve_2d=True)
+        loop = lambda: solver.lm_loop(*args, iterations=iterations, solve_2d=True)
+        kern()  # the library's first call
+        torch.cuda.synchronize()
+        zero_counts()
+        x, cost = kern()
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launch_counts().items() if v}
+        xl, cl = loop()
+        _, flat = lm_solve.flatten_problems(args[0], *args[3:])
+        fa, fd, fw, fs, fx = (t.cpu().numpy() for t in flat)
+        n, b, p = fa.shape[0], fa.shape[1], fd.shape[1]
+        kind = lm_solve.layout(p, b)
+        xe, ce = testing.lm_emulate(fa, args[1].cpu().numpy(), args[2].cpu().numpy(), fd, fw, fs, fx,
+                                    iterations=iterations, solve_2d=True, lanes=32 if kind == "warp" else 0)
+        bits = _same_bits(np, x.reshape(-1, 3).cpu().numpy(), xe) and _same_bits(np, cost.reshape(-1).cpu().numpy(), ce)
+        if name == "narrowband":  # the fix each solve keeps from its 4 starts (a start alone may run off either way)
+            x = torch.take_along_dim(x, solver.best_start(cost)[None, ..., None], dim=0)[0]
+            xl = torch.take_along_dim(xl, solver.best_start(cl)[None, ..., None], dim=0)[0]
+        gap = (x - xl).abs().amax(-1).nan_to_num(0.0).flatten().cpu().numpy()
+        k_ms = _cuda_ms(torch, kern, reps=20)
+        l_ms = _cuda_ms(torch, loop, reps=3)
+        # per problem: receivers' distance and unit vector 13 FLOP a pass, two passes an iteration; a pair's
+        # normal-equation terms 42 and its cost 5; the damped 3x3 solve ~60; the first cost
+        flops = n * (iterations * (26 * b + 47 * p + 60) + 13 * b + 5 * p)
+        nbytes = 4 * n * (3 * b + 2 * p + 1 + 3) + 4 * n * 4 + 8 * p  # inputs once, x and cost out
+        bound = _bound(flops, nbytes)
+        p99 = float(np.percentile(gap, 99))
+        print(
+            f"phase 40: LM kernel, {name}'s shape: N = {n} problems x {b} receivers x {p} pairs, {iterations} "
+            f"iterations, {kind} layout: launches {counts}; = its float32 emulation bit for bit {bits}; vs the loop "
+            f"on the card, the fixes kept ({gap.size}): gap max {gap.max():.3e} m, 99th percentile {p99:.3e} m (tol 0.1), median "
+            f"{np.median(gap):.3e} m; kernel {k_ms:.4f} ms, loop {l_ms:.3f} ms, bound {bound[0]:.5f} ms "
+            f"({bound[1]}) {tag}"
+        )
+        _require(counts == {LM: 1}, f"LM kernel at {name}'s shape: launches {counts}")
+        _require(bits, f"LM kernel at {name}'s shape differs from its float32 emulation")
+        _require(p99 <= 0.1, f"LM kernel at {name}'s shape: fixes {p99} m from the loop's")
+        rows[name] = {"shape": [n, b, p, iterations], "layout": kind, "max_abs_err": float(gap.max()),
+                      "ms": k_ms, "plain_ms": l_ms, "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+                      "algorithm_flops": flops, "emulation_bit_equal": bits}
+    return rows
+
+
 def _kernel_counters():
     """Every kernel's launch counter, by the name of its wrapper:
     ``{name: (module, attribute)}``."""
     from radio_mapper_tpu_torch.ops.cuda import (
-        channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair,
+        channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair, lm_solve,
     )
 
     return {
+        LM: (lm_solve, "launch_count"),
         "fft_detect_rows_ct": (fft_detect, "launch_count"),
         "gcc_pair_lag_mags": (gcc_pair, "launch_count"),
         "fft_rows_ct": (fft_rows, "launch_count"),
@@ -791,7 +870,8 @@ def _combined_topk_report(torch, pipe, raw, anchors, default_out, label, phase, 
         f"= the default route bit for bit {same}; fft_detect {med['fft_detect']:.3f} ms, peaks {med['peaks']:.3f} "
         f"ms (default route: fft_detect {default_med['fft_detect']:.3f}, peaks {default_med['peaks']:.3f}) {tag}"
     )
-    _require(launches == {"fft_detect_rows_ct": blocks, "gcc_pair_lag_mags": blocks} and designs == {design: blocks}
+    _require(launches == {"fft_detect_rows_ct": blocks, "gcc_pair_lag_mags": blocks, LM: blocks}
+             and designs == {design: blocks}
              and design in ("cluster", "wide"), f"combined-topk route {label}: launches {launches}, K1 {designs}")
     _require(all(same.values()), f"combined-topk route {label} differs from the default route: {same}")
     return {"block_len": label, "blocks": blocks, "launches": launches, "k1_designs": designs,
@@ -1139,7 +1219,7 @@ def _parallel_phases(np, torch, sim, wcfg, tag):
             _require(c["finite"] and c["fix_shape"] == [ws, 256, 16, 3], "config 5 outputs")
             _require(c["frames_equal_span"], "config 5: the halo did not deliver the left neighbour's history")
             _require(c["frames_max_err"] <= 1e-6 * c["frames_max"], "config 5: the frames differ from the whole stream's")
-            _require(c["launches"] == {"fft_rows_ct": 1, "gcc_pair_lag_mags": 1}, f"config 5 launches {c['launches']}")
+            _require(c["launches"] == {"fft_rows_ct": 1, "gcc_pair_lag_mags": 1, LM: 1}, f"config 5 launches {c['launches']}")
             require_held(c["held_k3"], "config 5")
             require_held(c["held_k2"], "config 5")
 
@@ -1158,7 +1238,7 @@ def _parallel_phases(np, torch, sim, wcfg, tag):
                 f"{coll(w)}; {one}held on this rank's subchannels: {held(w['held_k3'])}; {held(w['held_k5'])} {tag}"
             )
             _require(w["finite"], "sharded wideband outputs")
-            _require(w["launches"] == {"fft_rows_ct": 1, "gcc_pairs_onehot_lag_mags": 1}, f"wideband launches {w['launches']}")
+            _require(w["launches"] == {"fft_rows_ct": 1, "gcc_pairs_onehot_lag_mags": 1, LM: 1}, f"wideband launches {w['launches']}")
             require_held(w["held_k3"], "sharded wideband")
             require_held(w["held_k5"], "sharded wideband")
             if rank == 0:
@@ -1229,7 +1309,7 @@ def _wideband_fallback_phase(np, torch, sim, dev, tag, counters, wcfg, blocks):
             f"{med['pair']:.3f}, lag peaks {med['lag_peaks']:.3f}, solve {med['solve']:.3f} {tag}"
         )
         _require(ok, "non-finite or misshapen fallback outputs")
-        _require(counts == {}, f"the fallback launched kernels: {counts}")
+        _require(counts == {LM: blocks}, f"the fallback launched kernels but the LM's: {counts}")
 
         sub, ring, emitter = 5, _ring(np, wb, 12_000.0), np.array([2_000.0, -3_000.0, 0.0])
         sre, sim_ = sim.synthesize_wideband(wcfg, active_subchannel=sub, anchors_enu=ring, emitter_enu=emitter,
@@ -1318,7 +1398,8 @@ def _ingest_phase(np, torch, dev, tag, counters, wide=128, narrow=32, n=16_384):
         f"copy (CUDA events) {ms(loop.copy_ms_per_step())} ms a step; consumed {stats.bytes_consumed} B {tag}"
     )
     _require(fix_gap <= 1e-3 and lag_gap <= 1e-4, "the loop's output differs from the direct step on its bytes")
-    _require(launches == {"fft_detect_rows_ct": steps, "gcc_pair_lag_mags": steps}, f"loop launches {launches}")
+    _require(launches == {"fft_detect_rows_ct": steps, "gcc_pair_lag_mags": steps, LM: steps},
+             f"loop launches {launches}")
     _require(stats.bytes_consumed == steps * block_bytes, "loop byte accounting")
     del outs, last, direct, loop
     torch.cuda.empty_cache()
@@ -2171,13 +2252,13 @@ def _bench_phase(np, torch, dev, tag, counters):
         num_channels=128, iters=2, scan_blocks=2, device=dev))
     print(f"phase 38: bench flagship leg, {path}, 128 ch x 8 buoys x 16384: {rate:.4e} IQ samples/s, "
           f"{1e3 * block_s:.3f} ms/block, {flops / 1e9:.3f} GFLOP/block; launches {n} over 6 blocks; {wall:.1f} s {tag}")
-    _require(positive(rate, block_s, flops) and n == {k1: 6, k2: 6}, f"bench flagship: {rate}, {n}")
+    _require(positive(rate, block_s, flops) and n == {k1: 6, k2: 6, LM: 6}, f"bench flagship: {rate}, {n}")
     # its complex path: the first call, 1 warm-up, 2 timed
     (rate, path, block_s, _), n, wall = leg("flagship_complex", lambda: bench.run_pipeline_bench(
         num_channels=128, iters=2, path="complex", device=dev))
     print(f"phase 38: bench flagship leg, {path}, 128 ch: {rate:.4e} IQ samples/s, {1e3 * block_s:.3f} ms/block; "
           f"launches {n} over 4 blocks; {wall:.1f} s {tag}")
-    _require(positive(rate, block_s) and n == {k7: 4}, f"bench flagship complex: {rate}, {n}")
+    _require(positive(rate, block_s) and n == {k7: 4, LM: 4}, f"bench flagship complex: {rate}, {n}")
 
     # the FFT leg: 2 warm-up + 2 calls; K7 held at its shape on the leg's draws
     rate, n, wall = leg("fft", lambda: bench.run_fft_microbench(iters=2, epochs=1, device=dev))
@@ -2225,7 +2306,7 @@ def _bench_phase(np, torch, dev, tag, counters):
         iters=2, scan_blocks=2, device=dev))
     print(f"phase 38: bench wideband leg (config 4): {wb_ms:.3f} ms/block, {wide_rate / 1e6:.1f} wide MS/s, "
           f"{pair_rate:.4e} pairs/s; launches {n} over 8 blocks; {wall:.1f} s {tag}")
-    _require(positive(wb_ms, wide_rate, pair_rate) and n == {k3: 8, k5: 8}, f"bench wideband leg: {wb_ms}, {n}")
+    _require(positive(wb_ms, wide_rate, pair_rate) and n == {k3: 8, k5: 8, LM: 8}, f"bench wideband leg: {wb_ms}, {n}")
 
     # the ingest leg: the warm-up step and 4 paced steps
     st, n, wall = leg("ingest", lambda: bench.run_ingest_bench(channels=8, steps=4, device=dev))
@@ -2233,7 +2314,7 @@ def _bench_phase(np, torch, dev, tag, counters):
           f"real_time_ratio {st.real_time_ratio:.4f} (keeps up: {st.dropped_bytes == 0 and st.real_time_ratio >= 0.95}), "
           f"dropped {st.dropped_bytes} B, host read {st.host_read_ms_per_step:.3f} ms; launches {n} over 5 steps; "
           f"{wall:.1f} s {tag}")
-    _require(positive(st.sustained_samples_per_s, st.real_time_ratio) and n == {k1: 5, k2: 5}, f"bench ingest: {n}")
+    _require(positive(st.sustained_samples_per_s, st.real_time_ratio) and n == {k1: 5, k2: 5, LM: 5}, f"bench ingest: {n}")
     st, n, wall = leg("loopback", lambda: bench.run_ingest_loopback_bench(steps=8, device=dev))
     print(f"phase 38: bench loopback leg, 32 ch, 8 steps: {st.sustained_samples_per_s * 2 / 1e9:.3f} GB/s, "
           f"real_time_ratio {st.real_time_ratio:.4f}, dropped {st.dropped_bytes} B, host read "
@@ -2432,7 +2513,7 @@ def main() -> int:
     )
     _require(out.fix.position_enu.shape == (blocks, chans, 3), "scan output shape")
     _require(finite, "non-finite outputs at full width")
-    _require(launches == {"fft_detect_rows_ct": blocks, "gcc_pair_lag_mags": blocks}
+    _require(launches == {"fft_detect_rows_ct": blocks, "gcc_pair_lag_mags": blocks, LM: blocks}
              and k1_designs16 == {fft_detect.geometry(nfft): blocks},
              f"kernel launches {launches}, K1 designs {k1_designs16}")
 
@@ -2641,8 +2722,10 @@ def main() -> int:
             f"finite+shapes {ok} {tag}"
         )
     _require(ok5 and ok6, "non-finite or misshapen wideband outputs at full width")
-    _require(wl5 == {"fft_rows_ct": blocks, "gcc_pairs_onehot_lag_mags": blocks}, f"K5-route launches {wl5}")
-    _require(wl6 == {"fft_rows_ct": blocks, "gcc_rows_lag_mags": blocks * m_sub}, f"K6-route launches {wl6}")
+    _require(wl5 == {"fft_rows_ct": blocks, "gcc_pairs_onehot_lag_mags": blocks, LM: blocks},
+             f"K5-route launches {wl5}")
+    _require(wl6 == {"fft_rows_ct": blocks, "gcc_rows_lag_mags": blocks * m_sub, LM: blocks},
+             f"K6-route launches {wl6}")
 
     med = _stage_split(
         torch, lambda mark: wpipe.step_split(*wblocks[0], on_stage=mark),
@@ -2746,7 +2829,7 @@ def main() -> int:
     )
     _require(err_m < 500.0, f"ELT fix error {err_m} m")
     _require(fix_gap <= 1.0, f"ELT card and CPU fixes differ by {fix_gap} m")
-    _require(elt_launches == {"fft_rows": 1}, f"the ELT run's launches {elt_launches}")
+    _require(elt_launches == {"fft_rows": 1, LM: 1}, f"the ELT run's launches {elt_launches}")
 
     # ---- phase 12: the buoy detection dwell, card vs CPU
     dwell = sim.synthesize(sim.default_scenario(signal="fm", bandwidth_hz=16e3, freq_offset_hz=150e3,
@@ -2798,7 +2881,7 @@ def main() -> int:
     _require(tuple(nout.fix.position_enu.shape) == (nblocks, chans, 3), "narrowband scan output shape")
     _require(finite, "non-finite narrowband outputs at full width")
     _require(peak_gib < 40.0, f"narrowband peak device memory {peak_gib:.2f} GiB")
-    _require(k7_launches == nblocks and not nb_other, f"K7 launches {k7_launches}, others {nb_other}")
+    _require(k7_launches == nblocks and nb_other == {LM: nblocks}, f"K7 launches {k7_launches}, others {nb_other}")
     med = _stage_split(
         torch, lambda mark: npipe.step_split_uint8(raw, nanchors, on_stage=mark),
         ["decode", "psd", "detect", "spectra", "pair_corr", "lag_peaks", "solve"],
@@ -2843,7 +2926,7 @@ def main() -> int:
     )
     _require(tuple(nout32.fix.position_enu.shape) == (nblocks32, chans, 3) and finite32,
              "narrowband block_len 32768 outputs")
-    _require(k7_launches32 == nblocks32 == k7_cluster_runs and not nb32_other,
+    _require(k7_launches32 == nblocks32 == k7_cluster_runs and nb32_other == {LM: nblocks32},
              f"block_len 32768 K7 launches {k7_launches32}, cluster {k7_cluster_runs}, others {nb32_other}")
     med32 = _stage_split(
         torch, lambda mark: npipe32.step_split_uint8(raw32, nanchors32, on_stage=mark),
@@ -3023,7 +3106,7 @@ def main() -> int:
         )
         _require(err_m < 50.0, f"{route} route: scene fix error {err_m} m")
         _require(fix_gap <= 0.5, f"{route} route: card and CPU fixes differ by {fix_gap} m")
-        _require(got == dict.fromkeys(kernels, 1), f"{route} route launches {got}")
+        _require(got == {**dict.fromkeys(kernels, 1), LM: 1}, f"{route} route launches {got}")
 
     # ---- phase 18: the flagship blocks on the mega and two-kernel routes
     stages = {
@@ -3061,7 +3144,7 @@ def main() -> int:
         )
         _require(out.fix.position_enu.shape == (blocks, chans, 3), f"{route} scan output shape")
         _require(finite, f"non-finite {route} outputs at full width")
-        _require(got == dict.fromkeys(kernels, blocks), f"{route} route launches {got}")
+        _require(got == {**dict.fromkeys(kernels, blocks), LM: blocks}, f"{route} route launches {got}")
         route_launches.update(got)
     del raw, out
 
@@ -3248,7 +3331,7 @@ def main() -> int:
         )
         _require(err_m < 50.0 and fix_gap <= 0.5 and lag_gap <= 1e-3 and same_peaks,
                  f"block_len 32768 scene, {route} route: card and CPU disagree")
-        _require(got == dict.fromkeys(kernels, 1), f"block_len 32768 {route} route launches {got}")
+        _require(got == {**dict.fromkeys(kernels, 1), LM: 1}, f"block_len 32768 {route} route launches {got}")
         _require(longs == ((1, 0, 0) if route == "default" else (0, 1, 1)), f"{route} route long designs {longs}")
 
     # the flagship at full width at block_len 32768: 4 blocks, default route
@@ -3273,7 +3356,7 @@ def main() -> int:
         f"{k1_designs32}, all finite {lfinite} {tag}"
     )
     _require(tuple(lout.fix.position_enu.shape) == (lblocks, chans, 3) and lfinite, "block_len 32768 outputs")
-    _require(long_launches == {"fft_detect_rows_ct": lblocks, "gcc_pair_lag_mags": lblocks}
+    _require(long_launches == {"fft_detect_rows_ct": lblocks, "gcc_pair_lag_mags": lblocks, LM: lblocks}
              and k1_designs32 == {"cluster": lblocks}, f"block_len 32768 launches {long_launches}, K1 {k1_designs32}")
     med = _stage_split(
         torch, lambda mark: long_pipe.step_split_uint8(lraw[0], lanchors, on_stage=mark),
@@ -3627,7 +3710,7 @@ def main() -> int:
         )
         _require(err_m < 50.0 and fix_gap <= 0.5 and lag_gap <= 1e-3 and same_peaks,
                  f"block_len 57344 scene, {route} route: card and CPU disagree")
-        _require(got == dict.fromkeys(kernels, 1), f"block_len 57344 {route} route launches {got}")
+        _require(got == {**dict.fromkeys(kernels, 1), LM: 1}, f"block_len 57344 {route} route launches {got}")
         _require(k8_long == (1 if route == "mega" else 0), f"block_len 57344 {route} route K8 long {k8_long}")
 
     # the flagship at full width at block_len 57344: 4 blocks, default route
@@ -3652,7 +3735,7 @@ def main() -> int:
         f"{k1_designs}, all finite {mfinite} {tag}"
     )
     _require(tuple(mout.fix.position_enu.shape) == (mblocks, chans, 3) and mfinite, "block_len 57344 outputs")
-    _require(mixed_launches == {"fft_detect_rows_ct": mblocks, "gcc_pair_lag_mags": mblocks}
+    _require(mixed_launches == {"fft_detect_rows_ct": mblocks, "gcc_pair_lag_mags": mblocks, LM: mblocks}
              and k1_designs == {"block": 0, "cluster": 0, "long": 0, "wide": mblocks},
              f"block_len 57344 launches {mixed_launches}, K1 designs {k1_designs}")
     med = _stage_split(
@@ -3772,7 +3855,7 @@ def main() -> int:
     _require(lag_gap <= 1e-3 and fix_gap <= 0.5, "complex step: card and CPU disagree on the lags or the fix")
     _require(same_peaks and bool(pk_cpu.valid.any()) and pdb_gap <= 1e-3 and nf_gap <= 1e-4,
              "complex step: card and CPU disagree on the detections")
-    _require(c21 == {"fft_rows": 1}, f"complex step launches {c21} (K7 for the detection spectrum)")
+    _require(c21 == {"fft_rows": 1, LM: 1}, f"complex step launches {c21} (K7 for the detection spectrum)")
     # the multi-dwell complex step on the phase-11 ELT scene
     elt_iq = torch.complex(elt_host[0], elt_host[1])
     zero_counts()
@@ -3789,7 +3872,7 @@ def main() -> int:
         f"card vs CPU: fix {fix_gap:.3e} m (tol 1), lags {lag_gap:.3e} samples, launches {c21e} {tag}"
     )
     _require(err_m < 500.0 and fix_gap <= 1.0, "complex multi-dwell ELT step: fix")
-    _require(c21e == {"fft_rows": 1}, f"complex multi-dwell launches {c21e} (K7 for the dwell PSD)")
+    _require(c21e == {"fft_rows": 1, LM: 1}, f"complex multi-dwell launches {c21e} (K7 for the dwell PSD)")
     del elt_iq
 
     # ---- phase 22: the complex step at full width through step_uint8
@@ -3819,7 +3902,7 @@ def main() -> int:
     )
     _require(all(tuple(o.fix.position_enu.shape) == (chans, 3) for o in couts) and cfinite,
              "complex step outputs at full width")
-    _require(c22 == {"fft_rows": cblocks}, f"complex step launches {c22}")
+    _require(c22 == {"fft_rows": cblocks, LM: cblocks}, f"complex step launches {c22}")
     med = _stage_split(
         torch, lambda mark: pipe.step_uint8(craw[0], canchors, on_stage=mark),
         ["decode", "psd", "detect", "spectra", "pair_corr", "lag_peaks", "solve"],
@@ -4003,7 +4086,7 @@ def main() -> int:
     )
     _require(err_m < 50.0 and fix_gap <= 0.5 and lag_gap <= 1e-3 and same_peaks,
              "block_len 96000 scene: card and CPU disagree")
-    _require(got96 == {"fft_detect_rows_ct": 1, "gcc_pair_lag_mags": 1} and wide96 == 1,
+    _require(got96 == {"fft_detect_rows_ct": 1, "gcc_pair_lag_mags": 1, LM: 1} and wide96 == 1,
              f"block_len 96000 scene launches {got96}, K1 wide {wide96}")
     del on_card, on_cpu, host96, cap96
     blocks96 = 4
@@ -4029,7 +4112,7 @@ def main() -> int:
         f"{k1_designs96}, all finite {finite96} {tag}"
     )
     _require(tuple(out96.fix.position_enu.shape) == (blocks96, chans, 3) and finite96, "block_len 96000 outputs")
-    _require(launches96 == {"fft_detect_rows_ct": blocks96, "gcc_pair_lag_mags": blocks96}
+    _require(launches96 == {"fft_detect_rows_ct": blocks96, "gcc_pair_lag_mags": blocks96, LM: blocks96}
              and k1_designs96 == {"block": 0, "cluster": 0, "long": 0, "wide": blocks96},
              f"block_len 96000 launches {launches96}, K1 designs {k1_designs96}")
     med96 = _stage_split(
@@ -4044,6 +4127,9 @@ def main() -> int:
     )
     combined_topk.append(_combined_topk_report(torch, pipe96, raw96, anchors96, out96, 96_000, 39, tag))
     del raw96, out96
+
+    # ---- phase 40: the LM solve's kernel at the main path's shapes
+    lm_rows = _lm_phase(np, torch, dev, zero_counts, launch_counts, tag)
 
     def rows_entry(shape, err, ms, plain_ms, bound, library_ms):
         return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
@@ -4174,6 +4260,10 @@ def main() -> int:
               flagship_back_to_back=narrow_parent["K8 17408"],
               long_rows=mixed("K8"), long_launches_block_len_57344_mega=mega_long_launches,
               parallel=parallel("channel_step_partials")),
+        {"name": "lm_solve", "route": "cuda", "source": "radio_mapper_tpu_torch/csrc/lm_solve.cu",
+         "replaces": "radio_mapper_tpu/solver.py solve_tdoa_impl (an XLA fori_loop; no Pallas kernel)",
+         "launches": launches.get(LM, 0), **lm_rows["flagship"], "narrowband": lm_rows["narrowband"],
+         "parallel": parallel(LM)},
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))
     return 0

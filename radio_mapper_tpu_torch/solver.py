@@ -4,15 +4,17 @@ Port of ``radio_mapper_tpu/solver.py`` (``solve_tdoa_impl`` with both
 noise models and its pair-parallel mode, a ``psum`` callable in place of
 the ``axis_name``, and its public name ``solve_tdoa``;
 ``perturbed_starts``, ``solve_tdoa_multistart`` and
-``pair_weights_from_confidence``). The fixed-count LM
-loop is a Python loop of branchless ``torch.where`` updates — no
-``.item()``, no host synchronisation, so on the card it only enqueues.
-Its set-up is not so: ``dim_mask`` is built by ``torch.tensor(...,
-device=)``, a copy from pageable host memory, which on the card blocks
-the host until the queue ahead of it has drained; so the LM's launches
-start only after the kernels before the solve have run. The spans
-``solve.prep`` and ``solve.lm`` (:mod:`.utils.spans`) time the set-up
-and the loop of a traced step.
+``pair_weights_from_confidence``). The fixed-count LM runs in one of
+two ways, by where its inputs lie. On the card with no ``psum`` it is one
+CUDA launch (:mod:`.ops.cuda.lm_solve`: every iteration of every problem,
+the loop's arithmetic in float32). On the CPU, and with ``psum`` (the
+cross-rank sum each iteration needs), it is :func:`lm_loop`, a Python loop
+of branchless ``torch.where`` updates. Neither path synchronises with the
+host: the set-up builds every constant on the device, so on the card the
+solve is enqueued behind the kernels before it and the host runs on. The
+spans ``solve.prep``, ``solve.lm`` and, around the kernel's launch,
+``solve.lm.kernel`` (:mod:`.utils.spans`) time the set-up and the LM of a
+traced step.
 
 Measurement model: for pair (i, j) with delay τ_ij (receiver i heard the
 signal later ⇒ τ_ij > 0), ``dd_ij = c·τ_ij ≈ ‖x − p_i‖ − ‖x − p_j‖``.
@@ -25,6 +27,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from radio_mapper_tpu_torch.constants import SPEED_OF_LIGHT_M_S
+from radio_mapper_tpu_torch.ops.cuda import lm_solve
 from radio_mapper_tpu_torch.utils import spans
 
 
@@ -114,6 +117,115 @@ def error_ellipse_from_cov(cov_enu: torch.Tensor):
     return torch.sqrt(lam1), torch.sqrt(lam2), bearing
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on a CUDA device: the LM's kernel route."""
+    return t.device.type == "cuda"
+
+
+def _dim_mask(solve_2d: bool, dev: torch.device) -> torch.Tensor:
+    """``[1, 1, 0]`` (Up frozen) or ``[1, 1, 1]``, made on ``dev``: no copy
+    from host memory, which on the card would wait for the queue."""
+    return (torch.arange(3, device=dev) < (2 if solve_2d else 3)).to(torch.float32)
+
+
+def lm_setup(
+    anchors_enu: torch.Tensor,
+    pair_i: torch.Tensor,
+    pair_j: torch.Tensor,
+    dd_m: torch.Tensor,
+    weights: Optional[torch.Tensor] = None,
+    *,
+    init_enu: Optional[torch.Tensor] = None,
+    psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+):
+    """The LM's inputs as :func:`lm_loop` and the kernel take them:
+    ``(anchors, pair_i, pair_j, dd, w, wsum, x0)``, float32 (the pair
+    indices int64) on ``dd_m``'s device; :func:`solve_tdoa_impl`'s
+    arguments of the same names."""
+    dev = dd_m.device
+    f32 = torch.float32
+    anchors_enu = anchors_enu.to(f32)
+    dd_m = dd_m.to(f32)
+    pair_i = pair_i.to(device=dev, dtype=torch.int64)
+    pair_j = pair_j.to(device=dev, dtype=torch.int64)
+    w = torch.ones_like(dd_m) if weights is None else torch.clamp(weights.to(f32), min=0.0)
+    _psum = psum if psum is not None else (lambda x: x)
+    # All-zero weights would freeze the solver at its initial guess; degrade
+    # to uniform weighting (the measurements still carry geometry). With
+    # psum the check is global: a rank whose pairs are all masked still
+    # has live measurements elsewhere.
+    w_total = _psum(w.sum(dim=-1, keepdim=True))
+    w = torch.where(w_total > 1e-9, w, torch.ones_like(w))
+    x0 = anchors_enu.mean(dim=-2) if init_enu is None else init_enu.to(f32)
+    batch_shape = torch.broadcast_shapes(x0.shape[:-1], dd_m.shape[:-1])
+    x0 = x0.expand(*batch_shape, 3)
+    if psum is None:
+        x0 = x0 + 0.0 * dd_m[..., :1]  # as the reference
+    wsum = _psum(w.sum(dim=-1)) + 1e-12
+    return anchors_enu, pair_i, pair_j, dd_m, w, wsum, x0
+
+
+def lm_loop(
+    anchors_enu: torch.Tensor,
+    pair_i: torch.Tensor,
+    pair_j: torch.Tensor,
+    dd_m: torch.Tensor,
+    w: torch.Tensor,
+    wsum: torch.Tensor,
+    x0: torch.Tensor,
+    *,
+    iterations: int,
+    solve_2d: bool,
+    psum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+):
+    """The LM's iterations from ``x0`` as an eager loop: ``(x, cost)``,
+    on the inputs :func:`lm_setup` makes."""
+    dev = dd_m.device
+    f32 = torch.float32
+    _psum = psum if psum is not None else (lambda x: x)
+
+    def _psum_gh(g_loc, h_loc):
+        """``(Σg, Σh)`` through one sum of 12 floats per batch element."""
+        if psum is None:
+            return g_loc, h_loc
+        s = psum(torch.cat([g_loc, h_loc.flatten(-2)], dim=-1))
+        return s[..., :3], s[..., 3:].unflatten(-1, (3, 3))
+
+    dim_mask = _dim_mask(solve_2d, dev)
+    eye = torch.eye(3, dtype=f32, device=dev)
+
+    def cost_fn(x):
+        r, _ = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
+        return _psum((w * r * r).sum(dim=-1)) / wsum
+
+    x = x0
+    lam = torch.full(dd_m.shape[:-1], 1e-3, dtype=f32, device=dev)
+    if psum is None:
+        lam = lam + 0.0 * dd_m[..., 0]
+    cost = cost_fn(x0)
+    for _ in range(iterations):
+        r, jac = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
+        jac = jac * dim_mask  # frozen dims contribute nothing
+        g, h = _psum_gh(
+            torch.einsum("...pk,...p->...k", jac, w * r),
+            torch.einsum("...pk,...pl->...kl", jac, jac * w.unsqueeze(-1)),
+        )
+        g = g / wsum.unsqueeze(-1)
+        h = h / wsum[..., None, None]
+        # Marquardt scaling plus a floor keeps H invertible for degenerate
+        # geometry or frozen dims.
+        diag = torch.diagonal(h, dim1=-2, dim2=-1)
+        damp = lam.unsqueeze(-1) * torch.clamp(diag, min=1e-6) + 1e-6
+        h_damped = h + eye * damp.unsqueeze(-2)
+        x_new = x + _solve3(h_damped, -g) * dim_mask
+        cost_new = cost_fn(x_new)
+        improved = cost_new < cost
+        x = torch.where(improved.unsqueeze(-1), x_new, x)
+        lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 3.0), 1e-8, 1e8)
+        cost = torch.minimum(cost, cost_new)
+    return x, cost
+
+
 def solve_tdoa_impl(
     anchors_enu: torch.Tensor,
     pair_i: torch.Tensor,
@@ -158,71 +270,18 @@ def solve_tdoa_impl(
     if noise_model not in ("receiver", "pair"):
         raise ValueError(f"unknown noise_model {noise_model!r}")
     with spans.span("solve.prep"):
-        dev = dd_m.device
-        f32 = torch.float32
-        anchors_enu = anchors_enu.to(f32)
-        dd_m = dd_m.to(f32)
-        pair_i = pair_i.to(device=dev, dtype=torch.int64)
-        pair_j = pair_j.to(device=dev, dtype=torch.int64)
-        w = torch.ones_like(dd_m) if weights is None else torch.clamp(weights.to(f32), min=0.0)
-
-        _psum = psum if psum is not None else (lambda x: x)
-
-        def _psum_gh(g_loc, h_loc):
-            """``(Σg, Σh)`` through one sum of 12 floats per batch element."""
-            if psum is None:
-                return g_loc, h_loc
-            s = psum(torch.cat([g_loc, h_loc.flatten(-2)], dim=-1))
-            return s[..., :3], s[..., 3:].unflatten(-1, (3, 3))
-
-        # All-zero weights would freeze the solver at its initial guess; degrade
-        # to uniform weighting (the measurements still carry geometry). With
-        # psum the check is global: a rank whose pairs are all masked still
-        # has live measurements elsewhere.
-        w_total = _psum(w.sum(dim=-1, keepdim=True))
-        w = torch.where(w_total > 1e-9, w, torch.ones_like(w))
-
-        x0 = anchors_enu.mean(dim=-2) if init_enu is None else init_enu.to(f32)
-        batch_shape = torch.broadcast_shapes(x0.shape[:-1], dd_m.shape[:-1])
-        x0 = x0.expand(*batch_shape, 3)
-        if psum is None:
-            x0 = x0 + 0.0 * dd_m[..., :1]  # as the reference
-        dim_mask = torch.tensor([1.0, 1.0, 0.0] if solve_2d else [1.0, 1.0, 1.0], dtype=f32, device=dev)
-        eye = torch.eye(3, dtype=f32, device=dev)
-
-        wsum = _psum(w.sum(dim=-1)) + 1e-12
-
-        def cost_fn(x):
-            r, _ = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
-            return _psum((w * r * r).sum(dim=-1)) / wsum
-
-        x = x0
-        lam = torch.full(dd_m.shape[:-1], 1e-3, dtype=f32, device=dev)
-        if psum is None:
-            lam = lam + 0.0 * dd_m[..., 0]
-        cost = cost_fn(x0)
+        lm_args = lm_setup(anchors_enu, pair_i, pair_j, dd_m, weights, init_enu=init_enu, psum=psum)
     with spans.span("solve.lm"):
-        for _ in range(iterations):
-            r, jac = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
-            jac = jac * dim_mask  # frozen dims contribute nothing
-            g, h = _psum_gh(
-                torch.einsum("...pk,...p->...k", jac, w * r),
-                torch.einsum("...pk,...pl->...kl", jac, jac * w.unsqueeze(-1)),
-            )
-            g = g / wsum.unsqueeze(-1)
-            h = h / wsum[..., None, None]
-            # Marquardt scaling plus a floor keeps H invertible for degenerate
-            # geometry or frozen dims.
-            diag = torch.diagonal(h, dim1=-2, dim2=-1)
-            damp = lam.unsqueeze(-1) * torch.clamp(diag, min=1e-6) + 1e-6
-            h_damped = h + eye * damp.unsqueeze(-2)
-            x_new = x + _solve3(h_damped, -g) * dim_mask
-            cost_new = cost_fn(x_new)
-            improved = cost_new < cost
-            x = torch.where(improved.unsqueeze(-1), x_new, x)
-            lam = torch.clamp(torch.where(improved, lam * 0.3, lam * 3.0), 1e-8, 1e8)
-            cost = torch.minimum(cost, cost_new)
+        if psum is None and _on_card(dd_m):
+            x, cost = lm_solve.lm_solve(*lm_args, iterations=iterations, solve_2d=solve_2d)
+        else:
+            x, cost = lm_loop(*lm_args, iterations=iterations, solve_2d=solve_2d, psum=psum)
 
+    anchors_enu, pair_i, pair_j, dd_m, w, wsum, _ = lm_args
+    dev = dd_m.device
+    f32 = torch.float32
+    _psum = psum if psum is not None else (lambda x: x)
+    dim_mask = _dim_mask(solve_2d, dev)
     r, jac = _residuals_and_jac(x, anchors_enu, pair_i, pair_j, dd_m)
     jac = jac * dim_mask
     g = _psum(torch.einsum("...pk,...p->...k", jac, w * r)) / wsum.unsqueeze(-1)
@@ -307,6 +366,23 @@ def perturbed_starts(anchors_enu: torch.Tensor, num_starts: int, spread_m: float
     return torch.stack(starts, dim=0)
 
 
+# Final costs of the starts this close to the lowest, relative, are one tie:
+# ~80 float32 ulps, room for a cost's sum over the pairs rounded in another
+# order, and far below what separates two distinct minima in practice.
+STARTS_TIE_RTOL = 1e-5
+
+
+def best_start(cost: torch.Tensor) -> torch.Tensor:
+    """The start :func:`solve_tdoa_multistart` keeps, ``[...]``, from the
+    starts' final costs ``[S, ...]``: the first within ``STARTS_TIE_RTOL``
+    of the lowest, a NaN cost counting as the lowest."""
+    cost = torch.where(torch.isnan(cost), float("-inf"), cost)
+    low = cost.amin(dim=0, keepdim=True)
+    tie = torch.where(torch.isfinite(low), low + STARTS_TIE_RTOL * low.abs(), low)
+    first = torch.arange(cost.shape[0], device=cost.device).reshape(-1, *(1,) * (cost.dim() - 1))
+    return torch.where(cost <= tie, first, cost.shape[0]).amin(dim=0)
+
+
 def solve_tdoa_multistart(
     anchors_enu: torch.Tensor,
     pair_i: torch.Tensor,
@@ -318,7 +394,12 @@ def solve_tdoa_multistart(
     **kwargs,
 ) -> SolveResult:
     """:func:`solve_tdoa_impl` from :func:`perturbed_starts`, keeping the
-    lowest final cost (ties: the lowest start index, as ``jnp.argmin``).
+    lowest final cost. Costs within ``STARTS_TIE_RTOL`` of the lowest are
+    a tie, which the lowest start index wins: starts that end at one point
+    reach costs a few float32 roundings apart, in an order that the sums'
+    order decides (the card's kernel and the CPU's loop differ there), and
+    in 2-D each start keeps its own Up. A NaN cost counts as the lowest
+    (as ``jnp.argmin``).
 
     The starts run as one batched solve on a new leading axis."""
     anchors_enu = anchors_enu.to(torch.float32)
@@ -338,10 +419,7 @@ def solve_tdoa_multistart(
         init_enu=over(starts, (3,)),
         **kwargs,
     )
-    # argmin over starts, NaN counting as the minimum (as jnp.argmin)
-    cost = torch.where(torch.isnan(res.cost), float("-inf"), res.cost)  # [S, ...]
-    first = torch.arange(num_starts, device=cost.device).reshape(-1, *(1,) * (cost.dim() - 1))
-    best = torch.where(cost <= cost.amin(dim=0, keepdim=True), first, num_starts).amin(dim=0)
+    best = best_start(res.cost)
 
     def take(field):
         idx = best.reshape(1, *best.shape, *(1,) * (field.dim() - 1 - best.dim()))

@@ -1,5 +1,6 @@
 """What the port's tests and ``chip_smoke.py`` share with the package: a
-cap on CPU threads, and the comparison of two top-K blocks.
+cap on CPU threads, the comparison of two top-K blocks, seeded LM
+problems, and the LM kernel's arithmetic in numpy float32.
 
 The test suite runs in several worker processes at once, beside tests of
 live services with deadlines. PyTorch's CPU operators would otherwise
@@ -16,6 +17,7 @@ the tests' other torch code at one thread too.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 TEST_THREADS = 1
@@ -54,3 +56,120 @@ def topk_errors(out, ref, rmax: torch.Tensor, k: int, spec_rel: float = 1e-5):
     bad = int(((packed[:, :k] != rp[:, :k]) & solid).sum())
     bad += int((torch.isfinite(vals) != fin).sum() + (vals[:, k:] != 0).sum() + (packed[:, k:] != 0).sum())
     return err.max().item(), (err / pmax).max().item(), bad, solid.float().mean().item()
+
+
+def lm_problems(lead, b, seed, *, pairs=None, noise_m=5.0, edit=None):
+    """Seeded TDOA problems for the LM: anchors ``[b, 3]`` on a 10 km ring,
+    emitters ``[*lead, 3]`` within 6 km of its centre and their distance
+    differences with Gaussian noise of ``noise_m`` and weights in [0.2, 1]
+    ``[*lead, P]``, on every pair of receivers or on ``pairs`` (i, j).
+    ``edit`` (``lead`` of one dim, at least 8 problems): "heights" puts
+    the receivers 0–300 m up; "zero_row" zeroes problem 5's weights (the
+    solver's uniform fallback) and problem 7's first three; "nan" puts NaN
+    in problem 3's first measurement (carried into its start and lam) and
+    problem 4's sixth (a NaN cost); "collinear" lines the receivers up on
+    the East axis. Returns CPU tensors ``(anchors, pair_i, pair_j, dd,
+    w)``."""
+    rng = np.random.default_rng(seed)
+    ang = 2 * np.pi * np.arange(b) / b + rng.uniform(0, 0.3, b)
+    anchors = np.stack([1e4 * np.cos(ang), 1e4 * np.sin(ang), np.zeros(b)], -1).astype(np.float32)
+    pi, pj = (np.asarray(a) for a in (pairs or np.triu_indices(b, k=1)))
+    emit = rng.uniform(-6e3, 6e3, (*lead, 3))
+    emit[..., 2] = 0.0
+    dist = np.linalg.norm(emit[..., None, :] - anchors.astype(np.float64), axis=-1)
+    dd = dist[..., pi] - dist[..., pj] + rng.normal(0, noise_m, (*lead, len(pi)))
+    w = rng.uniform(0.2, 1.0, dd.shape)
+    if edit == "heights":
+        anchors[:, 2] = np.linspace(0.0, 300.0, b)
+    elif edit == "zero_row":
+        w[5] = 0.0
+        w[7, :3] = 0.0
+    elif edit == "nan":
+        dd[3, 0] = dd[4, 5] = np.nan
+    elif edit == "collinear":
+        anchors[:, 1] = 0.0
+    elif edit is not None:
+        raise ValueError(f"unknown edit {edit!r}")
+    t = lambda a, dt=torch.float32: torch.as_tensor(np.ascontiguousarray(a), dtype=dt)
+    return t(anchors), t(pi, torch.int64), t(pj, torch.int64), t(dd), t(w)
+
+
+def lm_emulate(anchors, pair_i, pair_j, dd, w, wsum, x0, *, iterations: int, solve_2d: bool, lanes: int = 0):
+    """``csrc/lm_solve.cu``'s arithmetic in numpy float32, operation by
+    operation, on N flat problems (numpy: ``anchors [N, B, 3]``, ``dd``,
+    ``w [N, P]``, ``wsum [N]``, ``x0 [N, 3]``, ``pair_i``/``pair_j [P]``):
+    ``(x [N, 3], cost [N])``. Every product, sum, quotient and square root
+    is rounded to float32 on its own, as the kernel's ``__f*_rn``
+    intrinsics round them, and the pair sums are taken in the kernel's
+    order: pair by pair in index order (``lanes=0``, one thread a
+    problem), or at ``lanes=32`` (one warp a problem) lane l's pairs l,
+    l + 32, ... in order, then the lanes' partials by xor butterflies of
+    16, 8, 4, 2, 1. So the kernel must equal it bit for bit. The formulas
+    are :func:`..solver.lm_loop`'s."""
+    f = np.float32
+    anchors, dd, w, wsum, x0 = (np.asarray(a, dtype=f) for a in (anchors, dd, w, wsum, x0))
+    pi, pj = np.asarray(pair_i), np.asarray(pair_j)
+    n, p = dd.shape
+    m = np.array([1, 1, 0 if solve_2d else 1], f)
+
+    def total(terms):  # [N, P, ...] -> [N, ...], in the kernel's order
+        if not lanes:
+            acc = np.zeros((n, *terms.shape[2:]), f)
+            for k in range(p):
+                acc = acc + terms[:, k]
+            return acc
+        part = np.zeros((n, lanes, *terms.shape[2:]), f)
+        for k0 in range(0, p, lanes):
+            chunk = terms[:, k0:k0 + lanes]
+            part[:, :chunk.shape[1]] = part[:, :chunk.shape[1]] + chunk
+        o = lanes // 2
+        while o:
+            part = part + part[:, np.arange(lanes) ^ o]
+            o //= 2
+        return part[:, 0]
+
+    def receivers(x):
+        d = x[:, None, :] - anchors
+        dist = np.sqrt(d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2])
+        return dist, d / (dist + f(1e-9))[..., None]
+
+    def cost_at(x):
+        dist, _ = receivers(x)
+        r = dist[:, pi] - dist[:, pj] - dd
+        return total(w * r * r) / wsum
+
+    def solve3(a, b):  # the adjugate over det, |det| floored at 1e-20
+        A = lambda i, j: a[:, i, j]
+        c00, c01, c02 = A(1, 1) * A(2, 2) - A(1, 2) * A(2, 1), A(1, 2) * A(2, 0) - A(1, 0) * A(2, 2), \
+            A(1, 0) * A(2, 1) - A(1, 1) * A(2, 0)
+        det = A(0, 0) * c00 + A(0, 1) * c01 + A(0, 2) * c02
+        inv = f(1) / np.where(np.abs(det) < f(1e-20), f(1e-20), det)
+        c10, c11, c12 = A(0, 2) * A(2, 1) - A(0, 1) * A(2, 2), A(0, 0) * A(2, 2) - A(0, 2) * A(2, 0), \
+            A(0, 1) * A(2, 0) - A(0, 0) * A(2, 1)
+        c20, c21, c22 = A(0, 1) * A(1, 2) - A(0, 2) * A(1, 1), A(0, 2) * A(1, 0) - A(0, 0) * A(1, 2), \
+            A(0, 0) * A(1, 1) - A(0, 1) * A(1, 0)
+        return np.stack([(c00 * b[:, 0] + c10 * b[:, 1] + c20 * b[:, 2]) * inv,
+                         (c01 * b[:, 0] + c11 * b[:, 1] + c21 * b[:, 2]) * inv,
+                         (c02 * b[:, 0] + c12 * b[:, 1] + c22 * b[:, 2]) * inv], -1)
+
+    with np.errstate(all="ignore"):
+        x = x0.copy()
+        lam = f(1e-3) + f(0) * dd[:, 0]
+        cost = cost_at(x)
+        for _ in range(iterations):
+            dist, u = receivers(x)
+            r = dist[:, pi] - dist[:, pj] - dd
+            jac = (u[:, pi] - u[:, pj]) * m
+            wr = w * r
+            g = total(jac * wr[..., None]) / wsum[:, None]
+            h = total(jac[..., :, None] * (jac[..., None, :] * w[..., None, None])) / wsum[:, None, None]
+            diag = np.diagonal(h, axis1=1, axis2=2)
+            damp = lam[:, None] * np.where(diag < f(1e-6), f(1e-6), diag) + f(1e-6)
+            xn = x + solve3(h + np.eye(3, dtype=f) * damp[:, None, :], -g) * m
+            cn = cost_at(xn)
+            better = cn < cost
+            x = np.where(better[:, None], xn, x)
+            lam = np.where(better, lam * f(0.3), lam * f(3.0))
+            lam = np.where(lam < f(1e-8), f(1e-8), np.where(lam > f(1e8), f(1e8), lam))
+            cost = np.where(np.isnan(cost) | np.isnan(cn), f(np.nan), np.where(cn < cost, cn, cost))
+    return x, cost

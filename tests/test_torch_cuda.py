@@ -63,7 +63,13 @@ as its plain version is against JAX:
   at world size 1 (NCCL) and 2 (two ranks on one card, gloo) vs ranks on
   the CPU running the same algorithm (the fused chain forced on): lags
   within 1e-3 samples and fixes within 0.5 m where the peaks stand clear;
-  ``dryrun_multichip(2)`` on the card.
+  ``dryrun_multichip(2)`` on the card;
+- the LM solve's one launch (``-k lm_kernel``): equal bit for bit to its
+  numpy float32 emulation (``testing.lm_emulate``) at small shapes, and
+  against the eager loop on the card, on the same set-up, no further from
+  it than twice the loop's own spread between the CPU and the card (see
+  :func:`_lm_compare`), in both layouts; a whole solve with nothing
+  synchronising, and its span.
 """
 
 import functools
@@ -72,11 +78,11 @@ import numpy as np
 import pytest
 import torch
 
-from radio_mapper_tpu_torch import sim
+from radio_mapper_tpu_torch import sim, solver
 from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
 from radio_mapper_tpu_torch.models.wideband import WidebandConfig, WidebandTDOAPipeline
 from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat
-from radio_mapper_tpu_torch.ops.cuda import channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair
+from radio_mapper_tpu_torch.ops.cuda import channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair, lm_solve
 from radio_mapper_tpu_torch import testing
 from radio_mapper_tpu_torch.testing import cap_cpu_threads
 
@@ -1496,3 +1502,169 @@ def test_node_buoy_over_rtl_tcp_on_card_matches_cpu(cuda_device):
     assert [(d.frequency_mhz, d.confidence, d.signal_type) for d in gpu_dets] == [
         (d.frequency_mhz, d.confidence, d.signal_type) for d in cpu_dets]
     assert gpu_dets and np.array_equal(node.last_bandwidths_hz, cpu.last_bandwidths_hz)
+
+
+# -- the LM solve as one launch (``-k lm_kernel``) ---------------------------
+
+# name → (problems' lead shape, receivers, iterations, solve_2d, edit)
+LM_CASES = {
+    "flagship": ((128, 128), 8, 40, True, None),
+    "3d": ((1024,), 8, 40, False, None),
+    "weights_none": ((1024,), 8, 40, True, "weights_none"),
+    "zero_weight_row": ((1024,), 8, 40, True, "zero_row"),
+    "nan_dd": ((1024,), 8, 40, True, "nan"),
+    "collinear": ((1024,), 8, 40, True, "collinear"),
+    "three_receivers": ((1024,), 3, 40, True, None),
+    "64_receivers": ((64,), 64, 15, True, None),
+}
+
+
+def _lm_inputs(dev, lead, b, edit, seed=11, init=None):
+    """:func:`solver.lm_setup`'s output on the card for seeded problems
+    with ``edit`` applied (:func:`testing.lm_problems`; "weights_none":
+    no weights)."""
+    anchors, pi, pj, dd, w = testing.lm_problems(lead, b, seed, edit=None if edit == "weights_none" else edit)
+    weights = None if edit == "weights_none" else w.to(dev)
+    on = lambda t: None if t is None else t.to(dev)
+    return solver.lm_setup(*(on(t) for t in (anchors, pi, pj, dd)), weights, init_enu=on(init))
+
+
+def _lm_compare(args, loop, kern, iterations, solve_2d):
+    """The kernel's (x, cost) against the loop's on the card, on the same
+    set-up ``args``. Basis: the loop itself, run on the CPU on the same
+    set-up, differs from the loop on the card by float32 sums taken in
+    another order (cuBLAS's and torch's reduction trees against the CPU's),
+    which the accept test ``cost_new < cost`` carries into the steps taken:
+    up to 3.5 cm at the flagship's shape, 1.6 m along collinear receivers'
+    flat valley (measured on an H100). The kernel takes the loop's
+    operations with its sums in index order, so it may lie no further
+    from the card's loop than twice that spread: max |Δx| ≤ 2·max
+    |x_cpu − x_card| + 1 mm and max |Δcost| ≤ 2·max |cost_cpu − cost_card|
+    + 1e-6·max cost; NaN exactly where the loop has it."""
+    (xl, cl), (xk, ck) = loop, kern
+    xc, cc = (t.to(xl.device) for t in solver.lm_loop(*(a.cpu() for a in args), iterations=iterations,
+                                                      solve_2d=solve_2d))
+    assert xk.shape == xl.shape and ck.shape == cl.shape
+    assert torch.equal(torch.isnan(xk), torch.isnan(xl)) and torch.equal(torch.isnan(ck), torch.isnan(cl))
+    gap = lambda a, b: (a - b).abs().nan_to_num(0.0).max().item()
+    assert gap(xk, xl) <= 2 * gap(xc, xl) + 1e-3
+    assert gap(ck, cl) <= 2 * gap(cc, cl) + 1e-6 * cl.abs().nan_to_num(0.0).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LM_CASES))
+def test_lm_kernel_matches_loop(cuda_device, case):
+    """``lm_solve.lm_solve`` (one launch) against ``solver.lm_loop`` on the
+    card, on the same set-up: the flagship's 16,384 problems (thread
+    layout), 3-D, no weights, all-zero and partly zero weight rows, NaN
+    measurements, collinear receivers, three receivers, and 64 receivers
+    (P = 2016, the warp layout)."""
+    lead, b, iterations, solve_2d, edit = LM_CASES[case]
+    args = _lm_inputs(cuda_device, lead, b, edit)
+    loop = solver.lm_loop(*args, iterations=iterations, solve_2d=solve_2d)
+    before = dict(lm_solve.layout_counts)
+    kern = lm_solve.lm_solve(*args, iterations=iterations, solve_2d=solve_2d)
+    torch.cuda.synchronize()
+    kind = "warp" if b == 64 else "thread"
+    assert lm_solve.layout_counts[kind] == before[kind] + 1
+    _lm_compare(args, loop, kern, iterations, solve_2d)
+    if edit == "nan":
+        assert torch.isnan(kern[0][3]).all() and torch.isnan(kern[1][3:5]).all()
+        assert torch.equal(kern[0][4], args[6][4])  # never improved: still at the start
+    else:
+        assert torch.isfinite(kern[0]).all() and torch.isfinite(kern[1]).all()
+
+
+def _lm_lanes(p, b):
+    """The kernel's pair-sum order at P pairs and B receivers, as
+    ``testing.lm_emulate`` takes it."""
+    return 32 if lm_solve.layout(p, b) == "warp" else 0
+
+
+def _assert_bits_equal(got, want):
+    """The same NaNs, and every other float32 bit for bit."""
+    got = got.cpu().numpy().reshape(want.shape)
+    nan = np.isnan(want)
+    assert np.array_equal(np.isnan(got), nan)
+    assert np.array_equal(got[~nan].view(np.uint32), want[~nan].view(np.uint32))
+
+
+# name → (problems, receivers, iterations, solve_2d, edit)
+LM_EMULATED = {
+    "2d": ((64,), 8, 40, True, None),
+    "3d_heights": ((64,), 8, 40, False, "heights"),
+    "weights_none": ((64,), 8, 40, True, "weights_none"),
+    "zero_weight_row": ((64,), 8, 40, True, "zero_row"),
+    "nan_dd": ((64,), 8, 40, True, "nan"),
+    "collinear": ((64,), 8, 40, True, "collinear"),
+    "three_receivers": ((64,), 3, 40, True, None),
+    "few_iterations": ((64,), 8, 2, True, None),
+    "64_receivers": ((8,), 64, 15, True, None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(LM_EMULATED))
+def test_lm_kernel_equals_its_float32_emulation(cuda_device, case):
+    """The kernel against ``testing.lm_emulate`` (the loop's formulas with
+    each operation rounded to float32 on its own and the pair sums in the
+    kernel's order) at small shapes: bit for bit, positions and costs,
+    NaN where the emulation has it. A wrong step, damping, lam schedule,
+    accept test, iteration count or sum order changes bits."""
+    lead, b, iterations, solve_2d, edit = LM_EMULATED[case]
+    args = _lm_inputs(cuda_device, lead, b, edit)
+    x, cost = lm_solve.lm_solve(*args, iterations=iterations, solve_2d=solve_2d)
+    _, flat = lm_solve.flatten_problems(args[0], *args[3:])
+    fa, fd, fw, fs, fx = (t.cpu().numpy() for t in flat)
+    pi, pj = (t.cpu().numpy() for t in args[1:3])
+    xe, ce = testing.lm_emulate(fa, pi, pj, fd, fw, fs, fx, iterations=iterations, solve_2d=solve_2d,
+                                lanes=_lm_lanes(fd.shape[-1], b))
+    _assert_bits_equal(x, xe)
+    _assert_bits_equal(cost, ce)
+
+
+@pytest.mark.cuda
+def test_lm_kernel_matches_loop_at_narrowbands_multistart(cuda_device):
+    """Narrowband's solve: 4 starts × 2 captures × 128 channels in one
+    launch, from :func:`solver.perturbed_starts`, kernel against loop."""
+    anchors, *_ = testing.lm_problems((), 8, 11)
+    starts = solver.perturbed_starts(anchors, 4)[:, None, None, :]  # [4, 1, 1, 3]
+    args = _lm_inputs(cuda_device, (4, 2, 128), 8, None, init=starts)
+    loop = solver.lm_loop(*args, iterations=40, solve_2d=True)
+    kern = lm_solve.lm_solve(*args, iterations=40, solve_2d=True)
+    torch.cuda.synchronize()
+    _lm_compare(args, loop, kern, 40, True)
+
+
+@pytest.mark.cuda
+def test_lm_kernel_solve_blocks_nothing_and_records_its_span(cuda_device):
+    """A whole ``solve_tdoa`` and ``solve_tdoa_multistart`` at the
+    flagship's and narrowband's shapes under
+    ``set_sync_debug_mode("error")``: nothing synchronises. A traced solve
+    records ``solve.lm.kernel`` once, under ``solve.lm``, with no sync in
+    the step. The fixes agree with the CPU's loop within 10 cm: twice the
+    loop's own spread between the CPU and the card at this shape (4.5 cm,
+    measured on an H100; see :func:`_lm_compare`)."""
+    from radio_mapper_tpu_torch.utils import spans
+
+    anchors, pi, pj, dd, w = testing.lm_problems((128, 128), 8, 13)
+    on = [t.to(cuda_device) for t in (anchors, pi, pj, dd, w)]
+    solver.solve_tdoa(*on)  # builds the library and warms every operator
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = solver.solve_tdoa(*on, iterations=40)
+        multi = solver.solve_tdoa_multistart(*(t[:2] if t.dim() > 2 else t for t in on), num_starts=4)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    cpu = solver.solve_tdoa(anchors, pi, pj, dd, w, iterations=40)
+    torch.testing.assert_close(res.position_enu.cpu(), cpu.position_enu, rtol=0, atol=0.1)
+    assert multi.position_enu.shape == (2, 128, 3)
+    with spans._Step(cuda_device):
+        solver.solve_tdoa(*on, iterations=40)
+    rec = spans.steps()[-1]
+    names = [s.name for s in rec.spans]
+    assert names == ["step", "solve.prep", "solve.lm", "solve.lm.kernel"]
+    assert rec.spans[3].parent == 2 and rec.syncs("step") == 0
+    assert rec.device_ms("solve.lm.kernel") > 0
