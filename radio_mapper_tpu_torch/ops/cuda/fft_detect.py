@@ -83,6 +83,7 @@ import torch
 from radio_mapper_tpu_torch import constants, device
 from radio_mapper_tpu_torch.ops import ct_plan, safe
 from radio_mapper_tpu_torch.ops.cuda import build, detect_ct, fft_rows
+from radio_mapper_tpu_torch.utils import spans
 
 launch_count = 0  # launches of K1 (not of the plain version); a long-row call counts once
 design_counts = {"block": 0, "cluster": 0, "long": 0, "wide": 0}  # the same launches, by design ("long": K3 → K4)
@@ -370,17 +371,19 @@ def fft_detect_rows_ct_long(re: torch.Tensor, im: torch.Tensor, plan: ct_plan.De
 
 def _run(design: str, re, im, plan, emit_topk):
     """One launch of K1 through ``design`` (a launch the card refuses
-    raises), counted in :data:`launch_count` and :data:`design_counts`."""
+    raises), counted in :data:`launch_count` and :data:`design_counts`,
+    inside the program span ``fft_detect.k1`` (:mod:`..utils.spans`)."""
     global launch_count
-    if design == "block":
-        out = block_detect(re, im, plan, emit_topk)
-    elif design == "cluster":
-        out = cluster_detect(re, im, plan, emit_topk)
-    elif design == "wide":
-        out = wide_detect(re, im, plan, emit_topk)
-    else:
-        fr, fi = fft_rows.long_rows(re, im)
-        out = (fr, fi, *detect_ct.launch(fr, fi, plan, row_max=True, emit_topk=emit_topk))
+    with spans.span("fft_detect.k1"):
+        if design == "block":
+            out = block_detect(re, im, plan, emit_topk)
+        elif design == "cluster":
+            out = cluster_detect(re, im, plan, emit_topk)
+        elif design == "wide":
+            out = wide_detect(re, im, plan, emit_topk)
+        else:
+            fr, fi = fft_rows.long_rows(re, im)
+            out = (fr, fi, *detect_ct.launch(fr, fi, plan, row_max=True, emit_topk=emit_topk))
     launch_count += 1
     design_counts[design] += 1
     return out

@@ -73,6 +73,7 @@ import torch
 from radio_mapper_tpu_torch import device
 from radio_mapper_tpu_torch.ops import ct_plan
 from radio_mapper_tpu_torch.ops.cuda import build
+from radio_mapper_tpu_torch.utils import spans
 
 launch_count = 0  # K2 launches (not of the plain version)
 onehot_launch_count = 0  # K5 launches
@@ -423,8 +424,12 @@ def gcc_pair_lag_mags(
 
 
 def _launch(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate):
+    """One launch of K2, counted in :data:`launch_count`, inside the program
+    span ``gcc_pair.k2`` (:mod:`..utils.spans`; kernel K8's pair half, which
+    calls :func:`launch_k2` itself, records none)."""
     global launch_count
-    out = launch_k2(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate)
+    with spans.span("gcc_pair.k2"):
+        out = launch_k2(spec_re, spec_im, row_smax, pair_i, pair_j, max_lag, eps, gate)
     launch_count += 1
     return out
 

@@ -1,5 +1,7 @@
 """Program spans of the step: the host and device time of the solver's
-set-up and LM loop, and the host's synchronising calls.
+set-up and LM loop, of the launches of kernels K1 (``fft_detect.k1``),
+K2 (``gcc_pair.k2``) and the LM (``solve.lm.kernel``), and the host's
+synchronising calls.
 
 Recording is on for a step exactly when its caller passes an ``on_stage``
 hook to an entry of the step (a method wrapped by :func:`entry`:
