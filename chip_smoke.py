@@ -321,7 +321,22 @@ per source, in parallel, sm_90a), then:
     (``testing.lm_emulate``), against ``solver.lm_loop`` on the card (the
     99th percentile of the gap between the fixes each solve keeps, at
     narrowband the start ``solver.best_start`` picks, within 0.1 m: the
-    two sum in another order), and both times (CUDA events).
+    two sum in another order), and both times (CUDA events);
+41. the narrowband pair stage's kernels (``ops/cuda/pair_fft.py``) at
+    its shape, 256 captures × 8 buoys × 131072 samples (nfft 135000 =
+    1080·125, 7168 pairs, max_lag 512), on delayed-noise captures in the
+    decoded planes' strided layout: K9's spectra against its plain
+    version and ``torch.fft.fft`` (1e-5 of a row's max |X|), the max
+    pass against its plain version, K10's windows against its plain
+    version, a whitened ``torch.fft.ifft`` and the four-step (1e-4 of a
+    pair's window max, the same argmax, lags within 4.6e-5 samples, PSR
+    within 1e-3), lags at the planted delays; each kernel's time beside
+    its bound, the plain version's and the library's (``torch.fft``, the
+    yardstick the port never calls); then one dispatch of [2, 128, 8,
+    131072] through ``step_split`` on both routes of the pair stage (K9 →
+    K10 and the four-step forced): launches, lags, PSR, fixes and both
+    stage splits. Phases 13 and 22 (nfft 135000 and 17280) count K9, the
+    max pass and K10 once a block.
 
 Every phase that solves on the card counts the LM kernel's launches
 (``lm_solve_kernel``, one a solve with no ``psum``) beside the others':
@@ -527,6 +542,27 @@ def _fft_pair_flops(pairs, n1, n2, rows_w):
     return pairs * (5.0 * n * math.log2(n1) + 6.0 * n + 8.0 * rows_w * n)
 
 
+def _stockham_flops(n, radices):
+    """A Stockham plan (``csrc/mixed_fft.cuh``) on one sequence of n points:
+    each pass's R-point DFTs at the radix-2 count (5·n·log2 R FLOP) and,
+    after the first pass, its (R − 1)·n/R twiddles (6 FLOP each)."""
+    return sum(5.0 * n * math.log2(r) + (6.0 * n * (r - 1) / r if k else 0.0) for k, r in enumerate(radices))
+
+
+def _pair_fft_flops(rows, pairs, plan, width):
+    """``(K9, K10)``'s algorithm on ``rows`` rows and ``pairs`` pairs of a
+    ``pair_fft.PLANS`` plan: K9's N1 column DFTs of N2 points, the twiddle
+    (6 FLOP a bin) and N2 DFTs of N1 points; K10's R (6 FLOP a bin), its
+    whitening (|R|, the sum and two divides, 7), N2 inverse DFTs of N1
+    points and, for each column and lag, the twiddle from two tables and
+    the multiply-add (14)."""
+    n = plan.n1 * plan.n2
+    k9 = rows * (plan.n1 * _stockham_flops(plan.n2, plan.radix2) + 6.0 * n
+                 + plan.n2 * _stockham_flops(plan.n1, plan.radix1))
+    k10 = pairs * (13.0 * n + plan.n2 * _stockham_flops(plan.n1, plan.radix1) + 14.0 * width * plan.n2)
+    return k9, k10
+
+
 PAIR_KERNELS = {"K2": ("gcc_pair_tile_kernel<{n1}, 0>", 2), "K5": ("gcc_pair_tile_kernel<{n1}, 1>", None),
                 "K6": ("gcc_rows_kernel<{n1}>", 1)}  # the pair body's kernels: name, pairs a tile (None: TILE_PAIRS)
 
@@ -594,6 +630,8 @@ def _partials_errors(torch, out, ref, fr, fi):
 
 
 LM = "lm_solve_kernel"  # the LM's launches: one a solve on the card with no psum
+K9, KMAX, K10 = "pair_fft_spectra", "pair_fft_max", "pair_fft_window"  # the pair stage at nfft 135000 and 17280
+PAIR_FFT = (K9, KMAX, K10)  # one launch each a chunk of the pair stage
 
 
 def _same_bits(np, got, want):
@@ -658,11 +696,175 @@ def _lm_phase(np, torch, dev, zero_counts, launch_counts, tag):
     return rows
 
 
+def _pair_fft_phase(np, torch, dev, zero_counts, launch_counts, tag, chans=256):
+    """Phase 41: K9, the max pass and K10 at narrowband's shape (256
+    captures × 8 buoys × 131072 samples, nfft 135000 = 1080·125, 7168
+    pairs, max_lag 512) on delayed-noise captures in the decoded planes'
+    strided layout: each against its plain version on the card and the
+    library's ``torch.fft.fft``/``ifft`` (the yardstick, which the port
+    never calls), the windows also against the four-step; lags against
+    the planted delays; each kernel's time beside its bound, the plain
+    version's and the library's. Then one narrowband dispatch through
+    ``step_split`` on both routes of the pair stage (K9 → K10, and the
+    four-step forced): launches, stage split, lags, PSR and fixes. Returns
+    the kernel-table rows."""
+    from radio_mapper_tpu_torch import testing
+    from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
+    from radio_mapper_tpu_torch.ops import gcc_phat, split_complex
+    from radio_mapper_tpu_torch.ops.cuda import pair_fft
+
+    nfft, b, length, lag, eps = 135_000, 8, 131_072, 512, 0.05
+    plan = pair_fft.PLANS[nfft]
+    rows, npairs, width = chans * b, b * (b - 1) // 2, 2 * lag + 1
+    re, im, delays = testing.delayed_noise(chans, b, length, 200, seed=41, device=dev)
+    fre, fim = re.reshape(rows, length), im.reshape(rows, length)
+    zero_counts()
+    spec = pair_fft.receiver_spectra(fre, fim, nfft)
+    pmax = pair_fft.pair_max(spec, b)
+    mags = pair_fft.lag_mags(spec, b, max_lag=lag, eps=eps)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launch_counts().items() if v}
+    _require(got == {K9: 1, KMAX: 2, K10: 1}, f"phase 41 launches {got}")  # lag_mags runs its own max pass
+
+    # K9 against its plain version and torch.fft.fft, in natural order; rel: to the row's max |X|
+    def rel(a, ref):
+        return ((a - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+
+    nat = torch.complex(*pair_fft.natural(spec))
+    lib = torch.fft.fft(torch.complex(fre, fim), n=nfft)
+    k9_lib = rel(nat, lib)
+    plain = pair_fft.receiver_spectra_plain(fre, fim, nfft)
+    k9_plain = rel(torch.complex(*pair_fft.natural(plain)), lib)
+    k9_vs_plain = ((spec - plain).abs().amax((1, 2, 3)) / plain.abs().amax((1, 2, 3))).max().item()
+    del plain, nat
+    max_rel = ((pmax - pair_fft.pair_max_plain(spec, b)).abs() / pmax).max().item()
+
+    # K10 against its plain version, a torch.fft window and the four-step, per chunk of channels
+    ii, jj = (torch.as_tensor(a, device=dev) for a in np.triu_indices(b, k=1))
+    step = 32
+
+    def lib_window(c0, c1):
+        x = lib.reshape(chans, b, nfft)[c0:c1]
+        r = x[:, ii] * x[:, jj].conj()
+        a = r.abs()
+        r = torch.fft.ifft(r / (a + eps * a.amax(-1, keepdim=True) + 1e-30))
+        return torch.cat([r[..., nfft - lag:], r[..., : lag + 1]], -1).abs()
+
+    def plain_window(c0, c1):
+        part = spec[c0 * b:c1 * b]
+        return pair_fft.lag_mags_plain(part, pair_fft.pair_max_plain(part, b), b, max_lag=lag, eps=eps)
+
+    def four_step_window(c0, c1):
+        fr, fi, _ = split_complex.receiver_spectra_split(re[c0:c1], im[c0:c1], max_lag=lag)
+        return gcc_phat.pair_lag_mags(fr, fi, ii, jj, max_lag=lag, eps=eps)
+
+    refs = {name: torch.cat([f(c, min(c + step, chans)) for c in range(0, chans, step)])
+            for name, f in (("plain", plain_window), ("torch.fft", lib_window), ("four-step", four_step_window))}
+    peaks = lambda m: gcc_phat.peaks_from_lag_mags(m, sample_rate_hz=1.0, max_lag=lag)
+    ours = peaks(mags)
+    truth = (delays[:, jj] - delays[:, ii]).to(torch.float32)
+    truth_gap = (ours.lag_samples - truth).abs().max().item()
+    cmp = {}
+    for name, ref in refs.items():
+        pr = peaks(ref)
+        cmp[name] = {
+            "window_rel": ((mags - ref).abs().amax(-1) / ref.amax(-1)).max().item(),
+            "argmax_equal": bool((mags.argmax(-1) == ref.argmax(-1)).all()),
+            "lag_gap": (ours.lag_samples - pr.lag_samples).abs().max().item(),
+            "psr_rel": ((ours.psr - pr.psr).abs() / pr.psr).max().item(),
+        }
+    del refs
+    print(
+        f"phase 41: K9 [{rows}, {length}] -> [{rows}, {plan.n2}, {plan.n1}] (nfft {nfft} = {plan.n1}x{plan.n2}): "
+        f"spectra vs torch.fft.fft rel {k9_lib:.3e} (the plain version's {k9_plain:.3e}), vs plain {k9_vs_plain:.3e} "
+        f"(tol 1e-5); max pass vs plain rel {max_rel:.3e}; K10 [{chans}, {npairs}, {width}]: "
+        + "; ".join(f"vs {k} window rel {v['window_rel']:.3e}, argmax equal {v['argmax_equal']}, lags "
+                    f"{v['lag_gap']:.3e} samples, PSR rel {v['psr_rel']:.3e}" for k, v in cmp.items())
+        + f"; lags vs the planted delays max {truth_gap:.3e} {tag}"
+    )
+    _require(k9_lib <= 1e-5 and k9_vs_plain <= 1e-5, f"K9 spectra: {k9_lib}, {k9_vs_plain}")
+    _require(max_rel <= 1e-6, f"the max pass: {max_rel}")
+    _require(truth_gap < 0.5, f"K10's lags miss the planted delays by {truth_gap}")
+    for name, v in cmp.items():
+        _require(v["window_rel"] <= 1e-4 and v["argmax_equal"] and v["lag_gap"] <= 4.6e-5 and v["psr_rel"] <= 1e-3,
+                 f"K10 against {name}: {v}")
+
+    # times, beside the bound, the plain version and the library
+    k9_ms = _cuda_ms(torch, lambda: pair_fft.receiver_spectra(fre, fim, nfft))
+    max_ms = _cuda_ms(torch, lambda: pair_fft.pair_max(spec, b))
+    k10_ms = _cuda_ms(torch, lambda: pair_fft.lag_mags(spec, b, max_lag=lag, eps=eps)) - max_ms
+    k9_plain_ms = _cuda_ms(torch, lambda: pair_fft.receiver_spectra_plain(fre, fim, nfft), reps=2)
+    k10_plain_ms = _cuda_ms(torch, lambda: [plain_window(c, c + step) for c in range(0, chans, step)], reps=1)
+    k9_lib_ms = _cuda_ms(torch, lambda: torch.fft.fft(torch.complex(fre, fim), n=nfft))
+    k10_lib_ms = _cuda_ms(torch, lambda: [lib_window(c, c + step) for c in range(0, chans, step)], reps=2)
+    pairs = chans * npairs
+    k9_bound = _bound(_fft_flops(rows, nfft), rows * length * 8 + rows * nfft * 8)
+    max_bound = _bound(9.0 * pairs * nfft, rows * nfft * 8)
+    k10_bound = _bound(_pair_flops(pairs, nfft, width), rows * nfft * 8 + pairs * width * 4)
+    print(
+        f"phase 41: K9 {k9_ms:.3f} ms (bound {k9_bound[0]:.3f} by {k9_bound[1]}; plain {k9_plain_ms:.3f}; "
+        f"torch.fft.fft {k9_lib_ms:.3f}), max pass {max_ms:.3f} ms (bound {max_bound[0]:.3f} by {max_bound[1]}), "
+        f"K10 {k10_ms:.3f} ms (bound {k10_bound[0]:.3f} by {k10_bound[1]}; plain {k10_plain_ms:.3f}; whitening + "
+        f"torch.fft.ifft {k10_lib_ms:.3f}): the stage {k9_ms + max_ms + k10_ms:.3f} ms a dispatch of "
+        f"{chans} captures {tag}"
+    )
+    del spec, mags, lib
+    torch.cuda.empty_cache()
+
+    # one narrowband dispatch on both routes of the pair stage
+    cfg = PipelineConfig(num_buoys=b, block_len=16_384, sample_rate_hz=2.4e6, max_lag=lag, solver_starts=4,
+                         correlation_dwells=8, power_offset_db=40.0)
+    pipe = TDOAPipeline(cfg, device=dev)
+    anchors = torch.from_numpy(_ring(np, b, 12_000.0)).to(dev)
+    x = (re.reshape(2, chans // 2, b, length), im.reshape(2, chans // 2, b, length), anchors)
+    names = ["psd", "detect", "spectra", "pair_corr", "lag_peaks", "solve"]
+    runs = {}
+    route = pair_fft.route
+    try:
+        for name in ("K9 -> K10", "four-step"):
+            if name == "four-step":
+                pair_fft.route = lambda *a, **k: "four-step"
+            pipe.step_split(*x)
+            torch.cuda.synchronize()
+            zero_counts()
+            out = pipe.step_split(*x)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in launch_counts().items() if v}
+            runs[name] = (out, counts, _stage_split(torch, lambda mark: pipe.step_split(*x, on_stage=mark), names))
+    finally:
+        pair_fft.route = route
+    (a, ca, sa), (bb, cb, sb) = runs["K9 -> K10"], runs["four-step"]
+    lag_gap = (a.correlation.lag_samples - bb.correlation.lag_samples).abs().max().item()
+    psr_rel = ((a.correlation.psr - bb.correlation.psr).abs() / bb.correlation.psr).max().item()
+    fix_gap = (a.fix.position_enu - bb.fix.position_enu).norm(dim=-1).max().item()
+    fmt = lambda st: ", ".join(f"{k} {v:.3f}" for k, v in st.items())
+    print(
+        f"phase 41: narrowband dispatch [2, {chans // 2}, {b}, {length}], launches {ca} (four-step forced: {cb}); lags "
+        f"{lag_gap:.3e} samples, PSR rel {psr_rel:.3e}, fixes {fix_gap:.3e} m apart; stage split ms/dispatch "
+        f"(median of 3): K9 -> K10: {fmt(sa)} | four-step: {fmt(sb)} {tag}"
+    )
+    _require(ca == {"fft_rows": 1, LM: 1, K9: 1, KMAX: 1, K10: 1}, f"narrowband dispatch launches {ca}")
+    _require(cb == {"fft_rows": 1, LM: 1}, f"the four-step route's launches {cb}")
+    _require(lag_gap <= 4.6e-5 and psr_rel <= 1e-3, "the two routes of the pair stage disagree")
+    del re, im, x, runs, a, bb
+    torch.cuda.empty_cache()
+    row = lambda shape, err, ms, plain_ms, bound, lib_ms, fl: {
+        "shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+        "bound_by": bound[1], "library_ms": lib_ms, "algorithm_flops": fl}
+    k9_flops, k10_flops = _pair_fft_flops(rows, pairs, plan, width)
+    return {
+        K9: row([rows, nfft], k9_lib, k9_ms, k9_plain_ms, k9_bound, k9_lib_ms, k9_flops),
+        KMAX: row([chans, npairs, nfft], max_rel, max_ms, None, max_bound, None, 9.0 * pairs * nfft),
+        K10: row([chans, npairs, width], cmp["torch.fft"]["window_rel"], k10_ms, k10_plain_ms, k10_bound,
+                 k10_lib_ms, k10_flops),
+    }
+
+
 def _kernel_counters():
     """Every kernel's launch counter, by the name of its wrapper:
     ``{name: (module, attribute)}``."""
     from radio_mapper_tpu_torch.ops.cuda import (
-        channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair, lm_solve,
+        channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair, lm_solve, pair_fft,
     )
 
     return {
@@ -675,6 +877,9 @@ def _kernel_counters():
         "gcc_rows_lag_mags": (gcc_pair, "rows_launch_count"),
         "fft_rows": (fft_natural, "launch_count"),
         "channel_step_partials": (channel_step, "launch_count"),
+        K9: (pair_fft, "launch_count"),
+        KMAX: (pair_fft, "max_launch_count"),
+        K10: (pair_fft, "window_launch_count"),
     }
 
 
@@ -2258,7 +2463,8 @@ def _bench_phase(np, torch, dev, tag, counters):
         num_channels=128, iters=2, path="complex", device=dev))
     print(f"phase 38: bench flagship leg, {path}, 128 ch: {rate:.4e} IQ samples/s, {1e3 * block_s:.3f} ms/block; "
           f"launches {n} over 4 blocks; {wall:.1f} s {tag}")
-    _require(positive(rate, block_s) and n == {k7: 4, LM: 4}, f"bench flagship complex: {rate}, {n}")
+    _require(positive(rate, block_s) and n == {k7: 4, LM: 4, **{k: 4 for k in PAIR_FFT}},
+             f"bench flagship complex: {rate}, {n}")
 
     # the FFT leg: 2 warm-up + 2 calls; K7 held at its shape on the leg's draws
     rate, n, wall = leg("fft", lambda: bench.run_fft_microbench(iters=2, epochs=1, device=dev))
@@ -2881,15 +3087,16 @@ def main() -> int:
     _require(tuple(nout.fix.position_enu.shape) == (nblocks, chans, 3), "narrowband scan output shape")
     _require(finite, "non-finite narrowband outputs at full width")
     _require(peak_gib < 40.0, f"narrowband peak device memory {peak_gib:.2f} GiB")
-    _require(k7_launches == nblocks and nb_other == {LM: nblocks}, f"K7 launches {k7_launches}, others {nb_other}")
+    _require(k7_launches == nblocks and nb_other == {LM: nblocks, **{k: nblocks for k in PAIR_FFT}},
+             f"K7 launches {k7_launches}, others {nb_other}")
     med = _stage_split(
         torch, lambda mark: npipe.step_split_uint8(raw, nanchors, on_stage=mark),
         ["decode", "psd", "detect", "spectra", "pair_corr", "lag_peaks", "solve"],
     )
     print(
-        "phase 13: stage split ms/block (median of 3, CUDA events; pair stage in chunks of "
-        f"channels): decode {med['decode']:.3f}, K7 psd {med['psd']:.3f}, detect {med['detect']:.3f}, "
-        f"spectra (matmul four-step) {med['spectra']:.3f}, pair corr {med['pair_corr']:.3f}, "
+        "phase 13: stage split ms/block (median of 3, CUDA events; the pair stage in one chunk): "
+        f"decode {med['decode']:.3f}, K7 psd {med['psd']:.3f}, detect {med['detect']:.3f}, "
+        f"spectra (K9) {med['spectra']:.3f}, pair corr (max pass, K10) {med['pair_corr']:.3f}, "
         f"lag peaks {med['lag_peaks']:.3f}, weights+solve (4 starts) {med['solve']:.3f}, "
         f"sum {sum(med.values()):.3f} {tag}"
     )
@@ -3902,14 +4109,15 @@ def main() -> int:
     )
     _require(all(tuple(o.fix.position_enu.shape) == (chans, 3) for o in couts) and cfinite,
              "complex step outputs at full width")
-    _require(c22 == {"fft_rows": cblocks, LM: cblocks}, f"complex step launches {c22}")
+    _require(c22 == {"fft_rows": cblocks, LM: cblocks, **{k: cblocks for k in PAIR_FFT}},
+             f"complex step launches {c22}")
     med = _stage_split(
         torch, lambda mark: pipe.step_uint8(craw[0], canchors, on_stage=mark),
         ["decode", "psd", "detect", "spectra", "pair_corr", "lag_peaks", "solve"],
     )
     print(
         "phase 22: complex step stage split ms/block (median of 3, CUDA events): decode "
-        f"{med['decode']:.3f}, psd (K7) {med['psd']:.3f}, detect {med['detect']:.3f}, spectra (matmul four-step) "
+        f"{med['decode']:.3f}, psd (K7) {med['psd']:.3f}, detect {med['detect']:.3f}, spectra (K9 at 17280) "
         f"{med['spectra']:.3f}, pair corr {med['pair_corr']:.3f}, lag peaks {med['lag_peaks']:.3f}, solve "
         f"{med['solve']:.3f}, sum {sum(med.values()):.3f} {tag}"
     )
@@ -4131,6 +4339,9 @@ def main() -> int:
     # ---- phase 40: the LM solve's kernel at the main path's shapes
     lm_rows = _lm_phase(np, torch, dev, zero_counts, launch_counts, tag)
 
+    # ---- phase 41: the narrowband pair stage's kernels (K9, the max pass, K10)
+    pair_rows = _pair_fft_phase(np, torch, dev, zero_counts, launch_counts, tag)
+
     def rows_entry(shape, err, ms, plain_ms, bound, library_ms):
         return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
                 "bound_by": bound[1], "library_ms": library_ms}
@@ -4264,6 +4475,9 @@ def main() -> int:
          "replaces": "radio_mapper_tpu/solver.py solve_tdoa_impl (an XLA fori_loop; no Pallas kernel)",
          "launches": launches.get(LM, 0), **lm_rows["flagship"], "narrowband": lm_rows["narrowband"],
          "parallel": parallel(LM)},
+        *({"name": k, "route": "cuda", "source": "radio_mapper_tpu_torch/csrc/pair_fft.cu",
+           "replaces": "none: the reference's XLA dots (radio_mapper_tpu/ops/fft.py _fft_re_im)",
+           "launches": launches.get(k, 0), **r} for k, r in pair_rows.items()),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card.name, "count": card.count}}))
     return 0

@@ -40,10 +40,13 @@ stage) → the same tail.
 Narrowband multi-dwell (``correlation_dwells = K > 1``, inputs
 ``[..., B, K·N]``): the dwell-averaged PSD on the N-point grid (kernel K7
 at N = 16384, 32768, 65536 on the card, :mod:`.ops.fft`) → natural-order
-``detect_peaks`` → one coherent all-pairs GCC over the K·N capture
-(:mod:`.ops.split_complex`, matmul four-step at the 5-smooth nfft, in
-chunks of channels) → the same tail; ``solver_starts > 1`` solves from
-several starts on either route.
+``detect_peaks`` → one coherent all-pairs GCC over the K·N capture at the
+5-smooth nfft, in chunks of channels: on the card at the lengths
+:func:`.ops.cuda.pair_fft.route` covers (nfft 135000, K = 8 dwells of
+16384), kernel K9 (the receivers' spectra) → its max pass → K10 (whitening
+and the inverse at the window's lags only); elsewhere the matmul four-step
+(:mod:`.ops.split_complex`) → the same tail; ``solver_starts > 1`` solves
+from several starts on either route.
 
 All leading dims are batch dims (``[channels, B, N]``). PyTorch runs
 eagerly, so the "step" is a plain call; the K-block scan is a loop over
@@ -67,7 +70,7 @@ from radio_mapper_tpu_torch.ops import gcc_phat as gcc_ops
 from radio_mapper_tpu_torch.ops import iq as iq_ops
 from radio_mapper_tpu_torch.ops import spectral
 from radio_mapper_tpu_torch.ops import split_complex as sc_ops
-from radio_mapper_tpu_torch.ops.cuda import channel_step, detect_ct
+from radio_mapper_tpu_torch.ops.cuda import channel_step, detect_ct, pair_fft
 from radio_mapper_tpu_torch.utils import spans
 
 # The natural-order pair stage (the complex step's and the multi-dwell
@@ -78,6 +81,10 @@ from radio_mapper_tpu_torch.utils import spans
 # at a few GiB. Channels are independent: the chunking changes no value
 # beyond the rounding of a product's blocking.
 PAIR_PLANE_BYTES = 512 << 20
+# On the K9 → K10 route a chunk holds only its receivers' spectra (8 bytes
+# a bin, in place), so it is cut by those: a narrowband dispatch of two
+# captures × 128 channels × 8 buoys (2.2 GB at nfft 135000) is one chunk.
+PAIR_SPECTRA_BYTES = 4 << 30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -207,24 +214,38 @@ class TDOAPipeline:
 
     def _pair_stage(self, re: torch.Tensor, im: torch.Tensor, mark) -> gcc_ops.CorrelationPeak:
         """All-pairs GCC of ``(re, im) [..., B, L]`` at ``friendly_fft_len(L
-        + max_lag)``, in chunks of the flattened leading dims whose float32
-        ``[P, nfft]`` planes stay under ``PAIR_PLANE_BYTES``; each chunk
-        marks "spectra", "pair_corr" and "lag_peaks"."""
+        + max_lag)``, in chunks of the flattened leading dims: K9 → max pass
+        → K10 where :func:`pair_fft.route` says so (chunks of
+        ``PAIR_SPECTRA_BYTES`` of spectra), else the matmul four-step
+        (float32 ``[P, nfft]`` planes under ``PAIR_PLANE_BYTES``); each
+        chunk marks "spectra", "pair_corr" and "lag_peaks"."""
         c = self.config
         batch = re.shape[:-2]
         length = re.shape[-1]
         flat = lambda a: a.reshape(-1, c.num_buoys, length)
         nfft = fft_ops.friendly_fft_len(length + c.max_lag)
-        chunk = max(1, PAIR_PLANE_BYTES // (4 * c.num_pairs * nfft))
+        kernels = pair_fft.route(
+            nfft, re.device, c.weighting, max_lag=c.max_lag, num_receivers=c.num_buoys
+        ) == "kernels"
+        if kernels:
+            chunk = max(1, PAIR_SPECTRA_BYTES // (8 * c.num_buoys * nfft))
+        else:
+            chunk = max(1, PAIR_PLANE_BYTES // (4 * c.num_pairs * nfft))
         parts = []
         for cre, cim in zip(flat(re).split(chunk), flat(im).split(chunk)):
-            fr, fi, _ = sc_ops.receiver_spectra_split(cre, cim, max_lag=c.max_lag)
-            mark("spectra")
-            mags = gcc_ops.pair_lag_mags(
-                fr, fi, self.pair_i, self.pair_j,
-                max_lag=c.max_lag, weighting=c.weighting, eps=c.gcc_eps,
-            )
-            del fr, fi
+            if kernels:
+                spec = pair_fft.receiver_spectra(cre.reshape(-1, length), cim.reshape(-1, length), nfft)
+                mark("spectra")
+                mags = pair_fft.lag_mags(spec, c.num_buoys, max_lag=c.max_lag, eps=c.gcc_eps)
+                del spec
+            else:
+                fr, fi, _ = sc_ops.receiver_spectra_split(cre, cim, max_lag=c.max_lag)
+                mark("spectra")
+                mags = gcc_ops.pair_lag_mags(
+                    fr, fi, self.pair_i, self.pair_j,
+                    max_lag=c.max_lag, weighting=c.weighting, eps=c.gcc_eps,
+                )
+                del fr, fi
             mark("pair_corr")
             parts.append(gcc_ops.peaks_from_lag_mags(
                 mags, sample_rate_hz=c.sample_rate_hz, max_lag=c.max_lag

@@ -1,6 +1,7 @@
 """What the port's tests and ``chip_smoke.py`` share with the package: a
 cap on CPU threads, the comparison of two top-K blocks, seeded LM
-problems, and the LM kernel's arithmetic in numpy float32.
+problems, the LM kernel's arithmetic in numpy float32, and delayed noise
+captures for the pair stage.
 
 The test suite runs in several worker processes at once, beside tests of
 live services with deadlines. PyTorch's CPU operators would otherwise
@@ -173,3 +174,23 @@ def lm_emulate(anchors, pair_i, pair_j, dd, w, wsum, x0, *, iterations: int, sol
             lam = np.where(lam < f(1e-8), f(1e-8), np.where(lam > f(1e8), f(1e8), lam))
             cost = np.where(np.isnan(cost) | np.isnan(cn), f(np.nan), np.where(cn < cost, cn, cost))
     return x, cost
+
+
+def delayed_noise(chans: int, receivers: int, length: int, max_delay: int, *, seed: int,
+                  device="cpu", noise: float = 1.0):
+    """Captures with one correlation peak a pair: each channel's receivers
+    hear one complex white source, receiver b advanced by an integer
+    ``d[c, b]`` in [−max_delay, max_delay] samples, plus their own white
+    noise of ``noise`` times the source's power. Returns ``(re, im, d)``:
+    float32 ``[chans, receivers, length]`` strided views of one interleaved
+    buffer, as ``ops.iq.decode_uint8_split`` returns them, and ``d``; pair
+    (i, j)'s lag (x = i) is d[j] − d[i]. Drawn by a ``torch.Generator`` on
+    ``device`` from ``seed``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    src = torch.randn((chans, length + 2 * max_delay, 2), generator=g, device=device)
+    d = torch.randint(-max_delay, max_delay + 1, (chans, receivers), generator=g, device=device)
+    at = max_delay + d[..., None] + torch.arange(length, device=device)
+    x = src[torch.arange(chans, device=device)[:, None, None], at]
+    x += noise ** 0.5 * torch.randn(x.shape, generator=g, device=device)
+    return x[..., 0], x[..., 1], d
+

@@ -64,6 +64,16 @@ as its plain version is against JAX:
   the CPU running the same algorithm (the fused chain forced on): lags
   within 1e-3 samples and fixes within 0.5 m where the peaks stand clear;
   ``dryrun_multichip(2)`` on the card;
+- the narrowband pair stage (``-k pair_fft``): K9's spectra within 1e-5
+  of each row's max |X| of ``torch.fft.fft`` and of the plain version,
+  the max pass within 1e-6, K10's windows within 1e-4 of each pair's
+  window max (K2's budget) of its plain version, of a whitened
+  ``torch.fft.ifft`` and of the four-step, the same argmax, lags within
+  4.6e-5 samples (the bf16 PHAT forward's budget in ROADMAP's Facts:
+  FP32 throughout does no worse) and PSR within 1e-3, at 135000 and
+  17280; the narrowband ``step_split_uint8`` and the complex ``step``
+  at those lengths running K9, the max pass and K10 once a call, card
+  vs CPU as the other pipeline tests;
 - the LM solve's one launch (``-k lm_kernel``): equal bit for bit to its
   numpy float32 emulation (``testing.lm_emulate``) at small shapes, and
   against the eager loop on the card, on the same set-up, no further from
@@ -82,7 +92,9 @@ from radio_mapper_tpu_torch import sim, solver
 from radio_mapper_tpu_torch.models.pipeline import PipelineConfig, TDOAPipeline
 from radio_mapper_tpu_torch.models.wideband import WidebandConfig, WidebandTDOAPipeline
 from radio_mapper_tpu_torch.ops import ct_plan, gcc_phat
-from radio_mapper_tpu_torch.ops.cuda import channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair, lm_solve
+from radio_mapper_tpu_torch.ops.cuda import (
+    channel_step, detect_ct, fft_detect, fft_natural, fft_rows, gcc_pair, lm_solve, pair_fft,
+)
 from radio_mapper_tpu_torch import testing
 from radio_mapper_tpu_torch.testing import cap_cpu_threads
 
@@ -1668,3 +1680,117 @@ def test_lm_kernel_solve_blocks_nothing_and_records_its_span(cuda_device):
     assert names == ["step", "solve.prep", "solve.lm", "solve.lm.kernel"]
     assert rec.spans[3].parent == 2 and rec.syncs("step") == 0
     assert rec.device_ms("solve.lm.kernel") > 0
+
+
+# --- K9, the max pass and K10: the narrowband pair stage (``-k pair_fft``) ---
+
+
+def _pair_counts():
+    return pair_fft.launch_count, pair_fft.max_launch_count, pair_fft.window_launch_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nfft,chans,b,length", [(135_000, 16, 8, 131_072), (17_280, 64, 4, 16_384)])
+def test_pair_fft_kernels_match_plain_library_and_four_step(cuda_device, nfft, chans, b, length):
+    """K9 → max pass → K10 on delayed-noise captures in the decoded
+    planes' strided layout, against the plain versions, ``torch.fft`` and
+    the matmul four-step (budgets in the module docstring); lags within
+    half a sample of the planted delays."""
+    from radio_mapper_tpu_torch.ops import split_complex
+
+    lag, eps = 512, 0.05
+    re, im, d = testing.delayed_noise(chans, b, length, 200, seed=5, device=cuda_device)
+    fre, fim = re.reshape(-1, length), im.reshape(-1, length)
+    before = _pair_counts()
+    spec = pair_fft.receiver_spectra(fre, fim, nfft)
+    mags = pair_fft.lag_mags(spec, b, max_lag=lag, eps=eps)
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(_pair_counts(), before)) == (1, 1, 1)
+
+    lib = torch.fft.fft(torch.complex(fre, fim), n=nfft)
+    rel = lambda a, ref: ((a - ref).abs().amax(-1) / ref.abs().amax(-1)).max().item()
+    assert rel(torch.complex(*pair_fft.natural(spec)), lib) <= 1e-5
+    plain = pair_fft.receiver_spectra_plain(fre, fim, nfft)
+    assert rel(spec.flatten(1), plain.flatten(1)) <= 1e-5
+    pmax = pair_fft.pair_max(spec, b)
+    torch.testing.assert_close(pmax, pair_fft.pair_max_plain(spec, b), rtol=1e-6, atol=0)
+
+    ii, jj = (torch.as_tensor(a, device=cuda_device) for a in np.triu_indices(b, k=1))
+    x = lib.reshape(chans, b, nfft)
+    r = x[:, ii] * x[:, jj].conj()
+    r = torch.fft.ifft(r / (r.abs() + eps * r.abs().amax(-1, keepdim=True) + 1e-30))
+    fr, fi, _ = split_complex.receiver_spectra_split(re, im, max_lag=lag)
+    refs = {
+        "plain": pair_fft.lag_mags_plain(spec, pmax, b, max_lag=lag, eps=eps),
+        "torch.fft": torch.cat([r[..., nfft - lag:], r[..., : lag + 1]], -1).abs(),
+        "four-step": gcc_phat.pair_lag_mags(fr, fi, ii, jj, max_lag=lag, eps=eps),
+    }
+    peaks = lambda m: gcc_phat.peaks_from_lag_mags(m, sample_rate_hz=1.0, max_lag=lag)
+    ours = peaks(mags)
+    for name, ref in refs.items():
+        pr = peaks(ref)
+        assert ((mags - ref).abs().amax(-1) / ref.amax(-1)).max().item() <= 1e-4, name
+        assert torch.equal(mags.argmax(-1), ref.argmax(-1)), name
+        assert (ours.lag_samples - pr.lag_samples).abs().max().item() <= 4.6e-5, name
+        assert ((ours.psr - pr.psr).abs() / pr.psr).max().item() <= 1e-3, name
+    truth = (d[:, jj] - d[:, ii]).to(torch.float32)
+    assert (ours.lag_samples - truth).abs().max().item() < 0.5
+
+
+@pytest.mark.cuda
+def test_narrowband_uint8_step_runs_the_pair_kernels_once(cuda_device):
+    """The ELT scene at 8 dwells × 16384, max_lag 512 (nfft 135000), as
+    uint8 bytes through ``step_split_uint8``: K7, K9, the max pass, K10
+    and the LM once each for the call's one chunk of the pair stage; on
+    the card as on the CPU (the four-step): detections equal, lags within
+    1e-2 samples, fixes within 1 m (``test_multidwell_on_card_matches_cpu``'s
+    budgets for this scene)."""
+    import dataclasses
+
+    from radio_mapper_tpu_torch.ops import fft as fft_ops
+
+    cap, cfg = elt_scene(8, 16384)
+    cfg = dataclasses.replace(cfg, max_lag=512)
+    assert fft_ops.friendly_fft_len(8 * 16384 + 512) == 135_000
+    scaled = cap.iq * (32.0 / np.sqrt(np.mean(np.abs(cap.iq) ** 2)))
+    raw = np.empty((cap.iq.shape[0], 2 * cap.iq.shape[1]), dtype=np.uint8)
+    raw[:, 0::2] = np.clip(np.round(scaled.real + 127.5), 0, 255)
+    raw[:, 1::2] = np.clip(np.round(scaled.imag + 127.5), 0, 255)
+    host = torch.from_numpy(raw), torch.from_numpy(cap.buoy_enu.astype(np.float32))
+    cpu = TDOAPipeline(cfg, device="cpu").step_split_uint8(*host)
+    before = _pair_counts(), fft_natural.launch_count, lm_solve.launch_count
+    gpu = TDOAPipeline(cfg, device=cuda_device).step_split_uint8(*(a.to(cuda_device) for a in host))
+    torch.cuda.synchronize()
+    after = _pair_counts(), fft_natural.launch_count, lm_solve.launch_count
+    assert tuple(a - c for a, c in zip(after[0], before[0])) == (1, 1, 1)
+    assert (after[1] - before[1], after[2] - before[2]) == (1, 1)
+    np.testing.assert_array_equal(gpu.peaks.bin_index.cpu().numpy(), cpu.peaks.bin_index.numpy())
+    np.testing.assert_array_equal(gpu.peaks.valid.cpu().numpy(), cpu.peaks.valid.numpy())
+    np.testing.assert_allclose(
+        gpu.correlation.lag_samples.cpu().numpy(), cpu.correlation.lag_samples.numpy(), atol=1e-2
+    )
+    np.testing.assert_allclose(gpu.fix.position_enu.cpu().numpy(), cpu.fix.position_enu.numpy(), atol=1.0)
+
+
+@pytest.mark.cuda
+def test_complex_step_at_17280_runs_the_pair_kernels(cuda_device):
+    """The complex ``step`` on the noise scene at block_len 16384, max_lag
+    512 (pair nfft 17280 = 1080·16): K9, the max pass and K10 once each;
+    lags within 1e-3 samples and the fix within 0.5 m of the CPU's four-step
+    (the pipeline tests' card-vs-CPU budgets), within 50 m of the emitter."""
+    cap = sim.synthesize(sim.default_scenario(signal="noise", bandwidth_hz=150e3, snr_db=25.0, seed=8))
+    cfg = PipelineConfig(num_buoys=4, block_len=16384, sample_rate_hz=cap.scenario.sample_rate_hz, max_lag=512,
+                         power_offset_db=40.0)
+    host = torch.from_numpy(cap.iq.astype(np.complex64)), torch.from_numpy(cap.buoy_enu.astype(np.float32))
+    cpu = TDOAPipeline(cfg, device="cpu").step(*host)
+    before = _pair_counts()
+    gpu = TDOAPipeline(cfg, device=cuda_device).step(*(a.to(cuda_device) for a in host))
+    torch.cuda.synchronize()
+    assert tuple(a - c for a, c in zip(_pair_counts(), before)) == (1, 1, 1)
+    np.testing.assert_allclose(
+        gpu.correlation.lag_samples.cpu().numpy(), cpu.correlation.lag_samples.numpy(), atol=1e-3
+    )
+    pos = gpu.fix.position_enu.cpu().numpy()
+    np.testing.assert_allclose(pos, cpu.fix.position_enu.numpy(), atol=0.5)
+    assert np.linalg.norm(pos[:2] - cap.emitter_enu[0][:2]) < 50.0
+
